@@ -10,10 +10,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
   (b) build every kernel from ``paddle_tpu_torch/ops/cuda/csrc`` (one nvcc
       per source, in parallel) and report ptxas' register and spill counts;
   (c) every kernel's wrapper against its plain PyTorch version on the card,
-      in fp32 and bf16, at the shapes the serving path gives it, with the
-      device times (CUDA-graph replay) of the kernel, the plain version and
-      a library call that computes the same function (the port never calls
-      the latter), and the kernel wrapper's eager per-call time;
+      in fp32 and bf16, at the shapes the serving and training paths give
+      it, with the device times (CUDA-graph replay) of the kernel, the
+      plain version and a library call that computes the same function
+      (the port never calls the latter), and the kernel wrapper's eager
+      per-call time; the flash-attention forward and its split backward's
+      dq and dk/dv kernels at the training shape [8, 1024, 16, 64] causal,
+      a ragged [1, 1000, 16, 64], q 128 / kv 320 causal and
+      [2, 256, 4, 128] non-causal;
   (d) the main path: ``gpt_345m`` (full width, 24 layers) with
       ``use_pallas_norm``, weights drawn from a numpy seed, served by
       ``PagedServingEngine(slots=8, max_len=512, page_size=16)`` after
@@ -26,7 +30,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
   (f) only with ``--profile STEPS``: where the main path's decode step
       spends its time, from a ``torch.profiler`` trace of STEPS steady
       steps with every slot decoding (host and device ms per step, the
-      device's idle share, device time by kernel).
+      device's idle share, device time by kernel);
+  (g) the training main path: ``gpt_345m`` (full width and depth) with
+      ``use_pallas_norm``, flash attention and full remat, bf16 compute
+      over fp32 masters and fp32 AdamW moments, one warm-up step and 10
+      timed steps of ``gpt_hybrid.make_train_step`` on one numpy-seeded
+      [8, 1024] batch (labels = tokens).  Launch counts are zeroed just
+      before the timed steps and must equal their per-step formulas; the
+      loss must be finite and fall;
+  (h) fp32 parity of the train step, card (kernels) against CPU (plain
+      versions), at ``gpt_345m`` widths with 2 layers, B=2, N=256:
+      ``loss_and_grads`` and 3 steps of ``make_train_step``;
+  (i) only with ``--profile-train STEPS``: a ``torch.profiler`` trace of
+      STEPS training steps (device busy ms per step, idle share, device
+      time by kernel).
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -35,6 +52,7 @@ and convolution here, so fp32 comparisons are fp32.
 """
 import argparse
 import collections
+import copy
 import dataclasses
 import json
 import math
@@ -50,6 +68,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM published HBM3 rate
 FP32_FLOPS_PER_S = 67e12      # H100 SXM published fp32 (non-tensor) rate
 FP32_TOL = 1e-5
 PARITY_LOGIT_TOL = 1e-3       # fp32 engine vs teacher-forced forward
+BF16_FLOPS_PER_S = 989e12     # H100 SXM published dense bf16 tensor rate
+FLASH_GRAD_TOL = 2e-4         # fp32 flash gradients (JAX flash test's own)
+TRAIN_SHAPE = (8, 1024, 1024, 16, 64, True)   # B, N, Nk, nh, hd, causal
+TRAIN_LOSS_RTOL = 1e-5        # (h): card loss vs CPU loss
+TRAIN_GRAD_TOL = 1e-4         # (h): x max|leaf grad on the CPU|
 
 
 def log(*a):
@@ -252,6 +275,180 @@ def check_kernels(torch, paged_attn, norms):
     return out
 
 
+def flash_sets(torch, gen, dt, B, N, Nk, nh, hd, copies):
+    """``copies`` operand sets (q, k, v, dO).  For self-attention q/k/v are
+    strided views of one fused [B, N, 3, nh*hd] projection, as the model
+    passes them; for cross lengths they are separate tensors."""
+    sets = []
+    for _ in range(copies):
+        def rnd(*shape):
+            return torch.randn(shape, device="cuda", generator=gen).to(dt)
+        if N == Nk:
+            qkv = rnd(B, N, 3, nh * hd)
+            q, k, v = [qkv[:, :, i].reshape(B, N, nh, hd) for i in range(3)]
+        else:
+            q, k, v = rnd(B, N, nh, hd), rnd(B, Nk, nh, hd), rnd(B, Nk, nh, hd)
+        sets.append((q, k, v, rnd(B, N, nh, hd)))
+    return sets
+
+
+def attended_keys(B, N, Nk, nh, causal):
+    """V = sum over rows of the keys each row attends (bottom-right
+    causal: row i sees i + Nk - N + 1 keys)."""
+    per = N * (Nk - N + 1) + N * (N - 1) // 2 if causal else N * Nk
+    return B * nh * per
+
+
+def flash_bounds(q, k, causal):
+    """Least times (ms, bound_by) for the forward, the dq kernel, the dk/dv
+    kernel and the whole backward pass on these inputs.  Bytes: each input
+    read once, each output written once (lse and delta fp32 [B, nh, N]);
+    flops: 2*V*hd per product (forward 2 products; dq 3; dk/dv 4; a
+    backward pass needs 5) over the card's peak for the dtype."""
+    import torch
+    B, N, nh, hd = q.shape
+    Nk = k.shape[1]
+    V = attended_keys(B, N, Nk, nh, causal)
+    isz = q.element_size()
+    qb, kb, rows = B * N * nh * hd * isz, B * Nk * nh * hd * isz, B * nh * N * 4
+    rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    work = {"fwd": (4 * V * hd, 2 * qb + 2 * kb + rows),
+            "dq": (6 * V * hd, 3 * qb + 2 * kb + 2 * rows),
+            "dkv": (8 * V * hd, 2 * qb + 4 * kb + 2 * rows),
+            "bwd_pass": (10 * V * hd, 4 * qb + 4 * kb + 2 * rows)}
+    out = {}
+    for name, (flops, byts) in work.items():
+        t_f, t_b = flops / rate, byts / HBM_BYTES_PER_S
+        out[name] = (max(t_b, t_f) * 1e3,
+                     "bytes" if t_b >= t_f else "operations")
+    return out
+
+
+def library_attention(q, k, v, causal):
+    """``scaled_dot_product_attention`` on the [B, nh, N, hd] views: the
+    library yardstick for the flash forward (timed only).  Cross-length
+    causal gets an explicit bottom-right mask (``is_causal`` aligns top
+    left)."""
+    import torch
+    import torch.nn.functional as F
+    N, Nk = q.shape[1], k.shape[1]
+    mask = None
+    if causal and N != Nk:
+        mask = torch.ones((N, Nk), dtype=torch.bool,
+                          device=q.device).tril(Nk - N)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal and N == Nk)
+
+
+def library_attention_fwd_bwd(q, k, v, do, causal):
+    import torch
+    out = library_attention(q, k, v, causal)
+    return torch.autograd.grad(out, (q, k, v), do.transpose(1, 2))
+
+
+def check_flash(torch, flash_attn):
+    """Phase (c), flash attention: the forward wrapper and the two backward
+    kernels against ``_ref_flash_fwd`` / ``_ref_flash_bwd`` on the same
+    inputs (the backward's plain version gets the kernel's out and lse).
+    Returns {kernel: [case, ...]}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [],
+           "flash_attention_bwd_dkv": []}
+    shapes = [(TRAIN_SHAPE, "training"),
+              ((1, 1000, 1000, 16, 64, True), "ragged tail"),
+              ((1, 128, 320, 16, 64, True), "cross length"),
+              ((2, 256, 256, 4, 128, False), "hd 128 non-causal")]
+    for (B, N, Nk, nh, hd, causal), name in shapes:
+        big = B * N * Nk * nh >= 2 ** 26
+        plain_kw = dict(per_graph=4, replays=5) if big else {}
+        for dt in (torch.float32, torch.bfloat16):
+            f32 = dt == torch.float32
+            sets = flash_sets(torch, gen, dt, B, N, Nk, nh, hd, 2)
+            q, k, v, do = sets[0]
+            o, lse = flash_attn.flash_fwd(q, k, v, causal)
+            # (q, k, v, dO, lse, delta, causal), as the wrapper passes them
+            bwd_sets = []
+            for a, b, c, d in sets:
+                *qkvd, delta = flash_attn._bwd_operands(a, b, c, o, d)
+                bwd_sets.append((*qkvd, lse, delta, causal))
+            dq = flash_attn._launch_dq(*bwd_sets[0])
+            dk, dv = flash_attn._launch_dkv(*bwd_sets[0])
+            torch.cuda.synchronize()
+            ro, rl = flash_attn._ref_flash_fwd(q, k, v, causal)
+            rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
+                                                     causal)
+
+            def gtol(*refs):
+                if f32:
+                    return FLASH_GRAD_TOL
+                return 2.0 ** -5 * max(
+                    1.0, min(float(r.float().abs().max()) for r in refs))
+            label = (f"[{B}, {N}, {nh}, {hd}] kv {Nk} "
+                     f"{'causal' if causal else 'full'} ({name})")
+            bounds = flash_bounds(q, k, causal)
+            fwd_sets = [(a, b, c, causal) for a, b, c, _ in sets]
+            plain_bwd = [(a, b, c, o, lse, d, causal) for a, b, c, d in sets]
+            lib_sets = [(a.detach().requires_grad_(),
+                         b.detach().requires_grad_(),
+                         c.detach().requires_grad_(), d, causal)
+                        for a, b, c, d in sets]
+            lib_fwd = device_ms(library_attention, fwd_sets)
+            lib_bwd = max(device_ms(library_attention_fwd_bwd, lib_sets)
+                          - lib_fwd, 0.0)
+            plain_bwd_ms = device_ms(flash_attn._ref_flash_bwd, plain_bwd,
+                                     **plain_kw)
+            common = {"shape": label, "dtype": str(dt),
+                      "bwd_pass_bound_ms": bounds["bwd_pass"][0],
+                      "bwd_pass_bound_by": bounds["bwd_pass"][1]}
+            out["flash_attention_fwd"].append({
+                **common, "max_abs_err": max_err(o, ro),
+                "tol": FP32_TOL if f32 else 2.0 ** -6,
+                "lse_err": max_err(lse, rl), "lse_tol": FP32_TOL,
+                "ms": device_ms(flash_attn.flash_fwd, fwd_sets),
+                "call_ms": time_ms(flash_attn.flash_fwd, fwd_sets, 50),
+                "plain_ms": device_ms(flash_attn._ref_flash_fwd, fwd_sets,
+                                      **plain_kw),
+                "library_ms": lib_fwd,
+                "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]})
+            out["flash_attention_bwd_dq"].append({
+                **common, "max_abs_err": max_err(dq, rdq), "tol": gtol(rdq),
+                "ms": device_ms(flash_attn._launch_dq, bwd_sets),
+                "call_ms": time_ms(flash_attn._launch_dq, bwd_sets, 50),
+                "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
+                "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]})
+            out["flash_attention_bwd_dkv"].append({
+                **common, "max_abs_err": max(max_err(dk, rdk),
+                                             max_err(dv, rdv)),
+                "tol": gtol(rdk, rdv),
+                "ms": device_ms(flash_attn._launch_dkv, bwd_sets),
+                "call_ms": time_ms(flash_attn._launch_dkv, bwd_sets, 50),
+                "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
+                "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]})
+            del sets, lib_sets, fwd_sets, bwd_sets, plain_bwd
+            torch.cuda.empty_cache()
+    for k, cases in out.items():
+        for c in cases:
+            log(f"  {k:24s} {c['dtype']:15s} {c['shape']:46s} "
+                f"max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.1e})"
+                + (f" lse_err {c['lse_err']:.1e}" if "lse_err" in c else "")
+                + f"  device ms: kernel {c['ms']:.5f}  plain "
+                  f"{c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
+                  f"bound {c['bound_ms']:.6f} ({c['bound_by']}); eager "
+                  f"call {c['call_ms']:.5f}")
+    bad = [(k, c["shape"], c["dtype"]) for k, cases in out.items()
+           for c in cases if not case_ok(c)]
+    if bad:
+        raise SystemExit(f"flash kernel disagrees with its plain version: "
+                         f"{bad}")
+    return out
+
+
+def case_ok(c):
+    return (c["max_abs_err"] <= c["tol"]
+            and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0))
+
+
 def numpy_gpt_params(cfg, seed):
     """GPT params in the JAX layout drawn with numpy: the reference
     ``init_params`` distribution (N(0, 0.02), residual projections scaled
@@ -309,36 +506,19 @@ def merged_busy(intervals):
     return busy
 
 
-def profile_decode(torch, eng, prompts, steps, trace_path):
-    """Phase (f): fill every slot of ``eng``, then trace ``steps`` steady
-    decode steps with ``torch.profiler``.  Returns host ms per step, device
-    busy ms per step and the device's idle share over the traced window,
-    kernel launches per step and device ms per step by kernel name."""
-    for p in prompts[:eng.slots]:
-        eng.submit(p, 64)
-    eng.step()                          # admission waves + first decode
-    eng.step()
-    if int(eng.stats()["slot_occupancy"]) != eng.slots:
-        raise SystemExit("profile: not every slot is decoding")
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            with torch.profiler.record_function("decode_step"):
-                eng.step()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    eng.run()
+def trace_summary(prof, trace_path, span, steps):
+    """Device time inside the ``span`` annotations of a profiler run:
+    window and device-busy ms per step (union of kernels and copies), the
+    device's idle share, kernel launches per step and device ms per step
+    by kernel name (top 12)."""
     os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    marks = [e for e in events if e.get("name") == "decode_step"
+    marks = [e for e in events if e.get("name") == span
              and e.get("cat") == "user_annotation"]
     if not marks:
-        raise SystemExit("profile: the trace holds no decode_step span")
+        raise SystemExit(f"profile: the trace holds no {span} span")
     w0 = min(e["ts"] for e in marks)
     w1 = max(e["ts"] + e["dur"] for e in marks)
     dev = [e for e in events if e.get("cat") in
@@ -353,8 +533,7 @@ def profile_decode(torch, eng, prompts, steps, trace_path):
         by_name[e["name"]][1] += e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {
-        "steps": steps, "active_slots": eng.slots,
-        "host_ms_per_step": 1e3 * host_s / steps,
+        "steps": steps,
         "window_ms_per_step": (w1 - w0) / 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / (w1 - w0),
@@ -363,6 +542,133 @@ def profile_decode(torch, eng, prompts, steps, trace_path):
             {"name": k[:90], "launches_per_step": c / steps,
              "ms_per_step": t / 1e3 / steps} for k, (c, t) in top],
         "trace": trace_path}
+
+
+def profile_steps(torch, step_fn, steps, span, trace_path):
+    """Trace ``steps`` calls of ``step_fn`` with ``torch.profiler``, each
+    under a ``span`` annotation; returns host ms per step beside
+    :func:`trace_summary`."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with torch.profiler.record_function(span):
+                step_fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    return {"host_ms_per_step": 1e3 * host_s / steps,
+            **trace_summary(prof, trace_path, span, steps)}
+
+
+def profile_decode(torch, eng, prompts, steps, trace_path):
+    """Phase (f): fill every slot of ``eng``, then trace ``steps`` steady
+    decode steps."""
+    for p in prompts[:eng.slots]:
+        eng.submit(p, 64)
+    eng.step()                          # admission waves + first decode
+    eng.step()
+    if int(eng.stats()["slot_occupancy"]) != eng.slots:
+        raise SystemExit("profile: not every slot is decoding")
+    out = profile_steps(torch, eng.step, steps, "decode_step", trace_path)
+    eng.run()
+    return {"active_slots": eng.slots, **out}
+
+
+def train_tokens(torch, V, B, N, seed):
+    """[B, N] tokens from a numpy seed on the card; labels = tokens, as
+    the reference bench does."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, V, (B, N))).cuda()
+    return toks, toks
+
+
+def train_path(torch, gpt_hybrid, flash_attn, norms, cfg, params, steps):
+    """Phase (g): one warm-up step, then ``steps`` timed steps of the
+    single-device train step on fp32 masters and fp32 moments.  Launch
+    counts cover the timed steps only.  Returns the measurements, the
+    training state and the step function (for ``--profile-train``)."""
+    m, v = gpt_hybrid.init_train_state(params)
+    B, N = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    toks, labels = train_tokens(torch, cfg.vocab_size, B, N, SEED + 3)
+    step = gpt_hybrid.make_train_step(cfg)
+    lr = 1e-4
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(step(params, m, v, 1, toks, labels, lr)[3])]
+    warm_s = time.perf_counter() - t0
+    flash_attn.fwd_launches = flash_attn.dq_launches = 0
+    flash_attn.dkv_launches = norms.launches = 0
+    times = []
+    for t in range(2, steps + 2):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, m, v, t, toks, labels, lr)[3]))
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_attention_fwd": flash_attn.fwd_launches,
+                "flash_attention_bwd_dq": flash_attn.dq_launches,
+                "flash_attention_bwd_dkv": flash_attn.dkv_launches,
+                "layer_norm": norms.launches}
+    L = cfg.num_layers
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "layer_norm": 4 * L + 1}
+    step_s = float(np.mean(times))
+    tok_s = B * N / step_s
+    res = {"steps": steps, "warmup_s": warm_s, "step_ms": 1e3 * step_s,
+           "step_ms_each": [1e3 * x for x in times], "tokens_per_s": tok_s,
+           "model_flop_share": tok_s * cfg.flops_per_token()
+           / BF16_FLOPS_PER_S,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "launches": launches,
+           "launches_per_step_expected": want}
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"training: a non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"training: the loss did not fall: {losses}")
+    for k, per in want.items():
+        if launches[k] != per * steps:
+            raise SystemExit(f"training: {k} launched {launches[k]} times "
+                             f"in {steps} steps, expected {per} per step")
+    return res, (step, params, m, v, toks, labels, lr)
+
+
+def train_parity(torch, gpt, gpt_hybrid):
+    """Phase (h): the fp32 train step on the card (kernels) against the
+    CPU (plain versions) at ``gpt_345m`` widths with 2 layers."""
+    cfg = dataclasses.replace(gpt.gpt_345m(), num_layers=2,
+                              dtype="float32", use_pallas_norm=True)
+    tree = numpy_gpt_params(cfg, SEED + 4)
+    dev_p = gpt.params_from_numpy(tree, "cuda")
+    cpu_p = gpt.params_from_numpy(copy.deepcopy(tree), "cpu")
+    toks, labels = train_tokens(torch, cfg.vocab_size, 2, 256, SEED + 6)
+    lg, gg = gpt_hybrid.loss_and_grads(dev_p, toks, labels, cfg)
+    lc, gc = gpt_hybrid.loss_and_grads(cpu_p, toks.cpu(), labels.cpu(), cfg)
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    grad_rel = {}
+    for path, g in gpt_hybrid._leaves(gc):
+        ref = g.abs().max().item()
+        err = (gpt_hybrid._at(gg, path).cpu() - g).abs().max().item()
+        grad_rel["/".join(path)] = err / max(ref, 1e-30)
+    step = gpt_hybrid.make_train_step(cfg)
+    dev_s = (dev_p, *gpt_hybrid.init_train_state(dev_p))
+    cpu_s = (cpu_p, *gpt_hybrid.init_train_state(cpu_p))
+    step_rel = []
+    for t in (1, 2, 3):
+        a = float(step(*dev_s, t, toks, labels, 1e-4)[3])
+        b = float(step(*cpu_s, t, toks.cpu(), labels.cpu(), 1e-4)[3])
+        step_rel.append(abs(a - b) / abs(b))
+    res = {"loss_card": float(lg), "loss_cpu": float(lc),
+           "loss_rel_err": loss_rel, "grad_rel_err_max": max(
+               grad_rel.values()), "grad_rel_err": grad_rel,
+           "step_loss_rel_err": step_rel}
+    if not (loss_rel <= TRAIN_LOSS_RTOL
+            and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
+            and max(step_rel) <= TRAIN_LOSS_RTOL):
+        raise SystemExit(f"train step on the card disagrees with the CPU: "
+                         f"{json.dumps(res)}")
+    return res
 
 
 def main():
@@ -374,6 +680,12 @@ def main():
     ap.add_argument("--trace", default="paddle_tpu_torch/_build/"
                     "decode_trace.json",
                     help="where phase (f) writes its Chrome trace")
+    ap.add_argument("--profile-train", type=int, default=0, metavar="STEPS",
+                    help="also trace STEPS training steps of the training "
+                         "path with torch.profiler (phase i)")
+    ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
+                    "train_trace.json",
+                    help="where phase (i) writes its Chrome trace")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -381,8 +693,8 @@ def main():
         return 2
     from paddle_tpu_torch import card_info
     from paddle_tpu_torch.inference.serving import PagedServingEngine
-    from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.ops.cuda import build, norms, paged_attn
+    from paddle_tpu_torch.models import gpt, gpt_hybrid
+    from paddle_tpu_torch.ops.cuda import build, flash_attn, norms, paged_attn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -411,6 +723,7 @@ def main():
     # (c) ---------------------------------------------------------------
     log("(c) kernels against their plain versions on the card:")
     cases = check_kernels(torch, paged_attn, norms)
+    cases.update(check_flash(torch, flash_attn))
 
     # (d) ---------------------------------------------------------------
     cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
@@ -498,6 +811,47 @@ def main():
     if args.profile:
         prof = profile_decode(torch, eng, prompts, args.profile, args.trace)
         log(f"(f) decode-step profile on {card}: {json.dumps(prof)}")
+    del eng, eng32
+    torch.cuda.empty_cache()
+
+    # (g) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    train, state = train_path(torch, gpt_hybrid, flash_attn, norms, cfg,
+                              copy.deepcopy(params), 10)
+    launches.update({k: n for k, n in train["launches"].items()
+                     if k.startswith("flash")})
+    log(f"(g) training gpt_345m ({cfg.num_layers} layers, B={TRAIN_SHAPE[0]},"
+        f" N={TRAIN_SHAPE[1]}, {cfg.dtype} over fp32 masters, fp32 moments, "
+        f"use_flash, use_pallas_norm, remat {cfg.remat_policy}) on {card}: "
+        f"tokens/s {train['tokens_per_s']}; mean step {train['step_ms']} ms "
+        f"over {train['steps']} steps (warm-up step {train['warmup_s']:.2f} "
+        f"s); model-FLOP share {train['model_flop_share']}; "
+        f"max_memory_allocated {train['max_memory_allocated_gib']} GiB; "
+        f"loss {train['first_loss']} -> {train['last_loss']}; launches "
+        f"{train['launches']} (per step {train['launches_per_step_expected']}"
+        f"); phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    log(f"    losses {train['losses']}; step ms {train['step_ms_each']}")
+
+    # (i) ---------------------------------------------------------------
+    if args.profile_train:
+        step, tp, tm, tv, toks, labels, lr = state
+        counter = iter(range(12, 12 + args.profile_train))
+        prof = profile_steps(
+            torch, lambda: step(tp, tm, tv, next(counter), toks, labels, lr),
+            args.profile_train, "train_step", args.train_trace)
+        log(f"(i) training-step profile on {card}: {json.dumps(prof)}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (h) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    par = train_parity(torch, gpt, gpt_hybrid)
+    log(f"(h) fp32 train step, card against CPU (gpt_345m widths, 2 layers,"
+        f" B=2, N=256): loss rel err {par['loss_rel_err']:.2e} (tol "
+        f"{TRAIN_LOSS_RTOL:.0e}); max grad err / max|grad| "
+        f"{par['grad_rel_err_max']:.2e} (tol {TRAIN_GRAD_TOL:.0e}); 3-step "
+        f"loss rel errs {[f'{x:.2e}' for x in par['step_loss_rel_err']]}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
 
     # report --------------------------------------------------------------
     meta = {
@@ -509,6 +863,15 @@ def main():
             "paddle_tpu_torch/ops/cuda/csrc/layer_norm.cu",
             "paddle_tpu/ops/pallas/norms.py:47",
             "[8, 1, 1024] (decode 8 rows (serving))"),
+        "flash_attention_fwd": (
+            "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+            "paddle_tpu/ops/pallas/flash_attn.py:94", "[8, 1024, 16, 64]"),
+        "flash_attention_bwd_dq": (
+            "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+            "paddle_tpu/ops/pallas/flash_attn.py:262", "[8, 1024, 16, 64]"),
+        "flash_attention_bwd_dkv": (
+            "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+            "paddle_tpu/ops/pallas/flash_attn.py:291", "[8, 1024, 16, 64]"),
     }
     kernels = []
     for k, (src, rep, main_shape) in meta.items():
@@ -521,9 +884,11 @@ def main():
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
             "tol": main["tol"],
-            "pass": all(c["max_abs_err"] <= c["tol"] for c in cases[k]),
+            "pass": all(case_ok(c) for c in cases[k]),
             "shape": main["shape"], "dtype": main["dtype"],
             "cases": cases[k]})
+    next(k for k in kernels if k["name"] == "layer_norm")[
+        "launches_train"] = train["launches"]["layer_norm"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

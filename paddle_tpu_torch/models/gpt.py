@@ -1,5 +1,6 @@
 """GPT decoder-only LM in PyTorch: the counterpart of
-``paddle_tpu/models/gpt.py``, limited to what paged serving runs.
+``paddle_tpu/models/gpt.py``, limited to what paged serving and the
+single-device training step run.
 
 Same functional core over the same parameter layout: a dict of tensors
 whose block leaves are stacked on a leading ``[L]`` axis (``qkv_w``
@@ -10,26 +11,35 @@ arrays); the functions still return them, so call sites read the same.
 
 With ``cfg.use_pallas_norm`` every LayerNorm (ln1, ln2 and the final
 lnf) goes through the CUDA LayerNorm wrapper (``ops/cuda/norms.py``);
-paged decode attention always goes through the paged-attention wrapper
-(``ops/cuda/paged_attn.py``).  Both take their plain PyTorch versions for
-tensors on the CPU.
+with ``cfg.use_flash`` the attention of :func:`forward` goes through the
+flash-attention wrapper (``ops/cuda/flash_attn.py``); paged decode
+attention always goes through the paged-attention wrapper
+(``ops/cuda/paged_attn.py``).  Each takes its plain PyTorch version for
+tensors on the CPU.  With ``cfg.remat`` and gradients on, :func:`forward`
+checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
+``remat_policy="full"`` recomputes the whole block in the backward,
+``"dots"`` keeps the outputs of the weight matmuls (``aten.mm`` /
+``aten.addmm``, no batch dims), as ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable`` does.
 
 Not in this slice, each refused by name: MoE FFNs (``moe_experts``), the
 fused FFN (``use_fused_ffn``), quantized weights, chunked prefill and
-speculative verify.  ``forward`` is inference-only dense causal attention:
-``use_flash`` (same function, another kernel) and ``remat`` (backward
-memory) have no effect here.
+speculative verify.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..ops.cuda.flash_attn import flash_attention
 from ..ops.cuda.norms import _ref_layer_norm
 from ..ops.cuda.norms import layer_norm as _kernel_layer_norm
 from ..ops.cuda.paged_attn import paged_attention
@@ -95,6 +105,11 @@ class GPTConfig:
         per_block = (4 * H + 3 * H * H + 3 * H + H * H + H + H * F_ + F_
                      + F_ * H + H)
         return V * H + S * H + L * per_block + 2 * H
+
+    def flops_per_token(self):
+        """Training FLOPs/token (fwd+bwd ~ 6*N + attention term)."""
+        H, L, S = self.hidden_size, self.num_layers, self.max_seq_len
+        return 6 * self.num_params() + 12 * L * H * S
 
 
 def gpt_tiny():
@@ -238,7 +253,10 @@ def _norm_fn(cfg):
 
 
 def _attention(q, k, v, cfg):
-    """Dense causal attention.  q, k, v: [B, N, nh, hd]."""
+    """Causal attention.  q, k, v: [B, N, nh, hd].  With ``cfg.use_flash``
+    the flash-attention wrapper, else dense."""
+    if cfg.use_flash:
+        return flash_attention(q, k, v, True)
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
     n = logits.shape[-1]
@@ -297,12 +315,50 @@ def _head(cfg, params, x):
     return (x @ w.T).float()
 
 
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Save the weight matmuls' outputs (2-D products, no batch dims) and
+    recompute the rest: ``dots_with_no_batch_dims_saveable``."""
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_blocks(cfg: GPTConfig, params, x):
+    """Every block over x [B, N, H], each checkpointed per ``cfg.remat`` /
+    ``cfg.remat_policy`` when gradients are on."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = {}
+    if remat and cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    # one unbind per stacked leaf: its backward stacks the L gradients in
+    # one copy, where L selects would each add a full [L, ...] gradient
+    stacks = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    for i in range(cfg.num_layers):
+        blk = {k: s[i] for k, s in stacks.items()}
+        if remat:
+            x = checkpoint(block_apply, cfg, x, blk, use_reentrant=False,
+                           **kw)
+        else:
+            x = block_apply(cfg, x, blk)
+    return x
+
+
 def forward(params, tokens, cfg: GPTConfig):
     """tokens [B, N] int -> logits [B, N, V] fp32."""
-    x = embed(cfg, params, tokens)
-    for i in range(cfg.num_layers):
-        x = block_apply(cfg, x, layer(params, i))
+    x = run_blocks(cfg, params, embed(cfg, params, tokens))
     return _head(cfg, params, x)
+
+
+def loss_fn(params, tokens, labels, cfg: GPTConfig):
+    """Mean next-token cross entropy.  labels [B, N] int (-100 = ignore)."""
+    logits = forward(params, tokens, cfg)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits, -1)
+    tgt = logits.gather(-1, safe[..., None])[..., 0]
+    ce = torch.where(valid, lse - tgt, 0.0)
+    return ce.sum() / valid.sum().clamp(min=1)
 
 
 # --------------------------------------------------------------------------

@@ -3,12 +3,15 @@ PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/pallas/norms.py``: the kernel replaces
 ``_ln_kernel`` (launched by ``_pallas_norm`` through ``layer_norm``), and
-:func:`_ref_layer_norm` mirrors ``_ref_layer_norm``.  Forward only: serving
-never differentiates, and the backward comes with the training slice.
+:func:`_ref_layer_norm` mirrors ``_ref_layer_norm``.
 
-:func:`layer_norm` takes the plain version for a tensor on the CPU and
-launches the kernel for a tensor on a CUDA device; it never falls back
-from one to the other.  ``launches`` counts kernel launches.
+:func:`layer_norm` is a ``torch.autograd.Function``, as the reference's is
+a ``jax.custom_vjp``: its forward takes the plain version for a tensor on
+the CPU and launches the kernel for a tensor on a CUDA device, never
+falling back from one to the other; its backward is autograd of
+:func:`_ref_layer_norm` recomputed from the saved ``x, g, b`` (the
+reference's ``_ln_bwd``; no backward kernel exists there either).
+``launches`` counts forward kernel launches.
 """
 from __future__ import annotations
 
@@ -74,9 +77,7 @@ def _check_cuda(x, g, b):
                          f"and at most {32 * 32 * 8 * vec} for {x.dtype}")
 
 
-def layer_norm(x, g, b, eps=1e-5):
-    """LayerNorm over the last axis.  x: [..., H] float32 or bfloat16;
-    g, b: [H] float32 or bfloat16.  Returns x's shape and dtype."""
+def _forward(x, g, b, eps):
     global launches
     if x.device.type == "cpu":
         return _ref_layer_norm(x, g, b, eps)
@@ -96,3 +97,29 @@ def layer_norm(x, g, b, eps=1e-5):
     build.check(lib, err, "layer_norm")
     launches += 1
     return y
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, b, eps):
+        ctx.save_for_backward(x, g, b)
+        ctx.eps = eps
+        return _forward(x, g, b, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        need = ctx.needs_input_grad[:3]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = _ref_layer_norm(*ins, ctx.eps)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, dy))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def layer_norm(x, g, b, eps=1e-5):
+    """LayerNorm over the last axis.  x: [..., H] float32 or bfloat16;
+    g, b: [H] float32 or bfloat16.  Returns x's shape and dtype;
+    differentiable in x, g and b."""
+    return _LayerNorm.apply(x, g, b, eps)

@@ -9,9 +9,11 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: fp32 1e-5 (sums in another order; TF32 is off for the plain
-versions' matmuls); bf16 two rounding steps (2**-6 relative) for paged
-attention, whose kernel casts the unnormalised probabilities to bf16 where
-the plain version casts the normalised ones, and one step (2**-7) for
+versions' matmuls), 2e-4 on flash-attention gradients (the JAX package's
+own flash test); bf16 two rounding steps (2**-6) for paged and flash
+attention outputs, whose kernels cast the unnormalised probabilities to
+bf16 where the plain versions cast the normalised ones, 2**-5 of the
+largest plain gradient for flash gradients, and one step (2**-7) for
 LayerNorm.
 """
 import numpy as np
@@ -20,7 +22,7 @@ import torch
 
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import gpt as T
-from paddle_tpu_torch.ops.cuda import build, norms, paged_attn
+from paddle_tpu_torch.ops.cuda import build, flash_attn, norms, paged_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -146,3 +148,79 @@ def test_engine_on_card_matches_generate(dev):
     for p, r in zip(prompts, reqs):
         want = T.generate(params, cfg, torch.from_numpy(p)[None].to(dev), 8)
         assert r.tokens == want[0, len(p):].tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1000, 1000, 16, 64, True),
+                                   (2, 256, 256, 4, 128, False)])
+def test_flash_kernels_match_plain(dev, dtype, shape):
+    """Forward (out, lse) and split backward (dq, dk, dv) against
+    ``_ref_flash_fwd`` / ``_ref_flash_bwd``; q/k/v are strided views of one
+    fused [B, N, 3, H] projection, as the model passes them."""
+    B, N, Nk, nh, hd, causal = shape
+    g = torch.Generator(device=dev).manual_seed(N)
+    qkv = torch.randn(B, N, 3, nh * hd, device=dev, generator=g).to(dtype)
+    q, k, v = [qkv[:, :, i].reshape(B, N, nh, hd) for i in range(3)]
+    do = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    before = (flash_attn.fwd_launches, flash_attn.dq_launches,
+              flash_attn.dkv_launches)
+    out, lse = flash_attn.flash_fwd(q, k, v, causal)
+    dq, dk, dv = flash_attn.flash_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_attn.fwd_launches, flash_attn.dq_launches,
+            flash_attn.dkv_launches) == tuple(n + 1 for n in before)
+    ref_out, ref_lse = flash_attn._ref_flash_fwd(q, k, v, causal)
+    refs = flash_attn._ref_flash_bwd(q, k, v, ref_out, ref_lse, do, causal)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(lse, ref_lse, atol=FP32_TOL, rtol=0)
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=FP32_TOL if f32 else 2.0 ** -6, rtol=0)
+    for got, ref in zip((dq, dk, dv), refs):
+        tol = 2e-4 if f32 else 2.0 ** -5 * max(1.0, ref.float().abs().max())
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+
+
+def test_flash_attention_autograd_on_card(dev):
+    """The autograd Function: one forward and one dq + one dk/dv launch,
+    gradients equal to the plain backward's."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2, 192, 4, 64, device=dev, generator=g)
+               .requires_grad_() for _ in range(3))
+    before = (flash_attn.fwd_launches, flash_attn.dq_launches,
+              flash_attn.dkv_launches)
+    out = flash_attn.flash_attention(q, k, v, causal=True)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_attn.fwd_launches, flash_attn.dq_launches,
+            flash_attn.dkv_launches) == tuple(n + 1 for n in before)
+    with torch.no_grad():
+        ref_out, lse = flash_attn._ref_flash_fwd(q, k, v, True)
+        refs = flash_attn._ref_flash_bwd(q, k, v, ref_out, lse, do, True)
+    for a, b in zip(got, refs):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
+
+
+def test_flash_attention_refuses_unported_head_width(dev):
+    q = torch.randn(1, 64, 2, 96, device=dev)
+    with pytest.raises(ValueError, match="hd=96"):
+        flash_attn.flash_attention(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_gradients_on_card_match_plain(dev, dtype):
+    """The kernel's forward is differentiable: x, g and b get the plain
+    version's gradients."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((4, 37, 1024),
+                                             dtype=np.float32))
+    x = x.to(dev, dtype).requires_grad_()
+    g = torch.randn(1024, device=dev).requires_grad_()
+    b = torch.randn(1024, device=dev).requires_grad_()
+    dy = torch.randn(4, 37, 1024, device=dev).to(dtype)
+    before = norms.launches
+    got = torch.autograd.grad(norms.layer_norm(x, g, b), (x, g, b), dy)
+    assert norms.launches == before + 1
+    want = torch.autograd.grad(norms._ref_layer_norm(x, g, b, 1e-5),
+                               (x, g, b), dy)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=FP32_TOL, rtol=FP32_TOL)

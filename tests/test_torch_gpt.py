@@ -79,6 +79,7 @@ def test_configs_match_the_reference():
                    (J.gpt3_1p3b, T.gpt3_1p3b)]:
         assert dataclasses.asdict(jf()) == dataclasses.asdict(tf())
         assert jf().num_params() == tf().num_params()
+        assert jf().flops_per_token() == tf().flops_per_token()
 
 
 def test_forward_logits(pair):
