@@ -332,8 +332,12 @@ def run_blocks(cfg: GPTConfig, params, x):
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
     # one unbind per stacked leaf: its backward stacks the L gradients in
-    # one copy, where L selects would each add a full [L, ...] gradient
-    stacks = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    # one copy, where L selects would each add a full [L, ...] gradient.
+    # The matmul leaves are cast to the compute dtype here, once, not in
+    # every block and again in every remat recompute.
+    cd = torch_dtype(cfg.dtype)
+    stacks = {k: (_c(v, cd) if k in _MATMUL_LEAVES else v).unbind(0)
+              for k, v in params["blocks"].items()}
     for i in range(cfg.num_layers):
         blk = {k: s[i] for k, s in stacks.items()}
         if remat:

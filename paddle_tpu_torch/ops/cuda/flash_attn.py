@@ -175,8 +175,16 @@ def _check_cuda(q, k, v, causal):
                          "leaves rows that see no key")
 
 
-def _last_dim_unit(t):
-    return t if t.stride(-1) == 1 else t.contiguous()
+def _kernel_operand(t):
+    """``t`` with a unit last stride; a bf16 operand also with 16-byte
+    aligned rows (the tensor-core kernels load 16-byte chunks).  The
+    model's q/k/v views of its fused projection pass as they are."""
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def _strides(t):
@@ -185,7 +193,7 @@ def _strides(t):
 
 def _flash_fwd_cuda(q, k, v, causal):
     global fwd_launches
-    q, k, v = (_last_dim_unit(t) for t in (q, k, v))
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     B, N, nh, hd = q.shape
     Nk = k.shape[1]
     out = torch.empty((B, N, nh, hd), dtype=q.dtype, device=q.device)
@@ -206,7 +214,7 @@ def _bwd_operands(q, k, v, out, do):
     """(q, k, v, dO with unit last stride in q's dtype, delta [B, nh, N]).
     delta = rowsum(dO * O) in fp32, outside the kernels as in the
     reference (flash_attn.py:402)."""
-    q, k, v, do = (_last_dim_unit(t) for t in (q, k, v, do))
+    q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
     if do.dtype != q.dtype:
         do = do.to(q.dtype)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()

@@ -173,8 +173,9 @@ def test_flash_kernels_match_plain(dev, dtype, shape):
     refs = flash_attn._ref_flash_bwd(q, k, v, ref_out, ref_lse, do, causal)
     f32 = dtype == torch.float32
     torch.testing.assert_close(lse, ref_lse, atol=FP32_TOL, rtol=0)
-    torch.testing.assert_close(out.float(), ref_out.float(),
-                               atol=FP32_TOL if f32 else 2.0 ** -6, rtol=0)
+    tol = FP32_TOL if f32 else 2.0 ** -6
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=0 if f32 else tol)
     for got, ref in zip((dq, dk, dv), refs):
         tol = 2e-4 if f32 else 2.0 ** -5 * max(1.0, ref.float().abs().max())
         torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
