@@ -14,6 +14,15 @@ The first slice ports the paged GPT serving path:
   shared-prefix pages with copy-on-write, preemption on page exhaustion;
 * ``ops.cuda.paged_attn`` and ``ops.cuda.norms`` -- the paged
   decode-attention and LayerNorm kernels.
+
+The second slice ports the single-device training step:
+
+* ``models.gpt.loss_fn`` with flash attention and remat in ``forward``;
+* ``models.gpt_hybrid`` -- ``make_train_step`` (the dp=tp=pp=sp=1 case of
+  the reference's hybrid step), ``init_train_state``, ``loss_and_grads``;
+* ``optimizer.functional.adamw_update``;
+* ``ops.cuda.flash_attn`` -- the flash-attention forward and split
+  backward kernels.
 """
 from .device import DEFAULT_DEVICE, card_info, resolve_device
 

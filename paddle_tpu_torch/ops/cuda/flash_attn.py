@@ -211,12 +211,10 @@ def _flash_fwd_cuda(q, k, v, causal):
 
 
 def _bwd_operands(q, k, v, out, do):
-    """(q, k, v, dO with unit last stride in q's dtype, delta [B, nh, N]).
+    """(q, k, v, dO as the kernels take them, delta [B, nh, N]).
     delta = rowsum(dO * O) in fp32, outside the kernels as in the
     reference (flash_attn.py:402)."""
     q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
-    if do.dtype != q.dtype:
-        do = do.to(q.dtype)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, do, delta
 
@@ -306,4 +304,8 @@ def flash_bwd(q, k, v, out, lse, do, causal=False):
     """The backward kernels alone: (dq, dk, dv).  For checks and timing
     beside :func:`_ref_flash_bwd`."""
     _check_cuda(q, k, v, causal)
+    if do.shape != q.shape or do.dtype != q.dtype or out.shape != q.shape:
+        raise ValueError(f"flash_bwd: out {tuple(out.shape)} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
     return _flash_bwd_cuda(q, k, v, out, lse, do, causal)
