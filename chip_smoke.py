@@ -70,6 +70,10 @@ FP32_TOL = 1e-5
 PARITY_LOGIT_TOL = 1e-3       # fp32 engine vs teacher-forced forward
 BF16_FLOPS_PER_S = 989e12     # H100 SXM published dense bf16 tensor rate
 FLASH_GRAD_TOL = 2e-4         # fp32 flash gradients (JAX flash test's own)
+# bf16 flash out and gradients, per element: |got - ref| <= atol + rtol*|ref|
+# (bf16 rounding is relative: rtol is two steps of an output's own scale)
+BF16_ATOL, BF16_RTOL = 2.0 ** -8, 2.0 ** -6
+WRONG_SCALE = 1 + 2.0 ** -4   # the mutant each gate must reject (see gate)
 TRAIN_SHAPE = (8, 1024, 1024, 16, 64, True)   # B, N, Nk, nh, hd, causal
 TRAIN_LOSS_RTOL = 1e-5        # (h): card loss vs CPU loss
 TRAIN_GRAD_TOL = 1e-4         # (h): x max|leaf grad on the CPU|
@@ -192,6 +196,24 @@ def ln_bound(x, g):
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def gate(pairs, atol, rtol):
+    """For (got, ref, scale) triples: the worst ratio over elements of
+    |got - ref| / (atol + rtol * |scale|), which passes at most 1
+    (``torch.testing.assert_close``'s rule when scale is ref), and the same
+    ratio for a mutant of ``got`` whose rows past the first 64-row tile
+    are scaled by ``WRONG_SCALE``, which must fail: a gate that lets a
+    wrong scale on later tiles through could not catch a wrong kernel."""
+    ok = mut = 0.0
+    for got, ref, scale in pairs:
+        g, r = got.float(), ref.float()
+        den = atol + rtol * scale.float().abs()
+        m = g.clone()
+        m[:, 64:] *= WRONG_SCALE
+        ok = max(ok, float(((g - r).abs() / den).max()))
+        mut = max(mut, float(((m - r).abs() / den).max()))
+    return ok, mut
 
 
 def check_kernels(torch, paged_attn, norms):
@@ -379,11 +401,20 @@ def check_flash(torch, flash_attn):
             rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
                                                      causal)
 
-            def gtol(*refs):
-                if f32:
-                    return FLASH_GRAD_TOL
-                return 2.0 ** -5 * max(
-                    1.0, min(float(r.float().abs().max()) for r in refs))
+            def gated(pairs, fp32_atol):
+                atol, rtol = ((fp32_atol, 0.0) if f32
+                              else (BF16_ATOL, BF16_RTOL))
+                ratio, mutant = gate(pairs, atol, rtol)
+                return {"max_abs_err": max(max_err(g, r)
+                                           for g, r, _ in pairs),
+                        "mean_abs_ref": float(np.mean(
+                            [float(r.float().abs().mean())
+                             for _, r, _ in pairs])),
+                        "atol": atol, "rtol": rtol, "gate": ratio,
+                        "mutant_gate": mutant}
+            # the forward's bf16 error follows sum_j p_j |v_j| (each side
+            # rounds every p_j), not |out|: its rtol scales that sum
+            o_scale = flash_attn._ref_flash_fwd(q, k, v.abs(), causal)[0]
             label = (f"[{B}, {N}, {nh}, {hd}] kv {Nk} "
                      f"{'causal' if causal else 'full'} ({name})")
             bounds = flash_bounds(q, k, causal)
@@ -402,8 +433,7 @@ def check_flash(torch, flash_attn):
                       "bwd_pass_bound_ms": bounds["bwd_pass"][0],
                       "bwd_pass_bound_by": bounds["bwd_pass"][1]}
             out["flash_attention_fwd"].append({
-                **common, "max_abs_err": max_err(o, ro),
-                "tol": FP32_TOL if f32 else 2.0 ** -6,
+                **common, **gated([(o, ro, o_scale)], FP32_TOL),
                 "lse_err": max_err(lse, rl), "lse_tol": FP32_TOL,
                 "ms": device_ms(flash_attn.flash_fwd, fwd_sets),
                 "call_ms": time_ms(flash_attn.flash_fwd, fwd_sets, 50),
@@ -412,15 +442,14 @@ def check_flash(torch, flash_attn):
                 "library_ms": lib_fwd,
                 "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]})
             out["flash_attention_bwd_dq"].append({
-                **common, "max_abs_err": max_err(dq, rdq), "tol": gtol(rdq),
+                **common, **gated([(dq, rdq, rdq)], FLASH_GRAD_TOL),
                 "ms": device_ms(flash_attn._launch_dq, bwd_sets),
                 "call_ms": time_ms(flash_attn._launch_dq, bwd_sets, 50),
                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
                 "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]})
             out["flash_attention_bwd_dkv"].append({
-                **common, "max_abs_err": max(max_err(dk, rdk),
-                                             max_err(dv, rdv)),
-                "tol": gtol(rdk, rdv),
+                **common, **gated([(dk, rdk, rdk), (dv, rdv, rdv)],
+                                  FLASH_GRAD_TOL),
                 "ms": device_ms(flash_attn._launch_dkv, bwd_sets),
                 "call_ms": time_ms(flash_attn._launch_dkv, bwd_sets, 50),
                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
@@ -430,7 +459,10 @@ def check_flash(torch, flash_attn):
     for k, cases in out.items():
         for c in cases:
             log(f"  {k:24s} {c['dtype']:15s} {c['shape']:46s} "
-                f"max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.1e})"
+                f"max_abs_err {c['max_abs_err']:.3e} gate {c['gate']:.3f} "
+                f"(atol {c['atol']:.1e} rtol {c['rtol']:.1e}; mean|ref| "
+                f"{c['mean_abs_ref']:.3e}; wrong-scale mutant "
+                f"{c['mutant_gate']:.2f})"
                 + (f" lse_err {c['lse_err']:.1e}" if "lse_err" in c else "")
                 + f"  device ms: kernel {c['ms']:.5f}  plain "
                   f"{c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
@@ -445,8 +477,11 @@ def check_flash(torch, flash_attn):
 
 
 def case_ok(c):
-    return (c["max_abs_err"] <= c["tol"]
-            and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0))
+    if "gate" in c:
+        ok = c["gate"] <= 1.0 and c["mutant_gate"] > 1.0
+    else:
+        ok = c["max_abs_err"] <= c["tol"]
+    return ok and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0)
 
 
 def numpy_gpt_params(cfg, seed):
@@ -883,7 +918,8 @@ def main():
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
-            "tol": main["tol"],
+            **{t: main[t] for t in ("tol", "atol", "rtol", "gate")
+               if t in main},
             "pass": all(case_ok(c) for c in cases[k]),
             "shape": main["shape"], "dtype": main["dtype"],
             "cases": cases[k]})
