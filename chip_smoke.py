@@ -30,7 +30,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
   (f) only with ``--profile STEPS``: where the main path's decode step
       spends its time, from a ``torch.profiler`` trace of STEPS steady
       steps with every slot decoding (host and device ms per step, the
-      device's idle share, device time by kernel);
+      device's idle share, device time by kernel); (j) then traces its
+      quantized engine the same way;
   (g) the training main path: ``gpt_345m`` (full width and depth) with
       ``use_pallas_norm``, flash attention and full remat, bf16 compute
       over fp32 masters and fp32 AdamW moments, one warm-up step and 10
@@ -43,7 +44,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
       ``loss_and_grads`` and 3 steps of ``make_train_step``;
   (i) only with ``--profile-train STEPS``: a ``torch.profiler`` trace of
       STEPS training steps (device busy ms per step, idle share, device
-      time by kernel).
+      time by kernel);
+  (j) the quantized main path: the same ``gpt_345m`` weights served by
+      ``PagedServingEngine(quant="int8", kv_dtype="int8", slots=8,
+      max_len=512, page_size=16)`` after ``warmup()``, the same 12
+      requests x 32 tokens as (d).  Launch counts are zeroed just before
+      and must equal their formulas (dequant matmul 4L per forward, int8
+      paged attention L per decode step, LayerNorm 2L + 1 per forward);
+      its tokens/s, step times, peak memory and pool bytes are printed
+      beside (d)'s, with the share of request 0's tokens that equal (d)'s
+      (reported, not asserted: random weights);
+  (k) fp32 parity of the quantized engine, card (kernels) against CPU
+      (plain versions), at ``gpt_345m`` widths with 2 layers, on 4 of the
+      requests: greedy tokens exact, logits within 1e-3.
+
+(c) also holds the two quantized-path kernels against their plain
+versions: the dequant matmul at the four decode shapes (M = 8), the
+prefill shape M = 4096 x (1024, 4096) and the JAX tests' shapes; int8
+paged attention at the serving decode shape, the JAX tests' shapes and a
+lane of length 0.
+
+``--phases`` and ``--kernels`` narrow a run to some phases or kernels
+while a kernel is being worked on; such a run prints no result line.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -70,6 +92,9 @@ FP32_TOL = 1e-5
 PARITY_LOGIT_TOL = 1e-3       # fp32 engine vs teacher-forced forward
 BF16_FLOPS_PER_S = 989e12     # H100 SXM published dense bf16 tensor rate
 FLASH_GRAD_TOL = 2e-4         # fp32 flash gradients (JAX flash test's own)
+DQMM_FP32_RTOL = 1e-5         # fp32 dequant matmul: x max|ref| (JAX test's)
+PAGED_BF16_CAP = 2e-2         # bf16 int8 paged attention never looser than
+                              # the JAX kernel test's own 2e-2
 # bf16 flash out and gradients, per element: |got - ref| <= atol + rtol*|ref|
 # (bf16 rounding is relative: rtol is two steps of an output's own scale)
 BF16_ATOL, BF16_RTOL = 2.0 ** -8, 2.0 ** -6
@@ -77,6 +102,12 @@ WRONG_SCALE = 1 + 2.0 ** -4   # the mutant each gate must reject (see gate)
 TRAIN_SHAPE = (8, 1024, 1024, 16, 64, True)   # B, N, Nk, nh, hd, causal
 TRAIN_LOSS_RTOL = 1e-5        # (h): card loss vs CPU loss
 TRAIN_GRAD_TOL = 1e-4         # (h): x max|leaf grad on the CPU|
+
+
+ALL_PHASES = "cdeghjk"
+KERNELS = ("paged_attention", "layer_norm", "flash_attention_fwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "dequant_matmul", "paged_attention_quant")
 
 
 def log(*a):
@@ -101,13 +132,19 @@ def time_ms(fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
+_SIDE = []    # the one side stream of every capture (cuBLAS keeps a
+              # workspace per stream: a new stream per capture piles them up)
+
+
 def device_ms(fn, arg_sets, per_graph=20, replays=10):
     """Mean device milliseconds per call of ``fn``: ``per_graph`` calls
     cycling through ``arg_sets`` (distinct buffers, so data the real
     caller finds cold in L2 is cold here too) are captured in one CUDA
     graph and replayed, which takes the host's launch cost out."""
     import torch
-    side = torch.cuda.Stream()
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    side = _SIDE[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for a in arg_sets[:2]:
@@ -198,30 +235,45 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def gate(pairs, atol, rtol):
+def later_tiles(m):
+    """The rows past the first 64-row tile (axis 1)."""
+    return m[:, 64:]
+
+
+def later_slots(m):
+    """Every slot but the first (axis 0, one row per slot)."""
+    return m[1:]
+
+
+def gate(pairs, atol, rtol, cap=None, rows=later_tiles):
     """For (got, ref, scale) triples: the worst ratio over elements of
     |got - ref| / (atol + rtol * |scale|), which passes at most 1
     (``torch.testing.assert_close``'s rule when scale is ref), and the same
-    ratio for a mutant of ``got`` whose rows past the first 64-row tile
-    are scaled by ``WRONG_SCALE``, which must fail: a gate that lets a
-    wrong scale on later tiles through could not catch a wrong kernel."""
+    ratio for a mutant of ``got`` whose ``rows`` are scaled by
+    ``WRONG_SCALE``, which must fail: a gate that lets a wrong scale on
+    later tiles through could not catch a wrong kernel.  ``cap`` bounds
+    the per-element tolerance from above."""
     ok = mut = 0.0
     for got, ref, scale in pairs:
         g, r = got.float(), ref.float()
         den = atol + rtol * scale.float().abs()
+        if cap is not None:
+            den = den.clamp(max=cap)
         m = g.clone()
-        m[:, 64:] *= WRONG_SCALE
+        rows(m).mul_(WRONG_SCALE)
         ok = max(ok, float(((g - r).abs() / den).max()))
         mut = max(mut, float(((m - r).abs() / den).max()))
     return ok, mut
 
 
-def check_kernels(torch, paged_attn, norms):
+def check_kernels(torch, paged_attn, norms, only):
     """Phase (c).  Returns the per-kernel case lists; raises on a
     disagreement beyond the stated tolerance."""
     rng = np.random.default_rng(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"paged_attention": [], "layer_norm": []}
+    if not {"paged_attention", "layer_norm"} & only:
+        return {}
 
     def paged_case(dt, label, S, maxP, lens, copies):
         sets = paged_inputs(torch, rng, dt, S, 16, 64, 16, maxP, lens,
@@ -484,6 +536,234 @@ def case_ok(c):
     return ok and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0)
 
 
+def dqmm_bound(M, K, N, dt):
+    """Least time for the dequant matmul: K*N int8 weight bytes, 4N scale
+    bytes, x and out in the compute dtype, over the HBM rate; or 2MKN
+    flops over the dtype's peak (tensor cores for bf16, CUDA cores for
+    fp32)."""
+    import torch
+    e = 2 if dt == torch.bfloat16 else 4
+    byts = K * N + 4 * N + M * K * e + M * N * e
+    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = byts / HBM_BYTES_PER_S, 2 * M * K * N / rate
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def library_dqmm():
+    """The library yardstick for the dequant matmul: ``torch.
+    _weight_int8pack_mm`` where it runs on this card and torch for the
+    dtype, else cuBLAS ``x @ w`` on weights dequantized beforehand
+    (``w_q.to(dtype)``) times the scale.  Returns (name, make_args, fn)
+    per dtype, chosen by a probe call."""
+    import torch
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, 64, device="cuda").to(dt)
+        w = torch.randint(-127, 128, (64, 64), device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(64, device="cuda") + 0.1
+        try:
+            torch._weight_int8pack_mm(x, w.t().contiguous(), s.to(dt))
+            torch.cuda.synchronize()
+            out[dt] = ("torch._weight_int8pack_mm",
+                       lambda a, b, c: (a, b.t().contiguous(), c.to(a.dtype)),
+                       torch._weight_int8pack_mm)
+        except (RuntimeError, NotImplementedError, AttributeError):
+            out[dt] = ("cuBLAS x @ w_q.to(dtype) (dequantized beforehand) "
+                       "* scale",
+                       lambda a, b, c: (a, b.to(a.dtype), c.to(a.dtype)),
+                       lambda a, w, c: (a @ w) * c)
+    return out
+
+
+def paged_quant_inputs(torch, gpt, rng, dtype, S, nh, hd, ps, maxP, lens,
+                       P=None, copies=1, random_table=False):
+    """``copies`` operand sets for int8 paged attention sharing q, table
+    and lens: K/V drawn N(0, 1) and quantized by the port's
+    ``quantize_kv`` (absmax scales per position and head), q N(0, 2^2).
+    With ``random_table`` every table entry is a random page (entries past
+    a lane's fill are garbage the kernel must not read), as in the JAX
+    kernel tests; else each lane owns its pages and the rest point at
+    scratch page 0."""
+    P = P or S * maxP + 1
+    q = torch.from_numpy(2 * rng.standard_normal((S, 1, nh, hd),
+                                                 dtype=np.float32))
+    if random_table:
+        table = rng.integers(0, P, (S, maxP)).astype(np.int32)
+    else:
+        table = np.zeros((S, maxP), np.int32)
+        pages = rng.permutation(np.arange(1, P)).astype(np.int32)
+        for s, ln in enumerate(lens):
+            n = int(ln) // ps + 1
+            table[s, :n] = pages[s * maxP:s * maxP + n]
+    q = q.cuda().to(dtype)
+    table = torch.from_numpy(table).cuda()
+    lens_t = torch.tensor(np.asarray(lens, np.int32)).cuda()
+    sets = []
+    for _ in range(copies):
+        kq, ks = gpt.quantize_kv(torch.randn((P, ps, nh, hd), device="cuda"))
+        vq, vs = gpt.quantize_kv(torch.randn((P, ps, nh, hd), device="cuda"))
+        sets.append((q, kq, ks, vq, vs, table, lens_t))
+    return sets
+
+
+def library_paged_quant(q, kq, ks, vq, vs, table, lens):
+    """Gather + dequantize + ``scaled_dot_product_attention``: the library
+    yardstick for int8 paged decode attention (timed only)."""
+    k = (kq.float() * ks[..., None]).to(q.dtype)
+    v = (vq.float() * vs[..., None]).to(q.dtype)
+    return library_paged(q, k, v, table, lens)
+
+
+def paged_quant_bound(q, kq, table, lens):
+    """Least time for int8 paged attention on these inputs: the int8 K
+    and V of every attended position once, their fp32 scales, q, out, the
+    table rows it reads and lens, over the HBM rate; or its flops
+    (dequantize K and V, q.k, p.v: 6 per element) over the fp32 rate."""
+    S, _, nh, hd = q.shape
+    ps = kq.shape[1]
+    maxP = table.shape[1]
+    n = np.minimum(lens.cpu().numpy().astype(np.int64) + 1, maxP * ps)
+    byts = (int(n.sum()) * nh * (2 * hd + 8) + 2 * q.numel()
+            * q.element_size() + int((-(-n // ps)).sum()) * 4 + S * 4)
+    flops = 6 * int(n.sum()) * nh * hd
+    t_b, t_f = byts / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def check_quant_kernels(torch, gpt, dqmm, paged_attn, only):
+    """Phase (c), the quantized path's kernels.  Dequant matmul: fp32
+    within 1e-5 x max|ref| (the JAX kernel test's gate); bf16 per element
+    |got - ref| <= 2^-8 + 2^-6 |ref| (the kernel rounds once, the plain
+    version twice).  Int8 paged attention: fp32 within 1e-5; bf16 per
+    element 2^-8 + 2^-6 sum_j p_j |v_j|, capped at 2e-2.  Every case must
+    also reject the wrong-scale mutant.  Returns {kernel: [case, ...]}."""
+    rng = np.random.default_rng(SEED + 8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def record(name, dt, label, got, ref, scale, atol, rtol, sets, fn,
+               plain, lib, bound, cap=None, rows=later_tiles, lib_name=None):
+        ratio, mutant = gate([(got, ref, scale)], atol, rtol, cap, rows)
+        per = len(sets)
+        out.setdefault(name, []).append({
+            "shape": label, "dtype": str(dt),
+            "max_abs_err": max_err(got, ref),
+            "max_abs_ref": float(ref.float().abs().max()),
+            "atol": atol, "rtol": rtol, "gate": ratio,
+            "mutant_gate": mutant,
+            "ms": device_ms(fn, sets, per_graph=per),
+            "call_ms": time_ms(fn, sets, max(50, per)),
+            "plain_ms": device_ms(plain, sets, per_graph=per),
+            "library_ms": device_ms(lib[1], lib[0], per_graph=per),
+            "library": lib_name, "bound_ms": bound[0],
+            "bound_by": bound[1]})
+
+    if "dequant_matmul" in only:
+        libs = library_dqmm()
+        shapes = [((8, 1024, 3072), "decode qkv"),
+                  ((8, 1024, 1024), "decode proj"),
+                  ((8, 1024, 4096), "decode fc1"),
+                  ((8, 4096, 1024), "decode fc2"),
+                  ((4096, 1024, 4096), "prefill fc1"),
+                  ((8, 128, 256), "JAX test"), ((128, 256, 128), "JAX test"),
+                  ((32, 128, 512), "JAX test"), ((3, 128, 256), "M=3")]
+        for (M, K, N), name in shapes:
+            # enough weight copies that the replayed calls find them cold
+            # in the 50 MB L2, as the decode path does
+            copies = (max(2, min(64, -(-96 * 2 ** 20 // (K * N))))
+                      if M <= 64 else 2)
+            for dt in (f32, bf16):
+                sets = []
+                for _ in range(copies):
+                    x = torch.randn((M, K), device="cuda").to(dt)
+                    w = torch.randint(-127, 128, (K, N), device="cuda",
+                                      dtype=torch.int8)
+                    sc = (torch.rand(N, device="cuda") + 0.1) / 64
+                    sets.append((x, w, sc))
+                got = dqmm.dequant_matmul(*sets[0])
+                torch.cuda.synchronize()
+                ref = dqmm._ref_dequant_matmul(*sets[0])
+                if dt == f32:
+                    atol = DQMM_FP32_RTOL * float(ref.abs().max())
+                    rtol = 0.0
+                else:
+                    atol, rtol = BF16_ATOL, BF16_RTOL
+                lname, largs, lfn = libs[dt]
+                lib_sets = [largs(*a) for a in sets]
+                record("dequant_matmul", dt,
+                       f"[{M}, {K}] x [{K}, {N}] ({name})", got, ref, ref,
+                       atol, rtol, sets, dqmm.dequant_matmul,
+                       dqmm._ref_dequant_matmul, (lib_sets, lfn),
+                       dqmm_bound(M, K, N, dt), lib_name=lname)
+                del sets, lib_sets
+        torch.cuda.empty_cache()
+
+    if "paged_attention_quant" in only:
+        cases = [
+            # the serving decode shape, lengths as the main path sees them
+            (dict(S=8, nh=16, hd=64, ps=16, maxP=32,
+                  lens=[int(n) for n in rng.integers(17, 332, 8)]),
+             "S8 nh16 hd64 ps16 maxP32 (decode)", 8, False),
+            # the JAX kernel tests' (S, nh, hd, P, ps, maxP), random tables
+            (dict(S=4, nh=4, hd=16, ps=8, maxP=4, P=12), "JAX (4,4,16,12,8,4)",
+             2, True),
+            (dict(S=2, nh=2, hd=64, ps=16, maxP=2, P=6), "JAX (2,2,64,6,16,2)",
+             2, True),
+            (dict(S=3, nh=4, hd=32, ps=8, maxP=6, P=16), "JAX (3,4,32,16,8,6)",
+             2, True),
+            (dict(S=4, nh=16, hd=64, ps=16, maxP=8, lens=[0, 0, 9, 127]),
+             "S4 nh16 hd64 ps16 maxP8, len-0 lanes", 2, False),
+        ]
+        for kw, label, copies, rnd in cases:
+            if rnd:
+                kw["lens"] = [int(n) for n in
+                              rng.integers(0, kw["maxP"] * kw["ps"], kw["S"])]
+            for dt in (f32, bf16):
+                sets = paged_quant_inputs(torch, gpt, rng, dt, copies=copies,
+                                          random_table=rnd, **kw)
+                got = paged_attn.paged_attention_quant(*sets[0])
+                torch.cuda.synchronize()
+                ref = paged_attn._ref_paged_attention_quant(*sets[0])
+                q, kq, ks, vq, vs, table, lens = sets[0]
+                if dt == f32:
+                    atol, rtol, scale, cap = FP32_TOL, 0.0, ref, None
+                else:
+                    # both sides round every p_j: sum_j p_j |v_j| bounds it
+                    scale = paged_attn._ref_paged_attention_quant(
+                        q, kq, ks, vq.abs(), vs, table, lens)
+                    atol, rtol, cap = BF16_ATOL, BF16_RTOL, PAGED_BF16_CAP
+                if len(kw["lens"]) <= 4:
+                    label = label.split(" lens")[0] + f" lens {kw['lens']}"
+                record("paged_attention_quant", dt, label, got, ref, scale,
+                       atol, rtol, sets, paged_attn.paged_attention_quant,
+                       paged_attn._ref_paged_attention_quant,
+                       (sets, library_paged_quant),
+                       paged_quant_bound(q, kq, table, lens), cap=cap,
+                       rows=later_slots,
+                       lib_name="gather + dequantize + SDPA")
+    for k, cs in out.items():
+        for c in cs:
+            log(f"  {k:22s} {c['dtype']:15s} {c['shape'][:52]:52s} "
+                f"max_abs_err {c['max_abs_err']:.3e} (max|ref| "
+                f"{c['max_abs_ref']:.2e}) gate {c['gate']:.3f} (atol "
+                f"{c['atol']:.1e} rtol {c['rtol']:.1e}; wrong-scale mutant "
+                f"{c['mutant_gate']:.2f})  device ms: kernel {c['ms']:.5f}  "
+                f"plain {c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
+                f"bound {c['bound_ms']:.6f} ({c['bound_by']}); eager call "
+                f"{c['call_ms']:.5f}")
+    for k, cs in out.items():
+        log(f"  {k} library: {cs[0]['library']}"
+            + (f" / {cs[1]['library']}" if cs[1]["library"]
+               != cs[0]["library"] else ""))
+    bad = [(k, c["shape"], c["dtype"]) for k, cs in out.items() for c in cs
+           if not case_ok(c)]
+    if bad:
+        raise SystemExit(f"quantized-path kernel disagrees with its plain "
+                         f"version: {bad}")
+    return out
+
+
 def numpy_gpt_params(cfg, seed):
     """GPT params in the JAX layout drawn with numpy: the reference
     ``init_params`` distribution (N(0, 0.02), residual projections scaled
@@ -706,6 +986,117 @@ def train_parity(torch, gpt, gpt_hybrid):
     return res
 
 
+def quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms, cfg,
+               holder, prompts, new_tokens, fp_run, args):
+    """Phase (j): the quantized main path on the params in ``holder``
+    (fp32 masters on the card, handed over: the engine quantizes them
+    once, and no other reference keeps a float block weight on the card).
+    Returns the measurements; raises if a launch count or a stat is
+    off."""
+    eng = PagedServingEngine((holder.pop(), cfg), device="cuda",
+                             quant="int8",
+                             kv_dtype="int8", slots=8, max_len=512,
+                             page_size=16)
+    t0 = time.perf_counter()
+    waves = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    dqmm.launches = paged_attn.quant_launches = 0
+    paged_attn.launches = norms.launches = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dequant_matmul": dqmm.launches,
+                "paged_attention_quant": paged_attn.quant_launches,
+                "layer_norm": norms.launches,
+                "paged_attention": paged_attn.launches}
+    st = eng.stats()
+    L = cfg.num_layers
+    forwards = st["decode_steps"] + st["prefill_calls"]
+    want = {"dequant_matmul": 4 * L * forwards,
+            "paged_attention_quant": L * st["decode_steps"],
+            "layer_norm": (2 * L + 1) * forwards, "paged_attention": 0}
+    if not all(r.done and len(r.tokens) == new_tokens for r in reqs):
+        raise SystemExit("(j): not every request finished with its tokens")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
+        raise SystemExit("(j): a generated token is outside the vocabulary")
+    if launches != want:
+        raise SystemExit(f"(j): launches {launches}, expected {want} for "
+                         f"{st['decode_steps']} decode steps and "
+                         f"{st['prefill_calls']} prefill waves")
+    if st["prefix_page_hits"] <= 0 or st["kv_quant_bytes_saved"] <= 0:
+        raise SystemExit(f"(j): no prefix page hit or no KV bytes saved: "
+                         f"{st}")
+    if st["quant_matmuls"] != 4 * L * forwards:
+        raise SystemExit(f"(j): quant_matmuls {st['quant_matmuls']} for "
+                         f"{forwards} forwards")
+    if st["dequant_kernel_calls"] != (launches["dequant_matmul"]
+                                      + launches["paged_attention_quant"]):
+        raise SystemExit(f"(j): dequant_kernel_calls "
+                         f"{st['dequant_kernel_calls']} against {launches}")
+    gen = sum(len(r.tokens) for r in reqs)
+    res = {"warmup_waves": waves, "warmup_s": warm_s, "wall_s": wall,
+           "tokens_per_s": gen / wall,
+           "decode_steps": st["decode_steps"],
+           "prefill_waves": st["prefill_calls"],
+           "decode_step_ms": 1e3 * float(np.mean(eng.decode_step_s)),
+           "prefill_wave_ms": 1e3 * float(np.mean(eng.prefill_s)),
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "resident_gib": resident / 2 ** 30,
+           "kv_bytes_total": st["kv_bytes_total"],
+           "kv_quant_bytes_saved": st["kv_quant_bytes_saved"],
+           "prefix_page_hits": st["prefix_page_hits"],
+           "quant_matmuls": st["quant_matmuls"],
+           "dequant_kernel_calls": st["dequant_kernel_calls"],
+           "launches": launches,
+           "request0_tokens_equal_fp_share": float(np.mean(
+               np.asarray(reqs[0].tokens)
+               == np.asarray(fp_run["request0_tokens"])))
+           if fp_run else None}
+    if args.profile:
+        res["profile"] = profile_decode(torch, eng, prompts, args.profile,
+                                        args.trace.replace(".json",
+                                                           "_quant.json"))
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def quant_parity(torch, gpt, PagedServingEngine, prompts, new_tokens):
+    """Phase (k): the fp32 quantized engine (int8 weights, int8 pool) on
+    the card against the same engine on the CPU, ``gpt_345m`` widths with
+    2 layers, 4 requests: greedy tokens exact, logits within 1e-3."""
+    cfg = dataclasses.replace(gpt.gpt_345m(), num_layers=2,
+                              dtype="float32", use_pallas_norm=True)
+    tree = numpy_gpt_params(cfg, SEED + 7)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = PagedServingEngine(
+            (gpt.params_from_numpy(tree, dev), cfg), device=dev,
+            quant="int8", kv_dtype="int8", slots=8, max_len=512,
+            page_size=16, capture_logits=True)
+        reqs = [eng.submit(p, new_tokens) for p in prompts[:4]]
+        eng.run()
+        runs[dev] = reqs
+        del eng
+    tok_equal = all(a.tokens == b.tokens
+                    for a, b in zip(runs["cuda"], runs["cpu"]))
+    logit_err = max(float(np.abs(np.stack(a.logits)
+                                 - np.stack(b.logits)).max())
+                    for a, b in zip(runs["cuda"], runs["cpu"]))
+    res = {"tokens_equal": tok_equal, "max_logit_err": logit_err}
+    if not tok_equal or not logit_err <= PARITY_LOGIT_TOL:
+        raise SystemExit(f"(k): the quantized engine on the card disagrees "
+                         f"with the CPU: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(
         description="Drive paddle_tpu_torch on one GPU and check it.")
@@ -721,7 +1112,20 @@ def main():
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
                     help="where phase (i) writes its Chrome trace")
+    ap.add_argument("--phases", default=ALL_PHASES,
+                    help="phases to run after (a) and (b), e.g. 'cjk' "
+                         "(default: all); a narrowed run prints no result "
+                         "line")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated kernels that (c) checks "
+                         "(default: all); a narrowed run prints no result "
+                         "line")
     args = ap.parse_args()
+    phases = set(args.phases)
+    only = set(args.kernels.split(","))
+    if only - set(KERNELS) or phases - set(ALL_PHASES):
+        ap.error(f"phases are {ALL_PHASES}; kernels are {KERNELS}")
+    full = phases == set(ALL_PHASES) and only == set(KERNELS)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -730,9 +1134,12 @@ def main():
     from paddle_tpu_torch.inference.serving import PagedServingEngine
     from paddle_tpu_torch.models import gpt, gpt_hybrid
     from paddle_tpu_torch.ops.cuda import build, flash_attn, norms, paged_attn
+    from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 plain versions reduce in fp32, as the kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.manual_seed(SEED)
     t_start = time.perf_counter()
 
@@ -756,27 +1163,121 @@ def main():
         build.load(lib)
 
     # (c) ---------------------------------------------------------------
-    log("(c) kernels against their plain versions on the card:")
-    cases = check_kernels(torch, paged_attn, norms)
-    cases.update(check_flash(torch, flash_attn))
-
-    # (d) ---------------------------------------------------------------
+    cases = {}
+    if "c" in phases:
+        log("(c) kernels against their plain versions on the card:")
+        cases.update(check_kernels(torch, paged_attn, norms, only))
+        if only & {k for k in KERNELS if k.startswith("flash")}:
+            cases.update(check_flash(torch, flash_attn))
+        cases.update(check_quant_kernels(torch, gpt, dqmm, paged_attn, only))
+    launches, fp_run, train = {}, None, None
     cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
-    t0 = time.perf_counter()
-    params = gpt.params_from_numpy(numpy_gpt_params(cfg, SEED), "cuda")
-    log(f"(d) gpt_345m ({cfg.num_params() / 1e6:.1f}M params, "
-        f"{cfg.num_layers} layers, H={cfg.hidden_size}, dtype {cfg.dtype}) "
-        f"weights from numpy seed {SEED} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    prompts = make_prompts(cfg.vocab_size)
+    new_tokens = 32
+    params = tree = None
+    if phases & set("dgj"):
+        t0 = time.perf_counter()
+        tree = numpy_gpt_params(cfg, SEED)
+        params = gpt.params_from_numpy(tree, "cuda")
+        log(f"    gpt_345m ({cfg.num_params() / 1e6:.1f}M params, "
+            f"{cfg.num_layers} layers, H={cfg.hidden_size}, dtype "
+            f"{cfg.dtype}) weights from numpy seed {SEED} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "d" in phases:
+        fp_run = serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms,
+                          cfg, params, prompts, new_tokens, card, args,
+                          launches)
+
+    # (j), next to (d) so that both meet the same process state ----------
+    jk_s = 0.0                  # seconds of (j) and (k)
+    if "j" in phases:
+        # the engine quantizes the fp32 masters on the card; dropping this
+        # reference leaves no float block weight there
+        t0 = time.perf_counter()
+        holder, params = [params], None
+        qrun = quant_path(torch, PagedServingEngine, dqmm, paged_attn,
+                          norms, cfg, holder, prompts, new_tokens, fp_run,
+                          args)
+        launches.update({k: qrun["launches"][k] for k in
+                         ("dequant_matmul", "paged_attention_quant")})
+        launches["layer_norm_quant_path"] = qrun["launches"]["layer_norm"]
+        fp = fp_run or {}
+        log(f"(j) quantized serving (quant='int8', kv_dtype='int8') of "
+            f"gpt_345m, the same 12 requests x {new_tokens} tokens, on "
+            f"{card}:")
+        log(f"    tokens/s {qrun['tokens_per_s']} (fp path (d): "
+            f"{fp.get('tokens_per_s')}); decode steps "
+            f"{qrun['decode_steps']}, mean decode step "
+            f"{qrun['decode_step_ms']} ms ((d): {fp.get('decode_step_ms')});"
+            f" prefill waves {qrun['prefill_waves']}, mean prefill wave "
+            f"{qrun['prefill_wave_ms']} ms ((d): {fp.get('prefill_wave_ms')}"
+            f"); max_memory_allocated {qrun['max_memory_allocated_gib']} GiB"
+            f" ((d): {fp.get('max_memory_allocated_gib')}); allocated before "
+            f"the traffic (weights, pool) {qrun['resident_gib']} GiB ((d): "
+            f"{fp.get('resident_gib')}); kv_bytes_total "
+            f"{qrun['kv_bytes_total']} ((d): {fp.get('kv_bytes_total')}); "
+            f"kv_quant_bytes_saved {qrun['kv_quant_bytes_saved']}; prefix "
+            f"page hits {qrun['prefix_page_hits']}; quant_matmuls "
+            f"{qrun['quant_matmuls']}; dequant_kernel_calls "
+            f"{qrun['dequant_kernel_calls']}; launches {qrun['launches']}; "
+            f"warmup {qrun['warmup_waves']} waves in "
+            f"{qrun['warmup_s']:.1f} s  [{card}]")
+        jk_s += time.perf_counter() - t0
+        log(f"    request 0: {qrun['request0_tokens_equal_fp_share']} of its "
+            "tokens equal the bf16 fp path's (int8 rounding on random "
+            f"weights, not asserted); phase {jk_s:.1f} s")
+        if "profile" in qrun:
+            log(f"    quantized decode-step profile on {card}: "
+                f"{json.dumps(qrun['profile'])}")
+        if "g" in phases:       # (j) took the masters; training needs them
+            params = gpt.params_from_numpy(tree, "cuda")
+    torch.cuda.empty_cache()
+    if "g" in phases:
+        train = train_phases(torch, gpt_hybrid, flash_attn, norms, cfg,
+                             params, card, args, launches)
+    params = tree = None
+    torch.cuda.empty_cache()
+    if "h" in phases:
+        train_parity_phase(torch, gpt, gpt_hybrid)
+
+    # (k) ---------------------------------------------------------------
+    if "k" in phases:
+        t0 = time.perf_counter()
+        par = quant_parity(torch, gpt, PagedServingEngine, prompts,
+                           new_tokens)
+        log(f"(k) fp32 quantized engine, card against CPU (gpt_345m widths, "
+            f"2 layers, 4 requests x {new_tokens} tokens): greedy tokens "
+            f"equal {par['tokens_equal']}; max |logit diff| "
+            f"{par['max_logit_err']:.3e} (tol {PARITY_LOGIT_TOL:.0e}); "
+            f"phase {time.perf_counter() - t0:.1f} s")
+        jk_s += time.perf_counter() - t0
+    if phases & set("jk"):
+        log(f"    (j) and (k) together {jk_s:.1f} s")
+
+    if not full:
+        log(f"narrowed run (phases {sorted(phases)}, kernels "
+            f"{sorted(only)}): no result line")
+        return 0
+
+    # report --------------------------------------------------------------
+    report(torch, cases, launches, train, t_start)
+    return 0
+
+
+def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
+             prompts, new_tokens, card, args, launches):
+    """Phases (d), (e) and (f): the fp main path, its fp32 parity and the
+    optional decode profile.  Returns (d)'s measurements."""
+    # (d) ---------------------------------------------------------------
+    log(f"(d) serving gpt_345m, dtype {cfg.dtype}, fp weights and pool")
     eng = PagedServingEngine((params, cfg), device="cuda", slots=8,
                              max_len=512, page_size=16)
     t0 = time.perf_counter()
     waves = eng.warmup()
     torch.cuda.synchronize()
     log(f"    warmup: {waves} waves in {time.perf_counter() - t0:.1f} s")
-    prompts = make_prompts(cfg.vocab_size)
-    new_tokens = 32
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     paged_attn.launches = 0
     norms.launches = 0
     t0 = time.perf_counter()
@@ -784,8 +1285,8 @@ def main():
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_attention": paged_attn.launches,
-                "layer_norm": norms.launches}
+    launches.update({"paged_attention": paged_attn.launches,
+                     "layer_norm": norms.launches})
     st = eng.stats()
     L = cfg.num_layers
     if not all(r.done and len(r.tokens) == new_tokens for r in reqs):
@@ -812,8 +1313,17 @@ def main():
     log(f"    tokens/s {gen / wall}; decode steps {st['decode_steps']}, "
         f"mean decode step {dec_ms} ms; prefill waves {st['prefill_calls']},"
         f" mean prefill wave {pre_ms} ms; max_memory_allocated "
-        f"{mem / 2**30} GiB; prefix page hits {st['prefix_page_hits']}; "
-        f"launches {launches}  [{card}]")
+        f"{mem / 2**30} GiB (allocated before the traffic "
+        f"{resident / 2**30} GiB); kv_bytes_total {st['kv_bytes_total']}; prefix "
+        f"page hits {st['prefix_page_hits']}; launches "
+        f"{ {k: launches[k] for k in ('paged_attention', 'layer_norm')} }  "
+        f"[{card}]")
+    run = {"tokens_per_s": gen / wall, "decode_step_ms": dec_ms,
+           "prefill_wave_ms": pre_ms,
+           "max_memory_allocated_gib": mem / 2 ** 30,
+           "resident_gib": resident / 2 ** 30,
+           "kv_bytes_total": st["kv_bytes_total"],
+           "request0_tokens": list(reqs[0].tokens)}
 
     # (e) ---------------------------------------------------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -848,7 +1358,13 @@ def main():
         log(f"(f) decode-step profile on {card}: {json.dumps(prof)}")
     del eng, eng32
     torch.cuda.empty_cache()
+    return run
 
+
+def train_phases(torch, gpt_hybrid, flash_attn, norms, cfg, params, card,
+                 args, launches):
+    """Phases (g) and (i): the training main path and its optional
+    profile.  Returns (g)'s measurements."""
     # (g) ---------------------------------------------------------------
     t0 = time.perf_counter()
     train, state = train_path(torch, gpt_hybrid, flash_attn, norms, cfg,
@@ -877,8 +1393,11 @@ def main():
         log(f"(i) training-step profile on {card}: {json.dumps(prof)}")
     del state
     torch.cuda.empty_cache()
+    return train
 
-    # (h) ---------------------------------------------------------------
+
+def train_parity_phase(torch, gpt, gpt_hybrid):
+    """Phase (h), logged."""
     t0 = time.perf_counter()
     par = train_parity(torch, gpt, gpt_hybrid)
     log(f"(h) fp32 train step, card against CPU (gpt_345m widths, 2 layers,"
@@ -888,28 +1407,42 @@ def main():
         f"loss rel errs {[f'{x:.2e}' for x in par['step_loss_rel_err']]}; "
         f"phase {time.perf_counter() - t0:.1f} s")
 
-    # report --------------------------------------------------------------
-    meta = {
-        "paged_attention": (
-            "paddle_tpu_torch/ops/cuda/csrc/paged_attn.cu",
-            "paddle_tpu/ops/pallas/paged_attn.py:63",
-            "S8 nh16 hd64 ps16 maxP32 (decode)"),
-        "layer_norm": (
-            "paddle_tpu_torch/ops/cuda/csrc/layer_norm.cu",
-            "paddle_tpu/ops/pallas/norms.py:47",
-            "[8, 1, 1024] (decode 8 rows (serving))"),
-        "flash_attention_fwd": (
-            "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
-            "paddle_tpu/ops/pallas/flash_attn.py:94", "[8, 1024, 16, 64]"),
-        "flash_attention_bwd_dq": (
-            "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
-            "paddle_tpu/ops/pallas/flash_attn.py:262", "[8, 1024, 16, 64]"),
-        "flash_attention_bwd_dkv": (
-            "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
-            "paddle_tpu/ops/pallas/flash_attn.py:291", "[8, 1024, 16, 64]"),
-    }
+
+# kernel -> (source, the TPU kernel it replaces, the case that stands for
+# the main path in the result line)
+REPORT = {
+    "paged_attention": (
+        "paddle_tpu_torch/ops/cuda/csrc/paged_attn.cu",
+        "paddle_tpu/ops/pallas/paged_attn.py:63",
+        "S8 nh16 hd64 ps16 maxP32 (decode)"),
+    "layer_norm": (
+        "paddle_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+        "paddle_tpu/ops/pallas/norms.py:47",
+        "[8, 1, 1024] (decode 8 rows (serving))"),
+    "flash_attention_fwd": (
+        "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        "paddle_tpu/ops/pallas/flash_attn.py:94", "[8, 1024, 16, 64]"),
+    "flash_attention_bwd_dq": (
+        "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        "paddle_tpu/ops/pallas/flash_attn.py:262", "[8, 1024, 16, 64]"),
+    "flash_attention_bwd_dkv": (
+        "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        "paddle_tpu/ops/pallas/flash_attn.py:291", "[8, 1024, 16, 64]"),
+    "dequant_matmul": (
+        "paddle_tpu_torch/ops/cuda/csrc/dequant_matmul.cu",
+        "paddle_tpu/ops/pallas/dequant_matmul.py:45",
+        "[8, 1024] x [1024, 4096] (decode fc1)"),
+    "paged_attention_quant": (
+        "paddle_tpu_torch/ops/cuda/csrc/paged_attn.cu",
+        "paddle_tpu/ops/pallas/paged_attn.py:193",
+        "S8 nh16 hd64 ps16 maxP32 (decode)"),
+}
+
+
+def report(torch, cases, launches, train, t_start):
+    """The ``kernels`` JSON line, the nvidia-smi line and the last line."""
     kernels = []
-    for k, (src, rep, main_shape) in meta.items():
+    for k, (src, rep, main_shape) in REPORT.items():
         main = next(c for c in cases[k] if c["shape"].startswith(main_shape)
                     and c["dtype"] == "torch.bfloat16")
         kernels.append({
@@ -918,13 +1451,14 @@ def main():
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
-            **{t: main[t] for t in ("tol", "atol", "rtol", "gate")
-               if t in main},
+            **{t: main[t] for t in ("tol", "atol", "rtol", "gate",
+                                    "library") if t in main},
             "pass": all(case_ok(c) for c in cases[k]),
             "shape": main["shape"], "dtype": main["dtype"],
             "cases": cases[k]})
-    next(k for k in kernels if k["name"] == "layer_norm")[
-        "launches_train"] = train["launches"]["layer_norm"]
+    ln = next(k for k in kernels if k["name"] == "layer_norm")
+    ln["launches_train"] = train["launches"]["layer_norm"]
+    ln["launches_quant_path"] = launches["layer_norm_quant_path"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
@@ -935,7 +1469,6 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -12,6 +12,12 @@ engine's main path.
   ``decode_step_paged`` per iteration for every slot, shared-prefix pages
   with copy-on-write, and preemption of the newest request when the pool
   runs out of pages.
+* Quantized serving, as in the reference: ``quant="int8"`` stores the
+  block matmul weights as int8 with per-output-channel scales (their
+  matmuls launch the dequant-matmul kernel), and ``kv_dtype="int8"``
+  keeps the page pool in int8 with per-position, per-head scales (decode
+  attention launches the int8 paged-attention kernel).  The two knobs are
+  independent.
 
 The JAX engine builds one jitted executable per shape; here every call is
 eager and the decode step launches the paged-attention and LayerNorm
@@ -33,6 +39,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import gpt
+from ..ops.cuda import dequant_matmul, paged_attn
 from .kv_pager import KVPager, PagesExhausted
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4)
@@ -41,11 +48,21 @@ _COUNTERS = ("prefill_calls", "decode_steps", "requests_admitted",
              "requests_completed", "tokens_generated", "queue_rejects",
              "step_aborts", "requests_aborted",
              "prefix_page_hits", "prefix_page_misses", "cow_copies",
-             "preemptions")
+             "preemptions",
+             # quantized serving: quantized matmuls run (4 per layer per
+             # forward), KV bytes the int8 pool saves against the same
+             # pool in the compute dtype (counted once), and this
+             # engine's launches of the dequant-matmul and int8
+             # paged-attention kernels (the reference counts once per
+             # compiled executable; eager PyTorch has none, so the port
+             # counts launches, 0 on the CPU)
+             "quant_matmuls", "kv_quant_bytes_saved",
+             "dequant_kernel_calls")
 
 # traffic counters a warmup wave must not inflate
 _WARMUP_QUIET = frozenset(_COUNTERS) - {"queue_rejects", "step_aborts",
-                                        "requests_aborted"}
+                                        "requests_aborted",
+                                        "kv_quant_bytes_saved"}
 
 
 def _pow2_ladder(lo, hi):
@@ -127,11 +144,20 @@ class ServingEngine:
     live; with no GPU the default raises.  Knobs as in the reference:
     ``slots``, ``max_len``, ``seq_buckets`` / ``batch_buckets`` (the
     prefill padding ladder), ``max_queue`` (default ``8 * slots``),
-    ``capture_logits`` and ``cache_dtype``.
+    ``capture_logits``, ``cache_dtype`` and ``quant``.
 
-    The slot-contiguous KV pool, ``quant=`` and ``tp``/``pp`` are not in
-    this slice and raise ``NotImplementedError``; use
-    :class:`PagedServingEngine`."""
+    ``quant`` (``"int8"``, ``"int8_dynamic"`` or ``"fp8"``): the params
+    are quantized once here (``models.gpt.quantize_params``: the block
+    matmul weights in 1 byte with fp32 per-output-channel scales) and
+    then prepared; the engine keeps no float copy of those weights.  A
+    tree already quantized for the mode (loaded from the reference's npz)
+    is kept as it is.  Only ``"int8"`` launches the dequant-matmul kernel;
+    ``"int8_dynamic"`` multiplies int8 by int8 with ``torch._int_mm`` and
+    ``"fp8"`` dequantizes in plain PyTorch, as the reference, which has no
+    kernel for either, does with XLA.
+
+    The slot-contiguous KV pool and ``tp``/``pp`` are not in this slice
+    and raise ``NotImplementedError``; use :class:`PagedServingEngine`."""
 
     def __init__(self, model, *, device=DEFAULT_DEVICE, slots=4,
                  max_len=None, seq_buckets=None,
@@ -142,10 +168,9 @@ class ServingEngine:
             raise NotImplementedError(
                 "the slot-contiguous ServingEngine pool is not ported in "
                 "this slice; use PagedServingEngine")
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r}: quantized weights are not ported in "
-                "this slice")
+        if quant is not None and quant not in gpt.QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant!r}; expected one "
+                             f"of {gpt.QUANT_MODES}")
         for name, v in (("tp", tp), ("pp", pp)):
             if v is not None and int(v) != 1:
                 raise NotImplementedError(
@@ -154,10 +179,13 @@ class ServingEngine:
         params, cfg = model
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.quant = None
+        self.quant = quant
         self._kv_dtype = None
-        self.params = gpt.prepare_params(_to_device(params, self.device),
-                                         cfg)
+        params = _to_device(params, self.device)
+        if quant is not None:
+            params = gpt.quantize_params(params, quant)
+        self.params = gpt.prepare_params(params, cfg)
+        del params
 
         self.slots = int(slots)
         self.max_len = int(max_len or cfg.max_seq_len)
@@ -426,6 +454,17 @@ class ServingEngine:
     def _kv_accounting(self):
         raise NotImplementedError
 
+    def _count_quant_matmuls(self):
+        """One forward runs 4 quantized matmuls per layer (qkv, proj, fc1,
+        fc2) when the weights are quantized."""
+        if self.quant:
+            self._inc("quant_matmuls", 4 * self.cfg.num_layers)
+
+    @staticmethod
+    def _kernel_launches():
+        """Launches so far of the two quantized-path kernels."""
+        return dequant_matmul.launches + paged_attn.quant_launches
+
 
 class PagedServingEngine(ServingEngine):
     """Continuous batching over a block-table paged KV cache:
@@ -438,21 +477,33 @@ class PagedServingEngine(ServingEngine):
     queue head and retried from its prompt.
 
     ``max_len`` must be a multiple of ``page_size``; seq buckets are
-    rounded up to page multiples.  Not in this slice, each raising
-    ``NotImplementedError``: ``kv_dtype="int8"``, ``prefill_chunk``,
-    ``host_tier_mb``, ``kv_handoff`` (and ``submit_prefilled``),
-    speculative decoding, MoE models, ``quant=`` and ``tp``/``pp``."""
+    rounded up to page multiples.  ``kv_dtype="int8"`` keeps the pool in
+    int8 with fp32 scales per position and head (K/V quantized once, on
+    write; excludes ``cache_dtype``).  Not in this slice, each raising
+    ``NotImplementedError``: ``prefill_chunk``, ``host_tier_mb``,
+    ``kv_handoff`` (and ``submit_prefilled``), speculative decoding, MoE
+    models and ``tp``/``pp``."""
 
     def __init__(self, model, *, page_size=16, num_pages=None,
                  prefix_cache=True, prefill_chunk=None, kv_dtype=None,
                  kv_handoff=False, host_tier_mb=None, **kw):
-        for name, v in (("kv_dtype", kv_dtype),
-                        ("prefill_chunk", prefill_chunk),
+        for name, v in (("prefill_chunk", prefill_chunk),
                         ("host_tier_mb", host_tier_mb or None),
                         ("kv_handoff", kv_handoff or None)):
             if v is not None:
                 raise NotImplementedError(
                     f"{name}={v!r} is not ported in this slice")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None (compute dtype) or 'int8', got "
+                f"{kv_dtype!r}; float overrides go through cache_dtype")
+        if kv_dtype == "int8" and kw.get("cache_dtype") is not None:
+            raise ValueError(
+                "kv_dtype='int8' and cache_dtype are mutually exclusive: "
+                "the int8 pool's storage is fixed (int8 pages + fp32 "
+                "scales); drop cache_dtype")
+        self._kv_quant = kv_dtype == "int8"
+        self._kv_saved = None
         cfg = model[1]
         if cfg.moe_experts:
             raise NotImplementedError(
@@ -464,6 +515,9 @@ class PagedServingEngine(ServingEngine):
         self._prefix_cache_on = bool(prefix_cache)
         self._admit_seq = 0
         super().__init__(model, **kw)
+        self._kv_dtype = kv_dtype
+        if self._kv_saved:
+            self._inc("kv_quant_bytes_saved", self._kv_saved)
         ps = self._page_size
         # the page view is maxP*ps == max_len wide, the same mask width as
         # a contiguous strip; buckets round up to whole pages
@@ -486,12 +540,29 @@ class PagedServingEngine(ServingEngine):
         self._num_pages = int(self._num_pages_cfg
                               if self._num_pages_cfg is not None
                               else self.slots * self._pages_per_slot + 1)
-        self._pager = KVPager(self._num_pages, ps, self.slots,
-                              prefix_cache=self._prefix_cache_on,
-                              hash_key="quant=none/kv=fp")
-        cache = gpt.init_paged_cache(self.cfg, self._num_pages, ps,
-                                     dtype=self._cache_dtype,
-                                     device=self.device)
+        # prefix hashes are salted with the numeric contract, so an int8
+        # pool's pages never alias an fp pool's
+        self._pager = KVPager(
+            self._num_pages, ps, self.slots,
+            prefix_cache=self._prefix_cache_on,
+            hash_key=f"quant={self.quant or 'none'}"
+                     f"/kv={'int8' if self._kv_quant else 'fp'}")
+        if self._kv_quant:
+            cache = gpt.init_paged_cache_quant(self.cfg, self._num_pages,
+                                               ps, device=self.device)
+            self._cache_ks = cache["k_scale"]
+            self._cache_vs = cache["v_scale"]
+            if self._kv_saved is None:
+                # bytes saved against the same pool in the compute dtype,
+                # counted once (not per rebuild)
+                fp = 2 * cache["k"].numel() * (torch.finfo(
+                    gpt.torch_dtype(self.cfg.dtype)).bits // 8)
+                self._kv_saved = max(0, fp - sum(
+                    int(a.nbytes) for a in cache.values()))
+        else:
+            cache = gpt.init_paged_cache(self.cfg, self._num_pages, ps,
+                                         dtype=self._cache_dtype,
+                                         device=self.device)
         self._cache_k, self._cache_v = cache["k"], cache["v"]
         self._tables_np = np.zeros((self.slots, self._pages_per_slot),
                                    np.int32)
@@ -573,6 +644,7 @@ class PagedServingEngine(ServingEngine):
         if not self._warming:
             self.prefill_s.append(time.perf_counter() - t0)
         self._inc("prefill_calls")
+        self._count_quant_matmuls()
         for r, req in enumerate(group):
             s = req.slot
             self._tables_np[s] = 0
@@ -598,15 +670,29 @@ class PagedServingEngine(ServingEngine):
         cfg = self.cfg
         b, s = tokens.shape
         ps = self._page_size
-        fresh = gpt.init_cache(cfg, b, s, dtype=self._cache_k.dtype,
-                               device=self.device)
+        launched = self._kernel_launches()
+        # the int8 pool's prompt K/V come out of the forward in the
+        # compute dtype and are quantized on the way into the pool
+        fresh = gpt.init_cache(
+            cfg, b, s, dtype=None if self._kv_quant else self._cache_k.dtype,
+            device=self.device)
         logits, filled = gpt.forward_cached(self.params, tokens, cfg, fresh)
         L, nh, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
         flat = ptab.reshape(-1).long()
-        self._cache_k[:, flat] = filled["k"].reshape(L, b * (s // ps), ps,
-                                                     nh, hd)
-        self._cache_v[:, flat] = filled["v"].reshape(L, b * (s // ps), ps,
-                                                     nh, hd)
+        fk = filled["k"].reshape(L, b * (s // ps), ps, nh, hd)
+        fv = filled["v"].reshape(L, b * (s // ps), ps, nh, hd)
+        if self._kv_quant:
+            # layer by layer: the fp32 temporaries of one layer, not all L
+            for i in range(L):
+                codes, scales = gpt.quantize_kv(torch.stack((fk[i], fv[i])))
+                self._cache_k[i, flat] = codes[0]
+                self._cache_ks[i, flat] = scales[0]
+                self._cache_v[i, flat] = codes[1]
+                self._cache_vs[i, flat] = scales[1]
+        else:
+            self._cache_k[:, flat] = fk
+            self._cache_v[:, flat] = fv
+        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
         idx = (lens.long() - 1).clamp(0, s - 1)
         last = logits[torch.arange(b, device=logits.device), idx]   # [b, V]
         return torch.argmax(last, -1), last
@@ -622,7 +708,7 @@ class PagedServingEngine(ServingEngine):
     def _copy_page(self, src, dst):
         """Device-side copy-on-write: duplicate page ``src`` into the
         freshly owned ``dst`` before the diverging write lands."""
-        for pool in (self._cache_k, self._cache_v):
+        for pool in self._cache_operands():    # int8: the scale rows too
             pool[:, dst] = pool[:, src]
         self._inc("cow_copies")
 
@@ -696,6 +782,7 @@ class PagedServingEngine(ServingEngine):
         if not self._warming:
             self.decode_step_s.append(time.perf_counter() - t0)
         self._inc("decode_steps")
+        self._count_quant_matmuls()
         for s in range(self.slots):
             if not self._active[s]:
                 continue
@@ -708,9 +795,17 @@ class PagedServingEngine(ServingEngine):
 
     @torch.inference_mode()
     def _decode(self, page_table, wpages, woffs, lens, toks):
-        logits, self._cache_k, self._cache_v = gpt.decode_step_paged(
-            self.params, toks, self.cfg, self._cache_k, self._cache_v,
-            page_table, wpages, woffs, lens)
+        launched = self._kernel_launches()
+        if self._kv_quant:
+            logits, *_ = gpt.decode_step_paged_quant(
+                self.params, toks, self.cfg, self._cache_k, self._cache_ks,
+                self._cache_v, self._cache_vs, page_table, wpages, woffs,
+                lens)
+        else:
+            logits, *_ = gpt.decode_step_paged(
+                self.params, toks, self.cfg, self._cache_k, self._cache_v,
+                page_table, wpages, woffs, lens)
+        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
         return torch.argmax(logits, -1), logits
 
     # -------------------------------------------------------------- warmup
@@ -723,12 +818,20 @@ class PagedServingEngine(ServingEngine):
         return waves
 
     # --------------------------------------------------------------- views
+    def _cache_operands(self):
+        """The pool arrays: (k, v), plus (k_scale, v_scale) for int8."""
+        if self._kv_quant:
+            return (self._cache_k, self._cache_v, self._cache_ks,
+                    self._cache_vs)
+        return (self._cache_k, self._cache_v)
+
     def _kv_accounting(self):
         """Reserved = pages actually referenced; ``page_utilization`` is
         tokens held per in-use page position (above 1.0 when prefix
         sharing packs several requests onto one page)."""
         ps = self._page_size
-        total = int(self._cache_k.nbytes + self._cache_v.nbytes)
+        # an int8 page costs its codes plus its scale rows
+        total = sum(int(a.nbytes) for a in self._cache_operands())
         page_bytes = total // self._num_pages
         in_use = self._pager.pages_in_use()
         held = int(self._lens.sum())

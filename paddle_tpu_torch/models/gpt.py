@@ -14,8 +14,11 @@ lnf) goes through the CUDA LayerNorm wrapper (``ops/cuda/norms.py``);
 with ``cfg.use_flash`` the attention of :func:`forward` goes through the
 flash-attention wrapper (``ops/cuda/flash_attn.py``); paged decode
 attention always goes through the paged-attention wrapper
-(``ops/cuda/paged_attn.py``).  Each takes its plain PyTorch version for
-tensors on the CPU.  With ``cfg.remat`` and gradients on, :func:`forward`
+(``ops/cuda/paged_attn.py``), over an int8 pool through its quantized
+twin.  Weights quantized by :func:`quantize_params` (``{"qw", "scale"}``
+dict leaves) route their matmuls through the dequant-matmul wrapper
+(``ops/cuda/dequant_matmul.py``).  Each takes its plain PyTorch version
+for tensors on the CPU.  With ``cfg.remat`` and gradients on, :func:`forward`
 checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
 ``remat_policy="full"`` recomputes the whole block in the backward,
 ``"dots"`` keeps the outputs of the weight matmuls (``aten.mm`` /
@@ -23,8 +26,8 @@ checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
 dots_with_no_batch_dims_saveable`` does.
 
 Not in this slice, each refused by name: MoE FFNs (``moe_experts``), the
-fused FFN (``use_fused_ffn``), quantized weights, chunked prefill and
-speculative verify.
+fused FFN (``use_fused_ffn``; a quantized FFN bypasses it, as in the
+reference), chunked prefill and speculative verify.
 """
 from __future__ import annotations
 
@@ -39,10 +42,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..ops.cuda.dequant_matmul import _ref_dequant_matmul, dequant_matmul
 from ..ops.cuda.flash_attn import flash_attention
 from ..ops.cuda.norms import _ref_layer_norm
 from ..ops.cuda.norms import layer_norm as _kernel_layer_norm
-from ..ops.cuda.paged_attn import paged_attention
+from ..ops.cuda.paged_attn import paged_attention, paged_attention_quant
+from ..quantization import int8_dynamic_matmul, quant_absmax_scale
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -50,6 +55,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 # block leaves that block_apply casts to the compute dtype
 _MATMUL_LEAVES = ("qkv_w", "qkv_b", "proj_w", "proj_b",
                   "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+# the block matmul weights that quantize_params stores as int8
+_QUANT_LEAVES = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
 
 
 def torch_dtype(name):
@@ -128,11 +135,14 @@ def gpt3_1p3b():
                      max_seq_len=2048)
 
 
-def _check_slice(cfg):
+def _check_slice(cfg, quant_ffn=False):
+    """Refuse what this slice does not run.  ``quant_ffn``: the FFN
+    weights are quantized, which bypasses the fused FFN (as in the
+    reference's ``block_apply``)."""
     if cfg.moe_experts:
         raise NotImplementedError(
             "moe_experts > 0: the MoE FFN is not ported in this slice")
-    if cfg.use_fused_ffn:
+    if cfg.use_fused_ffn and not quant_ffn:
         raise NotImplementedError(
             "use_fused_ffn: the fused-FFN kernel is not ported in this slice")
 
@@ -189,14 +199,17 @@ def params_from_numpy(tree, device=DEFAULT_DEVICE, dtype=None):
     dev = resolve_device(device)
     td = None if dtype is None else torch_dtype(dtype)
 
-    def conv(node):
+    def conv(node, cast=True):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            # a quantized weight's int8 codes and fp32 scales keep their
+            # dtypes whatever ``dtype`` says
+            cast = cast and not ("scale" in node and "qw" in node)
+            return {k: conv(v, cast) for k, v in node.items()}
         a = np.asarray(node)
         if not (a.flags.writeable and a.flags.c_contiguous):
             a = np.array(a, order="C")    # own, writable host memory
         t = torch.from_numpy(a)
-        if td is not None and t.is_floating_point():
+        if cast and td is not None and t.is_floating_point():
             t = t.to(td)
         return t.to(dev)
     return conv(tree)
@@ -204,7 +217,8 @@ def params_from_numpy(tree, device=DEFAULT_DEVICE, dtype=None):
 
 def load_params_npz(path, device=DEFAULT_DEVICE):
     """Read an npz written by ``paddle_tpu.models.gpt.save_params_npz``
-    ('/'-joined key paths) into the port's params on ``device``."""
+    ('/'-joined key paths) into the port's params on ``device``; a
+    quantized tree's ``{"qw", "scale"}`` leaves keep int8 and fp32."""
     tree = {}
     with np.load(path) as z:
         for key in z.files:
@@ -222,11 +236,13 @@ def prepare_params(params, cfg: GPTConfig):
     compute dtype).  Eager PyTorch would otherwise cast the fp32 masters on
     every call; the cast is the same, so results are unchanged.  LayerNorm
     weights and the embedding tables stay in master precision, as the
-    JAX forward reads them."""
+    JAX forward reads them.  Quantized weights (:func:`quantize_params`)
+    stay as they are: no float copy of them is made."""
     cd = torch_dtype(cfg.dtype)
     blocks = dict(params["blocks"])
     for k in _MATMUL_LEAVES:
-        blocks[k] = _c(blocks[k], cd)
+        if not _is_qweight(blocks[k]):
+            blocks[k] = _c(blocks[k], cd)
     out = dict(params)
     out["blocks"] = blocks
     out["wte_cd"] = _c(params["wte"], cd)
@@ -234,12 +250,103 @@ def prepare_params(params, cfg: GPTConfig):
 
 
 def layer(params, i):
-    """Per-layer view (no leading ``[L]`` axis) of the stacked blocks."""
-    return {k: v[i] for k, v in params["blocks"].items()}
+    """Per-layer view (no leading ``[L]`` axis) of the stacked blocks;
+    a quantized leaf's ``qw`` and ``scale`` are indexed alike."""
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if _is_qweight(v)
+                else v[i])
+            for k, v in params["blocks"].items()}
 
 
 def _c(w, dt):
     return w if w.dtype == dt else w.to(dt)
+
+
+# --------------------------------------------------------------------------
+# weight-only quantization
+# --------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "int8_dynamic", "fp8")
+
+
+def _qleaf_mode(w):
+    """The quant mode a quantized leaf was made for."""
+    if "qw_dyn" in w:
+        return "int8_dynamic"
+    return "fp8" if w["qw"].dtype == torch.float8_e4m3fn else "int8"
+
+
+def quantize_params(params, quant="int8"):
+    """Weight-only storage quantization of the serving params (the
+    reference's ``quantize_params``).  The four block matmul weights
+    become ``{"qw": [L, K, ...out], "scale": fp32 [L, 1, ...out]}`` dict
+    leaves, one scale per output channel over the contraction axis;
+    embeddings, biases, LayerNorms and the tied head stay in master
+    precision.  Modes:
+
+    * ``"int8"``: absmax scales, codes ``clip(round(w / s), -127, 127)``
+      (round half to even, as ``jnp.round``); the matmuls launch the
+      dequant-matmul kernel.
+    * ``"int8_dynamic"``: the same int8 codes under the key ``"qw_dyn"``;
+      activations are quantized per row on each call and the product is
+      int8 x int8 -> int32 (``quantization.int8_dynamic_matmul``).
+    * ``"fp8"``: float8 e4m3 codes with absmax / 448 scales; the matmul
+      is the plain dequantize-then-multiply of the reference, which has
+      no kernel for it either.
+
+    Leaves already quantized for the same mode (a checkpoint written by
+    the reference's ``save_params_npz``) are kept as they are."""
+    if quant not in QUANT_MODES:
+        raise ValueError(
+            f"unknown quant mode {quant!r}; expected one of {QUANT_MODES}")
+    blocks = dict(params["blocks"])
+    if "moe_w1" in blocks:
+        raise ValueError(
+            "MoE expert weights have no quantized serving path; quant= "
+            "needs a dense-FFN model (moe_experts=0)")
+    for name in _QUANT_LEAVES:
+        w = blocks[name]
+        if _is_qweight(w):
+            if _qleaf_mode(w) != quant:
+                raise ValueError(
+                    f"{name}: a leaf quantized for {_qleaf_mode(w)!r} "
+                    f"cannot serve quant={quant!r}")
+            continue
+        w = w.float()
+        if quant == "fp8":
+            # e4m3's largest normal is 448: absmax scaling never saturates
+            s = torch.clamp(w.abs().amax(1, keepdim=True) / 448.0,
+                            min=1e-8)
+            qw = (w / s).to(torch.float8_e4m3fn)
+        else:
+            keep = tuple(i for i in range(w.dim()) if i != 1)
+            s = quant_absmax_scale(w, axis=keep).unsqueeze(1)
+            qw = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+        key = "qw_dyn" if quant == "int8_dynamic" else "qw"
+        blocks[name] = {key: qw, "scale": s.float()}
+    out = dict(params)
+    out["blocks"] = blocks
+    return out
+
+
+def _is_qweight(w):
+    return isinstance(w, dict)
+
+
+def _q_matmul(x, w, cd):
+    """x [..., K] through a per-layer quantized weight dict (the ``[L]``
+    axis stripped by :func:`layer`).  Returns [..., *out] in ``cd``."""
+    qw = w["qw_dyn"] if "qw_dyn" in w else w["qw"]
+    out_shape = qw.shape[1:]
+    w2 = qw.reshape(qw.shape[0], -1)
+    if "qw_dyn" in w:
+        y = int8_dynamic_matmul(x, w2, w["scale"].reshape(-1))
+    elif qw.dtype == torch.float8_e4m3fn:
+        # the reference's fp8 path is its plain fallback on every device
+        K = qw.shape[0]
+        y = _ref_dequant_matmul(x.reshape(-1, K), w2, w["scale"])
+    else:
+        y = dequant_matmul(x, w2, w["scale"])
+    return _c(y.reshape(*x.shape[:-1], *out_shape), cd)
 
 
 # --------------------------------------------------------------------------
@@ -271,28 +378,34 @@ def block_apply(cfg: GPTConfig, x, blk, attn_fn=None):
     ``attn_fn(q, k, v) -> ([B, N, nh, hd], aux)`` swaps the attention inner
     loop (the cached and paged decoders pass one); default is dense causal
     attention with aux None."""
-    _check_slice(cfg)
+    _check_slice(cfg, quant_ffn=_is_qweight(blk["fc1_w"]))
     cd = torch_dtype(cfg.dtype)
     B, N, H = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     ln = _norm_fn(cfg)
     eps = cfg.layer_norm_eps
 
+    def mm(a, name):     # a [..., K] @ blk[name] [K, *out] -> [..., *out]
+        w = blk[name]
+        if _is_qweight(w):
+            return _q_matmul(a, w, cd)
+        w = _c(w, cd)
+        y = a @ w.reshape(w.shape[0], -1)
+        return y.reshape(*a.shape[:-1], *w.shape[1:])
+
     h = ln(x, blk["ln1_g"], blk["ln1_b"], eps)
-    qkv = h @ _c(blk["qkv_w"], cd).reshape(H, 3 * H)
-    qkv = qkv.reshape(B, N, 3, H) + _c(blk["qkv_b"], cd)
+    qkv = mm(h, "qkv_w") + _c(blk["qkv_b"], cd)             # [B, N, 3, H]
     q, k, v = [qkv[:, :, i].reshape(B, N, nh, hd) for i in range(3)]
     if attn_fn is None:
         a, aux = _attention(q, k, v, cfg), None
     else:
         a, aux = attn_fn(q, k, v)
     a = a.reshape(B, N, H)
-    x = x + (a @ _c(blk["proj_w"], cd) + _c(blk["proj_b"], cd))
+    x = x + (mm(a, "proj_w") + _c(blk["proj_b"], cd))
 
     h = ln(x, blk["ln2_g"], blk["ln2_b"], eps)
-    h = F.gelu(h @ _c(blk["fc1_w"], cd) + _c(blk["fc1_b"], cd),
-               approximate="tanh")
-    h = h @ _c(blk["fc2_w"], cd) + _c(blk["fc2_b"], cd)
+    h = F.gelu(mm(h, "fc1_w") + _c(blk["fc1_b"], cd), approximate="tanh")
+    h = mm(h, "fc2_w") + _c(blk["fc2_b"], cd)
     x = x + h
     return x if attn_fn is None else (x, aux)
 
@@ -336,8 +449,14 @@ def run_blocks(cfg: GPTConfig, params, x):
     # The matmul leaves are cast to the compute dtype here, once, not in
     # every block and again in every remat recompute.
     cd = torch_dtype(cfg.dtype)
-    stacks = {k: (_c(v, cd) if k in _MATMUL_LEAVES else v).unbind(0)
-              for k, v in params["blocks"].items()}
+
+    def unbind(k, v):
+        if _is_qweight(v):
+            parts = {kk: vv.unbind(0) for kk, vv in v.items()}
+            return [{kk: p[i] for kk, p in parts.items()}
+                    for i in range(cfg.num_layers)]
+        return (_c(v, cd) if k in _MATMUL_LEAVES else v).unbind(0)
+    stacks = {k: unbind(k, v) for k, v in params["blocks"].items()}
     for i in range(cfg.num_layers):
         blk = {k: s[i] for k, s in stacks.items()}
         if remat:
@@ -537,3 +656,80 @@ def decode_step_paged(params, tokens, cfg: GPTConfig, cache_k, cache_v,
                                     cache_v[i], page_table, wp, wo, lens)
     logits = _head(cfg, params, x)
     return logits[:, 0], cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# int8 paged KV pool
+# --------------------------------------------------------------------------
+# A token's K/V are quantized once, when written: per position and head,
+# an absmax scale over hd.  Same prompt and params give the same bytes and
+# scales, which keeps shared prefix pages content-deterministic for the
+# pager's hash.  Reads dequantize inside the paged-attention kernel.
+
+def quantize_kv(x):
+    """Per-position-per-head absmax int8: x [..., nh, hd] float ->
+    (q int8 same shape, scale fp32 [..., nh])."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def dequantize_kv(q, s, dtype):
+    """Inverse of :func:`quantize_kv` (up to rounding)."""
+    return (q.float() * s[..., None]).to(torch_dtype(dtype))
+
+
+def init_paged_cache_quant(cfg: GPTConfig, num_pages, page_size,
+                           device=DEFAULT_DEVICE):
+    """int8 paged KV pool and its scales: {'k','v': int8 [L, P, ps, nh,
+    hd], 'k_scale','v_scale': fp32 [L, P, ps, nh]}.  Page 0 stays the
+    scratch page."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev)}
+
+
+def _paged_slot_block_quant(cfg, x, blk, k_pages, k_scale, v_pages,
+                            v_scale, page_table, write_pages, write_offs,
+                            lens):
+    """:func:`_paged_slot_block` over the int8 pool: each slot's new K/V
+    are quantized on write (codes at (write_pages[s], write_offs[s]), the
+    scale at the same coordinate of the scale arrays, in place) and its
+    query attends through the int8 paged-attention wrapper."""
+    def pattn(q, k, v):
+        # K and V quantized in one pass (per position and head, so the
+        # same codes and scales as two): [2, S, nh, hd] -> int8, [2, S, nh]
+        codes, scales = quantize_kv(torch.stack((k[:, 0], v[:, 0])))
+        k_pages[write_pages, write_offs] = codes[0]
+        k_scale[write_pages, write_offs] = scales[0]
+        v_pages[write_pages, write_offs] = codes[1]
+        v_scale[write_pages, write_offs] = scales[1]
+        a = paged_attention_quant(q.contiguous(), k_pages, k_scale, v_pages,
+                                  v_scale, page_table, lens)
+        return a, None
+
+    x, _ = block_apply(cfg, x, blk, attn_fn=pattn)
+    return x, k_pages, k_scale, v_pages, v_scale
+
+
+def decode_step_paged_quant(params, tokens, cfg: GPTConfig, cache_k,
+                            k_scale, cache_v, v_scale, page_table,
+                            write_pages, write_offs, lens):
+    """:func:`decode_step_paged` over the int8 pool (written in place).
+    Returns (logits [S, V] fp32, cache_k, k_scale, cache_v, v_scale)."""
+    wp, wo = write_pages.long(), write_offs.long()
+    x = params["wte"][tokens.long()] + params["wpe"][lens.long()]
+    x = x[:, None, :].to(torch_dtype(cfg.dtype))           # [S, 1, H]
+    for i in range(cfg.num_layers):
+        x, *_ = _paged_slot_block_quant(
+            cfg, x, layer(params, i), cache_k[i], k_scale[i], cache_v[i],
+            v_scale[i], page_table, wp, wo, lens)
+    logits = _head(cfg, params, x)
+    return logits[:, 0], cache_k, k_scale, cache_v, v_scale

@@ -27,6 +27,9 @@
 // thread are in flight.  The groups' partial states are merged once, in
 // shared memory, at the end.
 //
+// The same walk over an int8 pool with per-position, per-head scales
+// (paged_decode_q8, replacing _paged_decode_kernel_quant) follows below.
+//
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/
 // paged_attn.py); dtype codes: 0 = float32, 1 = bfloat16.
 #include <cuda_bf16.h>
@@ -179,6 +182,161 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// int8 pool: replaces paddle_tpu/ops/pallas/paged_attn.py::
+// _paged_decode_kernel_quant (launched by _paged_attention_quant_tpu).
+// K/V pages are int8 [P, ps, nh, hd] with fp32 scales [P, ps, nh], one per
+// position per head.  Same walk, groups and merge as paged_decode; each of
+// the G threads of a position reads 16 int8 elements (one 16-byte load) of
+// K and of V plus the position's two scales, so hd = 16 * G.  The casts
+// follow the Pallas kernel: q and K dequantize to fp32 (int8 * scale) and
+// the scores are fp32; V dequantizes to fp32 and is then cast to the
+// compute dtype T, as is p, before p.V accumulates in fp32.  Bound: bytes,
+// about 1 byte per K/V element plus 8 bytes of scales per position and
+// head, against 2-4 bytes per element in the fp pool.
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ void load_q16(const T* __restrict__ p,
+                                         float (&out)[16]) {
+  constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int c = 0; c < 16 / V; ++c) {
+    float part[V];
+    load16<T>(p + c * V, part);
+#pragma unroll
+    for (int k = 0; k < V; ++k) out[c * V + k] = part[k];
+  }
+}
+
+// grid (nh, S); G threads per position, hd == 16 * G.
+template <typename T, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
+                const float* __restrict__ ksc, const int8_t* __restrict__ vp,
+                const float* __restrict__ vsc, const int* __restrict__ table,
+                const int* __restrict__ lens, T* __restrict__ out, int nh,
+                int P, int ps, int maxP, float scale_div) {
+  constexpr int HD = 16 * G;
+  constexpr int NG = THREADS / G;  // position groups per block
+  __shared__ float sm_m[NG], sm_l[NG];
+  __shared__ float sm_acc[NG][HD];
+
+  const int h = blockIdx.x, s = blockIdx.y;
+  const int gi = threadIdx.x / G, li = threadIdx.x % G;
+  const int view = maxP * ps;
+  const int n = max(0, min(__ldg(lens + s) + 1, view));
+  const int* trow = table + (long long)s * maxP;
+  const long long pos_stride = (long long)nh * HD;
+  const long long page_stride = (long long)ps * pos_stride;
+  const long long head_off = (long long)h * HD + li * 16;
+
+  float qf[16];
+  load_q16<T>(q + ((long long)s * nh + h) * HD + li * 16, qf);
+  float m = NEG_INF, l = 0.f;
+  float acc[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) acc[k] = 0.f;
+
+  // the trip count is uniform over the block, so every lane reaches the
+  // shuffles in group_sum
+  for (int base = 0; base < n; base += NG * U) {
+    uint4 kr[U], vr[U];
+    float ks[U], vs[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = base + u * NG + gi;
+      ok[u] = p < n;
+      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      ks[u] = vs[u] = 0.f;
+      if (ok[u]) {
+        int pid = __ldg(trow + p / ps);
+        pid = min(max(pid, 0), P - 1);
+        const long long row = (long long)pid * ps + p % ps;
+        const long long off = row * pos_stride + head_off;
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kp + off));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vp + off));
+        ks[u] = __ldg(ksc + row * nh + h);
+        vs[u] = __ldg(vsc + row * nh + h);
+      }
+    }
+    float sc[U];
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int8_t* kb = reinterpret_cast<const int8_t*>(&kr[u]);
+      float d = 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) d += qf[k] * ((float)kb[k] * ks[u]);
+      d = group_sum<G>(d);
+      sc[u] = ok[u] ? d / scale_div : NEG_INF;
+      mx = fmaxf(mx, sc[u]);
+    }
+    const float alpha = expf(m - mx);
+    l *= alpha;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc[k] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float pu = ok[u] ? expf(sc[u] - mx) : 0.f;
+      l += pu;
+      const float pc = to_f(from_f<T>(pu));  // p cast to the compute dtype
+      const int8_t* vb = reinterpret_cast<const int8_t*>(&vr[u]);
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        acc[k] += pc * to_f(from_f<T>((float)vb[k] * vs[u]));
+    }
+    m = mx;
+  }
+
+  if (li == 0) {
+    sm_m[gi] = m;
+    sm_l[gi] = l;
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) sm_acc[gi][li * 16 + k] = acc[k];
+  __syncthreads();
+  for (int d = threadIdx.x; d < HD; d += THREADS) {
+    float M = NEG_INF;
+    for (int g = 0; g < NG; ++g) M = fmaxf(M, sm_m[g]);
+    float L = 0.f, A = 0.f;
+    for (int g = 0; g < NG; ++g) {
+      const float w = expf(sm_m[g] - M);
+      L += sm_l[g] * w;
+      A += sm_acc[g][d] * w;
+    }
+    out[((long long)s * nh + h) * HD + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_q8(const void* q, const int8_t* k, const float* ks,
+                        const int8_t* v, const float* vs, const int* table,
+                        const int* lens, void* out, int S, int nh, int hd,
+                        int P, int ps, int maxP, float scale_div,
+                        cudaStream_t st) {
+  const dim3 grid(nh, S);
+  const T* qt = static_cast<const T*>(q);
+  T* ot = static_cast<T*>(out);
+#define PT_Q8_CASE(G_)                                                     \
+  case G_:                                                                 \
+    paged_decode_q8<T, G_><<<grid, THREADS, 0, st>>>(                      \
+        qt, k, ks, v, vs, table, lens, ot, nh, P, ps, maxP, scale_div);    \
+    return cudaGetLastError();
+  if (hd % 16) return cudaErrorInvalidValue;
+  switch (hd / 16) {
+    PT_Q8_CASE(1)
+    PT_Q8_CASE(2)
+    PT_Q8_CASE(4)
+    PT_Q8_CASE(8)
+    PT_Q8_CASE(16)
+    PT_Q8_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PT_Q8_CASE
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* table, const int* lens, void* out, int S,
@@ -222,6 +380,26 @@ extern "C" int pt_paged_attention_fwd(const void* q, const void* k,
   else if (dtype == 1)
     e = dispatch<__nv_bfloat16>(q, k, v, table, lens, out, S, nh, hd, P, ps,
                                 maxP, scale_div, st);
+  return (int)e;
+}
+
+extern "C" int pt_paged_attention_quant_fwd(
+    const void* q, const void* k, const float* k_scale, const void* v,
+    const float* v_scale, const int* table, const int* lens, void* out, int S,
+    int nh, int hd, int P, int ps, int maxP, float scale_div, int dtype,
+    void* stream) {
+  if (S <= 0 || nh <= 0 || P <= 0 || ps <= 0 || maxP <= 0 || S > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* kq = static_cast<const int8_t*>(k);
+  const int8_t* vq = static_cast<const int8_t*>(v);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == 0)
+    e = dispatch_q8<float>(q, kq, k_scale, vq, v_scale, table, lens, out, S,
+                           nh, hd, P, ps, maxP, scale_div, st);
+  else if (dtype == 1)
+    e = dispatch_q8<__nv_bfloat16>(q, kq, k_scale, vq, v_scale, table, lens,
+                                   out, S, nh, hd, P, ps, maxP, scale_div, st);
   return (int)e;
 }
 

@@ -4,11 +4,16 @@ plain PyTorch version.
 Counterpart of ``paddle_tpu/ops/pallas/paged_attn.py``: the kernel
 replaces ``_paged_decode_kernel`` (launched by ``_paged_attention_tpu``),
 and :func:`_ref_paged_attention` mirrors ``_ref_paged_attention`` op for
-op.  Inference only: the decode step never differentiates.
+op.  Over an int8 pool, the kernel ``paged_decode_q8`` of the same source
+replaces ``_paged_decode_kernel_quant`` (launched by
+``_paged_attention_quant_tpu``) and :func:`_ref_paged_attention_quant`
+mirrors its namesake.  Inference only: the decode step never
+differentiates.
 
-:func:`paged_attention` takes the plain version for tensors on the CPU and
-launches the kernel for tensors on a CUDA device; it never falls back from
-one to the other.  ``launches`` counts kernel launches.
+:func:`paged_attention` and :func:`paged_attention_quant` take the plain
+version for tensors on the CPU and launch the kernel for tensors on a CUDA
+device; they never fall back from one to the other.  ``launches`` and
+``quant_launches`` count their kernel launches.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from . import build
 NEG_INF = -1e30
 
 launches = 0
+quant_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -52,6 +58,16 @@ def _ref_paged_attention(q, k_pages, v_pages, page_table, lens):
     return torch.einsum("shqk,skhd->sqhd", probs, vc.to(cd))
 
 
+def _ref_paged_attention_quant(q, k_pages, k_scale, v_pages, v_scale,
+                               page_table, lens):
+    """Dequantize the int8 pool to fp32 (``int8 * scale`` per position per
+    head) and run :func:`_ref_paged_attention` on it.  k/v_pages: int8
+    [P, ps, nh, hd]; k/v_scale: fp32 [P, ps, nh]."""
+    return _ref_paged_attention(
+        q, k_pages.float() * k_scale[..., None],
+        v_pages.float() * v_scale[..., None], page_table, lens)
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -60,53 +76,67 @@ def _kernel():
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        qfn = lib.pt_paged_attention_quant_fwd
+        qfn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        qfn.restype = ctypes.c_int
         lib.pt_error_string.argtypes = [ctypes.c_int]
         lib.pt_error_string.restype = ctypes.c_char_p
-        _fn = (lib, fn)
+        _fn = (lib, fn, qfn)
     return _fn
 
 
-def _check_cuda(q, k_pages, v_pages, page_table, lens):
+def _check_operands(what, q, k_pages, v_pages, page_table, lens,
+                    scales=()):
+    """The checks both kernels share: one device, contiguous operands,
+    16-byte aligned q and pages, q [S, 1, nh, hd] in float32 or bfloat16,
+    pages [P, ps, nh, hd], int32 table [S, maxP] and lens [S]."""
     dev = q.device
     named = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-             ("page_table", page_table), ("lens", lens))
+             *scales, ("page_table", page_table), ("lens", lens))
     for name, t in named:
         if t.device != dev:
-            raise ValueError(
-                f"paged_attention: {name} on {t.device}, q on {dev}")
+            raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_attention: {name} must be contiguous")
-        if t.data_ptr() % 16 and name not in ("page_table", "lens"):
-            raise ValueError(f"paged_attention: {name} not 16-byte aligned")
+            raise ValueError(f"{what}: {name} must be contiguous")
+    for name, t in named[:3]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} not 16-byte aligned")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"paged_attention: q dtype {q.dtype}; the kernel "
-                        "takes float32 or bfloat16")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("paged_attention: k/v pages must have q's dtype "
-                        f"({q.dtype}), got {k_pages.dtype}/{v_pages.dtype}")
+        raise TypeError(f"{what}: q dtype {q.dtype}; the kernel takes "
+                        "float32 or bfloat16")
     if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise TypeError("paged_attention: page_table and lens must be int32")
+        raise TypeError(f"{what}: page_table and lens must be int32")
     if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"paged_attention: q must be [S, 1, nh, hd], got "
+        raise ValueError(f"{what}: q must be [S, 1, nh, hd], got "
                          f"{tuple(q.shape)}")
     S, _, nh, hd = q.shape
     if (k_pages.dim() != 4 or tuple(k_pages.shape[2:]) != (nh, hd)
             or v_pages.shape != k_pages.shape):
         raise ValueError(
-            f"paged_attention: pages {tuple(k_pages.shape)} / "
+            f"{what}: pages {tuple(k_pages.shape)} / "
             f"{tuple(v_pages.shape)} must both be [P, ps, {nh}, {hd}]")
     if (page_table.dim() != 2 or page_table.shape[0] != S
             or tuple(lens.shape) != (S,)):
         raise ValueError(
-            f"paged_attention: page_table {tuple(page_table.shape)} must be "
+            f"{what}: page_table {tuple(page_table.shape)} must be "
             f"[{S}, maxP] and lens {tuple(lens.shape)} must be [{S}]")
+    if S > 65535:
+        raise ValueError(f"{what}: S={S} exceeds 65535 slots")
+
+
+def _check_cuda(q, k_pages, v_pages, page_table, lens):
+    _check_operands("paged_attention", q, k_pages, v_pages, page_table,
+                    lens)
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("paged_attention: k/v pages must have q's dtype "
+                        f"({q.dtype}), got {k_pages.dtype}/{v_pages.dtype}")
+    hd = q.shape[-1]
     row_bytes = hd * q.element_size()
     if row_bytes not in (64, 128, 256, 512):
         raise ValueError(
             f"paged_attention: hd={hd} x {q.element_size()} bytes must be "
             "64, 128, 256 or 512 bytes (4 to 32 threads of 16 bytes)")
-    if S > 65535:
-        raise ValueError(f"paged_attention: S={S} exceeds 65535 slots")
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lens):
@@ -123,7 +153,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lens):
     S, _, nh, hd = q.shape
     P, ps = k_pages.shape[:2]
     out = torch.empty_like(q)
-    lib, fn = _kernel()
+    lib, fn, _ = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -132,4 +162,62 @@ def paged_attention(q, k_pages, v_pages, page_table, lens):
                  _DTYPE_CODE[q.dtype], stream)
     build.check(lib, err, "paged_attention")
     launches += 1
+    return out
+
+
+def _check_cuda_quant(q, k_pages, k_scale, v_pages, v_scale, page_table,
+                      lens):
+    what = "paged_attention_quant"
+    _check_operands(what, q, k_pages, v_pages, page_table, lens,
+                    (("k_scale", k_scale), ("v_scale", v_scale)))
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise TypeError(f"{what}: k/v pages must be int8, got "
+                        f"{k_pages.dtype}/{v_pages.dtype}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"{what}: k/v scales must be float32")
+    if (k_scale.shape != k_pages.shape[:3]
+            or v_scale.shape != k_pages.shape[:3]):
+        raise ValueError(
+            f"{what}: scales {tuple(k_scale.shape)} / "
+            f"{tuple(v_scale.shape)} must both be "
+            f"{tuple(k_pages.shape[:3])}")
+    # one 16-byte load of int8 K and V per thread: hd = 16 * G threads,
+    # G a power of two up to a warp
+    hd = q.shape[-1]
+    if hd % 16 or (hd // 16) & (hd // 16 - 1) or hd > 512:
+        raise ValueError(
+            f"{what}: hd={hd} must be 16, 32, 64, 128, 256 or 512 (1 to "
+            "32 threads of 16 int8 elements)")
+
+
+def paged_attention_quant(q, k_pages, k_scale, v_pages, v_scale,
+                          page_table, lens):
+    """Decode attention through a page table over the int8 pool.  q:
+    [S, 1, nh, hd] float32 or bfloat16; k/v_pages: int8 [P, ps, nh, hd];
+    k/v_scale: fp32 [P, ps, nh]; page_table: int32 [S, maxP]; lens: int32
+    [S].  Returns [S, 1, nh, hd] in q's dtype.  Any page size: the
+    TPU kernel's ``page_size % 32`` rule is a sublane rule of int8 tiles
+    and does not apply here."""
+    global quant_launches
+    if q.device.type == "cpu":
+        return _ref_paged_attention_quant(q, k_pages, k_scale, v_pages,
+                                          v_scale, page_table, lens)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_attention_quant: unsupported device {q.device}")
+    _check_cuda_quant(q, k_pages, k_scale, v_pages, v_scale, page_table,
+                      lens)
+    S, _, nh, hd = q.shape
+    P, ps = k_pages.shape[:2]
+    out = torch.empty_like(q)
+    lib, _, qfn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = qfn(q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
+                  v_pages.data_ptr(), v_scale.data_ptr(),
+                  page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                  S, nh, hd, P, ps, page_table.shape[1], math.sqrt(hd),
+                  _DTYPE_CODE[q.dtype], stream)
+    build.check(lib, err, "paged_attention_quant")
+    quant_launches += 1
     return out

@@ -16,7 +16,12 @@ the plain version casts the normalised ones, 2**-8 plus 2**-6 of each
 element's own size for flash-attention gradients and, for its outputs, of
 sum_j p_j |v_j| (both sides round every p_j, so that sum bounds the
 error; bf16 rounding is relative, so the bound follows the element), and
-one step (2**-7) for LayerNorm.
+one step (2**-7) for LayerNorm.  The quantized path: the dequant matmul
+within 1e-5 of max|ref| in fp32 and 2**-8 + 2**-6 |ref| per element in
+bf16 (the kernel rounds once, the plain version twice); int8 paged
+attention within 1e-5 in fp32 and 2**-8 + 2**-6 sum_j p_j |v_j| per
+element, capped at 2e-2, in bf16; the fp32 quantized engine on the card
+against the CPU: tokens exact, logits within 1e-3.
 """
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ import torch
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import gpt as T
 from paddle_tpu_torch.ops.cuda import build, flash_attn, norms, paged_attn
+from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm
 
 pytestmark = pytest.mark.cuda
 
@@ -41,6 +47,7 @@ def dev():
         pytest.skip(str(e))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -237,3 +244,162 @@ def test_layer_norm_gradients_on_card_match_plain(dev, dtype):
                                (x, g, b), dy)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+def _per_element(got, ref, scale, cap=None):
+    """Worst |got - ref| / (2**-8 + 2**-6 |scale|) (at most ``cap``)."""
+    den = 2.0 ** -8 + 2.0 ** -6 * scale.float().abs()
+    if cap is not None:
+        den = den.clamp(max=cap)
+    return float(((got.float() - ref.float()).abs() / den).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(8, 1024, 3072), (8, 4096, 1024),
+                                   (3, 128, 256), (1000, 1024, 4096),
+                                   (128, 256, 128)])
+def test_dequant_matmul_kernel_matches_plain(dev, dtype, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn(M, K, device=dev, generator=g).to(dtype)
+    w = torch.randint(-127, 128, (K, N), device=dev, generator=g,
+                      dtype=torch.int8)
+    s = (torch.rand(N, device=dev, generator=g) + 0.1) / 64
+    before = dqmm.launches
+    out = dqmm.dequant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert dqmm.launches == before + 1 and out.dtype == dtype
+    ref = dqmm._ref_dequant_matmul(x, w, s)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+    else:
+        assert _per_element(out, ref, ref) <= 1.0
+    # twice in a row: the split-K tickets are back at 0 after a launch
+    torch.testing.assert_close(dqmm.dequant_matmul(x, w, s), out, rtol=0,
+                               atol=0)
+
+
+def test_dequant_matmul_takes_strided_rows_and_refuses_by_name(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    base = torch.randn(6, 2, 3, 128, device=dev, generator=g)
+    x = base[:, 1, 1]                       # rows 768 floats apart
+    w = torch.randint(-127, 128, (128, 256), device=dev, generator=g,
+                      dtype=torch.int8)
+    s = torch.rand(256, device=dev, generator=g) + 0.1
+    ref = dqmm._ref_dequant_matmul(x, w, s)
+    torch.testing.assert_close(dqmm.dequant_matmul(x, w, s), ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    with pytest.raises(TypeError, match="int8 weights only"):
+        dqmm.dequant_matmul(x, w.float(), s)
+    with pytest.raises(ValueError, match="multiple"):
+        dqmm.dequant_matmul(x[:, :120], w[:120, :200].contiguous(), s[:200])
+
+
+def _paged_quant(dev, dtype, S, nh, hd, ps, maxP, lens):
+    args = _paged(np.random.default_rng(hd + S), dev, torch.float32, S, nh,
+                  hd, ps, maxP, lens)
+    q, k, v, table, lens_t = args
+    kq, ks = T.quantize_kv(k)
+    vq, vs = T.quantize_kv(v)
+    return (2 * q).to(dtype), kq, ks, vq, vs, table, lens_t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_paged_attention_quant_kernel_matches_plain(dev, dtype, hd):
+    ps, maxP = 16, 32
+    lens = [0, ps - 1, ps, maxP * ps - 1] + list(range(5, 500, 71))
+    args = _paged_quant(dev, dtype, len(lens), 8, hd, ps, maxP, lens)
+    before = (paged_attn.launches, paged_attn.quant_launches)
+    out = paged_attn.paged_attention_quant(*args)
+    torch.cuda.synchronize()
+    assert (paged_attn.launches, paged_attn.quant_launches) == (
+        before[0], before[1] + 1)
+    ref = paged_attn._ref_paged_attention_quant(*args)
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=FP32_TOL, rtol=0)
+    else:
+        q, kq, ks, vq, vs, table, lens_t = args
+        scale = paged_attn._ref_paged_attention_quant(q, kq, ks, vq.abs(),
+                                                      vs, table, lens_t)
+        assert _per_element(out, ref, scale, cap=2e-2) <= 1.0
+
+
+def test_paged_attention_quant_refuses_by_name(dev):
+    q, kq, ks, vq, vs, table, lens = _paged_quant(dev, torch.float32, 2, 2,
+                                                  64, 16, 2, [3, 20])
+    with pytest.raises(TypeError, match="int8"):
+        paged_attn.paged_attention_quant(q, kq.float(), ks, vq, vs, table,
+                                         lens)
+    with pytest.raises(TypeError, match="int32"):
+        paged_attn.paged_attention_quant(q, kq, ks, vq, vs, table.long(),
+                                         lens)
+
+
+def test_quantized_engine_on_card_matches_cpu(dev):
+    """``quant="int8", kv_dtype="int8"`` in fp32 at 2 layers of
+    ``gpt_345m`` widths (a smaller vocabulary): the card (kernels) and the
+    CPU (plain versions) give the same tokens and logits within 1e-3;
+    every forward launches 4L dequant matmuls, every decode step L int8
+    paged attentions."""
+    cfg = T.GPTConfig(vocab_size=4096, hidden_size=1024, num_layers=2,
+                      num_heads=16, max_seq_len=256, dtype="float32",
+                      use_flash=False, remat=False, use_pallas_norm=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 4096, (n,)).astype(np.int32)
+               for n in (9, 40, 17, 64)]
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        eng = PagedServingEngine((params, cfg), device=d, quant="int8",
+                                 kv_dtype="int8", slots=4, max_len=128,
+                                 page_size=16, capture_logits=True)
+        before = (dqmm.launches, paged_attn.quant_launches)
+        reqs = [eng.submit(p, 12) for p in prompts]
+        eng.run()
+        st = eng.stats()
+        fwd = st["decode_steps"] + st["prefill_calls"]
+        if d.type == "cuda":
+            assert (dqmm.launches - before[0],
+                    paged_attn.quant_launches - before[1]) == (
+                4 * 2 * fwd, 2 * st["decode_steps"])
+            assert st["dequant_kernel_calls"] == 8 * fwd + 2 * st[
+                "decode_steps"]
+        runs[d.type] = reqs
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert a.tokens == b.tokens
+        err = max(float(np.abs(x - y).max())
+                  for x, y in zip(a.logits, b.logits))
+        assert err <= 1e-3, err
+
+
+@pytest.mark.parametrize("quant", ["int8_dynamic", "fp8"])
+def test_other_weight_modes_on_card_match_cpu(dev, quant):
+    """The reference has no kernel for these modes: ``int8_dynamic`` runs
+    ``torch._int_mm`` (rows padded past its CUDA minimum), ``fp8``
+    dequantizes in plain PyTorch.  fp32, card against CPU: tokens exact,
+    logits within 1e-3; no dequant-matmul launch."""
+    cfg = T.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                      num_heads=4, max_seq_len=128, dtype="float32",
+                      use_flash=False, remat=False, use_pallas_norm=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(4),
+                           device="cpu")
+    prompts = [np.arange(1, n + 1, dtype=np.int32) * 7 % 512
+               for n in (5, 19, 33)]
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        eng = PagedServingEngine((params, cfg), device=d, quant=quant,
+                                 kv_dtype="int8", slots=4, max_len=64,
+                                 page_size=16, capture_logits=True)
+        before = dqmm.launches
+        reqs = [eng.submit(p, 8) for p in prompts]
+        eng.run()
+        assert dqmm.launches == before
+        runs[d.type] = reqs
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert a.tokens == b.tokens
+        err = max(float(np.abs(x - y).max())
+                  for x, y in zip(a.logits, b.logits))
+        assert err <= 1e-3, err

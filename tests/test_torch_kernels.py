@@ -153,9 +153,10 @@ def test_resolve_device_without_gpu(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
-    """Every module of the port, imported in a fresh interpreter, leaves
-    ``jax`` and ``paddle_tpu`` out of ``sys.modules`` (exact keys: the
-    port's own name starts with ``paddle_tpu``)."""
+    """Every module of the port, imported in a fresh interpreter (the
+    quantized path's ``quantization`` and ``ops.cuda.dequant_matmul``
+    among them), leaves ``jax`` and ``paddle_tpu`` out of ``sys.modules``
+    (exact keys: the port's own name starts with ``paddle_tpu``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import importlib, pkgutil, sys\n"
@@ -165,6 +166,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in ('jax', 'jaxlib', 'paddle_tpu') if k in sys.modules]\n"
         "bad += [k for k in sys.modules if k.startswith(('jax.', 'paddle_tpu.'))]\n"
+        "need = ('paddle_tpu_torch.quantization',\n"
+        "        'paddle_tpu_torch.ops.cuda.dequant_matmul',\n"
+        "        'paddle_tpu_torch.ops.cuda.paged_attn')\n"
+        "bad += [k for k in need if k not in sys.modules]\n"
         "print(len([k for k in sys.modules if k.startswith('paddle_tpu_torch')]))\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -172,4 +177,4 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     p = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stdout + p.stderr
-    assert int(p.stdout.strip().splitlines()[-1]) >= 16
+    assert int(p.stdout.strip().splitlines()[-1]) >= 18
