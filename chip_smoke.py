@@ -45,7 +45,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
   (i) only with ``--profile-train STEPS``: a ``torch.profiler`` trace of
       STEPS training steps (device busy ms per step, idle share, device
       time by kernel);
-  (j) the quantized main path: the same ``gpt_345m`` weights served by
+  (j) after (d)-(i), which run as they did before it: the quantized main
+      path, the same ``gpt_345m`` weights served by
       ``PagedServingEngine(quant="int8", kv_dtype="int8", slots=8,
       max_len=512, page_size=16)`` after ``warmup()``, the same 12
       requests x 32 tokens as (d).  Launch counts are zeroed just before
@@ -60,12 +61,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 (c) also holds the two quantized-path kernels against their plain
 versions: the dequant matmul at the four decode shapes (M = 8), the
-prefill shape M = 4096 x (1024, 4096) and the JAX tests' shapes; int8
-paged attention at the serving decode shape, the JAX tests' shapes and a
-lane of length 0.
-
-``--phases`` and ``--kernels`` narrow a run to some phases or kernels
-while a kernel is being worked on; such a run prints no result line.
+prefill shape M = 4096 x (1024, 4096) and the JAX tests' shapes, each
+also timed against cuBLAS on weights dequantized beforehand; int8 paged
+attention at the serving decode shape, the JAX tests' shapes and a lane
+of length 0.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -74,6 +73,7 @@ and convolution here, so fp32 comparisons are fp32.
 """
 import argparse
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -104,14 +104,21 @@ TRAIN_LOSS_RTOL = 1e-5        # (h): card loss vs CPU loss
 TRAIN_GRAD_TOL = 1e-4         # (h): x max|leaf grad on the CPU|
 
 
-ALL_PHASES = "cdeghjk"
-KERNELS = ("paged_attention", "layer_norm", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "dequant_matmul", "paged_attention_quant")
-
-
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def fp32_reduction(torch):
+    """bf16 cuBLAS products reduce in fp32 inside, as the kernels do, for
+    the reference side of a gate only: the port runs cuBLAS's default."""
+    mm = torch.backends.cuda.matmul
+    was = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = was
 
 
 def time_ms(fn, arg_sets, iters):
@@ -266,14 +273,12 @@ def gate(pairs, atol, rtol, cap=None, rows=later_tiles):
     return ok, mut
 
 
-def check_kernels(torch, paged_attn, norms, only):
+def check_kernels(torch, paged_attn, norms):
     """Phase (c).  Returns the per-kernel case lists; raises on a
     disagreement beyond the stated tolerance."""
     rng = np.random.default_rng(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"paged_attention": [], "layer_norm": []}
-    if not {"paged_attention", "layer_norm"} & only:
-        return {}
 
     def paged_case(dt, label, S, maxP, lens, copies):
         sets = paged_inputs(torch, rng, dt, S, 16, 64, 16, maxP, lens,
@@ -549,11 +554,23 @@ def dqmm_bound(M, K, N, dt):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def dequantized_args(x, w_q, scale):
+    """The dequant matmul's operands with the weights and scale cast to
+    ``x.dtype`` beforehand, for :func:`cublas_dequantized`."""
+    return x, w_q.to(x.dtype), scale.to(x.dtype)
+
+
+def cublas_dequantized(x, w, scale):
+    """cuBLAS ``x @ w`` on weights dequantized beforehand, times the
+    scale: a library yardstick that reads twice the weight bytes (bf16)
+    but runs cuBLAS's own GEMM (timed only)."""
+    return (x @ w) * scale
+
+
 def library_dqmm():
     """The library yardstick for the dequant matmul: ``torch.
     _weight_int8pack_mm`` where it runs on this card and torch for the
-    dtype, else cuBLAS ``x @ w`` on weights dequantized beforehand
-    (``w_q.to(dtype)``) times the scale.  Returns (name, make_args, fn)
+    dtype, else :func:`cublas_dequantized`.  Returns (name, make_args, fn)
     per dtype, chosen by a probe call."""
     import torch
     out = {}
@@ -570,9 +587,7 @@ def library_dqmm():
                        torch._weight_int8pack_mm)
         except (RuntimeError, NotImplementedError, AttributeError):
             out[dt] = ("cuBLAS x @ w_q.to(dtype) (dequantized beforehand) "
-                       "* scale",
-                       lambda a, b, c: (a, b.to(a.dtype), c.to(a.dtype)),
-                       lambda a, w, c: (a @ w) * c)
+                       "* scale", dequantized_args, cublas_dequantized)
     return out
 
 
@@ -631,13 +646,16 @@ def paged_quant_bound(q, kq, table, lens):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def check_quant_kernels(torch, gpt, dqmm, paged_attn, only):
+def check_quant_kernels(torch, gpt, dqmm, paged_attn):
     """Phase (c), the quantized path's kernels.  Dequant matmul: fp32
     within 1e-5 x max|ref| (the JAX kernel test's gate); bf16 per element
     |got - ref| <= 2^-8 + 2^-6 |ref| (the kernel rounds once, the plain
     version twice).  Int8 paged attention: fp32 within 1e-5; bf16 per
     element 2^-8 + 2^-6 sum_j p_j |v_j|, capped at 2e-2.  Every case must
-    also reject the wrong-scale mutant.  Returns {kernel: [case, ...]}."""
+    also reject the wrong-scale mutant.  The references of the gates are
+    taken under :func:`fp32_reduction`; every time under cuBLAS's default.
+    Each dequant-matmul case also times :func:`cublas_dequantized`
+    (``library_cublas_ms``).  Returns {kernel: [case, ...]}."""
     rng = np.random.default_rng(SEED + 8)
     bf16, f32 = torch.bfloat16, torch.float32
     out = {}
@@ -659,89 +677,94 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn, only):
             "library": lib_name, "bound_ms": bound[0],
             "bound_by": bound[1]})
 
-    if "dequant_matmul" in only:
-        libs = library_dqmm()
-        shapes = [((8, 1024, 3072), "decode qkv"),
-                  ((8, 1024, 1024), "decode proj"),
-                  ((8, 1024, 4096), "decode fc1"),
-                  ((8, 4096, 1024), "decode fc2"),
-                  ((4096, 1024, 4096), "prefill fc1"),
-                  ((8, 128, 256), "JAX test"), ((128, 256, 128), "JAX test"),
-                  ((32, 128, 512), "JAX test"), ((3, 128, 256), "M=3")]
-        for (M, K, N), name in shapes:
-            # enough weight copies that the replayed calls find them cold
-            # in the 50 MB L2, as the decode path does
-            copies = (max(2, min(64, -(-96 * 2 ** 20 // (K * N))))
-                      if M <= 64 else 2)
-            for dt in (f32, bf16):
-                sets = []
-                for _ in range(copies):
-                    x = torch.randn((M, K), device="cuda").to(dt)
-                    w = torch.randint(-127, 128, (K, N), device="cuda",
-                                      dtype=torch.int8)
-                    sc = (torch.rand(N, device="cuda") + 0.1) / 64
-                    sets.append((x, w, sc))
-                got = dqmm.dequant_matmul(*sets[0])
-                torch.cuda.synchronize()
+    libs = library_dqmm()
+    shapes = [((8, 1024, 3072), "decode qkv"),
+              ((8, 1024, 1024), "decode proj"),
+              ((8, 1024, 4096), "decode fc1"),
+              ((8, 4096, 1024), "decode fc2"),
+              ((4096, 1024, 4096), "prefill fc1"),
+              ((8, 128, 256), "JAX test"), ((128, 256, 128), "JAX test"),
+              ((32, 128, 512), "JAX test"), ((3, 128, 256), "M=3")]
+    for (M, K, N), name in shapes:
+        # enough weight copies that the replayed calls find them cold
+        # in the 50 MB L2, as the decode path does
+        copies = (max(2, min(64, -(-96 * 2 ** 20 // (K * N))))
+                  if M <= 64 else 2)
+        for dt in (f32, bf16):
+            sets = []
+            for _ in range(copies):
+                x = torch.randn((M, K), device="cuda").to(dt)
+                w = torch.randint(-127, 128, (K, N), device="cuda",
+                                  dtype=torch.int8)
+                sc = (torch.rand(N, device="cuda") + 0.1) / 64
+                sets.append((x, w, sc))
+            got = dqmm.dequant_matmul(*sets[0])
+            torch.cuda.synchronize()
+            with fp32_reduction(torch):
                 ref = dqmm._ref_dequant_matmul(*sets[0])
-                if dt == f32:
-                    atol = DQMM_FP32_RTOL * float(ref.abs().max())
-                    rtol = 0.0
-                else:
-                    atol, rtol = BF16_ATOL, BF16_RTOL
-                lname, largs, lfn = libs[dt]
-                lib_sets = [largs(*a) for a in sets]
-                record("dequant_matmul", dt,
-                       f"[{M}, {K}] x [{K}, {N}] ({name})", got, ref, ref,
-                       atol, rtol, sets, dqmm.dequant_matmul,
-                       dqmm._ref_dequant_matmul, (lib_sets, lfn),
-                       dqmm_bound(M, K, N, dt), lib_name=lname)
-                del sets, lib_sets
-        torch.cuda.empty_cache()
+            if dt == f32:
+                atol = DQMM_FP32_RTOL * float(ref.abs().max())
+                rtol = 0.0
+            else:
+                atol, rtol = BF16_ATOL, BF16_RTOL
+            lname, largs, lfn = libs[dt]
+            lib_sets = [largs(*a) for a in sets]
+            record("dequant_matmul", dt,
+                   f"[{M}, {K}] x [{K}, {N}] ({name})", got, ref, ref,
+                   atol, rtol, sets, dqmm.dequant_matmul,
+                   dqmm._ref_dequant_matmul, (lib_sets, lfn),
+                   dqmm_bound(M, K, N, dt), lib_name=lname)
+            deq_sets = [dequantized_args(*a) for a in sets]
+            out["dequant_matmul"][-1]["library_cublas_ms"] = device_ms(
+                cublas_dequantized, deq_sets, per_graph=len(sets))
+            del sets, lib_sets, deq_sets
+    torch.cuda.empty_cache()
 
-    if "paged_attention_quant" in only:
-        cases = [
-            # the serving decode shape, lengths as the main path sees them
-            (dict(S=8, nh=16, hd=64, ps=16, maxP=32,
-                  lens=[int(n) for n in rng.integers(17, 332, 8)]),
-             "S8 nh16 hd64 ps16 maxP32 (decode)", 8, False),
-            # the JAX kernel tests' (S, nh, hd, P, ps, maxP), random tables
-            (dict(S=4, nh=4, hd=16, ps=8, maxP=4, P=12), "JAX (4,4,16,12,8,4)",
-             2, True),
-            (dict(S=2, nh=2, hd=64, ps=16, maxP=2, P=6), "JAX (2,2,64,6,16,2)",
-             2, True),
-            (dict(S=3, nh=4, hd=32, ps=8, maxP=6, P=16), "JAX (3,4,32,16,8,6)",
-             2, True),
-            (dict(S=4, nh=16, hd=64, ps=16, maxP=8, lens=[0, 0, 9, 127]),
-             "S4 nh16 hd64 ps16 maxP8, len-0 lanes", 2, False),
-        ]
-        for kw, label, copies, rnd in cases:
-            if rnd:
-                kw["lens"] = [int(n) for n in
-                              rng.integers(0, kw["maxP"] * kw["ps"], kw["S"])]
-            for dt in (f32, bf16):
-                sets = paged_quant_inputs(torch, gpt, rng, dt, copies=copies,
-                                          random_table=rnd, **kw)
-                got = paged_attn.paged_attention_quant(*sets[0])
-                torch.cuda.synchronize()
+    cases = [
+        # the serving decode shape, lengths as the main path sees them
+        (dict(S=8, nh=16, hd=64, ps=16, maxP=32,
+              lens=[int(n) for n in rng.integers(17, 332, 8)]),
+         "S8 nh16 hd64 ps16 maxP32 (decode)", 8, False),
+        # the JAX kernel tests' (S, nh, hd, P, ps, maxP), random tables
+        (dict(S=4, nh=4, hd=16, ps=8, maxP=4, P=12), "JAX (4,4,16,12,8,4)",
+         2, True),
+        (dict(S=2, nh=2, hd=64, ps=16, maxP=2, P=6), "JAX (2,2,64,6,16,2)",
+         2, True),
+        (dict(S=3, nh=4, hd=32, ps=8, maxP=6, P=16), "JAX (3,4,32,16,8,6)",
+         2, True),
+        (dict(S=4, nh=16, hd=64, ps=16, maxP=8, lens=[0, 0, 9, 127]),
+         "S4 nh16 hd64 ps16 maxP8, len-0 lanes", 2, False),
+    ]
+    for kw, label, copies, rnd in cases:
+        if rnd:
+            kw["lens"] = [int(n) for n in
+                          rng.integers(0, kw["maxP"] * kw["ps"], kw["S"])]
+        for dt in (f32, bf16):
+            sets = paged_quant_inputs(torch, gpt, rng, dt, copies=copies,
+                                      random_table=rnd, **kw)
+            got = paged_attn.paged_attention_quant(*sets[0])
+            torch.cuda.synchronize()
+            q, kq, ks, vq, vs, table, lens = sets[0]
+            with fp32_reduction(torch):
                 ref = paged_attn._ref_paged_attention_quant(*sets[0])
-                q, kq, ks, vq, vs, table, lens = sets[0]
-                if dt == f32:
-                    atol, rtol, scale, cap = FP32_TOL, 0.0, ref, None
-                else:
-                    # both sides round every p_j: sum_j p_j |v_j| bounds it
-                    scale = paged_attn._ref_paged_attention_quant(
-                        q, kq, ks, vq.abs(), vs, table, lens)
-                    atol, rtol, cap = BF16_ATOL, BF16_RTOL, PAGED_BF16_CAP
-                if len(kw["lens"]) <= 4:
-                    label = label.split(" lens")[0] + f" lens {kw['lens']}"
-                record("paged_attention_quant", dt, label, got, ref, scale,
-                       atol, rtol, sets, paged_attn.paged_attention_quant,
-                       paged_attn._ref_paged_attention_quant,
-                       (sets, library_paged_quant),
-                       paged_quant_bound(q, kq, table, lens), cap=cap,
-                       rows=later_slots,
-                       lib_name="gather + dequantize + SDPA")
+                # bf16: both sides round every p_j, so sum_j p_j |v_j|
+                # bounds the difference
+                scale = (ref if dt == f32 else
+                         paged_attn._ref_paged_attention_quant(
+                             q, kq, ks, vq.abs(), vs, table, lens))
+            if dt == f32:
+                atol, rtol, cap = FP32_TOL, 0.0, None
+            else:
+                atol, rtol, cap = BF16_ATOL, BF16_RTOL, PAGED_BF16_CAP
+            if len(kw["lens"]) <= 4:
+                label = label.split(" lens")[0] + f" lens {kw['lens']}"
+            record("paged_attention_quant", dt, label, got, ref, scale,
+                   atol, rtol, sets, paged_attn.paged_attention_quant,
+                   paged_attn._ref_paged_attention_quant,
+                   (sets, library_paged_quant),
+                   paged_quant_bound(q, kq, table, lens), cap=cap,
+                   rows=later_slots,
+                   lib_name="gather + dequantize + SDPA")
     for k, cs in out.items():
         for c in cs:
             log(f"  {k:22s} {c['dtype']:15s} {c['shape'][:52]:52s} "
@@ -751,7 +774,10 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn, only):
                 f"{c['mutant_gate']:.2f})  device ms: kernel {c['ms']:.5f}  "
                 f"plain {c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
                 f"bound {c['bound_ms']:.6f} ({c['bound_by']}); eager call "
-                f"{c['call_ms']:.5f}")
+                f"{c['call_ms']:.5f}"
+                + (f"; cuBLAS on dequantized weights "
+                   f"{c['library_cublas_ms']:.5f}"
+                   if "library_cublas_ms" in c else ""))
     for k, cs in out.items():
         log(f"  {k} library: {cs[0]['library']}"
             + (f" / {cs[1]['library']}" if cs[1]["library"]
@@ -1056,8 +1082,7 @@ def quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms, cfg,
            "launches": launches,
            "request0_tokens_equal_fp_share": float(np.mean(
                np.asarray(reqs[0].tokens)
-               == np.asarray(fp_run["request0_tokens"])))
-           if fp_run else None}
+               == np.asarray(fp_run["request0_tokens"])))}
     if args.profile:
         res["profile"] = profile_decode(torch, eng, prompts, args.profile,
                                         args.trace.replace(".json",
@@ -1112,20 +1137,7 @@ def main():
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
                     help="where phase (i) writes its Chrome trace")
-    ap.add_argument("--phases", default=ALL_PHASES,
-                    help="phases to run after (a) and (b), e.g. 'cjk' "
-                         "(default: all); a narrowed run prints no result "
-                         "line")
-    ap.add_argument("--kernels", default=",".join(KERNELS),
-                    help="comma-separated kernels that (c) checks "
-                         "(default: all); a narrowed run prints no result "
-                         "line")
     args = ap.parse_args()
-    phases = set(args.phases)
-    only = set(args.kernels.split(","))
-    if only - set(KERNELS) or phases - set(ALL_PHASES):
-        ap.error(f"phases are {ALL_PHASES}; kernels are {KERNELS}")
-    full = phases == set(ALL_PHASES) and only == set(KERNELS)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1138,8 +1150,6 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 plain versions reduce in fp32, as the kernels do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.manual_seed(SEED)
     t_start = time.perf_counter()
 
@@ -1163,101 +1173,76 @@ def main():
         build.load(lib)
 
     # (c) ---------------------------------------------------------------
-    cases = {}
-    if "c" in phases:
-        log("(c) kernels against their plain versions on the card:")
-        cases.update(check_kernels(torch, paged_attn, norms, only))
-        if only & {k for k in KERNELS if k.startswith("flash")}:
-            cases.update(check_flash(torch, flash_attn))
-        cases.update(check_quant_kernels(torch, gpt, dqmm, paged_attn, only))
-    launches, fp_run, train = {}, None, None
+    log("(c) kernels against their plain versions on the card:")
+    cases = check_kernels(torch, paged_attn, norms)
+    cases.update(check_flash(torch, flash_attn))
+    cases.update(check_quant_kernels(torch, gpt, dqmm, paged_attn))
+
+    # (d)-(i), in the order and process state of the slices before -------
     cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
     prompts = make_prompts(cfg.vocab_size)
     new_tokens = 32
-    params = tree = None
-    if phases & set("dgj"):
-        t0 = time.perf_counter()
-        tree = numpy_gpt_params(cfg, SEED)
-        params = gpt.params_from_numpy(tree, "cuda")
-        log(f"    gpt_345m ({cfg.num_params() / 1e6:.1f}M params, "
-            f"{cfg.num_layers} layers, H={cfg.hidden_size}, dtype "
-            f"{cfg.dtype}) weights from numpy seed {SEED} in "
-            f"{time.perf_counter() - t0:.1f} s")
-    if "d" in phases:
-        fp_run = serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms,
-                          cfg, params, prompts, new_tokens, card, args,
-                          launches)
+    t0 = time.perf_counter()
+    params = gpt.params_from_numpy(numpy_gpt_params(cfg, SEED), "cuda")
+    log(f"    gpt_345m ({cfg.num_params() / 1e6:.1f}M params, "
+        f"{cfg.num_layers} layers, H={cfg.hidden_size}, dtype "
+        f"{cfg.dtype}) weights from numpy seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    fp_run = serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms,
+                      cfg, params, prompts, new_tokens, card, args, launches)
+    train = train_phases(torch, gpt_hybrid, flash_attn, norms, cfg, params,
+                         card, args, launches)
+    train_parity_phase(torch, gpt, gpt_hybrid)
 
-    # (j), next to (d) so that both meet the same process state ----------
-    jk_s = 0.0                  # seconds of (j) and (k)
-    if "j" in phases:
-        # the engine quantizes the fp32 masters on the card; dropping this
-        # reference leaves no float block weight there
-        t0 = time.perf_counter()
-        holder, params = [params], None
-        qrun = quant_path(torch, PagedServingEngine, dqmm, paged_attn,
-                          norms, cfg, holder, prompts, new_tokens, fp_run,
-                          args)
-        launches.update({k: qrun["launches"][k] for k in
-                         ("dequant_matmul", "paged_attention_quant")})
-        launches["layer_norm_quant_path"] = qrun["launches"]["layer_norm"]
-        fp = fp_run or {}
-        log(f"(j) quantized serving (quant='int8', kv_dtype='int8') of "
-            f"gpt_345m, the same 12 requests x {new_tokens} tokens, on "
-            f"{card}:")
-        log(f"    tokens/s {qrun['tokens_per_s']} (fp path (d): "
-            f"{fp.get('tokens_per_s')}); decode steps "
-            f"{qrun['decode_steps']}, mean decode step "
-            f"{qrun['decode_step_ms']} ms ((d): {fp.get('decode_step_ms')});"
-            f" prefill waves {qrun['prefill_waves']}, mean prefill wave "
-            f"{qrun['prefill_wave_ms']} ms ((d): {fp.get('prefill_wave_ms')}"
-            f"); max_memory_allocated {qrun['max_memory_allocated_gib']} GiB"
-            f" ((d): {fp.get('max_memory_allocated_gib')}); allocated before "
-            f"the traffic (weights, pool) {qrun['resident_gib']} GiB ((d): "
-            f"{fp.get('resident_gib')}); kv_bytes_total "
-            f"{qrun['kv_bytes_total']} ((d): {fp.get('kv_bytes_total')}); "
-            f"kv_quant_bytes_saved {qrun['kv_quant_bytes_saved']}; prefix "
-            f"page hits {qrun['prefix_page_hits']}; quant_matmuls "
-            f"{qrun['quant_matmuls']}; dequant_kernel_calls "
-            f"{qrun['dequant_kernel_calls']}; launches {qrun['launches']}; "
-            f"warmup {qrun['warmup_waves']} waves in "
-            f"{qrun['warmup_s']:.1f} s  [{card}]")
-        jk_s += time.perf_counter() - t0
-        log(f"    request 0: {qrun['request0_tokens_equal_fp_share']} of its "
-            "tokens equal the bf16 fp path's (int8 rounding on random "
-            f"weights, not asserted); phase {jk_s:.1f} s")
-        if "profile" in qrun:
-            log(f"    quantized decode-step profile on {card}: "
-                f"{json.dumps(qrun['profile'])}")
-        if "g" in phases:       # (j) took the masters; training needs them
-            params = gpt.params_from_numpy(tree, "cuda")
+    # (j): the engine quantizes the fp32 masters on the card; handing the
+    # last reference over leaves no float block weight there -------------
+    t0 = time.perf_counter()
+    holder, params = [params], None
+    qrun = quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms,
+                      cfg, holder, prompts, new_tokens, fp_run, args)
+    launches.update({k: qrun["launches"][k] for k in
+                     ("dequant_matmul", "paged_attention_quant")})
+    launches["layer_norm_quant_path"] = qrun["launches"]["layer_norm"]
+    log(f"(j) quantized serving (quant='int8', kv_dtype='int8') of "
+        f"gpt_345m, the same 12 requests x {new_tokens} tokens, on "
+        f"{card}:")
+    log(f"    tokens/s {qrun['tokens_per_s']} (fp path (d): "
+        f"{fp_run['tokens_per_s']}); decode steps "
+        f"{qrun['decode_steps']}, mean decode step "
+        f"{qrun['decode_step_ms']} ms ((d): {fp_run['decode_step_ms']});"
+        f" prefill waves {qrun['prefill_waves']}, mean prefill wave "
+        f"{qrun['prefill_wave_ms']} ms ((d): {fp_run['prefill_wave_ms']}"
+        f"); max_memory_allocated {qrun['max_memory_allocated_gib']} GiB"
+        f" ((d): {fp_run['max_memory_allocated_gib']}); allocated before "
+        f"the traffic (weights, pool) {qrun['resident_gib']} GiB ((d): "
+        f"{fp_run['resident_gib']}); kv_bytes_total "
+        f"{qrun['kv_bytes_total']} ((d): {fp_run['kv_bytes_total']}); "
+        f"kv_quant_bytes_saved {qrun['kv_quant_bytes_saved']}; prefix "
+        f"page hits {qrun['prefix_page_hits']}; quant_matmuls "
+        f"{qrun['quant_matmuls']}; dequant_kernel_calls "
+        f"{qrun['dequant_kernel_calls']}; launches {qrun['launches']}; "
+        f"warmup {qrun['warmup_waves']} waves in "
+        f"{qrun['warmup_s']:.1f} s  [{card}]")
+    jk_s = time.perf_counter() - t0
+    log(f"    request 0: {qrun['request0_tokens_equal_fp_share']} of its "
+        "tokens equal the bf16 fp path's (int8 rounding on random "
+        f"weights, not asserted); phase {jk_s:.1f} s")
+    if "profile" in qrun:
+        log(f"    quantized decode-step profile on {card}: "
+            f"{json.dumps(qrun['profile'])}")
     torch.cuda.empty_cache()
-    if "g" in phases:
-        train = train_phases(torch, gpt_hybrid, flash_attn, norms, cfg,
-                             params, card, args, launches)
-    params = tree = None
-    torch.cuda.empty_cache()
-    if "h" in phases:
-        train_parity_phase(torch, gpt, gpt_hybrid)
 
     # (k) ---------------------------------------------------------------
-    if "k" in phases:
-        t0 = time.perf_counter()
-        par = quant_parity(torch, gpt, PagedServingEngine, prompts,
-                           new_tokens)
-        log(f"(k) fp32 quantized engine, card against CPU (gpt_345m widths, "
-            f"2 layers, 4 requests x {new_tokens} tokens): greedy tokens "
-            f"equal {par['tokens_equal']}; max |logit diff| "
-            f"{par['max_logit_err']:.3e} (tol {PARITY_LOGIT_TOL:.0e}); "
-            f"phase {time.perf_counter() - t0:.1f} s")
-        jk_s += time.perf_counter() - t0
-    if phases & set("jk"):
-        log(f"    (j) and (k) together {jk_s:.1f} s")
-
-    if not full:
-        log(f"narrowed run (phases {sorted(phases)}, kernels "
-            f"{sorted(only)}): no result line")
-        return 0
+    t0 = time.perf_counter()
+    par = quant_parity(torch, gpt, PagedServingEngine, prompts, new_tokens)
+    log(f"(k) fp32 quantized engine, card against CPU (gpt_345m widths, "
+        f"2 layers, 4 requests x {new_tokens} tokens): greedy tokens "
+        f"equal {par['tokens_equal']}; max |logit diff| "
+        f"{par['max_logit_err']:.3e} (tol {PARITY_LOGIT_TOL:.0e}); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    jk_s += time.perf_counter() - t0
+    log(f"    (j) and (k) together {jk_s:.1f} s")
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -1452,7 +1437,8 @@ def report(torch, cases, launches, train, t_start):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
             **{t: main[t] for t in ("tol", "atol", "rtol", "gate",
-                                    "library") if t in main},
+                                    "library", "library_cublas_ms")
+               if t in main},
             "pass": all(case_ok(c) for c in cases[k]),
             "shape": main["shape"], "dtype": main["dtype"],
             "cases": cases[k]})
