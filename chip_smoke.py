@@ -57,8 +57,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
       (reported, not asserted: random weights);
   (k) fp32 parity of the quantized engine, card (kernels) against CPU
       (plain versions), at ``gpt_345m`` widths with 2 layers, on 4 of the
-      requests: greedy tokens exact, logits within 1e-3.
+      requests: greedy tokens exact, logits within 1e-3;
+  (l) the reference bench's flagship training step (``bench.py``'s GPT-3
+      1.3B recipe, ``BASELINE.json`` configs[3]): V=50304, H=2048, L=24,
+      nh=16, hd=128, N=2048, bf16 params and bf16 AdamW moments, bf16
+      compute, ``use_flash`` with ``set_default_blocks(bwd_fused=True)``,
+      ``use_fused_ffn``, ``use_pallas_norm``, full remat, weights drawn on
+      the card from a seed; one warm-up step and 8 timed steps of
+      ``gpt_hybrid.make_train_step`` on one [6, 2048] batch (labels =
+      tokens, lr 1e-4).  Launch counts are zeroed just before the timed
+      steps and must equal their per-step formulas (flash forward 2L,
+      fused backward L, split backward 0, fused FFN 2L, LayerNorm 4L + 1);
+      the loss must be finite and fall.  With ``--profile-train`` its steps
+      are traced as (i) traces (g)'s;
+  (m) fp32 parity of the flagship step, card (kernels) against CPU (plain
+      versions), at its widths (H=2048, nh=16, hd=128, F=8192) with 2
+      layers, B=2, N=256 and both fused routes, at (h)'s tolerances.
 
+(c) also holds the flagship's two kernels against their plain versions:
+the fused FFN (against the plain version of its own function, which
+rounds h and the output once each) at the flagship shape [12288, 2048] x
+[2048, 8192], the 345M shape [8192, 1024] x [1024, 4096], a decode shape
+(M = 8), a ragged M = 1000 and the JAX tests' shapes, timed against cuBLAS
+``addmm`` + gelu + ``addmm``; the fused flash backward at [6, 2048, 16,
+128] causal, [8, 1024, 16, 64] causal (with the split kernels' time beside
+it), a ragged [1, 1000, 16, 64], q 128 / kv 320 causal and [1, 512, 1,
+128] non-causal, with the largest |dq| difference between two launches on
+the same inputs (the atomics' order varies; reported, not asserted).
 (c) also holds the two quantized-path kernels against their plain
 versions: the dequant matmul at the four decode shapes (M = 8), the
 prefill shape M = 4096 x (1024, 4096) and the JAX tests' shapes, each
@@ -100,8 +125,10 @@ PAGED_BF16_CAP = 2e-2         # bf16 int8 paged attention never looser than
 BF16_ATOL, BF16_RTOL = 2.0 ** -8, 2.0 ** -6
 WRONG_SCALE = 1 + 2.0 ** -4   # the mutant each gate must reject (see gate)
 TRAIN_SHAPE = (8, 1024, 1024, 16, 64, True)   # B, N, Nk, nh, hd, causal
-TRAIN_LOSS_RTOL = 1e-5        # (h): card loss vs CPU loss
-TRAIN_GRAD_TOL = 1e-4         # (h): x max|leaf grad on the CPU|
+TRAIN_LOSS_RTOL = 1e-5        # (h), (m): card loss vs CPU loss
+TRAIN_GRAD_TOL = 1e-4         # (h), (m): x max|leaf grad on the CPU|
+FLAGSHIP_SHAPE = (6, 2048)    # (l): B, N of bench.py's first 1.3B batch
+FLAGSHIP_STEPS = 8            # (l): timed steps (bench.py: steps=8)
 
 
 def log(*a):
@@ -541,6 +568,179 @@ def case_ok(c):
     return ok and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0)
 
 
+def ffn_bound(M, H, F, dt):
+    """Least time for the fused FFN: x, w1, b1, w2, b2 read once and the
+    output written once, in the dtype, over the HBM rate; or its 4MHF
+    flops over the dtype's peak."""
+    import torch
+    e = 2 if dt == torch.bfloat16 else 4
+    byts = (2 * M * H + 2 * H * F + F + H) * e
+    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = byts / HBM_BYTES_PER_S, 4 * M * H * F / rate
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def library_ffn(x, w1, b1, w2, b2):
+    """cuBLAS ``addmm`` + tanh gelu + ``addmm``: the library yardstick for
+    the fused FFN, which writes and reads the [M, F] intermediate (timed
+    only)."""
+    import torch
+    import torch.nn.functional as F
+    return torch.addmm(b2, F.gelu(torch.addmm(b1, x, w1),
+                                  approximate="tanh"), w2)
+
+
+def check_fused_ffn(torch, fused_ffn):
+    """Phase (c), the fused FFN against ``_ref_fused_ffn`` (the plain
+    version of its own function, taken under :func:`fp32_reduction`):
+    fp32 within 1e-5 x max|ref| (sums of up to 8192 terms in another
+    order), bf16 per element 2^-8 + 2^-6 |ref|, each case rejecting the
+    wrong-scale mutant.  x ~ N(0, 1), weights scaled by 1/sqrt(fan-in),
+    biases N(0, 0.1^2).  Returns {"fused_ffn": [case, ...]}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    out = []
+    shapes = [((12288, 2048, 8192), "flagship"),
+              ((8192, 1024, 4096), "345M"),
+              ((8, 1024, 4096), "decode"),
+              ((1000, 1024, 4096), "ragged M"),
+              ((128, 128, 256), "JAX test"), ((256, 256, 512), "JAX test"),
+              ((128, 128, 256), "JAX batched [2, 64]")]
+    for (M, H, F), name in shapes:
+        big = M * H * F >= 2 ** 34
+        kw = dict(per_graph=2, replays=3) if big else {}
+        # decode: enough weight copies that replays find them cold in L2
+        copies = 8 if M <= 64 else 2
+        for dt in (torch.float32, torch.bfloat16):
+            def rnd(*shape, scale=1.0):
+                return (torch.randn(shape, device="cuda", generator=gen)
+                        * scale).to(dt)
+            sets = [(rnd(M, H), rnd(H, F, scale=H ** -0.5),
+                     rnd(F, scale=0.1), rnd(F, H, scale=F ** -0.5),
+                     rnd(H, scale=0.1)) for _ in range(copies)]
+            got = fused_ffn.fused_ffn_fwd(*sets[0])
+            torch.cuda.synchronize()
+            with fp32_reduction(torch):
+                ref = fused_ffn._ref_fused_ffn(*sets[0])
+            if dt == torch.float32:
+                atol, rtol = FP32_TOL * float(ref.abs().max()), 0.0
+            else:
+                atol, rtol = BF16_ATOL, BF16_RTOL
+            ratio, mutant = gate([(got, ref, ref)], atol, rtol)
+            out.append({
+                "shape": f"[{M}, {H}] x [{H}, {F}] ({name})",
+                "dtype": str(dt), "max_abs_err": max_err(got, ref),
+                "max_abs_ref": float(ref.float().abs().max()),
+                "atol": atol, "rtol": rtol, "gate": ratio,
+                "mutant_gate": mutant,
+                "ms": device_ms(fused_ffn.fused_ffn_fwd, sets, **kw),
+                "call_ms": time_ms(fused_ffn.fused_ffn_fwd, sets,
+                                   4 if big else 50),
+                "plain_ms": device_ms(fused_ffn._ref_fused_ffn, sets, **kw),
+                "library_ms": device_ms(library_ffn, sets, **kw),
+                "library": "cuBLAS addmm + gelu + addmm",
+                "bound_ms": ffn_bound(M, H, F, dt)[0],
+                "bound_by": ffn_bound(M, H, F, dt)[1]})
+            del sets, got, ref
+            torch.cuda.empty_cache()
+    for c in out:
+        log(f"  fused_ffn {c['dtype']:15s} {c['shape']:44s} max_abs_err "
+            f"{c['max_abs_err']:.3e} (max|ref| {c['max_abs_ref']:.2e}) gate "
+            f"{c['gate']:.3f} (atol {c['atol']:.1e} rtol {c['rtol']:.1e}; "
+            f"wrong-scale mutant {c['mutant_gate']:.2f})  device ms: "
+            f"kernel {c['ms']:.5f}  plain {c['plain_ms']:.5f}  library "
+            f"{c['library_ms']:.5f}  bound {c['bound_ms']:.6f} "
+            f"({c['bound_by']}); eager call {c['call_ms']:.5f}")
+    bad = [(c["shape"], c["dtype"]) for c in out if not case_ok(c)]
+    if bad:
+        raise SystemExit(f"fused FFN disagrees with its plain version: {bad}")
+    return {"fused_ffn": out}
+
+
+def check_fused_bwd(torch, flash_attn):
+    """Phase (c), the fused flash backward (``_launch_fused``) against
+    ``_ref_flash_bwd`` on the kernel forward's out and lse, at the split
+    kernels' tolerances; beside its time the split kernels' (dq + dk/dv)
+    on the same inputs and the largest |dq| difference between two fused
+    launches (the atomics' order varies).  Returns
+    {"flash_attention_bwd_fused": [case, ...]}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    out = []
+    shapes = [((6, 2048, 2048, 16, 128, True), "flagship"),
+              (TRAIN_SHAPE, "345M training"),
+              ((1, 1000, 1000, 16, 64, True), "ragged tail"),
+              ((1, 128, 320, 16, 64, True), "cross length"),
+              ((1, 512, 512, 1, 128, False), "hd 128 non-causal")]
+    for (B, N, Nk, nh, hd, causal), name in shapes:
+        big = B * N * Nk * nh >= 2 ** 26
+        kw = dict(per_graph=2, replays=3) if big else {}
+        for dt in (torch.float32, torch.bfloat16):
+            f32 = dt == torch.float32
+            sets = flash_sets(torch, gen, dt, B, N, Nk, nh, hd, 2)
+            q, k, v, do = sets[0]
+            o, lse = flash_attn.flash_fwd(q, k, v, causal)
+            bwd_sets = []
+            for a, b, c, d in sets:
+                *qkvd, delta = flash_attn._bwd_operands(a, b, c, o, d)
+                bwd_sets.append((*qkvd, lse, delta, causal))
+            dq, dk, dv = flash_attn._launch_fused(*bwd_sets[0])
+            dq2 = flash_attn._launch_fused(*bwd_sets[0])[0]
+            torch.cuda.synchronize()
+            rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
+                                                     causal)
+            atol, rtol = ((FLASH_GRAD_TOL, 0.0) if f32
+                          else (BF16_ATOL, BF16_RTOL))
+            pairs = [(dq, rdq, rdq), (dk, rdk, rdk), (dv, rdv, rdv)]
+            ratio, mutant = gate(pairs, atol, rtol)
+            bounds = flash_bounds(q, k, causal)
+            lib_sets = [(a.detach().requires_grad_(),
+                         b.detach().requires_grad_(),
+                         c.detach().requires_grad_(), d, causal)
+                        for a, b, c, d in sets]
+            lib_fwd = device_ms(library_attention,
+                                [(a, b, c, causal) for a, b, c, _ in sets])
+            plain = [(a, b, c, o, lse, d, causal) for a, b, c, d in sets]
+            out.append({
+                "shape": (f"[{B}, {N}, {nh}, {hd}] kv {Nk} "
+                          f"{'causal' if causal else 'full'} ({name})"),
+                "dtype": str(dt),
+                "max_abs_err": max(max_err(g, r) for g, r, _ in pairs),
+                "mean_abs_ref": float(np.mean([float(r.float().abs().mean())
+                                               for _, r, _ in pairs])),
+                "atol": atol, "rtol": rtol, "gate": ratio,
+                "mutant_gate": mutant,
+                "dq_rerun_max_abs_diff": max_err(dq, dq2),
+                "ms": device_ms(flash_attn._launch_fused, bwd_sets, **kw),
+                "call_ms": time_ms(flash_attn._launch_fused, bwd_sets, 20),
+                "split_ms": (device_ms(flash_attn._launch_dq, bwd_sets, **kw)
+                             + device_ms(flash_attn._launch_dkv, bwd_sets,
+                                         **kw)),
+                "plain_ms": device_ms(flash_attn._ref_flash_bwd, plain,
+                                      **kw),
+                "library_ms": max(device_ms(library_attention_fwd_bwd,
+                                            lib_sets) - lib_fwd, 0.0),
+                "library": "SDPA backward (fwd + bwd less fwd)",
+                "bound_ms": bounds["bwd_pass"][0],
+                "bound_by": bounds["bwd_pass"][1]})
+            del sets, lib_sets, bwd_sets, plain, dq, dk, dv, dq2
+            torch.cuda.empty_cache()
+    for c in out:
+        log(f"  flash_attention_bwd_fused {c['dtype']:15s} "
+            f"{c['shape']:50s} max_abs_err {c['max_abs_err']:.3e} gate "
+            f"{c['gate']:.3f} (atol {c['atol']:.1e} rtol {c['rtol']:.1e}; "
+            f"mean|ref| {c['mean_abs_ref']:.3e}; wrong-scale mutant "
+            f"{c['mutant_gate']:.2f}); dq between two launches "
+            f"{c['dq_rerun_max_abs_diff']:.2e}  device ms: kernel "
+            f"{c['ms']:.5f}  split dq + dk/dv {c['split_ms']:.5f}  plain "
+            f"{c['plain_ms']:.5f}  library {c['library_ms']:.5f}  bound "
+            f"{c['bound_ms']:.6f} ({c['bound_by']}); eager call "
+            f"{c['call_ms']:.5f}")
+    bad = [(c["shape"], c["dtype"]) for c in out if not case_ok(c)]
+    if bad:
+        raise SystemExit(f"fused flash backward disagrees with its plain "
+                         f"version: {bad}")
+    return {"flash_attention_bwd_fused": out}
+
+
 def dqmm_bound(M, K, N, dt):
     """Least time for the dequant matmul: K*N int8 weight bytes, 4N scale
     bytes, x and out in the compute dtype, over the HBM rate; or 2MKN
@@ -925,38 +1125,37 @@ def train_tokens(torch, V, B, N, seed):
     return toks, toks
 
 
-def train_path(torch, gpt_hybrid, flash_attn, norms, cfg, params, steps):
-    """Phase (g): one warm-up step, then ``steps`` timed steps of the
-    single-device train step on fp32 masters and fp32 moments.  Launch
-    counts cover the timed steps only.  Returns the measurements, the
-    training state and the step function (for ``--profile-train``)."""
-    m, v = gpt_hybrid.init_train_state(params)
-    B, N = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
-    toks, labels = train_tokens(torch, cfg.vocab_size, B, N, SEED + 3)
+def timed_training(torch, gpt_hybrid, cfg, params, m, v, shape, steps, seed,
+                   counters, want, label):
+    """One warm-up step, then ``steps`` timed steps of the single-device
+    train step on one numpy-seeded ``shape`` = (B, N) batch.  ``counters``
+    maps a kernel to the (module, attribute) of its launch count; they are
+    zeroed after the warm-up step, so they cover the timed steps only, and
+    must equal ``want`` (launches a step) times ``steps``.  Returns the
+    measurements and the training state with the step function (for
+    ``--profile-train``)."""
+    B, N = shape
+    toks, labels = train_tokens(torch, cfg.vocab_size, B, N, seed)
     step = gpt_hybrid.make_train_step(cfg)
     lr = 1e-4
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses = [float(step(params, m, v, 1, toks, labels, lr)[3])]
     warm_s = time.perf_counter() - t0
-    flash_attn.fwd_launches = flash_attn.dq_launches = 0
-    flash_attn.dkv_launches = norms.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     times = []
     for t in range(2, steps + 2):
         t0 = time.perf_counter()
         losses.append(float(step(params, m, v, t, toks, labels, lr)[3]))
         times.append(time.perf_counter() - t0)
-    launches = {"flash_attention_fwd": flash_attn.fwd_launches,
-                "flash_attention_bwd_dq": flash_attn.dq_launches,
-                "flash_attention_bwd_dkv": flash_attn.dkv_launches,
-                "layer_norm": norms.launches}
-    L = cfg.num_layers
-    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L, "layer_norm": 4 * L + 1}
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     step_s = float(np.mean(times))
     tok_s = B * N / step_s
     res = {"steps": steps, "warmup_s": warm_s, "step_ms": 1e3 * step_s,
            "step_ms_each": [1e3 * x for x in times], "tokens_per_s": tok_s,
+           "flops_per_token": cfg.flops_per_token(),
            "model_flop_share": tok_s * cfg.flops_per_token()
            / BF16_FLOPS_PER_S,
            "max_memory_allocated_gib":
@@ -965,22 +1164,40 @@ def train_path(torch, gpt_hybrid, flash_attn, norms, cfg, params, steps):
            "losses": losses, "launches": launches,
            "launches_per_step_expected": want}
     if not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"training: a non-finite loss: {losses}")
+        raise SystemExit(f"{label}: a non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise SystemExit(f"training: the loss did not fall: {losses}")
+        raise SystemExit(f"{label}: the loss did not fall: {losses}")
     for k, per in want.items():
         if launches[k] != per * steps:
-            raise SystemExit(f"training: {k} launched {launches[k]} times "
+            raise SystemExit(f"{label}: {k} launched {launches[k]} times "
                              f"in {steps} steps, expected {per} per step")
     return res, (step, params, m, v, toks, labels, lr)
 
 
-def train_parity(torch, gpt, gpt_hybrid):
-    """Phase (h): the fp32 train step on the card (kernels) against the
-    CPU (plain versions) at ``gpt_345m`` widths with 2 layers."""
-    cfg = dataclasses.replace(gpt.gpt_345m(), num_layers=2,
-                              dtype="float32", use_pallas_norm=True)
-    tree = numpy_gpt_params(cfg, SEED + 4)
+def train_path(torch, gpt_hybrid, flash_attn, norms, cfg, params, steps):
+    """Phase (g): :func:`timed_training` on fp32 masters and fp32 moments
+    at ``TRAIN_SHAPE``."""
+    m, v = gpt_hybrid.init_train_state(params)
+    L = cfg.num_layers
+    counters = {"flash_attention_fwd": (flash_attn, "fwd_launches"),
+                "flash_attention_bwd_dq": (flash_attn, "dq_launches"),
+                "flash_attention_bwd_dkv": (flash_attn, "dkv_launches"),
+                "layer_norm": (norms, "launches")}
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "layer_norm": 4 * L + 1}
+    return timed_training(torch, gpt_hybrid, cfg, params, m, v,
+                          TRAIN_SHAPE[:2], steps, SEED + 3, counters, want,
+                          "training")
+
+
+def train_parity(torch, gpt, gpt_hybrid, cfg=None, seed=SEED + 4):
+    """Phases (h) and (m): the fp32 train step on the card (kernels)
+    against the CPU (plain versions), by default at ``gpt_345m`` widths
+    with 2 layers."""
+    if cfg is None:
+        cfg = dataclasses.replace(gpt.gpt_345m(), num_layers=2,
+                                  dtype="float32", use_pallas_norm=True)
+    tree = numpy_gpt_params(cfg, seed)
     dev_p = gpt.params_from_numpy(tree, "cuda")
     cpu_p = gpt.params_from_numpy(copy.deepcopy(tree), "cpu")
     toks, labels = train_tokens(torch, cfg.vocab_size, 2, 256, SEED + 6)
@@ -1133,7 +1350,8 @@ def main():
                     help="where phase (f) writes its Chrome trace")
     ap.add_argument("--profile-train", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS training steps of the training "
-                         "path with torch.profiler (phase i)")
+                         "path (phase i) and of the flagship path (l) with "
+                         "torch.profiler")
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
                     help="where phase (i) writes its Chrome trace")
@@ -1145,7 +1363,8 @@ def main():
     from paddle_tpu_torch import card_info
     from paddle_tpu_torch.inference.serving import PagedServingEngine
     from paddle_tpu_torch.models import gpt, gpt_hybrid
-    from paddle_tpu_torch.ops.cuda import build, flash_attn, norms, paged_attn
+    from paddle_tpu_torch.ops.cuda import (build, flash_attn, fused_ffn,
+                                          norms, paged_attn)
     from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1169,6 +1388,13 @@ def main():
                          if "spill" in ln})
         log(f"    {lib}: {len(regs)} kernels; {'; '.join(spills)}; "
             f"registers {sorted({r.split(' ')[0] for r in regs}, key=int)}")
+        name = None
+        for ln in text.splitlines():        # ptxas names, then reports
+            if "Function properties for " in ln:
+                name = ln.split("Function properties for ")[1].strip()
+            elif " bytes spill stores" in ln and int(ln.split(
+                    " bytes spill stores")[0].split()[-1]):
+                log(f"      spills in {name}: {ln.strip()}")
     for lib in build.SOURCES:
         build.load(lib)
 
@@ -1177,6 +1403,8 @@ def main():
     cases = check_kernels(torch, paged_attn, norms)
     cases.update(check_flash(torch, flash_attn))
     cases.update(check_quant_kernels(torch, gpt, dqmm, paged_attn))
+    cases.update(check_fused_bwd(torch, flash_attn))
+    cases.update(check_fused_ffn(torch, fused_ffn))
 
     # (d)-(i), in the order and process state of the slices before -------
     cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
@@ -1243,6 +1471,10 @@ def main():
         f"phase {time.perf_counter() - t0:.1f} s")
     jk_s += time.perf_counter() - t0
     log(f"    (j) and (k) together {jk_s:.1f} s")
+
+    # (l), (m): the flagship recipe ------------------------------------
+    flagship_phases(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
+                    card, args, launches)
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -1393,6 +1625,101 @@ def train_parity_phase(torch, gpt, gpt_hybrid):
         f"phase {time.perf_counter() - t0:.1f} s")
 
 
+def flagship_cfg(gpt):
+    """``bench.py``'s GPT-3 1.3B-class config (``BASELINE.json``
+    configs[3]) with its two fused routes on, plus the kernel LayerNorm."""
+    return gpt.GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
+                         num_heads=16, max_seq_len=2048,
+                         param_dtype="bfloat16", use_flash=True,
+                         use_fused_ffn=True, use_pallas_norm=True)
+
+
+def flagship_path(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
+                  args):
+    """Phase (l): :func:`timed_training` of the flagship recipe, bf16
+    params and bf16 moments, at ``FLAGSHIP_SHAPE`` (the caller sets
+    ``bwd_fused``)."""
+    cfg = flagship_cfg(gpt)
+    params = gpt.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 9), "cuda")
+    m, v = gpt_hybrid.init_train_state(params, moment_dtype=torch.bfloat16)
+    L = cfg.num_layers
+    counters = {"flash_attention_fwd": (flash_attn, "fwd_launches"),
+                "flash_attention_bwd_fused": (flash_attn, "fused_launches"),
+                "flash_attention_bwd_dq": (flash_attn, "dq_launches"),
+                "flash_attention_bwd_dkv": (flash_attn, "dkv_launches"),
+                "fused_ffn": (fused_ffn, "launches"),
+                "layer_norm": (norms, "launches")}
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_fused": L,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "fused_ffn": 2 * L, "layer_norm": 4 * L + 1}
+    res, state = timed_training(torch, gpt_hybrid, cfg, params, m, v,
+                                FLAGSHIP_SHAPE, FLAGSHIP_STEPS, SEED + 12,
+                                counters, want, "(l)")
+    res["num_params"] = cfg.num_params()
+    if args.profile_train:
+        step, tp, tm, tv, toks, labels, lr = state
+        counter = iter(range(100, 100 + args.profile_train))
+        res["profile"] = profile_steps(
+            torch, lambda: step(tp, tm, tv, next(counter), toks, labels, lr),
+            args.profile_train, "train_step_flagship",
+            args.train_trace.replace(".json", "_flagship.json"))
+    return res
+
+
+def flagship_phases(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
+                    card, args, launches):
+    """Phases (l) and (m), with ``bwd_fused=True`` (reset after), as
+    ``bench.py`` installs it.  Returns (l)'s measurements."""
+    try:
+        flash_attn.set_default_blocks(bwd_fused=True)
+        t0 = time.perf_counter()
+        res = flagship_path(torch, gpt, gpt_hybrid, flash_attn, fused_ffn,
+                            norms, args)
+        torch.cuda.empty_cache()
+        launches.update({k: res["launches"][k] for k in
+                         ("flash_attention_bwd_fused", "fused_ffn")})
+        launches["layer_norm_flagship"] = res["launches"]["layer_norm"]
+        launches["flash_attention_fwd_flagship"] = res["launches"][
+            "flash_attention_fwd"]
+        B, N = FLAGSHIP_SHAPE
+        log(f"(l) training the flagship GPT-3 1.3B recipe "
+            f"({res['num_params'] / 1e9:.3f}B params, 24 layers, H=2048, "
+            f"nh=16, hd=128, B={B}, N={N}, bf16 params and AdamW moments, "
+            f"bf16 compute, use_flash + bwd_fused, use_fused_ffn, "
+            f"use_pallas_norm, remat full) on {card}: tokens/s "
+            f"{res['tokens_per_s']}; mean step {res['step_ms']} ms over "
+            f"{res['steps']} steps (warm-up step {res['warmup_s']:.2f} s); "
+            f"model-FLOP share {res['model_flop_share']} "
+            f"({res['flops_per_token']:.4e} flops/token); "
+            f"max_memory_allocated {res['max_memory_allocated_gib']} GiB; "
+            f"loss {res['first_loss']} -> {res['last_loss']}; launches "
+            f"{res['launches']} (per step "
+            f"{res['launches_per_step_expected']}); phase "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+        log(f"    losses {res['losses']}; step ms {res['step_ms_each']}")
+        if "profile" in res:
+            log(f"    flagship training-step profile on {card}: "
+                f"{json.dumps(res['profile'])}")
+        # (m) -----------------------------------------------------------
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(flagship_cfg(gpt), num_layers=2,
+                                  dtype="float32", param_dtype="float32")
+        par = train_parity(torch, gpt, gpt_hybrid, cfg, SEED + 13)
+        log(f"(m) fp32 flagship train step with both fused routes, card "
+            f"against CPU (H=2048, nh=16, hd=128, F=8192, 2 layers, B=2, "
+            f"N=256): loss rel err {par['loss_rel_err']:.2e} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e}); max grad err / max|grad| "
+            f"{par['grad_rel_err_max']:.2e} (tol {TRAIN_GRAD_TOL:.0e}); "
+            f"3-step loss rel errs "
+            f"{[f'{x:.2e}' for x in par['step_loss_rel_err']]}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        flash_attn.set_default_blocks(bwd_fused=False)
+    torch.cuda.empty_cache()
+    return res
+
+
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
 # the main path in the result line)
 REPORT = {
@@ -1421,6 +1748,13 @@ REPORT = {
         "paddle_tpu_torch/ops/cuda/csrc/paged_attn.cu",
         "paddle_tpu/ops/pallas/paged_attn.py:193",
         "S8 nh16 hd64 ps16 maxP32 (decode)"),
+    "flash_attention_bwd_fused": (
+        "paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        "paddle_tpu/ops/pallas/flash_attn.py:326", "[6, 2048, 16, 128]"),
+    "fused_ffn": (
+        "paddle_tpu_torch/ops/cuda/csrc/fused_ffn.cu",
+        "paddle_tpu/ops/pallas/fused_ffn.py:38",
+        "[12288, 2048] x [2048, 8192] (flagship)"),
 }
 
 
@@ -1437,7 +1771,8 @@ def report(torch, cases, launches, train, t_start):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
             **{t: main[t] for t in ("tol", "atol", "rtol", "gate",
-                                    "library", "library_cublas_ms")
+                                    "library", "library_cublas_ms",
+                                    "split_ms", "dq_rerun_max_abs_diff")
                if t in main},
             "pass": all(case_ok(c) for c in cases[k]),
             "shape": main["shape"], "dtype": main["dtype"],
@@ -1445,6 +1780,9 @@ def report(torch, cases, launches, train, t_start):
     ln = next(k for k in kernels if k["name"] == "layer_norm")
     ln["launches_train"] = train["launches"]["layer_norm"]
     ln["launches_quant_path"] = launches["layer_norm_quant_path"]
+    ln["launches_flagship"] = launches["layer_norm_flagship"]
+    fwd = next(k for k in kernels if k["name"] == "flash_attention_fwd")
+    fwd["launches_flagship"] = launches["flash_attention_fwd_flagship"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

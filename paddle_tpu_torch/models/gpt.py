@@ -17,7 +17,15 @@ attention always goes through the paged-attention wrapper
 (``ops/cuda/paged_attn.py``), over an int8 pool through its quantized
 twin.  Weights quantized by :func:`quantize_params` (``{"qw", "scale"}``
 dict leaves) route their matmuls through the dequant-matmul wrapper
-(``ops/cuda/dequant_matmul.py``).  Each takes its plain PyTorch version
+(``ops/cuda/dequant_matmul.py``).  With ``cfg.use_fused_ffn`` the FFN of
+:func:`block_apply` goes through the fused-FFN wrapper
+(``ops/cuda/fused_ffn.py``) with its weights cast to the compute dtype,
+unless the FFN weights are quantized, as in the reference's
+``block_apply``.  ``block_apply`` is shared, so a serving engine whose
+config sets ``use_fused_ffn`` launches that kernel in prefill and decode
+too; the reference does the same, except at the shapes its
+``_pick_blocks`` sends to ``_ref_ffn`` (M = 8 rows of a bf16 decode step,
+for one), which the CUDA kernel takes.  Each takes its plain PyTorch version
 for tensors on the CPU.  With ``cfg.remat`` and gradients on, :func:`forward`
 checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
 ``remat_policy="full"`` recomputes the whole block in the backward,
@@ -25,9 +33,8 @@ checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
 ``aten.addmm``, no batch dims), as ``jax.checkpoint_policies.
 dots_with_no_batch_dims_saveable`` does.
 
-Not in this slice, each refused by name: MoE FFNs (``moe_experts``), the
-fused FFN (``use_fused_ffn``; a quantized FFN bypasses it, as in the
-reference), chunked prefill and speculative verify.
+Not in this slice, each refused by name: MoE FFNs (``moe_experts``),
+chunked prefill and speculative verify.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.cuda.dequant_matmul import _ref_dequant_matmul, dequant_matmul
 from ..ops.cuda.flash_attn import flash_attention
+from ..ops.cuda.fused_ffn import fused_ffn
 from ..ops.cuda.norms import _ref_layer_norm
 from ..ops.cuda.norms import layer_norm as _kernel_layer_norm
 from ..ops.cuda.paged_attn import paged_attention, paged_attention_quant
@@ -135,16 +143,11 @@ def gpt3_1p3b():
                      max_seq_len=2048)
 
 
-def _check_slice(cfg, quant_ffn=False):
-    """Refuse what this slice does not run.  ``quant_ffn``: the FFN
-    weights are quantized, which bypasses the fused FFN (as in the
-    reference's ``block_apply``)."""
+def _check_slice(cfg):
+    """Refuse what this slice does not run."""
     if cfg.moe_experts:
         raise NotImplementedError(
             "moe_experts > 0: the MoE FFN is not ported in this slice")
-    if cfg.use_fused_ffn and not quant_ffn:
-        raise NotImplementedError(
-            "use_fused_ffn: the fused-FFN kernel is not ported in this slice")
 
 
 # --------------------------------------------------------------------------
@@ -378,7 +381,7 @@ def block_apply(cfg: GPTConfig, x, blk, attn_fn=None):
     ``attn_fn(q, k, v) -> ([B, N, nh, hd], aux)`` swaps the attention inner
     loop (the cached and paged decoders pass one); default is dense causal
     attention with aux None."""
-    _check_slice(cfg, quant_ffn=_is_qweight(blk["fc1_w"]))
+    _check_slice(cfg)
     cd = torch_dtype(cfg.dtype)
     B, N, H = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
@@ -404,8 +407,14 @@ def block_apply(cfg: GPTConfig, x, blk, attn_fn=None):
     x = x + (mm(a, "proj_w") + _c(blk["proj_b"], cd))
 
     h = ln(x, blk["ln2_g"], blk["ln2_b"], eps)
-    h = F.gelu(mm(h, "fc1_w") + _c(blk["fc1_b"], cd), approximate="tanh")
-    h = mm(h, "fc2_w") + _c(blk["fc2_b"], cd)
+    if cfg.use_fused_ffn and not _is_qweight(blk["fc1_w"]):
+        # a quantized FFN takes the dequant matmuls below, as in the
+        # reference: the fused kernel only knows float weights
+        h = fused_ffn(h, *(_c(blk[k], cd) for k in
+                           ("fc1_w", "fc1_b", "fc2_w", "fc2_b")))
+    else:
+        h = F.gelu(mm(h, "fc1_w") + _c(blk["fc1_b"], cd), approximate="tanh")
+        h = mm(h, "fc2_w") + _c(blk["fc2_b"], cd)
     x = x + h
     return x if attn_fn is None else (x, aux)
 

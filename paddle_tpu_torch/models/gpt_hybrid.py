@@ -3,15 +3,24 @@
 
 The reference runs one SPMD program over a ('dp', 'pp', 'tp', 'sp') mesh.
 On one card every collective of that program is the identity, so what is
-left is the step itself: embed, the blocks (flash attention and LayerNorm
-through the port's kernels per ``cfg``, remat per ``cfg.remat``), the final
-LayerNorm, the tied-head cross entropy (optionally chunked over the
-sequence, each chunk rematerialized), the global-norm clip and a fused
-AdamW over fp32 masters.
+left is the step itself: embed, the blocks (flash attention, its split or
+fused backward per ``flash_attn.set_default_blocks``, the fused FFN and
+LayerNorm through the port's kernels per ``cfg``, remat per
+``cfg.remat``), the final LayerNorm, the tied-head cross entropy
+(optionally chunked over the sequence, each chunk rematerialized), the
+global-norm clip and a fused AdamW whose math runs in fp32 over params and
+moments stored in their own dtypes (fp32 masters, or the reference bench's
+bf16 params with bf16 moments).
 
-Mesh axes above 1 (``dp``/``tp``/``pp``/``sp``), ``n_microbatch != 1``
-(the pipeline's microbatches) and the fused flash backward are refused by
-name; each is a ``ROADMAP.md`` item.
+The blocks are ``gpt.block_apply``'s, which honours ``use_fused_ffn`` and
+``use_pallas_norm`` as the reference's ``gpt.forward`` does; the
+reference's ``_sharded_block`` computes the FFN and the LayerNorms with
+the plain composition whatever those flags say.  The function is the
+same; only the route differs.
+
+Mesh axes above 1 (``dp``/``tp``/``pp``/``sp``) and ``n_microbatch != 1``
+(the pipeline's microbatches) are refused by name; each is a
+``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -168,7 +177,9 @@ def make_train_step(cfg: GPTConfig, *, n_microbatch=1, beta1=0.9,
             for path, p in _leaves(params):
                 g, mm, vv = (_at(tree, path) for tree in (grads, m, v))
                 if scale is not None:
-                    g = g * scale
+                    # in fp32, as the reference's bf16 grad times its fp32
+                    # scale promotes; adamw_update takes g in fp32 anyway
+                    g = g.float() * scale
                 leaf = path[-1]
                 decay = leaf not in NO_DECAY and leaf not in LN_NAMES
                 np_, nm, nv = adamw_update(p, g, mm, vv, lr, t, beta1, beta2,

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = {"paged_attn": "paged_attn.cu", "layer_norm": "layer_norm.cu",
            "flash_attn": "flash_attn.cu",
-           "dequant_matmul": "dequant_matmul.cu"}
+           "dequant_matmul": "dequant_matmul.cu",
+           "fused_ffn": "fused_ffn.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")

@@ -1,9 +1,12 @@
-// Flash attention forward and split backward for Hopper (sm_90a).
+// Flash attention forward, split backward and fused backward for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attn.py:
 //   fa_fwd_mma / fa_fwd          <- _fa_kernel      (_flash_attention_tpu)
 //   fa_bwd_dq_mma / fa_bwd_dq    <- _fa_dq_kernel   (split path of
 //   fa_bwd_dkv_mma / fa_bwd_dkv  <- _fa_dkv_kernel   _flash_attention_bwd_tpu)
+//   fa_bwd_dkv_mma / fa_bwd_dkv  <- _fa_fused_bwd_kernel (its fused path,
+//     with FUSED = true            set_default_blocks(bwd_fused=True))
 // (*_mma: bf16 on the tensor cores; the others: fp32 on the CUDA cores.)
 // Same arithmetic: s = (q . k) * scale in fp32 from the stored values,
 // bottom-right causal mask (query i sees key j <= i + Nk - N), ragged K tail
@@ -12,15 +15,24 @@
 // recomputes p = exp(s - lse) from the saved row logsumexp, takes
 // delta = rowsum(dO * O) from the wrapper, forms ds = p * (dp - delta) * scale
 // and casts p and ds to the stored type before their products, as the
-// Pallas kernels do.  No atomics: dq (q tile stationary) and dk/dv (K/V tile
-// stationary) are separate kernels, so results are deterministic.
+// Pallas kernels do.  The split backward has no atomics: dq (q tile
+// stationary) and dk/dv (K/V tile stationary) are separate kernels, so its
+// results are deterministic.  The fused backward is the dk/dv kernel that
+// also adds each tile's ds @ k into a zeroed fp32 [B, N, nh, hd] dq buffer
+// with atomic adds (the wrapper casts it to the stored type): p and ds are
+// recomputed once per tile, five products against the split's seven.  The
+// reference writes one fp32 dq partial per K block instead and sums them
+// after; at 64-row K tiles those would take O(N^2 hd / 64) bytes, the
+// buffer here O(N hd).  The order of the atomic adds varies from run to
+// run, and with it the last bits of dq.
 //
 // Bound.  At the training shape (B=8, N=Nk=1024, nh=16, hd=64, causal, bf16)
 // the forward needs 4*V*hd = 17 GFLOP (V = keys attended, summed over rows)
 // against 67 MB of q/k/v/out/lse: bound by bytes on the card (20 us at
 // 3.35 TB/s, 17 us at 989 TFLOP/s).  The backward needs 10*V*hd = 43 GFLOP
-// (five products; this split design does seven, 60 GFLOP) against 134 MB:
-// bound by operations on the tensor cores.  In fp32 the 67 TFLOP/s of the
+// (five products; the split design does seven, 60 GFLOP) against 134 MB:
+// bound by operations on the tensor cores.  The fused backward does the
+// five, and adds V*hd fp32 atomic adds into L2 (per K tile, its q rows).  In fp32 the 67 TFLOP/s of the
 // CUDA cores bound both passes by operations.
 //
 // Design for that bound.  Each block owns a 64-row tile of one (batch,
@@ -347,16 +359,17 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // fp32 backward dk/dv: grid (K tiles, B * nh); K/V tile stationary, q tiles
 // streamed.  The thread owns key rows (ty) and query columns (tx) of the
-// transposed score tile.
+// transposed score tile.  FUSED: also dq32 += ds @ k per q tile, the thread
+// owning 4 query rows (ty) and D / 16 columns (tx) of it.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool FUSED>
 __global__ void __launch_bounds__(NT)
 fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dk, float* __restrict__ dv, int H, int N, int Nk,
-           Strides sq, Strides sk, Strides sv, Strides sd, int causal,
-           float scale) {
+           float* __restrict__ dk, float* __restrict__ dv,
+           float* __restrict__ dq32, int H, int N, int Nk, Strides sq,
+           Strides sk, Strides sv, Strides sd, int causal, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   extern __shared__ float sm[];
@@ -454,6 +467,33 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
           adv[i][j] = fmaf(p[i], g, adv[i][j]);
           adk[i][j] = fmaf(ds[i], a, adk[i][j]);
         }
+      }
+    }
+    if constexpr (FUSED) {
+      float aq[4][DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) aq[i][j] = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < BK; ++r) {
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ds[i] = DT[r * LDP + ty * 4 + i];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const float kk = Ks[r * LD + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) aq[i][j] = fmaf(ds[i], kk, aq[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty * 4 + i;
+        if (row >= N) continue;
+        float* dst = dq32 + (((long long)b * N + row) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) atomicAdd(dst + tx + 16 * j, aq[i][j]);
       }
     }
   }
@@ -797,14 +837,17 @@ fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // backward dk/dv, bf16: grid (K tiles of MR rows, B * nh); q tiles of QB
 // rows streamed.  Each warp owns 16 key rows of the transposed scores.
-template <int D, int QB>
+// FUSED: ds (cast to bf16) also goes to shared memory as [QB][MR], and
+// dq32[q tile] += ds @ k on the tensor cores, each warp 16 query rows x
+// D / (4 / (QB / 16)) columns, added with atomics.
+template <int D, int QB, bool FUSED>
 __global__ void __launch_bounds__(MT)
 fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N,
-               int Nk, Strides sq, Strides sk, Strides sv, Strides sd,
-               int causal, float scale) {
+               bf16* __restrict__ dk, bf16* __restrict__ dv,
+               float* __restrict__ dq32, int H, int N, int Nk, Strides sq,
+               Strides sk, Strides sv, Strides sd, int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
@@ -816,6 +859,8 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Gs = Qs + QB * LD;                     // dO, [QB][LD]
   float* Ls = reinterpret_cast<float*>(Gs + QB * LD);  // [QB]
   float* Dl = Ls + QB;                                  // [QB]
+  bf16* DSs = reinterpret_cast<bf16*>(Dl + QB);         // FUSED: [QB][MR + 8]
+  constexpr int LDS = MR + 8;
 
   const int k0 = blockIdx.x * MR;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
@@ -876,6 +921,8 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float p = ok ? expf(s[n][e] * scale - Ls[c]) : 0.f;
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - Dl[c]) * scale;  // ds
+        if constexpr (FUSED)
+          DSs[c * LDS + key - k0] = __float2bfloat16(dp[n][e]);
       }
 #pragma unroll
     for (int ks = 0; ks < QB / 16; ++ks) {
@@ -889,6 +936,42 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(adv[j], pa, bb);
         frag_b_cols(bb, Qs, LD, 16 * ks, 8 * j);
         mma16816(adk[j], da, bb);
+      }
+    }
+    if constexpr (FUSED) {
+      constexpr int MTQ = QB / 16;   // m-tiles of the q tile
+      constexpr int WPM = MW / MTQ;  // warps per m-tile
+      constexpr int NPW = ND / WPM;  // n-tiles of dq per warp
+      static_assert(MW % MTQ == 0 && ND % WPM == 0, "dq tiling");
+      const int mt = w % MTQ, nb = (w / MTQ) * NPW;
+      __syncthreads();  // every warp's ds is in DSs
+      float aq[NPW][4];
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) aq[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < MR / 16; ++ks) {
+        uint32_t a[4];
+        frag_a(a, DSs, LDS, 16 * mt, 16 * ks);
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          uint32_t bb[2];
+          frag_b_cols(bb, Ks, LD, 16 * ks, 8 * (nb + j));
+          mma16816(aq[j], a, bb);
+        }
+      }
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = q0 + 16 * mt + g + 8 * hi;
+        if (row >= N) continue;
+        float* dst = dq32 + (((long long)b * N + row) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          const int col = 8 * (nb + j) + 2 * t;
+          atomicAdd(dst + col, aq[j][2 * hi]);
+          atomicAdd(dst + col + 1, aq[j][2 * hi + 1]);
+        }
       }
     }
   }
@@ -926,8 +1009,9 @@ template <int D> constexpr int dq_mma_smem() {
 // q rows streamed by the bf16 dk/dv kernel: 64 keep its accumulators in
 // registers at hd 64; at hd 128 the dk/dv accumulators double, so 32.
 template <int D> constexpr int dkv_qb() { return D == 64 ? 64 : 32; }
-template <int D> constexpr int dkv_mma_smem() {
-  return (2 * MR + 2 * dkv_qb<D>()) * (D + 8) * 2 + 2 * dkv_qb<D>() * 4;
+template <int D, bool FUSED> constexpr int dkv_mma_smem() {
+  return (2 * MR + 2 * dkv_qb<D>()) * (D + 8) * 2 + 2 * dkv_qb<D>() * 4 +
+         (FUSED ? dkv_qb<D>() * (MR + 8) * 2 : 0);
 }
 
 // Raise the block's dynamic shared-memory limit once per kernel instance.
@@ -1002,33 +1086,36 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+// FUSED: the fused backward, which also adds dq into the zeroed fp32 dq32.
+template <typename T, int D, bool FUSED>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, int B, int H, int N, int Nk,
-                       Strides sq, Strides sk, Strides sv, Strides sd,
+                       void* dk, void* dv, float* dq32, int B, int H, int N,
+                       int Nk, Strides sq, Strides sk, Strides sv, Strides sd,
                        int causal, float scale, cudaStream_t st) {
   static bool done = false;
   cudaError_t e;
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = dkv_mma_smem<D>();
+    constexpr int smem = dkv_mma_smem<D, FUSED>();
     constexpr int QB = dkv_qb<D>();
-    if ((e = allow_smem(fa_bwd_dkv_mma<D, QB>, smem, done)) != cudaSuccess)
+    if ((e = allow_smem(fa_bwd_dkv_mma<D, QB, FUSED>, smem, done)) !=
+        cudaSuccess)
       return e;
-    fa_bwd_dkv_mma<D, QB><<<dim3((Nk + MR - 1) / MR, B * H), MT, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, Nk, sq,
-        sk, sv, sd, causal, scale);
+    fa_bwd_dkv_mma<D, QB, FUSED>
+        <<<dim3((Nk + MR - 1) / MR, B * H), MT, smem, st>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+            delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq32, H, N,
+            Nk, sq, sk, sv, sd, causal, scale);
   } else {
     constexpr int smem = dkv_smem<D>();
-    if ((e = allow_smem(fa_bwd_dkv<D>, smem, done)) != cudaSuccess)
+    if ((e = allow_smem(fa_bwd_dkv<D, FUSED>, smem, done)) != cudaSuccess)
       return e;
-    fa_bwd_dkv<D><<<dim3((Nk + BK - 1) / BK, B * H), NT, smem, st>>>(
+    fa_bwd_dkv<D, FUSED><<<dim3((Nk + BK - 1) / BK, B * H), NT, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), H, N, Nk, sq,
-        sk, sv, sd, causal, scale);
+        delta, static_cast<float*>(dk), static_cast<float*>(dv), dq32, H, N,
+        Nk, sq, sk, sv, sd, causal, scale);
   }
   return cudaGetLastError();
 }
@@ -1094,9 +1181,29 @@ extern "C" int pt_flash_bwd_dkv(
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
       sd{dsb, dsn, dsh};
   return (int)dispatch(dtype, D, [&](auto t, auto hd) {
-    return launch_dkv<decltype(t), decltype(hd)::value>(
-        q, k, v, dout, lse, delta, dk, dv, B, H, N, Nk, sq, sk, sv, sd, causal,
-        scale, st);
+    return launch_dkv<decltype(t), decltype(hd)::value, false>(
+        q, k, v, dout, lse, delta, dk, dv, nullptr, B, H, N, Nk, sq, sk, sv,
+        sd, causal, scale, st);
+  });
+}
+
+// The fused backward: dk, dv, and dq32 (fp32 [B, N, nh, hd], zeroed by the
+// caller) += ds @ k.
+extern "C" int pt_flash_bwd_fused(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, float* dq32, void* dk, void* dv,
+    int B, int H, int N, int Nk, int D, long long qsb, long long qsn,
+    long long qsh, long long ksb, long long ksn, long long ksh, long long vsb,
+    long long vsn, long long vsh, long long dsb, long long dsn, long long dsh,
+    int causal, float scale, int dtype, void* stream) {
+  if (!shapes_ok(B, H, N, Nk, causal)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
+      sd{dsb, dsn, dsh};
+  return (int)dispatch(dtype, D, [&](auto t, auto hd) {
+    return launch_dkv<decltype(t), decltype(hd)::value, true>(
+        q, k, v, dout, lse, delta, dk, dv, dq32, B, H, N, Nk, sq, sk, sv, sd,
+        causal, scale, st);
   });
 }
 

@@ -1,11 +1,13 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_attn.cu`` (forward, and
-the split backward's dq and dk/dv kernels) and their plain PyTorch
-versions.
+"""Flash attention: the CUDA kernels ``csrc/flash_attn.cu`` (forward, the
+split backward's dq and dk/dv kernels, and the fused backward) and their
+plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attn.py``: the kernels
-replace ``_fa_kernel`` (launched by ``_flash_attention_tpu``) and
+replace ``_fa_kernel`` (launched by ``_flash_attention_tpu``),
 ``_fa_dq_kernel`` / ``_fa_dkv_kernel`` (the split path of
-``_flash_attention_bwd_tpu``, the reference's default).
+``_flash_attention_bwd_tpu``, the reference's default) and
+``_fa_fused_bwd_kernel`` (its fused path, chosen by
+``set_default_blocks(bwd_fused=True)`` as in the reference).
 :func:`_ref_attention` mirrors ``_ref_attention``; :func:`_ref_flash_fwd`
 and :func:`_ref_flash_bwd` are plain versions of the kernels' own
 functions (out with the row logsumexp; the gradients recomputed from it).
@@ -17,8 +19,17 @@ CUDA tensors it is a ``torch.autograd.Function`` whose forward and backward
 launch the kernels, or raise; it never falls back from one to the other.
 q/k/v may be strided views (the model's are slices of its fused qkv
 projection): the kernels take the strides of the first three axes, so no
-copy is made.  ``fwd_launches``, ``dq_launches`` and ``dkv_launches``
-count kernel launches.
+copy is made.  ``fwd_launches``, ``dq_launches``, ``dkv_launches`` and
+``fused_launches`` count kernel launches.
+
+The fused backward adds each tile's ``ds @ k`` into a zeroed fp32 dq
+buffer with atomic adds, then casts it to q's dtype; the reference writes
+one fp32 dq partial per K block and sums them after.  That buffer is
+O(N^2 hd / block_k), so the reference falls back to the split kernels
+above ``_FUSED_DQP_BYTES_CAP``; the port's is O(N hd), so every backward
+with ``bwd_fused=True`` takes the fused kernel.  The routes differ there,
+not the results: both compute :func:`_ref_flash_bwd`'s function.  The
+atomics' order varies from run to run, and with it dq's last bits.
 """
 from __future__ import annotations
 
@@ -34,25 +45,27 @@ NEG_INF = -1e30
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
+fused_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _fns = None
+# Backward strategy, as the reference's _BWD_FUSED: False = the split dq
+# and dk/dv kernels, True = the fused kernel.
+_BWD_FUSED = False
 
 
 def set_default_blocks(fwd=None, bwd=None, bwd_fused=None):
-    """The reference's tiling/strategy switch.  The port's kernels have
-    fixed 64-row tiles and only the split backward, so anything but the
-    defaults raises."""
+    """The reference's tiling/strategy switch.  ``bwd_fused`` sets the
+    backward strategy (``None`` keeps it).  The kernels' tiles are fixed,
+    so a ``fwd`` or ``bwd`` tiling raises."""
+    global _BWD_FUSED
     if fwd is not None or bwd is not None:
         raise NotImplementedError(
             "flash attention tiles are fixed at 64 x 64 rows in "
             "csrc/flash_attn.cu; per-call block sizes are not ported")
-    if bwd_fused:
-        raise NotImplementedError(
-            "set_default_blocks(bwd_fused=True): the fused flash backward "
-            "(_fa_fused_bwd_kernel) is not ported; see ROADMAP.md Queue 2, "
-            "fused flash backward with an atomic-add dq")
+    if bwd_fused is not None:
+        _BWD_FUSED = bool(bwd_fused)
 
 
 # --------------------------------------------------------------------------
@@ -136,11 +149,13 @@ def _kernels():
         dq.argtypes = [p] * 7 + [i] * 5 + [ll] * 12 + [i, f, i, p]
         dkv = lib.pt_flash_bwd_dkv
         dkv.argtypes = [p] * 8 + [i] * 5 + [ll] * 12 + [i, f, i, p]
-        for fn in (fwd, dq, dkv):
+        fused = lib.pt_flash_bwd_fused
+        fused.argtypes = [p] * 9 + [i] * 5 + [ll] * 12 + [i, f, i, p]
+        for fn in (fwd, dq, dkv, fused):
             fn.restype = ctypes.c_int
         lib.pt_error_string.argtypes = [ctypes.c_int]
         lib.pt_error_string.restype = ctypes.c_char_p
-        _fns = (lib, fwd, dq, dkv)
+        _fns = (lib, fwd, dq, dkv, fused)
     return _fns
 
 
@@ -198,7 +213,7 @@ def _flash_fwd_cuda(q, k, v, causal):
     Nk = k.shape[1]
     out = torch.empty((B, N, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, nh, N), dtype=torch.float32, device=q.device)
-    lib, fwd, _, _ = _kernels()
+    lib, fwd, *_ = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -234,7 +249,7 @@ def _launch_dq(q, k, v, do, lse, delta, causal):
     global dq_launches
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal)
-    lib, _, dq_fn, _ = _kernels()
+    lib, _, dq_fn, *_ = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = dq_fn(*ptrs, dq.data_ptr(), *dims, stream)
@@ -249,7 +264,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal):
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal)
-    lib, _, _, dkv_fn = _kernels()
+    lib, _, _, dkv_fn, _ = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
@@ -258,8 +273,29 @@ def _launch_dkv(q, k, v, do, lse, delta, causal):
     return dk, dv
 
 
+def _launch_fused(q, k, v, do, lse, delta, causal):
+    """The fused backward kernel on operands from :func:`_bwd_operands`:
+    dk, dv, and dq summed in a zeroed fp32 buffer, then cast to q's
+    dtype."""
+    global fused_launches
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal)
+    lib, *_, fused_fn = _kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fused_fn(*ptrs, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                       *dims, stream)
+    build.check(lib, err, "flash_attention fused backward")
+    fused_launches += 1
+    return dq32.to(q.dtype), dk, dv
+
+
 def _flash_bwd_cuda(q, k, v, out, lse, do, causal):
     q, k, v, do, delta = _bwd_operands(q, k, v, out, do)
+    if _BWD_FUSED:
+        return _launch_fused(q, k, v, do, lse, delta, causal)
     dq = _launch_dq(q, k, v, do, lse, delta, causal)
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal)
     return dq, dk, dv
@@ -284,7 +320,8 @@ def flash_attention(q, k, v, causal=False):
     """Attention over q [B, N, nh, hd] and k, v [B, Nk, nh, hd] (causal:
     bottom-right aligned).  Returns [B, N, nh, hd] in q's dtype.  CPU
     tensors: autograd of :func:`_ref_attention`.  CUDA tensors (float32 or
-    bfloat16, hd 64 or 128): the flash kernels, forward and backward."""
+    bfloat16, hd 64 or 128): the flash kernels, forward and backward (the
+    split or the fused backward, per :func:`set_default_blocks`)."""
     if q.device.type == "cpu":
         return _ref_attention(q, k, v, causal)
     if q.device.type != "cuda":
@@ -301,8 +338,9 @@ def flash_fwd(q, k, v, causal=False):
 
 
 def flash_bwd(q, k, v, out, lse, do, causal=False):
-    """The backward kernels alone: (dq, dk, dv).  For checks and timing
-    beside :func:`_ref_flash_bwd`."""
+    """The backward kernels alone, split or fused per
+    :func:`set_default_blocks`: (dq, dk, dv).  For checks and timing beside
+    :func:`_ref_flash_bwd`."""
     _check_cuda(q, k, v, causal)
     if do.shape != q.shape or do.dtype != q.dtype or out.shape != q.shape:
         raise ValueError(f"flash_bwd: out {tuple(out.shape)} and do "

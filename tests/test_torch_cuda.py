@@ -21,7 +21,10 @@ within 1e-5 of max|ref| in fp32 and 2**-8 + 2**-6 |ref| per element in
 bf16 (the kernel rounds once, the plain version twice); int8 paged
 attention within 1e-5 in fp32 and 2**-8 + 2**-6 sum_j p_j |v_j| per
 element, capped at 2e-2, in bf16; the fp32 quantized engine on the card
-against the CPU: tokens exact, logits within 1e-3.
+against the CPU: tokens exact, logits within 1e-3.  The fused FFN against
+the plain version of its own function (h and the output each rounded
+once): 1e-5 in fp32, 2**-8 + 2**-6 |ref| per element in bf16; the fused
+flash backward at the split backward's tolerances.
 """
 import numpy as np
 import pytest
@@ -29,7 +32,8 @@ import torch
 
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import gpt as T
-from paddle_tpu_torch.ops.cuda import build, flash_attn, norms, paged_attn
+from paddle_tpu_torch.ops.cuda import (build, flash_attn, fused_ffn, norms,
+                                      paged_attn)
 from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm
 
 pytestmark = pytest.mark.cuda
@@ -403,3 +407,133 @@ def test_other_weight_modes_on_card_match_cpu(dev, quant):
         err = max(float(np.abs(x - y).max())
                   for x, y in zip(a.logits, b.logits))
         assert err <= 1e-3, err
+
+
+# ---------------------------------------------------------------------------
+# the fused FFN and the fused flash backward (the GPT-3 1.3B recipe's routes)
+# ---------------------------------------------------------------------------
+
+def _ffn_args(dev, dtype, M, H, F, seed=0):
+    """x ~ N(0, 1), weights scaled by 1/sqrt(fan-in), biases N(0, 0.1^2):
+    outputs of order one."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
+    return (rnd(M, H), rnd(H, F, scale=H ** -0.5), rnd(F, scale=0.1),
+            rnd(F, H, scale=F ** -0.5), rnd(H, scale=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,H,F", [(1000, 1024, 4096), (8, 1024, 4096),
+                                   (128, 128, 256), (37, 264, 104)])
+def test_fused_ffn_kernel_matches_plain(dev, dtype, M, H, F):
+    """The kernel against ``_ref_fused_ffn`` (its own function): fp32 within
+    1e-5, bf16 per element 2**-8 + 2**-6 |ref|.  Ragged M and F tiles, and
+    H = 264 (a multiple of 8, not of 128)."""
+    args = _ffn_args(dev, dtype, M, H, F)
+    before = fused_ffn.launches
+    got = fused_ffn.fused_ffn_fwd(*args)
+    torch.cuda.synchronize()
+    assert fused_ffn.launches == before + 1
+    assert got.shape == (M, H) and got.dtype == dtype
+    ref = fused_ffn._ref_fused_ffn(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=FP32_TOL, rtol=FP32_TOL)
+        torch.testing.assert_close(got, fused_ffn._ref_ffn(*args),
+                                   atol=FP32_TOL, rtol=FP32_TOL)
+    else:
+        assert _per_element(got, ref, ref) <= 1.0
+
+
+def test_fused_ffn_autograd_on_card_and_refusals(dev):
+    """One launch a forward; gradients of every input equal autograd of
+    ``_ref_ffn``; what the kernel does not take is refused by name."""
+    args = [a.requires_grad_() for a in
+            _ffn_args(dev, torch.float32, 3 * 40, 256, 512, seed=1)]
+    x = args[0].reshape(3, 40, 256)
+    before = fused_ffn.launches
+    out = fused_ffn.fused_ffn(x, *args[1:])
+    assert fused_ffn.launches == before + 1 and out.shape == x.shape
+    dy = torch.randn_like(out)
+    got = torch.autograd.grad(out, args, dy)
+    want = torch.autograd.grad(fused_ffn._ref_ffn(x, *args[1:]), args, dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=FP32_TOL, rtol=FP32_TOL)
+    with pytest.raises(ValueError, match="H=2056"):
+        fused_ffn.fused_ffn(*_ffn_args(dev, torch.float32, 4, 2056, 64))
+    with pytest.raises(ValueError, match="H=12"):
+        fused_ffn.fused_ffn(*_ffn_args(dev, torch.float32, 4, 12, 64))
+    with pytest.raises(ValueError, match="F=100"):
+        fused_ffn.fused_ffn(*_ffn_args(dev, torch.bfloat16, 4, 64, 100))
+    bad = list(_ffn_args(dev, torch.bfloat16, 4, 64, 64))
+    bad[1] = bad[1].float()
+    with pytest.raises(TypeError, match="w1"):
+        fused_ffn.fused_ffn(*bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1000, 1000, 16, 64, True),
+                                   (2, 256, 256, 4, 128, False),
+                                   (1, 128, 320, 16, 64, True),
+                                   (2, 512, 512, 16, 128, True)])
+def test_fused_flash_backward_matches_plain(dev, dtype, shape):
+    """With ``bwd_fused=True`` the backward is one fused launch (no split
+    launch) whose dq, dk, dv match ``_ref_flash_bwd`` at the split
+    kernels' tolerances: fp32 2e-4, bf16 per element 2**-8 + 2**-6 |ref|."""
+    B, N, Nk, nh, hd, causal = shape
+    g = torch.Generator(device=dev).manual_seed(N + hd)
+    q = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, Nk, nh, hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    out, lse = flash_attn.flash_fwd(q, k, v, causal)
+    counts = (flash_attn.dq_launches, flash_attn.dkv_launches,
+              flash_attn.fused_launches)
+    try:
+        flash_attn.set_default_blocks(bwd_fused=True)
+        got = flash_attn.flash_bwd(q, k, v, out, lse, do, causal)
+    finally:
+        flash_attn.set_default_blocks(bwd_fused=False)
+    torch.cuda.synchronize()
+    assert (flash_attn.dq_launches, flash_attn.dkv_launches,
+            flash_attn.fused_launches) == (counts[0], counts[1],
+                                           counts[2] + 1)
+    refs = flash_attn._ref_flash_bwd(q, k, v, out, lse, do, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, refs):
+        assert a.dtype == dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
+        else:
+            assert _per_element(a, b, b) <= 1.0, name
+
+
+def test_train_step_fused_routes_on_card_match_cpu(dev):
+    """A narrow fp32 model with ``use_fused_ffn`` and ``bwd_fused=True``:
+    per step 2L fused-FFN launches, L fused backward launches, no split
+    backward launch; the loss equals the CPU step's within 1e-5."""
+    from paddle_tpu_torch.models import gpt_hybrid as TH
+    cfg = T.GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                      num_heads=2, max_seq_len=64, dtype="float32",
+                      use_flash=True, use_fused_ffn=True,
+                      use_pallas_norm=True)
+    gen = torch.Generator().manual_seed(0)
+    cpu_p = T.init_params(cfg, gen, device="cpu")
+    dev_p = {k: (v.to(dev) if torch.is_tensor(v)
+                 else {kk: vv.to(dev) for kk, vv in v.items()})
+             for k, v in cpu_p.items()}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256,
+                                                              (2, 64)))
+    L = cfg.num_layers
+    try:
+        flash_attn.set_default_blocks(bwd_fused=True)
+        before = (fused_ffn.launches, flash_attn.fused_launches,
+                  flash_attn.dq_launches, flash_attn.dkv_launches)
+        lg, _ = TH.loss_and_grads(dev_p, toks.to(dev), toks.to(dev), cfg)
+        after = (fused_ffn.launches, flash_attn.fused_launches,
+                 flash_attn.dq_launches, flash_attn.dkv_launches)
+        lc, _ = TH.loss_and_grads(cpu_p, toks, toks, cfg)
+    finally:
+        flash_attn.set_default_blocks(bwd_fused=False)
+    assert tuple(a - b for a, b in zip(after, before)) == (2 * L, L, 0, 0)
+    assert abs(float(lg) - float(lc)) <= FP32_TOL

@@ -105,13 +105,26 @@ def test_cpu_autograd_matches_jax_vjp(case):
 
 
 def test_wrapper_on_cpu_counts_nothing_and_refuses_fused_backward():
+    """On the CPU neither backward strategy launches a kernel; the
+    ``bwd_fused`` flag is set and cleared as the reference's is, and the
+    tilings it does not port are still refused."""
     q, k, v, _ = _inputs(CASES[0], 3)
-    before = (T.fwd_launches, T.dq_launches, T.dkv_launches)
-    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    T.flash_attention(*ts, causal=True).sum().backward()
-    assert (T.fwd_launches, T.dq_launches, T.dkv_launches) == before
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        T.set_default_blocks(bwd_fused=True)
-    with pytest.raises(NotImplementedError, match="fixed"):
-        T.set_default_blocks(fwd=(128, 128))
-    T.set_default_blocks(bwd_fused=False)
+    counters = ("fwd_launches", "dq_launches", "dkv_launches",
+                "fused_launches")
+    before = [getattr(T, c) for c in counters]
+    try:
+        for fused in (False, True):
+            T.set_default_blocks(bwd_fused=fused)
+            assert T._BWD_FUSED is fused
+            T.set_default_blocks()                  # None keeps it
+            assert T._BWD_FUSED is fused
+            ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+            T.flash_attention(*ts, causal=True).sum().backward()
+            assert [getattr(T, c) for c in counters] == before
+        with pytest.raises(NotImplementedError, match="fixed"):
+            T.set_default_blocks(fwd=(128, 128))
+        with pytest.raises(NotImplementedError, match="fixed"):
+            T.set_default_blocks(bwd=(128, 128), bwd_fused=False)
+    finally:
+        T.set_default_blocks(bwd_fused=False)
+    assert T._BWD_FUSED is False

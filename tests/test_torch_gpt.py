@@ -234,8 +234,13 @@ def test_out_of_slice_configs_are_named():
         T.init_params(T.GPTConfig(vocab_size=64, hidden_size=32,
                                   num_layers=1, num_heads=2, moe_experts=2),
                       torch.Generator(), device=CPU)
-    with pytest.raises(NotImplementedError, match="fused"):
-        T.init_params(T.GPTConfig(vocab_size=64, hidden_size=32,
-                                  num_layers=1, num_heads=2,
-                                  use_fused_ffn=True),
-                      torch.Generator(), device=CPU)
+    # the fused FFN is in the slice: its config initialises as the plain
+    # FFN's does, to the same weights from the same seed
+    kw = dict(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2)
+    fused = T.init_params(T.GPTConfig(use_fused_ffn=True, **kw),
+                          torch.Generator().manual_seed(0), device=CPU)
+    plain = T.init_params(T.GPTConfig(**kw),
+                          torch.Generator().manual_seed(0), device=CPU)
+    assert fused["blocks"].keys() == plain["blocks"].keys()
+    for k, w in fused["blocks"].items():
+        assert torch.equal(w, plain["blocks"][k]), k

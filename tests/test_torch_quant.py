@@ -718,18 +718,25 @@ def test_quantize_params_refusals_by_name(model):
         T.quantize_params(moe, "int8")
 
 
-def test_quantized_ffn_bypasses_the_unported_fused_ffn(wide):
+def test_quantized_ffn_bypasses_the_unported_fused_ffn(wide, monkeypatch):
     """``use_fused_ffn`` with quantized FFN weights runs the dequant
-    matmuls, as the reference does; with float weights it is refused."""
+    matmuls, as the reference does, and never the fused FFN; with float
+    weights it takes the fused FFN, whose CPU path is the plain FFN."""
     _, _, tcfg, tq = wide
     cfg = _cfg(T, hidden_size=128, num_heads=2, use_fused_ffn=True)
     x = torch.randn(1, 3, 128)
+    calls = []
+    real = T.fused_ffn
+    monkeypatch.setattr(T, "fused_ffn",
+                        lambda *a: calls.append(1) or real(*a))
     torch.testing.assert_close(T.block_apply(cfg, x, T.layer(tq, 0)),
                                T.block_apply(tcfg, x, T.layer(tq, 0)),
                                rtol=0, atol=0)
+    assert not calls
     flt = T.layer(T.params_from_numpy(numpy_params(tcfg, 1), "cpu"), 0)
-    with pytest.raises(NotImplementedError, match="fused"):
-        T.block_apply(cfg, x, flt)
+    torch.testing.assert_close(T.block_apply(cfg, x, flt),
+                               T.block_apply(tcfg, x, flt), rtol=0, atol=0)
+    assert len(calls) == 1
 
 
 def test_norm_launches_unchanged_on_cpu_quant_path(model):

@@ -25,7 +25,7 @@ from paddle_tpu.optimizer import functional as JF
 from paddle_tpu.parallel.mesh import create_mesh
 from paddle_tpu_torch.models import gpt as T
 from paddle_tpu_torch.models import gpt_hybrid as TH
-from paddle_tpu_torch.ops.cuda import flash_attn, norms
+from paddle_tpu_torch.ops.cuda import flash_attn, fused_ffn, norms
 from paddle_tpu_torch.optimizer import functional as TF
 from torch.utils._python_dispatch import TorchDispatchMode
 from test_torch_gpt import _wide_cfg, numpy_params
@@ -156,20 +156,38 @@ def test_train_state_and_refusals():
                {"n_microbatch": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TH.make_train_step(tcfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the fused routes of the reference bench's recipe are taken, not
+    # refused: the flag is set and cleared, use_fused_ffn builds a step
+    try:
         flash_attn.set_default_blocks(bwd_fused=True)
+        assert flash_attn._BWD_FUSED
+        _, fcfg = _cfgs(use_fused_ffn=True)
+        assert callable(TH.make_train_step(fcfg))
+    finally:
+        flash_attn.set_default_blocks(bwd_fused=False)
+    assert not flash_attn._BWD_FUSED
 
 
-def test_cpu_train_step_launches_no_kernel():
-    _, tcfg = _cfgs(use_flash=True, use_pallas_norm=True, remat=True)
+@pytest.mark.parametrize("bwd_fused", [False, True],
+                         ids=["split_bwd", "fused_bwd"])
+def test_cpu_train_step_launches_no_kernel(bwd_fused):
+    _, tcfg = _cfgs(use_flash=True, use_pallas_norm=True, remat=True,
+                    use_fused_ffn=bwd_fused)
     params = T.params_from_numpy(numpy_params(tcfg, 0), CPU)
     m, v = TH.init_train_state(params)
     toks, labels = (torch.from_numpy(a) for a in _tokens(5))
-    counts = (flash_attn.fwd_launches, flash_attn.dq_launches,
-              flash_attn.dkv_launches, norms.launches)
-    TH.make_train_step(tcfg)(params, m, v, 1, toks, labels, 1e-4)
-    assert (flash_attn.fwd_launches, flash_attn.dq_launches,
-            flash_attn.dkv_launches, norms.launches) == counts
+
+    def counts():
+        return (flash_attn.fwd_launches, flash_attn.dq_launches,
+                flash_attn.dkv_launches, flash_attn.fused_launches,
+                fused_ffn.launches, norms.launches)
+    before = counts()
+    try:
+        flash_attn.set_default_blocks(bwd_fused=bwd_fused)
+        TH.make_train_step(tcfg)(params, m, v, 1, toks, labels, 1e-4)
+    finally:
+        flash_attn.set_default_blocks(bwd_fused=False)
+    assert counts() == before
 
 
 class _CountOps(TorchDispatchMode):
