@@ -22,45 +22,48 @@
 // 989 TFLOP/s).  A decode GEMM (M = 8) is bound by the weight bytes.
 //
 // Design for that bound (the TPU kept a [128, H] fp32 accumulator in VMEM,
-// 1 MB at H = 2048, more than an SM holds).  A block owns 16 rows and the
-// whole [16, H] fp32 accumulator, spread over the registers of its 16 warps
-// (H / 16 columns a warp), and walks F in tiles of BF = 128:
-//   1. h[16, BF] = x_blk @ w1[:, f-tile] on the tensor cores: each warp
-//      takes 4 of the 16 n-tiles over a quarter of H, the four partials are
-//      summed in shared memory in a fixed order, then + b1, gelu, rounded
+// 1 MB at H = 2048, more than an SM holds).  bf16: a cluster of two blocks
+// owns 32 rows and their whole [32, H] fp32 accumulator, each block half of
+// the columns in the registers of its 16 warps, and walks F in tiles of
+// BF = 128:
+//   1. h[32, BF] = x_tile @ w1[:, f-tile] on the tensor cores: each block
+//      takes half of the k range (its half of x stays in shared memory for
+//      the whole walk), sums its warps' partials in shared memory in a fixed
+//      order, and the two blocks swap partials through distributed shared
+//      memory; both then add them in the same order, + b1, gelu, and round
 //      to bf16 into shared memory;
-//   2. acc[16, H] += h @ w2[f-tile, :]: each warp its own H / 16 columns.
-// x_blk stays in shared memory for the whole walk.  The weights are read
-// by every block, B fragments straight from global memory (the blocks that
-// run together walk the same F tiles, so most reads hit the 50 MB L2), which
-// makes the kernel bound by L2 bandwidth at 16 rows a block: 16 flops per
-// weight byte.  Each thread loads 16 bytes of a transposed weight row, 8
-// consecutive k, for two k-steps at once: k is relabelled within each
-// 32-wide slice, the same way in A and B (thread t's k-slots 2t, 2t+1 hold
-// k = 8t + 4s, +1 and slots 2t+8, 2t+9 hold 8t + 4s + 2, +3 in step s), which
-// the contraction does not see.  A larger row tile needs the accumulator split across a
-// cluster's shared memory; that, cp.async/TMA staging and wgmma are the
-// next steps.  bf16 runs warp-level mma.sync m16n8k16 (fp32 accumulate);
-// float32 runs on the CUDA cores (TF32 would break its 1e-5 tolerance), a
-// thread per (row, f) for the first product and a thread per column group
-// for the second.
+//   2. acc[32, H/2] += h @ w2[f-tile, this block's columns].
+// Every weight byte a cluster reads feeds 32 rows: 32 flops per byte.  The
+// weights are read by every cluster, B fragments straight from global
+// memory (the clusters that run together walk the same F tiles, so most
+// reads hit the 50 MB L2), which bounds the kernel by L2 bandwidth.  Each
+// thread loads 16 bytes of a transposed weight row, 8 consecutive k, for two
+// k-steps at once: k is relabelled within each 32-wide slice, the same way
+// in A and B (thread t's k-slots 2t, 2t+1 hold k = 8t + 4s, +1 and slots
+// 2t+8, 2t+9 hold 8t + 4s + 2, +3 in step s), which the contraction does not
+// see.  cp.async/TMA staging, wgmma and larger clusters are the next steps.
+// bf16 runs warp-level mma.sync m16n8k16 (fp32 accumulate); float32 runs on
+// the CUDA cores (TF32 would break its 1e-5 tolerance): a block of 16 rows
+// and the whole [16, H] accumulator, a thread per (row, f) for the first
+// product and a thread per column group for the second.
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/fused_ffn.py);
 // dtype codes: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after
 // the launch.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 16;          // rows of a block
+constexpr int BM = 16;          // rows of a block (fp32)
 constexpr int NW = 16;          // warps of a block
 constexpr int NT = 32 * NW;     // threads of a block
 constexpr int BF = 128;         // F tile of the bf16 kernel
-constexpr int KQ = 4;           // K groups of the first product
 constexpr int PADS = 32;        // row padding (64 bytes: 16-byte row loads of
                                 // rows g and g + 1 fall in other banks)
 constexpr int LDH = BF + PADS;  // pitch of the bf16 h tile
@@ -108,81 +111,121 @@ __device__ __forceinline__ uint4 frag_b2(const bf16* __restrict__ wt, int K,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores.  NTW: n-tiles (8 columns) of the accumulator a
-// warp owns, so a block covers 128 * NTW >= H columns.
+// bf16 on the tensor cores: a cluster of two blocks per 32-row tile.
+// Block r (its rank in the cluster) owns output columns [r*CH, (r+1)*CH),
+// CH = 128 * NTW, in its accumulator, and the first product's k range
+// [r*KH, (r+1)*KH) of x and w1.  Per F tile each block sums its 16 warps'
+// partial h over its k range in shared memory, the two blocks swap those
+// partials through distributed shared memory, and each forms the same
+// h = partial(rank 0) + partial(rank 1), then + b1, gelu and one rounding to
+// bf16.  NTW: n-tiles (8 columns) a warp owns in each of the tile's two
+// 16-row m-tiles.
 // ---------------------------------------------------------------------------
+constexpr int BM2 = 32;         // rows of a cluster's tile
+constexpr int KG = 2;           // k groups of the first product in a block
+
 template <int NTW>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1)
 ffn_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
          const bf16* __restrict__ b1, const bf16* __restrict__ w2t,
          const bf16* __restrict__ b2, bf16* __restrict__ out, int M, int H,
-         int F) {
+         int F, int KH) {
+  constexpr int CH = 16 * 8 * NTW;
   extern __shared__ __align__(16) unsigned char smraw[];
-  const int Hp = (H + 127) / 128 * 128;  // K of the first product, 4 x 32
-  const int LDX = Hp + PADS;
-  bf16* Xs = reinterpret_cast<bf16*>(smraw);             // [BM][LDX]
-  float* Red = reinterpret_cast<float*>(Xs + BM * LDX);  // [KQ][BM][BF]
-  bf16* Hs = reinterpret_cast<bf16*>(Red + KQ * BM * BF);  // [BM][LDH]
+  const int LDX = KH + PADS;
+  bf16* Xs = reinterpret_cast<bf16*>(smraw);                // [BM2][LDX]
+  float* Red = reinterpret_cast<float*>(Xs + BM2 * LDX);    // [KG][BM2][BF]
+  float* Part = Red + KG * BM2 * BF;                        // [2][BM2][BF]
+  bf16* Hs = reinterpret_cast<bf16*>(Part + 2 * BM2 * BF);  // [BM2][LDH]
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const float* peer_part = cluster.map_shared_rank(Part, rank ^ 1);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM;
+  const int m0 = (blockIdx.x >> 1) * BM2;
+  const int kbase = rank * KH;
 
-  // x rows -> shared, 16-byte chunks; rows past M and columns past H zero
-  for (int i = tid; i < BM * (Hp / 8); i += NT) {
-    const int r = i / (Hp / 8), c = 8 * (i % (Hp / 8));
+  // this block's k range of x -> shared, 16-byte chunks; rows past M and
+  // columns past H zero
+  for (int i = tid; i < BM2 * (KH / 8); i += NT) {
+    const int r = i / (KH / 8), c = 8 * (i % (KH / 8));
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (m0 + r < M && c < H)
+    if (m0 + r < M && kbase + c < H)
       v = __ldg(reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * H +
-                                               c));
+                                               kbase + c));
     *reinterpret_cast<uint4*>(Xs + r * LDX + c) = v;
   }
 
-  float acc[NTW][4];
+  float acc[2][NTW][4];
 #pragma unroll
-  for (int j = 0; j < NTW; ++j)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 
-  const int ng = warp & 3, kq = warp >> 2;  // first product: n group, K group
-  const int kspan = Hp / KQ;                // a multiple of 32
-  const int c0 = warp * NTW * 8;            // second product: first column
+  const int ng = warp & 7, kg = warp >> 3;   // first product: 2 n-tiles each
+  const int kspan = KH / KG;                 // a multiple of 32
+  const int c0 = rank * CH + warp * NTW * 8; // second product: first column
   __syncthreads();
 
-  for (int f0 = 0; f0 < F; f0 += BF) {
-    // 1. partial h over this warp's quarter of H, 4 n-tiles
-    float hacc[4][4];
+  for (int f0 = 0, buf = 0; f0 < F; f0 += BF, buf ^= 1) {
+    // 1. this warp's partial h over its share of the block's k range
+    float hacc[2][2][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) hacc[j][e] = 0.f;
-    for (int k0 = kq * kspan; k0 < (kq + 1) * kspan; k0 += 32) {
-      uint32_t a[2][4];
-      frag_a2(a, Xs, LDX, k0);
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint4 b = frag_b2(w1t, H, F, k0, f0 + 8 * (4 * ng + j));
-        mma16816(hacc[j], a[0], b.x, b.y);
-        mma16816(hacc[j], a[1], b.z, b.w);
+        for (int e = 0; e < 4; ++e) hacc[mt][j][e] = 0.f;
+    for (int k0 = kg * kspan; k0 < (kg + 1) * kspan; k0 += 32) {
+      uint32_t a[2][2][4];
+      frag_a2(a[0], Xs, LDX, k0);
+      frag_a2(a[1], Xs + 16 * LDX, LDX, k0);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint4 b = frag_b2(w1t, H, F, kbase + k0, f0 + 8 * (2 * ng + j));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(hacc[mt][j], a[mt][0], b.x, b.y);
+          mma16816(hacc[mt][j], a[mt][1], b.z, b.w);
+        }
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = 8 * (4 * ng + j) + 2 * t;
-      float* p = Red + (kq * BM + g) * BF + col;
-      p[0] = hacc[j][0];
-      p[1] = hacc[j][1];
-      p[8 * BF] = hacc[j][2];
-      p[8 * BF + 1] = hacc[j][3];
-    }
-    __syncthreads();
-    // the four partials in order, + b1 in fp32, gelu, one rounding to bf16
-    for (int i = tid; i < BM * BF; i += NT) {
-      const int r = i / BF, f = i % BF;
-      float u = Red[r * BF + f];
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int q = 1; q < KQ; ++q) u += Red[(q * BM + r) * BF + f];
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * (2 * ng + j) + 2 * t;
+        float* p = Red + (kg * BM2 + 16 * mt + g) * BF + col;
+        p[0] = hacc[mt][j][0];
+        p[1] = hacc[mt][j][1];
+        p[8 * BF] = hacc[mt][j][2];
+        p[8 * BF + 1] = hacc[mt][j][3];
+      }
+    __syncthreads();
+    // the block's partial, its k groups summed in order
+    float* part = Part + buf * BM2 * BF;
+    for (int i = tid; i < BM2 * BF; i += NT) {
+      float u = Red[i];
+#pragma unroll
+      for (int q = 1; q < KG; ++q) u += Red[q * BM2 * BF + i];
+      part[i] = u;
+    }
+    // both blocks' partials are written (and the peer is past its reads of
+    // this buffer, two tiles back)
+    cluster.sync();
+    const float* mine = part;
+    const float* other = peer_part + buf * BM2 * BF;
+    const float* p0 = rank == 0 ? mine : other;
+    const float* p1 = rank == 0 ? other : mine;
+    // h = partial(rank 0) + partial(rank 1), + b1 in fp32, gelu, one
+    // rounding to bf16: the same bits in both blocks
+    for (int i = tid; i < BM2 * BF; i += NT) {
+      const int r = i / BF, f = i % BF;
       const bool in = f0 + f < F;
+      float u = p0[i] + p1[i];
       u += in ? __bfloat162float(b1[f0 + f]) : 0.f;
       Hs[r * LDH + f] = __float2bfloat16(in ? gelu_tanh(u) : 0.f);
     }
@@ -190,16 +233,22 @@ ffn_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
     // 2. acc += h @ w2[f-tile, this warp's columns]
 #pragma unroll 1
     for (int k0 = 0; k0 < BF; k0 += 32) {
-      uint32_t a[2][4];
-      frag_a2(a, Hs, LDH, k0);
+      uint32_t a[2][2][4];
+      frag_a2(a[0], Hs, LDH, k0);
+      frag_a2(a[1], Hs + 16 * LDH, LDH, k0);
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
         const uint4 b = frag_b2(w2t, F, H, f0 + k0, c0 + 8 * j);
-        mma16816(acc[j], a[0], b.x, b.y);
-        mma16816(acc[j], a[1], b.z, b.w);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(acc[mt][j], a[mt][0], b.x, b.y);
+          mma16816(acc[mt][j], a[mt][1], b.z, b.w);
+        }
       }
     }
   }
+  // the peer may still read this block's partials: leave together
+  cluster.sync();
 
   // + b2 in fp32, one rounding to bf16
 #pragma unroll
@@ -209,13 +258,15 @@ ffn_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
     const float bx = __bfloat162float(b2[col]);
     const float by = __bfloat162float(b2[col + 1]);
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = m0 + g + 8 * hi;
-      if (row >= M) continue;
-      __nv_bfloat162 v =
-          __floats2bfloat162_rn(acc[j][2 * hi] + bx, acc[j][2 * hi + 1] + by);
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * H + col) = v;
-    }
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = m0 + 16 * mt + g + 8 * hi;
+        if (row >= M) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * H + col) =
+            __floats2bfloat162_rn(acc[mt][j][2 * hi] + bx,
+                                  acc[mt][j][2 * hi + 1] + by);
+      }
   }
 }
 
@@ -299,14 +350,19 @@ template <int NTW>
 cudaError_t launch_bf16(const void* x, const void* w1, const void* b1,
                         const void* w2, const void* b2, void* out, int M,
                         int H, int F, cudaStream_t st) {
-  const int Hp = (H + 127) / 128 * 128;
-  const int smem = BM * (Hp + PADS) * 2 + KQ * BM * BF * 4 + BM * LDH * 2;
+  // each block's k range of the first product: half of H, in whole
+  // 64-wide steps (KG groups of 32)
+  const int KH = ((H + 1) / 2 + 63) / 64 * 64;
+  const int smem = BM2 * (KH + PADS) * 2 + (KG + 2) * BM2 * BF * 4 +
+                   BM2 * LDH * 2;
   cudaError_t e = allow_smem(ffn_bf16<NTW>, smem);
   if (e != cudaSuccess) return e;
-  ffn_bf16<NTW><<<(M + BM - 1) / BM, NT, smem, st>>>(
+  const long long tiles = (M + BM2 - 1) / BM2;
+  if (2 * tiles > 2147483647LL) return cudaErrorInvalidValue;
+  ffn_bf16<NTW><<<(unsigned)(2 * tiles), NT, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), M, H, F);
+      static_cast<const bf16*>(b2), static_cast<bf16*>(out), M, H, F, KH);
   return cudaGetLastError();
 }
 
@@ -336,11 +392,12 @@ extern "C" int pt_fused_ffn(const void* x, const void* w1, const void* b1,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const int cols = (H + 127) / 128;  // n-tiles a warp needs
+    // n-tiles a warp needs for its block's half of the columns
+    const int cols = (H + 255) / 256;
+    if (cols <= 1) return (int)launch_bf16<1>(x, w1, b1, w2, b2, out, M, H, F, st);
     if (cols <= 2) return (int)launch_bf16<2>(x, w1, b1, w2, b2, out, M, H, F, st);
     if (cols <= 4) return (int)launch_bf16<4>(x, w1, b1, w2, b2, out, M, H, F, st);
-    if (cols <= 8) return (int)launch_bf16<8>(x, w1, b1, w2, b2, out, M, H, F, st);
-    return (int)launch_bf16<16>(x, w1, b1, w2, b2, out, M, H, F, st);
+    return (int)launch_bf16<8>(x, w1, b1, w2, b2, out, M, H, F, st);
   }
   if (dtype == 0) {
     const int cpt = (H + NT - 1) / NT;

@@ -40,12 +40,12 @@ _fns = None
 
 def set_default_blocks(blocks=None):
     """The reference's ``(block_m, block_f)`` tiling override.  The kernel's
-    tiles are fixed (16 rows, F tiles of 128), so anything but ``None``
-    raises."""
+    tiles are fixed (32 rows a two-block cluster in bf16, 16 a block in
+    float32; F tiles of 128 and 32), so anything but ``None`` raises."""
     if blocks is not None:
         raise NotImplementedError(
-            "fused FFN tiles are fixed at 16 rows x 128 F columns in "
-            "csrc/fused_ffn.cu; a (block_m, block_f) override is not ported")
+            "fused FFN tiles are fixed in csrc/fused_ffn.cu; a (block_m, "
+            "block_f) override is not ported")
 
 
 # --------------------------------------------------------------------------
@@ -88,7 +88,7 @@ def _kernel():
     return _fns
 
 
-_MAX_H = 2048     # csrc/fused_ffn.cu MAX_H: the [16, H] accumulator a block holds
+_MAX_H = 2048     # csrc/fused_ffn.cu MAX_H: the fp32 accumulator a block holds
 
 
 def _check_cuda(x, w1, b1, w2, b2):
@@ -112,8 +112,8 @@ def _check_cuda(x, w1, b1, w2, b2):
                          f"[{Fd}, {H}], [{Fd}], [{H}]")
     if H % 8 or H > _MAX_H:
         raise ValueError(f"fused_ffn: H={H}; the kernel takes H a multiple "
-                         f"of 8 up to {_MAX_H} (a block holds the [16, H] "
-                         "fp32 accumulator)")
+                         f"of 8 up to {_MAX_H} (a block holds its rows' "
+                         "fp32 accumulator in registers)")
     if Fd % 8:
         raise ValueError(f"fused_ffn: F={Fd}; the kernel takes F a multiple "
                          "of 8 (16-byte weight row loads)")
