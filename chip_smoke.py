@@ -337,14 +337,18 @@ def check_kernels(torch, paged_attn, norms):
     for dt in (f32, bf16):
         paged_case(dt, "S8 nh16 hd64 ps16 maxP32 (decode)", 8, 32, lens, 8)
 
-    # LayerNorm: the model's rows in the compute dtype, fp32 weights
-    for shape, name in (((16, 1, 1024), "decode 16 rows"),
-                        ((4, 256, 1024), "prefill 4x256 rows"),
-                        ((8, 1, 1024), "decode 8 rows (serving)")):
+    # LayerNorm: the model's rows in the compute dtype; fp32 weights (the
+    # 345M paths' fp32 masters) and, at the flagship's rows, weights in
+    # the compute dtype (its bf16 params)
+    for shape, name, own in (((16, 1, 1024), "decode 16 rows", False),
+                             ((4, 256, 1024), "prefill 4x256 rows", False),
+                             ((8, 1, 1024), "decode 8 rows (serving)", False),
+                             ((6, 2048, 2048), "flagship, g b in x's dtype",
+                              True)):
         for dt in (f32, bf16):
             x = (torch.randn(shape, device="cuda") * 2 + 1).to(dt)
-            g = torch.randn(shape[-1], device="cuda")
-            b = torch.randn(shape[-1], device="cuda")
+            g = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
+            b = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
             got = norms.layer_norm(x, g, b)
             torch.cuda.synchronize()
             ref = norms._ref_layer_norm(x, g, b, 1e-5)
@@ -464,7 +468,8 @@ def check_flash(torch, flash_attn):
     shapes = [(TRAIN_SHAPE, "training"),
               ((1, 1000, 1000, 16, 64, True), "ragged tail"),
               ((1, 128, 320, 16, 64, True), "cross length"),
-              ((2, 256, 256, 4, 128, False), "hd 128 non-causal")]
+              ((2, 256, 256, 4, 128, False), "hd 128 non-causal"),
+              ((6, 2048, 2048, 16, 128, True), "flagship")]
     for (B, N, Nk, nh, hd, causal), name in shapes:
         big = B * N * Nk * nh >= 2 ** 26
         plain_kw = dict(per_graph=4, replays=5) if big else {}
@@ -1384,17 +1389,18 @@ def main():
     for lib, text in sorted(build.build_log.items()):
         regs = [ln.split("Used ")[1] for ln in text.splitlines()
                 if "Used " in ln]
-        spills = sorted({ln.strip() for ln in text.splitlines()
-                         if "spill" in ln})
-        log(f"    {lib}: {len(regs)} kernels; {'; '.join(spills)}; "
-            f"registers {sorted({r.split(' ')[0] for r in regs}, key=int)}")
-        name = None
+        spills, name = [], None
         for ln in text.splitlines():        # ptxas names, then reports
             if "Function properties for " in ln:
                 name = ln.split("Function properties for ")[1].strip()
-            elif " bytes spill stores" in ln and int(ln.split(
-                    " bytes spill stores")[0].split()[-1]):
-                log(f"      spills in {name}: {ln.strip()}")
+            elif " bytes spill stores" in ln:
+                spills.append((name, ln.strip()))
+        log(f"    {lib}: {len(regs)} kernels; "
+            f"{'; '.join(sorted({s for _, s in spills}))}; "
+            f"registers {sorted({r.split(' ')[0] for r in regs}, key=int)}")
+        for name, ln in spills:
+            if int(ln.split(" bytes spill stores")[0].split()[-1]):
+                log(f"      spills in {name}: {ln}")
     for lib in build.SOURCES:
         build.load(lib)
 

@@ -23,7 +23,8 @@ runs them.  Tolerances:
   within one bf16 step of the JAX value (the same update computed in fp32
   in another order may round to the neighbouring bf16), but for at most
   0.1% of the elements, whose gradients sit at bf16 rounding level (see
-  the test).
+  the test).  That test checks the storage; the fp32 one checks the
+  update.
 * The engine: greedy tokens exact against the JAX ``generate``.
 
 The flags ``set_default_blocks(bwd_fused=...)`` of both packages are
@@ -308,7 +309,14 @@ def test_fused_slice_bf16_storage_three_steps_match_reference():
     The reference's own hybrid step and its ``gpt.loss_fn`` disagree on
     such gradients (the port's equal ``gpt.loss_fn``'s).  At most a share
     NOISE_SHARE of all param elements may lie past one bf16 step, and none
-    past one bf16 step plus 2 lr."""
+    past one bf16 step plus 2 lr.
+
+    At lr 1e-4 one update is about one bf16 step of these weights, so this
+    test checks the bf16 storage and rounding, not the update's size: an
+    update scaled wrongly by 2 could pass here.  The fp32 three-step test
+    above, at 1e-5, is the check on the update.  A larger lr does not make
+    this one stronger: the bf16 gradients' rounding moves each update by a
+    share of lr, and at lr 1e-3 0.3% of the elements lie past one step."""
     jcfg, tcfg = _cfgs(param_dtype="bfloat16")
     tree = numpy_params(jcfg, 0)
     toks, labels = _tokens(8)
