@@ -72,7 +72,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
       are traced as (i) traces (g)'s;
   (m) fp32 parity of the flagship step, card (kernels) against CPU (plain
       versions), at its widths (H=2048, nh=16, hd=128, F=8192) with 2
-      layers, B=2, N=256 and both fused routes, at (h)'s tolerances.
+      layers, B=2, N=256 and both fused routes, at (h)'s tolerances;
+  (n) eager nn-API inference: a user's encoder built from
+      ``paddle_tpu_torch.nn`` at ERNIE-3.0-Base widths (V=40064, H=768,
+      L=12, nh=12, F=3072, learned positions up to 512): ``Embedding`` x 2,
+      a pre-LN ``TransformerEncoder`` (gelu, dropout 0) with an
+      ``RMSNorm`` final norm, a ``Linear`` head; weights from a numpy seed
+      through ``set_state_dict``; ``eval()`` under ``no_grad()``, one
+      warm-up and 5 timed batches of [8, 512] token ids, in fp32 and again
+      after ``.to(dtype="bfloat16")``.  Launch counts are zeroed just
+      before the timed batches and must equal 2L LayerNorm, L flash
+      forward and 1 RMSNorm a forward; one forward that records (grad
+      mode on) must launch L flash forwards and no norm kernel;
+      With ``--profile STEPS`` it also traces STEPS forwards in each
+      dtype as (f) traces decode steps;
+  (o) fp32 parity of (n)'s model at its widths with 2 layers, B=2, N=128,
+      card (kernels) against CPU (plain versions): the final RMSNorm
+      output within 1e-4 of its max|ref|, the logits within 1e-3.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -84,6 +100,13 @@ rounds h and the output once each) at the flagship shape [12288, 2048] x
 it), a ragged [1, 1000, 16, 64], q 128 / kv 320 causal and [1, 512, 1,
 128] non-causal, with the largest |dq| difference between two launches on
 the same inputs (the atomics' order varies; reported, not asserted).
+(c) also holds the RMSNorm kernel against its plain version at (n)'s
+shape [8, 512, 768] (fp32; bf16 with bf16 g; bf16 with fp32 g), [4, 8,
+256], a ragged [3, 1000], [2, 8] and [3, 1001] (one-element loads), each
+rejecting a mutant whose rows past the first 32 (past the first, for
+fewer rows) are scaled by 1 + 2^-4, timed against
+``torch.nn.functional.rms_norm``; and LayerNorm and the flash forward at
+(n)'s shapes, [8, 512, 768] and [8, 512, 12, 64] non-causal.
 (c) also holds the two quantized-path kernels against their plain
 versions: the dequant matmul at the four decode shapes (M = 8), the
 prefill shape M = 4096 x (1024, 4096) and the JAX tests' shapes, each
@@ -129,6 +152,12 @@ TRAIN_LOSS_RTOL = 1e-5        # (h), (m): card loss vs CPU loss
 TRAIN_GRAD_TOL = 1e-4         # (h), (m): x max|leaf grad on the CPU|
 FLAGSHIP_SHAPE = (6, 2048)    # (l): B, N of bench.py's first 1.3B batch
 FLAGSHIP_STEPS = 8            # (l): timed steps (bench.py: steps=8)
+# (n): ERNIE-3.0-Base widths (paddle_tpu/models/bert.py:93-97, max_seq_len
+# :49): V, H, L, nh, F, N
+ENCODER = dict(V=40064, H=768, L=12, nh=12, F=3072, N=512)
+ENCODER_BATCH = 8             # (n): [8, 512] token ids a batch
+ENCODER_BATCHES = 5           # (n): timed batches per dtype
+RMS_PARITY_TOL = 1e-4         # (o): final norm output, x max|ref|
 
 
 def log(*a):
@@ -257,12 +286,24 @@ def paged_bound(q, k, table, lens):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def ln_bound(x, g):
+def norm_bound(x, g, n_weights, flops_per_element):
+    """Least time for a row norm: x read and y written once, plus its
+    ``n_weights`` [H] vectors of g's dtype, over the HBM rate; or its
+    flops over the fp32 rate."""
     rows, H = x.numel() // x.shape[-1], x.shape[-1]
-    byts = 2 * rows * H * x.element_size() + 2 * H * g.element_size()
-    flops = 8 * rows * H
+    byts = (2 * rows * H * x.element_size()
+            + n_weights * H * g.element_size())
+    flops = flops_per_element * rows * H
     t_b, t_f = byts / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def l2_copies(nbytes):
+    """How many copies of an operand of ``nbytes`` a timing cycles
+    through so that together they pass the 50 MB L2 (100 MB, 1 to 8
+    copies): each call then reads its operand from HBM, as the model's
+    calls do."""
+    return max(1, min(8, (100 << 20) // max(nbytes, 1)))
 
 
 def max_err(a, b):
@@ -344,19 +385,22 @@ def check_kernels(torch, paged_attn, norms):
                              ((4, 256, 1024), "prefill 4x256 rows", False),
                              ((8, 1, 1024), "decode 8 rows (serving)", False),
                              ((6, 2048, 2048), "flagship, g b in x's dtype",
+                              True),
+                             ((8, 512, 768), "encoder, g b in x's dtype",
                               True)):
         for dt in (f32, bf16):
-            x = (torch.randn(shape, device="cuda") * 2 + 1).to(dt)
             g = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
             b = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
+            sets = [((torch.randn(shape, device="cuda") * 2 + 1).to(dt), g, b)
+                    for _ in range(l2_copies(math.prod(shape) * 4))]
+            x = sets[0][0]
             got = norms.layer_norm(x, g, b)
             torch.cuda.synchronize()
             ref = norms._ref_layer_norm(x, g, b, 1e-5)
             tol = FP32_TOL if dt == f32 else 2.0 ** -7 * max(
                 1.0, float(ref.float().abs().max()))
-            sets = [(x, g, b)]
             gl, bl = g.to(dt), b.to(dt)
-            bound, by = ln_bound(x, g)
+            bound, by = norm_bound(x, g, 2, 8)
             out["layer_norm"].append(
                 {"shape": f"{list(shape)} ({name})", "dtype": str(dt),
                  "max_abs_err": max_err(got, ref), "tol": tol,
@@ -368,7 +412,7 @@ def check_kernels(torch, paged_attn, norms):
                  "library_ms": device_ms(
                      lambda a, c, d: torch.nn.functional.layer_norm(
                          a, (a.shape[-1],), c, d, 1e-5),
-                     [(x, gl, bl)]),
+                     [(a, gl, bl) for a, _, _ in sets]),
                  "bound_ms": bound, "bound_by": by})
     bad = [(k, c) for k, cases in out.items() for c in cases
            if not c["max_abs_err"] <= c["tol"]]
@@ -469,7 +513,8 @@ def check_flash(torch, flash_attn):
               ((1, 1000, 1000, 16, 64, True), "ragged tail"),
               ((1, 128, 320, 16, 64, True), "cross length"),
               ((2, 256, 256, 4, 128, False), "hd 128 non-causal"),
-              ((6, 2048, 2048, 16, 128, True), "flagship")]
+              ((6, 2048, 2048, 16, 128, True), "flagship"),
+              ((8, 512, 512, 12, 64, False), "encoder")]
     for (B, N, Nk, nh, hd, causal), name in shapes:
         big = B * N * Nk * nh >= 2 ** 26
         plain_kw = dict(per_graph=4, replays=5) if big else {}
@@ -571,6 +616,76 @@ def case_ok(c):
     else:
         ok = c["max_abs_err"] <= c["tol"]
     return ok and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0)
+
+
+def later_rows(m):
+    """The rows past the first 32 of a [..., H] output, or past the first
+    row where there are 32 or fewer."""
+    m2 = m.view(-1, m.shape[-1])
+    return m2[min(32, m2.shape[0] - 1):]
+
+
+def check_rms_norm(torch, norms):
+    """Phase (c), RMSNorm: the kernel against ``_ref_rms_norm`` on the
+    same inputs.  fp32 within 1e-5 of max|ref|; bf16 within one bf16 step
+    (2^-7) of each |ref|; each case also rejects the later-rows mutant.
+    Timed (CUDA-graph replay over enough copies of x to pass the L2) with
+    the plain version and ``torch.nn.functional.rms_norm`` on g in x's
+    dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((8, 512, 768), "encoder final norm, g bf16", bf16, bf16),
+             ((8, 512, 768), "encoder final norm, g fp32", bf16, f32),
+             ((8, 512, 768), "encoder final norm", f32, f32)]
+    for shape, name in (((4, 8, 256), "JAX test"), ((3, 1000), "ragged"),
+                        ((2, 8), "JAX nn test"),
+                        ((3, 1001), "one-element loads")):
+        cases += [(shape, name, f32, f32), (shape, name, bf16, bf16)]
+    out = []
+    for shape, name, dt, gdt in cases:
+        H = shape[-1]
+        g = torch.randn(H, device="cuda", generator=gen).to(gdt)
+        sets = [((torch.randn(shape, device="cuda", generator=gen) * 2
+                  + 0.5).to(dt), g)
+                for _ in range(l2_copies(math.prod(shape) * 4))]
+        x, g = sets[0]
+        got = norms.rms_norm(x, g)
+        torch.cuda.synchronize()
+        ref = norms._ref_rms_norm(x, g, 1e-6)
+        if dt == f32:
+            atol, rtol = FP32_TOL * float(ref.abs().max()), 0.0
+        else:
+            atol, rtol = 1e-6, 2.0 ** -7
+        ratio, mutant = gate([(got, ref, ref)], atol, rtol, rows=later_rows)
+        bound, by = norm_bound(x, g, 1, 4)
+        lib = [(a, c.to(dt)) for a, c in sets]
+        out.append({
+            "shape": f"{list(shape)} ({name})", "dtype": str(dt),
+            "g_dtype": str(gdt), "max_abs_err": max_err(got, ref),
+            "atol": atol, "rtol": rtol, "gate": ratio, "mutant_gate": mutant,
+            "ms": device_ms(norms.rms_norm, sets),
+            "call_ms": time_ms(norms.rms_norm, sets, 500),
+            "plain_ms": device_ms(
+                lambda a, c: norms._ref_rms_norm(a, c, 1e-6), sets),
+            "library_ms": device_ms(
+                lambda a, c: torch.nn.functional.rms_norm(
+                    a, (a.shape[-1],), c, 1e-6), lib),
+            "bound_ms": bound, "bound_by": by})
+        del sets, lib
+    for c in out:
+        log(f"  {'rms_norm':16s} {c['dtype']:15s} g {c['g_dtype']:15s} "
+            f"{c['shape']:44s} max_abs_err {c['max_abs_err']:.3e} gate "
+            f"{c['gate']:.3f} (atol {c['atol']:.1e} rtol {c['rtol']:.1e}; "
+            f"wrong-scale mutant {c['mutant_gate']:.2f})  device ms: kernel "
+            f"{c['ms']:.5f}  plain {c['plain_ms']:.5f}  library "
+            f"{c['library_ms']:.5f}  bound {c['bound_ms']:.6f} "
+            f"({c['bound_by']}); eager call {c['call_ms']:.5f}")
+    bad = [(c["shape"], c["dtype"], c["g_dtype"]) for c in out
+           if not case_ok(c)]
+    if bad:
+        raise SystemExit(f"rms_norm disagrees with its plain version (or "
+                         f"its gate passes the mutant): {bad}")
+    return {"rms_norm": out}
 
 
 def ffn_bound(M, H, F, dt):
@@ -1349,7 +1464,9 @@ def main():
         description="Drive paddle_tpu_torch on one GPU and check it.")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS steady decode steps of the main "
-                         "path with torch.profiler (phase f)")
+                         "path with torch.profiler (phase f), of the "
+                         "quantized engine (j) and STEPS encoder forwards "
+                         "in each dtype (n)")
     ap.add_argument("--trace", default="paddle_tpu_torch/_build/"
                     "decode_trace.json",
                     help="where phase (f) writes its Chrome trace")
@@ -1411,6 +1528,7 @@ def main():
     cases.update(check_quant_kernels(torch, gpt, dqmm, paged_attn))
     cases.update(check_fused_bwd(torch, flash_attn))
     cases.update(check_fused_ffn(torch, fused_ffn))
+    cases.update(check_rms_norm(torch, norms))
 
     # (d)-(i), in the order and process state of the slices before -------
     cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
@@ -1481,6 +1599,12 @@ def main():
     # (l), (m): the flagship recipe ------------------------------------
     flagship_phases(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
                     card, args, launches)
+
+    # (n), (o): eager nn-API inference ----------------------------------
+    _, enc = encoder_phases(torch, flash_attn, norms, card, args)
+    launches["rms_norm"] = enc["rms_norm"]
+    launches["layer_norm_encoder"] = enc["layer_norm"]
+    launches["flash_attention_fwd_encoder"] = enc["flash_attention_fwd"]
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -1726,6 +1850,188 @@ def flagship_phases(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
     return res
 
 
+def make_encoder(pt, V, H, L, nh, F, N):
+    """A user's script on the port's nn API: token and learned position
+    embeddings, a pre-LN ``TransformerEncoder`` (gelu, dropout 0) with an
+    ``RMSNorm`` final norm, and a ``Linear`` head.  Returns the model in
+    ``eval()``; its forward gives (final norm output, logits)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.tensor import arange
+
+    class Encoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(V, H)
+            self.pos = nn.Embedding(N, H)
+            self.encoder = nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(H, nh, F, dropout=0.0,
+                                           activation="gelu",
+                                           normalize_before=True),
+                L, norm=nn.RMSNorm(H))
+            self.head = nn.Linear(H, V)
+
+        def forward(self, ids):
+            h = self.word(ids) + self.pos(arange(ids.shape[1]))
+            h = self.encoder(h)
+            return h, self.head(h)
+
+    return Encoder().eval()
+
+
+def numpy_state(model, seed):
+    """Random weights for ``model`` from a numpy seed: matrices and biases
+    N(0, 0.02), norm weights 1 + N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, p in model.state_dict().items():
+        w = rng.standard_normal(p.shape, dtype=np.float32)
+        out[k] = (1 + 0.1 * w) if "norm" in k else 0.02 * w
+    return out
+
+
+def encoder_counts(flash_attn, norms):
+    return {"layer_norm": norms.launches,
+            "flash_attention_fwd": flash_attn.fwd_launches,
+            "rms_norm": norms.rms_launches}
+
+
+def encoder_run(torch, pt, model, flash_attn, norms, batches, L):
+    """One warm-up batch, then the timed batches under ``no_grad`` with
+    the launch counts zeroed just before; checks the counts and the
+    outputs.  Returns the measurements and batch 0's final norm output."""
+    B, N = batches[0].shape
+    H, V = model.head.weight.shape
+    finite, first = [], None
+    with pt.no_grad():
+        model(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        norms.launches = norms.rms_launches = flash_attn.fwd_launches = 0
+        t0 = time.perf_counter()
+        for ids in batches[1:]:
+            h, logits = model(ids)
+            if h.shape != [B, N, H] or logits.shape != [B, N, V]:
+                raise SystemExit(f"(n) output shapes {h.shape}, "
+                                 f"{logits.shape}")
+            # a device flag: the check reads it after the timed batches
+            finite.append(torch.isfinite(h.value).all()
+                          & torch.isfinite(logits.value).all())
+            first = h.value if first is None else first
+            del h, logits
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = encoder_counts(flash_attn, norms)
+    n = len(finite)
+    want = {"layer_norm": 2 * L * n, "flash_attention_fwd": L * n,
+            "rms_norm": n}
+    if got != want:
+        raise SystemExit(f"(n) launches {got}, want {want}")
+    if not all(bool(f) for f in finite):
+        raise SystemExit("(n) non-finite output")
+    return {"batches": n, "batch_ms": 1e3 * wall / n,
+            "tokens_per_s": n * B * N / wall,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+            / 2 ** 30, "launches": got}, first
+
+
+def encoder_phases(torch, flash_attn, norms, card, args):
+    """Phases (n) and (o); with ``--profile STEPS``, (n) also traces STEPS
+    forwards in each dtype.  Returns (n)'s measurements by dtype and its
+    launch counts."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    e = ENCODER
+    t0 = time.perf_counter()
+    pt.set_device("gpu")
+    model = make_encoder(pt, **e)
+    state = numpy_state(model, SEED + 15)
+    model.set_state_dict(state)
+    rng = np.random.default_rng(SEED + 16)
+    batches = [pt.to_tensor(rng.integers(0, e["V"], (ENCODER_BATCH, e["N"])))
+               for _ in range(ENCODER_BATCHES + 1)]
+    setup_s = time.perf_counter() - t0
+    runs, finals = {}, {}
+    for dt in ("float32", "bfloat16"):
+        model.to(dtype=dt)
+        runs[dt], finals[dt] = encoder_run(torch, pt, model, flash_attn,
+                                           norms, batches, e["L"])
+        if args.profile:
+            # each span ends in a synchronize, so it holds its forward's
+            # device work even where the device runs behind the host
+            def forward():
+                model(batches[1])
+                torch.cuda.synchronize()
+            runs[dt]["profile"] = profile_steps(
+                torch, pt.no_grad()(forward), args.profile,
+                "encoder_forward",
+                args.trace.replace(".json", f"_encoder_{dt}.json"))
+    drift = float((finals["bfloat16"].float() - finals["float32"]).abs().max()
+                  / finals["float32"].abs().max())
+    # one forward that records: the reference's tape route (plain norms)
+    before = encoder_counts(flash_attn, norms)
+    h, logits = model(batches[0])
+    torch.cuda.synchronize()
+    rec = {k: v - before[k] for k, v in encoder_counts(flash_attn,
+                                                      norms).items()}
+    if h.stop_gradient or rec != {"layer_norm": 0,
+                                  "flash_attention_fwd": e["L"],
+                                  "rms_norm": 0}:
+        raise SystemExit(f"(n) recording forward launched {rec}")
+    del h, logits, model
+    torch.cuda.empty_cache()
+    launches = {k: runs["float32"]["launches"][k]
+                + runs["bfloat16"]["launches"][k] for k in rec}
+    log(f"(n) eager nn-API inference, pre-LN TransformerEncoder at "
+        f"ERNIE-3.0-Base widths (V={e['V']}, H={e['H']}, L={e['L']}, "
+        f"nh={e['nh']}, F={e['F']}) with an RMSNorm final norm, "
+        f"[{ENCODER_BATCH}, {e['N']}] token ids, {ENCODER_BATCHES} timed "
+        f"batches a dtype, on {card}:")
+    for dt, r in runs.items():
+        log(f"    {dt}: tokens/s {r['tokens_per_s']}; ms a batch "
+            f"{r['batch_ms']}; max_memory_allocated "
+            f"{r['max_memory_allocated_gib']} GiB; launches {r['launches']}"
+            f"  [{card}]")
+        if "profile" in r:
+            log(f"    {dt} forward profile on {card}: "
+                f"{json.dumps(r['profile'])}")
+    log(f"    recording forward (grad mode on) launched {rec}; bf16 final "
+        f"norm output differs from fp32 by {drift:.3e} of max|fp32| "
+        f"(bf16 weights and compute, not asserted); set-up (build, numpy "
+        f"weights, set_state_dict) {setup_s:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (o) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    small = dict(e, L=2)
+    ids = np.random.default_rng(SEED + 17).integers(0, e["V"], (2, 128))
+    res = {}
+    prev = core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            m = make_encoder(pt, **small)
+            if place == "gpu":
+                weights = numpy_state(m, SEED + 18)
+            m.set_state_dict(weights)
+            with pt.no_grad():
+                h, logits = m(pt.to_tensor(ids))
+            res[place] = (h.numpy(), logits.numpy())
+            del m
+    finally:
+        core._state.expected_place = prev
+    (hg, lg), (hc, lc) = res["gpu"], res["cpu"]
+    h_err = float(np.abs(hg - hc).max() / np.abs(hc).max())
+    l_err = float(np.abs(lg - lc).max())
+    log(f"(o) fp32 encoder, card against CPU (widths of (n), 2 layers, B=2, "
+        f"N=128): final norm max err / max|ref| {h_err:.3e} (tol "
+        f"{RMS_PARITY_TOL:.0e}); max |logit diff| {l_err:.3e} (tol "
+        f"{PARITY_LOGIT_TOL:.0e}); phase {time.perf_counter() - t0:.1f} s")
+    if not (h_err <= RMS_PARITY_TOL and l_err <= PARITY_LOGIT_TOL):
+        raise SystemExit("(o) the card's encoder disagrees with the CPU's")
+    torch.cuda.empty_cache()
+    return runs, launches
+
+
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
 # the main path in the result line)
 REPORT = {
@@ -1761,6 +2067,10 @@ REPORT = {
         "paddle_tpu_torch/ops/cuda/csrc/fused_ffn.cu",
         "paddle_tpu/ops/pallas/fused_ffn.py:38",
         "[12288, 2048] x [2048, 8192] (flagship)"),
+    "rms_norm": (
+        "paddle_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+        "paddle_tpu/ops/pallas/norms.py:57",
+        "[8, 512, 768] (encoder final norm, g bf16)"),
 }
 
 
@@ -1777,6 +2087,7 @@ def report(torch, cases, launches, train, t_start):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
             **{t: main[t] for t in ("tol", "atol", "rtol", "gate",
+                                    "mutant_gate", "g_dtype",
                                     "library", "library_cublas_ms",
                                     "split_ms", "dq_rerun_max_abs_diff")
                if t in main},
@@ -1787,8 +2098,10 @@ def report(torch, cases, launches, train, t_start):
     ln["launches_train"] = train["launches"]["layer_norm"]
     ln["launches_quant_path"] = launches["layer_norm_quant_path"]
     ln["launches_flagship"] = launches["layer_norm_flagship"]
+    ln["launches_encoder"] = launches["layer_norm_encoder"]
     fwd = next(k for k in kernels if k["name"] == "flash_attention_fwd")
     fwd["launches_flagship"] = launches["flash_attention_fwd_flagship"]
+    fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -23,7 +23,31 @@ The second slice ports the single-device training step:
 * ``optimizer.functional.adamw_update``;
 * ``ops.cuda.flash_attn`` -- the flash-attention forward and split
   backward kernels.
-"""
-from .device import DEFAULT_DEVICE, card_info, resolve_device
 
-__all__ = ["DEFAULT_DEVICE", "card_info", "resolve_device"]
+The third slice ports int8 quantized paged serving: ``quantization``,
+the quantized routes of ``models.gpt`` and the engine's ``quant=`` and
+``kv_dtype="int8"``, on ``ops.cuda.dequant_matmul`` and the int8 paged
+attention kernel.  The fourth ports the GPT-3 1.3B training recipe:
+``use_fused_ffn`` on ``ops.cuda.fused_ffn`` and the fused flash backward.
+
+The fifth slice ports eager nn-API inference (a ``TransformerEncoder``
+under ``no_grad``):
+
+* ``framework`` (dtypes, places on ``torch.device``, grad mode, seeded
+  generators, ``ParamAttr``), ``tensor`` (the ``Tensor`` over
+  ``torch.Tensor`` and the ops the API calls), ``ops.dispatch.call`` and
+  ``autograd`` (``no_grad`` and the other grad-mode switches);
+* ``nn`` -- ``Layer``, ``LayerList``, ``Sequential``, ``Linear``,
+  ``Embedding``, ``Dropout``, ``LayerNorm``, ``RMSNorm``,
+  ``MultiHeadAttention``, ``TransformerEncoderLayer``,
+  ``TransformerEncoder``, their functionals and initializers;
+* ``ops.cuda.norms.rms_norm`` -- the RMSNorm kernel.
+"""
+from . import nn
+from .autograd import no_grad
+from .device import DEFAULT_DEVICE, card_info, resolve_device
+from .framework import get_device, seed, set_device
+from .tensor import to_tensor
+
+__all__ = ["DEFAULT_DEVICE", "card_info", "get_device", "nn", "no_grad",
+           "resolve_device", "seed", "set_device", "to_tensor"]

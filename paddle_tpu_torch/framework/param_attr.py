@@ -1,0 +1,30 @@
+"""ParamAttr (adapted from ``paddle_tpu/framework/param_attr.py``)."""
+from __future__ import annotations
+
+
+class ParamAttr:
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.do_model_average = do_model_average
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(arg):
+        from ..nn.initializer import Initializer
+        if arg is None:
+            return ParamAttr()
+        if isinstance(arg, ParamAttr):
+            return arg
+        if isinstance(arg, str):
+            return ParamAttr(name=arg)
+        if isinstance(arg, Initializer):
+            return ParamAttr(initializer=arg)
+        if arg is False:
+            return None
+        return ParamAttr()

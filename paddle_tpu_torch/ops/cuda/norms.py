@@ -1,17 +1,20 @@
-"""Row LayerNorm: the CUDA kernel ``csrc/layer_norm.cu`` and its plain
-PyTorch version.
+"""Row LayerNorm and RMSNorm: the CUDA kernels ``csrc/layer_norm.cu`` and
+their plain PyTorch versions.
 
-Counterpart of ``paddle_tpu/ops/pallas/norms.py``: the kernel replaces
-``_ln_kernel`` (launched by ``_pallas_norm`` through ``layer_norm``), and
-:func:`_ref_layer_norm` mirrors ``_ref_layer_norm``.
+Counterpart of ``paddle_tpu/ops/pallas/norms.py``: the kernels replace
+``_ln_kernel`` and ``_rms_kernel`` (launched by ``_pallas_norm`` through
+``layer_norm`` and ``rms_norm``), and :func:`_ref_layer_norm` and
+:func:`_ref_rms_norm` mirror ``_ref_layer_norm`` and ``_ref_rms_norm``.
 
-:func:`layer_norm` is a ``torch.autograd.Function``, as the reference's is
-a ``jax.custom_vjp``: its forward takes the plain version for a tensor on
-the CPU and launches the kernel for a tensor on a CUDA device, never
-falling back from one to the other; its backward is autograd of
-:func:`_ref_layer_norm` recomputed from the saved ``x, g, b`` (the
-reference's ``_ln_bwd``; no backward kernel exists there either).
-``launches`` counts forward kernel launches.
+:func:`layer_norm` and :func:`rms_norm` are ``torch.autograd.Function``s,
+as the reference's are ``jax.custom_vjp``s: the forward takes the plain
+version for a tensor on the CPU and launches the kernel for a tensor on a
+CUDA device, never falling back from one to the other; the backward is
+autograd of the plain version recomputed from the saved inputs (the
+reference's ``_ln_bwd`` and ``_rms_bwd``; no backward kernel exists there
+either).  ``launches`` counts LayerNorm kernel launches and
+``rms_launches`` RMSNorm kernel launches.  The reference's ``_tileable``
+gate has no counterpart: every CUDA tensor launches the kernel.
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ import torch
 from . import build
 
 launches = 0
+rms_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_fns = None
 
 
 def _ref_layer_norm(x, g, b, eps):
@@ -38,19 +42,31 @@ def _ref_layer_norm(x, g, b, eps):
     return (y * g.float() + b.float()).to(x.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _ref_rms_norm(x, g, eps):
+    """Plain PyTorch RMSNorm over the last axis: fp32 mean of x^2,
+    ``x * rsqrt(ms + eps) * g`` in fp32, cast back to ``x.dtype``."""
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * g.float()).to(x.dtype)
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
         lib = build.load("layer_norm")
-        fn = lib.pt_layer_norm_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ln = lib.pt_layer_norm_fwd
+        ln.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        rms = lib.pt_rms_norm_fwd
+        rms.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        ln.restype = rms.restype = ctypes.c_int
         lib.pt_error_string.argtypes = [ctypes.c_int]
         lib.pt_error_string.restype = ctypes.c_char_p
-        _fn = (lib, fn)
-    return _fn
+        _fns = (lib, ln, rms)
+    return _fns
 
 
 def _check_cuda(x, g, b):
@@ -88,7 +104,7 @@ def _forward(x, g, b, eps):
     y = torch.empty_like(x)
     if rows == 0:
         return y
-    lib, fn = _kernel()
+    lib, fn, _ = _kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
@@ -97,6 +113,19 @@ def _forward(x, g, b, eps):
     build.check(lib, err, "layer_norm")
     launches += 1
     return y
+
+
+def _plain_grads(ref, ctx, n_in, dy):
+    """Gradients of the first ``n_in`` inputs: autograd of the plain
+    version ``ref`` recomputed from the saved inputs and ``ctx.eps``."""
+    need = ctx.needs_input_grad[:n_in]
+    ins = [t.detach().requires_grad_(n)
+           for t, n in zip(ctx.saved_tensors, need)]
+    with torch.enable_grad():
+        y = ref(*ins, ctx.eps)
+        wrt = [t for t, n in zip(ins, need) if n]
+        got = iter(torch.autograd.grad(y, wrt, dy))
+    return tuple(next(got) if n else None for n in need)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -108,14 +137,7 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        need = ctx.needs_input_grad[:3]
-        ins = [t.detach().requires_grad_(n)
-               for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y = _ref_layer_norm(*ins, ctx.eps)
-            wrt = [t for t, n in zip(ins, need) if n]
-            got = iter(torch.autograd.grad(y, wrt, dy))
-        return (*(next(got) if n else None for n in need), None)
+        return (*_plain_grads(_ref_layer_norm, ctx, 3, dy), None)
 
 
 def layer_norm(x, g, b, eps=1e-5):
@@ -123,3 +145,58 @@ def layer_norm(x, g, b, eps=1e-5):
     g, b: [H] float32 or bfloat16.  Returns x's shape and dtype;
     differentiable in x, g and b."""
     return _LayerNorm.apply(x, g, b, eps)
+
+
+def _check_rms_cuda(x, g):
+    H = x.shape[-1]
+    for name, t in (("x", x), ("g", g)):
+        if t.device != x.device:
+            raise ValueError(f"rms_norm: {name} on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"rms_norm: {name} dtype {t.dtype}; the kernel "
+                            "takes float32 or bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"rms_norm: {name} must be contiguous")
+    if g.shape != (H,):
+        raise ValueError(f"rms_norm: g {tuple(g.shape)} must be [{H}]")
+
+
+def _rms_forward(x, g, eps):
+    global rms_launches
+    if x.device.type == "cpu":
+        return _ref_rms_norm(x, g, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm: unsupported device {x.device}")
+    _check_rms_cuda(x, g)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    lib, _, fn = _kernels()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), g.data_ptr(), y.data_ptr(),
+                 x.numel() // x.shape[-1], x.shape[-1], float(eps),
+                 _DTYPE_CODE[x.dtype], _DTYPE_CODE[g.dtype], stream)
+    build.check(lib, err, "rms_norm")
+    rms_launches += 1
+    return y
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        return _rms_forward(x, g, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*_plain_grads(_ref_rms_norm, ctx, 2, dy), None)
+
+
+def rms_norm(x, g, eps=1e-6):
+    """RMSNorm over the last axis.  x: [..., H] float32 or bfloat16, any
+    H >= 1; g: [H] float32 or bfloat16.  Returns x's shape and dtype;
+    differentiable in x and g."""
+    return _RMSNorm.apply(x, g, eps)

@@ -24,7 +24,9 @@ element, capped at 2e-2, in bf16; the fp32 quantized engine on the card
 against the CPU: tokens exact, logits within 1e-3.  The fused FFN against
 the plain version of its own function (h and the output each rounded
 once): 1e-5 in fp32, 2**-8 + 2**-6 |ref| per element in bf16; the fused
-flash backward at the split backward's tolerances.
+flash backward at the split backward's tolerances.  RMSNorm: 1e-5 of
+max|ref| in fp32, one bf16 step (2**-7) of |ref| in bf16; the nn-API
+encoder on the card against the CPU within 1e-5 of max|ref|.
 """
 import numpy as np
 import pytest
@@ -537,3 +539,119 @@ def test_train_step_fused_routes_on_card_match_cpu(dev):
         flash_attn.set_default_blocks(bwd_fused=False)
     assert tuple(a - b for a, b in zip(after, before)) == (2 * L, L, 0, 0)
     assert abs(float(lg) - float(lc)) <= FP32_TOL
+
+
+def _rms_close(out, ref, dtype):
+    """fp32: within 1e-5 of max|ref|; bf16: one bf16 step of |ref|."""
+    if dtype == torch.float32:
+        top = float(ref.abs().max()) if ref.numel() else 0.0
+        tol = FP32_TOL * max(1.0, top)
+        torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-6,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 512, 768), (4, 8, 256), (3, 1000),
+                                   (2, 8), (5, 1001), (3, 7), (2, 40000),
+                                   (2, 70001), (0, 768)])
+def test_rms_norm_kernel_matches_plain(dev, dtype, shape):
+    """Vector rows, one-element rows (H not a multiple of 16 bytes), rows
+    read twice (too wide for registers) and no rows; g in fp32 and in x's
+    dtype."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 2
+                         + 0.5).to(dev, dtype)
+    g = torch.from_numpy(rng.standard_normal(shape[-1], dtype=np.float32))
+    for wdt in (torch.float32, dtype):
+        gw = g.to(dev, wdt)
+        before = norms.rms_launches
+        out = norms.rms_norm(x, gw)
+        torch.cuda.synchronize()
+        assert norms.rms_launches == before + (x.numel() > 0)
+        assert out.shape == x.shape and out.dtype == dtype
+        _rms_close(out, norms._ref_rms_norm(x, gw, 1e-6), dtype)
+
+
+def test_rms_norm_kernel_takes_rows_off_16_bytes(dev):
+    """A contiguous view that starts 4 bytes into its storage takes the
+    one-element loads."""
+    base = torch.randn(3 * 768 + 1, device=dev)
+    x = base[1:].view(3, 768)
+    g = torch.randn(768, device=dev)
+    _rms_close(norms.rms_norm(x, g), norms._ref_rms_norm(x, g, 1e-6),
+               torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_gradients_on_card_match_plain(dev, dtype):
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((4, 37, 768),
+                                             dtype=np.float32))
+    x = x.to(dev, dtype).requires_grad_()
+    g = torch.randn(768, device=dev).requires_grad_()
+    dy = torch.randn(4, 37, 768, device=dev).to(dtype)
+    before = norms.rms_launches
+    got = torch.autograd.grad(norms.rms_norm(x, g), (x, g), dy)
+    assert norms.rms_launches == before + 1
+    want = torch.autograd.grad(norms._ref_rms_norm(x, g, 1e-6), (x, g), dy)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+def test_rms_norm_refuses_by_name(dev):
+    g = torch.ones(64, device=dev)
+    with pytest.raises(TypeError, match="float16"):
+        norms.rms_norm(torch.randn(2, 64, device=dev).half(), g)
+    with pytest.raises(ValueError, match="contiguous"):
+        norms.rms_norm(torch.randn(64, 2, device=dev).t(), g)
+    with pytest.raises(ValueError, match=r"must be \[64\]"):
+        norms.rms_norm(torch.randn(2, 64, device=dev), g[:32])
+
+
+def test_nn_encoder_on_card_matches_cpu(dev):
+    """The nn-API encoder (pre-LN, RMSNorm final norm) at H=128, nh=2, 2
+    layers: under ``no_grad`` the card launches 2L LayerNorm, L flash and
+    1 RMSNorm kernels a forward and matches the CPU within 1e-5 of
+    max|ref|; recording, it launches only the L flash forwards."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.framework import core
+
+    def build():
+        m = nn.Sequential(
+            ("emb", nn.Embedding(1000, 128)),
+            ("encoder", nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(128, 2, 512, dropout=0.0,
+                                           activation="gelu",
+                                           normalize_before=True),
+                2, norm=nn.RMSNorm(128))))
+        return m.eval()
+
+    ids = np.random.default_rng(23).integers(0, 1000, (2, 64))
+    prev = core._state.expected_place
+    try:
+        pt.set_device("cpu")
+        cpu = build()
+        state = {k: v.numpy() for k, v in cpu.state_dict().items()}
+        with pt.no_grad():
+            want = cpu(pt.to_tensor(ids)).numpy()
+        pt.set_device("gpu")
+        card = build()
+        card.set_state_dict(state)
+        counts = (norms.launches, flash_attn.fwd_launches,
+                  norms.rms_launches)
+        with pt.no_grad():
+            got = card(pt.to_tensor(ids)).numpy()
+        after = (norms.launches, flash_attn.fwd_launches,
+                 norms.rms_launches)
+        assert tuple(a - b for a, b in zip(after, counts)) == (4, 2, 1)
+        rec = card(pt.to_tensor(ids))
+        assert not rec.stop_gradient
+        assert (norms.launches, flash_attn.fwd_launches,
+                norms.rms_launches) == (after[0], after[1] + 2, after[2])
+    finally:
+        core._state.expected_place = prev
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=FP32_TOL * np.abs(want).max())

@@ -128,6 +128,70 @@ class TestLayerNormParity:
         assert torch.equal(out, norms._ref_layer_norm(x, g, b, 1e-5))
 
 
+class TestRMSNormParity:
+    """``_ref_rms_norm`` against the reference's ``rms_norm`` with
+    ``interpret=True`` (the Pallas kernel in interpret mode where its
+    ``_tileable`` gate admits the shape, its plain version where not) and
+    against ``_ref_rms_norm``; the backward against ``jax.grad``."""
+
+    def _inputs(self, rng, shape):
+        x = (rng.standard_normal(shape) * 3 + 0.5).astype(np.float32)
+        g = rng.standard_normal(shape[-1]).astype(np.float32)
+        return x, g
+
+    @pytest.mark.parametrize("shape", [(8, 128), (4, 8, 256)])
+    def test_plain_matches_jax_reference_and_interpret_kernel_fp32(
+            self, shape):
+        x, g = self._inputs(np.random.default_rng(11), shape)
+        port = norms._ref_rms_norm(_t(x), _t(g), 1e-6).numpy()
+        ja = [jnp.asarray(a) for a in (x, g)]
+        ref = np.asarray(jax_norms._ref_rms_norm(*ja, 1e-6))
+        kern = np.asarray(jax_norms.rms_norm(*ja, 1e-6, True))
+        np.testing.assert_allclose(port, ref, atol=FP32_TOL, rtol=0)
+        np.testing.assert_allclose(port, kern, atol=FP32_TOL, rtol=0)
+
+    @pytest.mark.parametrize("shape", [(8, 128), (4, 8, 256)])
+    @pytest.mark.parametrize("g_bf16", [False, True])
+    def test_plain_matches_jax_kernel_bf16(self, shape, g_bf16):
+        x, g = self._inputs(np.random.default_rng(12), shape)
+        bf = torch.bfloat16
+        gt = _t(g, bf) if g_bf16 else _t(g)
+        port = norms._ref_rms_norm(_t(x, bf), gt, 1e-6)
+        assert port.dtype == bf
+        jg = jnp.asarray(g, jnp.bfloat16) if g_bf16 else jnp.asarray(g)
+        ref = jax_norms.rms_norm(jnp.asarray(x, jnp.bfloat16), jg, 1e-6,
+                                 True)
+        np.testing.assert_allclose(port.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   rtol=BF16_RTOL, atol=BF16_RTOL)
+
+    @pytest.mark.parametrize("shape", [(8, 128), (4, 8, 256)])
+    def test_gradients_match_jax_grad(self, shape):
+        import jax
+        rng = np.random.default_rng(13)
+        x, g = self._inputs(rng, shape)
+        dy = rng.standard_normal(shape).astype(np.float32)
+        xt, gt = _t(x).requires_grad_(), _t(g).requires_grad_()
+        got = torch.autograd.grad(norms.rms_norm(xt, gt), (xt, gt), _t(dy))
+        want = jax.grad(lambda a, b: jnp.sum(
+            jax_norms.rms_norm(a, b, 1e-6, True) * jnp.asarray(dy)),
+            argnums=(0, 1))(jnp.asarray(x), jnp.asarray(g))
+        for a, w in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w),
+                                       atol=FP32_TOL, rtol=FP32_TOL)
+
+    @pytest.mark.parametrize("shape", [(2, 3, 128), (5, 7), (8,), (0, 16)])
+    def test_wrapper_on_cpu_runs_plain_and_counts_nothing(self, shape):
+        rng = np.random.default_rng(14)
+        x = _t(rng.standard_normal(shape).astype(np.float32))
+        g = _t(rng.standard_normal(shape[-1]).astype(np.float32))
+        before = (norms.launches, norms.rms_launches)
+        out = norms.rms_norm(x, g)
+        assert (norms.launches, norms.rms_launches) == before
+        assert out.shape == x.shape
+        assert torch.equal(out, norms._ref_rms_norm(x, g, 1e-6))
+
+
 # --------------------------------------------------------------------------
 # package boundary
 # --------------------------------------------------------------------------
@@ -155,6 +219,7 @@ def test_resolve_device_without_gpu(monkeypatch):
 def test_port_imports_neither_jax_nor_paddle_tpu():
     """Every module of the port, imported in a fresh interpreter (the
     quantized path's ``quantization`` and ``ops.cuda.dequant_matmul``
+    and the nn API's ``nn``, ``framework``, ``tensor`` and ``autograd``
     among them), leaves ``jax`` and ``paddle_tpu`` out of ``sys.modules``
     (exact keys: the port's own name starts with ``paddle_tpu``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,7 +233,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "bad += [k for k in sys.modules if k.startswith(('jax.', 'paddle_tpu.'))]\n"
         "need = ('paddle_tpu_torch.quantization',\n"
         "        'paddle_tpu_torch.ops.cuda.dequant_matmul',\n"
-        "        'paddle_tpu_torch.ops.cuda.paged_attn')\n"
+        "        'paddle_tpu_torch.ops.cuda.paged_attn',\n"
+        "        'paddle_tpu_torch.nn', 'paddle_tpu_torch.nn.functional',\n"
+        "        'paddle_tpu_torch.nn.layer.transformer',\n"
+        "        'paddle_tpu_torch.framework', 'paddle_tpu_torch.tensor',\n"
+        "        'paddle_tpu_torch.autograd', 'paddle_tpu_torch.ops.dispatch')\n"
         "bad += [k for k in need if k not in sys.modules]\n"
         "print(len([k for k in sys.modules if k.startswith('paddle_tpu_torch')]))\n"
         "sys.exit(1 if bad else 0)\n")
