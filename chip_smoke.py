@@ -67,9 +67,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
       ``gpt_hybrid.make_train_step`` on one [6, 2048] batch (labels =
       tokens, lr 1e-4).  Launch counts are zeroed just before the timed
       steps and must equal their per-step formulas (flash forward 2L,
-      fused backward L, split backward 0, fused FFN 2L, LayerNorm 4L + 1);
+      fused backward L, split backward 0, fused FFN L: the remat
+      recompute keeps the FFN op's output, LayerNorm 4L + 1);
       the loss must be finite and fall.  With ``--profile-train`` its steps
-      are traced as (i) traces (g)'s;
+      are traced as (i) traces (g)'s, and one more step's allocations are
+      replayed to find where its memory peaks and what is live there;
   (m) fp32 parity of the flagship step, card (kernels) against CPU (plain
       versions), at its widths (H=2048, nh=16, hd=128, F=8192) with 2
       layers, B=2, N=256 and both fused routes, at (h)'s tolerances;
@@ -94,12 +96,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
 the fused FFN (against the plain version of its own function, which
 rounds h and the output once each) at the flagship shape [12288, 2048] x
 [2048, 8192], the 345M shape [8192, 1024] x [1024, 4096], a decode shape
-(M = 8), a ragged M = 1000 and the JAX tests' shapes, timed against cuBLAS
-``addmm`` + gelu + ``addmm``; the fused flash backward at [6, 2048, 16,
-128] causal, [8, 1024, 16, 64] causal (with the split kernels' time beside
-it), a ragged [1, 1000, 16, 64], q 128 / kv 320 causal and [1, 512, 1,
-128] non-causal, with the largest |dq| difference between two launches on
-the same inputs (the atomics' order varies; reported, not asserted).
+(M = 8), a ragged M = 1000, the JAX tests' shapes, H = 4096 (F = 16384),
+H = 768 and H = 6 / F = 10 (zero-padded), timed against cuBLAS ``addmm`` +
+gelu + ``addmm``; the flash forward and both backward strategies also at
+hd 256, hd 32 and 96 (zero-padded to 64 and 128) and B * nh = 65,600;
+LayerNorm also at H = 6, 7, 1001 and 70001, a transposed view and a view
+4 bytes off alignment; both paged kernels also at hd 24 and 80; the
+fused flash backward at [6, 2048, 16, 128] causal, [8, 1024, 16, 64]
+causal (with the split kernels' time beside it), a ragged [1, 1000, 16,
+64], q 128 / kv 320 causal, [1, 512, 1, 128] non-causal, hd 256 and hd
+96, with the largest |dq| difference between two launches on the same
+inputs (the atomics' order varies; reported, not asserted).
 (c) also holds the RMSNorm kernel against its plain version at (n)'s
 shape [8, 512, 768] (fp32; bf16 with bf16 g; bf16 with fp32 g), [4, 8,
 256], a ragged [3, 1000], [2, 8] and [3, 1001] (one-element loads), each
@@ -348,8 +355,8 @@ def check_kernels(torch, paged_attn, norms):
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"paged_attention": [], "layer_norm": []}
 
-    def paged_case(dt, label, S, maxP, lens, copies):
-        sets = paged_inputs(torch, rng, dt, S, 16, 64, 16, maxP, lens,
+    def paged_case(dt, label, S, maxP, lens, copies, hd=64):
+        sets = paged_inputs(torch, rng, dt, S, 16, hd, 16, maxP, lens,
                             copies=copies)
         got = paged_attn.paged_attention(*sets[0])
         torch.cuda.synchronize()
@@ -377,21 +384,48 @@ def check_kernels(torch, paged_attn, norms):
     lens = [int(n) for n in rng.integers(17, 332, 8)]
     for dt in (f32, bf16):
         paged_case(dt, "S8 nh16 hd64 ps16 maxP32 (decode)", 8, 32, lens, 8)
+    # head widths that mask lanes of the last 16-byte slice (24 in fp32:
+    # rows off 16 bytes, one-element loads)
+    for hd in (24, 80):
+        for dt in (f32, bf16):
+            paged_case(dt, f"S8 nh16 hd{hd} ps16 maxP32 (masked lanes)", 8,
+                       32, lens, 8, hd=hd)
 
     # LayerNorm: the model's rows in the compute dtype; fp32 weights (the
     # 345M paths' fp32 masters) and, at the flagship's rows, weights in
     # the compute dtype (its bf16 params)
-    for shape, name, own in (((16, 1, 1024), "decode 16 rows", False),
-                             ((4, 256, 1024), "prefill 4x256 rows", False),
-                             ((8, 1, 1024), "decode 8 rows (serving)", False),
-                             ((6, 2048, 2048), "flagship, g b in x's dtype",
-                              True),
-                             ((8, 512, 768), "encoder, g b in x's dtype",
-                              True)):
+    def view_of(x, kind):
+        """x as the view a case names: "T" a transposed view of x's
+        transpose (same values, strided), "+4" a copy 4 bytes off 16-byte
+        alignment; None x itself."""
+        if kind == "T":
+            return x.t().contiguous().t()
+        if kind == "+4":
+            off = 4 // x.element_size()
+            flat = torch.empty(x.numel() + off, dtype=x.dtype,
+                               device=x.device)
+            v = flat[off:].view(x.shape)
+            v.copy_(x)
+            return v
+        return x
+
+    for shape, name, own, kind in (
+            ((16, 1, 1024), "decode 16 rows", False, None),
+            ((4, 256, 1024), "prefill 4x256 rows", False, None),
+            ((8, 1, 1024), "decode 8 rows (serving)", False, None),
+            ((6, 2048, 2048), "flagship, g b in x's dtype", True, None),
+            ((8, 512, 768), "encoder, g b in x's dtype", True, None),
+            ((2, 6), "H=6, one-element loads", True, None),
+            ((3, 7), "H=7, one-element loads", True, None),
+            ((5, 1001), "H=1001, one-element loads", True, None),
+            ((2, 70001), "H=70001, rows read thrice", True, None),
+            ((768, 512), "transposed view", True, "T"),
+            ((512, 768), "view 4 bytes off alignment", True, "+4")):
         for dt in (f32, bf16):
             g = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
             b = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
-            sets = [((torch.randn(shape, device="cuda") * 2 + 1).to(dt), g, b)
+            sets = [(view_of((torch.randn(shape, device="cuda") * 2
+                              + 1).to(dt), kind), g, b)
                     for _ in range(l2_copies(math.prod(shape) * 4))]
             x = sets[0][0]
             got = norms.layer_norm(x, g, b)
@@ -444,6 +478,25 @@ def flash_sets(torch, gen, dt, B, N, Nk, nh, hd, copies):
             q, k, v = rnd(B, N, nh, hd), rnd(B, Nk, nh, hd), rnd(B, Nk, nh, hd)
         sets.append((q, k, v, rnd(B, N, nh, hd)))
     return sets
+
+
+def kernel_bwd_sets(flash_attn, sets, o, lse, causal):
+    """The backward kernels' operand sets (q, k, v, dO, lse, delta, causal,
+    scale) as the wrapper hands them over: padded to the kernels' head
+    width (:func:`flash_attn._padded_bwd`), at the true width's scale."""
+    hd = sets[0][0].shape[-1]
+    D = flash_attn._kernel_width(hd)
+    out = []
+    for a, b, c, d in sets:
+        a, b, c, oo, d = flash_attn._pad_hd((a, b, c, o, d), D)
+        *qkvd, delta = flash_attn._bwd_operands(a, b, c, oo, d)
+        out.append((*qkvd, lse, delta, causal, 1.0 / math.sqrt(hd)))
+    return out
+
+
+def unpad(t, hd):
+    """A kernel's padded output sliced back to head width ``hd``."""
+    return t[..., :hd]
 
 
 def attended_keys(B, N, Nk, nh, causal):
@@ -514,7 +567,11 @@ def check_flash(torch, flash_attn):
               ((1, 128, 320, 16, 64, True), "cross length"),
               ((2, 256, 256, 4, 128, False), "hd 128 non-causal"),
               ((6, 2048, 2048, 16, 128, True), "flagship"),
-              ((8, 512, 512, 12, 64, False), "encoder")]
+              ((8, 512, 512, 12, 64, False), "encoder"),
+              ((2, 512, 512, 8, 256, True), "hd 256"),
+              ((2, 128, 128, 8, 32, False), "hd 32, padded to 64"),
+              ((2, 512, 512, 4, 96, True), "hd 96, padded to 128"),
+              ((4100, 128, 128, 16, 32, False), "B*nh 65600")]
     for (B, N, Nk, nh, hd, causal), name in shapes:
         big = B * N * Nk * nh >= 2 ** 26
         plain_kw = dict(per_graph=4, replays=5) if big else {}
@@ -523,13 +580,12 @@ def check_flash(torch, flash_attn):
             sets = flash_sets(torch, gen, dt, B, N, Nk, nh, hd, 2)
             q, k, v, do = sets[0]
             o, lse = flash_attn.flash_fwd(q, k, v, causal)
-            # (q, k, v, dO, lse, delta, causal), as the wrapper passes them
-            bwd_sets = []
-            for a, b, c, d in sets:
-                *qkvd, delta = flash_attn._bwd_operands(a, b, c, o, d)
-                bwd_sets.append((*qkvd, lse, delta, causal))
-            dq = flash_attn._launch_dq(*bwd_sets[0])
-            dk, dv = flash_attn._launch_dkv(*bwd_sets[0])
+            # (q, k, v, dO, lse, delta, causal, scale), as the wrapper
+            # passes them
+            bwd_sets = kernel_bwd_sets(flash_attn, sets, o, lse, causal)
+            dq = unpad(flash_attn._launch_dq(*bwd_sets[0]), hd)
+            dk, dv = (unpad(t, hd)
+                      for t in flash_attn._launch_dkv(*bwd_sets[0]))
             torch.cuda.synchronize()
             ro, rl = flash_attn._ref_flash_fwd(q, k, v, causal)
             rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
@@ -724,7 +780,10 @@ def check_fused_ffn(torch, fused_ffn):
               ((8, 1024, 4096), "decode"),
               ((1000, 1024, 4096), "ragged M"),
               ((128, 128, 256), "JAX test"), ((256, 256, 512), "JAX test"),
-              ((128, 128, 256), "JAX batched [2, 64]")]
+              ((128, 128, 256), "JAX batched [2, 64]"),
+              ((1024, 4096, 16384), "H=4096, two column groups"),
+              ((4096, 768, 3072), "H=768, encoder widths"),
+              ((37, 6, 10), "H=6 F=10, zero-padded")]
     for (M, H, F), name in shapes:
         big = M * H * F >= 2 ** 34
         kw = dict(per_graph=2, replays=3) if big else {}
@@ -745,7 +804,10 @@ def check_fused_ffn(torch, fused_ffn):
                 atol, rtol = FP32_TOL * float(ref.abs().max()), 0.0
             else:
                 atol, rtol = BF16_ATOL, BF16_RTOL
-            ratio, mutant = gate([(got, ref, ref)], atol, rtol)
+            # the mutant scales the columns past the first 64, or, for a
+            # narrower H, the rows past the first 32
+            ratio, mutant = gate([(got, ref, ref)], atol, rtol,
+                                 rows=later_tiles if H > 64 else later_rows)
             out.append({
                 "shape": f"[{M}, {H}] x [{H}, {F}] ({name})",
                 "dtype": str(dt), "max_abs_err": max_err(got, ref),
@@ -789,7 +851,9 @@ def check_fused_bwd(torch, flash_attn):
               (TRAIN_SHAPE, "345M training"),
               ((1, 1000, 1000, 16, 64, True), "ragged tail"),
               ((1, 128, 320, 16, 64, True), "cross length"),
-              ((1, 512, 512, 1, 128, False), "hd 128 non-causal")]
+              ((1, 512, 512, 1, 128, False), "hd 128 non-causal"),
+              ((2, 512, 512, 8, 256, True), "hd 256"),
+              ((2, 512, 512, 4, 96, True), "hd 96, padded to 128")]
     for (B, N, Nk, nh, hd, causal), name in shapes:
         big = B * N * Nk * nh >= 2 ** 26
         kw = dict(per_graph=2, replays=3) if big else {}
@@ -798,12 +862,10 @@ def check_fused_bwd(torch, flash_attn):
             sets = flash_sets(torch, gen, dt, B, N, Nk, nh, hd, 2)
             q, k, v, do = sets[0]
             o, lse = flash_attn.flash_fwd(q, k, v, causal)
-            bwd_sets = []
-            for a, b, c, d in sets:
-                *qkvd, delta = flash_attn._bwd_operands(a, b, c, o, d)
-                bwd_sets.append((*qkvd, lse, delta, causal))
-            dq, dk, dv = flash_attn._launch_fused(*bwd_sets[0])
-            dq2 = flash_attn._launch_fused(*bwd_sets[0])[0]
+            bwd_sets = kernel_bwd_sets(flash_attn, sets, o, lse, causal)
+            dq, dk, dv = (unpad(t, hd)
+                          for t in flash_attn._launch_fused(*bwd_sets[0]))
+            dq2 = unpad(flash_attn._launch_fused(*bwd_sets[0])[0], hd)
             torch.cuda.synchronize()
             rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
                                                      causal)
@@ -1054,6 +1116,14 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn):
          2, True),
         (dict(S=4, nh=16, hd=64, ps=16, maxP=8, lens=[0, 0, 9, 127]),
          "S4 nh16 hd64 ps16 maxP8, len-0 lanes", 2, False),
+        # head widths off the powers of two: hd 24 (rows off 16 bytes,
+        # one-byte loads) and 80 (lanes of the last slice masked)
+        (dict(S=8, nh=16, hd=24, ps=16, maxP=32,
+              lens=[int(n) for n in rng.integers(17, 332, 8)]),
+         "S8 nh16 hd24 ps16 maxP32 (masked lanes)", 8, False),
+        (dict(S=8, nh=16, hd=80, ps=16, maxP=32,
+              lens=[int(n) for n in rng.integers(17, 332, 8)]),
+         "S8 nh16 hd80 ps16 maxP32 (masked lanes)", 8, False),
     ]
     for kw, label, copies, rnd in cases:
         if rnd:
@@ -1221,6 +1291,70 @@ def profile_steps(torch, step_fn, steps, span, trace_path):
         host_s = time.perf_counter() - t0
     return {"host_ms_per_step": 1e3 * host_s / steps,
             **trace_summary(prof, trace_path, span, steps)}
+
+
+def repo_frame(frames):
+    """``file:function`` of the innermost frame of an allocation's Python
+    stack inside this repo (``-`` when it has none, as in the autograd
+    engine's own allocations)."""
+    for fr in frames:
+        f = fr.get("filename", "")
+        if "paddle_tpu_torch" in f or f.endswith("chip_smoke.py"):
+            return f"{os.path.basename(f)}:{fr.get('name', '?')}"
+    return "-"
+
+
+def memory_peak(torch, step_fn, top=8):
+    """Where one call of ``step_fn`` peaks in device memory.  Records the
+    caching allocator's history over the call
+    (``torch.cuda.memory._record_memory_history``, Python stacks) and
+    replays it from the bytes allocated before the call; returns the
+    replayed and the reported peak, the repo frame of the allocation that
+    reached it, and the bytes live at that moment grouped by the repo
+    frame that allocated them (largest ``top``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python",
+        max_entries=1 << 22)
+    try:
+        step_fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    reported = torch.cuda.max_memory_allocated()
+    dev = torch.cuda.current_device()
+    events = snap["device_traces"][dev]
+
+    def replay(stop):
+        live, cur, best, at = {}, base, base, -1
+        for i, e in enumerate(events[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = (e["size"], e.get("frames", []))
+                cur += e["size"]
+                if cur > best:
+                    best, at = cur, i
+            elif e["action"] in ("free_requested", "free_completed"):
+                blk = live.pop(e["addr"], None)
+                if blk is not None:
+                    cur -= blk[0]
+        return live, best, at
+
+    _, best, at = replay(len(events))
+    live, _, _ = replay(at + 1)
+    groups = collections.Counter()
+    for size, frames in live.values():
+        groups[repo_frame(frames)] += size
+    gib = 2 ** 30
+    return {"base_gib": base / gib, "peak_replayed_gib": best / gib,
+            "peak_reported_gib": reported / gib, "events": len(events),
+            "peak_alloc_at": repo_frame(events[at].get("frames", []))
+            if at >= 0 else "-",
+            "live_at_peak_gib_by_frame": [
+                {"frame": k, "gib": v / gib}
+                for k, v in groups.most_common(top)]}
 
 
 def profile_decode(torch, eng, prompts, steps, trace_path):
@@ -1782,7 +1916,7 @@ def flagship_path(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
                 "layer_norm": (norms, "launches")}
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_fused": L,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "fused_ffn": 2 * L, "layer_norm": 4 * L + 1}
+            "fused_ffn": L, "layer_norm": 4 * L + 1}
     res, state = timed_training(torch, gpt_hybrid, cfg, params, m, v,
                                 FLAGSHIP_SHAPE, FLAGSHIP_STEPS, SEED + 12,
                                 counters, want, "(l)")
@@ -1794,6 +1928,9 @@ def flagship_path(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
             torch, lambda: step(tp, tm, tv, next(counter), toks, labels, lr),
             args.profile_train, "train_step_flagship",
             args.train_trace.replace(".json", "_flagship.json"))
+        res["memory_peak"] = memory_peak(
+            torch, lambda: step(tp, tm, tv, next(counter, 200), toks, labels,
+                                lr))
     return res
 
 
@@ -1831,6 +1968,8 @@ def flagship_phases(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
         if "profile" in res:
             log(f"    flagship training-step profile on {card}: "
                 f"{json.dumps(res['profile'])}")
+            log(f"    flagship training-step memory peak on {card}: "
+                f"{json.dumps(res['memory_peak'])}")
         # (m) -----------------------------------------------------------
         t0 = time.perf_counter()
         cfg = dataclasses.replace(flagship_cfg(gpt), num_layers=2,

@@ -31,7 +31,12 @@ checkpoints each block (``torch.utils.checkpoint``, non-reentrant):
 ``remat_policy="full"`` recomputes the whole block in the backward,
 ``"dots"`` keeps the outputs of the weight matmuls (``aten.mm`` /
 ``aten.addmm``, no batch dims), as ``jax.checkpoint_policies.
-dots_with_no_batch_dims_saveable`` does.
+dots_with_no_batch_dims_saveable`` does.  Under either policy a block with
+``use_fused_ffn`` also keeps the fused-FFN op's output, so the recompute
+does not run the FFN again: its backward reads only the inputs, and the
+reference's recomputed ``pallas_call``, which nothing reads, is dropped by
+XLA.  One FFN body a block a step, at the cost of one [B, N, H] tensor a
+block.
 
 Not in this slice, each refused by name: MoE FFNs (``moe_experts``),
 chunked prefill and speculative verify.
@@ -51,6 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.cuda.dequant_matmul import _ref_dequant_matmul, dequant_matmul
 from ..ops.cuda.flash_attn import flash_attention
+from ..ops.cuda import fused_ffn as _ffn_mod
 from ..ops.cuda.fused_ffn import fused_ffn
 from ..ops.cuda.norms import _ref_layer_norm
 from ..ops.cuda.norms import layer_norm as _kernel_layer_norm
@@ -439,8 +445,18 @@ def _head(cfg, params, x):
 
 def _dots_policy(ctx, func, *args, **kwargs):
     """Save the weight matmuls' outputs (2-D products, no batch dims) and
-    recompute the rest: ``dots_with_no_batch_dims_saveable``."""
-    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+    the fused FFN's, and recompute the rest:
+    ``dots_with_no_batch_dims_saveable``."""
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                _ffn_mod.op):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _ffn_policy(ctx, func, *args, **kwargs):
+    """Full remat that keeps the fused FFN's output: everything else is
+    recomputed."""
+    if func is _ffn_mod.op:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -453,6 +469,9 @@ def run_blocks(cfg: GPTConfig, params, x):
     if remat and cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
+    elif remat and cfg.use_fused_ffn:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _ffn_policy)
     # one unbind per stacked leaf: its backward stacks the L gradients in
     # one copy, where L selects would each add a full [L, ...] gradient.
     # The matmul leaves are cast to the compute dtype here, once, not in

@@ -53,7 +53,10 @@
 // three axes (the model passes q/k/v as strided views of its fused qkv
 // projection, so no copy is made); the last axis must be contiguous.  out,
 // dq, dk, dv are contiguous [B, N|Nk, nh, hd]; lse and delta are contiguous
-// fp32 [B, nh, N].  hd is 64 or 128.
+// fp32 [B, nh, N].  hd is 64, 128 or 256 (the wrapper zero-pads other widths
+// up to the next of these; the Pallas kernel's own widths are 64 and the
+// multiples of 128).  The grid is (row tiles, nh, B), B in launches of at
+// most 65,535 batches, so any B * nh runs (nh up to 65,535).
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/flash_attn.py);
 // dtype codes: 0 = float32, 1 = bfloat16.  Every entry point returns
@@ -68,8 +71,7 @@ namespace {
 
 constexpr int BQ = 64;    // rows of the q tile
 constexpr int BK = 64;    // rows of the K/V tile
-constexpr int NT = 256;   // threads: 16 x 16, each a 4 x 4 patch
-constexpr int LDP = BK + 1;  // padded row of a p / ds tile
+constexpr int NT = 256;   // fp32 threads: 16 x 16, each an R x R patch
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
@@ -112,15 +114,27 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// Last K tile (exclusive) that rows [q0, q0 + BQ) of a q tile can see.
+// Last K tile (exclusive) of TK rows that rows [q0, q0 + TQ) of a q tile
+// can see.
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ int k_tiles_for(int q0, int N, int Nk,
                                            int causal) {
-  int end = (Nk + BK - 1) / BK;
+  int end = (Nk + TK - 1) / TK;
   if (causal) {
-    const int last_row = min(q0 + BQ - 1, N - 1);
-    end = min(end, (last_row + Nk - N) / BK + 1);
+    const int last_row = min(q0 + TQ - 1, N - 1);
+    end = min(end, (last_row + Nk - N) / TK + 1);
   }
   return end;
+}
+
+// The block's row tile, batch and head.  The grid is (row tiles, nh, B)
+// and the launchers split B into launches of at most 65,535, so any B * nh
+// runs.  (A one-dimensional grid that divides the block index measured up
+// to 24% slower on the H100 in some kernels, tools/flash_variants.py.)
+__device__ __forceinline__ void tile_of(int& tile, int& b, int& h) {
+  tile = blockIdx.x;
+  h = blockIdx.y;
+  b = blockIdx.z;
 }
 
 __device__ __forceinline__ bool visible(int row, int col, int N, int Nk,
@@ -129,9 +143,9 @@ __device__ __forceinline__ bool visible(int row, int col, int N, int Nk,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 forward: grid (q tiles, B * nh); one block per (q tile, batch, head)
+// fp32 forward: one block per (q tile, batch, head); q tiles of 16 R rows
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(NT)
 fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, float* __restrict__ o,
@@ -139,26 +153,28 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
        Strides sv, int causal, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
+  constexpr int TQ = 16 * R, TK = 16 * R, LP = TK + 1;
   extern __shared__ float sm[];
-  float* Qs = sm;               // [BQ][LD]
-  float* Ks = Qs + BQ * LD;     // [BK][LD]
-  float* Vs = Ks + BK * LD;     // [BK][D]
-  float* Ps = Vs + BK * D;      // [BQ][LDP]
+  float* Qs = sm;               // [TQ][LD]
+  float* Ks = Qs + TQ * LD;     // [TK][LD]
+  float* Vs = Ks + TK * LD;     // [TK][D]
+  float* Ps = Vs + TK * D;      // [TQ][LP]
 
-  const int nqt = (N + BQ - 1) / BQ;
-  const int q0 = (nqt - 1 - (int)blockIdx.x) * BQ;  // longest rows first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int nqt = (N + TQ - 1) / TQ;
+  int tile, b, h;
+  tile_of(tile, b, h);
+  const int q0 = (nqt - 1 - tile) * TQ;  // longest rows first
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<D, BQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
-  const int kt_end = k_tiles_for(q0, N, Nk, causal);
+  load_tile<D, TQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
+  const int kt_end = k_tiles_for<TQ, TK>(q0, N, Nk, causal);
 
-  float acc[4][DJ];
-  float m[4], l[4];
+  float acc[R][DJ];
+  float m[R], l[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -166,36 +182,36 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * TK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<D, BK, LD>(Ks, kb, sk.n, k0, Nk);
-    load_tile<D, BK, D>(Vs, vb, sv.n, k0, Nk);
+    load_tile<D, TK, LD>(Ks, kb, sk.n, k0, Nk);
+    load_tile<D, TK, D>(Vs, vb, sv.n, k0, Nk);
     __syncthreads();
 
-    float s[4][4];
+    float s[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
+      float a[R], c[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) a[i] = Qs[(ty * R + i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < R; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+        for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int r = ty * R + i;
       float mc = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float x = s[i][j] * scale;
         s[i][j] = visible(q0 + r, k0 + tx + 16 * j, N, Nk, causal) ? x
                                                                     : NEG_INF;
@@ -205,10 +221,10 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = expf(m[i] - mn);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float p = expf(s[i][j] - mn);
         rs += p;
-        Ps[r * LDP + tx + 16 * j] = p;
+        Ps[r * LP + tx + 16 * j] = p;
       }
       l[i] = alpha * l[i] + row_sum16(rs);
       m[i] = mn;
@@ -218,22 +234,22 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
+    for (int c = 0; c < TK; ++c) {
+      float p[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * LDP + c];
+      for (int i = 0; i < R; ++i) p[i] = Ps[(ty * R + i) * LP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float vv = Vs[c * D + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+        for (int i = 0; i < R; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
     if (row >= N) continue;
     float* orow = o + (((long long)b * N + row) * H + h) * D;
 #pragma unroll
@@ -245,9 +261,9 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 backward dq: grid (q tiles, B * nh); q tile stationary, K/V streamed
+// fp32 backward dq: one block per (q tile, batch, head); K/V streamed
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(NT)
 fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
@@ -256,99 +272,101 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
           Strides sv, Strides sd, int causal, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
+  constexpr int TQ = 16 * R, TK = 16 * R, LP = TK + 1;
   extern __shared__ float sm[];
-  float* Qs = sm;               // [BQ][LD]
-  float* Gs = Qs + BQ * LD;     // dO, [BQ][LD]
-  float* Ks = Gs + BQ * LD;     // [BK][LD]
-  float* Vs = Ks + BK * LD;     // [BK][LD]
-  float* DS = Vs + BK * LD;     // [BQ][LDP]
-  float* Ls = DS + BQ * LDP;    // [BQ]
-  float* Dl = Ls + BQ;          // [BQ]
+  float* Qs = sm;               // [TQ][LD]
+  float* Gs = Qs + TQ * LD;     // dO, [TQ][LD]
+  float* Ks = Gs + TQ * LD;     // [TK][LD]
+  float* Vs = Ks + TK * LD;     // [TK][LD]
+  float* DS = Vs + TK * LD;     // [TQ][LP]
+  float* Ls = DS + TQ * LP;    // [TQ]
+  float* Dl = Ls + TQ;          // [TQ]
 
-  const int nqt = (N + BQ - 1) / BQ;
-  const int q0 = (nqt - 1 - (int)blockIdx.x) * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int nqt = (N + TQ - 1) / TQ;
+  int tile, b, h;
+  tile_of(tile, b, h);
+  const int q0 = (nqt - 1 - tile) * TQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long row_base = ((long long)b * H + h) * N;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<D, BQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
-  load_tile<D, BQ, LD>(Gs, dout + b * sd.b + h * sd.h, sd.n, q0, N);
-  load_rows(Ls, lse + row_base, q0, N, BQ);
-  load_rows(Dl, delta + row_base, q0, N, BQ);
-  const int kt_end = k_tiles_for(q0, N, Nk, causal);
+  load_tile<D, TQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
+  load_tile<D, TQ, LD>(Gs, dout + b * sd.b + h * sd.h, sd.n, q0, N);
+  load_rows(Ls, lse + row_base, q0, N, TQ);
+  load_rows(Dl, delta + row_base, q0, N, TQ);
+  const int kt_end = k_tiles_for<TQ, TK>(q0, N, Nk, causal);
 
-  float acc[4][DJ];
+  float acc[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * TK;
     __syncthreads();
-    load_tile<D, BK, LD>(Ks, kb, sk.n, k0, Nk);
-    load_tile<D, BK, LD>(Vs, vb, sv.n, k0, Nk);
+    load_tile<D, TK, LD>(Ks, kb, sk.n, k0, Nk);
+    load_tile<D, TK, LD>(Vs, vb, sv.n, k0, Nk);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], c[4], w[4];
+      float a[R], g[R], c[R], w[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty * 4 + i) * LD + d];
-        g[i] = Gs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        a[i] = Qs[(ty * R + i) * LD + d];
+        g[i] = Gs[(ty * R + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         c[j] = Ks[(tx + 16 * j) * LD + d];
         w[j] = Vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(a[i], c[j], s[i][j]);
           dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int r = ty * R + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;
         const float p = visible(q0 + r, k0 + c, N, Nk, causal)
                             ? expf(s[i][j] * scale - Ls[r])
                             : 0.f;
-        DS[r * LDP + c] = p * (dp[i][j] - Dl[r]) * scale;
+        DS[r * LP + c] = p * (dp[i][j] - Dl[r]) * scale;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float ds[4];
+    for (int c = 0; c < TK; ++c) {
+      float ds[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = DS[(ty * 4 + i) * LDP + c];
+      for (int i = 0; i < R; ++i) ds[i] = DS[(ty * R + i) * LP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float kk = Ks[c * LD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(ds[i], kk, acc[i][j]);
+        for (int i = 0; i < R; ++i) acc[i][j] = fmaf(ds[i], kk, acc[i][j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
     if (row >= N) continue;
     float* out = dq + (((long long)b * N + row) * H + h) * D;
 #pragma unroll
@@ -357,12 +375,12 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 backward dk/dv: grid (K tiles, B * nh); K/V tile stationary, q tiles
+// fp32 backward dk/dv: one block per (K tile, batch, head); q tiles
 // streamed.  The thread owns key rows (ty) and query columns (tx) of the
 // transposed score tile.  FUSED: also dq32 += ds @ k per q tile, the thread
 // owning 4 query rows (ty) and D / 16 columns (tx) of it.
 // ---------------------------------------------------------------------------
-template <int D, bool FUSED>
+template <int D, int R, bool FUSED>
 __global__ void __launch_bounds__(NT)
 fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
@@ -372,124 +390,126 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
            Strides sk, Strides sv, Strides sd, int causal, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
+  constexpr int TQ = 16 * R, TK = 16 * R, LP = TK + 1;
   extern __shared__ float sm[];
-  float* Ks = sm;               // [BK][LD]
-  float* Vs = Ks + BK * LD;     // [BK][LD]
-  float* Qs = Vs + BK * LD;     // [BQ][LD]
-  float* Gs = Qs + BQ * LD;     // dO, [BQ][LD]
-  float* PT = Gs + BQ * LD;     // p^T, [BK][LDP]
-  float* DT = PT + BK * LDP;    // ds^T, [BK][LDP]
-  float* Ls = DT + BK * LDP;    // [BQ]
-  float* Dl = Ls + BQ;          // [BQ]
+  float* Ks = sm;               // [TK][LD]
+  float* Vs = Ks + TK * LD;     // [TK][LD]
+  float* Qs = Vs + TK * LD;     // [TQ][LD]
+  float* Gs = Qs + TQ * LD;     // dO, [TQ][LD]
+  float* PT = Gs + TQ * LD;     // p^T, [TK][LP]
+  float* DT = PT + TK * LP;    // ds^T, [TK][LP]
+  float* Ls = DT + TK * LP;    // [TQ]
+  float* Dl = Ls + TQ;          // [TQ]
 
-  const int k0 = blockIdx.x * BK;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  int tile, b, h;
+  tile_of(tile, b, h);
+  const int k0 = tile * TK;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long row_base = ((long long)b * H + h) * N;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* gb = dout + b * sd.b + h * sd.h;
 
-  load_tile<D, BK, LD>(Ks, k + b * sk.b + h * sk.h, sk.n, k0, Nk);
-  load_tile<D, BK, LD>(Vs, v + b * sv.b + h * sv.h, sv.n, k0, Nk);
-  const int nqt = (N + BQ - 1) / BQ;
+  load_tile<D, TK, LD>(Ks, k + b * sk.b + h * sk.h, sk.n, k0, Nk);
+  load_tile<D, TK, LD>(Vs, v + b * sv.b + h * sv.h, sv.n, k0, Nk);
+  const int nqt = (N + TQ - 1) / TQ;
   // first q tile whose rows reach key k0 under the bottom-right diagonal
-  const int qt0 = causal ? max(0, k0 - (Nk - N)) / BQ : 0;
+  const int qt0 = causal ? max(0, k0 - (Nk - N)) / TQ : 0;
 
-  float adk[4][DJ], adv[4][DJ];
+  float adk[R][DJ], adv[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
 
   for (int qt = qt0; qt < nqt; ++qt) {
-    const int q0 = qt * BQ;
+    const int q0 = qt * TQ;
     __syncthreads();
-    load_tile<D, BQ, LD>(Qs, qb, sq.n, q0, N);
-    load_tile<D, BQ, LD>(Gs, gb, sd.n, q0, N);
-    load_rows(Ls, lse + row_base, q0, N, BQ);
-    load_rows(Dl, delta + row_base, q0, N, BQ);
+    load_tile<D, TQ, LD>(Qs, qb, sq.n, q0, N);
+    load_tile<D, TQ, LD>(Gs, gb, sd.n, q0, N);
+    load_rows(Ls, lse + row_base, q0, N, TQ);
+    load_rows(Dl, delta + row_base, q0, N, TQ);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float kk[4], w[4], a[4], g[4];
+      float kk[R], w[R], a[R], g[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kk[i] = Ks[(ty * 4 + i) * LD + d];
-        w[i] = Vs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        kk[i] = Ks[(ty * R + i) * LD + d];
+        w[i] = Vs[(ty * R + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         a[j] = Qs[(tx + 16 * j) * LD + d];
         g[j] = Gs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           s[i][j] = fmaf(kk[i], a[j], s[i][j]);
           dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;  // key row in the tile
+    for (int i = 0; i < R; ++i) {
+      const int r = ty * R + i;  // key row in the tile
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = tx + 16 * j;  // query row in the tile
         const bool ok = q0 + c < N && visible(q0 + c, k0 + r, N, Nk, causal);
         const float p = ok ? expf(s[i][j] * scale - Ls[c]) : 0.f;
-        PT[r * LDP + c] = p;
-        DT[r * LDP + c] = p * (dp[i][j] - Dl[c]) * scale;
+        PT[r * LP + c] = p;
+        DT[r * LP + c] = p * (dp[i][j] - Dl[c]) * scale;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
-      float p[4], ds[4];
+    for (int c = 0; c < TQ; ++c) {
+      float p[R], ds[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = PT[(ty * 4 + i) * LDP + c];
-        ds[i] = DT[(ty * 4 + i) * LDP + c];
+      for (int i = 0; i < R; ++i) {
+        p[i] = PT[(ty * R + i) * LP + c];
+        ds[i] = DT[(ty * R + i) * LP + c];
       }
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const float g = Gs[c * LD + tx + 16 * j];
         const float a = Qs[c * LD + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           adv[i][j] = fmaf(p[i], g, adv[i][j]);
           adk[i][j] = fmaf(ds[i], a, adk[i][j]);
         }
       }
     }
     if constexpr (FUSED) {
-      float aq[4][DJ];
+      float aq[R][DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) aq[i][j] = 0.f;
 #pragma unroll 4
-      for (int r = 0; r < BK; ++r) {
-        float ds[4];
+      for (int r = 0; r < TK; ++r) {
+        float ds[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ds[i] = DT[r * LDP + ty * 4 + i];
+        for (int i = 0; i < R; ++i) ds[i] = DT[r * LP + ty * R + i];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           const float kk = Ks[r * LD + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) aq[i][j] = fmaf(ds[i], kk, aq[i][j]);
+          for (int i = 0; i < R; ++i) aq[i][j] = fmaf(ds[i], kk, aq[i][j]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty * 4 + i;
+      for (int i = 0; i < R; ++i) {
+        const int row = q0 + ty * R + i;
         if (row >= N) continue;
         float* dst = dq32 + (((long long)b * N + row) * H + h) * D;
 #pragma unroll
@@ -499,8 +519,8 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + ty * R + i;
     if (row >= Nk) continue;
     const long long off = (((long long)b * Nk + row) * H + h) * D;
 #pragma unroll
@@ -613,9 +633,12 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// forward, bf16: grid (q tiles of MR rows, B * nh)
+// forward, bf16: one block per (q tile of MR rows, batch, head).  Up to hd
+// 128 four blocks share an SM, so ptxas holds the kernel to 128 registers
+// (left to itself it took 134 at hd 128, three blocks an SM, and ran 15%
+// slower on the H100; tools/flash_variants.py).
 template <int D>
-__global__ void __launch_bounds__(MT)
+__global__ void __launch_bounds__(MT, D == 256 ? 1 : 4)
 fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, bf16* __restrict__ o,
            float* __restrict__ lse, int H, int N, int Nk, Strides sq,
@@ -630,8 +653,9 @@ fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + BK * LD;                     // [BK][LD]
 
   const int nqt = (N + MR - 1) / MR;
-  const int q0 = (nqt - 1 - (int)blockIdx.x) * MR;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  int tile, b, h;
+  tile_of(tile, b, h);
+  const int q0 = (nqt - 1 - tile) * MR;
   const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
   const bf16* kb = k + b * sk.b + h * sk.h;
@@ -729,7 +753,7 @@ fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// backward dq, bf16: grid (q tiles of MR rows, B * nh)
+// backward dq, bf16: one block per (q tile of MR rows, batch, head)
 template <int D>
 __global__ void __launch_bounds__(MT)
 fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -748,8 +772,9 @@ fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + BK * LD;                     // [BK][LD]
 
   const int nqt = (N + MR - 1) / MR;
-  const int q0 = (nqt - 1 - (int)blockIdx.x) * MR;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  int tile, b, h;
+  tile_of(tile, b, h);
+  const int q0 = (nqt - 1 - tile) * MR;
   const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
   const long long row_base = ((long long)b * H + h) * N;
@@ -835,13 +860,15 @@ fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// backward dk/dv, bf16: grid (K tiles of MR rows, B * nh); q tiles of QB
+// backward dk/dv, bf16: one block per (K tile of MR rows, batch, head); QB
 // rows streamed.  Each warp owns 16 key rows of the transposed scores.
 // FUSED: ds (cast to bf16) also goes to shared memory as [QB][MR], and
 // dq32[q tile] += ds @ k on the tensor cores, each warp 16 query rows x
-// D / (4 / (QB / 16)) columns, added with atomics.
+// D / (4 / (QB / 16)) columns, added with atomics.  At hd 64 three blocks
+// share an SM, so ptxas holds the kernel to 168 registers (the fused
+// instance otherwise takes 173, two blocks an SM).
 template <int D, int QB, bool FUSED>
-__global__ void __launch_bounds__(MT)
+__global__ void __launch_bounds__(MT, D == 64 ? 3 : 1)
 fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
@@ -862,8 +889,9 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* DSs = reinterpret_cast<bf16*>(Dl + QB);         // FUSED: [QB][MR + 8]
   constexpr int LDS = MR + 8;
 
-  const int k0 = blockIdx.x * MR;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  int tile, b, h;
+  tile_of(tile, b, h);
+  const int k0 = tile * MR;
   const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
   const long long row_base = ((long long)b * H + h) * N;
@@ -991,14 +1019,20 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// fp32 tiles: 64 rows (a 4 x 4 patch a thread) up to hd 128; at hd 256
+// 32 rows (2 x 2), so that the q, K, V and dO tiles fit in shared memory.
+template <int D> constexpr int f32_r() { return D == 256 ? 2 : 4; }
 template <int D> constexpr int fwd_smem() {
-  return (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * LDP) * 4;
+  constexpr int T = 16 * f32_r<D>();
+  return (T * (D + 1) + T * (D + 1) + T * D + T * (T + 1)) * 4;
 }
 template <int D> constexpr int dq_smem() {
-  return (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LDP + 2 * BQ) * 4;
+  constexpr int T = 16 * f32_r<D>();
+  return (2 * T * (D + 1) + 2 * T * (D + 1) + T * (T + 1) + 2 * T) * 4;
 }
 template <int D> constexpr int dkv_smem() {
-  return (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * LDP + 2 * BQ) * 4;
+  constexpr int T = 16 * f32_r<D>();
+  return (2 * T * (D + 1) + 2 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * 4;
 }
 template <int D> constexpr int fwd_mma_smem() {
   return (MR + 2 * BK) * (D + 8) * 2;
@@ -1007,12 +1041,25 @@ template <int D> constexpr int dq_mma_smem() {
   return (2 * MR + 2 * BK) * (D + 8) * 2;
 }
 // q rows streamed by the bf16 dk/dv kernel: 64 keep its accumulators in
-// registers at hd 64; at hd 128 the dk/dv accumulators double, so 32.
-template <int D> constexpr int dkv_qb() { return D == 64 ? 64 : 32; }
+// registers at hd 64; at hd 128 the dk/dv accumulators double, so 32; at hd
+// 256 they double again (256 floats a thread, past the register file, so
+// they spill), and 16 rows keep the rest small.
+template <int D> constexpr int dkv_qb() {
+  return D == 64 ? 64 : D == 128 ? 32 : 16;
+}
 template <int D, bool FUSED> constexpr int dkv_mma_smem() {
   return (2 * MR + 2 * dkv_qb<D>()) * (D + 8) * 2 + 2 * dkv_qb<D>() * 4 +
          (FUSED ? dkv_qb<D>() * (MR + 8) * 2 : 0);
 }
+static_assert(fwd_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
+                  dkv_smem<256>() <= 232448 && dq_mma_smem<256>() <= 232448,
+              "hd 256 tiles fit in shared memory");
+
+// The grid of one launch: `tiles` row tiles for each head and batch.
+inline dim3 grid_of(int tiles, int B, int H) {
+  return dim3((unsigned)tiles, (unsigned)H, (unsigned)B);
+}
+constexpr int MAX_GRID_YZ = 65535;   // gridDim.y and .z; B goes in launches
 
 // Raise the block's dynamic shared-memory limit once per kernel instance.
 template <typename K>
@@ -1025,8 +1072,30 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
 }
 
 bool shapes_ok(int B, int H, int N, int Nk, int causal) {
-  return B > 0 && H > 0 && N > 0 && Nk > 0 && (long long)B * H <= 65535 &&
+  return B > 0 && H > 0 && H <= MAX_GRID_YZ && N > 0 && Nk > 0 &&
          !(causal && N > Nk);
+}
+
+// p advanced by n elements of `size` bytes (null stays null).
+inline const void* adv(const void* p, long long n, int size) {
+  return p ? static_cast<const char*>(p) + n * size : p;
+}
+inline void* adv(void* p, long long n, int size) {
+  return p ? static_cast<char*>(p) + n * size : p;
+}
+inline float* adv(float* p, long long n) { return p ? p + n : p; }
+inline const float* adv(const float* p, long long n) { return p ? p + n : p; }
+
+// Runs launch(b0, nb) for batches [b0, b0 + nb) in slices of at most
+// MAX_GRID_YZ batches; the first error stops it.
+template <typename F>
+cudaError_t by_batch(int B, F&& launch) {
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_YZ) {
+    const int nb = B - b0 < MAX_GRID_YZ ? B - b0 : MAX_GRID_YZ;
+    const cudaError_t e = launch(b0, nb);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // bf16 runs on the tensor cores (the *_mma kernels), fp32 on the FMA
@@ -1041,14 +1110,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = fwd_mma_smem<D>();
     if ((e = allow_smem(fa_fwd_mma<D>, smem, done)) != cudaSuccess) return e;
-    fa_fwd_mma<D><<<dim3((N + MR - 1) / MR, B * H), MT, smem, st>>>(
+    fa_fwd_mma<D><<<grid_of((N + MR - 1) / MR, B, H), MT, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, N, Nk,
         sq, sk, sv, causal, scale);
   } else {
     constexpr int smem = fwd_smem<D>();
-    if ((e = allow_smem(fa_fwd<D>, smem, done)) != cudaSuccess) return e;
-    fa_fwd<D><<<dim3((N + BQ - 1) / BQ, B * H), NT, smem, st>>>(
+    constexpr int R = f32_r<D>();
+    if ((e = allow_smem(fa_fwd<D, R>, smem, done)) != cudaSuccess) return e;
+    fa_fwd<D, R><<<grid_of((N + 16 * R - 1) / (16 * R), B, H), NT, smem,
+                   st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, Nk,
         sq, sk, sv, causal, scale);
@@ -1068,16 +1139,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
     constexpr int smem = dq_mma_smem<D>();
     if ((e = allow_smem(fa_bwd_dq_mma<D>, smem, done)) != cudaSuccess)
       return e;
-    fa_bwd_dq_mma<D><<<dim3((N + MR - 1) / MR, B * H), MT, smem, st>>>(
+    fa_bwd_dq_mma<D><<<grid_of((N + MR - 1) / MR, B, H), MT, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, static_cast<bf16*>(dq), H, N, Nk, sq, sk, sv, sd, causal,
         scale);
   } else {
     constexpr int smem = dq_smem<D>();
-    if ((e = allow_smem(fa_bwd_dq<D>, smem, done)) != cudaSuccess)
+    constexpr int R = f32_r<D>();
+    if ((e = allow_smem(fa_bwd_dq<D, R>, smem, done)) != cudaSuccess)
       return e;
-    fa_bwd_dq<D><<<dim3((N + BQ - 1) / BQ, B * H), NT, smem, st>>>(
+    fa_bwd_dq<D, R><<<grid_of((N + 16 * R - 1) / (16 * R), B, H), NT,
+                      smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dq), H, N, Nk, sq, sk, sv, sd, causal,
@@ -1102,16 +1175,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
         cudaSuccess)
       return e;
     fa_bwd_dkv_mma<D, QB, FUSED>
-        <<<dim3((Nk + MR - 1) / MR, B * H), MT, smem, st>>>(
+        <<<grid_of((Nk + MR - 1) / MR, B, H), MT, smem, st>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
             delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq32, H, N,
             Nk, sq, sk, sv, sd, causal, scale);
   } else {
     constexpr int smem = dkv_smem<D>();
-    if ((e = allow_smem(fa_bwd_dkv<D, FUSED>, smem, done)) != cudaSuccess)
+    constexpr int R = f32_r<D>();
+    if ((e = allow_smem(fa_bwd_dkv<D, R, FUSED>, smem, done)) != cudaSuccess)
       return e;
-    fa_bwd_dkv<D, FUSED><<<dim3((Nk + BK - 1) / BK, B * H), NT, smem, st>>>(
+    fa_bwd_dkv<D, R, FUSED>
+        <<<grid_of((Nk + 16 * R - 1) / (16 * R), B, H), NT, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dk), static_cast<float*>(dv), dq32, H, N,
@@ -1126,10 +1201,13 @@ template <typename F>
 cudaError_t dispatch(int dtype, int D, F&& f) {
   using W64 = std::integral_constant<int, 64>;
   using W128 = std::integral_constant<int, 128>;
+  using W256 = std::integral_constant<int, 256>;
   if (dtype == 0 && D == 64) return f(float(), W64());
   if (dtype == 0 && D == 128) return f(float(), W128());
+  if (dtype == 0 && D == 256) return f(float(), W256());
   if (dtype == 1 && D == 64) return f(bf16(), W64());
   if (dtype == 1 && D == 128) return f(bf16(), W128());
+  if (dtype == 1 && D == 256) return f(bf16(), W256());
   return cudaErrorInvalidValue;
 }
 
@@ -1145,9 +1223,15 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   if (!shapes_ok(B, H, N, Nk, causal)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh};
-  return (int)dispatch(dtype, D, [&](auto t, auto hd) {
-    return launch_fwd<decltype(t), decltype(hd)::value>(
-        q, k, v, o, lse, B, H, N, Nk, sq, sk, sv, causal, scale, st);
+  const int es = dtype == 1 ? 2 : 4;
+  const long long orow = (long long)N * H * D, lrow = (long long)H * N;
+  return (int)by_batch(B, [&](int b0, int nb) {
+    return dispatch(dtype, D, [&](auto t, auto hd) {
+      return launch_fwd<decltype(t), decltype(hd)::value>(
+          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
+          adv(o, b0 * orow, es), adv(lse, b0 * lrow), nb, H, N, Nk, sq, sk,
+          sv, causal, scale, st);
+    });
   });
 }
 
@@ -1162,10 +1246,16 @@ extern "C" int pt_flash_bwd_dq(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
       sd{dsb, dsn, dsh};
-  return (int)dispatch(dtype, D, [&](auto t, auto hd) {
-    return launch_dq<decltype(t), decltype(hd)::value>(
-        q, k, v, dout, lse, delta, dq, B, H, N, Nk, sq, sk, sv, sd, causal,
-        scale, st);
+  const int es = dtype == 1 ? 2 : 4;
+  const long long qrow = (long long)N * H * D, lrow = (long long)H * N;
+  return (int)by_batch(B, [&](int b0, int nb) {
+    return dispatch(dtype, D, [&](auto t, auto hd) {
+      return launch_dq<decltype(t), decltype(hd)::value>(
+          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
+          adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
+          adv(dq, b0 * qrow, es), nb, H, N, Nk, sq, sk, sv, sd, causal,
+          scale, st);
+    });
   });
 }
 
@@ -1180,10 +1270,16 @@ extern "C" int pt_flash_bwd_dkv(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
       sd{dsb, dsn, dsh};
-  return (int)dispatch(dtype, D, [&](auto t, auto hd) {
-    return launch_dkv<decltype(t), decltype(hd)::value, false>(
-        q, k, v, dout, lse, delta, dk, dv, nullptr, B, H, N, Nk, sq, sk, sv,
-        sd, causal, scale, st);
+  const int es = dtype == 1 ? 2 : 4;
+  const long long krow = (long long)Nk * H * D, lrow = (long long)H * N;
+  return (int)by_batch(B, [&](int b0, int nb) {
+    return dispatch(dtype, D, [&](auto t, auto hd) {
+      return launch_dkv<decltype(t), decltype(hd)::value, false>(
+          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
+          adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
+          adv(dk, b0 * krow, es), adv(dv, b0 * krow, es), nullptr, nb, H, N,
+          Nk, sq, sk, sv, sd, causal, scale, st);
+    });
   });
 }
 
@@ -1200,10 +1296,18 @@ extern "C" int pt_flash_bwd_fused(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
       sd{dsb, dsn, dsh};
-  return (int)dispatch(dtype, D, [&](auto t, auto hd) {
-    return launch_dkv<decltype(t), decltype(hd)::value, true>(
-        q, k, v, dout, lse, delta, dk, dv, dq32, B, H, N, Nk, sq, sk, sv, sd,
-        causal, scale, st);
+  const int es = dtype == 1 ? 2 : 4;
+  const long long qrow = (long long)N * H * D, krow = (long long)Nk * H * D,
+                  lrow = (long long)H * N;
+  return (int)by_batch(B, [&](int b0, int nb) {
+    return dispatch(dtype, D, [&](auto t, auto hd) {
+      return launch_dkv<decltype(t), decltype(hd)::value, true>(
+          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
+          adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
+          adv(dk, b0 * krow, es), adv(dv, b0 * krow, es),
+          adv(dq32, b0 * qrow), nb, H, N, Nk, sq, sk, sv, sd, causal, scale,
+          st);
+    });
   });
 }
 

@@ -1,27 +1,30 @@
 // Row LayerNorm and RMSNorm forwards for Hopper (sm_90a).
 //
-// ln_fwd replaces the TPU kernel paddle_tpu/ops/pallas/norms.py::_ln_kernel
-// (launched by _pallas_norm through layer_norm).  Same arithmetic: the row
-// mean and the two-pass variance mean((x - mu)^2) in fp32, y = (x - mu) *
-// rsqrt(var + eps), the affine y * g + b in fp32, one cast back to x's type.
+// norm_fwd<false, ...> replaces the TPU kernel
+// paddle_tpu/ops/pallas/norms.py::_ln_kernel (launched by _pallas_norm
+// through layer_norm).  Same arithmetic: the row mean and the two-pass
+// variance mean((x - mu)^2) in fp32, y = (x - mu) * rsqrt(var + eps), the
+// affine y * g + b in fp32, one cast back to x's type.
 //
-// rms_fwd replaces _rms_kernel (launched by _pallas_norm through rms_norm):
-// the row mean of x^2 in fp32, y = x * rsqrt(ms + eps) * g in fp32, one cast
-// back to x's type; g is float32 or bfloat16 whatever x is.
+// norm_fwd<true, ...> replaces _rms_kernel (launched by _pallas_norm
+// through rms_norm): the row mean of x^2 in fp32, y = x * rsqrt(ms + eps) *
+// g in fp32, one cast back to x's type; g is float32 or bfloat16 whatever x
+// is.
 //
 // Bound: bytes.  Each kernel reads each element of x once and writes each
 // element of y once (2 * rows * H * itemsize, plus g and b); it does under
 // 10 flops per element, far below the H100's ~20 flops per byte of HBM rate.
 // Design for that bound: the row is read from device memory exactly once,
 // with 16-byte vector loads, and held in registers for the reduction and
-// normalise passes.  One warp owns a row when the row fits in 32 lanes x 8
-// vectors (H <= 2048 for bf16, <= 1024 for fp32; four such rows per
-// 128-thread block); wider rows take several warps of one block, joined by
-// a shared-memory sum.  Reductions are warp shuffles.  LayerNorm takes H a
-// multiple of the vector width only.  RMSNorm takes any H >= 1: rows that
-// are not 16-byte aligned (H not a multiple of 16 / itemsize, or a pointer
-// off 16 bytes) take one-element loads, and rows wider than 32 warps x 8
-// loads are read twice (the second read mostly from L2) instead of held.
+// normalise passes; both norms share one kernel template and one launch
+// geometry.  One warp owns a row when the row fits in 32 lanes x 8 vectors
+// (H <= 2048 for bf16, <= 1024 for fp32; four such rows per 128-thread
+// block); wider rows take several warps of one block, joined by a
+// shared-memory sum.  Reductions are warp shuffles.  Both norms take any
+// H >= 1: rows that are not 16-byte aligned (H not a multiple of 16 /
+// itemsize, or a pointer off 16 bytes) take one-element loads, and rows
+// wider than 32 warps x 8 loads are read again from L2 for each pass
+// (LayerNorm three times, RMSNorm twice) instead of held in registers.
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/norms.py);
 // dtype codes: 0 = float32, 1 = bfloat16.
@@ -114,99 +117,40 @@ __device__ __forceinline__ float row_sum(float v, float* sm) {
   return warp_sum(lane < nw ? sm[lane] : 0.f);
 }
 
-// blockDim = (32 * warps_per_row, rows_per_block); each thread holds NV
-// vectors of VEC = 16 / sizeof(T) elements of its row.
-template <typename T, typename W, int NV>
-__global__ void ln_fwd(const T* __restrict__ x, const W* __restrict__ g,
-                       const W* __restrict__ b, T* __restrict__ y,
-                       long long rows, int H, float eps) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  __shared__ float sm[32];
-  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (row >= rows) return;  // whole warps leave together: a warp is one row
-  const int nvec = H / VEC;
-  const int tpr = blockDim.x;
-  const T* xr = x + row * H;
-  T* yr = y + row * H;
-
-  float v[NV][VEC];
-  float s = 0.f;
+// Store the V outputs of load li of row yr from its V inputs v, the row's
+// mean mu (LayerNorm only) and its reciprocal norm r.
+template <bool RMS, typename T, typename W, int V>
+__device__ __forceinline__ void norm_store(T* __restrict__ yr,
+                                           const W* __restrict__ g,
+                                           const W* __restrict__ b, int li,
+                                           const float (&v)[V], float mu,
+                                           float r) {
+  float gv[V], o[V];
+  load_f<W, V>(g + (long long)li * V, gv);
+  if constexpr (RMS) {
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int vi = threadIdx.x + i * tpr;
-    if (vi < nvec) {
-      load_f<T, VEC>(xr + (long long)vi * VEC, v[i]);
-    } else {
+    for (int k = 0; k < V; ++k) o[k] = (v[k] * r) * gv[k];
+  } else {
+    float bv[V];
+    load_f<W, V>(b + (long long)li * V, bv);
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) v[i][k] = 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) s += v[i][k];
+    for (int k = 0; k < V; ++k) o[k] = ((v[k] - mu) * r) * gv[k] + bv[k];
   }
-  const float mu = row_sum(s, sm) / (float)H;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if (threadIdx.x + i * tpr < nvec) {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float d = v[i][k] - mu;
-        q += d * d;
-      }
-    }
-  }
-  const float var = row_sum(q, sm) / (float)H;
-  const float rstd = 1.0f / sqrtf(var + eps);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int vi = threadIdx.x + i * tpr;
-    if (vi < nvec) {
-      float gv[VEC], bv[VEC], o[VEC];
-      load_f<W, VEC>(g + (long long)vi * VEC, gv);
-      load_f<W, VEC>(b + (long long)vi * VEC, bv);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        o[k] = ((v[i][k] - mu) * rstd) * gv[k] + bv[k];
-      store_f<T, VEC>(yr + (long long)vi * VEC, o);
-    }
-  }
+  store_f<T, V>(yr + (long long)li * V, o);
 }
 
-template <typename T, typename W>
-cudaError_t launch(const void* x, const void* g, const void* b, void* y,
-                   long long rows, int H, float eps, cudaStream_t st) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  const int nvec = H / VEC;
-  const int warps = (nvec + 32 * 8 - 1) / (32 * 8);
-  if (H <= 0 || H % VEC || warps > 32 || rows <= 0) return cudaErrorInvalidValue;
-  const int per = (nvec + 32 * warps - 1) / (32 * warps);
-  const int rpb = warps == 1 ? 4 : 1;
-  const dim3 block(32 * warps, rpb);
-  const long long nblk = (rows + rpb - 1) / rpb;
-  if (nblk > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)nblk);
-  const T* xp = static_cast<const T*>(x);
-  const W* gp = static_cast<const W*>(g);
-  const W* bp = static_cast<const W*>(b);
-  T* yp = static_cast<T*>(y);
-  if (per <= 1)
-    ln_fwd<T, W, 1><<<grid, block, 0, st>>>(xp, gp, bp, yp, rows, H, eps);
-  else if (per <= 2)
-    ln_fwd<T, W, 2><<<grid, block, 0, st>>>(xp, gp, bp, yp, rows, H, eps);
-  else if (per <= 4)
-    ln_fwd<T, W, 4><<<grid, block, 0, st>>>(xp, gp, bp, yp, rows, H, eps);
-  else
-    ln_fwd<T, W, 8><<<grid, block, 0, st>>>(xp, gp, bp, yp, rows, H, eps);
-  return cudaGetLastError();
-}
-
-// blockDim = (32 * warps_per_row, rows_per_block); each load is V elements
-// (16 / sizeof(T), or 1 for rows that are not 16-byte aligned).  NV > 0:
-// each thread holds NV loads of its row in registers.  NV == 0: the row is
-// too wide for that, and is read once for the sum and again to normalise.
-template <typename T, typename W, int V, int NV>
-__global__ void rms_fwd(const T* __restrict__ x, const W* __restrict__ g,
-                        T* __restrict__ y, long long rows, int H, float eps) {
+// One row normalisation: RMS selects RMSNorm (y = x * rsqrt(mean(x^2) +
+// eps) * g, b unused), otherwise LayerNorm.  blockDim = (32 *
+// warps_per_row, rows_per_block); each load is V elements (16 / sizeof(T),
+// or 1 for rows that are not 16-byte aligned).  NV > 0: each thread holds
+// NV loads of its row in registers.  NV == 0: the row is too wide for that,
+// and is read again for each pass (LayerNorm: the mean, the variance and
+// the normalise; RMSNorm: the sum of squares and the normalise), the
+// rereads mostly from L2.
+template <bool RMS, typename T, typename W, int V, int NV>
+__global__ void norm_fwd(const T* __restrict__ x, const W* __restrict__ g,
+                         const W* __restrict__ b, T* __restrict__ y,
+                         long long rows, int H, float eps) {
   __shared__ float sm[32];
   const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   if (row >= rows) return;  // whole warps leave together: a warp is one row
@@ -227,19 +171,30 @@ __global__ void rms_fwd(const T* __restrict__ x, const W* __restrict__ g,
         for (int k = 0; k < V; ++k) v[i][k] = 0.f;
       }
 #pragma unroll
-      for (int k = 0; k < V; ++k) s += v[i][k] * v[i][k];
+      for (int k = 0; k < V; ++k) s += RMS ? v[i][k] * v[i][k] : v[i][k];
     }
-    const float r = 1.0f / sqrtf(row_sum(s, sm) / (float)H + eps);
+    float mu = 0.f, r;
+    if constexpr (RMS) {
+      r = 1.0f / sqrtf(row_sum(s, sm) / (float)H + eps);
+    } else {
+      mu = row_sum(s, sm) / (float)H;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if (threadIdx.x + i * tpr < nld) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const float d = v[i][k] - mu;
+            q += d * d;
+          }
+        }
+      }
+      r = 1.0f / sqrtf(row_sum(q, sm) / (float)H + eps);
+    }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int li = threadIdx.x + i * tpr;
-      if (li < nld) {
-        float gv[V], o[V];
-        load_f<W, V>(g + (long long)li * V, gv);
-#pragma unroll
-        for (int k = 0; k < V; ++k) o[k] = (v[i][k] * r) * gv[k];
-        store_f<T, V>(yr + (long long)li * V, o);
-      }
+      if (li < nld) norm_store<RMS>(yr, g, b, li, v[i], mu, r);
     }
   } else {
     float s = 0.f;
@@ -247,23 +202,39 @@ __global__ void rms_fwd(const T* __restrict__ x, const W* __restrict__ g,
       float v[V];
       load_f<T, V>(xr + (long long)li * V, v);
 #pragma unroll
-      for (int k = 0; k < V; ++k) s += v[k] * v[k];
+      for (int k = 0; k < V; ++k) s += RMS ? v[k] * v[k] : v[k];
     }
-    const float r = 1.0f / sqrtf(row_sum(s, sm) / (float)H + eps);
-    for (int li = threadIdx.x; li < nld; li += tpr) {
-      float v[V], gv[V], o[V];
-      load_f<T, V>(xr + (long long)li * V, v);
-      load_f<W, V>(g + (long long)li * V, gv);
+    float mu = 0.f, r;
+    if constexpr (RMS) {
+      r = 1.0f / sqrtf(row_sum(s, sm) / (float)H + eps);
+    } else {
+      mu = row_sum(s, sm) / (float)H;
+      float q = 0.f;
+      for (int li = threadIdx.x; li < nld; li += tpr) {
+        float v[V];
+        load_f<T, V>(xr + (long long)li * V, v);
 #pragma unroll
-      for (int k = 0; k < V; ++k) o[k] = (v[k] * r) * gv[k];
-      store_f<T, V>(yr + (long long)li * V, o);
+        for (int k = 0; k < V; ++k) {
+          const float d = v[k] - mu;
+          q += d * d;
+        }
+      }
+      r = 1.0f / sqrtf(row_sum(q, sm) / (float)H + eps);
+    }
+    for (int li = threadIdx.x; li < nld; li += tpr) {
+      float v[V];
+      load_f<T, V>(xr + (long long)li * V, v);
+      norm_store<RMS>(yr, g, b, li, v, mu, r);
     }
   }
 }
 
-template <typename T, typename W, int V>
-cudaError_t launch_rms_v(const T* x, const W* g, T* y, long long rows, int H,
-                         float eps, cudaStream_t st) {
+// The launch geometry of both norms: one warp a row up to 32 lanes x 8
+// loads (four rows a block), else up to 32 warps a row; wider rows are
+// reread (NV = 0).
+template <bool RMS, typename T, typename W, int V>
+cudaError_t launch_v(const T* x, const W* g, const W* b, T* y,
+                     long long rows, int H, float eps, cudaStream_t st) {
   const int nld = H / V;
   int warps = (nld + 32 * 8 - 1) / (32 * 8);
   const bool wide = warps > 32;
@@ -275,15 +246,20 @@ cudaError_t launch_rms_v(const T* x, const W* g, T* y, long long rows, int H,
   if (nblk > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)nblk);
   if (wide)
-    rms_fwd<T, W, V, 0><<<grid, block, 0, st>>>(x, g, y, rows, H, eps);
+    norm_fwd<RMS, T, W, V, 0><<<grid, block, 0, st>>>(x, g, b, y, rows, H,
+                                                      eps);
   else if (per <= 1)
-    rms_fwd<T, W, V, 1><<<grid, block, 0, st>>>(x, g, y, rows, H, eps);
+    norm_fwd<RMS, T, W, V, 1><<<grid, block, 0, st>>>(x, g, b, y, rows, H,
+                                                      eps);
   else if (per <= 2)
-    rms_fwd<T, W, V, 2><<<grid, block, 0, st>>>(x, g, y, rows, H, eps);
+    norm_fwd<RMS, T, W, V, 2><<<grid, block, 0, st>>>(x, g, b, y, rows, H,
+                                                      eps);
   else if (per <= 4)
-    rms_fwd<T, W, V, 4><<<grid, block, 0, st>>>(x, g, y, rows, H, eps);
+    norm_fwd<RMS, T, W, V, 4><<<grid, block, 0, st>>>(x, g, b, y, rows, H,
+                                                      eps);
   else
-    rms_fwd<T, W, V, 8><<<grid, block, 0, st>>>(x, g, y, rows, H, eps);
+    norm_fwd<RMS, T, W, V, 8><<<grid, block, 0, st>>>(x, g, b, y, rows, H,
+                                                      eps);
   return cudaGetLastError();
 }
 
@@ -291,17 +267,39 @@ __host__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T, typename W>
-cudaError_t launch_rms(const void* x, const void* g, void* y, long long rows,
-                       int H, float eps, cudaStream_t st) {
+// 16-byte loads where every row and the weights are 16-byte aligned, else
+// one-element loads.  b is null for RMSNorm.
+template <bool RMS, typename T, typename W>
+cudaError_t launch(const void* x, const void* g, const void* b, void* y,
+                   long long rows, int H, float eps, cudaStream_t st) {
   constexpr int VEC = 16 / (int)sizeof(T);
   if (H <= 0 || rows <= 0) return cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   const W* gp = static_cast<const W*>(g);
+  const W* bp = static_cast<const W*>(b);
   T* yp = static_cast<T*>(y);
-  if (H % VEC == 0 && aligned16(x) && aligned16(g) && aligned16(y))
-    return launch_rms_v<T, W, VEC>(xp, gp, yp, rows, H, eps, st);
-  return launch_rms_v<T, W, 1>(xp, gp, yp, rows, H, eps, st);
+  if (H % VEC == 0 && aligned16(x) && aligned16(g) && aligned16(y) &&
+      (RMS || aligned16(b)))
+    return launch_v<RMS, T, W, VEC>(xp, gp, bp, yp, rows, H, eps, st);
+  return launch_v<RMS, T, W, 1>(xp, gp, bp, yp, rows, H, eps, st);
+}
+
+template <bool RMS>
+int dispatch(const void* x, const void* g, const void* b, void* y,
+             long long rows, int H, float eps, int x_dtype, int w_dtype,
+             void* stream) {
+  typedef __nv_bfloat16 bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (x_dtype == 0 && w_dtype == 0)
+    e = launch<RMS, float, float>(x, g, b, y, rows, H, eps, st);
+  else if (x_dtype == 0 && w_dtype == 1)
+    e = launch<RMS, float, bf16>(x, g, b, y, rows, H, eps, st);
+  else if (x_dtype == 1 && w_dtype == 0)
+    e = launch<RMS, bf16, float>(x, g, b, y, rows, H, eps, st);
+  else if (x_dtype == 1 && w_dtype == 1)
+    e = launch<RMS, bf16, bf16>(x, g, b, y, rows, H, eps, st);
+  return (int)e;
 }
 
 }  // namespace
@@ -309,33 +307,14 @@ cudaError_t launch_rms(const void* x, const void* g, void* y, long long rows,
 extern "C" int pt_layer_norm_fwd(const void* x, const void* g, const void* b,
                                  void* y, long long rows, int H, float eps,
                                  int x_dtype, int w_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (x_dtype == 0 && w_dtype == 0)
-    e = launch<float, float>(x, g, b, y, rows, H, eps, st);
-  else if (x_dtype == 0 && w_dtype == 1)
-    e = launch<float, __nv_bfloat16>(x, g, b, y, rows, H, eps, st);
-  else if (x_dtype == 1 && w_dtype == 0)
-    e = launch<__nv_bfloat16, float>(x, g, b, y, rows, H, eps, st);
-  else if (x_dtype == 1 && w_dtype == 1)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(x, g, b, y, rows, H, eps, st);
-  return (int)e;
+  return dispatch<false>(x, g, b, y, rows, H, eps, x_dtype, w_dtype, stream);
 }
 
 extern "C" int pt_rms_norm_fwd(const void* x, const void* g, void* y,
                                long long rows, int H, float eps, int x_dtype,
                                int w_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (x_dtype == 0 && w_dtype == 0)
-    e = launch_rms<float, float>(x, g, y, rows, H, eps, st);
-  else if (x_dtype == 0 && w_dtype == 1)
-    e = launch_rms<float, __nv_bfloat16>(x, g, y, rows, H, eps, st);
-  else if (x_dtype == 1 && w_dtype == 0)
-    e = launch_rms<__nv_bfloat16, float>(x, g, y, rows, H, eps, st);
-  else if (x_dtype == 1 && w_dtype == 1)
-    e = launch_rms<__nv_bfloat16, __nv_bfloat16>(x, g, y, rows, H, eps, st);
-  return (int)e;
+  return dispatch<true>(x, g, nullptr, y, rows, H, eps, x_dtype, w_dtype,
+                        stream);
 }
 
 extern "C" const char* pt_error_string(int e) {

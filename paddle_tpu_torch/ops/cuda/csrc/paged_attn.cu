@@ -18,10 +18,12 @@
 // id scalar-prefetched into its BlockSpec; Hopper has no scalar prefetch
 // and no sequential grid.  Design for the bound on this card: one
 // 256-thread block per (head, slot) reads its own page-table row and loops
-// over the filled positions only.  G = hd*itemsize/16 threads share one
-// position (each a 16-byte slice of the head's K and V row), so a warp
-// reads 32/G positions per load with neighbouring lanes on neighbouring
-// addresses.  Each group of G threads keeps its own online-softmax state
+// over the filled positions only.  G threads share one position (each a
+// 16-byte slice of the head's K and V row; G the power of two that covers
+// hd, the lanes past hd masked, so any hd up to 32 slices: 256 in bf16, 128
+// in fp32), so a warp reads 32/G positions per load with neighbouring lanes
+// on neighbouring addresses.  Rows that are not 16-byte aligned (hd *
+// itemsize not a multiple of 16) take one-element loads.  Each group of G threads keeps its own online-softmax state
 // (m, l and its slice of the accumulator) in registers and issues the
 // loads of U = 4 positions before using any, so 8 loads of 16 bytes per
 // thread are in flight.  The groups' partial states are merged once, in
@@ -35,6 +37,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -73,13 +77,37 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// grid (nh, S); G threads per position, hd == G * 16 / sizeof(T).
-template <typename T, int G>
+// The E = 16 / sizeof(T) elements [i0, i0 + E) of a head row at p -> floats,
+// zero past hd.  VECL: one 16-byte load (hd is a multiple of E and the row
+// 16-byte aligned, so a chunk is in or out whole); else one element at a
+// time.
+template <typename T, bool VECL>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, int i0,
+                                         int hd,
+                                         float (&out)[16 / sizeof(T)]) {
+  constexpr int E = 16 / (int)sizeof(T);
+  if constexpr (VECL) {
+    if (i0 < hd) {
+      load16<T>(p + i0, out);
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k) out[k] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+      out[k] = i0 + k < hd ? to_f(__ldg(p + i0 + k)) : 0.f;
+  }
+}
+
+// grid (nh, S); G threads per position, each E = 16 / sizeof(T) elements
+// of the head row: hd <= G * E, the lanes past hd masked.
+template <typename T, int G, bool VECL>
 __global__ void __launch_bounds__(THREADS)
 paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
              const T* __restrict__ vp, const int* __restrict__ table,
-             const int* __restrict__ lens, T* __restrict__ out, int nh, int P,
-             int ps, int maxP, float scale_div) {
+             const int* __restrict__ lens, T* __restrict__ out, int nh,
+             int hd, int P, int ps, int maxP, float scale_div) {
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int HD = VEC * G;
   constexpr int NG = THREADS / G;  // position groups per block
@@ -91,12 +119,13 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   const int view = maxP * ps;
   const int n = max(0, min(__ldg(lens + s) + 1, view));
   const int* trow = table + (long long)s * maxP;
-  const long long pos_stride = (long long)nh * HD;
+  const long long pos_stride = (long long)nh * hd;
   const long long page_stride = (long long)ps * pos_stride;
-  const long long head_off = (long long)h * HD + li * VEC;
+  const long long head_off = (long long)h * hd;
+  const int i0 = li * VEC;
 
   float qf[VEC];
-  load16<T>(q + ((long long)s * nh + h) * HD + li * VEC, qf);
+  load_row<T, VECL>(q + ((long long)s * nh + h) * hd, i0, hd, qf);
   float m = NEG_INF, l = 0.f;
   float acc[VEC];
 #pragma unroll
@@ -116,8 +145,8 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
         pid = min(max(pid, 0), P - 1);
         const long long off =
             pid * page_stride + (long long)(p % ps) * pos_stride + head_off;
-        load16<T>(kp + off, kf[u]);
-        load16<T>(vp + off, vf[u]);
+        load_row<T, VECL>(kp + off, i0, hd, kf[u]);
+        load_row<T, VECL>(vp + off, i0, hd, vf[u]);
       } else {
 #pragma unroll
         for (int k = 0; k < VEC; ++k) kf[u][k] = vf[u][k] = 0.f;
@@ -154,9 +183,9 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     sm_l[gi] = l;
   }
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) sm_acc[gi][li * VEC + k] = acc[k];
+  for (int k = 0; k < VEC; ++k) sm_acc[gi][i0 + k] = acc[k];
   __syncthreads();
-  for (int d = threadIdx.x; d < HD; d += THREADS) {
+  for (int d = threadIdx.x; d < hd; d += THREADS) {
     float M = NEG_INF;
     for (int g = 0; g < NG; ++g) M = fmaxf(M, sm_m[g]);
     float L = 0.f, A = 0.f;
@@ -165,21 +194,8 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
       L += sm_l[g] * w;
       A += sm_acc[g][d] * w;
     }
-    out[((long long)s * nh + h) * HD + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    out[((long long)s * nh + h) * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
   }
-}
-
-template <typename T, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* table, const int* lens, void* out, int S,
-                   int nh, int P, int ps, int maxP, float scale_div,
-                   cudaStream_t st) {
-  const dim3 grid(nh, S);
-  paged_decode<T, G><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), table, lens, static_cast<T*>(out), nh, P, ps,
-      maxP, scale_div);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -187,35 +203,53 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // _paged_decode_kernel_quant (launched by _paged_attention_quant_tpu).
 // K/V pages are int8 [P, ps, nh, hd] with fp32 scales [P, ps, nh], one per
 // position per head.  Same walk, groups and merge as paged_decode; each of
-// the G threads of a position reads 16 int8 elements (one 16-byte load) of
-// K and of V plus the position's two scales, so hd = 16 * G.  The casts
-// follow the Pallas kernel: q and K dequantize to fp32 (int8 * scale) and
-// the scores are fp32; V dequantizes to fp32 and is then cast to the
-// compute dtype T, as is p, before p.V accumulates in fp32.  Bound: bytes,
-// about 1 byte per K/V element plus 8 bytes of scales per position and
-// head, against 2-4 bytes per element in the fp pool.
+// the G threads of a position reads 16 int8 elements of K and of V (one
+// 16-byte load where hd is a multiple of 16 and the pool 16-byte aligned,
+// else one byte at a time) plus the position's two scales, so hd <= 16 * G,
+// the lanes past hd masked.  The casts follow the Pallas kernel: q and K
+// dequantize to fp32 (int8 * scale) and the scores are fp32; V dequantizes
+// to fp32 and is then cast to the compute dtype T, as is p, before p.V
+// accumulates in fp32.  Bound: bytes, about 1 byte per K/V element plus 8
+// bytes of scales per position and head, against 2-4 bytes per element in
+// the fp pool.
 // ---------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ void load_q16(const T* __restrict__ p,
-                                         float (&out)[16]) {
+template <typename T, bool VECL>
+__device__ __forceinline__ void load_q16(const T* __restrict__ p, int i0,
+                                         int hd, float (&out)[16]) {
   constexpr int V = 16 / (int)sizeof(T);
 #pragma unroll
   for (int c = 0; c < 16 / V; ++c) {
     float part[V];
-    load16<T>(p + c * V, part);
+    load_row<T, VECL>(p, i0 + c * V, hd, part);
 #pragma unroll
     for (int k = 0; k < V; ++k) out[c * V + k] = part[k];
   }
 }
 
-// grid (nh, S); G threads per position, hd == 16 * G.
-template <typename T, int G>
+// 16 int8 at p[i0..] (zero past hd) as one uint4.
+template <bool VECL>
+__device__ __forceinline__ uint4 load_i8(const int8_t* __restrict__ p,
+                                         int i0, int hd) {
+  uint4 r = make_uint4(0, 0, 0, 0);
+  if constexpr (VECL) {
+    if (i0 < hd) r = __ldg(reinterpret_cast<const uint4*>(p + i0));
+  } else {
+    int8_t* rb = reinterpret_cast<int8_t*>(&r);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (i0 + k < hd) rb[k] = __ldg(p + i0 + k);
+  }
+  return r;
+}
+
+// grid (nh, S); G threads per position, hd <= 16 * G.
+template <typename T, int G, bool VECL>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
                 const float* __restrict__ ksc, const int8_t* __restrict__ vp,
                 const float* __restrict__ vsc, const int* __restrict__ table,
                 const int* __restrict__ lens, T* __restrict__ out, int nh,
-                int P, int ps, int maxP, float scale_div) {
+                int hd, int P, int ps, int maxP, float scale_div) {
   constexpr int HD = 16 * G;
   constexpr int NG = THREADS / G;  // position groups per block
   __shared__ float sm_m[NG], sm_l[NG];
@@ -226,12 +260,12 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
   const int view = maxP * ps;
   const int n = max(0, min(__ldg(lens + s) + 1, view));
   const int* trow = table + (long long)s * maxP;
-  const long long pos_stride = (long long)nh * HD;
-  const long long page_stride = (long long)ps * pos_stride;
-  const long long head_off = (long long)h * HD + li * 16;
+  const long long pos_stride = (long long)nh * hd;
+  const long long head_off = (long long)h * hd;
+  const int i0 = li * 16;
 
   float qf[16];
-  load_q16<T>(q + ((long long)s * nh + h) * HD + li * 16, qf);
+  load_q16<T, VECL>(q + ((long long)s * nh + h) * hd, i0, hd, qf);
   float m = NEG_INF, l = 0.f;
   float acc[16];
 #pragma unroll
@@ -254,8 +288,8 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
         pid = min(max(pid, 0), P - 1);
         const long long row = (long long)pid * ps + p % ps;
         const long long off = row * pos_stride + head_off;
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kp + off));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vp + off));
+        kr[u] = load_i8<VECL>(kp + off, i0, hd);
+        vr[u] = load_i8<VECL>(vp + off, i0, hd);
         ks[u] = __ldg(ksc + row * nh + h);
         vs[u] = __ldg(vsc + row * nh + h);
       }
@@ -294,9 +328,9 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
     sm_l[gi] = l;
   }
 #pragma unroll
-  for (int k = 0; k < 16; ++k) sm_acc[gi][li * 16 + k] = acc[k];
+  for (int k = 0; k < 16; ++k) sm_acc[gi][i0 + k] = acc[k];
   __syncthreads();
-  for (int d = threadIdx.x; d < HD; d += THREADS) {
+  for (int d = threadIdx.x; d < hd; d += THREADS) {
     float M = NEG_INF;
     for (int g = 0; g < NG; ++g) M = fmaxf(M, sm_m[g]);
     float L = 0.f, A = 0.f;
@@ -305,8 +339,61 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
       L += sm_l[g] * w;
       A += sm_acc[g][d] * w;
     }
-    out[((long long)s * nh + h) * HD + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    out[((long long)s * nh + h) * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
   }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The smallest power of two >= n (n >= 1).
+int pow2_at_least(int n) {
+  int g = 1;
+  while (g < n) g *= 2;
+  return g;
+}
+
+// Calls f(std::integral_constant<int, G>(), std::bool_constant<VECL>())
+// for G a power of two from 1 to 32; anything else is an invalid value.
+template <typename F>
+cudaError_t with_groups(int G, bool vecl, F&& f) {
+#define PT_G_CASE(G_)                                                     \
+  case G_:                                                                \
+    return vecl ? f(std::integral_constant<int, G_>(), std::true_type())  \
+                : f(std::integral_constant<int, G_>(), std::false_type());
+  switch (G) {
+    PT_G_CASE(1)
+    PT_G_CASE(2)
+    PT_G_CASE(4)
+    PT_G_CASE(8)
+    PT_G_CASE(16)
+    PT_G_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PT_G_CASE
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const int* table, const int* lens, void* out, int S,
+                     int nh, int hd, int P, int ps, int maxP, float scale_div,
+                     cudaStream_t st) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  if (hd <= 0) return cudaErrorInvalidValue;
+  const bool vecl = hd % VEC == 0 && aligned16(q) && aligned16(k) &&
+                    aligned16(v);
+  const dim3 grid(nh, S);
+  return with_groups(pow2_at_least((hd + VEC - 1) / VEC), vecl,
+                     [&](auto g, auto vl) {
+    paged_decode<T, decltype(g)::value, decltype(vl)::value>
+        <<<grid, THREADS, 0, st>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), table, lens, static_cast<T*>(out), nh,
+            hd, P, ps, maxP, scale_div);
+    return cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -315,51 +402,18 @@ cudaError_t dispatch_q8(const void* q, const int8_t* k, const float* ks,
                         const int* lens, void* out, int S, int nh, int hd,
                         int P, int ps, int maxP, float scale_div,
                         cudaStream_t st) {
+  if (hd <= 0) return cudaErrorInvalidValue;
+  const bool vecl = hd % 16 == 0 && aligned16(q) && aligned16(k) &&
+                    aligned16(v);
   const dim3 grid(nh, S);
-  const T* qt = static_cast<const T*>(q);
-  T* ot = static_cast<T*>(out);
-#define PT_Q8_CASE(G_)                                                     \
-  case G_:                                                                 \
-    paged_decode_q8<T, G_><<<grid, THREADS, 0, st>>>(                      \
-        qt, k, ks, v, vs, table, lens, ot, nh, P, ps, maxP, scale_div);    \
+  return with_groups(pow2_at_least((hd + 15) / 16), vecl,
+                     [&](auto g, auto vl) {
+    paged_decode_q8<T, decltype(g)::value, decltype(vl)::value>
+        <<<grid, THREADS, 0, st>>>(
+            static_cast<const T*>(q), k, ks, v, vs, table, lens,
+            static_cast<T*>(out), nh, hd, P, ps, maxP, scale_div);
     return cudaGetLastError();
-  if (hd % 16) return cudaErrorInvalidValue;
-  switch (hd / 16) {
-    PT_Q8_CASE(1)
-    PT_Q8_CASE(2)
-    PT_Q8_CASE(4)
-    PT_Q8_CASE(8)
-    PT_Q8_CASE(16)
-    PT_Q8_CASE(32)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PT_Q8_CASE
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int* table, const int* lens, void* out, int S,
-                     int nh, int hd, int P, int ps, int maxP, float scale_div,
-                     cudaStream_t st) {
-  const int G = hd * (int)sizeof(T) / 16;
-  if (hd * (int)sizeof(T) != G * 16) return cudaErrorInvalidValue;
-  switch (G) {
-    case 4:
-      return launch<T, 4>(q, k, v, table, lens, out, S, nh, P, ps, maxP,
-                          scale_div, st);
-    case 8:
-      return launch<T, 8>(q, k, v, table, lens, out, S, nh, P, ps, maxP,
-                          scale_div, st);
-    case 16:
-      return launch<T, 16>(q, k, v, table, lens, out, S, nh, P, ps, maxP,
-                           scale_div, st);
-    case 32:
-      return launch<T, 32>(q, k, v, table, lens, out, S, nh, P, ps, maxP,
-                           scale_div, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  });
 }
 
 }  // namespace

@@ -19,7 +19,14 @@ CUDA tensors it is a ``torch.autograd.Function`` whose forward and backward
 launch the kernels, or raise; it never falls back from one to the other.
 q/k/v may be strided views (the model's are slices of its fused qkv
 projection): the kernels take the strides of the first three axes, so no
-copy is made.  ``fwd_launches``, ``dq_launches``, ``dkv_launches`` and
+copy is made.  The kernels are built for head widths 64, 128 and 256 (the
+Pallas kernel's own contract, ``_use_pallas``, is 64 and the multiples of
+128); any other hd up to 256 is zero-padded to the next of these
+(:func:`_padded_fwd`, :func:`_padded_bwd`) with the softmax scale kept at
+1/sqrt(true hd), and out, dq, dk, dv are sliced back: zero columns change
+neither q.k nor p.v.  That copies q, k, v (and dO) once.  hd over 256 is
+refused.  Any B * nh runs (the grid is one-dimensional).
+``fwd_launches``, ``dq_launches``, ``dkv_launches`` and
 ``fused_launches`` count kernel launches.
 
 The fused backward adds each tile's ``ds @ k`` into a zeroed fp32 dq
@@ -48,7 +55,7 @@ dkv_launches = 0
 fused_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _fns = None
 # Backward strategy, as the reference's _BWD_FUSED: False = the split dq
 # and dk/dv kernels, True = the fused kernel.
@@ -91,22 +98,27 @@ def _ref_attention(q, k, v, causal):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _scores(q, k, causal):
-    """fp32 scaled scores [B, nh, N, Nk] and the visibility mask."""
+def _scores(q, k, causal, scale=None):
+    """fp32 scaled scores [B, nh, N, Nk] and the visibility mask; ``scale``
+    defaults to 1/sqrt(hd)."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    s = s / math.sqrt(q.shape[-1])
+    if scale is None:
+        s = s / math.sqrt(q.shape[-1])
+    else:
+        s = s * scale
     n, m = s.shape[-2:]
     mask = (_causal_mask(n, m, q.device) if causal
             else torch.ones((n, m), dtype=torch.bool, device=q.device))
     return s, mask
 
 
-def _ref_flash_fwd(q, k, v, causal):
+def _ref_flash_fwd(q, k, v, causal, scale=None):
     """Plain version of the forward kernel: (out [B, N, nh, hd] in q's
     dtype, lse [B, nh, N] fp32).  Scores, softmax and lse in fp32 from the
     stored values, probabilities cast to q's dtype before an fp32 p.V; in
-    float32 this is :func:`_ref_attention`."""
-    s, mask = _scores(q, k, causal)
+    float32 this is :func:`_ref_attention`.  ``scale`` defaults to
+    1/sqrt(hd)."""
+    s, mask = _scores(q, k, causal, scale)
     s = s.masked_fill(~mask, NEG_INF)
     lse = torch.logsumexp(s, -1)
     probs = torch.softmax(s, -1).to(q.dtype).float()
@@ -114,18 +126,20 @@ def _ref_flash_fwd(q, k, v, causal):
     return out.to(q.dtype), lse
 
 
-def _ref_flash_bwd(q, k, v, out, lse, do, causal):
+def _ref_flash_bwd(q, k, v, out, lse, do, causal, scale=None):
     """Plain version of the backward kernels: p = exp(s - lse) recomputed
     from the saved logsumexp, delta = rowsum(dO * O), ds = p (dp - delta)
     scale, with p and ds cast to the stored dtype before their products and
-    fp32 sums.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    fp32 sums (``scale`` defaults to 1/sqrt(hd)).  Returns (dq, dk, dv) in
+    the inputs' dtypes."""
     dt = q.dtype
-    s, mask = _scores(q, k, causal)
+    s, mask = _scores(q, k, causal, scale)
     p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
     dof = do.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     delta = (dof * out.float()).sum(-1).transpose(1, 2)        # [B, nh, N]
-    ds = p * (dp - delta[..., None]) / math.sqrt(q.shape[-1])
+    ds = p * (dp - delta[..., None])
+    ds = ds / math.sqrt(q.shape[-1]) if scale is None else ds * scale
     p_c, ds_c = p.to(dt).float(), ds.to(dt).float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p_c, dof)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds_c, q.float())
@@ -159,6 +173,17 @@ def _kernels():
     return _fns
 
 
+def _kernel_width(hd):
+    """The kernel instance that takes head width ``hd``: the next of
+    :data:`_HEAD_DIMS`."""
+    for D in _HEAD_DIMS:
+        if hd <= D:
+            return D
+    raise ValueError(f"flash_attention: hd={hd}; the kernels take head "
+                     f"widths up to {_HEAD_DIMS[-1]} (wider heads are an "
+                     "open refusal, ROADMAP Queue 3)")
+
+
 def _check_cuda(q, k, v, causal):
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -179,15 +204,42 @@ def _check_cuda(q, k, v, causal):
     if (k.shape[0], k.shape[2:]) != (B, (nh, hd)) or v.shape != k.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} must be [{B}, Nk, {nh}, {hd}]")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: hd={hd}; the kernels take head "
-                         f"widths {_HEAD_DIMS}")
-    if min(N, Nk) < 1 or B * nh > 65535:
-        raise ValueError(f"flash_attention: N={N}, Nk={Nk} must be >= 1 and "
-                         f"B*nh={B * nh} at most 65535")
+    _kernel_width(hd)
+    if min(N, Nk, B * nh) < 1:
+        raise ValueError(f"flash_attention: N={N}, Nk={Nk} and B*nh="
+                         f"{B * nh} must be >= 1")
     if causal and N > Nk:
         raise ValueError(f"flash_attention: causal with N={N} > Nk={Nk} "
                          "leaves rows that see no key")
+
+
+def _pad_hd(ts, D):
+    """Each tensor's last axis zero-padded to D (a copy), or as it is."""
+    return [t if t.shape[-1] == D else
+            torch.nn.functional.pad(t, (0, D - t.shape[-1])) for t in ts]
+
+
+def _padded_fwd(fwd, q, k, v, causal):
+    """``fwd(q, k, v, causal, scale) -> (out, lse)`` on q, k, v zero-padded
+    to the kernels' next head width, at the true width's scale; out sliced
+    back to hd."""
+    hd = q.shape[-1]
+    D = _kernel_width(hd)
+    out, lse = fwd(*_pad_hd((q, k, v), D), causal, 1.0 / math.sqrt(hd))
+    return (out if D == hd else out[..., :hd].contiguous()), lse
+
+
+def _padded_bwd(bwd, q, k, v, out, lse, do, causal):
+    """``bwd(q, k, v, out, lse, do, causal, scale) -> (dq, dk, dv)`` on
+    operands zero-padded as :func:`_padded_fwd` pads them; the gradients
+    sliced back to hd."""
+    hd = q.shape[-1]
+    D = _kernel_width(hd)
+    grads = bwd(*_pad_hd((q, k, v, out), D), lse, *_pad_hd((do,), D),
+                causal, 1.0 / math.sqrt(hd))
+    if D == hd:
+        return grads
+    return tuple(g[..., :hd].contiguous() for g in grads)
 
 
 def _kernel_operand(t):
@@ -206,7 +258,8 @@ def _strides(t):
     return list(t.stride()[:3])
 
 
-def _flash_fwd_cuda(q, k, v, causal):
+def _fwd_kernel(q, k, v, causal, scale):
+    """The forward kernel on q, k, v of a kernel head width."""
     global fwd_launches
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     B, N, nh, hd = q.shape
@@ -218,11 +271,15 @@ def _flash_fwd_cuda(q, k, v, causal):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), B, nh, N, Nk, hd, *_strides(q),
-                  *_strides(k), *_strides(v), int(causal),
-                  1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
+                  *_strides(k), *_strides(v), int(causal), scale,
+                  _DTYPE_CODE[q.dtype], stream)
     build.check(lib, err, "flash_attention forward")
     fwd_launches += 1
     return out, lse
+
+
+def _flash_fwd_cuda(q, k, v, causal):
+    return _padded_fwd(_fwd_kernel, q, k, v, causal)
 
 
 def _bwd_operands(q, k, v, out, do):
@@ -234,21 +291,21 @@ def _bwd_operands(q, k, v, out, do):
     return q, k, v, do, delta
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal):
+def _bwd_args(q, k, v, do, lse, delta, causal, scale):
     B, N, nh, hd = q.shape
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     dims = (B, nh, N, k.shape[1], hd, *_strides(q), *_strides(k),
-            *_strides(v), *_strides(do), int(causal), 1.0 / math.sqrt(hd),
+            *_strides(v), *_strides(do), int(causal), scale,
             _DTYPE_CODE[q.dtype])
     return ptrs, dims
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal):
+def _launch_dq(q, k, v, do, lse, delta, causal, scale):
     """The dq kernel on operands from :func:`_bwd_operands`."""
     global dq_launches
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     lib, _, dq_fn, *_ = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -258,12 +315,12 @@ def _launch_dq(q, k, v, do, lse, delta, causal):
     return dq
 
 
-def _launch_dkv(q, k, v, do, lse, delta, causal):
+def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
     """The dk/dv kernel on operands from :func:`_bwd_operands`."""
     global dkv_launches
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     lib, _, _, dkv_fn, _ = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -273,7 +330,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal):
     return dk, dv
 
 
-def _launch_fused(q, k, v, do, lse, delta, causal):
+def _launch_fused(q, k, v, do, lse, delta, causal, scale):
     """The fused backward kernel on operands from :func:`_bwd_operands`:
     dk, dv, and dq summed in a zeroed fp32 buffer, then cast to q's
     dtype."""
@@ -281,7 +338,7 @@ def _launch_fused(q, k, v, do, lse, delta, causal):
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal)
+    ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     lib, *_, fused_fn = _kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -292,13 +349,19 @@ def _launch_fused(q, k, v, do, lse, delta, causal):
     return dq32.to(q.dtype), dk, dv
 
 
-def _flash_bwd_cuda(q, k, v, out, lse, do, causal):
+def _bwd_kernels(q, k, v, out, lse, do, causal, scale):
+    """The backward kernels, split or fused, on operands of a kernel head
+    width."""
     q, k, v, do, delta = _bwd_operands(q, k, v, out, do)
     if _BWD_FUSED:
-        return _launch_fused(q, k, v, do, lse, delta, causal)
-    dq = _launch_dq(q, k, v, do, lse, delta, causal)
-    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal)
+        return _launch_fused(q, k, v, do, lse, delta, causal, scale)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, causal):
+    return _padded_bwd(_bwd_kernels, q, k, v, out, lse, do, causal)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -320,7 +383,7 @@ def flash_attention(q, k, v, causal=False):
     """Attention over q [B, N, nh, hd] and k, v [B, Nk, nh, hd] (causal:
     bottom-right aligned).  Returns [B, N, nh, hd] in q's dtype.  CPU
     tensors: autograd of :func:`_ref_attention`.  CUDA tensors (float32 or
-    bfloat16, hd 64 or 128): the flash kernels, forward and backward (the
+    bfloat16, hd up to 256): the flash kernels, forward and backward (the
     split or the fused backward, per :func:`set_default_blocks`)."""
     if q.device.type == "cpu":
         return _ref_attention(q, k, v, causal)

@@ -14,7 +14,10 @@ autograd of the plain version recomputed from the saved inputs (the
 reference's ``_ln_bwd`` and ``_rms_bwd``; no backward kernel exists there
 either).  ``launches`` counts LayerNorm kernel launches and
 ``rms_launches`` RMSNorm kernel launches.  The reference's ``_tileable``
-gate has no counterpart: every CUDA tensor launches the kernel.
+gate has no counterpart: every CUDA tensor launches the kernel, whatever
+its H (one-element loads where rows are not 16-byte aligned, rows read
+again from L2 where they are too wide for registers).  A strided x is
+copied to contiguous rows first.
 """
 from __future__ import annotations
 
@@ -78,19 +81,11 @@ def _check_cuda(x, g, b):
         if t.dtype not in _DTYPE_CODE:
             raise TypeError(f"layer_norm: {name} dtype {t.dtype}; the kernel "
                             "takes float32 or bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"layer_norm: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"layer_norm: {name} is not 16-byte aligned")
     if g.dtype != b.dtype:
         raise TypeError(f"layer_norm: g is {g.dtype} but b is {b.dtype}")
     if g.shape != (H,) or b.shape != (H,):
         raise ValueError(f"layer_norm: g {tuple(g.shape)} and b "
                          f"{tuple(b.shape)} must be [{H}]")
-    vec = 16 // x.element_size()
-    if H % vec or H > 32 * 32 * 8 * vec:
-        raise ValueError(f"layer_norm: H={H} must be a multiple of {vec} "
-                         f"and at most {32 * 32 * 8 * vec} for {x.dtype}")
 
 
 def _forward(x, g, b, eps):
@@ -100,9 +95,12 @@ def _forward(x, g, b, eps):
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm: unsupported device {x.device}")
     _check_cuda(x, g, b)
-    rows = x.numel() // x.shape[-1]
+    # the kernel reads contiguous rows: a strided view is copied once
+    # (any H and any alignment go in as they are)
+    x, g, b = (t.contiguous() for t in (x, g, b))
+    rows = x.numel() // max(x.shape[-1], 1)
     y = torch.empty_like(x)
-    if rows == 0:
+    if y.numel() == 0:
         return y
     lib, fn, _ = _kernels()
     with torch.cuda.device(x.device):
@@ -141,9 +139,9 @@ class _LayerNorm(torch.autograd.Function):
 
 
 def layer_norm(x, g, b, eps=1e-5):
-    """LayerNorm over the last axis.  x: [..., H] float32 or bfloat16;
-    g, b: [H] float32 or bfloat16.  Returns x's shape and dtype;
-    differentiable in x, g and b."""
+    """LayerNorm over the last axis.  x: [..., H] float32 or bfloat16, any
+    H >= 1, any strides; g, b: [H] float32 or bfloat16.  Returns x's
+    shape and dtype; differentiable in x, g and b."""
     return _LayerNorm.apply(x, g, b, eps)
 
 

@@ -12,8 +12,11 @@ differentiates.
 
 :func:`paged_attention` and :func:`paged_attention_quant` take the plain
 version for tensors on the CPU and launch the kernel for tensors on a CUDA
-device; they never fall back from one to the other.  ``launches`` and
-``quant_launches`` count their kernel launches.
+device; they never fall back from one to the other.  Any head width up to
+32 16-byte slices (256 in bf16, 128 in fp32; 512 over the int8 pool) runs:
+the kernels mask the lanes past hd, and take one-element loads where rows
+are not 16-byte aligned, so the pool is never padded or copied.
+``launches`` and ``quant_launches`` count their kernel launches.
 """
 from __future__ import annotations
 
@@ -89,7 +92,7 @@ def _kernel():
 def _check_operands(what, q, k_pages, v_pages, page_table, lens,
                     scales=()):
     """The checks both kernels share: one device, contiguous operands,
-    16-byte aligned q and pages, q [S, 1, nh, hd] in float32 or bfloat16,
+    q [S, 1, nh, hd] in float32 or bfloat16,
     pages [P, ps, nh, hd], int32 table [S, maxP] and lens [S]."""
     dev = q.device
     named = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
@@ -99,9 +102,6 @@ def _check_operands(what, q, k_pages, v_pages, page_table, lens,
             raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    for name, t in named[:3]:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} not 16-byte aligned")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: q dtype {q.dtype}; the kernel takes "
                         "float32 or bfloat16")
@@ -132,11 +132,11 @@ def _check_cuda(q, k_pages, v_pages, page_table, lens):
         raise TypeError("paged_attention: k/v pages must have q's dtype "
                         f"({q.dtype}), got {k_pages.dtype}/{v_pages.dtype}")
     hd = q.shape[-1]
-    row_bytes = hd * q.element_size()
-    if row_bytes not in (64, 128, 256, 512):
+    widest = 32 * 16 // q.element_size()
+    if not 1 <= hd <= widest:
         raise ValueError(
-            f"paged_attention: hd={hd} x {q.element_size()} bytes must be "
-            "64, 128, 256 or 512 bytes (4 to 32 threads of 16 bytes)")
+            f"paged_attention: hd={hd} must be 1 to {widest} for {q.dtype} "
+            "(up to 32 threads of 16 bytes a position)")
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lens):
@@ -181,13 +181,12 @@ def _check_cuda_quant(q, k_pages, k_scale, v_pages, v_scale, page_table,
             f"{what}: scales {tuple(k_scale.shape)} / "
             f"{tuple(v_scale.shape)} must both be "
             f"{tuple(k_pages.shape[:3])}")
-    # one 16-byte load of int8 K and V per thread: hd = 16 * G threads,
-    # G a power of two up to a warp
+    # 16 int8 elements of K and V per thread, up to a warp a position
     hd = q.shape[-1]
-    if hd % 16 or (hd // 16) & (hd // 16 - 1) or hd > 512:
+    if not 1 <= hd <= 512:
         raise ValueError(
-            f"{what}: hd={hd} must be 16, 32, 64, 128, 256 or 512 (1 to "
-            "32 threads of 16 int8 elements)")
+            f"{what}: hd={hd} must be 1 to 512 (up to 32 threads of 16 "
+            "int8 elements a position)")
 
 
 def paged_attention_quant(q, k_pages, k_scale, v_pages, v_scale,

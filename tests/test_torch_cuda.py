@@ -77,8 +77,10 @@ def _paged(rng, dev, dtype, S, nh, hd, ps, maxP, lens):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [24, 32, 64, 80, 128])
 def test_paged_attention_kernel_matches_plain(dev, dtype, hd):
+    """hd 24 and 80 leave lanes of the last 16-byte slice past hd (and, at
+    24 in fp32, rows off 16 bytes: one-element loads)."""
     ps, maxP = 16, 64
     lens = [0, ps - 1, ps, maxP * ps - 1] + list(range(5, 1000, 83))
     args = _paged(np.random.default_rng(hd), dev, dtype, len(lens), 16, hd,
@@ -95,8 +97,11 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, hd):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 1, 1024), (4, 256, 1024),
-                                   (3, 4096), (5, 24), (7, 2048)])
+                                   (3, 4096), (5, 24), (7, 2048), (2, 6),
+                                   (3, 7), (5, 1001), (2, 70001)])
 def test_layer_norm_kernel_matches_plain(dev, dtype, shape):
+    """Vector rows, one-element rows (H = 6, 7, 1001: rows off 16 bytes)
+    and rows too wide for registers (H = 70001, read three times)."""
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 2 + 1)
     x = x.to(dev, dtype)
@@ -117,20 +122,41 @@ def test_layer_norm_kernel_matches_plain(dev, dtype, shape):
                                        atol=2.0 ** -7 * 16, rtol=2.0 ** -7)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_takes_strided_and_unaligned_rows(dev, dtype):
+    """A transposed view (copied to rows first) and a view 4 bytes off
+    16-byte alignment (one-element loads), each against the plain
+    version."""
+    rng = np.random.default_rng(11)
+    base = torch.from_numpy(rng.standard_normal((64, 6 * 64 + 4),
+                                                dtype=np.float32)).to(dev,
+                                                                      dtype)
+    g = torch.randn(64, device=dev)
+    b = torch.randn(64, device=dev)
+    tr = base[:, :48].t()                                   # [48, 64]
+    off = 4 // base.element_size()
+    un = base.reshape(-1)[off:off + 6 * 64].view(6, 64)     # 4 bytes off
+    assert not tr.is_contiguous() and un.data_ptr() % 16 == 4
+    for x in (tr, un):
+        before = norms.launches
+        out = norms.layer_norm(x, g, b)
+        torch.cuda.synchronize()
+        assert norms.launches == before + 1 and out.shape == x.shape
+        ref = norms._ref_layer_norm(x, g, b, 1e-5)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, atol=FP32_TOL, rtol=0)
+        else:
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       atol=2.0 ** -7 * 16, rtol=2.0 ** -7)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    x = torch.randn(4, 64, device=dev).t()              # not contiguous
-    g = torch.ones(4, device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
-        norms.layer_norm(x, g, g)
-    with pytest.raises(ValueError, match="multiple"):
-        norms.layer_norm(torch.randn(2, 6, device=dev),
-                         torch.ones(6, device=dev), torch.ones(6, device=dev))
     args = _paged(np.random.default_rng(0), dev, torch.float32, 2, 2, 64,
                   16, 2, [3, 20])
     with pytest.raises(TypeError, match="int32"):
         paged_attn.paged_attention(*args[:3], args[3].long(), args[4])
-    with pytest.raises(ValueError, match="hd"):
-        bad = _paged(np.random.default_rng(0), dev, torch.float32, 2, 2, 24,
+    with pytest.raises(ValueError, match="hd=160"):
+        bad = _paged(np.random.default_rng(0), dev, torch.float32, 2, 2, 160,
                      16, 2, [3, 20])
         paged_attn.paged_attention(*bad)
 
@@ -167,11 +193,19 @@ def test_engine_on_card_matches_generate(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 1000, 1000, 16, 64, True),
-                                   (2, 256, 256, 4, 128, False)])
+                                   (2, 256, 256, 4, 128, False),
+                                   (2, 200, 200, 4, 256, True),
+                                   (2, 130, 130, 4, 32, True),
+                                   (1, 300, 300, 3, 96, False),
+                                   (4100, 16, 16, 16, 32, False),
+                                   (65537, 16, 16, 1, 64, False)])
 def test_flash_kernels_match_plain(dev, dtype, shape):
     """Forward (out, lse) and split backward (dq, dk, dv) against
     ``_ref_flash_fwd`` / ``_ref_flash_bwd``; q/k/v are strided views of one
-    fused [B, N, 3, H] projection, as the model passes them."""
+    fused [B, N, 3, H] projection, as the model passes them.  hd 256 runs
+    its own instances; hd 32 and 96 are zero-padded to 64 and 128 at the
+    true width's scale; B * nh = 65,600 passes the old gridDim.y limit,
+    and B = 65,537 takes two launches of the (row tiles, nh, B) grid."""
     B, N, Nk, nh, hd, causal = shape
     g = torch.Generator(device=dev).manual_seed(N)
     qkv = torch.randn(B, N, 3, nh * hd, device=dev, generator=g).to(dtype)
@@ -227,8 +261,10 @@ def test_flash_attention_autograd_on_card(dev):
 
 
 def test_flash_attention_refuses_unported_head_width(dev):
-    q = torch.randn(1, 64, 2, 96, device=dev)
-    with pytest.raises(ValueError, match="hd=96"):
+    """hd over 256 is the one width the kernels refuse (hd 96 runs now,
+    padded to 128: ``test_flash_kernels_match_plain``)."""
+    q = torch.randn(1, 64, 2, 320, device=dev)
+    with pytest.raises(ValueError, match="hd=320"):
         flash_attn.flash_attention(q, q, q, causal=True)
 
 
@@ -311,8 +347,10 @@ def _paged_quant(dev, dtype, S, nh, hd, ps, maxP, lens):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 24, 32, 64, 80, 128])
 def test_paged_attention_quant_kernel_matches_plain(dev, dtype, hd):
+    """hd 24 (int8 rows off 16 bytes: one-byte loads) and 80 (lanes of
+    the last slice past hd) besides the powers of two."""
     ps, maxP = 16, 32
     lens = [0, ps - 1, ps, maxP * ps - 1] + list(range(5, 500, 71))
     args = _paged_quant(dev, dtype, len(lens), 8, hd, ps, maxP, lens)
@@ -428,11 +466,15 @@ def _ffn_args(dev, dtype, M, H, F, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,H,F", [(1000, 1024, 4096), (8, 1024, 4096),
-                                   (128, 128, 256), (37, 264, 104)])
+                                   (128, 128, 256), (37, 264, 104),
+                                   (256, 4096, 16384), (300, 768, 3072),
+                                   (5, 6, 10)])
 def test_fused_ffn_kernel_matches_plain(dev, dtype, M, H, F):
     """The kernel against ``_ref_fused_ffn`` (its own function): fp32 within
-    1e-5, bf16 per element 2**-8 + 2**-6 |ref|.  Ragged M and F tiles, and
-    H = 264 (a multiple of 8, not of 128)."""
+    1e-5, bf16 per element 2**-8 + 2**-6 |ref|.  Ragged M and F tiles,
+    H = 264 (a multiple of 8, not of 64), H = 4096 (two column groups),
+    H = 768 (a cluster of 8 blocks of 128 columns, two past H) and H = 6,
+    F = 10 (zero-padded to 8 and 16)."""
     args = _ffn_args(dev, dtype, M, H, F)
     before = fused_ffn.launches
     got = fused_ffn.fused_ffn_fwd(*args)
@@ -450,7 +492,9 @@ def test_fused_ffn_kernel_matches_plain(dev, dtype, M, H, F):
 
 def test_fused_ffn_autograd_on_card_and_refusals(dev):
     """One launch a forward; gradients of every input equal autograd of
-    ``_ref_ffn``; what the kernel does not take is refused by name."""
+    ``_ref_ffn``; the widths refused before this kernel (H = 2056 and 12, F
+    = 100) now run and match the plain version; operands of another dtype
+    are refused by name."""
     args = [a.requires_grad_() for a in
             _ffn_args(dev, torch.float32, 3 * 40, 256, 512, seed=1)]
     x = args[0].reshape(3, 40, 256)
@@ -462,12 +506,17 @@ def test_fused_ffn_autograd_on_card_and_refusals(dev):
     want = torch.autograd.grad(fused_ffn._ref_ffn(x, *args[1:]), args, dy)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=FP32_TOL, rtol=FP32_TOL)
-    with pytest.raises(ValueError, match="H=2056"):
-        fused_ffn.fused_ffn(*_ffn_args(dev, torch.float32, 4, 2056, 64))
-    with pytest.raises(ValueError, match="H=12"):
-        fused_ffn.fused_ffn(*_ffn_args(dev, torch.float32, 4, 12, 64))
-    with pytest.raises(ValueError, match="F=100"):
-        fused_ffn.fused_ffn(*_ffn_args(dev, torch.bfloat16, 4, 64, 100))
+    for dt, M, H, F in ((torch.float32, 4, 2056, 64),
+                        (torch.float32, 4, 12, 64),
+                        (torch.bfloat16, 4, 64, 100)):
+        ffn = _ffn_args(dev, dt, M, H, F)
+        got = fused_ffn.fused_ffn(*ffn)
+        ref = fused_ffn._ref_fused_ffn(*ffn)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, ref, atol=FP32_TOL,
+                                       rtol=FP32_TOL)
+        else:
+            assert _per_element(got, ref, ref) <= 1.0
     bad = list(_ffn_args(dev, torch.bfloat16, 4, 64, 64))
     bad[1] = bad[1].float()
     with pytest.raises(TypeError, match="w1"):
@@ -478,7 +527,10 @@ def test_fused_ffn_autograd_on_card_and_refusals(dev):
 @pytest.mark.parametrize("shape", [(1, 1000, 1000, 16, 64, True),
                                    (2, 256, 256, 4, 128, False),
                                    (1, 128, 320, 16, 64, True),
-                                   (2, 512, 512, 16, 128, True)])
+                                   (2, 512, 512, 16, 128, True),
+                                   (2, 200, 200, 4, 256, True),
+                                   (2, 130, 130, 4, 32, True),
+                                   (1, 300, 300, 3, 96, False)])
 def test_fused_flash_backward_matches_plain(dev, dtype, shape):
     """With ``bwd_fused=True`` the backward is one fused launch (no split
     launch) whose dq, dk, dv match ``_ref_flash_bwd`` at the split
@@ -511,9 +563,10 @@ def test_fused_flash_backward_matches_plain(dev, dtype, shape):
 
 
 def test_train_step_fused_routes_on_card_match_cpu(dev):
-    """A narrow fp32 model with ``use_fused_ffn`` and ``bwd_fused=True``:
-    per step 2L fused-FFN launches, L fused backward launches, no split
-    backward launch; the loss equals the CPU step's within 1e-5."""
+    """A narrow fp32 model with ``use_fused_ffn`` and ``bwd_fused=True``
+    under remat "full": per step L fused-FFN launches (the recompute keeps
+    the op's output), L fused backward launches, no split backward launch;
+    the loss equals the CPU step's within 1e-5."""
     from paddle_tpu_torch.models import gpt_hybrid as TH
     cfg = T.GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
                       num_heads=2, max_seq_len=64, dtype="float32",
@@ -537,7 +590,7 @@ def test_train_step_fused_routes_on_card_match_cpu(dev):
         lc, _ = TH.loss_and_grads(cpu_p, toks, toks, cfg)
     finally:
         flash_attn.set_default_blocks(bwd_fused=False)
-    assert tuple(a - b for a, b in zip(after, before)) == (2 * L, L, 0, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == (L, L, 0, 0)
     assert abs(float(lg) - float(lc)) <= FP32_TOL
 
 

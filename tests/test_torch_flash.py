@@ -128,3 +128,43 @@ def test_wrapper_on_cpu_counts_nothing_and_refuses_fused_backward():
     finally:
         T.set_default_blocks(bwd_fused=False)
     assert T._BWD_FUSED is False
+
+
+# (B, N, Nk, nh, hd, causal): head widths the CUDA kernels take only after
+# the wrapper zero-pads them (32 -> 64, 96 -> 128, 200 -> 256)
+PAD_CASES = [(1, 64, 64, 2, 32, True), (2, 48, 80, 2, 96, True),
+             (1, 40, 40, 2, 200, False)]
+
+
+@pytest.mark.parametrize("case", PAD_CASES,
+                         ids=[f"hd{c[4]}" for c in PAD_CASES])
+def test_padded_head_width_matches_reference(case):
+    """The wrapper's padding (``_padded_fwd`` / ``_padded_bwd``) around the
+    kernels' plain versions, at a width the kernels are not built for:
+    out, lse and the vjp against the JAX ``flash_attention`` (which runs
+    ``_ref_attention`` at these widths) at the forward's 1e-5 in fp32."""
+    B, N, Nk, nh, hd, causal = case
+    q, k, v, do = _inputs(case + (None,), 21)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = T._padded_fwd(T._ref_flash_fwd, tq, tk, tv, causal)
+    assert out.shape == (B, N, nh, hd) and lse.shape == (B, nh, N)
+    got = T._padded_bwd(T._ref_flash_bwd, tq, tk, tv, out, lse, tdo, causal)
+    jout, vjp = jax.vjp(lambda a, b, c: J.flash_attention(a, b, c, causal),
+                        *(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=FWD_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(J._ref_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), causal)),
+        atol=FWD_TOL, rtol=0)
+    # the row logsumexp at the true width's scale
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(hd)
+    if causal:
+        s = np.where(np.tril(np.ones((N, Nk), bool), Nk - N), s, -1e30)
+    want_lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=FWD_TOL, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(do))):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FWD_TOL,
+                                   rtol=0, err_msg=name)

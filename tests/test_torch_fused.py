@@ -152,6 +152,20 @@ def test_fused_ffn_autograd_matches_plain_and_refuses_tilings():
         TFF.set_default_blocks((128, 512))
 
 
+@pytest.mark.parametrize("M,H,F", [(7, 6, 10), (33, 20, 36)])
+def test_padded_ffn_matches_reference(M, H, F):
+    """The wrapper's padding (``_padded``: H and F zero-padded to multiples
+    of 8, the output sliced back) around the kernel's plain version, at
+    widths the kernel does not take as they are, against the reference's
+    ``_ref_ffn`` at 1e-5 in fp32."""
+    args = _ffn_inputs(14, (M,), H, F, bias=0.1)
+    got = TFF._padded(TFF._ref_fused_ffn,
+                      *(torch.from_numpy(a) for a in args))
+    assert got.shape == (M, H) and got.is_contiguous()
+    want = np.asarray(JFF._ref_ffn(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
 # --------------------------------------------------------------------------
 # fused flash backward
 # --------------------------------------------------------------------------
@@ -272,6 +286,53 @@ def test_fused_slice_three_steps_match_reference_fp32():
                                       jnp.float32(1e-4))
             tloss = tstep(tp, tm, tv, t, tt, tl, 1e-4)[3]
             assert abs(float(tloss) - float(jloss)) <= TOL, t
+    for path, p in TH._leaves(tp):
+        np.testing.assert_allclose(p.numpy(), np.asarray(TH._at(jp, path)),
+                                   atol=TOL, rtol=0, err_msg=str(path))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_fused_ffn_runs_once_a_block_under_remat(policy):
+    """Under remat, either policy, the recompute in the backward does not
+    run the FFN again: L bodies of the fused-FFN op a step (the reference's
+    recomputed ``pallas_call`` has no reader and XLA drops it).  The loss
+    and gradients still match ``jax.value_and_grad`` of the reference's
+    ``loss_fn`` (loss within 1e-5 relative, gradients 1e-5), and three
+    steps match ``gpt_hybrid.make_train_step``."""
+    jcfg, tcfg = _cfgs(remat_policy=policy)
+    L = tcfg.num_layers
+    tree = numpy_params(jcfg, 0)
+    toks, labels = _tokens(4)
+    tt, tl = torch.from_numpy(toks), torch.from_numpy(labels)
+    with fused_backward():
+        jloss, jgrads = jax.jit(jax.value_and_grad(
+            lambda p, t, lab: J.loss_fn(p, t, lab, jcfg)))(
+                jax.tree_util.tree_map(jnp.asarray, tree),
+                jnp.asarray(toks), jnp.asarray(labels))
+        before = TFF.bodies
+        loss, grads = TH.loss_and_grads(T.params_from_numpy(tree, CPU), tt,
+                                        tl, tcfg)
+        assert TFF.bodies - before == L
+        assert abs(float(loss) - float(jloss)) <= TOL * abs(float(jloss))
+        for path, g in TH._leaves(grads):
+            np.testing.assert_allclose(g.numpy(),
+                                       np.asarray(TH._at(jgrads, path)),
+                                       atol=TOL, rtol=0, err_msg=str(path))
+        jstep = _jax_step(jcfg, eps=1e-6)
+        jp = jax.tree_util.tree_map(jnp.asarray, tree)
+        jm = jax.tree_util.tree_map(jnp.zeros_like, jp)
+        jv = jax.tree_util.tree_map(jnp.zeros_like, jp)
+        tp = T.params_from_numpy(copy.deepcopy(tree), CPU)
+        tm, tv = TH.init_train_state(tp)
+        tstep = TH.make_train_step(tcfg, eps=1e-6)
+        before = TFF.bodies
+        for t in (1, 2, 3):
+            jp, jm, jv, jloss = jstep(jp, jm, jv, jnp.int32(t),
+                                      jnp.asarray(toks), jnp.asarray(labels),
+                                      jnp.float32(1e-4))
+            tloss = tstep(tp, tm, tv, t, tt, tl, 1e-4)[3]
+            assert abs(float(tloss) - float(jloss)) <= TOL, t
+        assert TFF.bodies - before == 3 * L
     for path, p in TH._leaves(tp):
         np.testing.assert_allclose(p.numpy(), np.asarray(TH._at(jp, path)),
                                    atol=TOL, rtol=0, err_msg=str(path))

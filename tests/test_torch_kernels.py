@@ -78,6 +78,20 @@ class TestPagedAttentionParity:
         np.testing.assert_allclose(port.float().numpy(), ref,
                                    rtol=BF16_RTOL, atol=BF16_RTOL)
 
+    @pytest.mark.parametrize("hd", [24, 80])
+    def test_plain_matches_jax_at_widths_the_kernel_masks(self, hd):
+        """Head widths that leave lanes of the CUDA kernels' last 16-byte
+        slice past hd (the reference falls back to its plain version
+        there)."""
+        q, k, v, table, lens = _paged_inputs(np.random.default_rng(hd),
+                                             hd=hd)
+        port = paged_attn._ref_paged_attention(
+            _t(q), _t(k), _t(v), _t(table), _t(lens)).numpy()
+        ref = np.asarray(jax_paged.paged_attention(
+            *(jnp.asarray(a) for a in (q, k, v, table, lens))))
+        assert port.shape == (3, 1, 2, hd)
+        np.testing.assert_allclose(port, ref, atol=FP32_TOL, rtol=0)
+
     def test_wrapper_on_cpu_runs_plain_and_counts_nothing(self):
         q, k, v, table, lens = _paged_inputs(np.random.default_rng(2))
         args = (_t(q), _t(k), _t(v), _t(table), _t(lens))
@@ -114,6 +128,29 @@ class TestLayerNormParity:
         np.testing.assert_allclose(port.float().numpy(),
                                    np.asarray(ref.astype(jnp.float32)),
                                    rtol=BF16_RTOL, atol=BF16_RTOL)
+
+    @pytest.mark.parametrize("H", [6, 7, 1001])
+    def test_plain_matches_jax_at_widths_the_kernel_loads_by_element(self,
+                                                                      H):
+        """Widths whose rows are not 16-byte aligned (the CUDA kernel's
+        one-element loads; the reference's ``_tileable`` sends them to its
+        plain version)."""
+        x, g, b = self._inputs(np.random.default_rng(H), rows=5, H=H)
+        port = norms._ref_layer_norm(_t(x), _t(g), _t(b), 1e-5).numpy()
+        ref = np.asarray(jax_norms.layer_norm(
+            *(jnp.asarray(a) for a in (x, g, b)), 1e-5, True))
+        np.testing.assert_allclose(port, ref, atol=FP32_TOL, rtol=0)
+
+    def test_wrapper_on_cpu_takes_a_transposed_view(self):
+        """A transposed x through the wrapper against the JAX reference on
+        the same rows (the card copies such a view to rows first)."""
+        x, g, b = self._inputs(np.random.default_rng(6), rows=64, H=64)
+        xt = _t(x).t()
+        assert not xt.is_contiguous()
+        out = norms.layer_norm(xt, _t(g), _t(b))
+        ref = np.asarray(jax_norms._ref_layer_norm(
+            jnp.asarray(x.T), jnp.asarray(g), jnp.asarray(b), 1e-5))
+        np.testing.assert_allclose(out.numpy(), ref, atol=FP32_TOL, rtol=0)
 
     @pytest.mark.parametrize("shape", [(2, 3, 128), (128,)])
     def test_wrapper_on_cpu_runs_plain_and_counts_nothing(self, shape):

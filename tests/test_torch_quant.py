@@ -345,10 +345,17 @@ def test_paged_attention_quant_on_cpu_counts_nothing_and_checks_by_name():
     q, kq, ks, vq, vs, pt, lens = args
     with pytest.raises(TypeError, match="int8"):
         paged_attn._check_cuda_quant(q, kq.float(), ks, vq, vs, pt, lens)
-    with pytest.raises(ValueError, match="hd=24"):
-        q24 = torch.zeros(4, 1, 4, 24)
-        k24 = torch.zeros(12, 8, 4, 24, dtype=torch.int8)
-        paged_attn._check_cuda_quant(q24, k24, ks, k24, vs, pt, lens)
+    # any hd up to 512 runs (the kernel masks the ragged lanes); wider is
+    # refused by name
+    paged_attn._check_cuda_quant(torch.zeros(4, 1, 4, 24),
+                                 torch.zeros(12, 8, 4, 24, dtype=torch.int8),
+                                 ks, torch.zeros(12, 8, 4, 24,
+                                                 dtype=torch.int8),
+                                 vs, pt, lens)
+    with pytest.raises(ValueError, match="hd=528"):
+        q528 = torch.zeros(4, 1, 4, 528)
+        k528 = torch.zeros(12, 8, 4, 528, dtype=torch.int8)
+        paged_attn._check_cuda_quant(q528, k528, ks, k528, vs, pt, lens)
     with pytest.raises(ValueError, match="scales"):
         paged_attn._check_cuda_quant(q, kq, ks[:, :4].contiguous(), vq,
                                      vs, pt, lens)
