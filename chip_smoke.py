@@ -8,7 +8,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
   (a) the card's name and power limit, torch and CUDA versions;
   (b) build every kernel from ``paddle_tpu_torch/ops/cuda/csrc`` (one nvcc
-      per source, in parallel) and report ptxas' register and spill counts;
+      per source, in parallel) and report ptxas' register and spill counts,
+      one line for each instance of the warp-specialised kernels
+      (``fa_fwd_wg``, ``fa_bwd_wg``, ``ffn_wg``);
   (c) every kernel's wrapper against its plain PyTorch version on the card,
       in fp32 and bf16, at the shapes the serving and training paths give
       it, with the device times (CUDA-graph replay) of the kernel, the
@@ -17,7 +19,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
       per-call time; the flash-attention forward and its split backward's
       dq and dk/dv kernels at the training shape [8, 1024, 16, 64] causal,
       a ragged [1, 1000, 16, 64], q 128 / kv 320 causal and
-      [2, 256, 4, 128] non-causal;
+      [2, 256, 4, 128] non-causal.  Each flash gate must also reject two
+      mutants, one scaling the rows past the first 128-row tile by
+      1 + 2^-4 and one the second consumer warpgroup's rows (64-127) of
+      the first tile;
   (d) the main path: ``gpt_345m`` (full width, 24 layers) with
       ``use_pallas_norm``, weights drawn from a numpy seed, served by
       ``PagedServingEngine(slots=8, max_len=512, page_size=16)`` after
@@ -99,14 +104,17 @@ rounds h and the output once each) at the flagship shape [12288, 2048] x
 (M = 8), a ragged M = 1000, the JAX tests' shapes, H = 4096 (F = 16384),
 H = 768 and H = 6 / F = 10 (zero-padded), timed against cuBLAS ``addmm`` +
 gelu + ``addmm``; the flash forward and both backward strategies also at
-hd 256, hd 32 and 96 (zero-padded to 64 and 128) and B * nh = 65,600;
+hd 256, hd 32 and 96 (zero-padded to 64 and 128), B * nh = 65,600 and
+heads wider than 256 (hd 320, 384, 512, 640: the kernels' head-width
+groups);
 LayerNorm also at H = 6, 7, 1001 and 70001, a transposed view and a view
 4 bytes off alignment; both paged kernels also at hd 24 and 80; the
 fused flash backward at [6, 2048, 16, 128] causal, [8, 1024, 16, 64]
 causal (with the split kernels' time beside it), a ragged [1, 1000, 16,
-64], q 128 / kv 320 causal, [1, 512, 1, 128] non-causal, hd 256 and hd
-96, with the largest |dq| difference between two launches on the same
-inputs (the atomics' order varies; reported, not asserted).
+64], q 128 / kv 320 causal, [1, 512, 1, 128] non-causal, hd 256, hd 96
+and the four wide heads, with the largest |dq| difference between two
+launches on the same inputs (the adds' order varies; reported, not
+asserted).
 (c) also holds the RMSNorm kernel against its plain version at (n)'s
 shape [8, 512, 768] (fp32; bf16 with bf16 g; bf16 with fp32 g), [4, 8,
 256], a ragged [3, 1000], [2, 8] and [3, 1001] (one-element loads), each
@@ -155,6 +163,11 @@ PAGED_BF16_CAP = 2e-2         # bf16 int8 paged attention never looser than
 BF16_ATOL, BF16_RTOL = 2.0 ** -8, 2.0 ** -6
 WRONG_SCALE = 1 + 2.0 ** -4   # the mutant each gate must reject (see gate)
 TRAIN_SHAPE = (8, 1024, 1024, 16, 64, True)   # B, N, Nk, nh, hd, causal
+# heads wider than 256 (the kernels' head-width groups of 64 columns)
+WIDE_SHAPES = [((2, 256, 256, 4, 320, True), "hd 320, 5 groups"),
+               ((1, 256, 256, 4, 384, False), "hd 384, 6 groups"),
+               ((1, 200, 200, 2, 512, True), "hd 512, 8 groups"),
+               ((1, 250, 250, 2, 640, True), "hd 640, 10 groups, ragged")]
 TRAIN_LOSS_RTOL = 1e-5        # (h), (m): card loss vs CPU loss
 TRAIN_GRAD_TOL = 1e-4         # (h), (m): x max|leaf grad on the CPU|
 FLAGSHIP_SHAPE = (6, 2048)    # (l): B, N of bench.py's first 1.3B batch
@@ -313,6 +326,29 @@ def l2_copies(nbytes):
     return max(1, min(8, (100 << 20) // max(nbytes, 1)))
 
 
+# the warp-specialised kernels whose ptxas lines (b) prints one by one
+WG_KERNELS = ("fa_fwd_wg", "fa_bwd_wg", "ffn_wg")
+
+
+def ptxas_kernels(text, stems):
+    """[(kernel, "Used ... registers ...", "... spill ...")] from nvcc's
+    ``-Xptxas=-v`` output for the instances whose names hold a stem."""
+    out, name, spill = [], None, ""
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and " bytes spill stores" in ln:
+            spill = ln.strip()
+        elif name and "Used " in ln:
+            stem = next((st for st in stems if st in name), None)
+            if stem:
+                inst = name[name.index(stem):].split("EEv")[0] + "E"
+                out.append((inst, "Used " + ln.split("Used ")[1].strip(),
+                            spill))
+            name = None
+    return out
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -327,25 +363,49 @@ def later_slots(m):
     return m[1:]
 
 
+def past_first_tile(m):
+    """The rows past the first 128-row tile of the bf16 flash kernels
+    (axis 1: q rows of the forward, keys of the fused backward)."""
+    return m[:, 128:]
+
+
+def second_warpgroup(m):
+    """Rows 64-127 (axis 1): the second consumer warpgroup's rows of the
+    first tile."""
+    return m[:, 64:128]
+
+
+FLASH_ROWS = (past_first_tile, second_warpgroup)
+
+
 def gate(pairs, atol, rtol, cap=None, rows=later_tiles):
     """For (got, ref, scale) triples: the worst ratio over elements of
     |got - ref| / (atol + rtol * |scale|), which passes at most 1
     (``torch.testing.assert_close``'s rule when scale is ref), and the same
     ratio for a mutant of ``got`` whose ``rows`` are scaled by
     ``WRONG_SCALE``, which must fail: a gate that lets a wrong scale on
-    later tiles through could not catch a wrong kernel.  ``cap`` bounds
-    the per-element tolerance from above."""
-    ok = mut = 0.0
+    later tiles through could not catch a wrong kernel.  ``rows`` may be a
+    tuple of selectors: each one that selects an element makes a mutant,
+    and the smallest of their ratios is returned (every one must fail).
+    ``cap`` bounds the per-element tolerance from above."""
+    sel = rows if isinstance(rows, tuple) else (rows,)
+    ok, muts = 0.0, [None] * len(sel)
     for got, ref, scale in pairs:
         g, r = got.float(), ref.float()
         den = atol + rtol * scale.float().abs()
         if cap is not None:
             den = den.clamp(max=cap)
-        m = g.clone()
-        rows(m).mul_(WRONG_SCALE)
         ok = max(ok, float(((g - r).abs() / den).max()))
-        mut = max(mut, float(((m - r).abs() / den).max()))
-    return ok, mut
+        for i, pick in enumerate(sel):
+            m = g.clone()
+            part = pick(m)
+            if part.numel() == 0:
+                continue
+            part.mul_(WRONG_SCALE)
+            muts[i] = max(muts[i] or 0.0,
+                          float(((m - r).abs() / den).max()))
+    picked = [x for x in muts if x is not None]
+    return ok, min(picked) if picked else 0.0
 
 
 def check_kernels(torch, paged_attn, norms):
@@ -571,7 +631,8 @@ def check_flash(torch, flash_attn):
               ((2, 512, 512, 8, 256, True), "hd 256"),
               ((2, 128, 128, 8, 32, False), "hd 32, padded to 64"),
               ((2, 512, 512, 4, 96, True), "hd 96, padded to 128"),
-              ((4100, 128, 128, 16, 32, False), "B*nh 65600")]
+              ((4100, 128, 128, 16, 32, False), "B*nh 65600"),
+              *WIDE_SHAPES]
     for (B, N, Nk, nh, hd, causal), name in shapes:
         big = B * N * Nk * nh >= 2 ** 26
         plain_kw = dict(per_graph=4, replays=5) if big else {}
@@ -594,7 +655,7 @@ def check_flash(torch, flash_attn):
             def gated(pairs, fp32_atol):
                 atol, rtol = ((fp32_atol, 0.0) if f32
                               else (BF16_ATOL, BF16_RTOL))
-                ratio, mutant = gate(pairs, atol, rtol)
+                ratio, mutant = gate(pairs, atol, rtol, rows=FLASH_ROWS)
                 return {"max_abs_err": max(max_err(g, r)
                                            for g, r, _ in pairs),
                         "mean_abs_ref": float(np.mean(
@@ -853,7 +914,8 @@ def check_fused_bwd(torch, flash_attn):
               ((1, 128, 320, 16, 64, True), "cross length"),
               ((1, 512, 512, 1, 128, False), "hd 128 non-causal"),
               ((2, 512, 512, 8, 256, True), "hd 256"),
-              ((2, 512, 512, 4, 96, True), "hd 96, padded to 128")]
+              ((2, 512, 512, 4, 96, True), "hd 96, padded to 128"),
+              *WIDE_SHAPES]
     for (B, N, Nk, nh, hd, causal), name in shapes:
         big = B * N * Nk * nh >= 2 ** 26
         kw = dict(per_graph=2, replays=3) if big else {}
@@ -872,7 +934,7 @@ def check_fused_bwd(torch, flash_attn):
             atol, rtol = ((FLASH_GRAD_TOL, 0.0) if f32
                           else (BF16_ATOL, BF16_RTOL))
             pairs = [(dq, rdq, rdq), (dk, rdk, rdk), (dv, rdv, rdv)]
-            ratio, mutant = gate(pairs, atol, rtol)
+            ratio, mutant = gate(pairs, atol, rtol, rows=FLASH_ROWS)
             bounds = flash_bounds(q, k, causal)
             lib_sets = [(a.detach().requires_grad_(),
                          b.detach().requires_grad_(),
@@ -1652,6 +1714,8 @@ def main():
         for name, ln in spills:
             if int(ln.split(" bytes spill stores")[0].split()[-1]):
                 log(f"      spills in {name}: {ln}")
+        for kname, regs_ln, spill_ln in ptxas_kernels(text, WG_KERNELS):
+            log(f"      {kname}: {regs_ln}; {spill_ln}")
     for lib in build.SOURCES:
         build.load(lib)
 

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``paddle_tpu_torch/_build/
 lib<name>-<digest>.so``, and loaded with ``ctypes``.  No source includes
 PyTorch's headers, so a build takes seconds.  The digest covers the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused.  Libraries are built at first use, never at import, and
+source, every header it includes from ``csrc/`` (``hopper.cuh``, shared
+by the Hopper kernels) and the flags, so a library whose source or headers
+changed is rebuilt and an unchanged one is reused.  Libraries are built at first use, never at import, and
 :func:`build` starts one ``nvcc`` per missing source, all at once.
 
 Only sources in this repository are built.  A failed build raises; there
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -55,9 +57,26 @@ def nvcc_path():
         "found in $CUDA_HOME/bin, PATH or /usr/local/cuda/bin")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_files(name):
+    """The source of library ``name`` and every header it includes from
+    ``csrc/`` (``#include "..."``, followed recursively), in a fixed
+    order."""
+    files, todo = [], [SOURCES[name]]
+    while todo:
+        f = todo.pop(0)
+        if f not in files:
+            files.append(f)
+            todo.extend(_INCLUDE.findall((CSRC / f).read_text()))
+    return files
+
+
 def lib_path(name):
-    src = CSRC / SOURCES[name]
-    h = hashlib.blake2b(src.read_bytes(), digest_size=8)
+    h = hashlib.blake2b(digest_size=8)
+    for f in source_files(name):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 

@@ -2,12 +2,13 @@
 // (sm_90a).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attn.py:
-//   fa_fwd_mma / fa_fwd          <- _fa_kernel      (_flash_attention_tpu)
+//   fa_fwd_wg / fa_fwd           <- _fa_kernel      (_flash_attention_tpu)
 //   fa_bwd_dq_mma / fa_bwd_dq    <- _fa_dq_kernel   (split path of
 //   fa_bwd_dkv_mma / fa_bwd_dkv  <- _fa_dkv_kernel   _flash_attention_bwd_tpu)
-//   fa_bwd_dkv_mma / fa_bwd_dkv  <- _fa_fused_bwd_kernel (its fused path,
-//     with FUSED = true            set_default_blocks(bwd_fused=True))
-// (*_mma: bf16 on the tensor cores; the others: fp32 on the CUDA cores.)
+//   fa_bwd_wg / fa_bwd_dkv       <- _fa_fused_bwd_kernel (its fused path,
+//     (fp32: FUSED = true)          set_default_blocks(bwd_fused=True))
+// (*_wg: bf16, warp-specialised TMA + wgmma; *_mma: bf16 on warp-level
+// mma.sync; the others: fp32 on the CUDA cores.)
 // Same arithmetic: s = (q . k) * scale in fp32 from the stored values,
 // bottom-right causal mask (query i sees key j <= i + Nk - N), ragged K tail
 // masked, online softmax with m/l/acc in fp32, p cast to the stored type
@@ -17,53 +18,83 @@
 // and casts p and ds to the stored type before their products, as the
 // Pallas kernels do.  The split backward has no atomics: dq (q tile
 // stationary) and dk/dv (K/V tile stationary) are separate kernels, so its
-// results are deterministic.  The fused backward is the dk/dv kernel that
-// also adds each tile's ds @ k into a zeroed fp32 [B, N, nh, hd] dq buffer
-// with atomic adds (the wrapper casts it to the stored type): p and ds are
+// results are deterministic.  The fused backward keeps a K/V tile
+// stationary and adds each q tile's ds @ k into a zeroed fp32 [B, N, nh, hd]
+// dq buffer (the wrapper casts it to the stored type): p and ds are
 // recomputed once per tile, five products against the split's seven.  The
 // reference writes one fp32 dq partial per K block instead and sums them
-// after; at 64-row K tiles those would take O(N^2 hd / 64) bytes, the
-// buffer here O(N hd).  The order of the atomic adds varies from run to
-// run, and with it the last bits of dq.
+// after; those would take O(N^2 hd / block) bytes, the buffer here O(N hd).
+// The order of the adds varies from run to run, and with it the last bits
+// of dq.
 //
-// Bound.  At the training shape (B=8, N=Nk=1024, nh=16, hd=64, causal, bf16)
-// the forward needs 4*V*hd = 17 GFLOP (V = keys attended, summed over rows)
-// against 67 MB of q/k/v/out/lse: bound by bytes on the card (20 us at
-// 3.35 TB/s, 17 us at 989 TFLOP/s).  The backward needs 10*V*hd = 43 GFLOP
-// (five products; the split design does seven, 60 GFLOP) against 134 MB:
-// bound by operations on the tensor cores.  The fused backward does the
-// five, and adds V*hd fp32 atomic adds into L2 (per K tile, its q rows).  In fp32 the 67 TFLOP/s of the
-// CUDA cores bound both passes by operations.
+// Head widths.  hd 64, 128 and 256 have their own instances (the wrapper
+// zero-pads other widths up to 256 to the next of these).  Wider heads
+// (any multiple of 64; the wrapper pads the rest) run the WIDE instances:
+// the grid gains a head-width group axis, and group g owns columns
+// [64g, 64g + 64) of out, dq, dk and dv.  Each group recomputes the scores
+// (and in the backward dp = dO . V^T) over the full width in 64-column
+// chunks, its own chunk last, so that the tiles in shared memory hold
+// exactly its columns when the products that write them run; it writes
+// only its own slice, and group 0 writes the lse.  The bf16 fused backward
+// takes the group path from hd 256 (its dk and dv accumulators at 256
+// columns would not fit the registers of a warpgroup).
 //
-// Design for that bound.  Each block owns a 64-row tile of one (batch,
-// head) and streams 64-row tiles of the other operand through shared
-// memory, so no [N, Nk] matrix reaches device memory.  Causal tiles above
-// the diagonal are skipped (the forward and dq stop at the last K tile the
-// diagonal reaches; dk/dv start at the first q tile that reaches theirs),
-// and the q tiles with the most work launch first.  bf16, the training
-// path's type, runs every product on the tensor cores with warp-level
-// mma.sync (m16n8k16, fp32 accumulate): four warps of 16 rows each, and the
-// score accumulators become the next product's operands in registers.
-// fp32 runs on the CUDA cores (TF32 would break its 1e-5 tolerance): 256
-// threads each own a 4 x 4 patch of the score tile in fp32 FMAs, tiles held
-// in shared memory as fp32.  Neither pipelines its loads (cp.async / TMA)
-// or uses wgmma yet: that is the next step toward the bound.
+// Bound.  At the flagship shape (B=6, N=Nk=2048, nh=16, hd=128, causal,
+// bf16) the forward needs 4*V*hd = 103 GFLOP (V = keys attended, summed
+// over rows) against 202 MB: bound by operations on the tensor cores
+// (0.104 ms at 989 TFLOP/s).  At the 345M shape (hd 64, N=1024, B=8) it
+// needs 17 GFLOP against 67 MB: bound by bytes (20 us at 3.35 TB/s).  A
+// backward pass needs 10*V*hd (five products; the split design does seven)
+// and is bound by operations; the fused backward also sends V*hd fp32 adds
+// (per K tile, its q rows) to L2.  In fp32 the 67 TFLOP/s of the CUDA cores
+// bound both passes by operations.
+//
+// Design for that bound, bf16 (fa_fwd_wg, fa_bwd_wg): 384 threads, two
+// consumer warpgroups of 64 rows each and a producer warpgroup whose one
+// thread issues TMA loads into a ring of stages guarded by full and empty
+// mbarriers; setmaxnreg gives the consumers 240 registers and the producers
+// 24.  Every product is a wgmma from 128-byte-swizzled TMA tiles: scores
+// from two K-major operands, p (or ds) from registers against V (or dO, Q)
+// read as stored through MN-major descriptors.  The tensor maps are built
+// over the strided [B, N, nh, hd] views as they are (the model's q/k/v are
+// slices of one fused projection); TMA's out-of-bounds zero fill takes the
+// ragged tails.  The softmax runs in fp32 registers with exp2 and
+// scale * log2(e) folded into one multiply, and the mask is applied only
+// on tiles that cross the diagonal or a tail.
+//  * Forward: a block owns 128 q rows of one (batch, head); Q is loaded once
+//    and K/V tiles (128 keys up to hd 128, 64 at hd 256) stream through the
+//    ring.  Each warpgroup issues the next tile's scores before this tile's
+//    p . V and runs the next softmax while that product is in flight.  Out
+//    goes through shared memory (over Q's rows) to a TMA store.
+//  * Fused backward: a block owns 128 keys (64 a warpgroup), keeps its K/V
+//    tile in shared memory and dk, dv in fp32 registers, and streams 64-row
+//    q tiles with their dO, lse and delta.  Per q tile: s^T = K Q^T and
+//    dp^T = V dO^T, then p^T and ds^T in registers, dv += p^T dO and
+//    dk += ds^T Q.  ds^T also goes to shared memory (two buffers by tile
+//    parity), both warpgroups meet at a named barrier, and each computes
+//    half of dq_tile = ds K's columns with one more wgmma, stores it in
+//    shared memory and adds it to the fp32 dq buffer with one bulk tensor
+//    reduction per 32-column box (cp.reduce.async.bulk.tensor .add): no
+//    scalar atomics.
+// Causal tiles above the diagonal are skipped (the forward and dq stop at
+// the last K tile the diagonal reaches; dk/dv start at the first q tile
+// that reaches theirs), and the tiles with the most work launch first.
+// The split backward (fa_bwd_dq_mma, fa_bwd_dkv_mma) runs warp-level
+// mma.sync with synchronous loads.  fp32 runs on the CUDA cores (TF32 would
+// break its 1e-5 tolerance): 256 threads each own a 4 x 4 patch of the score
+// tile in fp32 FMAs, tiles held in shared memory as fp32.
 //
 // Layout: q, k, v and dO are [B, N, nh, hd] with any strides on the first
-// three axes (the model passes q/k/v as strided views of its fused qkv
-// projection, so no copy is made); the last axis must be contiguous.  out,
-// dq, dk, dv are contiguous [B, N|Nk, nh, hd]; lse and delta are contiguous
-// fp32 [B, nh, N].  hd is 64, 128 or 256 (the wrapper zero-pads other widths
-// up to the next of these; the Pallas kernel's own widths are 64 and the
-// multiples of 128).  The grid is (row tiles, nh, B), B in launches of at
+// three axes (the bf16 kernels need 16-byte aligned rows, which the wrapper
+// ensures); the last axis must be contiguous.  out, dq, dk, dv are
+// contiguous [B, N|Nk, nh, hd]; lse and delta are contiguous fp32
+// [B, nh, N].  The grid is (row tiles x groups, nh, B), B in launches of at
 // most 65,535 batches, so any B * nh runs (nh up to 65,535).
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/flash_attn.py);
 // dtype codes: 0 = float32, 1 = bfloat16.  Every entry point returns
 // cudaGetLastError() after its launch.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #include <type_traits>
 
@@ -72,7 +103,9 @@ namespace {
 constexpr int BQ = 64;    // rows of the q tile
 constexpr int BK = 64;    // rows of the K/V tile
 constexpr int NT = 256;   // fp32 threads: 16 x 16, each an R x R patch
+constexpr int GW = 64;    // columns of a head-width group (WIDE instances)
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, n, h;  // element strides of a [B, N, nh, hd] operand
@@ -127,14 +160,29 @@ __device__ __forceinline__ int k_tiles_for(int q0, int N, int Nk,
   return end;
 }
 
-// The block's row tile, batch and head.  The grid is (row tiles, nh, B)
-// and the launchers split B into launches of at most 65,535, so any B * nh
-// runs.  (A one-dimensional grid that divides the block index measured up
-// to 24% slower on the H100 in some kernels, tools/flash_variants.py.)
-__device__ __forceinline__ void tile_of(int& tile, int& b, int& h) {
-  tile = blockIdx.x;
+// The block's row tile, head-width group, batch and head.  The grid is
+// (row tiles x groups, nh, B) and the launchers split B into launches of
+// at most 65,535, so any B * nh runs.  A narrow instance has one group and
+// takes the tile from blockIdx.x without a division (a one-dimensional
+// grid that divides the block index measured up to 24% slower on the H100
+// in some of these kernels, through their registers).
+template <bool WIDE>
+__device__ __forceinline__ void tile_of(int tiles, int& tile, int& grp,
+                                        int& b, int& h) {
+  if constexpr (WIDE) {
+    grp = blockIdx.x / tiles;
+    tile = blockIdx.x - grp * tiles;
+  } else {
+    grp = 0;
+    tile = blockIdx.x;
+  }
   h = blockIdx.y;
   b = blockIdx.z;
+}
+
+// Chunk i of a WIDE block's score loop: the group's own chunk comes last.
+__device__ __forceinline__ int chunk_of(int grp, int i, int nch) {
+  return (grp + 1 + i) % nch;
 }
 
 __device__ __forceinline__ bool visible(int row, int col, int N, int Nk,
@@ -143,14 +191,16 @@ __device__ __forceinline__ bool visible(int row, int col, int N, int Nk,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 forward: one block per (q tile, batch, head); q tiles of 16 R rows
+// fp32 forward: one block per (q tile, group, batch, head); q tiles of 16 R
+// rows.  WIDE: D is the group width; the score loop walks hd in D-column
+// chunks, reloading the q and K tiles.
 // ---------------------------------------------------------------------------
-template <int D, int R>
+template <int D, int R, bool WIDE>
 __global__ void __launch_bounds__(NT)
 fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, float* __restrict__ o,
-       float* __restrict__ lse, int H, int N, int Nk, Strides sq, Strides sk,
-       Strides sv, int causal, float scale) {
+       float* __restrict__ lse, int H, int N, int Nk, int hd, Strides sq,
+       Strides sk, Strides sv, int causal, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   constexpr int TQ = 16 * R, TK = 16 * R, LP = TK + 1;
@@ -161,14 +211,17 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
   float* Ps = Vs + TK * D;      // [TQ][LP]
 
   const int nqt = (N + TQ - 1) / TQ;
-  int tile, b, h;
-  tile_of(tile, b, h);
+  int tile, grp, b, h;
+  tile_of<WIDE>(nqt, tile, grp, b, h);
   const int q0 = (nqt - 1 - tile) * TQ;  // longest rows first
+  const int nch = WIDE ? hd / D : 1;
+  const int od = WIDE ? hd : D;          // row length of out
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
+  const float* vb = v + b * sv.b + h * sv.h + grp * D;
 
-  load_tile<D, TQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
+  if constexpr (!WIDE) load_tile<D, TQ, LD>(Qs, qb, sq.n, q0, N);
   const int kt_end = k_tiles_for<TQ, TK>(q0, N, Nk, causal);
 
   float acc[R][DJ];
@@ -183,27 +236,30 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D, TK, LD>(Ks, kb, sk.n, k0, Nk);
-    load_tile<D, TK, D>(Vs, vb, sv.n, k0, Nk);
-    __syncthreads();
-
     float s[R][R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) s[i][j] = 0.f;
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c = WIDE ? chunk_of(grp, ci, nch) : 0;
+      __syncthreads();  // the previous tile's readers are done
+      if constexpr (WIDE) load_tile<D, TQ, LD>(Qs, qb + c * D, sq.n, q0, N);
+      load_tile<D, TK, LD>(Ks, kb + c * D, sk.n, k0, Nk);
+      if (ci == nch - 1) load_tile<D, TK, D>(Vs, vb, sv.n, k0, Nk);
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[R], c[R];
+      for (int d = 0; d < D; ++d) {
+        float a[R], cc[R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) a[i] = Qs[(ty * R + i) * LD + d];
+        for (int i = 0; i < R; ++i) a[i] = Qs[(ty * R + i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < R; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
+        for (int j = 0; j < R; ++j) cc[j] = Ks[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+          for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], cc[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -251,25 +307,25 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty * R + i;
     if (row >= N) continue;
-    float* orow = o + (((long long)b * N + row) * H + h) * D;
+    float* orow = o + (((long long)b * N + row) * H + h) * od + grp * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       orow[tx + 16 * j] = acc[i][j] / l[i];
-    if (tx == 0)
+    if (tx == 0 && grp == 0)
       lse[((long long)b * H + h) * N + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 // ---------------------------------------------------------------------------
-// fp32 backward dq: one block per (q tile, batch, head); K/V streamed
+// fp32 backward dq: one block per (q tile, group, batch, head); K/V streamed
 // ---------------------------------------------------------------------------
-template <int D, int R>
+template <int D, int R, bool WIDE>
 __global__ void __launch_bounds__(NT)
 fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, int H, int N, int Nk, Strides sq, Strides sk,
-          Strides sv, Strides sd, int causal, float scale) {
+          float* __restrict__ dq, int H, int N, int Nk, int hd, Strides sq,
+          Strides sk, Strides sv, Strides sd, int causal, float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   constexpr int TQ = 16 * R, TK = 16 * R, LP = TK + 1;
@@ -283,16 +339,22 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   float* Dl = Ls + TQ;          // [TQ]
 
   const int nqt = (N + TQ - 1) / TQ;
-  int tile, b, h;
-  tile_of(tile, b, h);
+  int tile, grp, b, h;
+  tile_of<WIDE>(nqt, tile, grp, b, h);
   const int q0 = (nqt - 1 - tile) * TQ;
+  const int nch = WIDE ? hd / D : 1;
+  const int od = WIDE ? hd : D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long row_base = ((long long)b * H + h) * N;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* gb = dout + b * sd.b + h * sd.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<D, TQ, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
-  load_tile<D, TQ, LD>(Gs, dout + b * sd.b + h * sd.h, sd.n, q0, N);
+  if constexpr (!WIDE) {
+    load_tile<D, TQ, LD>(Qs, qb, sq.n, q0, N);
+    load_tile<D, TQ, LD>(Gs, gb, sd.n, q0, N);
+  }
   load_rows(Ls, lse + row_base, q0, N, TQ);
   load_rows(Dl, delta + row_base, q0, N, TQ);
   const int kt_end = k_tiles_for<TQ, TK>(q0, N, Nk, causal);
@@ -305,36 +367,43 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TK;
-    __syncthreads();
-    load_tile<D, TK, LD>(Ks, kb, sk.n, k0, Nk);
-    load_tile<D, TK, LD>(Vs, vb, sv.n, k0, Nk);
-    __syncthreads();
-
     float s[R][R], dp[R][R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
+    // WIDE: the last chunk is the group's, so Ks holds its K columns below
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c = WIDE ? chunk_of(grp, ci, nch) : 0;
+      __syncthreads();
+      if constexpr (WIDE) {
+        load_tile<D, TQ, LD>(Qs, qb + c * D, sq.n, q0, N);
+        load_tile<D, TQ, LD>(Gs, gb + c * D, sd.n, q0, N);
+      }
+      load_tile<D, TK, LD>(Ks, kb + c * D, sk.n, k0, Nk);
+      load_tile<D, TK, LD>(Vs, vb + c * D, sv.n, k0, Nk);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[R], g[R], c[R], w[R];
+      for (int d = 0; d < D; ++d) {
+        float a[R], g[R], cc[R], w[R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        a[i] = Qs[(ty * R + i) * LD + d];
-        g[i] = Gs[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        c[j] = Ks[(tx + 16 * j) * LD + d];
-        w[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
+        for (int i = 0; i < R; ++i) {
+          a[i] = Qs[(ty * R + i) * LD + d];
+          g[i] = Gs[(ty * R + i) * LD + d];
+        }
 #pragma unroll
         for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(a[i], c[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          cc[j] = Ks[(tx + 16 * j) * LD + d];
+          w[j] = Vs[(tx + 16 * j) * LD + d];
         }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            s[i][j] = fmaf(a[i], cc[j], s[i][j]);
+            dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -368,26 +437,27 @@ fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty * R + i;
     if (row >= N) continue;
-    float* out = dq + (((long long)b * N + row) * H + h) * D;
+    float* out = dq + (((long long)b * N + row) * H + h) * od + grp * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) out[tx + 16 * j] = acc[i][j];
   }
 }
 
 // ---------------------------------------------------------------------------
-// fp32 backward dk/dv: one block per (K tile, batch, head); q tiles
+// fp32 backward dk/dv: one block per (K tile, group, batch, head); q tiles
 // streamed.  The thread owns key rows (ty) and query columns (tx) of the
 // transposed score tile.  FUSED: also dq32 += ds @ k per q tile, the thread
 // owning 4 query rows (ty) and D / 16 columns (tx) of it.
 // ---------------------------------------------------------------------------
-template <int D, int R, bool FUSED>
+template <int D, int R, bool FUSED, bool WIDE>
 __global__ void __launch_bounds__(NT)
 fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dk, float* __restrict__ dv,
-           float* __restrict__ dq32, int H, int N, int Nk, Strides sq,
-           Strides sk, Strides sv, Strides sd, int causal, float scale) {
+           float* __restrict__ dq32, int H, int N, int Nk, int hd,
+           Strides sq, Strides sk, Strides sv, Strides sd, int causal,
+           float scale) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
   constexpr int TQ = 16 * R, TK = 16 * R, LP = TK + 1;
@@ -401,16 +471,22 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   float* Ls = DT + TK * LP;    // [TQ]
   float* Dl = Ls + TQ;          // [TQ]
 
-  int tile, b, h;
-  tile_of(tile, b, h);
+  int tile, grp, b, h;
+  tile_of<WIDE>((Nk + TK - 1) / TK, tile, grp, b, h);
   const int k0 = tile * TK;
+  const int nch = WIDE ? hd / D : 1;
+  const int od = WIDE ? hd : D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const long long row_base = ((long long)b * H + h) * N;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* gb = dout + b * sd.b + h * sd.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<D, TK, LD>(Ks, k + b * sk.b + h * sk.h, sk.n, k0, Nk);
-  load_tile<D, TK, LD>(Vs, v + b * sv.b + h * sv.h, sv.n, k0, Nk);
+  if constexpr (!WIDE) {
+    load_tile<D, TK, LD>(Ks, kb, sk.n, k0, Nk);
+    load_tile<D, TK, LD>(Vs, vb, sv.n, k0, Nk);
+  }
   const int nqt = (N + TQ - 1) / TQ;
   // first q tile whose rows reach key k0 under the bottom-right diagonal
   const int qt0 = causal ? max(0, k0 - (Nk - N)) / TQ : 0;
@@ -423,38 +499,48 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int qt = qt0; qt < nqt; ++qt) {
     const int q0 = qt * TQ;
-    __syncthreads();
-    load_tile<D, TQ, LD>(Qs, qb, sq.n, q0, N);
-    load_tile<D, TQ, LD>(Gs, gb, sd.n, q0, N);
-    load_rows(Ls, lse + row_base, q0, N, TQ);
-    load_rows(Dl, delta + row_base, q0, N, TQ);
-    __syncthreads();
-
     float s[R][R], dp[R][R];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
+    // WIDE: the last chunk is the group's, so Ks, Qs and Gs hold its
+    // columns for the products below
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c = WIDE ? chunk_of(grp, ci, nch) : 0;
+      __syncthreads();
+      if constexpr (WIDE) {
+        load_tile<D, TK, LD>(Ks, kb + c * D, sk.n, k0, Nk);
+        load_tile<D, TK, LD>(Vs, vb + c * D, sv.n, k0, Nk);
+      }
+      load_tile<D, TQ, LD>(Qs, qb + c * D, sq.n, q0, N);
+      load_tile<D, TQ, LD>(Gs, gb + c * D, sd.n, q0, N);
+      if (ci == 0) {
+        load_rows(Ls, lse + row_base, q0, N, TQ);
+        load_rows(Dl, delta + row_base, q0, N, TQ);
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kk[R], w[R], a[R], g[R];
+      for (int d = 0; d < D; ++d) {
+        float kk[R], w[R], a[R], g[R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kk[i] = Ks[(ty * R + i) * LD + d];
-        w[i] = Vs[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        a[j] = Qs[(tx + 16 * j) * LD + d];
-        g[j] = Gs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
+        for (int i = 0; i < R; ++i) {
+          kk[i] = Ks[(ty * R + i) * LD + d];
+          w[i] = Vs[(ty * R + i) * LD + d];
+        }
 #pragma unroll
         for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(kk[i], a[j], s[i][j]);
-          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+          a[j] = Qs[(tx + 16 * j) * LD + d];
+          g[j] = Gs[(tx + 16 * j) * LD + d];
         }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            s[i][j] = fmaf(kk[i], a[j], s[i][j]);
+            dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -511,7 +597,7 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < R; ++i) {
         const int row = q0 + ty * R + i;
         if (row >= N) continue;
-        float* dst = dq32 + (((long long)b * N + row) * H + h) * D;
+        float* dst = dq32 + (((long long)b * N + row) * H + h) * od + grp * D;
 #pragma unroll
         for (int j = 0; j < DJ; ++j) atomicAdd(dst + tx + 16 * j, aq[i][j]);
       }
@@ -522,7 +608,7 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int row = k0 + ty * R + i;
     if (row >= Nk) continue;
-    const long long off = (((long long)b * Nk + row) * H + h) * D;
+    const long long off = (((long long)b * Nk + row) * H + h) * od + grp * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       dk[off + tx + 16 * j] = adk[i][j];
@@ -532,21 +618,20 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: warp-level mma.sync m16n8k16, fp32 accumulate.
-// 4 warps; each warp owns 16 rows of the stationary tile.  Tiles sit in
-// shared memory as bf16 rows padded by 8 elements (16 bytes), so the
-// fragment loads of a warp hit 32 distinct banks.  Fragment layout (PTX ISA,
-// mma.m16n8k16): g = lane / 4, t = lane % 4; A rows g and g + 8, columns
-// 2t, 2t + 1 (+ 8); B columns g, rows 2t, 2t + 1 (+ 8); the accumulator
-// holds rows g (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.  A score
-// accumulator over 16 keys is, once cast to bf16, the A fragment of the
-// next product: p and ds never leave registers.
+// The split backward in bf16: warp-level mma.sync m16n8k16, fp32
+// accumulate.  4 warps; each warp owns 16 rows of the stationary tile.
+// Tiles sit in shared memory as bf16 rows padded by 8 elements (16 bytes),
+// so the fragment loads of a warp hit 32 distinct banks.  Fragment layout
+// (PTX ISA, mma.m16n8k16): g = lane / 4, t = lane % 4; A rows g and g + 8,
+// columns 2t, 2t + 1 (+ 8); B columns g, rows 2t, 2t + 1 (+ 8); the
+// accumulator holds rows g (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.
+// A score accumulator over 16 keys is, once cast to bf16, the A fragment of
+// the next product: p and ds never leave registers.
 // ---------------------------------------------------------------------------
 constexpr int MW = 4;             // warps per block
 constexpr int MT = 32 * MW;       // threads per block
 constexpr int MR = 16 * MW;       // rows of the stationary tile
 static_assert(MR == BQ, "k_tiles_for assumes the q tile has BQ rows");
-typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -558,8 +643,7 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  return pack_bf16(lo, hi);
 }
 __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
@@ -633,155 +717,41 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// forward, bf16: one block per (q tile of MR rows, batch, head).  Up to hd
-// 128 four blocks share an SM, so ptxas holds the kernel to 128 registers
-// (left to itself it took 134 at hd 128, three blocks an SM, and ran 15%
-// slower on the H100; tools/flash_variants.py).
-template <int D>
-__global__ void __launch_bounds__(MT, D == 256 ? 1 : 4)
-fa_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o,
-           float* __restrict__ lse, int H, int N, int Nk, Strides sq,
-           Strides sk, Strides sv, int causal, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;   // k-steps over the head width
-  constexpr int ND = D / 8;    // n-tiles of the output
-  constexpr int NK = BK / 8;   // n-tiles of the score tile
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smraw);  // [MR][LD]
-  bf16* Ks = Qs + MR * LD;                     // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                     // [BK][LD]
-
-  const int nqt = (N + MR - 1) / MR;
-  int tile, b, h;
-  tile_of(tile, b, h);
-  const int q0 = (nqt - 1 - tile) * MR;
-  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  load_tile16<D, MR, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
-  const int kt_end = k_tiles_for(q0, N, Nk, causal);
-  const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
-
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile16<D, BK, LD>(Ks, kb, sk.n, k0, Nk);
-    load_tile16<D, BK, LD>(Vs, vb, sv.n, k0, Nk);
-    __syncthreads();
-
-    float s[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4];
-      frag_a(a, Qs, LD, 16 * w, 16 * ks);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t bb[2];
-        frag_b_rows(bb, Ks, LD, 8 * n, 16 * ks);
-        mma16816(s[n], a, bb);
-      }
-    }
-    float mc[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * n + 2 * t + (e & 1);
-        const int hi = e >> 1;
-        const float x = s[n][e] * scale;
-        s[n][e] = visible(row0 + 8 * hi, col, N, Nk, causal) ? x : NEG_INF;
-        mc[hi] = fmaxf(mc[hi], s[n][e]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const float mn = fmaxf(m[hi], quad_max(mc[hi]));
-      alpha[hi] = expf(m[hi] - mn);
-      m[hi] = mn;
-    }
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        rs[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) l[hi] = alpha[hi] * l[hi] + quad_sum(rs[hi]);
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * ks], s[2 * ks + 1]);  // p cast to bf16 before p.V
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        uint32_t bb[2];
-        frag_b_cols(bb, Vs, LD, 16 * ks, 8 * j);
-        mma16816(acc[j], a, bb);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int row = row0 + 8 * hi;
-    if (row >= N) continue;
-    bf16* orow = o + (((long long)b * N + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-          pack2(acc[j][2 * hi] / l[hi], acc[j][2 * hi + 1] / l[hi]);
-    if (t == 0)
-      lse[((long long)b * H + h) * N + row] =
-          m[hi] + logf(fmaxf(l[hi], 1e-30f));
-  }
-}
-
-// backward dq, bf16: one block per (q tile of MR rows, batch, head)
-template <int D>
+// backward dq, bf16: one block per (q tile of MR rows, group, batch, head)
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(MT)
 fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int H, int N, int Nk, Strides sq,
+              bf16* __restrict__ dq, int H, int N, int Nk, int hd, Strides sq,
               Strides sk, Strides sv, Strides sd, int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
   constexpr int NK = BK / 8;
-  extern __shared__ __align__(16) unsigned char smraw[];
+  extern __shared__ __align__(1024) unsigned char smraw[];
   bf16* Qs = reinterpret_cast<bf16*>(smraw);  // [MR][LD]
   bf16* Gs = Qs + MR * LD;                     // dO, [MR][LD]
   bf16* Ks = Gs + MR * LD;                     // [BK][LD]
   bf16* Vs = Ks + BK * LD;                     // [BK][LD]
 
   const int nqt = (N + MR - 1) / MR;
-  int tile, b, h;
-  tile_of(tile, b, h);
+  int tile, grp, b, h;
+  tile_of<WIDE>(nqt, tile, grp, b, h);
   const int q0 = (nqt - 1 - tile) * MR;
+  const int nch = WIDE ? hd / D : 1;
+  const int od = WIDE ? hd : D;
   const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
   const long long row_base = ((long long)b * H + h) * N;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* gb = dout + b * sd.b + h * sd.h;
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
-  load_tile16<D, MR, LD>(Qs, q + b * sq.b + h * sq.h, sq.n, q0, N);
-  load_tile16<D, MR, LD>(Gs, dout + b * sd.b + h * sd.h, sd.n, q0, N);
+  if constexpr (!WIDE) {
+    load_tile16<D, MR, LD>(Qs, qb, sq.n, q0, N);
+    load_tile16<D, MR, LD>(Gs, gb, sd.n, q0, N);
+  }
   const int kt_end = k_tiles_for(q0, N, Nk, causal);
   const int row0 = q0 + 16 * w + g;
   float Lr[2], Dr[2];
@@ -800,28 +770,35 @@ fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();
-    load_tile16<D, BK, LD>(Ks, kb, sk.n, k0, Nk);
-    load_tile16<D, BK, LD>(Vs, vb, sv.n, k0, Nk);
-    __syncthreads();
-
     float s[NK][4], dp[NK][4];
 #pragma unroll
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    // WIDE: the last chunk is the group's, so Ks holds its K columns below
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c = WIDE ? chunk_of(grp, ci, nch) : 0;
+      __syncthreads();
+      if constexpr (WIDE) {
+        load_tile16<D, MR, LD>(Qs, qb + c * D, sq.n, q0, N);
+        load_tile16<D, MR, LD>(Gs, gb + c * D, sd.n, q0, N);
+      }
+      load_tile16<D, BK, LD>(Ks, kb + c * D, sk.n, k0, Nk);
+      load_tile16<D, BK, LD>(Vs, vb + c * D, sv.n, k0, Nk);
+      __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4], ga[4];
-      frag_a(a, Qs, LD, 16 * w, 16 * ks);
-      frag_a(ga, Gs, LD, 16 * w, 16 * ks);
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4], ga[4];
+        frag_a(a, Qs, LD, 16 * w, 16 * ks);
+        frag_a(ga, Gs, LD, 16 * w, 16 * ks);
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t bb[2];
-        frag_b_rows(bb, Ks, LD, 8 * n, 16 * ks);
-        mma16816(s[n], a, bb);
-        frag_b_rows(bb, Vs, LD, 8 * n, 16 * ks);
-        mma16816(dp[n], ga, bb);
+        for (int n = 0; n < NK; ++n) {
+          uint32_t bb[2];
+          frag_b_rows(bb, Ks, LD, 8 * n, 16 * ks);
+          mma16816(s[n], a, bb);
+          frag_b_rows(bb, Vs, LD, 8 * n, 16 * ks);
+          mma16816(dp[n], ga, bb);
+        }
       }
     }
 #pragma unroll
@@ -852,7 +829,7 @@ fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hi = 0; hi < 2; ++hi) {
     const int row = row0 + 8 * hi;
     if (row >= N) continue;
-    bf16* out = dq + (((long long)b * N + row) * H + h) * D;
+    bf16* out = dq + (((long long)b * N + row) * H + h) * od + grp * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t) =
@@ -860,45 +837,46 @@ fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// backward dk/dv, bf16: one block per (K tile of MR rows, batch, head); QB
-// rows streamed.  Each warp owns 16 key rows of the transposed scores.
-// FUSED: ds (cast to bf16) also goes to shared memory as [QB][MR], and
-// dq32[q tile] += ds @ k on the tensor cores, each warp 16 query rows x
-// D / (4 / (QB / 16)) columns, added with atomics.  At hd 64 three blocks
-// share an SM, so ptxas holds the kernel to 168 registers (the fused
-// instance otherwise takes 173, two blocks an SM).
-template <int D, int QB, bool FUSED>
+// backward dk/dv, bf16: one block per (K tile of MR rows, group, batch,
+// head); QB rows streamed.  Each warp owns 16 key rows of the transposed
+// scores.  At hd 64 three blocks share an SM, so ptxas holds the kernel to
+// 168 registers.
+template <int D, int QB, bool WIDE>
 __global__ void __launch_bounds__(MT, D == 64 ? 3 : 1)
 fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv,
-               float* __restrict__ dq32, int H, int N, int Nk, Strides sq,
-               Strides sk, Strides sv, Strides sd, int causal, float scale) {
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N,
+               int Nk, int hd, Strides sq, Strides sk, Strides sv, Strides sd,
+               int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
   constexpr int NQ = QB / 8;   // n-tiles of the transposed score tile
-  extern __shared__ __align__(16) unsigned char smraw[];
+  extern __shared__ __align__(1024) unsigned char smraw[];
   bf16* Ks = reinterpret_cast<bf16*>(smraw);  // [MR][LD]
   bf16* Vs = Ks + MR * LD;                     // [MR][LD]
   bf16* Qs = Vs + MR * LD;                     // [QB][LD]
   bf16* Gs = Qs + QB * LD;                     // dO, [QB][LD]
   float* Ls = reinterpret_cast<float*>(Gs + QB * LD);  // [QB]
   float* Dl = Ls + QB;                                  // [QB]
-  bf16* DSs = reinterpret_cast<bf16*>(Dl + QB);         // FUSED: [QB][MR + 8]
-  constexpr int LDS = MR + 8;
 
-  int tile, b, h;
-  tile_of(tile, b, h);
+  int tile, grp, b, h;
+  tile_of<WIDE>((Nk + MR - 1) / MR, tile, grp, b, h);
   const int k0 = tile * MR;
+  const int nch = WIDE ? hd / D : 1;
+  const int od = WIDE ? hd : D;
   const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
   const long long row_base = ((long long)b * H + h) * N;
   const bf16* qb = q + b * sq.b + h * sq.h;
   const bf16* gb = dout + b * sd.b + h * sd.h;
-  load_tile16<D, MR, LD>(Ks, k + b * sk.b + h * sk.h, sk.n, k0, Nk);
-  load_tile16<D, MR, LD>(Vs, v + b * sv.b + h * sv.h, sv.n, k0, Nk);
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  if constexpr (!WIDE) {
+    load_tile16<D, MR, LD>(Ks, kb, sk.n, k0, Nk);
+    load_tile16<D, MR, LD>(Vs, vb, sv.n, k0, Nk);
+  }
   const int nqt = (N + QB - 1) / QB;
   const int qt0 = causal ? max(0, k0 - (Nk - N)) / QB : 0;
   const int key0 = k0 + 16 * w + g;  // this thread's keys: key0, key0 + 8
@@ -911,32 +889,42 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int qt = qt0; qt < nqt; ++qt) {
     const int q0 = qt * QB;
-    __syncthreads();
-    load_tile16<D, QB, LD>(Qs, qb, sq.n, q0, N);
-    load_tile16<D, QB, LD>(Gs, gb, sd.n, q0, N);
-    for (int i = threadIdx.x; i < QB; i += MT) {
-      Ls[i] = q0 + i < N ? lse[row_base + q0 + i] : 0.f;
-      Dl[i] = q0 + i < N ? delta[row_base + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
     float s[NQ][4], dp[NQ][4];
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    // WIDE: the last chunk is the group's, so Qs and Gs hold its columns
+    // for the products below
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c = WIDE ? chunk_of(grp, ci, nch) : 0;
+      __syncthreads();
+      if constexpr (WIDE) {
+        load_tile16<D, MR, LD>(Ks, kb + c * D, sk.n, k0, Nk);
+        load_tile16<D, MR, LD>(Vs, vb + c * D, sv.n, k0, Nk);
+      }
+      load_tile16<D, QB, LD>(Qs, qb + c * D, sq.n, q0, N);
+      load_tile16<D, QB, LD>(Gs, gb + c * D, sd.n, q0, N);
+      if (ci == 0) {
+        for (int i = threadIdx.x; i < QB; i += MT) {
+          Ls[i] = q0 + i < N ? lse[row_base + q0 + i] : 0.f;
+          Dl[i] = q0 + i < N ? delta[row_base + q0 + i] : 0.f;
+        }
+      }
+      __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4], va[4];
-      frag_a(a, Ks, LD, 16 * w, 16 * ks);
-      frag_a(va, Vs, LD, 16 * w, 16 * ks);
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4], va[4];
+        frag_a(a, Ks, LD, 16 * w, 16 * ks);
+        frag_a(va, Vs, LD, 16 * w, 16 * ks);
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        uint32_t bb[2];
-        frag_b_rows(bb, Qs, LD, 8 * n, 16 * ks);
-        mma16816(s[n], a, bb);
-        frag_b_rows(bb, Gs, LD, 8 * n, 16 * ks);
-        mma16816(dp[n], va, bb);
+        for (int n = 0; n < NQ; ++n) {
+          uint32_t bb[2];
+          frag_b_rows(bb, Qs, LD, 8 * n, 16 * ks);
+          mma16816(s[n], a, bb);
+          frag_b_rows(bb, Gs, LD, 8 * n, 16 * ks);
+          mma16816(dp[n], va, bb);
+        }
       }
     }
 #pragma unroll
@@ -949,8 +937,6 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float p = ok ? expf(s[n][e] * scale - Ls[c]) : 0.f;
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - Dl[c]) * scale;  // ds
-        if constexpr (FUSED)
-          DSs[c * LDS + key - k0] = __float2bfloat16(dp[n][e]);
       }
 #pragma unroll
     for (int ks = 0; ks < QB / 16; ++ks) {
@@ -966,55 +952,650 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(adk[j], da, bb);
       }
     }
-    if constexpr (FUSED) {
-      constexpr int MTQ = QB / 16;   // m-tiles of the q tile
-      constexpr int WPM = MW / MTQ;  // warps per m-tile
-      constexpr int NPW = ND / WPM;  // n-tiles of dq per warp
-      static_assert(MW % MTQ == 0 && ND % WPM == 0, "dq tiling");
-      const int mt = w % MTQ, nb = (w / MTQ) * NPW;
-      __syncthreads();  // every warp's ds is in DSs
-      float aq[NPW][4];
-#pragma unroll
-      for (int j = 0; j < NPW; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) aq[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < MR / 16; ++ks) {
-        uint32_t a[4];
-        frag_a(a, DSs, LDS, 16 * mt, 16 * ks);
-#pragma unroll
-        for (int j = 0; j < NPW; ++j) {
-          uint32_t bb[2];
-          frag_b_cols(bb, Ks, LD, 16 * ks, 8 * (nb + j));
-          mma16816(aq[j], a, bb);
-        }
-      }
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int row = q0 + 16 * mt + g + 8 * hi;
-        if (row >= N) continue;
-        float* dst = dq32 + (((long long)b * N + row) * H + h) * D;
-#pragma unroll
-        for (int j = 0; j < NPW; ++j) {
-          const int col = 8 * (nb + j) + 2 * t;
-          atomicAdd(dst + col, aq[j][2 * hi]);
-          atomicAdd(dst + col + 1, aq[j][2 * hi + 1]);
-        }
-      }
-    }
   }
 
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int row = key0 + 8 * hi;
     if (row >= Nk) continue;
-    const long long off = (((long long)b * Nk + row) * H + h) * D;
+    const long long off = (((long long)b * Nk + row) * H + h) * od + grp * D;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
           pack2(adk[j][2 * hi], adk[j][2 * hi + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
           pack2(adv[j][2 * hi], adv[j][2 * hi + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, warp-specialised: TMA into mbarrier rings, wgmma from 128-byte-
+// swizzled tiles.  384 threads: consumer warpgroups 0 and 1, producer
+// warpgroup 2 (thread 256 issues every load).  A tile of R rows x 64
+// columns (one TMA box, 128-byte rows) takes R * 128 bytes; wider operands
+// are boxes of 64 columns side by side.  In a consumer warpgroup, warp w
+// and lane (gq = lane / 4, t = lane % 4) hold rows 16w + gq and + 8 of its
+// 64 and, in n-tile j of an accumulator, columns 8j + 2t and + 1 (the
+// mma.m16n8k16 layout, n-tiles side by side).
+// ---------------------------------------------------------------------------
+constexpr int WG_THREADS = 384;
+constexpr int FQ = 128;     // forward: q rows of a block
+constexpr int BKV = 128;    // fused backward: keys of a block
+constexpr int BQ2 = 64;     // fused backward: q rows of a streamed tile
+
+// The m16n8k16 A fragments (k16 step q: u32 4q..4q+3) of a 64 x (4 NP)
+// bf16 operand from an fp32 accumulator of the same shape.
+template <int NP>
+__device__ __forceinline__ void acc_to_frags(uint32_t (&a)[NP],
+                                             const float (&s)[2 * NP]) {
+#pragma unroll
+  for (int q = 0; q < NP / 4; ++q) {
+    a[4 * q + 0] = pack_bf16(s[8 * q + 0], s[8 * q + 1]);
+    a[4 * q + 1] = pack_bf16(s[8 * q + 2], s[8 * q + 3]);
+    a[4 * q + 2] = pack_bf16(s[8 * q + 4], s[8 * q + 5]);
+    a[4 * q + 3] = pack_bf16(s[8 * q + 6], s[8 * q + 7]);
+  }
+}
+
+// Release a ring stage whose products are done: one arrival a warpgroup.
+__device__ __forceinline__ void release(uint32_t bar, int wg) {
+  wg_sync(wg);
+  if ((threadIdx.x & 127) == 0) mbar_arrive(bar);
+}
+
+// Shared-memory layout of fa_fwd_wg<D, WIDE>.  Narrow: Q resident (D / 64
+// boxes of 128 rows), a stage holds the K and V tiles of BKR keys.  WIDE
+// (D = 64): a stage holds one 64-column chunk of Q and of K, and the
+// group's V tile with the last chunk.  Stages (H100,
+// tools/flash_variants.py): four at hd 64 (six were no faster), three at
+// hd 128 (two waited on the loads, 17% slower), two at hd 256 (what fits).
+template <int D, bool WIDE>
+struct FwdSmem {
+  static constexpr int NB = D / 64;
+  static constexpr int BKR = WIDE ? 128 : (D == 256 ? 64 : 128);
+  static constexpr int ST = WIDE ? 3 : (D == 256 ? 2 : D == 128 ? 3 : 4);
+  static constexpr int QBOX = FQ * 128;
+  static constexpr int KBOX = BKR * 128;
+  static constexpr int Q_BYTES = WIDE ? 0 : NB * QBOX;
+  static constexpr int STAGE = WIDE ? QBOX + 2 * KBOX : 2 * NB * KBOX;
+  static constexpr int S_K = WIDE ? QBOX : 0;          // in a stage
+  static constexpr int S_V = WIDE ? QBOX + KBOX : NB * KBOX;
+  static constexpr int RING = Q_BYTES;
+  static constexpr int BAR = RING + ST * STAGE;
+  // qbar, full [ST], empty [ST]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * ST);
+  static constexpr int ALLOC = BYTES + 1024;   // room to align to 1024
+};
+static_assert(FwdSmem<64, false>::ALLOC <= 232448 &&
+                  FwdSmem<128, false>::ALLOC <= 232448 &&
+                  FwdSmem<256, false>::ALLOC <= 232448 &&
+                  FwdSmem<64, true>::ALLOC <= 232448,
+              "fa_fwd_wg fits in shared memory");
+
+// Issue S = Q K^T for one warpgroup (64 rows) over NB boxes of 64 columns:
+// A = Q rows at qa (K-major), B = K rows at ka (K-major); acc = 0 starts S.
+template <int BKR, int NB>
+__device__ __forceinline__ void scores_qk(float (&s)[BKR / 2], uint32_t qa,
+                                          uint32_t qbox, uint32_t ka,
+                                          uint32_t kbox, int acc) {
+#pragma unroll
+  for (int kb = 0; kb < NB; ++kb)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<BKR, 0, 0>(s, sw128_desc(qa + kb * qbox + ks * 32, 16, 1024),
+                          sw128_desc(ka + kb * kbox + ks * 32, 16, 1024),
+                          acc | kb | ks);
+}
+
+// The online softmax of one score tile (raw scores s, this thread's rows
+// row0 and row0 + 8): m, l (this thread's partial row sums) and alpha
+// updated, p in bf16 A fragments.  Masked where `mask`.
+template <int BKR>
+__device__ __forceinline__ void softmax_tile(float (&s)[BKR / 2],
+                                             uint32_t (&p)[BKR / 4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool mask,
+                                             int row0, int k0, int t, int N,
+                                             int Nk, int causal, float c2) {
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < BKR / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!visible(row0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), N,
+                     Nk, causal))
+          s[4 * j + e] = NEG_INF;
+  }
+  float mc[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BKR / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mc[e >> 1] = fmaxf(mc[e >> 1], s[4 * j + e]);
+  float mb[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const float mn = fmaxf(m[hi], quad_max(mc[hi]));
+    alpha[hi] = exp2f((m[hi] - mn) * c2);
+    m[hi] = mn;
+    mb[hi] = mn * c2;
+    l[hi] *= alpha[hi];
+  }
+#pragma unroll
+  for (int j = 0; j < BKR / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = exp2f(fmaf(s[4 * j + e], c2, -mb[e >> 1]));
+      s[4 * j + e] = x;
+      l[e >> 1] += x;
+    }
+  acc_to_frags<BKR / 4>(p, s);   // p cast to bf16 before p.V
+}
+
+// O += P V for one warpgroup: A = p fragments, B = V tile of BKR keys at va
+// (MN-major, D / 64 boxes of kbox bytes).
+template <int D, int BKR>
+__device__ __forceinline__ void pv(float (&o)[D / 2],
+                                   const uint32_t (&p)[BKR / 4], uint32_t va,
+                                   uint32_t kbox) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < BKR / 16; ++ks)
+    wgmma_rs<D, 1>(o, p + 4 * ks, sw128_desc(va + ks * 2048, kbox, 1024));
+  wgmma_commit();
+}
+
+// forward, bf16: one block per (q tile of FQ rows, group, batch, head).
+template <int D, bool WIDE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fa_fwd_wg(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse,
+          int b0, int H, int N, int Nk, int hd, int causal, float scale) {
+  using L = FwdSmem<D, WIDE>;
+  constexpr int NB = L::NB, BKR = L::BKR, ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  const uint32_t base = (smem_u32(smraw) + 1023) & ~1023u;
+  const uint32_t sq = base, ring = base + L::RING;
+  const uint32_t qbar = base + L::BAR, full = qbar + 8, empty = full + 8 * ST;
+
+  const int nqt = (N + FQ - 1) / FQ;
+  int tile, grp, b, h;
+  tile_of<WIDE>(nqt, tile, grp, b, h);
+  b += b0;
+  const int q0 = (nqt - 1 - tile) * FQ;     // longest rows first
+  const int nch = WIDE ? hd / GW : 1;
+  const int kt_end = k_tiles_for<FQ, BKR>(q0, N, Nk, causal);
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 2);   // both consumer warpgroups
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      if constexpr (!WIDE) {
+        mbar_expect_tx(qbar, L::Q_BYTES);
+        for (int kb = 0; kb < NB; ++kb)
+          tma_load_4d(sq + kb * L::QBOX, &tm_q, qbar, 64 * kb, h, q0, b);
+      }
+      int s = 0, ph = 0;
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int k0 = kt * BKR;
+        for (int ci = 0; ci < nch; ++ci) {
+          const uint32_t st = ring + s * L::STAGE, bar = full + 8 * s;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          if constexpr (WIDE) {
+            const int c = chunk_of(grp, ci, nch);
+            const bool last = ci == nch - 1;
+            mbar_expect_tx(bar, L::QBOX + L::KBOX + (last ? L::KBOX : 0));
+            tma_load_4d(st, &tm_q, bar, 64 * c, h, q0, b);
+            tma_load_4d(st + L::S_K, &tm_k, bar, 64 * c, h, k0, b);
+            if (last) tma_load_4d(st + L::S_V, &tm_v, bar, 64 * grp, h, k0, b);
+          } else {
+            mbar_expect_tx(bar, L::STAGE);
+            for (int kb = 0; kb < NB; ++kb) {
+              tma_load_4d(st + L::S_K + kb * L::KBOX, &tm_k, bar, 64 * kb, h,
+                          k0, b);
+              tma_load_4d(st + L::S_V + kb * L::KBOX, &tm_v, bar, 64 * kb, h,
+                          k0, b);
+            }
+          }
+          if (++s == ST) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, gq = (tid & 31) >> 2, t = tid & 3;
+  const int r0 = q0 + 64 * wg;                // this warpgroup's rows
+  const int row0 = r0 + 16 * warp + gq;       // this thread's: row0, + 8
+  const float c2 = scale * LOG2E;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[BKR / 2];
+  uint32_t p[BKR / 4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+  int si = 0, ph = 0;
+  // the mask: tiles that cross this warpgroup's diagonal or the K tail
+  auto masked = [&](int k0) {
+    return k0 + BKR > Nk || (causal && k0 + BKR - 1 > r0 + Nk - N);
+  };
+
+  if constexpr (WIDE) {
+    // chunked scores, then p.V from the last chunk's stage, in order
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int k0 = kt * BKR;
+      uint32_t st = 0;
+      for (int ci = 0; ci < nch; ++ci) {
+        st = ring + si * L::STAGE;
+        mbar_wait(full + 8 * si, ph);
+        wgmma_fence();
+        scores_qk<BKR, 1>(s, st + wg * 8192, 0, st + L::S_K, 0, ci);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (ci < nch - 1) {
+          release(empty + 8 * si, wg);
+          if (++si == ST) { si = 0; ph ^= 1; }
+        }
+      }
+      softmax_tile<BKR>(s, p, m, l, alpha, masked(k0), row0, k0, t, N, Nk,
+                        causal, c2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[i & 2 ? 1 : 0];
+      pv<D, BKR>(o, p, st + L::S_V, L::KBOX);
+      wgmma_wait<0>();
+      if (kt < kt_end - 1) {     // the last stage stages the output
+        release(empty + 8 * si, wg);
+        if (++si == ST) { si = 0; ph ^= 1; }
+      }
+    }
+  } else {
+    mbar_wait(qbar, 0);
+    const uint32_t qa = sq + wg * 8192;
+    // tile 0's scores and softmax; then, per tile, the next tile's scores
+    // and this tile's p.V in flight together, the next softmax under p.V
+    mbar_wait(full, 0);
+    wgmma_fence();
+    scores_qk<BKR, NB>(s, qa, L::QBOX, ring + L::S_K, L::KBOX, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    softmax_tile<BKR>(s, p, m, l, alpha, masked(0), row0, 0, t, N, Nk,
+                      causal, c2);
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int cur = si;
+      if (++si == ST) { si = 0; ph ^= 1; }
+      const bool next = kt + 1 < kt_end;
+      if (next) {
+        mbar_wait(full + 8 * si, ph);
+        wgmma_fence();
+        scores_qk<BKR, NB>(s, qa, L::QBOX, ring + si * L::STAGE + L::S_K,
+                           L::KBOX, 0);
+        wgmma_commit();
+      }
+      pv<D, BKR>(o, p, ring + cur * L::STAGE + L::S_V, L::KBOX);
+      uint32_t pn[BKR / 4];
+      if (next) {
+        wgmma_wait<1>();                   // the next tile's scores are done
+        const int k1 = (kt + 1) * BKR;
+        softmax_tile<BKR>(s, pn, m, l, alpha, masked(k1), row0, k1, t, N,
+                          Nk, causal, c2);
+      }
+      wgmma_wait<0>();                     // this tile's p.V is done
+      release(empty + 8 * cur, wg);
+      if (next) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[i & 2 ? 1 : 0];
+#pragma unroll
+        for (int i = 0; i < BKR / 4; ++i) p[i] = pn[i];
+      }
+    }
+  }
+
+  // epilogue: out = o / l through shared memory (this warpgroup's rows of
+  // the Q tile, or of the last stage's Q chunk) to a TMA store; lse
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) l[hi] = quad_sum(l[hi]);
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  if (t == 0 && grp == 0) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 8 * hi;
+      if (row < N)
+        lse[((long long)b * H + h) * N + row] =
+            m[hi] * scale + logf(fmaxf(l[hi], 1e-30f));
+    }
+  }
+  const uint32_t stage = (WIDE ? ring + si * L::STAGE : sq) + wg * 8192;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = 16 * warp + gq + 8 * hi;
+      const uint32_t a = stage + (col >> 6) * L::QBOX + sw128_off(r, col & 63, 2);
+      const uint32_t val = pack_bf16(o[4 * j + 2 * hi] * inv[hi],
+                                     o[4 * j + 2 * hi + 1] * inv[hi]);
+      asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(a), "r"(val) : "memory");
+    }
+  }
+  fence_async_smem();
+  wg_sync(wg);
+  if (tid == 0 && r0 < N) {
+#pragma unroll
+    for (int kb = 0; kb < NB; ++kb)
+      tma_store_4d(&tm_o, stage + kb * L::QBOX, 64 * (kb + grp), h, r0, b);
+    bulk_commit();
+    bulk_wait();
+  }
+}
+
+// Shared-memory layout of fa_bwd_wg<D, WIDE>.  Narrow: K and V resident
+// (D / 64 boxes of 128 keys each), a stage holds the q tile's Q and dO
+// (D / 64 boxes of 64 rows each), its lse and delta.  WIDE (D = 64): a stage
+// holds one 64-column chunk of K, V, Q and dO (lse and delta with the last
+// chunk).  Then ds^T [128 keys][64 q] bf16 twice (by tile parity) and the dq
+// tile [64 q][D] fp32 as D / 32 swizzled boxes of 32 columns.
+template <int D, bool WIDE>
+struct BwdSmem {
+  static constexpr int NB = D / 64;
+  static constexpr int ST = D == 128 ? 2 : 3;
+  static constexpr int KBOX = BKV * 128;
+  static constexpr int QBOX = BQ2 * 128;
+  static constexpr int K = 0;
+  static constexpr int V = K + (WIDE ? 0 : NB * KBOX);
+  static constexpr int RING = V + (WIDE ? 0 : NB * KBOX);
+  static constexpr int S_K = 0;                         // WIDE, in a stage
+  static constexpr int S_V = WIDE ? KBOX : 0;
+  static constexpr int S_Q = WIDE ? 2 * KBOX : 0;
+  static constexpr int S_G = S_Q + NB * QBOX;
+  static constexpr int S_L = S_G + NB * QBOX;
+  static constexpr int S_D = S_L + BQ2 * 4;
+  static constexpr int STAGE = (S_D + BQ2 * 4 + 1023) & ~1023;
+  static constexpr int DS = RING + ST * STAGE;
+  static constexpr int DSBUF = BKV * 128;
+  static constexpr int DQ = DS + 2 * DSBUF;
+  static constexpr int DQBOX = BQ2 * 128;               // [64 q][32 fp32]
+  static constexpr int BAR = DQ + (D / 32) * DQBOX;
+  // kvbar, full [ST], empty [ST]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * ST);
+  static constexpr int ALLOC = BYTES + 1024;
+};
+static_assert(BwdSmem<64, false>::ALLOC <= 232448 &&
+                  BwdSmem<128, false>::ALLOC <= 232448 &&
+                  BwdSmem<64, true>::ALLOC <= 232448,
+              "fa_bwd_wg fits in shared memory");
+
+// fused backward, bf16: one block per (K tile of BKV keys, group, batch,
+// head); q tiles of BQ2 rows streamed.
+template <int D, bool WIDE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const __grid_constant__ CUtensorMap tm_dq,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          bf16* __restrict__ dk,
+          bf16* __restrict__ dv, int b0, int H, int N, int Nk, int hd,
+          int causal, float scale) {
+  using L = BwdSmem<D, WIDE>;
+  constexpr int NB = L::NB, ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  const uint32_t base = (smem_u32(smraw) + 1023) & ~1023u;
+  const uint32_t ring = base + L::RING;
+  const uint32_t kvbar = base + L::BAR, full = kvbar + 8,
+                 empty = full + 8 * ST;
+
+  int tile, grp, b, h;
+  tile_of<WIDE>((Nk + BKV - 1) / BKV, tile, grp, b, h);
+  b += b0;
+  const int k0 = tile * BKV;
+  const int nch = WIDE ? hd / GW : 1;
+  const int nqt = (N + BQ2 - 1) / BQ2;
+  // first q tile whose rows reach key k0 under the bottom-right diagonal
+  const int qt0 = causal ? max(0, k0 - (Nk - N)) / BQ2 : 0;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + 8 * i, 2);    // the TMA thread's two arrivals
+      mbar_init(empty + 8 * i, 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    // Thread 256 issues the TMA loads; its warp copies each q tile's lse
+    // and delta rows into the stage with plain loads (a TMA box may not
+    // start off 16 bytes, and a row of lse starts anywhere), and thread
+    // 256 arrives once more when they are in.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int lane = threadIdx.x - 256;
+    if (lane < 32) {
+      if (lane == 0 && !WIDE) {
+        mbar_expect_tx(kvbar, 2 * NB * L::KBOX);
+        for (int kb = 0; kb < NB; ++kb) {
+          tma_load_4d(base + L::K + kb * L::KBOX, &tm_k, kvbar, 64 * kb, h,
+                      k0, b);
+          tma_load_4d(base + L::V + kb * L::KBOX, &tm_v, kvbar, 64 * kb, h,
+                      k0, b);
+        }
+      }
+      const long long row1 = ((long long)b * H + h) * N;
+      int s = 0, ph = 0;
+      for (int qt = qt0; qt < nqt; ++qt) {
+        const int q0 = qt * BQ2;
+        for (int ci = 0; ci < nch; ++ci) {
+          const bool last = ci == nch - 1;
+          const uint32_t st = ring + s * L::STAGE, bar = full + 8 * s;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          if (lane == 0) {
+            if constexpr (WIDE) {
+              const int c = chunk_of(grp, ci, nch);
+              mbar_expect_tx(bar, 2 * L::KBOX + 2 * L::QBOX);
+              tma_load_4d(st + L::S_K, &tm_k, bar, 64 * c, h, k0, b);
+              tma_load_4d(st + L::S_V, &tm_v, bar, 64 * c, h, k0, b);
+              tma_load_4d(st + L::S_Q, &tm_q, bar, 64 * c, h, q0, b);
+              tma_load_4d(st + L::S_G, &tm_do, bar, 64 * c, h, q0, b);
+            } else {
+              mbar_expect_tx(bar, 2 * NB * L::QBOX);
+              for (int kb = 0; kb < NB; ++kb) {
+                tma_load_4d(st + L::S_Q + kb * L::QBOX, &tm_q, bar, 64 * kb,
+                            h, q0, b);
+                tma_load_4d(st + L::S_G + kb * L::QBOX, &tm_do, bar,
+                            64 * kb, h, q0, b);
+              }
+            }
+          }
+          if (last) {
+            float* sp = reinterpret_cast<float*>(smraw + (st - smem_u32(smraw)));
+            for (int r = lane; r < BQ2; r += 32) {
+              const bool in = q0 + r < N;
+              sp[L::S_L / 4 + r] = in ? lse[row1 + q0 + r] : 0.f;
+              sp[L::S_D / 4 + r] = in ? delta[row1 + q0 + r] : 0.f;
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar);
+          if (++s == ST) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, gq = (tid & 31) >> 2, t = tid & 3;
+  const int kw = k0 + 64 * wg;                 // this warpgroup's keys
+  const int key0 = kw + 16 * warp + gq;        // this thread's: key0, + 8
+  const int rk = 64 * wg + 16 * warp + gq;     // its row of ds^T
+  const float c2 = scale * LOG2E;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  if constexpr (!WIDE) mbar_wait(kvbar, 0);
+  int si = 0, ph = 0, par = 0;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int q0 = qt * BQ2;
+    float sT[32], dpT[32];   // s^T, dp^T: 64 keys x 64 q
+    uint32_t st = 0;
+    // s^T = K Q^T, dp^T = V dO^T over the full width (WIDE: in chunks, the
+    // group's own last; its stage stays for the products below)
+    for (int ci = 0; ci < nch; ++ci) {
+      st = ring + si * L::STAGE;
+      const uint32_t ka = (WIDE ? st + L::S_K : base + L::K) + wg * 8192;
+      const uint32_t va = (WIDE ? st + L::S_V : base + L::V) + wg * 8192;
+      mbar_wait(full + 8 * si, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < NB; ++kb)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const int acc = ci | kb | ks;
+          wgmma_ss<64, 0, 0>(
+              sT, sw128_desc(ka + kb * L::KBOX + ks * 32, 16, 1024),
+              sw128_desc(st + L::S_Q + kb * L::QBOX + ks * 32, 16, 1024),
+              acc);
+          wgmma_ss<64, 0, 0>(
+              dpT, sw128_desc(va + kb * L::KBOX + ks * 32, 16, 1024),
+              sw128_desc(st + L::S_G + kb * L::QBOX + ks * 32, 16, 1024),
+              acc);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (ci < nch - 1) {
+        release(empty + 8 * si, wg);
+        if (++si == ST) { si = 0; ph ^= 1; }
+      }
+    }
+
+    // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale
+    const bool mask = q0 + BQ2 > N || kw + 64 > Nk ||
+                      (causal && kw + 63 > q0 + Nk - N);
+    const unsigned char* sp = smraw + (st - smem_u32(smraw));
+    const float* Ls = reinterpret_cast<const float*>(sp + L::S_L);
+    const float* Dl = reinterpret_cast<const float*>(sp + L::S_D);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const float lse2 = Ls[qc] * LOG2E, dl = Dl[qc];
+        float p = exp2f(fmaf(sT[4 * j + e], c2, -lse2));
+        if (mask && !(q0 + qc < N &&
+                      visible(q0 + qc, key0 + 8 * (e >> 1), N, Nk, causal)))
+          p = 0.f;
+        sT[4 * j + e] = p;
+        dpT[4 * j + e] = p * (dpT[4 * j + e] - dl) * scale;
+      }
+    uint32_t pa[16], da[16];
+    acc_to_frags<16>(pa, sT);    // p cast to bf16
+    acc_to_frags<16>(da, dpT);   // ds cast to bf16
+    // ds^T rows of this warpgroup -> shared (the A operand of dq, read
+    // MN-major by both warpgroups)
+    const uint32_t dsb = base + L::DS + par * L::DSBUF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const uint32_t a = dsb + sw128_off(rk + 8 * hi, 8 * j + 2 * t, 2);
+        asm volatile("st.shared.u32 [%0], %1;\n"
+                     :: "r"(a), "r"(da[4 * (j >> 1) + 2 * (j & 1) + hi])
+                     : "memory");
+      }
+    fence_async_smem();
+
+    // dv += p^T dO, dk += ds^T Q (B: dO, Q read as stored, MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_rs<D, 1>(dv_acc, pa + 4 * ks,
+                     sw128_desc(st + L::S_G + ks * 2048, L::QBOX, 1024));
+      wgmma_rs<D, 1>(dk_acc, da + 4 * ks,
+                     sw128_desc(st + L::S_Q + ks * 2048, L::QBOX, 1024));
+    }
+    wgmma_commit();
+
+    // dq_tile[:, this warpgroup's D / 2 columns] = ds K, once both
+    // warpgroups' ds^T rows are in shared memory and the last tile's dq
+    // reduction has read its staging
+    if (tid == 0) bulk_wait_read();
+    named_sync(3, 256);
+    constexpr int DH = D / 2;
+    float dq[DH / 2];
+    const uint32_t kq = (WIDE ? st + L::S_K : base + L::K) +
+                        (D == 128 ? wg * L::KBOX : wg * 64);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks)
+      wgmma_ss<DH, 1, 1>(dq, sw128_desc(dsb + ks * 2048, L::DSBUF, 1024),
+                         sw128_desc(kq + ks * 2048, L::KBOX, 1024), ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    release(empty + 8 * si, wg);
+    if (++si == ST) { si = 0; ph ^= 1; }
+    par ^= 1;
+
+    // dq tile -> swizzled fp32 staging -> one bulk reduction per box
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int col = wg * DH + 8 * j + 2 * t;
+        const uint32_t a = base + L::DQ + (col >> 5) * L::DQBOX +
+                           sw128_off(16 * warp + gq + 8 * hi, col & 31, 4);
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+                     :: "r"(a), "f"(dq[4 * j + 2 * hi]),
+                        "f"(dq[4 * j + 2 * hi + 1])
+                     : "memory");
+      }
+    fence_async_smem();
+    wg_sync(wg);
+    if (tid == 0) {
+#pragma unroll
+      for (int bx = wg * DH / 32; bx < (wg + 1) * DH / 32; ++bx)
+        tma_reduce_add_4d(&tm_dq, base + L::DQ + bx * L::DQBOX,
+                          GW * grp + 32 * bx, h, q0, b);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait();
+
+  // dk, dv: bf16 rows of this thread's keys
+  const int od = WIDE ? hd : D;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = key0 + 8 * hi;
+    if (row >= Nk) continue;
+    const long long off =
+        (((long long)b * Nk + row) * H + h) * od + GW * grp;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
+          pack_bf16(dk_acc[4 * j + 2 * hi], dk_acc[4 * j + 2 * hi + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
+          pack_bf16(dv_acc[4 * j + 2 * hi], dv_acc[4 * j + 2 * hi + 1]);
     }
   }
 }
@@ -1034,9 +1615,6 @@ template <int D> constexpr int dkv_smem() {
   constexpr int T = 16 * f32_r<D>();
   return (2 * T * (D + 1) + 2 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * 4;
 }
-template <int D> constexpr int fwd_mma_smem() {
-  return (MR + 2 * BK) * (D + 8) * 2;
-}
 template <int D> constexpr int dq_mma_smem() {
   return (2 * MR + 2 * BK) * (D + 8) * 2;
 }
@@ -1047,17 +1625,16 @@ template <int D> constexpr int dq_mma_smem() {
 template <int D> constexpr int dkv_qb() {
   return D == 64 ? 64 : D == 128 ? 32 : 16;
 }
-template <int D, bool FUSED> constexpr int dkv_mma_smem() {
-  return (2 * MR + 2 * dkv_qb<D>()) * (D + 8) * 2 + 2 * dkv_qb<D>() * 4 +
-         (FUSED ? dkv_qb<D>() * (MR + 8) * 2 : 0);
+template <int D> constexpr int dkv_mma_smem() {
+  return (2 * MR + 2 * dkv_qb<D>()) * (D + 8) * 2 + 2 * dkv_qb<D>() * 4;
 }
 static_assert(fwd_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
                   dkv_smem<256>() <= 232448 && dq_mma_smem<256>() <= 232448,
               "hd 256 tiles fit in shared memory");
 
-// The grid of one launch: `tiles` row tiles for each head and batch.
-inline dim3 grid_of(int tiles, int B, int H) {
-  return dim3((unsigned)tiles, (unsigned)H, (unsigned)B);
+// The grid of one launch: `tiles` row tiles for each group, head and batch.
+inline dim3 grid_of(int tiles, int B, int H, int groups = 1) {
+  return dim3((unsigned)(tiles * groups), (unsigned)H, (unsigned)B);
 }
 constexpr int MAX_GRID_YZ = 65535;   // gridDim.y and .z; B goes in launches
 
@@ -1098,116 +1675,217 @@ cudaError_t by_batch(int B, F&& launch) {
   return cudaSuccess;
 }
 
-// bf16 runs on the tensor cores (the *_mma kernels), fp32 on the FMA
-// kernels; each launcher raises the dynamic shared-memory limit once.
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int N, int Nk, Strides sq,
-                       Strides sk, Strides sv, int causal, float scale,
-                       cudaStream_t st) {
+// groups of a launch: 1, or hd / GW for the WIDE instances
+template <bool WIDE> int groups_of(int hd) { return WIDE ? hd / GW : 1; }
+
+// A [B, rows, nh, hd] operand with element strides s (bf16, or fp32 for
+// dq32) as a 4-D tensor map (hd, nh, rows, B), boxes of [box_rows rows x
+// box_cols columns] of one (batch, head), 128-byte swizzled.
+bool operand_map(CUtensorMap* m, CUtensorMapDataType type, int esz,
+                 const void* p, int B, int rows, int H, int hd, Strides s,
+                 int box_rows, int box_cols) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s.h * esz),
+                                 (cuuint64_t)(s.n * esz),
+                                 (cuuint64_t)(s.b * esz)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows,
+                             1};
+  return tensor_map(m, type, 4, p, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+bool bf16_operand(CUtensorMap* m, const void* p, int B, int rows, int H,
+                  int hd, Strides s, int box_rows) {
+  return operand_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, B, rows, H,
+                     hd, s, box_rows, 64);
+}
+Strides contiguous(int rows, int H, int hd) {
+  return Strides{(long long)rows * H * hd, (long long)H * hd, (long long)hd};
+}
+// Launch `kernel` with WG_THREADS threads over the (tiles x groups, H, B)
+// grid, B in slices of at most MAX_GRID_YZ; args(b0) gives the arguments.
+template <typename K, typename A>
+cudaError_t launch_wg_grid(K kernel, int smem, bool& done, int tiles,
+                           int groups, int B, int H, cudaStream_t st,
+                           A&& args) {
+  cudaError_t e = allow_smem(kernel, smem, done);
+  if (e != cudaSuccess) return e;
+  return by_batch(B, [&](int b0, int nb) {
+    args(kernel, grid_of(tiles, nb, H, groups), smem, st, b0);
+    return cudaGetLastError();
+  });
+}
+
+// bf16 forward (fa_fwd_wg): maps over the whole operands; by_batch only
+// moves the batch origin.
+template <int D, bool WIDE>
+cudaError_t launch_fwd_wg(const void* q, const void* k, const void* v,
+                          void* o, float* lse, int B, int H, int N, int Nk,
+                          int hd, Strides sq, Strides sk, Strides sv,
+                          int causal, float scale, cudaStream_t st) {
+  using L = FwdSmem<D, WIDE>;
   static bool done = false;
-  cudaError_t e;
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = fwd_mma_smem<D>();
-    if ((e = allow_smem(fa_fwd_mma<D>, smem, done)) != cudaSuccess) return e;
-    fa_fwd_mma<D><<<grid_of((N + MR - 1) / MR, B, H), MT, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, N, Nk,
-        sq, sk, sv, causal, scale);
-  } else {
-    constexpr int smem = fwd_smem<D>();
-    constexpr int R = f32_r<D>();
-    if ((e = allow_smem(fa_fwd<D, R>, smem, done)) != cudaSuccess) return e;
-    fa_fwd<D, R><<<grid_of((N + 16 * R - 1) / (16 * R), B, H), NT, smem,
-                   st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, Nk,
-        sq, sk, sv, causal, scale);
-  }
+  CUtensorMap tq, tk, tv, to;
+  if (!bf16_operand(&tq, q, B, N, H, hd, sq, FQ) ||
+      !bf16_operand(&tk, k, B, Nk, H, hd, sk, L::BKR) ||
+      !bf16_operand(&tv, v, B, Nk, H, hd, sv, L::BKR) ||
+      !bf16_operand(&to, o, B, N, H, hd, contiguous(N, H, hd), 64))
+    return cudaErrorInvalidValue;
+  return launch_wg_grid(
+      fa_fwd_wg<D, WIDE>, L::ALLOC, done, (N + FQ - 1) / FQ,
+      groups_of<WIDE>(hd), B, H, st,
+      [&](auto kern, dim3 grid, int smem, cudaStream_t s, int b0) {
+        kern<<<grid, WG_THREADS, smem, s>>>(tq, tk, tv, to, lse, b0, H, N, Nk,
+                                            hd, causal, scale);
+      });
+}
+
+// bf16 fused backward (fa_bwd_wg): dk, dv, and dq32 (fp32, zeroed by the
+// caller) += ds @ k by bulk tensor reductions.
+template <int D, bool WIDE>
+cudaError_t launch_fused_wg(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, float* dq32, void* dk,
+                            void* dv, int B, int H, int N, int Nk, int hd,
+                            Strides sq, Strides sk, Strides sv, Strides sd,
+                            int causal, float scale, cudaStream_t st) {
+  using L = BwdSmem<D, WIDE>;
+  static bool done = false;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!bf16_operand(&tq, q, B, N, H, hd, sq, BQ2) ||
+      !bf16_operand(&tk, k, B, Nk, H, hd, sk, BKV) ||
+      !bf16_operand(&tv, v, B, Nk, H, hd, sv, BKV) ||
+      !bf16_operand(&tdo, dout, B, N, H, hd, sd, BQ2) ||
+      !operand_map(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq32, B, N, H,
+                   hd, contiguous(N, H, hd), BQ2, 32))
+    return cudaErrorInvalidValue;
+  return launch_wg_grid(
+      fa_bwd_wg<D, WIDE>, L::ALLOC, done, (Nk + BKV - 1) / BKV,
+      groups_of<WIDE>(hd), B, H, st,
+      [&](auto kern, dim3 grid, int smem, cudaStream_t s, int b0) {
+        kern<<<grid, WG_THREADS, smem, s>>>(
+            tq, tk, tv, tdo, tdq, lse, delta, static_cast<bf16*>(dk),
+            static_cast<bf16*>(dv), b0, H, N, Nk, hd, causal, scale);
+      });
+}
+
+// fp32 forward on the FMA kernel; pointers already at the launch's batch.
+template <int D, bool WIDE>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, int H, int N, int Nk,
+                           int hd, Strides sq, Strides sk, Strides sv,
+                           int causal, float scale, cudaStream_t st) {
+  static bool done = false;
+  constexpr int smem = fwd_smem<D>();
+  constexpr int R = f32_r<D>();
+  cudaError_t e = allow_smem(fa_fwd<D, R, WIDE>, smem, done);
+  if (e != cudaSuccess) return e;
+  fa_fwd<D, R, WIDE><<<grid_of((N + 16 * R - 1) / (16 * R), B, H,
+                               groups_of<WIDE>(hd)),
+                       NT, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, N, Nk,
+      hd, sq, sk, sv, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool WIDE>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int H, int N, int Nk, Strides sq,
-                      Strides sk, Strides sv, Strides sd, int causal,
-                      float scale, cudaStream_t st) {
+                      void* dq, int B, int H, int N, int Nk, int hd,
+                      Strides sq, Strides sk, Strides sv, Strides sd,
+                      int causal, float scale, cudaStream_t st) {
   static bool done = false;
   cudaError_t e;
+  const int groups = groups_of<WIDE>(hd);
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = dq_mma_smem<D>();
-    if ((e = allow_smem(fa_bwd_dq_mma<D>, smem, done)) != cudaSuccess)
+    if ((e = allow_smem(fa_bwd_dq_mma<D, WIDE>, smem, done)) != cudaSuccess)
       return e;
-    fa_bwd_dq_mma<D><<<grid_of((N + MR - 1) / MR, B, H), MT, smem, st>>>(
+    fa_bwd_dq_mma<D, WIDE><<<grid_of((N + MR - 1) / MR, B, H, groups), MT,
+                             smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dq), H, N, Nk, sq, sk, sv, sd, causal,
+        delta, static_cast<bf16*>(dq), H, N, Nk, hd, sq, sk, sv, sd, causal,
         scale);
   } else {
     constexpr int smem = dq_smem<D>();
     constexpr int R = f32_r<D>();
-    if ((e = allow_smem(fa_bwd_dq<D, R>, smem, done)) != cudaSuccess)
+    if ((e = allow_smem(fa_bwd_dq<D, R, WIDE>, smem, done)) != cudaSuccess)
       return e;
-    fa_bwd_dq<D, R><<<grid_of((N + 16 * R - 1) / (16 * R), B, H), NT,
-                      smem, st>>>(
+    fa_bwd_dq<D, R, WIDE><<<grid_of((N + 16 * R - 1) / (16 * R), B, H,
+                                    groups),
+                            NT, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), H, N, Nk, sq, sk, sv, sd, causal,
+        delta, static_cast<float*>(dq), H, N, Nk, hd, sq, sk, sv, sd, causal,
         scale);
   }
   return cudaGetLastError();
 }
 
-// FUSED: the fused backward, which also adds dq into the zeroed fp32 dq32.
-template <typename T, int D, bool FUSED>
+// The split dk/dv kernel (bf16 or fp32), or in fp32 with FUSED the fused
+// backward, which also adds dq into the zeroed fp32 dq32.
+template <typename T, int D, bool WIDE, bool FUSED>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, float* dq32, int B, int H, int N,
-                       int Nk, Strides sq, Strides sk, Strides sv, Strides sd,
-                       int causal, float scale, cudaStream_t st) {
+                       int Nk, int hd, Strides sq, Strides sk, Strides sv,
+                       Strides sd, int causal, float scale, cudaStream_t st) {
   static bool done = false;
   cudaError_t e;
+  const int groups = groups_of<WIDE>(hd);
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = dkv_mma_smem<D, FUSED>();
+    static_assert(!FUSED, "the bf16 fused backward is fa_bwd_wg");
+    constexpr int smem = dkv_mma_smem<D>();
     constexpr int QB = dkv_qb<D>();
-    if ((e = allow_smem(fa_bwd_dkv_mma<D, QB, FUSED>, smem, done)) !=
+    if ((e = allow_smem(fa_bwd_dkv_mma<D, QB, WIDE>, smem, done)) !=
         cudaSuccess)
       return e;
-    fa_bwd_dkv_mma<D, QB, FUSED>
-        <<<grid_of((Nk + MR - 1) / MR, B, H), MT, smem, st>>>(
+    fa_bwd_dkv_mma<D, QB, WIDE>
+        <<<grid_of((Nk + MR - 1) / MR, B, H, groups), MT, smem, st>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-            delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq32, H, N,
-            Nk, sq, sk, sv, sd, causal, scale);
+            delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, Nk,
+            hd, sq, sk, sv, sd, causal, scale);
   } else {
     constexpr int smem = dkv_smem<D>();
     constexpr int R = f32_r<D>();
-    if ((e = allow_smem(fa_bwd_dkv<D, R, FUSED>, smem, done)) != cudaSuccess)
+    if ((e = allow_smem(fa_bwd_dkv<D, R, FUSED, WIDE>, smem, done)) !=
+        cudaSuccess)
       return e;
-    fa_bwd_dkv<D, R, FUSED>
-        <<<grid_of((Nk + 16 * R - 1) / (16 * R), B, H), NT, smem, st>>>(
+    fa_bwd_dkv<D, R, FUSED, WIDE>
+        <<<grid_of((Nk + 16 * R - 1) / (16 * R), B, H, groups), NT, smem,
+           st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dk), static_cast<float*>(dv), dq32, H, N,
-        Nk, sq, sk, sv, sd, causal, scale);
+        Nk, hd, sq, sk, sv, sd, causal, scale);
   }
   return cudaGetLastError();
 }
 
-// Calls f(T(), std::integral_constant<int, hd>()) for the (dtype code,
-// head width) pair; anything else is an invalid value.
+// Calls f(T(), integral_constant<int, D>(), bool_constant<WIDE>()) for
+// the (dtype code, head width) pair: hd 64, 128 and 256 take their own
+// instances, wider multiples of 64 the WIDE instance of the 64-column
+// group; anything else is an invalid value.
 template <typename F>
-cudaError_t dispatch(int dtype, int D, F&& f) {
+cudaError_t dispatch(int dtype, int hd, F&& f) {
   using W64 = std::integral_constant<int, 64>;
   using W128 = std::integral_constant<int, 128>;
   using W256 = std::integral_constant<int, 256>;
-  if (dtype == 0 && D == 64) return f(float(), W64());
-  if (dtype == 0 && D == 128) return f(float(), W128());
-  if (dtype == 0 && D == 256) return f(float(), W256());
-  if (dtype == 1 && D == 64) return f(bf16(), W64());
-  if (dtype == 1 && D == 128) return f(bf16(), W128());
-  if (dtype == 1 && D == 256) return f(bf16(), W256());
+  using Narrow = std::false_type;
+  using Wide = std::true_type;
+  if (dtype == 0 && hd == 64) return f(float(), W64(), Narrow());
+  if (dtype == 0 && hd == 128) return f(float(), W128(), Narrow());
+  if (dtype == 0 && hd == 256) return f(float(), W256(), Narrow());
+  if (dtype == 1 && hd == 64) return f(bf16(), W64(), Narrow());
+  if (dtype == 1 && hd == 128) return f(bf16(), W128(), Narrow());
+  if (dtype == 1 && hd == 256) return f(bf16(), W256(), Narrow());
+  if (hd > 256 && hd % GW == 0) {
+    if (dtype == 0) return f(float(), W64(), Wide());
+    if (dtype == 1) return f(bf16(), W64(), Wide());
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1223,15 +1901,21 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
   if (!shapes_ok(B, H, N, Nk, causal)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh};
-  const int es = dtype == 1 ? 2 : 4;
   const long long orow = (long long)N * H * D, lrow = (long long)H * N;
-  return (int)by_batch(B, [&](int b0, int nb) {
-    return dispatch(dtype, D, [&](auto t, auto hd) {
-      return launch_fwd<decltype(t), decltype(hd)::value>(
-          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
-          adv(o, b0 * orow, es), adv(lse, b0 * lrow), nb, H, N, Nk, sq, sk,
-          sv, causal, scale, st);
-    });
+  return (int)dispatch(dtype, D, [&](auto t, auto w, auto wide) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool WIDE = decltype(wide)::value;
+    if constexpr (std::is_same<decltype(t), bf16>::value) {
+      return launch_fwd_wg<W, WIDE>(q, k, v, o, lse, B, H, N, Nk, D, sq, sk,
+                                    sv, causal, scale, st);
+    } else {
+      return by_batch(B, [&](int b0, int nb) {
+        return launch_fwd_f32<W, WIDE>(
+            adv(q, b0 * qsb, 4), adv(k, b0 * ksb, 4), adv(v, b0 * vsb, 4),
+            adv(o, b0 * orow, 4), adv(lse, b0 * lrow), nb, H, N, Nk, D, sq,
+            sk, sv, causal, scale, st);
+      });
+    }
   });
 }
 
@@ -1249,11 +1933,12 @@ extern "C" int pt_flash_bwd_dq(
   const int es = dtype == 1 ? 2 : 4;
   const long long qrow = (long long)N * H * D, lrow = (long long)H * N;
   return (int)by_batch(B, [&](int b0, int nb) {
-    return dispatch(dtype, D, [&](auto t, auto hd) {
-      return launch_dq<decltype(t), decltype(hd)::value>(
+    return dispatch(dtype, D, [&](auto t, auto w, auto wide) {
+      return launch_dq<decltype(t), decltype(w)::value,
+                       decltype(wide)::value>(
           adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
           adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
-          adv(dq, b0 * qrow, es), nb, H, N, Nk, sq, sk, sv, sd, causal,
+          adv(dq, b0 * qrow, es), nb, H, N, Nk, D, sq, sk, sv, sd, causal,
           scale, st);
     });
   });
@@ -1273,18 +1958,20 @@ extern "C" int pt_flash_bwd_dkv(
   const int es = dtype == 1 ? 2 : 4;
   const long long krow = (long long)Nk * H * D, lrow = (long long)H * N;
   return (int)by_batch(B, [&](int b0, int nb) {
-    return dispatch(dtype, D, [&](auto t, auto hd) {
-      return launch_dkv<decltype(t), decltype(hd)::value, false>(
+    return dispatch(dtype, D, [&](auto t, auto w, auto wide) {
+      return launch_dkv<decltype(t), decltype(w)::value,
+                        decltype(wide)::value, false>(
           adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
           adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
           adv(dk, b0 * krow, es), adv(dv, b0 * krow, es), nullptr, nb, H, N,
-          Nk, sq, sk, sv, sd, causal, scale, st);
+          Nk, D, sq, sk, sv, sd, causal, scale, st);
     });
   });
 }
 
 // The fused backward: dk, dv, and dq32 (fp32 [B, N, nh, hd], zeroed by the
-// caller) += ds @ k.
+// caller) += ds @ k.  bf16 runs fa_bwd_wg (hd 64 and 128 narrow, wider on
+// the 64-column group path), fp32 the FMA kernel with FUSED.
 extern "C" int pt_flash_bwd_fused(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, float* dq32, void* dk, void* dv,
@@ -1296,18 +1983,30 @@ extern "C" int pt_flash_bwd_fused(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
       sd{dsb, dsn, dsh};
-  const int es = dtype == 1 ? 2 : 4;
   const long long qrow = (long long)N * H * D, krow = (long long)Nk * H * D,
                   lrow = (long long)H * N;
-  return (int)by_batch(B, [&](int b0, int nb) {
-    return dispatch(dtype, D, [&](auto t, auto hd) {
-      return launch_dkv<decltype(t), decltype(hd)::value, true>(
-          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
-          adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
-          adv(dk, b0 * krow, es), adv(dv, b0 * krow, es),
-          adv(dq32, b0 * qrow), nb, H, N, Nk, sq, sk, sv, sd, causal, scale,
-          st);
-    });
+  return (int)dispatch(dtype, D, [&](auto t, auto w, auto wide) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool WIDE = decltype(wide)::value;
+    if constexpr (std::is_same<decltype(t), bf16>::value) {
+      if constexpr (W == 256 || WIDE)
+        return launch_fused_wg<64, true>(q, k, v, dout, lse, delta, dq32, dk,
+                                         dv, B, H, N, Nk, D, sq, sk, sv, sd,
+                                         causal, scale, st);
+      else
+        return launch_fused_wg<W, false>(q, k, v, dout, lse, delta, dq32, dk,
+                                         dv, B, H, N, Nk, D, sq, sk, sv, sd,
+                                         causal, scale, st);
+    } else {
+      return by_batch(B, [&](int b0, int nb) {
+        return launch_dkv<float, W, WIDE, true>(
+            adv(q, b0 * qsb, 4), adv(k, b0 * ksb, 4), adv(v, b0 * vsb, 4),
+            adv(dout, b0 * dsb, 4), adv(lse, b0 * lrow),
+            adv(delta, b0 * lrow), adv(dk, b0 * krow, 4),
+            adv(dv, b0 * krow, 4), adv(dq32, b0 * qrow), nb, H, N, Nk, D,
+            sq, sk, sv, sd, causal, scale, st);
+      });
+    }
   });
 }
 

@@ -19,24 +19,34 @@ CUDA tensors it is a ``torch.autograd.Function`` whose forward and backward
 launch the kernels, or raise; it never falls back from one to the other.
 q/k/v may be strided views (the model's are slices of its fused qkv
 projection): the kernels take the strides of the first three axes, so no
-copy is made.  The kernels are built for head widths 64, 128 and 256 (the
-Pallas kernel's own contract, ``_use_pallas``, is 64 and the multiples of
-128); any other hd up to 256 is zero-padded to the next of these
-(:func:`_padded_fwd`, :func:`_padded_bwd`) with the softmax scale kept at
-1/sqrt(true hd), and out, dq, dk, dv are sliced back: zero columns change
-neither q.k nor p.v.  That copies q, k, v (and dO) once.  hd over 256 is
-refused.  Any B * nh runs (the grid is one-dimensional).
-``fwd_launches``, ``dq_launches``, ``dkv_launches`` and
-``fused_launches`` count kernel launches.
+copy is made unless a bf16 row is off 16-byte alignment
+(:func:`_kernel_operand`).
 
-The fused backward adds each tile's ``ds @ k`` into a zeroed fp32 dq
-buffer with atomic adds, then casts it to q's dtype; the reference writes
-one fp32 dq partial per K block and sums them after.  That buffer is
-O(N^2 hd / block_k), so the reference falls back to the split kernels
-above ``_FUSED_DQP_BYTES_CAP``; the port's is O(N hd), so every backward
-with ``bwd_fused=True`` takes the fused kernel.  The routes differ there,
-not the results: both compute :func:`_ref_flash_bwd`'s function.  The
-atomics' order varies from run to run, and with it dq's last bits.
+Head widths.  The kernels have instances for hd 64, 128 and 256 (the
+Pallas kernel's own contract, ``_use_pallas``, is 64 and the multiples of
+128); any other hd up to 256 is zero-padded to the next of these, and a
+wider one to the next multiple of 64 (:func:`_kernel_width`,
+:func:`_padded_fwd`, :func:`_padded_bwd`), with the softmax scale kept at
+1/sqrt(true hd); out, dq, dk, dv are sliced back: zero columns change
+neither q.k nor p.v.  That copies q, k, v (and dO) once.  Heads wider than
+256 run on a head-width group axis inside each launch: group g owns
+columns [64g, 64g + 64) of the outputs and recomputes the scores over the
+full width (``csrc/flash_attn.cu``), so there is no upper limit on hd.
+Every launch has the grid (row tiles x groups, nh, B), B in launches of at
+most 65,535, so any B * nh runs.  ``fwd_launches``, ``dq_launches``,
+``dkv_launches`` and ``fused_launches`` count the wrappers' kernel calls.
+
+The fused backward keeps a K/V tile stationary and adds each q tile's
+``ds @ k`` into a zeroed fp32 dq buffer, which the wrapper then casts to
+q's dtype: in bf16 each 64-row tile goes through shared memory into one
+bulk tensor reduction a 32-column box (``cp.reduce.async.bulk.tensor``
+``.add.f32``), in fp32 by atomic adds.  The reference writes one fp32 dq
+partial per K block and sums them after.  That buffer is O(N^2 hd /
+block_k), so the reference falls back to the split kernels above
+``_FUSED_DQP_BYTES_CAP``; the port's is O(N hd), so every backward with
+``bwd_fused=True`` takes the fused kernel.  The routes differ there, not
+the results: both compute :func:`_ref_flash_bwd`'s function.  The adds'
+order varies from run to run, and with it dq's last bits.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ fused_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
+_GROUP = 64          # columns of a head-width group above 256
 _fns = None
 # Backward strategy, as the reference's _BWD_FUSED: False = the split dq
 # and dk/dv kernels, True = the fused kernel.
@@ -69,7 +80,7 @@ def set_default_blocks(fwd=None, bwd=None, bwd_fused=None):
     global _BWD_FUSED
     if fwd is not None or bwd is not None:
         raise NotImplementedError(
-            "flash attention tiles are fixed at 64 x 64 rows in "
+            "flash attention tiles are fixed per kernel in "
             "csrc/flash_attn.cu; per-call block sizes are not ported")
     if bwd_fused is not None:
         _BWD_FUSED = bool(bwd_fused)
@@ -174,14 +185,13 @@ def _kernels():
 
 
 def _kernel_width(hd):
-    """The kernel instance that takes head width ``hd``: the next of
-    :data:`_HEAD_DIMS`."""
+    """The head width the kernels run ``hd`` at: the next of
+    :data:`_HEAD_DIMS`, or above them the next multiple of
+    :data:`_GROUP` (the wide instances' head-width groups)."""
     for D in _HEAD_DIMS:
         if hd <= D:
             return D
-    raise ValueError(f"flash_attention: hd={hd}; the kernels take head "
-                     f"widths up to {_HEAD_DIMS[-1]} (wider heads are an "
-                     "open refusal, ROADMAP Queue 3)")
+    return -(-hd // _GROUP) * _GROUP
 
 
 def _check_cuda(q, k, v, causal):
@@ -204,10 +214,9 @@ def _check_cuda(q, k, v, causal):
     if (k.shape[0], k.shape[2:]) != (B, (nh, hd)) or v.shape != k.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} must be [{B}, Nk, {nh}, {hd}]")
-    _kernel_width(hd)
-    if min(N, Nk, B * nh) < 1:
-        raise ValueError(f"flash_attention: N={N}, Nk={Nk} and B*nh="
-                         f"{B * nh} must be >= 1")
+    if min(N, Nk, B * nh, hd) < 1:
+        raise ValueError(f"flash_attention: N={N}, Nk={Nk}, B*nh="
+                         f"{B * nh} and hd={hd} must be >= 1")
     if causal and N > Nk:
         raise ValueError(f"flash_attention: causal with N={N} > Nk={Nk} "
                          "leaves rows that see no key")
@@ -244,8 +253,9 @@ def _padded_bwd(bwd, q, k, v, out, lse, do, causal):
 
 def _kernel_operand(t):
     """``t`` with a unit last stride; a bf16 operand also with 16-byte
-    aligned rows (the tensor-core kernels load 16-byte chunks).  The
-    model's q/k/v views of its fused projection pass as they are."""
+    aligned rows and batch, row and head strides (the tensor-core kernels
+    load 16-byte chunks, the TMA loads need both).  The model's q/k/v views
+    of its fused projection pass as they are."""
     if t.stride(-1) != 1:
         t = t.contiguous()
     if t.dtype == torch.bfloat16 and (
@@ -332,8 +342,8 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
 
 def _launch_fused(q, k, v, do, lse, delta, causal, scale):
     """The fused backward kernel on operands from :func:`_bwd_operands`:
-    dk, dv, and dq summed in a zeroed fp32 buffer, then cast to q's
-    dtype."""
+    dk, dv, and dq summed in a zeroed fp32 buffer (bulk reductions in
+    bf16, atomic adds in fp32), then cast to q's dtype."""
     global fused_launches
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -383,8 +393,8 @@ def flash_attention(q, k, v, causal=False):
     """Attention over q [B, N, nh, hd] and k, v [B, Nk, nh, hd] (causal:
     bottom-right aligned).  Returns [B, N, nh, hd] in q's dtype.  CPU
     tensors: autograd of :func:`_ref_attention`.  CUDA tensors (float32 or
-    bfloat16, hd up to 256): the flash kernels, forward and backward (the
-    split or the fused backward, per :func:`set_default_blocks`)."""
+    bfloat16, any hd): the flash kernels, forward and backward (the split
+    or the fused backward, per :func:`set_default_blocks`)."""
     if q.device.type == "cpu":
         return _ref_attention(q, k, v, causal)
     if q.device.type != "cuda":

@@ -260,12 +260,51 @@ def test_flash_attention_autograd_on_card(dev):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
 
 
-def test_flash_attention_refuses_unported_head_width(dev):
-    """hd over 256 is the one width the kernels refuse (hd 96 runs now,
-    padded to 128: ``test_flash_kernels_match_plain``)."""
-    q = torch.randn(1, 64, 2, 320, device=dev)
-    with pytest.raises(ValueError, match="hd=320"):
-        flash_attn.flash_attention(q, q, q, causal=True)
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [320, 384, 512, 640])
+def test_flash_wide_heads_match_plain(dev, hd, dtype, fused):
+    """Heads wider than 256 (the reference's Pallas kernel takes every
+    multiple of 128) run the kernels' head-width groups: the forward and
+    the split or the fused backward, through the autograd Function, against
+    ``_ref_flash_fwd`` / ``_ref_flash_bwd`` (fp32 1e-5 and 2e-4; bf16 per
+    element as ``test_flash_kernels_match_plain``)."""
+    B, N, nh = 2, 200, 2
+    g = torch.Generator(device=dev).manual_seed(hd)
+    qkv = torch.randn(B, N, 3, nh * hd, device=dev, generator=g).to(dtype)
+    q, k, v = [qkv[:, :, i].reshape(B, N, nh, hd).requires_grad_()
+               for i in range(3)]
+    do = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    counters = ("fwd_launches", "dq_launches", "dkv_launches",
+                "fused_launches")
+    before = [getattr(flash_attn, c) for c in counters]
+    try:
+        flash_attn.set_default_blocks(bwd_fused=fused)
+        out = flash_attn.flash_attention(q, k, v, causal=True)
+        got = torch.autograd.grad(out, (q, k, v), do)
+    finally:
+        flash_attn.set_default_blocks(bwd_fused=False)
+    torch.cuda.synchronize()
+    want = (1, 0, 0, 1) if fused else (1, 1, 1, 0)
+    assert tuple(getattr(flash_attn, c) - n
+                 for c, n in zip(counters, before)) == want
+    with torch.no_grad():
+        o2, lse = flash_attn.flash_fwd(q, k, v, True)
+        ref_out, ref_lse = flash_attn._ref_flash_fwd(q, k, v, True)
+        refs = flash_attn._ref_flash_bwd(q, k, v, out, lse, do, True)
+        torch.testing.assert_close(o2, out, atol=0, rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=FP32_TOL, rtol=0)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref_out, atol=FP32_TOL, rtol=0)
+        else:
+            scale = flash_attn._ref_flash_fwd(q, k, v.abs(), True)[0]
+            assert _per_element(out, ref_out, scale) <= 1.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, refs):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=0, msg=name)
+        else:
+            assert _per_element(a, b, b) <= 1.0, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -29,6 +29,8 @@ CASES = [
     (1, 128, 320, 2, 64, True, None),       # cross length, bottom-right
     (1, 384, 384, 1, 64, True, 256),        # uneven tail on the JAX side
     (1, 128, 128, 1, 128, True, None),      # hd 128
+    (1, 128, 128, 1, 384, True, None),      # hd 384: a Pallas width past
+                                            # 256 (the kernels' groups)
 ]
 IDS = [f"B{c[0]}-N{c[1]}-Nk{c[2]}-nh{c[3]}-hd{c[4]}-"
        f"{'causal' if c[5] else 'full'}" + (f"-blk{c[6]}" if c[6] else "")
@@ -131,9 +133,13 @@ def test_wrapper_on_cpu_counts_nothing_and_refuses_fused_backward():
 
 
 # (B, N, Nk, nh, hd, causal): head widths the CUDA kernels take only after
-# the wrapper zero-pads them (32 -> 64, 96 -> 128, 200 -> 256)
+# the wrapper zero-pads them (32 -> 64, 96 -> 128, 200 -> 256, 300 -> 320),
+# and widths past 256, which run on the kernels' 64-column head-width
+# groups (320, 384, 512, 640: the kernel width is hd itself)
 PAD_CASES = [(1, 64, 64, 2, 32, True), (2, 48, 80, 2, 96, True),
-             (1, 40, 40, 2, 200, False)]
+             (1, 40, 40, 2, 200, False), (1, 24, 24, 2, 300, True),
+             (1, 40, 40, 2, 320, True), (1, 24, 56, 1, 384, True),
+             (2, 16, 16, 1, 512, False), (1, 32, 32, 1, 640, True)]
 
 
 @pytest.mark.parametrize("case", PAD_CASES,
@@ -144,6 +150,9 @@ def test_padded_head_width_matches_reference(case):
     out, lse and the vjp against the JAX ``flash_attention`` (which runs
     ``_ref_attention`` at these widths) at the forward's 1e-5 in fp32."""
     B, N, Nk, nh, hd, causal = case
+    D = T._kernel_width(hd)
+    assert D >= hd and (D in T._HEAD_DIMS or (D > 256 and D % 64 == 0
+                                               and D - hd < 64))
     q, k, v, do = _inputs(case + (None,), 21)
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     out, lse = T._padded_fwd(T._ref_flash_fwd, tq, tk, tv, causal)
@@ -168,3 +177,31 @@ def test_padded_head_width_matches_reference(case):
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FWD_TOL,
                                    rtol=0, err_msg=name)
+
+
+def test_kernel_operand_copies_only_rows_the_kernels_cannot_load():
+    """``_kernel_operand``: the model's q/k/v, strided views of its fused
+    [B, N, 3, nh*hd] projection, reach the kernels without a copy; a bf16
+    view whose rows start off 16 bytes is copied to contiguous rows; a
+    view with a non-unit last stride is made contiguous; fp32 views with a
+    unit last stride pass as they are."""
+    B, N, nh, hd = 2, 8, 2, 64
+    for dt in (torch.bfloat16, torch.float32):
+        qkv = torch.zeros(B, N, 3, nh * hd, dtype=dt)
+        for i in range(3):
+            view = qkv[:, :, i].reshape(B, N, nh, hd)
+            got = T._kernel_operand(view)
+            assert got.data_ptr() == view.data_ptr()
+            assert got.stride() == view.stride()
+    # rows 4 elements (8 bytes) off 16-byte alignment, row stride 132
+    base = torch.zeros(B, N, nh * hd + 4, dtype=torch.bfloat16)
+    off = base[:, :, 4:].view(B, N, nh, hd)
+    got = T._kernel_operand(off)
+    assert got.data_ptr() != off.data_ptr() and got.is_contiguous()
+    assert torch.equal(got, off)
+    f32 = torch.zeros(B, N, nh * hd + 4)[:, :, 4:].view(B, N, nh, hd)
+    assert T._kernel_operand(f32).data_ptr() == f32.data_ptr()
+    # the head axis last: a non-unit last stride
+    tr = torch.zeros(B, N, hd, nh, dtype=torch.bfloat16).transpose(-1, -2)
+    got = T._kernel_operand(tr)
+    assert got.stride(-1) == 1 and torch.equal(got, tr)

@@ -176,6 +176,7 @@ FUSED_BWD_CASES = [
     (1, 384, 384, 2, 64, True),      # uneven tail blocks
     (1, 128, 320, 2, 64, True),      # cross length
     (1, 512, 512, 1, 128, False),
+    (1, 128, 128, 1, 384, True),     # hd 384: past the kernels' 256
 ]
 
 

@@ -11,6 +11,7 @@ The CUDA kernels themselves are held against these plain versions on a
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import os
+import shutil
 import subprocess
 import sys
 
@@ -240,6 +241,25 @@ def test_build_without_nvcc_raises_naming_it(monkeypatch):
                         lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc_path()
+
+
+def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
+    """``build.lib_path``'s digest covers each header a source includes
+    from ``csrc/``: editing the shared Hopper header renames (so rebuilds)
+    both libraries that include it and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.lib_path(n) for n in build.SOURCES}
+    assert build.source_files("flash_attn") == ["flash_attn.cu",
+                                                "hopper.cuh"]
+    assert build.source_files("fused_ffn") == ["fused_ffn.cu", "hopper.cuh"]
+    assert build.lib_path("flash_attn") == before["flash_attn"]
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: build.lib_path(n) for n in build.SOURCES}
+    changed = {n for n in build.SOURCES if after[n] != before[n]}
+    assert changed == {"flash_attn", "fused_ffn"}
 
 
 def test_resolve_device_without_gpu(monkeypatch):

@@ -1,102 +1,150 @@
 #!/usr/bin/env python3
-"""Time variants of the bf16 flash-attention kernels (forward, dq, dk/dv
-and the fused backward, ``paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu``)
-against each other on one GPU, in one process.
+"""Time the bf16 flash-attention kernels (forward, dq, dk/dv and the fused
+backward, ``paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu``) beside another
+version of the source and variants of it, on one GPU, in one process.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
     python3 tools/flash_variants.py [--against OTHER/flash_attn.cu]
 
-The variants are the committed source, whose grid is (row tiles, nh, B);
-the committed source with the block's (row tile, batch, head) found other
-ways: from a one-dimensional grid by 32-bit or by 64-bit division, or from
-the two-dimensional grid (row tiles, B * nh) that held B * nh to 65,535;
-the committed source with no register cap on the forward and dk/dv
-kernels; and, with ``--against``, another version of the source with the
-same C interface (an older commit's, say).  Each is built
-with the port's own nvcc flags into ``paddle_tpu_torch/_build/
-flash_variants/`` and called through its C entry points on the same
-operands (eight copies cycled, so a call does not find its inputs in L2),
-at the 345M training shape [8, 1024, 16, 64] and the flagship's [6, 2048,
-16, 128], causal.  Every variant's forward, dq, dk and dv must equal the
-committed source's (the fused backward's dq sums with atomics, so only
-its dk and dv are compared).  Times are CUDA-event means over 20 calls,
-taken in rounds that visit the variants in turn, each round starting one
-variant later; the median round is printed with the lowest and highest,
-and ptxas' registers, stack and spill loads for the kernel beside them.
-The card's name and power limit come first.
+The sources are the committed one ("as built") and, with ``--against``,
+another version with the same C interface (an older commit's, unpacked
+with ``git archive`` into a directory ``.gitignore`` lists), as it is and
+with the suspects of its fused backward cut out one at a time:
+
+  * "no dq adds": the fused kernel's atomic adds into the fp32 dq buffer
+    sit behind a condition that is never true at run time (the dq product
+    stays);
+  * "no third barrier": the barrier before the dq product goes (the
+    result is wrong; only the time counts).
+
+For every source the fused backward is timed twice: the kernel alone, and
+as the wrapper runs it, with the fp32 dq buffer zeroed before and cast to
+bf16 after ("+ zero, cast").  Each source is built with the port's own
+nvcc flags into ``paddle_tpu_torch/_build/flash_variants/`` and called
+through its C entry points on the same operands (up to eight copies, at
+most 400 MB, cycled, so that a call does not find its inputs in L2), at
+the 345M training shape [8, 1024,
+16, 64] and the flagship's [6, 2048, 16, 128], causal, and the encoder's
+[8, 512, 12, 64] and short rows at many heads, [4100, 128, 16, 64], with
+no mask (their forward only).  Beside each time
+is the largest |difference| of the variant's outputs from the committed
+source's (out and lse; dq; dk, dv; for the fused backward dk, dv and dq,
+whose adds' order varies), which the cut variants are free to break.
+Times are CUDA-event means over 20 calls, taken in rounds that visit the
+sources in turn, each round starting one source later; the median round
+is printed with the lowest and highest, and ptxas' registers, stack and
+spill loads for the kernel beside them.  The card's name and power limit
+come first.
 """
 import argparse
 import ctypes
-import os
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
-sys.path.insert(0, os.getcwd())
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from paddle_tpu_torch.ops.cuda import build  # noqa: E402
 
 SRC = build.CSRC / build.SOURCES["flash_attn"]
 OUT = build.BUILD_DIR / "flash_variants"
-SHAPES = [(8, 1024, 16, 64), (6, 2048, 16, 128)]
-COPIES, CALLS, ROUNDS = 8, 20, 7
+# B, N, nh, hd, causal, the kernels timed at the shape
+SHAPES = [(8, 1024, 16, 64, True, None), (6, 2048, 16, 128, True, None),
+          (8, 512, 12, 64, False, ("forward",)),
+          (4100, 128, 16, 64, False, ("forward",))]
+COPIES, CALLS, ROUNDS = 8, 20, 7      # copies: at most, and at most 400 MB
 
-# the committed tile_of and grid, and the call sites of tile_of
-TILE_OF = """__device__ __forceinline__ void tile_of(int& tile, int& b, int& h) {
-  tile = blockIdx.x;
-  h = blockIdx.y;
-  b = blockIdx.z;
-}"""
-GRID = "  return dim3((unsigned)tiles, (unsigned)H, (unsigned)B);"
-DKV_SITES = [("  tile_of(tile, b, h);\n  const int k0 = tile * " + t,
-              f"  tile_of((Nk + {t} - 1) / {t}, H, tile, b, h);\n"
-              f"  const int k0 = tile * {t}") for t in ("TK", "MR")]
-
-
-def one_d(index):
-    """The grid (row tiles * nh * B,), the block's tile, batch and head
-    found by division of an ``index``-typed block index."""
-    cast = "(unsigned)" if index == "unsigned" else ""
-    return [(TILE_OF, f"""__device__ __forceinline__ void tile_of(int tiles, int H, int& tile,
-                                        int& b, int& h) {{
-  const {index} blk = blockIdx.x;
-  tile = (int)(blk % {cast}tiles);
-  const int bh = (int)(blk / {cast}tiles);
-  b = bh / H;
-  h = bh % H;
-}}"""), *DKV_SITES,
-            ("  tile_of(tile, b, h);", "  tile_of(nqt, H, tile, b, h);"),
-            (GRID, "  return dim3((unsigned)((long long)tiles * B * H));")]
-
-
-VARIANTS = [
-    ("as built", []),
-    ("1-D grid, 32-bit division", one_d("unsigned")),
-    ("1-D grid, 64-bit division", one_d("long long")),
-    ("2-D grid (tiles, B * nh)", [
-        (TILE_OF, """__device__ __forceinline__ void tile_of(int H, int& tile, int& b,
-                                        int& h) {
-  tile = blockIdx.x;
-  b = blockIdx.y / H;
-  h = blockIdx.y % H;
-}"""),
-        ("  tile_of(tile, b, h);", "  tile_of(H, tile, b, h);"),
-        (GRID, "  return dim3((unsigned)tiles, (unsigned)(B * H));")]),
-    ("forward and dk/dv with no register cap", [
-        ("__global__ void __launch_bounds__(MT, D == 256 ? 1 : 4)\n"
-         "fa_fwd_mma(", "__global__ void __launch_bounds__(MT)\nfa_fwd_mma("),
-        ("__global__ void __launch_bounds__(MT, D == 64 ? 3 : 1)\n"
-         "fa_bwd_dkv_mma(",
-         "__global__ void __launch_bounds__(MT)\nfa_bwd_dkv_mma(")]),
+# suspects of the older fused backward (fa_bwd_dkv_mma<D, QB, true>), each
+# cut from the --against source
+OLD_ADDS = """          atomicAdd(dst + col, aq[j][2 * hi]);
+          atomicAdd(dst + col + 1, aq[j][2 * hi + 1]);"""
+OLD_BARRIER = "      __syncthreads();  // every warp's ds is in DSs\n"
+SUSPECTS = [
+    ("no dq adds", [(OLD_ADDS, """          if (scale < 0.f) {
+            atomicAdd(dst + col, aq[j][2 * hi]);
+            atomicAdd(dst + col + 1, aq[j][2 * hi + 1]);
+          }""")]),
+    ("no third barrier", [(OLD_BARRIER, "")]),
 ]
-KERNELS = {"forward": "fa_fwd_mma", "dq": "fa_bwd_dq_mma",
-           "dk/dv": "fa_bwd_dkv_mmaILi{hd}ELi\\d+ELb0",
-           "fused": "fa_bwd_dkv_mmaILi{hd}ELi\\d+ELb1"}
+# design variants of the committed kernels, and one diagnostic cut
+FWD_FIRST = """    const uint32_t qa = sq + wg * 8192;
+"""
+FWD_S0 = """    mbar_wait(full, 0);
+    wgmma_fence();
+    scores_qk<BKR, NB>(s, qa, L::QBOX, ring + L::S_K, L::KBOX, 0);
+    wgmma_commit();
+"""
+FWD_NEXT = """      const bool next = kt + 1 < kt_end;
+      if (next) {
+"""
+FWD_PV = """      pv<D, BKR>(o, p, ring + cur * L::STAGE + L::S_V, L::KBOX);
+"""
+VARIANTS = [
+    # the two consumer warpgroups take turns to issue their products
+    # (named barriers 4 and 5), so that one's softmax runs under the
+    # other's wgmmas
+    ("ping-pong", [
+        (FWD_FIRST, FWD_FIRST + "    if (wg == 0) named_arrive(4, 256);\n"),
+        (FWD_S0, "    named_sync(4 + wg, 256);\n" + FWD_S0
+         + "    named_arrive(5 - wg, 256);\n"),
+        (FWD_NEXT, "      named_sync(4 + wg, 256);\n" + FWD_NEXT),
+        (FWD_PV, FWD_PV + "      named_arrive(5 - wg, 256);\n")]),
+    # the first version of the redesigned forward: 2 stages at hd 128
+    ("forward: 2 stages at hd 128", [
+        ("static constexpr int ST = WIDE ? 3 : (D == 256 ? 2 : D == 128 ? 3 "
+         ": 4);", "static constexpr int ST = WIDE ? 3 : (D == 64 ? 4 : 2);")]),
+    ("forward: 6 stages at hd 64", [
+        ("static constexpr int ST = WIDE ? 3 : (D == 256 ? 2 : D == 128 ? 3 "
+         ": 4);", "static constexpr int ST = WIDE ? 3 : (D == 256 ? 2 : D == "
+         "128 ? 3 : 6);")]),
+    ("fused: 4 stages at hd 64", [
+        ("  static constexpr int ST = D == 128 ? 2 : 3;\n"
+         "  static constexpr int KBOX = BKV * 128;",
+         "  static constexpr int ST = D == 128 ? 2 : WIDE ? 3 : 4;\n"
+         "  static constexpr int KBOX = BKV * 128;")]),
+    # every consumer thread arrives on a stage's empty barrier after its
+    # own wgmma wait (256 arrivals), instead of a warpgroup barrier and one
+    # arrival a warpgroup
+    ("per-thread stage releases", [
+        ("""  wg_sync(wg);
+  if ((threadIdx.x & 127) == 0) mbar_arrive(bar);""", """  mbar_arrive(bar);"""),
+        ("""      mbar_init(empty + 8 * i, 2);   // both consumer warpgroups""",
+         """      mbar_init(empty + 8 * i, 256);"""),
+        ("""      mbar_init(full + 8 * i, 2);    // the TMA thread's two arrivals
+      mbar_init(empty + 8 * i, 2);""", """      mbar_init(full + 8 * i, 2);    // the TMA thread's two arrivals
+      mbar_init(empty + 8 * i, 256);""")]),
+    # cuts, not designs (the results are wrong; the times show what a
+    # part of the forward costs): K/V tiles loaded only while the ring
+    # first fills, later stages reusing what is there; and the softmax's
+    # exponentials replaced by a multiply
+    ("forward cut: K/V loaded once a stage", [
+        ("""            mbar_expect_tx(bar, L::STAGE);
+            for (int kb = 0; kb < NB; ++kb) {""",
+         """            if (kt >= ST) { mbar_arrive(bar); if (++s == ST) { s = 0; ph ^= 1; } continue; }
+            mbar_expect_tx(bar, L::STAGE);
+            for (int kb = 0; kb < NB; ++kb) {""")]),
+    ("forward cut: no exponentials", [
+        ("      const float x = exp2f(fmaf(s[4 * j + e], c2, -mb[e >> 1]));",
+         "      const float x = fmaf(s[4 * j + e], c2, -mb[e >> 1]) * 0.001f;")]),
+    # a cut, not a design: the fused kernel's dq tiles are not added to
+    # the buffer (the result is wrong; the time shows what the bulk
+    # reductions cost)
+    ("fused: no dq reduction (wrong result)", [
+        ("        tma_reduce_add_4d(&tm_dq, base + L::DQ + bx * L::DQBOX,",
+         "        if (scale < 0.f) tma_reduce_add_4d(&tm_dq, base + L::DQ + bx * L::DQBOX,")]),
+]
+# kernel -> ptxas name patterns (this source's, then older ones)
+KERNELS = {"forward": [r"fa_fwd_wgILi{hd}ELb0", r"fa_fwd_mmaILi{hd}E"],
+           "dq": [r"fa_bwd_dq_mmaILi{hd}ELb0", r"fa_bwd_dq_mmaILi{hd}EE"],
+           "dk/dv": [r"fa_bwd_dkv_mmaILi{hd}ELi\d+ELb0"],
+           "fused": [r"fa_bwd_wgILi{hd}ELb0", r"fa_bwd_dkv_mmaILi{hd}ELi\d+ELb1"]}
+KERNELS["fused + zero, cast"] = KERNELS["fused"]
 
 
-def variant_source(src, pairs):
+def patched(src, pairs):
     for old, new in pairs:
         if old not in src:
             raise SystemExit(f"variant line not in the source: {old!r}")
@@ -124,12 +172,10 @@ def ptxas_report(log):
 
 
 def ptxas_of(report, kname, hd):
-    pat = KERNELS[kname].format(hd=hd)
-    if "ILi" not in pat:
-        pat += f"ILi{hd}E"
-    for name, rep in report:
-        if re.search(pat, name):
-            return rep
+    for pat in KERNELS[kname]:
+        for name, rep in report:
+            if re.search(pat.format(hd=hd), name):
+                return rep
     return "?"
 
 
@@ -147,6 +193,29 @@ def load(path):
     return lib
 
 
+def build_all(sources):
+    """nvcc every (name, text, directory) at once; (libs, ptxas reports)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = build.nvcc_path()
+    procs = []
+    for n, (_, text, srcdir) in enumerate(sources):
+        path = OUT / f"v{n}.cu"
+        path.write_text(text)
+        # -I: its #includes resolve beside the file it came from
+        procs.append(subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, f"-I{srcdir}", "-o",
+             str(OUT / f"v{n}.so"), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, regs = [], []
+    for n, proc in enumerate(procs):
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{sources[n][0]}: nvcc failed\n{log[-3000:]}")
+        libs.append(load(OUT / f"v{n}.so"))
+        regs.append(ptxas_report(log))
+    return libs, regs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="another flash_attn.cu to time")
@@ -157,41 +226,34 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = SRC.read_text()
-    sources = [(name, variant_source(src, pairs)) for name, pairs in VARIANTS]
+    committed = SRC.read_text()
+    sources = [("as built", committed, SRC.parent)]
+    for name, pairs in VARIANTS:
+        sources.append((name, patched(committed, pairs), SRC.parent))
     if args.against:
-        sources.append((f"--against {args.against}",
-                        open(args.against).read()))
-    nvcc = build.nvcc_path()
-    procs = []
-    for n, (_, text) in enumerate(sources):
-        (OUT / f"v{n}.cu").write_text(text)
-        procs.append(subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-o", str(OUT / f"v{n}.so"),
-             str(OUT / f"v{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, regs = [], []
-    for n, proc in enumerate(procs):
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"{sources[n][0]}: nvcc failed\n{log[-3000:]}")
-        libs.append(load(OUT / f"v{n}.so"))
-        regs.append(ptxas_report(log))
-    names = [name for name, _ in sources]
+        other = Path(args.against)
+        text = other.read_text()
+        sources.append((f"against {args.against}", text, other.parent))
+        for name, pairs in SUSPECTS:
+            sources.append((f"against, {name}", patched(text, pairs),
+                            other.parent))
+    libs, regs = build_all(sources)
+    names = [name for name, _, _ in sources]
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, N, nh, hd in SHAPES:
+    for B, N, nh, hd, causal, only in SHAPES:
         def rnd():
             return torch.randn((B, N, nh, hd), device="cuda",
                                generator=gen).to(torch.bfloat16)
         sets = []
-        for _ in range(COPIES):
+        nbytes = B * N * nh * hd * 2
+        for _ in range(max(1, min(COPIES, (400 << 20) // nbytes))):
             q, k, v, do = rnd(), rnd(), rnd(), rnd()
             sets.append({"q": q, "k": k, "v": v, "do": do,
                          "o": torch.empty_like(q), "dq": torch.empty_like(q),
                          "dk": torch.empty_like(q), "dv": torch.empty_like(q),
                          "dq32": torch.zeros(q.shape, device="cuda"),
+                         "dqc": torch.empty_like(q),
                          "lse": torch.empty((B, nh, N), device="cuda"),
                          "delta": torch.empty((B, nh, N), device="cuda")})
         st = [N * nh * hd, nh * hd, hd]       # b, n, h strides of each
@@ -202,42 +264,57 @@ def main():
 
         def fwd(lib, s):
             return lib.pt_flash_fwd(*ptrs(s, "q", "k", "v", "o", "lse"),
-                                    B, nh, N, N, hd, *st, *st, *st, 1,
-                                    scale, 1, stream)
+                                    B, nh, N, N, hd, *st, *st, *st,
+                                    int(causal), scale, 1, stream)
 
         def bwd(fn, outs):
             def call(lib, s):
                 return getattr(lib, fn)(
                     *ptrs(s, "q", "k", "v", "do", "lse", "delta", *outs),
-                    B, nh, N, N, hd, *st, *st, *st, *st, 1, scale, 1, stream)
+                    B, nh, N, N, hd, *st, *st, *st, *st, int(causal), scale,
+                    1, stream)
             return call
+
+        fused = bwd("pt_flash_bwd_fused", ["dq32", "dk", "dv"])
+
+        def fused_wrapped(lib, s):
+            # as the wrapper runs it: zeroed buffer, kernel, cast
+            s["dq32"].zero_()
+            err = fused(lib, s)
+            s["dqc"].copy_(s["dq32"])
+            return err
 
         calls = {"forward": fwd, "dq": bwd("pt_flash_bwd_dq", ["dq"]),
                  "dk/dv": bwd("pt_flash_bwd_dkv", ["dk", "dv"]),
-                 "fused": bwd("pt_flash_bwd_fused", ["dq32", "dk", "dv"])}
+                 "fused": fused, "fused + zero, cast": fused_wrapped}
+        if only:
+            calls = {k: f for k, f in calls.items() if k in only}
+        compared = {"forward": ["o", "lse"], "dq": ["dq"],
+                    "dk/dv": ["dk", "dv"], "fused": ["dk", "dv", "dq32"],
+                    "fused + zero, cast": ["dk", "dv", "dqc"]}
         # operands for the backward from the committed forward
         for s in sets:
             if fwd(libs[0], s):
                 raise SystemExit("forward failed")
             s["delta"].copy_((s["o"].float() * s["do"].float()).sum(-1)
                              .transpose(1, 2))
-        # every variant's outputs equal the committed source's
-        checked = {"forward": ["o", "lse"], "dq": ["dq"],
-                   "dk/dv": ["dk", "dv"], "fused": ["dk", "dv"]}
-        s = sets[0]
+        o0, lse0 = sets[0]["o"].clone(), sets[0]["lse"].clone()
         for kname, fn in calls.items():
-            if fn(libs[0], s):
-                raise SystemExit(f"{kname} failed")
-            torch.cuda.synchronize()
-            ref = [s[n].clone() for n in checked[kname]]
-            for name, lib in zip(names[1:], libs[1:]):
+            diffs = {}
+            for name, lib in zip(names, libs):
+                s = sets[0]
+                s["dq32"].zero_()
                 if fn(lib, s):
                     raise SystemExit(f"{name}: {kname} launch failed")
                 torch.cuda.synchronize()
-                if not all(torch.equal(s[n], r)
-                           for n, r in zip(checked[kname], ref)):
-                    raise SystemExit(f"{name}: {kname} differs from as built")
-        for kname, fn in calls.items():
+                got = [s[n].float().clone() for n in compared[kname]]
+                if name == names[0]:
+                    ref = got
+                diffs[name] = max(float((g - r).abs().max())
+                                  for g, r in zip(got, ref))
+            # the backward reads the committed forward's out and lse
+            sets[0]["o"].copy_(o0)
+            sets[0]["lse"].copy_(lse0)
             times = {name: [] for name in names}
             for lib in libs:                    # warm-up
                 for s in sets:
@@ -249,17 +326,22 @@ def main():
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
                     for c in range(CALLS):
-                        fn(lib, sets[c % COPIES])
+                        fn(lib, sets[c % len(sets)])
                     end.record()
                     end.synchronize()
                     times[name].append(start.elapsed_time(end) / CALLS)
+            for s in sets:                      # the forward's outputs back
+                fwd(libs[0], s)
             for name, rep in zip(names, regs):
                 t = sorted(times[name])
-                print(f"[{B}, {N}, {nh}, {hd}] causal bf16 {kname:8s} "
-                      f"{name:40s} median {t[len(t) // 2]:.5f} ms "
-                      f"(min {t[0]:.5f}, max {t[-1]:.5f}, {ROUNDS} rounds "
-                      f"of {CALLS}); ptxas: {ptxas_of(rep, kname, hd)}",
-                      flush=True)
+                print(f"[{B}, {N}, {nh}, {hd}] "
+                      f"{'causal' if causal else 'full'} bf16 "
+                      f"{kname:18s} {name:44s} median {t[len(t) // 2]:.5f} "
+                      f"ms (min {t[0]:.5f}, max {t[-1]:.5f}, {ROUNDS} "
+                      f"rounds of {CALLS}); max |diff| from as built "
+                      f"{diffs[name]:.3e}; ptxas: "
+                      f"{ptxas_of(rep, kname, hd)}", flush=True)
+
 
 if __name__ == "__main__":
     main()
