@@ -10,7 +10,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   (b) build every kernel from ``paddle_tpu_torch/ops/cuda/csrc`` (one nvcc
       per source, in parallel) and report ptxas' register and spill counts,
       one line for each instance of the warp-specialised kernels
-      (``fa_fwd_wg``, ``fa_bwd_wg``, ``ffn_wg``);
+      (``fa_fwd_wg``, the split backward's ``fa_bwd_dq_wg`` and
+      ``fa_bwd_wg<D, WIDE, false>``, the fused ``fa_bwd_wg<D, WIDE,
+      true>``, ``ffn_wg``);
   (c) every kernel's wrapper against its plain PyTorch version on the card,
       in fp32 and bf16, at the shapes the serving and training paths give
       it, with the device times (CUDA-graph replay) of the kernel, the
@@ -327,7 +329,7 @@ def l2_copies(nbytes):
 
 
 # the warp-specialised kernels whose ptxas lines (b) prints one by one
-WG_KERNELS = ("fa_fwd_wg", "fa_bwd_wg", "ffn_wg")
+WG_KERNELS = ("fa_fwd_wg", "fa_bwd_dq_wg", "fa_bwd_wg", "ffn_wg")
 
 
 def ptxas_kernels(text, stems):

@@ -2,13 +2,14 @@
 // (sm_90a).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attn.py:
-//   fa_fwd_wg / fa_fwd           <- _fa_kernel      (_flash_attention_tpu)
-//   fa_bwd_dq_mma / fa_bwd_dq    <- _fa_dq_kernel   (split path of
-//   fa_bwd_dkv_mma / fa_bwd_dkv  <- _fa_dkv_kernel   _flash_attention_bwd_tpu)
-//   fa_bwd_wg / fa_bwd_dkv       <- _fa_fused_bwd_kernel (its fused path,
-//     (fp32: FUSED = true)          set_default_blocks(bwd_fused=True))
-// (*_wg: bf16, warp-specialised TMA + wgmma; *_mma: bf16 on warp-level
-// mma.sync; the others: fp32 on the CUDA cores.)
+//   fa_fwd_wg / fa_fwd              <- _fa_kernel      (_flash_attention_tpu)
+//   fa_bwd_dq_wg / fa_bwd_dq        <- _fa_dq_kernel   (split path of
+//   fa_bwd_wg<., ., false> /        <- _fa_dkv_kernel   _flash_attention_bwd_tpu)
+//     fa_bwd_dkv
+//   fa_bwd_wg<., ., true> /         <- _fa_fused_bwd_kernel (its fused path,
+//     fa_bwd_dkv (fp32: FUSED)         set_default_blocks(bwd_fused=True))
+// (*_wg: bf16, warp-specialised TMA + wgmma; the others: fp32 on the CUDA
+// cores.)
 // Same arithmetic: s = (q . k) * scale in fp32 from the stored values,
 // bottom-right causal mask (query i sees key j <= i + Nk - N), ragged K tail
 // masked, online softmax with m/l/acc in fp32, p cast to the stored type
@@ -16,16 +17,16 @@
 // recomputes p = exp(s - lse) from the saved row logsumexp, takes
 // delta = rowsum(dO * O) from the wrapper, forms ds = p * (dp - delta) * scale
 // and casts p and ds to the stored type before their products, as the
-// Pallas kernels do.  The split backward has no atomics: dq (q tile
-// stationary) and dk/dv (K/V tile stationary) are separate kernels, so its
-// results are deterministic.  The fused backward keeps a K/V tile
-// stationary and adds each q tile's ds @ k into a zeroed fp32 [B, N, nh, hd]
-// dq buffer (the wrapper casts it to the stored type): p and ds are
-// recomputed once per tile, five products against the split's seven.  The
-// reference writes one fp32 dq partial per K block instead and sums them
-// after; those would take O(N^2 hd / block) bytes, the buffer here O(N hd).
-// The order of the adds varies from run to run, and with it the last bits
-// of dq.
+// Pallas kernels do.  The split backward has no atomics and no reductions:
+// dq (q tile stationary) and dk/dv (K/V tile stationary) are separate
+// kernels that each write their outputs once, so its results are
+// deterministic.  The fused backward keeps a K/V tile stationary and adds
+// each q tile's ds @ k into a zeroed fp32 [B, N, nh, hd] dq buffer (the
+// wrapper casts it to the stored type): p and ds are recomputed once per
+// tile, five products against the split's seven.  The reference writes one
+// fp32 dq partial per K block instead and sums them after; those would take
+// O(N^2 hd / block) bytes, the buffer here O(N hd).  The order of the adds
+// varies from run to run, and with it the last bits of dq.
 //
 // Head widths.  hd 64, 128 and 256 have their own instances (the wrapper
 // zero-pads other widths up to 256 to the next of these).  Wider heads
@@ -35,8 +36,8 @@
 // (and in the backward dp = dO . V^T) over the full width in 64-column
 // chunks, its own chunk last, so that the tiles in shared memory hold
 // exactly its columns when the products that write them run; it writes
-// only its own slice, and group 0 writes the lse.  The bf16 fused backward
-// takes the group path from hd 256 (its dk and dv accumulators at 256
+// only its own slice, and group 0 writes the lse.  The bf16 backward
+// kernels take the group path from hd 256 (their accumulators at 256
 // columns would not fit the registers of a warpgroup).
 //
 // Bound.  At the flagship shape (B=6, N=Nk=2048, nh=16, hd=128, causal,
@@ -44,45 +45,54 @@
 // over rows) against 202 MB: bound by operations on the tensor cores
 // (0.104 ms at 989 TFLOP/s).  At the 345M shape (hd 64, N=1024, B=8) it
 // needs 17 GFLOP against 67 MB: bound by bytes (20 us at 3.35 TB/s).  A
-// backward pass needs 10*V*hd (five products; the split design does seven)
-// and is bound by operations; the fused backward also sends V*hd fp32 adds
-// (per K tile, its q rows) to L2.  In fp32 the 67 TFLOP/s of the CUDA cores
-// bound both passes by operations.
+// backward pass needs 10*V*hd (five products; the split design does seven:
+// dq recomputes s and dp, 6*V*hd, dk/dv 8*V*hd) and is bound by
+// operations; the fused backward also sends V*hd fp32 adds (per K tile, its
+// q rows) to L2.  In fp32 the 67 TFLOP/s of the CUDA cores bound both
+// passes by operations.
 //
-// Design for that bound, bf16 (fa_fwd_wg, fa_bwd_wg): 384 threads, two
+// Design for that bound, bf16 (every *_wg kernel): 384 threads, two
 // consumer warpgroups of 64 rows each and a producer warpgroup whose one
 // thread issues TMA loads into a ring of stages guarded by full and empty
 // mbarriers; setmaxnreg gives the consumers 240 registers and the producers
 // 24.  Every product is a wgmma from 128-byte-swizzled TMA tiles: scores
-// from two K-major operands, p (or ds) from registers against V (or dO, Q)
-// read as stored through MN-major descriptors.  The tensor maps are built
-// over the strided [B, N, nh, hd] views as they are (the model's q/k/v are
-// slices of one fused projection); TMA's out-of-bounds zero fill takes the
-// ragged tails.  The softmax runs in fp32 registers with exp2 and
+// (and dp) from two K-major operands, p or ds from registers against V, K,
+// dO or Q read as stored through MN-major descriptors, so no operand is
+// transposed in registers.  The tensor maps are built over the strided
+// [B, N, nh, hd] views as they are (the model's q/k/v are slices of one
+// fused projection); TMA's out-of-bounds zero fill takes the ragged tails.
+// The softmax (or p = exp(s - lse)) runs in fp32 registers with exp2 and
 // scale * log2(e) folded into one multiply, and the mask is applied only
 // on tiles that cross the diagonal or a tail.
-//  * Forward: a block owns 128 q rows of one (batch, head); Q is loaded once
-//    and K/V tiles (128 keys up to hd 128, 64 at hd 256) stream through the
-//    ring.  Each warpgroup issues the next tile's scores before this tile's
-//    p . V and runs the next softmax while that product is in flight.  Out
-//    goes through shared memory (over Q's rows) to a TMA store.
-//  * Fused backward: a block owns 128 keys (64 a warpgroup), keeps its K/V
-//    tile in shared memory and dk, dv in fp32 registers, and streams 64-row
-//    q tiles with their dO, lse and delta.  Per q tile: s^T = K Q^T and
-//    dp^T = V dO^T, then p^T and ds^T in registers, dv += p^T dO and
-//    dk += ds^T Q.  ds^T also goes to shared memory (two buffers by tile
-//    parity), both warpgroups meet at a named barrier, and each computes
-//    half of dq_tile = ds K's columns with one more wgmma, stores it in
-//    shared memory and adds it to the fp32 dq buffer with one bulk tensor
-//    reduction per 32-column box (cp.reduce.async.bulk.tensor .add): no
-//    scalar atomics.
+//  * Forward (fa_fwd_wg): a block owns 128 q rows of one (batch, head); Q is
+//    loaded once and K/V tiles (128 keys up to hd 128, 64 at hd 256) stream
+//    through the ring.  Each warpgroup issues the next tile's scores before
+//    this tile's p . V and runs the next softmax while that product is in
+//    flight.  Out goes through shared memory (over Q's rows) to a TMA store.
+//  * dq (fa_bwd_dq_wg): the forward's structure.  A block owns 128 q rows;
+//    Q and dO are loaded once, lse and delta sit in registers, and K/V tiles
+//    (128 keys at hd 64, 64 at hd 128) stream through the ring.  Per tile:
+//    s = Q K^T and dp = dO V^T, ds in registers, dq += ds K.  The next
+//    tile's s and dp are issued before this tile's dq product, and its ds
+//    formed while that product runs.  dq is written once, in bf16, through
+//    shared memory to a TMA store.
+//  * dk/dv and the fused backward (fa_bwd_wg<D, WIDE, FUSED>): a block owns
+//    128 keys (64 a warpgroup), keeps its K/V tile in shared memory and dk,
+//    dv in fp32 registers, and streams 64-row q tiles with their dO, lse
+//    and delta.  Per q tile: s^T = K Q^T and dp^T = V dO^T, then p^T and
+//    ds^T in registers, dv += p^T dO and dk += ds^T Q.  dk and dv are
+//    written once, in bf16.  FUSED only: ds^T also goes to shared memory
+//    (two buffers by tile parity), both warpgroups meet at a named barrier,
+//    and each computes half of dq_tile = ds K's columns with one more wgmma,
+//    stores it in shared memory and adds it to the fp32 dq buffer with one
+//    bulk tensor reduction per 32-column box (cp.reduce.async.bulk.tensor
+//    .add): no scalar atomics.
 // Causal tiles above the diagonal are skipped (the forward and dq stop at
 // the last K tile the diagonal reaches; dk/dv start at the first q tile
 // that reaches theirs), and the tiles with the most work launch first.
-// The split backward (fa_bwd_dq_mma, fa_bwd_dkv_mma) runs warp-level
-// mma.sync with synchronous loads.  fp32 runs on the CUDA cores (TF32 would
-// break its 1e-5 tolerance): 256 threads each own a 4 x 4 patch of the score
-// tile in fp32 FMAs, tiles held in shared memory as fp32.
+// fp32 runs on the CUDA cores (TF32 would break its 1e-5 tolerance): 256
+// threads each own a 4 x 4 patch of the score tile in fp32 FMAs, tiles held
+// in shared memory as fp32.
 //
 // Layout: q, k, v and dO are [B, N, nh, hd] with any strides on the first
 // three axes (the bf16 kernels need 16-byte aligned rows, which the wrapper
@@ -100,8 +110,6 @@
 
 namespace {
 
-constexpr int BQ = 64;    // rows of the q tile
-constexpr int BK = 64;    // rows of the K/V tile
 constexpr int NT = 256;   // fp32 threads: 16 x 16, each an R x R patch
 constexpr int GW = 64;    // columns of a head-width group (WIDE instances)
 constexpr float NEG_INF = -1e30f;
@@ -149,7 +157,7 @@ __device__ __forceinline__ float row_sum16(float v) {
 
 // Last K tile (exclusive) of TK rows that rows [q0, q0 + TQ) of a q tile
 // can see.
-template <int TQ = BQ, int TK = BK>
+template <int TQ, int TK>
 __device__ __forceinline__ int k_tiles_for(int q0, int N, int Nk,
                                            int causal) {
   int end = (Nk + TK - 1) / TK;
@@ -618,358 +626,6 @@ fa_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The split backward in bf16: warp-level mma.sync m16n8k16, fp32
-// accumulate.  4 warps; each warp owns 16 rows of the stationary tile.
-// Tiles sit in shared memory as bf16 rows padded by 8 elements (16 bytes),
-// so the fragment loads of a warp hit 32 distinct banks.  Fragment layout
-// (PTX ISA, mma.m16n8k16): g = lane / 4, t = lane % 4; A rows g and g + 8,
-// columns 2t, 2t + 1 (+ 8); B columns g, rows 2t, 2t + 1 (+ 8); the
-// accumulator holds rows g (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.
-// A score accumulator over 16 keys is, once cast to bf16, the A fragment of
-// the next product: p and ds never leave registers.
-// ---------------------------------------------------------------------------
-constexpr int MW = 4;             // warps per block
-constexpr int MT = 32 * MW;       // threads per block
-constexpr int MR = 16 * MW;       // rows of the stationary tile
-static_assert(MR == BQ, "k_tiles_for assumes the q tile has BQ rows");
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return pack_bf16(lo, hi);
-}
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows [r0, r0 + 16), columns [k0, k0 + 16) of row-major M.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* M, int ld,
-                                       int r0, int k0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* p = M + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-// B fragment with B[k][n] = M[n0 + n][k0 + k] (M's rows are B's columns).
-__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[2], const bf16* M,
-                                            int ld, int n0, int k0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* p = M + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-// B fragment with B[k][n] = M[k0 + k][n0 + n] (M's rows are B's rows).
-__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[2], const bf16* M,
-                                            int ld, int k0, int n0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* p = M + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack2(p[0], p[ld]);
-  b[1] = pack2(p[8 * ld], p[9 * ld]);
-}
-// The A fragment for k-step j of a product whose k axis is the n axis of
-// the accumulators acc[2j], acc[2j + 1], cast to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack2(lo[0], lo[1]);
-  a[1] = pack2(lo[2], lo[3]);
-  a[2] = pack2(hi[0], hi[1]);
-  a[3] = pack2(hi[2], hi[3]);
-}
-
-// Rows [r0, r0 + R) of one (batch, head) slice -> shared bf16 [R][LD] in
-// 16-byte chunks (row starts and strides are multiples of 8 elements, which
-// the wrapper ensures); rows at or past n_rows are zero.
-template <int D, int R, int LD>
-__device__ __forceinline__ void load_tile16(bf16* __restrict__ dst,
-                                            const bf16* __restrict__ base,
-                                            long long sn, int r0, int n_rows) {
-  constexpr int C = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < R * C; i += MT) {
-    const int r = i / C, c = i % C;
-    const int row = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < n_rows)
-      v = __ldg(reinterpret_cast<const uint4*>(base + (long long)row * sn) + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + 8 * c) = v;
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// backward dq, bf16: one block per (q tile of MR rows, group, batch, head)
-template <int D, bool WIDE>
-__global__ void __launch_bounds__(MT)
-fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int H, int N, int Nk, int hd, Strides sq,
-              Strides sk, Strides sv, Strides sd, int causal, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int ND = D / 8;
-  constexpr int NK = BK / 8;
-  extern __shared__ __align__(1024) unsigned char smraw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smraw);  // [MR][LD]
-  bf16* Gs = Qs + MR * LD;                     // dO, [MR][LD]
-  bf16* Ks = Gs + MR * LD;                     // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                     // [BK][LD]
-
-  const int nqt = (N + MR - 1) / MR;
-  int tile, grp, b, h;
-  tile_of<WIDE>(nqt, tile, grp, b, h);
-  const int q0 = (nqt - 1 - tile) * MR;
-  const int nch = WIDE ? hd / D : 1;
-  const int od = WIDE ? hd : D;
-  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const long long row_base = ((long long)b * H + h) * N;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* gb = dout + b * sd.b + h * sd.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  if constexpr (!WIDE) {
-    load_tile16<D, MR, LD>(Qs, qb, sq.n, q0, N);
-    load_tile16<D, MR, LD>(Gs, gb, sd.n, q0, N);
-  }
-  const int kt_end = k_tiles_for(q0, N, Nk, causal);
-  const int row0 = q0 + 16 * w + g;
-  float Lr[2], Dr[2];
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int row = row0 + 8 * hi;
-    Lr[hi] = row < N ? lse[row_base + row] : 0.f;
-    Dr[hi] = row < N ? delta[row_base + row] : 0.f;
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    // WIDE: the last chunk is the group's, so Ks holds its K columns below
-    for (int ci = 0; ci < nch; ++ci) {
-      const int c = WIDE ? chunk_of(grp, ci, nch) : 0;
-      __syncthreads();
-      if constexpr (WIDE) {
-        load_tile16<D, MR, LD>(Qs, qb + c * D, sq.n, q0, N);
-        load_tile16<D, MR, LD>(Gs, gb + c * D, sd.n, q0, N);
-      }
-      load_tile16<D, BK, LD>(Ks, kb + c * D, sk.n, k0, Nk);
-      load_tile16<D, BK, LD>(Vs, vb + c * D, sv.n, k0, Nk);
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[4], ga[4];
-        frag_a(a, Qs, LD, 16 * w, 16 * ks);
-        frag_a(ga, Gs, LD, 16 * w, 16 * ks);
-#pragma unroll
-        for (int n = 0; n < NK; ++n) {
-          uint32_t bb[2];
-          frag_b_rows(bb, Ks, LD, 8 * n, 16 * ks);
-          mma16816(s[n], a, bb);
-          frag_b_rows(bb, Vs, LD, 8 * n, 16 * ks);
-          mma16816(dp[n], ga, bb);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1;
-        const int col = k0 + 8 * n + 2 * t + (e & 1);
-        const float p = visible(row0 + 8 * hi, col, N, Nk, causal)
-                            ? expf(s[n][e] * scale - Lr[hi])
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - Dr[hi]) * scale;  // ds
-      }
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * ks], s[2 * ks + 1]);  // ds cast to bf16
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        uint32_t bb[2];
-        frag_b_cols(bb, Ks, LD, 16 * ks, 8 * j);
-        mma16816(acc[j], a, bb);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int row = row0 + 8 * hi;
-    if (row >= N) continue;
-    bf16* out = dq + (((long long)b * N + row) * H + h) * od + grp * D;
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t) =
-          pack2(acc[j][2 * hi], acc[j][2 * hi + 1]);
-  }
-}
-
-// backward dk/dv, bf16: one block per (K tile of MR rows, group, batch,
-// head); QB rows streamed.  Each warp owns 16 key rows of the transposed
-// scores.  At hd 64 three blocks share an SM, so ptxas holds the kernel to
-// 168 registers.
-template <int D, int QB, bool WIDE>
-__global__ void __launch_bounds__(MT, D == 64 ? 3 : 1)
-fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N,
-               int Nk, int hd, Strides sq, Strides sk, Strides sv, Strides sd,
-               int causal, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int ND = D / 8;
-  constexpr int NQ = QB / 8;   // n-tiles of the transposed score tile
-  extern __shared__ __align__(1024) unsigned char smraw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);  // [MR][LD]
-  bf16* Vs = Ks + MR * LD;                     // [MR][LD]
-  bf16* Qs = Vs + MR * LD;                     // [QB][LD]
-  bf16* Gs = Qs + QB * LD;                     // dO, [QB][LD]
-  float* Ls = reinterpret_cast<float*>(Gs + QB * LD);  // [QB]
-  float* Dl = Ls + QB;                                  // [QB]
-
-  int tile, grp, b, h;
-  tile_of<WIDE>((Nk + MR - 1) / MR, tile, grp, b, h);
-  const int k0 = tile * MR;
-  const int nch = WIDE ? hd / D : 1;
-  const int od = WIDE ? hd : D;
-  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const long long row_base = ((long long)b * H + h) * N;
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* gb = dout + b * sd.b + h * sd.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  if constexpr (!WIDE) {
-    load_tile16<D, MR, LD>(Ks, kb, sk.n, k0, Nk);
-    load_tile16<D, MR, LD>(Vs, vb, sv.n, k0, Nk);
-  }
-  const int nqt = (N + QB - 1) / QB;
-  const int qt0 = causal ? max(0, k0 - (Nk - N)) / QB : 0;
-  const int key0 = k0 + 16 * w + g;  // this thread's keys: key0, key0 + 8
-
-  float adk[ND][4], adv[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
-
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int q0 = qt * QB;
-    float s[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    // WIDE: the last chunk is the group's, so Qs and Gs hold its columns
-    // for the products below
-    for (int ci = 0; ci < nch; ++ci) {
-      const int c = WIDE ? chunk_of(grp, ci, nch) : 0;
-      __syncthreads();
-      if constexpr (WIDE) {
-        load_tile16<D, MR, LD>(Ks, kb + c * D, sk.n, k0, Nk);
-        load_tile16<D, MR, LD>(Vs, vb + c * D, sv.n, k0, Nk);
-      }
-      load_tile16<D, QB, LD>(Qs, qb + c * D, sq.n, q0, N);
-      load_tile16<D, QB, LD>(Gs, gb + c * D, sd.n, q0, N);
-      if (ci == 0) {
-        for (int i = threadIdx.x; i < QB; i += MT) {
-          Ls[i] = q0 + i < N ? lse[row_base + q0 + i] : 0.f;
-          Dl[i] = q0 + i < N ? delta[row_base + q0 + i] : 0.f;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[4], va[4];
-        frag_a(a, Ks, LD, 16 * w, 16 * ks);
-        frag_a(va, Vs, LD, 16 * w, 16 * ks);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t bb[2];
-          frag_b_rows(bb, Qs, LD, 8 * n, 16 * ks);
-          mma16816(s[n], a, bb);
-          frag_b_rows(bb, Gs, LD, 8 * n, 16 * ks);
-          mma16816(dp[n], va, bb);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * t + (e & 1);  // query row in the tile
-        const int key = key0 + 8 * (e >> 1);
-        const bool ok = q0 + c < N && visible(q0 + c, key, N, Nk, causal);
-        const float p = ok ? expf(s[n][e] * scale - Ls[c]) : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - Dl[c]) * scale;  // ds
-      }
-#pragma unroll
-    for (int ks = 0; ks < QB / 16; ++ks) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * ks], s[2 * ks + 1]);    // p cast to bf16
-      acc_to_a(da, dp[2 * ks], dp[2 * ks + 1]);  // ds cast to bf16
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        uint32_t bb[2];
-        frag_b_cols(bb, Gs, LD, 16 * ks, 8 * j);
-        mma16816(adv[j], pa, bb);
-        frag_b_cols(bb, Qs, LD, 16 * ks, 8 * j);
-        mma16816(adk[j], da, bb);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int row = key0 + 8 * hi;
-    if (row >= Nk) continue;
-    const long long off = (((long long)b * Nk + row) * H + h) * od + grp * D;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
-          pack2(adk[j][2 * hi], adk[j][2 * hi + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
-          pack2(adv[j][2 * hi], adv[j][2 * hi + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // bf16, warp-specialised: TMA into mbarrier rings, wgmma from 128-byte-
 // swizzled tiles.  384 threads: consumer warpgroups 0 and 1, producer
 // warpgroup 2 (thread 256 issues every load).  A tile of R rows x 64
@@ -980,9 +636,19 @@ fa_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // mma.m16n8k16 layout, n-tiles side by side).
 // ---------------------------------------------------------------------------
 constexpr int WG_THREADS = 384;
-constexpr int FQ = 128;     // forward: q rows of a block
-constexpr int BKV = 128;    // fused backward: keys of a block
-constexpr int BQ2 = 64;     // fused backward: q rows of a streamed tile
+constexpr int FQ = 128;     // forward, dq: q rows of a block
+constexpr int BKV = 128;    // dk/dv and fused backward: keys of a block
+constexpr int BQ2 = 64;     // dk/dv and fused backward: q rows of a tile
+
+// max / sum over the 4 threads (t) that share a row of an accumulator
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
 // The m16n8k16 A fragments (k16 step q: u32 4q..4q+3) of a 64 x (4 NP)
 // bf16 operand from an fp32 accumulator of the same shape.
@@ -1103,6 +769,42 @@ __device__ __forceinline__ void pv(float (&o)[D / 2],
   for (int ks = 0; ks < BKR / 16; ++ks)
     wgmma_rs<D, 1>(o, p + 4 * ks, sw128_desc(va + ks * 2048, kbox, 1024));
   wgmma_commit();
+}
+
+// This warpgroup's 64 rows of an fp32 [64, D] accumulator, row half hi
+// times mul[hi], cast to bf16 into its rows of a 128-row tile at `stage`
+// (D / 64 swizzled boxes, `box` bytes apart), then TMA-stored to columns
+// [64 grp, 64 grp + D) of rows [r0, r0 + 64) (rows past N are not written).
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           const float (&mul)[2],
+                                           uint32_t stage, uint32_t box,
+                                           const CUtensorMap* tm, int grp,
+                                           int h, int r0, int b, int N,
+                                           int wg) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, gq = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = 16 * warp + gq + 8 * hi;
+      const uint32_t a = stage + (col >> 6) * box + sw128_off(r, col & 63, 2);
+      const uint32_t val = pack_bf16(acc[4 * j + 2 * hi] * mul[hi],
+                                     acc[4 * j + 2 * hi + 1] * mul[hi]);
+      asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(a), "r"(val) : "memory");
+    }
+  }
+  fence_async_smem();
+  wg_sync(wg);
+  if (tid == 0 && r0 < N) {
+#pragma unroll
+    for (int kb = 0; kb < D / 64; ++kb)
+      tma_store_4d(tm, stage + kb * box, 64 * (kb + grp), h, r0, b);
+    bulk_commit();
+    bulk_wait();
+  }
 }
 
 // forward, bf16: one block per (q tile of FQ rows, group, batch, head).
@@ -1280,40 +982,22 @@ fa_fwd_wg(const __grid_constant__ CUtensorMap tm_q,
             m[hi] * scale + logf(fmaxf(l[hi], 1e-30f));
     }
   }
-  const uint32_t stage = (WIDE ? ring + si * L::STAGE : sq) + wg * 8192;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int r = 16 * warp + gq + 8 * hi;
-      const uint32_t a = stage + (col >> 6) * L::QBOX + sw128_off(r, col & 63, 2);
-      const uint32_t val = pack_bf16(o[4 * j + 2 * hi] * inv[hi],
-                                     o[4 * j + 2 * hi + 1] * inv[hi]);
-      asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(a), "r"(val) : "memory");
-    }
-  }
-  fence_async_smem();
-  wg_sync(wg);
-  if (tid == 0 && r0 < N) {
-#pragma unroll
-    for (int kb = 0; kb < NB; ++kb)
-      tma_store_4d(&tm_o, stage + kb * L::QBOX, 64 * (kb + grp), h, r0, b);
-    bulk_commit();
-    bulk_wait();
-  }
+  store_rows<D>(o, inv, (WIDE ? ring + si * L::STAGE : sq) + wg * 8192,
+                L::QBOX, &tm_o, grp, h, r0, b, N, wg);
 }
 
-// Shared-memory layout of fa_bwd_wg<D, WIDE>.  Narrow: K and V resident
-// (D / 64 boxes of 128 keys each), a stage holds the q tile's Q and dO
-// (D / 64 boxes of 64 rows each), its lse and delta.  WIDE (D = 64): a stage
-// holds one 64-column chunk of K, V, Q and dO (lse and delta with the last
-// chunk).  Then ds^T [128 keys][64 q] bf16 twice (by tile parity) and the dq
-// tile [64 q][D] fp32 as D / 32 swizzled boxes of 32 columns.
-template <int D, bool WIDE>
+// Shared-memory layout of fa_bwd_wg<D, WIDE, FUSED>.  Narrow: K and V
+// resident (D / 64 boxes of 128 keys each), a stage holds the q tile's Q and
+// dO (D / 64 boxes of 64 rows each), its lse and delta.  WIDE (D = 64): a
+// stage holds one 64-column chunk of K, V, Q and dO (lse and delta with the
+// last chunk).  FUSED then adds ds^T [128 keys][64 q] bf16 twice (by tile
+// parity) and the dq tile [64 q][D] fp32 as D / 32 swizzled boxes of 32
+// columns.  Stages: the fused kernel at hd 128 fits two; every other
+// instance takes three.
+template <int D, bool WIDE, bool FUSED>
 struct BwdSmem {
   static constexpr int NB = D / 64;
-  static constexpr int ST = D == 128 ? 2 : 3;
+  static constexpr int ST = FUSED && D == 128 ? 2 : 3;
   static constexpr int KBOX = BKV * 128;
   static constexpr int QBOX = BQ2 * 128;
   static constexpr int K = 0;
@@ -1328,21 +1012,24 @@ struct BwdSmem {
   static constexpr int STAGE = (S_D + BQ2 * 4 + 1023) & ~1023;
   static constexpr int DS = RING + ST * STAGE;
   static constexpr int DSBUF = BKV * 128;
-  static constexpr int DQ = DS + 2 * DSBUF;
+  static constexpr int DQ = DS + (FUSED ? 2 * DSBUF : 0);
   static constexpr int DQBOX = BQ2 * 128;               // [64 q][32 fp32]
-  static constexpr int BAR = DQ + (D / 32) * DQBOX;
+  static constexpr int BAR = DQ + (FUSED ? (D / 32) * DQBOX : 0);
   // kvbar, full [ST], empty [ST]
   static constexpr int BYTES = BAR + 8 * (1 + 2 * ST);
   static constexpr int ALLOC = BYTES + 1024;
 };
-static_assert(BwdSmem<64, false>::ALLOC <= 232448 &&
-                  BwdSmem<128, false>::ALLOC <= 232448 &&
-                  BwdSmem<64, true>::ALLOC <= 232448,
+static_assert(BwdSmem<64, false, true>::ALLOC <= 232448 &&
+                  BwdSmem<128, false, true>::ALLOC <= 232448 &&
+                  BwdSmem<64, true, true>::ALLOC <= 232448 &&
+                  BwdSmem<128, false, false>::ALLOC <= 232448,
               "fa_bwd_wg fits in shared memory");
 
-// fused backward, bf16: one block per (K tile of BKV keys, group, batch,
-// head); q tiles of BQ2 rows streamed.
-template <int D, bool WIDE>
+// dk/dv, bf16: one block per (K tile of BKV keys, group, batch, head); q
+// tiles of BQ2 rows streamed.  FUSED: the fused backward, which also adds
+// each q tile's ds K into the fp32 dq buffer behind tm_dq; otherwise the
+// split backward's dk/dv kernel (tm_dq unused).
+template <int D, bool WIDE, bool FUSED>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
           const __grid_constant__ CUtensorMap tm_k,
@@ -1353,8 +1040,11 @@ fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
           bf16* __restrict__ dk,
           bf16* __restrict__ dv, int b0, int H, int N, int Nk, int hd,
           int causal, float scale) {
-  using L = BwdSmem<D, WIDE>;
+  using L = BwdSmem<D, WIDE, FUSED>;
   constexpr int NB = L::NB, ST = L::ST;
+  // registers a thread after setmaxnreg (2 x 128 x C + 128 x P = 384 x 168)
+  constexpr int CONSUMER_REGS = WIDE ? 232 : 240;
+  constexpr int PRODUCER_REGS = WIDE ? 40 : 24;
   extern __shared__ __align__(1024) unsigned char smraw[];
   const uint32_t base = (smem_u32(smraw) + 1023) & ~1023u;
   const uint32_t ring = base + L::RING;
@@ -1386,8 +1076,10 @@ fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
     // Thread 256 issues the TMA loads; its warp copies each q tile's lse
     // and delta rows into the stage with plain loads (a TMA box may not
     // start off 16 bytes, and a row of lse starts anywhere), and thread
-    // 256 arrives once more when they are in.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    // 256 arrives once more when they are in.  The WIDE producer (chunk
+    // indices on top) spills at 24 registers; its consumers (64 columns of
+    // dk and dv) need fewer than 240.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
     const int lane = threadIdx.x - 256;
     if (lane < 32) {
       if (lane == 0 && !WIDE) {
@@ -1443,7 +1135,7 @@ fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // ---------------- consumers ----------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
   const int tid = threadIdx.x & 127;
   const int warp = tid >> 5, gq = (tid & 31) >> 2, t = tid & 3;
   const int kw = k0 + 64 * wg;                 // this warpgroup's keys
@@ -1512,19 +1204,21 @@ fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
     uint32_t pa[16], da[16];
     acc_to_frags<16>(pa, sT);    // p cast to bf16
     acc_to_frags<16>(da, dpT);   // ds cast to bf16
-    // ds^T rows of this warpgroup -> shared (the A operand of dq, read
-    // MN-major by both warpgroups)
     const uint32_t dsb = base + L::DS + par * L::DSBUF;
+    if constexpr (FUSED) {
+      // ds^T rows of this warpgroup -> shared (the A operand of dq, read
+      // MN-major by both warpgroups)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const uint32_t a = dsb + sw128_off(rk + 8 * hi, 8 * j + 2 * t, 2);
-        asm volatile("st.shared.u32 [%0], %1;\n"
-                     :: "r"(a), "r"(da[4 * (j >> 1) + 2 * (j & 1) + hi])
-                     : "memory");
-      }
-    fence_async_smem();
+        for (int hi = 0; hi < 2; ++hi) {
+          const uint32_t a = dsb + sw128_off(rk + 8 * hi, 8 * j + 2 * t, 2);
+          asm volatile("st.shared.u32 [%0], %1;\n"
+                       :: "r"(a), "r"(da[4 * (j >> 1) + 2 * (j & 1) + hi])
+                       : "memory");
+        }
+      fence_async_smem();
+    }
 
     // dv += p^T dO, dk += ds^T Q (B: dO, Q read as stored, MN-major)
     wgmma_fence();
@@ -1536,6 +1230,12 @@ fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
                      sw128_desc(st + L::S_Q + ks * 2048, L::QBOX, 1024));
     }
     wgmma_commit();
+    if constexpr (!FUSED) {
+      wgmma_wait<0>();
+      release(empty + 8 * si, wg);
+      if (++si == ST) { si = 0; ph ^= 1; }
+      continue;
+    }
 
     // dq_tile[:, this warpgroup's D / 2 columns] = ds K, once both
     // warpgroups' ds^T rows are in shared memory and the last tile's dq
@@ -1580,7 +1280,7 @@ fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
       bulk_commit();
     }
   }
-  if (tid == 0) bulk_wait();
+  if (FUSED && tid == 0) bulk_wait();
 
   // dk, dv: bf16 rows of this thread's keys
   const int od = WIDE ? hd : D;
@@ -1600,6 +1300,246 @@ fa_bwd_wg(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// Shared-memory layout of fa_bwd_dq_wg<D, WIDE>.  Narrow: Q and dO
+// resident (D / 64 boxes of 128 rows each); a stage holds the K and V tiles
+// of BKR keys (128 at hd 64; 64 at hd 128, so that the next tile's s and dp
+// fit the registers beside dq and this tile's ds).  WIDE (D = 64): a stage
+// holds one 64-column chunk of Q, dO, K and V; the last chunk is the
+// group's own, whose K tile the dq product reads.
+template <int D, bool WIDE>
+struct DqSmem {
+  static constexpr int NB = D / 64;
+  static constexpr int BKR = D == 128 ? 64 : 128;
+  static constexpr int ST = WIDE ? 3 : 4;
+  static constexpr int QBOX = FQ * 128;
+  static constexpr int KBOX = BKR * 128;
+  static constexpr int Q = 0;
+  static constexpr int G = NB * QBOX;
+  static constexpr int RING = WIDE ? 0 : 2 * NB * QBOX;
+  static constexpr int S_Q = 0;                         // WIDE, in a stage
+  static constexpr int S_G = QBOX;
+  static constexpr int S_K = WIDE ? 2 * QBOX : 0;
+  static constexpr int S_V = S_K + NB * KBOX;
+  static constexpr int STAGE = S_V + NB * KBOX;
+  static constexpr int BAR = RING + ST * STAGE;
+  // qbar, full [ST], empty [ST]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * ST);
+  static constexpr int ALLOC = BYTES + 1024;
+};
+static_assert(DqSmem<64, false>::ALLOC <= 232448 &&
+                  DqSmem<128, false>::ALLOC <= 232448 &&
+                  DqSmem<64, true>::ALLOC <= 232448,
+              "fa_bwd_dq_wg fits in shared memory");
+
+// p = exp(s scale - lse) and ds = p (dp - delta) scale of one tile of
+// BKR keys (raw scores s, dp; this thread's rows row0 and row0 + 8, their
+// lse in log2 units and delta), into bf16 A fragments of the dq product.
+// Masked where `mask`.  s is overwritten.
+template <int BKR>
+__device__ __forceinline__ void ds_tile(float (&s)[BKR / 2],
+                                        const float (&dp)[BKR / 2],
+                                        uint32_t (&ds)[BKR / 4],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], bool mask,
+                                        int row0, int k0, int t, int N,
+                                        int Nk, int causal, float c2,
+                                        float scale) {
+#pragma unroll
+  for (int j = 0; j < BKR / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hi = e >> 1;
+      float p = exp2f(fmaf(s[4 * j + e], c2, -lse2[hi]));
+      if (mask && !visible(row0 + 8 * hi, k0 + 8 * j + 2 * t + (e & 1), N,
+                           Nk, causal))
+        p = 0.f;
+      s[4 * j + e] = p * (dp[4 * j + e] - dl[hi]) * scale;
+    }
+  acc_to_frags<BKR / 4>(ds, s);   // ds cast to bf16 before ds K
+}
+
+// The split backward's dq, bf16: one block per (q tile of FQ rows, group,
+// batch, head); K/V tiles streamed.  Per tile: s = Q K^T and dp = dO V^T
+// from K-major tiles, ds in registers, dq += ds K with K read MN-major.
+template <int D, bool WIDE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fa_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const __grid_constant__ CUtensorMap tm_do,
+             const __grid_constant__ CUtensorMap tm_dq,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             int b0, int H, int N, int Nk, int hd, int causal, float scale) {
+  using L = DqSmem<D, WIDE>;
+  constexpr int NB = L::NB, BKR = L::BKR, ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  const uint32_t base = (smem_u32(smraw) + 1023) & ~1023u;
+  const uint32_t ring = base + L::RING;
+  const uint32_t qbar = base + L::BAR, full = qbar + 8, empty = full + 8 * ST;
+
+  const int nqt = (N + FQ - 1) / FQ;
+  int tile, grp, b, h;
+  tile_of<WIDE>(nqt, tile, grp, b, h);
+  b += b0;
+  const int q0 = (nqt - 1 - tile) * FQ;     // longest rows first
+  const int nch = WIDE ? hd / GW : 1;
+  const int kt_end = k_tiles_for<FQ, BKR>(q0, N, Nk, causal);
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 2);   // both consumer warpgroups
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      if constexpr (!WIDE) {
+        mbar_expect_tx(qbar, 2 * NB * L::QBOX);
+        for (int kb = 0; kb < NB; ++kb) {
+          tma_load_4d(base + L::Q + kb * L::QBOX, &tm_q, qbar, 64 * kb, h,
+                      q0, b);
+          tma_load_4d(base + L::G + kb * L::QBOX, &tm_do, qbar, 64 * kb, h,
+                      q0, b);
+        }
+      }
+      int s = 0, ph = 0;
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int k0 = kt * BKR;
+        for (int ci = 0; ci < nch; ++ci) {
+          const uint32_t st = ring + s * L::STAGE, bar = full + 8 * s;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(bar, L::STAGE);
+          if constexpr (WIDE) {
+            const int c = chunk_of(grp, ci, nch);
+            tma_load_4d(st + L::S_Q, &tm_q, bar, 64 * c, h, q0, b);
+            tma_load_4d(st + L::S_G, &tm_do, bar, 64 * c, h, q0, b);
+            tma_load_4d(st + L::S_K, &tm_k, bar, 64 * c, h, k0, b);
+            tma_load_4d(st + L::S_V, &tm_v, bar, 64 * c, h, k0, b);
+          } else {
+            for (int kb = 0; kb < NB; ++kb) {
+              tma_load_4d(st + L::S_K + kb * L::KBOX, &tm_k, bar, 64 * kb, h,
+                          k0, b);
+              tma_load_4d(st + L::S_V + kb * L::KBOX, &tm_v, bar, 64 * kb, h,
+                          k0, b);
+            }
+          }
+          if (++s == ST) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, gq = (tid & 31) >> 2, t = tid & 3;
+  const int r0 = q0 + 64 * wg;                // this warpgroup's rows
+  const int row0 = r0 + 16 * warp + gq;       // this thread's: row0, + 8
+  const float c2 = scale * LOG2E;
+  float lse2[2], dl[2];                       // lse in log2 units, delta
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = row0 + 8 * hi;
+    const long long i = ((long long)b * H + h) * N + row;
+    lse2[hi] = row < N ? lse[i] * LOG2E : 0.f;
+    dl[hi] = row < N ? delta[i] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float s[BKR / 2], dp[BKR / 2];
+  uint32_t ds[BKR / 4];
+  int si = 0, ph = 0;
+  // the mask: tiles that cross this warpgroup's diagonal or the K tail
+  auto masked = [&](int k0) {
+    return k0 + BKR > Nk || (causal && k0 + BKR - 1 > r0 + Nk - N);
+  };
+
+  if constexpr (WIDE) {
+    // chunked s and dp, then dq += ds K from the last chunk's stage
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int k0 = kt * BKR;
+      uint32_t st = 0;
+      for (int ci = 0; ci < nch; ++ci) {
+        st = ring + si * L::STAGE;
+        mbar_wait(full + 8 * si, ph);
+        wgmma_fence();
+        scores_qk<BKR, 1>(s, st + L::S_Q + wg * 8192, 0, st + L::S_K, 0, ci);
+        scores_qk<BKR, 1>(dp, st + L::S_G + wg * 8192, 0, st + L::S_V, 0, ci);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (ci < nch - 1) {
+          release(empty + 8 * si, wg);
+          if (++si == ST) { si = 0; ph ^= 1; }
+        }
+      }
+      ds_tile<BKR>(s, dp, ds, lse2, dl, masked(k0), row0, k0, t, N, Nk,
+                   causal, c2, scale);
+      pv<D, BKR>(dq, ds, st + L::S_K, L::KBOX);
+      wgmma_wait<0>();
+      if (kt < kt_end - 1) {     // the last stage stages the output
+        release(empty + 8 * si, wg);
+        if (++si == ST) { si = 0; ph ^= 1; }
+      }
+    }
+  } else {
+    mbar_wait(qbar, 0);
+    const uint32_t qa = base + L::Q + wg * 8192, ga = base + L::G + wg * 8192;
+    // tile 0's s, dp and ds; then, per tile, the next tile's s and dp and
+    // this tile's dq product in flight together, the next ds under it
+    mbar_wait(full, 0);
+    wgmma_fence();
+    scores_qk<BKR, NB>(s, qa, L::QBOX, ring + L::S_K, L::KBOX, 0);
+    scores_qk<BKR, NB>(dp, ga, L::QBOX, ring + L::S_V, L::KBOX, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ds_tile<BKR>(s, dp, ds, lse2, dl, masked(0), row0, 0, t, N, Nk, causal,
+                 c2, scale);
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int cur = si;
+      if (++si == ST) { si = 0; ph ^= 1; }
+      const bool next = kt + 1 < kt_end;
+      if (next) {
+        const uint32_t st = ring + si * L::STAGE;
+        mbar_wait(full + 8 * si, ph);
+        wgmma_fence();
+        scores_qk<BKR, NB>(s, qa, L::QBOX, st + L::S_K, L::KBOX, 0);
+        scores_qk<BKR, NB>(dp, ga, L::QBOX, st + L::S_V, L::KBOX, 0);
+        wgmma_commit();
+      }
+      pv<D, BKR>(dq, ds, ring + cur * L::STAGE + L::S_K, L::KBOX);
+      uint32_t dsn[BKR / 4];
+      if (next) {
+        wgmma_wait<1>();                   // the next tile's s, dp are done
+        const int k1 = (kt + 1) * BKR;
+        ds_tile<BKR>(s, dp, dsn, lse2, dl, masked(k1), row0, k1, t, N, Nk,
+                     causal, c2, scale);
+      }
+      wgmma_wait<0>();                     // this tile's dq product is done
+      release(empty + 8 * cur, wg);
+      if (next) {
+#pragma unroll
+        for (int i = 0; i < BKR / 4; ++i) ds[i] = dsn[i];
+      }
+    }
+  }
+
+  // epilogue: dq in bf16 through shared memory (this warpgroup's rows of
+  // the Q tile, or of the last stage's Q chunk) to a TMA store
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq, one,
+                (WIDE ? ring + si * L::STAGE + L::S_Q : base + L::Q) + wg * 8192,
+                L::QBOX, &tm_dq, grp, h, r0, b, N, wg);
+}
+
 // fp32 tiles: 64 rows (a 4 x 4 patch a thread) up to hd 128; at hd 256
 // 32 rows (2 x 2), so that the q, K, V and dO tiles fit in shared memory.
 template <int D> constexpr int f32_r() { return D == 256 ? 2 : 4; }
@@ -1615,21 +1555,8 @@ template <int D> constexpr int dkv_smem() {
   constexpr int T = 16 * f32_r<D>();
   return (2 * T * (D + 1) + 2 * T * (D + 1) + 2 * T * (T + 1) + 2 * T) * 4;
 }
-template <int D> constexpr int dq_mma_smem() {
-  return (2 * MR + 2 * BK) * (D + 8) * 2;
-}
-// q rows streamed by the bf16 dk/dv kernel: 64 keep its accumulators in
-// registers at hd 64; at hd 128 the dk/dv accumulators double, so 32; at hd
-// 256 they double again (256 floats a thread, past the register file, so
-// they spill), and 16 rows keep the rest small.
-template <int D> constexpr int dkv_qb() {
-  return D == 64 ? 64 : D == 128 ? 32 : 16;
-}
-template <int D> constexpr int dkv_mma_smem() {
-  return (2 * MR + 2 * dkv_qb<D>()) * (D + 8) * 2 + 2 * dkv_qb<D>() * 4;
-}
 static_assert(fwd_smem<256>() <= 232448 && dq_smem<256>() <= 232448 &&
-                  dkv_smem<256>() <= 232448 && dq_mma_smem<256>() <= 232448,
+                  dkv_smem<256>() <= 232448,
               "hd 256 tiles fit in shared memory");
 
 // The grid of one launch: `tiles` row tiles for each group, head and batch.
@@ -1740,32 +1667,62 @@ cudaError_t launch_fwd_wg(const void* q, const void* k, const void* v,
       });
 }
 
-// bf16 fused backward (fa_bwd_wg): dk, dv, and dq32 (fp32, zeroed by the
-// caller) += ds @ k by bulk tensor reductions.
-template <int D, bool WIDE>
-cudaError_t launch_fused_wg(const void* q, const void* k, const void* v,
-                            const void* dout, const float* lse,
-                            const float* delta, float* dq32, void* dk,
-                            void* dv, int B, int H, int N, int Nk, int hd,
-                            Strides sq, Strides sk, Strides sv, Strides sd,
-                            int causal, float scale, cudaStream_t st) {
-  using L = BwdSmem<D, WIDE>;
+// bf16 dk/dv (fa_bwd_wg): dk, dv, and with FUSED dq32 (fp32, zeroed by the
+// caller) += ds @ k by bulk tensor reductions (the split kernel takes no
+// dq32 and passes q's map in tm_dq's place, unread).
+template <int D, bool WIDE, bool FUSED>
+cudaError_t launch_bwd_wg(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, float* dq32, void* dk,
+                          void* dv, int B, int H, int N, int Nk, int hd,
+                          Strides sq, Strides sk, Strides sv, Strides sd,
+                          int causal, float scale, cudaStream_t st) {
+  using L = BwdSmem<D, WIDE, FUSED>;
   static bool done = false;
   CUtensorMap tq, tk, tv, tdo, tdq;
   if (!bf16_operand(&tq, q, B, N, H, hd, sq, BQ2) ||
       !bf16_operand(&tk, k, B, Nk, H, hd, sk, BKV) ||
       !bf16_operand(&tv, v, B, Nk, H, hd, sv, BKV) ||
-      !bf16_operand(&tdo, dout, B, N, H, hd, sd, BQ2) ||
-      !operand_map(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq32, B, N, H,
-                   hd, contiguous(N, H, hd), BQ2, 32))
+      !bf16_operand(&tdo, dout, B, N, H, hd, sd, BQ2))
+    return cudaErrorInvalidValue;
+  if (!FUSED)
+    tdq = tq;
+  else if (!operand_map(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq32, B, N,
+                        H, hd, contiguous(N, H, hd), BQ2, 32))
     return cudaErrorInvalidValue;
   return launch_wg_grid(
-      fa_bwd_wg<D, WIDE>, L::ALLOC, done, (Nk + BKV - 1) / BKV,
+      fa_bwd_wg<D, WIDE, FUSED>, L::ALLOC, done, (Nk + BKV - 1) / BKV,
       groups_of<WIDE>(hd), B, H, st,
       [&](auto kern, dim3 grid, int smem, cudaStream_t s, int b0) {
         kern<<<grid, WG_THREADS, smem, s>>>(
             tq, tk, tv, tdo, tdq, lse, delta, static_cast<bf16*>(dk),
             static_cast<bf16*>(dv), b0, H, N, Nk, hd, causal, scale);
+      });
+}
+
+// bf16 split dq (fa_bwd_dq_wg): dq written once, by TMA stores.
+template <int D, bool WIDE>
+cudaError_t launch_dq_wg(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, void* dq, int B, int H, int N,
+                         int Nk, int hd, Strides sq, Strides sk, Strides sv,
+                         Strides sd, int causal, float scale,
+                         cudaStream_t st) {
+  using L = DqSmem<D, WIDE>;
+  static bool done = false;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!bf16_operand(&tq, q, B, N, H, hd, sq, FQ) ||
+      !bf16_operand(&tk, k, B, Nk, H, hd, sk, L::BKR) ||
+      !bf16_operand(&tv, v, B, Nk, H, hd, sv, L::BKR) ||
+      !bf16_operand(&tdo, dout, B, N, H, hd, sd, FQ) ||
+      !bf16_operand(&tdq, dq, B, N, H, hd, contiguous(N, H, hd), 64))
+    return cudaErrorInvalidValue;
+  return launch_wg_grid(
+      fa_bwd_dq_wg<D, WIDE>, L::ALLOC, done, (N + FQ - 1) / FQ,
+      groups_of<WIDE>(hd), B, H, st,
+      [&](auto kern, dim3 grid, int smem, cudaStream_t s, int b0) {
+        kern<<<grid, WG_THREADS, smem, s>>>(tq, tk, tv, tdo, tdq, lse, delta,
+                                            b0, H, N, Nk, hd, causal, scale);
       });
 }
 
@@ -1789,79 +1746,50 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool WIDE>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int H, int N, int Nk, int hd,
-                      Strides sq, Strides sk, Strides sv, Strides sd,
-                      int causal, float scale, cudaStream_t st) {
+// fp32 dq on the FMA kernel; pointers already at the launch's batch.
+template <int D, bool WIDE>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, void* dq, int B, int H, int N,
+                          int Nk, int hd, Strides sq, Strides sk, Strides sv,
+                          Strides sd, int causal, float scale,
+                          cudaStream_t st) {
   static bool done = false;
-  cudaError_t e;
-  const int groups = groups_of<WIDE>(hd);
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = dq_mma_smem<D>();
-    if ((e = allow_smem(fa_bwd_dq_mma<D, WIDE>, smem, done)) != cudaSuccess)
-      return e;
-    fa_bwd_dq_mma<D, WIDE><<<grid_of((N + MR - 1) / MR, B, H, groups), MT,
-                             smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dq), H, N, Nk, hd, sq, sk, sv, sd, causal,
-        scale);
-  } else {
-    constexpr int smem = dq_smem<D>();
-    constexpr int R = f32_r<D>();
-    if ((e = allow_smem(fa_bwd_dq<D, R, WIDE>, smem, done)) != cudaSuccess)
-      return e;
-    fa_bwd_dq<D, R, WIDE><<<grid_of((N + 16 * R - 1) / (16 * R), B, H,
-                                    groups),
-                            NT, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), H, N, Nk, hd, sq, sk, sv, sd, causal,
-        scale);
-  }
+  constexpr int smem = dq_smem<D>();
+  constexpr int R = f32_r<D>();
+  cudaError_t e = allow_smem(fa_bwd_dq<D, R, WIDE>, smem, done);
+  if (e != cudaSuccess) return e;
+  fa_bwd_dq<D, R, WIDE><<<grid_of((N + 16 * R - 1) / (16 * R), B, H,
+                                  groups_of<WIDE>(hd)),
+                          NT, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), H, N, Nk, hd, sq, sk, sv, sd, causal,
+      scale);
   return cudaGetLastError();
 }
 
-// The split dk/dv kernel (bf16 or fp32), or in fp32 with FUSED the fused
-// backward, which also adds dq into the zeroed fp32 dq32.
-template <typename T, int D, bool WIDE, bool FUSED>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, float* dq32, int B, int H, int N,
-                       int Nk, int hd, Strides sq, Strides sk, Strides sv,
-                       Strides sd, int causal, float scale, cudaStream_t st) {
+// fp32 dk/dv on the FMA kernel, or with FUSED the fused backward, which
+// also adds dq into the zeroed fp32 dq32; pointers at the launch's batch.
+template <int D, bool WIDE, bool FUSED>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv,
+                           float* dq32, int B, int H, int N, int Nk, int hd,
+                           Strides sq, Strides sk, Strides sv, Strides sd,
+                           int causal, float scale, cudaStream_t st) {
   static bool done = false;
-  cudaError_t e;
-  const int groups = groups_of<WIDE>(hd);
-  if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(!FUSED, "the bf16 fused backward is fa_bwd_wg");
-    constexpr int smem = dkv_mma_smem<D>();
-    constexpr int QB = dkv_qb<D>();
-    if ((e = allow_smem(fa_bwd_dkv_mma<D, QB, WIDE>, smem, done)) !=
-        cudaSuccess)
-      return e;
-    fa_bwd_dkv_mma<D, QB, WIDE>
-        <<<grid_of((Nk + MR - 1) / MR, B, H, groups), MT, smem, st>>>(
-            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-            delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, Nk,
-            hd, sq, sk, sv, sd, causal, scale);
-  } else {
-    constexpr int smem = dkv_smem<D>();
-    constexpr int R = f32_r<D>();
-    if ((e = allow_smem(fa_bwd_dkv<D, R, FUSED, WIDE>, smem, done)) !=
-        cudaSuccess)
-      return e;
-    fa_bwd_dkv<D, R, FUSED, WIDE>
-        <<<grid_of((Nk + 16 * R - 1) / (16 * R), B, H, groups), NT, smem,
-           st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), dq32, H, N,
-        Nk, hd, sq, sk, sv, sd, causal, scale);
-  }
+  constexpr int smem = dkv_smem<D>();
+  constexpr int R = f32_r<D>();
+  cudaError_t e = allow_smem(fa_bwd_dkv<D, R, FUSED, WIDE>, smem, done);
+  if (e != cudaSuccess) return e;
+  fa_bwd_dkv<D, R, FUSED, WIDE>
+      <<<grid_of((Nk + 16 * R - 1) / (16 * R), B, H, groups_of<WIDE>(hd)),
+         NT, smem, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+          delta, static_cast<float*>(dk), static_cast<float*>(dv), dq32, H,
+          N, Nk, hd, sq, sk, sv, sd, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1887,6 +1815,46 @@ cudaError_t dispatch(int dtype, int hd, F&& f) {
     if (dtype == 1) return f(bf16(), W64(), Wide());
   }
   return cudaErrorInvalidValue;
+}
+
+// The bf16 backward kernels run hd 64 and 128 narrow, hd 256 and wider on
+// the 64-column group path (at 256 columns a warpgroup's accumulators
+// would not fit its registers).
+template <int W, bool WIDE>
+constexpr int bwd_width() { return W == 256 || WIDE ? 64 : W; }
+template <int W, bool WIDE>
+constexpr bool bwd_wide() { return W == 256 || WIDE; }
+
+// The split backward's dk/dv (FUSED = 0) or the fused backward (FUSED = 1),
+// which also adds dq into dq32 (fp32 [B, N, nh, hd], zeroed by the caller).
+template <bool FUSED>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const float* lse, const float* delta, float* dq32, void* dk,
+            void* dv, int B, int H, int N, int Nk, int D, const Strides& sq,
+            const Strides& sk, const Strides& sv, const Strides& sd,
+            int causal, float scale, int dtype, void* stream) {
+  if (!shapes_ok(B, H, N, Nk, causal)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long qrow = (long long)N * H * D, krow = (long long)Nk * H * D,
+                  lrow = (long long)H * N;
+  return (int)dispatch(dtype, D, [&](auto t, auto w, auto wide) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool WIDE = decltype(wide)::value;
+    if constexpr (std::is_same<decltype(t), bf16>::value) {
+      return launch_bwd_wg<bwd_width<W, WIDE>(), bwd_wide<W, WIDE>(), FUSED>(
+          q, k, v, dout, lse, delta, dq32, dk, dv, B, H, N, Nk, D, sq, sk,
+          sv, sd, causal, scale, st);
+    } else {
+      return by_batch(B, [&](int b0, int nb) {
+        return launch_dkv_f32<W, WIDE, FUSED>(
+            adv(q, b0 * sq.b, 4), adv(k, b0 * sk.b, 4), adv(v, b0 * sv.b, 4),
+            adv(dout, b0 * sd.b, 4), adv(lse, b0 * lrow),
+            adv(delta, b0 * lrow), adv(dk, b0 * krow, 4),
+            adv(dv, b0 * krow, 4), adv(dq32, b0 * qrow), nb, H, N, Nk, D,
+            sq, sk, sv, sd, causal, scale, st);
+      });
+    }
+  });
 }
 
 }  // namespace
@@ -1930,17 +1898,23 @@ extern "C" int pt_flash_bwd_dq(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
       sd{dsb, dsn, dsh};
-  const int es = dtype == 1 ? 2 : 4;
   const long long qrow = (long long)N * H * D, lrow = (long long)H * N;
-  return (int)by_batch(B, [&](int b0, int nb) {
-    return dispatch(dtype, D, [&](auto t, auto w, auto wide) {
-      return launch_dq<decltype(t), decltype(w)::value,
-                       decltype(wide)::value>(
-          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
-          adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
-          adv(dq, b0 * qrow, es), nb, H, N, Nk, D, sq, sk, sv, sd, causal,
-          scale, st);
-    });
+  return (int)dispatch(dtype, D, [&](auto t, auto w, auto wide) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool WIDE = decltype(wide)::value;
+    if constexpr (std::is_same<decltype(t), bf16>::value) {
+      return launch_dq_wg<bwd_width<W, WIDE>(), bwd_wide<W, WIDE>()>(
+          q, k, v, dout, lse, delta, dq, B, H, N, Nk, D, sq, sk, sv, sd,
+          causal, scale, st);
+    } else {
+      return by_batch(B, [&](int b0, int nb) {
+        return launch_dq_f32<W, WIDE>(
+            adv(q, b0 * qsb, 4), adv(k, b0 * ksb, 4), adv(v, b0 * vsb, 4),
+            adv(dout, b0 * dsb, 4), adv(lse, b0 * lrow),
+            adv(delta, b0 * lrow), adv(dq, b0 * qrow, 4), nb, H, N, Nk, D,
+            sq, sk, sv, sd, causal, scale, st);
+      });
+    }
   });
 }
 
@@ -1951,27 +1925,15 @@ extern "C" int pt_flash_bwd_dkv(
     long long ksb, long long ksn, long long ksh, long long vsb, long long vsn,
     long long vsh, long long dsb, long long dsn, long long dsh, int causal,
     float scale, int dtype, void* stream) {
-  if (!shapes_ok(B, H, N, Nk, causal)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
-      sd{dsb, dsn, dsh};
-  const int es = dtype == 1 ? 2 : 4;
-  const long long krow = (long long)Nk * H * D, lrow = (long long)H * N;
-  return (int)by_batch(B, [&](int b0, int nb) {
-    return dispatch(dtype, D, [&](auto t, auto w, auto wide) {
-      return launch_dkv<decltype(t), decltype(w)::value,
-                        decltype(wide)::value, false>(
-          adv(q, b0 * qsb, es), adv(k, b0 * ksb, es), adv(v, b0 * vsb, es),
-          adv(dout, b0 * dsb, es), adv(lse, b0 * lrow), adv(delta, b0 * lrow),
-          adv(dk, b0 * krow, es), adv(dv, b0 * krow, es), nullptr, nb, H, N,
-          Nk, D, sq, sk, sv, sd, causal, scale, st);
-    });
-  });
+  return bwd_dkv<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, N,
+                        Nk, D, Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh},
+                        Strides{vsb, vsn, vsh}, Strides{dsb, dsn, dsh},
+                        causal, scale, dtype, stream);
 }
 
 // The fused backward: dk, dv, and dq32 (fp32 [B, N, nh, hd], zeroed by the
-// caller) += ds @ k.  bf16 runs fa_bwd_wg (hd 64 and 128 narrow, wider on
-// the 64-column group path), fp32 the FMA kernel with FUSED.
+// caller) += ds @ k.  bf16 runs fa_bwd_wg<..., true>, fp32 the FMA kernel
+// with FUSED.
 extern "C" int pt_flash_bwd_fused(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, float* dq32, void* dk, void* dv,
@@ -1979,35 +1941,10 @@ extern "C" int pt_flash_bwd_fused(
     long long qsh, long long ksb, long long ksn, long long ksh, long long vsb,
     long long vsn, long long vsh, long long dsb, long long dsn, long long dsh,
     int causal, float scale, int dtype, void* stream) {
-  if (!shapes_ok(B, H, N, Nk, causal)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides sq{qsb, qsn, qsh}, sk{ksb, ksn, ksh}, sv{vsb, vsn, vsh},
-      sd{dsb, dsn, dsh};
-  const long long qrow = (long long)N * H * D, krow = (long long)Nk * H * D,
-                  lrow = (long long)H * N;
-  return (int)dispatch(dtype, D, [&](auto t, auto w, auto wide) {
-    constexpr int W = decltype(w)::value;
-    constexpr bool WIDE = decltype(wide)::value;
-    if constexpr (std::is_same<decltype(t), bf16>::value) {
-      if constexpr (W == 256 || WIDE)
-        return launch_fused_wg<64, true>(q, k, v, dout, lse, delta, dq32, dk,
-                                         dv, B, H, N, Nk, D, sq, sk, sv, sd,
-                                         causal, scale, st);
-      else
-        return launch_fused_wg<W, false>(q, k, v, dout, lse, delta, dq32, dk,
-                                         dv, B, H, N, Nk, D, sq, sk, sv, sd,
-                                         causal, scale, st);
-    } else {
-      return by_batch(B, [&](int b0, int nb) {
-        return launch_dkv<float, W, WIDE, true>(
-            adv(q, b0 * qsb, 4), adv(k, b0 * ksb, 4), adv(v, b0 * vsb, 4),
-            adv(dout, b0 * dsb, 4), adv(lse, b0 * lrow),
-            adv(delta, b0 * lrow), adv(dk, b0 * krow, 4),
-            adv(dv, b0 * krow, 4), adv(dq32, b0 * qrow), nb, H, N, Nk, D,
-            sq, sk, sv, sd, causal, scale, st);
-      });
-    }
-  });
+  return bwd_dkv<true>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H, N, Nk,
+                       D, Strides{qsb, qsn, qsh}, Strides{ksb, ksn, ksh},
+                       Strides{vsb, vsn, vsh}, Strides{dsb, dsn, dsh},
+                       causal, scale, dtype, stream);
 }
 
 extern "C" const char* pt_error_string(int e) {

@@ -46,7 +46,9 @@ block_k), so the reference falls back to the split kernels above
 ``_FUSED_DQP_BYTES_CAP``; the port's is O(N hd), so every backward with
 ``bwd_fused=True`` takes the fused kernel.  The routes differ there, not
 the results: both compute :func:`_ref_flash_bwd`'s function.  The adds'
-order varies from run to run, and with it dq's last bits.
+order varies from run to run, and with it dq's last bits; the split
+kernels write each of dq, dk and dv once, so they give the same bits on
+the same inputs.
 """
 from __future__ import annotations
 

@@ -198,14 +198,17 @@ def test_engine_on_card_matches_generate(dev):
                                    (2, 130, 130, 4, 32, True),
                                    (1, 300, 300, 3, 96, False),
                                    (4100, 16, 16, 16, 32, False),
-                                   (65537, 16, 16, 1, 64, False)])
+                                   (65537, 16, 16, 1, 64, False),
+                                   (8, 512, 512, 12, 64, False)])
 def test_flash_kernels_match_plain(dev, dtype, shape):
     """Forward (out, lse) and split backward (dq, dk, dv) against
     ``_ref_flash_fwd`` / ``_ref_flash_bwd``; q/k/v are strided views of one
     fused [B, N, 3, H] projection, as the model passes them.  hd 256 runs
-    its own instances; hd 32 and 96 are zero-padded to 64 and 128 at the
-    true width's scale; B * nh = 65,600 passes the old gridDim.y limit,
-    and B = 65,537 takes two launches of the (row tiles, nh, B) grid."""
+    its own forward and the backward's head-width groups; hd 32 and 96 are
+    zero-padded to 64 and 128 at the true width's scale; B * nh = 65,600
+    passes the old gridDim.y limit, B = 65,537 takes two launches of the
+    (row tiles, nh, B) grid, and [8, 512, 12, 64] with no mask is the
+    ERNIE-3.0-Base encoder's attention."""
     B, N, Nk, nh, hd, causal = shape
     g = torch.Generator(device=dev).manual_seed(N)
     qkv = torch.randn(B, N, 3, nh * hd, device=dev, generator=g).to(dtype)
@@ -238,6 +241,34 @@ def test_flash_kernels_match_plain(dev, dtype, shape):
         torch.testing.assert_close(
             got.float(), ref.float(),
             **(dict(atol=2e-4, rtol=0) if f32 else bf16_tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1000, 1000, 4, 64, True),
+                                   (8, 512, 512, 12, 64, False),
+                                   (2, 300, 300, 4, 128, True),
+                                   (1, 128, 320, 4, 64, True),
+                                   (2, 200, 200, 2, 256, True),
+                                   (1, 200, 200, 2, 384, False)])
+def test_split_backward_is_bitwise_deterministic(dev, dtype, shape):
+    """The split backward has no atomics and no reductions: two launches
+    of the dq kernel and of the dk/dv kernel on the same operands give the
+    same bits (hd 256 and 384 on the kernels' head-width groups)."""
+    B, N, Nk, nh, hd, causal = shape
+    g = torch.Generator(device=dev).manual_seed(N + hd)
+    q = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, Nk, nh, hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    out, lse = flash_attn.flash_fwd(q, k, v, causal)
+    ops = flash_attn._bwd_operands(q, k, v, out, do)
+    args = (*ops[:4], lse, ops[4], causal, 1.0 / hd ** 0.5)
+    first = (flash_attn._launch_dq(*args), *flash_attn._launch_dkv(*args))
+    second = (flash_attn._launch_dq(*args), *flash_attn._launch_dkv(*args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+        assert bool(torch.isfinite(a.float()).all()), name
 
 
 def test_flash_attention_autograd_on_card(dev):

@@ -31,6 +31,10 @@ CASES = [
     (1, 128, 128, 1, 128, True, None),      # hd 128
     (1, 128, 128, 1, 384, True, None),      # hd 384: a Pallas width past
                                             # 256 (the kernels' groups)
+    (1, 128, 128, 1, 256, True, None),      # hd 256: the bf16 backward
+                                            # kernels' group route
+    (2, 128, 128, 3, 64, False, None),      # the encoder's route: no mask,
+                                            # B and nh > 1
 ]
 IDS = [f"B{c[0]}-N{c[1]}-Nk{c[2]}-nh{c[3]}-hd{c[4]}-"
        f"{'causal' if c[5] else 'full'}" + (f"-blk{c[6]}" if c[6] else "")

@@ -1,22 +1,20 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash-attention kernels (forward, dq, dk/dv and the fused
-backward, ``paddle_tpu_torch/ops/cuda/csrc/flash_attn.cu``) beside another
-version of the source and variants of it, on one GPU, in one process.
+"""Time the bf16 flash-attention kernels (forward, the split backward's dq
+and dk/dv, and the fused backward, ``paddle_tpu_torch/ops/cuda/csrc/
+flash_attn.cu``) beside another version of the source and variants of
+it, on one GPU, in one process.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
     python3 tools/flash_variants.py [--against OTHER/flash_attn.cu]
 
-The sources are the committed one ("as built") and, with ``--against``,
-another version with the same C interface (an older commit's, unpacked
-with ``git archive`` into a directory ``.gitignore`` lists), as it is and
-with the suspects of its fused backward cut out one at a time:
-
-  * "no dq adds": the fused kernel's atomic adds into the fp32 dq buffer
-    sit behind a condition that is never true at run time (the dq product
-    stays);
-  * "no third barrier": the barrier before the dq product goes (the
-    result is wrong; only the time counts).
+The sources are the committed one ("as built"), the variants below (each
+a patch of it, timed only for the kernels it names), and, with
+``--against``, another version with the same C interface (an older
+commit's, unpacked with ``git archive`` into a directory ``.gitignore``
+lists).  Some variants are designs; the ones named "cut" break the result
+on purpose and only their time counts: it shows what the part they cut
+costs.
 
 For every source the fused backward is timed twice: the kernel alone, and
 as the wrapper runs it, with the fp32 dq buffer zeroed before and cast to
@@ -24,24 +22,24 @@ bf16 after ("+ zero, cast").  Each source is built with the port's own
 nvcc flags into ``paddle_tpu_torch/_build/flash_variants/`` and called
 through its C entry points on the same operands (up to eight copies, at
 most 400 MB, cycled, so that a call does not find its inputs in L2), at
-the 345M training shape [8, 1024,
-16, 64] and the flagship's [6, 2048, 16, 128], causal, and the encoder's
-[8, 512, 12, 64] and short rows at many heads, [4100, 128, 16, 64], with
-no mask (their forward only).  Beside each time
-is the largest |difference| of the variant's outputs from the committed
-source's (out and lse; dq; dk, dv; for the fused backward dk, dv and dq,
-whose adds' order varies), which the cut variants are free to break.
-Times are CUDA-event means over 20 calls, taken in rounds that visit the
-sources in turn, each round starting one source later; the median round
-is printed with the lowest and highest, and ptxas' registers, stack and
-spill loads for the kernel beside them.  The card's name and power limit
-come first.
+the 345M training shape [8, 1024, 16, 64] and the flagship's [6, 2048,
+16, 128], causal, the encoder's [8, 512, 12, 64] with no mask, hd 256 at
+[2, 512, 8, 256] causal, and short rows at many heads, [4100, 128, 16,
+64], with no mask (its forward only).  Beside each time is the largest
+|difference| of the variant's outputs from the committed source's (out
+and lse; dq; dk, dv; for the fused backward dk, dv and dq, whose adds'
+order varies).  Times are CUDA-event means over 20 calls, taken in rounds
+that visit the sources in turn, each round starting one source later; the
+median round is printed with the lowest and highest, and ptxas'
+registers, stack and spill loads for the kernel beside them.  The card's
+name and power limit come first.
 """
 import argparse
 import ctypes
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -53,95 +51,68 @@ SRC = build.CSRC / build.SOURCES["flash_attn"]
 OUT = build.BUILD_DIR / "flash_variants"
 # B, N, nh, hd, causal, the kernels timed at the shape
 SHAPES = [(8, 1024, 16, 64, True, None), (6, 2048, 16, 128, True, None),
-          (8, 512, 12, 64, False, ("forward",)),
+          (8, 512, 12, 64, False, ("forward", "dq", "dk/dv")),
+          (2, 512, 8, 256, True, ("dq", "dk/dv", "fused")),
           (4100, 128, 16, 64, False, ("forward",))]
 COPIES, CALLS, ROUNDS = 8, 20, 7      # copies: at most, and at most 400 MB
 
-# suspects of the older fused backward (fa_bwd_dkv_mma<D, QB, true>), each
-# cut from the --against source
-OLD_ADDS = """          atomicAdd(dst + col, aq[j][2 * hi]);
-          atomicAdd(dst + col + 1, aq[j][2 * hi + 1]);"""
-OLD_BARRIER = "      __syncthreads();  // every warp's ds is in DSs\n"
-SUSPECTS = [
-    ("no dq adds", [(OLD_ADDS, """          if (scale < 0.f) {
-            atomicAdd(dst + col, aq[j][2 * hi]);
-            atomicAdd(dst + col + 1, aq[j][2 * hi + 1]);
-          }""")]),
-    ("no third barrier", [(OLD_BARRIER, "")]),
-]
-# design variants of the committed kernels, and one diagnostic cut
-FWD_FIRST = """    const uint32_t qa = sq + wg * 8192;
-"""
-FWD_S0 = """    mbar_wait(full, 0);
-    wgmma_fence();
-    scores_qk<BKR, NB>(s, qa, L::QBOX, ring + L::S_K, L::KBOX, 0);
-    wgmma_commit();
-"""
-FWD_NEXT = """      const bool next = kt + 1 < kt_end;
-      if (next) {
-"""
-FWD_PV = """      pv<D, BKR>(o, p, ring + cur * L::STAGE + L::S_V, L::KBOX);
-"""
+# design variants of the committed kernels and cuts of them: (name,
+# [(text, replacement)], the kernels it is timed for)
+DQ_PRODUCER = """          mbar_expect_tx(bar, L::STAGE);
+          if constexpr (WIDE) {
+            const int c = chunk_of(grp, ci, nch);
+            tma_load_4d(st + L::S_Q, &tm_q, bar, 64 * c, h, q0, b);"""
+DKV_PRODUCER = """              mbar_expect_tx(bar, 2 * NB * L::QBOX);
+              for (int kb = 0; kb < NB; ++kb) {"""
 VARIANTS = [
-    # the two consumer warpgroups take turns to issue their products
-    # (named barriers 4 and 5), so that one's softmax runs under the
-    # other's wgmmas
-    ("ping-pong", [
-        (FWD_FIRST, FWD_FIRST + "    if (wg == 0) named_arrive(4, 256);\n"),
-        (FWD_S0, "    named_sync(4 + wg, 256);\n" + FWD_S0
-         + "    named_arrive(5 - wg, 256);\n"),
-        (FWD_NEXT, "      named_sync(4 + wg, 256);\n" + FWD_NEXT),
-        (FWD_PV, FWD_PV + "      named_arrive(5 - wg, 256);\n")]),
-    # the first version of the redesigned forward: 2 stages at hd 128
-    ("forward: 2 stages at hd 128", [
-        ("static constexpr int ST = WIDE ? 3 : (D == 256 ? 2 : D == 128 ? 3 "
-         ": 4);", "static constexpr int ST = WIDE ? 3 : (D == 64 ? 4 : 2);")]),
-    ("forward: 6 stages at hd 64", [
-        ("static constexpr int ST = WIDE ? 3 : (D == 256 ? 2 : D == 128 ? 3 "
-         ": 4);", "static constexpr int ST = WIDE ? 3 : (D == 256 ? 2 : D == "
-         "128 ? 3 : 6);")]),
-    ("fused: 4 stages at hd 64", [
-        ("  static constexpr int ST = D == 128 ? 2 : 3;\n"
-         "  static constexpr int KBOX = BKV * 128;",
-         "  static constexpr int ST = D == 128 ? 2 : WIDE ? 3 : 4;\n"
-         "  static constexpr int KBOX = BKV * 128;")]),
-    # every consumer thread arrives on a stage's empty barrier after its
-    # own wgmma wait (256 arrivals), instead of a warpgroup barrier and one
-    # arrival a warpgroup
-    ("per-thread stage releases", [
-        ("""  wg_sync(wg);
-  if ((threadIdx.x & 127) == 0) mbar_arrive(bar);""", """  mbar_arrive(bar);"""),
-        ("""      mbar_init(empty + 8 * i, 2);   // both consumer warpgroups""",
-         """      mbar_init(empty + 8 * i, 256);"""),
-        ("""      mbar_init(full + 8 * i, 2);    // the TMA thread's two arrivals
-      mbar_init(empty + 8 * i, 2);""", """      mbar_init(full + 8 * i, 2);    // the TMA thread's two arrivals
-      mbar_init(empty + 8 * i, 256);""")]),
-    # cuts, not designs (the results are wrong; the times show what a
-    # part of the forward costs): K/V tiles loaded only while the ring
-    # first fills, later stages reusing what is there; and the softmax's
-    # exponentials replaced by a multiply
-    ("forward cut: K/V loaded once a stage", [
-        ("""            mbar_expect_tx(bar, L::STAGE);
-            for (int kb = 0; kb < NB; ++kb) {""",
-         """            if (kt >= ST) { mbar_arrive(bar); if (++s == ST) { s = 0; ph ^= 1; } continue; }
-            mbar_expect_tx(bar, L::STAGE);
-            for (int kb = 0; kb < NB; ++kb) {""")]),
-    ("forward cut: no exponentials", [
-        ("      const float x = exp2f(fmaf(s[4 * j + e], c2, -mb[e >> 1]));",
-         "      const float x = fmaf(s[4 * j + e], c2, -mb[e >> 1]) * 0.001f;")]),
-    # a cut, not a design: the fused kernel's dq tiles are not added to
-    # the buffer (the result is wrong; the time shows what the bulk
-    # reductions cost)
-    ("fused: no dq reduction (wrong result)", [
-        ("        tma_reduce_add_4d(&tm_dq, base + L::DQ + bx * L::DQBOX,",
-         "        if (scale < 0.f) tma_reduce_add_4d(&tm_dq, base + L::DQ + bx * L::DQBOX,")]),
+    # 64-key K/V tiles at hd 64 too (the s and dp products at n = 64)
+    ("dq: 64-key tiles at hd 64", [
+        ("static constexpr int BKR = D == 128 ? 64 : 128;",
+         "static constexpr int BKR = 64;")], ("dq",)),
+    ("dk/dv: 4 stages", [
+        ("static constexpr int ST = FUSED && D == 128 ? 2 : 3;",
+         "static constexpr int ST = FUSED && D == 128 ? 2 : FUSED ? 3 : 4;")],
+     ("dk/dv",)),
+    # cuts: K/V (dq) or Q/dO (dk/dv and the fused kernel) loaded only while
+    # the ring first fills, later stages reusing what is there; and the
+    # exponentials of p replaced by a multiply
+    ("dq cut: K/V loaded once a stage", [
+        (DQ_PRODUCER, "          if (kt >= ST) { mbar_arrive(bar); if (++s "
+         "== ST) { s = 0; ph ^= 1; } continue; }\n" + DQ_PRODUCER)], ("dq",)),
+    ("dq cut: no exponentials", [
+        ("      float p = exp2f(fmaf(s[4 * j + e], c2, -lse2[hi]));",
+         "      float p = fmaf(s[4 * j + e], c2, -lse2[hi]) * 0.001f;")],
+     ("dq",)),
+    ("dk/dv cut: Q/dO loaded once a stage", [
+        (DKV_PRODUCER, """              const bool cut = qt - qt0 >= ST;
+              if (cut) mbar_arrive(bar);
+              else mbar_expect_tx(bar, 2 * NB * L::QBOX);
+              for (int kb = 0; kb < (cut ? 0 : NB); ++kb) {""")],
+     ("dk/dv", "fused")),
+    ("dk/dv cut: no exponentials", [
+        ("        float p = exp2f(fmaf(sT[4 * j + e], c2, -lse2));",
+         "        float p = fmaf(sT[4 * j + e], c2, -lse2) * 0.001f;")],
+     ("dk/dv", "fused")),
 ]
-# kernel -> ptxas name patterns (this source's, then older ones)
-KERNELS = {"forward": [r"fa_fwd_wgILi{hd}ELb0", r"fa_fwd_mmaILi{hd}E"],
-           "dq": [r"fa_bwd_dq_mmaILi{hd}ELb0", r"fa_bwd_dq_mmaILi{hd}EE"],
-           "dk/dv": [r"fa_bwd_dkv_mmaILi{hd}ELi\d+ELb0"],
-           "fused": [r"fa_bwd_wgILi{hd}ELb0", r"fa_bwd_dkv_mmaILi{hd}ELi\d+ELb1"]}
-KERNELS["fused + zero, cast"] = KERNELS["fused"]
+# kernel -> ptxas name patterns of its instance at head width hd (this
+# source's, then an older source's); hd 256 runs the backward's 64-column
+# groups
+NARROW = {"forward": [r"fa_fwd_wgILi{hd}ELb0"],
+          "dq": [r"fa_bwd_dq_wgILi{hd}ELb0", r"fa_bwd_dq_mmaILi{hd}ELb0"],
+          "dk/dv": [r"fa_bwd_wgILi{hd}ELb0ELb0",
+                    r"fa_bwd_dkv_mmaILi{hd}ELi\d+ELb0"],
+          "fused": [r"fa_bwd_wgILi{hd}ELb0ELb1", r"fa_bwd_wgILi{hd}ELb0EE"]}
+GROUPS = {"dq": [r"fa_bwd_dq_wgILi64ELb1", r"fa_bwd_dq_mmaILi256ELb0"],
+          "dk/dv": [r"fa_bwd_wgILi64ELb1ELb0",
+                    r"fa_bwd_dkv_mmaILi256ELi\d+ELb0"],
+          "fused": [r"fa_bwd_wgILi64ELb1ELb1", r"fa_bwd_wgILi64ELb1EE"]}
+
+
+def patterns(kname, hd):
+    kname = "fused" if kname.startswith("fused") else kname
+    if hd == 256 and kname in GROUPS:
+        return GROUPS[kname]
+    return [p.format(hd=hd) for p in NARROW[kname]]
 
 
 def patched(src, pairs):
@@ -172,9 +143,9 @@ def ptxas_report(log):
 
 
 def ptxas_of(report, kname, hd):
-    for pat in KERNELS[kname]:
+    for pat in patterns(kname, hd):
         for name, rep in report:
-            if re.search(pat.format(hd=hd), name):
+            if re.search(pat, name):
                 return rep
     return "?"
 
@@ -228,17 +199,19 @@ def main():
     print(smi, flush=True)
     committed = SRC.read_text()
     sources = [("as built", committed, SRC.parent)]
-    for name, pairs in VARIANTS:
+    timed_for = [None]              # the kernels each source is timed for
+    for name, pairs, kernels in VARIANTS:
         sources.append((name, patched(committed, pairs), SRC.parent))
+        timed_for.append(kernels)
     if args.against:
         other = Path(args.against)
-        text = other.read_text()
-        sources.append((f"against {args.against}", text, other.parent))
-        for name, pairs in SUSPECTS:
-            sources.append((f"against, {name}", patched(text, pairs),
-                            other.parent))
+        sources.append((f"against {args.against}", other.read_text(),
+                        other.parent))
+        timed_for.append(None)
+    t0 = time.perf_counter()
     libs, regs = build_all(sources)
-    names = [name for name, _, _ in sources]
+    print(f"built {len(sources)} sources in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B, N, nh, hd, causal, only in SHAPES:
@@ -300,8 +273,12 @@ def main():
                              .transpose(1, 2))
         o0, lse0 = sets[0]["o"].clone(), sets[0]["lse"].clone()
         for kname, fn in calls.items():
+            active = [j for j, ks in enumerate(timed_for)
+                      if ks is None or kname in ks]
+            names = [sources[j][0] for j in active]
+            kl = [libs[j] for j in active]
             diffs = {}
-            for name, lib in zip(names, libs):
+            for name, lib in zip(names, kl):
                 s = sets[0]
                 s["dq32"].zero_()
                 if fn(lib, s):
@@ -316,12 +293,12 @@ def main():
             sets[0]["o"].copy_(o0)
             sets[0]["lse"].copy_(lse0)
             times = {name: [] for name in names}
-            for lib in libs:                    # warm-up
+            for lib in kl:                      # warm-up
                 for s in sets:
                     fn(lib, s)
             for r in range(ROUNDS):
-                order = [(r + j) % len(libs) for j in range(len(libs))]
-                for name, lib in ((names[j], libs[j]) for j in order):
+                order = [(r + j) % len(kl) for j in range(len(kl))]
+                for name, lib in ((names[j], kl[j]) for j in order):
                     start = torch.cuda.Event(enable_timing=True)
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
@@ -332,7 +309,7 @@ def main():
                     times[name].append(start.elapsed_time(end) / CALLS)
             for s in sets:                      # the forward's outputs back
                 fwd(libs[0], s)
-            for name, rep in zip(names, regs):
+            for name, rep in zip(names, (regs[j] for j in active)):
                 t = sorted(times[name])
                 print(f"[{B}, {N}, {nh}, {hd}] "
                       f"{'causal' if causal else 'full'} bf16 "
