@@ -12,7 +12,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
       one line for each instance of the warp-specialised kernels
       (``fa_fwd_wg``, the split backward's ``fa_bwd_dq_wg`` and
       ``fa_bwd_wg<D, WIDE, false>``, the fused ``fa_bwd_wg<D, WIDE,
-      true>``, ``ffn_wg``);
+      true>``, ``ffn_wg``) and of the serving kernels redesigned for
+      Hopper (``dqmm_stream``, ``dqmm_wg``, ``paged_decode``), any of
+      which last must not spill;
   (c) every kernel's wrapper against its plain PyTorch version on the card,
       in fp32 and bf16, at the shapes the serving and training paths give
       it, with the device times (CUDA-graph replay) of the kernel, the
@@ -111,6 +113,12 @@ heads wider than 256 (hd 320, 384, 512, 640: the kernels' head-width
 groups);
 LayerNorm also at H = 6, 7, 1001 and 70001, a transposed view and a view
 4 bytes off alignment; both paged kernels also at hd 24 and 80; the
+paged attention also at one slot of 8,191 positions (V with a mean per
+channel, gated per element at 2^-8 + 2^-6 sum_j p_j |v_j| in bf16), each
+paged case rejecting a mutant whose later slots (later heads, for one
+slot) are scaled by 1 + 2^-4; the bf16 gradient gates of the split and
+fused flash backward scale their rtol by the magnitude of the terms each
+gradient sums (``flash_attn._ref_flash_bwd_terms``), not by |ref|; the
 fused flash backward at [6, 2048, 16, 128] causal, [8, 1024, 16, 64]
 causal (with the split kernels' time beside it), a ragged [1, 1000, 16,
 64], q 128 / kv 320 causal, [1, 512, 1, 128] non-causal, hd 256, hd 96
@@ -126,7 +134,9 @@ fewer rows) are scaled by 1 + 2^-4, timed against
 (n)'s shapes, [8, 512, 768] and [8, 512, 12, 64] non-causal.
 (c) also holds the two quantized-path kernels against their plain
 versions: the dequant matmul at the four decode shapes (M = 8), the
-prefill shape M = 4096 x (1024, 4096) and the JAX tests' shapes, each
+prefill shapes M = 4096 x (1024, 4096), (1024, 3072) and (4096, 1024), M
+= 16 and 17 (the two sides of its regime threshold), 64, 65 and 1000 at
+(1024, 4096), and the JAX tests' shapes, each
 also timed against cuBLAS on weights dequantized beforehand; int8 paged
 attention at the serving decode shape, the JAX tests' shapes and a lane
 of length 0.
@@ -253,10 +263,13 @@ def device_ms(fn, arg_sets, per_graph=20, replays=10):
     return ms
 
 
-def paged_inputs(torch, rng, dtype, S, nh, hd, ps, maxP, lens, copies=1):
+def paged_inputs(torch, rng, dtype, S, nh, hd, ps, maxP, lens, copies=1,
+                 v_mean=False):
     """``copies`` sets of paged-attention operands sharing q/table/lens,
     each with its own K/V pools; each lane's unused table entries point
-    at scratch page 0."""
+    at scratch page 0.  With ``v_mean`` every (head, channel) of V gets
+    its own N(0, 1) mean, as a model's values have, so that a long
+    context does not average the output to nearly zero."""
     P = S * maxP + 1
     q = torch.from_numpy(rng.standard_normal((S, 1, nh, hd),
                                              dtype=np.float32))
@@ -271,8 +284,10 @@ def paged_inputs(torch, rng, dtype, S, nh, hd, ps, maxP, lens, copies=1):
     sets = []
     for _ in range(copies):
         k = torch.randn((P, ps, nh, hd), device="cuda").to(dtype)
-        v = torch.randn((P, ps, nh, hd), device="cuda").to(dtype)
-        sets.append((q, k, v, table, lens_t))
+        v = torch.randn((P, ps, nh, hd), device="cuda")
+        if v_mean:
+            v += torch.randn((nh, hd), device="cuda")
+        sets.append((q, k, v.to(dtype), table, lens_t))
     return sets
 
 
@@ -329,7 +344,16 @@ def l2_copies(nbytes):
 
 
 # the warp-specialised kernels whose ptxas lines (b) prints one by one
-WG_KERNELS = ("fa_fwd_wg", "fa_bwd_dq_wg", "fa_bwd_wg", "ffn_wg")
+WG_KERNELS = ("fa_fwd_wg", "fa_bwd_dq_wg", "fa_bwd_wg", "ffn_wg",
+              "dqmm_stream", "dqmm_wg", "12paged_decodeI")
+# the serving kernels redesigned for Hopper: (b) fails if one spills
+NO_SPILL = ("dqmm_stream", "dqmm_wg", "12paged_decodeI")
+
+
+def spilled(line):
+    """The bytes of spill stores and loads a ptxas line reports."""
+    return sum(int(line.split(f" bytes spill {w}")[0].split()[-1])
+               for w in ("stores", "loads") if f" bytes spill {w}" in line)
 
 
 def ptxas_kernels(text, stems):
@@ -363,6 +387,11 @@ def later_tiles(m):
 def later_slots(m):
     """Every slot but the first (axis 0, one row per slot)."""
     return m[1:]
+
+
+def later_heads(m):
+    """Every head but the first of [S, 1, nh, hd] (for one slot)."""
+    return m[:, :, 1:]
 
 
 def past_first_tile(m):
@@ -417,21 +446,38 @@ def check_kernels(torch, paged_attn, norms):
     bf16, f32 = torch.bfloat16, torch.float32
     out = {"paged_attention": [], "layer_norm": []}
 
-    def paged_case(dt, label, S, maxP, lens, copies, hd=64):
+    def paged_case(dt, label, S, maxP, lens, copies, hd=64, v_mean=False):
+        """The absolute gate (1e-5 in fp32, 2^-6 in bf16), or, with
+        ``v_mean``, 2^-8 + 2^-6 sum_j p_j |v_j| per element in bf16 (the
+        int8 path's rule: outputs of size 1 and more round at 2^-7 and
+        coarser); both must reject the wrong-scale mutant of every slot but
+        the first (of every head but the first, for one slot)."""
         sets = paged_inputs(torch, rng, dt, S, 16, hd, 16, maxP, lens,
-                            copies=copies)
+                            copies=copies, v_mean=v_mean)
         got = paged_attn.paged_attention(*sets[0])
         torch.cuda.synchronize()
+        q, k, v, table, lens_t = sets[0]
         ref = paged_attn._ref_paged_attention(*sets[0])
-        bound, by = paged_bound(sets[0][0], sets[0][1], sets[0][3],
-                                sets[0][4])
+        if dt == f32 or not v_mean:
+            atol, rtol, scale = FP32_TOL if dt == f32 else 2.0 ** -6, 0.0, ref
+        else:
+            atol, rtol = BF16_ATOL, BF16_RTOL
+            scale = paged_attn._ref_paged_attention(q, k, v.abs(), table,
+                                                    lens_t)
+        ratio, mutant = gate([(got, ref, scale)], atol, rtol,
+                             rows=later_slots if S > 1 else later_heads)
+        bound, by = paged_bound(q, k, table, lens_t)
+        plain_kw = dict(per_graph=2, replays=3) if maxP >= 512 else {}
         out["paged_attention"].append(
             {"shape": label, "dtype": str(dt),
              "max_abs_err": max_err(got, ref),
-             "tol": FP32_TOL if dt == f32 else 2.0 ** -6,
+             "max_abs_ref": float(ref.float().abs().max()),
+             "atol": atol, "rtol": rtol, "gate": ratio,
+             "mutant_gate": mutant,
              "ms": device_ms(paged_attn.paged_attention, sets),
              "call_ms": time_ms(paged_attn.paged_attention, sets, 200),
-             "plain_ms": device_ms(paged_attn._ref_paged_attention, sets),
+             "plain_ms": device_ms(paged_attn._ref_paged_attention, sets,
+                                   **plain_kw),
              "library_ms": device_ms(library_paged, sets),
              "bound_ms": bound, "bound_by": by})
 
@@ -452,6 +498,11 @@ def check_kernels(torch, paged_attn, norms):
         for dt in (f32, bf16):
             paged_case(dt, f"S8 nh16 hd{hd} ps16 maxP32 (masked lanes)", 8,
                        32, lens, 8, hd=hd)
+    # one slot at 8,191 positions: a full table of 512 pages, the largest
+    # split plan (32 splits of 16 pages), merged in one launch
+    for dt in (f32, bf16):
+        paged_case(dt, "S1 nh16 hd64 ps16 maxP512, 8191 positions", 1, 512,
+                   [8190], 2, v_mean=True)
 
     # LayerNorm: the model's rows in the compute dtype; fp32 weights (the
     # 345M paths' fp32 masters) and, at the flagship's rows, weights in
@@ -510,12 +561,16 @@ def check_kernels(torch, paged_attn, norms):
                          a, (a.shape[-1],), c, d, 1e-5),
                      [(a, gl, bl) for a, _, _ in sets]),
                  "bound_ms": bound, "bound_by": by})
-    bad = [(k, c) for k, cases in out.items() for c in cases
-           if not c["max_abs_err"] <= c["tol"]]
+    bad = [(k, c["shape"], c["dtype"]) for k, cases in out.items()
+           for c in cases if not case_ok(c)]
     for k, cases in out.items():
         for c in cases:
-            log(f"  {k:16s} {c['dtype']:15s} {c['shape']:40s} "
-                f"max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.1e})"
+            log(f"  {k:16s} {c['dtype']:15s} {c['shape'][:44]:44s} "
+                f"max_abs_err {c['max_abs_err']:.3e} "
+                + (f"gate {c['gate']:.3f} (atol {c['atol']:.1e} rtol "
+                   f"{c['rtol']:.1e}; max|ref| {c['max_abs_ref']:.2e}; "
+                   f"wrong-scale mutant {c['mutant_gate']:.2f})"
+                   if "gate" in c else f"(tol {c['tol']:.1e})")
                 + f"  device ms: kernel {c['ms']:.5f}  plain "
                   f"{c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
                   f"bound {c['bound_ms']:.6f} ({c['bound_by']}); eager "
@@ -653,6 +708,11 @@ def check_flash(torch, flash_attn):
             ro, rl = flash_attn._ref_flash_fwd(q, k, v, causal)
             rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
                                                      causal)
+            # bf16 gradients: rtol scales the magnitude of the terms each
+            # sums (|ds| |k|, |ds|^T |q|, |p|^T |dO|), not |ref|
+            tdq, tdk, tdv = ((rdq, rdk, rdv) if f32 else
+                             flash_attn._ref_flash_bwd_terms(
+                                 q, k, v, o, lse, do, causal))
 
             def gated(pairs, fp32_atol):
                 atol, rtol = ((fp32_atol, 0.0) if f32
@@ -695,19 +755,19 @@ def check_flash(torch, flash_attn):
                 "library_ms": lib_fwd,
                 "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]})
             out["flash_attention_bwd_dq"].append({
-                **common, **gated([(dq, rdq, rdq)], FLASH_GRAD_TOL),
+                **common, **gated([(dq, rdq, tdq)], FLASH_GRAD_TOL),
                 "ms": device_ms(flash_attn._launch_dq, bwd_sets),
                 "call_ms": time_ms(flash_attn._launch_dq, bwd_sets, 50),
                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
                 "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]})
             out["flash_attention_bwd_dkv"].append({
-                **common, **gated([(dk, rdk, rdk), (dv, rdv, rdv)],
+                **common, **gated([(dk, rdk, tdk), (dv, rdv, tdv)],
                                   FLASH_GRAD_TOL),
                 "ms": device_ms(flash_attn._launch_dkv, bwd_sets),
                 "call_ms": time_ms(flash_attn._launch_dkv, bwd_sets, 50),
                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
                 "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]})
-            del sets, lib_sets, fwd_sets, bwd_sets, plain_bwd
+            del sets, lib_sets, fwd_sets, bwd_sets, plain_bwd, tdq, tdk, tdv
             torch.cuda.empty_cache()
     for k, cases in out.items():
         for c in cases:
@@ -935,7 +995,12 @@ def check_fused_bwd(torch, flash_attn):
                                                      causal)
             atol, rtol = ((FLASH_GRAD_TOL, 0.0) if f32
                           else (BF16_ATOL, BF16_RTOL))
-            pairs = [(dq, rdq, rdq), (dk, rdk, rdk), (dv, rdv, rdv)]
+            # bf16: rtol scales the magnitude of the terms each gradient
+            # sums, as in the split backward's gates
+            terms = ((rdq, rdk, rdv) if f32 else
+                     flash_attn._ref_flash_bwd_terms(q, k, v, o, lse, do,
+                                                     causal))
+            pairs = list(zip((dq, dk, dv), (rdq, rdk, rdv), terms))
             ratio, mutant = gate(pairs, atol, rtol, rows=FLASH_ROWS)
             bounds = flash_bounds(q, k, causal)
             lib_sets = [(a.detach().requires_grad_(),
@@ -967,7 +1032,7 @@ def check_fused_bwd(torch, flash_attn):
                 "library": "SDPA backward (fwd + bwd less fwd)",
                 "bound_ms": bounds["bwd_pass"][0],
                 "bound_by": bounds["bwd_pass"][1]})
-            del sets, lib_sets, bwd_sets, plain, dq, dk, dv, dq2
+            del sets, lib_sets, bwd_sets, plain, dq, dk, dv, dq2, terms, pairs
             torch.cuda.empty_cache()
     for c in out:
         log(f"  flash_attention_bwd_fused {c['dtype']:15s} "
@@ -1129,6 +1194,12 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn):
               ((8, 1024, 4096), "decode fc1"),
               ((8, 4096, 1024), "decode fc2"),
               ((4096, 1024, 4096), "prefill fc1"),
+              ((16, 1024, 4096), "M=16, the last streamed M"),
+              ((17, 1024, 4096), "M=17, the first wgmma M"),
+              ((64, 1024, 4096), "M=64"), ((65, 1024, 4096), "M=65"),
+              ((1000, 1024, 4096), "M=1000, ragged row tile"),
+              ((4096, 1024, 3072), "prefill qkv"),
+              ((4096, 4096, 1024), "prefill fc2"),
               ((8, 128, 256), "JAX test"), ((128, 256, 128), "JAX test"),
               ((32, 128, 512), "JAX test"), ((3, 128, 256), "M=3")]
     for (M, K, N), name in shapes:
@@ -1718,6 +1789,10 @@ def main():
                 log(f"      spills in {name}: {ln}")
         for kname, regs_ln, spill_ln in ptxas_kernels(text, WG_KERNELS):
             log(f"      {kname}: {regs_ln}; {spill_ln}")
+    spills = [(k, sp) for text in build.build_log.values()
+              for k, _, sp in ptxas_kernels(text, NO_SPILL) if spilled(sp)]
+    if spills:
+        raise SystemExit(f"(b): a redesigned serving kernel spills: {spills}")
     for lib in build.SOURCES:
         build.load(lib)
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: shared-memory
 // addresses, mbarriers, TMA loads, stores and reductions, wgmma and its
 // shared-memory descriptors, and the host-side tensor-map encoder.
-// Included by fused_ffn.cu and flash_attn.cu; paddle_tpu_torch/ops/cuda/
-// build.py folds every header a source includes into the library's digest.
+// Included by fused_ffn.cu, flash_attn.cu and dequant_matmul.cu;
+// paddle_tpu_torch/ops/cuda/build.py folds every header a source includes
+// into the library's digest.
 #pragma once
 
 #include <cuda.h>
@@ -29,6 +30,14 @@ __device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t cta) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(r) : "r"(a), "r"(cta));
   return r;
+}
+// Store v to this block's shared-memory word `a` in block `cta` of the
+// cluster (distributed shared memory; visible to it after a cluster
+// barrier).
+__device__ __forceinline__ void st_cluster_f32(uint32_t a, uint32_t cta,
+                                               float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(mapa(a, cta)), "f"(v) : "memory");
 }
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"

@@ -12,25 +12,59 @@
 // XLA clamps the gather in the reference.
 //
 // Bound: bytes.  The kernel must read the K and V rows of every attended
-// position once: sum_s (lens[s]+1) * nh * hd * 2 * itemsize bytes; it does
-// 4 flops per element read, far below the card's flops-per-byte balance.
-// The TPU kernel streamed one page per sequential grid step with the page
-// id scalar-prefetched into its BlockSpec; Hopper has no scalar prefetch
-// and no sequential grid.  Design for the bound on this card: one
-// 256-thread block per (head, slot) reads its own page-table row and loops
-// over the filled positions only.  G threads share one position (each a
-// 16-byte slice of the head's K and V row; G the power of two that covers
-// hd, the lanes past hd masked, so any hd up to 32 slices: 256 in bf16, 128
-// in fp32), so a warp reads 32/G positions per load with neighbouring lanes
-// on neighbouring addresses.  Rows that are not 16-byte aligned (hd *
-// itemsize not a multiple of 16) take one-element loads.  Each group of G threads keeps its own online-softmax state
-// (m, l and its slice of the accumulator) in registers and issues the
-// loads of U = 4 positions before using any, so 8 loads of 16 bytes per
-// thread are in flight.  The groups' partial states are merged once, in
-// shared memory, at the end.
+// position once: sum_s (lens[s]+1) * nh * hd * 2 * itemsize bytes (about
+// 5 MB, 1.53 us at 3.35 TB/s, for the serving decode step of gpt_345m: 8
+// slots, 16 heads of 64, bf16); it does 4 flops per element read, far below
+// the card's flops-per-byte balance.  The TPU kernel streamed one page per
+// sequential grid step with the page id scalar-prefetched into its
+// BlockSpec; Hopper has no scalar prefetch and no sequential grid.  The
+// first Hopper port gave each (head, slot) one block that walked all of
+// the slot's positions, so the longest slot set the time (10.5 us at that
+// shape, 14.5% of the bound) and 128 blocks left SMs idle.
 //
-// The same walk over an int8 pool with per-position, per-head scales
-// (paged_decode_q8, replacing _paged_decode_kernel_quant) follows below.
+// Design (flash decoding):
+//  * Splits.  The positions of each slot are cut into splits of whole
+//    pages (pps pages, at least 64 positions, at most 32 splits, chosen by
+//    the wrapper from maxP), and a block takes one (head, slot, split):
+//    grid (nh, S, splits), 128 threads.  Splits past a slot's fill exit at
+//    once, so every filled page is read by exactly one block, no slot's
+//    length serialises the step, and at the serving shape a block has its
+//    whole split in flight at once.
+//  * Loads.  G threads share one position (each a 16-byte slice of the
+//    head's K and V row; G the power of two that covers hd, the lanes past
+//    hd masked, so any hd up to 32 slices: 256 in bf16, 128 in fp32; rows
+//    off 16 bytes take one-element loads); a warp reads 32/G positions per
+//    load, and each group issues the loads of U = 4 positions before using
+//    any.  A block first loads lens[s], its split's table entries (into
+//    shared memory) and its q row, all at once, so its K/V loads wait on
+//    one memory round trip rather than a chain of three.
+//  * Merges.  Each group keeps its online-softmax state (m, l and its
+//    slice of the accumulator) in registers; the block merges its groups
+//    with one weight exp(m_g - m) a group.  A slot of one split writes its
+//    output directly.  Otherwise each block writes its partial (m, l,
+//    unnormalised accumulator) to a workspace and takes a ticket; the last
+//    block of the (slot, head) loads every split's partial in one round
+//    trip, merges them in split order with one weight a split, writes the
+//    output and resets the ticket, so the result does not depend on block
+//    timing.  One launch a call; the wrapper allocates the workspace and
+//    tickets once per device and reuses them.
+//
+// Measured (H100 80GB HBM3, 700 W, chip_smoke.py (c), 8 pool copies cycled
+// past the L2; the first port's kernel in brackets): 0.0104 ms at the
+// serving decode shape [0.0105], 0.0279 at 16 slots of up to 1,023
+// positions [0.0313], 0.0232 at one slot of 8,191 positions [0.220 in
+// tools/serving_kernels.py], and slower at hd 24 (0.0080 [0.0062]), whose
+// few positions a split leave the merge's round trips exposed.  What
+// bounds it (tools/serving_kernels.py cuts): the launch (1.7 us), the
+// loads and compute of the splits (7.9 us with the merge cut) and the
+// merge's fence, ticket and loads (3.7 us), against a 1.53 us byte bound.
+// A variant that read 4 heads a block and merged a slot's splits, at most
+// 8, through a thread-block cluster's distributed shared memory took 20.0
+// us at the serving shape: its blocks walked 2-32 times the positions,
+// with fewer in flight.
+//
+// The int8-pool walk (paged_decode_q8, replacing _paged_decode_kernel_
+// quant) follows below; it keeps the one-block-per-(head, slot) design.
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/
 // paged_attn.py); dtype codes: 0 = float32, 1 = bfloat16.
@@ -100,32 +134,80 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, int i0,
   }
 }
 
-// grid (nh, S); G threads per position, each E = 16 / sizeof(T) elements
-// of the head row: hd <= G * E, the lanes past hd masked.
+constexpr int PT = 128;         // threads of paged_decode
+constexpr int PMAX_SPLITS = 32; // splits of a slot at most
+constexpr int PID_CACHE = 256;  // page ids of a split kept in shared memory
+
+
+// The merge weights of `n` partial states (m, l) at sm_m / sm_l, computed
+// by warp 0: sm_w[i] = exp(m_i - max m), and the merged l into *L, summed
+// in index order.  The caller syncs before and after.
+__device__ __forceinline__ void merge_weights(const float* sm_m,
+                                              const float* sm_l, float* sm_w,
+                                              int n, float* L) {
+  float M = NEG_INF;
+  for (int i = threadIdx.x; i < n; i += 32) M = fmaxf(M, sm_m[i]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+  for (int i = threadIdx.x; i < n; i += 32) sm_w[i] = expf(sm_m[i] - M);
+  __syncwarp();
+  if (threadIdx.x == 0) {
+    float l = 0.f;
+    for (int i = 0; i < n; ++i) l += sm_l[i] * sm_w[i];
+    *L = l;
+  }
+}
+
+// grid (nh, S, splits); split j of slot s takes positions [j span,
+// min(n, j span + span)), span = pps * ps.  G threads per position, each
+// VEC = 16 / sizeof(T) elements of the head row: hd <= G * VEC, the lanes
+// past hd masked.  ws: [S * nh][splits][hd] unnormalised accumulators,
+// then [S * nh][splits][2] (m, l); tickets: [S * nh], kept at 0.
 template <typename T, int G, bool VECL>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(PT)
 paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
              const T* __restrict__ vp, const int* __restrict__ table,
-             const int* __restrict__ lens, T* __restrict__ out, int nh,
-             int hd, int P, int ps, int maxP, float scale_div) {
+             const int* __restrict__ lens, T* __restrict__ out,
+             float* __restrict__ ws, int* __restrict__ tickets, int nh,
+             int hd, int P, int ps, int maxP, int pps, int splits,
+             float scale_div) {
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int HD = VEC * G;
-  constexpr int NG = THREADS / G;  // position groups per block
-  __shared__ float sm_m[NG], sm_l[NG];
+  constexpr int NG = PT / G;       // position groups per block
+  constexpr int MAXW = NG > PMAX_SPLITS ? NG : PMAX_SPLITS;
+  // the merge of the splits: each thread keeps up to HDT output elements
+  constexpr int HDT = (HD + PT - 1) / PT;
+  __shared__ float sm_m[MAXW], sm_l[MAXW], sm_w[MAXW], sm_L;
   __shared__ float sm_acc[NG][HD];
+  __shared__ int sm_pid[PID_CACHE];
+  __shared__ int sm_last;
 
-  const int h = blockIdx.x, s = blockIdx.y;
+  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;
   const int gi = threadIdx.x / G, li = threadIdx.x % G;
-  const int view = maxP * ps;
-  const int n = max(0, min(__ldg(lens + s) + 1, view));
   const int* trow = table + (long long)s * maxP;
+  const long long sh = (long long)s * nh + h;
+  const int i0 = li * VEC;
+  // lens, the split's table entries and q are independent loads: all in
+  // flight at once
+  const int ln = __ldg(lens + s);
+  for (int e = threadIdx.x; e < min(pps, PID_CACHE); e += PT) {
+    const int te = j * pps + e;
+    sm_pid[e] = te < maxP ? min(max(__ldg(trow + te), 0), P - 1) : 0;
+  }
+  float qf[VEC];
+  load_row<T, VECL>(q + sh * hd, i0, hd, qf);
+  const int view = maxP * ps;
+  const int n = max(0, min(ln + 1, view));
+  const int span = pps * ps;
+  const int ns = max(1, (n + span - 1) / span);   // splits with work
+  if (j >= ns) return;
+  __syncthreads();
+  const int p0 = j * span, p1 = min(n, p0 + span);
   const long long pos_stride = (long long)nh * hd;
   const long long page_stride = (long long)ps * pos_stride;
   const long long head_off = (long long)h * hd;
-  const int i0 = li * VEC;
 
-  float qf[VEC];
-  load_row<T, VECL>(q + ((long long)s * nh + h) * hd, i0, hd, qf);
   float m = NEG_INF, l = 0.f;
   float acc[VEC];
 #pragma unroll
@@ -133,16 +215,18 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
 
   // the trip count is uniform over the block, so every lane reaches the
   // shuffles in group_sum
-  for (int base = 0; base < n; base += NG * U) {
+  for (int base = p0; base < p1; base += NG * U) {
     float kf[U][VEC], vf[U][VEC];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = base + u * NG + gi;
-      ok[u] = p < n;
+      ok[u] = p < p1;
       if (ok[u]) {
-        int pid = __ldg(trow + p / ps);
-        pid = min(max(pid, 0), P - 1);
+        const int e = p / ps - j * pps;          // page of the split
+        const int pid = e < PID_CACHE
+                            ? sm_pid[e]
+                            : min(max(__ldg(trow + p / ps), 0), P - 1);
         const long long off =
             pid * page_stride + (long long)(p % ps) * pos_stride + head_off;
         load_row<T, VECL>(kp + off, i0, hd, kf[u]);
@@ -178,6 +262,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     m = mx;
   }
 
+  // the block's groups merged: one weight a group
   if (li == 0) {
     sm_m[gi] = m;
     sm_l[gi] = l;
@@ -185,17 +270,65 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
   for (int k = 0; k < VEC; ++k) sm_acc[gi][i0 + k] = acc[k];
   __syncthreads();
-  for (int d = threadIdx.x; d < hd; d += THREADS) {
+  if (threadIdx.x < 32) merge_weights(sm_m, sm_l, sm_w, NG, &sm_L);
+  __syncthreads();
+  const float L = sm_L;
+  float* part = ws + (sh * splits + j) * hd;
+  float* ml = ws + (long long)gridDim.y * nh * splits * hd;
+  for (int d = threadIdx.x; d < hd; d += PT) {
+    float A = 0.f;
+    for (int g = 0; g < NG; ++g) A += sm_acc[g][d] * sm_w[g];
+    if (ns == 1)
+      out[sh * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    else
+      part[d] = A;
+  }
+  if (ns == 1) return;
+  if (threadIdx.x == 0) {
     float M = NEG_INF;
     for (int g = 0; g < NG; ++g) M = fmaxf(M, sm_m[g]);
-    float L = 0.f, A = 0.f;
-    for (int g = 0; g < NG; ++g) {
-      const float w = expf(sm_m[g] - M);
-      L += sm_l[g] * w;
-      A += sm_acc[g][d] * w;
-    }
-    out[((long long)s * nh + h) * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    ml[2 * (sh * splits + j)] = M;
+    ml[2 * (sh * splits + j) + 1] = L;
   }
+
+  // the last split of (slot, head) to finish merges them all
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    sm_last = atomicAdd(tickets + sh, 1) == ns - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  // one round trip: the partials' (m, l) and this thread's accumulator
+  // elements of every split are loaded together, then weighted
+  const float* parts = ws + sh * splits * hd;
+  float v[HDT][PMAX_SPLITS];
+#pragma unroll
+  for (int e = 0; e < HDT; ++e) {
+    const int d = threadIdx.x + e * PT;
+#pragma unroll
+    for (int i = 0; i < PMAX_SPLITS; ++i)
+      v[e][i] = i < ns && d < hd ? __ldcg(parts + i * hd + d) : 0.f;
+  }
+  if (threadIdx.x < ns) {
+    sm_m[threadIdx.x] = __ldcg(ml + 2 * (sh * splits + threadIdx.x));
+    sm_l[threadIdx.x] = __ldcg(ml + 2 * (sh * splits + threadIdx.x) + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) merge_weights(sm_m, sm_l, sm_w, ns, &sm_L);
+  __syncthreads();
+  const float LL = sm_L;
+#pragma unroll
+  for (int e = 0; e < HDT; ++e) {
+    const int d = threadIdx.x + e * PT;
+    if (d >= hd) continue;
+    float A = 0.f;
+#pragma unroll
+    for (int i = 0; i < PMAX_SPLITS; ++i)
+      if (i < ns) A += v[e][i] * sm_w[i];       // in split order
+    out[sh * hd + d] = from_f<T>(A / fmaxf(LL, 1e-30f));
+  }
+  if (threadIdx.x == 0) tickets[sh] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -377,21 +510,22 @@ cudaError_t with_groups(int G, bool vecl, F&& f) {
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int* table, const int* lens, void* out, int S,
-                     int nh, int hd, int P, int ps, int maxP, float scale_div,
+                     const int* table, const int* lens, void* out, float* ws,
+                     int* tickets, int S, int nh, int hd, int P, int ps,
+                     int maxP, int pps, int splits, float scale_div,
                      cudaStream_t st) {
   constexpr int VEC = 16 / (int)sizeof(T);
   if (hd <= 0) return cudaErrorInvalidValue;
   const bool vecl = hd % VEC == 0 && aligned16(q) && aligned16(k) &&
                     aligned16(v);
-  const dim3 grid(nh, S);
+  const dim3 grid(nh, S, splits);
   return with_groups(pow2_at_least((hd + VEC - 1) / VEC), vecl,
                      [&](auto g, auto vl) {
     paged_decode<T, decltype(g)::value, decltype(vl)::value>
-        <<<grid, THREADS, 0, st>>>(
+        <<<grid, PT, 0, st>>>(
             static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), table, lens, static_cast<T*>(out), nh,
-            hd, P, ps, maxP, scale_div);
+            static_cast<const T*>(v), table, lens, static_cast<T*>(out), ws,
+            tickets, nh, hd, P, ps, maxP, pps, splits, scale_div);
     return cudaGetLastError();
   });
 }
@@ -418,22 +552,29 @@ cudaError_t dispatch_q8(const void* q, const int8_t* k, const float* ks,
 
 }  // namespace
 
+// pps pages a split, splits = ceil(maxP / pps) <= 32; ws and tickets as
+// paged_decode takes them (unused when splits == 1).
 extern "C" int pt_paged_attention_fwd(const void* q, const void* k,
                                       const void* v, const int* table,
-                                      const int* lens, void* out, int S,
-                                      int nh, int hd, int P, int ps, int maxP,
-                                      float scale_div, int dtype,
+                                      const int* lens, void* out, float* ws,
+                                      int* tickets, int S, int nh, int hd,
+                                      int P, int ps, int maxP, int pps,
+                                      int splits, float scale_div, int dtype,
                                       void* stream) {
-  if (S <= 0 || nh <= 0 || P <= 0 || ps <= 0 || maxP <= 0 || S > 65535)
+  if (S <= 0 || nh <= 0 || P <= 0 || ps <= 0 || maxP <= 0 || S > 65535 ||
+      pps <= 0 || splits <= 0 || splits > PMAX_SPLITS ||
+      (long long)(splits - 1) * pps >= maxP ||
+      (long long)splits * pps < maxP || (splits > 1 && (!ws || !tickets)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0)
-    e = dispatch<float>(q, k, v, table, lens, out, S, nh, hd, P, ps, maxP,
-                        scale_div, st);
+    e = dispatch<float>(q, k, v, table, lens, out, ws, tickets, S, nh, hd, P,
+                        ps, maxP, pps, splits, scale_div, st);
   else if (dtype == 1)
-    e = dispatch<__nv_bfloat16>(q, k, v, table, lens, out, S, nh, hd, P, ps,
-                                maxP, scale_div, st);
+    e = dispatch<__nv_bfloat16>(q, k, v, table, lens, out, ws, tickets, S,
+                                nh, hd, P, ps, maxP, pps, splits, scale_div,
+                                st);
   return (int)e;
 }
 

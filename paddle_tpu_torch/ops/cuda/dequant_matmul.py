@@ -1,18 +1,24 @@
-"""Weight-only int8 matmul: the CUDA kernel ``csrc/dequant_matmul.cu`` and
-its plain PyTorch version.
+"""Weight-only int8 matmul: the CUDA kernels ``csrc/dequant_matmul.cu`` and
+their plain PyTorch version.
 
-Counterpart of ``paddle_tpu/ops/pallas/dequant_matmul.py``: the kernel
-replaces ``_dqmm_kernel`` (launched by ``_dqmm_tpu``), and
+Counterpart of ``paddle_tpu/ops/pallas/dequant_matmul.py``: the kernels
+replace ``_dqmm_kernel`` (launched by ``_dqmm_tpu``), and
 :func:`_ref_dequant_matmul` mirrors that module's ``_ref_dequant_matmul``
 op for op.  Inference only.
 
 :func:`dequant_matmul` takes the plain version for tensors on the CPU and
-launches the kernel for tensors on a CUDA device, for int8 weights only; it
+launches a kernel for tensors on a CUDA device, for int8 weights only; it
 never falls back from one to the other.  ``launches`` counts kernel
-launches.  The TPU wrapper pads M up to the sublane minimum; the CUDA
-kernel masks its ragged tiles, so any M >= 1 goes in as it is.
+launches, one a call.  In bf16 :func:`_plan` picks the kernel from M: up
+to ``_SMALL_M`` rows the weight-streaming ``dqmm_stream`` (K split over a
+thread-block cluster, :func:`_stream_steps` says which block and warp take
+each k step), above it the warp-specialised ``dqmm_wg`` on 128-row tiles,
+and on 256-row tiles from ``_WG256_M`` rows.  float32 runs
+``dqmm_f32`` with K split by :func:`_split`.  The TPU wrapper pads M up to
+the sublane minimum; the CUDA kernels mask their ragged tiles, so any M >= 1
+goes in as it is.
 
-The kernel rounds once (``(x @ w_q) * scale`` in fp32, then to x's dtype);
+The kernels round once (``(x @ w_q) * scale`` in fp32, then to x's dtype);
 the plain version, like the JAX fallback, rounds the product and then the
 scaled product, so in bf16 the two differ by a few ulps.
 """
@@ -29,10 +35,22 @@ from . import build
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BM = _BN = 64                # the kernel's output tile
-_BLOCKS_PER_SM = 4            # split K until about this many blocks an SM
+_BM = _BN = 64                # dqmm_f32's output tile
+_BLOCKS_PER_SM = 4            # dqmm_f32: split K until about this many
 _fn = None
 _tickets = {}                 # device -> int32 split-K tickets (kept at 0)
+
+# dqmm_stream (bf16, small M): a block owns _ST_N output columns and a k
+# range of whole 64-row TMA boxes, up to _ST_SLOTS of them, all loaded at
+# once; eight consumer warps; K split over a cluster of up to _ST_MAX_CS
+# blocks.  _SMALL_M: the largest M it takes; above it dqmm_wg is faster
+# (tools/serving_kernels.py at [M, 1024] x [1024, 4096]: 0.0157 against
+# 0.0173 ms at M = 16, 0.0205 against 0.0174 at M = 32, H100)
+_SMALL_M = 16
+_ST_N, _ST_ROWS, _ST_SLOTS, _ST_WARPS, _ST_MAX_CS = 128, 64, 16, 8, 8
+_SMEM = 232448                # dynamic shared memory a block may take
+_WG256_M = 768                # dqmm_wg takes 256-row tiles from this M
+_REGIME = {"stream": 0, "wg128": 1, "wg256": 2}
 
 
 def _ref_dequant_matmul(x2d, w_q, scale):
@@ -48,16 +66,18 @@ def _kernel():
     global _fn
     if _fn is None:
         lib = build.load("dequant_matmul")
-        fn = lib.pt_dequant_matmul
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.pt_dequant_matmul_bk.argtypes = [ctypes.c_int]
-        lib.pt_dequant_matmul_bk.restype = ctypes.c_int
-        lib.pt_error_string.argtypes = [ctypes.c_int]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f32 = lib.pt_dqmm_f32
+        f32.argtypes = [p, ll] + [p] * 5 + [i] * 5 + [p]
+        f32.restype = i
+        bf16 = lib.pt_dqmm_bf16
+        bf16.argtypes = [p, ll] + [p] * 3 + [i] * 7 + [p]
+        bf16.restype = i
+        lib.pt_dqmm_f32_bk.argtypes = []
+        lib.pt_dqmm_f32_bk.restype = i
+        lib.pt_error_string.argtypes = [i]
         lib.pt_error_string.restype = ctypes.c_char_p
-        _fn = (lib, fn)
+        _fn = (lib, f32, bf16)
     return _fn
 
 
@@ -70,6 +90,63 @@ def _split(M, N, K, bk, target):
     want = min(steps, max(1, -(-target // tiles)))
     tpb = -(-steps // want)
     return tpb, -(-steps // tpb)
+
+
+def _stream_smem(M, kb, cs):
+    """Bytes of dynamic shared memory dqmm_stream takes for M rows, kb k
+    rows a block and a cluster of cs blocks (the kernel's
+    ``StreamLayout``, plus 1 KB to align): the weight stages, which the
+    warps' partials later overwrite, x, the receive buffer of the
+    cluster's partials and the barriers."""
+    mp = 8 if M <= 8 else 16
+    stages = kb // _ST_ROWS
+    return (max(stages * _ST_ROWS * _ST_N, _ST_WARPS * mp * (_ST_N + 4) * 4)
+            + mp * (kb + 8) * 2 + cs * mp * -(-_ST_N // cs) * 4
+            + 8 * stages + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(M, N, K, sms):
+    """The bf16 kernel for an [M, K] x [K, N] product on a card of ``sms``
+    SMs: ``("stream", cs, kb)`` (dqmm_stream, K split over a cluster of cs
+    blocks of kb k rows each, a multiple of 64), or dqmm_wg, ``("wg256",
+    0, 0)`` from ``_WG256_M`` rows (256-row tiles convert the weights half
+    as often a flop) and ``("wg128", 0, 0)`` below (more tiles for the
+    SMs): at [M, 1024] x [1024, 4096] on an H100 (tools/serving_kernels.py)
+    0.0169 against 0.0233 ms at M = 512, 0.0312 against 0.0260 at 1000,
+    0.1166 against 0.0952 at 4096.  Up to ``_SMALL_M`` rows, the cluster is
+    the fewest blocks (a power of two up to 8) that give 70% of the SMs a
+    block, and never more than the 64-row boxes of K; then kb is as few
+    boxes as cover K in that many blocks, and the cluster as few blocks as
+    kb needs.  (At
+    gpt_345m's four decode products that picks the fastest of clusters of
+    2, 4, 8 and 16 blocks, tools/serving_kernels.py, H100; a block of 16
+    rows holds the registers of one block an SM, so more blocks than SMs
+    would run in two waves.)  A block holds at most 16 boxes and must fit
+    its x rows in shared memory: larger K goes to dqmm_wg."""
+    if M <= _SMALL_M:
+        tiles, boxes = -(-N // _ST_N), -(-K // _ST_ROWS)
+        cs = 1
+        while cs < _ST_MAX_CS and 10 * tiles * cs < 7 * sms:
+            cs *= 2
+        per = -(-boxes // min(cs, boxes))
+        kb, cs = _ST_ROWS * per, -(-boxes // per)
+        if kb <= _ST_SLOTS * _ST_ROWS and _stream_smem(M, kb, cs) <= _SMEM:
+            return ("stream", cs, kb)
+    return ("wg256" if M >= _WG256_M else "wg128", 0, 0)
+
+
+def _stream_steps(K, cs, kb):
+    """dqmm_stream's k steps: [(rank, warp, k0)] for every k16 step
+    [k0, k0 + 16) of the k range the blocks read, rank r taking rows
+    [r kb, min(K, r kb + kb)) in whole 64-row boxes and warp st % 8 its
+    step st."""
+    out = []
+    for r in range(cs):
+        k0, kend = r * kb, min(K, r * kb + kb)
+        for st in range(4 * -(-(kend - k0) // _ST_ROWS)):
+            out.append((r, st % _ST_WARPS, k0 + 16 * st))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,21 +230,28 @@ def dequant_matmul(x, w_q, scale):
     s = scale.reshape(N)
     if not s.is_contiguous():
         s = s.contiguous()
-    lib, fn = _kernel()
-    tpb, ksplit = _split(
-        M, N, K, lib.pt_dequant_matmul_bk(_DTYPE_CODE[x.dtype]),
-        _BLOCKS_PER_SM * _sm_count(x.device))
-    ws = tickets = None
-    if ksplit > 1:
-        ws = torch.empty((ksplit, M, N), dtype=torch.float32,
-                         device=x.device)
-        tickets = _ticket_buffer(x.device, -(-M // _BM) * -(-N // _BN))
+    lib, f32, bf16 = _kernel()
+    sms = _sm_count(x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x2.data_ptr(), lda, w_q.data_ptr(), s.data_ptr(),
-                 out.data_ptr(), 0 if ws is None else ws.data_ptr(),
-                 0 if tickets is None else tickets.data_ptr(),
-                 M, N, K, tpb, ksplit, _DTYPE_CODE[x.dtype], stream)
+        if x.dtype == torch.bfloat16:
+            regime, cs, kb = _plan(M, N, K, sms)
+            err = bf16(x2.data_ptr(), lda, w_q.data_ptr(), s.data_ptr(),
+                       out.data_ptr(), M, N, K, _REGIME[regime], cs, kb, sms,
+                       stream)
+        else:
+            tpb, ksplit = _split(M, N, K, lib.pt_dqmm_f32_bk(),
+                                 _BLOCKS_PER_SM * sms)
+            ws = tickets = None
+            if ksplit > 1:
+                ws = torch.empty((ksplit, M, N), dtype=torch.float32,
+                                 device=x.device)
+                tickets = _ticket_buffer(x.device,
+                                         -(-M // _BM) * -(-N // _BN))
+            err = f32(x2.data_ptr(), lda, w_q.data_ptr(), s.data_ptr(),
+                      out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+                      0 if tickets is None else tickets.data_ptr(),
+                      M, N, K, tpb, ksplit, stream)
     build.check(lib, err, "dequant_matmul")
     launches += 1
     return out.reshape(*lead, N)

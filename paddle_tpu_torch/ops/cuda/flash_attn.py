@@ -160,6 +160,24 @@ def _ref_flash_bwd(q, k, v, out, lse, do, causal, scale=None):
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _ref_flash_bwd_terms(q, k, v, out, lse, do, causal, scale=None):
+    """The magnitudes of the terms each gradient element of
+    :func:`_ref_flash_bwd` sums, in fp32 from its p and ds: (|ds| |k| for
+    dq, |ds|^T |q| for dk, |p|^T |dO| for dv), shaped as the gradients.  A
+    bf16 gate scales its relative tolerance by these: where the terms
+    cancel, one bf16 step of a term can exceed a step of the sum."""
+    s, mask = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    ds = (ds / math.sqrt(q.shape[-1]) if scale is None else ds * scale).abs()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, dof.abs()))
+
+
 # --------------------------------------------------------------------------
 # kernels
 # --------------------------------------------------------------------------

@@ -16,11 +16,15 @@ device; they never fall back from one to the other.  Any head width up to
 32 16-byte slices (256 in bf16, 128 in fp32; 512 over the int8 pool) runs:
 the kernels mask the lanes past hd, and take one-element loads where rows
 are not 16-byte aligned, so the pool is never padded or copied.
-``launches`` and ``quant_launches`` count their kernel launches.
+``launches`` and ``quant_launches`` count their kernel launches, one a
+call.  ``paged_decode`` splits each slot's pages over blocks
+(:func:`_split_plan`, :func:`_split_pages`) and merges the splits in the
+same launch through a workspace and tickets kept per device.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,6 +38,9 @@ quant_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_SPLIT_POSITIONS = 64         # positions a split takes at least
+_MAX_SPLITS = 32              # splits of a slot at most (the merge's room)
+_work = {}                    # device -> (fp32 workspace, int32 tickets)
 
 
 def _ref_paged_attention(q, k_pages, v_pages, page_table, lens):
@@ -76,7 +83,7 @@ def _kernel():
     if _fn is None:
         lib = build.load("paged_attn")
         fn = lib.pt_paged_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         qfn = lib.pt_paged_attention_quant_fwd
@@ -87,6 +94,57 @@ def _kernel():
         lib.pt_error_string.restype = ctypes.c_char_p
         _fn = (lib, fn, qfn)
     return _fn
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(maxP, ps):
+    """(pages a split, splits) for ``paged_decode``: whole pages, at least
+    ``_SPLIT_POSITIONS`` positions a split, doubled until a full table
+    takes at most ``_MAX_SPLITS`` splits.  Sized from the table, not from
+    lens, which the host does not read."""
+    pps = max(1, _SPLIT_POSITIONS // ps)
+    while -(-maxP // pps) > _MAX_SPLITS:
+        pps *= 2
+    return pps, -(-maxP // pps)
+
+
+def _split_pages(lens, ps, maxP, pps):
+    """The pages each block reads, as the kernel assigns them: for every
+    slot, [(split, [page index into the table row, ...]), ...] in the
+    order the merge sums them.  Splits past a slot's fill take nothing
+    and are left out."""
+    view = maxP * ps
+    out = []
+    for ln in lens:
+        n = max(0, min(int(ln) + 1, view))
+        span = pps * ps
+        ns = max(1, -(-n // span))
+        out.append([(j, sorted({p // ps for p in range(j * span,
+                                                       min(n, j * span
+                                                           + span))}))
+                    for j in range(ns)])
+    return out
+
+
+def _workspace(dev, floats, slots_heads):
+    """Pointers to the per-device fp32 partials and int32 tickets (zeroed
+    once; the merging block resets its ticket), grown when a call needs
+    more.  Calls on one device share them, so they must be ordered on one
+    stream, as the engine's are.  The hit path reads only ints: the
+    decode step is host-bound."""
+    got = _work.get(dev)
+    if got is not None and got[2] >= floats and got[3] >= slots_heads:
+        return got[0], got[1]
+    ws, tickets = (got[4], got[5]) if got is not None else (None, None)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                         device=dev)
+    if tickets is None or tickets.numel() < slots_heads:
+        tickets = torch.zeros(max(slots_heads, 4096), dtype=torch.int32,
+                              device=dev)
+    _work[dev] = (ws.data_ptr(), tickets.data_ptr(), ws.numel(),
+                  tickets.numel(), ws, tickets)
+    return ws.data_ptr(), tickets.data_ptr()
 
 
 def _check_operands(what, q, k_pages, v_pages, page_table, lens,
@@ -152,14 +210,20 @@ def paged_attention(q, k_pages, v_pages, page_table, lens):
     _check_cuda(q, k_pages, v_pages, page_table, lens)
     S, _, nh, hd = q.shape
     P, ps = k_pages.shape[:2]
+    maxP = page_table.shape[1]
+    pps, splits = _split_plan(maxP, ps)
     out = torch.empty_like(q)
+    ws = tickets = 0
+    if splits > 1:
+        ws, tickets = _workspace(q.device, S * nh * splits * (hd + 2),
+                                 S * nh)
     lib, fn, _ = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 S, nh, hd, P, ps, page_table.shape[1], math.sqrt(hd),
-                 _DTYPE_CODE[q.dtype], stream)
+                 ws, tickets, S, nh, hd, P, ps, maxP, pps, splits,
+                 math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
     build.check(lib, err, "paged_attention")
     launches += 1
     return out

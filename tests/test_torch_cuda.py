@@ -13,9 +13,11 @@ versions' matmuls), 2e-4 on flash-attention gradients (the JAX package's
 own flash test); bf16 two rounding steps (2**-6) for paged attention
 outputs, whose kernel casts the unnormalised probabilities to bf16 where
 the plain version casts the normalised ones, 2**-8 plus 2**-6 of each
-element's own size for flash-attention gradients and, for its outputs, of
-sum_j p_j |v_j| (both sides round every p_j, so that sum bounds the
-error; bf16 rounding is relative, so the bound follows the element), and
+element's own size for flash-attention gradients (of the magnitude of the
+terms each sums, |ds| |k|, |ds|^T |q| and |p|^T |dO|, for the split
+backward's) and, for its outputs, of sum_j p_j |v_j| (both sides round
+every p_j, so that sum bounds the error; bf16 rounding is relative, so the
+bound follows the element), and
 one step (2**-7) for LayerNorm.  The quantized path: the dequant matmul
 within 1e-5 of max|ref| in fp32 and 2**-8 + 2**-6 |ref| per element in
 bf16 (the kernel rounds once, the plain version twice); int8 paged
@@ -202,7 +204,9 @@ def test_engine_on_card_matches_generate(dev):
                                    (8, 512, 512, 12, 64, False)])
 def test_flash_kernels_match_plain(dev, dtype, shape):
     """Forward (out, lse) and split backward (dq, dk, dv) against
-    ``_ref_flash_fwd`` / ``_ref_flash_bwd``; q/k/v are strided views of one
+    ``_ref_flash_fwd`` / ``_ref_flash_bwd``, the bf16 gradients per element
+    within 2**-8 + 2**-6 of the magnitude of the terms they sum
+    (``_ref_flash_bwd_terms``); q/k/v are strided views of one
     fused [B, N, 3, H] projection, as the model passes them.  hd 256 runs
     its own forward and the backward's head-width groups; hd 32 and 96 are
     zero-padded to 64 and 128 at the true width's scale; B * nh = 65,600
@@ -237,10 +241,19 @@ def test_flash_kernels_match_plain(dev, dtype, shape):
         worst = float((err / (bf16_tol["atol"]
                               + bf16_tol["rtol"] * scale)).max())
         assert worst <= 1.0, worst
-    for got, ref in zip((dq, dk, dv), refs):
-        torch.testing.assert_close(
-            got.float(), ref.float(),
-            **(dict(atol=2e-4, rtol=0) if f32 else bf16_tol))
+    if f32:
+        for got, ref in zip((dq, dk, dv), refs):
+            torch.testing.assert_close(got.float(), ref.float(), atol=2e-4,
+                                       rtol=0)
+    else:
+        # each bf16 gradient's error follows the magnitude of the terms it
+        # sums (|ds| |k|, |ds|^T |q|, |p|^T |dO|), not |ref|: a cancelling
+        # sum can sit below one bf16 step of its largest term
+        terms = flash_attn._ref_flash_bwd_terms(q, k, v, out, lse, do,
+                                                causal)
+        for name, got, ref, scale in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                         refs, terms):
+            assert _per_element(got, ref, scale) <= 1.0, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -405,6 +418,77 @@ def test_dequant_matmul_takes_strided_rows_and_refuses_by_name(dev):
         dqmm.dequant_matmul(x, w.float(), s)
     with pytest.raises(ValueError, match="multiple"):
         dqmm.dequant_matmul(x[:, :120], w[:120, :200].contiguous(), s[:200])
+
+
+DQMM_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+
+
+@pytest.mark.parametrize("K,N", DQMM_SHAPES, ids=["qkv", "proj", "fc1",
+                                                  "fc2"])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 63, 64, 65, 1000, 4096])
+def test_dequant_matmul_bf16_regimes_match_plain(dev, M, K, N):
+    """The bf16 kernels at the serving path's four weights (gpt_345m's qkv,
+    proj, fc1, fc2), at M on both sides of the regime threshold
+    (dqmm_stream up to 16 rows, dqmm_wg above), per element within
+    2**-8 + 2**-6 |ref|."""
+    g = torch.Generator(device=dev).manual_seed(M * 7 + K + N)
+    x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (K, N), device=dev, generator=g,
+                      dtype=torch.int8)
+    s = (torch.rand(N, device=dev, generator=g) + 0.1) / 64
+    before = dqmm.launches
+    out = dqmm.dequant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert dqmm.launches == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    assert _per_element(out, dqmm._ref_dequant_matmul(x, w, s),
+                        dqmm._ref_dequant_matmul(x, w, s)) <= 1.0
+
+
+@pytest.mark.parametrize("M", [8, 64, 4096])
+def test_dequant_matmul_bf16_is_bitwise_deterministic(dev, M):
+    """No atomics and fixed summation orders (the cluster's partials in
+    rank order): the same inputs twice give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn(M, 1024, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (1024, 4096), device=dev, generator=g,
+                      dtype=torch.int8)
+    s = (torch.rand(4096, device=dev, generator=g) + 0.1) / 64
+    a = dqmm.dequant_matmul(x, w, s)
+    b = dqmm.dequant_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_long_slot_empty_lanes_clamped_table(dev,
+                                                                    dtype):
+    """One slot at 8,191 positions (a full table of 512 pages: the
+    largest split plan), len-0 lanes beside a partly filled one, and
+    table entries outside [0, P) (negative and past the pool), which the
+    kernel clamps as the plain version's gather does."""
+    ps, maxP = 16, 512
+    for lens in ([8190], [0, 0, 700, 0]):
+        args = _paged(np.random.default_rng(len(lens)), dev, dtype,
+                      len(lens), 16, 64, ps, maxP, lens)
+        q, k, v, table, lens_t = args
+        P = k.shape[0]
+        if len(lens) > 1:
+            table[2, 3] = -5
+            table[2, 7] = P + 40
+        before = paged_attn.launches
+        out = paged_attn.paged_attention(q, k, v, table, lens_t)
+        torch.cuda.synchronize()
+        assert paged_attn.launches == before + 1
+        ref = paged_attn._ref_paged_attention(q, k, v, table.clamp(0, P - 1),
+                                              lens_t)
+        assert torch.isfinite(out).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, atol=FP32_TOL, rtol=0)
+        else:
+            scale = paged_attn._ref_paged_attention(
+                q, k, v.abs(), table.clamp(0, P - 1), lens_t)
+            assert _per_element(out, ref, scale) <= 1.0
 
 
 def _paged_quant(dev, dtype, S, nh, hd, ps, maxP, lens):

@@ -52,6 +52,29 @@ def _t(a, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+@pytest.mark.parametrize("maxP,ps,lens", [
+    (32, 16, [17, 331, 200, 64, 95, 300, 18, 120]),
+    (64, 16, [0, 15, 16, 1023, 511, 512, 700]),
+    (512, 16, [8191, 0]), (4, 8, [0, 7, 8, 31]), (6, 8, [47, 3, 12]),
+    (2, 16, [0, 31]), (1, 1, [0]), (100, 3, [299, 0, 150, 2]),
+    (33, 2, [65, 1, 64]), (64, 16, [0, 1023, 100])])
+def test_paged_split_plan_reads_every_filled_page_once(maxP, ps, lens):
+    """paged_decode's split plan: whole pages, at most 32 splits covering
+    the table; for each slot the blocks with work take every filled page
+    (positions 0..lens[s]) exactly once and none past it, and the merge
+    sums the splits in order 0, 1, ..."""
+    pps, splits = paged_attn._split_plan(maxP, ps)
+    assert 1 <= splits <= paged_attn._MAX_SPLITS
+    assert (splits - 1) * pps < maxP <= splits * pps
+    for ln, blocks in zip(lens, paged_attn._split_pages(lens, ps, maxP,
+                                                        pps)):
+        assert [j for j, _ in blocks] == list(range(len(blocks)))
+        assert len(blocks) <= splits
+        pages = [p for _, ps_ in blocks for p in ps_]
+        assert pages == list(range(ln // ps + 1))
+        assert all(len(ps_) <= pps for _, ps_ in blocks)
+
+
 class TestPagedAttentionParity:
     def test_plain_matches_jax_reference_and_interpret_kernel_fp32(self):
         q, k, v, table, lens = _paged_inputs(np.random.default_rng(0))
@@ -246,7 +269,7 @@ def test_build_without_nvcc_raises_naming_it(monkeypatch):
 def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     """``build.lib_path``'s digest covers each header a source includes
     from ``csrc/``: editing the shared Hopper header renames (so rebuilds)
-    both libraries that include it and no other."""
+    the three libraries that include it and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -254,12 +277,15 @@ def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     assert build.source_files("flash_attn") == ["flash_attn.cu",
                                                 "hopper.cuh"]
     assert build.source_files("fused_ffn") == ["fused_ffn.cu", "hopper.cuh"]
+    assert build.source_files("dequant_matmul") == ["dequant_matmul.cu",
+                                                    "hopper.cuh"]
+    assert build.source_files("paged_attn") == ["paged_attn.cu"]
     assert build.lib_path("flash_attn") == before["flash_attn"]
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: build.lib_path(n) for n in build.SOURCES}
     changed = {n for n in build.SOURCES if after[n] != before[n]}
-    assert changed == {"flash_attn", "fused_ffn"}
+    assert changed == {"flash_attn", "fused_ffn", "dequant_matmul"}
 
 
 def test_resolve_device_without_gpu(monkeypatch):

@@ -271,6 +271,45 @@ def test_dequant_matmul_split_covers_k(M, N, K):
         assert (ksplit - 1) * tpb < steps <= ksplit * tpb
 
 
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("K,N", [(1024, 3072), (1024, 1024), (1024, 4096),
+                                 (4096, 1024), (128, 256), (120, 256),
+                                 (8, 16), (2048, 64), (8192, 1024)])
+def test_dequant_matmul_stream_plan_covers_k_once(M, K, N):
+    """dqmm_stream's plan: a cluster of at most 8 blocks, kb a multiple of
+    the 64-row box and at most 16 of them, every block some rows below K,
+    shared memory within the card's per-block limit, and every k16 step
+    below K taken by exactly one (block, warp), the eight warps of a block
+    sharing its steps evenly; the blocks' partials meet in rank order
+    (ranks 0..cs-1)."""
+    regime, cs, kb = dqmm._plan(M, N, K, 132)
+    assert regime == "stream"
+    assert 1 <= cs <= dqmm._ST_MAX_CS and kb % dqmm._ST_ROWS == 0
+    assert kb <= dqmm._ST_SLOTS * dqmm._ST_ROWS
+    assert (cs - 1) * kb < K <= cs * kb
+    assert dqmm._stream_smem(M, kb, cs) <= dqmm._SMEM
+    steps = dqmm._stream_steps(K, cs, kb)
+    below = [(r, k0) for r, _, k0 in steps if k0 < K]
+    assert sorted(k0 for _, k0 in below) == list(range(0, K, 16))
+    assert sorted({r for r, _ in below}) == list(range(cs))
+    for r in range(cs):
+        per = [sum(1 for rr, w, _ in steps if (rr, w) == (r, q))
+               for q in range(8)]
+        assert max(per) - min(per) <= 1
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (8, 1024, 4096, "stream"), (16, 1024, 4096, "stream"),
+    (17, 1024, 4096, "wg128"), (64, 1024, 4096, "wg128"),
+    (65, 1024, 4096, "wg128"), (767, 1024, 4096, "wg128"),
+    (768, 1024, 4096, "wg256"), (1000, 1024, 4096, "wg256"),
+    (4096, 4096, 1024, "wg256"), (1, 1024, 1024, "stream"),
+    # more than 16 boxes a block even at 8 blocks a cluster
+    (8, 16384, 1024, "wg128"), (16, 8192, 1024, "stream")])
+def test_dequant_matmul_plan_picks_the_regime_from_m(M, K, N, want):
+    assert dqmm._plan(M, N, K, 132)[0] == want
+
+
 # --------------------------------------------------------------------------
 # int8 paged attention
 # --------------------------------------------------------------------------

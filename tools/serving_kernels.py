@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Time the serving paths' two redesigned kernels, the bf16 dequant matmul
+(``dqmm_stream`` and ``dqmm_wg``) and paged decode attention
+(``paged_decode``), beside another version of the port's sources, and
+variants of their plans, on one GPU in one process.
+
+Run from the repository root on a machine with a card and ``nvcc``:
+
+    python3 tools/serving_kernels.py [--against OTHER] [--rounds 5]
+
+``OTHER`` is the root of another checkout of this repository (an older
+commit's, unpacked with ``git archive`` into a directory ``.gitignore``
+lists).  Its ``paddle_tpu_torch/ops/cuda`` package is imported under
+another name and builds its own libraries into its own ``_build``, so both
+versions run through their own wrappers on the same operands.
+
+Shapes: the dequant matmul at gpt_345m's four decode products ([8, K] x
+[K, N] for qkv, proj, fc1 and fc2) and its prefill products at M = 4096;
+paged attention at the serving decode shape (8 slots, 16 heads of 64, page
+16, 32 pages a slot, lengths 17-331), 16 ragged slots over 64 pages and
+one slot of 8,191 positions.  Operands are cycled in copies that pass the
+50 MB L2, as ``chip_smoke.py`` (c) does.  For each shape and version: the
+device ms of a call (CUDA-graph replay, ``chip_smoke.device_ms``) and the
+eager ms of a call (host launch cost included, ``chip_smoke.time_ms``),
+each the median of ``--rounds`` rounds that visit the versions in turn,
+each round starting one version later; the lowest and highest round
+beside it.  Then this tree's kernels under other plans and as patched
+variants (``DQMM_VARIANTS``, ``PAGED_VARIANTS``; those named "cut" break
+the result on purpose and only their time counts: it shows what the part
+they cut costs): the cluster size at the decode shapes, the streaming
+kernel against the wgmma kernel at M = 8 and 16 (``_SMALL_M``), and the
+cuts at the decode, prefill and paged shapes.  The card's name and power
+limit come first.
+"""
+import argparse
+import importlib
+import importlib.util
+import statistics
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+from paddle_tpu_torch import card_info  # noqa: E402
+from paddle_tpu_torch.ops.cuda import build  # noqa: E402
+from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm  # noqa: E402
+from paddle_tpu_torch.ops.cuda import paged_attn  # noqa: E402
+
+DQMM = [((8, 1024, 3072), "decode qkv"), ((8, 1024, 1024), "decode proj"),
+        ((8, 1024, 4096), "decode fc1"), ((8, 4096, 1024), "decode fc2"),
+        ((4096, 1024, 3072), "prefill qkv"),
+        ((4096, 1024, 1024), "prefill proj"),
+        ((4096, 1024, 4096), "prefill fc1"),
+        ((4096, 4096, 1024), "prefill fc2")]
+PAGED = [("S8 nh16 hd64 ps16 maxP32 (decode)", 8, 32, None),
+         ("S16 nh16 hd64 ps16 maxP64 ragged", 16, 64, None),
+         ("S1 nh16 hd64 ps16 maxP512, 8191 positions", 1, 512, [8190])]
+
+
+def other_package(root):
+    """``OTHER/paddle_tpu_torch/ops/cuda`` imported as ``other_cuda``:
+    (its dequant_matmul module, its paged_attn module)."""
+    pkg = Path(root).resolve() / "paddle_tpu_torch" / "ops" / "cuda"
+    spec = importlib.util.spec_from_file_location(
+        "other_cuda", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["other_cuda"] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module("other_cuda.build").build(
+        ["dequant_matmul", "paged_attn"])
+    return (importlib.import_module("other_cuda.dequant_matmul"),
+            importlib.import_module("other_cuda.paged_attn"))
+
+
+def rounds(fns, sets, n, calls):
+    """{name: (median, low, high) device ms, (median, low, high) eager
+    ms} over ``n`` rounds visiting ``fns`` in turn."""
+    names = list(fns)
+    dev = {k: [] for k in names}
+    eager = {k: [] for k in names}
+    for r in range(n):
+        for i in range(len(names)):
+            k = names[(i + r) % len(names)]
+            dev[k].append(cs.device_ms(fns[k], sets, per_graph=len(sets)))
+            eager[k].append(cs.time_ms(fns[k], sets, calls))
+    return {k: ((statistics.median(dev[k]), min(dev[k]), max(dev[k])),
+                (statistics.median(eager[k]), min(eager[k]),
+                 max(eager[k]))) for k in names}
+
+
+def show(label, res, bound=None):
+    line = [f"  {label}:"]
+    for k, (d, e) in res.items():
+        line.append(f"{k} {d[0]:.5f} ms [{d[1]:.5f}, {d[2]:.5f}], eager "
+                    f"{e[0]:.5f} [{e[1]:.5f}, {e[2]:.5f}];")
+    if bound:
+        line.append(f"bound {bound[0]:.6f} ({bound[1]})")
+    print(" ".join(line), flush=True)
+
+
+def dqmm_sets(M, K, N):
+    copies = (max(2, min(64, -(-96 * 2 ** 20 // (K * N)))) if M <= 64
+              else 2)
+    sets = []
+    for _ in range(copies):
+        x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
+        w = torch.randint(-127, 128, (K, N), device="cuda", dtype=torch.int8)
+        sc = (torch.rand(N, device="cuda") + 0.1) / 64
+        sets.append((x, w, sc))
+    return sets
+
+
+# design variants of this tree's sources and cuts of them: (name,
+# [(text, replacement)]), each built as a library of its own and called
+# through its C entry point on the wrapper's plan.  A "cut" breaks the
+# result on purpose; only its time counts: it shows what the part it cuts
+# costs.
+STREAM_BODY = ("      const int r = 16 * (st & 3) + 2 * t;       "
+               "// row of the stage")
+DQMM_VARIANTS = [
+    ("dqmm_wg cut: no conversion", [
+        ("        convert_tile(sw + s * L::W_BYTES, bt, ct);\n", "")],
+     "prefill"),
+    ("dqmm_wg cut: no products", [
+        ("            wgmma_ss<TN, 0, 1>(\n",
+         "            if (M < 0) wgmma_ss<TN, 0, 1>(\n")],
+     "prefill"),
+    ("dqmm_wg cut: no stores", [
+        ("            if (rr < M)\n              *reinterpret_cast",
+         "            if (rr < 0)\n              *reinterpret_cast")],
+     "prefill"),
+    ("dqmm_stream: the weight map prefetched", [
+        ("  if (threadIdx.x == 0) {\n"
+         "    for (int i = 0; i < stages; ++i) mbar_init(full + 8 * i, 1);",
+         "  if (threadIdx.x == 32 * ST_WARPS)\n"
+         "    asm volatile(\"prefetch.tensormap [%0];\" :: \"l\"("
+         "reinterpret_cast<uint64_t>(&tm_w)) : \"memory\");\n"
+         "  if (threadIdx.x == 0) {\n"
+         "    for (int i = 0; i < stages; ++i) mbar_init(full + 8 * i, 1);")],
+     "decode"),
+    ("dqmm_stream cut: return at once", [
+        ("  uint32_t ncta;\n", "  if (M > 0) return;\n  uint32_t ncta;\n")],
+     "decode"),
+    ("dqmm_stream cut: no weight loads", [
+        ("        mbar_expect_tx(full + 8 * i, ST_STAGE);",
+         "        mbar_arrive(full + 8 * i); continue;")], "decode"),
+    ("dqmm_stream cut: no x loads", [
+        ("      if (m < M && k0 + c < kend)", "      if (m < 0)")], "decode"),
+    ("dqmm_stream cut: no main loop", [
+        ("    for (int st = warp; st < 4 * stages; st += ST_WARPS) {",
+         "    for (int st = warp; st < 0; st += ST_WARPS) {")], "decode"),
+    # (without the barrier no block may store to a peer, which may have
+    # exited: both go)
+    ("dqmm_stream cut: no cluster barrier and no stores to peers", [
+        ("  __syncwarp();\n  cluster_sync();\n  if (warp < ST_WARPS) {",
+         "  __syncwarp();\n  __syncthreads();\n  if (warp < ST_WARPS) {"),
+        ("      st_cluster_f32(dst, o, sum);",
+         "      if (sum == 12345.f) out[0] = __float2bfloat16(dst);")],
+     "decode"),
+]
+PAGED_VARIANTS = [
+    ("paged_decode cut: return at once", [
+        ("  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;\n",
+         "  if (nh > 0) return;\n"
+         "  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;\n")]),
+    ("paged_decode cut: no merge of the splits", [
+        ("  if (ns == 1) return;\n  if (threadIdx.x == 0) {\n",
+         "  if (ns >= 1) return;\n  if (threadIdx.x == 0) {\n")]),
+]
+
+
+def variant_libs(specs):
+    """Patched copies of this tree's csrc sources, built with the port's
+    nvcc flags, one nvcc each, all at once, and loaded with ctypes: for
+    (name, source, pairs) in ``specs``, {name: ctypes.CDLL}."""
+    import ctypes
+    import hashlib
+    import subprocess
+    procs = []
+    for name, source, pairs in specs:
+        src = (build.CSRC / source).read_text()
+        for old, new in pairs:
+            if old not in src:
+                raise SystemExit(f"variant line not in the source: {old!r}")
+            src = src.replace(old, new)
+        out = build.BUILD_DIR / "serving_variants" / hashlib.blake2b(
+            src.encode(), digest_size=6).hexdigest()
+        out.mkdir(parents=True, exist_ok=True)
+        (out / source).write_text(src)
+        (out / "hopper.cuh").write_text(
+            (build.CSRC / "hopper.cuh").read_text())
+        lib = out / "lib.so"
+        proc = None if lib.exists() else subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+             str(out / source)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        procs.append((name, lib, proc))
+    libs = {}
+    for name, lib, proc in procs:
+        if proc is not None:
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise SystemExit(f"{name}: nvcc failed\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def dqmm_variant(name, lib):
+    """fn(x, w, s) calling a variant's ``pt_dqmm_bf16`` on this tree's
+    plan."""
+    import ctypes
+    fn = lib.pt_dqmm_bf16
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, ll] + [p] * 3 + [i] * 7 + [p]
+    fn.restype = i
+
+    def call(x, w, s):
+        M, K = x.shape
+        N = w.shape[1]
+        sms = dqmm._sm_count(x.device)
+        regime, cs_, kb = dqmm._plan(M, N, K, sms)
+        out_t = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        err = fn(x.data_ptr(), K, w.data_ptr(), s.data_ptr(),
+                 out_t.data_ptr(), M, N, K, dqmm._REGIME[regime], cs_, kb,
+                 sms, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{name}: CUDA error {err}")
+        return out_t
+    return call
+
+
+def paged_variant(name, lib):
+    """fn(q, k, v, table, lens) calling a variant's
+    ``pt_paged_attention_fwd`` as the wrapper does."""
+    import ctypes
+    import math
+    fn = lib.pt_paged_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, table, lens):
+        S, _, nh, hd = q.shape
+        P, ps = k.shape[:2]
+        maxP = table.shape[1]
+        pps, splits = paged_attn._split_plan(maxP, ps)
+        ws, tickets = paged_attn._workspace(
+            q.device, S * nh * splits * (hd + 2), S * nh)
+        out_t = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 table.data_ptr(), lens.data_ptr(), out_t.data_ptr(),
+                 ws, tickets, S, nh, hd, P, ps, maxP,
+                 pps, splits, math.sqrt(hd), 1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{name}: CUDA error {err}")
+        return out_t
+    return call
+
+
+def with_plan(plan):
+    """This tree's dequant_matmul under a fixed bf16 plan."""
+    def fn(x, w, s):
+        keep = dqmm._plan
+        dqmm._plan = lambda *a: plan
+        try:
+            return dqmm.dequant_matmul(x, w, s)
+        finally:
+            dqmm._plan = keep
+    return fn
+
+
+def stream_plan(M, N, K, cs_):
+    boxes = -(-K // 64)
+    per = -(-boxes // min(cs_, boxes))
+    return ("stream", -(-boxes // per), 64 * per)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", help="root of another checkout")
+    ap.add_argument("--rounds", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    name, limit = card_info()
+    print(f"card: {name}, {limit}; torch {torch.__version__}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build(["dequant_matmul", "paged_attn"])
+    other = other_package(args.against) if args.against else None
+    rng = np.random.default_rng(cs.SEED)
+
+    print("dequant matmul, bf16 (this tree / other):", flush=True)
+    for (M, K, N), label in DQMM:
+        sets = dqmm_sets(M, K, N)
+        fns = {"this": dqmm.dequant_matmul}
+        if other:
+            fns["other"] = other[0].dequant_matmul
+        got = dqmm.dequant_matmul(*sets[0])
+        ref = dqmm._ref_dequant_matmul(*sets[0])
+        err = cs.gate([(got, ref, ref)], cs.BF16_ATOL, cs.BF16_RTOL)[0]
+        show(f"[{M}, {K}] x [{K}, {N}] ({label}), plan "
+             f"{dqmm._plan(M, N, K, dqmm._sm_count(got.device))}, gate "
+             f"{err:.3f}", rounds(fns, sets, args.rounds, 50),
+             cs.dqmm_bound(M, K, N, torch.bfloat16))
+        del sets
+    print("dequant matmul plans (this tree):", flush=True)
+    for (M, K, N), label in DQMM[:4]:
+        sets = dqmm_sets(M, K, N)
+        fns = {f"cluster {c}": with_plan(stream_plan(M, N, K, c))
+               for c in (2, 4, 8, 16)
+               if stream_plan(M, N, K, c)[2] <= 16 * 64}
+        show(f"[{M}, {K}] x [{K}, {N}] ({label})",
+             rounds(fns, sets, args.rounds, 50))
+        del sets
+    libs = variant_libs(
+        [(n, "dequant_matmul.cu", pairs) for n, pairs, _ in DQMM_VARIANTS]
+        + [(n, "paged_attn.cu", pairs) for n, pairs in PAGED_VARIANTS])
+    variants = [(n, dqmm_variant(n, libs[n]), where)
+                for n, _, where in DQMM_VARIANTS]
+    for (M, K, N), label in DQMM:
+        sets = dqmm_sets(M, K, N)
+        fns = {"as built": dqmm.dequant_matmul,
+               **{n: f for n, f, where in variants if label.startswith(where)}}
+        show(f"[{M}, {K}] x [{K}, {N}] ({label})",
+             rounds(fns, sets, args.rounds, 20),
+             cs.dqmm_bound(M, K, N, torch.bfloat16))
+        del sets
+    for M in (8, 16, 17, 64, 256, 511, 512, 1000, 4096):
+        K, N = 1024, 4096
+        sets = dqmm_sets(M, K, N)
+        sms = dqmm._sm_count(sets[0][0].device)
+        plan = dqmm._plan(M, N, K, sms)
+        fns = {**({"stream": with_plan(plan if plan[0] == "stream"
+                                       else stream_plan(M, N, K, 8))}
+                  if M <= 16 else {}),
+               "wg128": with_plan(("wg128", 0, 0)),
+               "wg256": with_plan(("wg256", 0, 0))}
+        show(f"[{M}, {K}] x [{K}, {N}]", rounds(fns, sets, args.rounds, 50),
+             cs.dqmm_bound(M, K, N, torch.bfloat16))
+        del sets
+
+    paged_variants = [(n, paged_variant(n, libs[n]))
+                      for n, _ in PAGED_VARIANTS]
+    print("paged decode attention, bf16 (this tree / other):", flush=True)
+    for label, S, maxP, lens in PAGED:
+        if lens is None:
+            hi = 332 if S == 8 else maxP * 16 - 1
+            lens = [int(n) for n in rng.integers(17, hi, S)]
+        sets = cs.paged_inputs(torch, rng, torch.bfloat16, S, 16, 64, 16,
+                               maxP, lens, copies=8 if S <= 8 else 2)
+        fns = {"this": paged_attn.paged_attention}
+        if other:
+            fns["other"] = other[1].paged_attention
+        fns.update({n: f for n, f in paged_variants})
+        got = paged_attn.paged_attention(*sets[0])
+        ref = paged_attn._ref_paged_attention(*sets[0])
+        show(f"{label}, lens {lens if S <= 8 else '...'}, plan "
+             f"{paged_attn._split_plan(maxP, 16)}, max_abs_err "
+             f"{cs.max_err(got, ref):.3e}",
+             rounds(fns, sets, args.rounds, 200),
+             cs.paged_bound(sets[0][0], sets[0][1], sets[0][3], sets[0][4]))
+        del sets
+
+
+if __name__ == "__main__":
+    main()
