@@ -13,8 +13,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
       (``fa_fwd_wg``, the split backward's ``fa_bwd_dq_wg`` and
       ``fa_bwd_wg<D, WIDE, false>``, the fused ``fa_bwd_wg<D, WIDE,
       true>``, ``ffn_wg``) and of the serving kernels redesigned for
-      Hopper (``dqmm_stream``, ``dqmm_wg``, ``paged_decode``), any of
-      which last must not spill;
+      Hopper (``dqmm_stream``, ``dqmm_wg``, ``paged_decode``,
+      ``paged_decode_q8``), any of which last must not spill;
   (c) every kernel's wrapper against its plain PyTorch version on the card,
       in fp32 and bf16, at the shapes the serving and training paths give
       it, with the device times (CUDA-graph replay) of the kernel, the
@@ -111,8 +111,8 @@ gelu + ``addmm``; the flash forward and both backward strategies also at
 hd 256, hd 32 and 96 (zero-padded to 64 and 128), B * nh = 65,600 and
 heads wider than 256 (hd 320, 384, 512, 640: the kernels' head-width
 groups);
-LayerNorm also at H = 6, 7, 1001 and 70001, a transposed view and a view
-4 bytes off alignment; both paged kernels also at hd 24 and 80; the
+LayerNorm also at the 345M training rows [8, 1024, 1024], H = 6, 7, 1001
+and 70001, a transposed view and a view 4 bytes off alignment; both paged kernels also at hd 24 and 80; the
 paged attention also at one slot of 8,191 positions (V with a mean per
 channel, gated per element at 2^-8 + 2^-6 sum_j p_j |v_j| in bf16), each
 paged case rejecting a mutant whose later slots (later heads, for one
@@ -138,8 +138,11 @@ prefill shapes M = 4096 x (1024, 4096), (1024, 3072) and (4096, 1024), M
 = 16 and 17 (the two sides of its regime threshold), 64, 65 and 1000 at
 (1024, 4096), and the JAX tests' shapes, each
 also timed against cuBLAS on weights dequantized beforehand; int8 paged
-attention at the serving decode shape, the JAX tests' shapes and a lane
-of length 0.
+attention at the serving decode shape, the JAX tests' shapes, a lane of
+length 0, hd 24 and 80, 16 ragged slots over 64 pages and one slot of
+8,191 positions (V with a mean per channel in the last two).  The fp
+paged attention cases are also timed on the int8 kernel's grid-sized
+split plan (``grid_plan_ms``) beside their own.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` and
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -345,9 +348,11 @@ def l2_copies(nbytes):
 
 # the warp-specialised kernels whose ptxas lines (b) prints one by one
 WG_KERNELS = ("fa_fwd_wg", "fa_bwd_dq_wg", "fa_bwd_wg", "ffn_wg",
-              "dqmm_stream", "dqmm_wg", "12paged_decodeI")
+              "dqmm_stream", "dqmm_wg", "12paged_decodeI",
+              "15paged_decode_q8I")
 # the serving kernels redesigned for Hopper: (b) fails if one spills
-NO_SPILL = ("dqmm_stream", "dqmm_wg", "12paged_decodeI")
+NO_SPILL = ("dqmm_stream", "dqmm_wg", "12paged_decodeI",
+            "15paged_decode_q8I")
 
 
 def spilled(line):
@@ -468,6 +473,8 @@ def check_kernels(torch, paged_attn, norms):
                              rows=later_slots if S > 1 else later_heads)
         bound, by = paged_bound(q, k, table, lens_t)
         plain_kw = dict(per_graph=2, replays=3) if maxP >= 512 else {}
+        grid = paged_attn._grid_plan(S, 16, maxP, 16,
+                                     paged_attn._sm_count(q.device))
         out["paged_attention"].append(
             {"shape": label, "dtype": str(dt),
              "max_abs_err": max_err(got, ref),
@@ -475,6 +482,9 @@ def check_kernels(torch, paged_attn, norms):
              "atol": atol, "rtol": rtol, "gate": ratio,
              "mutant_gate": mutant,
              "ms": device_ms(paged_attn.paged_attention, sets),
+             "plan": paged_attn._split_plan(maxP, 16), "grid_plan": grid,
+             "grid_plan_ms": device_ms(
+                 with_split_plan(paged_attn, grid), sets),
              "call_ms": time_ms(paged_attn.paged_attention, sets, 200),
              "plain_ms": device_ms(paged_attn._ref_paged_attention, sets,
                                    **plain_kw),
@@ -527,6 +537,7 @@ def check_kernels(torch, paged_attn, norms):
             ((4, 256, 1024), "prefill 4x256 rows", False, None),
             ((8, 1, 1024), "decode 8 rows (serving)", False, None),
             ((6, 2048, 2048), "flagship, g b in x's dtype", True, None),
+            ((8, 1024, 1024), "345M training rows", False, None),
             ((8, 512, 768), "encoder, g b in x's dtype", True, None),
             ((2, 6), "H=6, one-element loads", True, None),
             ((3, 7), "H=7, one-element loads", True, None),
@@ -574,10 +585,26 @@ def check_kernels(torch, paged_attn, norms):
                 + f"  device ms: kernel {c['ms']:.5f}  plain "
                   f"{c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
                   f"bound {c['bound_ms']:.6f} ({c['bound_by']}); eager "
-                  f"call {c['call_ms']:.5f}")
+                  f"call {c['call_ms']:.5f}"
+                + (f"; plan {c['plan']}, on the grid-sized plan "
+                   f"{c['grid_plan']} {c['grid_plan_ms']:.5f}"
+                   if "grid_plan" in c else ""))
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     return out
+
+
+def with_split_plan(paged_attn, plan):
+    """``paged_attention`` on the split plan ``plan`` (pages a split,
+    splits) in place of its own (timed only)."""
+    def fn(*args):
+        keep = paged_attn._split_plan
+        paged_attn._split_plan = lambda maxP, ps: plan
+        try:
+            return paged_attn.paged_attention(*args)
+        finally:
+            paged_attn._split_plan = keep
+    return fn
 
 
 def flash_sets(torch, gen, dt, B, N, Nk, nh, hd, copies):
@@ -1103,14 +1130,15 @@ def library_dqmm():
 
 
 def paged_quant_inputs(torch, gpt, rng, dtype, S, nh, hd, ps, maxP, lens,
-                       P=None, copies=1, random_table=False):
+                       P=None, copies=1, random_table=False, v_mean=False):
     """``copies`` operand sets for int8 paged attention sharing q, table
     and lens: K/V drawn N(0, 1) and quantized by the port's
     ``quantize_kv`` (absmax scales per position and head), q N(0, 2^2).
     With ``random_table`` every table entry is a random page (entries past
     a lane's fill are garbage the kernel must not read), as in the JAX
     kernel tests; else each lane owns its pages and the rest point at
-    scratch page 0."""
+    scratch page 0.  With ``v_mean`` every (head, channel) of V gets its
+    own N(0, 1) mean before quantization, as in :func:`paged_inputs`."""
     P = P or S * maxP + 1
     q = torch.from_numpy(2 * rng.standard_normal((S, 1, nh, hd),
                                                  dtype=np.float32))
@@ -1128,7 +1156,10 @@ def paged_quant_inputs(torch, gpt, rng, dtype, S, nh, hd, ps, maxP, lens,
     sets = []
     for _ in range(copies):
         kq, ks = gpt.quantize_kv(torch.randn((P, ps, nh, hd), device="cuda"))
-        vq, vs = gpt.quantize_kv(torch.randn((P, ps, nh, hd), device="cuda"))
+        v = torch.randn((P, ps, nh, hd), device="cuda")
+        if v_mean:
+            v += torch.randn((nh, hd), device="cuda")
+        vq, vs = gpt.quantize_kv(v)
         sets.append((q, kq, ks, vq, vs, table, lens_t))
     return sets
 
@@ -1259,6 +1290,16 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn):
         (dict(S=8, nh=16, hd=80, ps=16, maxP=32,
               lens=[int(n) for n in rng.integers(17, 332, 8)]),
          "S8 nh16 hd80 ps16 maxP32 (masked lanes)", 8, False),
+        # long contexts, the int8 pool's reason to be (V with a mean per
+        # channel, so the long average stays large enough for the mutant
+        # to show): 16 ragged slots, lens 0, ps-1, ps and a full table,
+        # one split a slot; one slot of 8,191 positions, split over the SMs
+        (dict(S=16, nh=16, hd=64, ps=16, maxP=64, v_mean=True,
+              lens=[0, 15, 16, 64 * 16 - 1] + [
+                  int(n) for n in rng.integers(1, 64 * 16 - 1, 12)]),
+         "S16 nh16 hd64 ps16 maxP64 ragged", 4, False),
+        (dict(S=1, nh=16, hd=64, ps=16, maxP=512, v_mean=True, lens=[8190]),
+         "S1 nh16 hd64 ps16 maxP512, 8191 positions", 4, False),
     ]
     for kw, label, copies, rnd in cases:
         if rnd:
@@ -1288,7 +1329,7 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn):
                    paged_attn._ref_paged_attention_quant,
                    (sets, library_paged_quant),
                    paged_quant_bound(q, kq, table, lens), cap=cap,
-                   rows=later_slots,
+                   rows=later_slots if kw["S"] > 1 else later_heads,
                    lib_name="gather + dequantize + SDPA")
     for k, cs in out.items():
         for c in cs:

@@ -63,8 +63,9 @@
 // us at the serving shape: its blocks walked 2-32 times the positions,
 // with fewer in flight.
 //
-// The int8-pool walk (paged_decode_q8, replacing _paged_decode_kernel_
-// quant) follows below; it keeps the one-block-per-(head, slot) design.
+// The int8-pool kernel (paged_decode_q8, replacing _paged_decode_kernel_
+// quant) follows below: the same splits and merge on a plan sized from the
+// grid, a cp.async ring and a shuffle-tree merge of its groups.
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/
 // paged_attn.py); dtype codes: 0 = float32, 1 = bfloat16.
@@ -76,7 +77,6 @@
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int U = 4;            // positions per group between state updates
 constexpr float NEG_INF = -1e30f;
 
@@ -159,6 +159,60 @@ __device__ __forceinline__ void merge_weights(const float* sm_m,
   }
 }
 
+// The end of a block of a split plan with ns > 1 splits at work, after it
+// wrote its partial (unnormalised accumulator, then (m, l) at ml): the last
+// split of (slot, head) to arrive, by ticket, loads every split's partial
+// in one round trip, merges them in split order with one weight a split,
+// writes the output o and resets the ticket, so the result does not depend
+// on block timing.  parts: the (slot, head)'s [splits][hd] accumulators;
+// ml: its [splits][2] (m, l).  NT threads, each merging the output
+// elements threadIdx.x + e NT.
+template <typename T, int NT, int HD>
+__device__ __forceinline__ void merge_splits(const float* parts,
+                                             const float* ml, int* ticket,
+                                             T* __restrict__ o, int hd,
+                                             int ns) {
+  constexpr int HDT = (HD + NT - 1) / NT;
+  __shared__ float sm_m[PMAX_SPLITS], sm_l[PMAX_SPLITS], sm_w[PMAX_SPLITS];
+  __shared__ float sm_L;
+  __shared__ int sm_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) sm_last = atomicAdd(ticket, 1) == ns - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  // one round trip: the partials' (m, l) and this thread's accumulator
+  // elements of every split are loaded together, then weighted
+  float v[HDT][PMAX_SPLITS];
+#pragma unroll
+  for (int e = 0; e < HDT; ++e) {
+    const int d = threadIdx.x + e * NT;
+#pragma unroll
+    for (int i = 0; i < PMAX_SPLITS; ++i)
+      v[e][i] = i < ns && d < hd ? __ldcg(parts + i * hd + d) : 0.f;
+  }
+  if (threadIdx.x < ns) {
+    sm_m[threadIdx.x] = __ldcg(ml + 2 * threadIdx.x);
+    sm_l[threadIdx.x] = __ldcg(ml + 2 * threadIdx.x + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) merge_weights(sm_m, sm_l, sm_w, ns, &sm_L);
+  __syncthreads();
+  const float LL = sm_L;
+#pragma unroll
+  for (int e = 0; e < HDT; ++e) {
+    const int d = threadIdx.x + e * NT;
+    if (d >= hd) continue;
+    float A = 0.f;
+#pragma unroll
+    for (int i = 0; i < PMAX_SPLITS; ++i)
+      if (i < ns) A += v[e][i] * sm_w[i];       // in split order
+    o[d] = from_f<T>(A / fmaxf(LL, 1e-30f));
+  }
+  if (threadIdx.x == 0) *ticket = 0;
+}
+
 // grid (nh, S, splits); split j of slot s takes positions [j span,
 // min(n, j span + span)), span = pps * ps.  G threads per position, each
 // VEC = 16 / sizeof(T) elements of the head row: hd <= G * VEC, the lanes
@@ -175,13 +229,9 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int HD = VEC * G;
   constexpr int NG = PT / G;       // position groups per block
-  constexpr int MAXW = NG > PMAX_SPLITS ? NG : PMAX_SPLITS;
-  // the merge of the splits: each thread keeps up to HDT output elements
-  constexpr int HDT = (HD + PT - 1) / PT;
-  __shared__ float sm_m[MAXW], sm_l[MAXW], sm_w[MAXW], sm_L;
+  __shared__ float sm_m[NG], sm_l[NG], sm_w[NG], sm_L;
   __shared__ float sm_acc[NG][HD];
   __shared__ int sm_pid[PID_CACHE];
-  __shared__ int sm_last;
 
   const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;
   const int gi = threadIdx.x / G, li = threadIdx.x % G;
@@ -290,62 +340,143 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     ml[2 * (sh * splits + j)] = M;
     ml[2 * (sh * splits + j) + 1] = L;
   }
-
-  // the last split of (slot, head) to finish merges them all
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    sm_last = atomicAdd(tickets + sh, 1) == ns - 1;
-  __syncthreads();
-  if (!sm_last) return;
-  __threadfence();
-  // one round trip: the partials' (m, l) and this thread's accumulator
-  // elements of every split are loaded together, then weighted
-  const float* parts = ws + sh * splits * hd;
-  float v[HDT][PMAX_SPLITS];
-#pragma unroll
-  for (int e = 0; e < HDT; ++e) {
-    const int d = threadIdx.x + e * PT;
-#pragma unroll
-    for (int i = 0; i < PMAX_SPLITS; ++i)
-      v[e][i] = i < ns && d < hd ? __ldcg(parts + i * hd + d) : 0.f;
-  }
-  if (threadIdx.x < ns) {
-    sm_m[threadIdx.x] = __ldcg(ml + 2 * (sh * splits + threadIdx.x));
-    sm_l[threadIdx.x] = __ldcg(ml + 2 * (sh * splits + threadIdx.x) + 1);
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) merge_weights(sm_m, sm_l, sm_w, ns, &sm_L);
-  __syncthreads();
-  const float LL = sm_L;
-#pragma unroll
-  for (int e = 0; e < HDT; ++e) {
-    const int d = threadIdx.x + e * PT;
-    if (d >= hd) continue;
-    float A = 0.f;
-#pragma unroll
-    for (int i = 0; i < PMAX_SPLITS; ++i)
-      if (i < ns) A += v[e][i] * sm_w[i];       // in split order
-    out[sh * hd + d] = from_f<T>(A / fmaxf(LL, 1e-30f));
-  }
-  if (threadIdx.x == 0) tickets[sh] = 0;
+  merge_splits<T, PT, HD>(ws + sh * splits * hd, ml + 2 * sh * splits,
+                          tickets + sh, out + sh * hd, hd, ns);
 }
 
 // ---------------------------------------------------------------------------
-// int8 pool: replaces paddle_tpu/ops/pallas/paged_attn.py::
-// _paged_decode_kernel_quant (launched by _paged_attention_quant_tpu).
-// K/V pages are int8 [P, ps, nh, hd] with fp32 scales [P, ps, nh], one per
-// position per head.  Same walk, groups and merge as paged_decode; each of
-// the G threads of a position reads 16 int8 elements of K and of V (one
-// 16-byte load where hd is a multiple of 16 and the pool 16-byte aligned,
-// else one byte at a time) plus the position's two scales, so hd <= 16 * G,
-// the lanes past hd masked.  The casts follow the Pallas kernel: q and K
-// dequantize to fp32 (int8 * scale) and the scores are fp32; V dequantizes
-// to fp32 and is then cast to the compute dtype T, as is p, before p.V
-// accumulates in fp32.  Bound: bytes, about 1 byte per K/V element plus 8
-// bytes of scales per position and head, against 2-4 bytes per element in
-// the fp pool.
+// int8 pool (paged_decode_q8): replaces paddle_tpu/ops/pallas/
+// paged_attn.py::_paged_decode_kernel_quant (launched by
+// _paged_attention_quant_tpu).  K/V pages are int8 [P, ps, nh, hd] with
+// fp32 scales [P, ps, nh], one per position per head.  The casts follow
+// the Pallas kernel: q . (int8 K x k_scale) in fp32 over sqrt(hd), the
+// softmax in fp32, V dequantized to fp32 and rounded to the compute dtype
+// T, as is p, and p . V accumulated in fp32.
+//
+// Bound: bytes, 1 byte per K/V element plus 8 bytes of scales per position
+// and head (136 bytes a position at 16 heads of 64): 0.75 us for the
+// serving decode step (8 slots of 17-331 positions), 5.3 us for one slot
+// of 8,191 positions.  The first Hopper port gave each (head, slot) one
+// block that walked the whole slot, loading a table entry and only then
+// the rows it named on each step of 256 positions (two dependent round
+// trips a step), and ended in a 64-step serial merge of its groups: 8.3 us
+// at the decode shape, and 16 blocks for one slot.
+//
+// Design:
+//  * A split plan sized from the grid (the wrapper's _grid_plan, from S,
+//    nh, maxP and ps; no device value): one split a slot while the S * nh
+//    blocks reach the SMs, so the decode shape pays no merge, else
+//    whole-page splits of at least 512 positions up to one block an SM (at
+//    most 32).  Grid (nh, S,
+//    splits) of QT threads; splits past a slot's fill exit at once, and
+//    the splits of a slot merge as paged_decode's do (merge_splits, the
+//    same workspace and tickets).
+//  * One round trip before the loads: lens, the split's table entries
+//    (into shared memory) and q are loaded together.  Then each thread
+//    puts the 16-byte K and V slices of its positions into its own slots
+//    of a shared-memory ring by cp.async, QSTAGES stages of QU positions a
+//    group ahead, and lane 0 of each group the positions' two scales:
+//    every row of a split of up to 512 positions (at hd 64) is in flight
+//    before the first is used, and a longer split streams through the
+//    ring.  A thread reads back only its own slots (the scales after a
+//    warp barrier), so the ring needs no block barrier.  Rows off 16 bytes
+//    take one-byte loads into the ring.
+//  * Few instructions an element, which bound it (below): int8 -> fp32 by
+//    the float 2^23 + u trick (a permute and an add a value, exact) and
+//    fp32 FMAs; the K scale multiplies the dot product once; V rounds to
+//    bf16 two values a conversion (in fp32 its scale folds into p); each
+//    position's table column and page offset advance by additions.
+//  * The block's groups merge by a shuffle tree inside each warp, then one
+//    shared-memory pass over the warps.
+//
+// Measured (H100 80GB HBM3, 700 W, tools/serving_kernels.py; the first
+// port's kernel in brackets): 0.0057 ms at the serving decode lengths
+// [0.0089], 0.0175 at 16 ragged slots over 64 pages [0.0233], 0.0155 at
+// one slot of 8,191 positions in 8 splits [0.1204].  What bounds it is
+// its instructions more than its bytes: with no K/V loads at all it takes
+// 0.0046 ms at the decode shape (an empty launch 0.0014) and 0.0113 at
+// 8,191 positions, where the merge of the splits costs 0.0033.  Other
+// rings (1 or 4 positions a group a stage, 512 threads) measured slower
+// at the decode shape (4 positions: within 2% at the other two), other
+// split counts (2 at the decode shape; 4, 16 or 32 at 8,191 positions)
+// slower everywhere.
 // ---------------------------------------------------------------------------
+constexpr int QT = 256;          // threads of paged_decode_q8
+constexpr int QNW = QT / 32;     // its warps
+constexpr int QU = 2;            // positions of a group in a ring stage
+constexpr int QSTAGES = 4;       // ring stages in flight
+constexpr int QPID_MAX = 2048;   // page ids of a split kept in shared memory
+
+// paged_decode_q8's dynamic shared memory with G threads a position: the
+// ring's K/V slices [QSTAGES][QU][K, V][QT], its scales
+// [QSTAGES][QU][K, V][QT / G], then the split's page ids
+__host__ __device__ constexpr int q8_kv_bytes() {
+  return QSTAGES * QU * 2 * QT * 16;
+}
+__host__ __device__ constexpr int q8_ring_bytes(int G) {
+  return q8_kv_bytes() + QSTAGES * QU * 2 * (QT / G) * 4;
+}
+// two blocks an SM (128 registers a thread) up to hd 256; wider heads keep
+// the merge's 2 x 32 partial elements a thread in registers instead
+__host__ __device__ constexpr int q8_min_blocks(int G) {
+  return G <= 16 && QT <= 256 ? 2 : 1;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// n of `bytes` bytes at src -> dst in shared memory, asynchronously; the
+// rest of the `bytes` are zeros (none read where n = 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool on) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(on ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool on) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(on ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's newest commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The 16 signed bytes of r -> floats, exactly: with u = b + 128 in the low
+// byte of the float 2^23 (0x4B000000) the float is 2^23 + u, and less
+// 2^23 + 128 it is b.
+__device__ __forceinline__ void i8x16_float(const uint4& r, float (&f)[16]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t u = w[c] ^ 0x80808080u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[4 * c + b] =
+          __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) -
+          8388736.f;
+  }
+}
+
+// a and b rounded to T and back (for bf16 one packed conversion of both)
+template <typename T>
+__device__ __forceinline__ void round_pair(float& a, float& b) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
+    a = __uint_as_float(u << 16);
+    b = __uint_as_float(u & 0xFFFF0000u);
+  }
+}
+
 template <typename T, bool VECL>
 __device__ __forceinline__ void load_q16(const T* __restrict__ p, int i0,
                                          int hd, float (&out)[16]) {
@@ -359,84 +490,147 @@ __device__ __forceinline__ void load_q16(const T* __restrict__ p, int i0,
   }
 }
 
-// 16 int8 at p[i0..] (zero past hd) as one uint4.
-template <bool VECL>
-__device__ __forceinline__ uint4 load_i8(const int8_t* __restrict__ p,
-                                         int i0, int hd) {
-  uint4 r = make_uint4(0, 0, 0, 0);
-  if constexpr (VECL) {
-    if (i0 < hd) r = __ldg(reinterpret_cast<const uint4*>(p + i0));
-  } else {
-    int8_t* rb = reinterpret_cast<int8_t*>(&r);
+// The 16 int8 at p[i0..] into dst in shared memory (zeros past hd and
+// where !ok), one byte at a time, each stored as it arrives.
+__device__ __forceinline__ void copy_i8_bytes(int8_t* dst,
+                                              const int8_t* __restrict__ p,
+                                              int i0, int hd, bool ok) {
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-      if (i0 + k < hd) rb[k] = __ldg(p + i0 + k);
-  }
-  return r;
+  for (int k = 0; k < 16; ++k)
+    dst[k] = ok && i0 + k < hd ? __ldg(p + i0 + k) : 0;
 }
 
-// grid (nh, S); G threads per position, hd <= 16 * G.
+// grid (nh, S, splits); split j of slot s takes positions [j span,
+// min(n, j span + span)), span = pps * ps, as paged_decode's.  G threads
+// per position, each 16 int8 elements of the head row: hd <= 16 * G, the
+// lanes past hd masked.  ws and tickets as paged_decode takes them.
 template <typename T, int G, bool VECL>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(QT, q8_min_blocks(G))
 paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
                 const float* __restrict__ ksc, const int8_t* __restrict__ vp,
                 const float* __restrict__ vsc, const int* __restrict__ table,
-                const int* __restrict__ lens, T* __restrict__ out, int nh,
-                int hd, int P, int ps, int maxP, float scale_div) {
+                const int* __restrict__ lens, T* __restrict__ out,
+                float* __restrict__ ws, int* __restrict__ tickets, int nh,
+                int hd, int P, int ps, int maxP, int pps, int splits,
+                float scale_div) {
   constexpr int HD = 16 * G;
-  constexpr int NG = THREADS / G;  // position groups per block
-  __shared__ float sm_m[NG], sm_l[NG];
-  __shared__ float sm_acc[NG][HD];
+  constexpr int NG = QT / G;       // position groups
+  constexpr int SP = NG * QU;      // positions a stage
+  extern __shared__ __align__(16) unsigned char q8_smem[];
+  uint4* ring = reinterpret_cast<uint4*>(q8_smem);
+  float* sring = reinterpret_cast<float*>(q8_smem + q8_kv_bytes());
+  int* pid = reinterpret_cast<int*>(q8_smem + q8_ring_bytes(G));
+  // the warps' merge, over the ring once it is drained: [QNW][HD]
+  float* sm_acc = reinterpret_cast<float*>(q8_smem);
+  __shared__ float sm_m[QNW], sm_l[QNW];
 
-  const int h = blockIdx.x, s = blockIdx.y;
-  const int gi = threadIdx.x / G, li = threadIdx.x % G;
-  const int view = maxP * ps;
-  const int n = max(0, min(__ldg(lens + s) + 1, view));
+  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;
+  const int t = threadIdx.x, gi = t / G, li = t % G, i0 = li * 16;
   const int* trow = table + (long long)s * maxP;
+  const long long sh = (long long)s * nh + h;
+  const int cache = min(pps, QPID_MAX);
+  // lens, the split's table entries and q are independent loads: all in
+  // flight at once
+  const int ln = __ldg(lens + s);
+  for (int e = t; e < cache; e += QT) {
+    const int te = j * pps + e;
+    pid[e] = te < maxP ? min(max(__ldg(trow + te), 0), P - 1) : 0;
+  }
+  float qf[16];
+  load_q16<T, VECL>(q + sh * hd, i0, hd, qf);
+  const int n = max(0, min(ln + 1, maxP * ps));
+  const int span = pps * ps;
+  const int ns = max(1, (n + span - 1) / span);   // splits with work
+  if (j >= ns) return;
+  __syncthreads();
+  const int p0 = j * span, p1 = min(n, p0 + span);
+  const int nst = (max(p1 - p0, 0) + SP - 1) / SP;  // stages of the split
   const long long pos_stride = (long long)nh * hd;
   const long long head_off = (long long)h * hd;
-  const int i0 = li * 16;
+  const float inv_div = 1.f / scale_div;
 
-  float qf[16];
-  load_q16<T, VECL>(q + ((long long)s * nh + h) * hd, i0, hd, qf);
+  // stage st of the split into ring slot st % QSTAGES: this thread's K and
+  // V slices of its group's QU positions and, by the group's lane 0,
+  // their scales (zeros past the split); one commit group a stage, empty
+  // past the last stage.  Called for st = 0, 1, 2, ... in turn: each
+  // position's table column and offset in its page advance by SP
+  // positions a call, with no division.
+  int pp[QU], col[QU], po[QU];
+#pragma unroll
+  for (int u = 0; u < QU; ++u) {
+    pp[u] = p0 + u * NG + gi;
+    col[u] = pp[u] / ps;
+    po[u] = pp[u] % ps;
+  }
+  const int sp_cols = SP / ps, sp_off = SP % ps;
+  auto issue = [&](int st) {
+    if (st < nst) {
+      const int slot = st % QSTAGES;
+#pragma unroll
+      for (int u = 0; u < QU; ++u) {
+        const bool ok = pp[u] < p1;
+        long long row = 0;
+        if (ok) {
+          const int e = col[u] - j * pps;
+          const int pg = e < cache
+                             ? pid[e]
+                             : min(max(__ldg(trow + col[u]), 0), P - 1);
+          row = (long long)pg * ps + po[u];
+        }
+        const long long off = row * pos_stride + head_off;
+        uint4* dk = ring + (slot * QU + u) * 2 * QT + t;
+        if constexpr (VECL) {
+          const bool on = ok && i0 < hd;
+          cp_async16(dk, kp + off + (on ? i0 : 0), on);
+          cp_async16(dk + QT, vp + off + (on ? i0 : 0), on);
+        } else {
+          copy_i8_bytes(reinterpret_cast<int8_t*>(dk), kp + off, i0, hd, ok);
+          copy_i8_bytes(reinterpret_cast<int8_t*>(dk + QT), vp + off, i0, hd,
+                        ok);
+        }
+        if (li == 0) {
+          float* sk = sring + (slot * QU + u) * 2 * NG + gi;
+          cp_async4(sk, ksc + (ok ? row * nh + h : 0), ok);
+          cp_async4(sk + NG, vsc + (ok ? row * nh + h : 0), ok);
+        }
+        pp[u] += SP;
+        col[u] += sp_cols;
+        po[u] += sp_off;
+        if (po[u] >= ps) {
+          po[u] -= ps;
+          ++col[u];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int st = 0; st < QSTAGES; ++st) issue(st);
   float m = NEG_INF, l = 0.f;
   float acc[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-
   // the trip count is uniform over the block, so every lane reaches the
   // shuffles in group_sum
-  for (int base = 0; base < n; base += NG * U) {
-    uint4 kr[U], vr[U];
-    float ks[U], vs[U];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = base + u * NG + gi;
-      ok[u] = p < n;
-      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
-      ks[u] = vs[u] = 0.f;
-      if (ok[u]) {
-        int pid = __ldg(trow + p / ps);
-        pid = min(max(pid, 0), P - 1);
-        const long long row = (long long)pid * ps + p % ps;
-        const long long off = row * pos_stride + head_off;
-        kr[u] = load_i8<VECL>(kp + off, i0, hd);
-        vr[u] = load_i8<VECL>(vp + off, i0, hd);
-        ks[u] = __ldg(ksc + row * nh + h);
-        vs[u] = __ldg(vsc + row * nh + h);
-      }
-    }
-    float sc[U];
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<QSTAGES - 1>();
+    __syncwarp();                  // lane 0's scales, for the whole group
+    const int slot = st % QSTAGES;
+    const uint4* kv = ring + slot * QU * 2 * QT + t;
+    const float* sc2 = sring + slot * QU * 2 * NG + gi;
+    bool ok[QU];
+    float sc[QU];
     float mx = m;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&kr[u]);
-      float d = 0.f;
+    for (int u = 0; u < QU; ++u) {
+      float kf[16], d4[4] = {0.f, 0.f, 0.f, 0.f};
+      i8x16_float(kv[u * 2 * QT], kf);
 #pragma unroll
-      for (int k = 0; k < 16; ++k) d += qf[k] * ((float)kb[k] * ks[u]);
-      d = group_sum<G>(d);
-      sc[u] = ok[u] ? d / scale_div : NEG_INF;
+      for (int k = 0; k < 16; ++k) d4[k & 3] = fmaf(qf[k], kf[k], d4[k & 3]);
+      const float d = group_sum<G>((d4[0] + d4[1]) + (d4[2] + d4[3]));
+      ok[u] = p0 + st * SP + u * NG + gi < p1;
+      sc[u] = ok[u] ? d * sc2[u * 2 * NG] * inv_div : NEG_INF;
       mx = fmaxf(mx, sc[u]);
     }
     const float alpha = expf(m - mx);
@@ -444,36 +638,85 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
 #pragma unroll
     for (int k = 0; k < 16; ++k) acc[k] *= alpha;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < QU; ++u) {
       const float pu = ok[u] ? expf(sc[u] - mx) : 0.f;
       l += pu;
       const float pc = to_f(from_f<T>(pu));  // p cast to the compute dtype
-      const int8_t* vb = reinterpret_cast<const int8_t*>(&vr[u]);
+      const float vs = sc2[u * 2 * NG + NG];
+      float vf[16];
+      i8x16_float(kv[u * 2 * QT + QT], vf);
+      if constexpr (std::is_same_v<T, float>) {
+        const float pv = pc * vs;                // no rounding in fp32
 #pragma unroll
-      for (int k = 0; k < 16; ++k)
-        acc[k] += pc * to_f(from_f<T>((float)vb[k] * vs[u]));
+        for (int k = 0; k < 16; ++k) acc[k] = fmaf(pv, vf[k], acc[k]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 16; k += 2) {        // V rounded to T, as p
+          float a = vf[k] * vs, b = vf[k + 1] * vs;
+          round_pair<T>(a, b);
+          acc[k] = fmaf(pc, a, acc[k]);
+          acc[k + 1] = fmaf(pc, b, acc[k + 1]);
+        }
+      }
     }
     m = mx;
+    __syncwarp();                  // the group has read lane 0's scales
+    issue(st + QSTAGES);
   }
 
-  if (li == 0) {
-    sm_m[gi] = m;
-    sm_l[gi] = l;
-  }
+  // the groups of a warp merged by a shuffle tree over lane offsets
+  // G .. 16 (lanes 0 .. G-1 take the lower side of every pair)
 #pragma unroll
-  for (int k = 0; k < 16; ++k) sm_acc[gi][i0 + k] = acc[k];
-  __syncthreads();
-  for (int d = threadIdx.x; d < hd; d += THREADS) {
-    float M = NEG_INF;
-    for (int g = 0; g < NG; ++g) M = fmaxf(M, sm_m[g]);
-    float L = 0.f, A = 0.f;
-    for (int g = 0; g < NG; ++g) {
-      const float w = expf(sm_m[g] - M);
-      L += sm_l[g] * w;
-      A += sm_acc[g][d] * w;
-    }
-    out[((long long)s * nh + h) * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+  for (int o = G; o < 32; o <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, o);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, o);
+    const float M = fmaxf(m, mo);
+    const float wa = expf(m - M), wb = expf(mo - M);
+    l = l * wa + lo * wb;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      acc[k] = acc[k] * wa + __shfl_xor_sync(0xffffffffu, acc[k], o) * wb;
+    m = M;
   }
+  // then the warps, in one shared-memory pass over the drained ring (every
+  // commit group with copies was waited for in the loop)
+  const int w = t / 32, lane = t % 32;
+  __syncthreads();
+  if (lane == 0) {
+    sm_m[w] = m;
+    sm_l[w] = l;
+  }
+  if (lane < G) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) sm_acc[w * HD + i0 + k] = acc[k];
+  }
+  __syncthreads();
+  float M = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < QNW; ++i) M = fmaxf(M, sm_m[i]);
+  float wt[QNW], L = 0.f;
+#pragma unroll
+  for (int i = 0; i < QNW; ++i) {
+    wt[i] = expf(sm_m[i] - M);
+    L += sm_l[i] * wt[i];
+  }
+  for (int d = t; d < hd; d += QT) {
+    float A = 0.f;
+#pragma unroll
+    for (int i = 0; i < QNW; ++i) A += sm_acc[i * HD + d] * wt[i];
+    if (ns == 1)
+      out[sh * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    else
+      ws[(sh * splits + j) * hd + d] = A;
+  }
+  if (ns == 1) return;
+  float* ml = ws + (long long)gridDim.y * nh * splits * hd;
+  if (t == 0) {
+    ml[2 * (sh * splits + j)] = M;
+    ml[2 * (sh * splits + j) + 1] = L;
+  }
+  merge_splits<T, QT, HD>(ws + sh * splits * hd, ml + 2 * sh * splits,
+                          tickets + sh, out + sh * hd, hd, ns);
 }
 
 bool aligned16(const void* p) {
@@ -533,27 +776,55 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_q8(const void* q, const int8_t* k, const float* ks,
                         const int8_t* v, const float* vs, const int* table,
-                        const int* lens, void* out, int S, int nh, int hd,
-                        int P, int ps, int maxP, float scale_div,
+                        const int* lens, void* out, float* ws, int* tickets,
+                        int S, int nh, int hd, int P, int ps, int maxP,
+                        int pps, int splits, float scale_div,
                         cudaStream_t st) {
   if (hd <= 0) return cudaErrorInvalidValue;
   const bool vecl = hd % 16 == 0 && aligned16(q) && aligned16(k) &&
                     aligned16(v);
-  const dim3 grid(nh, S);
+  const dim3 grid(nh, S, splits);
+  const int pids = pps < QPID_MAX ? pps : QPID_MAX;
   return with_groups(pow2_at_least((hd + 15) / 16), vecl,
                      [&](auto g, auto vl) {
-    paged_decode_q8<T, decltype(g)::value, decltype(vl)::value>
-        <<<grid, THREADS, 0, st>>>(
-            static_cast<const T*>(q), k, ks, v, vs, table, lens,
-            static_cast<T*>(out), nh, hd, P, ps, maxP, scale_div);
+    constexpr int G = decltype(g)::value;
+    const auto kern = paged_decode_q8<T, G, decltype(vl)::value>;
+    // more than 48 KB of dynamic shared memory is allowed once a device
+    static uint64_t allowed = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 64 || !(allowed >> dev & 1)) {
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               q8_ring_bytes(G) + QPID_MAX * 4);
+      if (e != cudaSuccess) return e;
+      if (dev < 64) allowed |= 1ull << dev;
+    }
+    kern<<<grid, QT, q8_ring_bytes(G) + pids * 4, st>>>(
+        static_cast<const T*>(q), k, ks, v, vs, table, lens,
+        static_cast<T*>(out), ws, tickets, nh, hd, P, ps, maxP, pps, splits,
+        scale_div);
     return cudaGetLastError();
   });
 }
 
+// The shapes and split plan both kernels take: pps pages a split, splits =
+// ceil(maxP / pps) <= 32, ws and tickets given where splits > 1.
+bool shapes_ok(int S, int nh, int P, int ps, int maxP, int pps, int splits,
+               const float* ws, const int* tickets) {
+  return S > 0 && nh > 0 && P > 0 && ps > 0 && maxP > 0 && S <= 65535 &&
+         pps > 0 && splits > 0 && splits <= PMAX_SPLITS &&
+         (long long)(splits - 1) * pps < maxP &&
+         (long long)splits * pps >= maxP && (splits == 1 || (ws && tickets));
+}
+
 }  // namespace
 
-// pps pages a split, splits = ceil(maxP / pps) <= 32; ws and tickets as
-// paged_decode takes them (unused when splits == 1).
+// pps pages a split, splits = ceil(maxP / pps) <= 32; ws: fp32
+// [S * nh][splits][hd] partial accumulators, then [S * nh][splits][2]
+// (m, l); tickets: int32 [S * nh], kept at 0 (both unused when splits ==
+// 1).
 extern "C" int pt_paged_attention_fwd(const void* q, const void* k,
                                       const void* v, const int* table,
                                       const int* lens, void* out, float* ws,
@@ -561,10 +832,7 @@ extern "C" int pt_paged_attention_fwd(const void* q, const void* k,
                                       int P, int ps, int maxP, int pps,
                                       int splits, float scale_div, int dtype,
                                       void* stream) {
-  if (S <= 0 || nh <= 0 || P <= 0 || ps <= 0 || maxP <= 0 || S > 65535 ||
-      pps <= 0 || splits <= 0 || splits > PMAX_SPLITS ||
-      (long long)(splits - 1) * pps >= maxP ||
-      (long long)splits * pps < maxP || (splits > 1 && (!ws || !tickets)))
+  if (!shapes_ok(S, nh, P, ps, maxP, pps, splits, ws, tickets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
@@ -578,23 +846,27 @@ extern "C" int pt_paged_attention_fwd(const void* q, const void* k,
   return (int)e;
 }
 
+// The int8 pool: k/v int8, k_scale / v_scale fp32 [P, ps, nh]; the plan,
+// ws and tickets as pt_paged_attention_fwd takes them.
 extern "C" int pt_paged_attention_quant_fwd(
     const void* q, const void* k, const float* k_scale, const void* v,
-    const float* v_scale, const int* table, const int* lens, void* out, int S,
-    int nh, int hd, int P, int ps, int maxP, float scale_div, int dtype,
-    void* stream) {
-  if (S <= 0 || nh <= 0 || P <= 0 || ps <= 0 || maxP <= 0 || S > 65535)
+    const float* v_scale, const int* table, const int* lens, void* out,
+    float* ws, int* tickets, int S, int nh, int hd, int P, int ps, int maxP,
+    int pps, int splits, float scale_div, int dtype, void* stream) {
+  if (!shapes_ok(S, nh, P, ps, maxP, pps, splits, ws, tickets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* kq = static_cast<const int8_t*>(k);
   const int8_t* vq = static_cast<const int8_t*>(v);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0)
-    e = dispatch_q8<float>(q, kq, k_scale, vq, v_scale, table, lens, out, S,
-                           nh, hd, P, ps, maxP, scale_div, st);
+    e = dispatch_q8<float>(q, kq, k_scale, vq, v_scale, table, lens, out, ws,
+                           tickets, S, nh, hd, P, ps, maxP, pps, splits,
+                           scale_div, st);
   else if (dtype == 1)
     e = dispatch_q8<__nv_bfloat16>(q, kq, k_scale, vq, v_scale, table, lens,
-                                   out, S, nh, hd, P, ps, maxP, scale_div, st);
+                                   out, ws, tickets, S, nh, hd, P, ps, maxP,
+                                   pps, splits, scale_div, st);
   return (int)e;
 }
 

@@ -17,9 +17,11 @@ device; they never fall back from one to the other.  Any head width up to
 the kernels mask the lanes past hd, and take one-element loads where rows
 are not 16-byte aligned, so the pool is never padded or copied.
 ``launches`` and ``quant_launches`` count their kernel launches, one a
-call.  ``paged_decode`` splits each slot's pages over blocks
-(:func:`_split_plan`, :func:`_split_pages`) and merges the splits in the
-same launch through a workspace and tickets kept per device.
+call.  Both kernels split each slot's pages over blocks
+(:func:`_split_pages`) and merge the splits in the same launch through a
+workspace and tickets kept per device: ``paged_decode`` on a plan sized
+from the table (:func:`_split_plan`), ``paged_decode_q8`` on one sized
+from the grid (:func:`_grid_plan`).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import math
 import torch
 
 from . import build
+from .dequant_matmul import _sm_count
 
 NEG_INF = -1e30
 
@@ -39,6 +42,8 @@ quant_launches = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _SPLIT_POSITIONS = 64         # positions a split takes at least
+_GRID_SPLIT_POSITIONS = 512   # the same for paged_decode_q8, whose merge
+                              # costs more than walking fewer positions
 _MAX_SPLITS = 32              # splits of a slot at most (the merge's room)
 _work = {}                    # device -> (fp32 workspace, int32 tickets)
 
@@ -87,7 +92,7 @@ def _kernel():
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         qfn = lib.pt_paged_attention_quant_fwd
-        qfn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        qfn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         qfn.restype = ctypes.c_int
         lib.pt_error_string.argtypes = [ctypes.c_int]
@@ -105,6 +110,20 @@ def _split_plan(maxP, ps):
     pps = max(1, _SPLIT_POSITIONS // ps)
     while -(-maxP // pps) > _MAX_SPLITS:
         pps *= 2
+    return pps, -(-maxP // pps)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_plan(S, nh, maxP, ps, sms):
+    """(pages a split, splits) for ``paged_decode_q8``, sized from the
+    grid: one split a slot while the ``S * nh`` blocks of one reach the
+    ``sms`` SMs, else the most splits that keep the grid within one block
+    an SM (at most ``_MAX_SPLITS``), of whole pages and at least
+    ``_GRID_SPLIT_POSITIONS`` positions each.  Reads no device value, so
+    a CUDA graph can capture the call."""
+    want = min(_MAX_SPLITS, max(1, sms // (S * nh)))
+    pps = min(maxP, max(-(-maxP // want),
+                        -(-_GRID_SPLIT_POSITIONS // ps)))
     return pps, -(-maxP // pps)
 
 
@@ -272,15 +291,21 @@ def paged_attention_quant(q, k_pages, k_scale, v_pages, v_scale,
                       lens)
     S, _, nh, hd = q.shape
     P, ps = k_pages.shape[:2]
+    maxP = page_table.shape[1]
+    pps, splits = _grid_plan(S, nh, maxP, ps, _sm_count(q.device))
     out = torch.empty_like(q)
+    ws = tickets = 0
+    if splits > 1:
+        ws, tickets = _workspace(q.device, S * nh * splits * (hd + 2),
+                                 S * nh)
     lib, _, qfn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = qfn(q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
                   v_pages.data_ptr(), v_scale.data_ptr(),
                   page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  S, nh, hd, P, ps, page_table.shape[1], math.sqrt(hd),
-                  _DTYPE_CODE[q.dtype], stream)
+                  ws, tickets, S, nh, hd, P, ps, maxP, pps, splits,
+                  math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
     build.check(lib, err, "paged_attention_quant")
     quant_launches += 1
     return out

@@ -524,6 +524,44 @@ def test_paged_attention_quant_kernel_matches_plain(dev, dtype, hd):
         assert _per_element(out, ref, scale, cap=2e-2) <= 1.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one slot of 8191", "16 ragged slots"])
+def test_paged_attention_quant_long_and_ragged_slots(dev, dtype, case):
+    """The int8 kernel at one slot of 8,191 positions (a split plan of
+    several splits, merged in the launch) and at 16 ragged slots over 64
+    pages (lens 0, ps - 1, ps, a full table and 12 others; one split a
+    slot): against the plain version under the gates above, one launch a
+    call, bitwise-equal outputs from two calls, every ticket back at 0."""
+    ps = 16
+    if case == "one slot of 8191":
+        maxP, lens = 512, [8190]
+    else:
+        maxP = 64
+        lens = [0, ps - 1, ps, maxP * ps - 1] + [
+            int(n) for n in np.random.default_rng(16).integers(
+                1, maxP * ps - 1, 12)]
+    args = _paged_quant(dev, dtype, len(lens), 16, 64, ps, maxP, lens)
+    before = (paged_attn.launches, paged_attn.quant_launches)
+    out = paged_attn.paged_attention_quant(*args)
+    again = paged_attn.paged_attention_quant(*args)
+    torch.cuda.synchronize()
+    assert (paged_attn.launches, paged_attn.quant_launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(out, again)
+    work = paged_attn._work.get(out.device)
+    if work is not None:
+        assert int(work[5].abs().sum()) == 0
+    ref = paged_attn._ref_paged_attention_quant(*args)
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=FP32_TOL, rtol=0)
+    else:
+        q, kq, ks, vq, vs, table, lens_t = args
+        scale = paged_attn._ref_paged_attention_quant(q, kq, ks, vq.abs(),
+                                                      vs, table, lens_t)
+        assert _per_element(out, ref, scale, cap=2e-2) <= 1.0
+
+
 def test_paged_attention_quant_refuses_by_name(dev):
     q, kq, ks, vq, vs, table, lens = _paged_quant(dev, torch.float32, 2, 2,
                                                   64, 16, 2, [3, 20])

@@ -52,18 +52,12 @@ def _t(a, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
-@pytest.mark.parametrize("maxP,ps,lens", [
-    (32, 16, [17, 331, 200, 64, 95, 300, 18, 120]),
-    (64, 16, [0, 15, 16, 1023, 511, 512, 700]),
-    (512, 16, [8191, 0]), (4, 8, [0, 7, 8, 31]), (6, 8, [47, 3, 12]),
-    (2, 16, [0, 31]), (1, 1, [0]), (100, 3, [299, 0, 150, 2]),
-    (33, 2, [65, 1, 64]), (64, 16, [0, 1023, 100])])
-def test_paged_split_plan_reads_every_filled_page_once(maxP, ps, lens):
-    """paged_decode's split plan: whole pages, at most 32 splits covering
-    the table; for each slot the blocks with work take every filled page
-    (positions 0..lens[s]) exactly once and none past it, and the merge
-    sums the splits in order 0, 1, ..."""
-    pps, splits = paged_attn._split_plan(maxP, ps)
+def _check_plan_pages(plan, maxP, ps, lens):
+    """A plan's invariants: whole pages, at most ``_MAX_SPLITS`` splits
+    covering the table; for each slot the blocks with work take every
+    filled page (positions 0..lens[s]) exactly once and none past it, in
+    split order 0, 1, ..."""
+    pps, splits = plan
     assert 1 <= splits <= paged_attn._MAX_SPLITS
     assert (splits - 1) * pps < maxP <= splits * pps
     for ln, blocks in zip(lens, paged_attn._split_pages(lens, ps, maxP,
@@ -73,6 +67,89 @@ def test_paged_split_plan_reads_every_filled_page_once(maxP, ps, lens):
         pages = [p for _, ps_ in blocks for p in ps_]
         assert pages == list(range(ln // ps + 1))
         assert all(len(ps_) <= pps for _, ps_ in blocks)
+
+
+@pytest.mark.parametrize("S,nh,maxP,ps,splits", [
+    (8, 16, 32, 16, 1), (1, 16, 512, 16, None), (16, 16, 64, 16, 1),
+    (4, 4, 4, 8, None), (2, 2, 2, 16, None), (3, 4, 6, 8, None),
+    (4, 16, 8, 16, 1), (1, 1, 1024, 16, 32), (1, 1, 100, 3, None),
+    (2, 4, 33, 2, None)])
+def test_paged_grid_plan_reads_every_filled_page_once(S, nh, maxP, ps,
+                                                       splits):
+    """paged_decode_q8's plan, sized from the grid (132 SMs, an H100's):
+    one split a slot where S * nh blocks reach the SMs (the serving decode
+    shape, 128 blocks, pays no merge) or the table is short (a split takes
+    at least 512 positions), else at most one block an SM; the page
+    invariants of the table-sized plan."""
+    lens = [0, ps - 1, ps, maxP * ps - 1, maxP * ps // 2][:max(S, 2)]
+    plan = paged_attn._grid_plan(S, nh, maxP, ps, 132)
+    if splits is not None:
+        assert plan[1] == splits
+    assert S * nh * plan[1] <= max(S * nh, 132)
+    _check_plan_pages(plan, maxP, ps, lens)
+
+
+@pytest.mark.parametrize("maxP,ps,lens", [
+    (32, 16, [17, 331, 200, 64, 95, 300, 18, 120]),
+    (64, 16, [0, 15, 16, 1023, 511, 512, 700]),
+    (512, 16, [8191, 0]), (4, 8, [0, 7, 8, 31]), (6, 8, [47, 3, 12]),
+    (2, 16, [0, 31]), (1, 1, [0]), (100, 3, [299, 0, 150, 2]),
+    (33, 2, [65, 1, 64]), (64, 16, [0, 1023, 100])])
+def test_paged_split_plan_reads_every_filled_page_once(maxP, ps, lens):
+    """paged_decode's plan, sized from the table: whole pages, at most 32
+    splits covering the table; for each slot the blocks with work take
+    every filled page exactly once and none past it, in split order."""
+    _check_plan_pages(paged_attn._split_plan(maxP, ps), maxP, ps, lens)
+
+
+def test_int8_split_partials_merged_in_order_match_references():
+    """The int8 kernel's arithmetic on a plan of several splits, in plain
+    PyTorch: each split's (m, l, unnormalised acc) over its pages, merged
+    in split order with one weight exp(m_j - max m) a split, matches the
+    port's and the JAX package's ``_ref_paged_attention_quant`` in fp32."""
+    rng = np.random.default_rng(10)
+    S, nh, hd, ps, maxP = 3, 2, 32, 8, 192
+    P = S * maxP + 1
+    q = rng.standard_normal((S, 1, nh, hd)).astype(np.float32)
+    kq = rng.integers(-127, 128, (P, ps, nh, hd)).astype(np.int8)
+    vq = rng.integers(-127, 128, (P, ps, nh, hd)).astype(np.int8)
+    ks = ((rng.random((P, ps, nh)) + 0.05) / 64).astype(np.float32)
+    vs = ((rng.random((P, ps, nh)) + 0.05) / 64).astype(np.float32)
+    table = rng.integers(0, P, (S, maxP)).astype(np.int32)
+    lens = np.asarray([0, 700, maxP * ps - 1], np.int32)
+    pps, splits = paged_attn._grid_plan(S, nh, maxP, ps, 132)
+    assert splits == 3
+    args = [_t(a) for a in (q, kq, ks, vq, vs, table, lens)]
+    k = args[1].float() * args[2][..., None]          # [P, ps, nh, hd]
+    v = args[3].float() * args[4][..., None]
+    out = torch.zeros(S, 1, nh, hd)
+    split_pages = paged_attn._split_pages(lens, ps, maxP, pps)
+    for s, blocks in enumerate(split_pages):
+        parts = []
+        for _, pages in blocks:
+            pos = [p * ps + i for p in pages for i in range(ps)
+                   if p * ps + i <= lens[s]]
+            rows = args[5][s].long()[[p // ps for p in pos]]
+            kk = k[rows, torch.tensor(pos) % ps]       # [n, nh, hd]
+            vv = v[rows, torch.tensor(pos) % ps]
+            sc = torch.einsum("hd,nhd->hn", args[0][s, 0], kk) / hd ** 0.5
+            m = sc.max(-1).values
+            p = torch.exp(sc - m[:, None])
+            parts.append((m, p.sum(-1), torch.einsum("hn,nhd->hd", p, vv)))
+        M = torch.stack([m for m, _, _ in parts]).max(0).values
+        L = torch.zeros(nh)
+        A = torch.zeros(nh, hd)
+        for m, l, acc in parts:                       # in split order
+            w = torch.exp(m - M)
+            L = L + l * w
+            A = A + acc * w[:, None]
+        out[s, 0] = A / L.clamp(min=1e-30)[:, None]
+    port = paged_attn._ref_paged_attention_quant(*args)
+    ref = np.asarray(jax_paged._ref_paged_attention_quant(
+        *(jnp.asarray(a) for a in (q, kq, ks, vq, vs, table, lens))))
+    np.testing.assert_allclose(out.numpy(), port.numpy(), atol=FP32_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(out.numpy(), ref, atol=FP32_TOL, rtol=0)
 
 
 class TestPagedAttentionParity:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the serving paths' two redesigned kernels, the bf16 dequant matmul
-(``dqmm_stream`` and ``dqmm_wg``) and paged decode attention
-(``paged_decode``), beside another version of the port's sources, and
-variants of their plans, on one GPU in one process.
+"""Time the serving paths' redesigned kernels, the bf16 dequant matmul
+(``dqmm_stream`` and ``dqmm_wg``), paged decode attention
+(``paged_decode``) and int8 paged decode attention (``paged_decode_q8``),
+beside another version of the port's sources, and variants of their plans,
+on one GPU in one process.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
@@ -16,21 +17,23 @@ versions run through their own wrappers on the same operands.
 
 Shapes: the dequant matmul at gpt_345m's four decode products ([8, K] x
 [K, N] for qkv, proj, fc1 and fc2) and its prefill products at M = 4096;
-paged attention at the serving decode shape (8 slots, 16 heads of 64, page
-16, 32 pages a slot, lengths 17-331), 16 ragged slots over 64 pages and
-one slot of 8,191 positions.  Operands are cycled in copies that pass the
-50 MB L2, as ``chip_smoke.py`` (c) does.  For each shape and version: the
-device ms of a call (CUDA-graph replay, ``chip_smoke.device_ms``) and the
-eager ms of a call (host launch cost included, ``chip_smoke.time_ms``),
+both paged kernels at the serving decode shape (8 slots, 16 heads of 64,
+page 16, 32 pages a slot, lengths 17-331), 16 ragged slots over 64 pages
+and one slot of 8,191 positions.  Operands are cycled in copies that pass
+the 50 MB L2, as ``chip_smoke.py`` (c) does.  For each shape and version:
+the device ms of a call (CUDA-graph replay, ``chip_smoke.device_ms``) and
+the eager ms of a call (host launch cost included, ``chip_smoke.time_ms``),
 each the median of ``--rounds`` rounds that visit the versions in turn,
 each round starting one version later; the lowest and highest round
 beside it.  Then this tree's kernels under other plans and as patched
-variants (``DQMM_VARIANTS``, ``PAGED_VARIANTS``; those named "cut" break
-the result on purpose and only their time counts: it shows what the part
-they cut costs): the cluster size at the decode shapes, the streaming
-kernel against the wgmma kernel at M = 8 and 16 (``_SMALL_M``), and the
-cuts at the decode, prefill and paged shapes.  The card's name and power
-limit come first.
+variants (``DQMM_VARIANTS``, ``PAGED_VARIANTS``, ``Q8_VARIANTS``; those
+named "cut" break the result on purpose and only their time counts: it
+shows what the part they cut costs): the cluster size at the decode
+shapes, the streaming kernel against the wgmma kernel at M = 8 and 16
+(``_SMALL_M``), the fp paged kernel on the int8 kernel's grid-sized plan,
+the int8 kernel on other split counts and ring shapes, and the cuts at the
+decode, prefill and paged shapes.  The card's name and power limit come
+first.
 """
 import argparse
 import importlib
@@ -46,6 +49,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from paddle_tpu_torch import card_info  # noqa: E402
+from paddle_tpu_torch.models import gpt  # noqa: E402
 from paddle_tpu_torch.ops.cuda import build  # noqa: E402
 from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm  # noqa: E402
 from paddle_tpu_torch.ops.cuda import paged_attn  # noqa: E402
@@ -165,12 +169,34 @@ DQMM_VARIANTS = [
 ]
 PAGED_VARIANTS = [
     ("paged_decode cut: return at once", [
-        ("  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;\n",
+        ("  const int gi = threadIdx.x / G, li = threadIdx.x % G;\n",
          "  if (nh > 0) return;\n"
-         "  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;\n")]),
+         "  const int gi = threadIdx.x / G, li = threadIdx.x % G;\n")]),
     ("paged_decode cut: no merge of the splits", [
         ("  if (ns == 1) return;\n  if (threadIdx.x == 0) {\n",
          "  if (ns >= 1) return;\n  if (threadIdx.x == 0) {\n")]),
+]
+Q8_VARIANTS = [
+    ("paged_decode_q8: 1 position a group a stage, 8 stages", [
+        ("constexpr int QU = 2; ", "constexpr int QU = 1; "),
+        ("constexpr int QSTAGES = 4; ", "constexpr int QSTAGES = 8; ")]),
+    ("paged_decode_q8: 4 positions a group a stage, 2 stages", [
+        ("constexpr int QU = 2; ", "constexpr int QU = 4; "),
+        ("constexpr int QSTAGES = 4; ", "constexpr int QSTAGES = 2; ")]),
+    ("paged_decode_q8: 512 threads, 2 stages", [
+        ("constexpr int QT = 256; ", "constexpr int QT = 512; "),
+        ("constexpr int QSTAGES = 4; ", "constexpr int QSTAGES = 2; ")]),
+    ("paged_decode_q8 cut: no K/V loads", [
+        ("  auto issue = [&](int st) {\n    if (st < nst) {",
+         "  auto issue = [&](int st) {\n    if (st < 0) {")]),
+    ("paged_decode_q8 cut: return at once", [
+        ("  const int t = threadIdx.x, gi = t / G, li = t % G, i0 = li * 16;"
+         "\n", "  if (nh > 0) return;\n"
+         "  const int t = threadIdx.x, gi = t / G, li = t % G, i0 = li * 16;"
+         "\n")]),
+    ("paged_decode_q8 cut: no merge of the splits", [
+        ("  if (ns == 1) return;\n  float* ml = ws",
+         "  if (ns >= 1) return;\n  float* ml = ws")]),
 ]
 
 
@@ -234,33 +260,60 @@ def dqmm_variant(name, lib):
     return call
 
 
-def paged_variant(name, lib):
-    """fn(q, k, v, table, lens) calling a variant's
-    ``pt_paged_attention_fwd`` as the wrapper does."""
+def paged_variant(name, lib, quant=False, plan=None):
+    """fn(q, k, v, table, lens), or with ``quant`` fn(q, kq, ks, vq, vs,
+    table, lens), calling a library's ``pt_paged_attention_fwd`` (or
+    ``pt_paged_attention_quant_fwd``) as the wrapper does, on the
+    wrapper's plan or on ``plan(S, nh, maxP, ps)``."""
     import ctypes
     import math
-    fn = lib.pt_paged_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    fn = (lib.pt_paged_attention_quant_fwd if quant
+          else lib.pt_paged_attention_fwd)
+    ptrs = 10 if quant else 8
+    fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
-    def call(q, k, v, table, lens):
+    def call(q, *rest):
+        k, table = rest[0], rest[-2]
         S, _, nh, hd = q.shape
         P, ps = k.shape[:2]
         maxP = table.shape[1]
-        pps, splits = paged_attn._split_plan(maxP, ps)
+        if plan is not None:
+            pps, splits = plan(S, nh, maxP, ps)
+        elif quant:
+            pps, splits = paged_attn._grid_plan(
+                S, nh, maxP, ps, paged_attn._sm_count(q.device))
+        else:
+            pps, splits = paged_attn._split_plan(maxP, ps)
         ws, tickets = paged_attn._workspace(
             q.device, S * nh * splits * (hd + 2), S * nh)
         out_t = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 table.data_ptr(), lens.data_ptr(), out_t.data_ptr(),
-                 ws, tickets, S, nh, hd, P, ps, maxP,
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in rest),
+                 out_t.data_ptr(), ws, tickets, S, nh, hd, P, ps, maxP,
                  pps, splits, math.sqrt(hd), 1,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"{name}: CUDA error {err}")
         return out_t
     return call
+
+
+def splits_plan(n):
+    """A plan of whole pages in about ``n`` splits."""
+    def plan(S, nh, maxP, ps):
+        pps = -(-maxP // min(n, maxP))
+        return pps, -(-maxP // pps)
+    return plan
+
+
+def grid_plan(S, nh, maxP, ps):
+    return paged_attn._grid_plan(S, nh, maxP, ps,
+                                 paged_attn._sm_count(torch.device("cuda")))
+
+
+def table_plan(S, nh, maxP, ps):
+    return paged_attn._split_plan(maxP, ps)
 
 
 def with_plan(plan):
@@ -285,6 +338,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of another checkout")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--only", choices=("dqmm", "paged"),
+                    help="time one kernel family only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -295,6 +350,20 @@ def main():
     other = other_package(args.against) if args.against else None
     rng = np.random.default_rng(cs.SEED)
 
+    libs = variant_libs(
+        ([(n, "dequant_matmul.cu", pairs) for n, pairs, _ in DQMM_VARIANTS]
+         if args.only != "paged" else [])
+        + ([(n, "paged_attn.cu", pairs)
+            for n, pairs in PAGED_VARIANTS + Q8_VARIANTS]
+           + [("as built", "paged_attn.cu", [])]
+           if args.only != "dqmm" else []))
+    if args.only != "paged":
+        time_dqmm(args, other, libs)
+    if args.only != "dqmm":
+        time_paged(args, other, libs, rng)
+
+
+def time_dqmm(args, other, libs):
     print("dequant matmul, bf16 (this tree / other):", flush=True)
     for (M, K, N), label in DQMM:
         sets = dqmm_sets(M, K, N)
@@ -318,9 +387,6 @@ def main():
         show(f"[{M}, {K}] x [{K}, {N}] ({label})",
              rounds(fns, sets, args.rounds, 50))
         del sets
-    libs = variant_libs(
-        [(n, "dequant_matmul.cu", pairs) for n, pairs, _ in DQMM_VARIANTS]
-        + [(n, "paged_attn.cu", pairs) for n, pairs in PAGED_VARIANTS])
     variants = [(n, dqmm_variant(n, libs[n]), where)
                 for n, _, where in DQMM_VARIANTS]
     for (M, K, N), label in DQMM:
@@ -345,13 +411,21 @@ def main():
              cs.dqmm_bound(M, K, N, torch.bfloat16))
         del sets
 
+
+
+def time_paged(args, other, libs, rng):
+    built = libs["as built"]
     paged_variants = [(n, paged_variant(n, libs[n]))
                       for n, _ in PAGED_VARIANTS]
+    paged_variants.append(("this, grid-sized plan", paged_variant(
+        "grid plan", built, plan=grid_plan)))
     print("paged decode attention, bf16 (this tree / other):", flush=True)
+    paged_lens = {}
     for label, S, maxP, lens in PAGED:
         if lens is None:
             hi = 332 if S == 8 else maxP * 16 - 1
             lens = [int(n) for n in rng.integers(17, hi, S)]
+        paged_lens[label] = lens
         sets = cs.paged_inputs(torch, rng, torch.bfloat16, S, 16, 64, 16,
                                maxP, lens, copies=8 if S <= 8 else 2)
         fns = {"this": paged_attn.paged_attention}
@@ -361,10 +435,40 @@ def main():
         got = paged_attn.paged_attention(*sets[0])
         ref = paged_attn._ref_paged_attention(*sets[0])
         show(f"{label}, lens {lens if S <= 8 else '...'}, plan "
-             f"{paged_attn._split_plan(maxP, 16)}, max_abs_err "
+             f"{paged_attn._split_plan(maxP, 16)}, grid-sized "
+             f"{grid_plan(S, 16, maxP, 16)}, max_abs_err "
              f"{cs.max_err(got, ref):.3e}",
              rounds(fns, sets, args.rounds, 200),
              cs.paged_bound(sets[0][0], sets[0][1], sets[0][3], sets[0][4]))
+        del sets
+
+    q8_variants = [(n, paged_variant(n, libs[n], quant=True))
+                   for n, _ in Q8_VARIANTS]
+    print("int8 paged decode attention, bf16 (this tree / other):",
+          flush=True)
+    for label, S, maxP, _ in PAGED:
+        lens = paged_lens[label]
+        sets = cs.paged_quant_inputs(
+            torch, gpt, rng, torch.bfloat16, S, 16, 64, 16, maxP, lens,
+            copies=8 if S <= 8 else 4, v_mean=S == 1)
+        fns = {"this": paged_attn.paged_attention_quant}
+        if other:
+            fns["other"] = other[1].paged_attention_quant
+        plans = {"this, table-sized plan": table_plan,
+                 **{f"this, {n} splits": splits_plan(n) for n in (
+                     (2,) if S == 8 else (2, 4) if S == 16 else
+                     (4, 16, 32))}}
+        fns.update({n: paged_variant(n, built, quant=True, plan=p)
+                    for n, p in plans.items()})
+        fns.update({n: f for n, f in q8_variants})
+        got = paged_attn.paged_attention_quant(*sets[0])
+        ref = paged_attn._ref_paged_attention_quant(*sets[0])
+        show(f"{label}, lens {lens if S <= 8 else '...'}, plan "
+             f"{grid_plan(S, 16, maxP, 16)}, max_abs_err "
+             f"{cs.max_err(got, ref):.3e}",
+             rounds(fns, sets, args.rounds, 200),
+             cs.paged_quant_bound(sets[0][0], sets[0][1], sets[0][5],
+                                  sets[0][6]))
         del sets
 
 
