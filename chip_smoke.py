@@ -31,11 +31,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
       ``use_pallas_norm``, weights drawn from a numpy seed, served by
       ``PagedServingEngine(slots=8, max_len=512, page_size=16)`` after
       ``warmup()``: 12 requests of 17-300 prompt tokens (two share a
-      64-token prefix) x 32 new tokens.  Kernel launch counts are zeroed
-      just before and read just after;
+      64-token prefix) x 32 new tokens.  The engine's decode step is one
+      CUDA graph, captured in ``warmup()``: ``decode_compiles`` must be 1
+      and no capture may happen during the traffic.  Kernel launch counts
+      are zeroed just before and read just after (each replay counts its
+      launches).  Then 8 slots at mixed lengths decode while one replay
+      is held against ``gpt.decode_step_paged`` on clones of the pool with
+      the same inputs (next tokens equal; the bf16 logit difference
+      printed), and 50 replays are timed against 50 eager steps (five
+      host-to-device copies, the step, argmax, readback), alternated;
   (e) the engine in fp32 (``capture_logits=True``) against the port's own
       ``generate`` (greedy tokens) and a teacher-forced ``forward``
-      (logits) on the card;
+      (logits) on the card, and its replay against the eager step with
+      logits within 1e-3;
   (f) only with ``--profile STEPS``: where the main path's decode step
       spends its time, from a ``torch.profiler`` trace of STEPS steady
       steps with every slot decoding (host and device ms per step, the
@@ -63,10 +71,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
       paged attention L per decode step, LayerNorm 2L + 1 per forward);
       its tokens/s, step times, peak memory and pool bytes are printed
       beside (d)'s, with the share of request 0's tokens that equal (d)'s
-      (reported, not asserted: random weights);
+      (reported, not asserted: random weights); ``decode_compiles`` and
+      the replay-against-eager check and timing as in (d);
   (k) fp32 parity of the quantized engine, card (kernels) against CPU
       (plain versions), at ``gpt_345m`` widths with 2 layers, on 4 of the
-      requests: greedy tokens exact, logits within 1e-3;
+      requests: greedy tokens exact, logits within 1e-3; the card engine's
+      replay against its eager step, logits within 1e-3;
   (l) the reference bench's flagship training step (``bench.py``'s GPT-3
       1.3B recipe, ``BASELINE.json`` configs[3]): V=50304, H=2048, L=24,
       nh=16, hd=128, N=2048, bf16 params and bf16 AdamW moments, bf16
@@ -125,6 +135,15 @@ causal (with the split kernels' time beside it), a ragged [1, 1000, 16,
 and the four wide heads, with the largest |dq| difference between two
 launches on the same inputs (the adds' order varies; reported, not
 asserted).
+(c) also holds the kernels at the inputs they used to refuse or read
+otherwise than the reference (``check_queue3``): paged attention with
+table entries -1, -5, -P - 3, P and P + 40 (both pools), at heads of
+fp32 160, bf16 and fp32 320 and int8 640 (head-width groups) and at
+65,537 slots (two launches); RMSNorm on a transposed view and one 4
+bytes off alignment; the dequant matmul at K = 13, N = 10 and K = 1030,
+N = 1000 on a strided weight (padded per call and once); flash attention
+causal with N = Nk + 1 and 2 Nk (rows that see no key), forward and both
+backward strategies; each gate rejecting its wrong-scale mutant.
 (c) also holds the RMSNorm kernel against its plain version at (n)'s
 shape [8, 512, 768] (fp32; bf16 with bf16 g; bf16 with fp32 g), [4, 8,
 256], a ragged [3, 1000], [2, 8] and [3, 1001] (one-element loads), each
@@ -1356,6 +1375,272 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn):
     return out
 
 
+def first_rows(m):
+    """The first 64 rows (axis 1): of a causal N > Nk problem, rows that
+    see no key."""
+    return m[:, :64]
+
+
+def last_rows(m):
+    """The last 64 rows (axis 1)."""
+    return m[:, -64:]
+
+
+def check_queue3(torch, gpt, flash_attn, paged_attn, norms, dqmm):
+    """Phase (c), the inputs the kernels used to refuse or read otherwise
+    than the reference (ROADMAP Queue 3), each kernel against its plain
+    version, each gate also rejecting its wrong-scale mutant: paged
+    attention (fp and int8 pools) with table entries -1, -5, -P - 3, P and
+    P + 40 (a negative entry wraps once, then the index is clamped);
+    RMSNorm on a transposed view and one 4 bytes off alignment; the
+    dequant matmul at K = 13, N = 10 and K = 1030, N = 1000 (padded per
+    call and, as the engine does, once); flash attention causal with N =
+    Nk + 1 and N = 2 Nk (rows that see no key), forward and both backward
+    strategies; paged attention at heads of fp32 160, bf16 320 and int8
+    640 (head-width groups) and at S = 65,537 slots (two launches).
+    Returns {kernel: [case, ...]}, each case timed (kernel device ms)."""
+    rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = collections.defaultdict(list)
+
+    def record(name, label, dt, pairs, atol, rtol, rows, fn, sets, cap=None,
+               per_graph=4, **extra):
+        ratio, mutant = gate(pairs, atol, rtol, cap, rows)
+        out[name].append({
+            "shape": label, "dtype": str(dt),
+            "max_abs_err": max(max_err(g, r) for g, r, _ in pairs),
+            "atol": atol, "rtol": rtol, "gate": ratio,
+            "mutant_gate": mutant,
+            "ms": device_ms(fn, sets, per_graph=per_graph, replays=3),
+            **extra})
+
+    def wild_table(table, P):
+        """Entries outside [0, P) in filled pages of slots 0 and 2."""
+        t = table.clone()
+        t[0, 1:6] = torch.tensor([-1, -5, -P - 3, P, P + 40])
+        t[2, 3:8] = torch.tensor([P + 40, P, -P - 3, -5, -1])
+        return t
+
+    # paged attention: table entries outside [0, P) -----------------------
+    lens = [300, 200, 450, 100]
+    for dt in (f32, bf16):
+        q, k, v, table, lens_t = paged_inputs(torch, rng, dt, 4, 16, 64, 16,
+                                              32, lens)[0]
+        table = wild_table(table, k.shape[0])
+        args = (q, k, v, table, lens_t)
+        got = paged_attn.paged_attention(*args)
+        ref = paged_attn._ref_paged_attention(*args)
+        atol = FP32_TOL if dt == f32 else 2.0 ** -6
+        record("paged_attention", "S4 nh16 hd64 table entries outside "
+               "[0, P)", dt, [(got, ref, ref)], atol, 0.0, later_slots,
+               paged_attn.paged_attention, [args])
+        sets = paged_quant_inputs(torch, gpt, rng, dt, 4, 16, 64, 16, 32,
+                                  lens)
+        qq, kq, ks, vq, vs, table, lens_t = sets[0]
+        qargs = (qq, kq, ks, vq, vs, wild_table(table, kq.shape[0]), lens_t)
+        got = paged_attn.paged_attention_quant(*qargs)
+        ref = paged_attn._ref_paged_attention_quant(*qargs)
+        scale = (ref if dt == f32 else paged_attn._ref_paged_attention_quant(
+            *qargs[:3], vq.abs(), *qargs[4:]))
+        atol, rtol, cap = ((FP32_TOL, 0.0, None) if dt == f32
+                           else (BF16_ATOL, BF16_RTOL, PAGED_BF16_CAP))
+        record("paged_attention_quant", "S4 nh16 hd64 table entries outside "
+               "[0, P)", dt, [(got, ref, scale)], atol, rtol, later_slots,
+               paged_attn.paged_attention_quant, [qargs], cap=cap)
+
+    # paged attention: wide heads (head-width groups) ---------------------
+    lens = [int(n) for n in rng.integers(17, 500, 8)]
+    for dt, hd in ((f32, 160), (bf16, 320), (f32, 320)):
+        sets = paged_inputs(torch, rng, dt, 8, 8, hd, 16, 32, lens, copies=2)
+        got = paged_attn.paged_attention(*sets[0])
+        ref = paged_attn._ref_paged_attention(*sets[0])
+        q, k, v, table, lens_t = sets[0]
+        if dt == f32:
+            atol, rtol, scale = FP32_TOL, 0.0, ref
+        else:
+            atol, rtol = BF16_ATOL, BF16_RTOL
+            scale = paged_attn._ref_paged_attention(q, k, v.abs(), table,
+                                                    lens_t)
+        record("paged_attention", f"S8 nh8 hd{hd} ps16 maxP32 (head-width "
+               f"groups)", dt, [(got, ref, scale)], atol, rtol, later_slots,
+               paged_attn.paged_attention, sets)
+    for dt in (f32, bf16):
+        sets = paged_quant_inputs(torch, gpt, rng, dt, 8, 8, 640, 16, 32,
+                                  lens, copies=2)
+        got = paged_attn.paged_attention_quant(*sets[0])
+        ref = paged_attn._ref_paged_attention_quant(*sets[0])
+        qq, kq, ks, vq, vs, table, lens_t = sets[0]
+        scale = (ref if dt == f32 else paged_attn._ref_paged_attention_quant(
+            qq, kq, ks, vq.abs(), vs, table, lens_t))
+        atol, rtol, cap = ((FP32_TOL, 0.0, None) if dt == f32
+                           else (BF16_ATOL, BF16_RTOL, PAGED_BF16_CAP))
+        record("paged_attention_quant", "S8 nh8 hd640 ps16 maxP32 "
+               "(head-width groups)", dt, [(got, ref, scale)], atol, rtol,
+               later_slots, paged_attn.paged_attention_quant, sets, cap=cap)
+
+    # paged attention: S = 65,537 slots (two launches), a small pool ------
+    S, P = 65537, 33
+    q = torch.randn((S, 1, 1, 64), device="cuda", generator=gen)
+    k, v = (torch.randn((P, 16, 1, 64), device="cuda", generator=gen)
+            for _ in range(2))
+    table = torch.randint(1, P, (S, 8), device="cuda", generator=gen,
+                          dtype=torch.int32)
+    lens_t = torch.randint(0, 128, (S,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    for dt in (f32, bf16):
+        args = (q.to(dt), k.to(dt), v.to(dt), table, lens_t)
+        before = paged_attn.launches
+        got = paged_attn.paged_attention(*args)
+        launched = paged_attn.launches - before
+        ref = paged_attn._ref_paged_attention(*args)
+        # bf16: outputs past 2 (few positions a slot) round at 2^-6 and
+        # coarser, so the per-element rule of the int8 cases
+        if dt == f32:
+            atol, rtol, scale = FP32_TOL, 0.0, ref
+        else:
+            atol, rtol = BF16_ATOL, BF16_RTOL
+            scale = paged_attn._ref_paged_attention(*args[:2],
+                                                    args[2].abs(), *args[3:])
+        record("paged_attention", "S65537 nh1 hd64 ps16 maxP8 (two "
+               "launches)", dt, [(got, ref, scale)], atol, rtol,
+               later_slots, paged_attn.paged_attention, [args], per_graph=1,
+               launches_a_call=launched)
+        if launched != 2:
+            raise SystemExit(f"(c): S=65537 took {launched} launches")
+    kq, ks = gpt.quantize_kv(k)
+    vq, vs = gpt.quantize_kv(v)
+    qargs = (q, kq, ks, vq, vs, table, lens_t)
+    got = paged_attn.paged_attention_quant(*qargs)
+    ref = paged_attn._ref_paged_attention_quant(*qargs)
+    record("paged_attention_quant", "S65537 nh1 hd64 ps16 maxP8 (two "
+           "launches)", f32, [(got, ref, ref)], FP32_TOL, 0.0, later_slots,
+           paged_attn.paged_attention_quant, [qargs], per_graph=1)
+    del q, k, v, table, lens_t, kq, vq, got, ref, args, qargs
+    torch.cuda.empty_cache()
+
+    # RMSNorm: strided and unaligned views --------------------------------
+    for dt in (f32, bf16):
+        base = (torch.randn((768, 512 + 4), device="cuda", generator=gen)
+                * 2 + 0.5).to(dt)
+        g = torch.randn(768, device="cuda", generator=gen)
+        off = 4 // base.element_size()
+        for label, x in (("transposed view [512, 768]", base[:, :512].t()),
+                         ("view 4 bytes off alignment [512, 768]",
+                          base.reshape(-1)[off:off + 512 * 768]
+                          .view(512, 768))):
+            got = norms.rms_norm(x, g)
+            ref = norms._ref_rms_norm(x, g, 1e-6)
+            atol, rtol = ((FP32_TOL * float(ref.abs().max()), 0.0)
+                          if dt == f32 else (1e-6, 2.0 ** -7))
+            record("rms_norm", label, dt, [(got, ref, ref)], atol, rtol,
+                   later_rows, norms.rms_norm, [(x, g)], g_dtype=str(f32))
+
+    # dequant matmul: K and N off the kernels' multiples ------------------
+    for M, K, N in ((8, 13, 10), (100, 13, 10), (8, 1030, 1000),
+                    (100, 1030, 1000)):
+        for dt in (f32, bf16):
+            x = torch.randn((M, K), device="cuda", generator=gen).to(dt)
+            wb = torch.randint(-127, 128, (K, N + 3), device="cuda",
+                               generator=gen, dtype=torch.int8)
+            w = wb[:, 3:]                       # strided, 3 bytes off
+            sc = (torch.rand(N, device="cuda", generator=gen) + 0.1) / 64
+            wp, sp = dqmm.pad_weight(w, sc)
+            got = dqmm.dequant_matmul(x, w, sc)
+            pre = dqmm.dequant_matmul(x, wp, sp, n=N)
+            with fp32_reduction(torch):
+                ref = dqmm._ref_dequant_matmul(x, w, sc)
+            if dt == f32:
+                atol, rtol = DQMM_FP32_RTOL * float(ref.abs().max()), 0.0
+            else:
+                atol, rtol = BF16_ATOL, BF16_RTOL
+            record("dequant_matmul", f"[{M}, {K}] x [{K}, {N}] (K, N off "
+                   "the multiples; strided weight)", dt,
+                   [(got, ref, ref), (pre, ref, ref)], atol, rtol,
+                   later_slots,
+                   lambda a, b, c, d: dqmm.dequant_matmul(a, b, c, n=d),
+                   [(x, wp, sp, N)])
+
+    # flash attention: causal with N > Nk ---------------------------------
+    for B, N, Nk, nh, hd in ((2, 257, 256, 4, 64), (2, 512, 256, 4, 64)):
+        for dt in (f32, bf16):
+            # V with a mean per (head, channel): the rows that see no key
+            # average all of V, and the mean must stay large enough for
+            # the wrong-scale mutant to show against the bf16 gate
+            q = torch.randn((B, N, nh, hd), device="cuda",
+                            generator=gen).to(dt)
+            k = torch.randn((B, Nk, nh, hd), device="cuda",
+                            generator=gen).to(dt)
+            v = (torch.randn((B, Nk, nh, hd), device="cuda", generator=gen)
+                 + torch.randn((nh, hd), device="cuda",
+                               generator=gen)).to(dt)
+            do = torch.randn((B, N, nh, hd), device="cuda",
+                             generator=gen).to(dt)
+            o, lse = flash_attn.flash_fwd(q, k, v, True)
+            ro, rl = flash_attn._ref_flash_fwd(q, k, v, True)
+            rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
+                                                     True)
+            f = dt == f32
+            terms = ((rdq, rdk, rdv) if f else
+                     flash_attn._ref_flash_bwd_terms(q, k, v, o, lse, do,
+                                                     True))
+            label = f"[{B}, {N}, {nh}, {hd}] kv {Nk} causal (N > Nk)"
+            o_scale = ro if f else flash_attn._ref_flash_fwd(
+                q, k, v.abs(), True)[0]
+            atol, rtol = (FP32_TOL, 0.0) if f else (BF16_ATOL, BF16_RTOL)
+            record("flash_attention_fwd", label, dt, [(o, ro, o_scale)],
+                   atol, rtol, (first_rows, last_rows), flash_attn.flash_fwd,
+                   [(q, k, v, True)], lse_err=max_err(lse, rl),
+                   lse_tol=FP32_TOL)
+            gatol, grtol = ((FLASH_GRAD_TOL, 0.0) if f
+                            else (BF16_ATOL, BF16_RTOL))
+            bwd = [(q, k, v, o, lse, do, True)]
+            for fused, names in ((False, ("flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv")),
+                                 (True, ("flash_attention_bwd_fused",))):
+                flash_attn.set_default_blocks(bwd_fused=fused)
+                try:
+                    dq, dk, dv = flash_attn.flash_bwd(q, k, v, o, lse, do,
+                                                      True)
+                    torch.cuda.synchronize()
+                    if not fused:
+                        # dq is 0 on the rows that see no key: a scaled 0
+                        # is 0, so its mutant scales the last rows only
+                        record(names[0], label, dt, [(dq, rdq, terms[0])],
+                               gatol, grtol, (last_rows,),
+                               flash_attn.flash_bwd, bwd)
+                        record(names[1], label, dt,
+                               [(dk, rdk, terms[1]), (dv, rdv, terms[2])],
+                               gatol, grtol, (first_rows, last_rows),
+                               flash_attn.flash_bwd, bwd)
+                    else:
+                        record(names[0], label, dt,
+                               list(zip((dq, dk, dv), (rdq, rdk, rdv),
+                                        terms)), gatol, grtol,
+                               (first_rows, last_rows),
+                               flash_attn.flash_bwd, bwd)
+                    if bool(dq[:, :N - Nk].any()):
+                        raise SystemExit(f"(c): dq on rows with no key is "
+                                         f"not 0 ({label}, {dt})")
+                finally:
+                    flash_attn.set_default_blocks(bwd_fused=False)
+    torch.cuda.empty_cache()
+    for name, cs in out.items():
+        for c in cs:
+            log(f"  {name:24s} {c['dtype']:15s} {c['shape'][:56]:56s} "
+                f"max_abs_err {c['max_abs_err']:.3e} gate {c['gate']:.3f} "
+                f"(atol {c['atol']:.1e} rtol {c['rtol']:.1e}; wrong-scale "
+                f"mutant {c['mutant_gate']:.2f})"
+                + (f" lse_err {c['lse_err']:.1e}" if "lse_err" in c else "")
+                + f"  device ms: kernel {c['ms']:.5f}")
+    bad = [(k, c["shape"], c["dtype"]) for k, cs in out.items() for c in cs
+           if not case_ok(c)]
+    if bad:
+        raise SystemExit(f"(c): a kernel disagrees with its plain version "
+                         f"on an input it used to refuse: {bad}")
+    return dict(out)
+
+
 def numpy_gpt_params(cfg, seed):
     """GPT params in the JAX layout drawn with numpy: the reference
     ``init_params`` distribution (N(0, 0.02), residual projections scaled
@@ -1659,8 +1944,90 @@ def train_parity(torch, gpt, gpt_hybrid, cfg=None, seed=SEED + 4):
     return res
 
 
-def quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms, cfg,
-               holder, prompts, new_tokens, fp_run, args):
+def eager_step(torch, gpt, eng, pool, host):
+    """The decode step as the engine ran it before its CUDA graph: the
+    five host arrays ``host`` (table, write pages, write offsets, lens,
+    tokens) copied to the card one by one, the eager step function on the
+    pool tensors ``pool`` (int8: k, v, k_scale, v_scale), the argmax and
+    the readback.  Returns (next tokens, logits)."""
+    table, wp, wo, lens, toks = (torch.from_numpy(np.ascontiguousarray(a))
+                                 .to(eng.device) for a in host)
+    with torch.inference_mode():
+        if eng._kv_quant:
+            logits, *_ = gpt.decode_step_paged_quant(
+                eng.params, toks, eng.cfg, pool[0], pool[2], pool[1],
+                pool[3], table, wp, wo, lens)
+        else:
+            logits, *_ = gpt.decode_step_paged(
+                eng.params, toks, eng.cfg, pool[0], pool[1], table, wp, wo,
+                lens)
+        nxt = torch.argmax(logits, -1)
+    return nxt.cpu().numpy(), logits
+
+
+def replay_vs_eager(torch, gpt, eng, prompts, tag, logit_tol=None,
+                    timed=50):
+    """Inside (d), (e), (j) and (k): 8 slots at mixed lengths decoding,
+    one step's graph replay held against the eager step function on
+    clones of the pool with the same inputs (next tokens equal; logits
+    within ``logit_tol`` where given, else the largest difference is
+    printed), then ``timed`` replays (staging copy, replay, readback)
+    against as many eager steps (five copies, the step on the clones,
+    argmax, readback), alternated, host clock, each ending in its sync.
+    The replays repeat one step's writes, so the engine's state holds;
+    the requests then drain."""
+    reqs = [eng.submit(p, 16) for p in prompts[:eng.slots]]
+    eng.step()
+    if int(eng._active.sum()) != eng.slots or eng._step is None:
+        raise SystemExit(f"{tag}: not every slot is decoding")
+    real, rec = eng._decode, {}
+
+    def probe(wpages, woffs):
+        host = [np.array(a, np.int32) for a in (
+            eng._tables_np, wpages, woffs, eng._lens, eng._last_tok)]
+        pool = [t.clone() for t in eng._cache_operands()]
+        rec["eager"] = eager_step(torch, gpt, eng, pool, host)
+        rec["host"], rec["pool"] = host, pool
+        out = real(wpages, woffs)
+        rec["replay"] = (out[0], eng._step.logits.float().clone())
+        return out
+    eng._decode = probe
+    try:
+        eng.step()
+    finally:
+        del eng._decode
+    (e_nxt, e_lg), (r_nxt, r_lg) = rec["eager"], rec["replay"]
+    diff = float((e_lg.float() - r_lg).abs().max())
+    res = {"slots": eng.slots,
+           "lens": [int(n) for n in rec["host"][3]],
+           "tokens_equal": bool(np.array_equal(e_nxt, r_nxt)),
+           "max_logit_diff": diff, "logit_tol": logit_tol}
+    if not res["tokens_equal"] or (logit_tol is not None
+                                   and not diff <= logit_tol):
+        raise SystemExit(f"{tag}: the graph replay disagrees with the "
+                         f"eager step: {res}")
+    st = eng._step
+    graph_s, eager_s = [], []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st()
+        graph_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        eager_step(torch, gpt, eng, rec["pool"], rec["host"])
+        eager_s.append(time.perf_counter() - t0)
+    res.update(timed=timed,
+               replay_step_ms=1e3 * float(np.mean(graph_s)),
+               eager_step_ms=1e3 * float(np.mean(eager_s)))
+    del rec
+    eng.run()
+    if not all(r.done for r in reqs):
+        raise SystemExit(f"{tag}: a request did not finish after the check")
+    return res
+
+
+def quant_path(torch, gpt, PagedServingEngine, dqmm, paged_attn, norms,
+               cfg, holder, prompts, new_tokens, fp_run, args):
     """Phase (j): the quantized main path on the params in ``holder``
     (fp32 masters on the card, handed over: the engine quantizes them
     once, and no other reference keeps a float block weight on the card).
@@ -1676,6 +2043,7 @@ def quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms, cfg,
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
+    captures = eng._step.captures
     dqmm.launches = paged_attn.quant_launches = 0
     paged_attn.launches = norms.launches = 0
     t0 = time.perf_counter()
@@ -1711,6 +2079,12 @@ def quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms, cfg,
                                       + launches["paged_attention_quant"]):
         raise SystemExit(f"(j): dequant_kernel_calls "
                          f"{st['dequant_kernel_calls']} against {launches}")
+    if st["decode_compiles"] != 1 or (captures, eng._step.captures) != (1,
+                                                                       1):
+        raise SystemExit(f"(j): decode_compiles {st['decode_compiles']}, "
+                         f"captures {captures} -> {eng._step.captures}: the "
+                         "traffic must replay the one graph captured in "
+                         "warmup")
     gen = sum(len(r.tokens) for r in reqs)
     res = {"warmup_waves": waves, "warmup_s": warm_s, "wall_s": wall,
            "tokens_per_s": gen / wall,
@@ -1726,10 +2100,12 @@ def quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms, cfg,
            "prefix_page_hits": st["prefix_page_hits"],
            "quant_matmuls": st["quant_matmuls"],
            "dequant_kernel_calls": st["dequant_kernel_calls"],
+           "decode_compiles": st["decode_compiles"],
            "launches": launches,
            "request0_tokens_equal_fp_share": float(np.mean(
                np.asarray(reqs[0].tokens)
                == np.asarray(fp_run["request0_tokens"])))}
+    res["replay_vs_eager"] = replay_vs_eager(torch, gpt, eng, prompts, "(j)")
     if args.profile:
         res["profile"] = profile_decode(torch, eng, prompts, args.profile,
                                         args.trace.replace(".json",
@@ -1755,14 +2131,19 @@ def quant_parity(torch, gpt, PagedServingEngine, prompts, new_tokens):
         reqs = [eng.submit(p, new_tokens) for p in prompts[:4]]
         eng.run()
         runs[dev] = reqs
+        if dev == "cuda":
+            rv = replay_vs_eager(torch, gpt, eng, prompts, "(k)",
+                                 logit_tol=PARITY_LOGIT_TOL, timed=10)
+            compiles = eng.stats()["decode_compiles"]
         del eng
     tok_equal = all(a.tokens == b.tokens
                     for a, b in zip(runs["cuda"], runs["cpu"]))
     logit_err = max(float(np.abs(np.stack(a.logits)
                                  - np.stack(b.logits)).max())
                     for a, b in zip(runs["cuda"], runs["cpu"]))
-    res = {"tokens_equal": tok_equal, "max_logit_err": logit_err}
-    if not tok_equal or not logit_err <= PARITY_LOGIT_TOL:
+    res = {"tokens_equal": tok_equal, "max_logit_err": logit_err,
+           "replay_vs_eager": rv, "decode_compiles": compiles}
+    if not tok_equal or not logit_err <= PARITY_LOGIT_TOL or compiles != 1:
         raise SystemExit(f"(k): the quantized engine on the card disagrees "
                          f"with the CPU: {res}")
     torch.cuda.empty_cache()
@@ -1845,6 +2226,9 @@ def main():
     cases.update(check_fused_bwd(torch, flash_attn))
     cases.update(check_fused_ffn(torch, fused_ffn))
     cases.update(check_rms_norm(torch, norms))
+    for k, extra in check_queue3(torch, gpt, flash_attn, paged_attn, norms,
+                                 dqmm).items():
+        cases[k].extend(extra)
 
     # (d)-(i), in the order and process state of the slices before -------
     cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
@@ -1867,8 +2251,8 @@ def main():
     # last reference over leaves no float block weight there -------------
     t0 = time.perf_counter()
     holder, params = [params], None
-    qrun = quant_path(torch, PagedServingEngine, dqmm, paged_attn, norms,
-                      cfg, holder, prompts, new_tokens, fp_run, args)
+    qrun = quant_path(torch, gpt, PagedServingEngine, dqmm, paged_attn,
+                      norms, cfg, holder, prompts, new_tokens, fp_run, args)
     launches.update({k: qrun["launches"][k] for k in
                      ("dequant_matmul", "paged_attention_quant")})
     launches["layer_norm_quant_path"] = qrun["launches"]["layer_norm"]
@@ -1889,9 +2273,16 @@ def main():
         f"kv_quant_bytes_saved {qrun['kv_quant_bytes_saved']}; prefix "
         f"page hits {qrun['prefix_page_hits']}; quant_matmuls "
         f"{qrun['quant_matmuls']}; dequant_kernel_calls "
-        f"{qrun['dequant_kernel_calls']}; launches {qrun['launches']}; "
+        f"{qrun['dequant_kernel_calls']}; decode_compiles "
+        f"{qrun['decode_compiles']}; launches {qrun['launches']}; "
         f"warmup {qrun['warmup_waves']} waves in "
         f"{qrun['warmup_s']:.1f} s  [{card}]")
+    rv = qrun["replay_vs_eager"]
+    log(f"    replay against the eager step (8 slots, lens {rv['lens']}):"
+        f" next tokens equal {rv['tokens_equal']}; max |logit diff| "
+        f"{rv['max_logit_diff']:.3e} (bf16, reported); {rv['timed']} "
+        f"replays {rv['replay_step_ms']} ms a step against "
+        f"{rv['eager_step_ms']} ms a step eager, alternated  [{card}]")
     jk_s = time.perf_counter() - t0
     log(f"    request 0: {qrun['request0_tokens_equal_fp_share']} of its "
         "tokens equal the bf16 fp path's (int8 rounding on random "
@@ -1908,7 +2299,11 @@ def main():
         f"2 layers, 4 requests x {new_tokens} tokens): greedy tokens "
         f"equal {par['tokens_equal']}; max |logit diff| "
         f"{par['max_logit_err']:.3e} (tol {PARITY_LOGIT_TOL:.0e}); "
-        f"phase {time.perf_counter() - t0:.1f} s")
+        f"decode_compiles {par['decode_compiles']}; replay against the "
+        f"eager step: next tokens equal "
+        f"{par['replay_vs_eager']['tokens_equal']}, max |logit diff| "
+        f"{par['replay_vs_eager']['max_logit_diff']:.3e} (tol "
+        f"{PARITY_LOGIT_TOL:.0e}); phase {time.perf_counter() - t0:.1f} s")
     jk_s += time.perf_counter() - t0
     log(f"    (j) and (k) together {jk_s:.1f} s")
 
@@ -1941,6 +2336,7 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
     log(f"    warmup: {waves} waves in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
+    captures = eng._step.captures
     paged_attn.launches = 0
     norms.launches = 0
     t0 = time.perf_counter()
@@ -1952,6 +2348,12 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
                      "layer_norm": norms.launches})
     st = eng.stats()
     L = cfg.num_layers
+    if st["decode_compiles"] != 1 or (captures, eng._step.captures) != (1,
+                                                                       1):
+        raise SystemExit(f"(d): decode_compiles {st['decode_compiles']}, "
+                         f"captures {captures} -> {eng._step.captures}: the "
+                         "traffic must replay the one graph captured in "
+                         "warmup")
     if not all(r.done and len(r.tokens) == new_tokens for r in reqs):
         raise SystemExit("not every request finished with its tokens")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
@@ -1978,11 +2380,18 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f" mean prefill wave {pre_ms} ms; max_memory_allocated "
         f"{mem / 2**30} GiB (allocated before the traffic "
         f"{resident / 2**30} GiB); kv_bytes_total {st['kv_bytes_total']}; prefix "
-        f"page hits {st['prefix_page_hits']}; launches "
+        f"page hits {st['prefix_page_hits']}; decode_compiles "
+        f"{st['decode_compiles']}; launches "
         f"{ {k: launches[k] for k in ('paged_attention', 'layer_norm')} }  "
         f"[{card}]")
+    rv = replay_vs_eager(torch, gpt, eng, prompts, "(d)")
+    log(f"    replay against the eager step (8 slots, lens {rv['lens']}):"
+        f" next tokens equal {rv['tokens_equal']}; max |logit diff| "
+        f"{rv['max_logit_diff']:.3e} (bf16, reported); {rv['timed']} "
+        f"replays {rv['replay_step_ms']} ms a step against "
+        f"{rv['eager_step_ms']} ms a step eager, alternated  [{card}]")
     run = {"tokens_per_s": gen / wall, "decode_step_ms": dec_ms,
-           "prefill_wave_ms": pre_ms,
+           "prefill_wave_ms": pre_ms, "replay_vs_eager": rv,
            "max_memory_allocated_gib": mem / 2 ** 30,
            "resident_gib": resident / 2 ** 30,
            "kv_bytes_total": st["kv_bytes_total"],
@@ -1995,6 +2404,8 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
                                capture_logits=True)
     r32 = [eng32.submit(p, new_tokens) for p in prompts[:4]]
     eng32.run()
+    rv32 = replay_vs_eager(torch, gpt, eng32, prompts, "(e)",
+                           logit_tol=PARITY_LOGIT_TOL, timed=10)
     p0 = torch.from_numpy(prompts[0]).cuda()[None]
     want = gpt.generate(params, cfg32, p0, new_tokens)[0, p0.shape[1]:]
     agree = float(np.mean(np.asarray(r32[0].tokens) == want.cpu().numpy()))
@@ -2011,8 +2422,12 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f"max |logit - teacher-forced forward| {logit_err:.3e} (tol "
         f"{PARITY_LOGIT_TOL:.0e}); bf16 main path agrees with fp32 on "
         f"{bf16_agree:.3f} of request 0's tokens (bf16 rounding, "
-        "not asserted)")
-    if agree != 1.0 or not logit_err <= PARITY_LOGIT_TOL:
+        f"not asserted); decode_compiles "
+        f"{eng32.stats()['decode_compiles']}; replay against the eager "
+        f"step: next tokens equal {rv32['tokens_equal']}, max |logit diff| "
+        f"{rv32['max_logit_diff']:.3e} (tol {PARITY_LOGIT_TOL:.0e})")
+    if (agree != 1.0 or not logit_err <= PARITY_LOGIT_TOL
+            or eng32.stats()["decode_compiles"] != 1):
         raise SystemExit("fp32 engine disagrees with generate/forward")
 
     # (f) ---------------------------------------------------------------

@@ -19,10 +19,16 @@ engine's main path.
   attention launches the int8 paged-attention kernel).  The two knobs are
   independent.
 
-The JAX engine builds one jitted executable per shape; here every call is
-eager and the decode step launches the paged-attention and LayerNorm
-kernels directly.  The host-side numpy mirrors (``_lens``, ``_tables_np``,
-``_active``) stay the scheduling authority, exactly as in the reference.
+The JAX engine compiles its decode step once per engine
+(``decode_compiles == 1``); here the decode step is one object built once
+per engine (:class:`_DecodeStep`, counted by ``decode_compiles``): static
+device inputs fed from one pinned staging array, and on the card one CUDA
+graph of the eager step, captured at the first decode step and replayed
+at every later one.  A failed capture raises; there is no eager mode on
+the card.  Prefill waves and copy-on-write page copies stay eager, on the
+same stream, ordered before the replay.  The host-side numpy mirrors
+(``_lens``, ``_tables_np``, ``_active``) stay the scheduling authority,
+exactly as in the reference.
 Decoding is greedy: the parity contract is token-exactness with
 ``models.gpt.generate``.  The telemetry registry, tracing and fault
 injection of the reference are not part of this slice; :meth:`stats`
@@ -39,7 +45,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import gpt
-from ..ops.cuda import dequant_matmul, paged_attn
+from ..ops.cuda import dequant_matmul, fused_ffn, norms, paged_attn
 from .kv_pager import KVPager, PagesExhausted
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4)
@@ -57,12 +63,33 @@ _COUNTERS = ("prefill_calls", "decode_steps", "requests_admitted",
              # compiled executable; eager PyTorch has none, so the port
              # counts launches, 0 on the CPU)
              "quant_matmuls", "kv_quant_bytes_saved",
-             "dequant_kernel_calls")
+             "dequant_kernel_calls",
+             # builds of the engine's decode-step object (one CUDA graph
+             # capture on the card): 1 per engine, as the reference's
+             # compiled decode step
+             "decode_compiles")
 
 # traffic counters a warmup wave must not inflate
 _WARMUP_QUIET = frozenset(_COUNTERS) - {"queue_rejects", "step_aborts",
                                         "requests_aborted",
-                                        "kv_quant_bytes_saved"}
+                                        "kv_quant_bytes_saved",
+                                        "decode_compiles"}
+
+# the kernel modules' launch counters a captured decode step can move
+# (fused_ffn with cfg.use_fused_ffn): capture takes its increments back,
+# each replay adds them again
+_LAUNCH_COUNTERS = ((paged_attn, "launches"), (paged_attn, "quant_launches"),
+                    (norms, "launches"), (dequant_matmul, "launches"),
+                    (fused_ffn, "launches"), (fused_ffn, "bodies"))
+
+
+def _launch_counts():
+    return [getattr(m, a) for m, a in _LAUNCH_COUNTERS]
+
+
+def _add_launch_counts(delta, sign=1):
+    for (m, a), d in zip(_LAUNCH_COUNTERS, delta):
+        setattr(m, a, getattr(m, a) + sign * d)
 
 
 def _pow2_ladder(lo, hi):
@@ -79,6 +106,123 @@ def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+class _DecodeStep:
+    """A paged engine's decode step, built once (``decode_compiles``).
+
+    * Static device inputs: one int32 buffer holds the page table
+      [S, maxP], the write pages, the write offsets, the lens and the last
+      tokens, as slices.  One staging array of the same layout (pinned on
+      the card) holds the host's values: the engine writes them into its
+      numpy views (:attr:`tables`, :attr:`wpages`, :attr:`woffs`,
+      :attr:`lens`, :attr:`toks`) and one non-blocking copy moves them a
+      step.  Rewriting the staging array is safe because every step ends
+      in the readback's sync.
+    * Static outputs: the next tokens (argmax) and the logits; the next
+      tokens come back through a pinned host buffer, then an event sync,
+      the decode loop's one sync point.
+    * On the card the first call runs the eager step over the static
+      buffers on a side stream (the warm-up PyTorch's CUDA-graph notes
+      ask for, which also builds the kernels, sets their attributes and
+      grows their workspaces) and returns its result; the step is then
+      captured into one CUDA graph (``captures``), and every later call
+      replays it.  Capture executes nothing, so its increments of the
+      kernel modules' launch counters are taken back, and each replay adds
+      them again: the launch counts read as if the step ran eagerly.  The
+      graph keeps the workspace and ticket tensors it baked.  A failure to
+      capture raises.  On the CPU the same buffers feed the eager step,
+      with no capture.
+    * The pool tensors are baked into the graph, so the engine zeroes them
+      in place on an abort instead of reallocating them."""
+
+    def __init__(self, eng):
+        S, maxP = eng.slots, eng._pages_per_slot
+        self._eng = eng
+        self.device = dev = eng.device
+        self._cuda = dev.type == "cuda"
+        n = S * maxP + 4 * S
+        self._stage = torch.zeros(n, dtype=torch.int32,
+                                  pin_memory=self._cuda)
+        self._in = torch.zeros(n, dtype=torch.int32, device=dev)
+        h = self._stage.numpy()
+        self.tables = h[:S * maxP].reshape(S, maxP)
+        self.wpages, self.woffs, self.lens, self.toks = (
+            h[S * maxP + i * S:S * maxP + (i + 1) * S] for i in range(4))
+        d = self._in
+        self._args = (d[:S * maxP].view(S, maxP),
+                      *(d[S * maxP + i * S:S * maxP + (i + 1) * S]
+                        for i in range(4)))
+        self._next = torch.zeros(S, dtype=torch.int64,
+                                 pin_memory=self._cuda)
+        self.logits = None          # [S, V] fp32 on the device, last call
+        self.captures = 0
+        self._graph = None
+        self._out = None
+        self._delta = None
+        self._held = ()
+        if self._cuda:
+            self._side = torch.cuda.Stream(dev)
+            self._done = torch.cuda.Event()
+
+    def _run(self):
+        """The eager step over the static inputs: (next tokens, logits)."""
+        eng = self._eng
+        table, wp, wo, lens, toks = self._args
+        if eng._kv_quant:
+            logits, *_ = gpt.decode_step_paged_quant(
+                eng.params, toks, eng.cfg, eng._cache_k, eng._cache_ks,
+                eng._cache_v, eng._cache_vs, table, wp, wo, lens)
+        else:
+            logits, *_ = gpt.decode_step_paged(
+                eng.params, toks, eng.cfg, eng._cache_k, eng._cache_v,
+                table, wp, wo, lens)
+        return torch.argmax(logits, -1), logits
+
+    def _first(self):
+        """The first call on the card: the eager step on the side stream,
+        then the capture (which executes nothing).  Returns the eager
+        step's outputs."""
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            out = self._run()
+        cur.wait_stream(self._side)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self._side):
+                self._out = self._run()
+        finally:
+            after = _launch_counts()
+            _add_launch_counts([a - b for a, b in zip(after, before)], -1)
+        self._delta = [a - b for a, b in zip(after, before)]
+        self._held = (paged_attn.held_buffers(self.device)
+                      + dequant_matmul.held_buffers(self.device))
+        self._graph = graph
+        self.captures += 1
+        return out
+
+    @torch.inference_mode()
+    def __call__(self):
+        """One decode step over the staged values: (next tokens [S] int64,
+        logits [S, V] fp32 numpy or None without ``capture_logits``)."""
+        self._in.copy_(self._stage, non_blocking=True)
+        if self._graph is not None:
+            self._graph.replay()
+            _add_launch_counts(self._delta)
+            nxt, self.logits = self._out
+        elif self._cuda:
+            nxt, self.logits = self._first()
+        else:
+            nxt, self.logits = self._run()
+        self._next.copy_(nxt, non_blocking=True)
+        if self._cuda:
+            self._done.record(torch.cuda.current_stream(self.device))
+            self._done.synchronize()
+        logits = (self.logits.cpu().numpy() if self._eng.capture_logits
+                  else None)
+        return self._next.numpy().copy(), logits
 
 
 class ServingQueueFull(RuntimeError):
@@ -203,7 +347,7 @@ class ServingEngine:
                              else 8 * self.slots)
         self.capture_logits = bool(capture_logits)
         self._cache_dtype = cache_dtype
-        self._rebuild_cache()
+        self._build_cache()
         # host-side bookkeeping mirrors: authoritative for scheduling
         self._lens = np.zeros((self.slots,), np.int32)
         self._active = np.zeros((self.slots,), bool)
@@ -222,7 +366,10 @@ class ServingEngine:
         self.prefill_s = []
         self.decode_step_s = []
 
-    def _rebuild_cache(self):
+    def _build_cache(self):
+        raise NotImplementedError
+
+    def _reset_cache(self):
         raise NotImplementedError
 
     # ------------------------------------------------------------- intake
@@ -316,8 +463,9 @@ class ServingEngine:
         """One engine iteration: admit from the queue into free slots, then
         one decode step for every slot.  Returns the requests that finished
         this iteration.  If the step raises, every in-flight request is
-        aborted (slots freed, KV pool rebuilt, requests marked failed and
-        parked in :meth:`take_aborted`) and the exception propagates."""
+        aborted (slots freed, KV pool zeroed in place, requests marked
+        failed and parked in :meth:`take_aborted`) and the exception
+        propagates; the decode step stays built."""
         try:
             self._step_inner()
         except Exception as e:
@@ -342,7 +490,7 @@ class ServingEngine:
         self._active[:] = False
         self._lens[:] = 0
         self._slot_req = [None] * self.slots
-        self._rebuild_cache()
+        self._reset_cache()
         if aborted:
             self._inc("step_aborts")
             self._inc("requests_aborted", len(aborted))
@@ -530,7 +678,7 @@ class PagedServingEngine(ServingEngine):
             "this slice")
 
     # ------------------------------------------------------------ plumbing
-    def _rebuild_cache(self):
+    def _build_cache(self):
         ps = self._page_size
         if self.max_len % ps:
             raise ValueError(
@@ -540,25 +688,17 @@ class PagedServingEngine(ServingEngine):
         self._num_pages = int(self._num_pages_cfg
                               if self._num_pages_cfg is not None
                               else self.slots * self._pages_per_slot + 1)
-        # prefix hashes are salted with the numeric contract, so an int8
-        # pool's pages never alias an fp pool's
-        self._pager = KVPager(
-            self._num_pages, ps, self.slots,
-            prefix_cache=self._prefix_cache_on,
-            hash_key=f"quant={self.quant or 'none'}"
-                     f"/kv={'int8' if self._kv_quant else 'fp'}")
+        self._pager = self._new_pager()
         if self._kv_quant:
             cache = gpt.init_paged_cache_quant(self.cfg, self._num_pages,
                                                ps, device=self.device)
             self._cache_ks = cache["k_scale"]
             self._cache_vs = cache["v_scale"]
-            if self._kv_saved is None:
-                # bytes saved against the same pool in the compute dtype,
-                # counted once (not per rebuild)
-                fp = 2 * cache["k"].numel() * (torch.finfo(
-                    gpt.torch_dtype(self.cfg.dtype)).bits // 8)
-                self._kv_saved = max(0, fp - sum(
-                    int(a.nbytes) for a in cache.values()))
+            # bytes saved against the same pool in the compute dtype
+            fp = 2 * cache["k"].numel() * (torch.finfo(
+                gpt.torch_dtype(self.cfg.dtype)).bits // 8)
+            self._kv_saved = max(0, fp - sum(
+                int(a.nbytes) for a in cache.values()))
         else:
             cache = gpt.init_paged_cache(self.cfg, self._num_pages, ps,
                                          dtype=self._cache_dtype,
@@ -566,6 +706,26 @@ class PagedServingEngine(ServingEngine):
         self._cache_k, self._cache_v = cache["k"], cache["v"]
         self._tables_np = np.zeros((self.slots, self._pages_per_slot),
                                    np.int32)
+        self._step = None           # the decode step, built at first use
+
+    def _new_pager(self):
+        # prefix hashes are salted with the numeric contract, so an int8
+        # pool's pages never alias an fp pool's
+        return KVPager(
+            self._num_pages, self._page_size, self.slots,
+            prefix_cache=self._prefix_cache_on,
+            hash_key=f"quant={self.quant or 'none'}"
+                     f"/kv={'int8' if self._kv_quant else 'fp'}")
+
+    def _reset_cache(self):
+        """After an abort: the pool zeroed in place (the same storage, which
+        the captured decode step reads and writes; page 0 stays the
+        scratch page), a fresh pager and empty page tables.  The decode
+        step stays built."""
+        for pool in self._cache_operands():
+            pool.zero_()
+        self._pager = self._new_pager()
+        self._tables_np[:] = 0
 
     def _to_dev(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -772,13 +932,7 @@ class PagedServingEngine(ServingEngine):
         if not self._active.any():
             return
         t0 = time.perf_counter()
-        nxt, logits = self._decode(
-            self._to_dev(self._tables_np), self._to_dev(wpages),
-            self._to_dev(woffs), self._to_dev(self._lens),
-            self._to_dev(self._last_tok))
-        # the sampled-token readback: the decode loop's one sync point
-        nxt_np = nxt.cpu().numpy()
-        logits_np = logits.cpu().numpy() if self.capture_logits else None
+        nxt_np, logits_np = self._decode(wpages, woffs)
         if not self._warming:
             self.decode_step_s.append(time.perf_counter() - t0)
         self._inc("decode_steps")
@@ -794,19 +948,25 @@ class PagedServingEngine(ServingEngine):
             self._last_tok[s] = int(nxt_np[s])
 
     @torch.inference_mode()
-    def _decode(self, page_table, wpages, woffs, lens, toks):
+    def _decode(self, wpages, woffs):
+        """One decode step through the engine's :class:`_DecodeStep`
+        (built at the first call): the host mirrors and this step's write
+        coordinates staged, then one copy, the step (a graph replay on the
+        card) and the readback, the decode loop's one sync point.  Returns
+        (next tokens [S], logits [S, V] or None) as numpy."""
+        if self._step is None:
+            self._step = _DecodeStep(self)
+            self._inc("decode_compiles")
+        st = self._step
+        st.tables[:] = self._tables_np
+        st.wpages[:] = wpages
+        st.woffs[:] = woffs
+        st.lens[:] = self._lens
+        st.toks[:] = self._last_tok
         launched = self._kernel_launches()
-        if self._kv_quant:
-            logits, *_ = gpt.decode_step_paged_quant(
-                self.params, toks, self.cfg, self._cache_k, self._cache_ks,
-                self._cache_v, self._cache_vs, page_table, wpages, woffs,
-                lens)
-        else:
-            logits, *_ = gpt.decode_step_paged(
-                self.params, toks, self.cfg, self._cache_k, self._cache_v,
-                page_table, wpages, woffs, lens)
+        out = st()
         self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
-        return torch.argmax(logits, -1), logits
+        return out
 
     # -------------------------------------------------------------- warmup
     def warmup(self, max_new_tokens=2):

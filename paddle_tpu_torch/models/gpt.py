@@ -54,7 +54,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..ops.cuda.dequant_matmul import _ref_dequant_matmul, dequant_matmul
+from ..ops.cuda.dequant_matmul import (_ref_dequant_matmul, dequant_matmul,
+                                       kernel_ready, pad_weight)
 from ..ops.cuda.flash_attn import flash_attention
 from ..ops.cuda import fused_ffn as _ffn_mod
 from ..ops.cuda.fused_ffn import fused_ffn
@@ -246,12 +247,21 @@ def prepare_params(params, cfg: GPTConfig):
     every call; the cast is the same, so results are unchanged.  LayerNorm
     weights and the embedding tables stay in master precision, as the
     JAX forward reads them.  Quantized weights (:func:`quantize_params`)
-    stay as they are: no float copy of them is made."""
+    stay as they are: no float copy of them is made.  An int8 weight the
+    dequant-matmul kernels cannot take as it is (K off a multiple of 8, N
+    off one of 16, a strided or misaligned tensor) gets its padded form
+    once, here (``qw_k`` / ``scale_k``, ``dequant_matmul.pad_weight``),
+    so no call pads it again."""
     cd = torch_dtype(cfg.dtype)
     blocks = dict(params["blocks"])
     for k in _MATMUL_LEAVES:
-        if not _is_qweight(blocks[k]):
-            blocks[k] = _c(blocks[k], cd)
+        w = blocks[k]
+        if not _is_qweight(w):
+            blocks[k] = _c(w, cd)
+        elif (_qleaf_mode(w) == "int8" and "qw_k" not in w
+              and not kernel_ready(_matrices(w["qw"]))):
+            wk, sk = pad_weight(_matrices(w["qw"]), w["scale"])
+            blocks[k] = {**w, "qw_k": wk, "scale_k": sk}
     out = dict(params)
     out["blocks"] = blocks
     out["wte_cd"] = _c(params["wte"], cd)
@@ -341,6 +351,11 @@ def _is_qweight(w):
     return isinstance(w, dict)
 
 
+def _matrices(qw):
+    """A stacked quantized weight [L, K, *out] as [L, K, N] (a view)."""
+    return qw.reshape(*qw.shape[:2], -1)
+
+
 def _q_matmul(x, w, cd):
     """x [..., K] through a per-layer quantized weight dict (the ``[L]``
     axis stripped by :func:`layer`).  Returns [..., *out] in ``cd``."""
@@ -353,6 +368,9 @@ def _q_matmul(x, w, cd):
         # the reference's fp8 path is its plain fallback on every device
         K = qw.shape[0]
         y = _ref_dequant_matmul(x.reshape(-1, K), w2, w["scale"])
+    elif "qw_k" in w:
+        # padded once by prepare_params: the kernels' form, the true N
+        y = dequant_matmul(x, w["qw_k"], w["scale_k"], n=w2.shape[1])
     else:
         y = dequant_matmul(x, w2, w["scale"])
     return _c(y.reshape(*x.shape[:-1], *out_shape), cd)

@@ -101,6 +101,16 @@
 // [B, nh, N].  The grid is (row tiles x groups, nh, B), B in launches of at
 // most 65,535 batches, so any B * nh runs (nh up to 65,535).
 //
+// Causal with N > Nk.  Bottom-right alignment leaves the rows i < N - Nk
+// with no visible key; the reference masks every logit of such a row to
+// -1e30, so its softmax is uniform: out = the mean of V, lse = -1e30 +
+// log Nk (-1e30 in fp32), and its gradient is dq = 0, no dk, dv_j += dO_i /
+// Nk.  Those rows are a prefix of every (batch, head), so the wrapper gives
+// them to fa_nokey_fwd and fa_nokey_dv below and the rows after them (a
+// square causal problem) to the kernels above, through a row-offset view
+// of q and dO: the kernels never see a row with no key, and no backward
+// recomputes p from an lse of -1e30 (which would give p = 1, not 1/Nk).
+//
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/cuda/flash_attn.py);
 // dtype codes: 0 = float32, 1 = bfloat16.  Every entry point returns
 // cudaGetLastError() after its launch.
@@ -1857,7 +1867,120 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   });
 }
 
+// The rows that see no key (see the header), one (column block, head,
+// batch) a block of NKT threads, a column a thread: pc = 1/Nk rounded to T
+// (the probability cast to the stored type), acc = sum_j pc V_j in fp32 in
+// key order; rows [0, rows) of o (contiguous [B, rows, H, D]) get acc in T
+// and their lse (contiguous [B, H, rows]) -1e30, as the plain version's
+// logsumexp of -1e30 logits rounds.
+constexpr int NKT = 128;
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NKT)
+fa_nokey_fwd(const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int H, int Nk, int D, int rows,
+             Strides sv) {
+  const int d = blockIdx.x * NKT + threadIdx.x, h = blockIdx.y;
+  const long long b = blockIdx.z;
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < rows; i += NKT)
+      lse[(b * H + h) * rows + i] = NEG_INF;
+  if (d >= D) return;
+  const float pc = to_f(from_f<T>(1.f / (float)Nk));
+  const T* vb = v + b * sv.b + h * sv.h + d;
+  float acc = 0.f;
+  for (int j = 0; j < Nk; ++j) acc += pc * to_f(vb[j * sv.n]);
+  const T val = from_f<T>(acc);
+  for (int i = 0; i < rows; ++i) o[((b * rows + i) * H + h) * D + d] = val;
+}
+
+// dv (contiguous [B, Nk, H, D], written by the kernels over the rows that
+// see keys) += pc sum_{i < rows} dO_i for every key j: the gradient of the
+// rows that see no key (dq = 0 and dk gets nothing from them).
+template <typename T>
+__global__ void __launch_bounds__(NKT)
+fa_nokey_dv(const T* __restrict__ dout, T* __restrict__ dv, int H, int Nk,
+            int D, int rows, Strides sd) {
+  const int d = blockIdx.x * NKT + threadIdx.x, h = blockIdx.y;
+  const long long b = blockIdx.z;
+  if (d >= D) return;
+  const float pc = to_f(from_f<T>(1.f / (float)Nk));
+  const T* db = dout + b * sd.b + h * sd.h + d;
+  float sum = 0.f;
+  for (int i = 0; i < rows; ++i) sum += pc * to_f(db[i * sd.n]);
+  for (int j = 0; j < Nk; ++j) {
+    T* p = dv + ((b * Nk + j) * H + h) * D + d;
+    *p = from_f<T>(to_f(*p) + sum);
+  }
+}
+
+template <typename T>
+cudaError_t launch_nokey(bool fwd, const void* src, void* dst, float* lse,
+                         int B, int H, int Nk, int D, int rows,
+                         const Strides& ss, cudaStream_t st) {
+  const long long orow = (long long)rows * H * D, krow = (long long)Nk * H * D;
+  return by_batch(B, [&](int b0, int nb) {
+    const dim3 grid((D + NKT - 1) / NKT, H, nb);
+    const T* in = static_cast<const T*>(src) + b0 * ss.b;
+    if (fwd)
+      fa_nokey_fwd<T><<<grid, NKT, 0, st>>>(
+          in, static_cast<T*>(dst) + b0 * orow, lse + b0 * (long long)H * rows,
+          H, Nk, D, rows, ss);
+    else
+      fa_nokey_dv<T><<<grid, NKT, 0, st>>>(
+          in, static_cast<T*>(dst) + b0 * krow, H, Nk, D, rows, ss);
+    return cudaGetLastError();
+  });
+}
+
+int nokey(bool fwd, const void* src, void* dst, float* lse, int B, int H,
+          int Nk, int D, int rows, long long sb, long long sn, long long sh,
+          int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || H > MAX_GRID_YZ || Nk <= 0 || D <= 0 || rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Strides ss{sb, sn, sh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_nokey<float>(fwd, src, dst, lse, B, H, Nk, D, rows,
+                                    ss, st);
+  if (dtype == 1)
+    return (int)launch_nokey<bf16>(fwd, src, dst, lse, B, H, Nk, D, rows, ss,
+                                   st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The rows that see no key (causal, N > Nk): o [B, rows, H, D] = the mean
+// of v ([B, Nk, H, D], element strides vsb, vsn, vsh), lse [B, H, rows] =
+// -1e30.
+extern "C" int pt_flash_nokey_fwd(const void* v, void* o, float* lse, int B,
+                                  int H, int Nk, int D, int rows,
+                                  long long vsb, long long vsn, long long vsh,
+                                  int dtype, void* stream) {
+  if (!o || !lse) return (int)cudaErrorInvalidValue;
+  return nokey(true, v, o, lse, B, H, Nk, D, rows, vsb, vsn, vsh, dtype,
+               stream);
+}
+
+// Their gradient: dv [B, Nk, H, D] (contiguous) += (1/Nk) sum over the
+// rows of dout [B, rows, H, D] (element strides dsb, dsn, dsh).
+extern "C" int pt_flash_nokey_dv(const void* dout, void* dv, int B, int H,
+                                 int Nk, int D, int rows, long long dsb,
+                                 long long dsn, long long dsh, int dtype,
+                                 void* stream) {
+  return nokey(false, dout, dv, nullptr, B, H, Nk, D, rows, dsb, dsn, dsh,
+               dtype, stream);
+}
 
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, float* lse, int B, int H, int N, int Nk,

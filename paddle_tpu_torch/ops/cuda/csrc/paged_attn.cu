@@ -8,8 +8,9 @@
 // and the online softmax are fp32; p is cast to the V type before p.V,
 // which accumulates in fp32; the sum is divided by max(l, 1e-30) at the
 // end, exactly as the Pallas kernel does.  Pages past the fill (j*ps >
-// lens[s]) are never read.  A table entry outside [0, P) is clamped, as
-// XLA clamps the gather in the reference.
+// lens[s]) are never read.  A table entry outside [0, P) reads the page
+// the reference's gather reads (page_of): a negative entry wraps once
+// (e + P), then the index is clamped to [0, P - 1].
 //
 // Bound: bytes.  The kernel must read the K and V rows of every attended
 // position once: sum_s (lens[s]+1) * nh * hd * 2 * itemsize bytes (about
@@ -138,6 +139,14 @@ constexpr int PT = 128;         // threads of paged_decode
 constexpr int PMAX_SPLITS = 32; // splits of a slot at most
 constexpr int PID_CACHE = 256;  // page ids of a split kept in shared memory
 
+// The page a table entry e names, as the reference's gather reads it
+// (jnp indexing of k_pages[page_table]): a negative entry wraps once, then
+// the index is clamped to [0, P - 1].  At P = 5, entries -1, -7, 5 and 9
+// read pages 4, 0, 4 and 4.
+__device__ __forceinline__ int page_of(int e, int P) {
+  return min(max(e < 0 ? e + P : e, 0), P - 1);
+}
+
 
 // The merge weights of `n` partial states (m, l) at sm_m / sm_l, computed
 // by warp 0: sm_w[i] = exp(m_i - max m), and the merged l into *L, summed
@@ -166,12 +175,13 @@ __device__ __forceinline__ void merge_weights(const float* sm_m,
 // writes the output o and resets the ticket, so the result does not depend
 // on block timing.  parts: the (slot, head)'s [splits][hd] accumulators;
 // ml: its [splits][2] (m, l).  NT threads, each merging the output
-// elements threadIdx.x + e NT.
+// elements threadIdx.x + e NT.  A split's accumulator holds hd elements,
+// ld apart from the next split's.
 template <typename T, int NT, int HD>
 __device__ __forceinline__ void merge_splits(const float* parts,
                                              const float* ml, int* ticket,
                                              T* __restrict__ o, int hd,
-                                             int ns) {
+                                             int ld, int ns) {
   constexpr int HDT = (HD + NT - 1) / NT;
   __shared__ float sm_m[PMAX_SPLITS], sm_l[PMAX_SPLITS], sm_w[PMAX_SPLITS];
   __shared__ float sm_L;
@@ -190,7 +200,7 @@ __device__ __forceinline__ void merge_splits(const float* parts,
     const int d = threadIdx.x + e * NT;
 #pragma unroll
     for (int i = 0; i < PMAX_SPLITS; ++i)
-      v[e][i] = i < ns && d < hd ? __ldcg(parts + i * hd + d) : 0.f;
+      v[e][i] = i < ns && d < hd ? __ldcg(parts + i * ld + d) : 0.f;
   }
   if (threadIdx.x < ns) {
     sm_m[threadIdx.x] = __ldcg(ml + 2 * threadIdx.x);
@@ -213,18 +223,24 @@ __device__ __forceinline__ void merge_splits(const float* parts,
   if (threadIdx.x == 0) *ticket = 0;
 }
 
-// grid (nh, S, splits); split j of slot s takes positions [j span,
+// grid (nh * kc, S, splits); split j of slot s takes positions [j span,
 // min(n, j span + span)), span = pps * ps.  G threads per position, each
 // VEC = 16 / sizeof(T) elements of the head row: hd <= G * VEC, the lanes
-// past hd masked.  ws: [S * nh][splits][hd] unnormalised accumulators,
-// then [S * nh][splits][2] (m, l); tickets: [S * nh], kept at 0.
-template <typename T, int G, bool VECL>
+// past hd masked.  WIDE (heads wider than 32 slices): G = 32, and the head
+// is cut into kc = ceil(hd / HD) head-width groups of HD = 32 VEC columns;
+// block x = h kc + g owns columns [g HD, g HD + HD) of the output and
+// reads those of V, but sums its scores over every group of K (as the
+// flash kernels' head-width groups recompute the scores over the full
+// width).  ws: [S * nh * kc][splits][ld] unnormalised accumulators (ld =
+// hd, or HD where WIDE), then [S * nh * kc][splits][2] (m, l); tickets:
+// [S * nh * kc], kept at 0.
+template <typename T, int G, bool VECL, bool WIDE>
 __global__ void __launch_bounds__(PT)
 paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
              const T* __restrict__ vp, const int* __restrict__ table,
              const int* __restrict__ lens, T* __restrict__ out,
              float* __restrict__ ws, int* __restrict__ tickets, int nh,
-             int hd, int P, int ps, int maxP, int pps, int splits,
+             int hd, int P, int ps, int maxP, int pps, int splits, int kc,
              float scale_div) {
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int HD = VEC * G;
@@ -233,17 +249,23 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   __shared__ float sm_acc[NG][HD];
   __shared__ int sm_pid[PID_CACHE];
 
-  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;
+  const int s = blockIdx.y, j = blockIdx.z;
+  const int h = WIDE ? blockIdx.x / kc : blockIdx.x;
+  const int hg = WIDE ? blockIdx.x - h * kc : 0;   // head-width group
+  const int c0 = hg * HD;                          // its first column
+  const int cols = WIDE ? min(HD, hd - c0) : hd;   // its columns
+  const int ld = WIDE ? HD : hd;                   // a partial's stride
   const int gi = threadIdx.x / G, li = threadIdx.x % G;
   const int* trow = table + (long long)s * maxP;
   const long long sh = (long long)s * nh + h;
+  const long long sv = sh * kc + hg;               // its partials, ticket
   const int i0 = li * VEC;
   // lens, the split's table entries and q are independent loads: all in
   // flight at once
   const int ln = __ldg(lens + s);
   for (int e = threadIdx.x; e < min(pps, PID_CACHE); e += PT) {
     const int te = j * pps + e;
-    sm_pid[e] = te < maxP ? min(max(__ldg(trow + te), 0), P - 1) : 0;
+    sm_pid[e] = te < maxP ? page_of(__ldg(trow + te), P) : 0;
   }
   float qf[VEC];
   load_row<T, VECL>(q + sh * hd, i0, hd, qf);
@@ -266,37 +288,84 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   // the trip count is uniform over the block, so every lane reaches the
   // shuffles in group_sum
   for (int base = p0; base < p1; base += NG * U) {
-    float kf[U][VEC], vf[U][VEC];
+    float vf[U][VEC], sc[U];
     bool ok[U];
+    if constexpr (!WIDE) {
+      float kf[U][VEC];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = base + u * NG + gi;
-      ok[u] = p < p1;
-      if (ok[u]) {
-        const int e = p / ps - j * pps;          // page of the split
-        const int pid = e < PID_CACHE
-                            ? sm_pid[e]
-                            : min(max(__ldg(trow + p / ps), 0), P - 1);
-        const long long off =
-            pid * page_stride + (long long)(p % ps) * pos_stride + head_off;
-        load_row<T, VECL>(kp + off, i0, hd, kf[u]);
-        load_row<T, VECL>(vp + off, i0, hd, vf[u]);
-      } else {
+      for (int u = 0; u < U; ++u) {
+        const int p = base + u * NG + gi;
+        ok[u] = p < p1;
+        if (ok[u]) {
+          const int e = p / ps - j * pps;          // page of the split
+          const int pid = e < PID_CACHE ? sm_pid[e]
+                                        : page_of(__ldg(trow + p / ps), P);
+          const long long off = pid * page_stride +
+                                (long long)(p % ps) * pos_stride + head_off;
+          load_row<T, VECL>(kp + off, i0, hd, kf[u]);
+          load_row<T, VECL>(vp + off, i0, hd, vf[u]);
+        } else {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) kf[u][k] = vf[u][k] = 0.f;
+          for (int k = 0; k < VEC; ++k) kf[u][k] = vf[u][k] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float d = 0.f;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) d += qf[k] * kf[u][k];
+        d = group_sum<G>(d);
+        sc[u] = ok[u] ? d / scale_div : NEG_INF;
+      }
+    } else {
+      // the score over every head-width group of K, one group at a time
+      // for the U positions (each group of q read again from L1; the
+      // loop kept rolled, which holds the one-element-load instances to
+      // no spill), then V in this block's group
+      long long off[U];
+      float d[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = base + u * NG + gi;
+        ok[u] = p < p1;
+        off[u] = 0;
+        d[u] = 0.f;
+        if (ok[u]) {
+          const int e = p / ps - j * pps;
+          const int pid = e < PID_CACHE ? sm_pid[e]
+                                        : page_of(__ldg(trow + p / ps), P);
+          off[u] = pid * page_stride + (long long)(p % ps) * pos_stride +
+                   head_off;
+        }
+      }
+#pragma unroll 1
+      for (int c = 0; c < kc; ++c) {
+        float qc[VEC];
+        load_row<T, VECL>(q + sh * hd, c * HD + i0, hd, qc);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (!ok[u]) continue;
+          float kf[VEC];
+          load_row<T, VECL>(kp + off[u], c * HD + i0, hd, kf);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) d[u] += qc[k] * kf[k];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (ok[u]) {
+          load_row<T, VECL>(vp + off[u], c0 + i0, hd, vf[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) vf[u][k] = 0.f;
+        }
+        const float dd = group_sum<G>(d[u]);
+        sc[u] = ok[u] ? dd / scale_div : NEG_INF;
       }
     }
-    float sc[U];
     float mx = m;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float d = 0.f;
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) d += qf[k] * kf[u][k];
-      d = group_sum<G>(d);
-      sc[u] = ok[u] ? d / scale_div : NEG_INF;
-      mx = fmaxf(mx, sc[u]);
-    }
+    for (int u = 0; u < U; ++u) mx = fmaxf(mx, sc[u]);
     const float alpha = expf(m - mx);
     l *= alpha;
 #pragma unroll
@@ -323,13 +392,14 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   if (threadIdx.x < 32) merge_weights(sm_m, sm_l, sm_w, NG, &sm_L);
   __syncthreads();
   const float L = sm_L;
-  float* part = ws + (sh * splits + j) * hd;
-  float* ml = ws + (long long)gridDim.y * nh * splits * hd;
-  for (int d = threadIdx.x; d < hd; d += PT) {
+  T* o = out + sh * hd + c0;
+  float* part = ws + (sv * splits + j) * ld;
+  float* ml = ws + (long long)gridDim.y * nh * kc * splits * ld;
+  for (int d = threadIdx.x; d < cols; d += PT) {
     float A = 0.f;
     for (int g = 0; g < NG; ++g) A += sm_acc[g][d] * sm_w[g];
     if (ns == 1)
-      out[sh * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+      o[d] = from_f<T>(A / fmaxf(L, 1e-30f));
     else
       part[d] = A;
   }
@@ -337,11 +407,11 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   if (threadIdx.x == 0) {
     float M = NEG_INF;
     for (int g = 0; g < NG; ++g) M = fmaxf(M, sm_m[g]);
-    ml[2 * (sh * splits + j)] = M;
-    ml[2 * (sh * splits + j) + 1] = L;
+    ml[2 * (sv * splits + j)] = M;
+    ml[2 * (sv * splits + j) + 1] = L;
   }
-  merge_splits<T, PT, HD>(ws + sh * splits * hd, ml + 2 * sh * splits,
-                          tickets + sh, out + sh * hd, hd, ns);
+  merge_splits<T, PT, HD>(ws + sv * splits * ld, ml + 2 * sv * splits,
+                          tickets + sv, o, cols, ld, ns);
 }
 
 // ---------------------------------------------------------------------------
@@ -500,11 +570,31 @@ __device__ __forceinline__ void copy_i8_bytes(int8_t* dst,
     dst[k] = ok && i0 + k < hd ? __ldg(p + i0 + k) : 0;
 }
 
-// grid (nh, S, splits); split j of slot s takes positions [j span,
+// The 16 int8 at p[i0..] as floats, zeros past hd: one 16-byte load where
+// VECL (hd a multiple of 16 and the row aligned), else one byte at a time.
+template <bool VECL>
+__device__ __forceinline__ void load_i8x16(const int8_t* __restrict__ p,
+                                           int i0, int hd, float (&f)[16]) {
+  if constexpr (VECL) {
+    const uint4 r = i0 < hd ? __ldg(reinterpret_cast<const uint4*>(p + i0))
+                            : make_uint4(0u, 0u, 0u, 0u);
+    i8x16_float(r, f);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      f[k] = i0 + k < hd ? (float)__ldg(p + i0 + k) : 0.f;
+  }
+}
+
+// grid (nh * kc, S, splits); split j of slot s takes positions [j span,
 // min(n, j span + span)), span = pps * ps, as paged_decode's.  G threads
 // per position, each 16 int8 elements of the head row: hd <= 16 * G, the
-// lanes past hd masked.  ws and tickets as paged_decode takes them.
-template <typename T, int G, bool VECL>
+// lanes past hd masked.  WIDE (heads wider than 512): G = 32 and kc
+// head-width groups of HD = 512 columns, as paged_decode's: the ring
+// carries K's first group and V's columns of this block's group, and the
+// score's other groups of K are loaded where they are used.  ws and
+// tickets as paged_decode takes them.
+template <typename T, int G, bool VECL, bool WIDE>
 __global__ void __launch_bounds__(QT, q8_min_blocks(G))
 paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
                 const float* __restrict__ ksc, const int8_t* __restrict__ vp,
@@ -512,7 +602,7 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
                 const int* __restrict__ lens, T* __restrict__ out,
                 float* __restrict__ ws, int* __restrict__ tickets, int nh,
                 int hd, int P, int ps, int maxP, int pps, int splits,
-                float scale_div) {
+                int kc, float scale_div) {
   constexpr int HD = 16 * G;
   constexpr int NG = QT / G;       // position groups
   constexpr int SP = NG * QU;      // positions a stage
@@ -524,17 +614,23 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
   float* sm_acc = reinterpret_cast<float*>(q8_smem);
   __shared__ float sm_m[QNW], sm_l[QNW];
 
-  const int h = blockIdx.x, s = blockIdx.y, j = blockIdx.z;
+  const int s = blockIdx.y, j = blockIdx.z;
+  const int h = WIDE ? blockIdx.x / kc : blockIdx.x;
+  const int hg = WIDE ? blockIdx.x - h * kc : 0;   // head-width group
+  const int c0 = hg * HD;                          // its first column
+  const int cols = WIDE ? min(HD, hd - c0) : hd;   // its columns
+  const int ld = WIDE ? HD : hd;                   // a partial's stride
   const int t = threadIdx.x, gi = t / G, li = t % G, i0 = li * 16;
   const int* trow = table + (long long)s * maxP;
   const long long sh = (long long)s * nh + h;
+  const long long sv = sh * kc + hg;               // its partials, ticket
   const int cache = min(pps, QPID_MAX);
   // lens, the split's table entries and q are independent loads: all in
   // flight at once
   const int ln = __ldg(lens + s);
   for (int e = t; e < cache; e += QT) {
     const int te = j * pps + e;
-    pid[e] = te < maxP ? min(max(__ldg(trow + te), 0), P - 1) : 0;
+    pid[e] = te < maxP ? page_of(__ldg(trow + te), P) : 0;
   }
   float qf[16];
   load_q16<T, VECL>(q + sh * hd, i0, hd, qf);
@@ -574,19 +670,20 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
           const int e = col[u] - j * pps;
           const int pg = e < cache
                              ? pid[e]
-                             : min(max(__ldg(trow + col[u]), 0), P - 1);
+                             : page_of(__ldg(trow + col[u]), P);
           row = (long long)pg * ps + po[u];
         }
         const long long off = row * pos_stride + head_off;
         uint4* dk = ring + (slot * QU + u) * 2 * QT + t;
         if constexpr (VECL) {
           const bool on = ok && i0 < hd;
+          const bool von = ok && c0 + i0 < hd;
           cp_async16(dk, kp + off + (on ? i0 : 0), on);
-          cp_async16(dk + QT, vp + off + (on ? i0 : 0), on);
+          cp_async16(dk + QT, vp + off + (von ? c0 + i0 : 0), von);
         } else {
           copy_i8_bytes(reinterpret_cast<int8_t*>(dk), kp + off, i0, hd, ok);
-          copy_i8_bytes(reinterpret_cast<int8_t*>(dk + QT), vp + off, i0, hd,
-                        ok);
+          copy_i8_bytes(reinterpret_cast<int8_t*>(dk + QT), vp + off,
+                        c0 + i0, hd, ok);
         }
         if (li == 0) {
           float* sk = sring + (slot * QU + u) * 2 * NG + gi;
@@ -628,8 +725,27 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
       i8x16_float(kv[u * 2 * QT], kf);
 #pragma unroll
       for (int k = 0; k < 16; ++k) d4[k & 3] = fmaf(qf[k], kf[k], d4[k & 3]);
+      const int p = p0 + st * SP + u * NG + gi;
+      ok[u] = p < p1;
+      if constexpr (WIDE) {
+        // K's other head-width groups, loaded here (q's from L1)
+        if (ok[u]) {
+          const int col = p / ps, e = col - j * pps;
+          const int pg = e < cache ? pid[e] : page_of(__ldg(trow + col), P);
+          const int8_t* krow =
+              kp + ((long long)pg * ps + p % ps) * pos_stride + head_off;
+#pragma unroll 1
+          for (int c = 1; c < kc; ++c) {
+            float qc[16];
+            load_q16<T, VECL>(q + sh * hd, c * HD + i0, hd, qc);
+            load_i8x16<VECL>(krow, c * HD + i0, hd, kf);
+#pragma unroll
+            for (int k = 0; k < 16; ++k)
+              d4[k & 3] = fmaf(qc[k], kf[k], d4[k & 3]);
+          }
+        }
+      }
       const float d = group_sum<G>((d4[0] + d4[1]) + (d4[2] + d4[3]));
-      ok[u] = p0 + st * SP + u * NG + gi < p1;
       sc[u] = ok[u] ? d * sc2[u * 2 * NG] * inv_div : NEG_INF;
       mx = fmaxf(mx, sc[u]);
     }
@@ -700,23 +816,24 @@ paged_decode_q8(const T* __restrict__ q, const int8_t* __restrict__ kp,
     wt[i] = expf(sm_m[i] - M);
     L += sm_l[i] * wt[i];
   }
-  for (int d = t; d < hd; d += QT) {
+  T* o = out + sh * hd + c0;
+  for (int d = t; d < cols; d += QT) {
     float A = 0.f;
 #pragma unroll
     for (int i = 0; i < QNW; ++i) A += sm_acc[i * HD + d] * wt[i];
     if (ns == 1)
-      out[sh * hd + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+      o[d] = from_f<T>(A / fmaxf(L, 1e-30f));
     else
-      ws[(sh * splits + j) * hd + d] = A;
+      ws[(sv * splits + j) * ld + d] = A;
   }
   if (ns == 1) return;
-  float* ml = ws + (long long)gridDim.y * nh * splits * hd;
+  float* ml = ws + (long long)gridDim.y * nh * kc * splits * ld;
   if (t == 0) {
-    ml[2 * (sh * splits + j)] = M;
-    ml[2 * (sh * splits + j) + 1] = L;
+    ml[2 * (sv * splits + j)] = M;
+    ml[2 * (sv * splits + j) + 1] = L;
   }
-  merge_splits<T, QT, HD>(ws + sh * splits * hd, ml + 2 * sh * splits,
-                          tickets + sh, out + sh * hd, hd, ns);
+  merge_splits<T, QT, HD>(ws + sv * splits * ld, ml + 2 * sv * splits,
+                          tickets + sv, o, cols, ld, ns);
 }
 
 bool aligned16(const void* p) {
@@ -730,45 +847,57 @@ int pow2_at_least(int n) {
   return g;
 }
 
-// Calls f(std::integral_constant<int, G>(), std::bool_constant<VECL>())
-// for G a power of two from 1 to 32; anything else is an invalid value.
+// Calls f(std::integral_constant<int, G>(), std::bool_constant<VECL>(),
+// std::bool_constant<WIDE>()) for a head row of `slices` 16-byte slices: G
+// the power of two from 1 to 32 that covers them, or, past 32 slices, G =
+// 32 and WIDE (head-width groups of 32 slices).
 template <typename F>
-cudaError_t with_groups(int G, bool vecl, F&& f) {
-#define PT_G_CASE(G_)                                                     \
-  case G_:                                                                \
-    return vecl ? f(std::integral_constant<int, G_>(), std::true_type())  \
-                : f(std::integral_constant<int, G_>(), std::false_type());
-  switch (G) {
-    PT_G_CASE(1)
-    PT_G_CASE(2)
-    PT_G_CASE(4)
-    PT_G_CASE(8)
-    PT_G_CASE(16)
-    PT_G_CASE(32)
+cudaError_t with_groups(int slices, bool vecl, F&& f) {
+#define PT_G_CASE(G_, W_)                                                   \
+  return vecl ? f(std::integral_constant<int, G_>(), std::true_type(),      \
+                  std::bool_constant<W_>())                                 \
+              : f(std::integral_constant<int, G_>(), std::false_type(),     \
+                  std::bool_constant<W_>());
+  switch (slices > 32 ? 64 : pow2_at_least(slices)) {
+    case 1: PT_G_CASE(1, false)
+    case 2: PT_G_CASE(2, false)
+    case 4: PT_G_CASE(4, false)
+    case 8: PT_G_CASE(8, false)
+    case 16: PT_G_CASE(16, false)
+    case 32: PT_G_CASE(32, false)
+    case 64: PT_G_CASE(32, true)
     default:
       return cudaErrorInvalidValue;
   }
 #undef PT_G_CASE
 }
 
+// The head-width groups of a head of hd elements, `per` elements a slice:
+// one up to 32 slices, else ceil(hd / (32 per)).
+int head_groups(int hd, int per) {
+  return hd <= 32 * per ? 1 : (hd + 32 * per - 1) / (32 * per);
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* table, const int* lens, void* out, float* ws,
                      int* tickets, int S, int nh, int hd, int P, int ps,
-                     int maxP, int pps, int splits, float scale_div,
+                     int maxP, int pps, int splits, int kc, float scale_div,
                      cudaStream_t st) {
   constexpr int VEC = 16 / (int)sizeof(T);
-  if (hd <= 0) return cudaErrorInvalidValue;
+  if (hd <= 0 || kc != head_groups(hd, VEC) ||
+      (long long)nh * kc > 2147483647LL)
+    return cudaErrorInvalidValue;
   const bool vecl = hd % VEC == 0 && aligned16(q) && aligned16(k) &&
                     aligned16(v);
-  const dim3 grid(nh, S, splits);
-  return with_groups(pow2_at_least((hd + VEC - 1) / VEC), vecl,
-                     [&](auto g, auto vl) {
-    paged_decode<T, decltype(g)::value, decltype(vl)::value>
-        <<<grid, PT, 0, st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), table, lens, static_cast<T*>(out), ws,
-            tickets, nh, hd, P, ps, maxP, pps, splits, scale_div);
+  const dim3 grid(nh * kc, S, splits);
+  return with_groups((hd + VEC - 1) / VEC, vecl,
+                     [&](auto g, auto vl, auto wide) {
+    paged_decode<T, decltype(g)::value, decltype(vl)::value,
+                 decltype(wide)::value><<<grid, PT, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), table, lens, static_cast<T*>(out), ws,
+        tickets, nh, hd, P, ps, maxP, pps, splits, kc, scale_div);
     return cudaGetLastError();
   });
 }
@@ -778,17 +907,19 @@ cudaError_t dispatch_q8(const void* q, const int8_t* k, const float* ks,
                         const int8_t* v, const float* vs, const int* table,
                         const int* lens, void* out, float* ws, int* tickets,
                         int S, int nh, int hd, int P, int ps, int maxP,
-                        int pps, int splits, float scale_div,
+                        int pps, int splits, int kc, float scale_div,
                         cudaStream_t st) {
-  if (hd <= 0) return cudaErrorInvalidValue;
+  if (hd <= 0 || kc != head_groups(hd, 16) ||
+      (long long)nh * kc > 2147483647LL)
+    return cudaErrorInvalidValue;
   const bool vecl = hd % 16 == 0 && aligned16(q) && aligned16(k) &&
                     aligned16(v);
-  const dim3 grid(nh, S, splits);
+  const dim3 grid(nh * kc, S, splits);
   const int pids = pps < QPID_MAX ? pps : QPID_MAX;
-  return with_groups(pow2_at_least((hd + 15) / 16), vecl,
-                     [&](auto g, auto vl) {
+  return with_groups((hd + 15) / 16, vecl, [&](auto g, auto vl, auto wide) {
     constexpr int G = decltype(g)::value;
-    const auto kern = paged_decode_q8<T, G, decltype(vl)::value>;
+    const auto kern =
+        paged_decode_q8<T, G, decltype(vl)::value, decltype(wide)::value>;
     // more than 48 KB of dynamic shared memory is allowed once a device
     static uint64_t allowed = 0;
     int dev = 0;
@@ -804,7 +935,7 @@ cudaError_t dispatch_q8(const void* q, const int8_t* k, const float* ks,
     kern<<<grid, QT, q8_ring_bytes(G) + pids * 4, st>>>(
         static_cast<const T*>(q), k, ks, v, vs, table, lens,
         static_cast<T*>(out), ws, tickets, nh, hd, P, ps, maxP, pps, splits,
-        scale_div);
+        kc, scale_div);
     return cudaGetLastError();
   });
 }
@@ -821,38 +952,42 @@ bool shapes_ok(int S, int nh, int P, int ps, int maxP, int pps, int splits,
 
 }  // namespace
 
-// pps pages a split, splits = ceil(maxP / pps) <= 32; ws: fp32
-// [S * nh][splits][hd] partial accumulators, then [S * nh][splits][2]
-// (m, l); tickets: int32 [S * nh], kept at 0 (both unused when splits ==
-// 1).
+// pps pages a split, splits = ceil(maxP / pps) <= 32; kc head-width groups
+// (1 up to 32 16-byte slices a head, else ceil(hd / 32 slices)); ws: fp32
+// [S * nh * kc][splits][ld] partial accumulators (ld = hd, or 32 slices'
+// elements where kc > 1), then [S * nh * kc][splits][2] (m, l); tickets:
+// int32 [S * nh * kc], kept at 0 (both unused when splits == 1).  At most
+// 65,535 slots a call: the wrapper cuts larger S into calls, each with its
+// own slice of ws and tickets.
 extern "C" int pt_paged_attention_fwd(const void* q, const void* k,
                                       const void* v, const int* table,
                                       const int* lens, void* out, float* ws,
                                       int* tickets, int S, int nh, int hd,
                                       int P, int ps, int maxP, int pps,
-                                      int splits, float scale_div, int dtype,
-                                      void* stream) {
+                                      int splits, int kc, float scale_div,
+                                      int dtype, void* stream) {
   if (!shapes_ok(S, nh, P, ps, maxP, pps, splits, ws, tickets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0)
     e = dispatch<float>(q, k, v, table, lens, out, ws, tickets, S, nh, hd, P,
-                        ps, maxP, pps, splits, scale_div, st);
+                        ps, maxP, pps, splits, kc, scale_div, st);
   else if (dtype == 1)
     e = dispatch<__nv_bfloat16>(q, k, v, table, lens, out, ws, tickets, S,
-                                nh, hd, P, ps, maxP, pps, splits, scale_div,
-                                st);
+                                nh, hd, P, ps, maxP, pps, splits, kc,
+                                scale_div, st);
   return (int)e;
 }
 
 // The int8 pool: k/v int8, k_scale / v_scale fp32 [P, ps, nh]; the plan,
-// ws and tickets as pt_paged_attention_fwd takes them.
+// kc (of 512-column groups), ws and tickets as pt_paged_attention_fwd
+// takes them.
 extern "C" int pt_paged_attention_quant_fwd(
     const void* q, const void* k, const float* k_scale, const void* v,
     const float* v_scale, const int* table, const int* lens, void* out,
     float* ws, int* tickets, int S, int nh, int hd, int P, int ps, int maxP,
-    int pps, int splits, float scale_div, int dtype, void* stream) {
+    int pps, int splits, int kc, float scale_div, int dtype, void* stream) {
   if (!shapes_ok(S, nh, P, ps, maxP, pps, splits, ws, tickets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -861,12 +996,12 @@ extern "C" int pt_paged_attention_quant_fwd(
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0)
     e = dispatch_q8<float>(q, kq, k_scale, vq, v_scale, table, lens, out, ws,
-                           tickets, S, nh, hd, P, ps, maxP, pps, splits,
+                           tickets, S, nh, hd, P, ps, maxP, pps, splits, kc,
                            scale_div, st);
   else if (dtype == 1)
     e = dispatch_q8<__nv_bfloat16>(q, kq, k_scale, vq, v_scale, table, lens,
                                    out, ws, tickets, S, nh, hd, P, ps, maxP,
-                                   pps, splits, scale_div, st);
+                                   pps, splits, kc, scale_div, st);
   return (int)e;
 }
 

@@ -18,6 +18,15 @@ and on 256-row tiles from ``_WG256_M`` rows.  float32 runs
 the sublane minimum; the CUDA kernels mask their ragged tiles, so any M >= 1
 goes in as it is.
 
+Any K and N go in, as in the reference: the kernels load 16-byte rows, so
+:func:`pad_weight` zero-pads the weight to K a multiple of 8 and N of 16
+(the scale to N with it) and copies a strided or misaligned weight, and
+x's columns are zero-padded to the weight's K; the output's padded columns
+are cut off.  Exact: padded x columns meet zero weight rows.  A caller
+that multiplies by one weight many times pads it once (the serving
+engine's ``prepare_params`` does) and passes the true N as ``n``; a
+weight already in the kernels' form is used as it is, with no copy.
+
 The kernels round once (``(x @ w_q) * scale`` in fp32, then to x's dtype);
 the plain version, like the JAX fallback, rounds the product and then the
 scaled product, so in bf16 the two differ by a few ulps.
@@ -49,6 +58,7 @@ _tickets = {}                 # device -> int32 split-K tickets (kept at 0)
 _SMALL_M = 16
 _ST_N, _ST_ROWS, _ST_SLOTS, _ST_WARPS, _ST_MAX_CS = 128, 64, 16, 8, 8
 _SMEM = 232448                # dynamic shared memory a block may take
+_K_MULT, _N_MULT = 8, 16      # K and N multiples of the kernels' rows
 _WG256_M = 768                # dqmm_wg takes 256-row tiles from this M
 _REGIME = {"stream": 0, "wg128": 1, "wg256": 2}
 
@@ -60,6 +70,48 @@ def _ref_dequant_matmul(x2d, w_q, scale):
     once."""
     y = x2d @ w_q.to(x2d.dtype)
     return y * scale.reshape(1, -1).to(x2d.dtype)
+
+
+def kernel_ready(w_q):
+    """Whether the kernels take the int8 weight ``w_q`` [..., K, N] as it
+    is (and each [K, N] matrix of a stacked one): K a multiple of 8, N of
+    16, contiguous and 16-byte aligned."""
+    K, N = w_q.shape[-2:]
+    return (not K % _K_MULT and not N % _N_MULT and w_q.is_contiguous()
+            and not w_q.data_ptr() % 16)
+
+
+def pad_weight(w_q, scale):
+    """The kernels' form of a weight [..., K, N] and its per-column scale
+    (N elements a matrix, any shape): (w [..., Kp, Np] contiguous and
+    16-byte aligned, K zero-padded to a multiple of 8 and N of 16; scale
+    fp32 [..., Np], zeros past N).  A weight already in that form comes
+    back as it is, its scale as an [..., N] view."""
+    lead, (K, N) = w_q.shape[:-2], w_q.shape[-2:]
+    s = scale.reshape(*lead, N)
+    if kernel_ready(w_q):
+        return w_q, s.contiguous()
+    kp, np_ = -(-K // _K_MULT) * _K_MULT, -(-N // _N_MULT) * _N_MULT
+    w = w_q.new_zeros((*lead, kp, np_))
+    w[..., :K, :N] = w_q
+    sp = s.new_zeros((*lead, np_))
+    sp[..., :N] = s
+    return w, sp
+
+
+def _pad_cols(x2d, K):
+    """x2d [M, k] with its columns zero-padded to K (a copy), or as it
+    is."""
+    k = x2d.shape[1]
+    return x2d if k == K else torch.nn.functional.pad(x2d, (0, K - k))
+
+
+def held_buffers(dev):
+    """The split-K ticket tensor calls on ``dev`` use now (empty if none
+    has needed one), for a CUDA graph that captured such a call to keep
+    alive."""
+    buf = _tickets.get(torch.device(dev))
+    return () if buf is None else (buf,)
 
 
 def _kernel():
@@ -155,8 +207,16 @@ def _sm_count(dev):
 
 
 def _ticket_buffer(dev, n):
+    """The per-device split-K tickets, grown to ``n``.  Never grown inside
+    a CUDA graph capture (the graph would bake a buffer that the next
+    growth frees): run the same call eagerly first."""
     buf = _tickets.get(dev)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "dequant_matmul: the split-K tickets must be grown before "
+                "a CUDA graph capture, not inside it; run the same call "
+                "eagerly first")
         # zeroed once; each launch's last split resets its tiles to 0
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
         _tickets[dev] = buf
@@ -178,7 +238,9 @@ def _rows(x, K):
     return x2, lda
 
 
-def _check_cuda(x, w_q, scale):
+def _check_cuda(x, w_q, scale, n=None):
+    """The checks before a launch.  With ``n``, ``w_q`` and ``scale`` are
+    :func:`pad_weight`'s form of a weight of x's K rows and n columns."""
     dev = x.device
     for name, t in (("w_q", w_q), ("scale", scale)):
         if t.device != dev:
@@ -193,48 +255,69 @@ def _check_cuda(x, w_q, scale):
     if scale.dtype != torch.float32:
         raise TypeError(f"dequant_matmul: scale dtype {scale.dtype}; "
                         "expected float32")
-    if w_q.dim() != 2 or not w_q.is_contiguous() or w_q.data_ptr() % 16:
-        raise ValueError("dequant_matmul: w_q must be a contiguous, 16-byte "
-                         f"aligned [K, N] matrix, got {tuple(w_q.shape)}")
+    if w_q.dim() != 2:
+        raise ValueError(f"dequant_matmul: w_q must be a [K, N] matrix, "
+                         f"got {tuple(w_q.shape)}")
     K, N = w_q.shape
-    if x.shape[-1] != K:
-        raise ValueError(f"dequant_matmul: x [..., {x.shape[-1]}] against "
+    k = x.shape[-1]
+    if n is None and k != K:
+        raise ValueError(f"dequant_matmul: x [..., {k}] against "
                          f"w_q [{K}, {N}]")
+    if n is not None and (K != -(-k // _K_MULT) * _K_MULT
+                          or N != -(-n // _N_MULT) * _N_MULT):
+        raise ValueError(f"dequant_matmul: w_q [{K}, {N}] is not the padded "
+                         f"form of a [{k}, {n}] weight (pad_weight)")
     if scale.numel() != N:
         raise ValueError(f"dequant_matmul: scale has {scale.numel()} "
                          f"elements for N={N}")
-    if N % 16 or K % 8:
-        raise ValueError(f"dequant_matmul: K={K} must be a multiple of 8 "
-                         f"and N={N} of 16 (16-byte weight and row loads)")
 
 
-def dequant_matmul(x, w_q, scale):
+def dequant_matmul(x, w_q, scale, n=None):
     """x [..., K] @ weight-only quantized ``w_q`` [K, N] -> [..., N] in
     x's dtype.  ``scale``: per-output-channel fp32, any shape of N
-    elements (``[N]`` or ``[1, N]``)."""
-    global launches
-    K, N = w_q.shape
+    elements (``[N]`` or ``[1, N]``).  Any K and N.  With ``n``, ``w_q``
+    and ``scale`` come padded by :func:`pad_weight` (padded once for many
+    calls) and the output has the weight's true ``n`` columns."""
+    k = x.shape[-1]
     lead = x.shape[:-1]
+    N = w_q.shape[1] if n is None else n
     if x.device.type == "cpu":
-        M = math.prod(lead)
-        out = _ref_dequant_matmul(x.reshape(M, K), w_q, scale)
+        x2 = x.reshape(math.prod(lead), k)
+        if n is None:
+            out = _ref_dequant_matmul(x2, w_q, scale)
+        else:
+            out = _ref_dequant_matmul(_pad_cols(x2, w_q.shape[0]), w_q,
+                                      scale)[:, :n]
         return out.reshape(*lead, N)
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul: unsupported device {x.device}")
-    _check_cuda(x, w_q, scale)
-    x2, lda = _rows(x, K)
+    _check_cuda(x, w_q, scale, n)
+    w, s = pad_weight(w_q, scale)
+    x2, lda = _rows(x, k)
+    if w.shape[0] != k:
+        x2, lda = _pad_cols(x2, w.shape[0]), w.shape[0]
+    out = _launch(x2, lda, w, s.reshape(-1))
+    if out.shape[1] != N:
+        out = out[:, :N]
+    return out.reshape(*lead, N)
+
+
+def _launch(x2, lda, w_q, s):
+    """One kernel launch on operands in the kernels' form: x2 [M, K] rows
+    ``lda`` apart, ``w_q`` [K, N] from :func:`pad_weight`, s fp32 [N].
+    Returns [M, N] in x's dtype."""
+    global launches
     M = x2.shape[0]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    K, N = w_q.shape
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0:
-        return out.reshape(*lead, N)
-    s = scale.reshape(N)
-    if not s.is_contiguous():
-        s = s.contiguous()
+        return out
+    dev = x2.device
     lib, f32, bf16 = _kernel()
-    sms = _sm_count(x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
+    sms = _sm_count(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if x2.dtype == torch.bfloat16:
             regime, cs, kb = _plan(M, N, K, sms)
             err = bf16(x2.data_ptr(), lda, w_q.data_ptr(), s.data_ptr(),
                        out.data_ptr(), M, N, K, _REGIME[regime], cs, kb, sms,
@@ -245,13 +328,12 @@ def dequant_matmul(x, w_q, scale):
             ws = tickets = None
             if ksplit > 1:
                 ws = torch.empty((ksplit, M, N), dtype=torch.float32,
-                                 device=x.device)
-                tickets = _ticket_buffer(x.device,
-                                         -(-M // _BM) * -(-N // _BN))
+                                 device=dev)
+                tickets = _ticket_buffer(dev, -(-M // _BM) * -(-N // _BN))
             err = f32(x2.data_ptr(), lda, w_q.data_ptr(), s.data_ptr(),
                       out.data_ptr(), 0 if ws is None else ws.data_ptr(),
                       0 if tickets is None else tickets.data_ptr(),
                       M, N, K, tpb, ksplit, stream)
     build.check(lib, err, "dequant_matmul")
     launches += 1
-    return out.reshape(*lead, N)
+    return out

@@ -36,6 +36,16 @@ Every launch has the grid (row tiles x groups, nh, B), B in launches of at
 most 65,535, so any B * nh runs.  ``fwd_launches``, ``dq_launches``,
 ``dkv_launches`` and ``fused_launches`` count the wrappers' kernel calls.
 
+Causal with N > Nk (bottom-right aligned) leaves the first N - Nk rows
+with no visible key.  The reference's softmax over their -1e30 logits is
+uniform: out is the mean of V, lse -1e30 (+ log Nk, lost in fp32), and
+the gradient is dq = 0, nothing into dk, dv += dO / Nk.  The wrapper gives
+those rows to two small kernels (``fa_nokey_fwd``, ``fa_nokey_dv``,
+counted by ``nokey_launches``) and the rows after them, a square causal
+problem, to the kernels above through a row-offset view of q and dO
+(:func:`_fwd_rows`, :func:`_bwd_kernels`), so no kernel recomputes p from
+an lse of -1e30.
+
 The fused backward keeps a K/V tile stationary and adds each q tile's
 ``ds @ k`` into a zeroed fp32 dq buffer, which the wrapper then casts to
 q's dtype: in bf16 each 64-row tile goes through shared memory into one
@@ -65,6 +75,7 @@ fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
 fused_launches = 0
+nokey_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
@@ -139,20 +150,32 @@ def _ref_flash_fwd(q, k, v, causal, scale=None):
     return out.to(q.dtype), lse
 
 
-def _ref_flash_bwd(q, k, v, out, lse, do, causal, scale=None):
-    """Plain version of the backward kernels: p = exp(s - lse) recomputed
-    from the saved logsumexp, delta = rowsum(dO * O), ds = p (dp - delta)
-    scale, with p and ds cast to the stored dtype before their products and
-    fp32 sums (``scale`` defaults to 1/sqrt(hd)).  Returns (dq, dk, dv) in
-    the inputs' dtypes."""
-    dt = q.dtype
+def _probs_and_ds(q, k, v, out, lse, do, causal, scale):
+    """The backward's p = exp(s - lse) (0 where masked) and ds = p (dp -
+    delta) scale in fp32, delta = rowsum(dO * O).  A row that sees no key
+    (causal, N > Nk) has the reference's uniform p = 1/Nk and ds = 0: its
+    logits were all masked, so no gradient reaches q or k through them."""
     s, mask = _scores(q, k, causal, scale)
+    nokey = ~mask.any(-1, keepdim=True)                         # [N, 1]
     p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+    p = torch.where(nokey, 1.0 / k.shape[1], p)
     dof = do.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     delta = (dof * out.float()).sum(-1).transpose(1, 2)        # [B, nh, N]
     ds = p * (dp - delta[..., None])
     ds = ds / math.sqrt(q.shape[-1]) if scale is None else ds * scale
+    return p, torch.where(nokey, 0.0, ds), dof
+
+
+def _ref_flash_bwd(q, k, v, out, lse, do, causal, scale=None):
+    """Plain version of the backward kernels: p = exp(s - lse) recomputed
+    from the saved logsumexp, delta = rowsum(dO * O), ds = p (dp - delta)
+    scale, with p and ds cast to the stored dtype before their products and
+    fp32 sums (``scale`` defaults to 1/sqrt(hd)); rows that see no key as
+    :func:`_probs_and_ds` gives them.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    dt = q.dtype
+    p, ds, dof = _probs_and_ds(q, k, v, out, lse, do, causal, scale)
     p_c, ds_c = p.to(dt).float(), ds.to(dt).float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p_c, dof)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds_c, q.float())
@@ -166,13 +189,8 @@ def _ref_flash_bwd_terms(q, k, v, out, lse, do, causal, scale=None):
     dq, |ds|^T |q| for dk, |p|^T |dO| for dv), shaped as the gradients.  A
     bf16 gate scales its relative tolerance by these: where the terms
     cancel, one bf16 step of a term can exceed a step of the sum."""
-    s, mask = _scores(q, k, causal, scale)
-    p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
-    dof = do.float()
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    delta = (dof * out.float()).sum(-1).transpose(1, 2)
-    ds = p * (dp - delta[..., None])
-    ds = (ds / math.sqrt(q.shape[-1]) if scale is None else ds * scale).abs()
+    p, ds, dof = _probs_and_ds(q, k, v, out, lse, do, causal, scale)
+    ds = ds.abs()
     return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()),
             torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()),
             torch.einsum("bhqk,bqhd->bkhd", p, dof.abs()))
@@ -196,7 +214,12 @@ def _kernels():
         dkv.argtypes = [p] * 8 + [i] * 5 + [ll] * 12 + [i, f, i, p]
         fused = lib.pt_flash_bwd_fused
         fused.argtypes = [p] * 9 + [i] * 5 + [ll] * 12 + [i, f, i, p]
-        for fn in (fwd, dq, dkv, fused):
+        lib.pt_flash_nokey_fwd.argtypes = [p] * 3 + [i] * 5 + [ll] * 3 + [
+            i, p]
+        lib.pt_flash_nokey_dv.argtypes = [p] * 2 + [i] * 5 + [ll] * 3 + [
+            i, p]
+        for fn in (fwd, dq, dkv, fused, lib.pt_flash_nokey_fwd,
+                   lib.pt_flash_nokey_dv):
             fn.restype = ctypes.c_int
         lib.pt_error_string.argtypes = [ctypes.c_int]
         lib.pt_error_string.restype = ctypes.c_char_p
@@ -237,9 +260,6 @@ def _check_cuda(q, k, v, causal):
     if min(N, Nk, B * nh, hd) < 1:
         raise ValueError(f"flash_attention: N={N}, Nk={Nk}, B*nh="
                          f"{B * nh} and hd={hd} must be >= 1")
-    if causal and N > Nk:
-        raise ValueError(f"flash_attention: causal with N={N} > Nk={Nk} "
-                         "leaves rows that see no key")
 
 
 def _pad_hd(ts, D):
@@ -308,8 +328,62 @@ def _fwd_kernel(q, k, v, causal, scale):
     return out, lse
 
 
+def _nokey_rows(q, k, causal):
+    """The rows that see no key: N - Nk where causal and N > Nk, else 0."""
+    return max(0, q.shape[1] - k.shape[1]) if causal else 0
+
+
+def _nokey_fwd(v, rows):
+    """``fa_nokey_fwd``: (out [B, rows, nh, hd], the mean of v over its keys,
+    lse [B, nh, rows] of -1e30) for the rows that see no key."""
+    global nokey_launches
+    v = _kernel_operand(v)
+    B, Nk, nh, hd = v.shape
+    out = torch.empty((B, rows, nh, hd), dtype=v.dtype, device=v.device)
+    lse = torch.empty((B, nh, rows), dtype=torch.float32, device=v.device)
+    lib = _kernels()[0]
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = lib.pt_flash_nokey_fwd(v.data_ptr(), out.data_ptr(),
+                                     lse.data_ptr(), B, nh, Nk, hd, rows,
+                                     *_strides(v), _DTYPE_CODE[v.dtype],
+                                     stream)
+    build.check(lib, err, "flash_attention forward (rows with no key)")
+    nokey_launches += 1
+    return out, lse
+
+
+def _nokey_dv(do, dv):
+    """``fa_nokey_dv``: dv (contiguous [B, Nk, nh, hd]) += the gradient of
+    the rows that see no key, whose dO is ``do`` [B, rows, nh, hd]."""
+    global nokey_launches
+    do = _kernel_operand(do)
+    B, rows, nh, hd = do.shape
+    lib = _kernels()[0]
+    with torch.cuda.device(do.device):
+        stream = torch.cuda.current_stream(do.device).cuda_stream
+        err = lib.pt_flash_nokey_dv(do.data_ptr(), dv.data_ptr(), B, nh,
+                                    dv.shape[1], hd, rows, *_strides(do),
+                                    _DTYPE_CODE[do.dtype], stream)
+    build.check(lib, err, "flash_attention backward (rows with no key)")
+    nokey_launches += 1
+
+
+def _fwd_rows(q, k, v, causal, scale):
+    """The forward on operands of a kernel head width.  Causal with N > Nk:
+    the rows that see no key by :func:`_nokey_fwd`, the rest (query i sees
+    key j <= i - (N - Nk): square causal) by the forward kernel on a
+    row-offset view of q."""
+    rows = _nokey_rows(q, k, causal)
+    if not rows:
+        return _fwd_kernel(q, k, v, causal, scale)
+    out_t, lse_t = _fwd_kernel(q[:, rows:], k, v, True, scale)
+    out_h, lse_h = _nokey_fwd(v, rows)
+    return torch.cat((out_h, out_t), 1), torch.cat((lse_h, lse_t), 2)
+
+
 def _flash_fwd_cuda(q, k, v, causal):
-    return _padded_fwd(_fwd_kernel, q, k, v, causal)
+    return _padded_fwd(_fwd_rows, q, k, v, causal)
 
 
 def _bwd_operands(q, k, v, out, do):
@@ -381,7 +455,23 @@ def _launch_fused(q, k, v, do, lse, delta, causal, scale):
 
 def _bwd_kernels(q, k, v, out, lse, do, causal, scale):
     """The backward kernels, split or fused, on operands of a kernel head
-    width."""
+    width.  Causal with N > Nk: the kernels over the rows that see a key
+    (row-offset views, as :func:`_fwd_rows`), dq = 0 on the rows that see
+    none, and their dO / Nk added into dv by :func:`_nokey_dv`."""
+    rows = _nokey_rows(q, k, causal)
+    if not rows:
+        return _bwd_square(q, k, v, out, lse, do, causal, scale)
+    dq_t, dk, dv = _bwd_square(q[:, rows:], k, v, out[:, rows:],
+                               lse[:, :, rows:].contiguous(), do[:, rows:],
+                               True, scale)
+    _nokey_dv(do[:, :rows], dv)
+    dq = torch.cat((dq_t.new_zeros((q.shape[0], rows, *q.shape[2:])),
+                    dq_t), 1)
+    return dq, dk, dv
+
+
+def _bwd_square(q, k, v, out, lse, do, causal, scale):
+    """:func:`_bwd_kernels` where every row sees a key."""
     q, k, v, do, delta = _bwd_operands(q, k, v, out, do)
     if _BWD_FUSED:
         return _launch_fused(q, k, v, do, lse, delta, causal, scale)

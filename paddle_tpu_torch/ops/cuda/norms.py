@@ -154,8 +154,6 @@ def _check_rms_cuda(x, g):
         if t.dtype not in _DTYPE_CODE:
             raise TypeError(f"rms_norm: {name} dtype {t.dtype}; the kernel "
                             "takes float32 or bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"rms_norm: {name} must be contiguous")
     if g.shape != (H,):
         raise ValueError(f"rms_norm: g {tuple(g.shape)} must be [{H}]")
 
@@ -167,6 +165,9 @@ def _rms_forward(x, g, eps):
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     _check_rms_cuda(x, g)
+    # as for LayerNorm: a strided view is copied to rows once (any
+    # alignment goes in as it is)
+    x, g = x.contiguous(), g.contiguous()
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
@@ -195,6 +196,6 @@ class _RMSNorm(torch.autograd.Function):
 
 def rms_norm(x, g, eps=1e-6):
     """RMSNorm over the last axis.  x: [..., H] float32 or bfloat16, any
-    H >= 1; g: [H] float32 or bfloat16.  Returns x's shape and dtype;
+    H >= 1, any strides; g: [H] float32 or bfloat16.  Returns x's shape and dtype;
     differentiable in x and g."""
     return _RMSNorm.apply(x, g, eps)

@@ -12,16 +12,28 @@ differentiates.
 
 :func:`paged_attention` and :func:`paged_attention_quant` take the plain
 version for tensors on the CPU and launch the kernel for tensors on a CUDA
-device; they never fall back from one to the other.  Any head width up to
-32 16-byte slices (256 in bf16, 128 in fp32; 512 over the int8 pool) runs:
-the kernels mask the lanes past hd, and take one-element loads where rows
-are not 16-byte aligned, so the pool is never padded or copied.
-``launches`` and ``quant_launches`` count their kernel launches, one a
-call.  Both kernels split each slot's pages over blocks
-(:func:`_split_pages`) and merge the splits in the same launch through a
-workspace and tickets kept per device: ``paged_decode`` on a plan sized
-from the table (:func:`_split_plan`), ``paged_decode_q8`` on one sized
-from the grid (:func:`_grid_plan`).
+device; they never fall back from one to the other.  Any head width runs:
+up to 32 16-byte slices (256 in bf16, 128 in fp32, 512 over the int8
+pool) a position spreads over up to a warp, and a wider head is cut into
+head-width groups of 32 slices (:func:`_head_groups`), each a block that
+owns its columns of the output and sums its scores over the whole width.
+The kernels mask the lanes past hd and take one-element loads where rows
+are not 16-byte aligned, so the pool is never padded or copied.  Any
+number of slots runs, in launches of at most 65,535 (:func:`_slot_chunks`).
+A table entry outside [0, P) reads the page the reference's gather reads:
+a negative entry wraps once (e + P), then the index is clamped to
+[0, P - 1] (:func:`_table_pages`).  ``launches`` and ``quant_launches``
+count the kernel launches, one a call up to 65,535 slots.  Both kernels
+split each slot's pages over blocks (:func:`_split_pages`) and merge the
+splits in the same launch through a workspace and tickets kept per device:
+``paged_decode`` on a plan sized from the table (:func:`_split_plan`),
+``paged_decode_q8`` on one sized from the grid (:func:`_grid_plan`).
+
+Under CUDA-graph capture a call bakes the workspace's and tickets'
+addresses into the graph, so a capture never grows them (it raises:
+run the same call eagerly first), and :func:`held_buffers` hands the
+capturer the tensors it baked, to keep them alive after a later eager call
+has grown (replaced) the per-device buffers.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ _SPLIT_POSITIONS = 64         # positions a split takes at least
 _GRID_SPLIT_POSITIONS = 512   # the same for paged_decode_q8, whose merge
                               # costs more than walking fewer positions
 _MAX_SPLITS = 32              # splits of a slot at most (the merge's room)
+_MAX_SLOTS = 65535            # slots a launch at most (grid y)
 _work = {}                    # device -> (fp32 workspace, int32 tickets)
 
 
@@ -61,7 +74,7 @@ def _ref_paged_attention(q, k_pages, v_pages, page_table, lens):
     hd = q.shape[-1]
     cd = q.dtype
     view = maxP * ps
-    idx = page_table.long()
+    idx = _table_pages(page_table, k_pages.shape[0])
     kc = k_pages[idx].reshape(S, view, *k_pages.shape[2:])
     vc = v_pages[idx].reshape(S, view, *v_pages.shape[2:])
     logits = torch.einsum("sqhd,skhd->shqk", q.float(),
@@ -71,6 +84,15 @@ def _ref_paged_attention(q, k_pages, v_pages, page_table, lens):
     logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
     probs = torch.softmax(logits, -1).to(cd)
     return torch.einsum("shqk,skhd->sqhd", probs, vc.to(cd))
+
+
+def _table_pages(page_table, P):
+    """The pages a table names, as the reference's ``k_pages[page_table]``
+    gathers them: a negative entry wraps once (e + P), then the index is
+    clamped to [0, P - 1] (at P = 5, entries -1, -7, 5, 9 read pages 4, 0,
+    4, 4).  Returns int64 indices."""
+    idx = page_table.long()
+    return torch.where(idx < 0, idx + P, idx).clamp(0, P - 1)
 
 
 def _ref_paged_attention_quant(q, k_pages, k_scale, v_pages, v_scale,
@@ -88,11 +110,11 @@ def _kernel():
     if _fn is None:
         lib = build.load("paged_attn")
         fn = lib.pt_paged_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         qfn = lib.pt_paged_attention_quant_fwd
-        qfn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+        qfn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         qfn.restype = ctypes.c_int
         lib.pt_error_string.argtypes = [ctypes.c_int]
@@ -145,15 +167,38 @@ def _split_pages(lens, ps, maxP, pps):
     return out
 
 
+def _head_groups(hd, per):
+    """(head-width groups, a split partial's stride) for a head of ``hd``
+    elements, ``per`` elements a 16-byte slice: one group of stride hd up
+    to 32 slices, else groups of 32 slices (the kernels' WIDE instances),
+    each partial 32 slices wide."""
+    width = 32 * per
+    if hd <= width:
+        return 1, hd
+    return -(-hd // width), width
+
+
+def _slot_chunks(S):
+    """The launches of S slots: [(first slot, slots), ...], at most
+    ``_MAX_SLOTS`` a launch (the grid's y extent), in order."""
+    return [(s0, min(_MAX_SLOTS, S - s0)) for s0 in range(0, S, _MAX_SLOTS)]
+
+
 def _workspace(dev, floats, slots_heads):
     """Pointers to the per-device fp32 partials and int32 tickets (zeroed
     once; the merging block resets its ticket), grown when a call needs
     more.  Calls on one device share them, so they must be ordered on one
     stream, as the engine's are.  The hit path reads only ints: the
-    decode step is host-bound."""
+    decode step is host-bound.  Growing them while a CUDA graph is being
+    captured raises: the graph would bake a buffer that the next growth
+    frees."""
     got = _work.get(dev)
     if got is not None and got[2] >= floats and got[3] >= slots_heads:
         return got[0], got[1]
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "paged attention: the workspace must be grown before a CUDA "
+            "graph capture, not inside it; run the same call eagerly first")
     ws, tickets = (got[4], got[5]) if got is not None else (None, None)
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
@@ -164,6 +209,14 @@ def _workspace(dev, floats, slots_heads):
     _work[dev] = (ws.data_ptr(), tickets.data_ptr(), ws.numel(),
                   tickets.numel(), ws, tickets)
     return ws.data_ptr(), tickets.data_ptr()
+
+
+def held_buffers(dev):
+    """The workspace and ticket tensors calls on ``dev`` use now (empty if
+    none has needed them): a CUDA graph that captured such a call keeps
+    these alive, since a later call that needs more replaces them."""
+    got = _work.get(torch.device(dev))
+    return () if got is None else (got[4], got[5])
 
 
 def _check_operands(what, q, k_pages, v_pages, page_table, lens,
@@ -198,8 +251,9 @@ def _check_operands(what, q, k_pages, v_pages, page_table, lens,
         raise ValueError(
             f"{what}: page_table {tuple(page_table.shape)} must be "
             f"[{S}, maxP] and lens {tuple(lens.shape)} must be [{S}]")
-    if S > 65535:
-        raise ValueError(f"{what}: S={S} exceeds 65535 slots")
+    if min(q.shape) < 1 or min(k_pages.shape) < 1:
+        raise ValueError(f"{what}: empty operand q {tuple(q.shape)} / "
+                         f"pages {tuple(k_pages.shape)}")
 
 
 def _check_cuda(q, k_pages, v_pages, page_table, lens):
@@ -208,12 +262,34 @@ def _check_cuda(q, k_pages, v_pages, page_table, lens):
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError("paged_attention: k/v pages must have q's dtype "
                         f"({q.dtype}), got {k_pages.dtype}/{v_pages.dtype}")
-    hd = q.shape[-1]
-    widest = 32 * 16 // q.element_size()
-    if not 1 <= hd <= widest:
-        raise ValueError(
-            f"paged_attention: hd={hd} must be 1 to {widest} for {q.dtype} "
-            "(up to 32 threads of 16 bytes a position)")
+
+
+def _launch(fn, ptrs, S, nh, hd, P, ps, maxP, pps, splits, per, esize,
+            dtype_code, dev, name):
+    """Launch ``fn`` over S slots in launches of at most ``_MAX_SLOTS``:
+    ``ptrs`` are (the operands before the table, table, lens, out) data
+    pointers; each launch gets its slots' q, table, lens and out and its
+    own slice of the workspace and tickets.  Returns the launches made."""
+    *pre, table, lens, out = ptrs
+    kc, ld = _head_groups(hd, per)
+    ws = tickets = 0
+    if splits > 1:
+        ws, tickets = _workspace(dev, S * nh * kc * splits * (ld + 2),
+                                 S * nh * kc)
+    lib = _kernel()[0]
+    chunks = _slot_chunks(S)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s0, n in chunks:
+            err = fn(pre[0] + s0 * nh * hd * esize, *pre[1:],
+                     table + s0 * maxP * 4, lens + s0 * 4,
+                     out + s0 * nh * hd * esize,
+                     ws and ws + s0 * nh * kc * splits * (ld + 2) * 4,
+                     tickets and tickets + s0 * nh * kc * 4,
+                     n, nh, hd, P, ps, maxP, pps, splits, kc, math.sqrt(hd),
+                     dtype_code, stream)
+            build.check(lib, err, name)
+    return len(chunks)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lens):
@@ -232,19 +308,12 @@ def paged_attention(q, k_pages, v_pages, page_table, lens):
     maxP = page_table.shape[1]
     pps, splits = _split_plan(maxP, ps)
     out = torch.empty_like(q)
-    ws = tickets = 0
-    if splits > 1:
-        ws, tickets = _workspace(q.device, S * nh * splits * (hd + 2),
-                                 S * nh)
-    lib, fn, _ = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 ws, tickets, S, nh, hd, P, ps, maxP, pps, splits,
-                 math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
-    build.check(lib, err, "paged_attention")
-    launches += 1
+    launches += _launch(
+        _kernel()[1], (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                       page_table.data_ptr(), lens.data_ptr(),
+                       out.data_ptr()),
+        S, nh, hd, P, ps, maxP, pps, splits, 16 // q.element_size(),
+        q.element_size(), _DTYPE_CODE[q.dtype], q.device, "paged_attention")
     return out
 
 
@@ -264,12 +333,6 @@ def _check_cuda_quant(q, k_pages, k_scale, v_pages, v_scale, page_table,
             f"{what}: scales {tuple(k_scale.shape)} / "
             f"{tuple(v_scale.shape)} must both be "
             f"{tuple(k_pages.shape[:3])}")
-    # 16 int8 elements of K and V per thread, up to a warp a position
-    hd = q.shape[-1]
-    if not 1 <= hd <= 512:
-        raise ValueError(
-            f"{what}: hd={hd} must be 1 to 512 (up to 32 threads of 16 "
-            "int8 elements a position)")
 
 
 def paged_attention_quant(q, k_pages, k_scale, v_pages, v_scale,
@@ -292,20 +355,14 @@ def paged_attention_quant(q, k_pages, k_scale, v_pages, v_scale,
     S, _, nh, hd = q.shape
     P, ps = k_pages.shape[:2]
     maxP = page_table.shape[1]
-    pps, splits = _grid_plan(S, nh, maxP, ps, _sm_count(q.device))
+    pps, splits = _grid_plan(min(S, _MAX_SLOTS), nh, maxP, ps,
+                             _sm_count(q.device))
     out = torch.empty_like(q)
-    ws = tickets = 0
-    if splits > 1:
-        ws, tickets = _workspace(q.device, S * nh * splits * (hd + 2),
-                                 S * nh)
-    lib, _, qfn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = qfn(q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
-                  v_pages.data_ptr(), v_scale.data_ptr(),
-                  page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  ws, tickets, S, nh, hd, P, ps, maxP, pps, splits,
-                  math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
-    build.check(lib, err, "paged_attention_quant")
-    quant_launches += 1
+    quant_launches += _launch(
+        _kernel()[2], (q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
+                       v_pages.data_ptr(), v_scale.data_ptr(),
+                       page_table.data_ptr(), lens.data_ptr(),
+                       out.data_ptr()),
+        S, nh, hd, P, ps, maxP, pps, splits, 16, q.element_size(),
+        _DTYPE_CODE[q.dtype], q.device, "paged_attention_quant")
     return out

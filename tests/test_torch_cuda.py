@@ -153,14 +153,242 @@ def test_layer_norm_kernel_takes_strided_and_unaligned_rows(dev, dtype):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """An int64 table is refused by name; hd = 160 in fp32 (40 slices, two
+    head-width groups), which the kernel used to refuse, runs and matches
+    the plain version."""
     args = _paged(np.random.default_rng(0), dev, torch.float32, 2, 2, 64,
                   16, 2, [3, 20])
     with pytest.raises(TypeError, match="int32"):
         paged_attn.paged_attention(*args[:3], args[3].long(), args[4])
-    with pytest.raises(ValueError, match="hd=160"):
-        bad = _paged(np.random.default_rng(0), dev, torch.float32, 2, 2, 160,
-                     16, 2, [3, 20])
-        paged_attn.paged_attention(*bad)
+    wide = _paged(np.random.default_rng(0), dev, torch.float32, 2, 2, 160,
+                  16, 2, [3, 20])
+    out = paged_attn.paged_attention(*wide)
+    torch.testing.assert_close(out, paged_attn._ref_paged_attention(*wide),
+                               atol=FP32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", [
+    ("fp", torch.float32, 4, 160), ("fp", torch.bfloat16, 4, 320),
+    ("fp", torch.bfloat16, 2, 600), ("int8", torch.float32, 4, 640),
+    ("int8", torch.bfloat16, 4, 640), ("int8", torch.bfloat16, 2, 1100)],
+    ids=lambda c: f"{c[0]}-{str(c[1])[6:]}-hd{c[3]}")
+def test_paged_attention_wide_heads_match_plain(dev, case):
+    """Heads past 32 16-byte slices (fp32 160, bf16 320 and 600, int8 640
+    and 1100) run the kernels' head-width groups: each group's block owns
+    its output columns and sums its scores over the whole width; ragged
+    lanes and a multi-split slot (merged through the workspace)."""
+    pool, dtype, nh, hd = case
+    ps, maxP = 16, 16
+    lens = [0, 15, 16, 255, 100]
+    args = _paged(np.random.default_rng(hd), dev, torch.float32, len(lens),
+                  nh, hd, ps, maxP, lens)
+    if pool == "fp":
+        args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        out = paged_attn.paged_attention(*args)
+        ref = paged_attn._ref_paged_attention(*args)
+        scale = paged_attn._ref_paged_attention(*args[:2], args[2].abs(),
+                                                *args[3:])
+    else:
+        q, k, v, table, lens_t = args
+        kq, ks = T.quantize_kv(k)
+        vq, vs = T.quantize_kv(v)
+        qargs = ((2 * q).to(dtype), kq, ks, vq, vs, table, lens_t)
+        out = paged_attn.paged_attention_quant(*qargs)
+        ref = paged_attn._ref_paged_attention_quant(*qargs)
+        scale = paged_attn._ref_paged_attention_quant(
+            *qargs[:3], vq.abs(), *qargs[4:])
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=FP32_TOL, rtol=0)
+    else:
+        assert _per_element(out, ref, scale, cap=2e-2) <= 1.0
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_paged_attention_past_65535_slots(dev, pool):
+    """S = 65,537 slots (nh 1, hd 64, a small pool) go in two launches of
+    at most 65,535, each with its own slice of the workspace and tickets
+    (maxP 8 of 16-position pages: two splits a slot on the fp kernel's
+    plan)."""
+    S, ps, maxP, P = 65537, 16, 8, 33
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((S, 1, 1, 64),
+                                             dtype=np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.standard_normal((P, ps, 1, 64),
+                                                 dtype=np.float32)).to(dev)
+            for _ in range(2))
+    table = torch.from_numpy(rng.integers(1, P, (S, maxP))
+                             .astype(np.int32)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, maxP * ps, S)
+                            .astype(np.int32)).to(dev)
+    if pool == "fp":
+        before = paged_attn.launches
+        out = paged_attn.paged_attention(q, k, v, table, lens)
+        ref = paged_attn._ref_paged_attention(q, k, v, table, lens)
+        launched = paged_attn.launches - before
+    else:
+        kq, ks = T.quantize_kv(k)
+        vq, vs = T.quantize_kv(v)
+        before = paged_attn.quant_launches
+        out = paged_attn.paged_attention_quant(q, kq, ks, vq, vs, table,
+                                               lens)
+        ref = paged_attn._ref_paged_attention_quant(q, kq, ks, vq, vs, table,
+                                                    lens)
+        launched = paged_attn.quant_launches - before
+    torch.cuda.synchronize()
+    assert launched == 2
+    torch.testing.assert_close(out, ref, atol=FP32_TOL, rtol=0)
+
+
+def _probe_eager(eng, record):
+    """Wrap ``eng._decode`` so that each step first runs the eager step
+    function (``decode_step_paged`` or its int8 twin) on clones of the
+    pool with the inputs the step stages, then the engine's own step (a
+    graph replay after the first); ``record`` gets (eager logits, eager
+    next tokens, the step's logits, its next tokens) of each step."""
+    real = eng._decode
+
+    def probe(wpages, woffs):
+        ins = [torch.from_numpy(np.array(a, np.int32)).to(eng.device)
+               for a in (eng._tables_np, wpages, woffs, eng._lens,
+                         eng._last_tok)]
+        pool = [t.clone() for t in eng._cache_operands()]
+        with torch.inference_mode():
+            if eng._kv_quant:
+                lg, *_ = T.decode_step_paged_quant(
+                    eng.params, ins[4], eng.cfg, pool[0], pool[2], pool[1],
+                    pool[3], *ins[:4])
+            else:
+                lg, *_ = T.decode_step_paged(eng.params, ins[4], eng.cfg,
+                                             *pool, *ins[:4])
+        out = real(wpages, woffs)
+        record.append((lg.float().cpu(), lg.argmax(-1).cpu().numpy(),
+                       eng._step.logits.float().cpu(), out[0]))
+        return out
+    eng._decode = probe
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_graph_engine_matches_eager_step(dev, kv):
+    """The engine's decode step on the card is one CUDA graph, captured at
+    the first decode step and replayed after: every replay's next tokens
+    equal the eager step function's on clones of the pool with the same
+    inputs, and its logits are within 1e-3 (fp32, 2 layers of gpt_345m
+    widths, 6 slots at mixed lengths)."""
+    cfg = T.GPTConfig(vocab_size=1024, hidden_size=1024, num_layers=2,
+                      num_heads=16, max_seq_len=256, dtype="float32",
+                      use_flash=False, remat=False, use_pallas_norm=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(4),
+                           device="cpu")
+    kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
+    eng = PagedServingEngine((params, cfg), device=dev, slots=6,
+                             max_len=128, page_size=16, **kw)
+    rng = np.random.default_rng(9)
+    for n in (3, 17, 40, 64, 90, 33):
+        eng.submit(rng.integers(1, 1024, (n,)).astype(np.int32), 10)
+    record = []
+    _probe_eager(eng, record)
+    eng.run()
+    assert len(record) >= 9 and eng._step.captures == 1
+    assert eng.stats()["decode_compiles"] == 1
+    for eager, eager_nxt, step, nxt in record:
+        assert np.array_equal(eager_nxt, nxt)
+        torch.testing.assert_close(step, eager, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_graph_engine_counts_through_churn_and_abort(dev, kv, monkeypatch):
+    """``decode_compiles == 1`` and exact launch counts, counted per
+    replay, through warmup, churn with prefix hits, an injected abort
+    (the pool zeroed in place: its storage, which the graph baked, kept)
+    and the retry; the retried request's tokens equal a clean run's."""
+    cfg = _wide()
+    L = cfg.num_layers
+    params = T.init_params(cfg, torch.Generator().manual_seed(2), device=dev)
+    kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
+    eng = PagedServingEngine((params, cfg), device=dev, slots=3, max_len=32,
+                             page_size=8, seq_buckets=(8, 16),
+                             batch_buckets=(1, 2), **kw)
+    eng.warmup()
+    assert eng.stats()["decode_compiles"] == 1 and eng._step.captures == 1
+    attn = "quant_launches" if kv == "int8" else "launches"
+    rng = np.random.default_rng(3)
+    shared = rng.integers(1, 256, (8,)).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(1, 256, (n,))])
+               .astype(np.int32) for n in (1, 5, 3, 7, 2)]
+    setattr(paged_attn, attn, 0)
+    norms.launches = dqmm.launches = 0
+    reqs = [eng.submit(p, 6) for p in prompts]
+    eng.run()
+    st = eng.stats()
+    fwd = st["decode_steps"] + st["prefill_calls"]
+    assert st["prefix_page_hits"] > 0
+    assert getattr(paged_attn, attn) == L * st["decode_steps"]
+    assert norms.launches == (2 * L + 1) * fwd
+    assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
+    ptrs = [t.data_ptr() for t in eng._cache_operands()]
+    real = eng._decode
+    calls = {"n": 0}
+
+    def flaky(*a):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("injected decode failure")
+        return real(*a)
+    monkeypatch.setattr(eng, "_decode", flaky)
+    req = eng.submit(prompts[1], 6)
+    with pytest.raises(RuntimeError, match="injected"):
+        eng.run()
+    monkeypatch.undo()
+    assert eng.take_aborted() == [req]
+    assert [t.data_ptr() for t in eng._cache_operands()] == ptrs
+    assert not any(bool(t.any()) for t in eng._cache_operands())
+    eng.submit(req.reset_for_retry())
+    eng.run()
+    assert req.tokens == reqs[1].tokens
+    st = eng.stats()
+    assert st["decode_compiles"] == 1 and eng._step.captures == 1
+    fwd = st["decode_steps"] + st["prefill_calls"]
+    assert getattr(paged_attn, attn) == L * st["decode_steps"]
+    assert norms.launches == (2 * L + 1) * fwd
+
+
+def test_captured_engine_survives_a_grown_workspace(dev):
+    """A later eager call that needs a larger paged-attention workspace
+    replaces the per-device buffers; the captured engine keeps the ones
+    it baked (``_step._held``), so its next replays still decode exactly
+    (tokens equal ``generate``) after the freed sizes are reused."""
+    cfg = T.GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                      num_heads=2, max_seq_len=128, dtype="float32",
+                      use_flash=False, remat=False, use_pallas_norm=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(6), device=dev)
+    card = torch.device("cuda", torch.cuda.current_device())
+    # the engine's capture bakes freshly sized buffers (earlier tests may
+    # have grown the per-device ones past the call below)
+    paged_attn._work.pop(card, None)
+    eng = PagedServingEngine((params, cfg), device=dev, slots=2, max_len=128,
+                             page_size=8, seq_buckets=(8, 16, 32),
+                             batch_buckets=(1, 2))
+    eng.warmup()
+    assert eng._cache_k.device == card
+    assert paged_attn._split_plan(eng._pages_per_slot, 8)[1] > 1
+    held = eng._step._held
+    assert held and held[0].data_ptr() == paged_attn._work[card][0]
+    # an eager call with far more slots grows (replaces) the workspace
+    big = _paged(np.random.default_rng(1), dev, torch.float32, 64, 16, 64,
+                 16, 512, [8000] * 64)
+    paged_attn.paged_attention(*big)
+    assert paged_attn._work[card][0] != held[0].data_ptr()
+    junk = [torch.full_like(t, 7) for t in held]   # the sizes, reused
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 20)]
+    reqs = [eng.submit(p, 30) for p in prompts]
+    eng.run()
+    for p, r in zip(prompts, reqs):
+        want = T.generate(params, cfg, torch.from_numpy(p)[None].to(dev), 30)
+        assert r.tokens == want[0, len(p):].tolist()
+    assert all(bool((t == 7).all()) for t in junk)
 
 
 def _wide():
@@ -351,6 +579,60 @@ def test_flash_wide_heads_match_plain(dev, hd, dtype, fused):
             assert _per_element(a, b, b) <= 1.0, name
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 257, 256, 4, 64),
+                                   (2, 512, 256, 4, 64),
+                                   (1, 300, 150, 2, 128)],
+                         ids=["N=Nk+1", "N=2Nk", "N=2Nk-hd128"])
+def test_flash_causal_rows_with_no_key_match_plain(dev, shape, dtype,
+                                                   fused):
+    """Causal with N > Nk (the kernels used to refuse it): the first
+    N - Nk rows see no key and get the mean of V (lse -1e30), dq = 0 and
+    dO / Nk into dv, the rest run the kernels on a row-offset view; the
+    forward and the split or fused backward through the autograd Function
+    against ``_ref_flash_fwd`` / ``_ref_flash_bwd`` (fp32 1e-5 and 2e-4,
+    bf16 per element as ``test_flash_kernels_match_plain``)."""
+    B, N, Nk, nh, hd = shape
+    g = torch.Generator(device=dev).manual_seed(N + Nk)
+    q = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, Nk, nh, hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = flash_attn.nokey_launches
+    try:
+        flash_attn.set_default_blocks(bwd_fused=fused)
+        out = flash_attn.flash_attention(q, k, v, causal=True)
+        got = torch.autograd.grad(out, (q, k, v), do)
+    finally:
+        flash_attn.set_default_blocks(bwd_fused=False)
+    torch.cuda.synchronize()
+    assert flash_attn.nokey_launches == before + 2
+    rows = N - Nk
+    with torch.no_grad():
+        o2, lse = flash_attn.flash_fwd(q, k, v, True)
+        ref_out, ref_lse = flash_attn._ref_flash_fwd(q, k, v, True)
+        refs = flash_attn._ref_flash_bwd(q, k, v, out, lse, do, True)
+        terms = flash_attn._ref_flash_bwd_terms(q, k, v, out, lse, do, True)
+        torch.testing.assert_close(o2, out, atol=0, rtol=0)
+        assert bool((lse[..., :rows] == -1e30).all())
+        torch.testing.assert_close(lse, ref_lse, atol=FP32_TOL, rtol=0)
+        assert not got[0][:, :rows].any()
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref_out, atol=FP32_TOL, rtol=0)
+        else:
+            scale = flash_attn._ref_flash_fwd(q, k, v.abs(), True)[0]
+            assert _per_element(out, ref_out, scale) <= 1.0
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, refs, terms):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=2e-4, rtol=0, msg=name)
+        else:
+            assert _per_element(a, b, t) <= 1.0, name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_norm_gradients_on_card_match_plain(dev, dtype):
     """The kernel's forward is differentiable: x, g and b get the plain
@@ -404,7 +686,13 @@ def test_dequant_matmul_kernel_matches_plain(dev, dtype, M, K, N):
                                atol=0)
 
 
-def test_dequant_matmul_takes_strided_rows_and_refuses_by_name(dev):
+@pytest.mark.parametrize("K,N", [(13, 10), (1030, 1000)])
+def test_dequant_matmul_takes_strided_rows_and_refuses_by_name(dev, K, N):
+    """Strided x rows go in without a copy; K off a multiple of 8 and N
+    off one of 16, which the kernels used to refuse, run (the weight
+    zero-padded, as ``pad_weight`` pads it once for the engine), as does a
+    strided, misaligned weight; each against the plain version, fp32 and
+    bf16; float weights are refused by name."""
     g = torch.Generator(device=dev).manual_seed(3)
     base = torch.randn(6, 2, 3, 128, device=dev, generator=g)
     x = base[:, 1, 1]                       # rows 768 floats apart
@@ -416,8 +704,26 @@ def test_dequant_matmul_takes_strided_rows_and_refuses_by_name(dev):
                                atol=1e-5 * float(ref.abs().max()))
     with pytest.raises(TypeError, match="int8 weights only"):
         dqmm.dequant_matmul(x, w.float(), s)
-    with pytest.raises(ValueError, match="multiple"):
-        dqmm.dequant_matmul(x[:, :120], w[:120, :200].contiguous(), s[:200])
+    xo = torch.randn(9, K, device=dev, generator=g)
+    wbase = torch.randint(-127, 128, (K, N + 3), device=dev, generator=g,
+                          dtype=torch.int8)
+    wo = wbase[:, 3:]                       # strided, 3 bytes off
+    so = (torch.rand(N, device=dev, generator=g) + 0.1) / 64
+    wp, sp = dqmm.pad_weight(wo, so)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = xo.to(dtype)
+        ref = dqmm._ref_dequant_matmul(xd, wo, so)
+        before = dqmm.launches
+        got = dqmm.dequant_matmul(xd, wo, so)
+        pre = dqmm.dequant_matmul(xd, wp, sp, n=N)
+        torch.cuda.synchronize()
+        assert dqmm.launches == before + 2 and got.shape == (9, N)
+        torch.testing.assert_close(pre, got, atol=0, rtol=0)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-5 * float(ref.abs().max()))
+        else:
+            assert _per_element(got, ref, ref) <= 1.0
 
 
 DQMM_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
@@ -465,8 +771,9 @@ def test_paged_attention_kernel_long_slot_empty_lanes_clamped_table(dev,
                                                                     dtype):
     """One slot at 8,191 positions (a full table of 512 pages: the
     largest split plan), len-0 lanes beside a partly filled one, and
-    table entries outside [0, P) (negative and past the pool), which the
-    kernel clamps as the plain version's gather does."""
+    table entries outside [0, P) (-1, -5, -P - 3, P and P + 40), which
+    read the reference's pages: a negative entry wraps once (e + P), then
+    the index is clamped to [0, P - 1]."""
     ps, maxP = 16, 512
     for lens in ([8190], [0, 0, 700, 0]):
         args = _paged(np.random.default_rng(len(lens)), dev, dtype,
@@ -476,19 +783,37 @@ def test_paged_attention_kernel_long_slot_empty_lanes_clamped_table(dev,
         if len(lens) > 1:
             table[2, 3] = -5
             table[2, 7] = P + 40
+            table[2, 9] = -1
+            table[2, 11] = -P - 3
+            table[2, 13] = P
         before = paged_attn.launches
         out = paged_attn.paged_attention(q, k, v, table, lens_t)
         torch.cuda.synchronize()
         assert paged_attn.launches == before + 1
-        ref = paged_attn._ref_paged_attention(q, k, v, table.clamp(0, P - 1),
-                                              lens_t)
+        pages = paged_attn._table_pages(table, P).int()
+        ref = paged_attn._ref_paged_attention(q, k, v, table, lens_t)
+        torch.testing.assert_close(
+            ref, paged_attn._ref_paged_attention(q, k, v, pages, lens_t),
+            atol=0, rtol=0)
         assert torch.isfinite(out).all()
         if dtype == torch.float32:
             torch.testing.assert_close(out, ref, atol=FP32_TOL, rtol=0)
         else:
-            scale = paged_attn._ref_paged_attention(
-                q, k, v.abs(), table.clamp(0, P - 1), lens_t)
+            scale = paged_attn._ref_paged_attention(q, k, v.abs(), table,
+                                                    lens_t)
             assert _per_element(out, ref, scale) <= 1.0
+        if len(lens) > 1:                      # the int8 kernel alike
+            kq, ks = T.quantize_kv(k.float())
+            vq, vs = T.quantize_kv(v.float())
+            qargs = (q, kq, ks, vq, vs, table, lens_t)
+            qout = paged_attn.paged_attention_quant(*qargs)
+            qref = paged_attn._ref_paged_attention_quant(*qargs)
+            if dtype == torch.float32:
+                torch.testing.assert_close(qout, qref, atol=FP32_TOL, rtol=0)
+            else:
+                qscale = paged_attn._ref_paged_attention_quant(
+                    q, kq, ks, vq.abs(), vs, table, lens_t)
+                assert _per_element(qout, qref, qscale, cap=2e-2) <= 1.0
 
 
 def _paged_quant(dev, dtype, S, nh, hd, ps, maxP, lens):
@@ -846,13 +1171,30 @@ def test_rms_norm_gradients_on_card_match_plain(dev, dtype):
 
 
 def test_rms_norm_refuses_by_name(dev):
+    """float16 and a wrong g are refused by name; a transposed view (which
+    the kernel used to refuse) is copied to rows and a view 4 bytes off
+    16-byte alignment takes one-element loads, each against the plain
+    version in fp32 and bf16."""
     g = torch.ones(64, device=dev)
     with pytest.raises(TypeError, match="float16"):
         norms.rms_norm(torch.randn(2, 64, device=dev).half(), g)
-    with pytest.raises(ValueError, match="contiguous"):
-        norms.rms_norm(torch.randn(64, 2, device=dev).t(), g)
     with pytest.raises(ValueError, match=r"must be \[64\]"):
         norms.rms_norm(torch.randn(2, 64, device=dev), g[:32])
+    rng = np.random.default_rng(12)
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.from_numpy(rng.standard_normal(
+            (64, 6 * 64 + 4), dtype=np.float32)).to(dev, dtype)
+        gw = torch.randn(64, device=dev)
+        tr = base[:, :48].t()                                # [48, 64]
+        off = 4 // base.element_size()
+        un = base.reshape(-1)[off:off + 6 * 64].view(6, 64)  # 4 bytes off
+        assert not tr.is_contiguous() and un.data_ptr() % 16 == 4
+        for x in (tr, un):
+            before = norms.rms_launches
+            out = norms.rms_norm(x, gw)
+            torch.cuda.synchronize()
+            assert norms.rms_launches == before + 1 and out.shape == x.shape
+            _rms_close(out, norms._ref_rms_norm(x, gw, 1e-6), dtype)
 
 
 def test_nn_encoder_on_card_matches_cpu(dev):

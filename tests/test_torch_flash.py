@@ -209,3 +209,72 @@ def test_kernel_operand_copies_only_rows_the_kernels_cannot_load():
     tr = torch.zeros(B, N, hd, nh, dtype=torch.bfloat16).transpose(-1, -2)
     got = T._kernel_operand(tr)
     assert got.stride(-1) == 1 and torch.equal(got, tr)
+
+
+# (B, N, Nk, nh, hd): causal with more queries than keys, bottom-right
+# aligned, so the first N - Nk rows see no key
+NOKEY_CASES = [(1, 65, 64, 2, 64), (2, 96, 48, 2, 64), (1, 40, 20, 1, 128)]
+
+
+@pytest.mark.parametrize("case", NOKEY_CASES,
+                         ids=[f"N{c[1]}-Nk{c[2]}" for c in NOKEY_CASES])
+def test_causal_rows_with_no_key_match_reference(case):
+    """Causal N > Nk (N = Nk + 1 and N = 2 Nk): the rows i < N - Nk see no
+    key, and the reference's softmax over their -1e30 logits is uniform.
+    The port's CPU autograd, and its plain kernel functions (forward, and
+    the backward from the forward's lse, where such a row has p = 1/Nk and
+    ds = 0), against the JAX ``flash_attention`` and ``jax.vjp`` of
+    ``_ref_attention`` at 1e-5 in fp32; and the card's split of those rows
+    from the rest (a square causal problem on q[:, N - Nk:])."""
+    B, N, Nk, nh, hd = case
+    q, k, v, do = _inputs(case + (True, None), 31)
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    jout, vjp = jax.vjp(lambda a, b, c: J._ref_attention(a, b, c, True),
+                        *jargs)
+    want = vjp(jnp.asarray(do))
+    np.testing.assert_allclose(
+        np.asarray(J.flash_attention(*jargs, True)), np.asarray(jout),
+        atol=FWD_TOL, rtol=0)
+    rows = N - Nk
+    np.testing.assert_allclose(np.asarray(jout)[:, :rows],
+                               np.broadcast_to(v.mean(1, keepdims=True),
+                                               (B, rows, nh, hd)),
+                               atol=FWD_TOL, rtol=0)
+    assert not np.asarray(want[0])[:, :rows].any()     # dq = 0 there
+    # CPU autograd of the port
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = T.flash_attention(*ts, causal=True)
+    got = torch.autograd.grad(out, ts, torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=FWD_TOL, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FWD_TOL,
+                                   rtol=0, err_msg=name)
+    # the plain versions of the kernels' functions
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    pout, lse = T._ref_flash_fwd(tq, tk, tv, True)
+    assert bool((lse[..., :rows] == -1e30).all())
+    np.testing.assert_allclose(pout.numpy(), np.asarray(jout), atol=FWD_TOL,
+                               rtol=0)
+    pgrads = T._ref_flash_bwd(tq, tk, tv, pout, lse, tdo, True)
+    for name, g, w in zip(("dq", "dk", "dv"), pgrads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FWD_TOL,
+                                   rtol=0, err_msg=name)
+    # the card's split: the rows after the first N - Nk are a square
+    # causal problem; the first rows are the mean of V, and their
+    # gradient is dO / Nk into dv alone
+    assert T._nokey_rows(tq, tk, True) == rows
+    assert T._nokey_rows(tq, tk, False) == 0
+    tout, tlse = T._ref_flash_fwd(tq[:, rows:], tk, tv, True)
+    np.testing.assert_allclose(tout.numpy(), pout[:, rows:].numpy(),
+                               atol=FWD_TOL, rtol=0)
+    np.testing.assert_allclose(tlse.numpy(), lse[..., rows:].numpy(),
+                               atol=FWD_TOL, rtol=0)
+    tdq, tdk, tdv = T._ref_flash_bwd(tq[:, rows:], tk, tv, tout, tlse,
+                                     tdo[:, rows:], True)
+    tdv = tdv + tdo[:, :rows].sum(1, keepdim=True) / Nk
+    for name, g, w in zip(("dq", "dk", "dv"),
+                          (torch.cat((torch.zeros_like(tq[:, :rows]), tdq),
+                                     1), tdk, tdv), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FWD_TOL,
+                                   rtol=0, err_msg=name)

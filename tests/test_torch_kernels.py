@@ -193,6 +193,57 @@ class TestPagedAttentionParity:
         assert port.shape == (3, 1, 2, hd)
         np.testing.assert_allclose(port, ref, atol=FP32_TOL, rtol=0)
 
+    def test_table_entries_outside_the_pool_read_the_reference_pages(self):
+        """Entries -1, -5, -P-3, P and P+40 in filled pages read the page
+        the reference's gather reads (a negative entry wraps once, then
+        the index is clamped to [0, P - 1]), through both plain versions,
+        against the JAX ``_ref_paged_attention`` and
+        ``_ref_paged_attention_quant``."""
+        rng = np.random.default_rng(11)
+        q, k, v, table, lens = _paged_inputs(rng, S=3, maxP=6, P=16,
+                                             lens=(90, 40, 70))
+        P = k.shape[0]
+        table[0, 1:6] = [-1, -5, -P - 3, P, P + 40]
+        table[1, 2] = -P
+        table[2, 3] = P - 1
+        idx = paged_attn._table_pages(_t(table), P).numpy()
+        assert idx[0, 1:6].tolist() == [P - 1, P - 5, 0, P - 1, P - 1]
+        assert idx[1, 2] == 0 and idx[2, 3] == P - 1
+        ja = [jnp.asarray(a) for a in (q, k, v, table, lens)]
+        port = paged_attn.paged_attention(*(_t(a) for a in (q, k, v, table,
+                                                            lens)))
+        ref = np.asarray(jax_paged._ref_paged_attention(*ja))
+        np.testing.assert_allclose(port.numpy(), ref, atol=FP32_TOL, rtol=0)
+        kq = rng.integers(-127, 128, k.shape).astype(np.int8)
+        vq = rng.integers(-127, 128, v.shape).astype(np.int8)
+        ks = ((rng.random(k.shape[:3]) + 0.05) / 64).astype(np.float32)
+        vs = ((rng.random(k.shape[:3]) + 0.05) / 64).astype(np.float32)
+        qargs = (q, kq, ks, vq, vs, table, lens)
+        port = paged_attn.paged_attention_quant(*(_t(a) for a in qargs))
+        ref = np.asarray(jax_paged._ref_paged_attention_quant(
+            *(jnp.asarray(a) for a in qargs)))
+        np.testing.assert_allclose(port.numpy(), ref, atol=FP32_TOL, rtol=0)
+
+    @pytest.mark.parametrize("S", [1, 65535, 65536, 65537, 200000])
+    def test_slot_chunks_cover_every_slot_once(self, S):
+        """Slots go to the kernels in launches of at most 65,535 (the
+        grid's y extent): in order, each slot in exactly one."""
+        chunks = paged_attn._slot_chunks(S)
+        assert all(1 <= n <= 65535 for _, n in chunks)
+        assert [s0 for s0, _ in chunks] == [
+            sum(n for _, n in chunks[:i]) for i in range(len(chunks))]
+        assert sum(n for _, n in chunks) == S
+        assert len(chunks) == -(-S // 65535)
+
+    @pytest.mark.parametrize("hd,per,want", [
+        (64, 8, (1, 64)), (256, 8, (1, 256)), (320, 8, (2, 256)),
+        (160, 4, (2, 128)), (128, 4, (1, 128)), (640, 16, (2, 512)),
+        (24, 4, (1, 24)), (1100, 16, (3, 512))])
+    def test_head_groups_of_wide_heads(self, hd, per, want):
+        """Up to 32 16-byte slices a head is one group; wider heads are cut
+        into groups of 32 slices whose partials are that wide."""
+        assert paged_attn._head_groups(hd, per) == want
+
     def test_wrapper_on_cpu_runs_plain_and_counts_nothing(self):
         q, k, v, table, lens = _paged_inputs(np.random.default_rng(2))
         args = (_t(q), _t(k), _t(v), _t(table), _t(lens))

@@ -234,7 +234,9 @@ def test_dequant_matmul_on_cpu_runs_plain_and_counts_nothing():
 
 def test_dequant_matmul_cuda_checks_refuse_by_name():
     """The checks the wrapper runs before a launch (they read only shapes
-    and dtypes, so CPU tensors exercise them)."""
+    and dtypes, so CPU tensors exercise them).  K off a multiple of 8 and
+    N off one of 16 pass (the wrapper pads them); a padded weight whose
+    shape is not the padded form of x's K and ``n`` is refused."""
     x = torch.zeros(4, 64)
     s = torch.ones(128)
     with pytest.raises(TypeError, match="int8 weights only"):
@@ -242,13 +244,63 @@ def test_dequant_matmul_cuda_checks_refuse_by_name():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         dqmm._check_cuda(x.half(), torch.zeros(64, 128, dtype=torch.int8),
                          s)
-    with pytest.raises(ValueError, match="multiple"):
-        dqmm._check_cuda(torch.zeros(4, 60),
-                         torch.zeros(60, 120, dtype=torch.int8),
-                         torch.ones(120))
+    dqmm._check_cuda(torch.zeros(4, 60),
+                     torch.zeros(60, 120, dtype=torch.int8), torch.ones(120))
+    w, sp = dqmm.pad_weight(torch.zeros(60, 120, dtype=torch.int8),
+                            torch.ones(120))
+    dqmm._check_cuda(torch.zeros(4, 60), w, sp, n=120)
+    with pytest.raises(ValueError, match="padded form"):
+        dqmm._check_cuda(torch.zeros(4, 60), w, sp, n=100)
     with pytest.raises(ValueError, match="scale"):
         dqmm._check_cuda(x, torch.zeros(64, 128, dtype=torch.int8),
                          torch.ones(64))
+
+
+@pytest.mark.parametrize("K,N", [(13, 10), (1030, 1000)])
+def test_dequant_matmul_padded_then_plain_matches_jax(K, N):
+    """Any K and N, as the reference takes them: the weight zero-padded to
+    K a multiple of 8 and N of 16 (``pad_weight``), x's columns padded to
+    K, the plain version on the padded operands and the output cut back
+    to N, against the JAX ``dequant_matmul``."""
+    x, wq, s = _dqmm_inputs(K + N, (5,), K, N)
+    w, sp = dqmm.pad_weight(_t(wq), _t(s))
+    assert w.shape == (-(-K // 8) * 8, -(-N // 16) * 16)
+    assert sp.shape == (w.shape[1],) and dqmm.kernel_ready(w)
+    assert not w[K:].any() and not w[:, N:].any() and not sp[N:].any()
+    got = dqmm.dequant_matmul(_t(x), w, sp, n=N)
+    want = jax_dqmm.dequant_matmul(jnp.asarray(x), jnp.asarray(wq),
+                                   jnp.asarray(s))
+    assert got.shape == (5, N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=FP32_TOL * float(np.abs(want).max()),
+                               rtol=0)
+    # a weight the kernels take as it is comes back as it is
+    ready = torch.ones(16, 32, dtype=torch.int8)
+    assert dqmm.pad_weight(ready, torch.ones(32))[0] is ready
+
+
+def test_prepare_params_pads_an_off_multiple_quantized_weight_once():
+    """A width off the kernels' multiples (H = 36: qkv N = 108, fc1 K =
+    36 rows of N = 144) gets its padded form once in ``prepare_params``;
+    the quantized block through it equals the reference's."""
+    cfg_j = _cfg(J, hidden_size=36, num_heads=2)
+    tree = numpy_params(cfg_j, 5)
+    tp = T.quantize_params(T.params_from_numpy(tree, "cpu"), "int8")
+    cfg_t = _cfg(T, hidden_size=36, num_heads=2)
+    p = T.prepare_params(tp, cfg_t)
+    leaf = p["blocks"]["qkv_w"]
+    assert leaf["qw_k"].shape == (2, 40, 112)
+    assert leaf["scale_k"].shape == (2, 112)
+    assert T.prepare_params(p, cfg_t)["blocks"]["qkv_w"]["qw_k"] is \
+        leaf["qw_k"]                                   # padded once
+    x = np.random.default_rng(6).standard_normal((2, 3, 36)).astype(
+        np.float32)
+    jq = J.quantize_params(jax.tree_util.tree_map(jnp.asarray, tree), "int8")
+    jblk = jax.tree_util.tree_map(lambda a: a[1], jq["blocks"])
+    want = J.block_apply(cfg_j, jnp.asarray(x), jblk)
+    got = T.block_apply(cfg_t, _t(x), T.layer(p, 1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_TOL,
+                               rtol=0)
 
 
 def test_dequant_matmul_rows_take_strided_views_without_a_copy():
@@ -384,17 +436,17 @@ def test_paged_attention_quant_on_cpu_counts_nothing_and_checks_by_name():
     q, kq, ks, vq, vs, pt, lens = args
     with pytest.raises(TypeError, match="int8"):
         paged_attn._check_cuda_quant(q, kq.float(), ks, vq, vs, pt, lens)
-    # any hd up to 512 runs (the kernel masks the ragged lanes); wider is
-    # refused by name
+    # any hd runs: up to 512 the kernel masks the ragged lanes, wider
+    # heads (528: two head-width groups of 512) run the WIDE instances
     paged_attn._check_cuda_quant(torch.zeros(4, 1, 4, 24),
                                  torch.zeros(12, 8, 4, 24, dtype=torch.int8),
                                  ks, torch.zeros(12, 8, 4, 24,
                                                  dtype=torch.int8),
                                  vs, pt, lens)
-    with pytest.raises(ValueError, match="hd=528"):
-        q528 = torch.zeros(4, 1, 4, 528)
-        k528 = torch.zeros(12, 8, 4, 528, dtype=torch.int8)
-        paged_attn._check_cuda_quant(q528, k528, ks, k528, vs, pt, lens)
+    q528 = torch.zeros(4, 1, 4, 528)
+    k528 = torch.zeros(12, 8, 4, 528, dtype=torch.int8)
+    paged_attn._check_cuda_quant(q528, k528, ks, k528, vs, pt, lens)
+    assert paged_attn._head_groups(528, 16) == (2, 512)
     with pytest.raises(ValueError, match="scales"):
         paged_attn._check_cuda_quant(q, kq, ks[:, :4].contiguous(), vq,
                                      vs, pt, lens)
@@ -567,13 +619,14 @@ def test_engine_churn_matches_jax(model):
     je.run()
     te.run()
     _assert_engines_agree(je, te, jr, tr)
-    st = te.stats()
+    st, js = te.stats(), je.stats()
     assert st["slot_occupancy_peak"] == 2
     assert st["quant_matmuls"] == 4 * 2 * (st["decode_steps"]
                                            + st["prefill_calls"])
     assert st["kv_quant_bytes_saved"] > 0
     assert st["dequant_kernel_calls"] == 0          # CPU: plain versions
     assert st["pages_in_use"] == 0
+    assert st["decode_compiles"] == js["decode_compiles"] == 1
 
 
 def test_engine_prefix_hit_and_cow_match_jax(model):
@@ -592,6 +645,7 @@ def test_engine_prefix_hit_and_cow_match_jax(model):
     s2 = te.stats()
     assert s2["prefix_page_hits"] - s1["prefix_page_hits"] >= 3
     assert s2["cow_copies"] >= 1
+    assert s2["decode_compiles"] == 1
     assert tr[0].tokens == first[1].tokens == first[0].tokens
     assert tr[1].tokens == tr[2].tokens
     _assert_engines_agree(je, te, [first[0]] + jr, [first[1]] + tr)
@@ -608,6 +662,7 @@ def test_engine_preemption_retry_matches_jax(model):
     je.run(max_steps=400)
     te.run(max_steps=400)
     assert te.stats()["preemptions"] >= 1
+    assert te.stats()["decode_compiles"] == 1
     _assert_engines_agree(je, te, jr, tr)
 
 
@@ -676,16 +731,23 @@ def test_failed_step_rebuilds_the_int8_pool_and_its_scales(model,
             raise RuntimeError("injected decode failure")
         return real(*a)
     monkeypatch.setattr(eng, "_decode", flaky)
-    old = eng._cache_ks
+    pools = eng._cache_operands()
+    ptrs = [t.data_ptr() for t in pools]
+    assert any(bool(t.any()) for t in pools)
     with pytest.raises(RuntimeError, match="injected"):
         eng.run()
     assert eng.take_aborted() == [req]
-    assert eng._cache_ks is not old and not eng._cache_ks.any()
+    # zeroed in place: the decode step keeps reading and writing the same
+    # storage
+    assert [t.data_ptr() for t in eng._cache_operands()] == ptrs
+    assert all(a is b for a, b in zip(eng._cache_operands(), pools))
+    assert not eng._cache_ks.any() and not eng._cache_k.any()
     assert eng._cache_vs.dtype == torch.float32 and not eng._cache_vs.any()
     assert eng.stats()["kv_quant_bytes_saved"] == saved   # counted once
     eng.submit(req.reset_for_retry())
     eng.run()
     assert req.tokens == clean.tokens
+    assert eng.stats()["decode_compiles"] == 1
 
 
 def test_kv_accounting_counts_codes_and_scales(model):

@@ -67,7 +67,9 @@ def _engine(model, **kw):
 
 def test_churn_token_exact_and_pool_drained(model):
     eng = _engine(model, slots=2, capture_logits=True)
+    assert eng.stats()["decode_compiles"] == 0
     assert eng.warmup() >= 1
+    assert eng.stats()["decode_compiles"] == 1       # built in warmup
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 256, (5 if i % 2 else 11,)).astype(np.int32)
                for i in range(6)]
@@ -81,8 +83,10 @@ def test_churn_token_exact_and_pool_drained(model):
     assert [r.tokens for r in reqs] == _reference(model, prompts, 6)
     assert all(len(r.logits) == 6 for r in reqs)
     assert st["pages_in_use"] == 0 and st["kv_tokens_held"] == 0
-    # CPU tensors: the wrappers took their plain versions
+    assert st["decode_compiles"] == 1               # through churn
+    # CPU tensors: the wrappers took their plain versions, uncaptured
     assert (paged_attn.launches, norms.launches) == before
+    assert eng._step.captures == 0
 
 
 def test_prefix_hit_allocates_no_new_pages(model):
@@ -98,6 +102,7 @@ def test_prefix_hit_allocates_no_new_pages(model):
     assert s2["prefix_page_hits"] - s1["prefix_page_hits"] == 3
     assert s2["prefix_page_misses"] - s1["prefix_page_misses"] == 0
     assert r1.tokens == r2.tokens == _reference(model, [prompt], 4)[0]
+    assert s2["decode_compiles"] == 1
 
 
 def test_concurrent_shared_prefix_copy_on_write(model):
@@ -125,6 +130,7 @@ def test_page_exhaustion_preempts_newest_and_retries_exactly(model):
     assert a.preemptions + b.preemptions >= 1
     assert [a.tokens, b.tokens] == _reference(model, prompts, 16)
     assert st["pages_in_use"] == 0
+    assert st["decode_compiles"] == 1               # through preemption
 
 
 def test_failed_step_aborts_and_rebuilds_pool(model, monkeypatch):
@@ -141,15 +147,63 @@ def test_failed_step_aborts_and_rebuilds_pool(model, monkeypatch):
             raise RuntimeError("injected decode failure")
         return real(*a)
     monkeypatch.setattr(eng, "_decode", flaky)
+    pools = (eng._cache_k, eng._cache_v)
+    ptrs = [t.data_ptr() for t in pools]
     with pytest.raises(RuntimeError, match="injected"):
         eng.run()
     assert eng.take_aborted() == [req] and req.failed
     st = eng.stats()
     assert st["step_aborts"] == 1 and st["slot_occupancy"] == 0
     assert st["pages_in_use"] == 0
+    # the pool is zeroed in place, not reallocated: the decode step (a
+    # CUDA graph on the card) keeps its storage
+    assert eng._cache_k is pools[0] and eng._cache_v is pools[1]
+    assert [t.data_ptr() for t in pools] == ptrs
+    assert not eng._cache_k.any() and not eng._cache_v.any()
     eng.submit(req.reset_for_retry())
     eng.run()
     assert req.tokens == _reference(model, [prompt], 5)[0]
+    assert eng.stats()["decode_compiles"] == 1       # through the abort
+
+
+def test_decode_step_is_built_once_over_static_buffers(model):
+    """The decode step is one object per engine: its device inputs are
+    slices of one buffer that keeps its storage from step to step, fed by
+    one staging array whose views hold this step's page table, write
+    coordinates, lens and tokens; its eager step on the CPU gives the
+    port's ``decode_step_paged`` result on the same inputs."""
+    eng = _engine(model, slots=2)
+    prompts = [np.arange(3, 12, dtype=np.int32),
+               np.arange(40, 45, dtype=np.int32)]
+    for p in prompts:
+        eng.submit(p, 6)
+    eng.step()
+    st = eng._step
+    ptrs = [a.data_ptr() for a in st._args]
+    base = st._in.data_ptr()
+    assert ptrs == [base + 4 * o for o in (0, 2 * 4, 2 * 4 + 2, 2 * 4 + 4,
+                                           2 * 4 + 6)]
+    for _ in range(3):
+        eng.step()
+        assert eng._step is st and [a.data_ptr() for a in st._args] == ptrs
+        host = (st.tables, st.wpages, st.woffs, st.lens, st.toks)
+        for dev, h in zip(st._args, host):
+            np.testing.assert_array_equal(dev.numpy(), h)
+        # the staged lens and tokens were this step's inputs
+        np.testing.assert_array_equal(st.lens, eng._lens - 1)
+    # a call from outside the engine (no inference mode around it) repeats
+    # the staged step
+    again, _ = st()
+    np.testing.assert_array_equal(again, eng._last_tok)
+    cfg, params = eng.cfg, eng.params
+    pool = [t.clone() for t in (eng._cache_k, eng._cache_v)]
+    with torch.inference_mode():
+        want, *_ = T.decode_step_paged(params, st._args[4], cfg, *pool,
+                                       *st._args[:4])
+        got = st._run()[1]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    eng.run()
+    assert eng.stats()["decode_compiles"] == 1
 
 
 def test_eos_and_queue_bounds(model):
