@@ -109,7 +109,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
       dtype as (f) traces decode steps;
   (o) fp32 parity of (n)'s model at its widths with 2 layers, B=2, N=128,
       card (kernels) against CPU (plain versions): the final RMSNorm
-      output within 1e-4 of its max|ref|, the logits within 1e-3.
+      output within 1e-4 of its max|ref|, the logits within 1e-3;
+  (p) ERNIE-3.0-Base pretraining (``paddle_tpu_torch.models.bert``,
+      ``bench.py``'s second line): V=40064, H=768, L=12, nh=12, F=3072,
+      N=512, type vocab 4, B=64, bf16 compute over fp32 params and AdamW
+      moments, remat, ``use_flash`` (the flash forward and split backward
+      non-causal), weights drawn on the card from a seed; tokens, 15%
+      masked-LM labels and NSP labels drawn as ``_time_ernie_batch`` draws
+      them, lr 1e-4; one warm-up step and 10 timed steps of
+      ``bert.make_train_step``, each closed by ``float(loss)``.  Launch
+      counts are zeroed just before the timed steps and must equal 2L
+      flash forwards, L dq, L dk/dv and no fused-backward, no-key or norm
+      kernel a step; no flash operand may be copied (q, k, v are strided
+      views of the fused projection); the loss must be finite and fall.
+      Then 10 steps of the dense route (``use_flash=False``) on the same
+      state, timed and reported, not asserted.  With ``--profile-train``
+      its steps are traced as (i) traces (g)'s and one more step's memory
+      peak is found as (l)'s is;
+  (q) fp32 parity of (p), card (kernels) against CPU (plain versions), at
+      ERNIE widths with 2 layers, B=2, N=256, NSP labels, numpy-drawn
+      weights (no leaf starting at zero): ``pretrain_loss`` and its
+      gradients, 3 steps of ``make_train_step`` (Adam eps 1e-6) and the
+      params after them, at (h)'s tolerances;
+      then one loss with a pad mask, which takes the dense route and
+      launches no flash kernel.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -118,7 +141,8 @@ rounds h and the output once each) at the flagship shape [12288, 2048] x
 (M = 8), a ragged M = 1000, the JAX tests' shapes, H = 4096 (F = 16384),
 H = 768 and H = 6 / F = 10 (zero-padded), timed against cuBLAS ``addmm`` +
 gelu + ``addmm``; the flash forward and both backward strategies also at
-hd 256, hd 32 and 96 (zero-padded to 64 and 128), B * nh = 65,600 and
+hd 256, hd 32 and 96 (zero-padded to 64 and 128), B * nh = 65,600,
+(p)'s [64, 512, 12, 64] non-causal and
 heads wider than 256 (hd 320, 384, 512, 640: the kernels' head-width
 groups);
 LayerNorm also at the 345M training rows [8, 1024, 1024], H = 6, 7, 1001
@@ -212,6 +236,9 @@ ENCODER = dict(V=40064, H=768, L=12, nh=12, F=3072, N=512)
 ENCODER_BATCH = 8             # (n): [8, 512] token ids a batch
 ENCODER_BATCHES = 5           # (n): timed batches per dtype
 RMS_PARITY_TOL = 1e-4         # (o): final norm output, x max|ref|
+ERNIE_BATCH = 64              # (p): bench.py's first ERNIE batch, N = 512
+ERNIE_STEPS = 10              # (p): timed steps (bench.py: steps=10)
+ERNIE_PARITY_N = 256          # (q): B=2, 2 layers
 
 
 def log(*a):
@@ -731,6 +758,7 @@ def check_flash(torch, flash_attn):
               ((2, 256, 256, 4, 128, False), "hd 128 non-causal"),
               ((6, 2048, 2048, 16, 128, True), "flagship"),
               ((8, 512, 512, 12, 64, False), "encoder"),
+              ((64, 512, 512, 12, 64, False), "ERNIE pretraining"),
               ((2, 512, 512, 8, 256, True), "hd 256"),
               ((2, 128, 128, 8, 32, False), "hd 32, padded to 64"),
               ((2, 512, 512, 4, 96, True), "hd 96, padded to 128"),
@@ -1840,30 +1868,29 @@ def train_tokens(torch, V, B, N, seed):
     return toks, toks
 
 
-def timed_training(torch, gpt_hybrid, cfg, params, m, v, shape, steps, seed,
-                   counters, want, label):
-    """One warm-up step, then ``steps`` timed steps of the single-device
-    train step on one numpy-seeded ``shape`` = (B, N) batch.  ``counters``
-    maps a kernel to the (module, attribute) of its launch count; they are
-    zeroed after the warm-up step, so they cover the timed steps only, and
-    must equal ``want`` (launches a step) times ``steps``.  Returns the
-    measurements and the training state with the step function (for
-    ``--profile-train``)."""
-    B, N = shape
-    toks, labels = train_tokens(torch, cfg.vocab_size, B, N, seed)
-    step = gpt_hybrid.make_train_step(cfg)
-    lr = 1e-4
+def timed_training(torch, step, state, batch, cfg, steps, counters, want,
+                   label, lr=1e-4):
+    """One warm-up step, then ``steps`` timed steps of ``step(params, m, v,
+    t, *batch, lr)`` (a single-device train step; ``state`` = (params, m,
+    v)) on one batch whose first tensor is the [B, N] tokens, each step
+    closed by ``float(loss)``.  ``counters`` maps a kernel to the (module,
+    attribute) of its launch count; they are zeroed after the warm-up
+    step, so they cover the timed steps only, and must equal ``want``
+    (launches a step) times ``steps``.  Returns the measurements and
+    (step, params, m, v, batch, lr) (for ``--profile-train``)."""
+    params, m, v = state
+    B, N = batch[0].shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses = [float(step(params, m, v, 1, toks, labels, lr)[3])]
+    losses = [float(step(params, m, v, 1, *batch, lr)[3])]
     warm_s = time.perf_counter() - t0
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     times = []
     for t in range(2, steps + 2):
         t0 = time.perf_counter()
-        losses.append(float(step(params, m, v, t, toks, labels, lr)[3]))
+        losses.append(float(step(params, m, v, t, *batch, lr)[3]))
         times.append(time.perf_counter() - t0)
     launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     step_s = float(np.mean(times))
@@ -1886,7 +1913,7 @@ def timed_training(torch, gpt_hybrid, cfg, params, m, v, shape, steps, seed,
         if launches[k] != per * steps:
             raise SystemExit(f"{label}: {k} launched {launches[k]} times "
                              f"in {steps} steps, expected {per} per step")
-    return res, (step, params, m, v, toks, labels, lr)
+    return res, (step, params, m, v, batch, lr)
 
 
 def train_path(torch, gpt_hybrid, flash_attn, norms, cfg, params, steps):
@@ -1900,8 +1927,9 @@ def train_path(torch, gpt_hybrid, flash_attn, norms, cfg, params, steps):
                 "layer_norm": (norms, "launches")}
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
             "flash_attention_bwd_dkv": L, "layer_norm": 4 * L + 1}
-    return timed_training(torch, gpt_hybrid, cfg, params, m, v,
-                          TRAIN_SHAPE[:2], steps, SEED + 3, counters, want,
+    batch = train_tokens(torch, cfg.vocab_size, *TRAIN_SHAPE[:2], SEED + 3)
+    return timed_training(torch, gpt_hybrid.make_train_step(cfg),
+                          (params, m, v), batch, cfg, steps, counters, want,
                           "training")
 
 
@@ -2163,8 +2191,8 @@ def main():
                     help="where phase (f) writes its Chrome trace")
     ap.add_argument("--profile-train", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS training steps of the training "
-                         "path (phase i) and of the flagship path (l) with "
-                         "torch.profiler")
+                         "path (phase i), the flagship path (l) and ERNIE "
+                         "pretraining (p) with torch.profiler")
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
                     help="where phase (i) writes its Chrome trace")
@@ -2317,6 +2345,9 @@ def main():
     launches["layer_norm_encoder"] = enc["layer_norm"]
     launches["flash_attention_fwd_encoder"] = enc["flash_attention_fwd"]
 
+    # (p), (q): ERNIE-3.0-Base pretraining ------------------------------
+    ernie_phases(torch, flash_attn, norms, card, args, launches)
+
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
     return 0
@@ -2463,10 +2494,10 @@ def train_phases(torch, gpt_hybrid, flash_attn, norms, cfg, params, card,
 
     # (i) ---------------------------------------------------------------
     if args.profile_train:
-        step, tp, tm, tv, toks, labels, lr = state
+        step, tp, tm, tv, batch, lr = state
         counter = iter(range(12, 12 + args.profile_train))
         prof = profile_steps(
-            torch, lambda: step(tp, tm, tv, next(counter), toks, labels, lr),
+            torch, lambda: step(tp, tm, tv, next(counter), *batch, lr),
             args.profile_train, "train_step", args.train_trace)
         log(f"(i) training-step profile on {card}: {json.dumps(prof)}")
     del state
@@ -2514,20 +2545,20 @@ def flagship_path(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_fused": L,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "fused_ffn": L, "layer_norm": 4 * L + 1}
-    res, state = timed_training(torch, gpt_hybrid, cfg, params, m, v,
-                                FLAGSHIP_SHAPE, FLAGSHIP_STEPS, SEED + 12,
-                                counters, want, "(l)")
+    res, state = timed_training(
+        torch, gpt_hybrid.make_train_step(cfg), (params, m, v),
+        train_tokens(torch, cfg.vocab_size, *FLAGSHIP_SHAPE, SEED + 12),
+        cfg, FLAGSHIP_STEPS, counters, want, "(l)")
     res["num_params"] = cfg.num_params()
     if args.profile_train:
-        step, tp, tm, tv, toks, labels, lr = state
+        step, tp, tm, tv, batch, lr = state
         counter = iter(range(100, 100 + args.profile_train))
         res["profile"] = profile_steps(
-            torch, lambda: step(tp, tm, tv, next(counter), toks, labels, lr),
+            torch, lambda: step(tp, tm, tv, next(counter), *batch, lr),
             args.profile_train, "train_step_flagship",
             args.train_trace.replace(".json", "_flagship.json"))
         res["memory_peak"] = memory_peak(
-            torch, lambda: step(tp, tm, tv, next(counter, 200), toks, labels,
-                                lr))
+            torch, lambda: step(tp, tm, tv, next(counter, 200), *batch, lr))
     return res
 
 
@@ -2768,6 +2799,228 @@ def encoder_phases(torch, flash_attn, norms, card, args):
     return runs, launches
 
 
+def ernie_batch(torch, V, B, N, seed=0):
+    """Tokens, 15% masked-LM labels (-100 elsewhere) and NSP labels, int32
+    on the card, drawn as ``bench.py``'s ``_time_ernie_batch`` draws them
+    (``np.random.RandomState``)."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, V, (B, N))
+    mask = rng.rand(B, N) < 0.15
+    mlm = np.where(mask, toks, -100)
+    nsp = rng.randint(0, 2, (B,))
+    return tuple(torch.from_numpy(a.astype(np.int32)).cuda()
+                 for a in (toks, mlm, nsp))
+
+
+@contextlib.contextmanager
+def operand_copies(flash_attn):
+    """Counts the flash operands ``_kernel_operand`` copies (q, k, v or dO
+    that reach a kernel as another tensor) while the block runs."""
+    real, copies = flash_attn._kernel_operand, []
+
+    def counted(t):
+        out = real(t)
+        if out is not t:
+            copies.append(tuple(t.shape))
+        return out
+    flash_attn._kernel_operand = counted
+    try:
+        yield copies
+    finally:
+        flash_attn._kernel_operand = real
+
+
+def ernie_path(torch, bert, flash_attn, norms, args):
+    """Phase (p): ERNIE-3.0-Base pretraining at full width and depth,
+    weights drawn on the card from a seed, :func:`timed_training` on
+    ``bench.py``'s first batch, then the same steps on the dense route
+    (``use_flash=False``), reported, not asserted."""
+    cfg = bert.ernie_3_base()
+    L = cfg.num_layers
+    state = bert.init_pretrain_state(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 19), "cuda")
+    batch = ernie_batch(torch, cfg.vocab_size, ERNIE_BATCH, cfg.max_seq_len)
+    counters = {"flash_attention_fwd": (flash_attn, "fwd_launches"),
+                "flash_attention_bwd_dq": (flash_attn, "dq_launches"),
+                "flash_attention_bwd_dkv": (flash_attn, "dkv_launches"),
+                "flash_attention_bwd_fused": (flash_attn, "fused_launches"),
+                "flash_attention_nokey": (flash_attn, "nokey_launches"),
+                "layer_norm": (norms, "launches"),
+                "rms_norm": (norms, "rms_launches")}
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_fused": 0,
+            "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    with operand_copies(flash_attn) as copies:
+        res, run = timed_training(
+            torch, bert.make_train_step(cfg), state, batch, cfg,
+            ERNIE_STEPS, counters, want, "(p)")
+    if copies:
+        raise SystemExit(f"(p): flash operands copied: {copies}")
+    res.update(num_params=cfg.num_params(), operand_copies=len(copies))
+    step, *state, batch, lr = run
+    if args.profile_train:
+        counter = iter(range(100, 100 + args.profile_train))
+        res["profile"] = profile_steps(
+            torch, lambda: step(*state, next(counter), *batch, lr),
+            args.profile_train, "train_step_ernie",
+            args.train_trace.replace(".json", "_ernie.json"))
+        res["memory_peak"] = memory_peak(
+            torch, lambda: step(*state, next(counter, 200), *batch, lr))
+    # the dense route on the same state (step counts past the profile's):
+    # one warm-up step, then the timed steps
+    dense = bert.make_train_step(dataclasses.replace(cfg, use_flash=False))
+    float(dense(*state, 300, *batch, lr)[3])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = flash_attn.fwd_launches
+    times, losses = [], []
+    for t in range(301, 301 + ERNIE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(dense(*state, t, *batch, lr)[3]))
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.mean(times))
+    res["dense"] = {
+        "step_ms": 1e3 * step_s, "step_ms_each": [1e3 * x for x in times],
+        "tokens_per_s": ERNIE_BATCH * cfg.max_seq_len / step_s,
+        "max_memory_allocated_gib":
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+        "losses": losses,
+        "flash_launches": flash_attn.fwd_launches - before}
+    return res
+
+
+def ernie_parity(torch, bert, common, flash_attn):
+    """Phase (q): the fp32 pretrain loss with its gradients and 3 steps of
+    ``make_train_step``, card (kernels) against CPU (plain versions), at
+    ERNIE widths with 2 layers, B=2, N=256, NSP labels; then one loss
+    with a pad mask (the dense route: no flash launch)."""
+    cfg = dataclasses.replace(bert.ernie_3_base(), num_layers=2,
+                              dtype="float32")
+    # numpy-drawn weights in init_params' layout: gains 1 + N(0, 0.1),
+    # every other leaf N(0, 0.02), biases too, so no leaf starts at zero
+    # (an update's rounding is then measured against a leaf's own scale)
+    rng = np.random.default_rng(SEED + 20)
+    paths, shapes = zip(*((p, x.shape) for p, x in common._leaves(
+        bert.init_params(cfg, torch.Generator(), "cpu"))))
+    tree = common._build(paths, [
+        (1 + 0.1 * rng.standard_normal(sh) if p[-1].endswith("_g")
+         else 0.02 * rng.standard_normal(sh)).astype(np.float32)
+        for p, sh in zip(paths, shapes)])
+    cpu_p = bert.params_from_numpy(copy.deepcopy(tree), "cpu")
+    dev_p = bert.params_from_numpy(tree, "cuda")
+    toks, mlm, nsp = ernie_batch(torch, cfg.vocab_size, 2, ERNIE_PARITY_N,
+                                 SEED + 21)
+    host = tuple(x.cpu() for x in (toks, mlm, nsp))
+
+    def loss_fn(toks, mlm, nsp, pad=None):
+        return lambda p: bert.pretrain_loss(p, toks, mlm, cfg, None, pad,
+                                            nsp)
+    before = flash_attn.fwd_launches, flash_attn.dq_launches
+    lg, gg = common.value_and_grad(loss_fn(toks, mlm, nsp), dev_p)
+    launched = (flash_attn.fwd_launches - before[0],
+                flash_attn.dq_launches - before[1])
+    lc, gc = common.value_and_grad(loss_fn(*host), cpu_p)
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    grad_rel = {}
+    for path, g in common._leaves(gc):
+        err = (common._at(gg, path).cpu() - g).abs().max().item()
+        grad_rel["/".join(path)] = err / max(g.abs().max().item(), 1e-30)
+    # Adam's eps 1e-6: with 1e-8 the update of a weight whose gradient is
+    # near 1e-8 is a ratio of rounding noise, which the card's and the
+    # CPU's fp32 sums do not share (tests/test_torch_bert.py does the same)
+    step = bert.make_train_step(cfg, eps=1e-6)
+    dev_s = (dev_p, *bert.init_train_state(dev_p))
+    cpu_s = (cpu_p, *bert.init_train_state(cpu_p))
+    step_rel = []
+    for t in (1, 2, 3):
+        a = float(step(*dev_s, t, toks, mlm, nsp, 1e-4)[3])
+        b = float(step(*cpu_s, t, *host, 1e-4)[3])
+        step_rel.append(abs(a - b) / abs(b))
+    param_rel = {}
+    for path, p in common._leaves(cpu_p):
+        err = (common._at(dev_p, path).cpu() - p).abs().max().item()
+        param_rel["/".join(path)] = err / max(p.abs().max().item(), 1e-30)
+    pad = torch.ones_like(toks)
+    pad[1, ERNIE_PARITY_N // 2:] = 0
+    before = flash_attn.fwd_launches
+    with torch.no_grad():
+        pg = float(loss_fn(toks, mlm, nsp, pad)(dev_p))
+        pad_launches = flash_attn.fwd_launches - before
+        pc = float(loss_fn(*host, pad.cpu())(cpu_p))
+    res = {"loss_card": float(lg), "loss_cpu": float(lc),
+           "loss_rel_err": loss_rel, "flash_launches_fwd_dq": launched,
+           "grad_rel_err_max": max(grad_rel.values()),
+           "grad_rel_err": grad_rel, "step_loss_rel_err": step_rel,
+           "param_rel_err_max": max(param_rel.values()),
+           "param_rel_err": param_rel,
+           "pad_loss_rel_err": abs(pg - pc) / abs(pc),
+           "pad_flash_launches": pad_launches}
+    if not (loss_rel <= TRAIN_LOSS_RTOL
+            and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
+            and max(step_rel) <= TRAIN_LOSS_RTOL
+            and res["param_rel_err_max"] <= TRAIN_GRAD_TOL
+            and res["pad_loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and launched == (2 * cfg.num_layers, cfg.num_layers)
+            and pad_launches == 0):
+        raise SystemExit(f"(q) the ERNIE step on the card disagrees with "
+                         f"the CPU: {json.dumps(res)}")
+    return res
+
+
+def ernie_phases(torch, flash_attn, norms, card, args, launches):
+    """Phases (p) and (q), logged; (p)'s launches go into ``launches``."""
+    from paddle_tpu_torch.models import bert, common
+    t0 = time.perf_counter()
+    res = ernie_path(torch, bert, flash_attn, norms, args)
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        launches[f"{k}_ernie"] = res["launches"][k]
+    torch.cuda.empty_cache()
+    d = res["dense"]
+    log(f"(p) ERNIE-3.0-Base pretraining ({res['num_params'] / 1e6:.1f}M "
+        f"params, V=40064, H=768, L=12, nh=12, F=3072, N=512, type vocab "
+        f"4, B={ERNIE_BATCH}, bf16 compute over fp32 params and AdamW "
+        f"moments, remat, use_flash: non-causal flash forward and split "
+        f"backward) on {card}: tokens/s {res['tokens_per_s']}; mean step "
+        f"{res['step_ms']} ms over {res['steps']} steps (warm-up step "
+        f"{res['warmup_s']:.2f} s); model-FLOP share "
+        f"{res['model_flop_share']} ({res['flops_per_token']:.4e} "
+        f"flops/token); max_memory_allocated "
+        f"{res['max_memory_allocated_gib']} GiB; loss {res['first_loss']} "
+        f"-> {res['last_loss']}; launches {res['launches']} (per step "
+        f"{res['launches_per_step_expected']}); flash operand copies "
+        f"{res['operand_copies']}  [{card}]")
+    log(f"    losses {res['losses']}; step ms {res['step_ms_each']}")
+    log(f"    dense route (use_flash=False, reported, not asserted): "
+        f"tokens/s {d['tokens_per_s']}; mean step {d['step_ms']} ms over "
+        f"{ERNIE_STEPS} steps (flash route above: {res['step_ms']}); "
+        f"max_memory_allocated {d['max_memory_allocated_gib']} GiB; flash "
+        f"launches {d['flash_launches']}; losses {d['losses']}; step ms "
+        f"{d['step_ms_each']}; phase {time.perf_counter() - t0:.1f} s  "
+        f"[{card}]")
+    if "profile" in res:
+        log(f"    ERNIE training-step profile on {card}: "
+            f"{json.dumps(res['profile'])}")
+        log(f"    ERNIE training-step memory peak on {card}: "
+            f"{json.dumps(res['memory_peak'])}")
+    # (q) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    par = ernie_parity(torch, bert, common, flash_attn)
+    log(f"(q) fp32 ERNIE pretrain step, card against CPU (ERNIE widths, 2 "
+        f"layers, B=2, N={ERNIE_PARITY_N}, NSP labels): loss rel err "
+        f"{par['loss_rel_err']:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); max grad "
+        f"err / max|grad| {par['grad_rel_err_max']:.2e} (tol "
+        f"{TRAIN_GRAD_TOL:.0e}); flash forward / dq launches "
+        f"{par['flash_launches_fwd_dq']}; 3-step loss rel errs "
+        f"{[f'{x:.2e}' for x in par['step_loss_rel_err']]}; max param err "
+        f"/ max|param| after 3 steps {par['param_rel_err_max']:.2e} (tol "
+        f"{TRAIN_GRAD_TOL:.0e}); pad-mask loss rel err "
+        f"{par['pad_loss_rel_err']:.2e} with {par['pad_flash_launches']} "
+        f"flash launches; phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return res
+
+
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
 # the main path in the result line)
 REPORT = {
@@ -2838,6 +3091,9 @@ def report(torch, cases, launches, train, t_start):
     fwd = next(k for k in kernels if k["name"] == "flash_attention_fwd")
     fwd["launches_flagship"] = launches["flash_attention_fwd_flagship"]
     fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
+    for k in kernels:
+        if f"{k['name']}_ernie" in launches:
+            k["launches_ernie"] = launches[f"{k['name']}_ernie"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

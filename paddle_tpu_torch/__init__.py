@@ -42,6 +42,13 @@ under ``no_grad``):
   ``MultiHeadAttention``, ``TransformerEncoderLayer``,
   ``TransformerEncoder``, their functionals and initializers;
 * ``ops.cuda.norms.rms_norm`` -- the RMSNorm kernel.
+
+The twelfth slice ports ERNIE-3.0-Base pretraining: ``models.bert``
+(configs and presets, params, the encoder, MLM and NSP heads,
+``pretrain_loss``, ``make_train_step`` and the eager ``BertModel`` /
+``BertForPretraining`` wrappers) and ``models.common`` (the tree walk and
+AdamW step shared with ``gpt_hybrid``, ``PytreeLayer``), running the flash
+forward and split backward non-causal.
 """
 from . import nn
 from .autograd import no_grad

@@ -27,7 +27,10 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..optimizer.functional import adamw_update
+# the tree walk is shared with models/bert.py; tests and chip_smoke.py
+# reach it through this module too
+from .common import (_at, _build, _leaves, adamw_step,  # noqa: F401
+                     value_and_grad)
 from .gpt import GPTConfig, _check_slice, _norm_fn, embed, run_blocks
 
 # AdamW decay exclusions for the gpt param tree (the reference's one
@@ -49,31 +52,6 @@ def _check_single_device(dp, tp, pp, sp, n_microbatch):
         raise NotImplementedError(
             f"n_microbatch={n_microbatch}: pipeline microbatches need pp > 1,"
             " which is ROADMAP.md Queue 1, multi-GPU training")
-
-
-def _leaves(tree, prefix=()):
-    """(path, tensor) pairs of a nested dict, in insertion order."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
-
-
-def _build(paths, values):
-    tree = {}
-    for path, v in zip(paths, values):
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = v
-    return tree
-
-
-def _at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
 
 
 def init_train_state(params, moment_dtype=torch.float32):
@@ -135,18 +113,13 @@ def loss_and_grads(params, tokens, labels, cfg: GPTConfig, xent_chunks=1):
     """(loss, grads): the 0-d loss tensor of the train step's forward and
     the gradients of every param leaf, in a tree shaped like ``params``.
     ``params`` is left untouched."""
-    paths, vals = zip(*_leaves(params))
-    leaves = [p.detach().requires_grad_() for p in vals]
-    loss = _fwd_loss(cfg, _build(paths, leaves), tokens, labels,
-                     xent_chunks)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), _build(paths, grads)
+    return value_and_grad(
+        lambda p: _fwd_loss(cfg, p, tokens, labels, xent_chunks), params)
 
 
-def _global_norm(grads):
-    """sqrt of the sum of every leaf's fp32 sum of squares (a 0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for _, g in _leaves(grads)))
+def _decays(path):
+    leaf = path[-1]
+    return leaf not in NO_DECAY and leaf not in LN_NAMES
 
 
 def make_train_step(cfg: GPTConfig, *, n_microbatch=1, beta1=0.9,
@@ -168,25 +141,8 @@ def make_train_step(cfg: GPTConfig, *, n_microbatch=1, beta1=0.9,
     def step(params, m, v, t, tokens, labels, lr):
         loss, grads = loss_and_grads(params, tokens, labels, cfg,
                                      xent_chunks)
-        with torch.no_grad():
-            scale = None
-            if clip_norm:
-                gn = _global_norm(grads)
-                scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-12),
-                                    max=1.0)
-            for path, p in _leaves(params):
-                g, mm, vv = (_at(tree, path) for tree in (grads, m, v))
-                if scale is not None:
-                    # in fp32, as the reference's bf16 grad times its fp32
-                    # scale promotes; adamw_update takes g in fp32 anyway
-                    g = g.float() * scale
-                leaf = path[-1]
-                decay = leaf not in NO_DECAY and leaf not in LN_NAMES
-                np_, nm, nv = adamw_update(p, g, mm, vv, lr, t, beta1, beta2,
-                                           eps, weight_decay, decay)
-                p.copy_(np_)
-                mm.copy_(nm)
-                vv.copy_(nv)
+        adamw_step(params, grads, m, v, t, lr, beta1, beta2, eps,
+                   weight_decay, clip_norm, _decays)
         return params, m, v, loss
 
     return step

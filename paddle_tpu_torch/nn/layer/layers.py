@@ -66,6 +66,14 @@ class Layer:
         p.need_clip = attr.need_clip
         return p
 
+    def add_parameter(self, name, parameter):
+        """Register ``parameter`` (a :class:`Parameter`, or data made one)
+        under ``name``; ``None`` registers an empty slot."""
+        if parameter is not None and not isinstance(parameter, Parameter):
+            parameter = Parameter(parameter)
+        self._parameters[name] = parameter
+        return parameter
+
     # ------------------------------------------------------------ lookup
     def __setattr__(self, name, value):
         params = self.__dict__.get("_parameters")

@@ -30,6 +30,8 @@ flash backward at the split backward's tolerances.  RMSNorm: 1e-5 of
 max|ref| in fp32, one bf16 step (2**-7) of |ref| in bf16; the nn-API
 encoder on the card against the CPU within 1e-5 of max|ref|.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -429,7 +431,8 @@ def test_engine_on_card_matches_generate(dev):
                                    (1, 300, 300, 3, 96, False),
                                    (4100, 16, 16, 16, 32, False),
                                    (65537, 16, 16, 1, 64, False),
-                                   (8, 512, 512, 12, 64, False)])
+                                   (8, 512, 512, 12, 64, False),
+                                   (64, 512, 512, 12, 64, False)])
 def test_flash_kernels_match_plain(dev, dtype, shape):
     """Forward (out, lse) and split backward (dq, dk, dv) against
     ``_ref_flash_fwd`` / ``_ref_flash_bwd``, the bf16 gradients per element
@@ -439,8 +442,9 @@ def test_flash_kernels_match_plain(dev, dtype, shape):
     its own forward and the backward's head-width groups; hd 32 and 96 are
     zero-padded to 64 and 128 at the true width's scale; B * nh = 65,600
     passes the old gridDim.y limit, B = 65,537 takes two launches of the
-    (row tiles, nh, B) grid, and [8, 512, 12, 64] with no mask is the
-    ERNIE-3.0-Base encoder's attention."""
+    (row tiles, nh, B) grid, and [8, 512, 12, 64] and [64, 512, 12, 64]
+    with no mask are the ERNIE-3.0-Base encoder's attention (the second
+    at ``bench.py``'s pretraining batch)."""
     B, N, Nk, nh, hd, causal = shape
     g = torch.Generator(device=dev).manual_seed(N)
     qkv = torch.randn(B, N, 3, nh * hd, device=dev, generator=g).to(dtype)
@@ -1109,6 +1113,88 @@ def test_train_step_fused_routes_on_card_match_cpu(dev):
         flash_attn.set_default_blocks(bwd_fused=False)
     assert tuple(a - b for a, b in zip(after, before)) == (L, L, 0, 0)
     assert abs(float(lg) - float(lc)) <= FP32_TOL
+
+
+def _flash_counts():
+    return (flash_attn.fwd_launches, flash_attn.dq_launches,
+            flash_attn.dkv_launches, flash_attn.fused_launches,
+            flash_attn.nokey_launches, norms.launches, norms.rms_launches)
+
+
+def test_ernie_train_step_on_card(dev):
+    """A short step of ERNIE-3.0-Base pretraining (full width, 2 layers,
+    [4, 512], bf16 compute, remat, ``use_flash``): per step 2L flash
+    forwards (the remat recompute), L split dq and L dk/dv launches, no
+    fused backward, no norm kernel, and no flash operand copied (q, k, v
+    are strided views of the fused projection); a finite loss that a
+    second step lowers."""
+    from paddle_tpu_torch.models import bert
+    cfg = dataclasses.replace(bert.ernie_3_base(), num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, m, v = bert.init_pretrain_state(cfg, gen, dev)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (4, 512))
+    mlm = np.where(rng.rand(4, 512) < 0.15, toks, -100)
+    nsp = rng.randint(0, 2, (4,))
+    batch = [torch.from_numpy(a.astype(np.int32)).to(dev)
+             for a in (toks, mlm, nsp)]
+    step = bert.make_train_step(cfg)
+    copies, real = [], flash_attn._kernel_operand
+
+    def counted(t):
+        out = real(t)
+        if out is not t:
+            copies.append(tuple(t.shape))
+        return out
+    before = _flash_counts()
+    try:
+        flash_attn._kernel_operand = counted
+        losses = [float(step(params, m, v, t, *batch, 1e-4)[3])
+                  for t in (1, 2)]
+    finally:
+        flash_attn._kernel_operand = real
+    L = cfg.num_layers
+    got = tuple(a - b for a, b in zip(_flash_counts(), before))
+    assert got == (4 * L, 2 * L, 2 * L, 0, 0, 0, 0)
+    assert not copies
+    assert all(np.isfinite(losses)) and losses[1] < losses[0]
+
+
+@pytest.mark.parametrize("pad", [False, True], ids=["flash", "pad_mask"])
+def test_ernie_loss_and_grads_on_card_match_cpu(dev, pad):
+    """The fp32 pretrain loss and every leaf's gradient on the card
+    (flash kernels, or the dense route with a pad mask) against the CPU
+    (plain versions): loss within 1e-5, gradients within 1e-4 of
+    max|grad| (H = 128, two heads of 64, 2 layers, [2, 256])."""
+    from paddle_tpu_torch.models import bert, common
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                          num_heads=2, max_seq_len=256, type_vocab_size=4,
+                          dtype="float32")
+    cpu_p = bert.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    paths, vals = zip(*common._leaves(cpu_p))
+    dev_p = common._build(paths, [x.to(dev) for x in vals])
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, 512, (2, 256)))
+    mlm = torch.where(torch.from_numpy(rng.rand(2, 256) < 0.15), toks, -100)
+    nsp = torch.tensor([0, 1])
+    mask = torch.ones_like(toks)
+    mask[1, 100:] = 0
+
+    def loss_of(*args):
+        t, ml, nl, pm = args
+        return lambda p: bert.pretrain_loss(p, t, ml, cfg, None,
+                                            pm if pad else None, nl)
+    before = _flash_counts()
+    lg, gg = common.value_and_grad(
+        loss_of(*(x.to(dev) for x in (toks, mlm, nsp, mask))), dev_p)
+    launched = tuple(a - b for a, b in zip(_flash_counts(), before))
+    lc, gc = common.value_and_grad(loss_of(toks, mlm, nsp, mask), cpu_p)
+    L = cfg.num_layers
+    assert launched == ((0,) * 7 if pad else (2 * L, L, L, 0, 0, 0, 0))
+    assert abs(float(lg) - float(lc)) <= FP32_TOL * abs(float(lc))
+    for path, g in common._leaves(gc):
+        err = float((common._at(gg, path).cpu() - g).abs().max())
+        assert err <= 1e-4 * float(g.abs().max()), path
 
 
 def _rms_close(out, ref, dtype):

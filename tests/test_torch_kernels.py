@@ -429,9 +429,10 @@ def test_resolve_device_without_gpu(monkeypatch):
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
     """Every module of the port, imported in a fresh interpreter (the
-    quantized path's ``quantization`` and ``ops.cuda.dequant_matmul``
-    and the nn API's ``nn``, ``framework``, ``tensor`` and ``autograd``
-    among them), leaves ``jax`` and ``paddle_tpu`` out of ``sys.modules``
+    quantized path's ``quantization`` and ``ops.cuda.dequant_matmul``,
+    the nn API's ``nn``, ``framework``, ``tensor`` and ``autograd``, and
+    the pretraining path's ``models.bert`` and ``models.common`` among
+    them), leaves ``jax`` and ``paddle_tpu`` out of ``sys.modules``
     (exact keys: the port's own name starts with ``paddle_tpu``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
@@ -448,7 +449,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "        'paddle_tpu_torch.nn', 'paddle_tpu_torch.nn.functional',\n"
         "        'paddle_tpu_torch.nn.layer.transformer',\n"
         "        'paddle_tpu_torch.framework', 'paddle_tpu_torch.tensor',\n"
-        "        'paddle_tpu_torch.autograd', 'paddle_tpu_torch.ops.dispatch')\n"
+        "        'paddle_tpu_torch.autograd', 'paddle_tpu_torch.ops.dispatch',\n"
+        "        'paddle_tpu_torch.models.bert',\n"
+        "        'paddle_tpu_torch.models.common')\n"
         "bad += [k for k in need if k not in sys.modules]\n"
         "print(len([k for k in sys.modules if k.startswith('paddle_tpu_torch')]))\n"
         "sys.exit(1 if bad else 0)\n")
