@@ -132,7 +132,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
       gradients, 3 steps of ``make_train_step`` (Adam eps 1e-6) and the
       params after them, at (h)'s tolerances;
       then one loss with a pad mask, which takes the dense route and
-      launches no flash kernel.
+      launches no flash kernel;
+  (r) eager dygraph pretraining of ERNIE-3.0-Base through the user API,
+      nothing cut (``models.bert.ErnieForPretraining(ernie_3_base())``,
+      weights from seed 1256, (p)'s batch of [64, 512]): ``AdamW(weight
+      decay 0.01, grad_clip=ClipGradByGlobalNorm(1.0))`` on
+      ``lr.LinearWarmup(1e-4, 10, 0.0, 1e-4)``, one warm-up step and 10
+      timed steps of ``loss = model(t, ml, nl); loss.backward();
+      opt.step(); opt.clear_grad(); sched.step()``, each closed by
+      ``float(loss)``.  Launch counts are zeroed just before the timed
+      steps and must equal (p)'s (2L flash forwards, L dq, L dk/dv, no
+      fused, no-key or norm kernel a step); no flash operand may be
+      copied; the optimizer must take one multi-tensor step a step on one
+      plan; the loss must be finite and fall.  Prints (r)'s step time over
+      (p)'s in the same run, and where one more step's memory peaks; with
+      ``--profile-train`` its steps are traced (idle share, launches and
+      host-to-device copies a step);
+  (s) (r)'s loop in fp32 at ERNIE widths with 2 layers, B=2, N=256, every
+      leaf drawn from numpy as (q) draws them, 3 steps on the card and on
+      the CPU: the losses within 1e-5 relative, every first-step ``.grad``
+      within 1e-4 of its max|grad| and the params after 3 steps within
+      1e-4 of their max;
+  (t) eager nn-API training of (n)'s encoder under AMP: dropout 0.1 and
+      attention dropout 0 in every layer (flash, with the residual and FFN
+      dropout masks drawn on the card), ``train()``, one warm-up step and
+      10 timed steps of ``with amp.auto_cast(dtype="bfloat16"):`` forward
+      and ``nn.CrossEntropyLoss()`` on shifted ids [8, 512], then
+      ``GradScaler`` ``scale(loss).backward()``, ``step(opt)``,
+      ``update()``, ``opt.clear_grad()`` (AdamW with
+      ``ClipGradByGlobalNorm(1.0)``).  Launch counts zeroed just before the
+      timed steps must equal L flash forwards, L dq and L dk/dv and no
+      LayerNorm or RMSNorm kernel a step (both norms record, so they take
+      the plain formula, as in the reference); the loss must fall; with
+      ``--profile-train`` its steps are traced as (r)'s.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -187,8 +219,10 @@ length 0, hd 24 and 80, 16 ragged slots over 64 pages and one slot of
 paged attention cases are also timed on the int8 kernel's grid-sized
 split plan (``grid_plan_ms``) beside their own.
 
-Before its last line it prints one JSON object ``{"kernels": [...]}`` and
-the ``nvidia-smi`` name/power-limit line; the last line is
+Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
+three flash rows with their launches on each training path, among them
+``launches_eager_ernie`` and ``launches_eager_encoder``) and the
+``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every float32 matmul
 and convolution here, so fp32 comparisons are fp32.
 """
@@ -1729,8 +1763,8 @@ def merged_busy(intervals):
 def trace_summary(prof, trace_path, span, steps):
     """Device time inside the ``span`` annotations of a profiler run:
     window and device-busy ms per step (union of kernels and copies), the
-    device's idle share, kernel launches per step and device ms per step
-    by kernel name (top 12)."""
+    device's idle share, kernel launches and host-to-device copies (count
+    and bytes) per step and device ms per step by kernel name (top 12)."""
     os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
@@ -1747,6 +1781,8 @@ def trace_summary(prof, trace_path, span, steps):
     if not kernels:
         raise SystemExit("profile: the trace holds no device kernel")
     busy_us = merged_busy([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    h2d = [e for e in dev if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e["name"]][0] += 1
@@ -1758,6 +1794,9 @@ def trace_summary(prof, trace_path, span, steps):
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / (w1 - w0),
         "kernel_launches_per_step": len(kernels) / steps,
+        "h2d_copies_per_step": len(h2d) / steps,
+        "h2d_bytes_per_step": sum(e.get("args", {}).get("bytes", 0)
+                                  for e in h2d) / steps,
         "device_ms_per_step_by_kernel": [
             {"name": k[:90], "launches_per_step": c / steps,
              "ms_per_step": t / 1e3 / steps} for k, (c, t) in top],
@@ -1868,38 +1907,31 @@ def train_tokens(torch, V, B, N, seed):
     return toks, toks
 
 
-def timed_training(torch, step, state, batch, cfg, steps, counters, want,
-                   label, lr=1e-4):
-    """One warm-up step, then ``steps`` timed steps of ``step(params, m, v,
-    t, *batch, lr)`` (a single-device train step; ``state`` = (params, m,
-    v)) on one batch whose first tensor is the [B, N] tokens, each step
-    closed by ``float(loss)``.  ``counters`` maps a kernel to the (module,
-    attribute) of its launch count; they are zeroed after the warm-up
-    step, so they cover the timed steps only, and must equal ``want``
-    (launches a step) times ``steps``.  Returns the measurements and
-    (step, params, m, v, batch, lr) (for ``--profile-train``)."""
-    params, m, v = state
-    B, N = batch[0].shape
+def timed_loop(torch, run, steps, counters, want, label, B, N):
+    """One warm-up call ``run(1)``, then ``steps`` timed calls ``run(t)``,
+    t = 2, 3, ... (each a full training step on one [B, N] batch that
+    returns the loss as a float, which closes the step).  ``counters``
+    maps a kernel to the (module, attribute) of its launch count; they
+    are zeroed after the warm-up step, so they cover the timed steps
+    only, and must equal ``want`` (launches a step) times ``steps``; the
+    loss must be finite and fall.  Returns the measurements."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses = [float(step(params, m, v, 1, *batch, lr)[3])]
+    losses = [run(1)]
     warm_s = time.perf_counter() - t0
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     times = []
     for t in range(2, steps + 2):
         t0 = time.perf_counter()
-        losses.append(float(step(params, m, v, t, *batch, lr)[3]))
+        losses.append(run(t))
         times.append(time.perf_counter() - t0)
     launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     step_s = float(np.mean(times))
-    tok_s = B * N / step_s
     res = {"steps": steps, "warmup_s": warm_s, "step_ms": 1e3 * step_s,
-           "step_ms_each": [1e3 * x for x in times], "tokens_per_s": tok_s,
-           "flops_per_token": cfg.flops_per_token(),
-           "model_flop_share": tok_s * cfg.flops_per_token()
-           / BF16_FLOPS_PER_S,
+           "step_ms_each": [1e3 * x for x in times],
+           "tokens_per_s": B * N / step_s,
            "max_memory_allocated_gib":
                torch.cuda.max_memory_allocated() / 2 ** 30,
            "first_loss": losses[0], "last_loss": losses[-1],
@@ -1913,7 +1945,29 @@ def timed_training(torch, step, state, batch, cfg, steps, counters, want,
         if launches[k] != per * steps:
             raise SystemExit(f"{label}: {k} launched {launches[k]} times "
                              f"in {steps} steps, expected {per} per step")
-    return res, (step, params, m, v, batch, lr)
+    return res
+
+
+def flop_share(res, cfg):
+    """``res`` with the model-FLOP share of its tokens/s."""
+    res.update(flops_per_token=cfg.flops_per_token(),
+               model_flop_share=res["tokens_per_s"] * cfg.flops_per_token()
+               / BF16_FLOPS_PER_S)
+    return res
+
+
+def timed_training(torch, step, state, batch, cfg, steps, counters, want,
+                   label, lr=1e-4):
+    """:func:`timed_loop` over ``step(params, m, v, t, *batch, lr)`` (a
+    single-device train step; ``state`` = (params, m, v)) on one batch
+    whose first tensor is the [B, N] tokens.  Returns the measurements
+    and (step, params, m, v, batch, lr) (for ``--profile-train``)."""
+    params, m, v = state
+    B, N = batch[0].shape
+    res = timed_loop(
+        torch, lambda t: float(step(params, m, v, t, *batch, lr)[3]), steps,
+        counters, want, label, B, N)
+    return flop_share(res, cfg), (step, params, m, v, batch, lr)
 
 
 def train_path(torch, gpt_hybrid, flash_attn, norms, cfg, params, steps):
@@ -2191,8 +2245,9 @@ def main():
                     help="where phase (f) writes its Chrome trace")
     ap.add_argument("--profile-train", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS training steps of the training "
-                         "path (phase i), the flagship path (l) and ERNIE "
-                         "pretraining (p) with torch.profiler")
+                         "path (phase i), the flagship path (l), ERNIE "
+                         "pretraining (p) and eager training (r), (t) with "
+                         "torch.profiler")
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
                     help="where phase (i) writes its Chrome trace")
@@ -2346,7 +2401,10 @@ def main():
     launches["flash_attention_fwd_encoder"] = enc["flash_attention_fwd"]
 
     # (p), (q): ERNIE-3.0-Base pretraining ------------------------------
-    ernie_phases(torch, flash_attn, norms, card, args, launches)
+    p_res = ernie_phases(torch, flash_attn, norms, card, args, launches)
+
+    # (r), (s), (t): eager dygraph training -------------------------------
+    eager_phases(torch, flash_attn, norms, card, args, launches, p_res)
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -2617,11 +2675,12 @@ def flagship_phases(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
     return res
 
 
-def make_encoder(pt, V, H, L, nh, F, N):
+def make_encoder(pt, V, H, L, nh, F, N, dropout=0.0, attn_dropout=None):
     """A user's script on the port's nn API: token and learned position
-    embeddings, a pre-LN ``TransformerEncoder`` (gelu, dropout 0) with an
-    ``RMSNorm`` final norm, and a ``Linear`` head.  Returns the model in
-    ``eval()``; its forward gives (final norm output, logits)."""
+    embeddings, a pre-LN ``TransformerEncoder`` (gelu, ``dropout``, 0 by
+    default; every layer's attention dropout ``attn_dropout`` when given)
+    with an ``RMSNorm`` final norm, and a ``Linear`` head.  Returns the
+    model in ``eval()``; its forward gives (final norm output, logits)."""
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.tensor import arange
 
@@ -2631,10 +2690,17 @@ def make_encoder(pt, V, H, L, nh, F, N):
             self.word = nn.Embedding(V, H)
             self.pos = nn.Embedding(N, H)
             self.encoder = nn.TransformerEncoder(
-                nn.TransformerEncoderLayer(H, nh, F, dropout=0.0,
+                nn.TransformerEncoderLayer(H, nh, F, dropout=dropout,
                                            activation="gelu",
+                                           attn_dropout=attn_dropout,
                                            normalize_before=True),
                 L, norm=nn.RMSNorm(H))
+            if attn_dropout is not None:
+                # the encoder's clones of the first layer take
+                # ``dropout`` for attention too, as the reference's
+                # ``_clone_layer`` builds them
+                for layer in self.encoder.layers:
+                    layer.self_attn.dropout = attn_dropout
             self.head = nn.Linear(H, V)
 
         def forward(self, ids):
@@ -2860,8 +2926,10 @@ def ernie_path(torch, bert, flash_attn, norms, args):
     step, *state, batch, lr = run
     if args.profile_train:
         counter = iter(range(100, 100 + args.profile_train))
+        # each traced step ends in float(loss), as the timed steps do, so
+        # the span holds its device work
         res["profile"] = profile_steps(
-            torch, lambda: step(*state, next(counter), *batch, lr),
+            torch, lambda: float(step(*state, next(counter), *batch, lr)[3]),
             args.profile_train, "train_step_ernie",
             args.train_trace.replace(".json", "_ernie.json"))
         res["memory_peak"] = memory_peak(
@@ -2968,7 +3036,8 @@ def ernie_parity(torch, bert, common, flash_attn):
 
 
 def ernie_phases(torch, flash_attn, norms, card, args, launches):
-    """Phases (p) and (q), logged; (p)'s launches go into ``launches``."""
+    """Phases (p) and (q), logged; (p)'s launches go into ``launches``.
+    Returns (p)'s measurements."""
     from paddle_tpu_torch.models import bert, common
     t0 = time.perf_counter()
     res = ernie_path(torch, bert, flash_attn, norms, args)
@@ -3019,6 +3088,268 @@ def ernie_phases(torch, flash_attn, norms, card, args, launches):
         f"flash launches; phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return res
+
+
+FLASH_COUNTERS = {"flash_attention_fwd": "fwd_launches",
+                  "flash_attention_bwd_dq": "dq_launches",
+                  "flash_attention_bwd_dkv": "dkv_launches",
+                  "flash_attention_bwd_fused": "fused_launches",
+                  "flash_attention_nokey": "nokey_launches"}
+
+
+def eager_counters(flash_attn, norms):
+    """(module, attribute) of every launch count an eager path reads."""
+    out = {k: (flash_attn, a) for k, a in FLASH_COUNTERS.items()}
+    out.update(layer_norm=(norms, "launches"), rms_norm=(norms, "rms_launches"))
+    return out
+
+
+def eager_ernie(pt, bert, cfg, batch, lr_warmup=10, epsilon=1e-8):
+    """A user's eager pretraining loop on ``ErnieForPretraining(cfg)``:
+    AdamW (weight decay 0.01, ``ClipGradByGlobalNorm(1.0)``) on a
+    ``LinearWarmup`` schedule to 1e-4.  Returns (model, optimizer, step):
+    ``step()`` runs ``loss = model(t, ml, nl); loss.backward();
+    opt.step(); opt.clear_grad(); sched.step()`` and returns ``float(loss)``
+    (``grads``, when given, gets every parameter's grad before the
+    update)."""
+    model = bert.ErnieForPretraining(cfg)
+    sched = pt.optimizer.lr.LinearWarmup(1e-4, lr_warmup, 0.0, 1e-4)
+    opt = pt.optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
+                             epsilon=epsilon,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+                             parameters=model.parameters())
+    t, ml, nl = (pt.to_tensor(x) for x in batch)
+
+    def step(grads=None):
+        loss = model(t, ml, nl)
+        loss.backward()
+        if grads is not None:
+            grads.update({k: p.grad.value.clone()
+                          for k, p in model.state_dict().items()})
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return float(loss)
+    return model, opt, step
+
+
+def eager_ernie_path(torch, pt, bert, flash_attn, norms, args):
+    """Phase (r): ERNIE-3.0-Base pretraining through the eager API at full
+    width and depth, on (p)'s batch."""
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
+    cfg = bert.ernie_3_base()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    pt.seed(SEED + 22)
+    batch = ernie_batch(torch, cfg.vocab_size, ERNIE_BATCH, cfg.max_seq_len)
+    model, opt, step = eager_ernie(pt, bert, cfg, batch)
+    setup_s = time.perf_counter() - t0
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_fused": 0,
+            "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    opt_mod.reset_fused_stats()
+    with operand_copies(flash_attn) as copies:
+        res = timed_loop(torch, lambda t: step(), ERNIE_STEPS,
+                         eager_counters(flash_attn, norms), want, "(r)",
+                         ERNIE_BATCH, cfg.max_seq_len)
+    if copies:
+        raise SystemExit(f"(r): flash operands copied: {copies}")
+    fused = dict(opt_mod._fused_stats)
+    if fused != {"calls": ERNIE_STEPS + 1, "compiles": 1, "eager_steps": 0}:
+        raise SystemExit(f"(r): the optimizer did not take one fused step "
+                         f"a step on one plan: {fused}")
+    res.update(setup_s=setup_s, operand_copies=len(copies),
+               optimizer_stats=fused, num_params=cfg.num_params())
+    flop_share(res, cfg)
+    res["memory_peak"] = memory_peak(torch, step)
+    if args.profile_train:
+        res["profile"] = profile_steps(
+            torch, step, args.profile_train, "train_step_eager_ernie",
+            args.train_trace.replace(".json", "_eager_ernie.json"))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def eager_ernie_parity(torch, pt, bert, flash_attn):
+    """Phase (s): (r)'s eager loop in fp32 at ERNIE widths with 2 layers,
+    B=2, N=256, every leaf drawn from numpy as (q) draws them, 3 steps on
+    the card (kernels) and on the CPU (plain versions): the losses, every
+    ``.grad`` of the first step and the params after the third."""
+    from paddle_tpu_torch.framework import core
+    cfg = dataclasses.replace(bert.ernie_3_base(), num_layers=2,
+                              dtype="float32")
+    batch = ernie_batch(torch, cfg.vocab_size, 2, ERNIE_PARITY_N, SEED + 23)
+    rng = np.random.default_rng(SEED + 24)
+    weights, out = None, {}
+    prev = core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            # Adam's eps 1e-6, as (q): see ernie_parity
+            model, _, step = eager_ernie(
+                pt, bert, cfg, batch if place == "gpu"
+                else tuple(x.cpu() for x in batch), lr_warmup=1,
+                epsilon=1e-6)
+            if weights is None:
+                weights = {k: (1 + 0.1 * rng.standard_normal(p.shape)
+                               if k.endswith("_g") else
+                               0.02 * rng.standard_normal(p.shape)
+                               ).astype(np.float32)
+                           for k, p in model.state_dict().items()}
+            model.set_state_dict(weights)
+            before = flash_attn.fwd_launches, flash_attn.dq_launches
+            grads = {}
+            losses = [step(grads), step(), step()]
+            launched = (flash_attn.fwd_launches - before[0],
+                        flash_attn.dq_launches - before[1])
+            out[place] = (losses, {k: g.cpu() for k, g in grads.items()},
+                          {k: p.value.detach().cpu()
+                           for k, p in model.state_dict().items()}, launched)
+            del model, step
+    finally:
+        core._state.expected_place = prev
+    (lg, gg, pg, launched), (lc, gc, pc, _) = out["gpu"], out["cpu"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(lg, lc)]
+    grad_rel = {k: float((gg[k] - g).abs().max()
+                         / max(float(g.abs().max()), 1e-30))
+                for k, g in gc.items()}
+    param_rel = {k: float((pg[k] - p).abs().max()
+                          / max(float(p.abs().max()), 1e-30))
+                 for k, p in pc.items()}
+    res = {"loss_rel_err": loss_rel, "grad_rel_err_max":
+           max(grad_rel.values()), "param_rel_err_max":
+           max(param_rel.values()), "grad_rel_err": grad_rel,
+           "param_rel_err": param_rel, "flash_launches_fwd_dq": launched}
+    if not (max(loss_rel) <= TRAIN_LOSS_RTOL
+            and res["grad_rel_err_max"] <= TRAIN_GRAD_TOL
+            and res["param_rel_err_max"] <= TRAIN_GRAD_TOL
+            and launched == (3 * 2 * cfg.num_layers, 3 * cfg.num_layers)):
+        raise SystemExit(f"(s) the eager ERNIE loop on the card disagrees "
+                         f"with the CPU: {json.dumps(res)}")
+    return res
+
+
+def eager_encoder_path(torch, pt, flash_attn, norms, args):
+    """Phase (t): (n)'s encoder trained through the nn API under AMP."""
+    e = ENCODER
+    t0 = time.perf_counter()
+    pt.seed(SEED + 25)
+    model = make_encoder(pt, **e, dropout=0.1, attn_dropout=0.0).train()
+    model.set_state_dict(numpy_state(model, SEED + 26))
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+                             parameters=model.parameters())
+    scaler = pt.amp.GradScaler()
+    ce = pt.nn.CrossEntropyLoss()
+    ids = pt.to_tensor(np.random.default_rng(SEED + 27).integers(
+        0, e["V"], (ENCODER_BATCH, e["N"])))
+    skipped = []
+
+    def step():
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            _, logits = model(ids)
+            loss = ce(logits[:, :-1], ids[:, 1:])
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        skipped.append(scaler._found())
+        scaler.update()
+        opt.clear_grad()
+        return float(loss)
+    setup_s = time.perf_counter() - t0
+    L = e["L"]
+    want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_fused": 0,
+            "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    res = timed_loop(torch, lambda t: step(), ERNIE_STEPS,
+                     eager_counters(flash_attn, norms), want, "(t)",
+                     ENCODER_BATCH, e["N"])
+    res.update(setup_s=setup_s, skipped_steps=sum(skipped),
+               loss_scale=scaler.get_init_loss_scaling())
+    if args.profile_train:
+        res["profile"] = profile_steps(
+            torch, step, args.profile_train, "train_step_eager_encoder",
+            args.train_trace.replace(".json", "_eager_encoder.json"))
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def eager_phases(torch, flash_attn, norms, card, args, launches, p_res):
+    """Phases (r), (s) and (t), logged; (r)'s and (t)'s flash launches go
+    into ``launches``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.models import bert
+    prev = core._state.expected_place
+    pt.set_device("gpu")
+    try:
+        t0 = time.perf_counter()
+        r = eager_ernie_path(torch, pt, bert, flash_attn, norms, args)
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            launches[f"{k}_eager_ernie"] = r["launches"][k]
+        log(f"(r) eager ERNIE-3.0-Base pretraining (ErnieForPretraining, "
+            f"{r['num_params'] / 1e6:.1f}M params, B={ERNIE_BATCH}, N=512, "
+            f"bf16 compute over fp32 params, remat, use_flash; AdamW wd "
+            f"0.01 + ClipGradByGlobalNorm(1.0) on LinearWarmup to 1e-4; "
+            f"loss.backward(), opt.step(), opt.clear_grad(), sched.step()) "
+            f"on {card}: tokens/s {r['tokens_per_s']}; mean step "
+            f"{r['step_ms']} ms over {r['steps']} steps (warm-up step "
+            f"{r['warmup_s']:.2f} s); (r) / (p) step time "
+            f"{r['step_ms'] / p_res['step_ms']} ((p): {p_res['step_ms']} ms,"
+            f" same run); model-FLOP share {r['model_flop_share']}; "
+            f"max_memory_allocated {r['max_memory_allocated_gib']} GiB; "
+            f"loss {r['first_loss']} -> {r['last_loss']}; launches "
+            f"{r['launches']} (per step {r['launches_per_step_expected']}); "
+            f"flash operand copies {r['operand_copies']}; optimizer "
+            f"{r['optimizer_stats']}  [{card}]")
+        log(f"    losses {r['losses']}; step ms {r['step_ms_each']}; set-up "
+            f"{r['setup_s']:.1f} s")
+        log(f"    memory peak of one more step on {card}: "
+            f"{json.dumps(r['memory_peak'])}")
+        if "profile" in r:
+            log(f"    eager ERNIE step profile on {card}: "
+                f"{json.dumps(r['profile'])}")
+        log(f"    phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        s = eager_ernie_parity(torch, pt, bert, flash_attn)
+        log(f"(s) fp32 eager ERNIE loop, card against CPU (ERNIE widths, 2 "
+            f"layers, B=2, N={ERNIE_PARITY_N}, 3 steps): loss rel errs "
+            f"{[f'{x:.2e}' for x in s['loss_rel_err']]} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e}); max .grad err / max|grad| "
+            f"{s['grad_rel_err_max']:.2e} (tol {TRAIN_GRAD_TOL:.0e}); max "
+            f"param err / max|param| after 3 steps "
+            f"{s['param_rel_err_max']:.2e} (tol {TRAIN_GRAD_TOL:.0e}); "
+            f"flash forward / dq launches {s['flash_launches_fwd_dq']}; "
+            f"phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        t = eager_encoder_path(torch, pt, flash_attn, norms, args)
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            launches[f"{k}_eager_encoder"] = t["launches"][k]
+        e = ENCODER
+        log(f"(t) eager nn-API encoder training under AMP ((n)'s model, "
+            f"V={e['V']}, H={e['H']}, L={e['L']}, pre-LN, dropout 0.1, "
+            f"attn_dropout 0, RMSNorm final norm; auto_cast bf16, "
+            f"CrossEntropyLoss on shifted ids, GradScaler, AdamW + "
+            f"ClipGradByGlobalNorm(1.0), [{ENCODER_BATCH}, {e['N']}]) on "
+            f"{card}: tokens/s {t['tokens_per_s']}; mean step {t['step_ms']} "
+            f"ms over {t['steps']} steps (warm-up step {t['warmup_s']:.2f} "
+            f"s); max_memory_allocated {t['max_memory_allocated_gib']} GiB; "
+            f"loss {t['first_loss']} -> {t['last_loss']}; launches "
+            f"{t['launches']} (per step {t['launches_per_step_expected']}); "
+            f"skipped steps {t['skipped_steps']}, loss scale "
+            f"{t['loss_scale']}  [{card}]")
+        log(f"    losses {t['losses']}; step ms {t['step_ms_each']}")
+        if "profile" in t:
+            log(f"    eager encoder step profile on {card}: "
+                f"{json.dumps(t['profile'])}")
+        log(f"    phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        core._state.expected_place = prev
 
 
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
@@ -3092,8 +3423,9 @@ def report(torch, cases, launches, train, t_start):
     fwd["launches_flagship"] = launches["flash_attention_fwd_flagship"]
     fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
     for k in kernels:
-        if f"{k['name']}_ernie" in launches:
-            k["launches_ernie"] = launches[f"{k['name']}_ernie"]
+        for path in ("ernie", "eager_ernie", "eager_encoder"):
+            if f"{k['name']}_{path}" in launches:
+                k[f"launches_{path}"] = launches[f"{k['name']}_{path}"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -49,12 +49,25 @@ The twelfth slice ports ERNIE-3.0-Base pretraining: ``models.bert``
 ``BertForPretraining`` wrappers) and ``models.common`` (the tree walk and
 AdamW step shared with ``gpt_hybrid``, ``PytreeLayer``), running the flash
 forward and split backward non-causal.
+
+The thirteenth slice ports eager dygraph training: ``loss.backward()`` on
+torch autograd (``Tensor.grad`` / ``backward`` / ``register_hook``,
+``autograd.grad`` and ``PyLayer``), the ``Optimizer`` classes
+(``optimizer``, one multi-tensor update a step for SGD, Momentum, Adam
+and AdamW) and their LR schedulers (``optimizer.lr``), ``regularizer``,
+gradient clipping (``nn.ClipGrad*``), the losses (``nn.functional.loss``,
+``nn.CrossEntropyLoss`` ...), ``amp`` (``auto_cast`` with the
+reference's op lists, ``GradScaler``) and dropout masks drawn on the
+tensor's device.
 """
-from . import nn
-from .autograd import no_grad
+from . import amp, autograd, nn, optimizer, regularizer
+from .autograd import grad, no_grad
 from .device import DEFAULT_DEVICE, card_info, resolve_device
 from .framework import get_device, seed, set_device
-from .tensor import to_tensor
+from .tensor import (Tensor, concat, matmul, mean, reshape, split, sum,
+                     to_tensor, transpose)
 
-__all__ = ["DEFAULT_DEVICE", "card_info", "get_device", "nn", "no_grad",
-           "resolve_device", "seed", "set_device", "to_tensor"]
+__all__ = ["DEFAULT_DEVICE", "Tensor", "amp", "autograd", "card_info",
+           "concat", "get_device", "grad", "matmul", "mean", "nn", "no_grad",
+           "optimizer", "regularizer", "reshape", "resolve_device", "seed",
+           "set_device", "split", "sum", "to_tensor", "transpose"]

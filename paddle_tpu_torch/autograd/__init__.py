@@ -1,4 +1,6 @@
-"""paddle_tpu_torch.autograd: grad-mode switches (the eager tape's
-backward comes with the eager-training slice)."""
+"""paddle_tpu_torch.autograd: grad-mode switches, the eager tape's
+``backward`` and ``grad`` on torch autograd, and ``PyLayer``."""
 from . import tape
-from .tape import enable_grad, is_grad_enabled, no_grad, set_grad_enabled
+from .py_layer import PyLayer, PyLayerContext
+from .tape import (backward, enable_grad, grad, is_grad_enabled, no_grad,
+                   set_grad_enabled)

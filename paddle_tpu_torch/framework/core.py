@@ -9,10 +9,13 @@ falls back to the CPU on its own, and no environment variable picks the
 device.
 
 The grad-enabled flag is torch's own grad mode, so ``no_grad`` here and
-``torch.no_grad`` are one switch.  Draws (initializers, dropout) come from
-an explicit CPU ``torch.Generator`` held by :class:`Generator`; the
-reference's JAX keys give other numbers from the same seed, so the two
-packages meet through carried weights, never through a seed.
+``torch.no_grad`` are one switch.  Draws come from :class:`Generator`:
+initializers from its CPU ``torch.Generator``, dropout masks from a
+``torch.Generator`` on the tensor's own device, seeded from the same seed
+(:meth:`Generator.on`).  The reference's JAX keys give other numbers from
+the same seed, so the two packages meet through carried weights, never
+through a seed.  ``amp_state`` is the active ``amp.auto_cast`` (``None``
+outside one), as in the reference.
 """
 from __future__ import annotations
 
@@ -141,6 +144,7 @@ class _State(threading.local):
     def __init__(self):
         self.default_dtype = torch.float32
         self.expected_place = None
+        self.amp_state = None
 
 
 _state = _State()
@@ -192,17 +196,34 @@ def get_device() -> str:
 # --------------------------------------------------------------------------
 
 class Generator:
-    """Seeded draws for initializers and dropout: a CPU ``torch.Generator``
-    (draws are made on the CPU and moved, so one seed gives the same
-    numbers on every device)."""
+    """Seeded draws.  ``torch`` is a CPU ``torch.Generator`` (initializers
+    draw there and move, so one seed gives the same weights on every
+    device); :meth:`on` gives a ``torch.Generator`` on a device, made at
+    first use and seeded with the same seed, for draws that stay where
+    their tensor is (dropout masks)."""
 
     def __init__(self, seed: int = 0):
         self.torch = torch.Generator()
+        self._on = {}
         self.manual_seed(seed)
 
     def manual_seed(self, seed: int):
-        self.torch.manual_seed(int(seed))
+        self._seed = int(seed)
+        self.torch.manual_seed(self._seed)
+        self._on.clear()
         return self
+
+    def on(self, device) -> torch.Generator:
+        """The generator for draws on ``device`` (the CPU's is
+        :attr:`torch`)."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return self.torch
+        gen = self._on.get(device)
+        if gen is None:
+            gen = self._on[device] = torch.Generator(
+                device=device).manual_seed(self._seed)
+        return gen
 
 
 _generator = Generator(int.from_bytes(os.urandom(4), "little") >> 1)

@@ -37,6 +37,7 @@ returns the engine's own counts.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 import uuid
 
@@ -188,6 +189,11 @@ class _DecodeStep:
         with torch.cuda.stream(self._side):
             out = self._run()
         cur.wait_stream(self._side)
+        # collect dead engines first: each holds its step in a cycle, and
+        # the cyclic collector freeing one's graph, events and pinned
+        # buffers inside this capture would make CUDA calls that
+        # invalidate it (torch.cuda.graph no longer collects on entry)
+        gc.collect()
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:

@@ -373,7 +373,9 @@ def make_train_step(cfg: BertConfig, mesh=None, beta1=0.9, beta2=0.999,
 class BertModel(PytreeLayer):
     """Eager encoder: forward(tokens, token_type_ids=None, pad_mask=None)
     -> (sequence_output, pooled_output).  Weights are drawn from the
-    default generator on the default place."""
+    default generator on the default place.  The forward records on the
+    tape (grad mode on), so ``loss.backward()`` fills each named
+    Parameter's ``.grad`` and an ``optimizer`` steps them."""
 
     def __init__(self, cfg: BertConfig = None, **kwargs):
         super().__init__()
@@ -385,7 +387,7 @@ class BertModel(PytreeLayer):
     def forward(self, tokens, token_type_ids=None, pad_mask=None):
         fn = lambda p, t, tt, pm: forward(p, t, self.cfg, tt, pm)  # noqa: E731
         return dispatch.call(fn, self._tree(), tokens, token_type_ids,
-                             pad_mask)
+                             pad_mask, _name="bert")
 
 
 class BertForPretraining(BertModel):
@@ -399,7 +401,8 @@ class BertForPretraining(BertModel):
         fn = (lambda p, t, ml, nl, tt, pm:  # noqa: E731
               pretrain_loss(p, t, ml, self.cfg, tt, pm, nl))
         return dispatch.call(fn, self._tree(), tokens, mlm_labels,
-                             nsp_labels, token_type_ids, pad_mask)
+                             nsp_labels, token_type_ids, pad_mask,
+                             _name="bert_pretrain_loss")
 
 
 ErnieModel = BertModel

@@ -48,16 +48,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if attn_mask is not None:
         return call(lambda q, k, v, m: _sdpa_ref(q, k, v, m, causal=is_causal,
                                                  dropout_p=p),
-                    query, key, value, attn_mask)
+                    query, key, value, attn_mask, _name="sdpa")
     return call(lambda q, k, v: _sdpa_ref(q, k, v, None, causal=is_causal,
                                           dropout_p=p),
-                query, key, value)
+                query, key, value, _name="sdpa")
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, name=None):
     out = call(lambda q, k, v: flash_attn.flash_attention(q, k, v, causal),
-               query, key, value)
+               query, key, value, _name="flash_attention")
     if return_softmax:
         return out, None
     return out

@@ -1,6 +1,8 @@
 """Common functionals (counterpart of
 ``paddle_tpu/nn/functional/common.py``; only ``linear``, ``embedding``
-and ``dropout``)."""
+and ``dropout``).  Dropout draws its mask where its tensor is, from the
+default generator's ``torch.Generator`` for that device
+(``core.Generator.on``): no host draw and no copy."""
 from __future__ import annotations
 
 import torch
@@ -29,8 +31,8 @@ def linear(x, weight, bias=None, name=None):
     The product is a plain cuBLAS call (``matmul``, or ``addmm`` with the
     bias), as the reference leaves it to XLA."""
     if bias is None:
-        return call(_affine, x, weight)
-    return call(_affine, x, weight, bias)
+        return call(_affine, x, weight, _name="linear")
+    return call(_affine, x, weight, bias, _name="linear")
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
@@ -44,24 +46,25 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
             w = w * mask[:, None].to(w.dtype)
         return torch.index_select(w, 0, i.reshape(-1)).reshape(
             *i.shape, w.shape[1])
-    return call(_emb, x, weight)
+    return call(_emb, x, weight, _name="embedding")
 
 
 def _mask(shape, keep, device):
-    """A Bernoulli(keep) mask drawn from the default generator on the
-    CPU, moved to ``device``."""
-    u = torch.rand(shape, generator=core.default_generator().torch)
-    return (u < keep).to(device)
+    """A Bernoulli(keep) mask drawn on ``device`` from the default
+    generator's generator for it."""
+    u = torch.rand(shape, generator=core.default_generator().on(device),
+                   device=device)
+    return u < keep
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             name=None):
     if not training:
         if mode == "downscale_in_infer" and p > 0.0:
-            return call(lambda a: a * (1.0 - p), x)
-        return call(lambda a: a, x)
+            return call(lambda a: a * (1.0 - p), x, _name="dropout_infer")
+        return call(lambda a: a, x, _name="dropout_noop")
     if p == 0.0:
-        return call(lambda a: a, x)
+        return call(lambda a: a, x, _name="dropout_noop")
 
     def _d(a):
         if axis is None:
@@ -75,4 +78,4 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         if mode == "upscale_in_train":
             return torch.where(mask, a / keep, 0.0).to(a.dtype)
         return torch.where(mask, a, 0.0).to(a.dtype)
-    return call(_d, x)
+    return call(_d, x, _name="dropout")

@@ -34,7 +34,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     if (nd == 1 and weight is not None and bias is not None
             and not _recording(x, weight, bias)):
         return call(lambda a, w, b: norms.layer_norm(a, w, b, epsilon),
-                    x, weight, bias)
+                    x, weight, bias, _name="layer_norm")
 
     def _ln(a, *wb):
         dims = tuple(range(a.dim() - nd, a.dim()))
@@ -48,12 +48,13 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
         return out
 
     args = [a for a in (weight, bias) if a is not None]
-    return call(_ln, x, *args)
+    return call(_ln, x, *args, _name="layer_norm")
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     if weight is not None and not _recording(x, weight):
-        return call(lambda a, w: norms.rms_norm(a, w, epsilon), x, weight)
+        return call(lambda a, w: norms.rms_norm(a, w, epsilon), x, weight,
+                    _name="rms_norm")
 
     def _rms(a, *w):
         af = a.float()
@@ -63,4 +64,4 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
             out = out * w[0]
         return out
     args = [weight] if weight is not None else []
-    return call(_rms, x, *args)
+    return call(_rms, x, *args, _name="rms_norm")

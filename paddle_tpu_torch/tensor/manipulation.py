@@ -1,5 +1,5 @@
 """Shape ops (counterpart of ``paddle_tpu/tensor/manipulation.py``; only
-``reshape``, ``concat`` and ``transpose``)."""
+``reshape``, ``concat``, ``split`` and ``transpose``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,15 +25,35 @@ def reshape(x, shape, name=None):
     def _r(a):
         return a.reshape([a.shape[i] if s == 0 else s
                           for i, s in enumerate(shp)])
-    return call(_r, x)
+    return call(_r, x, _name="reshape")
 
 
 def transpose(x, perm=None, name=None):
     p = _ints(perm) if perm is not None else None
     return call(lambda a: a.permute(p if p is not None
-                                    else tuple(range(a.dim()))[::-1]), x)
+                                    else tuple(range(a.dim()))[::-1]), x,
+                _name="transpose")
 
 
 def concat(x, axis=0, name=None):
     ax = int(axis.item()) if isinstance(axis, Tensor) else int(axis)
-    return call(lambda xs: torch.cat(xs, dim=ax), list(x))
+    return call(lambda xs: torch.cat(xs, dim=ax), list(x), _name="concat")
+
+
+def split(x, num_or_sections, axis=0, name=None):
+    """``num_or_sections`` equal parts, or parts of the given sizes (one
+    of them may be -1: the rest).  Returns a list of Tensors."""
+    ax = int(axis.item()) if isinstance(axis, Tensor) else int(axis)
+    dim = x.shape[ax]
+    if isinstance(num_or_sections, int):
+        if dim % num_or_sections:
+            raise ValueError(f"split: {dim} does not divide into "
+                             f"{num_or_sections} parts")
+        secs = [dim // num_or_sections] * num_or_sections
+    else:
+        secs = list(_ints(num_or_sections))
+        if -1 in secs:
+            secs[secs.index(-1)] = dim - sum(s for s in secs if s != -1)
+    outs = call(lambda a: tuple(torch.split(a, secs, dim=ax)), x,
+                _name="split")
+    return list(outs)

@@ -4,8 +4,14 @@ Counterpart of ``paddle_tpu/tensor/tensor.py``, whose payload is a
 ``jax.Array``.  Here the payload ``value`` is a ``torch.Tensor`` on an
 explicit device; ``stop_gradient`` says whether ops on it record, as in
 the reference.  A :class:`Parameter` that trains keeps ``requires_grad``
-on its value, so ops that record (grad mode on) build torch's graph.
-``backward`` and ``grad`` refuse until the eager-training slice.
+on its value, so ops that record (grad mode on) build torch's graph: that
+graph is the eager tape, and ``backward`` runs torch autograd over it
+(``autograd/tape.py``).  ``grad`` is the leaf value's ``.grad``: the same
+tensors get one as in the reference (leaves that do not stop gradients),
+and grads accumulate over backward calls until ``clear_grad``.  A hook
+(``register_hook``) sees the complete grad of one backward once, and a
+return that is not ``None`` replaces it, on leaves and intermediates, as
+the reference's ``_finalize_grad`` and ``out_hooks`` do.
 """
 from __future__ import annotations
 
@@ -48,9 +54,20 @@ def _to_torch_value(data, dtype=None, place=None):
     return val
 
 
+class _HookHandle:
+    def __init__(self, hooks, fn):
+        self._hooks, self._fn = hooks, fn
+
+    def remove(self):
+        try:
+            self._hooks.remove(self._fn)
+        except ValueError:
+            pass
+
+
 class Tensor:
     __slots__ = ("value", "stop_gradient", "name", "persistable",
-                 "__weakref__")
+                 "_grad_hooks", "_backward_ran", "__weakref__")
 
     _next_id = [0]
 
@@ -65,6 +82,8 @@ class Tensor:
             name = f"tensor_{Tensor._next_id[0]}"
         self.name = name
         self.persistable = False
+        self._grad_hooks = None
+        self._backward_ran = 0       # tape._NOT_RUN
 
     # -- metadata ----------------------------------------------------------
     @property
@@ -87,28 +106,67 @@ class Tensor:
     def place(self):
         return core.place_of(self.value.device)
 
+    @property
+    def is_leaf(self):
+        return self.value.grad_fn is None
+
     # -- grad --------------------------------------------------------------
     @property
     def grad(self):
-        raise NotImplementedError(
-            "Tensor.grad: the eager tape's backward is not ported yet "
-            "(it lands with the eager-training slice)")
+        """The accumulated grad of a leaf (a Tensor that stops gradients),
+        else ``None``."""
+        g = self.value.grad if self.value.grad_fn is None else None
+        return None if g is None else Tensor(g, stop_gradient=True)
+
+    @grad.setter
+    def grad(self, g):
+        self.value.grad = (None if g is None else _to_torch_value(
+            g, self.value.dtype, core.place_of(self.value.device)))
 
     def backward(self, grad_tensor=None, retain_graph=False):
-        raise NotImplementedError(
-            "Tensor.backward: the eager tape's backward is not ported yet "
-            "(it lands with the eager-training slice)")
+        from ..autograd import tape
+        tape.backward(self, grad_tensor, retain_graph=retain_graph)
+
+    def clear_grad(self):
+        self.value.grad = None
+
+    clear_gradient = clear_grad
+
+    def gradient(self):
+        g = self.grad
+        return None if g is None else g.numpy()
+
+    def register_hook(self, hook):
+        """Run ``hook(grad)`` on this tensor's complete grad in each
+        backward; a return that is not ``None`` replaces the grad (and, on
+        an intermediate, what flows upstream).  Returns a handle with
+        ``remove()``."""
+        if self._grad_hooks is None:
+            from ..autograd import tape
+            hooks = self._grad_hooks = []
+            if self.value.requires_grad:
+                self.value.register_hook(
+                    lambda g: tape.apply_grad_hooks(hooks, g))
+        self._grad_hooks.append(hook)
+        return _HookHandle(self._grad_hooks, hook)
 
     # -- conversion --------------------------------------------------------
     def numpy(self):
+        """A snapshot of the value as a numpy array: a copy, never a view
+        of the payload, which optimizers and ``set_value`` update in
+        place (the reference's values are immutable)."""
         if self.value.dtype == torch.bfloat16:
             raise TypeError("Tensor.numpy: numpy has no bfloat16; call "
                             "astype('float32') first")
-        return self.value.detach().cpu().numpy()
+        v = self.value.detach()
+        return v.cpu().numpy() if v.device.type != "cpu" else v.numpy().copy()
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()
         return a.astype(dtype) if dtype is not None else a
+
+    def __float__(self):
+        return float(self.value.item())
 
     def item(self, *args):
         return self.numpy().item(*args)
@@ -118,7 +176,7 @@ class Tensor:
 
     def astype(self, dtype):
         dt = core.convert_dtype(dtype)
-        return dispatch.call(lambda x: x.to(dt), self)
+        return dispatch.call(lambda x: x.to(dt), self, _name="astype")
 
     cast = astype
 
@@ -146,7 +204,7 @@ class Tensor:
     # -- indexing ----------------------------------------------------------
     def __getitem__(self, item):
         idx = dispatch.unwrap(item)
-        return dispatch.call(lambda x: x[idx], self)
+        return dispatch.call(lambda x: x[idx], self, _name="getitem")
 
     def __len__(self):
         if self.ndim == 0:
@@ -165,22 +223,32 @@ class Tensor:
 
     # -- operators ---------------------------------------------------------
     def __add__(self, other):
-        return dispatch.call(operator.add, self, other)
+        return dispatch.call(operator.add, self, other, _name="add")
 
     def __radd__(self, other):
-        return dispatch.call(operator.add, other, self)
+        return dispatch.call(operator.add, other, self, _name="add")
 
     def __sub__(self, other):
-        return dispatch.call(operator.sub, self, other)
+        return dispatch.call(operator.sub, self, other, _name="subtract")
 
     def __mul__(self, other):
-        return dispatch.call(operator.mul, self, other)
+        return dispatch.call(operator.mul, self, other, _name="multiply")
 
     def __rmul__(self, other):
-        return dispatch.call(operator.mul, other, self)
+        return dispatch.call(operator.mul, other, self, _name="multiply")
+
+    def __truediv__(self, other):
+        return dispatch.call(operator.truediv, self, other, _name="divide")
+
+    def __pow__(self, other):
+        return dispatch.call(operator.pow, self, other, _name="pow")
 
     def __matmul__(self, other):
-        return dispatch.call(operator.matmul, self, other)
+        return dispatch.call(operator.matmul, self, other, _name="matmul")
+
+    def sum(self, axis=None, dtype=None, keepdim=False, name=None):
+        from .math import sum as _sum
+        return _sum(self, axis, dtype, keepdim)
 
 
 class Parameter(Tensor):

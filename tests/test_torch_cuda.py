@@ -356,6 +356,38 @@ def test_graph_engine_counts_through_churn_and_abort(dev, kv, monkeypatch):
     assert norms.launches == (2 * L + 1) * fwd
 
 
+def test_dead_engine_is_collected_before_a_capture(dev):
+    """An engine that became garbage (its decode step holds it in a cycle)
+    is collected before the next engine's decode step is captured, not
+    by the cyclic collector inside that capture, where its graph's,
+    events' and pinned buffers' CUDA calls invalidated the capture
+    (``test_graph_engine_counts_through_churn_and_abort`` failed so)."""
+    import gc
+    import weakref
+
+    cfg = _wide()
+    params = T.init_params(cfg, torch.Generator().manual_seed(4), device=dev)
+
+    def engine():
+        return PagedServingEngine((params, cfg), device=dev, slots=2,
+                                  max_len=32, page_size=8,
+                                  seq_buckets=(8, 16), batch_buckets=(1, 2))
+    old = engine()
+    old.warmup()
+    dead = weakref.ref(old)
+    del old
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        assert dead() is not None       # kept alive by the cycle
+        eng = engine()
+        eng.warmup()
+        assert dead() is None and eng._step.captures == 1
+    finally:
+        if was:
+            gc.enable()
+
+
 def test_captured_engine_survives_a_grown_workspace(dev):
     """A later eager call that needs a larger paged-attention workspace
     replaces the per-device buffers; the captured engine keeps the ones
@@ -1328,3 +1360,111 @@ def test_nn_encoder_on_card_matches_cpu(dev):
         core._state.expected_place = prev
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=FP32_TOL * np.abs(want).max())
+
+
+def test_eager_ernie_training_on_card_matches_cpu(dev):
+    """Phase (s) of ``chip_smoke.py`` at a smaller size: the eager loop
+    (``ErnieForPretraining``, ``loss.backward()``, AdamW with
+    ``ClipGradByGlobalNorm(1.0)``) in fp32, H=128, nh=2 (hd 64), 2
+    layers, [2, 128], numpy weights, 3 steps on the card (the flash
+    forward 2L and split backward L a step) and on the CPU: losses within
+    1e-5 relative, every first-step ``.grad`` within 1e-4 of its
+    max|grad| (the JAX flash test's 2e-4 and (q)'s 1e-4), the params after
+    3 steps within 1e-4 of their max."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                          num_heads=2, max_seq_len=128, dtype="float32")
+    rng = np.random.default_rng(31)
+    toks = rng.integers(0, 512, (2, 128)).astype(np.int32)
+    mlm = np.where(rng.random((2, 128)) < 0.15, toks, -100).astype(np.int32)
+    nsp = rng.integers(0, 2, (2,)).astype(np.int32)
+    weights, out = None, {}
+    prev = core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            model = bert.ErnieForPretraining(cfg)
+            if weights is None:
+                weights = {k: (1 + 0.1 * rng.standard_normal(p.shape)
+                               if k.endswith("_g") else
+                               0.02 * rng.standard_normal(p.shape))
+                           .astype(np.float32)
+                           for k, p in model.state_dict().items()}
+            model.set_state_dict(weights)
+            opt = pt.optimizer.AdamW(
+                learning_rate=1e-3, epsilon=1e-6,
+                grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+                parameters=model.parameters())
+            args = [pt.to_tensor(a) for a in (toks, mlm, nsp)]
+            before = (flash_attn.fwd_launches, flash_attn.dq_launches,
+                      flash_attn.dkv_launches)
+            losses, grads = [], None
+            for _ in range(3):
+                loss = model(*args)
+                loss.backward()
+                if grads is None:
+                    grads = {k: p.grad.numpy()
+                             for k, p in model.state_dict().items()}
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss))
+            launched = tuple(a - b for a, b in zip(
+                (flash_attn.fwd_launches, flash_attn.dq_launches,
+                 flash_attn.dkv_launches), before))
+            out[place] = (losses, grads, {
+                k: p.numpy() for k, p in model.state_dict().items()},
+                launched)
+    finally:
+        core._state.expected_place = prev
+    (lg, gg, pg, launched), (lc, gc, pc, cpu_launched) = (out["gpu"],
+                                                          out["cpu"])
+    assert launched == (12, 6, 6) and cpu_launched == (0, 0, 0)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for k in gc:
+        np.testing.assert_allclose(gg[k], gc[k], rtol=0, err_msg=k,
+                                   atol=1e-4 * max(np.abs(gc[k]).max(),
+                                                   1e-30))
+        np.testing.assert_allclose(pg[k], pc[k], rtol=0, err_msg=k,
+                                   atol=1e-4 * np.abs(pc[k]).max())
+
+
+def test_dropout_mask_and_scaler_flag_stay_on_the_card(dev):
+    """Dropout draws its mask on the card from the card's generator (the
+    same seed gives the same mask; no host-to-device copy), and the
+    scaler's non-finite flag is a device tensor until ``step`` reads it."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.nn import functional as F
+
+    prev = core._state.expected_place
+    try:
+        pt.set_device("gpu")
+        x = pt.to_tensor(np.ones((256, 256), np.float32))
+        pt.seed(3)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            a = F.dropout(x, 0.25)
+            torch.cuda.synchronize()
+        copies = [e for e in prof.events() if "HtoD" in e.name]
+        assert not copies, copies
+        pt.seed(3)
+        b = F.dropout(x, 0.25)
+        assert a.value.is_cuda
+        assert torch.equal(a.value, b.value)
+        assert abs(float((a.value == 0).float().mean()) - 0.25) < 0.01
+        lin = pt.nn.Linear(4, 2)
+        opt = pt.optimizer.SGD(learning_rate=0.1,
+                               parameters=lin.parameters())
+        scaler = pt.amp.GradScaler()
+        loss = pt.sum(lin(pt.to_tensor(np.ones((3, 4), np.float32))))
+        scaler.scale(loss).backward()
+        scaler.unscale_(opt)
+        assert isinstance(scaler._found_inf, torch.Tensor)
+        assert scaler._found_inf.is_cuda
+        scaler.step(opt)
+        assert scaler._found_inf is False
+    finally:
+        core._state.expected_place = prev

@@ -373,10 +373,12 @@ def test_tensor_surface():
     assert g.detach().stop_gradient
     with pt.no_grad():
         assert (g * 2).stop_gradient
-    with pytest.raises(NotImplementedError, match="eager-training"):
-        (g * 2).backward()
-    with pytest.raises(NotImplementedError, match="eager-training"):
-        g.grad
+    # backward and grad work (no longer refused) and give the reference's
+    rg = P.to_tensor([1.0, 2.0], stop_gradient=False)
+    (g * g * 3).backward()
+    (rg * rg * 3).backward()
+    np.testing.assert_allclose(_np(g.grad), _np(rg.grad), rtol=1e-6)
+    np.testing.assert_allclose(_np(g.grad), [6.0, 12.0])
 
 
 def test_grad_mode_switches_are_torch_grad_mode():
@@ -426,3 +428,189 @@ def test_layer_to_hooks_modes_and_dropout():
     assert lin.weight.value.requires_grad
     with pytest.raises(NotImplementedError, match="set_device"):
         seq.to(device="gpu")
+
+
+# --------------------------------------------------------------------------
+# losses, eager training, dropout's generator
+# --------------------------------------------------------------------------
+
+def _loss_inputs(seed=40):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((6, 5)).astype(np.float32)
+    labels = np.array([0, 4, -100, 2, 1, 3], np.int32)
+    labels4 = np.array([0, 4, 3, 2, 4, 1], np.int32)    # ignore_index 4
+    soft = rng.random((6, 5)).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    weight = (0.5 + rng.random(5)).astype(np.float32)
+    logits3 = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    labels3 = rng.integers(0, 4, (2, 3, 1)).astype(np.int32)
+    x, y = (rng.standard_normal((4, 3)).astype(np.float32) for _ in "xy")
+    return dict(logits=logits, labels=labels, labels4=labels4, soft=soft,
+                weight=weight,
+                logits3=logits3, labels3=labels3, x=x, y=y)
+
+
+LOSS_CASES = {
+    "ce": lambda F, d: F.cross_entropy(d["logits"], d["labels"]),
+    "ce_weight_sum": lambda F, d: F.cross_entropy(
+        d["logits"], d["labels"], weight=d["weight"], reduction="sum"),
+    "ce_weight_mean": lambda F, d: F.cross_entropy(
+        d["logits"], d["labels"], weight=d["weight"]),
+    "ce_none_ignore": lambda F, d: F.cross_entropy(
+        d["logits"], d["labels4"], reduction="none", ignore_index=4),
+    "ce_soft": lambda F, d: F.cross_entropy(d["logits"], d["soft"],
+                                            soft_label=True),
+    "ce_soft_weight": lambda F, d: F.cross_entropy(
+        d["logits"], d["soft"], soft_label=True, weight=d["weight"],
+        reduction="sum"),
+    "ce_axis_label_dim": lambda F, d: F.cross_entropy(
+        d["logits3"], d["labels3"], axis=-1),
+    "ce_no_softmax": lambda F, d: F.cross_entropy(
+        d["soft"], d["labels"], use_softmax=False),
+    "softmax_with_ce": lambda F, d: F.softmax_with_cross_entropy(
+        d["logits"], d["labels"][:, None]),
+    "nll": lambda F, d: F.nll_loss(d["logits"], d["labels"]),
+    "nll_weight_none": lambda F, d: F.nll_loss(
+        d["logits"], d["labels"][:, None], weight=d["weight"],
+        reduction="none"),
+    "mse": lambda F, d: F.mse_loss(d["x"], d["y"]),
+    "mse_sum": lambda F, d: F.mse_loss(d["x"], d["y"], reduction="sum"),
+    "l1": lambda F, d: F.l1_loss(d["x"], d["y"]),
+    "l1_none": lambda F, d: F.l1_loss(d["x"], d["y"], reduction="none"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOSS_CASES))
+def test_loss_and_its_grad_match_reference(case):
+    """Each ported loss, its value and the grad of its first input, at
+    1e-6 (the first input trains, the others do not)."""
+    data = _loss_inputs()
+    out = {}
+    for pkg in (P, pt):
+        first = {"ce": "logits", "nll": "logits", "softmax_with_ce":
+                 "logits", "mse": "x", "l1": "x"}
+        key = next(v for k, v in first.items() if case.startswith(k))
+        if case in ("ce_axis_label_dim",):
+            key = "logits3"
+        if case == "ce_no_softmax":
+            key = "soft"
+        ts = {k: pkg.to_tensor(v, stop_gradient=(k != key))
+              for k, v in data.items()}
+        loss = LOSS_CASES[case](pkg.nn.functional, ts)
+        pkg.sum(loss).backward()
+        out[pkg] = (np.asarray(loss.numpy()), np.asarray(
+            ts[key].grad.numpy()))
+    for a, b in zip(out[pt], out[P]):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_loss_layers_match_reference():
+    data = _loss_inputs(41)
+    for name, kw, args in (
+            ("CrossEntropyLoss", dict(ignore_index=4), ("logits", "labels4")),
+            ("CrossEntropyLoss", dict(soft_label=True, reduction="sum"),
+             ("logits", "soft")),
+            ("NLLLoss", dict(reduction="sum"), ("logits", "labels")),
+            ("MSELoss", dict(), ("x", "y")),
+            ("L1Loss", dict(reduction="none"), ("x", "y"))):
+        got = [np.asarray(getattr(pkg.nn, name)(**kw)(
+            *[pkg.to_tensor(data[a]) for a in args]).numpy())
+            for pkg in (P, pt)]
+        np.testing.assert_allclose(got[1], got[0], rtol=1e-6, atol=1e-6)
+
+
+def test_encoder_training_matches_reference():
+    """The nn encoder at 2 layers, [2, 128], dropout 0 (JAX's RNG cannot
+    be matched), trained 3 steps in each package with the same weights:
+    ``CrossEntropyLoss`` on shifted ids, ``loss.backward()``, AdamW (eps
+    1e-6) with ``ClipGradByGlobalNorm(1.0)``; the losses within 1e-5
+    relative, every parameter within 1e-5 of its max|ref|."""
+    cfg = dict(SMALL, N=128)
+    ids = np.random.default_rng(42).integers(0, cfg["V"], (2, cfg["N"]))
+    ref = make_encoder(P, P.arange, **cfg)
+    state = {k: v.numpy() for k, v in ref.state_dict().items()}
+    out = {}
+    for pkg, arange in ((P, P.arange), (pt, t_arange)):
+        model = ref if pkg is P else make_encoder(pt, arange, **cfg)
+        model.train()
+        model.set_state_dict(state)
+        opt = pkg.optimizer.AdamW(
+            learning_rate=1e-3, epsilon=1e-6, parameters=model.parameters(),
+            grad_clip=pkg.nn.ClipGradByGlobalNorm(1.0))
+        ce = pkg.nn.CrossEntropyLoss()
+        t = pkg.to_tensor(ids)
+        losses = []
+        for _ in range(3):
+            _, logits = model(t)
+            loss = ce(logits[:, :-1], t[:, 1:])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.numpy()))
+        out[pkg] = (losses, {k: np.asarray(v.numpy())
+                             for k, v in model.state_dict().items()})
+    np.testing.assert_allclose(out[pt][0], out[P][0], rtol=1e-5)
+    assert out[pt][0][-1] < out[pt][0][0]
+    for k, want in out[P][1].items():
+        np.testing.assert_allclose(
+            out[pt][1][k], want, rtol=0,
+            atol=FP32_TOL * max(1.0, np.abs(want).max()), err_msg=k)
+
+
+def test_encoder_amp_step_on_cpu():
+    """One bf16 ``auto_cast`` + ``GradScaler`` step of the encoder with
+    dropout 0.1 and attention dropout 0 (the flash route): the logits are
+    bf16, every grad lands fp32, the step is not skipped and no kernel
+    launches on the CPU."""
+    model = make_encoder(pt, t_arange, **SMALL).train()
+    for layer in model.encoder.layers:
+        layer.dropout1.p = layer.dropout2.p = layer.dropout.p = 0.1
+    opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                             parameters=model.parameters())
+    scaler = pt.amp.GradScaler()
+    ids = pt.to_tensor(np.random.default_rng(43).integers(
+        0, SMALL["V"], (2, SMALL["N"])))
+    before = _counts()
+    with pt.amp.auto_cast(dtype="bfloat16"):
+        _, logits = model(ids)
+        loss = pt.nn.CrossEntropyLoss()(logits[:, :-1], ids[:, 1:])
+    assert logits.dtype == torch.bfloat16 and loss.dtype == torch.float32
+    scaler.scale(loss).backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters())
+    w0 = _np(model.head.weight)
+    scaler.step(opt)
+    scaler.update()
+    assert not scaler._found_inf and _counts() == before
+    assert np.abs(_np(model.head.weight) - w0).max() > 0
+
+
+def test_dropout_generator_seed_device_and_rate(monkeypatch):
+    """Same seed, same mask; the mask is drawn on the tensor's device from
+    the default generator's generator for it (no host draw, no copy); the
+    kept share is within 3 sigma of 1 - p."""
+    from paddle_tpu_torch.nn.functional import common
+    x = pt.to_tensor(np.ones((200, 500), np.float32))
+    pt.seed(11)
+    a = _np(TF.dropout(x, 0.3))
+    pt.seed(11)
+    b = _np(TF.dropout(x, 0.3))
+    np.testing.assert_array_equal(a, b)
+    c = _np(TF.dropout(x, 0.3))
+    assert not np.array_equal(a, c)
+    n, p = a.size, 0.3
+    assert abs((a == 0).mean() - p) <= 3 * np.sqrt(p * (1 - p) / n)
+    np.testing.assert_allclose(a[a != 0], 1 / 0.7, rtol=1e-6)
+
+    seen = []
+    real = torch.rand
+
+    def rand(*args, generator=None, device=None, **kw):
+        seen.append((generator, device))
+        return real(*args, generator=generator, device=device, **kw)
+    monkeypatch.setattr(common.torch, "rand", rand)
+    TF.dropout(x, 0.5)
+    gen = core.default_generator()
+    assert seen == [(gen.on(x.value.device), x.value.device)]
+    assert gen.on(torch.device("cpu")) is gen.torch
