@@ -8,7 +8,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
   (a) the card's name and power limit, torch and CUDA versions;
   (b) build every kernel from ``paddle_tpu_torch/ops/cuda/csrc`` (one nvcc
-      per source, in parallel) and report ptxas' register and spill counts,
+      per source, in parallel; the data ring's host library from
+      ``paddle_tpu_torch/runtime/csrc`` by g++ beside them, then loaded)
+      and report ptxas' register and spill counts,
       one line for each instance of the warp-specialised kernels
       (``fa_fwd_wg``, the split backward's ``fa_bwd_dq_wg`` and
       ``fa_bwd_wg<D, WIDE, false>``, the fused ``fa_bwd_wg<D, WIDE,
@@ -164,7 +166,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
       timed steps must equal L flash forwards, L dq and L dk/dv and no
       LayerNorm or RMSNorm kernel a step (both norms record, so they take
       the plain formula, as in the reference); the loss must fall; with
-      ``--profile-train`` its steps are traced as (r)'s.
+      ``--profile-train`` its steps are traced as (r)'s;
+  (u) the high-level API, nothing cut: an ERNIE-3.0-Base classifier
+      (``models.bert.ErnieModel(ernie_3_base())``'s pooled output into a
+      ``Linear(768, 2)``, bf16 compute over fp32 params, remat, flash)
+      fitted through ``paddle_tpu_torch.Model`` (``InputSpec`` inputs and
+      labels; AdamW wd 0.01 + ``ClipGradByGlobalNorm(1.0)`` on
+      ``LinearWarmup`` to 1e-4, ``CrossEntropyLoss``, ``Accuracy``) from
+      an ``io.DataLoader(batch_size=64, shuffle=True, num_workers=2,
+      use_native_ring=True, prefetch_to_device=2)`` over 768 numpy-seeded
+      samples of 512 token ids (label: the first id mod 2), 2 epochs of 12
+      steps, the second timed by a callback on the host clock.  Launch
+      counts zeroed just before ``fit`` and read just after must equal 2L
+      flash forwards, L dq, L dk/dv and no fused, no-key or norm kernel a
+      step; the loss must be finite and fall (epoch 2's mean below epoch
+      1's).  Alternated with a hand-written eager loop (forward, loss,
+      ``backward``, ``step``, ``clear_grad``, ``float(loss)``) on the same
+      network, optimizer and batches already on the card: hapi's step ms
+      over the loop's.  Then ``evaluate`` and ``predict`` over 256 more
+      samples (L flash forwards a batch, no backward launch), ``save``,
+      ``load`` into a fresh ``Model`` and ``predict`` again: bit-equal.
+      Prints step ms, tokens/s, model-FLOP share (6N + 12LHS at the
+      classifier's parameters), peak memory and prefetch hits; with
+      ``--profile-train`` both steps are traced (idle share, launches,
+      host-to-device copies, which must be pinned copies on a stream
+      where no kernel runs);
+  (v) (u)'s path in fp32 at ERNIE widths with 2 layers, [4, 256], numpy
+      weights as (q)'s, card (the ring loader, kernels) against CPU (the
+      single-process loader, plain versions): 3 ``fit`` steps, losses
+      within 1e-5 relative, params within 1e-5 of their max; ``evaluate``
+      (equal accuracy, loss within 1e-4 relative) and ``predict`` within
+      1e-4 of max|ref|.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -221,19 +253,22 @@ split plan (``grid_plan_ms``) beside their own.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
 three flash rows with their launches on each training path, among them
-``launches_eager_ernie`` and ``launches_eager_encoder``) and the
+``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``
+and ``launches_hapi_eval``) and the
 ``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every float32 matmul
 and convolution here, so fp32 comparisons are fp32.
 """
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -273,6 +308,10 @@ RMS_PARITY_TOL = 1e-4         # (o): final norm output, x max|ref|
 ERNIE_BATCH = 64              # (p): bench.py's first ERNIE batch, N = 512
 ERNIE_STEPS = 10              # (p): timed steps (bench.py: steps=10)
 ERNIE_PARITY_N = 256          # (q): B=2, 2 layers
+HAPI_TRAIN = 768              # (u): samples, 12 steps of 64 an epoch
+HAPI_EVAL = 256               # (u): evaluate / predict samples
+HAPI_PARITY = (4, 256)        # (v): B, N at ERNIE widths, 2 layers
+HAPI_PARITY_TOL = 1e-4        # (v): evaluate loss and predict, x max|ref|
 
 
 def log(*a):
@@ -1797,6 +1836,13 @@ def trace_summary(prof, trace_path, span, steps):
         "h2d_copies_per_step": len(h2d) / steps,
         "h2d_bytes_per_step": sum(e.get("args", {}).get("bytes", 0)
                                   for e in h2d) / steps,
+        "h2d_streams": sorted({e.get("args", {}).get("stream")
+                               for e in h2d}, key=str),
+        "h2d_names": sorted({e.get("name", "") for e in h2d}),
+        "h2d_first": [(e.get("name", ""), e.get("args", {}).get("bytes"),
+                       e.get("args", {}).get("stream")) for e in h2d[:8]],
+        "kernel_streams": sorted({e.get("args", {}).get("stream")
+                                  for e in kernels}, key=str),
         "device_ms_per_step_by_kernel": [
             {"name": k[:90], "launches_per_step": c / steps,
              "ms_per_step": t / 1e3 / steps} for k, (c, t) in top],
@@ -2246,7 +2292,8 @@ def main():
     ap.add_argument("--profile-train", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS training steps of the training "
                          "path (phase i), the flagship path (l), ERNIE "
-                         "pretraining (p) and eager training (r), (t) with "
+                         "pretraining (p), eager training (r), (t) and "
+                         "the hapi step and its hand-written loop (u) with "
                          "torch.profiler")
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
@@ -2275,8 +2322,18 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     # (b) ---------------------------------------------------------------
-    build_s = build.build()
-    log(f"(b) built {sorted(build.SOURCES)} in {build_s:.2f} s")
+    # the data ring's host library (g++) builds while nvcc runs
+    from paddle_tpu_torch import runtime
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        t0 = time.perf_counter()
+        ring_build = ex.submit(runtime._b.build)
+        build_s = build.build()
+        ring_lib = ring_build.result()
+        ring_s = time.perf_counter() - t0
+    if not runtime.is_available():
+        raise SystemExit("(b): the native ring library does not load")
+    log(f"(b) built {sorted(build.SOURCES)} in {build_s:.2f} s; the data "
+        f"ring {os.path.basename(str(ring_lib))} (g++) by {ring_s:.2f} s")
     for lib, text in sorted(build.build_log.items()):
         regs = [ln.split("Used ")[1] for ln in text.splitlines()
                 if "Used " in ln]
@@ -2405,6 +2462,9 @@ def main():
 
     # (r), (s), (t): eager dygraph training -------------------------------
     eager_phases(torch, flash_attn, norms, card, args, launches, p_res)
+
+    # (u), (v): the high-level API (hapi.Model, io.DataLoader) ------------
+    hapi_phases(torch, flash_attn, norms, card, args, launches)
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -3352,6 +3412,432 @@ def eager_phases(torch, flash_attn, norms, card, args, launches, p_res):
         core._state.expected_place = prev
 
 
+def token_dataset(pt, V, N, n, seed):
+    """A map-style ``io.Dataset`` of ``n`` samples drawn from a numpy seed:
+    N token ids in [0, V) (int64) and the first id mod 2 as the label, so
+    that a classifier can learn it."""
+    class Tokens(pt.io.Dataset):
+        def __init__(self):
+            rng = np.random.default_rng(seed)
+            self.t = rng.integers(0, V, (n, N), dtype=np.int64)
+            self.y = self.t[:, :1] % 2
+
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return self.t[i], self.y[i]
+    return Tokens()
+
+
+def ernie_classifier(pt, bert, cfg):
+    """A user's sequence classifier: ``ErnieModel(cfg)``'s pooled output
+    into a ``Linear(H, 2)``."""
+    class ErnieClassifier(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ernie = bert.ErnieModel(cfg)
+            self.cls = pt.nn.Linear(cfg.hidden_size, 2)
+
+        def forward(self, tokens):
+            _, pooled = self.ernie(tokens)
+            return self.cls(pooled)
+    return ErnieClassifier()
+
+
+def hapi_model(pt, net, N, warmup, epsilon=1e-8):
+    """``Model(net)`` with [None, N] int64 inputs and [None, 1] labels,
+    prepared with AdamW (weight decay 0.01, ``ClipGradByGlobalNorm(1.0)``)
+    on ``LinearWarmup`` to 1e-4 over ``warmup`` steps,
+    ``CrossEntropyLoss()`` and ``Accuracy()``."""
+    sched = pt.optimizer.lr.LinearWarmup(1e-4, warmup, 0.0, 1e-4)
+    opt = pt.optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
+                             epsilon=epsilon,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+                             parameters=net.parameters())
+    model = pt.Model(net, inputs=[pt.static.InputSpec([None, N], "int64")],
+                     labels=[pt.static.InputSpec([None, 1], "int64")])
+    model.prepare(opt, pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+    return model
+
+
+def card_loader(pt, ds, batch, shuffle):
+    """The loader of (u): two workers staging through the native ring,
+    two batches copied ahead on a side stream."""
+    return pt.io.DataLoader(ds, batch_size=batch, shuffle=shuffle,
+                            num_workers=2, use_native_ring=True,
+                            prefetch_to_device=2)
+
+
+def read_counts(counters):
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def zero_counts(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def check_counts(label, got, want, n):
+    for k, per in want.items():
+        if got[k] != per * n:
+            raise SystemExit(f"{label}: {k} launched {got[k]} times in {n} "
+                             f"steps, expected {per} a step")
+
+
+def hapi_fit(torch, pt, model, loader, epochs, counters, want, label):
+    """``model.fit(loader, epochs)`` with the launch counts zeroed just
+    before and read just after (they must equal ``want`` a step); the
+    last epoch is timed on the host clock by a callback (its step ms
+    include the loader's waits) with its own counts, memory peak and
+    prefetch hits."""
+    steps = len(loader)
+    last = epochs - 1
+    rec = {"losses": [], "step_ms_each": []}
+
+    class Timer(pt.callbacks.Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            if epoch == last:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                pt.io.reset_prefetch_stats()
+                rec["counts_before"] = read_counts(counters)
+                rec["t0"] = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            rec["t"] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            rec["losses"].append(logs["loss"])
+            if len(rec["losses"]) > last * steps:
+                rec["step_ms_each"].append(
+                    1e3 * (time.perf_counter() - rec["t"]))
+
+        def on_epoch_end(self, epoch, logs=None):
+            if epoch == last:
+                torch.cuda.synchronize()
+                rec["epoch_s"] = time.perf_counter() - rec["t0"]
+                after = read_counts(counters)
+                rec["epoch_launches"] = {
+                    k: after[k] - rec["counts_before"][k] for k in after}
+                rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                rec["prefetch"] = pt.io.prefetch_stats()
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    model.fit(loader, epochs=epochs, verbose=0, callbacks=[Timer()])
+    fit_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    check_counts(label, launches, want, epochs * steps)
+    check_counts(label + " timed epoch", rec["epoch_launches"], want, steps)
+    step_s = rec["epoch_s"] / steps
+    return {"fit_s": fit_s, "steps": steps, "step_ms": 1e3 * step_s,
+            "step_ms_each": rec["step_ms_each"],
+            "tokens_per_s": loader.batch_sampler.batch_size
+            * model._inputs[0].shape[1] / step_s,
+            "losses": rec["losses"], "launches": launches,
+            "launches_timed_epoch": rec["epoch_launches"],
+            "max_memory_allocated_gib": rec["peak_gib"],
+            "prefetch": rec["prefetch"]}
+
+
+def hand_loop(torch, pt, model, batches, counters, want):
+    """The same network and optimizer in a hand-written eager loop over
+    batches already on the card: forward, loss, ``backward``, ``step``,
+    ``clear_grad``, the scheduler's step, ``float(loss)``; timed on the
+    host clock, launch counts checked."""
+    net, opt = model.network, model._optimizer
+    ce = pt.nn.CrossEntropyLoss()
+    net.train()
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    times, losses = [], []
+    t_all = time.perf_counter()
+    for x, y in batches:
+        t0 = time.perf_counter()
+        loss = ce(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        opt._learning_rate.step()
+        losses.append(float(loss))
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = 1e3 * (time.perf_counter() - t_all) / len(batches)
+    check_counts("(u) hand-written loop", read_counts(counters), want,
+                 len(batches))
+    return {"step_ms": step_ms, "step_ms_each": times, "losses": losses}
+
+
+def hapi_path(torch, pt, bert, flash_attn, norms, args):
+    """Phase (u): an ERNIE-3.0-Base classifier fitted, evaluated, used to
+    predict, saved and loaded through ``Model`` and ``io.DataLoader`` at
+    full width and depth, and held against a hand-written loop."""
+    cfg = bert.ernie_3_base()
+    V, N, L, B = cfg.vocab_size, cfg.max_seq_len, cfg.num_layers, ERNIE_BATCH
+    t0 = time.perf_counter()
+    pt.seed(SEED + 30)
+    net = ernie_classifier(pt, bert, cfg)
+    steps = HAPI_TRAIN // B
+    model = hapi_model(pt, net, N, warmup=steps)
+    train_ds = token_dataset(pt, V, N, HAPI_TRAIN, SEED + 31)
+    eval_ds = token_dataset(pt, V, N, HAPI_EVAL, SEED + 32)
+    n_params = sum(p.size for k, p in net.state_dict().items()
+                   if not k.startswith(("ernie.mlm_", "ernie.nsp_")))
+    flops_per_token = 6 * n_params + 12 * L * cfg.hidden_size * N
+    setup_s = time.perf_counter() - t0
+    counters = eager_counters(flash_attn, norms)
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_fused": 0,
+            "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    want_fwd = {"flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0, "flash_attention_bwd_fused": 0,
+                "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    # batches for the hand-written loop, staged on the card beforehand
+    np.random.seed(SEED + 33)
+    staged = list(pt.io.DataLoader(train_ds, batch_size=B, shuffle=True))
+    # fit: 2 epochs, the first the warm-up; then alternated with the loop
+    np.random.seed(SEED + 34)
+    fit = hapi_fit(torch, pt, model, card_loader(pt, train_ds, B, True), 2,
+                   counters, want, "(u) fit")
+    losses = fit["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"(u): a non-finite loss: {losses}")
+    if not np.mean(losses[steps:]) < np.mean(losses[:steps]):
+        raise SystemExit(f"(u): the loss did not fall: {losses}")
+    loops = [hand_loop(torch, pt, model, staged, counters, want)]
+    again = hapi_fit(torch, pt, model, card_loader(pt, train_ds, B, True),
+                     1, counters, want, "(u) fit again")
+    loops.append(hand_loop(torch, pt, model, staged, counters, want))
+    hapi_ms = [fit["step_ms"], again["step_ms"]]
+    loop_ms = [lp["step_ms"] for lp in loops]
+    res = {"setup_s": setup_s, "fit": fit, "fit_again": again,
+           "loops": loops, "hapi_step_ms": hapi_ms, "loop_step_ms": loop_ms,
+           "hapi_over_loop": [a / b for a, b in zip(hapi_ms, loop_ms)],
+           "num_params": n_params, "flops_per_token": flops_per_token,
+           "model_flop_share": fit["tokens_per_s"] * flops_per_token
+           / BF16_FLOPS_PER_S,
+           "launches": fit["launches"]}
+    # evaluate and predict over 256 more samples: forwards only
+    n_eval = HAPI_EVAL // B
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    res["eval"] = model.evaluate(card_loader(pt, eval_ds, B, False),
+                                 verbose=0)
+    res["eval_s"] = time.perf_counter() - t0
+    res["eval_launches"] = read_counts(counters)
+    check_counts("(u) evaluate", res["eval_launches"], want_fwd, n_eval)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    pred = model.predict(card_loader(pt, eval_ds, B, False),
+                         stack_outputs=True)[0]
+    res["predict_s"] = time.perf_counter() - t0
+    res["predict_launches"] = read_counts(counters)
+    check_counts("(u) predict", res["predict_launches"], want_fwd, n_eval)
+    if pred.shape != (HAPI_EVAL, 2) or not np.isfinite(pred).all():
+        raise SystemExit(f"(u): predict gave {pred.shape}, finite "
+                         f"{np.isfinite(pred).all()}")
+    # save, load into a fresh Model, predict again: bit-equal
+    ckpt = os.path.join("paddle_tpu_torch", "_build", "hapi_ckpt")
+    try:
+        t0 = time.perf_counter()
+        model.save(os.path.join(ckpt, "final"))
+        res["save_s"] = time.perf_counter() - t0
+        res["ckpt_bytes"] = {f: os.path.getsize(os.path.join(ckpt, f))
+                             for f in sorted(os.listdir(ckpt))}
+        pt.seed(SEED + 35)
+        fresh = hapi_model(pt, ernie_classifier(pt, bert, cfg), N,
+                           warmup=steps)
+        t0 = time.perf_counter()
+        fresh.load(os.path.join(ckpt, "final"))
+        res["load_s"] = time.perf_counter() - t0
+        again_pred = fresh.predict(card_loader(pt, eval_ds, B, False),
+                                   stack_outputs=True)[0]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    res["reload_bit_equal"] = bool(np.array_equal(pred, again_pred))
+    res["reload_step_count"] = (fresh._optimizer._step_count,
+                                model._optimizer._step_count)
+    if not res["reload_bit_equal"] or len(set(res["reload_step_count"])) != 1:
+        raise SystemExit(f"(u): the reloaded Model predicts otherwise "
+                         f"(max diff {np.abs(pred - again_pred).max()}) or "
+                         f"resumes another step {res['reload_step_count']}")
+    del fresh
+    if args.profile_train:
+        it = iter(card_loader(pt, train_ds, B, True))
+
+        def hapi_step():
+            model.train_batch(*model._split_batch(next(it)))
+        res["profile"] = profile_steps(
+            torch, hapi_step, args.profile_train, "train_step_hapi",
+            args.train_trace.replace(".json", "_hapi.json"))
+        h2d = set(res["profile"]["h2d_streams"])
+        if h2d & set(res["profile"]["kernel_streams"]) or not all(
+                "Pinned" in n for n in res["profile"]["h2d_names"]):
+            raise SystemExit(f"(u): the loader's copies are not pinned "
+                             f"copies on a side stream: "
+                             f"{json.dumps(res['profile'])}")
+        ce = pt.nn.CrossEntropyLoss()
+        batch_it = iter(staged)
+
+        def loop_step():
+            x, y = next(batch_it)
+            loss = ce(net(x), y)
+            loss.backward()
+            model._optimizer.step()
+            model._optimizer.clear_grad()
+            float(loss)
+        res["profile_loop"] = profile_steps(
+            torch, loop_step, args.profile_train, "train_step_hand_loop",
+            args.train_trace.replace(".json", "_hand_loop.json"))
+    del model, net, staged
+    torch.cuda.empty_cache()
+    return res
+
+
+def hapi_parity(torch, pt, bert, flash_attn):
+    """Phase (v): (u)'s path in fp32 at ERNIE widths with 2 layers, [4,
+    256] batches, every leaf drawn from numpy as (q) draws them: 3 ``fit``
+    steps, ``evaluate`` and ``predict`` over 8 more samples, on the card
+    (the ring loader, kernels) and on the CPU (the single-process loader,
+    plain versions)."""
+    from paddle_tpu_torch.framework import core
+    B, N = HAPI_PARITY
+    cfg = dataclasses.replace(bert.ernie_3_base(), num_layers=2,
+                              dtype="float32")
+    train_ds = token_dataset(pt, cfg.vocab_size, N, 3 * B, SEED + 36)
+    eval_ds = token_dataset(pt, cfg.vocab_size, N, 2 * B, SEED + 37)
+    rng = np.random.default_rng(SEED + 38)
+    weights, out = None, {}
+    prev = core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            net = ernie_classifier(pt, bert, cfg)
+            if weights is None:
+                weights = {k: (1 + 0.1 * rng.standard_normal(p.shape)
+                               if k.endswith("_g") else
+                               0.02 * rng.standard_normal(p.shape)
+                               ).astype(np.float32)
+                           for k, p in net.state_dict().items()}
+            net.set_state_dict(weights)
+            # Adam's eps 1e-6, as (q) and (s): see ernie_parity
+            model = hapi_model(pt, net, N, warmup=1, epsilon=1e-6)
+            kw = (dict(num_workers=2, use_native_ring=True,
+                       prefetch_to_device=2) if place == "gpu" else {})
+            losses = []
+
+            class Record(pt.callbacks.Callback):
+                def on_train_batch_end(self, step, logs=None):
+                    losses.append(logs["loss"])
+            before = (flash_attn.fwd_launches, flash_attn.dq_launches,
+                      flash_attn.dkv_launches)
+            np.random.seed(SEED + 39)
+            model.fit(pt.io.DataLoader(train_ds, batch_size=B, shuffle=True,
+                                       **kw), epochs=1, verbose=0,
+                      callbacks=[Record()])
+            params = {k: p.numpy() for k, p in net.state_dict().items()}
+            ev = model.evaluate(pt.io.DataLoader(eval_ds, batch_size=B, **kw),
+                                verbose=0)
+            pred = model.predict(pt.io.DataLoader(eval_ds, batch_size=B,
+                                                  **kw),
+                                 stack_outputs=True)[0]
+            launched = tuple(a - b for a, b in zip(
+                (flash_attn.fwd_launches, flash_attn.dq_launches,
+                 flash_attn.dkv_launches), before))
+            out[place] = (losses, params, ev, pred, launched)
+            del model, net
+    finally:
+        core._state.expected_place = prev
+    (lg, pg, eg, dg, launched), (lc, pc, ec, dc, _) = out["gpu"], out["cpu"]
+    L = cfg.num_layers
+    param_rel = {k: float(np.abs(pg[k] - p).max()
+                          / max(float(np.abs(p).max()), 1e-30))
+                 for k, p in pc.items()}
+    res = {"loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(lg, lc)],
+           "param_rel_err_max": max(param_rel.values()),
+           "param_rel_err_worst": max(param_rel, key=param_rel.get),
+           "eval_card": eg, "eval_cpu": ec,
+           "eval_loss_rel_err": abs(eg["loss"] - ec["loss"]) / abs(ec["loss"]),
+           "predict_err": float(np.abs(dg - dc).max()
+                                / max(float(np.abs(dc).max()), 1e-30)),
+           "flash_launches": launched,
+           "flash_launches_expected": (3 * 2 * L + 4 * L, 3 * L, 3 * L)}
+    if not (len(lg) == len(lc) == 3
+            and max(res["loss_rel_err"]) <= TRAIN_LOSS_RTOL
+            and res["param_rel_err_max"] <= FP32_TOL
+            and eg["acc"] == ec["acc"]
+            and res["eval_loss_rel_err"] <= HAPI_PARITY_TOL
+            and res["predict_err"] <= HAPI_PARITY_TOL
+            and launched == res["flash_launches_expected"]):
+        raise SystemExit(f"(v) the hapi path on the card disagrees with the "
+                         f"CPU: {json.dumps(res)}")
+    return res
+
+
+def hapi_phases(torch, flash_attn, norms, card, args, launches):
+    """Phases (u) and (v), logged; (u)'s flash launches go into
+    ``launches``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.models import bert
+    prev = core._state.expected_place
+    pt.set_device("gpu")
+    try:
+        t0 = time.perf_counter()
+        u = hapi_path(torch, pt, bert, flash_attn, norms, args)
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            launches[f"{k}_hapi"] = u["launches"][k]
+            launches[f"{k}_hapi_eval"] = u["eval_launches"][k]
+        f = u["fit"]
+        log(f"(u) hapi: ERNIE-3.0-Base classifier (ErnieModel pooled -> "
+            f"Linear(768, 2), {u['num_params'] / 1e6:.1f}M params used, "
+            f"B={ERNIE_BATCH}, N=512, bf16 compute over fp32 params, remat, "
+            f"use_flash) through Model.fit on io.DataLoader(shuffle, 2 "
+            f"workers, native ring, prefetch_to_device=2), AdamW wd 0.01 + "
+            f"ClipGradByGlobalNorm(1.0) on LinearWarmup to 1e-4, "
+            f"CrossEntropyLoss, Accuracy; epoch 2 of 2 timed, on {card}: "
+            f"step {f['step_ms']} ms, tokens/s {f['tokens_per_s']}, "
+            f"model-FLOP share {u['model_flop_share']} (flops/token "
+            f"{u['flops_per_token']}); max_memory_allocated "
+            f"{f['max_memory_allocated_gib']} GiB; prefetch {f['prefetch']}; "
+            f"launches {f['launches']} over 2 epochs, timed epoch "
+            f"{f['launches_timed_epoch']}  [{card}]")
+        log(f"    losses {f['losses']}; step ms (batch begin to end) "
+            f"{f['step_ms_each']}; fit {f['fit_s']:.2f} s; set-up "
+            f"{u['setup_s']:.1f} s")
+        log(f"    hapi step ms {u['hapi_step_ms']} against the hand-written "
+            f"loop's {u['loop_step_ms']}, alternated in this process: "
+            f"hapi / loop {u['hapi_over_loop']}; loop losses "
+            f"{[lp['losses'][-1] for lp in u['loops']]}  [{card}]")
+        log(f"    evaluate {u['eval']} in {u['eval_s']:.2f} s, launches "
+            f"{u['eval_launches']}; predict {u['predict_s']:.2f} s, "
+            f"launches {u['predict_launches']}; save {u['save_s']:.2f} s "
+            f"({u['ckpt_bytes']}), load {u['load_s']:.2f} s, reloaded "
+            f"predictions bit-equal {u['reload_bit_equal']}, step count "
+            f"{u['reload_step_count']}  [{card}]")
+        for key in ("profile", "profile_loop"):
+            if key in u:
+                log(f"    {key} on {card}: {json.dumps(u[key])}")
+        log(f"    phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        v = hapi_parity(torch, pt, bert, flash_attn)
+        log(f"(v) fp32 hapi path, card (ring loader, kernels) against CPU "
+            f"(single-process loader, plain versions), ERNIE widths, 2 "
+            f"layers, {list(HAPI_PARITY)}, 3 fit steps: loss rel errs "
+            f"{[f'{x:.2e}' for x in v['loss_rel_err']]} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e}); max param err / max|param| "
+            f"{v['param_rel_err_max']:.2e} ({v['param_rel_err_worst']}; tol "
+            f"{FP32_TOL:.0e}); evaluate {v['eval_card']} against "
+            f"{v['eval_cpu']} (loss rel err {v['eval_loss_rel_err']:.2e}); "
+            f"predict err / max|ref| {v['predict_err']:.2e} (tol "
+            f"{HAPI_PARITY_TOL:.0e}); flash fwd / dq / dk-dv launches "
+            f"{v['flash_launches']}; phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        core._state.expected_place = prev
+
+
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
 # the main path in the result line)
 REPORT = {
@@ -3423,7 +3909,8 @@ def report(torch, cases, launches, train, t_start):
     fwd["launches_flagship"] = launches["flash_attention_fwd_flagship"]
     fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
     for k in kernels:
-        for path in ("ernie", "eager_ernie", "eager_encoder"):
+        for path in ("ernie", "eager_ernie", "eager_encoder", "hapi",
+                     "hapi_eval"):
             if f"{k['name']}_{path}" in launches:
                 k[f"launches_{path}"] = launches[f"{k['name']}_{path}"]
     log(f"total {time.perf_counter() - t_start:.1f} s")

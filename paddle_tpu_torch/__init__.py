@@ -59,15 +59,29 @@ gradient clipping (``nn.ClipGrad*``), the losses (``nn.functional.loss``,
 ``nn.CrossEntropyLoss`` ...), ``amp`` (``auto_cast`` with the
 reference's op lists, ``GradScaler``) and dropout masks drawn on the
 tensor's device.
+
+The fourteenth slice ports the high-level training API: ``io``
+(datasets, samplers, ``DataLoader`` in its four modes with the native ring
+and ``prefetch_to_device``, ``save`` / ``load`` in the reference's
+format), ``runtime`` (the C++ staging pool and ring, built by g++ at
+first use), ``metric``, ``hapi`` (``Model``, callbacks, ``summary``) and
+``InputSpec`` (``jit``, ``static``).
 """
 from . import amp, autograd, nn, optimizer, regularizer
+from . import io, jit, metric, static
 from .autograd import grad, no_grad
+from .hapi import callbacks
+from .hapi.model import Model
+from .hapi.model_summary import summary
+from .io.serialization import load, save
 from .device import DEFAULT_DEVICE, card_info, resolve_device
 from .framework import get_device, seed, set_device
 from .tensor import (Tensor, concat, matmul, mean, reshape, split, sum,
                      to_tensor, transpose)
 
-__all__ = ["DEFAULT_DEVICE", "Tensor", "amp", "autograd", "card_info",
-           "concat", "get_device", "grad", "matmul", "mean", "nn", "no_grad",
-           "optimizer", "regularizer", "reshape", "resolve_device", "seed",
-           "set_device", "split", "sum", "to_tensor", "transpose"]
+__all__ = ["DEFAULT_DEVICE", "Model", "Tensor", "amp", "autograd",
+           "callbacks", "card_info", "concat", "get_device", "grad", "io",
+           "jit", "load", "matmul", "mean", "metric", "nn", "no_grad",
+           "optimizer", "regularizer", "reshape", "resolve_device", "save",
+           "seed", "set_device", "split", "static", "sum", "summary",
+           "to_tensor", "transpose"]

@@ -7,5 +7,5 @@ from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_, clip_grad_value_)
 from .layer import (CrossEntropyLoss, Dropout, Embedding, L1Loss, Layer,
                     LayerList, LayerNorm, Linear, MSELoss, MultiHeadAttention,
-                    NLLLoss, RMSNorm, Sequential, TransformerEncoder,
-                    TransformerEncoderLayer)
+                    NLLLoss, ReLU, RMSNorm, Sequential, Tanh,
+                    TransformerEncoder, TransformerEncoderLayer)

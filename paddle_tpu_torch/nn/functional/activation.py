@@ -1,6 +1,6 @@
 """Activation functionals (counterpart of
-``paddle_tpu/nn/functional/activation.py``; only ``relu``, ``gelu``,
-``selu`` and ``softmax``)."""
+``paddle_tpu/nn/functional/activation.py``; only ``relu``, ``tanh``,
+``gelu``, ``selu`` and ``softmax``)."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +11,10 @@ from ...ops.dispatch import call
 
 def relu(x, name=None):
     return call(torch.relu, x, _name="relu")
+
+
+def tanh(x, name=None):
+    return call(torch.tanh, x, _name="tanh")
 
 
 def gelu(x, approximate=False, name=None):

@@ -1,3 +1,4 @@
+from .activation import ReLU, Tanh
 from .common import Dropout, Embedding, Linear
 from .container import LayerList, Sequential
 from .layers import Layer

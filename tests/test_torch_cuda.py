@@ -1468,3 +1468,148 @@ def test_dropout_mask_and_scaler_flag_stay_on_the_card(dev):
         assert scaler._found_inf is False
     finally:
         core._state.expected_place = prev
+
+
+def test_loader_prefetches_pinned_copies_on_a_side_stream(dev, tmp_path):
+    """The ring loader with ``prefetch_to_device``: batches on the card,
+    each copied from pinned memory on a stream where no kernel of the
+    consumer runs, and every held batch still what it was produced as
+    after the epoch (the ring's slab is never read after its release)."""
+    import json
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+
+    class Distinct(pt.io.Dataset):
+        def __len__(self):
+            return 64
+
+        def __getitem__(self, i):
+            return np.full((4097,), i, np.float32), np.int64(i)
+
+    prev = core._state.expected_place
+    try:
+        pt.set_device("gpu")
+        pt.io.reset_prefetch_stats()
+        loader = pt.io.DataLoader(Distinct(), batch_size=4, num_workers=1,
+                                  prefetch_factor=2, use_native_ring=True,
+                                  prefetch_to_device=2)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            held = []
+            for x, y in loader:
+                held.append((x, y, (x.value * 2).sum()))   # consumer work
+            torch.cuda.synchronize()
+        trace = tmp_path / "loader.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+        h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+               and "HtoD" in e.get("name", "")]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        assert len(h2d) == 32 and kernels
+        assert all("Pinned" in e["name"] for e in h2d), {
+            e["name"] for e in h2d}
+        assert not ({e["args"].get("stream") for e in h2d}
+                    & {e["args"].get("stream") for e in kernels})
+        stats = pt.io.prefetch_stats()
+        assert stats["batches"] == 16 and stats["hits"] + stats["misses"] == 16
+        for b, (x, y, _) in enumerate(held):
+            assert x.value.is_cuda and y.value.is_cuda
+            idx = np.arange(4 * b, 4 * b + 4)
+            np.testing.assert_array_equal(
+                x.numpy(), np.repeat(idx, 4097).reshape(4, 4097))
+            np.testing.assert_array_equal(y.numpy(), idx)
+    finally:
+        core._state.expected_place = prev
+
+
+def test_hapi_classifier_on_card_matches_cpu(dev):
+    """Phase (v) of ``chip_smoke.py`` at a smaller size: an ERNIE
+    classifier (``ErnieModel`` pooled -> ``Linear(H, 2)``) in fp32, H=128,
+    nh=2, 2 layers, [4, 128], numpy weights, through ``Model.fit`` (3
+    steps of AdamW, ``ClipGradByGlobalNorm(1.0)``, ``LinearWarmup``),
+    ``evaluate`` and ``predict`` on the card (the ring loader with
+    prefetch, the flash kernels) and on the CPU (the single-process
+    loader): losses within 1e-5 relative, params within 1e-5 of their
+    max, the evaluation loss and predictions within 1e-4 of max|ref|."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                          num_heads=2, max_seq_len=128, dtype="float32")
+    rng = np.random.default_rng(41)
+    toks = rng.integers(0, 512, (20, 128)).astype(np.int64)
+    labels = toks[:, :1] % 2
+
+    class Tokens(pt.io.Dataset):
+        def __init__(self, lo, hi):
+            self.lo, self.hi = lo, hi
+
+        def __len__(self):
+            return self.hi - self.lo
+
+        def __getitem__(self, i):
+            return toks[self.lo + i], labels[self.lo + i]
+
+    class Classifier(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ernie = bert.ErnieModel(cfg)
+            self.cls = pt.nn.Linear(128, 2)
+
+        def forward(self, t):
+            return self.cls(self.ernie(t)[1])
+
+    weights, out = None, {}
+    prev = core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            net = Classifier()
+            if weights is None:
+                weights = {k: (1 + 0.1 * rng.standard_normal(p.shape)
+                               if k.endswith("_g") else
+                               0.02 * rng.standard_normal(p.shape))
+                           .astype(np.float32)
+                           for k, p in net.state_dict().items()}
+            net.set_state_dict(weights)
+            opt = pt.optimizer.AdamW(
+                learning_rate=pt.optimizer.lr.LinearWarmup(1e-4, 1, 0.0,
+                                                           1e-4),
+                weight_decay=0.01, epsilon=1e-6,
+                grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+                parameters=net.parameters())
+            model = pt.Model(net)
+            model.prepare(opt, pt.nn.CrossEntropyLoss(),
+                          pt.metric.Accuracy())
+            kw = (dict(num_workers=2, use_native_ring=True,
+                       prefetch_to_device=2) if place == "gpu" else {})
+            losses = []
+
+            class Record(pt.callbacks.Callback):
+                def on_train_batch_end(self, step, logs=None):
+                    losses.append(logs["loss"])
+            np.random.seed(7)
+            model.fit(pt.io.DataLoader(Tokens(0, 12), batch_size=4,
+                                       shuffle=True, **kw),
+                      epochs=1, verbose=0, callbacks=[Record()])
+            params = {k: p.numpy() for k, p in net.state_dict().items()}
+            ev = model.evaluate(pt.io.DataLoader(Tokens(12, 20), batch_size=4,
+                                                 **kw), verbose=0)
+            pred = model.predict(pt.io.DataLoader(Tokens(12, 20),
+                                                  batch_size=4, **kw),
+                                 stack_outputs=True)[0]
+            out[place] = losses, params, ev, pred
+    finally:
+        core._state.expected_place = prev
+    (lg, pg, eg, dg), (lc, pc, ec, dc) = out["gpu"], out["cpu"]
+    assert len(lg) == 3
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for k in pc:
+        np.testing.assert_allclose(pg[k], pc[k], rtol=0, err_msg=k,
+                                   atol=1e-5 * np.abs(pc[k]).max())
+    assert eg["acc"] == ec["acc"]
+    assert abs(eg["loss"] - ec["loss"]) <= 1e-4 * abs(ec["loss"])
+    np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-4 * np.abs(dc).max())

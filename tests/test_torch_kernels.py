@@ -433,8 +433,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     the nn API's ``nn``, ``framework``, ``tensor`` and ``autograd``, the
     pretraining path's ``models.bert`` and ``models.common``, and eager
     training's ``optimizer``, ``amp``, ``regularizer``, ``nn.clip`` and
-    the losses among them), leaves ``jax`` and ``paddle_tpu`` out of
-    ``sys.modules``
+    the losses, and the high-level API's ``io``, ``runtime``, ``metric``,
+    ``hapi``, ``jit`` and ``static`` among them), leaves ``jax`` and
+    ``paddle_tpu`` out of ``sys.modules``
     (exact keys: the port's own name starts with ``paddle_tpu``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
@@ -462,7 +463,17 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "        'paddle_tpu_torch.autograd.py_layer',\n"
         "        'paddle_tpu_torch.regularizer', 'paddle_tpu_torch.nn.clip',\n"
         "        'paddle_tpu_torch.nn.functional.loss',\n"
-        "        'paddle_tpu_torch.nn.layer.loss')\n"
+        "        'paddle_tpu_torch.nn.layer.loss',\n"
+        "        'paddle_tpu_torch.io', 'paddle_tpu_torch.io.dataloader',\n"
+        "        'paddle_tpu_torch.io.dataset',\n"
+        "        'paddle_tpu_torch.io.serialization',\n"
+        "        'paddle_tpu_torch.runtime', 'paddle_tpu_torch.runtime.build',\n"
+        "        'paddle_tpu_torch.metric', 'paddle_tpu_torch.hapi',\n"
+        "        'paddle_tpu_torch.hapi.model',\n"
+        "        'paddle_tpu_torch.hapi.callbacks',\n"
+        "        'paddle_tpu_torch.hapi.model_summary',\n"
+        "        'paddle_tpu_torch.jit', 'paddle_tpu_torch.jit.api',\n"
+        "        'paddle_tpu_torch.static')\n"
         "bad += [k for k in need if k not in sys.modules]\n"
         "print(len([k for k in sys.modules if k.startswith('paddle_tpu_torch')]))\n"
         "sys.exit(1 if bad else 0)\n")
