@@ -196,7 +196,54 @@ Phases, each fatal on failure (non-zero exit, no result line):
       single-process loader, plain versions): 3 ``fit`` steps, losses
       within 1e-5 relative, params within 1e-5 of their max; ``evaluate``
       (equal accuracy, loss within 1e-4 relative) and ``predict`` within
-      1e-4 of max|ref|.
+      1e-4 of max|ref|;
+  (w) chunked prefill at full width: (d)'s ``gpt_345m`` weights and 12
+      requests x 32 tokens through ``PagedServingEngine(slots=8,
+      max_len=512, page_size=16, prefill_chunk=16)`` after ``warmup()``,
+      then the same with ``quant="int8", kv_dtype="int8"``, each
+      alternated (two rounds) with the unchunked engine of (d) / (j) on the
+      same requests.  Launch counts, zeroed just before each pass and read
+      just after, must equal (2L + 1) LayerNorms a forward (chunks and
+      decode steps), L paged (int8 paged) attentions a decode step and, on
+      the int8 path, 4L dequant matmuls a forward, 4L a chunk at M = 16
+      and 4L a decode step at M = 8; every prompt must take the chunked
+      path; the decode step stays one graph.  Prints prefill-chunk and
+      decode-step ms, tokens/s, decode tokens/s (tokens from decode steps
+      over their host time), prefix hits and the share of tokens equal to
+      the unchunked engine's (bf16, not asserted).  With ``--profile
+      STEPS`` it also traces up to STEPS iterations that each run one
+      chunk and nothing else, fp and int8;
+  (x) speculative decoding at full width: ``gpt_345m`` with weights from
+      the port's ``init_params`` (seed 1234), 12 numpy-seeded requests of
+      24-120 tokens (3 of every 4 share a 16-token prefix) x 32 tokens
+      through ``SpeculativeServingEngine(spec_k=4, prefill_chunk=16)`` in
+      ``ngram`` mode and in ``draft`` mode with a self-draft (the target's
+      config and seed), on the fp pool and then with int8 weights and
+      pool, alternated (two rounds) with the non-speculative engine on the
+      same requests.  ``decode_compiles`` must be 1 (one verify graph,
+      captured once), ``spec_draft_compiles`` 0 / 2, the self-draft's
+      accepted tokens per verify above 1.5, and the launches exact: per
+      verify W = 5 paged attentions a layer (one a lane, at the decode's
+      call shape) and 2L + 1 LayerNorms ([8, 5, 1024]), 4L dequant
+      matmuls at M = 40 on the int8 path; the draft model's W + k - 1
+      slot decodes a verify and its blocks a 16-token ingestion chunk.
+      Prints accepted tokens per verify, a verify step's ms and its
+      drafting's (ngram: host clock; draft mode: the draft model's span
+      on the card, from CUDA events), tokens/s and decode tokens/s beside
+      the non-speculative engine's.  With ``--profile STEPS`` it also
+      traces STEPS iterations of the fp self-draft engine with every slot
+      decoding, then STEPS replays of its draft step alone;
+  (y) fp32 parity at V=4096, H=256, 2 layers: the chunked engine and
+      both speculative engines, fp and int8 pools, on the card against the
+      CPU (tokens exact, logits within 1e-3), the speculative engines
+      against the non-speculative one on the card (tokens exact), every
+      verify leaving the pool as it was but for its committed positions;
+      then one request through the non-speculative engine, an all-reject
+      speculative run (the reference's ``spec_reject``, every verify forced
+      to accept nothing) and an accepting run: the prompt's positions
+      byte-equal (asserted), the whole pool's equality and the first layer
+      that differs reported, the whole int8 pool equal in both runs
+      (asserted).
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -209,7 +256,8 @@ hd 256, hd 32 and 96 (zero-padded to 64 and 128), B * nh = 65,600,
 (p)'s [64, 512, 12, 64] non-causal and
 heads wider than 256 (hd 320, 384, 512, 640: the kernels' head-width
 groups);
-LayerNorm also at the 345M training rows [8, 1024, 1024], H = 6, 7, 1001
+LayerNorm also at the prefill chunk's [1, 16, 1024] and the verify's
+[8, 5, 1024], the 345M training rows [8, 1024, 1024], H = 6, 7, 1001
 and 70001, a transposed view and a view 4 bytes off alignment; both paged kernels also at hd 24 and 80; the
 paged attention also at one slot of 8,191 positions (V with a mean per
 channel, gated per element at 2^-8 + 2^-6 sum_j p_j |v_j| in bf16), each
@@ -243,7 +291,8 @@ fewer rows) are scaled by 1 + 2^-4, timed against
 versions: the dequant matmul at the four decode shapes (M = 8), the
 prefill shapes M = 4096 x (1024, 4096), (1024, 3072) and (4096, 1024), M
 = 16 and 17 (the two sides of its regime threshold), 64, 65 and 1000 at
-(1024, 4096), and the JAX tests' shapes, each
+(1024, 4096), the prefill chunk's M = 16 at (1024, 3072) and (4096, 1024),
+the verify's M = 40 at all four weights, and the JAX tests' shapes, each
 also timed against cuBLAS on weights dequantized beforehand; int8 paged
 attention at the serving decode shape, the JAX tests' shapes, a lane of
 length 0, hd 24 and 80, 16 ragged slots over 64 pages and one slot of
@@ -254,7 +303,9 @@ split plan (``grid_plan_ms``) beside their own.
 Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
 three flash rows with their launches on each training path, among them
 ``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``
-and ``launches_hapi_eval``) and the
+and ``launches_hapi_eval``; the serving rows with ``launches_chunked``,
+``launches_chunked_quant``, ``launches_spec``, ``launches_spec_quant``
+and the dequant matmul's ``launches_spec_quant_m40``) and the
 ``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every float32 matmul
 and convolution here, so fp32 comparisons are fp32.
@@ -655,6 +706,8 @@ def check_kernels(torch, paged_attn, norms):
             ((16, 1, 1024), "decode 16 rows", False, None),
             ((4, 256, 1024), "prefill 4x256 rows", False, None),
             ((8, 1, 1024), "decode 8 rows (serving)", False, None),
+            ((1, 16, 1024), "prefill chunk 16 rows (w)", False, None),
+            ((8, 5, 1024), "verify 8 x 5 rows (x)", False, None),
             ((6, 2048, 2048), "flagship, g b in x's dtype", True, None),
             ((8, 1024, 1024), "345M training rows", False, None),
             ((8, 512, 768), "encoder, g b in x's dtype", True, None),
@@ -1346,6 +1399,12 @@ def check_quant_kernels(torch, gpt, dqmm, paged_attn):
               ((8, 4096, 1024), "decode fc2"),
               ((4096, 1024, 4096), "prefill fc1"),
               ((16, 1024, 4096), "M=16, the last streamed M"),
+              ((16, 1024, 3072), "M=16 chunk qkv (w)"),
+              ((16, 4096, 1024), "M=16 chunk fc2 (w)"),
+              ((40, 1024, 3072), "M=40 verify qkv (x)"),
+              ((40, 1024, 1024), "M=40 verify proj (x)"),
+              ((40, 1024, 4096), "M=40 verify fc1 (x)"),
+              ((40, 4096, 1024), "M=40 verify fc2 (x)"),
               ((17, 1024, 4096), "M=17, the first wgmma M"),
               ((64, 1024, 4096), "M=64"), ((65, 1024, 4096), "M=65"),
               ((1000, 1024, 4096), "M=1000, ragged row tile"),
@@ -2284,8 +2343,10 @@ def main():
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS steady decode steps of the main "
                          "path with torch.profiler (phase f), of the "
-                         "quantized engine (j) and STEPS encoder forwards "
-                         "in each dtype (n)")
+                         "quantized engine (j), STEPS encoder forwards "
+                         "in each dtype (n), up to STEPS prefill chunks "
+                         "(w) and STEPS self-draft iterations and draft "
+                         "steps (x)")
     ap.add_argument("--trace", default="paddle_tpu_torch/_build/"
                     "decode_trace.json",
                     help="where phase (f) writes its Chrome trace")
@@ -2465,6 +2526,10 @@ def main():
 
     # (u), (v): the high-level API (hapi.Model, io.DataLoader) ------------
     hapi_phases(torch, flash_attn, norms, card, args, launches)
+
+    # (w), (x), (y): chunked prefill and speculative decoding --------------
+    spec_phases(torch, gpt, PagedServingEngine, (paged_attn, norms, dqmm),
+                card, launches, args)
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -3838,6 +3903,685 @@ def hapi_phases(torch, flash_attn, norms, card, args, launches):
         core._state.expected_place = prev
 
 
+# (w), (x), (y): chunked prefill and speculative decoding ---------------
+
+SPEC_K = 4                    # (x), (y): draft candidates a verify
+CHUNK = 16                    # (w)-(y): prefill_chunk (the bench's)
+SPEC_ROUNDS = 2               # (w), (x): alternated rounds of each engine
+SPEC_PARITY = dict(V=4096, H=256, nh=4, L=2)   # (y): fp32, small widths
+
+
+def zero_serving_counts(paged_attn, norms, dqmm):
+    paged_attn.launches = paged_attn.quant_launches = 0
+    norms.launches = dqmm.launches = 0
+    dqmm.rows_launches.clear()
+
+
+def serving_counts(paged_attn, norms, dqmm):
+    return {"layer_norm": norms.launches,
+            "paged_attention": paged_attn.launches,
+            "paged_attention_quant": paged_attn.quant_launches,
+            "dequant_matmul": dqmm.launches,
+            "dequant_matmul_by_rows": dict(sorted(
+                dqmm.rows_launches.items()))}
+
+
+def serve_run(torch, eng, prompts, new_tokens, kernels, tag):
+    """One pass of ``prompts`` x ``new_tokens`` through ``eng``, the
+    kernels' launch counts set to 0 just before and read just after.
+    Returns the tokens, wall time, tokens/s (prefill included, as (d)),
+    the mean host-clock ms of this pass's decode steps (verify steps) and
+    prefill chunks, of a verify step's drafting (ngram: host clock; draft
+    mode: the draft model's span on the card, from CUDA events) and the
+    rest of it, the engine counters' increments and the launches."""
+    torch.cuda.synchronize()
+    before = eng.stats()
+    marks = {k: len(getattr(eng, k, ())) for k in
+             ("decode_step_s", "chunk_s", "prefill_s", "verify_s",
+              "draft_s")}
+    zero_serving_counts(*kernels)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new_tokens) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = serving_counts(*kernels)
+    after = eng.stats()
+    if not all(r.done and len(r.tokens) == new_tokens for r in reqs):
+        raise SystemExit(f"{tag}: not every request finished with its "
+                         "tokens")
+    if not all(0 <= t < eng.cfg.vocab_size for r in reqs for t in r.tokens):
+        raise SystemExit(f"{tag}: a generated token is outside the "
+                         "vocabulary")
+
+    def mean_ms(k):
+        xs = getattr(eng, k, [])[marks[k]:]
+        return 1e3 * float(np.mean(xs)) if xs else None
+    gen = sum(len(r.tokens) for r in reqs)
+    # each request's first token comes from its prefill; the rest from
+    # decode (verify) steps, whose host-clock seconds these are
+    step_s = float(np.sum(eng.decode_step_s[marks["decode_step_s"]:]))
+    return {"tokens": [list(r.tokens) for r in reqs], "wall_s": wall,
+            "tokens_per_s": gen / wall,
+            "decode_tokens_per_s": (gen - len(reqs)) / step_s,
+            "step_ms": mean_ms("decode_step_s"),
+            "chunk_ms": mean_ms("chunk_s"), "wave_ms": mean_ms("prefill_s"),
+            "verify_ms": mean_ms("verify_s"),
+            "draft_ms": mean_ms("draft_s"),
+            "delta": {k: after[k] - before[k] for k in (
+                "decode_steps", "prefill_calls", "prefill_chunks",
+                "prefix_page_hits", "spec_steps", "drafted_tokens",
+                "accepted_tokens", "tokens_generated", "preemptions")},
+            "launches": launches}
+
+
+def equal_share(a, b):
+    """Share of equal tokens between two runs' token lists."""
+    x = np.concatenate([np.asarray(t) for t in a])
+    y = np.concatenate([np.asarray(t) for t in b])
+    return float(np.mean(x == y))
+
+
+def check_launch(tag, got, want):
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise SystemExit(f"{tag}: launches (got, expected) {bad}")
+
+
+def profile_chunks(torch, eng, prompt, steps, trace_path):
+    """(w) with ``--profile``: one long prompt alone in ``eng``, then a
+    trace of up to ``steps`` engine iterations that each run one prefill
+    chunk and nothing else (its first chunk, the admission, and its last,
+    which starts its decode, untraced)."""
+    before = eng.stats()
+    eng.submit(prompt, 2)
+    eng.step()
+    n = min(steps, -(-len(prompt) // CHUNK) - 2)
+    out = profile_steps(torch, eng.step, n, "prefill_chunk", trace_path)
+    d = {k: eng.stats()[k] - before[k]
+         for k in ("prefill_chunks", "decode_steps")}
+    if d != {"prefill_chunks": n + 1, "decode_steps": 0}:
+        raise SystemExit(f"(w) profile: the traced iterations were not "
+                         f"chunks alone: {d}")
+    eng.run()
+    return {"prompt_tokens": len(prompt), **out}
+
+
+def profile_spec(torch, eng, prompts, steps, trace_dir):
+    """(x) with ``--profile``: every slot of the draft-mode ``eng``
+    decoding, then traces of ``steps`` engine iterations (the draft
+    model's catch-up-and-draft step and the verify) and of ``steps``
+    replays of the draft step alone on its last inputs (they rewrite the
+    same draft-cache positions with the same values)."""
+    for p in prompts[:eng.slots]:
+        eng.submit(p, 256)
+    while int(eng.stats()["slot_occupancy"]) != eng.slots:
+        eng.step()                  # chunked admissions, one an iteration
+    eng.step()
+    before = eng.stats()["spec_steps"]
+    out = {"spec_step": profile_steps(
+        torch, eng.step, steps, "spec_step",
+        os.path.join(trace_dir, "spec_step_trace.json"))}
+    if eng.stats()["spec_steps"] - before != steps or \
+            int(eng.stats()["slot_occupancy"]) != eng.slots:
+        raise SystemExit("(x) profile: not every traced iteration was a "
+                         "verify over every slot")
+    out["draft_step"] = profile_steps(
+        torch, eng._draft_step, steps, "draft_step",
+        os.path.join(trace_dir, "draft_step_trace.json"))
+    eng.run()
+    return {"active_slots": eng.slots, **out}
+
+
+def chunked_path(torch, gpt, PagedServingEngine, kernels, cfg, params,
+                 prompts, new_tokens, card, profile=0, trace_dir=None):
+    """Phase (w): (d)'s requests through ``prefill_chunk=16`` engines (fp;
+    then int8 weights and pool) beside (d)'s and (j)'s unchunked engines,
+    alternated, exact launch counts on every chunked pass; with
+    ``profile``, :func:`profile_chunks` on each chunked engine."""
+    L = cfg.num_layers
+    res = {}
+    for kv in ("fp", "int8"):
+        kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
+        engs = {}
+        t0 = time.perf_counter()
+        for name, chunk in (("chunked", CHUNK), ("unchunked", None)):
+            engs[name] = PagedServingEngine(
+                (params, cfg), device="cuda", slots=8, max_len=512,
+                page_size=16, prefill_chunk=chunk, **kw)
+            engs[name].warmup()
+        warm_s = time.perf_counter() - t0
+        runs = collections.defaultdict(list)
+        for _ in range(SPEC_ROUNDS):
+            for name, eng in engs.items():
+                runs[name].append(serve_run(torch, eng, prompts, new_tokens,
+                                            kernels, f"(w) {kv} {name}"))
+        for r in runs["chunked"]:
+            d, got = r["delta"], r["launches"]
+            fwd = d["decode_steps"] + d["prefill_calls"] + d["prefill_chunks"]
+            if d["prefill_calls"] or d["prefill_chunks"] < len(prompts):
+                raise SystemExit(f"(w) {kv}: every prompt is longer than a "
+                                 f"chunk, yet {d}")
+            want = {"layer_norm": (2 * L + 1) * fwd}
+            if kv == "int8":
+                want.update(paged_attention_quant=L * d["decode_steps"],
+                            paged_attention=0, dequant_matmul=4 * L * fwd)
+                check_launch(f"(w) {kv}", got["dequant_matmul_by_rows"],
+                             {CHUNK: 4 * L * d["prefill_chunks"],
+                              8: 4 * L * d["decode_steps"]})
+            else:
+                want.update(paged_attention=L * d["decode_steps"],
+                            paged_attention_quant=0, dequant_matmul=0)
+            check_launch(f"(w) {kv}", got, want)
+        step = engs["chunked"]._step
+        if engs["chunked"].stats()["decode_compiles"] != 1 or \
+                step.captures != 1:
+            raise SystemExit(f"(w) {kv}: the decode step was built "
+                             f"{engs['chunked'].stats()['decode_compiles']} "
+                             f"times, captured {step.captures}")
+        res[kv] = {"warmup_s": warm_s, "runs": dict(runs),
+                   "tokens_equal_unchunked_share": equal_share(
+                       runs["chunked"][0]["tokens"],
+                       runs["unchunked"][0]["tokens"])}
+        if profile:
+            res[kv]["profile"] = profile_chunks(
+                torch, engs["chunked"], max(prompts, key=len), profile,
+                os.path.join(trace_dir, f"chunk_trace_{kv}.json"))
+        del engs
+        torch.cuda.empty_cache()
+    return res
+
+
+def spec_prompts(V, n=12):
+    """12 numpy-seeded prompts of 24-120 tokens; 3 of every 4 start with
+    the same 16 tokens (a shared system prompt)."""
+    rng = np.random.default_rng(SEED + 15)
+    shared = rng.integers(0, V, 16).astype(np.int32)
+    out = []
+    for i, ln in enumerate(rng.integers(24, 121, n)):
+        p = rng.integers(0, V, int(ln)).astype(np.int32)
+        if i % 4 != 3:
+            p[:16] = shared
+        out.append(p)
+    return out
+
+
+def spec_engines(gpt, PagedServingEngine, SpeculativeServingEngine, cfg,
+                 params, seed, kv, device="cuda", **extra):
+    """The non-speculative engine and the two speculative ones (ngram,
+    and draft with a self-draft: the target's config and ``seed``, the
+    target's ``init_params`` seed) on one pool kind, all with
+    ``prefill_chunk=16``."""
+    kw = dict(device=device, prefill_chunk=CHUNK, **extra)
+    if kv == "int8":
+        kw.update(quant="int8", kv_dtype="int8")
+    return {"base": PagedServingEngine((params, cfg), **kw),
+            "ngram": SpeculativeServingEngine(
+                (params, cfg), spec_mode="ngram", spec_k=SPEC_K, **kw),
+            "draft": SpeculativeServingEngine(
+                (params, cfg), spec_mode="draft", spec_k=SPEC_K,
+                spec_draft_cfg=dataclasses.asdict(cfg),
+                spec_draft_seed=seed, **kw)}
+
+
+def spec_path(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
+              kernels, card, profile=0, trace_dir=None):
+    """Phase (x): full-width ``gpt_345m`` from the port's ``init_params``
+    (seed 1234), 12 requests x 32 tokens through the non-speculative,
+    ngram and self-draft engines (``spec_k=4``, ``prefill_chunk=16``),
+    alternated, on the fp and the int8 pool; exact launch counts; with
+    ``profile``, :func:`profile_spec` on the fp self-draft engine."""
+    cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
+    L, k = cfg.num_layers, SPEC_K
+    W = k + 1
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cuda")
+    init_s = time.perf_counter() - t0
+    prompts = spec_prompts(cfg.vocab_size)
+    new_tokens = 32
+    ingest = sum(-(-len(p) // 16) for p in prompts)   # draft chunks of 16
+    res = {"init_s": init_s,
+           "prompt_lens": [len(p) for p in prompts]}
+    for kv in ("fp", "int8"):
+        t0 = time.perf_counter()
+        engs = spec_engines(gpt, PagedServingEngine,
+                            SpeculativeServingEngine, cfg, params, SEED, kv,
+                            slots=8, max_len=512, page_size=16)
+        for eng in engs.values():
+            eng.warmup()
+        warm_s = time.perf_counter() - t0
+        runs = collections.defaultdict(list)
+        for _ in range(SPEC_ROUNDS):
+            for name, eng in engs.items():
+                runs[name].append(serve_run(torch, eng, prompts, new_tokens,
+                                            kernels, f"(x) {kv} {name}"))
+        for name in ("ngram", "draft"):
+            eng = engs[name]
+            st = eng.stats()
+            if st["decode_compiles"] != 1 or eng._step.captures != 1:
+                raise SystemExit(f"(x) {kv} {name}: decode_compiles "
+                                 f"{st['decode_compiles']}, captures "
+                                 f"{eng._step.captures}")
+            want_d = 0 if name == "ngram" else 2
+            if st["spec_draft_compiles"] != want_d:
+                raise SystemExit(f"(x) {kv} {name}: spec_draft_compiles "
+                                 f"{st['spec_draft_compiles']}")
+            for r in runs[name]:
+                d, got = r["delta"], r["launches"]
+                if d["preemptions"]:
+                    raise SystemExit(f"(x): a preemption: {d}")
+                fwd = (d["spec_steps"] + d["prefill_calls"]
+                       + d["prefill_chunks"])
+                dfwd = (W + k - 1) * d["spec_steps"] if name == "draft" \
+                    else 0
+                dblk = ingest if name == "draft" else 0
+                want = {"layer_norm": (2 * L + 1) * (fwd + dfwd)
+                        + 2 * L * dblk}
+                attn = "paged_attention_quant" if kv == "int8" \
+                    else "paged_attention"
+                want[attn] = W * L * d["spec_steps"]
+                if kv == "int8":
+                    want["dequant_matmul"] = 4 * L * fwd
+                    check_launch(f"(x) {kv} {name}",
+                                 got["dequant_matmul_by_rows"],
+                                 {8 * W: 4 * L * d["spec_steps"],
+                                  CHUNK: 4 * L * d["prefill_chunks"]})
+                check_launch(f"(x) {kv} {name}", got, want)
+            r["accepted_tokens_per_step"] = st["accepted_tokens_per_step"]
+        acc = engs["draft"].stats()["accepted_tokens_per_step"]
+        if not acc > 1.5:
+            raise SystemExit(f"(x) {kv}: self-draft acceptance {acc} per "
+                             "verify, not above 1.5")
+        res[kv] = {
+            "warmup_s": warm_s, "runs": dict(runs),
+            "accepted_tokens_per_step": {
+                n: engs[n].stats()["accepted_tokens_per_step"]
+                for n in ("ngram", "draft")},
+            "tokens_equal_base_share": {
+                n: equal_share(runs[n][0]["tokens"], runs["base"][0]["tokens"])
+                for n in ("ngram", "draft")}}
+        if profile and kv == "fp":
+            res[kv]["profile"] = profile_spec(torch, engs["draft"], prompts,
+                                              profile, trace_dir)
+        del engs
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def window_probe(eng, record):
+    """While open, each verify of ``eng`` checks that the pool changed
+    only at the positions it committed (``lens[s] .. lens[s] + n_commit[s]
+    - 1`` of each active slot) and on scratch page 0, and appends the
+    count of other changed positions to ``record``: rejected lanes leave
+    no trace.  Wraps the verify step's ``__call__``; other engines' steps
+    pass through."""
+    from paddle_tpu_torch.inference import speculative
+    cls = speculative._VerifyStep
+    real = cls.__call__
+    ps = eng._page_size
+
+    def probe(step, before=None):
+        if step._eng is not eng:
+            return real(step, before)
+        pre = [t.clone() for t in eng._cache_operands()]
+        lens, tables = eng._lens.copy(), eng._tables_np.copy()
+        active = eng._active.copy()
+        out = real(step, before)
+        W = eng._spec_k_val + 1
+        allowed = np.zeros(pre[0].shape[1:3], bool)     # [P, ps]
+        allowed[0] = True
+        for s in np.nonzero(active)[0]:
+            for pos in range(int(lens[s]), int(lens[s]) + int(out[0][s, W])):
+                allowed[tables[s, pos // ps], pos % ps] = True
+        bad = 0
+        for t, p in zip(eng._cache_operands(), pre):
+            ch = (t != p).reshape(t.shape[0], t.shape[1], t.shape[2], -1)
+            ch = ch.any(3).any(0).cpu().numpy()
+            bad += int((ch & ~allowed).sum())
+        record.append(bad)
+        return out
+
+    cls.__call__ = probe
+    try:
+        yield record
+    finally:
+        cls.__call__ = real
+
+
+def pool_compare(torch, a, b):
+    """(pages 1.. byte-equal, max |difference| as floats) of two pools."""
+    eq, diff = True, 0.0
+    for x, y in zip(a._cache_operands(), b._cache_operands()):
+        eq = eq and bool(torch.equal(x[:, 1:], y[:, 1:]))
+        diff = max(diff, float((x[:, 1:].float() - y[:, 1:].float()).abs()
+                               .max()))
+    return eq, diff
+
+
+def spec_parity(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
+                norms):
+    """Phase (y), fp32, 2 layers, small widths: the chunked and both
+    speculative engines (fp and int8 pools) on the card against the CPU
+    (tokens exact, logits within 1e-3), the speculative ones against the
+    non-speculative on the card (tokens exact), every verify's writes
+    limited to its committed positions, and :func:`pool_bytes`."""
+    c = SPEC_PARITY
+    cfg = gpt.GPTConfig(vocab_size=c["V"], hidden_size=c["H"],
+                        num_layers=c["L"], num_heads=c["nh"],
+                        max_seq_len=256, dtype="float32", use_flash=False,
+                        remat=False, use_pallas_norm=True)
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(SEED + 16),
+                             device="cpu")
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [rng.integers(0, c["V"], n).astype(np.int32)
+               for n in (40, 21, 57, 18)]
+    prompts[2][:16] = prompts[0][:16]
+    new_tokens = 16
+    ekw = dict(slots=4, max_len=128, page_size=16, capture_logits=True)
+    out = {}
+    for kv in ("fp", "int8"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            engs = spec_engines(gpt, PagedServingEngine,
+                                SpeculativeServingEngine, cfg, params,
+                                SEED + 16, kv, device=dev, **ekw)
+            probes = []
+            runs[dev] = {}
+            with contextlib.ExitStack() as stack:
+                for name in ("ngram", "draft"):
+                    if dev == "cuda":
+                        stack.enter_context(window_probe(engs[name], probes))
+                for name, eng in engs.items():
+                    reqs = [eng.submit(p, new_tokens) for p in prompts]
+                    eng.run()
+                    runs[dev][name] = reqs
+            if dev == "cuda":
+                st = {n: engs[n].stats() for n in engs}
+                compiles = {n: (st[n]["decode_compiles"],
+                                st[n]["spec_draft_compiles"]) for n in st}
+                out.setdefault(kv, {})["window_writes_outside_commit"] = (
+                    sum(probes), len(probes))
+                if sum(probes) or not probes:
+                    raise SystemExit(f"(y) {kv}: a verify wrote outside its "
+                                     f"committed positions: {probes}")
+        res = out.setdefault(kv, {})
+        res["compiles"] = compiles
+        for name in ("base", "ngram", "draft"):
+            a, b = runs["cuda"][name], runs["cpu"][name]
+            tok = all(x.tokens == y.tokens for x, y in zip(a, b))
+            err = max(float(np.abs(np.stack(x.logits) - np.stack(y.logits))
+                            .max()) for x, y in zip(a, b))
+            res[f"{name}_card_vs_cpu"] = {"tokens_equal": tok,
+                                          "max_logit_err": err}
+            if not tok or not err <= PARITY_LOGIT_TOL:
+                raise SystemExit(f"(y) {kv} {name}: card against CPU: "
+                                 f"tokens equal {tok}, max |logit diff| "
+                                 f"{err:.3e}")
+        for name in ("ngram", "draft"):
+            same = all(x.tokens == y.tokens for x, y in zip(
+                runs["cuda"][name], runs["cuda"]["base"]))
+            res[f"{name}_tokens_equal_base"] = same
+            if not same:
+                raise SystemExit(f"(y) {kv} {name}: the speculative engine's "
+                                 "tokens differ from the non-speculative "
+                                 "engine's on the card")
+        if compiles["ngram"] != (1, 0) or compiles["draft"] != (1, 2):
+            raise SystemExit(f"(y) {kv}: compiles {compiles}")
+        res.update(pool_bytes(torch, gpt, PagedServingEngine,
+                              SpeculativeServingEngine, cfg, params, kv,
+                              prompts[0]))
+        res["row_invariance"] = row_invariance(
+            torch, gpt, norms, cfg, params, kv, 2, SPEC_K + 1)
+    return out
+
+
+def row_invariance(torch, gpt, norms, cfg, params, kv, S, W):
+    """Which of a block's ops give lane 0 of a verify window ([S, W] rows)
+    other bits than the one-token decode ([S, 1] rows) on the same input
+    rows: the four weight matmuls (cuBLAS; the dequant matmul with int8
+    weights), the LayerNorm kernel and the tied head, on random inputs in
+    the compute dtype.  Returns {op: max |difference|} (0.0: the same
+    bits)."""
+    cd = gpt.torch_dtype(cfg.dtype)
+    def to_card(t):
+        return ({k: to_card(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to("cuda"))
+    p = params if kv == "fp" else gpt.quantize_params(params, "int8")
+    p = gpt.prepare_params(to_card(p), cfg)
+    blk = gpt.layer(p, 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    out = {}
+
+    def lanes(fn, K):
+        x = torch.randn((S, W, K), device="cuda", generator=gen).to(cd)
+        with torch.inference_mode():
+            full = fn(x)[:, 0]
+            one = fn(x[:, :1].contiguous())[:, 0]
+        return float((full.float() - one.float()).abs().max())
+    for name in ("qkv_w", "proj_w", "fc1_w", "fc2_w"):
+        w = blk[name]
+        K = (w["qw"] if isinstance(w, dict) else w).shape[0]
+        if isinstance(w, dict):
+            out[name] = lanes(lambda x: gpt._q_matmul(x, w, cd), K)
+        else:
+            w2 = w.reshape(K, -1)
+            out[name] = lanes(lambda x: x @ w2, K)
+    H = cfg.hidden_size
+    out["layer_norm"] = lanes(
+        lambda x: norms.layer_norm(x, blk["ln1_g"], blk["ln1_b"]), H)
+    out["head"] = lanes(lambda x: x @ p["wte_cd"].T, H)
+    return out
+
+
+def pool_bytes(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
+               cfg, params, kv, prompt):
+    """(y)'s pool bytes on the card: one request through the
+    non-speculative engine, an all-reject speculative run (every verify
+    forced to accept nothing) and an accepting one.  Every verify must
+    leave the pool as it was but for its committed positions (asserted);
+    the prompt's positions, written by the same chunks, must equal the
+    non-speculative engine's (asserted); whether the whole pool does, and
+    the first layer whose bytes differ, are reported, and on the int8
+    pool the whole pool must be equal in both runs (asserted: its codes
+    and scales are the same bits on the card; the fp pool's projections
+    at M = S * W round otherwise, ROADMAP Queue 3)."""
+    kw = dict(device="cuda", slots=2, max_len=64, page_size=16,
+              prefill_chunk=CHUNK)
+    if kv == "int8":
+        kw.update(quant="int8", kv_dtype="int8")
+    engs = {"base": PagedServingEngine((params, cfg), **kw)}
+    probes = []
+    for mode in ("reject", "accept"):
+        engs[mode] = SpeculativeServingEngine(
+            (params, cfg), spec_mode="ngram", spec_k=SPEC_K, **kw)
+    engs["reject"]._spec_reject = lambda step: True
+    ps = 16
+    tables = {}
+    with contextlib.ExitStack() as stack:
+        for mode in ("reject", "accept"):
+            stack.enter_context(window_probe(engs[mode], probes))
+        for name, eng in engs.items():
+            req = eng.submit(prompt, 20)
+            while not eng._active.any():
+                eng.step()
+            tables[name] = eng._tables_np[req.slot].copy()
+            eng.run()
+    if sum(probes) or not probes:
+        raise SystemExit(f"(y) {kv}: a verify wrote outside its committed "
+                         f"positions: {probes}")
+    n = len(prompt)
+    res = {}
+    for mode in ("reject", "accept"):
+        a, b = engs["base"], engs[mode]
+        eq, diff = pool_compare(torch, a, b)
+        prompt_eq = all(
+            bool(torch.equal(x[:, int(tables["base"][p // ps]), p % ps],
+                             y[:, int(tables[mode][p // ps]), p % ps]))
+            for x, y in zip(a._cache_operands(), b._cache_operands())
+            for p in range(n))
+        layers = [all(bool(torch.equal(x[i, 1:], y[i, 1:])) for x, y in
+                      zip(a._cache_operands(), b._cache_operands()))
+                  for i in range(cfg.num_layers)]
+        res[f"{mode}_pool_equal"] = eq
+        res[f"{mode}_pool_max_diff"] = diff
+        res[f"{mode}_layers_equal"] = layers
+        res[f"{mode}_prompt_positions_equal"] = prompt_eq
+        res[f"{mode}_accepted_tokens"] = b.stats()["accepted_tokens"]
+        if not prompt_eq:
+            raise SystemExit(f"(y) {kv} {mode}: the prompt's positions differ "
+                             "from the non-speculative engine's")
+        if kv == "int8" and not eq:
+            raise SystemExit(f"(y) int8 {mode}: the pool differs from the "
+                             f"non-speculative engine's (max diff {diff:.3e}"
+                             f", layers equal {layers})")
+    res["verifies_probed"] = len(probes)
+    return res
+
+
+def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
+                args):
+    """Phases (w), (x), (y), logged; their launches go into
+    ``launches``.  With ``--profile`` (w) and (x) are traced too."""
+    trace_dir = os.path.dirname(os.path.abspath(args.trace))
+    from paddle_tpu_torch.inference.speculative import (
+        SpeculativeServingEngine)
+    paged_attn, norms, dqmm = kernels
+
+    # (w) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
+    params = gpt.params_from_numpy(numpy_gpt_params(cfg, SEED), "cuda")
+    prompts = make_prompts(cfg.vocab_size)
+    w = chunked_path(torch, gpt, PagedServingEngine, kernels, cfg, params,
+                     prompts, 32, card, args.profile, trace_dir)
+    del params
+    torch.cuda.empty_cache()
+    for kv, r in w.items():
+        ch, un = r["runs"]["chunked"], r["runs"]["unchunked"]
+        sfx = "_quant" if kv == "int8" else ""
+        for k in ("layer_norm", "paged_attention", "paged_attention_quant",
+                  "dequant_matmul"):
+            if ch[0]["launches"][k]:
+                launches[f"{k}_chunked{sfx}"] = ch[0]["launches"][k]
+        log(f"(w) chunked prefill (prefill_chunk={CHUNK}) of gpt_345m, "
+            f"{kv} {'(int8 weights and pool, (j)) ' if sfx else '((d)) '}"
+            f"the 12 requests x 32 tokens, alternated with the unchunked "
+            f"engine, on {card}:")
+        for i, (a, b) in enumerate(zip(ch, un)):
+            log(f"    round {i + 1}: chunked tokens/s {a['tokens_per_s']} "
+                f"(decode tokens/s {a['decode_tokens_per_s']}), "
+                f"prefill chunk {a['chunk_ms']} ms x "
+                f"{a['delta']['prefill_chunks']}, decode step "
+                f"{a['step_ms']} ms x {a['delta']['decode_steps']}, wall "
+                f"{a['wall_s']:.3f} s, prefix hits "
+                f"{a['delta']['prefix_page_hits']}; unchunked tokens/s "
+                f"{b['tokens_per_s']} (decode tokens/s "
+                f"{b['decode_tokens_per_s']}), prefill wave {b['wave_ms']} "
+                f"ms x {b['delta']['prefill_calls']}, decode step "
+                f"{b['step_ms']}"
+                f" ms x {b['delta']['decode_steps']}, wall "
+                f"{b['wall_s']:.3f} s")
+        log(f"    launches a chunked pass {ch[0]['launches']}; tokens equal "
+            f"to the unchunked engine's: {r['tokens_equal_unchunked_share']}"
+            f" (bf16: chunks and waves round differently; not asserted); "
+            f"warmup {r['warmup_s']:.1f} s  [{card}]")
+        if "profile" in r:
+            log(f"    {kv} prefill-chunk profile (one {CHUNK}-token chunk "
+                f"an iteration) on {card}: {json.dumps(r['profile'])}")
+    log(f"    phase {time.perf_counter() - t0:.1f} s")
+
+    # (x) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    x = spec_path(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
+                  kernels, card, args.profile, trace_dir)
+    for kv, r in x.items():
+        if kv not in ("fp", "int8"):
+            continue
+        sfx = "_quant" if kv == "int8" else ""
+        ng = r["runs"]["ngram"][0]["launches"]
+        for k in ("layer_norm", "paged_attention", "paged_attention_quant",
+                  "dequant_matmul"):
+            if ng[k]:
+                launches[f"{k}_spec{sfx}"] = ng[k]
+        if kv == "int8":
+            launches["dequant_matmul_spec_quant_m40"] = ng[
+                "dequant_matmul_by_rows"].get(8 * (SPEC_K + 1), 0)
+        log(f"(x) speculative decoding (spec_k={SPEC_K}, prefill_chunk="
+            f"{CHUNK}) of gpt_345m (init_params seed {SEED}), {kv} pool"
+            f"{' and int8 weights' if sfx else ''}, 12 requests (prompts "
+            f"{min(x['prompt_lens'])}-{max(x['prompt_lens'])}, 3 of 4 share 16"
+            f" tokens) x 32 tokens, alternated, on {card}:")
+        for name in ("base", "ngram", "draft"):
+            for i, run in enumerate(r["runs"][name]):
+                d = run["delta"]
+                log(f"    {name:5s} round {i + 1}: tokens/s "
+                    f"{run['tokens_per_s']}, decode tokens/s "
+                    f"{run['decode_tokens_per_s']}, decode/verify step "
+                    f"{run['step_ms']} ms x {d['decode_steps']} (drafting "
+                    f"{run['draft_ms']} ms, the rest {run['verify_ms']} ms)"
+                    f", prefill chunk {run['chunk_ms']} ms x "
+                    f"{d['prefill_chunks']}, accepted {d['accepted_tokens']}"
+                    f" of {d['drafted_tokens']} drafted, wall "
+                    f"{run['wall_s']:.3f} s")
+        log(f"    accepted tokens per verify (committed per row-verify) "
+            f"{r['accepted_tokens_per_step']}; tokens equal to the "
+            f"non-speculative engine's {r['tokens_equal_base_share']} (bf16,"
+            f" not asserted); launches a pass: ngram "
+            f"{r['runs']['ngram'][0]['launches']}, draft "
+            f"{r['runs']['draft'][0]['launches']}; decode_compiles 1, "
+            f"spec_draft_compiles 0 / 2; warmup {r['warmup_s']:.1f} s  "
+            f"[{card}]")
+        if "profile" in r:
+            log(f"    self-draft profile (every slot decoding; the whole "
+                f"iteration, then the draft step alone) on {card}: "
+                f"{json.dumps(r['profile'])}")
+    log(f"    phase {time.perf_counter() - t0:.1f} s (draft weights drawn on "
+        f"the host in {x['init_s']:.1f} s)")
+
+    # (y) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    y = spec_parity(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
+                    norms)
+    for kv, r in y.items():
+        log(f"(y) fp32 {kv} pool, V={SPEC_PARITY['V']}, H={SPEC_PARITY['H']}"
+            f", {SPEC_PARITY['L']} layers, 4 requests x 16 tokens, "
+            f"prefill_chunk={CHUNK}, spec_k={SPEC_K}: card against CPU "
+            + "; ".join(f"{n} tokens equal "
+                        f"{r[f'{n}_card_vs_cpu']['tokens_equal']}"
+                        f", max |logit diff| "
+                        f"{r[f'{n}_card_vs_cpu']['max_logit_err']:.3e}"
+                        for n in ("base", "ngram", "draft"))
+            + f" (tol {PARITY_LOGIT_TOL:.0e}); on the card ngram / draft "
+            f"tokens equal the non-speculative engine's "
+            f"{r['ngram_tokens_equal_base']} / {r['draft_tokens_equal_base']}"
+            f"; verify writes outside the committed positions "
+            f"{r['window_writes_outside_commit'][0]} in "
+            f"{r['window_writes_outside_commit'][1]} verifies; compiles "
+            f"{r['compiles']}")
+        whole = ("; whole pool equal in both (asserted)" if kv == "int8"
+                 else "")
+        log(f"    pool bytes against the non-speculative engine (1 request,"
+            f" 20 tokens; {r['verifies_probed']} verifies, none wrote outside"
+            f" its committed positions, asserted): all-reject run equal "
+            f"{r['reject_pool_equal']} (max diff "
+            f"{r['reject_pool_max_diff']:.3e}, layers equal "
+            f"{r['reject_layers_equal']}); accepting run "
+            f"({r['accept_accepted_tokens']} accepted) equal "
+            f"{r['accept_pool_equal']} (max diff "
+            f"{r['accept_pool_max_diff']:.3e}, layers equal "
+            f"{r['accept_layers_equal']}); prompt positions equal in both "
+            f"(asserted){whole}; lane 0 of a [2, {SPEC_K + 1}] window "
+            f"against [2, 1] rows, max |difference| by op (0: the same "
+            f"bits): "
+            f"{r['row_invariance']}")
+    log(f"    phase {time.perf_counter() - t0:.1f} s")
+    return w, x, y
+
+
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
 # the main path in the result line)
 REPORT = {
@@ -3910,7 +4654,8 @@ def report(torch, cases, launches, train, t_start):
     fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
     for k in kernels:
         for path in ("ernie", "eager_ernie", "eager_encoder", "hapi",
-                     "hapi_eval"):
+                     "hapi_eval", "chunked", "chunked_quant", "spec",
+                     "spec_quant", "spec_quant_m40"):
             if f"{k['name']}_{path}" in launches:
                 k[f"launches_{path}"] = launches[f"{k['name']}_{path}"]
     log(f"total {time.perf_counter() - t_start:.1f} s")

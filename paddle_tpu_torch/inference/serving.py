@@ -11,7 +11,11 @@ engine's main path.
   admission wave followed by one page scatter, one
   ``decode_step_paged`` per iteration for every slot, shared-prefix pages
   with copy-on-write, and preemption of the newest request when the pool
-  runs out of pages.
+  runs out of pages.  With ``prefill_chunk`` prompts longer than a chunk
+  are admitted in chunks (``forward_paged_chunk``), one chunk an engine
+  iteration, so in-flight decodes advance between chunks.
+* ``inference/speculative.py`` builds :class:`SpeculativeServingEngine`
+  on this engine: its decode step is a verify of a drafted window.
 * Quantized serving, as in the reference: ``quant="int8"`` stores the
   block matmul weights as int8 with per-output-channel scales (their
   matmuls launch the dequant-matmul kernel), and ``kv_dtype="int8"``
@@ -25,10 +29,10 @@ per engine (:class:`_DecodeStep`, counted by ``decode_compiles``): static
 device inputs fed from one pinned staging array, and on the card one CUDA
 graph of the eager step, captured at the first decode step and replayed
 at every later one.  A failed capture raises; there is no eager mode on
-the card.  Prefill waves and copy-on-write page copies stay eager, on the
-same stream, ordered before the replay.  The host-side numpy mirrors
-(``_lens``, ``_tables_np``, ``_active``) stay the scheduling authority,
-exactly as in the reference.
+the card.  Prefill waves, prefill chunks and copy-on-write page copies
+stay eager, on the same stream, ordered before the replay.  The host-side
+numpy mirrors (``_lens``, ``_tables_np``, ``_active``) stay the scheduling
+authority, exactly as in the reference.
 Decoding is greedy: the parity contract is token-exactness with
 ``models.gpt.generate``.  The telemetry registry, tracing and fault
 injection of the reference are not part of this slice; :meth:`stats`
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import math
 import time
 import uuid
 
@@ -55,7 +60,7 @@ _COUNTERS = ("prefill_calls", "decode_steps", "requests_admitted",
              "requests_completed", "tokens_generated", "queue_rejects",
              "step_aborts", "requests_aborted",
              "prefix_page_hits", "prefix_page_misses", "cow_copies",
-             "preemptions",
+             "preemptions", "prefill_chunks",
              # quantized serving: quantized matmuls run (4 per layer per
              # forward), KV bytes the int8 pool saves against the same
              # pool in the compute dtype (counted once), and this
@@ -68,29 +73,48 @@ _COUNTERS = ("prefill_calls", "decode_steps", "requests_admitted",
              # builds of the engine's decode-step object (one CUDA graph
              # capture on the card): 1 per engine, as the reference's
              # compiled decode step
-             "decode_compiles")
+             "decode_compiles",
+             # speculative decoding (zero on the other engines): draft
+             # candidates proposed, accepted and rejected by the verify,
+             # verify steps, and builds of the draft model's steps
+             "drafted_tokens", "accepted_tokens", "rejected_tokens",
+             "spec_steps", "spec_draft_compiles")
 
 # traffic counters a warmup wave must not inflate
 _WARMUP_QUIET = frozenset(_COUNTERS) - {"queue_rejects", "step_aborts",
                                         "requests_aborted",
                                         "kv_quant_bytes_saved",
-                                        "decode_compiles"}
+                                        "decode_compiles",
+                                        "spec_draft_compiles"}
 
-# the kernel modules' launch counters a captured decode step can move
-# (fused_ffn with cfg.use_fused_ffn): capture takes its increments back,
-# each replay adds them again
+# the kernel modules' launch counters a captured step can move (fused_ffn
+# with cfg.use_fused_ffn; dequant_matmul's by row count, a dict): capture
+# takes its increments back, each replay adds them again
 _LAUNCH_COUNTERS = ((paged_attn, "launches"), (paged_attn, "quant_launches"),
                     (norms, "launches"), (dequant_matmul, "launches"),
+                    (dequant_matmul, "rows_launches"),
                     (fused_ffn, "launches"), (fused_ffn, "bodies"))
 
 
 def _launch_counts():
-    return [getattr(m, a) for m, a in _LAUNCH_COUNTERS]
+    return [dict(v) if isinstance(v, dict) else v
+            for v in (getattr(m, a) for m, a in _LAUNCH_COUNTERS)]
+
+
+def _count_delta(after, before):
+    return [{k: n - b.get(k, 0) for k, n in a.items() if n != b.get(k, 0)}
+            if isinstance(a, dict) else a - b
+            for a, b in zip(after, before)]
 
 
 def _add_launch_counts(delta, sign=1):
     for (m, a), d in zip(_LAUNCH_COUNTERS, delta):
-        setattr(m, a, getattr(m, a) + sign * d)
+        cur = getattr(m, a)
+        if isinstance(cur, dict):
+            for k, n in d.items():
+                cur[k] = cur.get(k, 0) + sign * n
+        else:
+            setattr(m, a, cur + sign * d)
 
 
 def _pow2_ladder(lo, hi):
@@ -109,54 +133,49 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
-class _DecodeStep:
-    """A paged engine's decode step, built once (``decode_compiles``).
+class _GraphStep:
+    """One engine step over static device buffers, built once per engine.
 
-    * Static device inputs: one int32 buffer holds the page table
-      [S, maxP], the write pages, the write offsets, the lens and the last
-      tokens, as slices.  One staging array of the same layout (pinned on
-      the card) holds the host's values: the engine writes them into its
-      numpy views (:attr:`tables`, :attr:`wpages`, :attr:`woffs`,
-      :attr:`lens`, :attr:`toks`) and one non-blocking copy moves them a
-      step.  Rewriting the staging array is safe because every step ends
-      in the readback's sync.
-    * Static outputs: the next tokens (argmax) and the logits; the next
-      tokens come back through a pinned host buffer, then an event sync,
-      the decode loop's one sync point.
-    * On the card the first call runs the eager step over the static
-      buffers on a side stream (the warm-up PyTorch's CUDA-graph notes
-      ask for, which also builds the kernels, sets their attributes and
-      grows their workspaces) and returns its result; the step is then
-      captured into one CUDA graph (``captures``), and every later call
-      replays it.  Capture executes nothing, so its increments of the
-      kernel modules' launch counters are taken back, and each replay adds
-      them again: the launch counts read as if the step ran eagerly.  The
-      graph keeps the workspace and ticket tensors it baked.  A failure to
-      capture raises.  On the CPU the same buffers feed the eager step,
-      with no capture.
-    * The pool tensors are baked into the graph, so the engine zeroes them
-      in place on an abort instead of reallocating them."""
+    * Static device inputs: one int32 buffer holds the step's fields
+      (``fields``: (name, shape) pairs) as views (``_args``).  One staging
+      array of the same layout (pinned on the card) holds the host's
+      values: the engine writes them into its numpy views (the attributes
+      the fields name) and one non-blocking copy moves them a call.
+      Rewriting the staging array is safe once the step that read it has
+      synced; a step launched again before a sync stages from a fresh
+      pinned copy (``fresh``), which the caching host allocator keeps
+      until its copy has run.
+    * :meth:`_run` (each subclass's) returns the step's device outputs.
+    * On the card the first call runs :meth:`_run` over the static buffers
+      on a side stream (the warm-up PyTorch's CUDA-graph notes ask for,
+      which also builds the kernels, sets their attributes and grows their
+      workspaces) and returns its result; the step is then captured into
+      one CUDA graph (``captures``), and every later call replays it.
+      Capture executes nothing, so its increments of the kernel modules'
+      launch counters are taken back, and each replay adds them again:
+      the launch counts read as if the step ran eagerly.  The graph keeps
+      the workspace and ticket tensors it baked.  A failure to capture
+      raises.  On the CPU the same buffers feed the eager step, with no
+      capture.
+    * The tensors the step reads and writes (the pools) are baked into
+      the graph, so the engine zeroes them in place on an abort instead
+      of reallocating them."""
 
-    def __init__(self, eng):
-        S, maxP = eng.slots, eng._pages_per_slot
+    def __init__(self, eng, fields):
         self._eng = eng
         self.device = dev = eng.device
         self._cuda = dev.type == "cuda"
-        n = S * maxP + 4 * S
-        self._stage = torch.zeros(n, dtype=torch.int32,
+        sizes = [math.prod(shape) for _, shape in fields]
+        self._stage = torch.zeros(sum(sizes), dtype=torch.int32,
                                   pin_memory=self._cuda)
-        self._in = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._in = torch.zeros(sum(sizes), dtype=torch.int32, device=dev)
         h = self._stage.numpy()
-        self.tables = h[:S * maxP].reshape(S, maxP)
-        self.wpages, self.woffs, self.lens, self.toks = (
-            h[S * maxP + i * S:S * maxP + (i + 1) * S] for i in range(4))
-        d = self._in
-        self._args = (d[:S * maxP].view(S, maxP),
-                      *(d[S * maxP + i * S:S * maxP + (i + 1) * S]
-                        for i in range(4)))
-        self._next = torch.zeros(S, dtype=torch.int64,
-                                 pin_memory=self._cuda)
-        self.logits = None          # [S, V] fp32 on the device, last call
+        args, off = [], 0
+        for (name, shape), n in zip(fields, sizes):
+            setattr(self, name, h[off:off + n].reshape(shape))
+            args.append(self._in[off:off + n].view(shape))
+            off += n
+        self._args = tuple(args)
         self.captures = 0
         self._graph = None
         self._out = None
@@ -165,6 +184,83 @@ class _DecodeStep:
         if self._cuda:
             self._side = torch.cuda.Stream(dev)
             self._done = torch.cuda.Event()
+
+    def _run(self):
+        raise NotImplementedError
+
+    def _first(self):
+        """The first call on the card: the eager step on the side stream,
+        then the capture (which executes nothing).  Returns the eager
+        step's outputs."""
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            out = self._run()
+        cur.wait_stream(self._side)
+        # collect dead engines first: each holds its steps in a cycle, and
+        # the cyclic collector freeing one's graph, events and pinned
+        # buffers inside this capture would make CUDA calls that
+        # invalidate it (torch.cuda.graph no longer collects on entry)
+        gc.collect()
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self._side):
+                self._out = self._run()
+        finally:
+            after = _launch_counts()
+            _add_launch_counts(_count_delta(after, before), -1)
+        self._delta = _count_delta(after, before)
+        self._held = (paged_attn.held_buffers(self.device)
+                      + dequant_matmul.held_buffers(self.device))
+        self._graph = graph
+        self.captures += 1
+        return out
+
+    def _launch(self, fresh=False, before=None):
+        """The staged values copied in, then ``before(*args)`` (device work
+        on the inputs, such as drafts written into them), then the step
+        (a replay once captured).  Returns its device outputs; nothing
+        waits for them."""
+        src = self._stage
+        if fresh and self._cuda:
+            src = torch.empty(src.shape, dtype=src.dtype,
+                              pin_memory=True).copy_(src)
+        self._in.copy_(src, non_blocking=True)
+        if before is not None:
+            before(*self._args)
+        if self._graph is not None:
+            self._graph.replay()
+            _add_launch_counts(self._delta)
+            return self._out
+        if self._cuda:
+            return self._first()
+        return self._run()
+
+    def _sync(self):
+        """Wait for the work queued so far (the readback's sync point)."""
+        if self._cuda:
+            self._done.record(torch.cuda.current_stream(self.device))
+            self._done.synchronize()
+
+
+class _DecodeStep(_GraphStep):
+    """A paged engine's decode step, built once (``decode_compiles``): its
+    inputs are the page table [S, maxP], the write pages, the write
+    offsets, the lens and the last tokens (:attr:`tables`,
+    :attr:`wpages`, :attr:`woffs`, :attr:`lens`, :attr:`toks`); its
+    outputs the next tokens (argmax) and the logits.  The next tokens come
+    back through a pinned host buffer, then an event sync, the decode
+    loop's one sync point."""
+
+    def __init__(self, eng):
+        S, maxP = eng.slots, eng._pages_per_slot
+        super().__init__(eng, (("tables", (S, maxP)), ("wpages", (S,)),
+                               ("woffs", (S,)), ("lens", (S,)),
+                               ("toks", (S,))))
+        self._next = torch.zeros(S, dtype=torch.int64,
+                                 pin_memory=self._cuda)
+        self.logits = None          # [S, V] fp32 on the device, last call
 
     def _run(self):
         """The eager step over the static inputs: (next tokens, logits)."""
@@ -180,52 +276,13 @@ class _DecodeStep:
                 table, wp, wo, lens)
         return torch.argmax(logits, -1), logits
 
-    def _first(self):
-        """The first call on the card: the eager step on the side stream,
-        then the capture (which executes nothing).  Returns the eager
-        step's outputs."""
-        cur = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            out = self._run()
-        cur.wait_stream(self._side)
-        # collect dead engines first: each holds its step in a cycle, and
-        # the cyclic collector freeing one's graph, events and pinned
-        # buffers inside this capture would make CUDA calls that
-        # invalidate it (torch.cuda.graph no longer collects on entry)
-        gc.collect()
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=self._side):
-                self._out = self._run()
-        finally:
-            after = _launch_counts()
-            _add_launch_counts([a - b for a, b in zip(after, before)], -1)
-        self._delta = [a - b for a, b in zip(after, before)]
-        self._held = (paged_attn.held_buffers(self.device)
-                      + dequant_matmul.held_buffers(self.device))
-        self._graph = graph
-        self.captures += 1
-        return out
-
     @torch.inference_mode()
     def __call__(self):
         """One decode step over the staged values: (next tokens [S] int64,
         logits [S, V] fp32 numpy or None without ``capture_logits``)."""
-        self._in.copy_(self._stage, non_blocking=True)
-        if self._graph is not None:
-            self._graph.replay()
-            _add_launch_counts(self._delta)
-            nxt, self.logits = self._out
-        elif self._cuda:
-            nxt, self.logits = self._first()
-        else:
-            nxt, self.logits = self._run()
+        nxt, self.logits = self._launch()
         self._next.copy_(nxt, non_blocking=True)
-        if self._cuda:
-            self._done.record(torch.cuda.current_stream(self.device))
-            self._done.synchronize()
+        self._sync()
         logits = (self.logits.cpu().numpy() if self._eng.capture_logits
                   else None)
         return self._next.numpy().copy(), logits
@@ -255,6 +312,10 @@ class Request:
         self.logits = None          # per-token [V] rows when captured
         self.slot = None
         self.preemptions = 0        # page-exhaustion evictions survived
+        # the speculative engine's committed tokens its draft model has
+        # not ingested yet (None until the engine activates the row; a
+        # retry starts from the prompt, so it is scrubbed)
+        self.pending_draft = None
         self.done = False
         self.failed = False         # aborted mid-step; re-queueable
         self.error = None
@@ -278,6 +339,7 @@ class Request:
         self.tokens = []
         self.logits = None
         self.slot = None
+        self.pending_draft = None
         self.done = False
         self.failed = False
         self.error = None
@@ -352,6 +414,9 @@ class ServingEngine:
         self.max_queue = int(max_queue if max_queue is not None
                              else 8 * self.slots)
         self.capture_logits = bool(capture_logits)
+        # speculative decoding's identity (the speculative engine sets it)
+        self.spec_mode = None
+        self.spec_k = None
         self._cache_dtype = cache_dtype
         self._build_cache()
         # host-side bookkeeping mirrors: authoritative for scheduling
@@ -452,6 +517,20 @@ class ServingEngine:
         elif len(req.tokens) >= req.max_new_tokens:
             self._finish(req, "length")
 
+    def _append_tokens(self, req, toks, logits_rows=None):
+        """Append a committed window's tokens in order, stopping at the
+        first that finishes the request.  Returns how many were
+        appended."""
+        n = 0
+        for i, tok in enumerate(toks):
+            self._append_token(req, int(tok),
+                               logits_rows[i] if logits_rows is not None
+                               else None)
+            n += 1
+            if req.done:
+                break
+        return n
+
     def _finish(self, req, reason):
         req.done = True
         req.finish_reason = reason
@@ -461,7 +540,7 @@ class ServingEngine:
             s = req.slot
             self._active[s] = False
             self._slot_req[s] = None
-            self._lens[s] = 0
+            gpt.reset_slots(self._lens, s)
         self._inc("requests_completed")
 
     # ------------------------------------------------------------- driving
@@ -557,8 +636,10 @@ class ServingEngine:
                 mnt = min(max_new_tokens, self.max_len - lo)
                 if mnt < 1:
                     continue        # rung unreachable by any admission
-                n = min(s, self.max_len - mnt)
+                n = self._warmup_wave_len(lo, s, mnt)
                 lo = s + 1
+                if n is None:
+                    continue        # rung unreachable by a wave
                 prev = 0
                 for b in self.batch_buckets:
                     wave = prev + 1     # smallest group that pads to b
@@ -573,6 +654,11 @@ class ServingEngine:
             self._warming = False
             self.max_queue = real_max_queue
         return waves
+
+    def _warmup_wave_len(self, lo, s, mnt):
+        """Warmup prompt length that lands in rung ``s`` (whose shortest
+        admissible prompt is ``lo``), or None if no wave reaches it."""
+        return min(s, self.max_len - mnt)
 
     def generate(self, prompts, max_new_tokens=16, eos_token=None):
         """Batch convenience: submit every prompt, run to drain, return the
@@ -600,6 +686,7 @@ class ServingEngine:
         out["tokens_per_s"] = self._tps_value()
         out["quant"] = self.quant
         out["kv_dtype"] = self._kv_dtype
+        out["spec_mode"] = self.spec_mode
         out["tp"] = 1
         out["pp"] = 1
         out.update(self._kv_accounting())
@@ -633,16 +720,23 @@ class PagedServingEngine(ServingEngine):
     ``max_len`` must be a multiple of ``page_size``; seq buckets are
     rounded up to page multiples.  ``kv_dtype="int8"`` keeps the pool in
     int8 with fp32 scales per position and head (K/V quantized once, on
-    write; excludes ``cache_dtype``).  Not in this slice, each raising
-    ``NotImplementedError``: ``prefill_chunk``, ``host_tier_mb``,
-    ``kv_handoff`` (and ``submit_prefilled``), speculative decoding, MoE
+    write; excludes ``cache_dtype``).
+
+    ``prefill_chunk`` (rounded up to a page multiple; at most the largest
+    seq bucket; it must divide ``max_len``): prompts longer than it are
+    admitted in chunks, one chunk an engine iteration
+    (``gpt.forward_paged_chunk``, eager, on the slot's full page table),
+    so in-flight decodes advance between chunks.  Their fresh pages enter
+    the prefix cache as each chunk lands.
+
+    Not in this slice, each raising ``NotImplementedError``:
+    ``host_tier_mb``, ``kv_handoff`` (and ``submit_prefilled``), MoE
     models and ``tp``/``pp``."""
 
     def __init__(self, model, *, page_size=16, num_pages=None,
                  prefix_cache=True, prefill_chunk=None, kv_dtype=None,
                  kv_handoff=False, host_tier_mb=None, **kw):
-        for name, v in (("prefill_chunk", prefill_chunk),
-                        ("host_tier_mb", host_tier_mb or None),
+        for name, v in (("host_tier_mb", host_tier_mb or None),
                         ("kv_handoff", kv_handoff or None)):
             if v is not None:
                 raise NotImplementedError(
@@ -668,6 +762,12 @@ class PagedServingEngine(ServingEngine):
         self._num_pages_cfg = None if num_pages is None else int(num_pages)
         self._prefix_cache_on = bool(prefix_cache)
         self._admit_seq = 0
+        self._prefill_chunk = None          # set once buckets are known
+        self._chunk_jobs = collections.deque()
+        self._chunk_slots = set()
+        # host-clock seconds of each prefill chunk (ending in its
+        # sampled-token readback)
+        self.chunk_s = []
         super().__init__(model, **kw)
         self._kv_dtype = kv_dtype
         if self._kv_saved:
@@ -677,6 +777,18 @@ class PagedServingEngine(ServingEngine):
         # a contiguous strip; buckets round up to whole pages
         self.seq_buckets = tuple(sorted(
             {min(-(-b // ps) * ps, self.max_len) for b in self.seq_buckets}))
+        if prefill_chunk is not None:
+            c = -(-int(prefill_chunk) // ps) * ps
+            if c > self.seq_buckets[-1]:
+                raise ValueError(
+                    f"prefill_chunk {c} exceeds the largest prefill bucket "
+                    f"{self.seq_buckets[-1]}: prompts between them would "
+                    "be unserveable")
+            if self.max_len % c:
+                raise ValueError(
+                    f"prefill_chunk {c} must divide max_len {self.max_len}"
+                    " (a chunk past the page view would be cut)")
+            self._prefill_chunk = c
 
     def submit_prefilled(self, req, first_token, kv_arrays):
         raise NotImplementedError(
@@ -732,6 +844,8 @@ class PagedServingEngine(ServingEngine):
             pool.zero_()
         self._pager = self._new_pager()
         self._tables_np[:] = 0
+        self._chunk_jobs.clear()
+        self._chunk_slots.clear()
 
     def _to_dev(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -744,7 +858,20 @@ class PagedServingEngine(ServingEngine):
                 f"request needs {need_pages} KV pages but the pool only "
                 f"has {self._num_pages - 1}; raise num_pages or shrink "
                 "the request")
+        if self._chunk_eligible(req):
+            return                  # the chunked path ignores the ladder
         super()._check_prompt(req)
+
+    def _chunk_eligible(self, req):
+        return (self._prefill_chunk is not None
+                and len(req.prompt) > self._prefill_chunk)
+
+    def _free_slots(self):
+        return [i for i in range(self.slots)
+                if not self._active[i] and i not in self._chunk_slots]
+
+    def _busy(self):
+        return super()._busy() or bool(self._chunk_jobs)
 
     def _next_admit_seq(self):
         self._admit_seq += 1
@@ -755,14 +882,20 @@ class PagedServingEngine(ServingEngine):
         """Wave admission into pages: consecutive queued requests of one
         seq bucket form a wave; each first acquires its page table (prefix
         hits share physical pages).  Page exhaustion ends the wave; queued
-        requests wait for decodes to free pages."""
+        requests wait for decodes to free pages.  Long prompts go to the
+        chunked path, in queue order."""
+        self._intake_chunked()
         while self._queue and self._free_slots():
+            if self._chunk_eligible(self._queue[0]):
+                break               # the long head waits for intake
             free = self._free_slots()
             group, tables, sbucket, hits_total = [], [], None, 0
             exhausted = False
             while (self._queue and len(group) < len(free)
                    and len(group) < self.batch_buckets[-1]):
                 nxt = self._queue[0]
+                if self._chunk_eligible(nxt):
+                    break
                 nxt_b = self._seq_bucket(len(nxt.prompt))
                 if sbucket is None:
                     sbucket = nxt_b
@@ -863,6 +996,96 @@ class PagedServingEngine(ServingEngine):
         last = logits[torch.arange(b, device=logits.device), idx]   # [b, V]
         return torch.argmax(last, -1), last
 
+    # ------------------------------------------------------ chunked prefill
+    def _intake_chunked(self):
+        """Give each long prompt at the queue head a slot and its whole
+        page table; the chunks run one an engine iteration in
+        :meth:`_advance_chunks`.  Fresh pages are not prefix-registered
+        until their content lands, so a concurrent identical prompt never
+        shares an unwritten page."""
+        if self._prefill_chunk is None:
+            return
+        while self._queue and self._chunk_eligible(self._queue[0]):
+            free = self._free_slots()
+            if not free:
+                return
+            req = self._queue[0]
+            slot = free[0]
+            try:
+                table, hits = self._pager.admit(slot, req.prompt,
+                                                defer_register=True)
+            except PagesExhausted:
+                return              # decodes will free pages
+            self._queue.popleft()
+            req.slot = slot
+            req._chunk_pos = 0
+            # the prefix hits: registered already, their bytes stay
+            req._chunk_held = [self._pager.is_registered(p) for p in table]
+            req._admit_seq = self._next_admit_seq()
+            self._chunk_slots.add(slot)
+            self._chunk_jobs.append(req)
+            self._slot_req[slot] = req
+            self._tables_np[slot] = 0
+            self._tables_np[slot, :len(table)] = table
+            self._inc("prefix_page_hits", hits)
+            self._inc("prefix_page_misses", len(table) - hits)
+
+    def _advance_chunks(self):
+        """Run one prefill chunk of the oldest chunked admission: in-flight
+        decodes get an iteration between every two chunks.  The final
+        chunk's sampled token admits the request into the decode pool."""
+        if not self._chunk_jobs:
+            return
+        req = self._chunk_jobs[0]
+        C = self._prefill_chunk
+        n = len(req.prompt)
+        pos = req._chunk_pos
+        take = min(C, n - pos)
+        toks = np.zeros((1, C), np.int32)
+        toks[0, :take] = req.prompt[pos:pos + take]
+        s = req.slot
+        t0 = time.perf_counter()
+        tok, last = self._chunk(self._to_dev(toks),
+                                self._to_dev(self._tables_np[s]), pos, take,
+                                req._chunk_held)
+        # the chunk's sampled-token readback, its one sync point
+        tok = int(tok)
+        row = last.cpu().numpy() if self.capture_logits else None
+        if not self._warming:
+            self.chunk_s.append(time.perf_counter() - t0)
+        self._inc("prefill_chunks")
+        self._count_quant_matmuls()
+        req._chunk_pos = pos + take
+        self._pager.register_prompt(s, req._chunk_pos)
+        if req._chunk_pos < n:
+            return                  # decode runs before the next chunk
+        self._chunk_jobs.popleft()
+        self._chunk_slots.discard(s)
+        self._lens[s] = n
+        self._active[s] = True
+        self._append_token(req, tok, row)
+        self._last_tok[s] = tok
+        self._inc("requests_admitted")
+
+    @torch.inference_mode()
+    def _chunk(self, toks, row, pos, take, held):
+        """One chunk through ``gpt.forward_paged_chunk`` (its int8 twin on
+        the int8 pool) on the slot's table row, leaving the ``held``
+        prefix-hit pages as they are.  Returns (sampled token, logits of
+        the chunk's last real position [V])."""
+        launched = self._kernel_launches()
+        if self._kv_quant:
+            logits, *_ = gpt.forward_paged_chunk_quant(
+                self.params, toks, self.cfg, self._cache_k, self._cache_ks,
+                self._cache_v, self._cache_vs, row, pos, held)
+        else:
+            logits, *_ = gpt.forward_paged_chunk(
+                self.params, toks, self.cfg, self._cache_k, self._cache_v,
+                row, pos, held)
+        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
+        last = logits[0, take - 1]
+        return torch.argmax(last, -1), last
+
     # ----------------------------------------------------- page lifecycle
     def _finish(self, req, reason):
         s = req.slot
@@ -894,6 +1117,10 @@ class PagedServingEngine(ServingEngine):
             self._active[s] = False
             self._lens[s] = 0
             self._slot_req[s] = None
+            if s in self._chunk_slots:
+                self._chunk_slots.discard(s)
+                if req in self._chunk_jobs:
+                    self._chunk_jobs.remove(req)
         req.reset_for_retry()
         req.preemptions += 1
         req.error = f"preempted: {why}"
@@ -932,6 +1159,7 @@ class PagedServingEngine(ServingEngine):
     # ------------------------------------------------------------- driving
     def _step_inner(self):
         self._admit()
+        self._advance_chunks()
         if not self._active.any():
             return
         wpages, woffs = self._ensure_decode_pages()
@@ -975,11 +1203,34 @@ class PagedServingEngine(ServingEngine):
         return out
 
     # -------------------------------------------------------------- warmup
+    def _warmup_wave_len(self, lo, s, mnt):
+        """Rungs only chunk-eligible prompts reach stay off the wave path;
+        the others get a warmup prompt of at most ``prefill_chunk``."""
+        n = super()._warmup_wave_len(lo, s, mnt)
+        if self._prefill_chunk is None:
+            return n
+        if lo > self._prefill_chunk:
+            return None             # every prompt this long chunks
+        return min(n, self._prefill_chunk)
+
     def warmup(self, max_new_tokens=2):
-        """Base ladder and decode warmup; the synthetic prompt pages are
-        flushed from the prefix cache afterwards so they neither shadow
-        real hits nor hold pages."""
+        """Base ladder and decode warmup, then (with ``prefill_chunk``) one
+        synthetic prompt of two chunks, a full one and a tail; the
+        synthetic prompt pages are flushed from the prefix cache
+        afterwards so they neither shadow real hits nor hold pages."""
         waves = super().warmup(max_new_tokens)
+        c = self._prefill_chunk
+        if c is not None and c + 2 <= self.max_len:
+            self._warming = True
+            real_max_queue = self.max_queue
+            self.max_queue = max(real_max_queue, self.slots,
+                                 self.batch_buckets[-1])
+            try:
+                self.submit(np.ones((c + 1,), np.int32), 1)
+                self.run()
+            finally:
+                self._warming = False
+                self.max_queue = real_max_queue
         self._pager.flush_reclaimable()
         return waves
 
@@ -1000,7 +1251,8 @@ class PagedServingEngine(ServingEngine):
         total = sum(int(a.nbytes) for a in self._cache_operands())
         page_bytes = total // self._num_pages
         in_use = self._pager.pages_in_use()
-        held = int(self._lens.sum())
+        held = int(self._lens.sum()) + sum(
+            int(r._chunk_pos) for r in self._chunk_jobs)
         return {"kv_bytes_reserved": int(in_use * page_bytes),
                 "kv_bytes_total": total,
                 "kv_tokens_held": held,

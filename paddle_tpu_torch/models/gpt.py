@@ -38,8 +38,13 @@ reference's recomputed ``pallas_call``, which nothing reads, is dropped by
 XLA.  One FFN body a block a step, at the cost of one [B, N, H] tensor a
 block.
 
-Not in this slice, each refused by name: MoE FFNs (``moe_experts``),
-chunked prefill and speculative verify.
+The paged engine's chunked prefill (:func:`forward_paged_chunk` and its
+int8 twin), the speculative verify (:func:`decode_step_paged_verify` and
+its int8 twin, whose attention launches the paged-attention wrappers once
+a window lane) and the draft model's slot cache
+(:func:`init_slot_cache`, :func:`decode_step_slots`,
+:func:`draft_prefill_slot`, :func:`draft_catchup_and_draft`) are here
+too.  Not in this slice, refused by name: MoE FFNs (``moe_experts``).
 """
 from __future__ import annotations
 
@@ -553,18 +558,26 @@ def init_cache(cfg: GPTConfig, batch, max_len, dtype=None,
 def _cached_block(cfg, x, blk, k_cache, v_cache, cur_len):
     """block_apply with a cache-appending attention: this chunk's K/V are
     written (in place) at ``cur_len`` and queries attend the filled
-    prefix.  x: [B, T, H]; k_cache/v_cache: [B, max_len, nh, hd]."""
+    prefix.  x: [B, T, H]; k_cache/v_cache: [B, max_len, nh, hd].
+    ``cur_len`` is an int, or a one-element device tensor (the draft
+    prefill), whose positions are written by index."""
     cd = torch_dtype(cfg.dtype)
     hd = cfg.head_dim
     max_len = k_cache.shape[1]
 
     def cached_attn(q, k, v):
         T = q.shape[1]
-        k_cache[:, cur_len:cur_len + T] = k.to(k_cache.dtype)
-        v_cache[:, cur_len:cur_len + T] = v.to(v_cache.dtype)
+        at = cur_len + torch.arange(T, device=q.device)
+        if isinstance(cur_len, torch.Tensor):
+            at = at.long()
+            k_cache[:, at] = k.to(k_cache.dtype)
+            v_cache[:, at] = v.to(v_cache.dtype)
+        else:
+            k_cache[:, cur_len:cur_len + T] = k.to(k_cache.dtype)
+            v_cache[:, cur_len:cur_len + T] = v.to(v_cache.dtype)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                               k_cache.float()) / math.sqrt(hd)
-        q_pos = cur_len + torch.arange(T, device=q.device)[:, None]
+        q_pos = at[:, None]
         k_pos = torch.arange(max_len, device=q.device)[None, :]
         mask = k_pos <= q_pos                   # causal + fill bound
         logits = logits.masked_fill(~mask[None, None], -1e30)
@@ -651,6 +664,89 @@ def trim_eos(sequences, prompt_len, eos_token, include_eos=True):
             end = row.shape[0]
         out.append(row[:end])
     return out
+
+
+# --------------------------------------------------------------------------
+# slot-batched decode (the draft model's KV layout)
+# --------------------------------------------------------------------------
+# A fixed pool of decode slots over one [L, S, max_len, nh, hd] buffer with
+# a per-slot ``len``: each slot's new K/V land at its own length, and its
+# query attends ``k_pos <= len[s]``.  K/V past a slot's length are masked,
+# so slot reuse needs only a length reset.  The speculative engine's
+# draft model decodes through it.
+
+def init_slot_cache(cfg: GPTConfig, slots, max_len, dtype=None,
+                    device=DEFAULT_DEVICE):
+    """Slot-pooled KV cache: {'k','v': [L, S, max_len, nh, hd], 'len':
+    int32 [S] tokens filled per slot}."""
+    if max_len > cfg.max_seq_len:
+        raise ValueError(
+            f"slot cache max_len {max_len} exceeds cfg.max_seq_len "
+            f"{cfg.max_seq_len}: positions past it have no positional "
+            "embedding")
+    dev = resolve_device(device)
+    cd = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.num_layers, slots, max_len, cfg.num_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cd, device=dev),
+            "v": torch.zeros(shape, dtype=cd, device=dev),
+            "len": torch.zeros((slots,), dtype=torch.int32, device=dev)}
+
+
+def reset_slots(lens, slots):
+    """Zero the fill lengths of ``slots`` (int or sequence): in place on
+    the engine's numpy mirror, in a copy of a tensor.  K/V need no
+    reset."""
+    if isinstance(lens, np.ndarray):
+        lens[np.asarray(slots)] = 0
+        return lens
+    out = lens.clone()
+    out[torch.as_tensor(slots, device=lens.device).long()] = 0
+    return out
+
+
+def _slot_block(cfg, x, blk, k_cache, v_cache, lens):
+    """block_apply for the slot-batched single-token decode: slot s's new
+    K/V are written (in place) at its own ``lens[s]`` (clamped to the
+    cache, as ``dynamic_update_slice`` clamps) and its query attends
+    ``k_pos <= lens[s]``.  x: [S, 1, H]; k/v_cache: [S, max_len, nh,
+    hd]; lens: int32 [S]."""
+    cd = torch_dtype(cfg.dtype)
+    hd = cfg.head_dim
+    max_len = k_cache.shape[1]
+
+    def slot_attn(q, k, v):
+        rows = torch.arange(q.shape[0], device=q.device)
+        at = lens.long().clamp(0, max_len - 1)
+        k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
+        logits = torch.einsum("sqhd,skhd->shqk", q.float(),
+                              k_cache.float()) / math.sqrt(hd)
+        mask = (torch.arange(max_len, device=q.device)[None, :]
+                <= lens.long()[:, None])                   # [S, max_len]
+        logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+        probs = torch.softmax(logits, -1).to(cd)
+        a = torch.einsum("shqk,skhd->sqhd", probs, v_cache.to(cd))
+        return a, None
+
+    x, _ = block_apply(cfg, x, blk, attn_fn=slot_attn)
+    return x, k_cache, v_cache
+
+
+def decode_step_slots(params, tokens, cfg: GPTConfig, cache, active=None):
+    """One decode iteration for every slot: consume one token per slot (at
+    its own ``cache['len'][s]``), write its K/V into the cache in place,
+    return (logits [S, V] fp32, cache with the new ``len``).  ``active``
+    (bool [S]) gates the length advance."""
+    lens = cache["len"]
+    x = params["wte"][tokens.long()] + params["wpe"][lens.long()]
+    x = x[:, None, :].to(torch_dtype(cfg.dtype))           # [S, 1, H]
+    for i in range(cfg.num_layers):
+        x, _, _ = _slot_block(cfg, x, layer(params, i), cache["k"][i],
+                              cache["v"][i], lens)
+    logits = _head(cfg, params, x)
+    new_len = lens + 1 if active is None else torch.where(active, lens + 1,
+                                                          lens)
+    return logits[:, 0], {"k": cache["k"], "v": cache["v"], "len": new_len}
 
 
 # --------------------------------------------------------------------------
@@ -779,3 +875,277 @@ def decode_step_paged_quant(params, tokens, cfg: GPTConfig, cache_k,
             v_scale[i], page_table, wp, wo, lens)
     logits = _head(cfg, params, x)
     return logits[:, 0], cache_k, k_scale, cache_v, v_scale
+
+
+# --------------------------------------------------------------------------
+# chunked prefill into the paged pool
+# --------------------------------------------------------------------------
+
+def _chunk_writes(pt_row, offset, C, ps, held):
+    """Where a chunk's K/V land: (chunk-relative positions, pages,
+    in-page offsets) of positions ``offset .. offset + C - 1``, less those
+    on a page the slot holds as a prefix hit (``held[j]`` true for row
+    page j); the positions are ``slice(None)`` when none is left out.  A
+    held page keeps the bytes its writer left: recomputed at another row
+    count, the chunk's K/V need not be bit-equal to them."""
+    pos = [p for p in range(offset, offset + C)
+           if held is None or p // ps >= len(held) or not held[p // ps]]
+    src = slice(None) if len(pos) == C else torch.tensor(
+        pos, dtype=torch.long, device=pt_row.device) - offset
+    pos = torch.tensor(pos, dtype=torch.long, device=pt_row.device)
+    return src, pt_row.long()[pos // ps], pos % ps
+
+
+def forward_paged_chunk(params, tokens, cfg: GPTConfig, cache_k, cache_v,
+                        pt_row, offset, held=None):
+    """One chunked-prefill piece for a single slot: consume ``tokens``
+    [1, C] from absolute position ``offset``, attending the slot's filled
+    pages and the in-chunk causal prefix.  Per layer the slot's page view
+    is gathered, the chunk spliced in with :func:`_cached_block`'s math,
+    and the chunk's own C positions scattered back to their pages, less
+    those on the pages ``held`` marks (the slot's prefix hits).  The
+    final chunk's padded tail writes past the prompt (masked by ``len``
+    until decode overwrites it) or onto the table's scratch padding (page
+    0).  Returns (logits [1, C, V] fp32, cache_k, cache_v), the pools
+    written in place."""
+    maxP = pt_row.shape[0]
+    ps = cache_k.shape[2]
+    C = tokens.shape[1]
+    offset = int(offset)
+    rows = pt_row.long()
+    src, pages, offs = _chunk_writes(pt_row, offset, C, ps, held)
+    x = embed(cfg, params, tokens, pos_offset=offset)
+    for i in range(cfg.num_layers):
+        kp, vp = cache_k[i], cache_v[i]
+        tail = kp.shape[2:]                       # (nh, hd)
+        view_k = kp[rows].reshape(1, maxP * ps, *tail)
+        view_v = vp[rows].reshape(1, maxP * ps, *tail)
+        x, view_k, view_v = _cached_block(cfg, x, layer(params, i), view_k,
+                                          view_v, offset)
+        kp[pages, offs] = view_k[0, offset:offset + C][src]
+        vp[pages, offs] = view_v[0, offset:offset + C][src]
+    return _head(cfg, params, x), cache_k, cache_v
+
+
+def forward_paged_chunk_quant(params, tokens, cfg: GPTConfig, cache_k,
+                              k_scale, cache_v, v_scale, pt_row, offset,
+                              held=None):
+    """:func:`forward_paged_chunk` over the int8 pool: the slot's pages
+    are dequantized into the view, the chunk runs the same math over it,
+    then only the chunk's own C positions (less those on ``held`` pages)
+    are quantized and scattered back.  Earlier positions never round-trip
+    through the quantizer.  Returns (logits, cache_k, k_scale, cache_v,
+    v_scale), written in place."""
+    maxP = pt_row.shape[0]
+    ps = cache_k.shape[2]
+    C = tokens.shape[1]
+    offset = int(offset)
+    cd = torch_dtype(cfg.dtype)
+    rows = pt_row.long()
+    src, pages, offs = _chunk_writes(pt_row, offset, C, ps, held)
+    x = embed(cfg, params, tokens, pos_offset=offset)
+    for i in range(cfg.num_layers):
+        kp, ksp, vp, vsp = cache_k[i], k_scale[i], cache_v[i], v_scale[i]
+        tail = kp.shape[2:]
+        view_k = dequantize_kv(kp[rows], ksp[rows], cd).reshape(
+            1, maxP * ps, *tail)
+        view_v = dequantize_kv(vp[rows], vsp[rows], cd).reshape(
+            1, maxP * ps, *tail)
+        x, view_k, view_v = _cached_block(cfg, x, layer(params, i), view_k,
+                                          view_v, offset)
+        codes, scales = quantize_kv(torch.stack(
+            (view_k[0, offset:offset + C], view_v[0, offset:offset + C])))
+        kp[pages, offs] = codes[0][src]
+        ksp[pages, offs] = scales[0][src]
+        vp[pages, offs] = codes[1][src]
+        vsp[pages, offs] = scales[1][src]
+    return _head(cfg, params, x), cache_k, k_scale, cache_v, v_scale
+
+
+# --------------------------------------------------------------------------
+# speculative verify (deferred commit) and the draft model's plumbing
+# --------------------------------------------------------------------------
+# The verify consumes a W = k + 1 token window a slot (the last committed
+# token and k draft candidates) at positions lens[s] + j in one forward.
+# Its attention runs the paged decode attention (the kernel on the card)
+# once a lane, with the one-token decode's call shape: lane j is the
+# decode of position lens[s] + j, so it reads exactly what that decode
+# would read.  For those reads the window's own K/V are written, in each
+# layer, at their positions in the slot's pages (the engine owns every
+# page of a slot's commit window; positions past the view go to scratch
+# page 0), and the bytes they replaced are put back once the layer's
+# lanes have run: the pool is unchanged when the forward returns, as the
+# reference's read-only forward leaves it.  The window K/V come back in the
+# pool's form for the caller's masked commit.
+
+def _window_coords(page_table, lens, W, ps):
+    """(page, offset) [S, W] of window position ``lens[s] + j``: the page
+    the slot's table names, or scratch page 0 past the table."""
+    S, maxP = page_table.shape
+    pos = lens.long()[:, None] + torch.arange(W, device=lens.device)
+    j = pos // ps
+    inside = j < maxP
+    pages = page_table.long().gather(1, j.clamp(max=maxP - 1))
+    return torch.where(inside, pages, 0), torch.where(inside, pos % ps, 0)
+
+
+def _lanes(attn, q, lens, view):
+    """``attn(q_j, lens_j)`` a window lane, each lane the single-query
+    decode of position ``lens + j`` (clamped to the view: lanes past it
+    are never committed), concatenated: [S, W, nh, hd]."""
+    return torch.cat([attn(q[:, j:j + 1].contiguous(),
+                           (lens + j).clamp(max=view - 1))
+                      for j in range(q.shape[1])], 1)
+
+
+def _paged_verify_block(cfg, x, blk, k_pages, v_pages, page_table, lens):
+    """block_apply for the W-token verify window over the fp pool.  x:
+    [S, W, H].  Returns (x_out, win_k, win_v), the window's K/V
+    [S, W, nh, hd] cast to the pool dtype (the bytes a committed write
+    stores); the pool's bytes are as they were."""
+    ps = k_pages.shape[1]
+    view = page_table.shape[1] * ps
+
+    def vattn(q, k, v):
+        wp, wo = _window_coords(page_table, lens, q.shape[1], ps)
+        kw, vw = k.to(k_pages.dtype), v.to(v_pages.dtype)
+        saved = (k_pages[wp, wo], v_pages[wp, wo])
+        k_pages[wp, wo] = kw
+        v_pages[wp, wo] = vw
+        a = _lanes(lambda qj, lj: paged_attention(
+            qj, k_pages, v_pages, page_table, lj), q, lens, view)
+        k_pages[wp, wo], v_pages[wp, wo] = saved
+        return a, (kw, vw)
+
+    x, (win_k, win_v) = block_apply(cfg, x, blk, attn_fn=vattn)
+    return x, win_k, win_v
+
+
+def _verify_embed(cfg, params, tokens, lens):
+    """Window embeddings [S, W, H] in the compute dtype: token ``j`` of
+    slot ``s`` at position ``lens[s] + j`` (clamped to the position table:
+    lanes past it are never committed)."""
+    W = tokens.shape[1]
+    pos = (lens.long()[:, None] + torch.arange(W, device=tokens.device))
+    pos = pos.clamp(max=params["wpe"].shape[0] - 1)
+    x = params["wte"][tokens.long()] + params["wpe"][pos]
+    return x.to(torch_dtype(cfg.dtype))
+
+
+def decode_step_paged_verify(params, tokens, cfg: GPTConfig, cache_k,
+                             cache_v, page_table, lens):
+    """Speculative verify forward: consume ``tokens`` [S, W] at positions
+    ``lens[s] + j`` through the fp paged pool, which it leaves as it was.
+    A slot's window positions must lie on pages no other slot reads (the
+    engine's commit window, which it owns) or past its table.  Returns
+    (logits [S, W, V] fp32, win_k, win_v [L, S, W, nh, hd] in the pool
+    dtype); the caller commits the accepted prefix."""
+    S, W = tokens.shape
+    x = _verify_embed(cfg, params, tokens, lens)
+    shape = (cfg.num_layers, S, W, cfg.num_heads, cfg.head_dim)
+    wk = torch.empty(shape, dtype=cache_k.dtype, device=x.device)
+    wv = torch.empty(shape, dtype=cache_v.dtype, device=x.device)
+    for i in range(cfg.num_layers):
+        x, wk[i], wv[i] = _paged_verify_block(
+            cfg, x, layer(params, i), cache_k[i], cache_v[i], page_table,
+            lens)
+    return _head(cfg, params, x), wk, wv
+
+
+def _paged_verify_block_quant(cfg, x, blk, k_pages, k_scale, v_pages,
+                              v_scale, page_table, lens):
+    """:func:`_paged_verify_block` over the int8 pool: the window's K/V
+    are quantized at once (per position and head: the codes and scales a
+    committed write stores) and the lanes attend them dequantized, as the
+    sequential int8 decode reads a token's own K/V.  Returns (x_out,
+    win_kq, win_ks, win_vq, win_vs); the pool is as it was."""
+    ps = k_pages.shape[1]
+    view = page_table.shape[1] * ps
+
+    def vattn(q, k, v):
+        wp, wo = _window_coords(page_table, lens, q.shape[1], ps)
+        codes, scales = quantize_kv(torch.stack((k, v)))  # [2, S, W, ...]
+        pools = (k_pages, k_scale, v_pages, v_scale)
+        win = (codes[0], scales[0], codes[1], scales[1])
+        saved = [t[wp, wo] for t in pools]
+        for t, w in zip(pools, win):
+            t[wp, wo] = w
+        a = _lanes(lambda qj, lj: paged_attention_quant(
+            qj, k_pages, k_scale, v_pages, v_scale, page_table, lj), q,
+            lens, view)
+        for t, w in zip(pools, saved):
+            t[wp, wo] = w
+        return a, win
+
+    x, win = block_apply(cfg, x, blk, attn_fn=vattn)
+    return (x, *win)
+
+
+def decode_step_paged_verify_quant(params, tokens, cfg: GPTConfig, cache_k,
+                                   k_scale, cache_v, v_scale, page_table,
+                                   lens):
+    """:func:`decode_step_paged_verify` over the int8 pool.  Returns
+    (logits [S, W, V] fp32, win_kq [L, S, W, nh, hd] int8, win_ks
+    [L, S, W, nh] fp32, win_vq, win_vs), each window position quantized
+    once."""
+    S, W = tokens.shape
+    x = _verify_embed(cfg, params, tokens, lens)
+    L, nh, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    dev = x.device
+    wkq = torch.empty((L, S, W, nh, hd), dtype=torch.int8, device=dev)
+    wvq = torch.empty_like(wkq)
+    wks = torch.empty((L, S, W, nh), dtype=torch.float32, device=dev)
+    wvs = torch.empty_like(wks)
+    for i in range(L):
+        x, wkq[i], wks[i], wvq[i], wvs[i] = _paged_verify_block_quant(
+            cfg, x, layer(params, i), cache_k[i], k_scale[i], cache_v[i],
+            v_scale[i], page_table, lens)
+    return _head(cfg, params, x), wkq, wks, wvq, wvs
+
+
+def draft_prefill_slot(params, tokens, cfg: GPTConfig, cache_k, cache_v,
+                       slot, offset):
+    """One C-token chunk of the draft model's prompt into slot ``slot`` of
+    its slot cache from position ``offset`` (ints or one-element device
+    tensors: the draft prefill's CUDA graph passes tensors, so the slot's
+    row is gathered and scattered back by index).  No logits: the first
+    sampled token comes from the target.  Returns (cache_k, cache_v),
+    written in place."""
+    dev = cache_k.device
+    idx = torch.as_tensor(slot, device=dev).reshape(1).long()
+    offset = torch.as_tensor(offset, device=dev).reshape(1)
+    x = embed(cfg, params, tokens, pos_offset=offset)
+    for i in range(cfg.num_layers):
+        kc, vc = cache_k[i], cache_v[i]         # [S, max_len, nh, hd]
+        row_k, row_v = kc.index_select(0, idx), vc.index_select(0, idx)
+        x, _, _ = _cached_block(cfg, x, layer(params, i), row_k, row_v,
+                                offset)
+        kc.index_copy_(0, idx, row_k)
+        vc.index_copy_(0, idx, row_v)
+    return cache_k, cache_v
+
+
+def draft_catchup_and_draft(params, cfg: GPTConfig, cache_k, cache_v, ctx,
+                            n_ctx, lens, k):
+    """The draft model's work for one engine iteration: catch up on the
+    tokens the target committed last iteration (``ctx`` [S, W], left
+    aligned, ``n_ctx`` [S] of them a row), then draft ``k`` candidates by
+    greedy self-sampling: ``W + k - 1`` single-token slot decodes, step
+    ``j`` consuming ``ctx[:, j]`` while ``j < n_ctx[s]``, else the token
+    the row sampled at ``j - 1``, its K/V at ``lens[s] + j``.  Only the
+    ctx writes are durable (the caller advances its lengths by
+    ``n_ctx``).  Returns (cache_k, cache_v, drafts int32 [S, k])."""
+    S, W = ctx.shape
+    steps = W + k - 1
+    prev = ctx[:, 0]
+    ys = []
+    for j in range(steps):
+        tok = torch.where(j < n_ctx, ctx[:, min(j, W - 1)], prev)
+        cache = {"k": cache_k, "v": cache_v, "len": lens + j}
+        logits, _ = decode_step_slots(params, tok, cfg, cache)
+        prev = torch.argmax(logits, -1).to(torch.int32)
+        ys.append(prev)
+    ys = torch.stack(ys, 1)                               # [S, steps]
+    idx = (n_ctx.long()[:, None] - 1
+           + torch.arange(k, device=ctx.device)[None, :]).clamp(0, steps - 1)
+    return cache_k, cache_v, ys.gather(1, idx)

@@ -9,8 +9,9 @@ op for op.  Inference only.
 :func:`dequant_matmul` takes the plain version for tensors on the CPU and
 launches a kernel for tensors on a CUDA device, for int8 weights only; it
 never falls back from one to the other.  ``launches`` counts kernel
-launches, one a call.  In bf16 :func:`_plan` picks the kernel from M: up
-to ``_SMALL_M`` rows the weight-streaming ``dqmm_stream`` (K split over a
+launches, one a call, and ``rows_launches`` the same launches by their
+row count M (``{M: launches}``).  In bf16 :func:`_plan` picks the kernel
+from M: up to ``_SMALL_M`` rows the weight-streaming ``dqmm_stream`` (K split over a
 thread-block cluster, :func:`_stream_steps` says which block and warp take
 each k step), above it the warp-specialised ``dqmm_wg`` on 128-row tiles,
 and on 256-row tiles from ``_WG256_M`` rows.  float32 runs
@@ -42,6 +43,7 @@ import torch
 from . import build
 
 launches = 0
+rows_launches = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BM = _BN = 64                # dqmm_f32's output tile
@@ -336,4 +338,5 @@ def _launch(x2, lda, w_q, s):
                       M, N, K, tpb, ksplit, stream)
     build.check(lib, err, "dequant_matmul")
     launches += 1
+    rows_launches[M] = rows_launches.get(M, 0) + 1
     return out

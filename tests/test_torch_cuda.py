@@ -41,6 +41,7 @@ from paddle_tpu_torch.models import gpt as T
 from paddle_tpu_torch.ops.cuda import (build, flash_attn, fused_ffn, norms,
                                       paged_attn)
 from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm
+from spec_probe import commit_write_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -453,6 +454,156 @@ def test_engine_on_card_matches_generate(dev):
     for p, r in zip(prompts, reqs):
         want = T.generate(params, cfg, torch.from_numpy(p)[None].to(dev), 8)
         assert r.tokens == want[0, len(p):].tolist()
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_chunked_engine_on_card_matches_cpu(dev, kv):
+    """Chunked prefill on the card (fp32): tokens equal the CPU engine's,
+    logits within 1e-3, and the LayerNorm (and dequant-matmul) launches
+    are exact over chunks, waves and decode steps."""
+    cfg = _wide()
+    L = cfg.num_layers
+    params = T.init_params(cfg, torch.Generator().manual_seed(5),
+                           device="cpu")
+    kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32)
+               for n in (22, 5, 17, 9)]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        eng = PagedServingEngine((params, cfg), device=d, slots=3,
+                                 max_len=32, page_size=8,
+                                 seq_buckets=(8, 16), batch_buckets=(1, 2),
+                                 prefill_chunk=8, capture_logits=True, **kw)
+        eng.warmup()
+        norms.launches = dqmm.launches = 0
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run()
+        st = eng.stats()
+        fwd = st["decode_steps"] + st["prefill_calls"] + st["prefill_chunks"]
+        if d == "cuda":
+            # prompts past 8 tokens go in chunks of 8: 3 + 3 + 2
+            assert st["prefill_chunks"] == 8
+            assert norms.launches == (2 * L + 1) * fwd
+            assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
+            assert eng._step.captures == 1
+        runs[d] = reqs
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert a.tokens == b.tokens
+        torch.testing.assert_close(torch.from_numpy(np.stack(a.logits)),
+                                   torch.from_numpy(np.stack(b.logits)),
+                                   atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_wave_written_prefix_page_on_card(dev, kv):
+    """On the card (fp32), a page that a wave of two prompts wrote and a
+    longer chunked prompt then hits keeps the wave's bytes while both
+    wave requests still decode (the chunk computes it at another row
+    count), and every request's tokens equal the CPU engine's."""
+    cfg = _wide()
+    params = T.init_params(cfg, torch.Generator().manual_seed(7),
+                           device="cpu")
+    kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
+    rng = np.random.default_rng(12)
+    a, c = (rng.integers(1, 256, 8).astype(np.int32) for _ in range(2))
+    b = np.concatenate([a, rng.integers(1, 256, 13).astype(np.int32)])
+    runs = {}
+    for d in ("cuda", "cpu"):
+        eng = PagedServingEngine((params, cfg), device=d, slots=3,
+                                 max_len=32, page_size=8,
+                                 seq_buckets=(8, 16), batch_buckets=(1, 2),
+                                 prefill_chunk=8, **kw)
+        ra, rc = eng.submit(a, 10), eng.submit(c, 10)
+        eng.step()
+        page = int(eng._tables_np[ra.slot, 0])
+        snap = [p[:, page].clone() for p in eng._cache_operands()]
+        rb = eng.submit(b, 4)
+        while eng.stats()["prefill_chunks"] < 3:
+            eng.step()
+        assert not (ra.done or rc.done)
+        assert int(eng._tables_np[rb.slot, 0]) == page
+        for p, s in zip(eng._cache_operands(), snap):
+            assert torch.equal(p[:, page], s)
+        eng.run()
+        runs[d] = [r.tokens for r in (ra, rc, rb)]
+    assert runs["cuda"] == runs["cpu"]
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_speculative_engine_on_card(dev, mode, kv):
+    """The speculative engine on the card (fp32, self-draft in draft
+    mode): one verify graph (and two draft graphs), tokens equal the
+    non-speculative engine's on the card, exact LayerNorm, paged and
+    dequant launches, and every verify, all-reject or accepting, changing
+    the pool only at the positions it committed.  (The pool's bytes
+    against the non-speculative engine's, which the CPU tests hold equal,
+    are reported by ``chip_smoke.py`` (y): the projections run at
+    M = S * W rows, not S.)"""
+    import dataclasses
+
+    from paddle_tpu_torch.inference.speculative import (
+        SpeculativeServingEngine)
+    cfg = _wide()
+    L = cfg.num_layers
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
+    skw = ({"spec_draft_cfg": dataclasses.asdict(cfg),
+            "spec_draft_seed": 0} if mode == "draft" else {})
+    ekw = dict(device=dev, slots=2, max_len=32, page_size=8,
+               seq_buckets=(8, 16), batch_buckets=(1,), **kw)
+    prompt = np.arange(1, 12, dtype=np.int32)
+    base = PagedServingEngine((params, cfg), **ekw)
+    rb = base.submit(prompt, 8)
+    base.run()
+    spec = SpeculativeServingEngine((params, cfg), spec_mode=mode,
+                                    spec_k=3, **skw, **ekw)
+    seen = []
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32)
+               for n in (5, 11, 3, 14)]
+    want = [base.submit(p, 10) for p in prompts]
+    base.run()
+    with commit_write_probe(spec, seen):
+        spec._spec_reject = lambda step: True
+        rs = spec.submit(prompt, 8)
+        spec.run()
+        rejected = spec.stats()["accepted_tokens"]
+        spec._spec_reject = None
+        before = spec.stats()
+        norms.launches = dqmm.launches = 0
+        paged_attn.launches = paged_attn.quant_launches = 0
+        dqmm.rows_launches.clear()
+        reqs = [spec.submit(p, 10) for p in prompts]
+        spec.run()
+    assert rs.tokens == rb.tokens and rejected == 0
+    st = spec.stats()
+    assert [r.tokens for r in reqs] == [r.tokens for r in want]
+    assert st["decode_compiles"] == 1 and spec._step.captures == 1
+    assert st["spec_draft_compiles"] == (2 if mode == "draft" else 0)
+    assert seen and not any(bad for bad, _ in seen), seen
+    st = {k: st[k] - before[k] for k in ("decode_steps", "prefill_calls",
+                                         "spec_steps")}
+    fwd = st["decode_steps"] + st["prefill_calls"]
+    # the draft model (a self-draft: the target's config) runs W + k - 1
+    # slot decodes a verify and its blocks (no head) a 16-token
+    # ingestion chunk
+    ingest = sum(-(-len(p) // 16) for p in prompts)
+    dfwd, dblk = ((0, 0) if mode == "ngram"
+                  else (6 * st["decode_steps"], ingest))
+    assert norms.launches == (2 * L + 1) * (fwd + dfwd) + 2 * L * dblk
+    assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
+    # W paged-attention launches a layer a verify (one a lane), at the
+    # decode's call shape
+    attn = "quant_launches" if kv == "int8" else "launches"
+    assert getattr(paged_attn, attn) == 4 * L * st["spec_steps"]
+    if kv == "int8":
+        # the verify's rows, S * W = 8, and the 8-token waves' (one a
+        # prompt of at most 8 tokens, batch bucket 1)
+        waves8 = sum(len(p) <= 8 for p in prompts)
+        assert dqmm.rows_launches[8] == 4 * L * (st["spec_steps"] + waves8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

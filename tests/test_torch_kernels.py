@@ -434,7 +434,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     pretraining path's ``models.bert`` and ``models.common``, and eager
     training's ``optimizer``, ``amp``, ``regularizer``, ``nn.clip`` and
     the losses, and the high-level API's ``io``, ``runtime``, ``metric``,
-    ``hapi``, ``jit`` and ``static`` among them), leaves ``jax`` and
+    ``hapi``, ``jit`` and ``static``, and speculative serving's
+    ``inference.speculative`` among them), leaves ``jax`` and
     ``paddle_tpu`` out of ``sys.modules``
     (exact keys: the port's own name starts with ``paddle_tpu``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -473,7 +474,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "        'paddle_tpu_torch.hapi.callbacks',\n"
         "        'paddle_tpu_torch.hapi.model_summary',\n"
         "        'paddle_tpu_torch.jit', 'paddle_tpu_torch.jit.api',\n"
-        "        'paddle_tpu_torch.static')\n"
+        "        'paddle_tpu_torch.static',\n"
+        "        'paddle_tpu_torch.inference.speculative')\n"
         "bad += [k for k in need if k not in sys.modules]\n"
         "print(len([k for k in sys.modules if k.startswith('paddle_tpu_torch')]))\n"
         "sys.exit(1 if bad else 0)\n")

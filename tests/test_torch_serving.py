@@ -231,8 +231,7 @@ def test_generate_drains_a_batch_past_the_queue_bound(model):
 
 
 @pytest.mark.parametrize("kw", [
-    {"prefill_chunk": 8}, {"host_tier_mb": 4}, {"kv_handoff": True},
-    {"tp": 2}, {"pp": 2}])
+    {"host_tier_mb": 4}, {"kv_handoff": True}, {"tp": 2}, {"pp": 2}])
 def test_out_of_slice_knobs_are_refused_by_name(model, kw):
     name = next(iter(kw))
     with pytest.raises(NotImplementedError, match=name):
