@@ -34,18 +34,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
       ``PagedServingEngine(slots=8, max_len=512, page_size=16)`` after
       ``warmup()``: 12 requests of 17-300 prompt tokens (two share a
       64-token prefix) x 32 new tokens.  The engine's decode step is one
-      CUDA graph, captured in ``warmup()``: ``decode_compiles`` must be 1
-      and no capture may happen during the traffic.  Kernel launch counts
+      CUDA graph, and so is each (batch, seq) rung of its prefill ladder,
+      all captured in ``warmup()`` (the prefill graphs into one shared
+      memory pool): ``decode_compiles`` must be 1, ``prefill_compiles``
+      the rungs ``warmup()`` reached (its return value), and no capture
+      may happen during the traffic; ``torch.cuda.max_memory_reserved()``
+      after warmup is printed.  Kernel launch counts
       are zeroed just before and read just after (each replay counts its
       launches).  Then 8 slots at mixed lengths decode while one replay
       is held against ``gpt.decode_step_paged`` on clones of the pool with
       the same inputs (next tokens equal; the bf16 logit difference
       printed), and 50 replays are timed against 50 eager steps (five
       host-to-device copies, the step, argmax, readback), alternated;
+      then every wave of 6 requests is held against the eager
+      ``_prefill`` on clones of the pool (next tokens equal; the pool
+      bytes past scratch page 0 and the host ms of both reported);
   (e) the engine in fp32 (``capture_logits=True``) against the port's own
       ``generate`` (greedy tokens) and a teacher-forced ``forward``
       (logits) on the card, and its replay against the eager step with
-      logits within 1e-3;
+      logits within 1e-3, and its wave replays against the eager
+      ``_prefill`` with the pool bytes past page 0 equal;
   (f) only with ``--profile STEPS``: where the main path's decode step
       spends its time, from a ``torch.profiler`` trace of STEPS steady
       steps with every slot decoding (host and device ms per step, the
@@ -207,7 +215,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
       decode steps), L paged (int8 paged) attentions a decode step and, on
       the int8 path, 4L dequant matmuls a forward, 4L a chunk at M = 16
       and 4L a decode step at M = 8; every prompt must take the chunked
-      path; the decode step stays one graph.  Prints prefill-chunk and
+      path; the decode step stays one graph, the chunk is one graph too
+      (every chunk of every prompt), and every engine's prefill graphs
+      (its rungs' and the chunk's) are captured in ``warmup()`` and none
+      during the traffic; two long prompts' chunks (prefix-hit pages
+      held) are then held against the eager ``forward_paged_chunk(_quant)``
+      on clones of the pool (tokens equal; pool bytes past page 0 and
+      host ms reported).  Prints prefill-chunk and
       decode-step ms, tokens/s, decode tokens/s (tokens from decode steps
       over their host time), prefix hits and the share of tokens equal to
       the unchunked engine's (bf16, not asserted).  With ``--profile
@@ -221,7 +235,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
       config and seed), on the fp pool and then with int8 weights and
       pool, alternated (two rounds) with the non-speculative engine on the
       same requests.  ``decode_compiles`` must be 1 (one verify graph,
-      captured once), ``spec_draft_compiles`` 0 / 2, the self-draft's
+      captured once; the prefill graphs captured in warmup and none in the
+      traffic, as in (w)), ``spec_draft_compiles`` 0 / 2, the self-draft's
       accepted tokens per verify above 1.5, and the launches exact: per
       verify W = 5 paged attentions a layer (one a lane, at the decode's
       call shape) and 2L + 1 LayerNorms ([8, 5, 1024]), 4L dequant
@@ -243,7 +258,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
       to accept nothing) and an accepting run: the prompt's positions
       byte-equal (asserted), the whole pool's equality and the first layer
       that differs reported, the whole int8 pool equal in both runs
-      (asserted).
+      (asserted).  The engines' prefill waves and chunks run as graphs,
+      each step captured once;
+  (z) the slot-contiguous ``ServingEngine(slots=8, max_len=512)`` on
+      (d)'s weights and 12 requests x 32 tokens, after ``warmup()``, in
+      bf16 and then with ``quant="int8"``: ``decode_compiles`` 1,
+      ``prefill_compiles`` the rungs warmup reached, no capture during the
+      traffic, launches zeroed before it equal to 2L + 1 LayerNorms and
+      (int8) 4L dequant matmuls a forward; decode-step ms, wave ms,
+      tokens/s and ``kv_bytes_reserved`` printed beside (d)'s and (j)'s
+      paged engines (the reference bench's base and paged phases); then
+      fp32 at V=4096, H=256, 2 layers, the engine on the card against the
+      CPU (tokens exact, logits within 1e-3), its decode replays against
+      the eager ``gpt.decode_step_slots`` and its wave replays against
+      the eager ``_prefill`` on clones of the pool (tokens and pool bytes
+      equal).
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -304,8 +333,9 @@ Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
 three flash rows with their launches on each training path, among them
 ``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``
 and ``launches_hapi_eval``; the serving rows with ``launches_chunked``,
-``launches_chunked_quant``, ``launches_spec``, ``launches_spec_quant``
-and the dequant matmul's ``launches_spec_quant_m40``) and the
+``launches_chunked_quant``, ``launches_spec``, ``launches_spec_quant``,
+the dequant matmul's ``launches_spec_quant_m40`` and (z)'s
+``launches_slot`` and ``launches_slot_quant``) and the
 ``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every float32 matmul
 and convolution here, so fp32 comparisons are fp32.
@@ -316,6 +346,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2131,6 +2162,16 @@ def train_parity(torch, gpt, gpt_hybrid, cfg=None, seed=SEED + 4):
     return res
 
 
+def drain(eng):
+    """``eng.run()``, reading the engine's ``kv_bytes_reserved`` after
+    every step (host bookkeeping, no device work); returns its peak."""
+    peak = 0
+    while eng._busy():
+        eng.step()
+        peak = max(peak, eng._kv_accounting()["kv_bytes_reserved"])
+    return peak
+
+
 def eager_step(torch, gpt, eng, pool, host):
     """The decode step as the engine ran it before its CUDA graph: the
     five host arrays ``host`` (table, write pages, write offsets, lens,
@@ -2213,6 +2254,205 @@ def replay_vs_eager(torch, gpt, eng, prompts, tag, logit_tol=None,
     return res
 
 
+class StepProbe:
+    """Stands in for an engine's step object: attribute reads reach the
+    step (the engine stages through them); a call runs ``fn(step)``."""
+
+    def __init__(self, step, fn):
+        self.__dict__.update(_step=step, _fn=fn)
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self):
+        return self._fn(self._step)
+
+
+def pool_names(eng):
+    return (("_cache_k", "_cache_v", "_cache_ks", "_cache_vs")
+            if getattr(eng, "_kv_quant", False) else ("_cache_k", "_cache_v"))
+
+
+def eager_on_clones(torch, eng, fn):
+    """``fn()`` (returning sampled tokens and their logits) with the
+    engine's pool swapped for clones of it (the graphs keep the storage
+    they baked), timed on the host clock up to the tokens' readback.
+    Returns (tokens as numpy, logits, clones, ms)."""
+    names = pool_names(eng)
+    real = [getattr(eng, n) for n in names]
+    clones = [t.clone() for t in real]
+    for n, t in zip(names, clones):
+        setattr(eng, n, t)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            tok, logits = fn()
+            tok = tok.cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for n, t in zip(names, real):
+            setattr(eng, n, t)
+    return tok, logits, clones, ms
+
+
+def staged(torch, st, names):
+    """The step's staged host values of ``names``, as tensors on its
+    device."""
+    return [torch.from_numpy(np.array(getattr(st, n))).to(st.device)
+            for n in names]
+
+
+@contextlib.contextmanager
+def prefill_probe(torch, gpt, eng, record):
+    """While open, every prefill wave and chunk of ``eng`` first runs its
+    eager function (``eng._prefill``; ``gpt.forward_paged_chunk(_quant)``
+    with an int offset and a held list) on clones of the pool with the
+    inputs the step staged, then the step itself (a graph replay), and
+    ``record`` gets one dict a call: the kind and shape, whether the
+    sampled tokens are equal, whether the pool's pages past scratch page 0
+    (a slot pool: all of it) are byte-equal, the largest logit
+    difference, and the host ms of the eager run and of the step (each
+    ending in its tokens' readback)."""
+    real_wave, real_chunk = eng._run_wave, getattr(eng, "_chunk_step", None)
+    first = 1 if hasattr(eng, "_page_size") else 0    # page 0: scratch
+
+    def compare(kind, shape, eager, out, logits, step_ms):
+        tok, last, clones, ms = eager
+        pools = [getattr(eng, n) for n in pool_names(eng)]
+        record.append({
+            "kind": kind, "shape": shape,
+            "tokens_equal": bool(np.array_equal(tok, out[0])),
+            "pool_equal": all(bool(torch.equal(a[:, first:], b[:, first:]))
+                              for a, b in zip(pools, clones)),
+            "max_logit_diff": float((last.float() - logits.float())
+                                    .abs().max()),
+            "eager_ms": ms, "step_ms": step_ms})
+
+    def wave(st):
+        b, s = st.tokens.shape
+        args = staged(torch, st, [n for n, _ in eng._wave_fields(b, s)])
+        eager = eager_on_clones(torch, eng, lambda: eng._prefill(*args))
+        t0 = time.perf_counter()
+        out = real_wave(st)
+        compare("wave", [b, s], eager, out, st.logits,
+                1e3 * (time.perf_counter() - t0))
+        return out
+
+    def chunk(st):
+        toks, row = staged(torch, st, ("toks", "row"))
+        held = [bool(h) for h in st.held]
+        offset, take = int(st.offset[0]), int(st.take[0])
+
+        def run():
+            pools = [getattr(eng, n) for n in (
+                ("_cache_k", "_cache_ks", "_cache_v", "_cache_vs")
+                if eng._kv_quant else ("_cache_k", "_cache_v"))]
+            fn = (gpt.forward_paged_chunk_quant if eng._kv_quant
+                  else gpt.forward_paged_chunk)
+            lg, *_ = fn(eng.params, toks, eng.cfg, *pools, row, offset,
+                        held)
+            last = lg[0, take - 1:take]
+            return last.argmax(-1), last
+        eager = eager_on_clones(torch, eng, run)
+        t0 = time.perf_counter()
+        out = st()
+        compare("chunk", [offset, take, sum(held)], eager, out, st.logits,
+                1e3 * (time.perf_counter() - t0))
+        return out
+
+    eng._run_wave = wave
+    if real_chunk is not None:
+        eng._chunk_step = StepProbe(real_chunk, chunk)
+    try:
+        yield record
+    finally:
+        del eng._run_wave
+        if real_chunk is not None:
+            eng._chunk_step = real_chunk
+
+
+def prefill_vs_eager(torch, gpt, eng, prompts, tag, exact_bytes):
+    """``prompts`` x 2 tokens through ``eng`` under :func:`prefill_probe`:
+    every wave (and chunk) replay against its eager function on clones of
+    the pool.  Tokens must be equal; with ``exact_bytes`` (fp32) the pool
+    bytes past scratch page 0 too, else they are reported.  Returns the
+    records' summary."""
+    record = []
+    with prefill_probe(torch, gpt, eng, record):
+        reqs = [eng.submit(p, 2) for p in prompts]
+        eng.run()
+    if not record or not all(r.done for r in reqs):
+        raise SystemExit(f"{tag}: no prefill step ran under the probe")
+    bad = [r for r in record if not r["tokens_equal"]
+           or (exact_bytes and not r["pool_equal"])]
+    if bad:
+        raise SystemExit(f"{tag}: a prefill graph replay disagrees with its "
+                         f"eager function: {bad}")
+    return {"calls": len(record),
+            "kinds": sorted({r["kind"] for r in record}),
+            "tokens_equal": True,
+            "pool_equal": all(r["pool_equal"] for r in record),
+            "max_logit_diff": max(r["max_logit_diff"] for r in record),
+            "eager_ms": [round(r["eager_ms"], 3) for r in record],
+            "step_ms": [round(r["step_ms"], 3) for r in record],
+            "shapes": [r["shape"] for r in record]}
+
+
+def prefill_steps(eng):
+    """An engine's prefill step objects: its wave steps and chunk step."""
+    steps = list(eng._waves.values())
+    if getattr(eng, "_chunk_step", None) is not None:
+        steps.append(eng._chunk_step)
+    return steps
+
+
+def step_captures(eng):
+    """Captures of every step object of ``eng``: prefill, decode (or
+    verify) and, in draft mode, the draft model's two."""
+    extra = [getattr(eng, n, None) for n in ("_draft_step", "_draft_prefill")]
+    return sum(st.captures for st in prefill_steps(eng) + [eng._step]
+               + [x for x in extra if x is not None])
+
+
+def check_warm(tag, eng, built):
+    """After ``warmup()`` (which returned ``built``): every prefill step
+    and the decode step built and captured once, ``prefill_compiles``
+    the steps built."""
+    steps = prefill_steps(eng)
+    st = eng.stats()
+    if (built != len(steps) or st["prefill_compiles"] != built
+            or st["decode_compiles"] != 1
+            or any(s.captures != 1 for s in steps + [eng._step])):
+        raise SystemExit(f"{tag}: warmup built {built} prefill steps; "
+                         f"{len(steps)} held, prefill_compiles "
+                         f"{st['prefill_compiles']}, decode_compiles "
+                         f"{st['decode_compiles']}, captures "
+                         f"{[s.captures for s in steps + [eng._step]]}")
+    return step_captures(eng)
+
+
+def check_no_capture(tag, eng, captures, built):
+    """After traffic: nothing built or captured since warmup."""
+    st = eng.stats()
+    if (step_captures(eng) != captures or st["prefill_compiles"] != built
+            or st["decode_compiles"] != 1):
+        raise SystemExit(f"{tag}: the traffic built or captured a step: "
+                         f"captures {captures} -> {step_captures(eng)}, "
+                         f"prefill_compiles {built} -> "
+                         f"{st['prefill_compiles']}, decode_compiles "
+                         f"{st['decode_compiles']}")
+
+
+def log_prefill_vs_eager(pw, bytes_note, card):
+    log(f"    prefill graphs against their eager functions on clones of "
+        f"the pool ({pw['calls']} calls: {pw['kinds']} {pw['shapes']}): "
+        f"tokens equal {pw['tokens_equal']}; pool bytes past page 0 equal "
+        f"{pw['pool_equal']} ({bytes_note}); max |logit diff| "
+        f"{pw['max_logit_diff']:.3e}; host ms eager {pw['eager_ms']}, "
+        f"graph {pw['step_ms']}  [{card}]")
+
+
 def quant_path(torch, gpt, PagedServingEngine, dqmm, paged_attn, norms,
                cfg, holder, prompts, new_tokens, fp_run, args):
     """Phase (j): the quantized main path on the params in ``holder``
@@ -2225,12 +2465,12 @@ def quant_path(torch, gpt, PagedServingEngine, dqmm, paged_attn, norms,
                              kv_dtype="int8", slots=8, max_len=512,
                              page_size=16)
     t0 = time.perf_counter()
-    waves = eng.warmup()
+    built = eng.warmup()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    captures = check_warm("(j)", eng, built)
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    captures = eng._step.captures
     dqmm.launches = paged_attn.quant_launches = 0
     paged_attn.launches = norms.launches = 0
     t0 = time.perf_counter()
@@ -2266,14 +2506,9 @@ def quant_path(torch, gpt, PagedServingEngine, dqmm, paged_attn, norms,
                                       + launches["paged_attention_quant"]):
         raise SystemExit(f"(j): dequant_kernel_calls "
                          f"{st['dequant_kernel_calls']} against {launches}")
-    if st["decode_compiles"] != 1 or (captures, eng._step.captures) != (1,
-                                                                       1):
-        raise SystemExit(f"(j): decode_compiles {st['decode_compiles']}, "
-                         f"captures {captures} -> {eng._step.captures}: the "
-                         "traffic must replay the one graph captured in "
-                         "warmup")
+    check_no_capture("(j)", eng, captures, built)
     gen = sum(len(r.tokens) for r in reqs)
-    res = {"warmup_waves": waves, "warmup_s": warm_s, "wall_s": wall,
+    res = {"warmup_waves": built, "warmup_s": warm_s, "wall_s": wall,
            "tokens_per_s": gen / wall,
            "decode_steps": st["decode_steps"],
            "prefill_waves": st["prefill_calls"],
@@ -2293,6 +2528,8 @@ def quant_path(torch, gpt, PagedServingEngine, dqmm, paged_attn, norms,
                np.asarray(reqs[0].tokens)
                == np.asarray(fp_run["request0_tokens"])))}
     res["replay_vs_eager"] = replay_vs_eager(torch, gpt, eng, prompts, "(j)")
+    res["prefill_vs_eager"] = prefill_vs_eager(torch, gpt, eng, prompts[:6],
+                                               "(j)", False)
     if args.profile:
         res["profile"] = profile_decode(torch, eng, prompts, args.profile,
                                         args.trace.replace(".json",
@@ -2321,6 +2558,7 @@ def quant_parity(torch, gpt, PagedServingEngine, prompts, new_tokens):
         if dev == "cuda":
             rv = replay_vs_eager(torch, gpt, eng, prompts, "(k)",
                                  logit_tol=PARITY_LOGIT_TOL, timed=10)
+            pw = prefill_vs_eager(torch, gpt, eng, prompts[:4], "(k)", True)
             compiles = eng.stats()["decode_compiles"]
         del eng
     tok_equal = all(a.tokens == b.tokens
@@ -2329,7 +2567,8 @@ def quant_parity(torch, gpt, PagedServingEngine, prompts, new_tokens):
                                  - np.stack(b.logits)).max())
                     for a, b in zip(runs["cuda"], runs["cpu"]))
     res = {"tokens_equal": tok_equal, "max_logit_err": logit_err,
-           "replay_vs_eager": rv, "decode_compiles": compiles}
+           "replay_vs_eager": rv, "prefill_vs_eager": pw,
+           "decode_compiles": compiles}
     if not tok_equal or not logit_err <= PARITY_LOGIT_TOL or compiles != 1:
         raise SystemExit(f"(k): the quantized engine on the card disagrees "
                          f"with the CPU: {res}")
@@ -2476,14 +2715,16 @@ def main():
         f"{qrun['quant_matmuls']}; dequant_kernel_calls "
         f"{qrun['dequant_kernel_calls']}; decode_compiles "
         f"{qrun['decode_compiles']}; launches {qrun['launches']}; "
-        f"warmup {qrun['warmup_waves']} waves in "
-        f"{qrun['warmup_s']:.1f} s  [{card}]")
+        f"warmup: {qrun['warmup_waves']} prefill graphs and the decode "
+        f"graph captured in {qrun['warmup_s']:.1f} s, none during the "
+        f"traffic  [{card}]")
     rv = qrun["replay_vs_eager"]
     log(f"    replay against the eager step (8 slots, lens {rv['lens']}):"
         f" next tokens equal {rv['tokens_equal']}; max |logit diff| "
         f"{rv['max_logit_diff']:.3e} (bf16, reported); {rv['timed']} "
         f"replays {rv['replay_step_ms']} ms a step against "
         f"{rv['eager_step_ms']} ms a step eager, alternated  [{card}]")
+    log_prefill_vs_eager(qrun["prefill_vs_eager"], "bf16, reported", card)
     jk_s = time.perf_counter() - t0
     log(f"    request 0: {qrun['request0_tokens_equal_fp_share']} of its "
         "tokens equal the bf16 fp path's (int8 rounding on random "
@@ -2505,6 +2746,7 @@ def main():
         f"{par['replay_vs_eager']['tokens_equal']}, max |logit diff| "
         f"{par['replay_vs_eager']['max_logit_diff']:.3e} (tol "
         f"{PARITY_LOGIT_TOL:.0e}); phase {time.perf_counter() - t0:.1f} s")
+    log_prefill_vs_eager(par["prefill_vs_eager"], "fp32, asserted", card)
     jk_s += time.perf_counter() - t0
     log(f"    (j) and (k) together {jk_s:.1f} s")
 
@@ -2531,6 +2773,10 @@ def main():
     spec_phases(torch, gpt, PagedServingEngine, (paged_attn, norms, dqmm),
                 card, launches, args)
 
+    # (z): the slot-contiguous engine ------------------------------------
+    slot_phases(torch, gpt, (paged_attn, norms, dqmm), card, launches,
+                fp_run, qrun)
+
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
     return 0
@@ -2544,30 +2790,35 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
     log(f"(d) serving gpt_345m, dtype {cfg.dtype}, fp weights and pool")
     eng = PagedServingEngine((params, cfg), device="cuda", slots=8,
                              max_len=512, page_size=16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    waves = eng.warmup()
+    built = eng.warmup()
     torch.cuda.synchronize()
-    log(f"    warmup: {waves} waves in {time.perf_counter() - t0:.1f} s")
+    warm_s = time.perf_counter() - t0
+    captures = check_warm("(d)", eng, built)
+    reserved = torch.cuda.max_memory_reserved()
+    log(f"    warmup: {built} prefill graphs (every (batch, seq) rung) and "
+        f"the decode graph captured in {warm_s:.1f} s; "
+        f"max_memory_reserved {reserved / 2**30} GiB over warmup (reset "
+        f"just before it; {before / 2**30} GiB reserved then), "
+        f"memory_reserved {torch.cuda.memory_reserved() / 2**30} GiB "
+        f"after it")
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    captures = eng._step.captures
     paged_attn.launches = 0
     norms.launches = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(p, new_tokens) for p in prompts]
-    eng.run()
+    kv_peak = drain(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches.update({"paged_attention": paged_attn.launches,
                      "layer_norm": norms.launches})
     st = eng.stats()
     L = cfg.num_layers
-    if st["decode_compiles"] != 1 or (captures, eng._step.captures) != (1,
-                                                                       1):
-        raise SystemExit(f"(d): decode_compiles {st['decode_compiles']}, "
-                         f"captures {captures} -> {eng._step.captures}: the "
-                         "traffic must replay the one graph captured in "
-                         "warmup")
+    check_no_capture("(d)", eng, captures, built)
     if not all(r.done and len(r.tokens) == new_tokens for r in reqs):
         raise SystemExit("not every request finished with its tokens")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
@@ -2593,7 +2844,8 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f"mean decode step {dec_ms} ms; prefill waves {st['prefill_calls']},"
         f" mean prefill wave {pre_ms} ms; max_memory_allocated "
         f"{mem / 2**30} GiB (allocated before the traffic "
-        f"{resident / 2**30} GiB); kv_bytes_total {st['kv_bytes_total']}; prefix "
+        f"{resident / 2**30} GiB); kv_bytes_total {st['kv_bytes_total']}"
+        f" (kv_bytes_reserved at its peak {kv_peak}); prefix "
         f"page hits {st['prefix_page_hits']}; decode_compiles "
         f"{st['decode_compiles']}; launches "
         f"{ {k: launches[k] for k in ('paged_attention', 'layer_norm')} }  "
@@ -2604,11 +2856,16 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f"{rv['max_logit_diff']:.3e} (bf16, reported); {rv['timed']} "
         f"replays {rv['replay_step_ms']} ms a step against "
         f"{rv['eager_step_ms']} ms a step eager, alternated  [{card}]")
+    pw = prefill_vs_eager(torch, gpt, eng, prompts[:6], "(d)", False)
+    log_prefill_vs_eager(pw, "bf16, reported", card)
     run = {"tokens_per_s": gen / wall, "decode_step_ms": dec_ms,
            "prefill_wave_ms": pre_ms, "replay_vs_eager": rv,
            "max_memory_allocated_gib": mem / 2 ** 30,
            "resident_gib": resident / 2 ** 30,
            "kv_bytes_total": st["kv_bytes_total"],
+           "kv_bytes_reserved_peak": kv_peak,
+           "prefill_graphs": built, "reserved_after_warmup_gib":
+               reserved / 2 ** 30,
            "request0_tokens": list(reqs[0].tokens)}
 
     # (e) ---------------------------------------------------------------
@@ -2620,6 +2877,7 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
     eng32.run()
     rv32 = replay_vs_eager(torch, gpt, eng32, prompts, "(e)",
                            logit_tol=PARITY_LOGIT_TOL, timed=10)
+    pw32 = prefill_vs_eager(torch, gpt, eng32, prompts[:4], "(e)", True)
     p0 = torch.from_numpy(prompts[0]).cuda()[None]
     want = gpt.generate(params, cfg32, p0, new_tokens)[0, p0.shape[1]:]
     agree = float(np.mean(np.asarray(r32[0].tokens) == want.cpu().numpy()))
@@ -2640,6 +2898,7 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f"{eng32.stats()['decode_compiles']}; replay against the eager "
         f"step: next tokens equal {rv32['tokens_equal']}, max |logit diff| "
         f"{rv32['max_logit_diff']:.3e} (tol {PARITY_LOGIT_TOL:.0e})")
+    log_prefill_vs_eager(pw32, "fp32, asserted", card)
     if (agree != 1.0 or not logit_err <= PARITY_LOGIT_TOL
             or eng32.stats()["decode_compiles"] != 1):
         raise SystemExit("fp32 engine disagrees with generate/forward")
@@ -3933,7 +4192,8 @@ def serve_run(torch, eng, prompts, new_tokens, kernels, tag):
     the mean host-clock ms of this pass's decode steps (verify steps) and
     prefill chunks, of a verify step's drafting (ngram: host clock; draft
     mode: the draft model's span on the card, from CUDA events) and the
-    rest of it, the engine counters' increments and the launches."""
+    rest of it, the peak ``kv_bytes_reserved``, the engine counters'
+    increments and the launches."""
     torch.cuda.synchronize()
     before = eng.stats()
     marks = {k: len(getattr(eng, k, ())) for k in
@@ -3942,7 +4202,7 @@ def serve_run(torch, eng, prompts, new_tokens, kernels, tag):
     zero_serving_counts(*kernels)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, new_tokens) for p in prompts]
-    eng.run()
+    kv_peak = drain(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = serving_counts(*kernels)
@@ -3968,6 +4228,7 @@ def serve_run(torch, eng, prompts, new_tokens, kernels, tag):
             "chunk_ms": mean_ms("chunk_s"), "wave_ms": mean_ms("prefill_s"),
             "verify_ms": mean_ms("verify_s"),
             "draft_ms": mean_ms("draft_s"),
+            "kv_bytes_reserved_peak": kv_peak,
             "delta": {k: after[k] - before[k] for k in (
                 "decode_steps", "prefill_calls", "prefill_chunks",
                 "prefix_page_hits", "spec_steps", "drafted_tokens",
@@ -4043,19 +4304,24 @@ def chunked_path(torch, gpt, PagedServingEngine, kernels, cfg, params,
     res = {}
     for kv in ("fp", "int8"):
         kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
-        engs = {}
+        engs, warm = {}, {}
         t0 = time.perf_counter()
         for name, chunk in (("chunked", CHUNK), ("unchunked", None)):
             engs[name] = PagedServingEngine(
                 (params, cfg), device="cuda", slots=8, max_len=512,
                 page_size=16, prefill_chunk=chunk, **kw)
-            engs[name].warmup()
+            built = engs[name].warmup()
+            warm[name] = (built, check_warm(f"(w) {kv} {name}", engs[name],
+                                            built))
         warm_s = time.perf_counter() - t0
         runs = collections.defaultdict(list)
         for _ in range(SPEC_ROUNDS):
             for name, eng in engs.items():
                 runs[name].append(serve_run(torch, eng, prompts, new_tokens,
                                             kernels, f"(w) {kv} {name}"))
+        for name, eng in engs.items():
+            check_no_capture(f"(w) {kv} {name}", eng, warm[name][1],
+                             warm[name][0])
         for r in runs["chunked"]:
             d, got = r["delta"], r["launches"]
             fwd = d["decode_steps"] + d["prefill_calls"] + d["prefill_chunks"]
@@ -4080,9 +4346,13 @@ def chunked_path(torch, gpt, PagedServingEngine, kernels, cfg, params,
                              f"{engs['chunked'].stats()['decode_compiles']} "
                              f"times, captured {step.captures}")
         res[kv] = {"warmup_s": warm_s, "runs": dict(runs),
+                   "prefill_graphs": {n: w[0] for n, w in warm.items()},
                    "tokens_equal_unchunked_share": equal_share(
                        runs["chunked"][0]["tokens"],
-                       runs["unchunked"][0]["tokens"])}
+                       runs["unchunked"][0]["tokens"]),
+                   "chunk_vs_eager": prefill_vs_eager(
+                       torch, gpt, engs["chunked"], [prompts[0], prompts[6]],
+                       f"(w) {kv}", False)}
         if profile:
             res[kv]["profile"] = profile_chunks(
                 torch, engs["chunked"], max(prompts, key=len), profile,
@@ -4148,14 +4418,19 @@ def spec_path(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
         engs = spec_engines(gpt, PagedServingEngine,
                             SpeculativeServingEngine, cfg, params, SEED, kv,
                             slots=8, max_len=512, page_size=16)
-        for eng in engs.values():
-            eng.warmup()
+        warm = {}
+        for name, eng in engs.items():
+            built = eng.warmup()
+            warm[name] = (built, check_warm(f"(x) {kv} {name}", eng, built))
         warm_s = time.perf_counter() - t0
         runs = collections.defaultdict(list)
         for _ in range(SPEC_ROUNDS):
             for name, eng in engs.items():
                 runs[name].append(serve_run(torch, eng, prompts, new_tokens,
                                             kernels, f"(x) {kv} {name}"))
+        for name, eng in engs.items():
+            check_no_capture(f"(x) {kv} {name}", eng, warm[name][1],
+                             warm[name][0])
         for name in ("ngram", "draft"):
             eng = engs[name]
             st = eng.stats()
@@ -4303,6 +4578,16 @@ def spec_parity(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
                 st = {n: engs[n].stats() for n in engs}
                 compiles = {n: (st[n]["decode_compiles"],
                                 st[n]["spec_draft_compiles"]) for n in st}
+                # the prefill ran as graphs: each step captured once
+                graphs = {n: [x.captures for x in prefill_steps(engs[n])]
+                          for n in engs}
+                if any(not g or set(g) != {1} or len(g)
+                       != st[n]["prefill_compiles"]
+                       for n, g in graphs.items()):
+                    raise SystemExit(f"(y) {kv}: prefill graph captures "
+                                     f"{graphs}")
+                out.setdefault(kv, {})["prefill_graphs"] = {
+                    n: len(g) for n, g in graphs.items()}
                 out.setdefault(kv, {})["window_writes_outside_commit"] = (
                     sum(probes), len(probes))
                 if sum(probes) or not probes:
@@ -4488,7 +4773,10 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
         log(f"    launches a chunked pass {ch[0]['launches']}; tokens equal "
             f"to the unchunked engine's: {r['tokens_equal_unchunked_share']}"
             f" (bf16: chunks and waves round differently; not asserted); "
-            f"warmup {r['warmup_s']:.1f} s  [{card}]")
+            f"warmup {r['warmup_s']:.1f} s, prefill graphs captured in it "
+            f"{r['prefill_graphs']} (chunked: 3 waves and the chunk), none "
+            f"during the traffic  [{card}]")
+        log_prefill_vs_eager(r["chunk_vs_eager"], "bf16, reported", card)
         if "profile" in r:
             log(f"    {kv} prefill-chunk profile (one {CHUNK}-token chunk "
                 f"an iteration) on {card}: {json.dumps(r['profile'])}")
@@ -4561,7 +4849,8 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
             f"; verify writes outside the committed positions "
             f"{r['window_writes_outside_commit'][0]} in "
             f"{r['window_writes_outside_commit'][1]} verifies; compiles "
-            f"{r['compiles']}")
+            f"{r['compiles']}; prefill graphs (each captured once) "
+            f"{r['prefill_graphs']}")
         whole = ("; whole pool equal in both (asserted)" if kv == "int8"
                  else "")
         log(f"    pool bytes against the non-speculative engine (1 request,"
@@ -4580,6 +4869,173 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
             f"{r['row_invariance']}")
     log(f"    phase {time.perf_counter() - t0:.1f} s")
     return w, x, y
+
+
+# (z): the slot-contiguous engine ------------------------------------------
+
+def slot_path(torch, ServingEngine, kernels, cfg, params, prompts,
+              new_tokens, quant):
+    """(z)'s full-width pass: ``ServingEngine(slots=8, max_len=512)`` after
+    ``warmup()``, ``prompts`` x ``new_tokens``, exact launch counts, every
+    graph captured in warmup and none in the traffic."""
+    tag = f"(z) {quant or 'bf16'}"
+    L = cfg.num_layers
+    eng = ServingEngine((params, cfg), device="cuda", slots=8, max_len=512,
+                        quant=quant)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    built = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captures = check_warm(tag, eng, built)
+    reserved = torch.cuda.max_memory_reserved()
+    run = serve_run(torch, eng, prompts, new_tokens, kernels, tag)
+    check_no_capture(tag, eng, captures, built)
+    d, got = run["delta"], run["launches"]
+    fwd = d["decode_steps"] + d["prefill_calls"]
+    want = {"layer_norm": (2 * L + 1) * fwd, "paged_attention": 0,
+            "paged_attention_quant": 0,
+            "dequant_matmul": 4 * L * fwd if quant else 0}
+    check_launch(tag, got, want)
+    if quant:
+        check_launch(tag, {8: got["dequant_matmul_by_rows"].get(8)},
+                     {8: 4 * L * d["decode_steps"]})
+    st = eng.stats()
+    res = {"warmup_s": warm_s, "prefill_graphs": built,
+           "rungs": sorted(eng._waves),
+           "reserved_after_warmup_gib": reserved / 2 ** 30,
+           "kv_bytes_reserved": st["kv_bytes_reserved"],
+           "decode_compiles": st["decode_compiles"], **run}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def slot_parity(torch, gpt, ServingEngine, prompts, new_tokens):
+    """(z)'s fp32 parity at V=4096, H=256, 2 layers: the slot engine on
+    the card against the CPU (tokens exact, logits within 1e-3); on the
+    card one decode replay against the eager ``gpt.decode_step_slots`` on
+    clones of the pool (tokens and pool bytes equal), and the wave
+    replays against the eager ``_prefill`` (tokens and bytes equal)."""
+    c = SPEC_PARITY
+    cfg = gpt.GPTConfig(vocab_size=c["V"], hidden_size=c["H"],
+                        num_layers=c["L"], num_heads=c["nh"],
+                        max_seq_len=256, dtype="float32", use_flash=False,
+                        remat=False, use_pallas_norm=True)
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(SEED + 19),
+                             device="cpu")
+    rng = np.random.default_rng(SEED + 20)
+    small = [rng.integers(0, c["V"], n).astype(np.int32)
+             for n in (40, 21, 57, 18, 9, 33)]
+    runs, res = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine((params, cfg), device=dev, slots=4, max_len=128,
+                            capture_logits=True)
+        reqs = [eng.submit(p, new_tokens) for p in small]
+        eng.run()
+        runs[dev] = reqs
+        if dev != "cuda":
+            continue
+        st, rec = eng._step, []
+
+        def decode(step):
+            lens, toks, act = staged(torch, step, ("lens", "toks", "active"))
+
+            def eager():
+                lg, _ = gpt.decode_step_slots(
+                    eng.params, toks, cfg, {"k": eng._cache_k,
+                                            "v": eng._cache_v, "len": lens},
+                    act != 0)
+                return lg.argmax(-1), lg
+            tok, _, clones, _ = eager_on_clones(torch, eng, eager)
+            out = step()
+            rec.append({"tokens_equal": bool(np.array_equal(tok, out[0])),
+                        "pool_equal": all(bool(torch.equal(a, b)) for a, b
+                                          in zip(eng._cache_operands(),
+                                                 clones))})
+            return out
+        eng._step = StepProbe(st, decode)
+        try:
+            probe = [eng.submit(p, 3) for p in small[:4]]
+            eng.run()
+        finally:
+            eng._step = st
+        if not rec or not all(r["tokens_equal"] and r["pool_equal"]
+                              for r in rec) or not all(r.done for r in probe):
+            raise SystemExit(f"(z): a slot decode replay disagrees with the "
+                             f"eager step: {rec}")
+        res["decode_vs_eager"] = {"replays": len(rec), "tokens_equal": True,
+                                  "pool_equal": True}
+        res["prefill_vs_eager"] = prefill_vs_eager(torch, gpt, eng,
+                                                   small[:4], "(z)", True)
+        res["compiles"] = (eng.stats()["prefill_compiles"],
+                           eng.stats()["decode_compiles"])
+        if res["compiles"][1] != 1 or st.captures != 1:
+            raise SystemExit(f"(z): decode_compiles {res['compiles']}, "
+                             f"captures {st.captures}")
+        del eng
+    tok = all(a.tokens == b.tokens for a, b in zip(runs["cuda"], runs["cpu"]))
+    err = max(float(np.abs(np.stack(a.logits) - np.stack(b.logits)).max())
+              for a, b in zip(runs["cuda"], runs["cpu"]))
+    res.update(tokens_equal=tok, max_logit_err=err)
+    if not tok or not err <= PARITY_LOGIT_TOL:
+        raise SystemExit(f"(z): the slot engine on the card disagrees with "
+                         f"the CPU: tokens equal {tok}, max |logit diff| "
+                         f"{err:.3e}")
+    return res
+
+
+def slot_phases(torch, gpt, kernels, card, launches, fp_run, qrun):
+    """Phase (z), logged: the slot-contiguous engine on (d)'s weights and
+    requests, bf16 then int8 weights, beside (d)'s and (j)'s paged
+    engines; then its fp32 parity.  Its launches go into ``launches``."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)
+    params = gpt.params_from_numpy(numpy_gpt_params(cfg, SEED), "cuda")
+    prompts = make_prompts(cfg.vocab_size)
+    new_tokens = 32
+    z = {q: slot_path(torch, ServingEngine, kernels, cfg, params, prompts,
+                      new_tokens, q) for q in (None, "int8")}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["layer_norm_slot"] = z[None]["launches"]["layer_norm"]
+    launches["layer_norm_slot_quant"] = z["int8"]["launches"]["layer_norm"]
+    launches["dequant_matmul_slot_quant"] = z["int8"]["launches"][
+        "dequant_matmul"]
+    for q, paged, name in ((None, fp_run, "(d)"), ("int8", qrun, "(j)")):
+        r = z[q]
+        d = r["delta"]
+        log(f"(z) slot-contiguous ServingEngine(slots=8, max_len=512"
+            f"{', quant=int8' if q else ''}) of gpt_345m, (d)'s 12 requests"
+            f" x {new_tokens} tokens, on {card}:")
+        log(f"    tokens/s {r['tokens_per_s']} ({name}'s paged engine: "
+            f"{paged['tokens_per_s']}); decode step {r['step_ms']} ms x "
+            f"{d['decode_steps']} ({name}: {paged['decode_step_ms']}); "
+            f"prefill wave {r['wave_ms']} ms x {d['prefill_calls']} "
+            f"({name}: {paged['prefill_wave_ms']}); kv_bytes_reserved "
+            f"{r['kv_bytes_reserved']} (the whole pool, always; (d)'s paged "
+            f"engine at its peak {fp_run['kv_bytes_reserved_peak']}); "
+            f"launches {r['launches']}; warmup: {r['prefill_graphs']} "
+            f"prefill graphs (rungs {r['rungs']}) and the decode graph "
+            f"captured in {r['warmup_s']:.1f} s, none during the traffic; "
+            f"max_memory_reserved over warmup (reset just before it) "
+            f"{r['reserved_after_warmup_gib']} GiB  [{card}]")
+    par = slot_parity(torch, gpt, ServingEngine, prompts, 16)
+    log(f"(z) fp32 slot engine, V={SPEC_PARITY['V']}, H={SPEC_PARITY['H']}, "
+        f"{SPEC_PARITY['L']} layers, 6 requests x 16 tokens, card against "
+        f"CPU: tokens equal {par['tokens_equal']}, max |logit diff| "
+        f"{par['max_logit_err']:.3e} (tol {PARITY_LOGIT_TOL:.0e}); "
+        f"(prefill, decode) compiles {par['compiles']}; "
+        f"{par['decode_vs_eager']['replays']} decode replays against the "
+        f"eager decode_step_slots on clones of the pool: tokens and pool "
+        f"bytes equal (asserted)")
+    log_prefill_vs_eager(par["prefill_vs_eager"], "fp32, asserted", card)
+    log(f"    phase {time.perf_counter() - t0:.1f} s")
+    return z, par
 
 
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
@@ -4655,7 +5111,7 @@ def report(torch, cases, launches, train, t_start):
     for k in kernels:
         for path in ("ernie", "eager_ernie", "eager_encoder", "hapi",
                      "hapi_eval", "chunked", "chunked_quant", "spec",
-                     "spec_quant", "spec_quant_m40"):
+                     "spec_quant", "spec_quant_m40", "slot", "slot_quant"):
             if f"{k['name']}_{path}" in launches:
                 k[f"launches_{path}"] = launches[f"{k['name']}_{path}"]
     log(f"total {time.perf_counter() - t_start:.1f} s")

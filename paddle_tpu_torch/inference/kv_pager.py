@@ -217,11 +217,6 @@ class KVPager:
             self._digest_sketch = (self._cache_gen, memo)
         return memo[-int(limit):]
 
-    def is_registered(self, pid):
-        """Whether page ``pid`` is in the prefix cache: its content is
-        frozen, sharers read it and nobody rewrites it."""
-        return self.prefix_cache and pid in self._page_key
-
     # --------------------------------------------------------- allocation
     def _alloc(self):
         if self.free:

@@ -1,11 +1,13 @@
-"""Continuous-batching GPT serving over a paged KV cache, in PyTorch: the
-counterpart of ``paddle_tpu/inference/serving.py`` limited to the paged
-engine's main path.
+"""Continuous-batching GPT serving, in PyTorch: the counterpart of
+``paddle_tpu/inference/serving.py`` limited to its single-device engines.
 
 * :class:`Request` and :class:`ServingQueueFull` as in the reference.
-* :class:`ServingEngine` keeps the reference's scheduling half (submit,
-  step, run, warmup, generate, abort and stats); its slot-contiguous KV
-  pool is not ported, so only :class:`PagedServingEngine` is built.
+* :class:`ServingEngine`: the slot-contiguous engine.  Its KV pool is one
+  [L, slots, max_len, nh, hd] strip a slot (``gpt.init_slot_cache``);
+  admission runs in waves of one seq bucket padded to the batch ladder
+  (one ``forward_cached`` a wave, each row scattered into its slot in
+  row order), and every iteration decodes every slot
+  (``gpt.decode_step_slots``).
 * :class:`PagedServingEngine`: wave admission into pages
   (``inference/kv_pager.py``), one padded ``forward_cached`` per
   admission wave followed by one page scatter, one
@@ -15,24 +17,28 @@ engine's main path.
   are admitted in chunks (``forward_paged_chunk``), one chunk an engine
   iteration, so in-flight decodes advance between chunks.
 * ``inference/speculative.py`` builds :class:`SpeculativeServingEngine`
-  on this engine: its decode step is a verify of a drafted window.
+  on the paged engine: its decode step is a verify of a drafted window.
 * Quantized serving, as in the reference: ``quant="int8"`` stores the
   block matmul weights as int8 with per-output-channel scales (their
   matmuls launch the dequant-matmul kernel), and ``kv_dtype="int8"``
-  keeps the page pool in int8 with per-position, per-head scales (decode
-  attention launches the int8 paged-attention kernel).  The two knobs are
-  independent.
+  (paged engine) keeps the page pool in int8 with per-position, per-head
+  scales (decode attention launches the int8 paged-attention kernel).
+  The two knobs are independent.
 
-The JAX engine compiles its decode step once per engine
-(``decode_compiles == 1``); here the decode step is one object built once
-per engine (:class:`_DecodeStep`, counted by ``decode_compiles``): static
+The JAX engines compile one executable per prefill rung (batch, seq),
+one for the chunk and one for the decode step, counted by
+``prefill_compiles`` and ``decode_compiles``.  Here each is one step
+object (:class:`_GraphStep`), built once and counted the same way: static
 device inputs fed from one pinned staging array, and on the card one CUDA
-graph of the eager step, captured at the first decode step and replayed
-at every later one.  A failed capture raises; there is no eager mode on
-the card.  Prefill waves, prefill chunks and copy-on-write page copies
-stay eager, on the same stream, ordered before the replay.  The host-side
-numpy mirrors (``_lens``, ``_tables_np``, ``_active``) stay the scheduling
-authority, exactly as in the reference.
+graph of the eager step, captured at its first call and replayed at every
+later one.  ``warmup()`` builds every rung the ladder can reach, the chunk
+step and the decode step, so traffic captures nothing; it returns the
+prefill steps it built, as the reference returns the prefill executables
+it compiled.  An engine's prefill graphs share one memory pool.  A failed
+capture raises; there is no eager mode on the card.  Copy-on-write page
+copies stay eager, on the same stream, ordered before the replays.  The
+host-side numpy mirrors (``_lens``, ``_tables_np``, ``_active``) stay the
+scheduling authority, exactly as in the reference.
 Decoding is greedy: the parity contract is token-exactness with
 ``models.gpt.generate``.  The telemetry registry, tracing and fault
 injection of the reference are not part of this slice; :meth:`stats`
@@ -70,10 +76,11 @@ _COUNTERS = ("prefill_calls", "decode_steps", "requests_admitted",
              # counts launches, 0 on the CPU)
              "quant_matmuls", "kv_quant_bytes_saved",
              "dequant_kernel_calls",
-             # builds of the engine's decode-step object (one CUDA graph
-             # capture on the card): 1 per engine, as the reference's
-             # compiled decode step
-             "decode_compiles",
+             # builds of the engine's step objects (one CUDA graph
+             # capture each on the card), as the reference counts its
+             # executables: a prefill step per (batch, seq) rung and one
+             # for the chunk; the decode step, 1 per engine
+             "prefill_compiles", "decode_compiles",
              # speculative decoding (zero on the other engines): draft
              # candidates proposed, accepted and rejected by the verify,
              # verify steps, and builds of the draft model's steps
@@ -84,6 +91,7 @@ _COUNTERS = ("prefill_calls", "decode_steps", "requests_admitted",
 _WARMUP_QUIET = frozenset(_COUNTERS) - {"queue_rejects", "step_aborts",
                                         "requests_aborted",
                                         "kv_quant_bytes_saved",
+                                        "prefill_compiles",
                                         "decode_compiles",
                                         "spec_draft_compiles"}
 
@@ -154,14 +162,18 @@ class _GraphStep:
       Capture executes nothing, so its increments of the kernel modules'
       launch counters are taken back, and each replay adds them again:
       the launch counts read as if the step ran eagerly.  The graph keeps
-      the workspace and ticket tensors it baked.  A failure to capture
-      raises.  On the CPU the same buffers feed the eager step, with no
-      capture.
+      the workspace and ticket tensors it baked, and the step keeps its
+      outputs (``_out``).  A failure to capture raises.  On the CPU the
+      same buffers feed the eager step, with no capture.
+    * ``shared_pool``: the graph takes its memory from the engine's one
+      prefill pool (:meth:`ServingEngine._prefill_pool`), which all its
+      prefill steps share; they run one at a time on one stream, and each
+      keeps its outputs, so no replay reuses another step's outputs.
     * The tensors the step reads and writes (the pools) are baked into
       the graph, so the engine zeroes them in place on an abort instead
       of reallocating them."""
 
-    def __init__(self, eng, fields):
+    def __init__(self, eng, fields, shared_pool=False):
         self._eng = eng
         self.device = dev = eng.device
         self._cuda = dev.type == "cuda"
@@ -181,9 +193,12 @@ class _GraphStep:
         self._out = None
         self._delta = None
         self._held = ()
+        self._pool = None
         if self._cuda:
             self._side = torch.cuda.Stream(dev)
             self._done = torch.cuda.Event()
+            if shared_pool:
+                self._pool = eng._prefill_pool()
 
     def _run(self):
         raise NotImplementedError
@@ -205,7 +220,8 @@ class _GraphStep:
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=self._side):
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._side):
                 self._out = self._run()
         finally:
             after = _launch_counts()
@@ -244,23 +260,43 @@ class _GraphStep:
             self._done.synchronize()
 
 
-class _DecodeStep(_GraphStep):
+class _SampleStep(_GraphStep):
+    """A step whose outputs are greedy tokens [rows] and their logits
+    [rows, V] fp32: the decode steps (a row a slot) and the prefill steps
+    (a row a wave row; one for a chunk).  A call stages, launches, and
+    reads the tokens back through a pinned host buffer after one event
+    sync, the step's one sync point."""
+
+    def __init__(self, eng, fields, rows, shared_pool=False):
+        super().__init__(eng, fields, shared_pool)
+        self._next = torch.zeros(rows, dtype=torch.int64,
+                                 pin_memory=self._cuda)
+        self.logits = None          # [rows, V] fp32 on the device, last call
+
+    @torch.inference_mode()
+    def __call__(self):
+        """One step over the staged values: (tokens [rows] int64, logits
+        [rows, V] fp32 numpy or None without ``capture_logits``)."""
+        nxt, self.logits = self._launch()
+        self._next.copy_(nxt, non_blocking=True)
+        self._sync()
+        logits = (self.logits.cpu().numpy() if self._eng.capture_logits
+                  else None)
+        return self._next.numpy().copy(), logits
+
+
+class _DecodeStep(_SampleStep):
     """A paged engine's decode step, built once (``decode_compiles``): its
     inputs are the page table [S, maxP], the write pages, the write
     offsets, the lens and the last tokens (:attr:`tables`,
     :attr:`wpages`, :attr:`woffs`, :attr:`lens`, :attr:`toks`); its
-    outputs the next tokens (argmax) and the logits.  The next tokens come
-    back through a pinned host buffer, then an event sync, the decode
-    loop's one sync point."""
+    outputs the next tokens (argmax) and the logits."""
 
     def __init__(self, eng):
         S, maxP = eng.slots, eng._pages_per_slot
         super().__init__(eng, (("tables", (S, maxP)), ("wpages", (S,)),
                                ("woffs", (S,)), ("lens", (S,)),
-                               ("toks", (S,))))
-        self._next = torch.zeros(S, dtype=torch.int64,
-                                 pin_memory=self._cuda)
-        self.logits = None          # [S, V] fp32 on the device, last call
+                               ("toks", (S,))), S)
 
     def _run(self):
         """The eager step over the static inputs: (next tokens, logits)."""
@@ -276,16 +312,60 @@ class _DecodeStep(_GraphStep):
                 table, wp, wo, lens)
         return torch.argmax(logits, -1), logits
 
-    @torch.inference_mode()
-    def __call__(self):
-        """One decode step over the staged values: (next tokens [S] int64,
-        logits [S, V] fp32 numpy or None without ``capture_logits``)."""
-        nxt, self.logits = self._launch()
-        self._next.copy_(nxt, non_blocking=True)
-        self._sync()
-        logits = (self.logits.cpu().numpy() if self._eng.capture_logits
-                  else None)
-        return self._next.numpy().copy(), logits
+
+class _SlotDecodeStep(_SampleStep):
+    """The slot engine's decode step, built once (``decode_compiles``):
+    ``gpt.decode_step_slots`` over the slot pool, its inputs the lens, the
+    last tokens and the active flags (:attr:`lens`, :attr:`toks`,
+    :attr:`active`) [S]."""
+
+    def __init__(self, eng):
+        S = eng.slots
+        super().__init__(eng, (("lens", (S,)), ("toks", (S,)),
+                               ("active", (S,))), S)
+
+    def _run(self):
+        eng = self._eng
+        lens, toks, active = self._args
+        cache = {"k": eng._cache_k, "v": eng._cache_v, "len": lens}
+        logits, _ = gpt.decode_step_slots(eng.params, toks, eng.cfg, cache,
+                                          active != 0)
+        return torch.argmax(logits, -1), logits
+
+
+class _WaveStep(_SampleStep):
+    """One prefill wave rung (batch ``b``, seq ``s``), built the first
+    time the rung is used (``prefill_compiles``) and kept by the engine:
+    the engine's ``_prefill`` over the static inputs its
+    ``_wave_fields(b, s)`` name (the tokens [b, s], the lens [b] and the
+    page table rows [b, s / ps] or the slot ids [b]).  Its outputs are
+    each row's first sampled token and the logits at its last prompt
+    position."""
+
+    def __init__(self, eng, b, s):
+        super().__init__(eng, eng._wave_fields(b, s), b, shared_pool=True)
+
+    def _run(self):
+        return self._eng._prefill(*self._args)
+
+
+class _ChunkStep(_SampleStep):
+    """A paged engine's prefill chunk, one step for every chunk of every
+    prompt (``prefill_compiles``): the engine's ``_chunk`` over the
+    static chunk tokens [1, C], the slot's table row and held-page flags
+    [maxP], the chunk's offset [1] and its real token count [1]
+    (:attr:`toks`, :attr:`row`, :attr:`held`, :attr:`offset`,
+    :attr:`take`).  Outputs the sampled token [1] and the logits of the
+    chunk's last real position [1, V]."""
+
+    def __init__(self, eng):
+        C, maxP = eng._prefill_chunk, eng._pages_per_slot
+        super().__init__(eng, (("toks", (1, C)), ("row", (maxP,)),
+                               ("held", (maxP,)), ("offset", (1,)),
+                               ("take", (1,))), 1, shared_pool=True)
+
+    def _run(self):
+        return self._eng._chunk(*self._args)
 
 
 class ServingQueueFull(RuntimeError):
@@ -349,14 +429,19 @@ class Request:
 
 
 class ServingEngine:
-    """Scheduling half of the continuous-batching greedy decoder.
+    """Continuous-batching greedy decoder over a slot-contiguous KV pool,
+    and the scheduling half of :class:`PagedServingEngine`.
 
     ``model``: a ``(params, cfg)`` pair of the port's GPT params and
     config.  ``device`` (default ``"cuda"``) is where params and KV pool
     live; with no GPU the default raises.  Knobs as in the reference:
-    ``slots``, ``max_len``, ``seq_buckets`` / ``batch_buckets`` (the
-    prefill padding ladder), ``max_queue`` (default ``8 * slots``),
-    ``capture_logits``, ``cache_dtype`` and ``quant``.
+    ``slots`` (the decode batch), ``max_len`` (a slot's KV capacity:
+    prompt + new tokens fit in it), ``seq_buckets`` / ``batch_buckets``
+    (the prefill padding ladder: at most ``len(seq_buckets) *
+    len(batch_buckets)`` wave steps), ``max_queue`` (default
+    ``8 * slots``; past it :meth:`submit` raises
+    :class:`ServingQueueFull`), ``capture_logits``, ``cache_dtype`` and
+    ``quant``.
 
     ``quant`` (``"int8"``, ``"int8_dynamic"`` or ``"fp8"``): the params
     are quantized once here (``models.gpt.quantize_params``: the block
@@ -368,18 +453,16 @@ class ServingEngine:
     ``"fp8"`` dequantizes in plain PyTorch, as the reference, which has no
     kernel for either, does with XLA.
 
-    The slot-contiguous KV pool and ``tp``/``pp`` are not in this slice
-    and raise ``NotImplementedError``; use :class:`PagedServingEngine`."""
+    The slot decode attends through ``gpt._slot_block``'s plain math over
+    ``max_len`` positions a slot, as the reference's does (it has no
+    kernel there).  ``tp``/``pp`` are not in this slice and raise
+    ``NotImplementedError``."""
 
     def __init__(self, model, *, device=DEFAULT_DEVICE, slots=4,
                  max_len=None, seq_buckets=None,
                  batch_buckets=DEFAULT_BATCH_BUCKETS, max_queue=None,
                  capture_logits=False, cache_dtype=None, quant=None,
                  tp=None, pp=None):
-        if type(self) is ServingEngine:
-            raise NotImplementedError(
-                "the slot-contiguous ServingEngine pool is not ported in "
-                "this slice; use PagedServingEngine")
         if quant is not None and quant not in gpt.QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}; expected one "
                              f"of {gpt.QUANT_MODES}")
@@ -418,6 +501,9 @@ class ServingEngine:
         self.spec_mode = None
         self.spec_k = None
         self._cache_dtype = cache_dtype
+        self._step = None           # the decode step, built at first use
+        self._waves = {}            # (b, s) -> its _WaveStep
+        self._graph_pool = None     # the prefill graphs' shared pool
         self._build_cache()
         # host-side bookkeeping mirrors: authoritative for scheduling
         self._lens = np.zeros((self.slots,), np.int32)
@@ -438,10 +524,36 @@ class ServingEngine:
         self.decode_step_s = []
 
     def _build_cache(self):
-        raise NotImplementedError
+        cache = gpt.init_slot_cache(self.cfg, self.slots, self.max_len,
+                                    dtype=self._cache_dtype,
+                                    device=self.device)
+        self._cache_k, self._cache_v = cache["k"], cache["v"]
 
     def _reset_cache(self):
-        raise NotImplementedError
+        """After an abort: the pool zeroed in place (the same storage,
+        which the captured steps read and write).  The steps stay
+        built."""
+        for pool in self._cache_operands():
+            pool.zero_()
+
+    def _cache_operands(self):
+        """The KV pool arrays (the paged engine adds its int8 scales)."""
+        return (self._cache_k, self._cache_v)
+
+    def _prefill_pool(self):
+        """The graph memory pool every prefill step of this engine
+        captures into (made at the first capture)."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _wave_step(self, b, s):
+        """The prefill step of rung (b, s), built at its first use."""
+        st = self._waves.get((b, s))
+        if st is None:
+            st = self._waves[(b, s)] = _WaveStep(self, b, s)
+            self._inc("prefill_compiles")
+        return st
 
     # ------------------------------------------------------------- intake
     _UNSET = object()
@@ -502,6 +614,92 @@ class ServingEngine:
     # ----------------------------------------------------------- scheduling
     def _free_slots(self):
         return [i for i in range(self.slots) if not self._active[i]]
+
+    def _admit(self):
+        """Move queued requests into free slots, one prefill wave per
+        consecutive same-seq-bucket run, padded to the batch ladder.
+        Requests that finish during admission (``max_new_tokens=1``, or
+        eos as the first token) land on the finished backlog."""
+        while self._queue and not self._active.all():
+            free = self._free_slots()
+            group, sbucket = [], None
+            while (self._queue and len(group) < len(free)
+                   and len(group) < self.batch_buckets[-1]):
+                nxt_b = self._seq_bucket(len(self._queue[0].prompt))
+                if sbucket is None:
+                    sbucket = nxt_b
+                elif nxt_b != sbucket:
+                    break           # next wave picks it up
+                group.append(self._queue.popleft())
+            if not group:
+                break
+            b = self._batch_bucket(len(group))
+            st = self._wave_step(b, sbucket)
+            # the pad rows come first and scatter over the scratch slot
+            # free[0], which a real row then rewrites: the step writes its
+            # rows in row order
+            pads = b - len(group)
+            st.tokens[:] = 0
+            st.lens[:] = 1
+            st.slot_ids[:] = free[0]
+            for r, req in enumerate(group):
+                req.slot = free[r]
+                st.tokens[pads + r, :len(req.prompt)] = req.prompt
+                st.lens[pads + r] = len(req.prompt)
+                st.slot_ids[pads + r] = free[r]
+            self._admitting = group
+            first_np, logits_np = self._run_wave(st)
+            for r, req in enumerate(group):
+                s = req.slot
+                self._lens[s] = len(req.prompt)
+                self._active[s] = True
+                self._slot_req[s] = req
+                self._append_token(req, int(first_np[pads + r]),
+                                   logits_np[pads + r]
+                                   if logits_np is not None else None)
+                self._last_tok[s] = int(first_np[pads + r])
+                self._inc("requests_admitted")
+            self._admitting = []
+        if not self._warming:
+            self._occ_peak = max(self._occ_peak, int(self._active.sum()))
+
+    def _run_wave(self, st):
+        """One staged wave through its step: (first tokens, logits or
+        None) as numpy, its host time and counts recorded."""
+        launched = self._kernel_launches()
+        t0 = time.perf_counter()
+        out = st()
+        if not self._warming:
+            self.prefill_s.append(time.perf_counter() - t0)
+        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
+        self._inc("prefill_calls")
+        self._count_quant_matmuls()
+        return out
+
+    def _wave_fields(self, b, s):
+        return (("tokens", (b, s)), ("lens", (b,)), ("slot_ids", (b,)))
+
+    @torch.inference_mode()
+    def _prefill(self, tokens, lens, slot_ids):
+        """Causal forward over the padded prompts, then each row's K/V
+        written into positions [0, s) of its slot, one row after another
+        (a scatter with repeated slots has no defined winner on CUDA).
+        Returns (first sampled tokens [b], logits at each row's last
+        prompt position [b, V])."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        fresh = gpt.init_cache(cfg, b, s, dtype=self._cache_k.dtype,
+                               device=self.device)
+        logits, filled = gpt.forward_cached(self.params, tokens, cfg, fresh)
+        ids = slot_ids.long()
+        for pool, new in ((self._cache_k, filled["k"]),
+                          (self._cache_v, filled["v"])):
+            view = pool[:, :, :s]
+            for r in range(b):
+                view.index_copy_(1, ids[r:r + 1], new[:, r:r + 1])
+        idx = (lens.long() - 1).clamp(0, s - 1)
+        last = logits[torch.arange(b, device=logits.device), idx]   # [b, V]
+        return torch.argmax(last, -1), last
 
     def _append_token(self, req, tok, logits_row):
         req.tokens.append(tok)
@@ -589,7 +787,46 @@ class ServingEngine:
         return out
 
     def _step_inner(self):
-        raise NotImplementedError
+        self._admit()
+        if not self._active.any():
+            return
+        t0 = time.perf_counter()
+        nxt_np, logits_np = self._decode()
+        if not self._warming:
+            self.decode_step_s.append(time.perf_counter() - t0)
+        self._take_decoded(nxt_np, logits_np)
+
+    @torch.inference_mode()
+    def _decode(self):
+        """One decode step through the engine's :class:`_SlotDecodeStep`
+        (built at the first call): the host mirrors staged, then one
+        copy, the step (a graph replay on the card) and the readback.
+        Returns (next tokens [S], logits [S, V] or None) as numpy."""
+        if self._step is None:
+            self._step = _SlotDecodeStep(self)
+            self._inc("decode_compiles")
+        st = self._step
+        st.lens[:] = self._lens
+        st.toks[:] = self._last_tok
+        st.active[:] = self._active
+        launched = self._kernel_launches()
+        out = st()
+        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
+        return out
+
+    def _take_decoded(self, nxt_np, logits_np):
+        """Every active slot takes its decoded token."""
+        self._inc("decode_steps")
+        self._count_quant_matmuls()
+        for s in range(self.slots):
+            if not self._active[s]:
+                continue
+            req = self._slot_req[s]
+            self._lens[s] += 1
+            self._append_token(req, int(nxt_np[s]),
+                               logits_np[s] if logits_np is not None
+                               else None)
+            self._last_tok[s] = int(nxt_np[s])
 
     def _tps_value(self):
         if len(self._tok_window) < 2:
@@ -620,12 +857,15 @@ class ServingEngine:
 
     def warmup(self, max_new_tokens=2):
         """Run one wave of dummy requests for every (batch, seq) rung of
-        the prefill ladder, plus decode steps, before taking traffic, so
-        the first real requests do not pay first-call costs (kernel builds
-        and loads, cuBLAS and allocator set-up).  The synthetic waves are
-        kept out of the traffic counters.  Returns the number of waves
-        run."""
-        waves = 0
+        the prefill ladder, plus decode steps, before taking traffic: every
+        reachable rung's wave step and the decode step are built (captured
+        on the card), so traffic builds nothing, and the first real
+        requests do not pay first-call costs (kernel builds and loads,
+        cuBLAS and allocator set-up).  The synthetic waves are kept out of
+        the traffic counters.  Returns the number of prefill steps built
+        (``prefill_compiles``' rise), as the reference returns the prefill
+        executables it compiled."""
+        before = self._counts["prefill_compiles"]
         self._warming = True
         real_max_queue = self.max_queue
         self.max_queue = max(real_max_queue, self.slots,
@@ -649,11 +889,10 @@ class ServingEngine:
                     for _ in range(wave):
                         self.submit(np.ones((n,), np.int32), mnt)
                     self.run()
-                    waves += 1
         finally:
             self._warming = False
             self.max_queue = real_max_queue
-        return waves
+        return self._counts["prefill_compiles"] - before
 
     def _warmup_wave_len(self, lo, s, mnt):
         """Warmup prompt length that lands in rung ``s`` (whose shortest
@@ -693,7 +932,11 @@ class ServingEngine:
         return out
 
     def _kv_accounting(self):
-        raise NotImplementedError
+        """A slot-contiguous pool reserves its whole footprint, filled or
+        not (what the paged engine's accounting shrinks)."""
+        return {"kv_bytes_reserved": sum(int(a.nbytes)
+                                         for a in self._cache_operands()),
+                "kv_tokens_held": int(self._lens.sum())}
 
     def _count_quant_matmuls(self):
         """One forward runs 4 quantized matmuls per layer (qkv, proj, fc1,
@@ -725,9 +968,10 @@ class PagedServingEngine(ServingEngine):
     ``prefill_chunk`` (rounded up to a page multiple; at most the largest
     seq bucket; it must divide ``max_len``): prompts longer than it are
     admitted in chunks, one chunk an engine iteration
-    (``gpt.forward_paged_chunk``, eager, on the slot's full page table),
-    so in-flight decodes advance between chunks.  Their fresh pages enter
-    the prefix cache as each chunk lands.
+    (``gpt.forward_paged_chunk`` on the slot's full page table, through
+    the engine's one :class:`_ChunkStep`), so in-flight decodes advance
+    between chunks.  Their fresh pages enter the prefix cache as each
+    chunk lands.
 
     Not in this slice, each raising ``NotImplementedError``:
     ``host_tier_mb``, ``kv_handoff`` (and ``submit_prefilled``), MoE
@@ -765,6 +1009,7 @@ class PagedServingEngine(ServingEngine):
         self._prefill_chunk = None          # set once buckets are known
         self._chunk_jobs = collections.deque()
         self._chunk_slots = set()
+        self._chunk_step = None             # built at the first chunk
         # host-clock seconds of each prefill chunk (ending in its
         # sampled-token readback)
         self.chunk_s = []
@@ -824,7 +1069,6 @@ class PagedServingEngine(ServingEngine):
         self._cache_k, self._cache_v = cache["k"], cache["v"]
         self._tables_np = np.zeros((self.slots, self._pages_per_slot),
                                    np.int32)
-        self._step = None           # the decode step, built at first use
 
     def _new_pager(self):
         # prefix hashes are salted with the numeric contract, so an int8
@@ -838,17 +1082,13 @@ class PagedServingEngine(ServingEngine):
     def _reset_cache(self):
         """After an abort: the pool zeroed in place (the same storage, which
         the captured decode step reads and writes; page 0 stays the
-        scratch page), a fresh pager and empty page tables.  The decode
-        step stays built."""
-        for pool in self._cache_operands():
-            pool.zero_()
+        scratch page), a fresh pager and empty page tables.  The steps
+        stay built."""
+        super()._reset_cache()
         self._pager = self._new_pager()
         self._tables_np[:] = 0
         self._chunk_jobs.clear()
         self._chunk_slots.clear()
-
-    def _to_dev(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _check_prompt(self, req):
         need_pages = self._pager.pages_for(len(req.prompt)
@@ -922,28 +1162,18 @@ class PagedServingEngine(ServingEngine):
 
     def _prefill_group(self, group, tables, sbucket, hits):
         ps = self._page_size
-        bbucket = self._batch_bucket(len(group))
-        toks = np.zeros((bbucket, sbucket), np.int32)
-        lens = np.ones((bbucket,), np.int32)           # pad rows: len 1
-        ptab = np.zeros((bbucket, sbucket // ps), np.int32)   # pads: scratch
+        st = self._wave_step(self._batch_bucket(len(group)), sbucket)
+        st.tokens[:] = 0
+        st.lens[:] = 1                          # pad rows: len 1
+        st.ptab[:] = 0                          # pads: scratch
         for r, req in enumerate(group):
-            toks[r, :len(req.prompt)] = req.prompt
-            lens[r] = len(req.prompt)
-            ptab[r, :len(tables[r])] = tables[r]
+            st.tokens[r, :len(req.prompt)] = req.prompt
+            st.lens[r] = len(req.prompt)
+            st.ptab[r, :len(tables[r])] = tables[r]
         self._inc("prefix_page_hits", hits)
         self._inc("prefix_page_misses", sum(len(t) for t in tables) - hits)
         self._admitting = group
-        t0 = time.perf_counter()
-        first_tok, last = self._prefill(self._to_dev(toks),
-                                        self._to_dev(lens),
-                                        self._to_dev(ptab))
-        # the sampled-first-token readback: the wave's one sync point
-        first_np = first_tok.cpu().numpy()
-        logits_np = last.cpu().numpy() if self.capture_logits else None
-        if not self._warming:
-            self.prefill_s.append(time.perf_counter() - t0)
-        self._inc("prefill_calls")
-        self._count_quant_matmuls()
+        first_np, logits_np = self._run_wave(st)
         for r, req in enumerate(group):
             s = req.slot
             self._tables_np[s] = 0
@@ -959,6 +1189,10 @@ class PagedServingEngine(ServingEngine):
             self._inc("requests_admitted")
         self._admitting = []
 
+    def _wave_fields(self, b, s):
+        return (("tokens", (b, s)), ("lens", (b,)),
+                ("ptab", (b, s // self._page_size)))
+
     @torch.inference_mode()
     def _prefill(self, tokens, lens, ptab):
         """Causal forward over the padded prompts, then one scatter of the
@@ -969,7 +1203,6 @@ class PagedServingEngine(ServingEngine):
         cfg = self.cfg
         b, s = tokens.shape
         ps = self._page_size
-        launched = self._kernel_launches()
         # the int8 pool's prompt K/V come out of the forward in the
         # compute dtype and are quantized on the way into the pool
         fresh = gpt.init_cache(
@@ -991,7 +1224,6 @@ class PagedServingEngine(ServingEngine):
         else:
             self._cache_k[:, flat] = fk
             self._cache_v[:, flat] = fv
-        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
         idx = (lens.long() - 1).clamp(0, s - 1)
         last = logits[torch.arange(b, device=logits.device), idx]   # [b, V]
         return torch.argmax(last, -1), last
@@ -1020,7 +1252,7 @@ class PagedServingEngine(ServingEngine):
             req.slot = slot
             req._chunk_pos = 0
             # the prefix hits: registered already, their bytes stay
-            req._chunk_held = [self._pager.is_registered(p) for p in table]
+            req._chunk_held = [self._page_registered(p) for p in table]
             req._admit_seq = self._next_admit_seq()
             self._chunk_slots.add(slot)
             self._chunk_jobs.append(req)
@@ -1041,18 +1273,26 @@ class PagedServingEngine(ServingEngine):
         n = len(req.prompt)
         pos = req._chunk_pos
         take = min(C, n - pos)
-        toks = np.zeros((1, C), np.int32)
-        toks[0, :take] = req.prompt[pos:pos + take]
         s = req.slot
+        if self._chunk_step is None:
+            self._chunk_step = _ChunkStep(self)
+            self._inc("prefill_compiles")
+        st = self._chunk_step
+        st.toks[:] = 0
+        st.toks[0, :take] = req.prompt[pos:pos + take]
+        st.row[:] = self._tables_np[s]
+        st.held[:] = 0
+        st.held[:len(req._chunk_held)] = req._chunk_held
+        st.offset[0] = pos
+        st.take[0] = take
+        launched = self._kernel_launches()
         t0 = time.perf_counter()
-        tok, last = self._chunk(self._to_dev(toks),
-                                self._to_dev(self._tables_np[s]), pos, take,
-                                req._chunk_held)
-        # the chunk's sampled-token readback, its one sync point
-        tok = int(tok)
-        row = last.cpu().numpy() if self.capture_logits else None
+        tok_np, logits_np = st()
+        tok = int(tok_np[0])
+        row = logits_np[0] if logits_np is not None else None
         if not self._warming:
             self.chunk_s.append(time.perf_counter() - t0)
+        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
         self._inc("prefill_chunks")
         self._count_quant_matmuls()
         req._chunk_pos = pos + take
@@ -1068,23 +1308,27 @@ class PagedServingEngine(ServingEngine):
         self._inc("requests_admitted")
 
     @torch.inference_mode()
-    def _chunk(self, toks, row, pos, take, held):
+    def _chunk(self, toks, row, held, offset, take):
         """One chunk through ``gpt.forward_paged_chunk`` (its int8 twin on
-        the int8 pool) on the slot's table row, leaving the ``held``
-        prefix-hit pages as they are.  Returns (sampled token, logits of
-        the chunk's last real position [V])."""
-        launched = self._kernel_launches()
+        the int8 pool) on the slot's table row from position ``offset``
+        [1], leaving the ``held`` [maxP] prefix-hit pages as they are
+        (their positions go to scratch page 0).  Returns (sampled token
+        [1], logits of the chunk's ``take``-th position [1, V])."""
         if self._kv_quant:
             logits, *_ = gpt.forward_paged_chunk_quant(
                 self.params, toks, self.cfg, self._cache_k, self._cache_ks,
-                self._cache_v, self._cache_vs, row, pos, held)
+                self._cache_v, self._cache_vs, row, offset, held)
         else:
             logits, *_ = gpt.forward_paged_chunk(
                 self.params, toks, self.cfg, self._cache_k, self._cache_v,
-                row, pos, held)
-        self._inc("dequant_kernel_calls", self._kernel_launches() - launched)
-        last = logits[0, take - 1]
+                row, offset, held)
+        last = logits[0].index_select(0, take.long() - 1)
         return torch.argmax(last, -1), last
+
+    def _page_registered(self, pid):
+        """Whether page ``pid`` is in the prefix cache: its content is
+        frozen, sharers read it and nobody rewrites it."""
+        return self._pager.prefix_cache and pid in self._pager._page_key
 
     # ----------------------------------------------------- page lifecycle
     def _finish(self, req, reason):
@@ -1169,17 +1413,7 @@ class PagedServingEngine(ServingEngine):
         nxt_np, logits_np = self._decode(wpages, woffs)
         if not self._warming:
             self.decode_step_s.append(time.perf_counter() - t0)
-        self._inc("decode_steps")
-        self._count_quant_matmuls()
-        for s in range(self.slots):
-            if not self._active[s]:
-                continue
-            req = self._slot_req[s]
-            self._lens[s] += 1
-            self._append_token(req, int(nxt_np[s]),
-                               logits_np[s] if logits_np is not None
-                               else None)
-            self._last_tok[s] = int(nxt_np[s])
+        self._take_decoded(nxt_np, logits_np)
 
     @torch.inference_mode()
     def _decode(self, wpages, woffs):
@@ -1214,13 +1448,17 @@ class PagedServingEngine(ServingEngine):
         return min(n, self._prefill_chunk)
 
     def warmup(self, max_new_tokens=2):
-        """Base ladder and decode warmup, then (with ``prefill_chunk``) one
-        synthetic prompt of two chunks, a full one and a tail; the
-        synthetic prompt pages are flushed from the prefix cache
-        afterwards so they neither shadow real hits nor hold pages."""
-        waves = super().warmup(max_new_tokens)
+        """Base ladder and decode warmup, then (with ``prefill_chunk``, and
+        no chunk step yet) one synthetic prompt of two chunks, a full one
+        and a tail, which builds the chunk step; the synthetic prompt
+        pages are flushed from the prefix cache afterwards so they neither
+        shadow real hits nor hold pages.  Returns the prefill steps built,
+        the chunk's included."""
+        before = self._counts["prefill_compiles"]
+        super().warmup(max_new_tokens)
         c = self._prefill_chunk
-        if c is not None and c + 2 <= self.max_len:
+        if (self._chunk_step is None and c is not None
+                and c + 2 <= self.max_len):
             self._warming = True
             real_max_queue = self.max_queue
             self.max_queue = max(real_max_queue, self.slots,
@@ -1232,7 +1470,7 @@ class PagedServingEngine(ServingEngine):
                 self._warming = False
                 self.max_queue = real_max_queue
         self._pager.flush_reclaimable()
-        return waves
+        return self._counts["prefill_compiles"] - before
 
     # --------------------------------------------------------------- views
     def _cache_operands(self):

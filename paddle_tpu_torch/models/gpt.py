@@ -882,18 +882,35 @@ def decode_step_paged_quant(params, tokens, cfg: GPTConfig, cache_k,
 # --------------------------------------------------------------------------
 
 def _chunk_writes(pt_row, offset, C, ps, held):
-    """Where a chunk's K/V land: (chunk-relative positions, pages,
-    in-page offsets) of positions ``offset .. offset + C - 1``, less those
-    on a page the slot holds as a prefix hit (``held[j]`` true for row
-    page j); the positions are ``slice(None)`` when none is left out.  A
-    held page keeps the bytes its writer left: recomputed at another row
-    count, the chunk's K/V need not be bit-equal to them."""
-    pos = [p for p in range(offset, offset + C)
-           if held is None or p // ps >= len(held) or not held[p // ps]]
-    src = slice(None) if len(pos) == C else torch.tensor(
-        pos, dtype=torch.long, device=pt_row.device) - offset
-    pos = torch.tensor(pos, dtype=torch.long, device=pt_row.device)
-    return src, pt_row.long()[pos // ps], pos % ps
+    """Where a chunk's K/V land: (view positions [C], ``src``, pages,
+    in-page offsets) of positions ``offset .. offset + C - 1``.  A held
+    page keeps the bytes its writer left: recomputed at another row count,
+    the chunk's K/V need not be bit-equal to them.
+
+    * ``offset`` an int, ``held`` a list (``held[j]`` true for row page j,
+      the slot's prefix hits) or None: positions on a held page are left
+      out; ``src`` picks the others from the chunk's C rows (``slice(None)``
+      when none is left out).
+    * ``offset`` a device tensor [1], ``held`` an int [maxP] tensor or
+      None (the chunk's CUDA graph): nothing is read on the host.
+      Every position is written, those on a held page to scratch page 0,
+      so the write's shape does not depend on the data; ``src`` is
+      ``slice(None)``.  Outside page 0 the bytes are the int entry's."""
+    dev = pt_row.device
+    rows = pt_row.long()
+    if isinstance(offset, torch.Tensor):
+        pos = offset.long() + torch.arange(C, device=dev)
+        pages = rows[pos // ps]
+        if held is not None:
+            pages = torch.where(held.long()[pos // ps] != 0, 0, pages)
+        return pos, slice(None), pages, pos % ps
+    keep = [p for p in range(offset, offset + C)
+            if held is None or p // ps >= len(held) or not held[p // ps]]
+    src = slice(None) if len(keep) == C else torch.tensor(
+        keep, dtype=torch.long, device=dev) - offset
+    keep = torch.tensor(keep, dtype=torch.long, device=dev)
+    return (torch.arange(offset, offset + C, device=dev), src,
+            rows[keep // ps], keep % ps)
 
 
 def forward_paged_chunk(params, tokens, cfg: GPTConfig, cache_k, cache_v,
@@ -906,14 +923,18 @@ def forward_paged_chunk(params, tokens, cfg: GPTConfig, cache_k, cache_v,
     those on the pages ``held`` marks (the slot's prefix hits).  The
     final chunk's padded tail writes past the prompt (masked by ``len``
     until decode overwrites it) or onto the table's scratch padding (page
-    0).  Returns (logits [1, C, V] fp32, cache_k, cache_v), the pools
-    written in place."""
+    0).  ``offset`` and ``held`` are host values (an int, a list) or, in
+    the chunk's CUDA graph, device tensors (one element, an int [maxP]
+    mask), which send the held positions to page 0
+    (:func:`_chunk_writes`).  Returns (logits [1, C, V] fp32, cache_k,
+    cache_v), the pools written in place."""
     maxP = pt_row.shape[0]
     ps = cache_k.shape[2]
     C = tokens.shape[1]
-    offset = int(offset)
+    offset = (offset.reshape(1) if isinstance(offset, torch.Tensor)
+              else int(offset))
     rows = pt_row.long()
-    src, pages, offs = _chunk_writes(pt_row, offset, C, ps, held)
+    pos, src, pages, offs = _chunk_writes(pt_row, offset, C, ps, held)
     x = embed(cfg, params, tokens, pos_offset=offset)
     for i in range(cfg.num_layers):
         kp, vp = cache_k[i], cache_v[i]
@@ -922,8 +943,8 @@ def forward_paged_chunk(params, tokens, cfg: GPTConfig, cache_k, cache_v,
         view_v = vp[rows].reshape(1, maxP * ps, *tail)
         x, view_k, view_v = _cached_block(cfg, x, layer(params, i), view_k,
                                           view_v, offset)
-        kp[pages, offs] = view_k[0, offset:offset + C][src]
-        vp[pages, offs] = view_v[0, offset:offset + C][src]
+        kp[pages, offs] = view_k[0, pos][src]
+        vp[pages, offs] = view_v[0, pos][src]
     return _head(cfg, params, x), cache_k, cache_v
 
 
@@ -934,15 +955,16 @@ def forward_paged_chunk_quant(params, tokens, cfg: GPTConfig, cache_k,
     are dequantized into the view, the chunk runs the same math over it,
     then only the chunk's own C positions (less those on ``held`` pages)
     are quantized and scattered back.  Earlier positions never round-trip
-    through the quantizer.  Returns (logits, cache_k, k_scale, cache_v,
-    v_scale), written in place."""
+    through the quantizer.  ``offset`` and ``held`` as there.  Returns
+    (logits, cache_k, k_scale, cache_v, v_scale), written in place."""
     maxP = pt_row.shape[0]
     ps = cache_k.shape[2]
     C = tokens.shape[1]
-    offset = int(offset)
+    offset = (offset.reshape(1) if isinstance(offset, torch.Tensor)
+              else int(offset))
     cd = torch_dtype(cfg.dtype)
     rows = pt_row.long()
-    src, pages, offs = _chunk_writes(pt_row, offset, C, ps, held)
+    pos, src, pages, offs = _chunk_writes(pt_row, offset, C, ps, held)
     x = embed(cfg, params, tokens, pos_offset=offset)
     for i in range(cfg.num_layers):
         kp, ksp, vp, vsp = cache_k[i], k_scale[i], cache_v[i], v_scale[i]
@@ -953,8 +975,8 @@ def forward_paged_chunk_quant(params, tokens, cfg: GPTConfig, cache_k,
             1, maxP * ps, *tail)
         x, view_k, view_v = _cached_block(cfg, x, layer(params, i), view_k,
                                           view_v, offset)
-        codes, scales = quantize_kv(torch.stack(
-            (view_k[0, offset:offset + C], view_v[0, offset:offset + C])))
+        codes, scales = quantize_kv(torch.stack((view_k[0, pos],
+                                                 view_v[0, pos])))
         kp[pages, offs] = codes[0][src]
         ksp[pages, offs] = scales[0][src]
         vp[pages, offs] = codes[1][src]

@@ -320,7 +320,7 @@ def test_wave_written_prefix_page_keeps_its_bytes(model, quant):
     eng.step()
     assert eng.stats()["prefill_calls"] == 1 and ra.slot is not None
     page = int(eng._tables_np[ra.slot, 0])
-    assert eng._pager.is_registered(page)
+    assert eng._page_registered(page)
     snap = [p[:, page].clone() for p in eng._cache_operands()]
     hits = eng.stats()["prefix_page_hits"]
     rb = eng.submit(b, 4)

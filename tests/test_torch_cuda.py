@@ -606,6 +606,203 @@ def test_speculative_engine_on_card(dev, mode, kv):
         assert dqmm.rows_launches[8] == 4 * L * (st["spec_steps"] + waves8)
 
 
+class _StepProbe:
+    """Stands in for an engine's step object: attribute reads reach the
+    step (the engine stages through them); a call runs ``fn(step)``."""
+
+    def __init__(self, step, fn):
+        self.__dict__.update(_step=step, _fn=fn)
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self):
+        return self._fn(self._step)
+
+
+def _pool_names(eng):
+    return (("_cache_k", "_cache_v", "_cache_ks", "_cache_vs")
+            if getattr(eng, "_kv_quant", False) else ("_cache_k", "_cache_v"))
+
+
+def _eager_on_clones(eng, fn):
+    """``fn()`` with the engine's pool swapped for clones (the graphs keep
+    the storage they baked); returns (its result, the clones)."""
+    names = _pool_names(eng)
+    real = [getattr(eng, n) for n in names]
+    clones = [t.clone() for t in real]
+    for n, t in zip(names, clones):
+        setattr(eng, n, t)
+    try:
+        with torch.inference_mode():
+            return fn(), clones
+    finally:
+        for n, t in zip(names, real):
+            setattr(eng, n, t)
+
+
+def _staged(step, names):
+    return [torch.from_numpy(np.array(getattr(step, n))).to(step.device)
+            for n in names]
+
+
+def _probe_prefill(eng, record):
+    """Hold every wave and chunk replay of ``eng`` against its eager
+    function (``_prefill``; ``forward_paged_chunk`` with an int offset and
+    a held list) on clones of the pool with the staged inputs; ``record``
+    gets (kind, tokens equal, pool pages 1.. equal, max |logit diff|)."""
+    real_wave = eng._run_wave
+
+    def compare(kind, eager, clones, got, logits):
+        tok, last = eager
+        same = all(bool(torch.equal(a[:, 1:], b[:, 1:])) for a, b in
+                   zip([getattr(eng, n) for n in _pool_names(eng)], clones))
+        record.append((kind, np.array_equal(tok.cpu().numpy(), got), same,
+                       float((last.float() - logits.float()).abs().max())))
+
+    def wave(st):
+        b, s = st.tokens.shape
+        args = _staged(st, [n for n, _ in eng._wave_fields(b, s)])
+        eager, clones = _eager_on_clones(eng, lambda: eng._prefill(*args))
+        out = real_wave(st)
+        compare("wave", eager, clones, out[0], st.logits)
+        return out
+
+    def chunk(st):
+        toks, row = _staged(st, ("toks", "row"))
+        held = [bool(h) for h in st.held]
+        offset, take = int(st.offset[0]), int(st.take[0])
+
+        def run():
+            if eng._kv_quant:
+                lg, *_ = T.forward_paged_chunk_quant(
+                    eng.params, toks, eng.cfg, eng._cache_k, eng._cache_ks,
+                    eng._cache_v, eng._cache_vs, row, offset, held)
+            else:
+                lg, *_ = T.forward_paged_chunk(
+                    eng.params, toks, eng.cfg, eng._cache_k, eng._cache_v,
+                    row, offset, held)
+            last = lg[0, take - 1:take]
+            return last.argmax(-1), last
+        eager, clones = _eager_on_clones(eng, run)
+        out = st()
+        compare("chunk", eager, clones, out[0], st.logits)
+        return out
+
+    eng._run_wave = wave
+    if eng._chunk_step is not None:
+        eng._chunk_step = _StepProbe(eng._chunk_step, chunk)
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_prefill_graphs_match_eager_steps(dev, kv):
+    """Every rung's wave step and the chunk step are captured in
+    ``warmup()`` into the engine's one prefill pool, and traffic captures
+    nothing; every wave and chunk replay gives the eager function's
+    tokens and pool bytes (outside page 0) on clones of the pool (fp32),
+    the held pages of a prefix hit included; launches stay exact."""
+    cfg = _wide()
+    L = cfg.num_layers
+    params = T.init_params(cfg, torch.Generator().manual_seed(8),
+                           device="cpu")
+    kw = dict(quant="int8", kv_dtype="int8") if kv == "int8" else {}
+    eng = PagedServingEngine((params, cfg), device=dev, slots=3, max_len=48,
+                             page_size=8, seq_buckets=(8, 16, 24),
+                             batch_buckets=(1, 2), prefill_chunk=16, **kw)
+    built = eng.warmup()
+    steps = list(eng._waves.values()) + [eng._chunk_step]
+    assert built == len(steps) == eng.stats()["prefill_compiles"] == 5
+    assert all(st.captures == 1 for st in steps)
+    pools = {st._pool for st in steps}
+    assert len(pools) == 1 and None not in pools
+    rng = np.random.default_rng(10)
+    shared = rng.integers(1, 256, (16,)).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(1, 256, (n,))])
+               .astype(np.int32) for n in (4, 20, 2)]
+    prompts += [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 9)]
+    record = []
+    _probe_prefill(eng, record)
+    norms.launches = dqmm.launches = 0
+    reqs = [eng.submit(prompts[0], 6)]
+    eng.run()                       # its pages registered: later hits
+    reqs += [eng.submit(p, 6) for p in prompts[1:]]
+    eng.run()
+    st = eng.stats()
+    assert all(r.done for r in reqs) and st["prefix_page_hits"] > 0
+    kinds = [k for k, *_ in record]
+    assert "wave" in kinds and "chunk" in kinds
+    for kind, tok, pool, diff in record:
+        assert tok and pool, (kind, diff)
+    assert st["prefill_compiles"] == built
+    assert all(s.captures == 1 for s in steps)
+    # each probed call also ran its eager function once
+    fwd = (st["decode_steps"] + st["prefill_calls"] + st["prefill_chunks"]
+           + len(record))
+    assert norms.launches == (2 * L + 1) * fwd
+    assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
+
+
+def test_slot_engine_graphs_on_card(dev):
+    """The slot-contiguous engine on the card (fp32): its wave steps and
+    decode step are captured in ``warmup()``, every decode replay equals
+    the eager ``decode_step_slots`` on clones of the pool (tokens and pool
+    bytes), tokens equal the CPU engine's, logits within 1e-3, and the
+    LayerNorm launches are exact."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    cfg = _wide()
+    L = cfg.num_layers
+    params = T.init_params(cfg, torch.Generator().manual_seed(11),
+                           device="cpu")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32)
+               for n in (5, 14, 3, 9, 16)]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        eng = ServingEngine((params, cfg), device=d, slots=3, max_len=48,
+                            seq_buckets=(8, 16), batch_buckets=(1, 2, 4),
+                            capture_logits=True)
+        built = eng.warmup()
+        assert built == len(eng._waves) == eng.stats()["prefill_compiles"]
+        record = []
+        real = eng._step
+        if d == "cuda":
+            assert real.captures == 1
+            assert all(w.captures == 1 for w in eng._waves.values())
+
+            def decode(st):
+                lens, toks, act = _staged(st, ("lens", "toks", "active"))
+                (lg, _), clones = _eager_on_clones(
+                    eng, lambda: T.decode_step_slots(
+                        eng.params, toks, cfg, {"k": eng._cache_k,
+                                                "v": eng._cache_v,
+                                                "len": lens}, act != 0))
+                out = st()
+                record.append((
+                    np.array_equal(lg.argmax(-1).cpu().numpy(), out[0]),
+                    all(bool(torch.equal(a, b)) for a, b in zip(
+                        eng._cache_operands(), clones))))
+                return out
+            eng._step = _StepProbe(real, decode)
+        norms.launches = 0
+        reqs = [eng.submit(p, 8) for p in prompts]
+        eng.run()
+        eng._step = real
+        st = eng.stats()
+        if d == "cuda":
+            assert record and all(t and p for t, p in record), record
+            # each probed decode also ran the eager step once
+            fwd = st["decode_steps"] + st["prefill_calls"] + len(record)
+            assert norms.launches == (2 * L + 1) * fwd
+            assert st["decode_compiles"] == 1 and real.captures == 1
+            assert st["prefill_compiles"] == built
+        runs[d] = reqs
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert a.tokens == b.tokens
+        torch.testing.assert_close(torch.from_numpy(np.stack(a.logits)),
+                                   torch.from_numpy(np.stack(b.logits)),
+                                   atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 1000, 1000, 16, 64, True),
                                    (2, 256, 256, 4, 128, False),

@@ -1,0 +1,53 @@
+"""The port's copy of the page allocator is the JAX package's code.
+
+``paddle_tpu_torch/inference/kv_pager.py`` is a copy of
+``paddle_tpu/inference/kv_pager.py`` (the port imports nothing of the JAX
+package), and its header says its code is unchanged.  Both files are
+compared as token streams with comments and docstrings stripped: they
+must be equal.
+"""
+import io
+import os
+import tokenize
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SKIP = {tokenize.COMMENT, tokenize.NL, tokenize.ENCODING}
+
+
+def code_tokens(path):
+    """(type, string) of every token but comments, blank lines and
+    string statements (docstrings), with the newline ending each."""
+    with open(path, "rb") as f:
+        toks = [t for t in tokenize.tokenize(io.BytesIO(f.read()).readline)
+                if t.type not in SKIP]
+    out, i = [], 0
+    while i < len(toks):
+        t = toks[i]
+        prev = out[-1][0] if out else tokenize.NEWLINE
+        nxt = toks[i + 1].type if i + 1 < len(toks) else tokenize.ENDMARKER
+        if (t.type == tokenize.STRING and nxt == tokenize.NEWLINE
+                and prev in (tokenize.NEWLINE, tokenize.INDENT,
+                             tokenize.DEDENT)):
+            i += 2                  # the string statement and its newline
+            continue
+        out.append((t.type, t.string))
+        i += 1
+    return out
+
+
+def test_port_copy_of_the_pager_is_the_reference_code():
+    port = os.path.join(ROOT, "paddle_tpu_torch", "inference", "kv_pager.py")
+    ref = os.path.join(ROOT, "paddle_tpu", "inference", "kv_pager.py")
+    with open(port) as f:
+        assert "code unchanged" in f.readline()
+    got, want = code_tokens(port), code_tokens(ref)
+    assert len(got) > 1000
+    assert got == want
+
+
+def test_the_comparison_sees_code_and_not_comments(tmp_path):
+    a, b, c = (tmp_path / n for n in ("a.py", "b.py", "c.py"))
+    a.write_text('"""doc"""\ndef f(x):\n    """one"""\n    return x  # c\n')
+    b.write_text('# header\ndef f(x):\n\n    return x\n')
+    c.write_text('def f(x):\n    return x + 1\n')
+    assert code_tokens(a) == code_tokens(b) != code_tokens(c)

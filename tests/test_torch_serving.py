@@ -239,8 +239,14 @@ def test_out_of_slice_knobs_are_refused_by_name(model, kw):
 
 
 def test_refusals_and_device_default(model, monkeypatch):
-    with pytest.raises(NotImplementedError, match="slot-contiguous"):
-        S.ServingEngine((model[3], model[2]), device="cpu")
+    # the slot-contiguous engine serves; sharding stays refused on both
+    slot = S.ServingEngine((model[3], model[2]), device="cpu", slots=2,
+                           max_len=32)
+    prompt = np.arange(1, 7, dtype=np.int32)
+    assert slot.generate([prompt], 3) == _reference(model, [prompt], 3)
+    for kw in ({"tp": 2}, {"pp": 2}):
+        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+            S.ServingEngine((model[3], model[2]), device="cpu", **kw)
     eng = _engine(model)
     with pytest.raises(NotImplementedError, match="submit_prefilled"):
         eng.submit_prefilled(None, 0, None)
@@ -248,3 +254,5 @@ def test_refusals_and_device_default(model, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         S.PagedServingEngine((model[3], model[2]), slots=2, max_len=32,
                              page_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.ServingEngine((model[3], model[2]), slots=2, max_len=32)
