@@ -28,7 +28,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
       [2, 256, 4, 128] non-causal.  Each flash gate must also reject two
       mutants, one scaling the rows past the first 128-row tile by
       1 + 2^-4 and one the second consumer warpgroup's rows (64-127) of
-      the first tile;
+      the first tile.  The row-invariant matmul (``row_matmul``, which the
+      paged decode and the fp verify take) at gpt_345m's four block
+      products, M = 8 and 40, fp32 and bf16, each row of an [M, N] launch
+      bit-equal to the M = 1 launch on that row for M in 1, 2, 8, 10, 40,
+      64 (asserted);
   (d) the main path: ``gpt_345m`` (full width, 24 layers) with
       ``use_pallas_norm``, weights drawn from a numpy seed, served by
       ``PagedServingEngine(slots=8, max_len=512, page_size=16)`` after
@@ -256,10 +260,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
       then one request through the non-speculative engine, an all-reject
       speculative run (the reference's ``spec_reject``, every verify forced
       to accept nothing) and an accepting run: the prompt's positions
-      byte-equal (asserted), the whole pool's equality and the first layer
-      that differs reported, the whole int8 pool equal in both runs
-      (asserted).  The engines' prefill waves and chunks run as graphs,
-      each step captured once;
+      byte-equal, and the whole pool equal in both runs, int8 and fp, the
+      fp pool also in bf16 (asserted: the paged decode and the verify take
+      the row-invariant products); lane 0 of a [2, 5] window against
+      [2, 1] rows bit-equal in the four weight products on that route
+      (asserted, fp32 and bf16; cuBLAS's reported beside them).  The
+      engines' prefill waves and chunks run as graphs, each step captured
+      once;
   (z) the slot-contiguous ``ServingEngine(slots=8, max_len=512)`` on
       (d)'s weights and 12 requests x 32 tokens, after ``warmup()``, in
       bf16 and then with ``quant="int8"``: ``decode_compiles`` 1,
@@ -272,7 +279,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
       CPU (tokens exact, logits within 1e-3), its decode replays against
       the eager ``gpt.decode_step_slots`` and its wave replays against
       the eager ``_prefill`` on clones of the pool (tokens and pool bytes
-      equal).
+      equal);
+  (aa) ``bench.py``'s third line, the ResNet50 static train step, through
+      the port: ``enable_static``, ``static.Program`` and
+      ``program_guard``, ``static.data``, ``resnet50(num_classes=1000)``
+      under ``amp.auto_cast()`` (bf16), cross entropy, Momentum(0.002,
+      0.9, weight decay 1e-4) ``minimize``, ``Executor.run(startup)``;
+      224 x 224, batch 128, device feeds, weights from a seed; the fetch
+      and the fetchless run once each, then 10 timed steps ending in one
+      fetch.  The loss must be finite and fall, the Executor build exactly
+      twice, none in the timed steps.  Prints imgs/s, ms a step, the
+      model-FLOP share (3 x 2 x 4.09e9 FLOPs an image over 989 TFLOP/s)
+      and the peak of ``max_memory_reserved``; with ``--profile-train
+      STEPS`` also STEPS fetchless steps traced (idle share, leading
+      kernels);
+  (ab) ResNet50 (10 classes) at 32 x 32, batch 4, one static step on the
+      card (cuDNN, TF32 off) against the CPU from the same weights: loss
+      and every parameter and buffer at rtol 1e-4, atol 1e-5, asserted in
+      float64 and reported in fp32 (ill-conditioned there);
+  (ac) LeNet on the synthetic MNIST through ``io.DataLoader``, 40 dygraph
+      Adam steps on the card; the loss must fall.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -1281,6 +1307,109 @@ def check_fused_bwd(torch, flash_attn):
         raise SystemExit(f"fused flash backward disagrees with its plain "
                          f"version: {bad}")
     return {"flash_attention_bwd_fused": out}
+
+
+# the four float weight products of a gpt_345m block (K, N, name) and the
+# row counts the paged decode (8 slots) and the fp verify (8 slots x
+# SPEC_K + 1 lanes) give them; (c) checks row invariance at ROW_MS
+ROW_SHAPES = ((1024, 3072, "qkv"), (1024, 1024, "proj"),
+              (1024, 4096, "fc1"), (4096, 1024, "fc2"))
+ROW_MS = (1, 2, 8, 10, 40, 64)
+
+
+def row_mm_bound(M, K, N, dt):
+    """Least time for x [M, K] @ W [K, N]: x, W and y read or written once
+    over the HBM rate, or 2MKN flops over the dtype's peak."""
+    import torch
+    e = 2 if dt == torch.bfloat16 else 4
+    byts = (M * K + K * N + M * N) * e
+    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = byts / HBM_BYTES_PER_S, 2 * M * K * N / rate
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def check_row_matmul(torch, row_matmul):
+    """Phase (c), the row-invariant matmul: the kernel against
+    ``_ref_matmul`` (``x @ w``, cuBLAS reducing bf16 in fp32) on the same
+    inputs at the four block products of gpt_345m, at the decode's M = 8
+    and the verify's M = 40, fp32 and bf16 (fp32 within 1e-5 of max|ref|;
+    bf16 per element within 2^-8 + 2^-6 |ref|, the dequant matmul's gate:
+    both sum in fp32 in other orders, then round once, so an output that
+    cancels can differ by more than one step of its own size; each gate
+    rejects the later-rows mutant).  Row invariance, asserted: for M in ``ROW_MS``
+    every row of the kernel's [M, N] output is bit-equal to the M = 1
+    launch on that row alone, in both dtypes (cuBLAS's rows reported
+    beside it).  Timed by CUDA-graph replay over copies of W that pass the
+    L2, with the plain version and ``torch.mm``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = []
+    for dt in (bf16, f32):
+        for K, N, name in ROW_SHAPES:
+            w = (torch.randn((K, N), device="cuda", generator=gen)
+                 * 0.02).to(dt)
+            x64 = torch.randn((max(ROW_MS), K), device="cuda",
+                              generator=gen).to(dt)
+            with torch.inference_mode():
+                ones = torch.cat([row_matmul.matmul(x64[r:r + 1], w)
+                                  for r in range(x64.shape[0])])
+                cublas_ones = torch.cat([x64[r:r + 1] @ w
+                                         for r in range(x64.shape[0])])
+                rows_equal, cublas_rows = {}, {}
+                for M in ROW_MS:
+                    got = row_matmul.matmul(x64[:M], w)
+                    rows_equal[M] = bool(torch.equal(got, ones[:M]))
+                    cublas_rows[M] = int((x64[:M] @ w != cublas_ones[:M])
+                                         .any(-1).sum())
+            for M in (8, 40):
+                sets = [((torch.randn((M, K), device="cuda", generator=gen)
+                          ).to(dt), (w if i == 0 else w.clone()))
+                        for i in range(l2_copies(K * N * w.element_size()))]
+                x, wk = sets[0]
+                with torch.inference_mode():
+                    got = row_matmul.matmul(x, wk)
+                    torch.cuda.synchronize()
+                    with fp32_reduction(torch):
+                        ref = row_matmul._ref_matmul(x, wk)
+                if dt == f32:
+                    atol, rtol = FP32_TOL * float(ref.abs().max()), 0.0
+                else:
+                    atol, rtol = 2.0 ** -8, 2.0 ** -6
+                ratio, mutant = gate([(got, ref, ref)], atol, rtol,
+                                     rows=later_rows)
+                bound, by = row_mm_bound(M, K, N, dt)
+                with torch.inference_mode():
+                    out.append({
+                        "shape": f"[{M}, {K}] x [{K}, {N}] ({name})",
+                        "dtype": str(dt), "max_abs_err": max_err(got, ref),
+                        "atol": atol, "rtol": rtol, "gate": ratio,
+                        "mutant_gate": mutant,
+                        "rows_bit_equal_to_m1": rows_equal,
+                        "cublas_rows_differing_from_m1": cublas_rows,
+                        "ms": device_ms(row_matmul.matmul, sets),
+                        "call_ms": time_ms(row_matmul.matmul, sets, 500),
+                        "plain_ms": device_ms(row_matmul._ref_matmul, sets),
+                        "library_ms": device_ms(torch.mm, sets),
+                        "bound_ms": bound, "bound_by": by})
+                del sets
+    for c in out:
+        log(f"  {'row_matmul':16s} {c['dtype']:15s} {c['shape']:36s} "
+            f"max_abs_err {c['max_abs_err']:.3e} gate {c['gate']:.3f} "
+            f"(atol {c['atol']:.1e} rtol {c['rtol']:.1e}; wrong-scale "
+            f"mutant {c['mutant_gate']:.2f})  device ms: kernel "
+            f"{c['ms']:.5f}  plain {c['plain_ms']:.5f}  library (torch.mm) "
+            f"{c['library_ms']:.5f}  bound {c['bound_ms']:.6f} "
+            f"({c['bound_by']}); eager call {c['call_ms']:.5f}; rows "
+            f"bit-equal to M = 1 at M = {ROW_MS}: "
+            f"{list(c['rows_bit_equal_to_m1'].values())} (cuBLAS rows that "
+            f"differ: {list(c['cublas_rows_differing_from_m1'].values())})")
+    bad = [(c["shape"], c["dtype"]) for c in out
+           if not case_ok(c) or not all(c["rows_bit_equal_to_m1"].values())]
+    if bad:
+        raise SystemExit(f"row_matmul disagrees with its plain version, its "
+                         f"gate passes the mutant, or a row's bits depend on"
+                         f" M: {bad}")
+    return {"row_matmul": out}
 
 
 def dqmm_bound(M, K, N, dt):
@@ -2592,8 +2721,9 @@ def main():
     ap.add_argument("--profile-train", type=int, default=0, metavar="STEPS",
                     help="also trace STEPS training steps of the training "
                          "path (phase i), the flagship path (l), ERNIE "
-                         "pretraining (p), eager training (r), (t) and "
-                         "the hapi step and its hand-written loop (u) with "
+                         "pretraining (p), eager training (r), (t), "
+                         "the hapi step and its hand-written loop (u) and "
+                         "ResNet50's fetchless static step (aa) with "
                          "torch.profiler")
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
@@ -2607,7 +2737,7 @@ def main():
     from paddle_tpu_torch.inference.serving import PagedServingEngine
     from paddle_tpu_torch.models import gpt, gpt_hybrid
     from paddle_tpu_torch.ops.cuda import (build, flash_attn, fused_ffn,
-                                          norms, paged_attn)
+                                          norms, paged_attn, row_matmul)
     from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2666,6 +2796,7 @@ def main():
     cases.update(check_fused_bwd(torch, flash_attn))
     cases.update(check_fused_ffn(torch, fused_ffn))
     cases.update(check_rms_norm(torch, norms))
+    cases.update(check_row_matmul(torch, row_matmul))
     for k, extra in check_queue3(torch, gpt, flash_attn, paged_attn, norms,
                                  dqmm).items():
         cases[k].extend(extra)
@@ -2777,6 +2908,9 @@ def main():
     slot_phases(torch, gpt, (paged_attn, norms, dqmm), card, launches,
                 fp_run, qrun)
 
+    # (aa), (ab), (ac): the static graph and the vision stack ------------
+    vision_phases(torch, card, args)
+
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
     return 0
@@ -2807,15 +2941,18 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f"after it")
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
+    from paddle_tpu_torch.ops.cuda import row_matmul
     paged_attn.launches = 0
     norms.launches = 0
+    row_matmul.launches = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(p, new_tokens) for p in prompts]
     kv_peak = drain(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches.update({"paged_attention": paged_attn.launches,
-                     "layer_norm": norms.launches})
+                     "layer_norm": norms.launches,
+                     "row_matmul": row_matmul.launches})
     st = eng.stats()
     L = cfg.num_layers
     check_no_capture("(d)", eng, captures, built)
@@ -2829,6 +2966,10 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         raise SystemExit(f"paged attention launched "
                          f"{launches['paged_attention']} times for "
                          f"{st['decode_steps']} decode steps x {L} layers")
+    if launches["row_matmul"] != st["decode_steps"] * 4 * L:
+        raise SystemExit(f"the row matmul launched {launches['row_matmul']} "
+                         f"times for {st['decode_steps']} decode steps x "
+                         f"4 x {L} products")
     forwards = st["decode_steps"] + st["prefill_calls"]
     if launches["layer_norm"] != (2 * L + 1) * forwards:
         raise SystemExit(f"layer norm launched {launches['layer_norm']} "
@@ -2848,8 +2989,14 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f" (kv_bytes_reserved at its peak {kv_peak}); prefix "
         f"page hits {st['prefix_page_hits']}; decode_compiles "
         f"{st['decode_compiles']}; launches "
-        f"{ {k: launches[k] for k in ('paged_attention', 'layer_norm')} }  "
+        f"{ {k: launches[k] for k in ('paged_attention', 'layer_norm', 'row_matmul')} }  "
         f"[{card}]")
+    routes = decode_routes(torch, gpt, PagedServingEngine, params, cfg,
+                           prompts, new_tokens)
+    log(f"    decode step by the products' route, the same 12 requests, "
+        f"alternated (row kernel, cuBLAS, cuBLAS, row kernel): row-invariant"
+        f" kernel {routes['row']} ms, cuBLAS {routes['cublas']} ms (the "
+        f"route before the row kernel)  [{card}]")
     rv = replay_vs_eager(torch, gpt, eng, prompts, "(d)")
     log(f"    replay against the eager step (8 slots, lens {rv['lens']}):"
         f" next tokens equal {rv['tokens_equal']}; max |logit diff| "
@@ -2859,6 +3006,7 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
     pw = prefill_vs_eager(torch, gpt, eng, prompts[:6], "(d)", False)
     log_prefill_vs_eager(pw, "bf16, reported", card)
     run = {"tokens_per_s": gen / wall, "decode_step_ms": dec_ms,
+           "decode_routes_ms": routes,
            "prefill_wave_ms": pre_ms, "replay_vs_eager": rv,
            "max_memory_allocated_gib": mem / 2 ** 30,
            "resident_gib": resident / 2 ** 30,
@@ -2910,6 +3058,47 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
     del eng, eng32
     torch.cuda.empty_cache()
     return run
+
+
+@contextlib.contextmanager
+def cublas_products(row_matmul):
+    """The paged decode's and the fp verify's float products on cuBLAS
+    (``x @ w``), the route before the row-invariant kernel, while an
+    engine captures its graphs; a measurement only."""
+    kernel = row_matmul.matmul
+    row_matmul.matmul = row_matmul._ref_matmul
+    try:
+        yield
+    finally:
+        row_matmul.matmul = kernel
+
+
+def decode_routes(torch, gpt, PagedServingEngine, params, cfg, prompts,
+                  new_tokens, rounds=2):
+    """(d)'s decode step with its products on the row-invariant kernel and
+    on cuBLAS: two engines (each graph captured in ``warmup()``, the
+    cuBLAS one under :func:`cublas_products`) serve (d)'s requests in
+    turns, row, cuBLAS, cuBLAS, row; returns the mean decode-step ms of
+    each (host clock, each step ending in its readback)."""
+    from paddle_tpu_torch.ops.cuda import row_matmul
+    kw = dict(device="cuda", slots=8, max_len=512, page_size=16)
+    engs = {"row": PagedServingEngine((params, cfg), **kw)}
+    engs["row"].warmup()
+    with cublas_products(row_matmul):
+        engs["cublas"] = PagedServingEngine((params, cfg), **kw)
+        engs["cublas"].warmup()
+    steps = {k: [] for k in engs}
+    for k in ["row", "cublas", "cublas", "row"] * (rounds // 2):
+        eng = engs[k]
+        n0 = len(eng.decode_step_s)
+        for p in prompts:
+            eng.submit(p, new_tokens)
+        drain(eng)
+        steps[k] += list(eng.decode_step_s[n0:])
+    out = {k: 1e3 * float(np.mean(v)) for k, v in steps.items()}
+    del engs
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_phases(torch, gpt_hybrid, flash_attn, norms, cfg, params, card,
@@ -4171,13 +4360,16 @@ SPEC_PARITY = dict(V=4096, H=256, nh=4, L=2)   # (y): fp32, small widths
 
 
 def zero_serving_counts(paged_attn, norms, dqmm):
+    from paddle_tpu_torch.ops.cuda import row_matmul
     paged_attn.launches = paged_attn.quant_launches = 0
-    norms.launches = dqmm.launches = 0
+    norms.launches = dqmm.launches = row_matmul.launches = 0
     dqmm.rows_launches.clear()
 
 
 def serving_counts(paged_attn, norms, dqmm):
+    from paddle_tpu_torch.ops.cuda import row_matmul
     return {"layer_norm": norms.launches,
+            "row_matmul": row_matmul.launches,
             "paged_attention": paged_attn.launches,
             "paged_attention_quant": paged_attn.quant_launches,
             "dequant_matmul": dqmm.launches,
@@ -4456,6 +4648,8 @@ def spec_path(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
                 attn = "paged_attention_quant" if kv == "int8" \
                     else "paged_attention"
                 want[attn] = W * L * d["spec_steps"]
+                want["row_matmul"] = (4 * L * d["spec_steps"] if kv == "fp"
+                                      else 0)
                 if kv == "int8":
                     want["dequant_matmul"] = 4 * L * fwd
                     check_launch(f"(x) {kv} {name}",
@@ -4621,16 +4815,33 @@ def spec_parity(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
                               prompts[0]))
         res["row_invariance"] = row_invariance(
             torch, gpt, norms, cfg, params, kv, 2, SPEC_K + 1)
+        if kv == "fp":
+            cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+            res["bf16"] = pool_bytes(torch, gpt, PagedServingEngine,
+                                     SpeculativeServingEngine, cfg16, params,
+                                     kv, prompts[0])
+            res["bf16"]["row_invariance"] = row_invariance(
+                torch, gpt, norms, cfg16, params, kv, 2, SPEC_K + 1)
+            rows = {n: v for r in (res, res["bf16"])
+                    for n, v in r["row_invariance"].items()
+                    if n in ("qkv_w", "proj_w", "fc1_w", "fc2_w")}
+            if any(v != 0.0 for v in rows.values()):
+                raise SystemExit(f"(y): lane 0 of a verify window and the "
+                                 f"decode's rows differ in a weight product "
+                                 f"(fp32, bf16): {res['row_invariance']}, "
+                                 f"{res['bf16']['row_invariance']}")
     return out
 
 
 def row_invariance(torch, gpt, norms, cfg, params, kv, S, W):
     """Which of a block's ops give lane 0 of a verify window ([S, W] rows)
     other bits than the one-token decode ([S, 1] rows) on the same input
-    rows: the four weight matmuls (cuBLAS; the dequant matmul with int8
-    weights), the LayerNorm kernel and the tied head, on random inputs in
-    the compute dtype.  Returns {op: max |difference|} (0.0: the same
-    bits)."""
+    rows: the four weight matmuls on the route the paged decode and the
+    verify take (the row-invariant kernel; the dequant matmul with int8
+    weights) and, with float weights, on cuBLAS (``cublas_*``), the
+    LayerNorm kernel and the tied head, on random inputs in the compute
+    dtype.  Returns {op: max |difference|} (0.0: the same bits)."""
+    from paddle_tpu_torch.ops.cuda import row_matmul
     cd = gpt.torch_dtype(cfg.dtype)
     def to_card(t):
         return ({k: to_card(v) for k, v in t.items()} if isinstance(t, dict)
@@ -4654,7 +4865,8 @@ def row_invariance(torch, gpt, norms, cfg, params, kv, S, W):
             out[name] = lanes(lambda x: gpt._q_matmul(x, w, cd), K)
         else:
             w2 = w.reshape(K, -1)
-            out[name] = lanes(lambda x: x @ w2, K)
+            out[name] = lanes(lambda x: row_matmul.matmul(x, w2), K)
+            out[f"cublas_{name}"] = lanes(lambda x: x @ w2, K)
     H = cfg.hidden_size
     out["layer_norm"] = lanes(
         lambda x: norms.layer_norm(x, blk["ln1_g"], blk["ln1_b"]), H)
@@ -4670,10 +4882,10 @@ def pool_bytes(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
     leave the pool as it was but for its committed positions (asserted);
     the prompt's positions, written by the same chunks, must equal the
     non-speculative engine's (asserted); whether the whole pool does, and
-    the first layer whose bytes differ, are reported, and on the int8
-    pool the whole pool must be equal in both runs (asserted: its codes
-    and scales are the same bits on the card; the fp pool's projections
-    at M = S * W round otherwise, ROADMAP Queue 3)."""
+    the first layer whose bytes differ, are reported, and the whole pool
+    must be equal in both runs (asserted: the int8 pool's codes and scales
+    are the same bits on the card, and the fp pool's since the decode and
+    the verify take the row-invariant products)."""
     kw = dict(device="cuda", slots=2, max_len=64, page_size=16,
               prefill_chunk=CHUNK)
     if kv == "int8":
@@ -4719,10 +4931,10 @@ def pool_bytes(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
         if not prompt_eq:
             raise SystemExit(f"(y) {kv} {mode}: the prompt's positions differ "
                              "from the non-speculative engine's")
-        if kv == "int8" and not eq:
-            raise SystemExit(f"(y) int8 {mode}: the pool differs from the "
-                             f"non-speculative engine's (max diff {diff:.3e}"
-                             f", layers equal {layers})")
+        if not eq:
+            raise SystemExit(f"(y) {kv} {cfg.dtype} {mode}: the pool differs "
+                             f"from the non-speculative engine's (max diff "
+                             f"{diff:.3e}, layers equal {layers})")
     res["verifies_probed"] = len(probes)
     return res
 
@@ -4792,7 +5004,7 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
         sfx = "_quant" if kv == "int8" else ""
         ng = r["runs"]["ngram"][0]["launches"]
         for k in ("layer_norm", "paged_attention", "paged_attention_quant",
-                  "dequant_matmul"):
+                  "dequant_matmul", "row_matmul"):
             if ng[k]:
                 launches[f"{k}_spec{sfx}"] = ng[k]
         if kv == "int8":
@@ -4851,8 +5063,13 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
             f"{r['window_writes_outside_commit'][1]} verifies; compiles "
             f"{r['compiles']}; prefill graphs (each captured once) "
             f"{r['prefill_graphs']}")
-        whole = ("; whole pool equal in both (asserted)" if kv == "int8"
-                 else "")
+        whole = "; whole pool equal in both (asserted)"
+        if kv == "fp":
+            b = r["bf16"]
+            whole += (f"; in bf16: all-reject equal {b['reject_pool_equal']}"
+                      f", accepting ({b['accept_accepted_tokens']} accepted)"
+                      f" equal {b['accept_pool_equal']} (asserted), lane 0 "
+                      f"against [2, 1] rows {b['row_invariance']}")
         log(f"    pool bytes against the non-speculative engine (1 request,"
             f" 20 tokens; {r['verifies_probed']} verifies, none wrote outside"
             f" its committed positions, asserted): all-reject run equal "
@@ -4869,6 +5086,243 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
             f"{r['row_invariance']}")
     log(f"    phase {time.perf_counter() - t0:.1f} s")
     return w, x, y
+
+
+# (aa), (ab), (ac): the static graph and the vision stack -------------------
+RESNET_TRAIN_FLOPS_PER_IMG = 3 * 2 * 4.09e9   # bench.py:265, ResNet50 at 224
+RESNET = dict(batch=128, size=224, classes=1000, steps=10)   # bench.py:268
+LENET_STEPS = 40
+
+
+def resnet_program(pt, depth, size, classes, amp):
+    """``bench.py:276-291``'s program through the port: static
+    placeholders, ``resnet{depth}`` under ``amp.auto_cast()`` (bf16) when
+    ``amp``, cross entropy, Momentum(0.002, 0.9, weight decay 1e-4)
+    ``minimize``.  Returns (main, startup, net, loss)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.vision import models
+    F = pt.nn.functional
+    pt.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            img = static.data("image", [None, 3, size, size], "float32")
+            label = static.data("label", [None, 1], "int64")
+            with (pt.amp.auto_cast() if amp else contextlib.nullcontext()):
+                net = getattr(models, f"resnet{depth}")(num_classes=classes)
+                loss = F.cross_entropy(net(img), label).mean()
+            pt.optimizer.Momentum(learning_rate=0.002, momentum=0.9,
+                                  weight_decay=1e-4).minimize(loss)
+    finally:
+        pt.disable_static()
+    return main, startup, net, loss
+
+
+def resnet_path(torch, pt, args):
+    """Phase (aa): ``bench.py``'s ResNet50 train step at full size (224 x
+    224, 1000 classes, batch 128, bf16 ``auto_cast``), device feeds; the
+    fetch and the fetchless run once each to warm up, then 10 timed steps
+    ending in one fetch, as ``bench.py:302-313``."""
+    from paddle_tpu_torch import static
+    c = RESNET
+    pt.seed(SEED)
+    t0 = time.perf_counter()
+    main, startup, net, loss = resnet_program(pt, 50, c["size"],
+                                              c["classes"], True)
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    feed = {"image": pt.to_tensor(rng.randn(c["batch"], 3, c["size"],
+                                            c["size"]).astype(np.float32)),
+            "label": pt.to_tensor(rng.randint(0, c["classes"], (
+                c["batch"], 1)).astype(np.int64))}
+    stats = static.executor_stats
+    exe = static.Executor()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b0 = stats["builds"]
+    pt.enable_static()
+    try:
+        if exe.run(startup) != []:
+            raise SystemExit("(aa): the startup program returned fetches")
+        lv0, = exe.run(main, feed=feed, fetch_list=[loss])
+        exe.run(main, feed=feed, fetch_list=[])
+        torch.cuda.synchronize()
+        b1 = stats["builds"]
+        t0 = time.perf_counter()
+        for _ in range(c["steps"] - 1):
+            exe.run(main, feed=feed, fetch_list=[])
+        lv, = exe.run(main, feed=feed, fetch_list=[loss])
+        final = float(np.asarray(lv))
+        dt = time.perf_counter() - t0
+        b2 = stats["builds"]
+        prof = None
+        if args.profile_train:
+            prof = profile_steps(
+                torch, lambda: exe.run(main, feed=feed, fetch_list=[]),
+                args.profile_train, "resnet_step",
+                os.path.join(os.path.dirname(os.path.abspath(
+                    args.train_trace)), "resnet_trace.json"))
+    finally:
+        pt.disable_static()
+    first = float(np.asarray(lv0))
+    if not (np.isfinite(first) and np.isfinite(final) and final < first):
+        raise SystemExit(f"(aa): loss {first} -> {final}: not finite and "
+                         "falling")
+    if (b1 - b0, b2 - b1) != (2, 0):
+        raise SystemExit(f"(aa): executor builds {b1 - b0} in warm-up, "
+                         f"{b2 - b1} in the timed steps (want 2, 0)")
+    ips = c["batch"] * c["steps"] / dt
+    out = {"imgs_per_s": ips, "step_ms": 1e3 * dt / c["steps"],
+           "model_flop_share": ips * RESNET_TRAIN_FLOPS_PER_IMG
+           / BF16_FLOPS_PER_S,
+           "loss_first": first, "loss_final": final,
+           "builds": (b1 - b0, b2 - b1), "build_s": build_s,
+           "ops": len(main.ops), "params": len(main.params),
+           "written_back": len(main.mutated),
+           "max_memory_reserved_gib": torch.cuda.max_memory_reserved()
+           / 2 ** 30}
+    if prof is not None:
+        out["profile"] = prof
+    return out
+
+
+def resnet_parity(torch, pt):
+    """Phase (ab): ``resnet50(num_classes=10)`` at 32 x 32, batch 4, one
+    static step on the card (cuDNN, TF32 off) and on the CPU (the plain
+    versions) from the same weights: loss and every parameter and buffer
+    at rtol 1e-4, atol 1e-5, asserted in float64 (params, buffers and
+    feeds cast after the build) and reported in fp32, where the step is
+    ill-conditioned (layer4's batch statistics are over 4 values a
+    channel: the JAX reference's own fp32 step is up to 5,000 times that
+    tolerance from a float64 one, ``tests/test_torch_static.py``)."""
+    rng = np.random.RandomState(1)
+    x = rng.randn(4, 3, 32, 32)
+    y = rng.randint(0, 10, (4, 1)).astype(np.int64)
+    pt.seed(SEED + 20)
+    init = None
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        runs = {}
+        for dev in ("gpu", "cpu"):
+            pt.set_device(dev)
+            main, _, net, loss = resnet_program(pt, 50, 32, 10, False)
+            if init is None:
+                init = {k: v.value.detach().cpu().numpy().copy()
+                        for k, v in net.state_dict().items()}
+            net.set_state_dict(init)
+            for t in net.state_dict().values():
+                t.value = t.value.detach().to(dt)
+                if isinstance(t, pt.tensor.Parameter):
+                    t._mark()
+            device = "cuda" if dev == "gpu" else "cpu"
+            pt.enable_static()
+            try:
+                lv, = pt.static.Executor().run(main, feed={
+                    "image": pt.Tensor(torch.from_numpy(x).to(device, dt)),
+                    "label": y}, fetch_list=[loss])
+            finally:
+                pt.disable_static()
+            runs[dev] = (float(lv), {k: v.value.detach().double().cpu()
+                                     .numpy() for k, v in
+                                     net.state_dict().items()})
+        (lg, wg), (lc, wc) = runs["gpu"], runs["cpu"]
+        worst = max(float((np.abs(wg[k] - wc[k])
+                           / (1e-5 + 1e-4 * np.abs(wc[k]))).max())
+                    for k in wc)
+        out[str(dt)] = {"loss_card": lg, "loss_cpu": lc,
+                        "loss_rel_diff": abs(lg - lc) / abs(lc),
+                        "worst_ratio_to_tol": worst}
+    pt.set_device("gpu")
+    r = out[str(torch.float64)]
+    if not (r["loss_rel_diff"] <= 1e-4 and r["worst_ratio_to_tol"] <= 1.0):
+        raise SystemExit(f"(ab): ResNet50's float64 step on the card "
+                         f"differs from the CPU's: {r}")
+    return out
+
+
+def lenet_path(torch, pt):
+    """Phase (ac): the verify flow's dygraph path on the card: LeNet on the
+    synthetic MNIST through ``io.DataLoader`` (batch 64), Adam 1e-3,
+    ``loss.backward()``, ``step()``, ``clear_grad()``, 40 steps; the loss
+    must fall (the last five steps' mean under half the first five's)."""
+    from paddle_tpu_torch import vision
+    pt.seed(SEED + 21)
+    net = vision.models.LeNet()
+    opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=net.parameters())
+    loader = pt.io.DataLoader(vision.datasets.MNIST(mode="train"),
+                              batch_size=64, shuffle=True)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step, (img, label) in enumerate(loader):
+        if step == LENET_STEPS:
+            break
+        if step == 0 and img.place.device.type != "cuda":
+            raise SystemExit(f"(ac): batches on {img.place}, not the card")
+        loss = pt.nn.functional.cross_entropy(net(img), label).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    dt = time.perf_counter() - t0
+    if not (all(np.isfinite(losses)) and
+            np.mean(losses[-5:]) < 0.5 * np.mean(losses[:5])):
+        raise SystemExit(f"(ac): LeNet's loss does not fall: {losses}")
+    return {"losses": losses, "step_ms": 1e3 * dt / len(losses)}
+
+
+def vision_phases(torch, card, args):
+    """Phases (aa), (ab), (ac), logged."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    prev = core._state.expected_place
+    pt.set_device("gpu")
+    try:
+        t0 = time.perf_counter()
+        aa = resnet_path(torch, pt, args)
+        c = RESNET
+        log(f"(aa) bench.py's ResNet50 static train step through the port "
+            f"(static.Program, Executor; resnet50 under amp.auto_cast bf16, "
+            f"Momentum 0.002 / 0.9 / 1e-4), {c['size']}x{c['size']}, "
+            f"{c['classes']} classes, batch {c['batch']}, device feeds, on "
+            f"{card}:")
+        log(f"    imgs/s {aa['imgs_per_s']} ({c['steps']} steps, the last "
+            f"fetched); step {aa['step_ms']} ms; model-FLOP share "
+            f"{aa['model_flop_share']} (3 x 2 x 4.09e9 FLOPs an image over "
+            f"989 TFLOP/s bf16); loss {aa['loss_first']} -> "
+            f"{aa['loss_final']}; executor builds {aa['builds'][0]} in the "
+            f"warm-up (fetch, fetchless), {aa['builds'][1]} in the timed "
+            f"steps; program: {aa['ops']} ops, {aa['params']} parameters, "
+            f"{aa['written_back']} buffers written back, built in "
+            f"{aa['build_s']:.1f} s; max_memory_reserved "
+            f"{aa['max_memory_reserved_gib']} GiB; phase "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+        if "profile" in aa:
+            log(f"    ResNet50 fetchless step profile on {card}: "
+                f"{json.dumps(aa['profile'])}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ab = resnet_parity(torch, pt)
+        log("(ab) ResNet50 (10 classes) at 32x32, batch 4, one static step, "
+            "card (cuDNN, TF32 off) against CPU from the same weights: "
+            + "; ".join(f"{dt}: loss {r['loss_card']} / {r['loss_cpu']} "
+                        f"(relative diff {r['loss_rel_diff']:.3e}), "
+                        f"parameters and buffers at worst "
+                        f"{r['worst_ratio_to_tol']:.3e} x (1e-5 + 1e-4 "
+                        f"|cpu|)" for dt, r in ab.items())
+            + f" (float64 asserted, fp32 reported); phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ac = lenet_path(torch, pt)
+        ls = ac["losses"]
+        log(f"(ac) LeNet dygraph on the synthetic MNIST (io.DataLoader, "
+            f"batch 64, Adam 1e-3), {len(ls)} steps on the card: loss "
+            f"{ls[0]:.4f} -> {ls[-1]:.4f} (first five {np.mean(ls[:5]):.4f}"
+            f", last five {np.mean(ls[-5:]):.4f}); {ac['step_ms']:.2f} ms a "
+            f"step; phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    finally:
+        core._state.expected_place = prev
+    return aa, ab, ac
 
 
 # (z): the slot-contiguous engine ------------------------------------------
@@ -5077,6 +5531,11 @@ REPORT = {
         "paddle_tpu_torch/ops/cuda/csrc/layer_norm.cu",
         "paddle_tpu/ops/pallas/norms.py:57",
         "[8, 512, 768] (encoder final norm, g bf16)"),
+    "row_matmul": (
+        "paddle_tpu_torch/ops/cuda/csrc/row_matmul.cu",
+        "none: added for the reference's commit-bytes contract "
+        "(paddle_tpu/models/gpt.py:1103 _paged_verify_block)",
+        "[8, 1024] x [1024, 4096] (fc1)"),
 }
 
 

@@ -66,22 +66,35 @@ and ``prefetch_to_device``, ``save`` / ``load`` in the reference's
 format), ``runtime`` (the C++ staging pool and ring, built by g++ at
 first use), ``metric``, ``hapi`` (``Model``, callbacks, ``summary``) and
 ``InputSpec`` (``jit``, ``static``).
+
+The seventeenth slice ports the static graph and the vision stack that
+the reference bench's ResNet50 train step runs: ``static`` (``Program``,
+``program_guard``, ``data``, the ``Executor`` and ``ParallelExecutor``
+replaying the recorded ops, ``append_backward`` / ``gradients``, part of
+``static.nn``), ``enable_static`` / ``disable_static``, the recording
+hook in ``ops.dispatch.call``, ``Optimizer.minimize`` in static mode,
+``nn`` convolutions, pooling and batch norm (functional and layers,
+layer buffers), ``flatten`` and ``vision`` (``ResNet`` and ``LeNet``, the
+synthetic ``MNIST``); and ``ops.cuda.row_matmul``, the row-invariant
+product the paged decode and the fp verify take.
 """
 from . import amp, autograd, nn, optimizer, regularizer
-from . import io, jit, metric, static
+from . import io, jit, metric, static, vision
 from .autograd import grad, no_grad
 from .hapi import callbacks
 from .hapi.model import Model
 from .hapi.model_summary import summary
 from .io.serialization import load, save
+from .jit.api import disable_static, enable_static, in_static_mode
 from .device import DEFAULT_DEVICE, card_info, resolve_device
 from .framework import get_device, seed, set_device
-from .tensor import (Tensor, concat, matmul, mean, reshape, split, sum,
-                     to_tensor, transpose)
+from .tensor import (Tensor, concat, flatten, matmul, mean, reshape, split,
+                     sum, to_tensor, transpose)
 
 __all__ = ["DEFAULT_DEVICE", "Model", "Tensor", "amp", "autograd",
-           "callbacks", "card_info", "concat", "get_device", "grad", "io",
-           "jit", "load", "matmul", "mean", "metric", "nn", "no_grad",
-           "optimizer", "regularizer", "reshape", "resolve_device", "save",
-           "seed", "set_device", "split", "static", "sum", "summary",
-           "to_tensor", "transpose"]
+           "callbacks", "card_info", "concat", "disable_static",
+           "enable_static", "flatten", "get_device", "grad",
+           "in_static_mode", "io", "jit", "load", "matmul", "mean",
+           "metric", "nn", "no_grad", "optimizer", "regularizer", "reshape",
+           "resolve_device", "save", "seed", "set_device", "split", "static",
+           "sum", "summary", "to_tensor", "transpose", "vision"]

@@ -57,7 +57,8 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import gpt
-from ..ops.cuda import dequant_matmul, fused_ffn, norms, paged_attn
+from ..ops.cuda import (dequant_matmul, fused_ffn, norms, paged_attn,
+                        row_matmul)
 from .kv_pager import KVPager, PagesExhausted
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4)
@@ -101,7 +102,8 @@ _WARMUP_QUIET = frozenset(_COUNTERS) - {"queue_rejects", "step_aborts",
 _LAUNCH_COUNTERS = ((paged_attn, "launches"), (paged_attn, "quant_launches"),
                     (norms, "launches"), (dequant_matmul, "launches"),
                     (dequant_matmul, "rows_launches"),
-                    (fused_ffn, "launches"), (fused_ffn, "bodies"))
+                    (fused_ffn, "launches"), (fused_ffn, "bodies"),
+                    (row_matmul, "launches"))
 
 
 def _launch_counts():

@@ -17,7 +17,12 @@ attention always goes through the paged-attention wrapper
 (``ops/cuda/paged_attn.py``), over an int8 pool through its quantized
 twin.  Weights quantized by :func:`quantize_params` (``{"qw", "scale"}``
 dict leaves) route their matmuls through the dequant-matmul wrapper
-(``ops/cuda/dequant_matmul.py``).  With ``cfg.use_fused_ffn`` the FFN of
+(``ops/cuda/dequant_matmul.py``).  Float weights of the paged decode
+(:func:`decode_step_paged`) and the fp verify
+(:func:`decode_step_paged_verify`) go through the row-invariant matmul
+wrapper (``ops/cuda/row_matmul.py``), so that a verify lane and the
+decode write the same pool bytes on the card as on the CPU; every other
+float product is ``a @ w``.  With ``cfg.use_fused_ffn`` the FFN of
 :func:`block_apply` goes through the fused-FFN wrapper
 (``ops/cuda/fused_ffn.py``) with its weights cast to the compute dtype,
 unless the FFN weights are quantized, as in the reference's
@@ -67,6 +72,7 @@ from ..ops.cuda.fused_ffn import fused_ffn
 from ..ops.cuda.norms import _ref_layer_norm
 from ..ops.cuda.norms import layer_norm as _kernel_layer_norm
 from ..ops.cuda.paged_attn import paged_attention, paged_attention_quant
+from ..ops.cuda import row_matmul
 from ..quantization import int8_dynamic_matmul, quant_absmax_scale
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -405,11 +411,14 @@ def _attention(q, k, v, cfg):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def block_apply(cfg: GPTConfig, x, blk, attn_fn=None):
+def block_apply(cfg: GPTConfig, x, blk, attn_fn=None, row_mm=False):
     """One transformer block.  x: [B, N, H]; blk: per-layer param dict.
     ``attn_fn(q, k, v) -> ([B, N, nh, hd], aux)`` swaps the attention inner
     loop (the cached and paged decoders pass one); default is dense causal
-    attention with aux None."""
+    attention with aux None.  ``row_mm`` sends float weight products
+    through ``row_matmul.matmul``, whose rows' bits do not depend on the
+    row count (the paged decode and the fp verify, which must write the
+    same pool bytes); the plain ``a @ w`` on the CPU."""
     _check_slice(cfg)
     cd = torch_dtype(cfg.dtype)
     B, N, H = x.shape
@@ -422,7 +431,8 @@ def block_apply(cfg: GPTConfig, x, blk, attn_fn=None):
         if _is_qweight(w):
             return _q_matmul(a, w, cd)
         w = _c(w, cd)
-        y = a @ w.reshape(w.shape[0], -1)
+        w2 = w.reshape(w.shape[0], -1)
+        y = row_matmul.matmul(a, w2) if row_mm else a @ w2
         return y.reshape(*a.shape[:-1], *w.shape[1:])
 
     h = ln(x, blk["ln1_g"], blk["ln1_b"], eps)
@@ -779,7 +789,7 @@ def _paged_slot_block(cfg, x, blk, k_pages, v_pages, page_table,
                             lens)
         return a, None
 
-    x, _ = block_apply(cfg, x, blk, attn_fn=pattn)
+    x, _ = block_apply(cfg, x, blk, attn_fn=pattn, row_mm=True)
     return x, k_pages, v_pages
 
 
@@ -1039,7 +1049,8 @@ def _paged_verify_block(cfg, x, blk, k_pages, v_pages, page_table, lens):
         k_pages[wp, wo], v_pages[wp, wo] = saved
         return a, (kw, vw)
 
-    x, (win_k, win_v) = block_apply(cfg, x, blk, attn_fn=vattn)
+    x, (win_k, win_v) = block_apply(cfg, x, blk, attn_fn=vattn,
+                                    row_mm=True)
     return x, win_k, win_v
 
 

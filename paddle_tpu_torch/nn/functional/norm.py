@@ -1,6 +1,20 @@
 """Normalization functionals (counterpart of
-``paddle_tpu/nn/functional/norm.py``; only ``layer_norm`` and
-``rms_norm``).
+``paddle_tpu/nn/functional/norm.py``; only ``batch_norm``, ``layer_norm``
+and ``rms_norm``).
+
+``batch_norm`` keeps the reference's conventions: in training the batch's
+mean and biased variance normalise (``torch.native_batch_norm``, whose
+saved inverse deviation gives the variance back), and the running
+statistics move by Paddle's momentum, ``rm = momentum * rm + (1 -
+momentum) * mean`` (the reverse of torch's), the variance with the
+unbiased n / (n - 1) correction taken from the runtime batch inside the
+op (a static program builds on a placeholder batch of 1).  The update is
+its own op, ``bn_stats_update``, off the tape; eagerly it is copied into
+the statistics in place, in static mode the statistics take its output
+ids and the program notes the mutation, which the Executor writes back
+after each run.  The train-mode op carries an eval twin
+(``__test_variant__``, running-statistics normalisation) that
+``Program.clone(for_test=True)`` swaps in.
 
 The routing is the reference's: a call that will not record (grad mode
 off, or every operand stops gradients) goes to the fused kernel,
@@ -65,3 +79,69 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
         return out
     args = [weight] if weight is not None else []
     return call(_rms, x, *args, _name="rms_norm")
+
+
+def _bn_eval_out(a, rm, rv, wb, ch_axis, epsilon):
+    shape = [1] * a.dim()
+    shape[ch_axis] = a.shape[ch_axis]
+    out = (a - rm.reshape(shape)) * torch.rsqrt(rv.reshape(shape) + epsilon)
+    if wb:
+        out = out * wb[0].reshape(shape) + wb[1].reshape(shape)
+    return out
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    ch_axis = 1 if data_format.startswith("NC") else -1
+    use_batch_stats = training and not use_global_stats
+    args = [weight, bias] if weight is not None else []
+
+    if not use_batch_stats:
+        return call(lambda a, rm, rv, *wb: _bn_eval_out(a, rm, rv, wb,
+                                                        ch_axis, epsilon),
+                    x, running_mean, running_var, *args, _name="batch_norm")
+
+    def _bn(a, rm, rv, *wb):
+        a1 = a.movedim(-1, 1) if ch_axis == -1 else a
+        out, mean, invstd = torch.native_batch_norm(
+            a1, wb[0] if wb else None, wb[1] if wb else None, None, None,
+            True, 0.0, epsilon)
+        if ch_axis == -1:
+            out = out.movedim(1, -1)
+        # the batch's mean and biased variance, for the running update
+        return out, mean, invstd.reciprocal().square() - epsilon
+
+    def _bn_eval(a, rm, rv, *wb):
+        return _bn_eval_out(a, rm, rv, wb, ch_axis, epsilon), rm, rv
+
+    _bn.__test_variant__ = _bn_eval
+    out, mean_t, var_t = call(_bn, x, running_mean, running_var, *args,
+                              _name="batch_norm")
+
+    def _upd(rm, rv, m, v, a):
+        n = a.numel() // max(a.shape[ch_axis], 1)
+        corr = n / max(n - 1, 1)
+        return (momentum * rm + (1 - momentum) * m,
+                momentum * rv + (1 - momentum) * (v * corr))
+
+    prev = core.grad_enabled()
+    core.set_grad_enabled_flag(False)
+    try:
+        new_m, new_v = call(_upd, running_mean, running_var, mean_t, var_t,
+                            x, _name="bn_stats_update")
+    finally:
+        core.set_grad_enabled_flag(prev)
+    from ...static import graph
+    if graph.in_static_mode():
+        # the statistics keep their values while the program builds; their
+        # var ids become the update's outputs, which each run writes back
+        prog = graph.default_main_program()
+        for t, new in ((running_mean, new_m), (running_var, new_v)):
+            t._var_id = new._var_id
+            prog.note_mutation(t)
+    else:
+        with torch.no_grad():
+            running_mean.value.copy_(new_m.value)
+            running_var.value.copy_(new_v.value)
+    return out

@@ -1,5 +1,6 @@
 """Initializers (counterpart of ``paddle_tpu/nn/initializer.py``; only
-``Constant``, ``Normal`` and ``XavierUniform``).
+``Constant``, ``Normal``, ``Uniform``, ``XavierUniform`` and
+``KaimingUniform``).
 
 Each is a callable ``(shape, dtype) -> torch.Tensor`` on the CPU, drawn
 from the default generator's ``torch.Generator``
@@ -46,6 +47,16 @@ class Normal(Initializer):
         return (x * self.std + self.mean).to(_dt(dtype))
 
 
+class Uniform(Initializer):
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype=None):
+        x = torch.empty(tuple(shape)).uniform_(self.low, self.high,
+                                               generator=_gen())
+        return x.to(_dt(dtype))
+
+
 def _fans(shape):
     shape = tuple(shape)
     if len(shape) == 0:
@@ -67,6 +78,19 @@ class XavierUniform(Initializer):
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
+        x = torch.empty(tuple(shape)).uniform_(-limit, limit,
+                                               generator=_gen())
+        return x.to(_dt(dtype))
+
+
+class KaimingUniform(Initializer):
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        self.fan_in, self.negative_slope = fan_in, negative_slope
+
+    def __call__(self, shape, dtype=None):
+        fi = self.fan_in if self.fan_in is not None else _fans(shape)[0]
+        limit = (math.sqrt(2.0 / (1 + self.negative_slope ** 2))
+                 * math.sqrt(3.0 / fi))
         x = torch.empty(tuple(shape)).uniform_(-limit, limit,
                                                generator=_gen())
         return x.to(_dt(dtype))

@@ -7,8 +7,12 @@ the reference's, so ``state_dict`` keys match key for key.
 :meth:`Layer.set_state_dict` is the bridge from the JAX package: it takes
 a dict of numpy arrays (``{k: v.numpy() for k, v in
 ref_layer.state_dict().items()}``) and, unlike the reference, refuses a
-missing key, an extra key or a wrong shape.  Buffers are not ported yet
-(no layer of the slice has one).
+missing key, an extra key or a wrong shape.  Buffers
+(:meth:`Layer.register_buffer`, batch norm's running statistics) are
+Tensors on the default place; a persistable one is in ``state_dict``
+beside the parameters, and the tensor itself is marked persistable, so
+that a static program that captures it reads its live value at each run
+and the Executor writes back what the program changes in it.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import collections
 
 from ...framework import core
 from ...framework.param_attr import ParamAttr
-from ...tensor.tensor import Parameter
+from ...tensor.tensor import Parameter, Tensor
 from ..initializer import Constant, XavierUniform
 
 
@@ -38,6 +42,8 @@ class Layer:
         self._dtype = core.convert_dtype(dtype)
         self._parameters = collections.OrderedDict()
         self._sub_layers = collections.OrderedDict()
+        self._buffers = collections.OrderedDict()
+        self._non_persistable_buffer_names_set = set()
         self._forward_pre_hooks = collections.OrderedDict()
         self._forward_post_hooks = collections.OrderedDict()
 
@@ -74,18 +80,40 @@ class Layer:
         self._parameters[name] = parameter
         return parameter
 
+    def register_buffer(self, name, tensor, persistable=True):
+        """Register ``tensor`` (a Tensor, or data made one on the default
+        place) as buffer ``name``; a persistable buffer is in
+        ``state_dict``."""
+        if tensor is not None and not isinstance(tensor, Tensor):
+            tensor = Tensor(tensor)
+        if tensor is not None:
+            tensor.persistable = bool(persistable)
+        self._buffers[name] = tensor
+        if persistable:
+            self._non_persistable_buffer_names_set.discard(name)
+        else:
+            self._non_persistable_buffer_names_set.add(name)
+        return tensor
+
     # ------------------------------------------------------------ lookup
     def __setattr__(self, name, value):
         params = self.__dict__.get("_parameters")
         layers = self.__dict__.get("_sub_layers")
+        buffers = self.__dict__.get("_buffers")
         if isinstance(value, (Parameter, Layer)):
             if params is None:
                 raise ValueError("super().__init__() must be called first")
-            mine, other = ((params, layers) if isinstance(value, Parameter)
-                           else (layers, params))
-            other.pop(name, None)
+            mine = params if isinstance(value, Parameter) else layers
+            for d in (params, layers, buffers):
+                if d is not mine:
+                    d.pop(name, None)
             self.__dict__.pop(name, None)
             mine[name] = value
+        elif buffers is not None and name in buffers:
+            if value is None or isinstance(value, Tensor):
+                buffers[name] = value
+            else:
+                buffers[name].set_value(value)
         elif params is not None and name in params and value is None:
             params[name] = None
         else:
@@ -95,7 +123,7 @@ class Layer:
             object.__setattr__(self, name, value)
 
     def __getattr__(self, name):
-        for store in ("_parameters", "_sub_layers"):
+        for store in ("_parameters", "_sub_layers", "_buffers"):
             d = self.__dict__.get(store)
             if d is not None and name in d:
                 return d[name]
@@ -148,6 +176,21 @@ class Layer:
                     continue
                 seen.add(id(p))
                 yield lp + ("." if lp else "") + name, p
+
+    def buffers(self, include_sublayers=True):
+        return [b for _, b in self.named_buffers(
+            include_sublayers=include_sublayers)]
+
+    def named_buffers(self, prefix="", include_sublayers=True):
+        seen = set()
+        gen = (self.named_sublayers(prefix=prefix, include_self=True)
+               if include_sublayers else [(prefix, self)])
+        for lp, layer in gen:
+            for name, b in layer._buffers.items():
+                if b is None or id(b) in seen:
+                    continue
+                seen.add(id(b))
+                yield lp + ("." if lp else "") + name, b
 
     # ------------------------------------------------------------- modes
     def train(self):
@@ -212,11 +255,20 @@ class Layer:
         for name, p in self.named_parameters(
                 include_sublayers=include_sublayers):
             dest[structured_name_prefix + name] = p
+        gen = (self.named_sublayers(include_self=True)
+               if include_sublayers else [("", self)])
+        for lp, layer in gen:
+            for name, b in layer._buffers.items():
+                if (b is not None and name not in
+                        layer._non_persistable_buffer_names_set):
+                    dest[structured_name_prefix + lp + ("." if lp else "")
+                         + name] = b
         return dest
 
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy each value (numpy array, Tensor or torch tensor) into the
-        parameter of the same name, on its device and in its dtype.
+        parameter or persistable buffer of the same name, on its device
+        and in its dtype.
         Raises ``KeyError`` naming missing and extra keys and
         ``ValueError`` on a shape that differs; nothing is copied then."""
         own = self.state_dict()

@@ -15,15 +15,27 @@ Inside ``amp.auto_cast`` the op runs through
 and black lists pick the same ops as the reference's, and the cast runs
 inside the op: autograd casts the gradients back to the inputs' dtypes.
 
+In static mode (``enable_static``) ``call`` also records the op into the
+default main program (``static.graph.record_call``, the reference's hook
+at ``paddle_tpu/ops/dispatch.py:541``): the function as it ran, with
+``auto_cast``'s casts when they applied (and its ``__test_variant__``
+cast alike), so a replay keeps the casts that were in force at build.
+The op still runs on the build's placeholder values, so shapes and
+Python control flow resolve; nothing records on the tape then.
+
 Not ported in this slice: the reference's signature-keyed executable
-cache (``_cached_dispatch``), nan guard, static-graph recording and
-profiler hook.
+cache (``_cached_dispatch``), nan guard and profiler hook.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..framework import core
+
+# static.graph.record_call while static mode is on (set by
+# static.graph._set_static_mode), else None
+static_recorder = None
 
 
 def _tensor_cls():
@@ -64,15 +76,24 @@ def call(fn, *args, _name=None, **kwargs):
     """Apply ``fn`` to args that may hold Tensors.  Returns a Tensor, or a
     tuple of Tensors for a tuple or list of outputs."""
     Tensor = _tensor_cls()
-    record = core.grad_enabled() and any(
+    recorder = static_recorder
+    record = recorder is None and core.grad_enabled() and any(
         not t.stop_gradient and t.value.is_floating_point()
         for t in _tensors((args, kwargs), Tensor))
+    name = _name or getattr(fn, "__name__", "op")
     if core._state.amp_state is not None:
         from ..amp.auto_cast import maybe_autocast_fn
-        fn = maybe_autocast_fn(fn, _name or getattr(fn, "__name__", "op"))
+        wrapped = maybe_autocast_fn(fn, name)
+        tv = getattr(fn, "__test_variant__", None)
+        if tv is not None and wrapped is not fn:
+            wrapped.__test_variant__ = maybe_autocast_fn(tv, name)
+        fn = wrapped
     with torch.set_grad_enabled(record):
         out = fn(*unwrap(args), **unwrap(kwargs))
-    if isinstance(out, (tuple, list)):
-        return tuple(_wrap(o, not (record and o.is_floating_point()))
-                     for o in out)
-    return _wrap(out, not (record and out.is_floating_point()))
+    multi = isinstance(out, (tuple, list))
+    outs = tuple(_wrap(o, not (record and o.is_floating_point()))
+                 for o in (out if multi else (out,)))
+    if recorder is not None:
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        recorder(fn, leaves, spec, outs, name)
+    return outs if multi else outs[0]

@@ -279,7 +279,18 @@ class Optimizer:
     # ------------------------------------------------------------ minimize
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """Backward (unless it ran from ``loss``), step, clear_grad."""
+        """Backward (unless it ran from ``loss``), step, clear_grad.  In
+        static mode: make the default main program a training program
+        (its ``train_spec``, which ``static.Executor.run`` differentiates
+        and steps with this optimizer), over the program's parameters when
+        the optimizer was given none."""
+        from ..static import graph
+        if graph.in_static_mode():
+            prog = graph.default_main_program()
+            prog.train_spec = (graph._ensure_var_id(loss, prog), self)
+            if not self._parameters:
+                self._parameters = prog.all_parameters()
+            return None, None
         if loss.value.grad_fn is not None and not loss._backward_ran:
             loss.backward()
         self.step()

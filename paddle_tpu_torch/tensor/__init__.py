@@ -2,5 +2,5 @@
 the nn API uses (counterpart of ``paddle_tpu/tensor``)."""
 from .tensor import Parameter, Tensor
 from .creation import arange, ones, to_tensor, zeros
-from .manipulation import concat, reshape, split, transpose
+from .manipulation import concat, flatten, reshape, split, transpose
 from .math import add, matmul, mean, sum

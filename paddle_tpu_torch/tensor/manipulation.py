@@ -1,5 +1,5 @@
 """Shape ops (counterpart of ``paddle_tpu/tensor/manipulation.py``; only
-``reshape``, ``concat``, ``split`` and ``transpose``)."""
+``reshape``, ``flatten``, ``concat``, ``split`` and ``transpose``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,6 +26,16 @@ def reshape(x, shape, name=None):
         return a.reshape([a.shape[i] if s == 0 else s
                           for i, s in enumerate(shp)])
     return call(_r, x, _name="reshape")
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    """Dims ``start_axis`` to ``stop_axis`` (inclusive) joined into one."""
+    def _fl(a):
+        nd = a.dim()
+        s = start_axis % nd if nd else 0
+        e = stop_axis % nd if nd else 0
+        return a.reshape(tuple(a.shape[:s]) + (-1,) + tuple(a.shape[e + 1:]))
+    return call(_fl, x, _name="flatten")
 
 
 def transpose(x, perm=None, name=None):

@@ -67,7 +67,7 @@ class _HookHandle:
 
 class Tensor:
     __slots__ = ("value", "stop_gradient", "name", "persistable",
-                 "_grad_hooks", "_backward_ran", "__weakref__")
+                 "_grad_hooks", "_backward_ran", "_var_id", "__weakref__")
 
     _next_id = [0]
 
@@ -84,6 +84,7 @@ class Tensor:
         self.persistable = False
         self._grad_hooks = None
         self._backward_ran = 0       # tape._NOT_RUN
+        self._var_id = None          # a static program's variable id
 
     # -- metadata ----------------------------------------------------------
     @property
@@ -249,6 +250,10 @@ class Tensor:
     def sum(self, axis=None, dtype=None, keepdim=False, name=None):
         from .math import sum as _sum
         return _sum(self, axis, dtype, keepdim)
+
+    def mean(self, axis=None, keepdim=False, name=None):
+        from .math import mean as _mean
+        return _mean(self, axis, keepdim)
 
 
 class Parameter(Tensor):

@@ -28,7 +28,9 @@ the plain version of its own function (h and the output each rounded
 once): 1e-5 in fp32, 2**-8 + 2**-6 |ref| per element in bf16; the fused
 flash backward at the split backward's tolerances.  RMSNorm: 1e-5 of
 max|ref| in fp32, one bf16 step (2**-7) of |ref| in bf16; the nn-API
-encoder on the card against the CPU within 1e-5 of max|ref|.
+encoder on the card against the CPU within 1e-5 of max|ref|.  The
+row-invariant matmul: 1e-5 of max|ref| in fp32, 2**-8 + 2**-6 |ref| per
+element in bf16, and its rows bit-equal across row counts.
 """
 import dataclasses
 
@@ -39,7 +41,7 @@ import torch
 from paddle_tpu_torch.inference.serving import PagedServingEngine
 from paddle_tpu_torch.models import gpt as T
 from paddle_tpu_torch.ops.cuda import (build, flash_attn, fused_ffn, norms,
-                                      paged_attn)
+                                      paged_attn, row_matmul)
 from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm
 from spec_probe import commit_write_probe
 
@@ -536,11 +538,12 @@ def test_speculative_engine_on_card(dev, mode, kv):
     """The speculative engine on the card (fp32, self-draft in draft
     mode): one verify graph (and two draft graphs), tokens equal the
     non-speculative engine's on the card, exact LayerNorm, paged and
-    dequant launches, and every verify, all-reject or accepting, changing
-    the pool only at the positions it committed.  (The pool's bytes
-    against the non-speculative engine's, which the CPU tests hold equal,
-    are reported by ``chip_smoke.py`` (y): the projections run at
-    M = S * W rows, not S.)"""
+    dequant and row-matmul launches (4L a verify with float weights), and
+    every verify, all-reject or accepting, changing the pool only at the
+    positions it committed.  (The pool's bytes against the
+    non-speculative engine's are asserted by ``chip_smoke.py`` (y) and,
+    for one verify against one decode, by
+    ``test_verify_lane_writes_the_decode_bytes``.)"""
     import dataclasses
 
     from paddle_tpu_torch.inference.speculative import (
@@ -573,7 +576,7 @@ def test_speculative_engine_on_card(dev, mode, kv):
         rejected = spec.stats()["accepted_tokens"]
         spec._spec_reject = None
         before = spec.stats()
-        norms.launches = dqmm.launches = 0
+        norms.launches = dqmm.launches = row_matmul.launches = 0
         paged_attn.launches = paged_attn.quant_launches = 0
         dqmm.rows_launches.clear()
         reqs = [spec.submit(p, 10) for p in prompts]
@@ -599,6 +602,8 @@ def test_speculative_engine_on_card(dev, mode, kv):
     # decode's call shape
     attn = "quant_launches" if kv == "int8" else "launches"
     assert getattr(paged_attn, attn) == 4 * L * st["spec_steps"]
+    assert row_matmul.launches == (4 * L * st["spec_steps"] if kv == "fp"
+                                   else 0)
     if kv == "int8":
         # the verify's rows, S * W = 8, and the 8-token waves' (one a
         # prompt of at most 8 tokens, batch bucket 1)
@@ -1961,3 +1966,76 @@ def test_hapi_classifier_on_card_matches_cpu(dev):
     assert eg["acc"] == ec["acc"]
     assert abs(eg["loss"] - ec["loss"]) <= 1e-4 * abs(ec["loss"])
     np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-4 * np.abs(dc).max())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(1024, 3072), (4096, 1024), (256, 768),
+                                 (13, 10), (1030, 1001)])
+def test_row_matmul_matches_plain_and_is_row_invariant(dev, dt, K, N):
+    """The row-invariant matmul against ``x @ w`` (fp32 within 1e-5 of
+    max|ref|; bf16 2**-8 + 2**-6 |ref| per element, the dequant matmul's
+    gate: cuBLAS reduces in fp32 too, in another order, and both round
+    once), and each row of an [M, N] launch bit-equal to the M = 1 launch
+    on that row, for M in 1, 2, 8, 10, 40, 64 (odd N takes the
+    one-element loads)."""
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    w = (torch.randn((K, N), device=dev, generator=gen) * 0.02).to(dt)
+    x = torch.randn((64, K), device=dev, generator=gen).to(dt)
+    with torch.inference_mode():
+        ones = torch.cat([row_matmul.matmul(x[r:r + 1], w)
+                          for r in range(64)])
+        for M in (1, 2, 8, 10, 40, 64):
+            got = row_matmul.matmul(x[:M], w)
+            assert torch.equal(got, ones[:M]), M
+        mm = torch.backends.cuda.matmul
+        was = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            ref = row_matmul._ref_matmul(x, w)
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = was
+    if dt == torch.float32:
+        torch.testing.assert_close(ones, ref, rtol=0,
+                                   atol=FP32_TOL * float(ref.abs().max()))
+    else:
+        torch.testing.assert_close(ones.float(), ref.float(), rtol=2 ** -6,
+                                   atol=2 ** -8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_verify_lane_writes_the_decode_bytes(dev, dtype):
+    """One fp verify against one paged decode from the same pool: lane 0
+    of the verify's window K/V (what an accepted lane commits) is
+    bit-equal to what the decode writes, in every layer, because both take
+    the row-invariant products (4L launches each)."""
+    cfg = dataclasses.replace(_wide(), dtype=dtype)
+    L = cfg.num_layers
+    params = T.prepare_params(T.init_params(
+        cfg, torch.Generator().manual_seed(3), device=dev), cfg)
+    S, ps, maxP = 2, 8, 4
+    cache = T.init_paged_cache(cfg, 1 + S * maxP, ps, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, device=dev,
+                                      generator=g).to(cache[name].dtype))
+    table = (1 + torch.arange(S * maxP, device=dev, dtype=torch.int32)
+             ).reshape(S, maxP)
+    lens = torch.tensor([5, 11], device=dev, dtype=torch.int32)
+    toks = torch.tensor([[7, 9, 3, 1, 2], [4, 8, 6, 5, 0]], device=dev,
+                        dtype=torch.int32)
+    pos = lens.long()
+    wp = table.long()[torch.arange(S, device=dev), pos // ps]
+    wo = pos % ps
+    with torch.inference_mode():
+        row_matmul.launches = 0
+        _, wk, wv = T.decode_step_paged_verify(
+            params, toks, cfg, cache["k"].clone(), cache["v"].clone(), table,
+            lens)
+        assert row_matmul.launches == 4 * L
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        T.decode_step_paged(params, toks[:, 0], cfg, ck, cv, table, wp, wo,
+                            lens)
+        assert row_matmul.launches == 8 * L
+    for i in range(L):
+        assert torch.equal(wk[i, :, 0], ck[i, wp, wo]), i
+        assert torch.equal(wv[i, :, 0], cv[i, wp, wo]), i

@@ -408,6 +408,7 @@ def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     assert build.source_files("dequant_matmul") == ["dequant_matmul.cu",
                                                     "hopper.cuh"]
     assert build.source_files("paged_attn") == ["paged_attn.cu"]
+    assert build.source_files("row_matmul") == ["row_matmul.cu"]
     assert build.lib_path("flash_attn") == before["flash_attn"]
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("// edited\n")
@@ -435,7 +436,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     training's ``optimizer``, ``amp``, ``regularizer``, ``nn.clip`` and
     the losses, and the high-level API's ``io``, ``runtime``, ``metric``,
     ``hapi``, ``jit`` and ``static``, and speculative serving's
-    ``inference.speculative`` among them), leaves ``jax`` and
+    ``inference.speculative``, the static graph's ``static.graph``,
+    ``static.backward`` and ``static.nn``, the conv and pooling modules,
+    ``vision`` and the row-invariant matmul among them), leaves ``jax`` and
     ``paddle_tpu`` out of ``sys.modules``
     (exact keys: the port's own name starts with ``paddle_tpu``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -475,7 +478,19 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
         "        'paddle_tpu_torch.hapi.model_summary',\n"
         "        'paddle_tpu_torch.jit', 'paddle_tpu_torch.jit.api',\n"
         "        'paddle_tpu_torch.static',\n"
-        "        'paddle_tpu_torch.inference.speculative')\n"
+        "        'paddle_tpu_torch.inference.speculative',\n"
+        "        'paddle_tpu_torch.static.graph',\n"
+        "        'paddle_tpu_torch.static.backward',\n"
+        "        'paddle_tpu_torch.static.nn',\n"
+        "        'paddle_tpu_torch.nn.functional.conv',\n"
+        "        'paddle_tpu_torch.nn.functional.pooling',\n"
+        "        'paddle_tpu_torch.nn.layer.conv',\n"
+        "        'paddle_tpu_torch.nn.layer.pooling',\n"
+        "        'paddle_tpu_torch.vision',\n"
+        "        'paddle_tpu_torch.vision.models.resnet',\n"
+        "        'paddle_tpu_torch.vision.models.lenet',\n"
+        "        'paddle_tpu_torch.vision.datasets.mnist',\n"
+        "        'paddle_tpu_torch.ops.cuda.row_matmul')\n"
         "bad += [k for k in need if k not in sys.modules]\n"
         "print(len([k for k in sys.modules if k.startswith('paddle_tpu_torch')]))\n"
         "sys.exit(1 if bad else 0)\n")

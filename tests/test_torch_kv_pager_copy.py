@@ -51,3 +51,17 @@ def test_the_comparison_sees_code_and_not_comments(tmp_path):
     b.write_text('# header\ndef f(x):\n\n    return x\n')
     c.write_text('def f(x):\n    return x + 1\n')
     assert code_tokens(a) == code_tokens(b) != code_tokens(c)
+
+
+def test_port_copy_of_the_synthetic_mnist_is_the_reference_code():
+    """``paddle_tpu_torch/vision/datasets/mnist.py`` (the idx parser and
+    the synthetic surrogate) is a copy of the JAX package's, code
+    unchanged, as its header says."""
+    port = os.path.join(ROOT, "paddle_tpu_torch", "vision", "datasets",
+                        "mnist.py")
+    ref = os.path.join(ROOT, "paddle_tpu", "vision", "datasets", "mnist.py")
+    with open(port) as f:
+        assert "code unchanged" in f.readline()
+    got, want = code_tokens(port), code_tokens(ref)
+    assert len(got) > 300
+    assert got == want
