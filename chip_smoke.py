@@ -16,7 +16,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
       ``fa_bwd_wg<D, WIDE, false>``, the fused ``fa_bwd_wg<D, WIDE,
       true>``, ``ffn_wg``) and of the serving kernels redesigned for
       Hopper (``dqmm_stream``, ``dqmm_wg``, ``paged_decode``,
-      ``paged_decode_q8``), any of which last must not spill;
+      ``paged_decode_q8``, ``row_mm_tc``), any of which last must not
+      spill;
   (c) every kernel's wrapper against its plain PyTorch version on the card,
       in fp32 and bf16, at the shapes the serving and training paths give
       it, with the device times (CUDA-graph replay) of the kernel, the
@@ -30,9 +31,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
       1 + 2^-4 and one the second consumer warpgroup's rows (64-127) of
       the first tile.  The row-invariant matmul (``row_matmul``, which the
       paged decode and the fp verify take) at gpt_345m's four block
-      products, M = 8 and 40, fp32 and bf16, each row of an [M, N] launch
-      bit-equal to the M = 1 launch on that row for M in 1, 2, 8, 10, 40,
-      64 (asserted);
+      products, M = 8 and 40, fp32 and bf16, bf16 on both routes (the
+      tensor-core kernel the wrapper picks and the CUDA-core kernel, timed
+      on the same inputs), each row of an [M, N] launch bit-equal to the
+      M = 1 launch on that row for M in 1, 2, 8, 10, 40, 64, 320
+      (asserted);
   (d) the main path: ``gpt_345m`` (full width, 24 layers) with
       ``use_pallas_norm``, weights drawn from a numpy seed, served by
       ``PagedServingEngine(slots=8, max_len=512, page_size=16)`` after
@@ -576,10 +579,10 @@ def l2_copies(nbytes):
 # the warp-specialised kernels whose ptxas lines (b) prints one by one
 WG_KERNELS = ("fa_fwd_wg", "fa_bwd_dq_wg", "fa_bwd_wg", "ffn_wg",
               "dqmm_stream", "dqmm_wg", "12paged_decodeI",
-              "15paged_decode_q8I")
+              "15paged_decode_q8I", "row_mm_tc")
 # the serving kernels redesigned for Hopper: (b) fails if one spills
 NO_SPILL = ("dqmm_stream", "dqmm_wg", "12paged_decodeI",
-            "15paged_decode_q8I")
+            "15paged_decode_q8I", "row_mm_tc")
 
 
 def spilled(line):
@@ -1311,10 +1314,11 @@ def check_fused_bwd(torch, flash_attn):
 
 # the four float weight products of a gpt_345m block (K, N, name) and the
 # row counts the paged decode (8 slots) and the fp verify (8 slots x
-# SPEC_K + 1 lanes) give them; (c) checks row invariance at ROW_MS
+# SPEC_K + 1 lanes) give them; (c) checks row invariance at ROW_MS (320:
+# 64 slots x a window of 5)
 ROW_SHAPES = ((1024, 3072, "qkv"), (1024, 1024, "proj"),
               (1024, 4096, "fc1"), (4096, 1024, "fc2"))
-ROW_MS = (1, 2, 8, 10, 40, 64)
+ROW_MS = (1, 2, 8, 10, 40, 64, 320)
 
 
 def row_mm_bound(M, K, N, dt):
@@ -1336,11 +1340,14 @@ def check_row_matmul(torch, row_matmul):
     bf16 per element within 2^-8 + 2^-6 |ref|, the dequant matmul's gate:
     both sum in fp32 in other orders, then round once, so an output that
     cancels can differ by more than one step of its own size; each gate
-    rejects the later-rows mutant).  Row invariance, asserted: for M in ``ROW_MS``
-    every row of the kernel's [M, N] output is bit-equal to the M = 1
-    launch on that row alone, in both dtypes (cuBLAS's rows reported
-    beside it).  Timed by CUDA-graph replay over copies of W that pass the
-    L2, with the plain version and ``torch.mm``."""
+    rejects the later-rows mutant).  bf16 runs both routes on the same
+    inputs: the wrapper's (the tensor cores, ``row_mm_tc``) and the
+    CUDA-core kernel (``row_mm``, fp32's route), each a case of its own.
+    Row invariance, asserted: for M in ``ROW_MS`` every row of the
+    kernel's [M, N] output is bit-equal to the M = 1 launch on that row
+    alone, on every route (cuBLAS's rows reported beside it).  Timed by
+    CUDA-graph replay over copies of W that pass the L2, with the plain
+    version and ``torch.mm``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     f32, bf16 = torch.float32, torch.bfloat16
     out = []
@@ -1348,52 +1355,64 @@ def check_row_matmul(torch, row_matmul):
         for K, N, name in ROW_SHAPES:
             w = (torch.randn((K, N), device="cuda", generator=gen)
                  * 0.02).to(dt)
-            x64 = torch.randn((max(ROW_MS), K), device="cuda",
-                              generator=gen).to(dt)
+            xs = torch.randn((max(ROW_MS), K), device="cuda",
+                             generator=gen).to(dt)
+            route = row_matmul._args(xs, w)[0]
+            routes = [route] + (["cuda_core"] if route != "cuda_core"
+                                else [])
+            rows_equal = {r: {} for r in routes}
             with torch.inference_mode():
-                ones = torch.cat([row_matmul.matmul(x64[r:r + 1], w)
-                                  for r in range(x64.shape[0])])
-                cublas_ones = torch.cat([x64[r:r + 1] @ w
-                                         for r in range(x64.shape[0])])
-                rows_equal, cublas_rows = {}, {}
-                for M in ROW_MS:
-                    got = row_matmul.matmul(x64[:M], w)
-                    rows_equal[M] = bool(torch.equal(got, ones[:M]))
-                    cublas_rows[M] = int((x64[:M] @ w != cublas_ones[:M])
-                                         .any(-1).sum())
+                for r in routes:
+                    ones = torch.cat([row_matmul._launch(xs[i:i + 1], w, r)
+                                      for i in range(xs.shape[0])])
+                    for M in ROW_MS:
+                        got = row_matmul._launch(xs[:M], w, r)
+                        rows_equal[r][M] = bool(torch.equal(got, ones[:M]))
+                cublas_ones = torch.cat([xs[i:i + 1] @ w
+                                         for i in range(xs.shape[0])])
+                cublas_rows = {M: int((xs[:M] @ w != cublas_ones[:M])
+                                      .any(-1).sum()) for M in ROW_MS}
             for M in (8, 40):
                 sets = [((torch.randn((M, K), device="cuda", generator=gen)
                           ).to(dt), (w if i == 0 else w.clone()))
                         for i in range(l2_copies(K * N * w.element_size()))]
                 x, wk = sets[0]
                 with torch.inference_mode():
-                    got = row_matmul.matmul(x, wk)
                     torch.cuda.synchronize()
                     with fp32_reduction(torch):
                         ref = row_matmul._ref_matmul(x, wk)
+                    plain_ms = device_ms(row_matmul._ref_matmul, sets)
+                    library_ms = device_ms(torch.mm, sets)
                 if dt == f32:
                     atol, rtol = FP32_TOL * float(ref.abs().max()), 0.0
                 else:
                     atol, rtol = 2.0 ** -8, 2.0 ** -6
-                ratio, mutant = gate([(got, ref, ref)], atol, rtol,
-                                     rows=later_rows)
                 bound, by = row_mm_bound(M, K, N, dt)
-                with torch.inference_mode():
-                    out.append({
-                        "shape": f"[{M}, {K}] x [{K}, {N}] ({name})",
-                        "dtype": str(dt), "max_abs_err": max_err(got, ref),
-                        "atol": atol, "rtol": rtol, "gate": ratio,
-                        "mutant_gate": mutant,
-                        "rows_bit_equal_to_m1": rows_equal,
-                        "cublas_rows_differing_from_m1": cublas_rows,
-                        "ms": device_ms(row_matmul.matmul, sets),
-                        "call_ms": time_ms(row_matmul.matmul, sets, 500),
-                        "plain_ms": device_ms(row_matmul._ref_matmul, sets),
-                        "library_ms": device_ms(torch.mm, sets),
-                        "bound_ms": bound, "bound_by": by})
+                for r in routes:
+                    def launch(a, b, r=r):
+                        return row_matmul._launch(a, b, r)
+                    with torch.inference_mode():
+                        got = launch(x, wk)
+                        torch.cuda.synchronize()
+                        ratio, mutant = gate([(got, ref, ref)], atol, rtol,
+                                             rows=later_rows)
+                        tag = "" if r == route else ", CUDA-core route"
+                        out.append({
+                            "shape": f"[{M}, {K}] x [{K}, {N}] ({name}{tag})",
+                            "dtype": str(dt), "route": r,
+                            "max_abs_err": max_err(got, ref),
+                            "atol": atol, "rtol": rtol, "gate": ratio,
+                            "mutant_gate": mutant,
+                            "rows_bit_equal_to_m1": rows_equal[r],
+                            "cublas_rows_differing_from_m1": cublas_rows,
+                            "ms": device_ms(launch, sets),
+                            "call_ms": time_ms(row_matmul.matmul if r == route
+                                               else launch, sets, 500),
+                            "plain_ms": plain_ms, "library_ms": library_ms,
+                            "bound_ms": bound, "bound_by": by})
                 del sets
     for c in out:
-        log(f"  {'row_matmul':16s} {c['dtype']:15s} {c['shape']:36s} "
+        log(f"  {'row_matmul':16s} {c['dtype']:15s} {c['shape']:54s} "
             f"max_abs_err {c['max_abs_err']:.3e} gate {c['gate']:.3f} "
             f"(atol {c['atol']:.1e} rtol {c['rtol']:.1e}; wrong-scale "
             f"mutant {c['mutant_gate']:.2f})  device ms: kernel "
@@ -1403,6 +1422,15 @@ def check_row_matmul(torch, row_matmul):
             f"bit-equal to M = 1 at M = {ROW_MS}: "
             f"{list(c['rows_bit_equal_to_m1'].values())} (cuBLAS rows that "
             f"differ: {list(c['cublas_rows_differing_from_m1'].values())})")
+    tc = {c["shape"]: c for c in out if c["route"] == "tensor"}
+    for c in out:
+        if c["route"] == "cuda_core" and c["dtype"] == str(bf16):
+            t = tc[c["shape"].replace(", CUDA-core route", "")]
+            log(f"  row_matmul bf16 {t['shape']}: tensor-core route "
+                f"{t['ms']:.5f} ms, CUDA-core route {c['ms']:.5f} ms "
+                f"({c['ms'] / t['ms']:.2f}x), torch.mm {t['library_ms']:.5f}"
+                f" ({t['ms'] / t['library_ms']:.2f}x of it), bound "
+                f"{t['bound_ms']:.6f}")
     bad = [(c["shape"], c["dtype"]) for c in out
            if not case_ok(c) or not all(c["rows_bit_equal_to_m1"].values())]
     if bad:
@@ -2789,6 +2817,7 @@ def main():
         build.load(lib)
 
     # (c) ---------------------------------------------------------------
+    t0 = time.perf_counter()
     log("(c) kernels against their plain versions on the card:")
     cases = check_kernels(torch, paged_attn, norms)
     cases.update(check_flash(torch, flash_attn))
@@ -2800,6 +2829,7 @@ def main():
     for k, extra in check_queue3(torch, gpt, flash_attn, paged_attn, norms,
                                  dqmm).items():
         cases[k].extend(extra)
+    log(f"    phase {time.perf_counter() - t0:.1f} s")
 
     # (d)-(i), in the order and process state of the slices before -------
     cfg = dataclasses.replace(gpt.gpt_345m(), use_pallas_norm=True)

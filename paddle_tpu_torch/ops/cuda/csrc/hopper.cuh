@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: shared-memory
 // addresses, mbarriers, TMA loads, stores and reductions, wgmma and its
 // shared-memory descriptors, and the host-side tensor-map encoder.
-// Included by fused_ffn.cu, flash_attn.cu and dequant_matmul.cu;
+// Included by fused_ffn.cu, flash_attn.cu, dequant_matmul.cu and
+// row_matmul.cu;
 // paddle_tpu_torch/ops/cuda/build.py folds every header a source includes
 // into the library's digest.
 #pragma once

@@ -1,26 +1,36 @@
-"""Row-invariant matrix product: the CUDA kernel ``csrc/row_matmul.cu`` and
-its plain PyTorch version.
+"""Row-invariant matrix product: the CUDA kernels ``csrc/row_matmul.cu`` and
+their plain PyTorch version.
 
 It replaces no TPU kernel.  It keeps the reference's commit-bytes contract
 on the card (``paddle_tpu/models/gpt.py:1103`` ``_paged_verify_block``):
 the lanes a speculative verify accepts commit the bytes a sequential
 decode writes.  The verify runs a block's weight products at M = S * W
 rows and the decode at M = S; cuBLAS sums each output in an order it
-picks from M, so the two round differently.  The kernel's order is fixed
+picks from M, so the two round differently.  The kernels' order is fixed
 by K and N alone, so every output row's bits depend only on that row of x
 and on W (see the source's notes).  ``models.gpt.block_apply`` routes
 float weights through :func:`matmul` on the two paths whose pool writes
 that contract compares: the paged decode and the fp verify.
 
+:func:`_route` picks the kernel from the dtype, K, N and W's alignment,
+never from M: bf16 with K and N multiples of 8 and W 16-byte aligned (as
+TMA reads x and W) and K <= ``_TC_MAX_K`` takes ``row_mm_tc`` on the
+tensor cores; float32 (TF32 would not hold the port's 1e-5), and bf16
+shapes TMA cannot take, take ``row_mm`` on the CUDA cores.  :func:`_plan` gives each
+route's K split from K and N, and :func:`_k_steps` the k ranges in the
+order the kernel adds them; :func:`_args` is what a launch passes, in
+which only M follows x's row count.
+
 :func:`matmul` takes the plain version, ``x @ w`` in the compute dtype,
-for tensors on the CPU (bit-equal to the reference there) and launches
-the kernel for CUDA tensors, never falling back from one to the other.
-It is a forward only: on the card it refuses inputs that need a gradient.
+for tensors on the CPU (bit-equal to the reference there) and launches a
+kernel for CUDA tensors, never falling back from one to the other.  It is
+a forward only: on the card it refuses inputs that need a gradient.
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,6 +39,18 @@ from . import build
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE = {"cuda_core": 0, "tensor": 1}
+# row_mm (CUDA cores): 64 columns a block, 16 warps a block, each summing
+# one of the cluster's 16 C ranges of K
+_CC_N, _CC_WARPS = 64, 16
+# row_mm_tc (tensor cores): 64 columns a block, K in 64-row TMA boxes, at
+# most 8 boxes a block (all loaded at once) and 16 blocks a cluster;
+# _TC_KQ warps share each box's four k16 steps (a warp every _TC_KQ-th);
+# the cluster is the fewest
+# blocks (a power of two up to 8) that put _TC_BLOCKS blocks on the card
+_TC_N, _TC_BOX, _TC_MAX_BOXES, _TC_MAX_CS, _TC_BLOCKS = 64, 64, 8, 16, 64
+_TC_KQ = 2
+_TC_MAX_K = _TC_BOX * _TC_MAX_BOXES * _TC_MAX_CS
 _fns = None
 
 
@@ -43,7 +65,7 @@ def _kernels():
     if _fns is None:
         lib = build.load("row_matmul")
         fn = lib.pt_row_matmul
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.pt_error_string.argtypes = [ctypes.c_int]
@@ -52,10 +74,99 @@ def _kernels():
     return _fns
 
 
+def _route(dtype, K, N, w_addr):
+    """``"tensor"`` (``row_mm_tc``) or ``"cuda_core"`` (``row_mm``) for a
+    [*, K] x [K, N] product whose weight starts at ``w_addr``."""
+    if (dtype == torch.bfloat16 and not N % 8 and not K % 8
+            and not w_addr % 16 and 0 < K <= _TC_MAX_K):
+        return "tensor"
+    return "cuda_core"
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(route, K, N):
+    """(cs, kb): the route's K split.  ``"tensor"``: a cluster of cs
+    blocks of kb k rows each (whole 64-row boxes, at most 8), every block
+    at least one row; cs is the fewest blocks (a power of two up to 8)
+    that put ``_TC_BLOCKS`` blocks on the card (at gpt_345m's products on
+    an H100, tools/serving_kernels.py, the fastest cluster or within 2%
+    of it: qkv 2, proj 4, and fc1 2 and fc2 8, which their K forces).  ``"cuda_core"``: a cluster of cs blocks (8, 4, 2 or
+    1, from the 64-column tiles) of 16 warps, each summing kb k rows."""
+    if route == "cuda_core":
+        tiles = -(-N // _CC_N)
+        cs = 8 if tiles <= 16 else 4 if tiles <= 33 else 2 if tiles <= 66 else 1
+        return cs, -(-K // (cs * _CC_WARPS))
+    tiles, boxes = -(-N // _TC_N), -(-K // _TC_BOX)
+    cs = 1
+    while cs < 8 and tiles * cs < _TC_BLOCKS:
+        cs *= 2
+    cs = max(min(cs, boxes), -(-boxes // _TC_MAX_BOXES))
+    per = -(-boxes // cs)
+    return -(-boxes // per), _TC_BOX * per
+
+
+def _k_steps(route, K, N):
+    """The k ranges of each output's fp32 sum, in the order the kernel
+    adds them: [(rank, unit, k0, k1)].  ``"tensor"``: in each rank the
+    warp at k16 position kq (unit) of a box chains steps kq, kq + 2, ...
+    of every box in k order in one accumulator (a step past K adds zeros),
+    and the positions' sums are added in kq order; ``"cuda_core"``: each
+    rank's 16 warps (unit: the warp) sum their ranges, added in warp
+    order.  Then the ranks in rank order."""
+    cs, kb = _plan(route, K, N)
+    out = []
+    for q in range(cs):
+        if route == "cuda_core":
+            for w in range(_CC_WARPS):
+                k0 = min(K, (q * _CC_WARPS + w) * kb)
+                out.append((q, w, k0, min(K, k0 + kb)))
+        else:
+            k0, kend = q * kb, min(K, q * kb + kb)
+            for kq in range(_TC_KQ):
+                for s in range(-(-(kend - k0) // _TC_BOX)):
+                    for j in range(kq, _TC_BOX // 16, _TC_KQ):
+                        a = k0 + _TC_BOX * s + 16 * j
+                        out.append((q, kq, min(K, a), min(K, a + 16)))
+    return out
+
+
+def _args(x2, w, route=None):
+    """(route, the launch's integers: M, K, N, dtype code, route code, cs,
+    kb) for x2 [M, K] @ w [K, N] on ``route`` (default :func:`_route`'s).
+    Only M follows x2's row count: it sizes the grid's row axis and the
+    masks."""
+    M, K = x2.shape
+    N = w.shape[1]
+    if route is None:
+        route = _route(x2.dtype, K, N, w.data_ptr())
+    return route, (M, K, N, _DTYPE_CODE[x2.dtype], _ROUTE[route],
+                   *_plan(route, K, N))
+
+
+def _launch(x2, w, route=None):
+    """One launch on x2 [M, K] and w [K, N], contiguous CUDA tensors of
+    one dtype, M and N at least 1; returns y [M, N].  ``route`` forces a
+    kernel (``chip_smoke.py`` times both on the same bf16 inputs); a
+    route the shapes do not allow raises.  The tensor route reads x by
+    TMA, so x off 16 bytes is copied first."""
+    global launches
+    route, ints = _args(x2, w, route)
+    if route == "tensor" and x2.data_ptr() % 16:
+        x2 = x2.clone()
+    y = torch.empty((x2.shape[0], w.shape[1]), dtype=x2.dtype,
+                    device=x2.device)
+    lib, fn = _kernels()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = fn(x2.data_ptr(), w.data_ptr(), y.data_ptr(), *ints, stream)
+    build.check(lib, err, f"row_matmul ({route})")
+    launches += 1
+    return y
+
+
 def matmul(x, w):
     """x [..., K] @ w [K, N] -> [..., N] in x's dtype (float32 or
     bfloat16; w of the same dtype and device)."""
-    global launches
     if x.device.type == "cpu":
         return _ref_matmul(x, w)
     if x.device.type != "cuda":
@@ -73,15 +184,6 @@ def matmul(x, w):
                            "it under no_grad or inference_mode")
     K, N = w.shape
     x2 = x.reshape(-1, K).contiguous()
-    w = w.contiguous()
-    M = x2.shape[0]
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M and N:
-        lib, fn = _kernels()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(x2.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N,
-                     _DTYPE_CODE[x.dtype], stream)
-        build.check(lib, err, "row_matmul")
-        launches += 1
-    return y.reshape(*x.shape[:-1], N)
+    if not (x2.shape[0] and N):
+        return x2.new_empty((*x.shape[:-1], N))
+    return _launch(x2, w.contiguous()).reshape(*x.shape[:-1], N)

@@ -1968,25 +1968,53 @@ def test_hapi_classifier_on_card_matches_cpu(dev):
     np.testing.assert_allclose(dg, dc, rtol=0, atol=1e-4 * np.abs(dc).max())
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,N", [(1024, 3072), (4096, 1024), (256, 768),
-                                 (13, 10), (1030, 1001)])
-def test_row_matmul_matches_plain_and_is_row_invariant(dev, dt, K, N):
+_BF16, _F32 = torch.bfloat16, torch.float32
+# (dtype, K, N, W's offset in elements from a 16-byte boundary, route)
+_ROW_CASES = [
+    # tensor cores: gpt_345m's four block products, a small one, K and N
+    # off the 64-row and 64-column boxes, and both smaller than one box
+    (_BF16, 1024, 3072, 0, "tensor"), (_BF16, 1024, 1024, 0, "tensor"),
+    (_BF16, 1024, 4096, 0, "tensor"), (_BF16, 4096, 1024, 0, "tensor"),
+    (_BF16, 256, 768, 0, "tensor"), (_BF16, 1032, 1000, 0, "tensor"),
+    (_BF16, 8, 8, 0, "tensor"), (_BF16, 40, 24, 0, "tensor"),
+    # CUDA cores: N % 8 != 0 (odd N: one-element loads), K % 8 != 0, W off
+    # 16 bytes
+    (_BF16, 13, 10, 0, "cuda_core"), (_BF16, 1030, 1001, 0, "cuda_core"),
+    (_BF16, 1030, 1000, 0, "cuda_core"), (_BF16, 1024, 1024, 1, "cuda_core"),
+    (_F32, 1024, 3072, 0, "cuda_core"), (_F32, 4096, 1024, 0, "cuda_core"),
+    (_F32, 256, 768, 0, "cuda_core"), (_F32, 13, 10, 0, "cuda_core"),
+    (_F32, 1030, 1001, 0, "cuda_core")]
+_ROW_MS = (1, 2, 8, 10, 40, 64, 320)      # 320: 64 slots x a window of 5
+
+
+def _row_close(got, ref, dt):
+    if dt == _F32:
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=FP32_TOL * float(ref.abs().max()))
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -6,
+                                   atol=2 ** -8)
+
+
+@pytest.mark.parametrize("dt,K,N,off,route", _ROW_CASES)
+def test_row_matmul_matches_plain_and_is_row_invariant(dev, dt, K, N, off,
+                                                       route):
     """The row-invariant matmul against ``x @ w`` (fp32 within 1e-5 of
     max|ref|; bf16 2**-8 + 2**-6 |ref| per element, the dequant matmul's
     gate: cuBLAS reduces in fp32 too, in another order, and both round
     once), and each row of an [M, N] launch bit-equal to the M = 1 launch
-    on that row, for M in 1, 2, 8, 10, 40, 64 (odd N takes the
-    one-element loads)."""
+    on that row, for M in 1, 2, 8, 10, 40, 64, 320, on the route the
+    wrapper picks (asserted).  The bf16 tensor-core shapes also run the
+    CUDA-core kernel on the same inputs, held to the same gate and row
+    invariance."""
     gen = torch.Generator(device=dev).manual_seed(K + N)
-    w = (torch.randn((K, N), device=dev, generator=gen) * 0.02).to(dt)
-    x = torch.randn((64, K), device=dev, generator=gen).to(dt)
+    buf = torch.empty(K * N + 8, dtype=dt, device=dev)
+    w = buf[off:off + K * N].view(K, N)
+    w.copy_((torch.randn((K, N), device=dev, generator=gen) * 0.02).to(dt))
+    x = torch.randn((max(_ROW_MS), K), device=dev, generator=gen).to(dt)
+    assert row_matmul._args(x, w)[0] == route
+    routes = [route] + (["cuda_core"] if route == "tensor" else [])
     with torch.inference_mode():
-        ones = torch.cat([row_matmul.matmul(x[r:r + 1], w)
-                          for r in range(64)])
-        for M in (1, 2, 8, 10, 40, 64):
-            got = row_matmul.matmul(x[:M], w)
-            assert torch.equal(got, ones[:M]), M
         mm = torch.backends.cuda.matmul
         was = mm.allow_bf16_reduced_precision_reduction
         mm.allow_bf16_reduced_precision_reduction = False
@@ -1994,12 +2022,14 @@ def test_row_matmul_matches_plain_and_is_row_invariant(dev, dt, K, N):
             ref = row_matmul._ref_matmul(x, w)
         finally:
             mm.allow_bf16_reduced_precision_reduction = was
-    if dt == torch.float32:
-        torch.testing.assert_close(ones, ref, rtol=0,
-                                   atol=FP32_TOL * float(ref.abs().max()))
-    else:
-        torch.testing.assert_close(ones.float(), ref.float(), rtol=2 ** -6,
-                                   atol=2 ** -8)
+        for r in routes:
+            ones = torch.cat([row_matmul._launch(x[i:i + 1], w, r)
+                              for i in range(x.shape[0])])
+            for M in _ROW_MS:
+                got = (row_matmul.matmul(x[:M], w) if r == route
+                       else row_matmul._launch(x[:M], w, r))
+                assert torch.equal(got, ones[:M]), (r, M)
+            _row_close(ones, ref, dt)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -397,7 +397,7 @@ def test_build_without_nvcc_raises_naming_it(monkeypatch):
 def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     """``build.lib_path``'s digest covers each header a source includes
     from ``csrc/``: editing the shared Hopper header renames (so rebuilds)
-    the three libraries that include it and no other."""
+    the four libraries that include it and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
@@ -408,13 +408,15 @@ def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     assert build.source_files("dequant_matmul") == ["dequant_matmul.cu",
                                                     "hopper.cuh"]
     assert build.source_files("paged_attn") == ["paged_attn.cu"]
-    assert build.source_files("row_matmul") == ["row_matmul.cu"]
+    assert build.source_files("row_matmul") == ["row_matmul.cu",
+                                                "hopper.cuh"]
     assert build.lib_path("flash_attn") == before["flash_attn"]
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: build.lib_path(n) for n in build.SOURCES}
     changed = {n for n in build.SOURCES if after[n] != before[n]}
-    assert changed == {"flash_attn", "fused_ffn", "dequant_matmul"}
+    assert changed == {"flash_attn", "fused_ffn", "dequant_matmul",
+                       "row_matmul"}
 
 
 def test_resolve_device_without_gpu(monkeypatch):

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Time the serving paths' redesigned kernels, the bf16 dequant matmul
 (``dqmm_stream`` and ``dqmm_wg``), paged decode attention
-(``paged_decode``) and int8 paged decode attention (``paged_decode_q8``),
-beside another version of the port's sources, and variants of their plans,
-on one GPU in one process.
+(``paged_decode``), int8 paged decode attention (``paged_decode_q8``) and
+the row-invariant product (``row_mm_tc``, beside its CUDA-core route and
+``torch.mm``), beside another version of the port's sources, and variants
+of their plans, on one GPU in one process.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
-    python3 tools/serving_kernels.py [--against OTHER] [--rounds 5]
+    python3 tools/serving_kernels.py [--against OTHER] [--rounds 5] \
+        [--only dqmm|paged|row]
 
 ``OTHER`` is the root of another checkout of this repository (an older
 commit's, unpacked with ``git archive`` into a directory ``.gitignore``
@@ -19,20 +21,25 @@ Shapes: the dequant matmul at gpt_345m's four decode products ([8, K] x
 [K, N] for qkv, proj, fc1 and fc2) and its prefill products at M = 4096;
 both paged kernels at the serving decode shape (8 slots, 16 heads of 64,
 page 16, 32 pages a slot, lengths 17-331), 16 ragged slots over 64 pages
-and one slot of 8,191 positions.  Operands are cycled in copies that pass
+and one slot of 8,191 positions; the row-invariant product at the same
+four products at the decode's M = 8 and the verify's M = 40.  Operands are cycled in copies that pass
 the 50 MB L2, as ``chip_smoke.py`` (c) does.  For each shape and version:
 the device ms of a call (CUDA-graph replay, ``chip_smoke.device_ms``) and
 the eager ms of a call (host launch cost included, ``chip_smoke.time_ms``),
 each the median of ``--rounds`` rounds that visit the versions in turn,
 each round starting one version later; the lowest and highest round
 beside it.  Then this tree's kernels under other plans and as patched
-variants (``DQMM_VARIANTS``, ``PAGED_VARIANTS``, ``Q8_VARIANTS``; those
-named "cut" break the result on purpose and only their time counts: it
-shows what the part they cut costs): the cluster size at the decode
+variants (``DQMM_VARIANTS``, ``PAGED_VARIANTS``, ``Q8_VARIANTS``,
+``ROW_VARIANTS``; those named "cut" break the result on purpose and only
+their time counts: it shows what the part they cut costs): the cluster
+size at the decode
 shapes, the streaming kernel against the wgmma kernel at M = 8 and 16
 (``_SMALL_M``), the fp paged kernel on the int8 kernel's grid-sized plan,
-the int8 kernel on other split counts and ring shapes, and the cuts at the
-decode, prefill and paged shapes.  The card's name and power limit come
+the int8 kernel on other split counts and ring shapes, the row product's
+tensor route on other cluster sizes and warp counts, and the cuts at the
+decode, prefill, paged and row shapes; for the row product also a
+clock64() timeline of a block's phases (as built and with cuts), from one
+eager call at each shape.  The card's name and power limit come
 first.
 """
 import argparse
@@ -52,7 +59,7 @@ from paddle_tpu_torch import card_info  # noqa: E402
 from paddle_tpu_torch.models import gpt  # noqa: E402
 from paddle_tpu_torch.ops.cuda import build  # noqa: E402
 from paddle_tpu_torch.ops.cuda import dequant_matmul as dqmm  # noqa: E402
-from paddle_tpu_torch.ops.cuda import paged_attn  # noqa: E402
+from paddle_tpu_torch.ops.cuda import paged_attn, row_matmul  # noqa: E402
 
 DQMM = [((8, 1024, 3072), "decode qkv"), ((8, 1024, 1024), "decode proj"),
         ((8, 1024, 4096), "decode fc1"), ((8, 4096, 1024), "decode fc2"),
@@ -67,7 +74,8 @@ PAGED = [("S8 nh16 hd64 ps16 maxP32 (decode)", 8, 32, None),
 
 def other_package(root):
     """``OTHER/paddle_tpu_torch/ops/cuda`` imported as ``other_cuda``:
-    (its dequant_matmul module, its paged_attn module)."""
+    (its dequant_matmul module, its paged_attn module, its row_matmul
+    module)."""
     pkg = Path(root).resolve() / "paddle_tpu_torch" / "ops" / "cuda"
     spec = importlib.util.spec_from_file_location(
         "other_cuda", pkg / "__init__.py",
@@ -76,9 +84,10 @@ def other_package(root):
     sys.modules["other_cuda"] = mod
     spec.loader.exec_module(mod)
     importlib.import_module("other_cuda.build").build(
-        ["dequant_matmul", "paged_attn"])
+        ["dequant_matmul", "paged_attn", "row_matmul"])
     return (importlib.import_module("other_cuda.dequant_matmul"),
-            importlib.import_module("other_cuda.paged_attn"))
+            importlib.import_module("other_cuda.paged_attn"),
+            importlib.import_module("other_cuda.row_matmul"))
 
 
 def rounds(fns, sets, n, calls):
@@ -176,6 +185,114 @@ PAGED_VARIANTS = [
         ("  if (ns == 1) return;\n  if (threadIdx.x == 0) {\n",
          "  if (ns >= 1) return;\n  if (threadIdx.x == 0) {\n")]),
 ]
+# (name, pairs, cluster factor: the variant runs on this tree's tensor
+# plan with the cluster that many times larger)
+ROW_KQ = "constexpr int TC_KQ = 2; "
+ROW_EXPECT = "        mbar_expect_tx(full + 8 * s, L.xbox() + TC_STAGE);\n"
+ROW_X_TMA = ("        tma_load(sx + s * L.xbox(), &tm_x, full + 8 * s, "
+             "k0 + s * TC_BOX,\n                 r0);\n")
+ROW_W_LOOP = ("        for (int b = 0; b < TC_N / 64; ++b)\n"
+              "          tma_load(base + s * TC_STAGE")
+ROW_NO_W_LOOP = (ROW_W_LOOP, ROW_W_LOOP.replace("b < TC_N / 64", "b < 0"))
+ROW_NO_W = [(ROW_EXPECT, ROW_EXPECT.replace("L.xbox() + TC_STAGE",
+                                            "L.xbox()")), ROW_NO_W_LOOP]
+ROW_NO_X = [(ROW_EXPECT + ROW_X_TMA,
+             ROW_EXPECT.replace("L.xbox() + TC_STAGE", "TC_STAGE"))]
+ROW_NO_LOADS = [(ROW_EXPECT + ROW_X_TMA,
+                 ROW_EXPECT.replace("L.xbox() + TC_STAGE", "0")),
+                ROW_NO_W_LOOP]
+ROW_NO_LOOP = ("  load(a0, b0, 0);\n  for (int i = 0; i < steps; i += 2) {",
+               "  if (steps < 0) load(a0, b0, 0);\n"
+               "  for (int i = 0; i < 0; i += 2) {")
+ROW_NO_MMA = ("    for (int c = 0; c < NCH; ++c) mma16816(",
+              "    for (int c = 0; c < NCH; ++c) if (steps < 0) mma16816(")
+ROW_NO_LDSM = [("    ldsm_x4_t(a, a_lane + s * TC_STAGE + 16 * j * 128);",
+                "    a[0] = a_lane + s; a[1] = j; a[2] = 1; a[3] = 2;"),
+               ("    for (int c = 0; c < NCH; ++c) ldsm_x2(b[c], xk + c * 8 * 128);",
+                "    for (int c = 0; c < NCH; ++c) { b[c][0] = xk + c; b[c][1] = 3; }")]
+ROW_VARIANTS = [
+    ("row_mm_tc: 4 warps a column group", [
+        (ROW_KQ, "constexpr int TC_KQ = 4; ")], 1),
+    ("row_mm_tc: 1 warp a column group", [
+        (ROW_KQ, "constexpr int TC_KQ = 1; ")], 1),
+    ("row_mm_tc: 128 columns a block, twice the cluster", [
+        ("constexpr int TC_N = 64; ", "constexpr int TC_N = 128; ")], 2),
+    ("row_mm_tc cut: return at once", [
+        ("  const int cs = (int)cluster_size(), q = (int)cluster_rank();\n"
+         "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+         "  const int n0 = blockIdx.y * TC_N",
+         "  if (M > 0) return;\n"
+         "  const int cs = (int)cluster_size(), q = (int)cluster_rank();\n"
+         "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+         "  const int n0 = blockIdx.y * TC_N")], 1),
+    ("row_mm_tc cut: no weight loads", ROW_NO_W, 1),
+    ("row_mm_tc cut: no x loads", ROW_NO_X, 1),
+    ("row_mm_tc cut: no products", [ROW_NO_MMA], 1),
+    # (without the second barrier no block may store to a peer, which may
+    # have exited: both go)
+    ("row_mm_tc cut: no stores to peers and no second cluster barrier", [
+        ("    st_cluster_v4(rb + ((q * L.mp + m) * L.cw + col - o * L.cw) * 4,"
+         "\n                  (uint32_t)o, sum);",
+         "    if (sum.x == 12345.f) y[0] = __float2bfloat16((float)o);"),
+        ("  }\n  cluster_sync();\n  // this rank's columns",
+         "  }\n  __syncthreads();\n  // this rank's columns")], 1),
+    ("row_mm_tc cut: no loads", ROW_NO_LOADS, 1),
+    ("row_mm_tc cut: no loads, no stage loop", [*ROW_NO_LOADS, ROW_NO_LOOP],
+     1),
+]
+# the kernel with clock64() stamps at its phase boundaries, which thread 0
+# of each block writes over y (26 int64 a block, as many blocks as y holds:
+# 8 stamps less the first, the globaltimer at entry and at exit, 16
+# zeros); its result is not the product
+ROW_TIMELINE = [
+    ("  const int cs = (int)cluster_size(), q = (int)cluster_rank();\n"
+     "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+     "  const int n0 = blockIdx.y * TC_N",
+     "  long long tl[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  unsigned long long g0, g1;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g0));\n"
+     "  tl[0] = clock64();\n"
+     "  const int cs = (int)cluster_size(), q = (int)cluster_rank();\n"
+     "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+     "  const int n0 = blockIdx.y * TC_N"),
+    ("  __syncthreads();\n\n  float acc[TC_CHUNKS][4];",
+     "  __syncthreads();\n  tl[1] = tl[2] = clock64();\n\n"
+     "  float acc[TC_CHUNKS][4];"),
+    ("  // every warp has waited for every stage and read its last one",
+     "  tl[3] = clock64();\n"
+     "  // every warp has waited for every stage and read its last one"),
+    ("  __syncthreads();\n  // each output's partials in k16-position order",
+     "  __syncthreads();\n  tl[4] = clock64();\n"
+     "  // each output's partials in k16-position order"),
+    ("  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");\n"
+     "  const uint32_t rb = base + L.rb_off();",
+     "  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");\n"
+     "  tl[5] = clock64();\n  const uint32_t rb = base + L.rb_off();"),
+    ("  cluster_sync();\n  // this rank's columns: the ranks' partials",
+     "  cluster_sync();\n  tl[6] = clock64();\n"
+     "  // this rank's columns: the ranks' partials"),
+    ("    *reinterpret_cast<uint2*>(y + (long long)(r0 + m) * N + n) = out;"
+     "\n  }\n}",
+     "    if (out.x == 12345u) y[0] = __float2bfloat16(sum.x);\n  }\n"
+     "  __syncthreads();\n  if (threadIdx.x == 0) {\n"
+     "    tl[7] = clock64();\n"
+     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+     "    const long long b = blockIdx.x + gridDim.x * (blockIdx.y + "
+     "gridDim.y * blockIdx.z);\n"
+     "    long long* o = reinterpret_cast<long long*>(y) + 26 * b;\n"
+     "    if (26 * 8 * (b + 1) <= 2LL * M * N) {\n"
+     "      for (int i = 0; i < 8; ++i) o[i] = tl[i] - tl[0];\n"
+     "      o[8] = (long long)g0;\n      o[9] = (long long)g1;\n"
+     "      for (int i = 10; i < 26; ++i) o[i] = 0;\n"
+     "    }\n  }\n}"),
+]
+ROW_TIMELINES = [("as built", []), ("no weight loads", ROW_NO_W),
+                 ("no loads, no products", [*ROW_NO_LOADS, ROW_NO_MMA]),
+                 ("no loads, no fragment loads",
+                  [*ROW_NO_LOADS, *ROW_NO_LDSM])]
+ROW_PHASES = ("barriers set, x and W issued", "-", "waits and products",
+              "partials to shared memory", "cluster wait",
+              "sums to peers + cluster sync", "final sums and stores")
 Q8_VARIANTS = [
     ("paged_decode_q8: 1 position a group a stage, 8 stages", [
         ("constexpr int QU = 2; ", "constexpr int QU = 1; "),
@@ -207,13 +324,17 @@ def variant_libs(specs):
     import ctypes
     import hashlib
     import subprocess
-    procs = []
-    for name, source, pairs in specs:
+    patched = []
+    for name, source, pairs in specs:       # every patch applies, or none
         src = (build.CSRC / source).read_text()
         for old, new in pairs:
             if old not in src:
-                raise SystemExit(f"variant line not in the source: {old!r}")
+                raise SystemExit(f"{name}: variant line not in the source: "
+                                 f"{old!r}")
             src = src.replace(old, new)
+        patched.append((name, source, src))
+    procs = []
+    for name, source, src in patched:
         out = build.BUILD_DIR / "serving_variants" / hashlib.blake2b(
             src.encode(), digest_size=6).hexdigest()
         out.mkdir(parents=True, exist_ok=True)
@@ -226,12 +347,12 @@ def variant_libs(specs):
              str(out / source)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         procs.append((name, lib, proc))
+    logs = {name: proc.communicate()[0] for name, _, proc in procs
+            if proc is not None}           # every nvcc ends before a raise
     libs = {}
     for name, lib, proc in procs:
-        if proc is not None:
-            log = proc.communicate()[0]
-            if proc.returncode:
-                raise SystemExit(f"{name}: nvcc failed\n{log}")
+        if proc is not None and proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{logs[name]}")
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
@@ -338,7 +459,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of another checkout")
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--only", choices=("dqmm", "paged"),
+    ap.add_argument("--only", choices=("dqmm", "paged", "row"),
                     help="time one kernel family only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -346,21 +467,28 @@ def main():
     name, limit = card_info()
     print(f"card: {name}, {limit}; torch {torch.__version__}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build(["dequant_matmul", "paged_attn"])
+    build.build(["dequant_matmul", "paged_attn", "row_matmul"])
     other = other_package(args.against) if args.against else None
     rng = np.random.default_rng(cs.SEED)
+    want = {"dqmm", "paged", "row"} if args.only is None else {args.only}
 
     libs = variant_libs(
         ([(n, "dequant_matmul.cu", pairs) for n, pairs, _ in DQMM_VARIANTS]
-         if args.only != "paged" else [])
+         if "dqmm" in want else [])
         + ([(n, "paged_attn.cu", pairs)
             for n, pairs in PAGED_VARIANTS + Q8_VARIANTS]
            + [("as built", "paged_attn.cu", [])]
-           if args.only != "dqmm" else []))
-    if args.only != "paged":
+           if "paged" in want else [])
+        + ([(n, "row_matmul.cu", pairs) for n, pairs, _ in ROW_VARIANTS]
+           + [(f"row timeline, {n}", "row_matmul.cu", pairs + ROW_TIMELINE)
+              for n, pairs in ROW_TIMELINES]
+           if "row" in want else []))
+    if "dqmm" in want:
         time_dqmm(args, other, libs)
-    if args.only != "dqmm":
+    if "paged" in want:
         time_paged(args, other, libs, rng)
+    if "row" in want:
+        time_row(args, other, libs)
 
 
 def time_dqmm(args, other, libs):
@@ -469,6 +597,128 @@ def time_paged(args, other, libs, rng):
              rounds(fns, sets, args.rounds, 200),
              cs.paged_quant_bound(sets[0][0], sets[0][1], sets[0][5],
                                   sets[0][6]))
+        del sets
+
+
+
+def row_sets(M, K, N):
+    """bf16 (x [M, K], W [K, N]) pairs, W in copies that pass the L2."""
+    return [(torch.randn((M, K), device="cuda").to(torch.bfloat16),
+             (torch.randn((K, N), device="cuda") * 0.02).to(torch.bfloat16))
+            for _ in range(cs.l2_copies(K * N * 2))]
+
+
+def row_route(route):
+    """fn(x, w): one launch of this tree's row product on ``route``."""
+    return lambda x, w: row_matmul._launch(x, w, route)
+
+
+def cluster_plan(K, cs_):
+    """The tensor route's (cs, kb) on a cluster of about ``cs_`` blocks
+    (whole 64-row boxes, as ``_plan`` cuts them)."""
+    boxes = -(-K // 64)
+    most = row_matmul._TC_MAX_BOXES
+    per = -(-boxes // max(min(cs_, boxes), -(-boxes // most)))
+    return -(-boxes // per), 64 * per
+
+
+def row_cluster(cs_):
+    """fn(x, w): this tree's tensor route on a cluster of about ``cs_``
+    blocks."""
+    def fn(x, w):
+        plan = cluster_plan(w.shape[0], cs_)
+        keep = row_matmul._plan
+        row_matmul._plan = lambda route, k, n: (
+            plan if route == "tensor" else keep(route, k, n))
+        try:
+            return row_matmul._launch(x, w, "tensor")
+        finally:
+            row_matmul._plan = keep
+    return fn
+
+
+def row_variant(name, lib, factor=1):
+    """fn(x, w) calling a variant's ``pt_row_matmul`` on this tree's
+    tensor-route plan, its cluster ``factor`` times larger."""
+    import ctypes
+    fn = lib.pt_row_matmul
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, w):
+        _, ints = row_matmul._args(x, w, "tensor")
+        if factor != 1:
+            ints = ints[:5] + cluster_plan(ints[1], factor * ints[5])
+        y = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
+                        device=x.device)
+        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), *ints,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{name}: CUDA error {err}")
+        return y
+    return call
+
+
+def time_row(args, other, libs):
+    bf16 = torch.bfloat16
+    shapes = [(M, K, N, name) for M in (8, 40)
+              for K, N, name in cs.ROW_SHAPES]
+    print("row-invariant product, bf16 (this tree's routes / torch.mm / "
+          "other):", flush=True)
+    for M, K, N, name in shapes:
+        sets = row_sets(M, K, N)
+        fns = {"tensor": row_matmul.matmul,
+               "cuda_core": row_route("cuda_core"), "torch.mm": torch.mm}
+        if other:
+            fns["other"] = other[2].matmul
+        got = row_matmul.matmul(*sets[0])
+        ref = row_matmul._ref_matmul(*sets[0])
+        err = cs.gate([(got, ref, ref)], 2.0 ** -8, 2.0 ** -6)[0]
+        show(f"[{M}, {K}] x [{K}, {N}] ({name}), plan "
+             f"{row_matmul._plan('tensor', K, N)}, gate {err:.3f}",
+             rounds(fns, sets, args.rounds, 50),
+             cs.row_mm_bound(M, K, N, bf16))
+        del sets
+    print("row product, tensor route by cluster size (this tree):",
+          flush=True)
+    for M, K, N, name in shapes:
+        sets = row_sets(M, K, N)
+        fns = {f"cluster {c}": row_cluster(c) for c in (1, 2, 4, 8, 16)}
+        show(f"[{M}, {K}] x [{K}, {N}] ({name})",
+             rounds(fns, sets, args.rounds, 50))
+        del sets
+    print("row product, tensor route: where a block's time goes (clock64 "
+          "cycles from its entry, mean / max over blocks; one eager call "
+          "each; the globaltimer spread of the blocks' entries and the span "
+          "from the first entry to the last exit, ns):", flush=True)
+    for tname, _ in ROW_TIMELINES:
+        stamp = row_variant(tname, libs[f"row timeline, {tname}"])
+        for M, K, N, name in shapes:
+            sets = row_sets(M, K, N)
+            for a in sets:
+                stamp(*a)
+            torch.cuda.synchronize()
+            cs_, kb = row_matmul._plan("tensor", K, N)
+            blocks = min(cs_ * -(-N // 64) * -(-M // 64), M * N * 2 // 208)
+            t = stamp(*sets[0]).view(torch.int64).flatten()[:26 * blocks]
+            t = t.view(blocks, 26).cpu().numpy()
+            d = np.diff(t[:, :8], axis=1)
+            print(f"  {tname}: [{M}, {K}] x [{K}, {N}] ({name}), {blocks} "
+                  "blocks: " + "; ".join(
+                      f"{p} {d[:, i].mean():.0f} / {d[:, i].max()}"
+                      for i, p in enumerate(ROW_PHASES))
+                  + f"; entries spread {t[:, 8].max() - t[:, 8].min()} ns,"
+                  f" span {t[:, 9].max() - t[:, 8].min()} ns",
+                  flush=True)
+            del sets
+    variants = [(n, row_variant(n, libs[n], f)) for n, _, f in ROW_VARIANTS]
+    for M, K, N, name in shapes:
+        sets = row_sets(M, K, N)
+        fns = {"as built": row_matmul.matmul, **dict(variants)}
+        show(f"[{M}, {K}] x [{K}, {N}] ({name})",
+             rounds(fns, sets, args.rounds, 20),
+             cs.row_mm_bound(M, K, N, bf16))
         del sets
 
 
