@@ -16,8 +16,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
       ``fa_bwd_wg<D, WIDE, false>``, the fused ``fa_bwd_wg<D, WIDE,
       true>``, ``ffn_wg``) and of the serving kernels redesigned for
       Hopper (``dqmm_stream``, ``dqmm_wg``, ``paged_decode``,
-      ``paged_decode_q8``, ``row_mm_tc``), any of which last must not
-      spill;
+      ``paged_decode_q8``, ``row_mm_tc`` and its LayerNorm-prologue
+      instances ``ln_row_mm_tc``), any of which last must not spill;
   (c) every kernel's wrapper against its plain PyTorch version on the card,
       in fp32 and bf16, at the shapes the serving and training paths give
       it, with the device times (CUDA-graph replay) of the kernel, the
@@ -35,6 +35,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
       tensor-core kernel the wrapper picks and the CUDA-core kernel, timed
       on the same inputs), each row of an [M, N] launch bit-equal to the
       M = 1 launch on that row for M in 1, 2, 8, 10, 40, 64, 320
+      (asserted); the same product with its LayerNorm prologue
+      (``ln_matmul``, one launch for ln1 -> qkv and ln2 -> fc1) at qkv
+      and fc1, M = 8 and 40, bf16 with g and b fp32 and bf16 on both
+      routes and fp32, against its plain version and timed beside the
+      LayerNorm kernel and the row product launched apart, the row product
+      alone and ``F.layer_norm`` + ``torch.mm``, its rows bit-equal to the
+      M = 1 launch at the same M and at K, N = 1032, 1000 and 1030, 1001
       (asserted);
   (d) the main path: ``gpt_345m`` (full width, 24 layers) with
       ``use_pallas_norm``, weights drawn from a numpy seed, served by
@@ -48,7 +55,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
       may happen during the traffic; ``torch.cuda.max_memory_reserved()``
       after warmup is printed.  Kernel launch counts
       are zeroed just before and read just after (each replay counts its
-      launches).  Then 8 slots at mixed lengths decode while one replay
+      launches): a decode step launches 4L row products, 2L of them with
+      the LayerNorm prologue (ln1 -> qkv, ln2 -> fc1), and the LayerNorm
+      kernel once (lnf); a prefill wave 2L + 1 LayerNorms.  The decode
+      step is timed on three routes, alternated: fused, the LayerNorm
+      kernel and the row product launched apart, and the LayerNorm kernel
+      and cuBLAS.  Then 8 slots at mixed lengths decode while one replay
       is held against ``gpt.decode_step_paged`` on clones of the pool with
       the same inputs (next tokens equal; the bf16 logit difference
       printed), and 50 replays are timed against 50 eager steps (five
@@ -218,8 +230,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
       then the same with ``quant="int8", kv_dtype="int8"``, each
       alternated (two rounds) with the unchunked engine of (d) / (j) on the
       same requests.  Launch counts, zeroed just before each pass and read
-      just after, must equal (2L + 1) LayerNorms a forward (chunks and
-      decode steps), L paged (int8 paged) attentions a decode step and, on
+      just after, must equal (2L + 1) LayerNorms a chunk and a decode
+      step (fp: 1 a decode step, lnf, and 2L LayerNorm-prologue row
+      products), L paged (int8 paged) attentions a decode step and, on
       the int8 path, 4L dequant matmuls a forward, 4L a chunk at M = 16
       and 4L a decode step at M = 8; every prompt must take the chunked
       path; the decode step stays one graph, the chunk is one graph too
@@ -246,7 +259,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
       traffic, as in (w)), ``spec_draft_compiles`` 0 / 2, the self-draft's
       accepted tokens per verify above 1.5, and the launches exact: per
       verify W = 5 paged attentions a layer (one a lane, at the decode's
-      call shape) and 2L + 1 LayerNorms ([8, 5, 1024]), 4L dequant
+      call shape) and 2L + 1 LayerNorms ([8, 5, 1024]; fp: 1, lnf, and
+      2L LayerNorm-prologue row products), 4L dequant
       matmuls at M = 40 on the int8 path; the draft model's W + k - 1
       slot decodes a verify and its blocks a 16-token ingestion chunk.
       Prints accepted tokens per verify, a verify step's ms and its
@@ -266,8 +280,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
       byte-equal, and the whole pool equal in both runs, int8 and fp, the
       fp pool also in bf16 (asserted: the paged decode and the verify take
       the row-invariant products); lane 0 of a [2, 5] window against
-      [2, 1] rows bit-equal in the four weight products on that route
-      (asserted, fp32 and bf16; cuBLAS's reported beside them).  The
+      [2, 1] rows bit-equal in the four weight products on that route and
+      in ln1 -> qkv and ln2 -> fc1 with the LayerNorm prologue (asserted,
+      fp32 and bf16; cuBLAS's reported beside them).  The
       engines' prefill waves and chunks run as graphs, each step captured
       once;
   (z) the slot-contiguous ``ServingEngine(slots=8, max_len=512)`` on
@@ -579,10 +594,10 @@ def l2_copies(nbytes):
 # the warp-specialised kernels whose ptxas lines (b) prints one by one
 WG_KERNELS = ("fa_fwd_wg", "fa_bwd_dq_wg", "fa_bwd_wg", "ffn_wg",
               "dqmm_stream", "dqmm_wg", "12paged_decodeI",
-              "15paged_decode_q8I", "row_mm_tc")
+              "15paged_decode_q8I", "ln_row_mm_tc", "row_mm_tc")
 # the serving kernels redesigned for Hopper: (b) fails if one spills
 NO_SPILL = ("dqmm_stream", "dqmm_wg", "12paged_decodeI",
-            "15paged_decode_q8I", "row_mm_tc")
+            "15paged_decode_q8I", "ln_row_mm_tc", "row_mm_tc")
 
 
 def spilled(line):
@@ -1438,6 +1453,164 @@ def check_row_matmul(torch, row_matmul):
                          f"gate passes the mutant, or a row's bits depend on"
                          f" M: {bad}")
     return {"row_matmul": out}
+
+
+# the two products that take the LayerNorm as their prologue on the paged
+# decode and the fp verify (K, N, name), timed; and shapes off TMA's
+# alignment (the tensor route at K 1032, N 1000; the CUDA cores at K 1030,
+# N 1001), checked but not timed
+LN_SHAPES = ((1024, 3072, "qkv"), (1024, 4096, "fc1"))
+LN_ODD = ((1032, 1000, "K, N off 64"), (1030, 1001, "K, N off 8"))
+LN_EPS = 1e-5
+
+
+def ln_mm_bound(M, K, N, dt, gdt):
+    """Least time for LayerNorm(x; g, b) [M, K] @ W [K, N]: x, g, b and W
+    read and y written once over the HBM rate, or the product's 2MKN flops
+    over the dtype's peak plus the LayerNorm's 8MK over the fp32 rate."""
+    import torch
+    e = 2 if dt == torch.bfloat16 else 4
+    ge = 2 if gdt == torch.bfloat16 else 4
+    byts = (M * K + K * N + M * N) * e + 2 * K * ge
+    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b = byts / HBM_BYTES_PER_S
+    t_f = 2 * M * K * N / rate + 8 * M * K / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def check_ln_matmul(torch, row_matmul, norms):
+    """Phase (c), the row product with its LayerNorm prologue
+    (``ln_matmul``: ``ln_row_mm_tc`` on the tensor cores, ``ln_row_mm`` on
+    the CUDA cores) against its plain version ``_ref_ln_matmul``
+    (``_ref_layer_norm`` then ``x @ w``) on the same inputs at qkv and fc1
+    of gpt_345m, M = 8 and 40: bf16 x with g and b fp32 (the model's) and
+    bf16, on both routes, and fp32, at the row product's tolerances (fp32
+    1e-5 of max|ref|; bf16 per element 2^-8 + 2^-6 |ref|; each gate
+    rejects the later-rows mutant).  Row invariance, asserted: at those
+    shapes and ``LN_ODD``'s, every row of an [M, N] launch bit-equal to the
+    M = 1 launch on that row for M in ``ROW_MS``.  Timed by CUDA-graph
+    replay over copies that pass the L2, beside the two launches it
+    replaces (``norms.layer_norm`` and the row product on the same route),
+    the row product alone, the plain version and ``F.layer_norm`` +
+    ``torch.mm``."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = []
+
+    def operands(M, K, N, dt, gdt, w=None):
+        x = (torch.randn((M, K), device="cuda", generator=gen) * 2
+             + 0.5).to(dt)
+        g = (1 + 0.1 * torch.randn(K, device="cuda", generator=gen)).to(gdt)
+        b = (0.1 * torch.randn(K, device="cuda", generator=gen)).to(gdt)
+        if w is None:
+            w = (torch.randn((K, N), device="cuda", generator=gen)
+                 * 0.02).to(dt)
+        return x, g, b, w
+
+    for dt, gdt in ((bf16, f32), (bf16, bf16), (f32, f32)):
+        for K, N, name in LN_SHAPES + LN_ODD:
+            timed = (K, N, name) in LN_SHAPES
+            xs, g, b, w = operands(max(ROW_MS), K, N, dt, gdt)
+            route = row_matmul._args(xs, w, ln=True)[0]
+            routes = [route] + (["cuda_core"] if route != "cuda_core"
+                                else [])
+            rows_equal = {}
+            with torch.inference_mode():
+                for r in routes:
+                    ones = torch.cat([row_matmul._ln_launch(
+                        xs[i:i + 1], g, b, LN_EPS, w, r)
+                        for i in range(xs.shape[0])])
+                    rows_equal[r] = {M: bool(torch.equal(
+                        row_matmul._ln_launch(xs[:M], g, b, LN_EPS, w, r),
+                        ones[:M])) for M in ROW_MS}
+            for M in ((8, 40) if timed else (40,)):
+                sets = [operands(M, K, N, dt, gdt,
+                                 w if i == 0 else w.clone())
+                        for i in range(l2_copies(K * N * w.element_size()))]
+                x = sets[0][0]
+                with torch.inference_mode():
+                    torch.cuda.synchronize()
+                    with fp32_reduction(torch):
+                        ref = row_matmul._ref_ln_matmul(x, g, b, LN_EPS, w)
+                    sets = [(a, g, b, c) for a, _, _, c in sets]
+                    if timed:
+                        plain_ms = device_ms(
+                            lambda a, c, d, e: row_matmul._ref_ln_matmul(
+                                a, c, d, LN_EPS, e), sets)
+                        gl, bl = g.to(dt), b.to(dt)
+                        library_ms = device_ms(
+                            lambda a, c, d, e: torch.mm(F.layer_norm(
+                                a, (K,), gl, bl, LN_EPS), e), sets)
+                if dt == f32:
+                    atol, rtol = FP32_TOL * float(ref.abs().max()), 0.0
+                else:
+                    atol, rtol = 2.0 ** -8, 2.0 ** -6
+                bound, by = ln_mm_bound(M, K, N, dt, gdt)
+                for r in routes:
+                    def launch(a, c, d, e, r=r):
+                        return row_matmul._ln_launch(a, c, d, LN_EPS, e, r)
+
+                    def two(a, c, d, e, r=r):
+                        return row_matmul._launch(
+                            norms.layer_norm(a, c, d, LN_EPS), e, r)
+                    with torch.inference_mode():
+                        got = launch(*sets[0])
+                        torch.cuda.synchronize()
+                        ratio, mutant = gate([(got, ref, ref)], atol, rtol,
+                                             rows=later_rows)
+                        # g and b are the model's fp32 unless tagged
+                        tag = ("" if r == route else ", CUDA-core route") + (
+                            ", g bf16" if gdt == bf16 else "")
+                        c = {"shape": f"[{M}, {K}] x [{K}, {N}] ({name}{tag})",
+                             "dtype": str(dt), "g_dtype": str(gdt),
+                             "route": r, "max_abs_err": max_err(got, ref),
+                             "atol": atol, "rtol": rtol, "gate": ratio,
+                             "mutant_gate": mutant,
+                             "rows_bit_equal_to_m1": rows_equal[r]}
+                        if timed:
+                            c.update(
+                                ms=device_ms(launch, sets),
+                                call_ms=time_ms(
+                                    (lambda a, cc, d, e: row_matmul.ln_matmul(
+                                        a, cc, d, LN_EPS, e))
+                                    if r == route else launch, sets, 500),
+                                two_launch_ms=device_ms(two, sets),
+                                product_ms=device_ms(
+                                    lambda a, cc, d, e, r=r:
+                                    row_matmul._launch(a, e, r), sets),
+                                plain_ms=plain_ms, library_ms=library_ms,
+                                library="F.layer_norm + torch.mm",
+                                bound_ms=bound, bound_by=by)
+                        out.append(c)
+                del sets
+    for c in out:
+        timing = (f"  device ms: kernel {c['ms']:.5f}  two launches "
+                  f"(layer_norm + row product) {c['two_launch_ms']:.5f}  "
+                  f"row product alone {c['product_ms']:.5f}  plain "
+                  f"{c['plain_ms']:.5f}  library (F.layer_norm + torch.mm)"
+                  f" {c['library_ms']:.5f}  bound {c['bound_ms']:.6f} "
+                  f"({c['bound_by']}); eager call {c['call_ms']:.5f}"
+                  if "ms" in c else "  (not timed)")
+        log(f"  {'ln_row_matmul':16s} {c['dtype']:15s} {c['shape']:54s} "
+            f"max_abs_err {c['max_abs_err']:.3e} gate {c['gate']:.3f} "
+            f"(atol {c['atol']:.1e} rtol {c['rtol']:.1e}; wrong-scale "
+            f"mutant {c['mutant_gate']:.2f}){timing}; rows bit-equal to "
+            f"M = 1 at M = {ROW_MS}: "
+            f"{list(c['rows_bit_equal_to_m1'].values())}")
+    for c in out:
+        if "ms" in c and c["dtype"] == str(bf16) and c["route"] == "tensor":
+            log(f"  ln_row_matmul {c['shape']}: fused / row product alone "
+                f"{c['ms'] / c['product_ms']:.2f}x, fused / two launches "
+                f"{c['ms'] / c['two_launch_ms']:.2f}x, fused / F.layer_norm"
+                f" + torch.mm {c['ms'] / c['library_ms']:.2f}x")
+    bad = [(c["shape"], c["dtype"]) for c in out
+           if not case_ok(c) or not all(c["rows_bit_equal_to_m1"].values())]
+    if bad:
+        raise SystemExit(f"ln_matmul disagrees with its plain version, its "
+                         f"gate passes the mutant, or a row's bits depend on"
+                         f" M: {bad}")
+    return {"ln_row_matmul": out}
 
 
 def dqmm_bound(M, K, N, dt):
@@ -2826,6 +2999,7 @@ def main():
     cases.update(check_fused_ffn(torch, fused_ffn))
     cases.update(check_rms_norm(torch, norms))
     cases.update(check_row_matmul(torch, row_matmul))
+    cases.update(check_ln_matmul(torch, row_matmul, norms))
     for k, extra in check_queue3(torch, gpt, flash_attn, paged_attn, norms,
                                  dqmm).items():
         cases[k].extend(extra)
@@ -2974,7 +3148,7 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
     from paddle_tpu_torch.ops.cuda import row_matmul
     paged_attn.launches = 0
     norms.launches = 0
-    row_matmul.launches = 0
+    row_matmul.launches = row_matmul.ln_launches = 0
     t0 = time.perf_counter()
     reqs = [eng.submit(p, new_tokens) for p in prompts]
     kv_peak = drain(eng)
@@ -2982,7 +3156,8 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
     wall = time.perf_counter() - t0
     launches.update({"paged_attention": paged_attn.launches,
                      "layer_norm": norms.launches,
-                     "row_matmul": row_matmul.launches})
+                     "row_matmul": row_matmul.launches,
+                     "ln_row_matmul": row_matmul.ln_launches})
     st = eng.stats()
     L = cfg.num_layers
     check_no_capture("(d)", eng, captures, built)
@@ -3000,10 +3175,18 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         raise SystemExit(f"the row matmul launched {launches['row_matmul']} "
                          f"times for {st['decode_steps']} decode steps x "
                          f"4 x {L} products")
-    forwards = st["decode_steps"] + st["prefill_calls"]
-    if launches["layer_norm"] != (2 * L + 1) * forwards:
+    if launches["ln_row_matmul"] != st["decode_steps"] * 2 * L:
+        raise SystemExit(f"the row matmul launched its LayerNorm prologue "
+                         f"{launches['ln_row_matmul']} times for "
+                         f"{st['decode_steps']} decode steps x 2 x {L}")
+    # ln1 and ln2 are the qkv and fc1 products' prologue in a decode step:
+    # lnf alone launches the LayerNorm kernel there, 2L + 1 a prefill wave
+    want_ln = st["decode_steps"] + (2 * L + 1) * st["prefill_calls"]
+    if launches["layer_norm"] != want_ln:
         raise SystemExit(f"layer norm launched {launches['layer_norm']} "
-                         f"times for {forwards} forwards")
+                         f"times for {st['decode_steps']} decode steps and "
+                         f"{st['prefill_calls']} prefill waves (expected "
+                         f"{want_ln})")
     gen = sum(len(r.tokens) for r in reqs)
     dec_ms = 1e3 * float(np.mean(eng.decode_step_s))
     pre_ms = 1e3 * float(np.mean(eng.prefill_s))
@@ -3019,14 +3202,17 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
         f" (kv_bytes_reserved at its peak {kv_peak}); prefix "
         f"page hits {st['prefix_page_hits']}; decode_compiles "
         f"{st['decode_compiles']}; launches "
-        f"{ {k: launches[k] for k in ('paged_attention', 'layer_norm', 'row_matmul')} }  "
+        f"{ {k: launches[k] for k in ('paged_attention', 'layer_norm', 'row_matmul', 'ln_row_matmul')} }  "
         f"[{card}]")
     routes = decode_routes(torch, gpt, PagedServingEngine, params, cfg,
                            prompts, new_tokens)
     log(f"    decode step by the products' route, the same 12 requests, "
-        f"alternated (row kernel, cuBLAS, cuBLAS, row kernel): row-invariant"
-        f" kernel {routes['row']} ms, cuBLAS {routes['cublas']} ms (the "
-        f"route before the row kernel)  [{card}]")
+        f"alternated (fused, two launches, cuBLAS, cuBLAS, two launches, "
+        f"fused): the row-invariant kernel with ln1 / ln2 as the qkv / fc1 "
+        f"products' prologue {routes['fused']} ms, the LayerNorm kernel "
+        f"and the row kernel launched apart (the route before the prologue)"
+        f" {routes['two']} ms, the LayerNorm kernel and cuBLAS (the route "
+        f"before the row kernel) {routes['cublas']} ms  [{card}]")
     rv = replay_vs_eager(torch, gpt, eng, prompts, "(d)")
     log(f"    replay against the eager step (8 slots, lens {rv['lens']}):"
         f" next tokens equal {rv['tokens_equal']}; max |logit diff| "
@@ -3091,34 +3277,44 @@ def serve_fp(torch, PagedServingEngine, gpt, paged_attn, norms, cfg, params,
 
 
 @contextlib.contextmanager
-def cublas_products(row_matmul):
-    """The paged decode's and the fp verify's float products on cuBLAS
-    (``x @ w``), the route before the row-invariant kernel, while an
-    engine captures its graphs; a measurement only."""
-    kernel = row_matmul.matmul
-    row_matmul.matmul = row_matmul._ref_matmul
+def product_route(row_matmul, norms, route):
+    """The paged decode's and the fp verify's float products and their
+    LayerNorms on an earlier route while an engine captures its graphs; a
+    measurement only.  ``"two"``: ln1 / ln2 as the LayerNorm kernel, then
+    the row-invariant kernel (the route before the prologue); ``"cublas"``:
+    the LayerNorm kernel, then every product on cuBLAS (``x @ w``, the
+    route before the row kernel)."""
+    kernels = row_matmul.matmul, row_matmul.ln_matmul
+    if route == "cublas":
+        row_matmul.matmul = row_matmul._ref_matmul
+    row_matmul.ln_matmul = lambda x, g, b, eps, w: row_matmul.matmul(
+        norms.layer_norm(x, g, b, eps), w)
     try:
         yield
     finally:
-        row_matmul.matmul = kernel
+        row_matmul.matmul, row_matmul.ln_matmul = kernels
 
 
 def decode_routes(torch, gpt, PagedServingEngine, params, cfg, prompts,
                   new_tokens, rounds=2):
-    """(d)'s decode step with its products on the row-invariant kernel and
-    on cuBLAS: two engines (each graph captured in ``warmup()``, the
-    cuBLAS one under :func:`cublas_products`) serve (d)'s requests in
-    turns, row, cuBLAS, cuBLAS, row; returns the mean decode-step ms of
-    each (host clock, each step ending in its readback)."""
-    from paddle_tpu_torch.ops.cuda import row_matmul
+    """(d)'s decode step on three routes: the row-invariant kernel with
+    the LayerNorm prologue (``fused``), the LayerNorm kernel and the row
+    kernel launched apart (``two``) and the LayerNorm kernel and cuBLAS
+    (``cublas``): three engines (each graph captured in ``warmup()``, the
+    latter two under :func:`product_route`) serve (d)'s requests in turns,
+    fused, two, cuBLAS, cuBLAS, two, fused; returns the mean decode-step
+    ms of each (host clock, each step ending in its readback)."""
+    from paddle_tpu_torch.ops.cuda import norms, row_matmul
     kw = dict(device="cuda", slots=8, max_len=512, page_size=16)
-    engs = {"row": PagedServingEngine((params, cfg), **kw)}
-    engs["row"].warmup()
-    with cublas_products(row_matmul):
-        engs["cublas"] = PagedServingEngine((params, cfg), **kw)
-        engs["cublas"].warmup()
+    engs = {"fused": PagedServingEngine((params, cfg), **kw)}
+    engs["fused"].warmup()
+    for route in ("two", "cublas"):
+        with product_route(row_matmul, norms, route):
+            engs[route] = PagedServingEngine((params, cfg), **kw)
+            engs[route].warmup()
     steps = {k: [] for k in engs}
-    for k in ["row", "cublas", "cublas", "row"] * (rounds // 2):
+    for k in ["fused", "two", "cublas", "cublas", "two", "fused"] * (
+            rounds // 2):
         eng = engs[k]
         n0 = len(eng.decode_step_s)
         for p in prompts:
@@ -4393,6 +4589,7 @@ def zero_serving_counts(paged_attn, norms, dqmm):
     from paddle_tpu_torch.ops.cuda import row_matmul
     paged_attn.launches = paged_attn.quant_launches = 0
     norms.launches = dqmm.launches = row_matmul.launches = 0
+    row_matmul.ln_launches = 0
     dqmm.rows_launches.clear()
 
 
@@ -4400,6 +4597,7 @@ def serving_counts(paged_attn, norms, dqmm):
     from paddle_tpu_torch.ops.cuda import row_matmul
     return {"layer_norm": norms.launches,
             "row_matmul": row_matmul.launches,
+            "ln_row_matmul": row_matmul.ln_launches,
             "paged_attention": paged_attn.launches,
             "paged_attention_quant": paged_attn.quant_launches,
             "dequant_matmul": dqmm.launches,
@@ -4551,6 +4749,12 @@ def chunked_path(torch, gpt, PagedServingEngine, kernels, cfg, params,
                 raise SystemExit(f"(w) {kv}: every prompt is longer than a "
                                  f"chunk, yet {d}")
             want = {"layer_norm": (2 * L + 1) * fwd}
+            if kv == "fp":
+                # a decode step launches lnf alone (ln1, ln2: the qkv and
+                # fc1 products' prologue)
+                want = {"layer_norm": (2 * L + 1) * d["prefill_chunks"]
+                        + d["decode_steps"],
+                        "ln_row_matmul": 2 * L * d["decode_steps"]}
             if kv == "int8":
                 want.update(paged_attention_quant=L * d["decode_steps"],
                             paged_attention=0, dequant_matmul=4 * L * fwd)
@@ -4675,6 +4879,11 @@ def spec_path(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
                 dblk = ingest if name == "draft" else 0
                 want = {"layer_norm": (2 * L + 1) * (fwd + dfwd)
                         + 2 * L * dblk}
+                if kv == "fp":
+                    # a verify launches lnf alone (ln1, ln2: the qkv and
+                    # fc1 products' prologue)
+                    want["layer_norm"] -= 2 * L * d["spec_steps"]
+                    want["ln_row_matmul"] = 2 * L * d["spec_steps"]
                 attn = "paged_attention_quant" if kv == "int8" \
                     else "paged_attention"
                 want[attn] = W * L * d["spec_steps"]
@@ -4854,7 +5063,8 @@ def spec_parity(torch, gpt, PagedServingEngine, SpeculativeServingEngine,
                 torch, gpt, norms, cfg16, params, kv, 2, SPEC_K + 1)
             rows = {n: v for r in (res, res["bf16"])
                     for n, v in r["row_invariance"].items()
-                    if n in ("qkv_w", "proj_w", "fc1_w", "fc2_w")}
+                    if n in ("qkv_w", "proj_w", "fc1_w", "fc2_w",
+                             "ln1_qkv_w", "ln2_fc1_w")}
             if any(v != 0.0 for v in rows.values()):
                 raise SystemExit(f"(y): lane 0 of a verify window and the "
                                  f"decode's rows differ in a weight product "
@@ -4897,6 +5107,12 @@ def row_invariance(torch, gpt, norms, cfg, params, kv, S, W):
             w2 = w.reshape(K, -1)
             out[name] = lanes(lambda x: row_matmul.matmul(x, w2), K)
             out[f"cublas_{name}"] = lanes(lambda x: x @ w2, K)
+            if name in ("qkv_w", "fc1_w"):
+                n = name[:3].replace("fc1", "ln2").replace("qkv", "ln1")
+                out[f"{n}_{name}"] = lanes(
+                    lambda x: row_matmul.ln_matmul(
+                        x, blk[f"{n}_g"], blk[f"{n}_b"],
+                        cfg.layer_norm_eps, w2), K)
     H = cfg.hidden_size
     out["layer_norm"] = lanes(
         lambda x: norms.layer_norm(x, blk["ln1_g"], blk["ln1_b"]), H)
@@ -4991,7 +5207,7 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
         ch, un = r["runs"]["chunked"], r["runs"]["unchunked"]
         sfx = "_quant" if kv == "int8" else ""
         for k in ("layer_norm", "paged_attention", "paged_attention_quant",
-                  "dequant_matmul"):
+                  "dequant_matmul", "row_matmul", "ln_row_matmul"):
             if ch[0]["launches"][k]:
                 launches[f"{k}_chunked{sfx}"] = ch[0]["launches"][k]
         log(f"(w) chunked prefill (prefill_chunk={CHUNK}) of gpt_345m, "
@@ -5034,7 +5250,7 @@ def spec_phases(torch, gpt, PagedServingEngine, kernels, card, launches,
         sfx = "_quant" if kv == "int8" else ""
         ng = r["runs"]["ngram"][0]["launches"]
         for k in ("layer_norm", "paged_attention", "paged_attention_quant",
-                  "dequant_matmul", "row_matmul"):
+                  "dequant_matmul", "row_matmul", "ln_row_matmul"):
             if ng[k]:
                 launches[f"{k}_spec{sfx}"] = ng[k]
         if kv == "int8":
@@ -5566,6 +5782,11 @@ REPORT = {
         "none: added for the reference's commit-bytes contract "
         "(paddle_tpu/models/gpt.py:1103 _paged_verify_block)",
         "[8, 1024] x [1024, 4096] (fc1)"),
+    "ln_row_matmul": (
+        "paddle_tpu_torch/ops/cuda/csrc/row_matmul.cu",
+        "paddle_tpu/ops/pallas/norms.py:47 (on the paged decode and the fp "
+        "verify, as the qkv and fc1 products' prologue)",
+        "[8, 1024] x [1024, 4096] (fc1)"),
 }
 
 
@@ -5603,6 +5824,13 @@ def report(torch, cases, launches, train, t_start):
                      "spec_quant", "spec_quant_m40", "slot", "slot_quant"):
             if f"{k['name']}_{path}" in launches:
                 k[f"launches_{path}"] = launches[f"{k['name']}_{path}"]
+    # row_matmul.launches counts the launches with the LayerNorm prologue
+    # too; the row_matmul line counts those without it
+    rm = next(k for k in kernels if k["name"] == "row_matmul")
+    rm["launches"] -= launches["ln_row_matmul"]
+    for path in ("chunked", "spec"):
+        if f"launches_{path}" in rm:
+            rm[f"launches_{path}"] -= launches.get(f"ln_row_matmul_{path}", 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

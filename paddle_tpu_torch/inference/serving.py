@@ -103,7 +103,7 @@ _LAUNCH_COUNTERS = ((paged_attn, "launches"), (paged_attn, "quant_launches"),
                     (norms, "launches"), (dequant_matmul, "launches"),
                     (dequant_matmul, "rows_launches"),
                     (fused_ffn, "launches"), (fused_ffn, "bodies"),
-                    (row_matmul, "launches"))
+                    (row_matmul, "launches"), (row_matmul, "ln_launches"))
 
 
 def _launch_counts():

@@ -22,7 +22,10 @@ dict leaves) route their matmuls through the dequant-matmul wrapper
 (:func:`decode_step_paged_verify`) go through the row-invariant matmul
 wrapper (``ops/cuda/row_matmul.py``), so that a verify lane and the
 decode write the same pool bytes on the card as on the CPU; every other
-float product is ``a @ w``.  With ``cfg.use_fused_ffn`` the FFN of
+float product is ``a @ w``.  There, with ``cfg.use_pallas_norm``, ln1 and
+ln2 are the prologue of the qkv and fc1 products (``row_matmul.ln_matmul``,
+one launch each), so a decode step launches the LayerNorm kernel once
+(lnf).  With ``cfg.use_fused_ffn`` the FFN of
 :func:`block_apply` goes through the fused-FFN wrapper
 (``ops/cuda/fused_ffn.py``) with its weights cast to the compute dtype,
 unless the FFN weights are quantized, as in the reference's
@@ -418,7 +421,10 @@ def block_apply(cfg: GPTConfig, x, blk, attn_fn=None, row_mm=False):
     attention with aux None.  ``row_mm`` sends float weight products
     through ``row_matmul.matmul``, whose rows' bits do not depend on the
     row count (the paged decode and the fp verify, which must write the
-    same pool bytes); the plain ``a @ w`` on the CPU."""
+    same pool bytes); the plain ``a @ w`` on the CPU.  With it and
+    ``use_pallas_norm``, ln1 -> qkv and ln2 -> fc1 (float weights, the FFN
+    not fused) are one ``row_matmul.ln_matmul`` each, the LayerNorm as the
+    product's prologue; on the CPU the same plain LayerNorm and ``a @ w``."""
     _check_slice(cfg)
     cd = torch_dtype(cfg.dtype)
     B, N, H = x.shape
@@ -435,8 +441,15 @@ def block_apply(cfg: GPTConfig, x, blk, attn_fn=None, row_mm=False):
         y = row_matmul.matmul(a, w2) if row_mm else a @ w2
         return y.reshape(*a.shape[:-1], *w.shape[1:])
 
-    h = ln(x, blk["ln1_g"], blk["ln1_b"], eps)
-    qkv = mm(h, "qkv_w") + _c(blk["qkv_b"], cd)             # [B, N, 3, H]
+    def ln_mm(a, n, name):   # ln{n}(a) @ blk[name]
+        g, b, w = blk[f"ln{n}_g"], blk[f"ln{n}_b"], blk[name]
+        if not (row_mm and cfg.use_pallas_norm) or _is_qweight(w):
+            return mm(ln(a, g, b, eps), name)
+        w = _c(w, cd)
+        y = row_matmul.ln_matmul(a, g, b, eps, w.reshape(w.shape[0], -1))
+        return y.reshape(*a.shape[:-1], *w.shape[1:])
+
+    qkv = ln_mm(x, 1, "qkv_w") + _c(blk["qkv_b"], cd)       # [B, N, 3, H]
     q, k, v = [qkv[:, :, i].reshape(B, N, nh, hd) for i in range(3)]
     if attn_fn is None:
         a, aux = _attention(q, k, v, cfg), None
@@ -445,14 +458,15 @@ def block_apply(cfg: GPTConfig, x, blk, attn_fn=None, row_mm=False):
     a = a.reshape(B, N, H)
     x = x + (mm(a, "proj_w") + _c(blk["proj_b"], cd))
 
-    h = ln(x, blk["ln2_g"], blk["ln2_b"], eps)
     if cfg.use_fused_ffn and not _is_qweight(blk["fc1_w"]):
         # a quantized FFN takes the dequant matmuls below, as in the
         # reference: the fused kernel only knows float weights
-        h = fused_ffn(h, *(_c(blk[k], cd) for k in
-                           ("fc1_w", "fc1_b", "fc2_w", "fc2_b")))
+        h = fused_ffn(ln(x, blk["ln2_g"], blk["ln2_b"], eps),
+                      *(_c(blk[k], cd) for k in
+                        ("fc1_w", "fc1_b", "fc2_w", "fc2_b")))
     else:
-        h = F.gelu(mm(h, "fc1_w") + _c(blk["fc1_b"], cd), approximate="tanh")
+        h = F.gelu(ln_mm(x, 2, "fc1_w") + _c(blk["fc1_b"], cd),
+                   approximate="tanh")
         h = mm(h, "fc2_w") + _c(blk["fc2_b"], cd)
     x = x + h
     return x if attn_fn is None else (x, aux)

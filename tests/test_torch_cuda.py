@@ -330,7 +330,8 @@ def test_graph_engine_counts_through_churn_and_abort(dev, kv, monkeypatch):
     fwd = st["decode_steps"] + st["prefill_calls"]
     assert st["prefix_page_hits"] > 0
     assert getattr(paged_attn, attn) == L * st["decode_steps"]
-    assert norms.launches == (2 * L + 1) * fwd
+    assert norms.launches == _ln_launches(kv, L, st["decode_steps"],
+                                          st["prefill_calls"])
     assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
     ptrs = [t.data_ptr() for t in eng._cache_operands()]
     real = eng._decode
@@ -354,9 +355,9 @@ def test_graph_engine_counts_through_churn_and_abort(dev, kv, monkeypatch):
     assert req.tokens == reqs[1].tokens
     st = eng.stats()
     assert st["decode_compiles"] == 1 and eng._step.captures == 1
-    fwd = st["decode_steps"] + st["prefill_calls"]
     assert getattr(paged_attn, attn) == L * st["decode_steps"]
-    assert norms.launches == (2 * L + 1) * fwd
+    assert norms.launches == _ln_launches(kv, L, st["decode_steps"],
+                                          st["prefill_calls"])
 
 
 def test_dead_engine_is_collected_before_a_capture(dev):
@@ -434,6 +435,16 @@ def _wide():
                        use_flash=False, remat=False, use_pallas_norm=True)
 
 
+def _ln_launches(kv, L, decodes, others):
+    """LayerNorm kernel launches for ``decodes`` paged decode steps (or fp
+    verifies) and ``others`` prefill waves, chunks and eager forwards:
+    2L + 1 a forward, but with float weights and the fp pool a decode
+    step launches lnf alone (ln1 and ln2 are the qkv and fc1 products'
+    prologue, ``row_matmul.ln_launches``)."""
+    return (decodes if kv == "fp" else (2 * L + 1) * decodes) + (
+        2 * L + 1) * others
+
+
 def test_engine_on_card_matches_generate(dev):
     """The engine (paged kernel + LayerNorm kernel) and ``generate`` (dense
     cached attention + LayerNorm kernel) agree token for token in fp32."""
@@ -486,7 +497,9 @@ def test_chunked_engine_on_card_matches_cpu(dev, kv):
         if d == "cuda":
             # prompts past 8 tokens go in chunks of 8: 3 + 3 + 2
             assert st["prefill_chunks"] == 8
-            assert norms.launches == (2 * L + 1) * fwd
+            assert norms.launches == _ln_launches(
+                kv, L, st["decode_steps"],
+                st["prefill_calls"] + st["prefill_chunks"])
             assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
             assert eng._step.captures == 1
         runs[d] = reqs
@@ -577,6 +590,7 @@ def test_speculative_engine_on_card(dev, mode, kv):
         spec._spec_reject = None
         before = spec.stats()
         norms.launches = dqmm.launches = row_matmul.launches = 0
+        row_matmul.ln_launches = 0
         paged_attn.launches = paged_attn.quant_launches = 0
         dqmm.rows_launches.clear()
         reqs = [spec.submit(p, 10) for p in prompts]
@@ -596,7 +610,8 @@ def test_speculative_engine_on_card(dev, mode, kv):
     ingest = sum(-(-len(p) // 16) for p in prompts)
     dfwd, dblk = ((0, 0) if mode == "ngram"
                   else (6 * st["decode_steps"], ingest))
-    assert norms.launches == (2 * L + 1) * (fwd + dfwd) + 2 * L * dblk
+    assert norms.launches == _ln_launches(
+        kv, L, st["decode_steps"], st["prefill_calls"] + dfwd) + 2 * L * dblk
     assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
     # W paged-attention launches a layer a verify (one a lane), at the
     # decode's call shape
@@ -604,6 +619,8 @@ def test_speculative_engine_on_card(dev, mode, kv):
     assert getattr(paged_attn, attn) == 4 * L * st["spec_steps"]
     assert row_matmul.launches == (4 * L * st["spec_steps"] if kv == "fp"
                                    else 0)
+    assert row_matmul.ln_launches == (2 * L * st["spec_steps"] if kv == "fp"
+                                      else 0)
     if kv == "int8":
         # the verify's rows, S * W = 8, and the 8-token waves' (one a
         # prompt of at most 8 tokens, batch bucket 1)
@@ -743,7 +760,8 @@ def test_prefill_graphs_match_eager_steps(dev, kv):
     # each probed call also ran its eager function once
     fwd = (st["decode_steps"] + st["prefill_calls"] + st["prefill_chunks"]
            + len(record))
-    assert norms.launches == (2 * L + 1) * fwd
+    assert norms.launches == _ln_launches(kv, L, st["decode_steps"],
+                                          fwd - st["decode_steps"])
     assert dqmm.launches == (4 * L * fwd if kv == "int8" else 0)
 
 
@@ -2032,12 +2050,78 @@ def test_row_matmul_matches_plain_and_is_row_invariant(dev, dt, K, N, off,
             _row_close(ones, ref, dt)
 
 
+# (x dtype, g and b dtype, K, N, route): qkv and fc1 of gpt_345m on both
+# routes, K and N off the 64-row boxes (tensor cores), rows too wide for
+# the tensor route's shared memory, off 8 and small (CUDA cores), fp32 on
+# the CUDA cores
+_LN_CASES = [
+    *[(_BF16, g, K, N, "tensor") for g in (_F32, _BF16)
+      for K, N in ((1024, 3072), (1024, 4096), (1032, 1000))],
+    *[(_BF16, g, K, N, "cuda_core") for g in (_F32, _BF16)
+      for K, N in ((1030, 1001), (13, 10), (2048, 512))],
+    *[(_F32, g, K, N, "cuda_core") for g in (_F32, _BF16)
+      for K, N in ((1024, 3072), (1024, 4096), (1030, 1001))]]
+
+
+@pytest.mark.parametrize("dt,gdt,K,N,route", _LN_CASES)
+def test_ln_matmul_matches_plain_and_is_row_invariant(dev, dt, gdt, K, N,
+                                                      route):
+    """The product with its LayerNorm prologue against its plain version
+    (``_ref_layer_norm`` then ``x @ w``) at the row product's gates, at
+    M = 8, 40 and the ragged 13 and 37, and each row of an [M, N] launch
+    bit-equal to the M = 1 launch on that row for M in 1, 2, 8, 10, 40,
+    64, 320, on the route the wrapper picks and, for the tensor route,
+    on the CUDA cores too; each launch counted in ``launches`` and
+    ``ln_launches``."""
+    gen = torch.Generator(device=dev).manual_seed(K + N + 1)
+    w = (torch.randn((K, N), device=dev, generator=gen) * 0.02).to(dt)
+    x = (torch.randn((max(_ROW_MS), K), device=dev, generator=gen) * 2
+         + 0.5).to(dt)
+    g = (1 + 0.1 * torch.randn(K, device=dev, generator=gen)).to(gdt)
+    b = (0.1 * torch.randn(K, device=dev, generator=gen)).to(gdt)
+    assert row_matmul._args(x, w, ln=True)[0] == route
+    routes = [route] + (["cuda_core"] if route == "tensor" else [])
+    with torch.inference_mode():
+        mm = torch.backends.cuda.matmul
+        was = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            ref = row_matmul._ref_ln_matmul(x, g, b, 1e-5, w)
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = was
+        for r in routes:
+            ones = torch.cat([row_matmul._ln_launch(x[i:i + 1], g, b, 1e-5,
+                                                    w, r)
+                              for i in range(x.shape[0])])
+            for M in _ROW_MS:
+                before = (row_matmul.launches, row_matmul.ln_launches)
+                got = (row_matmul.ln_matmul(x[:M], g, b, 1e-5, w)
+                       if r == route
+                       else row_matmul._ln_launch(x[:M], g, b, 1e-5, w, r))
+                assert (row_matmul.launches, row_matmul.ln_launches) == (
+                    before[0] + 1, before[1] + 1)
+                assert torch.equal(got, ones[:M]), (r, M)
+            for M in (8, 13, 37, 40):
+                _row_close(ones[:M], ref[:M], dt)
+
+
+def test_ln_matmul_refuses_a_gradient_on_the_card(dev):
+    x = torch.randn(8, 64, device=dev, requires_grad=True)
+    g, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    w = torch.randn(64, 32, device=dev)
+    before = row_matmul.ln_launches
+    with pytest.raises(RuntimeError, match="ln_matmul: a forward only"):
+        row_matmul.ln_matmul(x, g, b, 1e-5, w)
+    assert row_matmul.ln_launches == before
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_verify_lane_writes_the_decode_bytes(dev, dtype):
     """One fp verify against one paged decode from the same pool: lane 0
     of the verify's window K/V (what an accepted lane commits) is
     bit-equal to what the decode writes, in every layer, because both take
-    the row-invariant products (4L launches each)."""
+    the row-invariant products (4L launches each, 2L of them with the
+    LayerNorm prologue)."""
     cfg = dataclasses.replace(_wide(), dtype=dtype)
     L = cfg.num_layers
     params = T.prepare_params(T.init_params(
@@ -2057,15 +2141,17 @@ def test_verify_lane_writes_the_decode_bytes(dev, dtype):
     wp = table.long()[torch.arange(S, device=dev), pos // ps]
     wo = pos % ps
     with torch.inference_mode():
-        row_matmul.launches = 0
+        row_matmul.launches = row_matmul.ln_launches = 0
         _, wk, wv = T.decode_step_paged_verify(
             params, toks, cfg, cache["k"].clone(), cache["v"].clone(), table,
             lens)
-        assert row_matmul.launches == 4 * L
+        assert (row_matmul.launches, row_matmul.ln_launches) == (4 * L,
+                                                                 2 * L)
         ck, cv = cache["k"].clone(), cache["v"].clone()
         T.decode_step_paged(params, toks[:, 0], cfg, ck, cv, table, wp, wo,
                             lens)
-        assert row_matmul.launches == 8 * L
+        assert (row_matmul.launches, row_matmul.ln_launches) == (8 * L,
+                                                                 4 * L)
     for i in range(L):
         assert torch.equal(wk[i, :, 0], ck[i, wp, wo]), i
         assert torch.equal(wv[i, :, 0], cv[i, wp, wo]), i

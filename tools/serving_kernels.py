@@ -3,13 +3,15 @@
 (``dqmm_stream`` and ``dqmm_wg``), paged decode attention
 (``paged_decode``), int8 paged decode attention (``paged_decode_q8``) and
 the row-invariant product (``row_mm_tc``, beside its CUDA-core route and
-``torch.mm``), beside another version of the port's sources, and variants
-of their plans, on one GPU in one process.
+``torch.mm``; and with its LayerNorm prologue, ``ln_row_mm_tc``, beside
+the two launches it replaces and ``F.layer_norm`` + ``torch.mm``), beside
+another version of the port's sources, and variants of their plans, on
+one GPU in one process.
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
     python3 tools/serving_kernels.py [--against OTHER] [--rounds 5] \
-        [--only dqmm|paged|row]
+        [--only dqmm|paged|row|ln]
 
 ``OTHER`` is the root of another checkout of this repository (an older
 commit's, unpacked with ``git archive`` into a directory ``.gitignore``
@@ -188,18 +190,22 @@ PAGED_VARIANTS = [
 # (name, pairs, cluster factor: the variant runs on this tree's tensor
 # plan with the cluster that many times larger)
 ROW_KQ = "constexpr int TC_KQ = 2; "
-ROW_EXPECT = "        mbar_expect_tx(full + 8 * s, L.xbox() + TC_STAGE);\n"
-ROW_X_TMA = ("        tma_load(sx + s * L.xbox(), &tm_x, full + 8 * s, "
-             "k0 + s * TC_BOX,\n                 r0);\n")
-ROW_W_LOOP = ("        for (int b = 0; b < TC_N / 64; ++b)\n"
+ROW_EXPECT = ("        mbar_expect_tx(full + 8 * s, (LN ? 0 : L.xbox()) + "
+              "TC_STAGE);\n")
+ROW_X_TMA = ("        if (!LN)\n"
+             "          tma_load(sx + s * L.xbox(), &tm_x, full + 8 * s, "
+             "k0 + s * TC_BOX,\n                   r0);\n")
+ROW_W_LOOP = ("        for (int wb = 0; wb < TC_N / 64; ++wb)\n"
               "          tma_load(base + s * TC_STAGE")
-ROW_NO_W_LOOP = (ROW_W_LOOP, ROW_W_LOOP.replace("b < TC_N / 64", "b < 0"))
-ROW_NO_W = [(ROW_EXPECT, ROW_EXPECT.replace("L.xbox() + TC_STAGE",
-                                            "L.xbox()")), ROW_NO_W_LOOP]
+ROW_NO_W_LOOP = (ROW_W_LOOP, ROW_W_LOOP.replace("wb < TC_N / 64", "wb < 0"))
+ROW_NO_W = [(ROW_EXPECT, ROW_EXPECT.replace("(LN ? 0 : L.xbox()) + TC_STAGE",
+                                            "(LN ? 0 : L.xbox())")),
+            ROW_NO_W_LOOP]
 ROW_NO_X = [(ROW_EXPECT + ROW_X_TMA,
-             ROW_EXPECT.replace("L.xbox() + TC_STAGE", "TC_STAGE"))]
+             ROW_EXPECT.replace("(LN ? 0 : L.xbox()) + TC_STAGE",
+                                "TC_STAGE"))]
 ROW_NO_LOADS = [(ROW_EXPECT + ROW_X_TMA,
-                 ROW_EXPECT.replace("L.xbox() + TC_STAGE", "0")),
+                 ROW_EXPECT.replace("(LN ? 0 : L.xbox()) + TC_STAGE", "0")),
                 ROW_NO_W_LOOP]
 ROW_NO_LOOP = ("  load(a0, b0, 0);\n  for (int i = 0; i < steps; i += 2) {",
                "  if (steps < 0) load(a0, b0, 0);\n"
@@ -240,6 +246,23 @@ ROW_VARIANTS = [
     ("row_mm_tc cut: no loads, no stage loop", [*ROW_NO_LOADS, ROW_NO_LOOP],
      1),
 ]
+# the LayerNorm prologue of ln_row_mm_tc (pt_ln_row_matmul, g and b fp32,
+# on this tree's tensor-route plan): its cuts
+LN_NORMALISE = "      if (j < ng) {\n        uint4* p = chunk("
+LN_PASS = "    for (int j = lane; j < kg; j += 32) {\n"
+LN_VARIANTS = [
+    ("ln_row_mm_tc cut: no normalisation (x as loaded)", [
+        (LN_NORMALISE, LN_NORMALISE.replace("j < ng", "j < ng && M < 0"))]),
+    ("ln_row_mm_tc cut: no moment sums, no normalisation", [
+        (LN_NORMALISE, LN_NORMALISE.replace("j < ng", "j < ng && M < 0")),
+        (LN_PASS, LN_PASS.replace("j < kg", "j < kg && M < 0"))]),
+    # (the producer then waits for no consumer before issuing x and W)
+    ("ln_row_mm_tc cut: no prologue (rows of x still loaded whole)", [
+        ("    if (warp < TC_WARPS)\n      tc_ln_prologue(",
+         "    if (warp < 0)\n      tc_ln_prologue("),
+        ("    if constexpr (LN) named_sync(2, TC_THREADS);\n", "")]),
+]
+
 # the kernel with clock64() stamps at its phase boundaries, which thread 0
 # of each block writes over y (26 int64 a block, as many blocks as y holds:
 # 8 stamps less the first, the globaltimer at entry and at exit, 16
@@ -293,6 +316,7 @@ ROW_TIMELINES = [("as built", []), ("no weight loads", ROW_NO_W),
 ROW_PHASES = ("barriers set, x and W issued", "-", "waits and products",
               "partials to shared memory", "cluster wait",
               "sums to peers + cluster sync", "final sums and stores")
+LN_PHASES = ("barriers set, loads issued, the prologue", *ROW_PHASES[1:])
 Q8_VARIANTS = [
     ("paged_decode_q8: 1 position a group a stage, 8 stages", [
         ("constexpr int QU = 2; ", "constexpr int QU = 1; "),
@@ -459,8 +483,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of another checkout")
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--only", choices=("dqmm", "paged", "row"),
-                    help="time one kernel family only")
+    ap.add_argument("--only", choices=("dqmm", "paged", "row", "ln"),
+                    help="time one kernel family only (ln: the row "
+                         "product's LayerNorm prologue; row includes it)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -470,7 +495,8 @@ def main():
     build.build(["dequant_matmul", "paged_attn", "row_matmul"])
     other = other_package(args.against) if args.against else None
     rng = np.random.default_rng(cs.SEED)
-    want = {"dqmm", "paged", "row"} if args.only is None else {args.only}
+    want = ({"dqmm", "paged", "row", "ln"} if args.only is None
+            else {args.only, "ln"} if args.only == "row" else {args.only})
 
     libs = variant_libs(
         ([(n, "dequant_matmul.cu", pairs) for n, pairs, _ in DQMM_VARIANTS]
@@ -482,11 +508,16 @@ def main():
         + ([(n, "row_matmul.cu", pairs) for n, pairs, _ in ROW_VARIANTS]
            + [(f"row timeline, {n}", "row_matmul.cu", pairs + ROW_TIMELINE)
               for n, pairs in ROW_TIMELINES]
-           if "row" in want else []))
+           if "row" in want else [])
+        + ([(n, "row_matmul.cu", pairs) for n, pairs in LN_VARIANTS]
+           + [("ln timeline", "row_matmul.cu", ROW_TIMELINE)]
+           if "ln" in want else []))
     if "dqmm" in want:
         time_dqmm(args, other, libs)
     if "paged" in want:
         time_paged(args, other, libs, rng)
+    if "ln" in want:
+        time_ln(args, libs)
     if "row" in want:
         time_row(args, other, libs)
 
@@ -658,6 +689,97 @@ def row_variant(name, lib, factor=1):
             raise SystemExit(f"{name}: CUDA error {err}")
         return y
     return call
+
+
+def ln_sets(M, K, N):
+    """bf16 (x [M, K], g, b [K] fp32, W [K, N]) sets, W in copies that
+    pass the L2."""
+    g = 1 + 0.1 * torch.randn(K, device="cuda")
+    b = 0.1 * torch.randn(K, device="cuda")
+    return [(x, g, b, w) for x, w in row_sets(M, K, N)]
+
+
+def ln_variant(name, lib):
+    """fn(x, g, b, w) calling a variant's ``pt_ln_row_matmul`` on this
+    tree's tensor-route plan."""
+    import ctypes
+    fn = lib.pt_ln_row_matmul
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, g, b, w):
+        _, (M, K, N, dt, rc, cs_, kb) = row_matmul._args(x, w, "tensor")
+        y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+        err = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
+                 y.data_ptr(), M, K, N, dt, 0, rc, cs_, kb, 1e-5,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{name}: CUDA error {err}")
+        return y
+    return call
+
+
+def time_ln(args, libs):
+    """The row product with its LayerNorm prologue at qkv and fc1, M = 8
+    and 40, bf16 with g and b fp32 (the model's): the fused call, the
+    product alone, the LayerNorm kernel and the product launched apart,
+    ``F.layer_norm`` + ``torch.mm`` and the prologue's cuts; then a
+    clock64() timeline of the fused kernel's blocks."""
+    from paddle_tpu_torch.ops.cuda import norms
+    F = torch.nn.functional
+    print("row product with the LayerNorm prologue, bf16, g and b fp32 "
+          "(fused / row product alone / two launches / F.layer_norm + "
+          "torch.mm / variants):", flush=True)
+    for M in (8, 40):
+        for K, N, name in cs.LN_SHAPES:
+            sets = ln_sets(M, K, N)
+            fns = {"fused": lambda x, g, b, w: row_matmul.ln_matmul(
+                       x, g, b, 1e-5, w),
+                   "row product alone": lambda x, g, b, w: row_matmul.matmul(
+                       x, w),
+                   "two launches": lambda x, g, b, w: row_matmul.matmul(
+                       norms.layer_norm(x, g, b, 1e-5), w),
+                   "F.layer_norm + torch.mm": lambda x, g, b, w: torch.mm(
+                       F.layer_norm(x, (K,), g.bfloat16(), b.bfloat16(),
+                                    1e-5), w)}
+            ref = row_matmul._ref_ln_matmul(sets[0][0], sets[0][1],
+                                            sets[0][2], 1e-5, sets[0][3])
+            gates = []
+            for n, _ in LN_VARIANTS:
+                fns[n] = ln_variant(n, libs[n])
+                if "cut" not in n:
+                    got = fns[n](*sets[0])
+                    gates.append(f"{n}: gate "
+                                 f"{cs.gate([(got, ref, ref)], 2.0 ** -8, 2.0 ** -6)[0]:.3f}")
+            got = fns["fused"](*sets[0])
+            err = cs.gate([(got, ref, ref)], 2.0 ** -8, 2.0 ** -6)[0]
+            show(f"[{M}, {K}] x [{K}, {N}] ({name}), gate {err:.3f}; "
+                 + "; ".join(gates),
+                 rounds(fns, sets, args.rounds, 50),
+                 cs.ln_mm_bound(M, K, N, torch.bfloat16, torch.float32))
+            del sets
+    print("row product with the LayerNorm prologue: where a block's time "
+          "goes (clock64 cycles from its entry, mean / max over blocks; "
+          "the first phase holds the prologue):", flush=True)
+    stamp = ln_variant("ln timeline", libs["ln timeline"])
+    for M in (8, 40):
+        for K, N, name in cs.LN_SHAPES:
+            sets = ln_sets(M, K, N)
+            for a in sets:
+                stamp(*a)
+            torch.cuda.synchronize()
+            cs_, kb = row_matmul._plan("tensor", K, N)
+            blocks = min(cs_ * -(-N // 64) * -(-M // 64), M * N * 2 // 208)
+            t = stamp(*sets[0]).view(torch.int64).flatten()[:26 * blocks]
+            t = t.view(blocks, 26).cpu().numpy()
+            d = np.diff(t[:, :8], axis=1)
+            print(f"  [{M}, {K}] x [{K}, {N}] ({name}), {blocks} blocks: "
+                  + "; ".join(f"{p} {d[:, i].mean():.0f} / {d[:, i].max()}"
+                              for i, p in enumerate(LN_PHASES))
+                  + f"; span {t[:, 9].max() - t[:, 8].min()} ns",
+                  flush=True)
+            del sets
 
 
 def time_row(args, other, libs):
