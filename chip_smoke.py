@@ -316,7 +316,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
       and every parameter and buffer at rtol 1e-4, atol 1e-5, asserted in
       float64 and reported in fp32 (ill-conditioned there);
   (ac) LeNet on the synthetic MNIST through ``io.DataLoader``, 40 dygraph
-      Adam steps on the card; the loss must fall.
+      Adam steps on the card; the loss must fall;
+  (ad) the eager tensor API swept op by op (``tools/op_sweep.py``, the
+      tables the CPU tests hold against the JAX package): every case of
+      the ``paddle.*`` ops, the Tensor's methods and operators
+      (``__setitem__`` with its gradient included), the activations, the
+      losses and their layers with its inputs on the card, against the
+      same case on the CPU: fp32 within the case's tolerance x max|ref|
+      (1e-5; 1e-4 for linear algebra and ``ctc_loss``, decompositions
+      through their values and reconstructions), integer, bool and index
+      outputs exact, every output on the card, and the gradient of
+      sum(out * w) within the same tolerance; the random ops in shape,
+      dtype, range, one seed one draw on the card, and a two-sample
+      moment check against the CPU's draw.  Prints the ops and cases
+      checked and every reference op left out with its reason;
+  (ae) ERNIE-3.0-Base (``ErnieModel`` pooled -> ``Linear(768, 16)``)
+      fine-tuned as a 16-label classifier by a hand-written eager loop:
+      B = 64, N = 512, bf16 compute over fp32 params, remat, flash,
+      ``BCEWithLogitsLoss`` on labels drawn from the seed, AdamW (weight
+      decay 0.01, ``ClipGradByGlobalNorm(1.0)``) on ``LinearWarmup`` to
+      1e-4; one warm-up and 10 timed steps, exact flash launch counts
+      (2L forwards, L dq, L dk/dv a step), a falling loss; then the
+      predictions by ``F.sigmoid``, ``paddle.greater_than`` and
+      ``paddle.cast``, micro-F1 from ``paddle.logical_and`` and
+      ``paddle.sum`` and each row's top 3 labels by ``paddle.topk``.
+      Prints step ms, tokens/s, the model-FLOP share and
+      ``max_memory_allocated``; with ``--profile-train STEPS`` also STEPS
+      steps traced;
+  (af) (ae) in fp32 at ERNIE widths with 2 layers, [4, 256], 3 steps at
+      learning rate 1e-4 on the card (kernels) and on the CPU (plain
+      versions) from the same numpy-drawn weights: the three steps'
+      losses and the loss after the third update within 1e-5
+      (relative), every parameter
+      within 1e-5 of its leaf's max|param|, flash launches exact; the
+      predictions, F1 and top-3 labels reported.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -375,8 +408,9 @@ split plan (``grid_plan_ms``) beside their own.
 
 Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
 three flash rows with their launches on each training path, among them
-``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``
-and ``launches_hapi_eval``; the serving rows with ``launches_chunked``,
+``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``,
+``launches_hapi_eval`` and (ae)'s ``launches_multilabel``; the serving
+rows with ``launches_chunked``,
 ``launches_chunked_quant``, ``launches_spec``, ``launches_spec_quant``,
 the dequant matmul's ``launches_spec_quant_m40`` and (z)'s
 ``launches_slot`` and ``launches_slot_quant``) and the
@@ -2923,9 +2957,9 @@ def main():
                     help="also trace STEPS training steps of the training "
                          "path (phase i), the flagship path (l), ERNIE "
                          "pretraining (p), eager training (r), (t), "
-                         "the hapi step and its hand-written loop (u) and "
-                         "ResNet50's fetchless static step (aa) with "
-                         "torch.profiler")
+                         "the hapi step and its hand-written loop (u), "
+                         "ResNet50's fetchless static step (aa) and the "
+                         "16-label fine-tune (ae) with torch.profiler")
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
                     help="where phase (i) writes its Chrome trace")
@@ -3114,6 +3148,9 @@ def main():
 
     # (aa), (ab), (ac): the static graph and the vision stack ------------
     vision_phases(torch, card, args)
+
+    # (ad), (ae), (af): the eager tensor API and a multi-label fine-tune --
+    api_phases(torch, flash_attn, norms, card, args, launches)
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -5571,6 +5608,305 @@ def vision_phases(torch, card, args):
     return aa, ab, ac
 
 
+# (ad), (ae), (af): the eager tensor API and a multi-label fine-tune --------
+
+MULTILABEL = 16               # (ae), (af): labels of the classifier's head
+MULTILABEL_PARITY = (4, 256)  # (af): B, N at ERNIE widths, 2 layers
+
+
+def op_sweep_phase(pt):
+    """Phase (ad): every case of ``tools/op_sweep.py``'s tables on the
+    card against the CPU, and the random ops on the card."""
+    from tools import op_sweep as S
+    tables = {"tensor API": S.TENSOR_CASES, "activations": S.ACT_CASES,
+              "losses": S.LOSS_CASES, "loss layers": S.LOSS_LAYER_CASES}
+    res, failed = {}, []
+    for label, cases in tables.items():
+        checked, bad, worst = S.card_sweep(pt, cases)
+        w = max(worst, key=worst.get) if worst else None
+        res[label] = {"cases": len(cases), "checked": len(checked),
+                      "ops": len({c.split(":")[0] for c in checked}),
+                      "worst": w, "worst_err": worst.get(w, 0.0),
+                      "with_grads": sum(c.grad for c in cases
+                                        if c.name in checked)}
+        failed += [(f"{label}: {n}", e) for n, e in bad]
+    checked, bad = S.card_random(pt)
+    res["random"] = {"cases": len(S.RANDOM_CASES), "checked": len(checked)}
+    failed += [(f"random: {n}", e) for n, e in bad]
+    covered = ({c.name.split(":")[0] for c in S.TENSOR_CASES}
+               | {r[0].split(":")[0] for r in S.RANDOM_CASES})
+    res["left_out"] = {n: S.LEFT_OUT.get(n, "no case in tools/op_sweep.py")
+                       for n in S.TENSOR_API_NAMES if n not in covered}
+    if set(res["left_out"]) - set(S.LEFT_OUT):
+        raise SystemExit(f"(ad): reference ops with no case: "
+                         f"{sorted(set(res['left_out']) - set(S.LEFT_OUT))}")
+    res["api_ops"] = len(S.TENSOR_API_NAMES) - len(res["left_out"])
+    res["failed"] = failed
+    return res
+
+
+def multilabel_classifier(pt, bert, cfg):
+    """A user's multi-label classifier: ``ErnieModel(cfg)``'s pooled
+    output into a ``Linear(H, 16)``."""
+    class ErnieMultiLabel(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ernie = bert.ErnieModel(cfg)
+            self.cls = pt.nn.Linear(cfg.hidden_size, MULTILABEL)
+
+        def forward(self, tokens):
+            _, pooled = self.ernie(tokens)
+            return self.cls(pooled)
+    return ErnieMultiLabel()
+
+
+def trained_params(net):
+    """The parameters the classifier reads: not ERNIE's pretraining heads,
+    which the pooled output never reaches."""
+    return [p for n, p in net.named_parameters()
+            if not n.startswith(("ernie.mlm_", "ernie.nsp_"))]
+
+
+def multilabel_batch(V, B, N, seed):
+    """[B, N] int64 token ids and [B, 16] float 0/1 labels (each label on
+    with probability 0.25), numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, V, (B, N)),
+            (rng.random((B, MULTILABEL)) < 0.25).astype(np.float32))
+
+
+def multilabel_loop(pt, net, batch, warmup, epsilon=1e-8, start_lr=0.0):
+    """AdamW (weight decay 0.01, ``ClipGradByGlobalNorm(1.0)``) on
+    ``LinearWarmup`` from ``start_lr`` to 1e-4 over the classifier's
+    parameters; returns ``step()``: ``loss = BCEWithLogitsLoss()(net(t),
+    y)``, ``backward``, ``step``, ``clear_grad``, the scheduler's step,
+    ``float(loss)``."""
+    sched = pt.optimizer.lr.LinearWarmup(1e-4, warmup, start_lr, 1e-4)
+    opt = pt.optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
+                             epsilon=epsilon,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+                             parameters=trained_params(net))
+    crit = pt.nn.BCEWithLogitsLoss()
+    t, y = (pt.to_tensor(a) for a in batch)
+
+    def step():
+        loss = crit(net(t), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return float(loss)
+    return step
+
+
+def multilabel_predict(pt, net, batch):
+    """The user's evaluation: logits under ``no_grad``, predictions
+    ``cast(greater_than(sigmoid(logits), 0.5))``, micro-F1 from
+    ``logical_and`` and ``sum``, each row's top 3 labels by ``topk``."""
+    F = pt.nn.functional
+    t, y = (pt.to_tensor(a) for a in batch)
+    net.eval()
+    with pt.no_grad():
+        logits = net(t)
+    net.train()
+    pred = pt.cast(pt.greater_than(F.sigmoid(logits), pt.full([1], 0.5)),
+                   "float32")
+    tp = pt.sum(pt.cast(pt.logical_and(pred > 0, y > 0), "float32"))
+    f1 = 2 * tp / (pt.sum(pred) + pt.sum(y))
+    top = pt.topk(logits, 3)[1]
+    return logits, pred, f1, top
+
+
+def multilabel_path(torch, pt, bert, flash_attn, norms, args):
+    """Phase (ae): the 16-label fine-tune at full ERNIE-3.0-Base width
+    and depth (with ``--profile-train``, its steps traced)."""
+    cfg = bert.ernie_3_base()
+    L, B, N = cfg.num_layers, ERNIE_BATCH, cfg.max_seq_len
+    t0 = time.perf_counter()
+    pt.seed(SEED + 70)
+    net = multilabel_classifier(pt, bert, cfg)
+    batch = multilabel_batch(cfg.vocab_size, B, N, SEED + 71)
+    step = multilabel_loop(pt, net, batch, warmup=ERNIE_STEPS)
+    setup_s = time.perf_counter() - t0
+    counters = eager_counters(flash_attn, norms)
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_fused": 0,
+            "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    res = timed_loop(torch, lambda t: step(), ERNIE_STEPS, counters, want,
+                     "(ae)", B, N)
+    n_params = sum(p.size for p in trained_params(net))
+    res.update(setup_s=setup_s, num_params=n_params,
+               flops_per_token=6 * n_params + 12 * L * cfg.hidden_size * N)
+    res["model_flop_share"] = (res["tokens_per_s"] * res["flops_per_token"]
+                               / BF16_FLOPS_PER_S)
+    zero_counts(counters)
+    logits, pred, f1, top = multilabel_predict(pt, net, batch)
+    f1 = float(f1)
+    res["predict_launches"] = read_counts(counters)
+    check_counts("(ae) predict", res["predict_launches"],
+                 {"flash_attention_fwd": L, "flash_attention_bwd_dq": 0,
+                  "flash_attention_bwd_dkv": 0}, 1)
+    outs = {"logits": logits, "pred": pred, "top": top}
+    places = {k: str(v.place) for k, v in outs.items()}
+    picked = pt.take_along_axis(logits, top, 1).numpy()
+    best = pt.sort(logits, 1, True).numpy()[:, :3]
+    if (pred.shape != [B, MULTILABEL] or pred.dtype != pt.float32
+            or top.shape != [B, 3] or top.dtype != pt.int32
+            or any("cpu" in p for p in places.values())
+            or not 0.0 <= f1 <= 1.0 or not np.array_equal(picked, best)):
+        raise SystemExit(f"(ae): predictions {pred.shape} {pred.dtype}, top "
+                         f"{top.shape} {top.dtype} at {places}, F1 {f1}, "
+                         f"top logits {picked[:2]} against {best[:2]}")
+    res.update(f1=f1, positive_share=float(pred.numpy().mean()),
+               top3_row0=top.numpy()[0].tolist())
+    if args.profile_train:
+        res["profile"] = profile_steps(
+            torch, step, args.profile_train, "train_step_multilabel",
+            args.train_trace.replace(".json", "_multilabel.json"))
+    del net, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def multilabel_parity(torch, pt, bert, flash_attn):
+    """Phase (af): (ae)'s loop in fp32 at ERNIE widths with 2 layers,
+    [4, 256], every leaf drawn from numpy as (v) draws them, 3 steps on
+    the card (kernels) and on the CPU (plain versions).  The learning
+    rate is 1e-4 from the first step, so each step moves the parameters;
+    the losses compared are the three steps' and the loss of the
+    evaluation after the third update."""
+    from paddle_tpu_torch.framework import core
+    B, N = MULTILABEL_PARITY
+    cfg = dataclasses.replace(bert.ernie_3_base(), num_layers=2,
+                              dtype="float32")
+    batch = multilabel_batch(cfg.vocab_size, B, N, SEED + 72)
+    rng = np.random.default_rng(SEED + 73)
+    weights, out = None, {}
+    prev = core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            net = multilabel_classifier(pt, bert, cfg)
+            if weights is None:
+                weights = {k: (1 + 0.1 * rng.standard_normal(p.shape)
+                               if k.endswith("_g") else
+                               0.02 * rng.standard_normal(p.shape)
+                               ).astype(np.float32)
+                           for k, p in net.state_dict().items()}
+            net.set_state_dict(weights)
+            # Adam's eps 1e-6, as (q), (s) and (v): see ernie_parity
+            step = multilabel_loop(pt, net, batch, warmup=1, epsilon=1e-6,
+                                   start_lr=1e-4)
+            before = (flash_attn.fwd_launches, flash_attn.dq_launches,
+                      flash_attn.dkv_launches)
+            losses = [step() for _ in range(3)]
+            params = {k: p.numpy() for k, p in net.state_dict().items()}
+            logits, pred, f1, top = multilabel_predict(pt, net, batch)
+            losses.append(float(pt.nn.BCEWithLogitsLoss()(
+                logits, pt.to_tensor(batch[1]))))
+            launched = tuple(a - b for a, b in zip(
+                (flash_attn.fwd_launches, flash_attn.dq_launches,
+                 flash_attn.dkv_launches), before))
+            out[place] = (losses, params, pred.numpy(), float(f1),
+                          top.numpy(), launched)
+            del net, step
+    finally:
+        core._state.expected_place = prev
+    (lg, pg, dg, fg, tg, launched), (lc, pc, dc, fc, tc, _) = (out["gpu"],
+                                                               out["cpu"])
+    L = cfg.num_layers
+    param_rel = {k: float(np.abs(pg[k] - p).max()
+                          / max(float(np.abs(p).max()), 1e-30))
+                 for k, p in pc.items()}
+    res = {"loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(lg, lc)],
+           "param_rel_err_max": max(param_rel.values()),
+           "param_rel_err_worst": max(param_rel, key=param_rel.get),
+           "pred_equal": bool(np.array_equal(dg, dc)),
+           "f1_card": fg, "f1_cpu": fc,
+           "top3_equal": bool(np.array_equal(tg, tc)),
+           "flash_launches": launched,
+           "flash_launches_expected": (3 * 2 * L + L, 3 * L, 3 * L)}
+    if not (max(res["loss_rel_err"]) <= TRAIN_LOSS_RTOL
+            and res["param_rel_err_max"] <= FP32_TOL
+            and launched == res["flash_launches_expected"]):
+        raise SystemExit(f"(af) the multi-label fine-tune on the card "
+                         f"disagrees with the CPU: {json.dumps(res)}")
+    return res
+
+
+def api_phases(torch, flash_attn, norms, card, args, launches):
+    """Phases (ad), (ae), (af), logged; (ae)'s flash launches go into
+    ``launches``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.models import bert
+    prev = core._state.expected_place
+    try:
+        t0 = time.perf_counter()
+        ad = op_sweep_phase(pt)
+        for label in ("tensor API", "activations", "losses", "loss layers"):
+            r = ad[label]
+            log(f"(ad) {label}: {r['checked']} of {r['cases']} cases "
+                f"({r['ops']} ops, {r['with_grads']} with gradients) on the "
+                f"card equal the CPU's; the largest difference over max|ref| "
+                f"{r['worst_err']:.3e} ({r['worst']})")
+        log(f"    random ops: {ad['random']['checked']} of "
+            f"{ad['random']['cases']} checked on the card; reference "
+            f"tensor ops swept: {ad['api_ops']} of "
+            f"{ad['api_ops'] + len(ad['left_out'])}; left out: "
+            f"{ad['left_out'] or 'none'}; phase "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+        if ad["failed"]:
+            for name, err in ad["failed"]:
+                log(f"    FAILED {name}: {err}")
+            raise SystemExit(f"(ad): {len(ad['failed'])} cases failed on "
+                             f"the card")
+
+        pt.set_device("gpu")
+        t0 = time.perf_counter()
+        ae = multilabel_path(torch, pt, bert, flash_attn, norms, args)
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            launches[f"{k}_multilabel"] = ae["launches"][k]
+        log(f"(ae) ERNIE-3.0-Base 16-label fine-tune (ErnieModel pooled -> "
+            f"Linear(768, 16), {ae['num_params'] / 1e6:.1f}M params trained, "
+            f"B={ERNIE_BATCH}, N=512, bf16 compute over fp32 params, remat, "
+            f"use_flash; BCEWithLogitsLoss, AdamW wd 0.01 + "
+            f"ClipGradByGlobalNorm(1.0) on LinearWarmup to 1e-4; a "
+            f"hand-written eager loop) on {card}: step {ae['step_ms']} ms, "
+            f"tokens/s {ae['tokens_per_s']}, model-FLOP share "
+            f"{ae['model_flop_share']} (flops/token "
+            f"{ae['flops_per_token']}); max_memory_allocated "
+            f"{ae['max_memory_allocated_gib']} GiB; launches "
+            f"{ae['launches']} over {ae['steps']} timed steps  [{card}]")
+        log(f"    losses {ae['losses']}; step ms {ae['step_ms_each']}; "
+            f"warm-up {ae['warmup_s']:.1f} s, set-up {ae['setup_s']:.1f} s; "
+            f"predict: micro-F1 {ae['f1']:.4f}, positive share "
+            f"{ae['positive_share']:.4f}, row 0's top 3 {ae['top3_row0']}, "
+            f"launches {ae['predict_launches']}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        if "profile" in ae:
+            log(f"    16-label fine-tune step profile on {card}: "
+                f"{json.dumps(ae['profile'])}")
+
+        t0 = time.perf_counter()
+        af = multilabel_parity(torch, pt, bert, flash_attn)
+        log(f"(af) fp32 16-label fine-tune, card against CPU, ERNIE widths, "
+            f"2 layers, {list(MULTILABEL_PARITY)}, 3 steps at lr 1e-4: "
+            f"loss rel errs (3 steps, then after the 3rd update) "
+            f"{[f'{x:.2e}' for x in af['loss_rel_err']]} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e}); max param err / max|param| "
+            f"{af['param_rel_err_max']:.2e} ({af['param_rel_err_worst']}; "
+            f"tol {FP32_TOL:.0e}); predictions equal {af['pred_equal']}, "
+            f"micro-F1 {af['f1_card']:.6f} / {af['f1_cpu']:.6f}, top 3 "
+            f"equal {af['top3_equal']} (reported); flash fwd / dq / dk-dv "
+            f"launches {af['flash_launches']}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        core._state.expected_place = prev
+    return ad, ae, af
+
+
 # (z): the slot-contiguous engine ------------------------------------------
 
 def slot_path(torch, ServingEngine, kernels, cfg, params, prompts,
@@ -5819,7 +6155,8 @@ def report(torch, cases, launches, train, t_start):
     fwd["launches_flagship"] = launches["flash_attention_fwd_flagship"]
     fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
     for k in kernels:
-        for path in ("ernie", "eager_ernie", "eager_encoder", "hapi",
+        for path in ("ernie", "eager_ernie", "eager_encoder", "multilabel",
+                     "hapi",
                      "hapi_eval", "chunked", "chunked_quant", "spec",
                      "spec_quant", "spec_quant_m40", "slot", "slot_quant"):
             if f"{k['name']}_{path}" in launches:

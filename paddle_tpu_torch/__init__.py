@@ -77,24 +77,69 @@ hook in ``ops.dispatch.call``, ``Optimizer.minimize`` in static mode,
 layer buffers), ``flatten`` and ``vision`` (``ResNet`` and ``LeNet``, the
 synthetic ``MNIST``); and ``ops.cuda.row_matmul``, the row-invariant
 product the paged decode and the fp verify take.
+
+The twentieth slice ports the eager tensor API: the ``tensor`` modules
+(``creation``, ``math``, ``manipulation``, ``logic``, ``search``,
+``stat``, ``linalg``, ``random``, ``attribute``) exported here under the
+reference's names, the Tensor's methods and operators (``x[m] = v``
+included), the dtypes as attributes (``paddle.float32`` is
+``torch.float32``, so ``x.dtype == paddle.float32``), the grad-mode
+switches, the generator state and the tensor arrays; and ``nn``'s
+activations and the rest of its losses, functional and layers.
 """
+import sys as _sys
+
+import torch as _torch
+
 from . import amp, autograd, nn, optimizer, regularizer
 from . import io, jit, metric, static, vision
-from .autograd import grad, no_grad
+from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
+                       set_grad_enabled)
 from .hapi import callbacks
 from .hapi.model import Model
 from .hapi.model_summary import summary
 from .io.serialization import load, save
 from .jit.api import disable_static, enable_static, in_static_mode
 from .device import DEFAULT_DEVICE, card_info, resolve_device
-from .framework import get_device, seed, set_device
-from .tensor import (Tensor, concat, flatten, matmul, mean, reshape, split,
-                     sum, to_tensor, transpose)
+from .framework import (CPUPlace, CUDAPlace, Generator, ParamAttr,
+                        get_default_dtype, get_device, seed,
+                        set_default_dtype, set_device)
+from .framework import core as _core
+from .tensor import *  # noqa: F401,F403,E402
+from .tensor import (Parameter, Tensor, array_length, array_read,
+                     array_write, create_array)
+from .tensor.attribute import rank, shape  # noqa: F401
+from .tensor.linalg import inv as inverse  # noqa: F401
+# the star import binds the op modules' names (math, random ...) here;
+# paddle_tpu_torch.tensor stays the package, as in the reference
+tensor = _sys.modules[__name__ + ".tensor"]
 
-__all__ = ["DEFAULT_DEVICE", "Model", "Tensor", "amp", "autograd",
-           "callbacks", "card_info", "concat", "disable_static",
-           "enable_static", "flatten", "get_device", "grad",
-           "in_static_mode", "io", "jit", "load", "matmul", "mean",
-           "metric", "nn", "no_grad", "optimizer", "regularizer", "reshape",
-           "resolve_device", "save", "seed", "set_device", "split", "static",
-           "sum", "summary", "to_tensor", "transpose", "vision"]
+# dtypes as module attributes: the port's own dtype objects, so that
+# ``x.dtype == paddle_tpu_torch.float32`` holds
+float16 = _torch.float16
+bfloat16 = _torch.bfloat16
+float32 = _torch.float32
+float64 = _torch.float64
+int8 = _torch.int8
+int16 = _torch.int16
+int32 = _torch.int32
+int64 = _torch.int64
+uint8 = _torch.uint8
+bool = _torch.bool
+complex64 = _torch.complex64
+complex128 = _torch.complex128
+dtype = _torch.dtype
+
+
+def get_rng_state():
+    """The default generator's state (every device's stream)."""
+    return _core.default_generator().get_state()
+
+
+def set_rng_state(state):
+    _core.default_generator().set_state(state)
+
+
+tensor._bind_longtail()
+
+__all__ = sorted(n for n in dir() if not n.startswith("_"))

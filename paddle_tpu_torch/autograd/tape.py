@@ -198,10 +198,18 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
              if o.value.grad_fn is not None]
     retain = True if retain_graph is None else retain_graph
     if pairs:
-        gs = _run(lambda: torch.autograd.grad(
-            [o.value for o, _ in pairs], [t.value for t in inputs],
+        # a tensor rebound by an in-place API gets the sum of the grads
+        # of every value it held, as the reference's tape gives it
+        edges = [(i, e) for i, t in enumerate(inputs)
+                 for e in (t.value, *t._past)]
+        flat = _run(lambda: torch.autograd.grad(
+            [o.value for o, _ in pairs], [e for _, e in edges],
             [_seed(o, go) for o, go in pairs], retain_graph=retain,
             create_graph=create_graph, allow_unused=True), True)
+        gs = [None] * len(inputs)
+        for (i, _), g in zip(edges, flat):
+            if g is not None:
+                gs[i] = g if gs[i] is None else gs[i] + g
     else:
         gs = [None] * len(inputs)
     if any(g is None for g in gs) and not allow_unused:

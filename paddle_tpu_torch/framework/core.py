@@ -213,6 +213,21 @@ class Generator:
         self._on.clear()
         return self
 
+    def get_state(self):
+        """The seed and every stream's position (the CPU's and each
+        device's made so far), for :meth:`set_state`."""
+        return {"seed": self._seed, "cpu": self.torch.get_state(),
+                "devices": {d: g.get_state() for d, g in self._on.items()}}
+
+    def set_state(self, state):
+        """Return every stream to where :meth:`get_state` found it (a
+        device stream made since then starts again from the seed)."""
+        self._seed = state["seed"]
+        self.torch.set_state(state["cpu"])
+        self._on.clear()
+        for d, st in state["devices"].items():
+            self.on(d).set_state(st)
+
     def on(self, device) -> torch.Generator:
         """The generator for draws on ``device`` (the CPU's is
         :attr:`torch`)."""

@@ -1,14 +1,24 @@
 """paddle_tpu_torch.nn.functional (counterpart of
 ``paddle_tpu/nn/functional``; what eager training and inference of a
-``TransformerEncoder`` and of the vision models call, and the ported
-losses)."""
-from .activation import gelu, relu, selu, softmax, tanh
+``TransformerEncoder`` and of the vision models call, the activations
+and the losses)."""
+from .activation import (elu, elu_, gelu, glu, gumbel_softmax, hardshrink,
+                         hardsigmoid, hardswish, hardtanh, leaky_relu,
+                         log_sigmoid, log_softmax, maxout, mish, prelu, relu,
+                         relu6, relu_, rrelu, selu, sigmoid, silu, softmax,
+                         softmax_, softplus, softshrink, softsign, swish,
+                         tanh, tanh_, tanhshrink, thresholded_relu)
 from .attention import flash_attention, scaled_dot_product_attention
 from .common import dropout, embedding, linear
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose, conv3d,
                    conv3d_transpose)
-from .loss import (cross_entropy, l1_loss, mse_loss, nll_loss,
-                   softmax_with_cross_entropy)
+from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
+                   cosine_embedding_loss, cross_entropy, ctc_loss, dice_loss,
+                   hinge_embedding_loss, hsigmoid_loss, kl_div, l1_loss,
+                   log_loss, margin_ranking_loss, mbce_loss, mse_loss,
+                   nll_loss, npair_loss, sigmoid_focal_loss,
+                   smooth_l1_loss, softmax_with_cross_entropy,
+                   square_error_cost, triplet_margin_loss)
 from .norm import batch_norm, layer_norm, rms_norm
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,

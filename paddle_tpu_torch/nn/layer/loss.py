@@ -1,8 +1,8 @@
-"""Loss layers (counterpart of ``paddle_tpu/nn/layer/loss.py``;
-``CrossEntropyLoss``, ``NLLLoss``, ``MSELoss`` and ``L1Loss``)."""
+"""Loss layers (counterpart of ``paddle_tpu/nn/layer/loss.py``)."""
 from __future__ import annotations
 
 from .. import functional as F
+from ..initializer import XavierUniform
 from .layers import Layer
 
 
@@ -54,3 +54,123 @@ class NLLLoss(Layer):
     def forward(self, input, label):
         return F.nll_loss(input, label, self._weight, self._ignore_index,
                           self._reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, self.weight,
+                                      self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
+class HSigmoidLoss(Layer):
+    """Hierarchical sigmoid over the complete binary tree of
+    ``num_classes`` leaves (``is_custom`` raises, as in the reference)."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False, name=None):
+        super().__init__()
+        if is_custom:
+            raise NotImplementedError("custom tree not yet supported")
+        self._num_classes = num_classes
+        self.weight = self.create_parameter(
+            shape=[num_classes - 1, feature_size], attr=weight_attr,
+            default_initializer=XavierUniform())
+        self.bias = self.create_parameter(
+            shape=[num_classes - 1], attr=bias_attr, is_bias=True)
+
+    def forward(self, input, label):
+        return F.hsigmoid_loss(input, label, self._num_classes, self.weight,
+                               self.bias)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.p, self.epsilon = margin, p, epsilon
+        self.swap, self.reduction = swap, reduction
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, self.margin,
+                                     self.p, self.epsilon, self.swap,
+                                     self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)

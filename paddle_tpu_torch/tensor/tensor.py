@@ -12,10 +12,19 @@ and grads accumulate over backward calls until ``clear_grad``.  A hook
 (``register_hook``) sees the complete grad of one backward once, and a
 return that is not ``None`` replaces it, on leaves and intermediates, as
 the reference's ``_finalize_grad`` and ``out_hooks`` do.
+
+The in-place APIs (``x.add_(y)``, ``x[i] = v``, ``increment`` ...) run
+out of place and rebind the tensor to the result (:meth:`_rebind`), as
+the reference's do: the tensor then carries the result's graph, and a
+leaf rebound that way still reports the grad of the value it held
+before (the reference's tape keeps the tensor, not the value, as the
+leaf).  ``paddle.grad`` with respect to a rebound tensor sums the grads
+of every value it has held (``_past``), as the reference's tape, whose
+edges all lead to the one tensor, does.  The operators and most methods are bound by the op modules'
+``_install`` (``tensor/math.py``, ``logic.py`` ...), as the reference
+binds them.
 """
 from __future__ import annotations
-
-import operator
 
 import numpy as np
 import torch
@@ -67,7 +76,8 @@ class _HookHandle:
 
 class Tensor:
     __slots__ = ("value", "stop_gradient", "name", "persistable",
-                 "_grad_hooks", "_backward_ran", "_var_id", "__weakref__")
+                 "_grad_hooks", "_backward_ran", "_var_id", "_leaf",
+                 "_past", "__weakref__")
 
     _next_id = [0]
 
@@ -85,6 +95,8 @@ class Tensor:
         self._grad_hooks = None
         self._backward_ran = 0       # tape._NOT_RUN
         self._var_id = None          # a static program's variable id
+        self._leaf = None            # the leaf value a rebind replaced
+        self._past = ()              # graph edges of the values replaced
 
     # -- metadata ----------------------------------------------------------
     @property
@@ -99,6 +111,9 @@ class Tensor:
     def ndim(self):
         return self.value.dim()
 
+    ndimension = ndim
+    rank = ndim
+
     @property
     def size(self):
         return self.value.numel()
@@ -112,24 +127,37 @@ class Tensor:
         return self.value.grad_fn is None
 
     # -- grad --------------------------------------------------------------
+    def _leaf_value(self):
+        """The torch leaf whose ``.grad`` is this tensor's grad: the value,
+        or the leaf a rebind replaced; ``None`` for an intermediate."""
+        if self.value.grad_fn is None:
+            return self.value
+        return self._leaf
+
     @property
     def grad(self):
         """The accumulated grad of a leaf (a Tensor that stops gradients),
         else ``None``."""
-        g = self.value.grad if self.value.grad_fn is None else None
+        leaf = self._leaf_value()
+        g = None if leaf is None else leaf.grad
         return None if g is None else Tensor(g, stop_gradient=True)
 
     @grad.setter
     def grad(self, g):
-        self.value.grad = (None if g is None else _to_torch_value(
-            g, self.value.dtype, core.place_of(self.value.device)))
+        leaf = self._leaf_value()
+        if leaf is None:
+            return
+        leaf.grad = (None if g is None else _to_torch_value(
+            g, leaf.dtype, core.place_of(leaf.device)))
 
     def backward(self, grad_tensor=None, retain_graph=False):
         from ..autograd import tape
         tape.backward(self, grad_tensor, retain_graph=retain_graph)
 
     def clear_grad(self):
-        self.value.grad = None
+        leaf = self._leaf_value()
+        if leaf is not None:
+            leaf.grad = None
 
     clear_gradient = clear_grad
 
@@ -169,6 +197,23 @@ class Tensor:
     def __float__(self):
         return float(self.value.item())
 
+    def __bool__(self):
+        return bool(self.value.item())
+
+    def __int__(self):
+        return int(self.value.item())
+
+    def __index__(self):
+        return int(self.value.item())
+
+    def __hash__(self):
+        return id(self)
+
+    def __reduce__(self):
+        # picklable through a numpy payload; the graph is not kept
+        return (_rebuild_tensor, (type(self), self.numpy(),
+                                  self.stop_gradient, self.name))
+
     def item(self, *args):
         return self.numpy().item(*args)
 
@@ -183,6 +228,63 @@ class Tensor:
 
     def detach(self):
         return Tensor(self.value.detach(), stop_gradient=True)
+
+    def detach_(self):
+        self.value = self.value.detach()
+        self._leaf = None
+        self._past = ()
+        self.stop_gradient = True
+        return self
+
+    def clone(self):
+        """A copy on the tape (the gradient flows back to this tensor)."""
+        return dispatch.call(torch.clone, self, _name="clone")
+
+    def cpu(self):
+        return self._moved(torch.device("cpu"))
+
+    def cuda(self, device_id=None, blocking=True):
+        return self._moved(core.CUDAPlace(device_id or 0).device)
+
+    def pin_memory(self):
+        """The value in page-locked host memory (on a machine with a
+        card; a copy of a CPU tensor), else this tensor."""
+        if self.value.device.type != "cpu" or not torch.cuda.is_available():
+            return self
+        return Tensor(self.value.detach().pin_memory(),
+                      stop_gradient=self.stop_gradient)
+
+    def _moved(self, device):
+        """This tensor on ``device`` (itself when it is there already);
+        the copy is on the tape."""
+        if self.value.device == device:
+            return self
+        return dispatch.call(lambda x: x.to(device), self, _name="memcpy")
+
+    def to(self, *args, **kwargs):
+        """``to(device)``, ``to(dtype)`` or both, as names, places or
+        torch objects (``blocking`` and ``copy`` are accepted)."""
+        out = self
+        kwargs.pop("blocking", None)
+        kwargs.pop("copy", None)
+        for a in list(args) + list(kwargs.values()):
+            if a is None:
+                continue
+            if isinstance(a, core.Place):
+                out = out._moved(a.device)
+            elif isinstance(a, torch.device):
+                out = out._moved(core.place_of(a).device)
+            elif isinstance(a, str) and (a.split(":")[0].lower() in
+                                         ("cpu", "gpu", "cuda")):
+                out = out._moved(core._parse_device(a).device)
+            else:
+                out = out.astype(a)
+        return out
+
+    @property
+    def T(self):
+        return dispatch.call(lambda x: x.permute(*range(x.dim() - 1, -1, -1)),
+                             self, _name="T")
 
     # -- mutation ----------------------------------------------------------
     def set_value(self, value):
@@ -202,10 +304,89 @@ class Tensor:
             self.value.copy_(new)
         return self
 
+    def copy_(self, other, *args):
+        """Copy ``other`` into this tensor in place, broadcast to its
+        shape, in its dtype (the reference's ``copy_``)."""
+        new = other.value if isinstance(other, Tensor) else torch.as_tensor(
+            np.asarray(other))
+        with torch.no_grad():
+            self.value.copy_(new.to(self.value.device).expand(
+                self.value.shape))
+        return self
+
+    def fill_(self, v):
+        with torch.no_grad():
+            self.value.fill_(v)
+        return self
+
+    def zero_(self):
+        with torch.no_grad():
+            self.value.zero_()
+        return self
+
+    def get_tensor(self):
+        """The reference's ``LoDTensor`` handle: ``np.array()`` reads it,
+        ``.set(array, place)`` writes it back."""
+        owner = self
+
+        class _LoDTensorView:
+            def __array__(self, dtype=None, copy=None):
+                a = owner.numpy()
+                return a.astype(dtype) if dtype is not None else a
+
+            def set(self, array, place=None):
+                owner.set_value(array)
+
+            def shape(self):
+                return list(owner.shape)
+
+            def _dtype(self):
+                return owner.dtype
+
+        return _LoDTensorView()
+
+    def _rebind(self, other):
+        """Adopt ``other``'s value and graph (the in-place APIs, run out of
+        place).  A leaf keeps its old value as the leaf its grad is read
+        from, and the graph edge of every value replaced is kept for
+        ``paddle.grad``; a static program's variable follows the
+        rebind."""
+        if self.value.requires_grad:
+            if self._leaf is None and self.value.grad_fn is None:
+                self._leaf = self.value
+            self._past += (torch.autograd.graph.get_gradient_edge(
+                self.value),)
+        self.value = other.value
+        self.stop_gradient = other.stop_gradient
+        if other._var_id is not None:
+            self._var_id = other._var_id
+        return self
+
     # -- indexing ----------------------------------------------------------
     def __getitem__(self, item):
-        idx = dispatch.unwrap(item)
-        return dispatch.call(lambda x: x[idx], self, _name="getitem")
+        idx = _index(item)
+        return dispatch.call(lambda x: x[_long_index(idx)], self,
+                             _name="getitem")
+
+    def __setitem__(self, item, val):
+        """``x[item] = val``: the value is rebound to a copy with the
+        entries replaced (``val`` cast to x's dtype); the gradient flows
+        to x's other entries and to ``val``, as the reference's
+        ``x.at[item].set``."""
+        idx = _index(item)
+        if isinstance(val, (np.ndarray, np.generic, list, tuple)):
+            val = torch.from_numpy(_owned(np.asarray(val)))
+
+        def _set(x, v):
+            out = x.clone()
+            out[_long_index(idx)] = (v.to(x.device, x.dtype) if isinstance(
+                v, torch.Tensor) else v)
+            return out
+        self._rebind(dispatch.call(_set, self, val, _name="setitem"))
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
 
     def __len__(self):
         if self.ndim == 0:
@@ -222,38 +403,39 @@ class Tensor:
 
     __str__ = __repr__
 
-    # -- operators ---------------------------------------------------------
-    def __add__(self, other):
-        return dispatch.call(operator.add, self, other, _name="add")
+    # the operators and the op methods: bound by the op modules' _install
 
-    def __radd__(self, other):
-        return dispatch.call(operator.add, other, self, _name="add")
 
-    def __sub__(self, other):
-        return dispatch.call(operator.sub, self, other, _name="subtract")
+def _index(item):
+    """An index with Tensors as their torch values and lists as index
+    tensors (the reference's ``_index``)."""
+    if isinstance(item, Tensor):
+        return item.value
+    if isinstance(item, tuple):
+        return tuple(_index(i) for i in item)
+    if isinstance(item, list):
+        return torch.as_tensor(np.asarray(item))
+    return item
 
-    def __mul__(self, other):
-        return dispatch.call(operator.mul, self, other, _name="multiply")
 
-    def __rmul__(self, other):
-        return dispatch.call(operator.mul, other, self, _name="multiply")
+def _long_index(idx):
+    """``idx`` with integer index tensors as int64 (torch indexes with
+    int64 or bool tensors; the port's are int32)."""
+    if isinstance(idx, torch.Tensor):
+        return idx.long() if not (idx.dtype == torch.bool
+                                  or idx.dtype == torch.uint8) else idx
+    if isinstance(idx, tuple):
+        return tuple(_long_index(i) for i in idx)
+    return idx
 
-    def __truediv__(self, other):
-        return dispatch.call(operator.truediv, self, other, _name="divide")
 
-    def __pow__(self, other):
-        return dispatch.call(operator.pow, self, other, _name="pow")
-
-    def __matmul__(self, other):
-        return dispatch.call(operator.matmul, self, other, _name="matmul")
-
-    def sum(self, axis=None, dtype=None, keepdim=False, name=None):
-        from .math import sum as _sum
-        return _sum(self, axis, dtype, keepdim)
-
-    def mean(self, axis=None, keepdim=False, name=None):
-        from .math import mean as _mean
-        return _mean(self, axis, keepdim)
+def _rebuild_tensor(cls, arr, stop_gradient, name):
+    if cls is Parameter:
+        t = Parameter(arr, name=name, trainable=not stop_gradient)
+    else:
+        t = Tensor(arr, name=name)
+    t.stop_gradient = stop_gradient
+    return t
 
 
 class Parameter(Tensor):

@@ -2155,3 +2155,87 @@ def test_verify_lane_writes_the_decode_bytes(dev, dtype):
     for i in range(L):
         assert torch.equal(wk[i, :, 0], ck[i, wp, wo]), i
         assert torch.equal(wv[i, :, 0], cv[i, wp, wo]), i
+
+
+# --------------------------------------------------------------------------
+# the eager tensor API on the card: a compact copy of chip_smoke.py (ad)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    """Skips without a card (the ops here build no kernel, so nvcc is not
+    needed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _first_per_op(cases):
+    seen, out = set(), []
+    for c in cases:
+        op = c.name.split(":")[0]
+        if op not in seen:
+            seen.add(op)
+            out.append(c)
+    return out
+
+
+def test_op_sweep_on_card(card):
+    """One case of every op, activation and loss on the card against the
+    CPU: values, dtypes and gradients at the case's tolerance, every
+    output on the card."""
+    import paddle_tpu_torch as pt
+    from tools import op_sweep as S
+    cases = (_first_per_op(S.TENSOR_CASES) + _first_per_op(S.ACT_CASES)
+             + _first_per_op(S.LOSS_CASES) + S.LOSS_LAYER_CASES)
+    checked, failed, _ = S.card_sweep(pt, cases)
+    assert not failed, failed
+    assert len(checked) == len(cases)
+
+
+def test_setitem_and_inplace_grads_on_card(card):
+    """``x[i] = v`` and the in-place operators on the card: values and the
+    gradients flowing to x and v equal the CPU's."""
+    import paddle_tpu_torch as pt
+    from tools import op_sweep as S
+    cases = [c for c in S.TENSOR_CASES
+             if c.name.startswith(("op:setitem", "op:i", "method:inplace"))]
+    assert len(cases) >= 8
+    checked, failed, _ = S.card_sweep(pt, cases)
+    assert not failed, failed
+
+
+def test_host_sync_ops_return_on_the_card(card):
+    """The ops whose output size depends on the data read it back from the
+    card and return their outputs there, equal to the CPU's."""
+    import paddle_tpu_torch as pt
+    from tools import op_sweep as S
+    names = ("nonzero", "unique", "unique_consecutive", "masked_select",
+             "where:nonzero", "mode", "op:getitem_mask", "op:setitem_mask")
+    cases = [c for c in S.TENSOR_CASES
+             if c.name.split(":")[0] in names or c.name in names]
+    assert len(cases) >= 10
+    checked, failed, _ = S.card_sweep(pt, cases)
+    assert not failed, failed
+
+
+def test_random_ops_draw_on_the_card(card):
+    """The random ops draw from the card's generator: the reference's
+    dtypes, their ranges and moments, one seed one draw, and no draw on
+    the card moves the CPU's stream."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    from tools import op_sweep as S
+    checked, failed = S.card_random(pt)
+    assert not failed, failed
+    prev = core._state.expected_place
+    try:
+        pt.set_device("cpu")
+        pt.seed(3)
+        a = pt.rand([8]).numpy()
+        pt.seed(3)
+        pt.set_device("gpu")
+        pt.rand([1000])
+        pt.set_device("cpu")
+        np.testing.assert_array_equal(pt.rand([8]).numpy(), a)
+    finally:
+        core._state.expected_place = prev
