@@ -349,7 +349,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
       losses and the loss after the third update within 1e-5
       (relative), every parameter
       within 1e-5 of its leaf's max|param|, flash launches exact; the
-      predictions, F1 and top-3 labels reported.
+      predictions, F1 and top-3 labels reported;
+  (ag) ``paddle.jit.to_static`` of (n)'s encoder at ERNIE-3.0-Base
+      widths, [8, 512] token ids, ``eval()``, ``no_grad``, fp32 then
+      bf16 (one CUDA graph per dtype, the bf16 one captured after
+      ``Layer.to`` rebinds the weights): 5 timed replays alternated with
+      (n)'s eager forward on the same batches, each replay launching
+      exactly 2L LayerNorm, L flash forward and 1 RMSNorm kernels, the
+      final norm output and logits against the eager forward's (bit
+      equality reported; fp32 within (o)'s tolerances, bf16 within two
+      bf16 steps of max|ref|), ``cache_stats()`` with one capture a
+      dtype, hits equal to the replays and no fallback; a second shape
+      [4, 256] captures a second graph without evicting the first; an
+      in-place update of the head's bias shows in the next replay;
+      ``jit.save`` then ``jit.load`` of the bf16 model gives the same
+      outputs.  Prints ms a batch, tokens/s and the ratio to eager;
+  (ah) the profiler around 3 eager bf16 forwards of (ag)'s model: the 10
+      ops with the most host us a call and the host us a forward; the
+      chrome trace reads back with one event per dispatched op, and a
+      ``log_dir`` run writes a device trace with kernel events; with
+      ``enable_check_nan_inf``, an inf written into one weight raises
+      ``NanInfError`` naming the first op with a non-finite output;
+      ``check_numerics`` inside a ``to_static`` graph raises at the call
+      that replays it and not with finite weights;
+  (ai) a static ``Program`` with ``while_loop`` (a fixed-point
+      iteration), ``cond`` and ``switch_case`` replayed by the
+      ``Executor`` on the card against the CPU (integers exact, floats
+      within 1e-5 of max|ref|); ``to_static`` of a function with ``cond``
+      on a tensor predicate against its eager result; a training-mode
+      ``to_static`` forward with dropout 0.1 drawing different masks on
+      two replays and the first again after re-seeding; ``static.save`` /
+      ``load`` and ``serialize_persistables`` round-tripping a program's
+      parameters on the card.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -409,7 +440,9 @@ split plan (``grid_plan_ms``) beside their own.
 Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
 three flash rows with their launches on each training path, among them
 ``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``,
-``launches_hapi_eval`` and (ae)'s ``launches_multilabel``; the serving
+``launches_hapi_eval``, (ae)'s ``launches_multilabel`` and (ag)'s
+``launches_to_static``, which the LayerNorm and RMSNorm rows carry too;
+the serving
 rows with ``launches_chunked``,
 ``launches_chunked_quant``, ``launches_spec``, ``launches_spec_quant``,
 the dequant matmul's ``launches_spec_quant_m40`` and (z)'s
@@ -465,6 +498,7 @@ ENCODER = dict(V=40064, H=768, L=12, nh=12, F=3072, N=512)
 ENCODER_BATCH = 8             # (n): [8, 512] token ids a batch
 ENCODER_BATCHES = 5           # (n): timed batches per dtype
 RMS_PARITY_TOL = 1e-4         # (o): final norm output, x max|ref|
+BF16_STEPS_TOL = 2.0 ** -6    # (ag): bf16 replay vs eager, x max|ref|
 ERNIE_BATCH = 64              # (p): bench.py's first ERNIE batch, N = 512
 ERNIE_STEPS = 10              # (p): timed steps (bench.py: steps=10)
 ERNIE_PARITY_N = 256          # (q): B=2, 2 layers
@@ -3152,6 +3186,10 @@ def main():
     # (ad), (ae), (af): the eager tensor API and a multi-label fine-tune --
     api_phases(torch, flash_attn, norms, card, args, launches)
 
+    # (ag), (ah), (ai): jit.to_static, the profiler and nan guard, static
+    # control flow ------------------------------------------------------
+    jit_phases(torch, flash_attn, norms, card, launches)
+
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
     return 0
@@ -3544,6 +3582,9 @@ def make_encoder(pt, V, H, L, nh, F, N, dropout=0.0, attn_dropout=None):
             h = self.encoder(h)
             return h, self.head(h)
 
+    # a module-level name, so that jit.save can pickle the model ((ag))
+    Encoder.__qualname__ = "Encoder"
+    globals()["Encoder"] = Encoder
     return Encoder().eval()
 
 
@@ -5907,6 +5948,427 @@ def api_phases(torch, flash_attn, norms, card, args, launches):
     return ad, ae, af
 
 
+# (ag), (ah), (ai): jit.to_static, the profiler and nan guard, static
+# control flow ------------------------------------------------------------
+
+def to_static_path(torch, pt, flash_attn, norms):
+    """(ag): (n)'s encoder under ``jit.to_static`` at full width, fp32 then
+    bf16, replays alternated with the eager forward.  Returns the
+    measurements, the bf16 model, its wrapper and the batches."""
+    from paddle_tpu_torch.ops import dispatch
+    e = ENCODER
+    L = e["L"]
+    pt.set_device("gpu")
+    model = make_encoder(pt, **e)
+    model.set_state_dict(numpy_state(model, SEED + 15))
+    rng = np.random.default_rng(SEED + 16)
+    batches = [pt.to_tensor(rng.integers(0, e["V"], (ENCODER_BATCH, e["N"])))
+               for _ in range(ENCODER_BATCHES + 1)]
+    sfn = pt.jit.to_static(model)
+    dispatch.reset_cache_stats()
+    runs, replay_counts = {}, None
+    for dt in ("float32", "bfloat16"):
+        model.to(dtype=dt)
+        with pt.no_grad():
+            t0 = time.perf_counter()
+            sfn(batches[0])                   # warm-up, then the capture
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            model(batches[0])
+            ts, te, h_err, l_err, bit = [], [], 0.0, 0.0, True
+            for ids in batches[1:]:
+                c0 = encoder_counts(flash_attn, norms)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h, lg = sfn(ids)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+                c1 = encoder_counts(flash_attn, norms)
+                d = {k: c1[k] - c0[k] for k in c1}
+                replay_counts = d if replay_counts is None else {
+                    k: replay_counts[k] + d[k] for k in d}
+                if d != {"layer_norm": 2 * L, "flash_attention_fwd": L,
+                         "rms_norm": 1}:
+                    raise SystemExit(f"(ag) {dt} replay launched {d}")
+                t0 = time.perf_counter()
+                eh, el = model(ids)
+                torch.cuda.synchronize()
+                te.append(time.perf_counter() - t0)
+                if not (h.stop_gradient and lg.stop_gradient):
+                    raise SystemExit("(ag) to_static outputs record")
+                bit = bit and torch.equal(h.value, eh.value) and \
+                    torch.equal(lg.value, el.value)
+                h_err = max(h_err, max_err(h.value, eh.value)
+                            / float(eh.value.float().abs().max()))
+                l_err = max(l_err, max_err(lg.value, el.value)
+                            / (1.0 if dt == "float32" else
+                               float(el.value.float().abs().max())))
+                del h, lg, eh, el
+        ok = bit or (h_err <= RMS_PARITY_TOL and l_err <= PARITY_LOGIT_TOL
+                     if dt == "float32" else
+                     max(h_err, l_err) <= BF16_STEPS_TOL)
+        if not ok:
+            raise SystemExit(f"(ag) {dt} replays differ from eager: final "
+                             f"norm {h_err:.3e}, logits {l_err:.3e}")
+        B, N = batches[0].shape
+        runs[dt] = {"batch_ms": 1e3 * sum(ts) / len(ts),
+                    "eager_batch_ms": 1e3 * sum(te) / len(te),
+                    "tokens_per_s": B * N * len(ts) / sum(ts),
+                    "eager_tokens_per_s": B * N * len(te) / sum(te),
+                    "replay_ms_each": [round(1e3 * t, 3) for t in ts],
+                    "eager_ms_each": [round(1e3 * t, 3) for t in te],
+                    "capture_s": capture_s, "bit_equal": bit,
+                    "h_err": h_err, "l_err": l_err}
+        runs[dt]["ratio"] = runs[dt]["batch_ms"] / runs[dt]["eager_batch_ms"]
+    st = dispatch.cache_stats()
+    n = 2 * ENCODER_BATCHES
+    if (st["misses"], st["warming"], st["hits"], st["fallbacks"]) != (
+            2, 2, n, 0):
+        raise SystemExit(f"(ag) cache_stats {st}: want 2 captures, {n} "
+                         "replays, no fallback")
+    # a second shape: a second graph, the first kept
+    with pt.no_grad():
+        small = pt.to_tensor(rng.integers(0, e["V"], (4, 256)))
+        sh, sl = sfn(small)
+        if sl.shape != [4, 256, e["V"]]:
+            raise SystemExit(f"(ag) second shape's logits {sl.shape}")
+        sfn(batches[1])
+    st2 = dispatch.cache_stats()
+    if (st2["misses"], st2["hits"], st2["evictions"], len(sfn._graphs)) != (
+            3, n + 1, 0, 2):
+        raise SystemExit(f"(ag) second shape: cache_stats {st2}, "
+                         f"{len(sfn._graphs)} graphs")
+    # an in-place update after the capture shows in the next replay
+    bias = model.head.bias
+    old = bias.value.detach().clone()
+    with pt.no_grad():
+        _, before = sfn(batches[2])
+        bias.set_value(pt.to_tensor(old.float().cpu().numpy() + 1.0))
+        _, after = sfn(batches[2])
+        _, eager = model(batches[2])
+        bias.set_value(pt.Tensor(old))
+    if torch.equal(after.value, before.value) or max_err(
+            after.value, eager.value) / float(
+                eager.value.float().abs().max()) > BF16_STEPS_TOL:
+        raise SystemExit("(ag) an in-place bias update is not seen by the "
+                         "replay")
+    inplace_err = max_err(after.value, eager.value)
+    # jit.save, then jit.load: the same outputs
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch", "_build", "jit_encoder", "model")
+    t0 = time.perf_counter()
+    pt.jit.save(sfn, path)
+    loaded = pt.jit.load(path)
+    with pt.no_grad():
+        _, want = sfn(batches[3])
+        first = loaded(batches[3])[1]
+        again = loaded(batches[3])[1]
+    saved_bytes = sum(os.path.getsize(path + s) for s in (".pdmodel",
+                                                           ".pdiparams"))
+    shutil.rmtree(os.path.dirname(path))
+    dtypes_ok = all(v.dtype == torch.bfloat16 for k, v in
+                    loaded.state_dict().items() if "norm" not in k)
+    if not (torch.equal(first.value, want.value)
+            and torch.equal(again.value, want.value) and dtypes_ok):
+        raise SystemExit(f"(ag) jit.load's outputs differ: "
+                         f"{max_err(first.value, want.value):.3e}, "
+                         f"{max_err(again.value, want.value):.3e}")
+    save_s = time.perf_counter() - t0
+    del loaded, first, again, want, before, after, eager, sh, sl
+    return {"runs": runs, "stats": st2, "launches": replay_counts,
+            "inplace_err": inplace_err, "saved_mib": saved_bytes / 2 ** 20,
+            "save_load_s": save_s}, model, sfn, batches
+
+
+def profiler_path(torch, pt, model, batches):
+    """(ah): the profiler around 3 eager bf16 forwards, its chrome trace,
+    a device trace, the nan guard and ``check_numerics`` in a graph."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "paddle_tpu_torch", "_build", "profiler")
+    res = {}
+    with pt.no_grad():
+        model(batches[0])
+        torch.cuda.synchronize()
+        prof = pt.profiler.Profiler()
+        walls = []
+        with prof:
+            for ids in batches[1:4]:
+                t0 = time.perf_counter()
+                model(ids)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                prof.step()
+        rows = [r for r in prof.summary()[1:] if r[0] != "profiler_step"]
+        trace = prof.export_chrome_tracing(os.path.join(out_dir,
+                                                        "host.json"))
+    with open(trace) as f:
+        events = [ev for ev in json.load(f)["traceEvents"]
+                  if ev["name"] != "profiler_step"]
+    n_ops = sum(c for _, c, _ in rows)
+    if len(events) != n_ops or n_ops % 3:
+        raise SystemExit(f"(ah) {len(events)} trace events for {n_ops} ops")
+    res["ops_a_forward"] = n_ops // 3
+    res["host_us_forward"] = 1e6 * sum(t for _, _, t in rows) / 3
+    res["wall_us_forward"] = 1e6 * sum(walls) / 3
+    res["top10"] = [(name, c // 3, round(1e6 * t / c, 2))
+                    for name, c, t in sorted(rows, key=lambda r: -r[2] / r[1])
+                    [:10]]
+    res["us_an_op"] = res["host_us_forward"] / res["ops_a_forward"]
+    # a device trace
+    dev_dir = os.path.join(out_dir, "device")
+    with pt.no_grad():
+        with pt.profiler.Profiler(log_dir=dev_dir):
+            model(batches[1])
+            torch.cuda.synchronize()
+    with open(os.path.join(dev_dir, "trace.json")) as f:
+        kernels = sum(1 for ev in json.load(f).get("traceEvents", [])
+                      if ev.get("cat") == "kernel")
+    shutil.rmtree(out_dir)
+    if not kernels:
+        raise SystemExit("(ah) the device trace holds no kernel event")
+    res["device_kernel_events"] = kernels
+    # the nan guard: an inf in one weight
+    w = model.encoder.layers[3].linear1.weight
+    keep = w.value[0, 0].clone()
+    with torch.no_grad():
+        w.value[0, 0] = float("inf")
+    pt.debug.enable_check_nan_inf(True)
+    try:
+        with pt.no_grad():
+            model(batches[1])
+        raise SystemExit("(ah) the nan guard raised nothing")
+    except pt.debug.NanInfError as err:
+        res["nan_guard"] = str(err)
+    finally:
+        pt.debug.enable_check_nan_inf(False)
+        with torch.no_grad():
+            w.value[0, 0] = keep
+    if "op 'linear'" not in res["nan_guard"]:
+        raise SystemExit(f"(ah) the guard named {res['nan_guard']}")
+    # check_numerics inside a to_static graph
+    ids = batches[1][:2, :128]
+
+    def checked(ids):
+        return pt.debug.check_numerics(model(ids)[1], "logits")
+    sfn = pt.jit.to_static(checked)
+    sfn(ids)
+    sfn(ids)
+    hw = model.head.weight
+    keep = hw.value[0, 0].clone()
+    with torch.no_grad():
+        hw.value[0, 0] = float("inf")
+    try:
+        sfn(ids)
+        raise SystemExit("(ah) check_numerics in the graph raised nothing")
+    except pt.debug.NanInfError as err:
+        res["check_numerics"] = str(err)
+    finally:
+        with torch.no_grad():
+            hw.value[0, 0] = keep
+    sfn(ids)                                  # finite again: no raise
+    return res
+
+
+def control_flow_program(pt):
+    """(ai)'s program: a fixed-point iteration (``while_loop``), ``cond``
+    on a fed threshold and ``switch_case`` on a fed index."""
+    def build():
+        x = pt.static.data("x", [64], "float32")
+        t = pt.static.data("t", [], "float32")
+        k = pt.static.data("k", [], "int32")
+        lin = pt.nn.Linear(64, 64)
+        i = pt.zeros([], "int32")
+        d = pt.ones([], "float32")
+        i_f, y, _ = pt.static.while_loop(
+            lambda i, y, d: pt.logical_and(i < 25, d > 1e-3),
+            lambda i, y, d: (i + 1, pt.cos(y), pt.max(pt.abs(pt.cos(y) - y))),
+            [i, x, d])
+        z = pt.static.cond(y.mean() > t, lambda: lin(y), lambda: y * 2.0)
+        out = pt.static.switch_case(k, [lambda: z + 1.0, lambda: pt.tanh(z),
+                                        lambda: z * z])
+        return [i_f, y, z, out], lin
+    pt.enable_static()
+    try:
+        main = pt.static.Program()
+        with pt.static.program_guard(main, pt.static.Program()):
+            fetch, lin = build()
+        rng = np.random.default_rng(SEED + 40)
+        lin.weight.set_value(0.1 * rng.standard_normal((64, 64),
+                                                       dtype=np.float32))
+        lin.bias.set_value(0.1 * rng.standard_normal(64, dtype=np.float32))
+        x = rng.uniform(0.0, 1.5, 64).astype(np.float32)
+        exe = pt.static.Executor()
+        outs = []
+        for t, k in ((0.5, 0), (0.9, 1), (0.5, 2), (0.9, 5)):
+            outs += exe.run(main, feed={"x": x, "t": np.float32(t),
+                                        "k": np.int32(k)},
+                            fetch_list=fetch)
+        return outs
+    finally:
+        pt.disable_static()
+
+
+def control_flow_path(torch, pt):
+    """(ai): the static program card against CPU, ``to_static`` with a
+    tensor ``cond`` and with dropout, and static save / load and
+    serialization on the card."""
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.ops import dispatch
+    res = {}
+    prev = core._state.expected_place
+    try:
+        got = {}
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            got[place] = control_flow_program(pt)
+    finally:
+        core._state.expected_place = prev
+    worst = 0.0
+    for g, c in zip(got["gpu"], got["cpu"]):
+        if c.dtype.kind != "f":
+            if not np.array_equal(g, c):
+                raise SystemExit(f"(ai) integer fetch {g} != {c}")
+            continue
+        err = float(np.abs(g - c).max()) / max(float(np.abs(c).max()), 1e-30)
+        worst = max(worst, err)
+    if worst > FP32_TOL:
+        raise SystemExit(f"(ai) the program's fetches differ: {worst:.3e}")
+    res["program_err"] = worst
+    res["iterations"] = int(got["gpu"][0])
+    pt.set_device("gpu")
+    # cond on a tensor predicate under to_static: both branches, a select
+
+    def f(x):
+        return pt.static.cond(x.sum() > 0, lambda: pt.tanh(x) * 2,
+                              lambda: -x)
+    sf = pt.jit.to_static(f)
+    dispatch.reset_cache_stats()
+    rng = np.random.default_rng(SEED + 41)
+    for _ in range(4):
+        x = pt.to_tensor(rng.standard_normal(4096).astype(np.float32))
+        if not torch.equal(sf(x).value, f(x).value):
+            raise SystemExit("(ai) to_static cond differs from eager")
+    st = dispatch.cache_stats()
+    if (st["misses"], st["hits"], st["fallbacks"]) != (1, 3, 0):
+        raise SystemExit(f"(ai) to_static cond cache_stats {st}")
+    # dropout in a training-mode to_static forward
+    net = pt.nn.Sequential(pt.nn.Linear(256, 256), pt.nn.Dropout(0.1))
+    sn = pt.jit.to_static(net)
+    x = pt.to_tensor(np.ones((64, 256), np.float32))
+    sn(x)
+    pt.seed(SEED)
+    a = sn(x).numpy()
+    b = sn(x).numpy()
+    pt.seed(SEED)
+    c = sn(x).numpy()
+    if np.array_equal(a, b) or not np.array_equal(a, c):
+        raise SystemExit("(ai) dropout masks: replays equal or re-seeding "
+                         "does not repeat the first")
+    res["dropout_zero_share"] = float((a == 0).mean())
+    # static save / load and serialization on the card
+    pt.enable_static()
+    try:
+        main = pt.static.Program()
+        with pt.static.program_guard(main, pt.static.Program()):
+            xin = pt.static.data("x", [8, 32], "float32")
+            pt.static.nn.fc(pt.static.nn.fc(xin, 64, activation="relu"), 8)
+        params = main.all_parameters()
+        saved = [p.numpy().copy() for p in params]
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "paddle_tpu_torch", "_build", "static_ckpt",
+                            "model")
+        pt.static.save(main, path)
+        for p in params:
+            p.set_value(np.zeros(p.shape, np.float32))
+        pt.static.load(main, path)
+        shutil.rmtree(os.path.dirname(path))
+        ok = all(np.array_equal(p.numpy(), s) for p, s in zip(params, saved))
+        blob = pt.static.serialize_persistables(program=main)
+        for p in params:
+            p.set_value(np.zeros(p.shape, np.float32))
+        pt.static.deserialize_persistables(main, blob)
+        ok = ok and all(np.array_equal(p.numpy(), s)
+                        for p, s in zip(params, saved))
+        on_card = all(p.value.is_cuda for p in params)
+    finally:
+        pt.disable_static()
+    if not (ok and on_card):
+        raise SystemExit("(ai) static save / load or serialization did not "
+                         "round-trip the parameters on the card")
+    res["params_round_tripped"] = len(params)
+    return res
+
+
+def jit_phases(torch, flash_attn, norms, card, launches):
+    """Phases (ag), (ah), (ai), logged; (ag)'s replay launches go into
+    ``launches``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    prev = core._state.expected_place
+    try:
+        t0 = time.perf_counter()
+        ag, model, sfn, batches = to_static_path(torch, pt, flash_attn,
+                                                 norms)
+        e = ENCODER
+        launches["layer_norm_to_static"] = ag["launches"]["layer_norm"]
+        launches["flash_attention_fwd_to_static"] = \
+            ag["launches"]["flash_attention_fwd"]
+        launches["rms_norm_to_static"] = ag["launches"]["rms_norm"]
+        log(f"(ag) paddle.jit.to_static of (n)'s encoder (V={e['V']}, "
+            f"H={e['H']}, L={e['L']}, nh={e['nh']}, F={e['F']}), "
+            f"[{ENCODER_BATCH}, {e['N']}] token ids, no_grad, one CUDA graph "
+            f"a dtype, {ENCODER_BATCHES} replays alternated with the eager "
+            f"forward, on {card}:")
+        for dt, r in ag["runs"].items():
+            log(f"    {dt}: replay {r['batch_ms']:.3f} ms a batch, tokens/s "
+                f"{r['tokens_per_s']:.0f}; eager {r['eager_batch_ms']:.3f} "
+                f"ms, tokens/s {r['eager_tokens_per_s']:.0f}; replay / eager "
+                f"{r['ratio']:.4f}; bit-equal to eager {r['bit_equal']} "
+                f"(final norm {r['h_err']:.3e} of max, logits "
+                f"{r['l_err']:.3e}); warm-up and capture {r['capture_s']:.2f}"
+                f" s; replay ms {r['replay_ms_each']}, eager ms "
+                f"{r['eager_ms_each']}  [{card}]")
+        log(f"    launches over the replays {ag['launches']}; cache_stats "
+            f"{ag['stats']} (a [4, 256] graph beside the [8, 512] one); an "
+            f"in-place bias update seen (max |diff| to eager "
+            f"{ag['inplace_err']:.3e}); jit.save / jit.load of the bf16 "
+            f"model ({ag['saved_mib']:.1f} MiB) bit-equal in "
+            f"{ag['save_load_s']:.1f} s; phase {time.perf_counter() - t0:.1f}"
+            f" s")
+        del sfn
+        t0 = time.perf_counter()
+        ah = profiler_path(torch, pt, model, batches)
+        log(f"(ah) profiler over 3 eager bf16 forwards of (ag)'s model: "
+            f"{ah['ops_a_forward']} dispatched ops a forward, host "
+            f"{ah['host_us_forward']:.1f} us a forward in ops "
+            f"({ah['us_an_op']:.2f} us an op), wall "
+            f"{ah['wall_us_forward']:.1f} us a forward; the 10 ops with the "
+            f"most host us a call (op, calls a forward, us a call): "
+            f"{ah['top10']}; chrome trace: one event an op; device trace "
+            f"{ah['device_kernel_events']} kernel events  [{card}]")
+        log(f"    nan guard: {ah['nan_guard']}; check_numerics in a graph: "
+            f"{ah['check_numerics']}; phase {time.perf_counter() - t0:.1f} s")
+        del model, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ai = control_flow_path(torch, pt)
+        log(f"(ai) a static program (while_loop fixed point, "
+            f"{ai['iterations']} iterations; cond; switch_case), card "
+            f"against CPU over 4 feeds: max err / max|ref| "
+            f"{ai['program_err']:.3e} (tol {FP32_TOL:.0e}), integers exact; "
+            f"to_static cond on a tensor predicate equal to eager (1 "
+            f"capture, 3 replays); dropout 0.1 in a training-mode to_static "
+            f"forward: fresh masks each replay, the first again after "
+            f"re-seeding (zero share {ai['dropout_zero_share']:.4f}); "
+            f"static save / load and serialize_persistables round-tripped "
+            f"{ai['params_round_tripped']} parameters on the card; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        core._state.expected_place = prev
+        torch.cuda.empty_cache()
+
+
 # (z): the slot-contiguous engine ------------------------------------------
 
 def slot_path(torch, ServingEngine, kernels, cfg, params, prompts,
@@ -6156,7 +6618,7 @@ def report(torch, cases, launches, train, t_start):
     fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
     for k in kernels:
         for path in ("ernie", "eager_ernie", "eager_encoder", "multilabel",
-                     "hapi",
+                     "to_static", "hapi",
                      "hapi_eval", "chunked", "chunked_quant", "spec",
                      "spec_quant", "spec_quant_m40", "slot", "slot_quant"):
             if f"{k['name']}_{path}" in launches:

@@ -86,13 +86,21 @@ included), the dtypes as attributes (``paddle.float32`` is
 ``torch.float32``, so ``x.dtype == paddle.float32``), the grad-mode
 switches, the generator state and the tensor arrays; and ``nn``'s
 activations and the rest of its losses, functional and layers.
+
+The package also holds ``debug`` (the nan guard, ``check_numerics``),
+``profiler`` (host events op by op, device traces), the dispatch's hooks
+and ``cache_stats``, ``jit`` (``to_static`` as one CUDA graph per input
+signature, ``save`` / ``load``, ``functional``) and the rest of
+``static`` (control flow, ``misc``, the other ``static.nn`` builders,
+``save`` / ``load`` and serialization); the eager tensor API keeps the
+reference's dtypes on bool, small integer and 16-bit inputs.
 """
 import sys as _sys
 
 import torch as _torch
 
 from . import amp, autograd, nn, optimizer, regularizer
-from . import io, jit, metric, static, vision
+from . import debug, io, jit, metric, profiler, static, vision
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .hapi import callbacks
@@ -100,6 +108,9 @@ from .hapi.model import Model
 from .hapi.model_summary import summary
 from .io.serialization import load, save
 from .jit.api import disable_static, enable_static, in_static_mode
+from .jit.api import disable_static as enable_dygraph  # noqa: E402
+from .jit.api import enable_static as disable_dygraph  # noqa: E402
+from .static.nn import create_parameter  # noqa: E402
 from .device import DEFAULT_DEVICE, card_info, resolve_device
 from .framework import (CPUPlace, CUDAPlace, Generator, ParamAttr,
                         get_default_dtype, get_device, seed,

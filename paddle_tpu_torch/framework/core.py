@@ -145,6 +145,7 @@ class _State(threading.local):
         self.default_dtype = torch.float32
         self.expected_place = None
         self.amp_state = None
+        self.tracing = False
 
 
 _state = _State()
@@ -168,6 +169,16 @@ def grad_enabled() -> bool:
 
 def set_grad_enabled_flag(flag: bool):
     torch.set_grad_enabled(bool(flag))
+
+
+def in_tracing() -> bool:
+    """True inside ``jit.to_static``'s forward (``jit.functional.
+    trace_mode``), where tensor predicates are not read on the host."""
+    return _state.tracing
+
+
+def set_tracing(flag: bool):
+    _state.tracing = bool(flag)
 
 
 def get_place() -> Place:
@@ -208,9 +219,13 @@ class Generator:
         self.manual_seed(seed)
 
     def manual_seed(self, seed: int):
+        """Seed every stream.  A device stream made already is re-seeded
+        in place, so a CUDA graph that registered it draws from the new
+        seed at its next replay."""
         self._seed = int(seed)
         self.torch.manual_seed(self._seed)
-        self._on.clear()
+        for gen in self._on.values():
+            gen.manual_seed(self._seed)
         return self
 
     def get_state(self):
@@ -221,10 +236,15 @@ class Generator:
 
     def set_state(self, state):
         """Return every stream to where :meth:`get_state` found it (a
-        device stream made since then starts again from the seed)."""
+        device stream made since then starts again from the seed); the
+        stream objects stay the same."""
         self._seed = state["seed"]
         self.torch.set_state(state["cpu"])
-        self._on.clear()
+        for d, gen in self._on.items():
+            if d in state["devices"]:
+                gen.set_state(state["devices"][d])
+            else:
+                gen.manual_seed(self._seed)
         for d, st in state["devices"].items():
             self.on(d).set_state(st)
 

@@ -28,3 +28,12 @@ class ParamAttr:
         if arg is False:
             return None
         return ParamAttr()
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr with the weight-norm dimension (ref
+    ``paddle_tpu/framework/param_attr.py``)."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

@@ -47,18 +47,17 @@ returns the engine's own counts.
 from __future__ import annotations
 
 import collections
-import gc
 import math
 import time
 import uuid
+import weakref
 
 import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import gpt
-from ..ops.cuda import (dequant_matmul, fused_ffn, norms, paged_attn,
-                        row_matmul)
+from ..ops.cuda import counters, dequant_matmul, paged_attn
 from .kv_pager import KVPager, PagesExhausted
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4)
@@ -96,35 +95,18 @@ _WARMUP_QUIET = frozenset(_COUNTERS) - {"queue_rejects", "step_aborts",
                                         "decode_compiles",
                                         "spec_draft_compiles"}
 
-# the kernel modules' launch counters a captured step can move (fused_ffn
-# with cfg.use_fused_ffn; dequant_matmul's by row count, a dict): capture
-# takes its increments back, each replay adds them again
-_LAUNCH_COUNTERS = ((paged_attn, "launches"), (paged_attn, "quant_launches"),
-                    (norms, "launches"), (dequant_matmul, "launches"),
-                    (dequant_matmul, "rows_launches"),
-                    (fused_ffn, "launches"), (fused_ffn, "bodies"),
-                    (row_matmul, "launches"), (row_matmul, "ln_launches"))
+# every live engine, for profiler.serving_stats
+_engines = weakref.WeakSet()
 
 
-def _launch_counts():
-    return [dict(v) if isinstance(v, dict) else v
-            for v in (getattr(m, a) for m, a in _LAUNCH_COUNTERS)]
-
-
-def _count_delta(after, before):
-    return [{k: n - b.get(k, 0) for k, n in a.items() if n != b.get(k, 0)}
-            if isinstance(a, dict) else a - b
-            for a, b in zip(after, before)]
-
-
-def _add_launch_counts(delta, sign=1):
-    for (m, a), d in zip(_LAUNCH_COUNTERS, delta):
-        cur = getattr(m, a)
-        if isinstance(cur, dict):
-            for k, n in d.items():
-                cur[k] = cur.get(k, 0) + sign * n
-        else:
-            setattr(m, a, cur + sign * d)
+def serving_stats():
+    """The serving counters of every live engine in the process, summed
+    (the reference's ``serving`` registry family)."""
+    out = dict.fromkeys(_COUNTERS, 0)
+    for eng in list(_engines):
+        for k, v in eng._counts.items():
+            out[k] += v
+    return out
 
 
 def _pow2_ladder(lo, hi):
@@ -209,29 +191,8 @@ class _GraphStep:
         """The first call on the card: the eager step on the side stream,
         then the capture (which executes nothing).  Returns the eager
         step's outputs."""
-        cur = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            out = self._run()
-        cur.wait_stream(self._side)
-        # collect dead engines first: each holds its steps in a cycle, and
-        # the cyclic collector freeing one's graph, events and pinned
-        # buffers inside this capture would make CUDA calls that
-        # invalidate it (torch.cuda.graph no longer collects on entry)
-        gc.collect()
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._side):
-                self._out = self._run()
-        finally:
-            after = _launch_counts()
-            _add_launch_counts(_count_delta(after, before), -1)
-        self._delta = _count_delta(after, before)
-        self._held = (paged_attn.held_buffers(self.device)
-                      + dequant_matmul.held_buffers(self.device))
-        self._graph = graph
+        out, self._graph, self._out, self._delta, self._held = \
+            counters.capture(self._run, self.device, self._side, self._pool)
         self.captures += 1
         return out
 
@@ -249,7 +210,7 @@ class _GraphStep:
             before(*self._args)
         if self._graph is not None:
             self._graph.replay()
-            _add_launch_counts(self._delta)
+            counters.add_launch_counts(self._delta)
             return self._out
         if self._cuda:
             return self._first()
@@ -514,6 +475,7 @@ class ServingEngine:
         self._slot_req = [None] * self.slots
         self._queue = collections.deque()
         self._counts = {k: 0 for k in _COUNTERS}
+        _engines.add(self)
         self._aborted = []
         self._admitting = []
         self._finished_backlog = []

@@ -23,10 +23,28 @@ cast alike), so a replay keeps the casts that were in force at build.
 The op still runs on the build's placeholder values, so shapes and
 Python control flow resolve; nothing records on the tape then.
 
-Not ported in this slice: the reference's signature-keyed executable
-cache (``_cached_dispatch``), nan guard and profiler hook.
+Two hooks run when they are on, one flag test each when they are off:
+the nan guard (``debug.enable_check_nan_inf``) checks the op's floating
+outputs after it runs (``debug._assert_finite_eager``), and the profiler
+(``profiler.start_profiler``) records the op's host time under its name
+(``profiler.record_op``), as the reference's ``call`` does.  During a
+CUDA graph capture the guard writes device flags instead of syncing, and
+the profiler records nothing: a replay is one event (``jit.to_static``).
+
+The reference's signature-keyed executable cache (``_cached_dispatch``)
+exists to avoid a JAX trace per eager op, which torch's eager mode does
+not have.  Its counterpart in the port is ``jit.to_static``'s cache of
+CUDA graphs, one per input signature; :func:`cache_stats` keeps the
+reference's keys with that meaning: ``misses`` are captures, ``hits``
+replays, ``warming`` the eager warm-up runs before a capture,
+``fallbacks`` calls that cannot be captured and run eagerly on the card,
+``evictions`` graphs dropped by the bound, ``size`` the graphs held and
+``blacklisted`` the signatures found uncapturable.
 """
 from __future__ import annotations
+
+import time
+import weakref
 
 import torch
 from torch.utils import _pytree as pytree
@@ -36,6 +54,45 @@ from ..framework import core
 # static.graph.record_call while static mode is on (set by
 # static.graph._set_static_mode), else None
 static_recorder = None
+# the hooks: set by debug.enable_check_nan_inf and profiler.start_profiler
+nan_guard = False
+profiling = False
+
+_STAT_KEYS = ("hits", "misses", "fallbacks", "warming", "evictions")
+_stats = dict.fromkeys(_STAT_KEYS, 0)
+# every live to_static wrapper (jit.api.TracedLayer), for size and clear
+_graph_caches = weakref.WeakSet()
+
+
+def cache_enabled():
+    """Does ``jit.to_static`` use its graph cache?  The one switch is
+    ``jit.ProgramTranslator().enable``; off, a ``to_static`` call is the
+    plain eager call, on the tape, and counts nothing."""
+    from ..jit.api import ProgramTranslator
+    return ProgramTranslator.get_instance().enable_to_static
+
+
+def cache_stats():
+    """The counters of ``jit.to_static``'s graph cache (module
+    docstring), with ``size`` and ``blacklisted`` computed live."""
+    out = dict(_stats)
+    caches = list(_graph_caches)
+    out["size"] = sum(len(c._graphs) for c in caches)
+    out["blacklisted"] = sum(len(c._uncapturable) for c in caches)
+    return out
+
+
+def reset_cache_stats():
+    _stats.update(dict.fromkeys(_STAT_KEYS, 0))
+
+
+def clear_cache(blacklist=False):
+    """Drop every captured graph (called on static-mode flips);
+    ``blacklist`` also forgets the signatures found uncapturable."""
+    for c in list(_graph_caches):
+        c._graphs.clear()
+        if blacklist:
+            c._uncapturable.clear()
 
 
 def _tensor_cls():
@@ -75,6 +132,7 @@ def _wrap(val, stop_gradient=True):
 def call(fn, *args, _name=None, **kwargs):
     """Apply ``fn`` to args that may hold Tensors.  Returns a Tensor, or a
     tuple of Tensors for a tuple or list of outputs."""
+    t0 = time.perf_counter() if profiling else None
     Tensor = _tensor_cls()
     recorder = static_recorder
     record = recorder is None and core.grad_enabled() and any(
@@ -91,9 +149,15 @@ def call(fn, *args, _name=None, **kwargs):
     with torch.set_grad_enabled(record):
         out = fn(*unwrap(args), **unwrap(kwargs))
     multi = isinstance(out, (tuple, list))
+    if nan_guard:
+        from .. import debug
+        debug._assert_finite_eager(name, out if multi else (out,))
     outs = tuple(_wrap(o, not (record and o.is_floating_point()))
                  for o in (out if multi else (out,)))
     if recorder is not None:
         leaves, spec = pytree.tree_flatten((args, kwargs))
         recorder(fn, leaves, spec, outs, name)
+    if t0 is not None:
+        from .. import profiler
+        profiler._record_dispatch(name, t0)
     return outs if multi else outs[0]

@@ -1,16 +1,27 @@
 """paddle_tpu_torch.static (counterpart of
 ``paddle_tpu/static/__init__.py``): the record-replay ``Program``, the
 ``Executor`` and ``ParallelExecutor`` on one device, ``append_backward`` /
-``gradients``, part of ``static.nn`` and ``InputSpec``.  Static control
-flow, ``misc`` (``Variable``, ``py_func``, ...), inference-model export
-and program serialization are not ported (ROADMAP Queue 1 item 4)."""
+``gradients``, ``static.nn``, the control flow (``cond``, ``while_loop``,
+``case``, ``switch_case``), ``misc`` (``Print``, ``py_func``,
+``create_global_var`` ...), ``save`` / ``load`` and program
+serialization, and ``InputSpec``.  ``save_inference_model`` and
+``load_inference_model`` wait for ``inference/export.py`` (ROADMAP Queue
+1 item 4, the rest of the package) and raise."""
+import pickle
+
 from . import nn
+from .. import amp  # noqa: F401  (static.amp: the one amp package)
 from .backward import append_backward, gradients
+from .control_flow import case, cond, switch_case, while_loop
 from .graph import (BuildStrategy, CompiledProgram, ExecutionStrategy,
                     Executor, Program, Scope, _set_static_mode, data,
                     default_main_program, default_startup_program,
                     executor_stats, global_scope, in_static_mode,
                     program_guard, scope_guard)
+from .misc import (Print, Variable, WeightNormParamAttr, create_global_var,
+                   cpu_places, cuda_places, current_name_scope,
+                   load_program_state, name_scope, py_func,
+                   set_program_state)
 from ..jit.api import InputSpec
 
 
@@ -41,3 +52,66 @@ class ParallelExecutor(Executor):
             program, fetch_list = fetch_list, program
         return super().run(program or self._main_program, feed, fetch_list,
                            **kwargs)
+
+
+def _needs_export(name):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"static.{name} needs inference/export.py, which is not ported "
+            "(ROADMAP Queue 1 item 4, the rest of the package)")
+    fn.__name__ = name
+    return fn
+
+
+save_inference_model = _needs_export("save_inference_model")
+load_inference_model = _needs_export("load_inference_model")
+
+
+def save(program, model_path, **kwargs):
+    """The program's parameters, as ``param_{i}`` in parameter order, to
+    ``model_path.pdparams`` (``paddle.save``'s format)."""
+    from ..io.serialization import save as _save
+    state = {f"param_{i}": p for i, p in enumerate(program.all_parameters())}
+    _save(state, model_path + ".pdparams")
+
+
+def load(program, model_path, executor=None, var_list=None):
+    """Copy a :func:`save` checkpoint into the program's parameters."""
+    from ..io.serialization import load as _load
+    state = _load(model_path + ".pdparams")
+    for i, p in enumerate(program.all_parameters()):
+        key = f"param_{i}"
+        if key in state:
+            p.set_value(state[key])
+
+
+def serialize_program(feed_vars=None, fetch_vars=None, program=None,
+                      **kwargs):
+    """Bytes of the program's structure: its op count, feeds and
+    parameter names (the Executor rebuilds the replay)."""
+    prog = program or default_main_program()
+    return pickle.dumps({"n_ops": len(prog.ops),
+                         "feeds": list(prog.feed_ids),
+                         "params": [getattr(p, "name", str(i))
+                                    for i, p in prog.params.items()]})
+
+
+def serialize_persistables(feed_vars=None, fetch_vars=None, program=None,
+                           **kwargs):
+    """Bytes of the program's parameters by name (numpy arrays; a
+    bfloat16 one as its exact float32 copy)."""
+    prog = program or default_main_program()
+    return pickle.dumps({getattr(p, "name", str(i)): p._host().copy()
+                         for i, p in prog.params.items()})
+
+
+def deserialize_program(data):
+    return pickle.loads(data)
+
+
+def deserialize_persistables(program, data, executor=None):
+    """Load :func:`serialize_persistables` bytes into the program's
+    parameters; returns the state."""
+    state = pickle.loads(data)
+    program.set_state_dict(state)
+    return state

@@ -19,8 +19,8 @@ reference's ``static.executor`` compile-cache site; ``executor_stats``
 counts its ``builds`` (the reference's compiles), ``hits`` and
 ``evictions``.  A run without fetches makes no host sync.  Capturing the
 replay as a CUDA graph is not ported (ROADMAP Queue 1 item 2); nor are
-static control flow, the reference's ``fluid`` reader hooks and inference
-export.
+the reference's ``fluid`` reader hooks and inference export.  Static
+control flow records composite ops (``static.control_flow``).
 """
 from __future__ import annotations
 
@@ -53,7 +53,12 @@ def in_static_mode():
 
 
 def _set_static_mode(flag):
-    _static_mode[0] = bool(flag)
+    flag = bool(flag)
+    if flag != _static_mode[0]:
+        # to_static's graphs were captured for the other mode: drop them
+        # on every flip, as the reference drops its dispatch cache
+        dispatch.clear_cache()
+    _static_mode[0] = flag
     dispatch.static_recorder = record_call if flag else None
 
 
@@ -159,8 +164,28 @@ class Program:
                         if t.persistable and t.name not in out})
         return out
 
+    def set_state_dict(self, state_dict, scope=None):
+        """Copy values into the parameters (and persistable captures) of
+        the same name, in place."""
+        by_name = {p.name: p for p in self.params.values()}
+        for t in self.captured.values():
+            by_name.setdefault(t.name, t)
+        for k, v in state_dict.items():
+            if by_name.get(k) is not None:
+                by_name[k].set_value(v)
+
+    def has_var(self, name):
+        try:
+            self.var(name)
+            return True
+        except ValueError:
+            return False
+
     def all_parameters(self):
         return list(self.params.values())
+
+    def list_vars(self):
+        return list(self.var_meta.keys())
 
     def lookup(self, env, vid):
         """A var id's value: the env, then the program's captures, then a

@@ -98,13 +98,21 @@ def matrix_power(x, n, name=None):
                 _name="matrix_power")
 
 
+def _inexact(a):
+    """``a``, a bool or integer input as float32: the decompositions
+    compute in float, as jnp's do."""
+    return a if a.is_floating_point() or a.is_complex() else a.to(
+        torch.float32)
+
+
 def svd(x, full_matrices=False, name=None):
     return call(lambda a: tuple(torch.linalg.svd(
-        a, full_matrices=full_matrices)), x, _name="svd")
+        _inexact(a), full_matrices=full_matrices)), x, _name="svd")
 
 
 def qr(x, mode="reduced", name=None):
     def _qr(a):
+        a = _inexact(a)
         if mode == "r":
             return torch.linalg.qr(a, mode="r").R
         return tuple(torch.linalg.qr(a, mode=mode))
@@ -135,7 +143,7 @@ def inv(x, name=None):
 
 
 def pinv(x, rcond=1e-15, hermitian=False, name=None):
-    return call(lambda a: torch.linalg.pinv(a, rtol=rcond,
+    return call(lambda a: torch.linalg.pinv(_inexact(a), rtol=rcond,
                                             hermitian=hermitian),
                 x, _name="pinv")
 
@@ -196,16 +204,18 @@ def lstsq(x, y, rcond=None, driver=None, name=None):
 
 def matrix_rank(x, tol=None, hermitian=False, name=None):
     return call(lambda a: torch.linalg.matrix_rank(
-        a, rtol=tol, hermitian=hermitian).to(_i64()), x,
+        _inexact(a), rtol=tol, hermitian=hermitian).to(_i64()), x,
         _name="matrix_rank")
 
 
 def cond(x, p=None, name=None):
-    return call(lambda a: torch.linalg.cond(a, p=p), x, _name="cond")
+    return call(lambda a: torch.linalg.cond(_inexact(a), p=p), x,
+                _name="cond")
 
 
 def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):
     def _cov(a, fw, aw):
+        a = _inexact(a)
         return torch.cov(a if rowvar else a.transpose(0, 1),
                          correction=1 if ddof else 0,
                          fweights=fw, aweights=aw)
@@ -213,8 +223,9 @@ def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):
 
 
 def corrcoef(x, rowvar=True, name=None):
-    return call(lambda a: torch.corrcoef(a if rowvar else a.transpose(0, 1)),
-                x, _name="corrcoef")
+    return call(lambda a: torch.corrcoef(
+        _inexact(a) if rowvar else _inexact(a).transpose(0, 1)),
+        x, _name="corrcoef")
 
 
 def _install():

@@ -15,7 +15,7 @@ import torch
 
 from ..ops.dispatch import call
 from .math import _i64, _promoted
-from .tensor import Tensor
+from .tensor import Tensor, _readable
 
 
 def _v(x):
@@ -303,6 +303,7 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
     ``axis``), with the first index, the inverse and the counts asked
     for, as ``np.unique`` gives them."""
     def _u(a):
+        _readable(a, "unique")
         vals, inv, counts = torch.unique(a, sorted=True, return_inverse=True,
                                          return_counts=True, dim=axis)
         outs = [vals]
@@ -322,6 +323,7 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
 def unique_consecutive(x, return_inverse=False, return_counts=False,
                        axis=None, dtype="int64", name=None):
     def _uc(a):
+        _readable(a, "unique_consecutive")
         vals, inv, counts = torch.unique_consecutive(
             a.reshape(-1) if axis is None else a, return_inverse=True,
             return_counts=True, dim=None if axis is None else 0)
@@ -335,8 +337,8 @@ def unique_consecutive(x, return_inverse=False, return_counts=False,
 
 
 def masked_select(x, mask, name=None):
-    return call(lambda a, m: a[m.bool()], x.detach(), mask,
-                _name="masked_select")
+    return call(lambda a, m: a[_readable(m, "masked_select").bool()],
+                x.detach(), mask, _name="masked_select")
 
 
 def index_select(x, index, axis=0, name=None):

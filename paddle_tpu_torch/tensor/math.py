@@ -21,7 +21,7 @@ import torch
 
 from ..framework import core
 from ..ops.dispatch import call
-from .tensor import Tensor
+from .tensor import Tensor, convert
 
 def _v(x):
     return x.value if isinstance(x, Tensor) else x
@@ -98,6 +98,41 @@ def _promoted(*args, scalars=False):
     return out
 
 
+def _acc_dtype(dt):
+    """The dtype of jnp's sum or product over an input of dtype ``dt``
+    (x64 off): bool and the signed integers give int32, uint8 gives
+    uint32, the rest keep their dtype."""
+    if dt in (torch.bool, torch.int8, torch.int16, torch.int32):
+        return torch.int32
+    if dt == torch.uint8:
+        return torch.uint32
+    return dt
+
+
+def _is_int(v):
+    """An integer operand (a tensor or a Python int; bool is not one)."""
+    if isinstance(v, torch.Tensor):
+        return not (v.is_floating_point() or v.is_complex()
+                    or v.dtype == torch.bool)
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _int_div(a, b, mode):
+    """Integer ``a / b`` rounded by ``mode`` ("trunc" or "floor"), with
+    XLA's result where ``b`` is 0 (torch raises there on the CPU and is
+    undefined on the card): all ones for trunc (-1, or the unsigned
+    maximum); for floor, the same on unsigned operands and -1 for a zero
+    ``a`` and -2 otherwise on signed ones, as jnp's ``floor_divide``
+    gives."""
+    zero = b == 0
+    q = torch.div(a, torch.where(zero, torch.ones_like(b), b),
+                  rounding_mode=mode)
+    ones = ~torch.zeros_like(q)
+    if mode == "floor" and q.is_signed():
+        ones = torch.where(a == 0, ones, ones - 1)
+    return torch.where(zero, ones, q)
+
+
 def _narrow_index(out, *inputs):
     """``out`` in int32 where torch gave int64 and no input was int64."""
     if out.dtype == torch.int64 and not builtins.any(
@@ -163,8 +198,32 @@ def _keep_int(tfn):
 add = _binary(torch.add, "add")
 subtract = _binary(torch.sub, "subtract")
 multiply = _binary(torch.mul, "multiply")
-mod = remainder = floor_mod = _binary(torch.remainder, "remainder", True)
-floor_divide = _binary(torch.floor_divide, "floor_divide", True)
+
+
+def _remainder(a, b):
+    a2, b2 = _bool_pair_int(a, b)
+    if _is_int(a2):
+        # x % 0 is 0 in jnp
+        b2 = torch.where(b2 == 0, torch.ones_like(b2), b2)
+    return _narrow_index(torch.remainder(a2, b2), a, b)
+
+
+def _floor_divide(a, b):
+    a2, b2 = _bool_pair_int(a, b)
+    if _is_int(a2):
+        return _narrow_index(_int_div(a2, b2, "floor"), a, b)
+    return _narrow_index(torch.floor_divide(a2, b2), a, b)
+
+
+def remainder(x, y, name=None):
+    return call(_remainder, x, y, _name="remainder")
+
+
+def floor_divide(x, y, name=None):
+    return call(_floor_divide, x, y, _name="floor_divide")
+
+
+mod = floor_mod = remainder
 maximum = _binary(torch.maximum, "maximum", True)
 minimum = _binary(torch.minimum, "minimum", True)
 fmax = _binary(torch.fmax, "fmax", True)
@@ -183,13 +242,15 @@ def atan2(x, y, name=None):
 
 
 def _div(a, b):
+    both_int = _is_int(a) and _is_int(b)
     dt = _result_type(a, b)
     a, b = _promoted(a, b, scalars=True)
-    if not (dt.is_floating_point or dt.is_complex or dt == torch.bool):
+    if both_int:
         # int / int truncates toward zero (C semantics), unlike floor
-        # division, which rounds toward -inf
-        return torch.div(a, b, rounding_mode="trunc")
-    if dt == torch.bool:
+        # division, which rounds toward -inf; a bool operand is no
+        # integer, so it divides in float32
+        return _int_div(a, b, "trunc")
+    if not (dt.is_floating_point or dt.is_complex):
         a, b = a.to(torch.float32), b.to(torch.float32)
     return torch.true_divide(a, b)
 
@@ -198,8 +259,18 @@ def divide(x, y, name=None):
     return call(_div, x, y, _name="divide")
 
 
+def _bool_pair_int(a, b):
+    """``a`` and ``b`` promoted; two bools become int32, as jnp computes
+    the arithmetic ops with no bool form (``pow``, ``floor_divide``,
+    ``remainder``)."""
+    a, b = _promoted(a, b, scalars=True)
+    if a.dtype == torch.bool:
+        a, b = a.to(torch.int32), b.to(torch.int32)
+    return a, b
+
+
 def _pow(a, b):
-    return _narrow_index(torch.pow(*_promoted(a, b)), a, b)
+    return _narrow_index(torch.pow(*_bool_pair_int(a, b)), a, b)
 
 
 def pow(x, y, name=None):
@@ -226,7 +297,8 @@ def _round_half_away(a):
     return torch.sign(a) * torch.floor(torch.abs(a) + 0.5)
 
 
-abs = _unary(torch.abs, "abs")
+abs = _unary(lambda a: a.clone() if a.dtype == torch.bool else torch.abs(a),
+             "abs")
 ceil = _unary(_keep_int(torch.ceil), "ceil")
 floor = _unary(_keep_int(torch.floor), "floor")
 round = _unary(_keep_int(_round_half_away), "round")
@@ -239,7 +311,8 @@ log10 = _unary(_float_in(torch.log10), "log10")
 log1p = _unary(_float_in(torch.log1p), "log1p")
 sqrt = _unary(_float_in(torch.sqrt), "sqrt")
 rsqrt = _unary(_float_in(torch.rsqrt), "rsqrt")
-square = _unary(torch.square, "square")
+square = _unary(lambda a: torch.square(
+    a.to(torch.int32) if a.dtype == torch.bool else a), "square")
 sin = _unary(_float_in(torch.sin), "sin")
 cos = _unary(_float_in(torch.cos), "cos")
 tan = _unary(_float_in(torch.tan), "tan")
@@ -256,7 +329,10 @@ erf = _unary(_float_in(torch.erf), "erf")
 reciprocal = _unary(_float_in(torch.reciprocal), "reciprocal")
 sign = _unary(torch.sign, "sign")
 neg = _unary(torch.neg, "neg")
-digamma = _unary(_float_in(torch.digamma), "digamma")
+# digamma's poles: jnp gives nan at 0 as at the negative integers, torch
+# -inf at 0
+digamma = _unary(_float_in(lambda a: torch.where(
+    a == 0, torch.full_like(a, float("nan")), torch.digamma(a))), "digamma")
 lgamma = _unary(_float_in(torch.lgamma), "lgamma")
 sigmoid = _unary(_float_in(torch.sigmoid), "sigmoid")
 
@@ -315,18 +391,14 @@ def _all_dims(a, ax, keepdim, fn):
 
 
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):
-    """Bool and integer sums give int32 (the reference's int64 under
-    x64-off), unless ``dtype`` says otherwise."""
+    """Bool and signed integer sums give int32 (the reference's int64
+    under x64-off), uint8 sums uint32, unless ``dtype`` says otherwise."""
     ax = _axis(axis)
     dt = core.convert_dtype(dtype)
 
     def _sum(a):
         out = torch.sum(a, dim=_dims(ax, a), keepdim=keepdim)
-        if dt is not None:
-            return out.to(dt)
-        if a.dtype in (torch.bool, torch.int32):
-            return out.to(torch.int32)
-        return _narrow_index(out, a)
+        return out.to(dt if dt is not None else _acc_dtype(a.dtype))
     return call(_sum, x, _name="sum")
 
 
@@ -348,7 +420,7 @@ def prod(x, axis=None, keepdim=False, dtype=None, name=None):
             a = a.to(torch.int32)
         out = _all_dims(a, ax, keepdim,
                         lambda v, d, k: torch.prod(v, d, keepdim=k))
-        return _narrow_index(out, a)
+        return out if dt is not None else out.to(_acc_dtype(a.dtype))
     return call(_prod, x, _name="prod")
 
 
@@ -380,13 +452,16 @@ def logsumexp(x, axis=None, keepdim=False, name=None):
 
 
 def _cum(tfn, a, ax, dt):
+    """The cumulative op in jnp's dtype: ``dt``, int32 for bool, else the
+    input's own (torch accumulates integers in int64; the cast back wraps
+    as jnp's narrow accumulator does)."""
     if dt is not None:
         a = a.to(dt)
     elif a.dtype == torch.bool:
         a = a.to(torch.int32)
     if ax is None:
         a, ax = a.reshape(-1), 0
-    return _narrow_index(tfn(a, int(ax)), a)
+    return tfn(a, int(ax)).to(a.dtype)
 
 
 def cumsum(x, axis=None, dtype=None, name=None):
@@ -432,6 +507,13 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None, name=None):
 
 
 # ---------------------------------------------------------------- linalg-ish
+def _bool_product(tfn, a, *rest):
+    """``tfn`` of bool operands as jnp gives it: any of the products
+    true, computed as a float32 count of them (exact; torch has no bool
+    product)."""
+    return tfn(a.to(torch.float32), *(r.to(torch.float32) for r in rest)) != 0
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     def _mm(a, b):
         a, b = _promoted(a, b)
@@ -439,6 +521,8 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
             a = a.transpose(-1, -2)
         if transpose_y and b.dim() > 1:
             b = b.transpose(-1, -2)
+        if a.dtype == torch.bool:
+            return _bool_product(torch.matmul, a, b)
         return torch.matmul(a, b)
     return call(_mm, x, y, _name="matmul")
 
@@ -450,9 +534,15 @@ def _matmul(a, b):
     return torch.matmul(*_promoted(a, b))
 
 
+def _dot(a, b):
+    # the product wraps in the operands' dtype before the sum, as jnp's
+    # sum(a * b) does
+    p = torch.mul(*_promoted(a, b))
+    return torch.sum(p, dim=-1).to(_acc_dtype(p.dtype))
+
+
 def dot(x, y, name=None):
-    return call(lambda a, b: torch.sum(torch.mul(*_promoted(a, b)), dim=-1),
-                x, y, _name="dot")
+    return call(_dot, x, y, _name="dot")
 
 
 def bmm(x, y, name=None):
@@ -468,9 +558,15 @@ def addmm(input, x, y, beta=1.0, alpha=1.0, name=None):
                 _name="addmm")
 
 
+def _inner(a, b):
+    a, b = _promoted(a, b)
+    if a.dtype == torch.bool:
+        return _bool_product(torch.inner, a, b)
+    return torch.inner(a, b)
+
+
 def inner(x, y, name=None):
-    return call(lambda a, b: torch.inner(*_promoted(a, b)), x, y,
-                _name="inner")
+    return call(_inner, x, y, _name="inner")
 
 
 def outer(x, y, name=None):
@@ -483,14 +579,21 @@ def kron(x, y, name=None):
     return call(lambda a, b: torch.kron(*_promoted(a, b)), x, y, _name="kron")
 
 
+def _multi_dot(xs):
+    xs = _promoted(*xs)
+    if xs[0].dtype == torch.bool:
+        return _bool_product(lambda *f: torch.linalg.multi_dot(f), *xs)
+    return torch.linalg.multi_dot(xs)
+
+
 def multi_dot(x, name=None):
-    return call(lambda xs: torch.linalg.multi_dot(_promoted(*xs)), list(x),
-                _name="multi_dot")
+    return call(_multi_dot, list(x), _name="multi_dot")
 
 
 def trace(x, offset=0, axis1=0, axis2=1, name=None):
-    return call(lambda a: _narrow_index(torch.sum(torch.diagonal(
-        a, offset, axis1, axis2), -1), a), x, _name="trace")
+    return call(lambda a: torch.sum(torch.diagonal(
+        a, offset, axis1, axis2), -1).to(_acc_dtype(a.dtype)), x,
+        _name="trace")
 
 
 def diagonal(x, offset=0, axis1=0, axis2=1, name=None):
@@ -593,14 +696,16 @@ def add_n(inputs, name=None):
     if not isinstance(inputs, (list, tuple)):
         inputs = [inputs]
     if len(inputs) == 1:
-        return call(lambda a: a + 0, inputs[0], _name="add_n")
+        # a bool plus the weak 0 is int32 in jnp
+        return call(lambda a: _narrow_index(a + 0, a), inputs[0],
+                    _name="add_n")
     return call(lambda *xs: functools.reduce(torch.add, _promoted(*xs)),
                 *inputs, _name="add_n")
 
 
 def cast(x, dtype, name=None):
     dt = core.convert_dtype(dtype)
-    return call(lambda a: a.to(dt), x, _name="cast")
+    return call(lambda a: convert(a, dt), x, _name="cast")
 
 
 def tanh_(x, name=None):

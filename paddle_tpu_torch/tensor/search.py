@@ -11,7 +11,7 @@ import torch
 from ..framework import core
 from ..ops.dispatch import call
 from .math import _i64, _promoted
-from .tensor import Tensor
+from .tensor import Tensor, _readable
 
 
 def _arg(tfn, opname):
@@ -19,6 +19,8 @@ def _arg(tfn, opname):
         dt = core.convert_dtype(dtype)
 
         def _am(a):
+            if a.dtype == torch.bool:      # torch has no bool argmax
+                a = a.to(torch.uint8)
             if axis is None:
                 return tfn(a.reshape(-1), 0).to(dt)
             return tfn(a, int(axis), keepdim=keepdim).to(dt)
@@ -65,7 +67,7 @@ def nonzero(x, as_tuple=False):
     """[n, ndim] int32 indices of the nonzero entries, or a tuple of
     ndim [n, 1] columns."""
     def _nz(a):
-        nz = torch.nonzero(a).to(_i64())
+        nz = torch.nonzero(_readable(a, "nonzero")).to(_i64())
         if as_tuple:
             return tuple(nz[:, d:d + 1] for d in range(a.dim()))
         return nz

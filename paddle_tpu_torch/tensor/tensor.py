@@ -63,6 +63,38 @@ def _to_torch_value(data, dtype=None, place=None):
     return val
 
 
+def convert(a, dt):
+    """``a`` in dtype ``dt`` as jnp's ``astype`` converts: a float to an
+    integer truncates toward zero, saturates at the integer's range and
+    maps NaN to 0 (torch's ``.to`` wraps on the CPU and is undefined on
+    the card, so the value is clamped first, in a float wide enough to
+    hold the bounds exactly); every other conversion is torch's."""
+    if (a.is_floating_point() and not dt.is_floating_point
+            and not dt.is_complex and dt != torch.bool):
+        info = torch.iinfo(dt)
+        wide = torch.float64 if info.bits > 16 else torch.float32
+        a = a.to(wide).nan_to_num(0.0).clamp(info.min, info.max)
+    return a.to(dt)
+
+
+def host_payload(value):
+    """A torch value as ``(numpy array, dtype tag)`` for pickling:
+    bfloat16, which numpy lacks, as its raw bits in a uint16 array with
+    the tag ``"bfloat16"``; anything else as its numpy copy and ``None``."""
+    v = value.detach().cpu()
+    if v.dtype == torch.bfloat16:
+        return v.view(torch.int16).numpy().view(np.uint16).copy(), "bfloat16"
+    return v.numpy().copy(), None
+
+
+def from_payload(arr, tag):
+    """The inverse of :func:`host_payload`: a CPU torch tensor."""
+    if tag == "bfloat16":
+        return torch.from_numpy(_owned(np.asarray(arr, np.uint16)).view(
+            np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(_owned(np.asarray(arr)))
+
+
 class _HookHandle:
     def __init__(self, hooks, fn):
         self._hooks, self._fn = hooks, fn
@@ -72,6 +104,16 @@ class _HookHandle:
             self._hooks.remove(self._fn)
         except ValueError:
             pass
+
+
+def _readable(v, what):
+    """``v``, about to be read on the host by ``what``: inside a CUDA
+    graph capture on the card the read raises
+    ``jit.functional.GraphBreak`` (``jit.to_static`` then runs eagerly)."""
+    if v.is_cuda and torch.cuda.is_current_stream_capturing():
+        from ..jit.functional import GraphBreak
+        raise GraphBreak(f"{what} reads a value on the host")
+    return v
 
 
 class Tensor:
@@ -183,11 +225,15 @@ class Tensor:
     def numpy(self):
         """A snapshot of the value as a numpy array: a copy, never a view
         of the payload, which optimizers and ``set_value`` update in
-        place (the reference's values are immutable)."""
+        place (the reference's values are immutable).  numpy has no
+        bfloat16 without ``ml_dtypes``, which the port does not import:
+        a bfloat16 value raises (the reference returns an ``ml_dtypes``
+        array); ``item``, ``tolist``, pickling and ``paddle.save`` read it
+        through torch."""
         if self.value.dtype == torch.bfloat16:
             raise TypeError("Tensor.numpy: numpy has no bfloat16; call "
                             "astype('float32') first")
-        v = self.value.detach()
+        v = _readable(self.value.detach(), "Tensor.numpy")
         return v.cpu().numpy() if v.device.type != "cpu" else v.numpy().copy()
 
     def __array__(self, dtype=None, copy=None):
@@ -195,34 +241,42 @@ class Tensor:
         return a.astype(dtype) if dtype is not None else a
 
     def __float__(self):
-        return float(self.value.item())
+        return float(_readable(self.value, "float(Tensor)").item())
 
     def __bool__(self):
-        return bool(self.value.item())
+        return bool(_readable(self.value, "bool(Tensor)").item())
 
     def __int__(self):
-        return int(self.value.item())
+        return int(_readable(self.value, "int(Tensor)").item())
 
     def __index__(self):
-        return int(self.value.item())
+        return int(_readable(self.value, "Tensor.__index__").item())
 
     def __hash__(self):
         return id(self)
 
     def __reduce__(self):
-        # picklable through a numpy payload; the graph is not kept
-        return (_rebuild_tensor, (type(self), self.numpy(),
-                                  self.stop_gradient, self.name))
+        # picklable through a numpy payload (bfloat16 as its bits); the
+        # graph is not kept
+        arr, tag = host_payload(self.value)
+        return (_rebuild_tensor, (type(self), arr, self.stop_gradient,
+                                  self.name, tag))
+
+    def _host(self):
+        """The value on the host as a numpy array, a bfloat16 one as its
+        exact float32 copy."""
+        v = _readable(self.value.detach(), "Tensor.item")
+        return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
 
     def item(self, *args):
-        return self.numpy().item(*args)
+        return self._host().item(*args)
 
     def tolist(self):
-        return self.numpy().tolist()
+        return self._host().tolist()
 
     def astype(self, dtype):
         dt = core.convert_dtype(dtype)
-        return dispatch.call(lambda x: x.to(dt), self, _name="astype")
+        return dispatch.call(lambda x: convert(x, dt), self, _name="astype")
 
     cast = astype
 
@@ -429,7 +483,9 @@ def _long_index(idx):
     return idx
 
 
-def _rebuild_tensor(cls, arr, stop_gradient, name):
+def _rebuild_tensor(cls, arr, stop_gradient, name, tag=None):
+    if tag is not None:
+        arr = from_payload(arr, tag).to(core.get_place().device)
     if cls is Parameter:
         t = Parameter(arr, name=name, trainable=not stop_gradient)
     else:

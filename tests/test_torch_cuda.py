@@ -457,13 +457,15 @@ def test_engine_on_card_matches_generate(dev):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, 256, (n,)).astype(np.int32)
                for n in (5, 11, 3, 16)]
-    paged_attn.launches = norms.launches = 0
+    paged_attn.launches = norms.launches = row_matmul.ln_launches = 0
     reqs = [eng.submit(p, 8) for p in prompts]
     eng.run()
     st = eng.stats()
-    assert paged_attn.launches == st["decode_steps"] * cfg.num_layers
-    assert norms.launches >= (2 * cfg.num_layers + 1) * (
-        st["decode_steps"] + st["prefill_calls"])
+    L = cfg.num_layers
+    assert paged_attn.launches == st["decode_steps"] * L
+    assert norms.launches >= _ln_launches("fp", L, st["decode_steps"],
+                                          st["prefill_calls"])
+    assert row_matmul.ln_launches >= 2 * L * st["decode_steps"]
     for p, r in zip(prompts, reqs):
         want = T.generate(params, cfg, torch.from_numpy(p)[None].to(dev), 8)
         assert r.tokens == want[0, len(p):].tolist()
@@ -2239,3 +2241,280 @@ def test_random_ops_draw_on_the_card(card):
         np.testing.assert_array_equal(pt.rand([8]).numpy(), a)
     finally:
         core._state.expected_place = prev
+
+
+def test_dtype_faults_stay_closed_on_card(card):
+    """The dtype axis of the op tables (bool, small and unsigned integers,
+    16-bit floats: casts that saturate and map NaN to 0, unsigned sums,
+    bool products, integer division by zero, bf16 to the host) on the
+    card against the CPU, every output on the card."""
+    import paddle_tpu_torch as pt
+    from tools import op_sweep as S
+    checked, failed, _ = S.card_sweep(pt, S.DTYPES)
+    assert not failed, failed
+    assert len(checked) == len(S.DTYPES)
+
+
+# --------------------------------------------------------------------------
+# jit.to_static: one CUDA graph per signature
+# --------------------------------------------------------------------------
+
+def _small_encoder(pt, L=2, H=128, nh=2, F=256, V=512, N=64, dropout=0.0):
+    from paddle_tpu_torch import nn
+
+    class Enc(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(V, H)
+            self.pos = nn.Embedding(N, H)
+            self.encoder = nn.TransformerEncoder(
+                nn.TransformerEncoderLayer(H, nh, F, dropout=dropout,
+                                           activation="gelu",
+                                           attn_dropout=0.0,
+                                           normalize_before=True),
+                L, norm=nn.RMSNorm(H))
+            for layer in self.encoder.layers:
+                layer.self_attn.dropout = 0.0
+            self.head = nn.Linear(H, V)
+
+        def forward(self, ids):
+            h = self.word(ids) + self.pos(pt.arange(ids.shape[1]))
+            h = self.encoder(h)
+            return h, self.head(h)
+    m = Enc().eval()
+    rng = np.random.RandomState(0)
+    m.set_state_dict({k: (1 + 0.1 * rng.standard_normal(v.shape)
+                          if "norm" in k else
+                          0.02 * rng.standard_normal(v.shape)).astype(
+                              np.float32)
+                      for k, v in m.state_dict().items()})
+    return m
+
+
+def _counts():
+    return (norms.launches, flash_attn.fwd_launches, norms.rms_launches)
+
+
+@pytest.fixture
+def on_card(dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    prev = core._state.expected_place
+    pt.set_device("gpu")
+    yield pt
+    core._state.expected_place = prev
+
+
+def test_to_static_captures_once_and_replays_with_launch_counts(on_card):
+    """The first call captures (one warm-up, one capture), later calls
+    replay: each replay adds 2L LayerNorm, L flash forward and 1 RMSNorm
+    launches to the counters, the outputs equal the eager forward's bit
+    for bit, stop gradients, and an output a caller holds keeps its value
+    after the next replay.  A second shape captures a second graph."""
+    pt = on_card
+    from paddle_tpu_torch.ops import dispatch
+    model = _small_encoder(pt)
+    sfn = pt.jit.to_static(model)
+    rng = np.random.RandomState(1)
+    ids = [pt.to_tensor(rng.randint(0, 512, (2, 64)).astype(np.int32))
+           for _ in range(3)]
+    dispatch.reset_cache_stats()
+    sfn(ids[0])
+    st = dispatch.cache_stats()
+    assert (st["misses"], st["warming"], st["hits"]) == (1, 1, 0), st
+    before = _counts()
+    h1, l1 = sfn(ids[1])
+    keep = l1.numpy().copy()
+    h2, l2 = sfn(ids[2])
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(_counts(), before))
+    assert got == (2 * 2 * 2, 2 * 2, 2), got
+    assert dispatch.cache_stats()["hits"] == 2
+    assert l1.stop_gradient and h1.stop_gradient
+    np.testing.assert_array_equal(l1.numpy(), keep)
+    with pt.no_grad():
+        eh, el = model(ids[2])
+    np.testing.assert_array_equal(l2.numpy(), el.numpy())
+    np.testing.assert_array_equal(h2.numpy(), eh.numpy())
+    sfn(pt.to_tensor(rng.randint(0, 512, (1, 32)).astype(np.int32)))
+    st = dispatch.cache_stats()
+    assert st["misses"] == 2 and st["evictions"] == 0 and st["fallbacks"] == 0
+    assert len(sfn._graphs) == 2
+
+
+def test_to_static_sees_in_place_updates_and_recaptures_rebinding(on_card):
+    pt = on_card
+    from paddle_tpu_torch.ops import dispatch
+    model = _small_encoder(pt)
+    sfn = pt.jit.to_static(model)
+    ids = pt.to_tensor(np.random.RandomState(2).randint(
+        0, 512, (2, 64)).astype(np.int32))
+    sfn(ids)
+    dispatch.reset_cache_stats()
+    w = model.head.weight
+    w.set_value(w.numpy() * 2.0)               # in place: seen
+    _, got = sfn(ids)
+    with pt.no_grad():
+        _, want = model(ids)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert dispatch.cache_stats()["misses"] == 0
+    model.to(dtype="bfloat16")                 # rebinding: a new capture
+    _, got = sfn(ids)
+    _, got2 = sfn(ids)
+    with pt.no_grad():
+        _, want = model(ids)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got2.value, want.value)
+    assert dispatch.cache_stats()["misses"] == 1
+
+
+def test_to_static_dropout_draws_fresh_masks(on_card):
+    """A training-mode forward with dropout: two replays draw different
+    masks; re-seeding gives the first replay's mask again."""
+    pt = on_card
+    drop = pt.nn.Dropout(0.1)
+    sfn = pt.jit.to_static(drop)
+    x = pt.to_tensor(np.ones((64, 256), np.float32))
+    sfn(x)                                     # warm-up and capture
+    pt.seed(11)
+    a = sfn(x).numpy()
+    b = sfn(x).numpy()
+    pt.seed(11)
+    c = sfn(x).numpy()
+    assert not np.array_equal(a, b)
+    np.testing.assert_array_equal(a, c)
+    assert abs((a == 0).mean() - 0.1) < 0.02
+
+
+def test_check_numerics_and_nan_guard_inside_a_graph(on_card):
+    """``check_numerics`` in a captured forward raises ``NanInfError`` at
+    the call that replays it, not with finite weights; the nan guard on
+    during the capture names the first op with a non-finite output."""
+    pt = on_card
+    w = pt.to_tensor(np.ones((4, 4), np.float32))
+
+    def fn(x):
+        return pt.debug.check_numerics(pt.matmul(x, w) + 1.0, "fwd")
+    sfn = pt.jit.to_static(fn)
+    x = pt.to_tensor(np.ones((2, 4), np.float32))
+    sfn(x)
+    sfn(x)                                     # a replay, finite
+    w.value[0, 0] = float("inf")
+    with pytest.raises(pt.debug.NanInfError, match="fwd: non-finite"):
+        sfn(x)
+    w.value[0, 0] = 1.0
+
+    def g(x):
+        return pt.tanh(pt.matmul(x, w)) * 2.0
+    with pt.debug.check_nan_inf_guard():
+        sg = pt.jit.to_static(g)
+        sg(x)
+        sg(x)
+        w.value[1, 1] = float("nan")
+        with pytest.raises(pt.debug.NanInfError, match="op 'matmul'"):
+            sg(x)
+
+
+def test_nan_guard_state_keys_the_graph_and_checks_the_taken_branch(
+        on_card):
+    """The guard's state is part of the signature: turning it off makes
+    a new graph that checks nothing, turning it on again replays the
+    guarded one.  A ``cond`` captured under the guard raises for a
+    non-finite value in the branch the predicate selects, not in the
+    other one."""
+    pt = on_card
+    from paddle_tpu_torch.ops import dispatch
+    w = pt.to_tensor(np.ones((4, 4), np.float32))
+
+    def g(x):
+        return pt.tanh(pt.matmul(x, w))
+    sg = pt.jit.to_static(g)
+    x = pt.to_tensor(np.ones((2, 4), np.float32))
+    dispatch.reset_cache_stats()
+    with pt.debug.check_nan_inf_guard():
+        sg(x)
+        w.value[1, 1] = float("nan")
+        with pytest.raises(pt.debug.NanInfError, match="op 'matmul'"):
+            sg(x)
+    sg(x)                                      # guard off: a new graph
+    sg(x)
+    assert dispatch.cache_stats()["misses"] == 2
+    with pt.debug.check_nan_inf_guard():
+        with pytest.raises(pt.debug.NanInfError, match="op 'matmul'"):
+            sg(x)
+    assert dispatch.cache_stats()["misses"] == 2
+
+    def f(x):
+        return pt.static.cond(x.sum() > 0, lambda: pt.log(x), lambda: -x)
+    with pt.debug.check_nan_inf_guard():
+        sf = pt.jit.to_static(f)
+        neg = pt.to_tensor(np.array([-1.0, -2.0], np.float32))
+        for _ in range(3):                     # warm-up, capture, replay
+            np.testing.assert_array_equal(sf(neg).numpy(), [1.0, 2.0])
+        mixed = pt.to_tensor(np.array([-1.0, 4.0], np.float32))
+        with pytest.raises(pt.debug.NanInfError, match="op 'log'"):
+            sf(mixed)
+
+
+def test_to_static_raw_torch_tensors_are_inputs(on_card):
+    """A raw ``torch.Tensor`` argument is keyed by shape, dtype and
+    device and copied in at each replay, as a Tensor is; a host read of
+    a Tensor inside the forward breaks the capture and that signature
+    runs eagerly."""
+    pt = on_card
+    from paddle_tpu_torch.ops import dispatch
+    sfn = pt.jit.to_static(lambda x, t: x * t)    # t arrives a Tensor
+    x = pt.to_tensor(np.ones((3,), np.float32))
+    dispatch.reset_cache_stats()
+    for k in range(4):
+        t = torch.full((3,), float(k), device=x.value.device)
+        np.testing.assert_array_equal(sfn(x, t).numpy(), [k] * 3)
+    st = dispatch.cache_stats()
+    assert (st["misses"], st["hits"], st["fallbacks"]) == (1, 3, 0), st
+    sh = pt.jit.to_static(lambda x: x * float(x.sum()))
+    for _ in range(2):
+        np.testing.assert_array_equal(sh(x).numpy(), [3.0] * 3)
+    st = dispatch.cache_stats()
+    assert st["fallbacks"] == 2 and st["blacklisted"] >= 1, st
+
+
+def test_to_static_replay_is_one_profiler_event(on_card):
+    """With the profiler on, a replay records one host event under the
+    layer's name and none for the ops inside the graph."""
+    pt = on_card
+    net = pt.nn.Sequential(pt.nn.Linear(64, 64), pt.nn.GELU())
+    sfn = pt.jit.to_static(net)
+    x = pt.to_tensor(np.ones((8, 64), np.float32))
+    sfn(x)                                     # warm-up and capture
+    with pt.profiler.Profiler() as prof:
+        sfn(x)
+        sfn(x)
+    rows = {r[0]: r[1] for r in prof.summary()[1:]}
+    assert rows == {"Sequential": 2}, rows
+
+
+def test_to_static_control_flow_on_card(on_card):
+    """``cond`` on a tensor predicate is captured (both branches, one
+    select); ``while_loop`` on one cannot be and runs eagerly, counted
+    under ``fallbacks``; both equal the eager results."""
+    pt = on_card
+    from paddle_tpu_torch.ops import dispatch
+
+    def f(x):
+        return pt.static.cond(x.sum() > 0, lambda: x * 2, lambda: -x)
+
+    def w(x):
+        i = pt.zeros([], "int32")
+        _, y = pt.static.while_loop(lambda i, y: i < 4,
+                                    lambda i, y: (i + 1, y + x), [i, x * 0])
+        return y
+    sf, sw = pt.jit.to_static(f), pt.jit.to_static(w)
+    dispatch.reset_cache_stats()
+    for v in ([1.0, 2.0], [-1.0, -2.0], [3.0, -1.0]):
+        x = pt.to_tensor(np.array(v, np.float32))
+        np.testing.assert_array_equal(sf(x).numpy(), f(x).numpy())
+        np.testing.assert_array_equal(sw(x).numpy(), w(x).numpy())
+    st = dispatch.cache_stats()
+    assert st["misses"] == 1 and st["hits"] == 2, st
+    # the while loop's capture broke once, then two eager calls
+    assert st["fallbacks"] == 3 and st["blacklisted"] == 1, st

@@ -20,6 +20,9 @@ as ``paddle.grad`` with ``w`` as the outputs' cotangents);
 :func:`outputs_and_grads` gives the outputs and the gradients of one
 forward.
 """
+import os
+import pickle
+import tempfile
 import zlib
 
 import numpy as np
@@ -73,8 +76,24 @@ def _seed(name):
 # hi) uniform floats; ("i", shape, lo, hi) int32 in [lo, hi); ("b", shape)
 # bools; ("spd", n) a symmetric positive definite matrix; ("a", array) as
 # given; ("dir", (n, c)) rows of probabilities, ("logdir", (n, c)) their
-# logs; ("sign", shape) +-1 floats; ("01", shape) 0/1 floats
+# logs; ("sign", shape) +-1 floats; ("01", shape) 0/1 floats.  The dtype
+# axis: (integer dtype name, shape, lo, hi) integers of that dtype in
+# [lo, hi); ("float16", shape[, scale]) and ("bfloat16", shape[, scale])
+# N(0, scale^2) floats rounded to the dtype (a bfloat16 draw is a float32
+# array whose tensor :func:`run` casts to bfloat16: numpy has no
+# bfloat16); ("bool", shape) bools
 # --------------------------------------------------------------------------
+
+INT_KINDS = ("uint8", "int8", "int16", "int32")
+
+
+def _bf16_round(a):
+    """float32 ``a`` rounded to the nearest bfloat16 (ties to even)."""
+    b = a.astype(np.float32).view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1))) & np.uint32(
+        0xFFFF0000)
+    return b.view(np.float32)
+
 
 def _draw(spec, rng):
     kind = spec[0]
@@ -103,6 +122,14 @@ def _draw(spec, rng):
             np.float32)
     if kind == "01":
         return (rng.rand(*spec[1]) > 0.5).astype(np.float32)
+    if kind in INT_KINDS:
+        return rng.randint(spec[2], spec[3], spec[1]).astype(kind)
+    if kind in ("float16", "bfloat16"):
+        scale = spec[2] if len(spec) > 2 else 1.0
+        a = (rng.standard_normal(spec[1]) * scale).astype(np.float32)
+        return a.astype(np.float16) if kind == "float16" else _bf16_round(a)
+    if kind == "bool":
+        return rng.rand(*spec[1]) > 0.5
     raise ValueError(kind)
 
 
@@ -124,11 +151,16 @@ def arrays(case):
     return [_draw(s, rng) for s in case.specs]
 
 
-def _tensors(mod, arrays, grad=False):
+def _tensors(mod, arrays, grad=False, specs=()):
+    """The arrays as tensors on the default place; a ``bfloat16`` spec's
+    array cast to bfloat16 (it then requires no grad)."""
     out = []
-    for a in arrays:
+    kinds = [s[0] for s in specs] + [None] * (len(arrays) - len(specs))
+    for a, kind in zip(arrays, kinds):
         t = mod.to_tensor(a)
-        if grad and np.issubdtype(a.dtype, np.floating):
+        if kind == "bfloat16":
+            t = t.astype("bfloat16")
+        elif grad and np.issubdtype(a.dtype, np.floating):
             t = mod.to_tensor(a, stop_gradient=False)
         out.append(t)
     return out
@@ -186,7 +218,7 @@ def check(ref, got, tol, what):
 
 
 def run(mod, case, arrays, grad=False):
-    xs = _tensors(mod, arrays, grad)
+    xs = _tensors(mod, arrays, grad, case.specs)
     out = case.fn(mod, *xs)
     if case.post is not None:
         out = case.post(mod, out)
@@ -864,8 +896,140 @@ def _inplace_chain(x, y):
     return z, w
 
 
+# --------------------------------------------------------------------------
+# the dtype axis: bool, uint8, int8, int16, int32, float16 and bfloat16
+# inputs, where the port once differed from the reference (each case
+# names its dtype after the colon)
+# --------------------------------------------------------------------------
+
+U8 = ("uint8", (3, 4), 0, 256)
+I8 = ("int8", (3, 4), -128, 128)
+I16 = ("int16", (3, 4), -3000, 3000)
+I32 = ("int32", (3, 4), -50, 50)
+H34 = ("float16", (3, 4))
+BF34 = ("bfloat16", (3, 4))
+BOOL = ("bool", (3, 4))
+INT_SQ = ("a", np.array([[4, 1, 0, 2], [1, 5, 1, 0], [0, 1, 6, 1],
+                         [2, 0, 1, 7]], np.int32))
+# out-of-range, infinite and NaN floats: a cast saturates and maps NaN to 0
+WILD = ("a", np.array([-2.0, 300.0, 1e10, -1e10, np.nan, np.inf, -np.inf,
+                       2.7, -2.7, 127.5, 65535.0, -129.0], np.float32))
+
+
+def _save_load(m, x):
+    with tempfile.TemporaryDirectory() as d:
+        m.save({"w": x}, os.path.join(d, "w.pdparams"))
+        return m.load(os.path.join(d, "w.pdparams"))["w"]
+
+
+def _zero_divisor(name, dt):
+    """``op(a, b)`` on integers of ``dt`` whose divisor holds zeros."""
+    op = name.split(":")[0]
+    return Case(name, lambda m, x, y: getattr(m, op)(x, y),
+                [(dt, (3, 4), -20 if dt != "uint8" else 0, 20),
+                 (dt, (3, 4), -2 if dt != "uint8" else 0, 3)], False)
+
+
+DTYPES = [
+    # bfloat16 read to the host, pickled and saved
+    Case("item:bfloat16", lambda m, x: x.item(), [("bfloat16", (1,))],
+         False),
+    Case("tolist:bfloat16", lambda m, x: x.tolist(), [BF34], False),
+    Case("pickle:bfloat16", lambda m, x: pickle.loads(pickle.dumps(x)),
+         [BF34], False),
+    Case("save:bfloat16", _save_load, [BF34], False),
+    # int32, not int64, past x64-off; uint32 for unsigned sums
+    Case("dot:int32", lambda m, x, y: m.dot(x, y), [I32, I32], False),
+    Case("dot:uint8", lambda m, x, y: m.dot(x, y), [U8, U8], False),
+    Case("dot:int8", lambda m, x, y: m.dot(x, y), [I8, I8], False),
+    Case("dot:bool", lambda m, x, y: m.dot(x, y), [BOOL, BOOL], False),
+    Case("square:bool", lambda m, x: m.square(x), [BOOL], False),
+    Case("add_n:bool", lambda m, x: m.add_n([x]), [BOOL], False),
+    Case("sum:uint8", lambda m, x: m.sum(x), [U8], False),
+    Case("sum:int8", lambda m, x: m.sum(x, 1), [I8], False),
+    Case("sum:int16", lambda m, x: m.sum(x), [I16], False),
+    Case("sum:float16", lambda m, x: m.sum(x, 0), [H34], False),
+    Case("prod:uint8", lambda m, x: m.prod(x, 1), [("uint8", (3, 4), 0, 9)],
+         False),
+    Case("prod:int16", lambda m, x: m.prod(x), [("int16", (3, 4), -9, 9)],
+         False),
+    Case("trace:uint8", lambda m, x: m.trace(x), [U8], False),
+    Case("cumsum:uint8", lambda m, x: m.cumsum(x, 1), [U8], False),
+    Case("cumsum:int8", lambda m, x: m.cumsum(x), [I8], False),
+    Case("cumsum:int16", lambda m, x: m.cumsum(x, 0), [I16], False),
+    Case("cumprod:int8", lambda m, x: m.cumprod(x, 1), [I8], False),
+    # divide truncates only when both operands are integers
+    Case("divide:bool_int32", lambda m, x, y: m.divide(x, y),
+         [("a", np.array([True, False, True])),
+          ("a", np.array([2, 2, 4], np.int32))], False),
+    Case("divide:int32_bool", lambda m, x, y: m.divide(x, y),
+         [("a", np.array([2, 2, 4], np.int32)),
+          ("a", np.array([True, False, True]))], False),
+    Case("divide:uint8_bool", lambda m, x, y: m.divide(x, y), [U8, BOOL],
+         False),
+    _zero_divisor("divide:int32_zero", "int32"),
+    _zero_divisor("divide:uint8_zero", "uint8"),
+    _zero_divisor("floor_divide:int32_zero", "int32"),
+    _zero_divisor("floor_divide:uint8_zero", "uint8"),
+    _zero_divisor("remainder:int32_zero", "int32"),
+    _zero_divisor("remainder:int16_zero", "int16"),
+] + [_binary(f"{n}:bool", BOOL, BOOL, False)
+     for n in ("pow", "floor_divide", "remainder", "mod", "floor_mod")] + [
+    Case("matmul:bool", lambda m, x, y: m.matmul(x, y),
+         [BOOL, ("bool", (4, 2))], False),
+    Case("mm:bool", lambda m, x, y: m.mm(x, y), [BOOL, ("bool", (4, 3))],
+         False),
+    Case("inner:bool", lambda m, x, y: m.inner(x, y),
+         [BOOL, ("bool", (2, 4))], False),
+    Case("multi_dot:bool", lambda m, x, y, z: m.multi_dot([x, y, z]),
+         [BOOL, ("bool", (4, 2)), ("bool", (2, 3))], False),
+    Case("abs:bool", lambda m, x: m.abs(x), [BOOL], False),
+    Case("abs:int8", lambda m, x: m.abs(x), [I8], False),
+    Case("argmax:bool", lambda m, x: m.argmax(x, 1), [BOOL], False),
+    Case("argmin:bool", lambda m, x: m.argmin(x), [BOOL], False),
+    Case("svd:int32", lambda m, x: m.svd(x), [INT_SQ], False, LINALG_TOL,
+         _svd_post),
+    Case("qr:int32", lambda m, x: m.qr(x), [INT_SQ], False, LINALG_TOL,
+         _qr_post),
+    Case("pinv:int32", lambda m, x: m.pinv(x), [INT_SQ], False, LINALG_TOL),
+    Case("matrix_rank:int32", lambda m, x: m.matrix_rank(x), [INT_SQ],
+         False),
+    Case("cond:int32", lambda m, x: m.cond(x), [INT_SQ], False, LINALG_TOL),
+    Case("cov:bool", lambda m, x: m.cov(x),
+         [("a", np.array([[True, False, True, True],
+                          [False, False, True, False]]))], False, LINALG_TOL),
+    Case("corrcoef:bool", lambda m, x: m.corrcoef(x),
+         [("a", np.array([[True, False, True, True],
+                          [False, False, True, False]]))], False, LINALG_TOL),
+    # casts saturate and map NaN to 0, from every float width
+] + [Case(f"cast:{dt}", lambda m, x, dt=dt: m.cast(x, dt), [WILD], False)
+     for dt in ("uint8", "int8", "int16", "int32", "bool", "float16")] + [
+    Case("astype:uint8", lambda m, x: x.astype("uint8"), [WILD], False),
+    Case("cast:float16_int16", lambda m, x: m.cast(x.astype("float16"),
+                                                   "int16"), [WILD], False),
+    Case("cast:bfloat16_uint8", lambda m, x: m.cast(x.astype("bfloat16"),
+                                                    "uint8"), [WILD], False),
+    Case("cast:bfloat16_int32", lambda m, x: x.astype("bfloat16").astype(
+        "int32"), [WILD], False),
+    Case("cast:int32_uint8", lambda m, x: m.cast(x, "uint8"), [I16], False),
+    Case("digamma:poles", lambda m, x: m.digamma(x),
+         [("a", np.array([0.0, -1.0, -2.5, 1.5, -0.0], np.float32))], False),
+    # everyday ops over the small and 16-bit dtypes
+    Case("add:uint8", lambda m, x, y: m.add(x, y), [U8, U8], False),
+    Case("multiply:int8", lambda m, x, y: m.multiply(x, y), [I8, I8], False),
+    Case("subtract:int16_int32", lambda m, x, y: m.subtract(x, y),
+         [I16, I32], False),
+    Case("exp:float16", lambda m, x: m.exp(x), [H34], False),
+    Case("mean:bfloat16", lambda m, x: m.mean(x, 1), [BF34], False),
+    Case("matmul:float16", lambda m, x, y: m.matmul(x, y),
+         [H34, ("float16", (4, 2))], False, 1e-2),
+    Case("max:uint8", lambda m, x: m.max(x, 0), [U8], False),
+    Case("equal:int8_int16", lambda m, x, y: m.equal(x, y),
+         [("int8", (3, 4), -2, 2), ("int16", (3, 4), -2, 2)], False),
+]
+
 TENSOR_CASES = (CREATION + MATH + MANIP + LOGIC + SEARCH + STAT + LINALG
-                + ATTR + OPERATORS + METHODS)
+                + ATTR + OPERATORS + METHODS + DTYPES)
 
 # --------------------------------------------------------------------------
 # activations (nn.functional): inputs N(0, 9), so the thresholds bite
