@@ -380,7 +380,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
       ``to_static`` forward with dropout 0.1 drawing different masks on
       two replays and the first again after re-seeding; ``static.save`` /
       ``load`` and ``serialize_persistables`` round-tripping a program's
-      parameters on the card.
+      parameters on the card;
+  (aj) ``inference.save_inference_model`` of (n)'s encoder at full width,
+      fp32 and bf16, ``InputSpec([None, 512])`` (``dynamic_batch``), served
+      by ``create_predictor`` with ``enable_use_gpu`` in a fresh process
+      that imports no model code, at batches 8, 5 and 8: 2L LayerNorm, L
+      flash-forward and 1 RMSNorm ``torch.library`` nodes in the graph and
+      no plain attention or LayerNorm op, one CUDA graph for the 8-bucket
+      (``standalone_compiles`` 1), 2L / L / 1 launches a pass (batch 5:
+      two probe passes), the same bits as this process's artifact, which
+      agrees with the eager forward (bitwise, or (o)'s / (ag)'s
+      tolerances); the Predictor's replay, ``to_static`` and eager timed
+      alternated; ``Predictor.from_layer`` and a ``jit.save`` pair equal to
+      eager; (aa)'s ResNet50 eval clone through
+      ``static.save_inference_model`` / ``load_inference_model`` against
+      its own fetch;
+  (ak) (aa)'s ResNet50 train program fed by ``fluid.layers`` ``py_reader``
+      + ``double_buffer`` for 3 steps, ``EOFException``, ``reset()``,
+      against ``exe.run(feed=...)`` from the same seed (cuDNN
+      deterministic); Paddle's CTR-DNN through ``train_from_dataset`` over
+      a ``QueueDataset`` of MultiSlot files, card against CPU within 1e-5
+      of max|loss|, steps/s and the reader's wait share;
+      ``infer_from_dataset`` keeping every parameter bit;
+  (al) on (ae)'s classifier in fp32: ``GradientMergeOptimizer(AdamW,
+      k_steps=2)`` against one step of the whole batch (1e-5 of
+      max|param|), ``LookAhead(k=2)`` against its update by hand,
+      ``ModelAverage`` / ``ExponentialMovingAverage`` ``apply`` /
+      ``restore`` bitwise, ``CheckpointManager(async_save=True)`` saved at
+      step 2 with step 3 launched before ``wait()`` and resumed in a fresh
+      model (1e-6 of max|param|); ``incubate.fused_feedforward`` at (l)'s
+      shape, one FFN launch.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -440,8 +469,10 @@ split plan (``grid_plan_ms``) beside their own.
 Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
 three flash rows with their launches on each training path, among them
 ``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``,
-``launches_hapi_eval``, (ae)'s ``launches_multilabel`` and (ag)'s
-``launches_to_static``, which the LayerNorm and RMSNorm rows carry too;
+``launches_hapi_eval``, (ae)'s ``launches_multilabel``, (ag)'s
+``launches_to_static`` and (aj)'s ``launches_predictor``, which the
+LayerNorm and RMSNorm rows carry too, and (al)'s
+``launches_gradient_merge``; the fused FFN's ``launches_incubate``;
 the serving
 rows with ``launches_chunked``,
 ``launches_chunked_quant``, ``launches_spec``, ``launches_spec_quant``,
@@ -458,6 +489,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -3190,6 +3222,10 @@ def main():
     # control flow ------------------------------------------------------
     jit_phases(torch, flash_attn, norms, card, launches)
 
+    # (aj), (ak), (al): inference export and the Predictor, the reader
+    # path, the optimizer extras and the checkpoint ----------------------
+    deploy_phases(torch, flash_attn, norms, fused_ffn, card, launches)
+
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
     return 0
@@ -5422,7 +5458,8 @@ def resnet_program(pt, depth, size, classes, amp):
     """``bench.py:276-291``'s program through the port: static
     placeholders, ``resnet{depth}`` under ``amp.auto_cast()`` (bf16) when
     ``amp``, cross entropy, Momentum(0.002, 0.9, weight decay 1e-4)
-    ``minimize``.  Returns (main, startup, net, loss)."""
+    ``minimize``.  Returns (main, startup, net, loss, the data variables
+    and the logits by name)."""
     from paddle_tpu_torch import static
     from paddle_tpu_torch.vision import models
     F = pt.nn.functional
@@ -5434,12 +5471,14 @@ def resnet_program(pt, depth, size, classes, amp):
             label = static.data("label", [None, 1], "int64")
             with (pt.amp.auto_cast() if amp else contextlib.nullcontext()):
                 net = getattr(models, f"resnet{depth}")(num_classes=classes)
-                loss = F.cross_entropy(net(img), label).mean()
+                logits = net(img)
+                loss = F.cross_entropy(logits, label).mean()
             pt.optimizer.Momentum(learning_rate=0.002, momentum=0.9,
                                   weight_decay=1e-4).minimize(loss)
     finally:
         pt.disable_static()
-    return main, startup, net, loss
+    return main, startup, net, loss, {"image": img, "label": label,
+                                      "logits": logits}
 
 
 def resnet_path(torch, pt, args):
@@ -5451,8 +5490,8 @@ def resnet_path(torch, pt, args):
     c = RESNET
     pt.seed(SEED)
     t0 = time.perf_counter()
-    main, startup, net, loss = resnet_program(pt, 50, c["size"],
-                                              c["classes"], True)
+    main, startup, net, loss, _ = resnet_program(pt, 50, c["size"],
+                                                 c["classes"], True)
     build_s = time.perf_counter() - t0
     rng = np.random.RandomState(0)
     feed = {"image": pt.to_tensor(rng.randn(c["batch"], 3, c["size"],
@@ -5529,7 +5568,7 @@ def resnet_parity(torch, pt):
         runs = {}
         for dev in ("gpu", "cpu"):
             pt.set_device(dev)
-            main, _, net, loss = resnet_program(pt, 50, 32, 10, False)
+            main, _, net, loss, _ = resnet_program(pt, 50, 32, 10, False)
             if init is None:
                 init = {k: v.value.detach().cpu().numpy().copy()
                         for k, v in net.state_dict().items()}
@@ -6588,6 +6627,793 @@ REPORT = {
 }
 
 
+# (aj), (ak), (al): inference export and the Predictor, the reader path,
+# the optimizer extras and the checkpoint -----------------------------------
+
+EXPORT_BATCHES = (8, 5, 8)    # (aj): the fresh process's Predictor batches
+EXPORT_ROUNDS = 5             # (aj): timed rounds, alternated
+READER_STEPS = 3              # (ak): ResNet50 steps fed by the py_reader
+# (ak): Paddle's CTR-DNN example: 26 sparse slots into one 1,000,001 x 10
+# table, 13 dense features, fc 400-400-400, batch 512
+CTR = dict(sparse=26, dense=13, rows=1000001, emb=10, fc=(400, 400, 400),
+           batch=512, batches=8)
+CTR_LOSS_TOL = 1e-5           # (ak): card against CPU, x max|loss|
+EXTRA_STEPS = 4               # (al): LookAhead / average steps
+CKPT_TOL = 1e-6               # (al): resumed against uninterrupted, x max
+
+# the fresh process of (aj): imports paddle_tpu_torch and no model code,
+# serves each artifact through create_predictor at EXPORT_BATCHES
+_SERVE = r"""
+import collections, hashlib, json, sys, time
+import numpy as np, torch
+from paddle_tpu_torch.inference import Config, create_predictor
+from paddle_tpu_torch.inference import export
+from paddle_tpu_torch.ops.cuda import flash_attn, norms
+
+def counts():
+    return (norms.launches, flash_attn.fwd_launches, norms.rms_launches)
+
+res = {}
+for prefix in sys.argv[2:]:
+    t0 = time.perf_counter()
+    cfg = Config(prefix)
+    cfg.enable_use_gpu()
+    pred = create_predictor(cfg)
+    nodes = collections.Counter(
+        str(n.target) for n in pred._model._module.graph.nodes
+        if n.op == "call_function")
+    c_before = export.serving_stats()["standalone_compiles"]
+    load_s = time.perf_counter() - t0
+    runs = []
+    for b in json.loads(sys.argv[1]):
+        ids = np.load(f"{prefix}.ids{b}.npy")
+        c0 = counts()
+        t0 = time.perf_counter()
+        h = pred.get_input_handle("ids")
+        h.copy_from_cpu(ids)
+        pred.run()
+        outs = [pred.get_output_handle(n).copy_to_cpu()
+                for n in pred.get_output_names()]
+        ms = 1e3 * (time.perf_counter() - t0)
+        c1 = counts()
+        runs.append({"batch": b, "ms": ms,
+                     "launches": [a - z for a, z in zip(c1, c0)],
+                     "shapes": [list(o.shape) for o in outs],
+                     "finite": bool(all(np.isfinite(o).all() for o in outs)),
+                     "sha256": [hashlib.sha256(o.tobytes()).hexdigest()
+                                for o in outs]})
+    res[prefix] = {"load_s": load_s, "nodes": dict(nodes), "runs": runs,
+                   "meta": pred._model.meta,
+                   "standalone_compiles": export.serving_stats()[
+                       "standalone_compiles"] - c_before}
+print("SERVED " + json.dumps(res))
+"""
+
+
+def _digest(arrays):
+    import hashlib
+    return [hashlib.sha256(a.tobytes()).hexdigest() for a in arrays]
+
+
+def _host(v):
+    v = v.detach()
+    return (v.float() if v.dtype.is_floating_point else v).cpu().numpy()
+
+
+def _rel_err(got, want):
+    return max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def _encoder_ok(dt, h_err, l_err):
+    """(o)'s tolerances in fp32 (final norm 1e-4 of max, logits 1e-3),
+    (ag)'s in bf16 (2^-6 of max)."""
+    if dt == "float32":
+        return h_err <= RMS_PARITY_TOL and l_err <= PARITY_LOGIT_TOL
+    return max(h_err, l_err) <= BF16_STEPS_TOL
+
+
+def export_path(torch, pt, flash_attn, norms, out_dir):
+    """(aj): (n)'s encoder at full width exported per dtype with a dynamic
+    batch, served from a fresh process at EXPORT_BATCHES, held against
+    the eager forward; the Predictor, ``to_static`` and eager timed
+    alternated; ``from_layer`` and a ``jit.save`` pair; ResNet50's eval
+    program through ``static.save_inference_model``."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.inference.export import StandaloneModel
+    e, L = ENCODER, ENCODER["L"]
+    os.makedirs(out_dir, exist_ok=True)
+    pt.set_device("gpu")
+    model = make_encoder(pt, **e)
+    model.set_state_dict(numpy_state(model, SEED + 15))
+    rng = np.random.default_rng(SEED + 80)
+    ids_np = {b: rng.integers(0, e["V"], (b, e["N"])).astype(np.int64)
+              for b in set(EXPORT_BATCHES)}
+    spec = [pt.static.InputSpec([None, e["N"]], "int64")]
+    res, prefixes = {"dtypes": {}, "times": {}}, []
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["times"][name] = round(now - mark[0], 1)
+        mark[0] = now
+    for dt in ("float32", "bfloat16"):
+        model.to(dtype=dt)
+        prefix = os.path.join(out_dir, f"encoder_{dt}")
+        t0 = time.perf_counter()
+        meta = inference.save_inference_model(
+            prefix, model, spec, input_names=["ids"],
+            output_names=["hidden", "logits"])
+        export_s = time.perf_counter() - t0
+        if not meta["dynamic_batch"] or meta["inputs"][0]["shape"] != [
+                -1, e["N"]]:
+            raise SystemExit(f"(aj) {dt} manifest {meta}")
+        for b, a in ids_np.items():
+            np.save(f"{prefix}.ids{b}.npy", a)
+        with pt.no_grad():
+            eager = {b: [o.value for o in model(pt.to_tensor(a))]
+                     for b, a in ids_np.items()}
+        res["dtypes"][dt] = {"export_s": export_s, "meta": meta,
+                             "pt2_mib": os.path.getsize(prefix + ".pt2")
+                             / 2 ** 20, "eager": eager}
+        prefixes.append(prefix)
+        lap(f"export_{dt}")
+    # the fresh process
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _SERVE,
+                        json.dumps(list(EXPORT_BATCHES)), *prefixes],
+                       capture_output=True, text=True, env=env, timeout=600)
+    serve_s = time.perf_counter() - t0
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("SERVED ")]
+    if r.returncode != 0 or not line:
+        raise SystemExit(f"(aj) the serving process failed "
+                         f"(rc {r.returncode}): {r.stderr[-3000:]}")
+    served = json.loads(line[0][len("SERVED "):])
+    lap("fresh_process")
+    want_nodes = {"paddle_tpu.layer_norm.default": 2 * L,
+                  "paddle_tpu.flash_fwd.default": L,
+                  "paddle_tpu.rms_norm.default": 1}
+    per = [2 * L, L, 1]
+    launches = {"layer_norm": 0, "flash_attention_fwd": 0, "rms_norm": 0}
+    for dt, prefix in zip(("float32", "bfloat16"), prefixes):
+        s, d = served[prefix], res["dtypes"][dt]
+        nodes = {k: s["nodes"].get(k, 0) for k in want_nodes}
+        stray = [k for k in s["nodes"] if not k.startswith("paddle_tpu.")
+                 and any(w in k for w in ("layer_norm", "attention",
+                                          "softmax", "rsqrt"))]
+        if nodes != want_nodes or stray:
+            raise SystemExit(f"(aj) {dt} graph nodes {nodes}, plain ops "
+                             f"{stray}")
+        # batch 8 captures (its warm-up runs eagerly), batch 5 pads to the
+        # 8-bucket and the probe replays it twice, batch 8 replays once
+        want_runs = [per, [2 * n for n in per], per]
+        got_runs = [x["launches"] for x in s["runs"]]
+        if got_runs != want_runs or s["standalone_compiles"] != 1:
+            raise SystemExit(f"(aj) {dt} launches {got_runs} (want "
+                             f"{want_runs}), standalone_compiles "
+                             f"{s['standalone_compiles']}")
+        for k, n in zip(launches, map(sum, zip(*got_runs))):
+            launches[k] += n
+        if not all(x["finite"] for x in s["runs"]) or \
+                s["runs"][0]["sha256"] != s["runs"][2]["sha256"]:
+            raise SystemExit(f"(aj) {dt}: a non-finite output, or batch 8's "
+                             "replay differs from its first run")
+        # the same artifact in this process: the same bits as the fresh
+        # one's, and the eager forward's within (o)'s / (ag)'s tolerances
+        sm = StandaloneModel(prefix)
+        errs, bit = [], True
+        for x in s["runs"][:2]:
+            b = x["batch"]
+            outs = sm(ids_np[b])
+            if _digest([_host(o) for o in outs]) != x["sha256"]:
+                raise SystemExit(f"(aj) {dt} batch {b}: this process's "
+                                 "outputs differ from the fresh process's")
+            bit = bit and all(torch.equal(o, w) for o, w in
+                              zip(outs, d["eager"][b]))
+            errs.append([_rel_err(o, w) for o, w in zip(outs, d["eager"][b])])
+        h_err = max(x[0] for x in errs)
+        l_err = max(x[1] for x in errs)
+        if not (bit or _encoder_ok(dt, h_err, l_err)):
+            raise SystemExit(f"(aj) {dt}: the Predictor's outputs against "
+                             f"eager: final norm {h_err:.3e}, logits "
+                             f"{l_err:.3e} of max")
+        d.update(served=s, bit_equal=bit, h_err=h_err, l_err=l_err,
+                 sm=sm)
+        lap(f"load_and_compare_{dt}")
+    res["serve_s"] = serve_s
+    res["launches"] = launches
+    # timing, alternated: the Predictor's graph, to_static's, eager
+    sfn = pt.jit.to_static(model)
+    for dt in ("float32", "bfloat16"):
+        model.to(dtype=dt)
+        d = res["dtypes"][dt]
+        ids = pt.to_tensor(ids_np[8])
+        with pt.no_grad():
+            sfn(ids)                         # capture
+            t = {"predictor": [], "to_static": [], "eager": []}
+            for _ in range(EXPORT_ROUNDS):
+                for k, fn in (("predictor", lambda: d["sm"](ids.value)),
+                              ("to_static", lambda: sfn(ids)),
+                              ("eager", lambda: model(ids))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    t[k].append(time.perf_counter() - t0)
+        B, N = ids_np[8].shape
+        d["timing"] = {k: {"batch_ms": 1e3 * float(np.mean(v)),
+                           "tokens_per_s": B * N / float(np.mean(v)),
+                           "ms_each": [round(1e3 * x, 3) for x in v]}
+                       for k, v in t.items()}
+        del d["sm"], d["eager"]
+    del sfn
+    lap("timing")
+    # from_layer and a jit.save pair (bf16): the eager forward's outputs
+    cfg = inference.Config()
+    cfg.enable_use_gpu()
+    a = ids_np[8]
+    with pt.no_grad():
+        want = [_host(o.value) for o in model(pt.to_tensor(a))]
+    got = inference.Predictor.from_layer(model, cfg).run([a])
+    lap("from_layer")
+    path = os.path.join(out_dir, "jit_pair")
+    pt.jit.save(model, path, input_spec=spec)
+    pair = inference.Config(path)
+    pair.enable_use_gpu()
+    got_pair = inference.Predictor(pair).run([a])
+    lap("jit_pair")
+    res["from_layer_bit_equal"] = all(np.array_equal(g, w)
+                                      for g, w in zip(got, want))
+    res["pair_bit_equal"] = all(np.array_equal(g, w)
+                                for g, w in zip(got_pair, want))
+    if not (res["from_layer_bit_equal"] and res["pair_bit_equal"]):
+        raise SystemExit("(aj) from_layer or the jit.save pair differ from "
+                         "the eager forward")
+    del model, got, got_pair, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["resnet"] = resnet_inference_export(torch, pt, out_dir)
+    lap("resnet")
+    return res
+
+
+def resnet_inference_export(torch, pt, out_dir):
+    """(aj)'s static part: (aa)'s ResNet50 program's eval clone frozen by
+    ``static.save_inference_model`` (logits from the image, the loss and
+    its label pruned away), loaded and run by the Executor, against the
+    clone's own fetch on the same batch."""
+    from paddle_tpu_torch import static
+    c = RESNET
+    pt.seed(SEED)
+    main, startup, net, loss, v = resnet_program(
+        pt, 50, c["size"], c["classes"], True)
+    test, img, logits = main.clone(for_test=True), v["image"], v["logits"]
+    rng = np.random.RandomState(5)
+    x = rng.randn(32, 3, c["size"], c["size"]).astype(np.float32)
+    y = rng.randint(0, c["classes"], (32, 1)).astype(np.int64)
+    exe = static.Executor()
+    prefix = os.path.join(out_dir, "resnet50_eval")
+    pt.enable_static()
+    try:
+        want, = exe.run(test, feed={"image": x, "label": y},
+                        fetch_list=[logits])
+        t0 = time.perf_counter()
+        meta = static.save_inference_model(prefix, [img], [logits], exe,
+                                           program=test)
+        export_s = time.perf_counter() - t0
+    finally:
+        pt.disable_static()
+    prog, feeds, fetches = static.load_inference_model(prefix, exe)
+    got, = exe.run(prog, feed={"image": x}, fetch_list=fetches)
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    if feeds != ["image"] or got.shape != want.shape or \
+            not np.isfinite(got).all() or err > BF16_STEPS_TOL:
+        raise SystemExit(f"(aj) ResNet50 eval artifact: feeds {feeds}, "
+                         f"{got.shape} against {want.shape}, error {err:.3e}")
+    return {"export_s": export_s, "dynamic_batch": meta["dynamic_batch"],
+            "bit_equal": bool(np.array_equal(got, want)), "err": err,
+            "batch": x.shape[0]}
+
+
+def reader_resnet(torch, pt, fluid):
+    """(ak), first part: (aa)'s ResNet50 train program fed by a
+    ``py_reader`` over its data variables with ``double_buffer``, the
+    classic loop for READER_STEPS steps, ``EOFException``, ``reset()``;
+    beside ``exe.run(feed=...)`` over the same batches in a program built
+    from the same seed.  cuDNN is deterministic in this phase."""
+    from paddle_tpu_torch import static
+    c = RESNET
+    rng = np.random.RandomState(SEED + 81)
+    batches = [(rng.randn(c["batch"], 3, c["size"], c["size"]).astype(
+        np.float32), rng.randint(0, c["classes"], (c["batch"], 1)).astype(
+            np.int64)) for _ in range(READER_STEPS)]
+    losses, stats = {}, {}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for how in ("reader", "feed"):
+            pt.seed(SEED)
+            main, startup, net, loss, v = resnet_program(
+                pt, 50, c["size"], c["classes"], True)
+            exe = static.Executor()
+            out = []
+            pt.enable_static()
+            try:
+                if how == "feed":
+                    for x, y in batches:
+                        out.append(float(exe.run(main, feed={
+                            "image": x, "label": y}, fetch_list=[loss])[0]))
+                else:
+                    with static.program_guard(main, startup):
+                        rd = fluid.layers.create_py_reader_by_data(
+                            capacity=2, feed_list=[v["image"], v["label"]],
+                            use_double_buffer=False)
+                    rd = fluid.layers.double_buffer(rd)
+                    rd.decorate_batch_generator(lambda: iter(batches))
+                    rd.start()
+                    ring = rd._pass.ring
+                    t0 = time.perf_counter()
+                    try:
+                        while True:
+                            out.append(float(exe.run(
+                                main, fetch_list=[loss])[0]))
+                    except fluid.core.EOFException:
+                        rd.reset()
+                    stats = {"ring": ring is not None,
+                             "s": time.perf_counter() - t0}
+            finally:
+                pt.disable_static()
+            losses[how] = out
+            del main, startup, net, exe, v
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    a, b = np.asarray(losses["reader"]), np.asarray(losses["feed"])
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    if len(a) != READER_STEPS or not stats["ring"] or \
+            not np.isfinite(a).all() or err > 1e-4:
+        raise SystemExit(f"(ak) ResNet50 via py_reader: losses {a} against "
+                         f"{b} (ring {stats['ring']})")
+    return {"losses": a.tolist(), "feed_losses": b.tolist(), "err": err,
+            "bit_equal": bool(np.array_equal(a, b)), **stats}
+
+
+def ctr_files(tmp, fleet, n):
+    """n samples of the CTR-DNN's MultiSlot protocol (13 dense floats, 26
+    sparse ids, a click) from a ``MultiSlotDataGenerator``, two files."""
+    rng = np.random.RandomState(SEED + 82)
+    dense = rng.rand(n, CTR["dense"]).round(4)
+    sparse = rng.randint(0, CTR["rows"], (n, CTR["sparse"]))
+    click = rng.randint(0, 2, n)
+
+    class Gen(fleet.MultiSlotDataGenerator):
+        def generate_sample(self, line):
+            lo, hi = line
+
+            def it():
+                for i in range(lo, hi):
+                    yield ([("dense", [float(v) for v in dense[i]])]
+                           + [(f"C{j}", [int(sparse[i, j])])
+                              for j in range(CTR["sparse"])]
+                           + [("click", [int(click[i])])])
+            return it
+    files = []
+    for k, part in enumerate(((0, n // 2), (n // 2, n))):
+        path = os.path.join(tmp, f"part-{k}")
+        with open(path, "w") as f, contextlib.redirect_stdout(f):
+            g = Gen()
+            g.set_batch(CTR["batch"])
+            g._run_samples([g.generate_sample(part)])
+        files.append(path)
+    return files
+
+
+def ctr_program(pt, place):
+    """Paddle's CTR-DNN on the port's static API: the 26 sparse slots
+    through one shared ``Embedding`` (summed over each slot's ids), the
+    dense slot, fc 400-400-400 relu, a 2-way softmax, cross entropy, Adam
+    1e-4; built from one seed on ``place``."""
+    from paddle_tpu_torch import static
+    pt.set_device(place)
+    pt.seed(SEED + 83)
+    pt.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            # the QueueDataset pads each slot to a power of two, the 13
+            # dense values to 16: the model reads the 13
+            dense = static.data("dense", [None, 16], "float32")
+            sparse = [static.data(f"C{j}", [None, 1], "int64")
+                      for j in range(CTR["sparse"])]
+            click = static.data("click", [None, 1], "int64")
+            emb = pt.nn.Embedding(CTR["rows"], CTR["emb"], sparse=True)
+            h = pt.concat([pt.sum(emb(s), axis=1) for s in sparse]
+                          + [dense[:, :CTR["dense"]]], axis=1)
+            for width in CTR["fc"]:
+                h = static.nn.fc(h, width, activation="relu")
+            predict = static.nn.fc(h, 2, activation="softmax")
+            loss = pt.mean(pt.nn.functional.cross_entropy(
+                predict, click, use_softmax=False))
+            pt.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    finally:
+        pt.disable_static()
+    return main, [dense] + sparse + [click], loss
+
+
+def reader_ctr(torch, pt, distributed, tmp):
+    """(ak), second part: ``train_from_dataset`` of the CTR-DNN over a
+    ``QueueDataset`` of MultiSlot files, on the card and on the CPU (the
+    losses it prints, every step), then ``infer_from_dataset`` on the
+    card, which must leave every parameter's bits."""
+    from paddle_tpu_torch import static
+    n = CTR["batch"] * CTR["batches"]
+    files = ctr_files(tmp, distributed.fleet, n)
+    out = {}
+    for place in ("gpu", "cpu"):
+        main, slots, loss = ctr_program(pt, place)
+        ds = distributed.QueueDataset()
+        ds.init(batch_size=CTR["batch"], use_var=slots)
+        ds.set_filelist(files)
+        wait = [0.0]
+        batches = ds.iter_batches
+
+        def timed():
+            it = batches()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    wait[0] += time.perf_counter() - t0
+                yield b
+        ds.iter_batches = timed
+        exe = static.Executor()
+        buf = io.StringIO()
+        pt.enable_static()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                exe.train_from_dataset(main, ds, fetch_list=[loss],
+                                       fetch_info=["loss"], print_period=1)
+            wall = time.perf_counter() - t0
+            losses = [float(ln.split("[")[1].rstrip("]"))
+                      for ln in buf.getvalue().splitlines()
+                      if ln.startswith("step ")]
+            res = {"losses": losses, "steps_per_s": len(losses) / wall,
+                   "reader_wait_share": wait[0] / wall}
+            if place == "gpu":
+                before = [p.value.detach().clone()
+                          for p in main.all_parameters()]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    exe.infer_from_dataset(main, ds, fetch_list=[loss],
+                                           print_period=100)
+                res["infer_kept_params"] = all(
+                    torch.equal(b, p.value) for b, p in
+                    zip(before, main.all_parameters()))
+                res["params"] = sum(p.size for p in main.all_parameters())
+                res["on_card"] = all(p.value.is_cuda
+                                     for p in main.all_parameters())
+        finally:
+            pt.disable_static()
+            pt.set_device("gpu")
+        out[place] = res
+        del main, slots, loss, ds, exe
+        gc.collect()
+    g, c = np.asarray(out["gpu"]["losses"]), np.asarray(out["cpu"]["losses"])
+    err = float(np.abs(g - c).max() / np.abs(c).max())
+    if (len(g) != CTR["batches"] or len(c) != len(g) or err > CTR_LOSS_TOL
+            or not out["gpu"]["infer_kept_params"]
+            or not out["gpu"]["on_card"]):
+        raise SystemExit(f"(ak) CTR-DNN: card losses {g}, CPU {c} "
+                         f"(err {err:.3e}); infer kept the parameters "
+                         f"{out['gpu'].get('infer_kept_params')}")
+    out["err"] = err
+    return out
+
+
+def ernie_fine_tune(pt, bert, cfg, batch, lr=1e-4, epsilon=1e-6, opt=None,
+                    wrap=None):
+    """(ae)'s classifier step at a constant lr: AdamW (weight decay 0.01,
+    ``ClipGradByGlobalNorm(1.0)``) or ``opt(net)``, ``wrap``ped; returns
+    (net, optimizer, step(t, y) -> loss)."""
+    pt.seed(SEED + 84)
+    net = multilabel_classifier(pt, bert, cfg)
+    o = (opt or (lambda n: pt.optimizer.AdamW(
+        learning_rate=lr, weight_decay=0.01, epsilon=epsilon,
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+        parameters=trained_params(n))))(net)
+    o = wrap(o) if wrap is not None else o
+    crit = pt.nn.BCEWithLogitsLoss()
+
+    def step(t, y):
+        loss = crit(net(t), y)
+        loss.backward()
+        o.step()
+        o.clear_grad()
+        return loss
+    return net, o, step
+
+
+def extras_path(torch, pt, bert, flash_attn, norms, fused_ffn, out_dir):
+    """(al): the optimizer extras and the checkpoint on (ae)'s
+    ERNIE-3.0-Base fine-tune, fp32 where they are compared, and
+    ``incubate.fused_feedforward`` at (l)'s shape."""
+    from paddle_tpu_torch.incubate import optimizer as inc
+    from paddle_tpu_torch.optimizer import GradientMergeOptimizer
+    from paddle_tpu_torch.utils import checkpoint as ckpt
+    base = bert.ernie_3_base()
+    L, B, N = base.num_layers, ERNIE_BATCH, base.max_seq_len
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    tokens, labels = multilabel_batch(base.vocab_size, B, N, SEED + 85)
+    t, y = pt.to_tensor(tokens), pt.to_tensor(labels)
+    counters = eager_counters(flash_attn, norms)
+    res = {}
+    # GradientMerge(AdamW, k=2): two micro-steps of B/2 against one of B
+    t0 = time.perf_counter()
+    net, opt, step = ernie_fine_tune(pt, bert, cfg32, None)
+    init = [p.value.detach().clone() for p in trained_params(net)]
+    step(t, y)
+    one = [p.value.detach().clone() for p in trained_params(net)]
+    with torch.no_grad():
+        for p, v in zip(trained_params(net), init):
+            p.value.copy_(v)
+    gm = GradientMergeOptimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01, epsilon=1e-6,
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
+        parameters=trained_params(net)), k_steps=2)
+    crit = pt.nn.BCEWithLogitsLoss()
+    zero_counts(counters)
+    for half in (slice(0, B // 2), slice(B // 2, B)):
+        crit(net(t[half]), y[half]).backward()
+        gm.step()
+    res["gm_launches"] = read_counts(counters)
+    scale = max(float(v.abs().max()) for v in one)
+    res["gm_err"] = max(max_err(p.value.detach(), v) for p, v in
+                        zip(trained_params(net), one)) / scale
+    if res["gm_err"] > FP32_TOL or gm._acc:
+        raise SystemExit(f"(al) gradient merge against one step of B: "
+                         f"{res['gm_err']:.3e} of max|param|")
+    check_counts("(al) gradient merge", res["gm_launches"],
+                 {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                  "flash_attention_bwd_dkv": L}, 2)
+    res["gm_s"] = time.perf_counter() - t0
+    del net, opt, step, gm, init, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    # LookAhead(k=2) over EXTRA_STEPS steps against its update by hand,
+    # ModelAverage and ExponentialMovingAverage beside it
+    t0 = time.perf_counter()
+    fast = []
+
+    def with_fast(o):
+        la = inc.LookAhead(o, alpha=0.5, k=2)
+        inner = la.inner_optimizer.step
+
+        def record():
+            inner()
+            fast.append([p.value.detach().clone() for p in la._parameters])
+        la.inner_optimizer.step = record
+        return la
+    net, la, step = ernie_fine_tune(pt, bert, cfg32, None, wrap=with_fast)
+    ma = inc.ModelAverage(0.15, parameters=trained_params(net),
+                          min_average_window=2, max_average_window=3)
+    ema = inc.ExponentialMovingAverage(0.9,
+                                       parameters=trained_params(net))
+    slow = [p.value.detach().clone() for p in la._parameters]
+    exact = True
+    for k in range(EXTRA_STEPS):
+        step(t, y)
+        ma.step()
+        ema.update()
+        if (k + 1) % 2 == 0:
+            slow = [s + 0.5 * (f - s) for s, f in zip(slow, fast[-1])]
+            exact = exact and all(torch.equal(p.value, s) for p, s in
+                                  zip(la._parameters, slow))
+    if not exact:
+        raise SystemExit("(al) LookAhead's weights differ from slow + 0.5 "
+                         "(fast - slow) by hand")
+    trained = [p.value.detach().clone() for p in trained_params(net)]
+    restored = {}
+    for name, avg in (("ModelAverage", ma), ("EMA", ema)):
+        with avg.apply():
+            moved = any(not torch.equal(p.value, v) for p, v in
+                        zip(trained_params(net), trained))
+        restored[name] = moved and all(
+            torch.equal(p.value, v) for p, v in
+            zip(trained_params(net), trained))
+    if not all(restored.values()):
+        raise SystemExit(f"(al) apply / restore: {restored}")
+    res.update(lookahead_exact=exact, restored=restored,
+               la_s=time.perf_counter() - t0)
+    del net, la, step, ma, ema, trained, slow, fast
+    gc.collect()
+    torch.cuda.empty_cache()
+    # CheckpointManager(async_save=True): save at step 2, step 3 launched
+    # before wait(); a fresh model restored at step 2 runs 3-4
+    t0 = time.perf_counter()
+    root = os.path.join(out_dir, "ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def sched_opt(n):
+        sched = pt.optimizer.lr.LinearWarmup(1e-4, 10, 1e-5, 1e-4)
+        return pt.optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
+                                  epsilon=1e-6, parameters=trained_params(n))
+    net, opt, step = ernie_fine_tune(pt, bert, cfg32, None, opt=sched_opt)
+    mgr = ckpt.CheckpointManager(root, keep=2, async_save=True)
+    ckpt.reset_checkpoint_stats()
+    for k in range(1, 5):
+        step(t, y)
+        opt._lr.step()
+        if k == 2:
+            ts = time.perf_counter()
+            mgr.save(2, model=net, optimizer=opt, scheduler=opt._lr)
+            res["save_call_ms"] = 1e3 * (time.perf_counter() - ts)
+            saved = [p.value.detach().clone() for p in trained_params(net)]
+        if k == 3:
+            mgr.wait()
+    want = [p.value.detach().clone() for p in trained_params(net)]
+    del net, opt, step
+    gc.collect()
+    net2, opt2, step2 = ernie_fine_tune(pt, bert, cfg32, None, opt=sched_opt)
+    if mgr.restore(model=net2, optimizer=opt2, scheduler=opt2._lr) != 2:
+        raise SystemExit("(al) restore did not return step 2")
+    at2 = all(torch.equal(p.value, v) for p, v in
+              zip(trained_params(net2), saved))
+    for _ in (3, 4):
+        step2(t, y)
+        opt2._lr.step()
+    scale = max(float(v.abs().max()) for v in want)
+    res["ckpt_err"] = max(max_err(p.value.detach(), v) for p, v in
+                          zip(trained_params(net2), want)) / scale
+    res["ckpt_bit_equal"] = all(torch.equal(p.value, v) for p, v in
+                                zip(trained_params(net2), want))
+    res["ckpt_stats"] = ckpt.checkpoint_stats()
+    res["ckpt_mib"] = sum(os.path.getsize(os.path.join(root, "step_2", f))
+                          for f in os.listdir(os.path.join(root, "step_2"))
+                          ) / 2 ** 20
+    if not at2 or res["ckpt_err"] > CKPT_TOL or \
+            res["ckpt_stats"]["async_saves"] != 1:
+        raise SystemExit(f"(al) checkpoint: restored step 2 equal {at2}; "
+                         f"resumed against uninterrupted "
+                         f"{res['ckpt_err']:.3e} of max; "
+                         f"{res['ckpt_stats']}")
+    res["ckpt_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    del net2, opt2, step2, want, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    # incubate.fused_feedforward at (l)'s shape, one FFN launch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 86)
+    M, H, F = 12288, 2048, 8192
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, device="cuda", generator=gen)
+                * scale).to(torch.bfloat16)
+    args = (rnd(M, H), rnd(H, F, scale=H ** -0.5), rnd(F, scale=0.1),
+            rnd(F, H, scale=F ** -0.5), rnd(H, scale=0.1))
+    n0 = fused_ffn.launches
+    with pt.no_grad():
+        got = pt.incubate.fused_feedforward(*[pt.Tensor(a) for a in args])
+    res["ffn_launches"] = fused_ffn.launches - n0
+    with fp32_reduction(torch):
+        ref = fused_ffn._ref_fused_ffn(*args)
+    ratio, _ = gate([(got.value, ref, ref)], BF16_ATOL, BF16_RTOL)
+    res.update(ffn_err=max_err(got.value, ref), ffn_gate=ratio)
+    if res["ffn_launches"] != 1 or ratio > 1.0:
+        raise SystemExit(f"(al) fused_feedforward: {res['ffn_launches']} "
+                         f"launches, gate {ratio:.3f}")
+    return res
+
+
+def deploy_phases(torch, flash_attn, norms, fused_ffn, card, launches):
+    """Phases (aj), (ak), (al), logged; their launches go into
+    ``launches``."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed, fluid
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.models import bert
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "paddle_tpu_torch", "_build", "deploy")
+    prev = core._state.expected_place
+    try:
+        t0 = time.perf_counter()
+        aj = export_path(torch, pt, flash_attn, norms, out_dir)
+        for k, n in aj["launches"].items():
+            launches[f"{k}_predictor"] = n
+        e = ENCODER
+        log(f"(aj) inference.save_inference_model of (n)'s encoder (V="
+            f"{e['V']}, H={e['H']}, L={e['L']}, nh={e['nh']}, F={e['F']}), "
+            f"InputSpec([None, {e['N']}], int64), served by "
+            f"create_predictor in a fresh process at batches "
+            f"{list(EXPORT_BATCHES)}, on {card}:")
+        for dt, d in aj["dtypes"].items():
+            s = d["served"]
+            log(f"    {dt}: export {d['export_s']:.1f} s, {d['pt2_mib']:.1f} "
+                f"MiB .pt2, dynamic_batch {d['meta']['dynamic_batch']}; "
+                f"graph nodes LayerNorm / flash forward / RMSNorm "
+                f"{[s['nodes'].get(f'paddle_tpu.{k}.default') for k in ('layer_norm', 'flash_fwd', 'rms_norm')]}"
+                f"; fresh process: load {s['load_s']:.1f} s, runs (batch, ms "
+                f"with host copies, launches) "
+                f"{[(x['batch'], round(x['ms'], 1), x['launches']) for x in s['runs']]}"
+                f", standalone_compiles {s['standalone_compiles']}; against "
+                f"eager: bit-equal {d['bit_equal']}, final norm "
+                f"{d['h_err']:.3e}, logits {d['l_err']:.3e} of max  [{card}]")
+            tm = d["timing"]
+            log(f"    {dt} [8, {e['N']}], {EXPORT_ROUNDS} rounds alternated: "
+                + "; ".join(f"{k} {v['batch_ms']:.3f} ms a batch, "
+                            f"{v['tokens_per_s']:.0f} tokens/s {v['ms_each']}"
+                            for k, v in tm.items()) + f"  [{card}]")
+        r = aj["resnet"]
+        log(f"    Predictor.from_layer bit-equal {aj['from_layer_bit_equal']}"
+            f", jit.save pair bit-equal {aj['pair_bit_equal']} (bf16); "
+            f"ResNet50 eval clone through static.save_inference_model "
+            f"(export {r['export_s']:.1f} s, dynamic_batch "
+            f"{r['dynamic_batch']}) and exe.run of load_inference_model at "
+            f"batch {r['batch']}: bit-equal {r['bit_equal']}, "
+            f"{r['err']:.3e} of max; the fresh process "
+            f"{aj['serve_s']:.1f} s; seconds by step {aj['times']}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pt.set_device("gpu")
+        rr = reader_resnet(torch, pt, fluid)
+        with tempfile.TemporaryDirectory() as tmp:
+            ctr = reader_ctr(torch, pt, distributed, tmp)
+        g = ctr["gpu"]
+        log(f"(ak) (aa)'s ResNet50 program fed by py_reader + double_buffer "
+            f"(the native ring {rr['ring']}), {READER_STEPS} steps, "
+            f"EOFException, reset(): losses {rr['losses']} against "
+            f"exe.run(feed=...) {rr['feed_losses']} (bit-equal "
+            f"{rr['bit_equal']}, {rr['err']:.3e} of max; cuDNN "
+            f"deterministic); CTR-DNN ({CTR['sparse']} sparse slots into one "
+            f"{CTR['rows']} x {CTR['emb']} table, {CTR['dense']} dense, fc "
+            f"{list(CTR['fc'])}, batch {CTR['batch']}, {g['params']} "
+            f"parameters) by train_from_dataset over a QueueDataset of "
+            f"MultiSlot files: {g['steps_per_s']:.2f} steps/s, reader wait "
+            f"{g['reader_wait_share']:.3f} of the wall (CPU "
+            f"{ctr['cpu']['steps_per_s']:.2f} steps/s); losses card against "
+            f"CPU {ctr['err']:.3e} of max (tol {CTR_LOSS_TOL:.0e}); "
+            f"infer_from_dataset kept every parameter "
+            f"{g['infer_kept_params']}; phase {time.perf_counter() - t0:.1f}"
+            f" s  [{card}]")
+        t0 = time.perf_counter()
+        al = extras_path(torch, pt, bert, flash_attn, norms, fused_ffn,
+                         out_dir)
+        launches["fused_ffn_incubate"] = al["ffn_launches"]
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            launches[f"{k}_gradient_merge"] = al["gm_launches"][k]
+        log(f"(al) (ae)'s ERNIE-3.0-Base classifier ([{ERNIE_BATCH}, 512], "
+            f"fp32): GradientMergeOptimizer(AdamW, k_steps=2) "
+            f"over two halves against one AdamW step of the batch "
+            f"{al['gm_err']:.3e} of max|param| (tol {FP32_TOL:.0e}), "
+            f"launches {al['gm_launches']} ({al['gm_s']:.1f} s); "
+            f"LookAhead(k=2) over {EXTRA_STEPS} steps equal to slow + 0.5 "
+            f"(fast - slow) by hand {al['lookahead_exact']}, ModelAverage "
+            f"and EMA apply / restore bitwise {al['restored']} "
+            f"({al['la_s']:.1f} s); CheckpointManager(async_save=True) at "
+            f"step 2 (save call {al['save_call_ms']:.1f} ms, "
+            f"{al['ckpt_mib']:.1f} MiB), step 3 before wait(), a fresh "
+            f"model restored and run to step 4: {al['ckpt_err']:.3e} of max "
+            f"(bit-equal {al['ckpt_bit_equal']}), {al['ckpt_stats']} "
+            f"({al['ckpt_s']:.1f} s); incubate.fused_feedforward at "
+            f"[12288, 2048] x [2048, 8192] bf16: {al['ffn_launches']} "
+            f"launch, max_abs_err {al['ffn_err']:.3e} (gate "
+            f"{al['ffn_gate']:.3f}); phase {time.perf_counter() - t0:.1f} s"
+            f"  [{card}]")
+    finally:
+        core._state.expected_place = prev
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def report(torch, cases, launches, train, t_start):
     """The ``kernels`` JSON line, the nvidia-smi line and the last line."""
     kernels = []
@@ -6618,7 +7444,8 @@ def report(torch, cases, launches, train, t_start):
     fwd["launches_encoder"] = launches["flash_attention_fwd_encoder"]
     for k in kernels:
         for path in ("ernie", "eager_ernie", "eager_encoder", "multilabel",
-                     "to_static", "hapi",
+                     "to_static", "predictor", "gradient_merge", "incubate",
+                     "hapi",
                      "hapi_eval", "chunked", "chunked_quant", "spec",
                      "spec_quant", "spec_quant_m40", "slot", "slot_quant"):
             if f"{k['name']}_{path}" in launches:

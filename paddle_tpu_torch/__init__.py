@@ -94,6 +94,15 @@ signature, ``save`` / ``load``, ``functional``) and the rest of
 ``static`` (control flow, ``misc``, the other ``static.nn`` builders,
 ``save`` / ``load`` and serialization); the eager tensor API keeps the
 reference's dtypes on bool, small integer and 16-bit inputs.
+
+The static-graph and deployment workflow: ``fluid``'s reader path
+(``py_reader``, ``EOFException``, ``DatasetFactory``), ``distributed``'s
+MultiSlot datasets and generators (``Executor.train_from_dataset``),
+``inference`` (``torch.export`` artifacts with the kernels as
+``torch.library`` ops, the ``Predictor``, one CUDA graph a batch bucket),
+``onnx.export``, ``optimizer.GradientMergeOptimizer``, ``incubate``
+(``LookAhead``, ``ModelAverage``, ``ExponentialMovingAverage``, the fused
+ops) and ``utils.CheckpointManager``.
 """
 import sys as _sys
 
@@ -124,6 +133,7 @@ from .tensor.linalg import inv as inverse  # noqa: F401
 # the star import binds the op modules' names (math, random ...) here;
 # paddle_tpu_torch.tensor stays the package, as in the reference
 tensor = _sys.modules[__name__ + ".tensor"]
+from . import distributed, fluid, incubate, inference, onnx, utils  # noqa
 
 # dtypes as module attributes: the port's own dtype objects, so that
 # ``x.dtype == paddle_tpu_torch.float32`` holds

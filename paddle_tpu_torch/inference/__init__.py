@@ -1,25 +1,47 @@
-"""Serving stack of the port: ``serving.PagedServingEngine`` over the
-``kv_pager`` page allocator.
+"""The port's inference stack (counterpart of
+``paddle_tpu/inference/__init__.py``):
 
-The reference's inference export (``save_inference_model``,
-``StandaloneModel``) and its ``Predictor`` (``Config``,
-``create_predictor``) wait for ``inference/export.py`` and
-``predictor.py`` (ROADMAP Queue 1 item 4, the rest of the package): the
-names are here and raise, naming them."""
+* :mod:`.export`: ``torch.export`` artifacts (``save_inference_model`` /
+  :class:`StandaloneModel`), one CUDA graph a batch bucket on the card;
+* :mod:`.predictor`: :class:`Predictor` / :class:`Config` /
+  :func:`create_predictor`, the named-handle API over artifacts, ``jit``
+  pairs or an in-memory Layer;
+* :mod:`.serving`: the paged and slot-contiguous serving engines over the
+  ``kv_pager`` page allocator; :mod:`.speculative`: speculative decoding.
+
+The reference's ``fleet`` and ``autoscale`` come with ROADMAP Queue 1
+item 11.
+"""
+from __future__ import annotations
+
+from . import export as export_mod                       # noqa: F401
+from .export import StandaloneModel, save_inference_model  # noqa: F401
+from .predictor import (Config, Predictor, _Handle,  # noqa: F401
+                        _OutHandle, create_predictor)
+
+_SERVING_NAMES = ("ServingEngine", "PagedServingEngine",
+                  "ServingQueueFull", "Request")
+_SPEC_NAMES = ("SpeculativeServingEngine",)
+_FLEET_NAMES = ("ServingFleet", "FleetOverloaded", "FleetRequest",
+                "Autoscaler", "fleet", "autoscale")
 
 
-def _needs_export(name):
-    def fn(*args, **kwargs):
+def serving_stats():
+    """The process's ``serving.*`` counters (``profiler.serving_stats``)."""
+    from ..profiler import serving_stats as _serving_stats
+    return _serving_stats()
+
+
+def __getattr__(name):
+    import importlib
+    if name in _SERVING_NAMES or name == "serving":
+        serving = importlib.import_module(__name__ + ".serving")
+        return serving if name == "serving" else getattr(serving, name)
+    if name in _SPEC_NAMES or name == "speculative":
+        spec = importlib.import_module(__name__ + ".speculative")
+        return spec if name == "speculative" else getattr(spec, name)
+    if name in _FLEET_NAMES:
         raise NotImplementedError(
-            f"inference.{name} needs inference/export.py and predictor.py, "
-            "which are not ported (ROADMAP Queue 1 item 4, the rest of the "
-            "package)")
-    fn.__name__ = name
-    return fn
-
-
-save_inference_model = _needs_export("save_inference_model")
-StandaloneModel = _needs_export("StandaloneModel")
-Config = _needs_export("Config")
-Predictor = _needs_export("Predictor")
-create_predictor = _needs_export("create_predictor")
+            f"inference.{name}: the serving fleet and its autoscaler are not "
+            "ported (ROADMAP Queue 1 item 11)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

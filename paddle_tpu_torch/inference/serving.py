@@ -58,6 +58,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import gpt
 from ..ops.cuda import counters, dequant_matmul, paged_attn
+from . import export
 from .kv_pager import KVPager, PagesExhausted
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4)
@@ -100,12 +101,14 @@ _engines = weakref.WeakSet()
 
 
 def serving_stats():
-    """The serving counters of every live engine in the process, summed
-    (the reference's ``serving`` registry family)."""
+    """The serving counters of every live engine in the process, summed,
+    and the artifacts' ``standalone_compiles`` (the reference's
+    ``serving`` registry family)."""
     out = dict.fromkeys(_COUNTERS, 0)
     for eng in list(_engines):
         for k, v in eng._counts.items():
             out[k] += v
+    out.update(export.serving_stats())
     return out
 
 

@@ -17,6 +17,16 @@ its face.  For tensors on the CPU it is autograd of :func:`_ref_attention`,
 as the reference's fallback is ``jax.vjp`` of its ``_ref_attention``.  For
 CUDA tensors it is a ``torch.autograd.Function`` whose forward and backward
 launch the kernels, or raise; it never falls back from one to the other.
+
+The forward is one ``torch.library`` op, ``paddle_tpu::flash_fwd(q, k, v,
+causal) -> (out, lse)``, so that ``torch.export`` records it as one node
+(``inference/export.py``): its CUDA implementation checks the operands,
+makes every plan and shape decision (head-width padding, the rows with no
+key, the launches of 65,535 batches) and launches the kernels; its CPU
+implementation is the plain version (:func:`_ref_attention`'s out, the
+fp32 row logsumexp); its fake implementation gives both shapes without
+reading data.  The autograd function's forward is that op; a call that
+needs no gradient calls the op alone, on either device.
 q/k/v may be strided views (the model's are slices of its fused qkv
 projection): the kernels take the strides of the first three axes, so no
 copy is made unless a bf16 row is off 16-byte alignment
@@ -484,10 +494,38 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, causal):
     return _padded_bwd(_bwd_kernels, q, k, v, out, lse, do, causal)
 
 
+def _flash_fwd_op_cuda(q, k, v, causal):
+    """``paddle_tpu::flash_fwd`` on CUDA tensors: the kernels."""
+    _check_cuda(q, k, v, causal)
+    return _flash_fwd_cuda(q, k, v, causal)
+
+
+def _flash_fwd_op_cpu(q, k, v, causal):
+    """``paddle_tpu::flash_fwd`` on CPU tensors: :func:`_ref_attention`
+    (the CPU's plain path) and the fp32 logsumexp of the scaled scores."""
+    s, mask = _scores(q, k, causal)
+    lse = torch.logsumexp(s.masked_fill(~mask, NEG_INF), -1)
+    return _ref_attention(q, k, v, causal).contiguous(), lse
+
+
+_LIB = torch.library.Library("paddle_tpu", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal) -> "
+            "(Tensor, Tensor)")
+_LIB.impl("flash_fwd", _flash_fwd_op_cpu, "CPU")
+_LIB.impl("flash_fwd", _flash_fwd_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("paddle_tpu::flash_fwd", lib=_LIB)
+def _flash_fwd_fake(q, k, v, causal):
+    B, N, nh, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B, nh, N), dtype=torch.float32))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = _flash_fwd_cuda(q, k, v, causal)
+        out, lse = torch.ops.paddle_tpu.flash_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -504,7 +542,11 @@ def flash_attention(q, k, v, causal=False):
     bottom-right aligned).  Returns [B, N, nh, hd] in q's dtype.  CPU
     tensors: autograd of :func:`_ref_attention`.  CUDA tensors (float32 or
     bfloat16, any hd): the flash kernels, forward and backward (the split
-    or the fused backward, per :func:`set_default_blocks`)."""
+    or the fused backward, per :func:`set_default_blocks`).  A call that
+    needs no gradient is the forward op alone, on either device."""
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return torch.ops.paddle_tpu.flash_fwd(q, k, v, bool(causal))[0]
     if q.device.type == "cpu":
         return _ref_attention(q, k, v, causal)
     if q.device.type != "cuda":
@@ -517,7 +559,7 @@ def flash_fwd(q, k, v, causal=False):
     """The forward kernel alone: (out, lse [B, nh, N] fp32), no autograd.
     For checks and timing beside :func:`_ref_flash_fwd`."""
     _check_cuda(q, k, v, causal)
-    return _flash_fwd_cuda(q, k, v, causal)
+    return torch.ops.paddle_tpu.flash_fwd(q, k, v, bool(causal))
 
 
 def flash_bwd(q, k, v, out, lse, do, causal=False):

@@ -12,7 +12,16 @@ version for a tensor on the CPU and launches the kernel for a tensor on a
 CUDA device, never falling back from one to the other; the backward is
 autograd of the plain version recomputed from the saved inputs (the
 reference's ``_ln_bwd`` and ``_rms_bwd``; no backward kernel exists there
-either).  ``launches`` counts LayerNorm kernel launches and
+either).
+
+Each forward is one ``torch.library`` op, ``paddle_tpu::layer_norm`` and
+``paddle_tpu::rms_norm``, so that ``torch.export`` records it as one node
+(``inference/export.py``): its CPU implementation is the plain version,
+its CUDA implementation checks its inputs, launches the kernel and counts
+the launch, and its fake implementation gives the output's shape and
+dtype without reading data.  A call that needs no gradient calls the op;
+one that does goes through the ``autograd.Function``, whose forward is
+the same op.  ``launches`` counts LayerNorm kernel launches and
 ``rms_launches`` RMSNorm kernel launches.  The reference's ``_tileable``
 gate has no counterpart: every CUDA tensor launches the kernel, whatever
 its H (one-element loads where rows are not 16-byte aligned, rows read
@@ -89,11 +98,8 @@ def _check_cuda(x, g, b):
 
 
 def _forward(x, g, b, eps):
+    """``paddle_tpu::layer_norm`` on CUDA tensors: the kernel."""
     global launches
-    if x.device.type == "cpu":
-        return _ref_layer_norm(x, g, b, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm: unsupported device {x.device}")
     _check_cuda(x, g, b)
     # the kernel reads contiguous rows: a strided view is copied once
     # (any H and any alignment go in as they are)
@@ -131,7 +137,7 @@ class _LayerNorm(torch.autograd.Function):
     def forward(ctx, x, g, b, eps):
         ctx.save_for_backward(x, g, b)
         ctx.eps = eps
-        return _forward(x, g, b, eps)
+        return torch.ops.paddle_tpu.layer_norm(x, g, b, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -159,11 +165,8 @@ def _check_rms_cuda(x, g):
 
 
 def _rms_forward(x, g, eps):
+    """``paddle_tpu::rms_norm`` on CUDA tensors: the kernel."""
     global rms_launches
-    if x.device.type == "cpu":
-        return _ref_rms_norm(x, g, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rms_norm: unsupported device {x.device}")
     _check_rms_cuda(x, g)
     # as for LayerNorm: a strided view is copied to rows once (any
     # alignment goes in as it is)
@@ -187,7 +190,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, g, eps):
         ctx.save_for_backward(x, g)
         ctx.eps = eps
-        return _rms_forward(x, g, eps)
+        return torch.ops.paddle_tpu.rms_norm(x, g, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -198,4 +201,33 @@ def rms_norm(x, g, eps=1e-6):
     """RMSNorm over the last axis.  x: [..., H] float32 or bfloat16, any
     H >= 1, any strides; g: [H] float32 or bfloat16.  Returns x's shape and dtype;
     differentiable in x and g."""
-    return _RMSNorm.apply(x, g, eps)
+    if _needs_grad(x, g):
+        return _RMSNorm.apply(x, g, float(eps))
+    return torch.ops.paddle_tpu.rms_norm(x, g, float(eps))
+
+
+def _needs_grad(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+# the ops (module docstring); the CPU implementations return contiguous
+# rows, as the kernels do
+_LIB = torch.library.Library("paddle_tpu", "FRAGMENT")
+_LIB.define("layer_norm(Tensor x, Tensor g, Tensor b, float eps) -> Tensor")
+_LIB.define("rms_norm(Tensor x, Tensor g, float eps) -> Tensor")
+_LIB.impl("layer_norm", lambda x, g, b, eps: _ref_layer_norm(
+    x, g, b, eps).contiguous(), "CPU")
+_LIB.impl("layer_norm", _forward, "CUDA")
+_LIB.impl("rms_norm", lambda x, g, eps: _ref_rms_norm(x, g, eps).contiguous(),
+          "CPU")
+_LIB.impl("rms_norm", _rms_forward, "CUDA")
+
+
+@torch.library.register_fake("paddle_tpu::layer_norm", lib=_LIB)
+def _layer_norm_fake(x, g, b, eps):
+    return x.new_empty(x.shape)
+
+
+@torch.library.register_fake("paddle_tpu::rms_norm", lib=_LIB)
+def _rms_norm_fake(x, g, eps):
+    return x.new_empty(x.shape)

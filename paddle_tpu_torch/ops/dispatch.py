@@ -146,8 +146,12 @@ def call(fn, *args, _name=None, **kwargs):
         if tv is not None and wrapped is not fn:
             wrapped.__test_variant__ = maybe_autocast_fn(tv, name)
         fn = wrapped
-    with torch.set_grad_enabled(record):
+    if record == torch.is_grad_enabled():
+        # no switch: ``torch.export`` records each one as a graph split
         out = fn(*unwrap(args), **unwrap(kwargs))
+    else:
+        with torch.set_grad_enabled(record):
+            out = fn(*unwrap(args), **unwrap(kwargs))
     multi = isinstance(out, (tuple, list))
     if nan_guard:
         from .. import debug

@@ -288,11 +288,16 @@ def reset_prefetch_stats():
 
 
 def serving_stats():
-    """The serving counters of every live engine, summed; empty where the
-    serving stack was never imported."""
+    """The serving counters of every live engine, summed, and the
+    artifacts' ``standalone_compiles`` (``inference/export.py``); empty
+    where neither was imported."""
     import sys
-    mod = sys.modules.get(__package__ + ".inference.serving")
-    return {} if mod is None else mod.serving_stats()
+    out = {}
+    for name in (".inference.serving", ".inference.export"):
+        mod = sys.modules.get(__package__ + name)
+        if mod is not None:
+            out.update(mod.serving_stats())
+    return out
 
 
 def reset_serving_stats():

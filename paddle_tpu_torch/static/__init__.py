@@ -4,10 +4,11 @@
 ``gradients``, ``static.nn``, the control flow (``cond``, ``while_loop``,
 ``case``, ``switch_case``), ``misc`` (``Print``, ``py_func``,
 ``create_global_var`` ...), ``save`` / ``load`` and program
-serialization, and ``InputSpec``.  ``save_inference_model`` and
-``load_inference_model`` wait for ``inference/export.py`` (ROADMAP Queue
-1 item 4, the rest of the package) and raise."""
+serialization, ``InputSpec``, and ``save_inference_model`` /
+``load_inference_model`` over ``inference/export.py``."""
 import pickle
+
+import torch
 
 from . import nn
 from .. import amp  # noqa: F401  (static.amp: the one amp package)
@@ -54,17 +55,81 @@ class ParallelExecutor(Executor):
                            **kwargs)
 
 
-def _needs_export(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"static.{name} needs inference/export.py, which is not ported "
-            "(ROADMAP Queue 1 item 4, the rest of the package)")
-    fn.__name__ = name
-    return fn
+def save_inference_model(path_prefix, feed_vars, fetch_vars, executor=None,
+                         program=None, **kwargs):
+    """Freeze a Program's replay into the ``torch.export`` artifact of
+    ``inference.save_inference_model`` (ref: python/paddle/static/io.py;
+    there a pruned ProgramDesc and its persistables): the ops the fetches
+    need, with the parameters and persistable captures baked in; the
+    feeds are its inputs (their declared unknown dims the dynamic batch)
+    and the fetches its outputs."""
+    from .graph import _declared_shapes, _ensure_var_id
+    from ..inference.export import save_inference_model as _export
+    from ..tensor.tensor import Tensor
+
+    program = program or default_main_program()
+    feed_vars = [feed_vars] if isinstance(feed_vars, Tensor) else feed_vars
+    fetch_vars = [fetch_vars] if isinstance(fetch_vars, Tensor) \
+        else fetch_vars
+    feed_ids = [_ensure_var_id(v, program) for v in feed_vars]
+    fetch_ids = [_ensure_var_id(v, program) for v in fetch_vars]
+    program = _pruned(program, fetch_ids)
+    fixed = {i: p.value.detach() for i, p in program.params.items()}
+    fixed.update((i, t.value.detach()) for i, t in program.captured.items()
+                 if t.persistable)
+
+    def fn(*feeds):
+        env = dict(fixed)
+        env.update(zip(feed_ids, (f.value for f in feeds)))
+        program.replay(env)
+        return tuple(Tensor(env[i]) for i in fetch_ids)
+
+    spec = [(_declared_shapes.get(i, list(v.shape)), v.dtype)
+            for i, v in zip(feed_ids, feed_vars)]
+    names = [v.name for v in feed_vars]
+    return _export(path_prefix, fn, spec, input_names=names,
+                   output_names=[v.name for v in fetch_vars])
 
 
-save_inference_model = _needs_export("save_inference_model")
-load_inference_model = _needs_export("load_inference_model")
+def _pruned(program, fetch_ids):
+    """A copy of ``program`` with only the ops its fetches depend on (the
+    reference's pruned program): an eval clone's loss and its label feed
+    drop out."""
+    need, keep = set(fetch_ids), []
+    for op in reversed(program.ops):
+        if need.intersection(op.out_ids):
+            keep.append(op)
+            need.update(r for k, r in op.leaf_specs if k == "var")
+    out = program.clone()
+    out.ops = keep[::-1]
+    return out
+
+
+class _LoadedInferenceProgram:
+    """What :func:`load_inference_model` returns as the program:
+    ``Executor.run`` runs its artifact on the feeds by name."""
+
+    def __init__(self, model):
+        self.model = model
+        self.ops = True       # not a startup program
+
+    def run(self, feed, fetch_list=None):
+        outs = self.model(*[feed[n] for n in self.model.input_names()])
+        return [(o.float() if o.dtype == torch.bfloat16 else o).cpu().numpy()
+                for o in outs]
+
+
+def load_inference_model(path_prefix, executor=None, **kwargs):
+    """[program, feed names, fetch names], as the reference returns them;
+    run with ``exe.run(program, feed=..., fetch_list=...)`` on the
+    executor's place (default: the card)."""
+    from ..framework import core
+    from ..inference.export import StandaloneModel
+    place = getattr(executor, "place", None)
+    place = place if isinstance(place, core.Place) else core.get_place()
+    model = StandaloneModel(path_prefix, device=place.device)
+    return [_LoadedInferenceProgram(model), model.input_names(),
+            model.output_names()]
 
 
 def save(program, model_path, **kwargs):

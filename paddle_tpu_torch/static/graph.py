@@ -18,9 +18,17 @@ shapes and dtypes, fetch ids, train spec) in a bounded LRU of 64, the
 reference's ``static.executor`` compile-cache site; ``executor_stats``
 counts its ``builds`` (the reference's compiles), ``hits`` and
 ``evictions``.  A run without fetches makes no host sync.  Capturing the
-replay as a CUDA graph is not ported (ROADMAP Queue 1 item 2); nor are
-the reference's ``fluid`` reader hooks and inference export.  Static
+replay as a CUDA graph is not ported (ROADMAP Queue 1 item 2).  Static
 control flow records composite ops (``static.control_flow``).
+
+``Executor.run`` passes the feed through every hook of
+``_executor_feed_hooks`` first (``fluid/reader_compat.py``'s: a started
+``py_reader``'s placeholders are filled from its staged batches, moved
+to the executor's place), and runs a program that
+``load_inference_model`` returned through its artifact.
+``train_from_dataset`` and ``infer_from_dataset`` drive one pass of a
+MultiSlot dataset (``distributed/ps_compat.py``), each batch one ordinary
+feed into the prepared replay.
 """
 from __future__ import annotations
 
@@ -45,6 +53,15 @@ _live_var_ids = set()
 _var_tensors = {}
 
 executor_stats = {"builds": 0, "hits": 0, "evictions": 0}
+# hooks(program, feed, device) -> feed, run by Executor.run before it
+# prepares the program (fluid's py_reader registers one); a list, so that
+# static imports nothing of fluid
+_executor_feed_hooks = []
+# feed name -> its shape as declared (-1 for unknown dims; the placeholder
+# holds 1 there), and the same by var id (a later program may declare the
+# name again)
+_feed_declared_shapes = {}
+_declared_shapes = {}
 _EXECUTOR_CACHE = 64
 
 
@@ -210,7 +227,10 @@ class Program:
             leaves = [self.lookup(env, ref) if kind == "var" else ref
                       for kind, ref in op.leaf_specs]
             args, kwargs = pytree.tree_unflatten(leaves, op.spec)
-            with torch.set_grad_enabled(grad_on and op.grad):
+            if grad_on and not op.grad:
+                with torch.no_grad():
+                    out = op.fn(*args, **kwargs)
+            else:
                 out = op.fn(*args, **kwargs)
             outs = out if isinstance(out, (tuple, list)) else (out,)
             for oid, o in zip(op.out_ids, outs):
@@ -297,6 +317,8 @@ def data(name, shape, dtype="float32", lod_level=0):
                dtype=dtype, stop_gradient=True, name=name)
     prog = default_main_program()
     vid = _ensure_var_id(t, prog)
+    _feed_declared_shapes[name] = declared
+    _declared_shapes[vid] = declared
     prog.feed_ids[name] = vid
     _live_var_ids.add(vid)
     prog._avail.add(vid)
@@ -355,9 +377,17 @@ class Executor:
             return_numpy=True, **kwargs):
         program = program or default_main_program()
         program = getattr(program, "_program", program)  # CompiledProgram
+        if hasattr(program, "model") and hasattr(program, "run"):
+            # static.load_inference_model's artifact
+            return program.run(feed or {}, fetch_list)
         if not program.ops:
             return []       # startup: the parameters exist already
         feed = feed or {}
+        if _executor_feed_hooks:
+            dev = (self.place if isinstance(self.place, core.Place)
+                   else core.get_place()).device
+            for hook in _executor_feed_hooks:
+                feed = hook(program, feed, dev)
         fetch_list = fetch_list or []
         if isinstance(fetch_list, (str, Tensor)):
             fetch_list = [fetch_list]
@@ -435,6 +465,41 @@ class Executor:
             s = t.sum() if seed is None else (t * seed.to(t.device)).sum()
             g, = torch.autograd.grad(s, wv, allow_unused=True)
         return torch.zeros_like(wv) if g is None else g.detach()
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """One pass of a MultiSlot dataset (ref fluid/executor.py::
+        train_from_dataset; there C++ trainer threads): each parsed batch
+        is an ordinary feed into the prepared replay.  The fetches print
+        every ``print_period`` steps."""
+        if dataset is None:
+            raise ValueError("train_from_dataset needs a dataset")
+        program = program or default_main_program()
+        fetch_list = fetch_list or []
+        fetch_info = fetch_info or [f"fetch_{i}"
+                                    for i in range(len(fetch_list))]
+        for step, feed in enumerate(dataset.iter_batches()):
+            vals = self.run(program, feed=feed, fetch_list=fetch_list)
+            if fetch_list and step % max(print_period, 1) == 0:
+                msg = " ".join(f"{n}={np.asarray(v).ravel()[:1]}"
+                               for n, v in zip(fetch_info, vals))
+                print(f"step {step}: {msg}")
+        return None
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """:meth:`train_from_dataset` with the program's ``train_spec``
+        suspended, so that it never applies an update."""
+        program = program or default_main_program()
+        saved, program.train_spec = program.train_spec, None
+        try:
+            return self.train_from_dataset(program, dataset, scope,
+                                           thread, debug, fetch_list,
+                                           fetch_info, print_period)
+        finally:
+            program.train_spec = saved
 
     def close(self):
         self._cache.clear()

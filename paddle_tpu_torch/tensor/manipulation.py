@@ -27,8 +27,14 @@ def _ints(seq):
         return tuple(int(s) for s in seq.tolist())
     if isinstance(seq, (int, np.integer)):
         return (int(seq),)
-    return tuple(int(s.item()) if isinstance(s, Tensor) else int(s)
+    return tuple(int(s.item()) if isinstance(s, Tensor) else _dim(s)
                  for s in seq)
+
+
+def _dim(s):
+    """``s`` as an int; a symbolic size stays symbolic, so that
+    ``torch.export`` keeps a dynamic batch through shape arithmetic."""
+    return s if isinstance(s, torch.SymInt) else int(s)
 
 
 def _int(v):

@@ -2518,3 +2518,144 @@ def test_to_static_control_flow_on_card(on_card):
     assert st["misses"] == 1 and st["hits"] == 2, st
     # the while loop's capture broke once, then two eager calls
     assert st["fallbacks"] == 3 and st["blacklisted"] == 1, st
+
+
+# --------------------------------------------------------------------------
+# the kernels as torch.library ops, the exported artifact's graph a bucket,
+# the async checkpoint and the reader on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registered_ops_match_plain_on_card(dev, dtype):
+    """``paddle_tpu::layer_norm``, ``rms_norm`` and ``flash_fwd`` on CUDA
+    tensors launch their kernels (one count each) and agree with their
+    plain versions at the tolerances above; their fake implementations
+    give the real outputs' shapes and dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(4, 33, 96, device=dev, generator=g).to(dtype)
+    w = (1 + 0.1 * torch.randn(96, device=dev, generator=g)).to(dtype)
+    b = (0.1 * torch.randn(96, device=dev, generator=g)).to(dtype)
+    q, k, v = (torch.randn(2, 70, 3, 64, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    n0 = (norms.launches, norms.rms_launches, flash_attn.fwd_launches)
+    ln = torch.ops.paddle_tpu.layer_norm(x, w, b, 1e-5)
+    rms = torch.ops.paddle_tpu.rms_norm(x, w, 1e-6)
+    out, lse = torch.ops.paddle_tpu.flash_fwd(q, k, v, True)
+    assert (norms.launches, norms.rms_launches, flash_attn.fwd_launches) \
+        == tuple(n + 1 for n in n0)
+    tol = FP32_TOL if dtype == torch.float32 else 2.0 ** -7
+    for got, ref in ((ln, norms._ref_layer_norm(x, w, b, 1e-5)),
+                     (rms, norms._ref_rms_norm(x, w, 1e-6))):
+        assert got.dtype == dtype and got.shape == x.shape
+        scale = ref.float().abs().max() if dtype == torch.float32 else \
+            ref.float().abs()
+        assert ((got.float() - ref.float()).abs() <= tol * scale + (
+            0 if dtype == torch.float32 else 2.0 ** -8)).all()
+    ro, rl = flash_attn._ref_flash_fwd(q, k, v, True)
+    assert (out.float() - ro.float()).abs().max() <= (
+        FP32_TOL * float(ro.float().abs().max()) if dtype == torch.float32
+        else 2.0 ** -8 + 2.0 ** -6 * float(ro.float().abs().max()))
+    assert (lse - rl).abs().max() <= 1e-4
+    with FakeTensorMode() as mode:
+        fx, fw, fb, fq = (mode.from_tensor(t) for t in (x, w, b, q))
+        fo, fl = torch.ops.paddle_tpu.flash_fwd(fq, fq, fq, False)
+        assert torch.ops.paddle_tpu.layer_norm(fx, fw, fb, 1e-5).shape == \
+            x.shape
+        assert (fo.shape, fo.dtype, fl.shape, fl.dtype) == (
+            q.shape, dtype, (2, 3, 70), torch.float32)
+
+
+def test_exported_artifact_replays_one_graph_a_bucket(on_card, tmp_path):
+    """A small encoder exported on the card with a dynamic batch: batch 4
+    captures its graph, batch 3 pads to the 4-bucket and the probe
+    replays it twice, batch 4 replays once; each run adds 2L LayerNorm, L
+    flash forward and 1 RMSNorm launch a pass; ``standalone_compiles``
+    moves by one; outputs within 1e-5 of the eager forward's max."""
+    pt = on_card
+    from paddle_tpu_torch.inference import export
+    model = _small_encoder(pt)
+    prefix = str(tmp_path / "enc")
+    meta = pt.inference.save_inference_model(
+        prefix, model, [pt.static.InputSpec([None, 64], "int32")])
+    assert meta["dynamic_batch"]
+    sm = export.StandaloneModel(prefix)
+    rng = np.random.RandomState(3)
+    ids = {b: rng.randint(0, 512, (b, 64)).astype(np.int32) for b in (3, 4)}
+    c0 = export.serving_stats()["standalone_compiles"]
+    per = (2 * 2, 2, 1)
+    for b, passes in ((4, 1), (3, 2), (4, 1)):
+        before = _counts()
+        outs = sm(ids[b])
+        torch.cuda.synchronize()
+        got = tuple(a - z for a, z in zip(_counts(), before))
+        assert got == tuple(passes * n for n in per), (b, got)
+        with pt.no_grad():
+            want = model(pt.to_tensor(ids[b]))
+        for o, w in zip(outs, want):
+            assert o.shape == w.value.shape and o.is_cuda
+            assert (o - w.value).abs().max() <= \
+                FP32_TOL * w.value.abs().max()
+    assert export.serving_stats()["standalone_compiles"] == c0 + 1
+    assert len(sm._calls) == 1
+
+
+def test_async_save_then_step_writes_the_pre_step_values(on_card, tmp_path):
+    """``CheckpointManager(async_save=True)``: a save followed at once by
+    an optimizer step (no sync between) writes the values before it."""
+    pt = on_card
+    from paddle_tpu_torch.utils import CheckpointManager
+    net = pt.nn.Linear(1024, 1024)
+    opt = pt.optimizer.Adam(learning_rate=0.1, parameters=net.parameters())
+    x = pt.to_tensor(np.ones((64, 1024), np.float32))
+    pt.mean(net(x)).backward()
+    before = net.weight.value.detach().clone()
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, model=net, optimizer=opt)
+    opt.step()
+    mgr.wait()
+    assert not torch.equal(net.weight.value, before)
+    got = pt.load(str(tmp_path / "step_1" / "model.pdparams"))
+    assert torch.equal(got["weight"].value.to(before.device), before)
+
+
+def test_double_buffer_feeds_the_card_without_a_host_sync(on_card):
+    """A started py_reader with the double buffer fills a static program
+    on the card: each batch goes through pinned memory with non-blocking
+    copies, and a fetchless run makes no host sync
+    (``torch.cuda.set_sync_debug_mode("error")``); the loss then equals
+    the same program fed the same batch by hand."""
+    pt = on_card
+    from paddle_tpu_torch import fluid, static
+    pt.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            rd = fluid.layers.py_reader(capacity=2, shapes=[(-1, 64)],
+                                        dtypes=["float32"],
+                                        use_double_buffer=True)
+            x = fluid.layers.read_file(rd)
+            loss = pt.mean(static.nn.fc(x, 8))
+        rng = np.random.RandomState(0)
+        batches = [(rng.randn(16, 64).astype(np.float32),)
+                   for _ in range(3)]
+        rd.decorate_batch_generator(lambda: iter(batches))
+        exe = static.Executor()
+        rd.start()
+        assert rd._pass.ring is not None
+        exe.run(main, fetch_list=[])            # warm: the replay prepared
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            exe.run(main, fetch_list=[])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got, = exe.run(main, fetch_list=[loss])
+        with pytest.raises(fluid.core.EOFException):
+            exe.run(main, fetch_list=[loss])
+        rd.reset()
+        want, = exe.run(main, feed={x.name: batches[2][0]},
+                        fetch_list=[loss])
+    finally:
+        pt.disable_static()
+    np.testing.assert_array_equal(got, want)

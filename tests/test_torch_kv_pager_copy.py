@@ -65,3 +65,21 @@ def test_port_copy_of_the_synthetic_mnist_is_the_reference_code():
     got, want = code_tokens(port), code_tokens(ref)
     assert len(got) > 300
     assert got == want
+
+
+def test_port_copy_of_ps_compat_is_the_reference_code():
+    """``paddle_tpu_torch/distributed/ps_compat.py`` (the MultiSlot
+    generators and datasets, host only) is a copy of the JAX package's,
+    code unchanged, as its header says; it imports numpy and the stdlib
+    only."""
+    port = os.path.join(ROOT, "paddle_tpu_torch", "distributed",
+                        "ps_compat.py")
+    ref = os.path.join(ROOT, "paddle_tpu", "distributed", "ps_compat.py")
+    with open(port) as f:
+        assert "code unchanged" in f.readline()
+    got, want = code_tokens(port), code_tokens(ref)
+    assert len(got) > 1000
+    assert got == want
+    imported = {s for i, (t, s) in enumerate(got[:-1])
+                if got[i - 1][1] == "import" and t == tokenize.NAME}
+    assert imported <= {"annotations", "os", "sys", "numpy", "subprocess"}
