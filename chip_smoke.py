@@ -860,8 +860,9 @@ def check_kernels(torch, paged_attn, norms):
                    [8190], 2, v_mean=True)
 
     # LayerNorm: the model's rows in the compute dtype; fp32 weights (the
-    # 345M paths' fp32 masters) and, at the flagship's rows, weights in
-    # the compute dtype (its bf16 params)
+    # 345M paths' fp32 masters) or weights in the compute dtype (the
+    # flagship's and (am)'s bf16 params); and (am)'s bf16 decode, where
+    # gen_cache's float32 caches promote x to fp32 under bf16 g and b
     def view_of(x, kind):
         """x as the view a case names: "T" a transposed view of x's
         transpose (same values, strided), "+4" a copy 4 bytes off 16-byte
@@ -877,6 +878,7 @@ def check_kernels(torch, paged_attn, norms):
             return v
         return x
 
+    ln_cases = []
     for shape, name, own, kind in (
             ((16, 1, 1024), "decode 16 rows", False, None),
             ((4, 256, 1024), "prefill 4x256 rows", False, None),
@@ -886,49 +888,59 @@ def check_kernels(torch, paged_attn, norms):
             ((6, 2048, 2048), "flagship, g b in x's dtype", True, None),
             ((8, 1024, 1024), "345M training rows", False, None),
             ((8, 512, 768), "encoder, g b in x's dtype", True, None),
+            ((8, 32, 512), "(am) encoder, g b in x's dtype", True, None),
+            ((32, 1, 512), "(am) decode, g b in x's dtype", True, None),
             ((2, 6), "H=6, one-element loads", True, None),
             ((3, 7), "H=7, one-element loads", True, None),
             ((5, 1001), "H=1001, one-element loads", True, None),
             ((2, 70001), "H=70001, rows read thrice", True, None),
             ((768, 512), "transposed view", True, "T"),
             ((512, 768), "view 4 bytes off alignment", True, "+4")):
-        for dt in (f32, bf16):
-            g = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
-            b = torch.randn(shape[-1], device="cuda").to(dt if own else f32)
-            sets = [(view_of((torch.randn(shape, device="cuda") * 2
-                              + 1).to(dt), kind), g, b)
-                    for _ in range(l2_copies(math.prod(shape) * 4))]
-            x = sets[0][0]
-            got = norms.layer_norm(x, g, b)
-            torch.cuda.synchronize()
-            ref = norms._ref_layer_norm(x, g, b, 1e-5)
-            tol = FP32_TOL if dt == f32 else 2.0 ** -7 * max(
-                1.0, float(ref.float().abs().max()))
-            gl, bl = g.to(dt), b.to(dt)
-            bound, by = norm_bound(x, g, 2, 8)
-            out["layer_norm"].append(
-                {"shape": f"{list(shape)} ({name})", "dtype": str(dt),
-                 "max_abs_err": max_err(got, ref), "tol": tol,
-                 "ms": device_ms(norms.layer_norm, sets),
-                 "call_ms": time_ms(norms.layer_norm, sets, 500),
-                 "plain_ms": device_ms(
-                     lambda a, c, d: norms._ref_layer_norm(a, c, d, 1e-5),
-                     sets),
-                 "library_ms": device_ms(
-                     lambda a, c, d: torch.nn.functional.layer_norm(
-                         a, (a.shape[-1],), c, d, 1e-5),
-                     [(a, gl, bl) for a, _, _ in sets]),
-                 "bound_ms": bound, "bound_by": by})
+        ln_cases += [(shape, name, dt, dt if own else f32, kind)
+                     for dt in (f32, bf16)]
+    ln_cases.append(((32, 1, 512), "(am) bf16 decode, x promoted, g b bf16",
+                     f32, bf16, None))
+    for shape, name, dt, gdt, kind in ln_cases:
+        g = torch.randn(shape[-1], device="cuda").to(gdt)
+        b = torch.randn(shape[-1], device="cuda").to(gdt)
+        sets = [(view_of((torch.randn(shape, device="cuda") * 2
+                          + 1).to(dt), kind), g, b)
+                for _ in range(l2_copies(math.prod(shape) * 4))]
+        x = sets[0][0]
+        got = norms.layer_norm(x, g, b)
+        torch.cuda.synchronize()
+        ref = norms._ref_layer_norm(x, g, b, 1e-5)
+        tol = FP32_TOL if dt == f32 else 2.0 ** -7 * max(
+            1.0, float(ref.float().abs().max()))
+        ratio, mutant = gate([(got, ref, ref)], tol, 0.0, rows=later_rows)
+        gl, bl = g.to(dt), b.to(dt)
+        bound, by = norm_bound(x, g, 2, 8)
+        out["layer_norm"].append(
+            {"shape": f"{list(shape)} ({name})", "dtype": str(dt),
+             "g_dtype": str(gdt), "max_abs_err": max_err(got, ref),
+             "max_abs_ref": float(ref.float().abs().max()),
+             "atol": tol, "rtol": 0.0, "gate": ratio, "mutant_gate": mutant,
+             "ms": device_ms(norms.layer_norm, sets),
+             "call_ms": time_ms(norms.layer_norm, sets, 500),
+             "plain_ms": device_ms(
+                 lambda a, c, d: norms._ref_layer_norm(a, c, d, 1e-5),
+                 sets),
+             "library_ms": device_ms(
+                 lambda a, c, d: torch.nn.functional.layer_norm(
+                     a, (a.shape[-1],), c, d, 1e-5),
+                 [(a, gl, bl) for a, _, _ in sets]),
+             "bound_ms": bound, "bound_by": by})
     bad = [(k, c["shape"], c["dtype"]) for k, cases in out.items()
            for c in cases if not case_ok(c)]
     for k, cases in out.items():
         for c in cases:
-            log(f"  {k:16s} {c['dtype']:15s} {c['shape'][:44]:44s} "
-                f"max_abs_err {c['max_abs_err']:.3e} "
-                + (f"gate {c['gate']:.3f} (atol {c['atol']:.1e} rtol "
-                   f"{c['rtol']:.1e}; max|ref| {c['max_abs_ref']:.2e}; "
-                   f"wrong-scale mutant {c['mutant_gate']:.2f})"
-                   if "gate" in c else f"(tol {c['tol']:.1e})")
+            log(f"  {k:16s} {c['dtype']:15s} "
+                + (f"g {c['g_dtype']:15s} " if "g_dtype" in c else "")
+                + f"{c['shape'][:46]:46s} max_abs_err "
+                f"{c['max_abs_err']:.3e} gate {c['gate']:.3f} (atol "
+                f"{c['atol']:.1e} rtol {c['rtol']:.1e}; max|ref| "
+                f"{c['max_abs_ref']:.2e}; wrong-scale mutant "
+                f"{c['mutant_gate']:.2f})"
                 + f"  device ms: kernel {c['ms']:.5f}  plain "
                   f"{c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
                   f"bound {c['bound_ms']:.6f} ({c['bound_by']}); eager "
@@ -1045,27 +1057,153 @@ def library_attention_fwd_bwd(q, k, v, do, causal):
     return torch.autograd.grad(out, (q, k, v), do.transpose(1, 2))
 
 
+# (am)'s shapes and the seq2seq path's others: [B, N, Nk, nh, hd, causal]
+# (the decode steps' one query row is held in the forward alone: the
+# decode runs under no_grad)
+SEQ2SEQ_SHAPES = [((128, 32, 32, 8, 64, False), "(am) training, self and "
+                   "cross attention"),
+                  ((32, 24, 40, 8, 64, False), "cross, Nq < Nk"),
+                  ((32, 40, 24, 8, 64, False), "cross, Nq > Nk"),
+                  ((32, 1, 1, 8, 64, False), "decode step 1"),
+                  ((32, 1, 33, 8, 64, False), "decode step 33"),
+                  ((32, 1, 82, 8, 64, False), "decode step 82, (am)'s last")]
+
+
+# phase (c)'s flash shapes: [B, N, Nk, nh, hd, causal], and what each is
+FLASH_SHAPES = [(TRAIN_SHAPE, "training"),
+                ((1, 1000, 1000, 16, 64, True), "ragged tail"),
+                ((1, 128, 320, 16, 64, True), "cross length"),
+                ((2, 256, 256, 4, 128, False), "hd 128 non-causal"),
+                ((6, 2048, 2048, 16, 128, True), "flagship"),
+                ((8, 512, 512, 12, 64, False), "encoder"),
+                ((64, 512, 512, 12, 64, False), "ERNIE pretraining"),
+                ((2, 512, 512, 8, 256, True), "hd 256"),
+                ((2, 128, 128, 8, 32, False), "hd 32, padded to 64"),
+                ((2, 512, 512, 4, 96, True), "hd 96, padded to 128"),
+                ((4100, 128, 128, 16, 32, False), "B*nh 65600"),
+                *WIDE_SHAPES, *SEQ2SEQ_SHAPES]
+
+
+def flash_rows(N, Nk):
+    """The mutants' rows: past the first tile and the second warpgroup's
+    (:data:`FLASH_ROWS`) where the rows reach them; below 128 rows on
+    either side, every batch but the first (the launch's later CTAs)."""
+    return FLASH_ROWS if min(N, Nk) >= 128 else (later_slots,)
+
+
+def check_flash_promoted(torch, flash_attn):
+    """Phase (c): the nn functional's promoted call, a bf16 query against
+    float32 k and v (a bf16 decode step against ``gen_cache``'s float32
+    caches), at the decode's [32, 1, 8, 64] x Nk 33: the kernels' fp32
+    forward on the promoted operands, its float32 output against
+    ``_ref_flash_fwd`` on them, one launch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn.functional import attention
+    from paddle_tpu_torch.nn.functional import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 69)
+    sets = []
+    for _ in range(2):
+        q = torch.randn(32, 1, 8, 64, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        k, v = (torch.randn(32, 33, 8, 64, device="cuda", generator=gen)
+                for _ in range(2))
+        sets.append((q, k, v))
+    q, k, v = sets[0]
+    before = flash_attn.fwd_launches
+    got = flash_attention(pt.to_tensor(q), pt.to_tensor(k), pt.to_tensor(v))
+    torch.cuda.synchronize()
+    launched = flash_attn.fwd_launches - before
+    ref = flash_attn._ref_flash_fwd(q.float(), k, v, False)[0]
+    ratio, mutant = gate([(got.value, ref, ref)], FP32_TOL, 0.0,
+                         rows=(later_slots,))
+
+    def promoted(q, k, v):
+        return flash_attn.flash_attention(*attention._promoted(q, k, v))
+    bounds = flash_bounds(q.float(), k, False)
+    case = {"shape": "[32, 1, 8, 64] kv 33 full (promoted mixed-dtype "
+                     "call: q bf16, k/v fp32)",
+            "dtype": "torch.float32", "out_dtype": str(got.value.dtype),
+            "launches": launched, "max_abs_err": max_err(got.value, ref),
+            "mean_abs_ref": float(ref.abs().mean()), "atol": FP32_TOL,
+            "rtol": 0.0, "gate": ratio, "mutant_gate": mutant,
+            "ms": device_ms(promoted, sets),
+            "call_ms": time_ms(promoted, sets, 50),
+            "plain_ms": device_ms(lambda q, k, v: flash_attn._ref_flash_fwd(
+                q.float(), k, v, False), sets),
+            "library_ms": device_ms(lambda q, k, v: library_attention(
+                q.float(), k, v, False), sets),
+            "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]}
+    # the reference's plain attention rounds the probabilities to q's
+    # bf16 before p . v; the fp32 kernel does not (ROADMAP Queue 3): the
+    # gap must stay within one rounding's reach, bf16's unit roundoff
+    # 2^-8 of sum_j p_j |v_j|
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(
+        q.shape[-1])
+    p = torch.softmax(logits, -1).to(q.dtype).float()
+    like_ref = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    reach = 2.0 ** -8 * flash_attn._ref_flash_fwd(q.float(), k, v.abs(),
+                                                  False)[0]
+    case["reference_gap"] = max_err(got.value, like_ref) / float(
+        like_ref.abs().max())
+    case["reference_gap_over_reach"] = float(
+        ((got.value - like_ref).abs() / reach).max())
+    if (got.value.dtype != torch.float32 or launched != 1
+            or case["reference_gap_over_reach"] > 1.0):
+        case["gate"] = float("inf")
+    return case
+
+
+def check_flash_bwd(torch, flash_attn, out, sets, o, lse, causal, gated,
+                    common, bounds, lib_fwd, plain_kw):
+    """Phase (c): the dq and dk/dv kernels on ``sets`` against
+    ``_ref_flash_bwd`` (given the kernel's out and lse), appended to
+    ``out``."""
+    q, k, v, do = sets[0]
+    hd = q.shape[-1]
+    # (q, k, v, dO, lse, delta, causal, scale), as the wrapper passes them
+    bwd_sets = kernel_bwd_sets(flash_attn, sets, o, lse, causal)
+    dq = unpad(flash_attn._launch_dq(*bwd_sets[0]), hd)
+    dk, dv = (unpad(t, hd) for t in flash_attn._launch_dkv(*bwd_sets[0]))
+    torch.cuda.synchronize()
+    rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do, causal)
+    # bf16 gradients: rtol scales the magnitude of the terms each sums
+    # (|ds| |k|, |ds|^T |q|, |p|^T |dO|), not |ref|
+    tdq, tdk, tdv = ((rdq, rdk, rdv) if q.dtype == torch.float32 else
+                     flash_attn._ref_flash_bwd_terms(q, k, v, o, lse, do,
+                                                     causal))
+    plain_bwd = [(a, b, c, o, lse, d, causal) for a, b, c, d in sets]
+    lib_sets = [(a.detach().requires_grad_(), b.detach().requires_grad_(),
+                 c.detach().requires_grad_(), d, causal)
+                for a, b, c, d in sets]
+    lib_bwd = max(device_ms(library_attention_fwd_bwd, lib_sets) - lib_fwd,
+                  0.0)
+    plain_bwd_ms = device_ms(flash_attn._ref_flash_bwd, plain_bwd,
+                             **plain_kw)
+    out["flash_attention_bwd_dq"].append({
+        **common, **gated([(dq, rdq, tdq)], FLASH_GRAD_TOL),
+        "ms": device_ms(flash_attn._launch_dq, bwd_sets),
+        "call_ms": time_ms(flash_attn._launch_dq, bwd_sets, 50),
+        "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
+        "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]})
+    out["flash_attention_bwd_dkv"].append({
+        **common, **gated([(dk, rdk, tdk), (dv, rdv, tdv)], FLASH_GRAD_TOL),
+        "ms": device_ms(flash_attn._launch_dkv, bwd_sets),
+        "call_ms": time_ms(flash_attn._launch_dkv, bwd_sets, 50),
+        "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
+        "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]})
+
+
 def check_flash(torch, flash_attn):
     """Phase (c), flash attention: the forward wrapper and the two backward
     kernels against ``_ref_flash_fwd`` / ``_ref_flash_bwd`` on the same
-    inputs (the backward's plain version gets the kernel's out and lse).
-    Returns {kernel: [case, ...]}."""
+    inputs (the backward's plain version gets the kernel's out and lse),
+    at every shape of ``FLASH_SHAPES`` (the backward's not at one query
+    row: the decode runs no backward), and the promoted call.  Returns
+    {kernel: [case, ...]}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     out = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [],
            "flash_attention_bwd_dkv": []}
-    shapes = [(TRAIN_SHAPE, "training"),
-              ((1, 1000, 1000, 16, 64, True), "ragged tail"),
-              ((1, 128, 320, 16, 64, True), "cross length"),
-              ((2, 256, 256, 4, 128, False), "hd 128 non-causal"),
-              ((6, 2048, 2048, 16, 128, True), "flagship"),
-              ((8, 512, 512, 12, 64, False), "encoder"),
-              ((64, 512, 512, 12, 64, False), "ERNIE pretraining"),
-              ((2, 512, 512, 8, 256, True), "hd 256"),
-              ((2, 128, 128, 8, 32, False), "hd 32, padded to 64"),
-              ((2, 512, 512, 4, 96, True), "hd 96, padded to 128"),
-              ((4100, 128, 128, 16, 32, False), "B*nh 65600"),
-              *WIDE_SHAPES]
-    for (B, N, Nk, nh, hd, causal), name in shapes:
+    for (B, N, Nk, nh, hd, causal), name in FLASH_SHAPES:
         big = B * N * Nk * nh >= 2 ** 26
         plain_kw = dict(per_graph=4, replays=5) if big else {}
         for dt in (torch.float32, torch.bfloat16):
@@ -1073,26 +1211,14 @@ def check_flash(torch, flash_attn):
             sets = flash_sets(torch, gen, dt, B, N, Nk, nh, hd, 2)
             q, k, v, do = sets[0]
             o, lse = flash_attn.flash_fwd(q, k, v, causal)
-            # (q, k, v, dO, lse, delta, causal, scale), as the wrapper
-            # passes them
-            bwd_sets = kernel_bwd_sets(flash_attn, sets, o, lse, causal)
-            dq = unpad(flash_attn._launch_dq(*bwd_sets[0]), hd)
-            dk, dv = (unpad(t, hd)
-                      for t in flash_attn._launch_dkv(*bwd_sets[0]))
             torch.cuda.synchronize()
             ro, rl = flash_attn._ref_flash_fwd(q, k, v, causal)
-            rdq, rdk, rdv = flash_attn._ref_flash_bwd(q, k, v, o, lse, do,
-                                                     causal)
-            # bf16 gradients: rtol scales the magnitude of the terms each
-            # sums (|ds| |k|, |ds|^T |q|, |p|^T |dO|), not |ref|
-            tdq, tdk, tdv = ((rdq, rdk, rdv) if f32 else
-                             flash_attn._ref_flash_bwd_terms(
-                                 q, k, v, o, lse, do, causal))
 
             def gated(pairs, fp32_atol):
                 atol, rtol = ((fp32_atol, 0.0) if f32
                               else (BF16_ATOL, BF16_RTOL))
-                ratio, mutant = gate(pairs, atol, rtol, rows=FLASH_ROWS)
+                ratio, mutant = gate(pairs, atol, rtol,
+                                     rows=flash_rows(N, Nk))
                 return {"max_abs_err": max(max_err(g, r)
                                            for g, r, _ in pairs),
                         "mean_abs_ref": float(np.mean(
@@ -1107,16 +1233,7 @@ def check_flash(torch, flash_attn):
                      f"{'causal' if causal else 'full'} ({name})")
             bounds = flash_bounds(q, k, causal)
             fwd_sets = [(a, b, c, causal) for a, b, c, _ in sets]
-            plain_bwd = [(a, b, c, o, lse, d, causal) for a, b, c, d in sets]
-            lib_sets = [(a.detach().requires_grad_(),
-                         b.detach().requires_grad_(),
-                         c.detach().requires_grad_(), d, causal)
-                        for a, b, c, d in sets]
             lib_fwd = device_ms(library_attention, fwd_sets)
-            lib_bwd = max(device_ms(library_attention_fwd_bwd, lib_sets)
-                          - lib_fwd, 0.0)
-            plain_bwd_ms = device_ms(flash_attn._ref_flash_bwd, plain_bwd,
-                                     **plain_kw)
             common = {"shape": label, "dtype": str(dt),
                       "bwd_pass_bound_ms": bounds["bwd_pass"][0],
                       "bwd_pass_bound_by": bounds["bwd_pass"][1]}
@@ -1129,21 +1246,14 @@ def check_flash(torch, flash_attn):
                                       **plain_kw),
                 "library_ms": lib_fwd,
                 "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]})
-            out["flash_attention_bwd_dq"].append({
-                **common, **gated([(dq, rdq, tdq)], FLASH_GRAD_TOL),
-                "ms": device_ms(flash_attn._launch_dq, bwd_sets),
-                "call_ms": time_ms(flash_attn._launch_dq, bwd_sets, 50),
-                "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
-                "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]})
-            out["flash_attention_bwd_dkv"].append({
-                **common, **gated([(dk, rdk, tdk), (dv, rdv, tdv)],
-                                  FLASH_GRAD_TOL),
-                "ms": device_ms(flash_attn._launch_dkv, bwd_sets),
-                "call_ms": time_ms(flash_attn._launch_dkv, bwd_sets, 50),
-                "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
-                "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]})
-            del sets, lib_sets, fwd_sets, bwd_sets, plain_bwd, tdq, tdk, tdv
+            if N > 1:
+                check_flash_bwd(torch, flash_attn, out, sets, o, lse,
+                                causal, gated, common, bounds, lib_fwd,
+                                plain_kw)
+            del sets, fwd_sets
             torch.cuda.empty_cache()
+    out["flash_attention_fwd"].append(check_flash_promoted(torch,
+                                                           flash_attn))
     for k, cases in out.items():
         for c in cases:
             log(f"  {k:24s} {c['dtype']:15s} {c['shape']:46s} "
@@ -1152,6 +1262,10 @@ def check_flash(torch, flash_attn):
                 f"{c['mean_abs_ref']:.3e}; wrong-scale mutant "
                 f"{c['mutant_gate']:.2f})"
                 + (f" lse_err {c['lse_err']:.1e}" if "lse_err" in c else "")
+                + (f"; against the reference's bf16 probabilities "
+                   f"{c['reference_gap']:.2e} of max|out|, "
+                   f"{c['reference_gap_over_reach']:.3f} of one rounding's "
+                   f"reach" if "reference_gap" in c else "")
                 + f"  device ms: kernel {c['ms']:.5f}  plain "
                   f"{c['plain_ms']:.5f}  library {c['library_ms']:.5f}  "
                   f"bound {c['bound_ms']:.6f} ({c['bound_by']}); eager "
@@ -1165,11 +1279,8 @@ def check_flash(torch, flash_attn):
 
 
 def case_ok(c):
-    if "gate" in c:
-        ok = c["gate"] <= 1.0 and c["mutant_gate"] > 1.0
-    else:
-        ok = c["max_abs_err"] <= c["tol"]
-    return ok and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0)
+    return (c["gate"] <= 1.0 and c["mutant_gate"] > 1.0
+            and c.get("lse_err", 0.0) <= c.get("lse_tol", 0.0))
 
 
 def later_rows(m):
@@ -3014,8 +3125,8 @@ def main():
                          "path with torch.profiler (phase f), of the "
                          "quantized engine (j), STEPS encoder forwards "
                          "in each dtype (n), up to STEPS prefill chunks "
-                         "(w) and STEPS self-draft iterations and draft "
-                         "steps (x)")
+                         "(w), STEPS self-draft iterations and draft "
+                         "steps (x) and an (am) decode of STEPS steps")
     ap.add_argument("--trace", default="paddle_tpu_torch/_build/"
                     "decode_trace.json",
                     help="where phase (f) writes its Chrome trace")
@@ -3024,8 +3135,9 @@ def main():
                          "path (phase i), the flagship path (l), ERNIE "
                          "pretraining (p), eager training (r), (t), "
                          "the hapi step and its hand-written loop (u), "
-                         "ResNet50's fetchless static step (aa) and the "
-                         "16-label fine-tune (ae) with torch.profiler")
+                         "ResNet50's fetchless static step (aa), the "
+                         "16-label fine-tune (ae) and the seq2seq steps "
+                         "(am), (an) with torch.profiler")
     ap.add_argument("--train-trace", default="paddle_tpu_torch/_build/"
                     "train_trace.json",
                     help="where phase (i) writes its Chrome trace")
@@ -3225,6 +3337,10 @@ def main():
     # (aj), (ak), (al): inference export and the Predictor, the reader
     # path, the optimizer extras and the checkpoint ----------------------
     deploy_phases(torch, flash_attn, norms, fused_ffn, card, launches)
+
+    # (am), (an), (ao): the sequence-to-sequence path (Transformer base,
+    # the RNN seq2seq) and the rest of nn ---------------------------------
+    seq2seq_phases(torch, flash_attn, norms, card, launches, args)
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -6575,6 +6691,509 @@ def slot_phases(torch, gpt, kernels, card, launches, fp_run, qrun):
     return z, par
 
 
+# (am), (an), (ao): the sequence-to-sequence path and the rest of nn -------
+
+# (am): Transformer "base" (Vaswani et al. 2017, Table 3) on the WMT14
+# en-de shared BPE vocabulary: V, d_model, nh, layers (each side), F
+NMT = dict(V=37000, d=512, nh=8, L=6, F=2048)
+NMT_DROPOUT = 0.1             # residual and embedding dropout (the paper's)
+NMT_BATCH = (128, 32, 32)     # pairs, source and target tokens: 4,096 a side
+NMT_WARMUP, NMT_STEPS = 2, 5  # untimed, then timed steps a dtype
+NMT_WARMUP_STEPS = 4000       # NoamDecay; the steps start at its peak
+NMT_BEAM = (8, 4, 32 + 50)    # sentences, beam_size, max_step_num (sec. 6.1)
+NMT_MAX_LEN = 128             # the sinusoid table's rows
+NMT_PARITY = (8, 2, 16)       # card vs CPU: pairs a step; sentences, steps
+NMT_BF16_LOGIT_TOL = 2.0 ** -8  # bf16 decode card vs CPU: one bf16 step
+NMT_START, NMT_END = 1, 2
+# (an): Paddle's IWSLT'15 en-vi seq2seq example: vocabularies, hidden and
+# embedding width, encoder layers, dropout, batch, padded length, beam
+RNN_NMT = dict(src_V=17191, tgt_V=7709, H=512, L=2, dropout=0.2, B=128,
+               T=50, beam=10)
+RNN_STEPS = 5
+RNN_PARITY = (16, 2, 16)      # card vs CPU: batch; sentences, steps
+
+
+def nmt_batch(V, B, Ns, Nt, seed):
+    """Tokens in [3, V) from a numpy seed: source [B, Ns], target input
+    (start token first) and output [B, Nt]."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(3, V, (B, Ns))
+    tgt = rng.integers(3, V, (B, Nt + 1))
+    tgt[:, 0] = NMT_START
+    return src, tgt[:, :-1], tgt[:, 1:]
+
+
+def nmt_model(pt, state, dropout):
+    """(am)'s model on the default place with ``state``'s weights and no
+    attention dropout (the paper has none; the reference's clones would
+    otherwise take ``dropout`` there and route to the dense path)."""
+    from tools import seq2seq
+    e = NMT
+    model = seq2seq.nmt_transformer(pt, e["V"], e["d"], e["nh"], e["L"],
+                                    e["F"], dropout, NMT_MAX_LEN)
+    if state is not None:
+        model.set_state_dict(state)
+    for layer in model.sublayers():
+        if isinstance(layer, pt.nn.MultiHeadAttention):
+            layer.dropout = 0.0
+    return model
+
+
+def nmt_optimizer(pt, model):
+    """Adam(beta2 0.98, eps 1e-9) on NoamDecay(512, 4000), the paper's,
+    resumed at the end of the warm-up (its peak rate, 7.0e-4)."""
+    sched = pt.optimizer.lr.NoamDecay(NMT["d"], NMT_WARMUP_STEPS,
+                                      last_epoch=NMT_WARMUP_STEPS - 1)
+    return sched, pt.optimizer.Adam(learning_rate=sched, beta1=0.9,
+                                    beta2=0.98, epsilon=1e-9,
+                                    parameters=model.parameters())
+
+
+def nmt_loss(pt, model, batch):
+    from tools import seq2seq
+    src, tgt_in, tgt_out = batch
+    return seq2seq.label_smoothed_ce(pt, model(src, tgt_in), tgt_out,
+                                     NMT["V"])
+
+
+def nmt_train(torch, pt, flash_attn, norms, state, amp, args):
+    """(am) training: :func:`timed_loop` over one 4,096 + 4,096-token
+    batch, fp32 or under ``auto_cast`` bf16; 12 flash forwards, 12 dq and
+    12 dk/dv a step (encoder self- and cross-attention; the decoder's
+    self-attention is dense under ``tgt_mask``), no LayerNorm kernel (the
+    training forward records)."""
+    B, Ns, Nt = NMT_BATCH
+    model = nmt_model(pt, state, NMT_DROPOUT).train()
+    sched, opt = nmt_optimizer(pt, model)
+    batch = tuple(pt.to_tensor(a) for a in nmt_batch(NMT["V"], B, Ns, Nt,
+                                                     SEED + 60))
+    L = NMT["L"]
+
+    def step(t):
+        if amp:
+            with pt.amp.auto_cast(dtype="bfloat16"):
+                loss = nmt_loss(pt, model, batch)
+        else:
+            loss = nmt_loss(pt, model, batch)
+        loss.backward()
+        opt.step()
+        sched.step()
+        opt.clear_grad()
+        return float(loss)
+    for _ in range(NMT_WARMUP - 1):    # timed_loop runs the last one
+        step(0)
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": 2 * L,
+            "flash_attention_bwd_dkv": 2 * L, "flash_attention_bwd_fused": 0,
+            "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    res = timed_loop(torch, step, NMT_STEPS, eager_counters(flash_attn, norms),
+                     want, "(am)", B, Nt)
+    res["lr"] = sched.last_lr
+    if args.profile_train:
+        res["profile"] = profile_steps(
+            torch, lambda: step(0), args.profile_train, "train_step_nmt",
+            args.train_trace.replace(".json", f"_nmt_{int(amp)}.json"))
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def nmt_decode(pt, model, src, beam, max_steps, trace=None):
+    """Beam search over (am)'s model: the encoder once, then the
+    flat-state Transformer cell (``tools/seq2seq.py``)."""
+    from tools import seq2seq
+    with pt.no_grad():
+        memory = model.encode(src)
+    cell = seq2seq.TransformerCell(pt, model.transformer.decoder,
+                                   model.embed, model.project)
+    return seq2seq.beam_decode(pt, cell, cell.initial(memory), beam,
+                               max_steps, NMT_START, NMT_END, trace)
+
+
+def nmt_beam(torch, pt, flash_attn, norms, model, dtype, args):
+    """(am) beam decode of 8 sentences, timed after a 2-step warm-up
+    decode, with the launch counts zeroed just before and read just
+    after: the encoder's 6 flash forwards and 12 LayerNorms once, then
+    12 and 18 a decode step."""
+    n, beam, max_steps = NMT_BEAM
+    src, _, _ = nmt_batch(NMT["V"], n, NMT_BATCH[1], 1, SEED + 61)
+    src = pt.to_tensor(src)
+    nmt_decode(pt, model, src, beam, 2)
+    counters = eager_counters(flash_attn, norms)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    out, parents, lengths, lp, steps = nmt_decode(pt, model, src, beam,
+                                                  max_steps)
+    lp = lp.numpy()
+    wall = time.perf_counter() - t0
+    got = read_counts(counters)
+    L = NMT["L"]
+    want = {"flash_attention_fwd": L + 2 * L * steps,
+            "layer_norm": 2 * L + 3 * L * steps,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    bad = {k: (got[k], w) for k, w in want.items() if got[k] != w}
+    if bad:
+        raise SystemExit(f"(am) {dtype} decode: launches (got, want) {bad}")
+    if not (np.isfinite(lp).all() and list(out.shape) == [n, steps, beam]):
+        raise SystemExit(f"(am) {dtype} decode: shape {out.shape}, "
+                         f"finite {bool(np.isfinite(lp).all())}")
+    res = {"dtype": dtype, "steps": steps, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / steps, "sentences_per_s": n / wall,
+           "launches": {k: got[k] for k in want},
+           "lengths_mean": float(lengths.numpy().mean()),
+           "best_log_prob_mean": float(lp[:, 0].mean())}
+    if args.profile:
+        # one span: the encoder and ``args.profile`` decode steps
+        res["profile"] = profile_steps(
+            torch, lambda: nmt_decode(pt, model, src, beam, args.profile), 1,
+            "nmt_decode", args.trace.replace(".json", f"_nmt_{dtype}.json"))
+    return res
+
+
+def to_bf16(pt, model):
+    """(am)'s bf16 model: weights and the position table in bf16; the
+    float32 caches ``gen_cache`` makes promote the decoder after its first
+    concat, as the reference's."""
+    model.to(dtype="bfloat16")
+    model.pos = model.pos.astype("bfloat16")
+    return model
+
+
+def nmt_bf16_parity(pt, state):
+    """(am)'s bf16 decode, card against CPU on the same bf16 weights, 2
+    sentences for 16 steps, both traced: step by step while the beams
+    agree, the logits within ``NMT_BF16_LOGIT_TOL`` of the CPU's
+    max|logit|, and a first difference only where the CPU's score margin
+    is within the rounding's reach (``seq2seq.traced_parity``).  The
+    gate must reject the wrong-scale mutant of the card's logits."""
+    from tools import seq2seq
+    from paddle_tpu_torch.framework import core
+    _, n, steps = NMT_PARITY
+    src = nmt_batch(NMT["V"], n, NMT_BATCH[1], 1, SEED + 62)[0]
+    runs, prev = {}, core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            model = to_bf16(pt, nmt_model(pt, state, 0.0).eval())
+            trace = []
+            beams = nmt_decode(pt, model, pt.to_tensor(src), NMT_BEAM[1],
+                               steps, trace)
+            runs[place] = (trace, beams[1].numpy())
+            del model
+    finally:
+        core._state.expected_place = prev
+    (tg, pg), (tc, pc) = runs["gpu"], runs["cpu"]
+    out = seq2seq.traced_parity(tg, tc, pg, pc, NMT_BEAM[1], NMT_END)
+    mutant = [(lp, fin, z * WRONG_SCALE, k) for lp, fin, z, k in tg]
+    out["mutant_logit_err"] = seq2seq.traced_parity(
+        mutant, tc, pg, pc, NMT_BEAM[1], NMT_END)["logit_err"]
+    out["tol"] = NMT_BF16_LOGIT_TOL
+    if not (out["logit_err"] <= NMT_BF16_LOGIT_TOL < out["mutant_logit_err"]
+            and out["divergence_ok"]):
+        raise SystemExit(f"(am) bf16 decode card against CPU: "
+                         f"{json.dumps(out)}")
+    return out
+
+
+def nmt_parity(pt, state):
+    """(am) card against CPU in fp32 at full width, dropout 0: one
+    training step's loss (1e-5) and every gradient (1e-4 of the largest
+    |gradient|), then 2 sentences decoded 16 steps, tokens and parents
+    exact."""
+    B, n, steps = NMT_PARITY
+    batch = nmt_batch(NMT["V"], B, NMT_BATCH[1], NMT_BATCH[2], SEED + 62)
+
+    def run(place):
+        model = nmt_model(pt, state, 0.0).train()
+        loss = nmt_loss(pt, model, tuple(pt.to_tensor(a) for a in batch))
+        model.eval()
+        trace = [] if place == "cpu" else None
+        beams = nmt_decode(pt, model, pt.to_tensor(batch[0][:n]),
+                           NMT_BEAM[1], steps, trace)
+        return loss, model, beams, trace
+    return seq2seq_parity(pt, run, NMT_BEAM[1], "(am)")
+
+
+def seq2seq_parity(pt, run, beam, label):
+    """``run(place)`` -> (loss, model, beam outputs, trace) on the card
+    and on the CPU (``tools/seq2seq.py``): the loss within 1e-5, every
+    gradient within 1e-4 of the largest |gradient|, tokens, parents and
+    lengths exact."""
+    from tools import seq2seq
+    res = seq2seq.card_against_cpu(pt, run)
+    out = {**seq2seq.loss_grad_errors(res),
+           **seq2seq.beam_parity(res, beam, NMT_END)}
+    if not (out["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and out["grad_err_over_max"] <= TRAIN_GRAD_TOL
+            and out["tokens_equal"] and out["parents_equal"]
+            and out["lengths_equal"]):
+        raise SystemExit(f"{label} card against CPU: {json.dumps(out)}")
+    return out
+
+
+def rnn_batch(B, T, seed):
+    """(an)'s batch from a numpy seed: source ids [B, T] with lengths in
+    [T / 5, T], target ids [B, T + 1] (start token first) with lengths in
+    [T / 5, T]."""
+    e = RNN_NMT
+    rng = np.random.default_rng(seed)
+    src = rng.integers(3, e["src_V"], (B, T))
+    src_len = rng.integers(T // 5, T + 1, B)
+    tgt = rng.integers(3, e["tgt_V"], (B, T + 1))
+    tgt[:, 0] = NMT_START
+    tgt_len = rng.integers(T // 5, T + 1, B)
+    return src, src_len, tgt[:, :-1], tgt[:, 1:], tgt_len
+
+
+def rnn_model(pt, state, dropout):
+    from tools import seq2seq
+    e = RNN_NMT
+    model = seq2seq.rnn_seq2seq(pt, e["src_V"], e["tgt_V"], e["H"], e["L"],
+                                dropout)
+    if state is not None:
+        model.set_state_dict(state)
+    return model
+
+
+def rnn_loss(pt, model, batch):
+    from tools import seq2seq
+    src, src_len, tgt_in, tgt_out, tgt_len = batch
+    return seq2seq.masked_ce(pt, model(src, src_len, tgt_in), tgt_out,
+                             tgt_len)
+
+
+def rnn_decode(pt, model, batch, beam, steps, trace=None):
+    from tools import seq2seq
+    with pt.no_grad():
+        init = model.encode(batch[0], batch[1])
+    return seq2seq.beam_decode(pt, seq2seq.RNNCell(model), init, beam, steps,
+                               NMT_START, NMT_END, trace)
+
+
+def rnn_path(torch, pt, flash_attn, norms, state, args):
+    """(an): 5 timed teacher-forced steps (Adam 1e-3 with
+    ClipGradByGlobalNorm(5.0), the example's) and one beam decode of the
+    batch; no kernel of the table runs on this path."""
+    e = RNN_NMT
+    model = rnn_model(pt, state, e["dropout"]).train()
+    opt = pt.optimizer.Adam(learning_rate=1e-3,
+                            grad_clip=pt.nn.ClipGradByGlobalNorm(5.0),
+                            parameters=model.parameters())
+    batch = tuple(pt.to_tensor(a) for a in rnn_batch(e["B"], e["T"],
+                                                     SEED + 63))
+
+    def step(t):
+        loss = rnn_loss(pt, model, batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)
+    counters = eager_counters(flash_attn, norms)
+    res = timed_loop(torch, step, RNN_STEPS, counters,
+                     dict.fromkeys(counters, 0), "(an)", e["B"], e["T"])
+    res["steps_per_s"] = 1e3 / res["step_ms"]
+    if args.profile_train:
+        res["profile"] = profile_steps(
+            torch, lambda: step(0), args.profile_train, "train_step_rnn",
+            args.train_trace.replace(".json", "_rnn.json"))
+    # two recurrences of T steps a training step (encoder, decoder)
+    res["ms_per_time_step"] = res["step_ms"] / (2 * e["T"])
+    model.eval()
+    rnn_decode(pt, model, batch, e["beam"], 2)
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    out, _, lengths, lp, steps = rnn_decode(pt, model, batch, e["beam"],
+                                            e["T"])
+    lp = lp.numpy()
+    wall = time.perf_counter() - t0
+    if any(read_counts(counters).values()) or not np.isfinite(lp).all():
+        raise SystemExit(f"(an) decode: launches {read_counts(counters)}, "
+                         f"finite {bool(np.isfinite(lp).all())}")
+    res.update(decode_steps=steps, decode_s=wall,
+               decode_ms_per_step=1e3 * wall / steps,
+               decode_sentences_per_s=e["B"] / wall,
+               decode_lengths_mean=float(lengths.numpy().mean()))
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def rnn_parity(pt, state):
+    """(an) card against CPU in fp32, dropout 0, at full width on 16
+    pairs: one step's loss and gradients as (am), then 2 sentences
+    decoded 16 steps with beam 10, tokens and parents exact."""
+    B, n, steps = RNN_PARITY
+    batch = rnn_batch(B, RNN_NMT["T"], SEED + 64)
+
+    def run(place):
+        model = rnn_model(pt, state, 0.0).train()
+        t = tuple(pt.to_tensor(a) for a in batch)
+        loss = rnn_loss(pt, model, t)
+        model.eval()
+        trace = [] if place == "cpu" else None
+        beams = rnn_decode(pt, model, tuple(x[:n] for x in t),
+                           RNN_NMT["beam"], steps, trace)
+        return loss, model, beams, trace
+    return seq2seq_parity(pt, run, RNN_NMT["beam"], "(an)")
+
+
+def nn_sweep_phase(pt):
+    """Phase (ao): ``tools/op_sweep.py``'s ``NN_CASES`` and
+    ``NN_LAYER_CASES`` on the card against the CPU."""
+    from tools import op_sweep as S
+    res, failed = {}, []
+    for label, cases in (("functionals", S.NN_CASES),
+                         ("layers", S.NN_LAYER_CASES)):
+        checked, bad, worst = S.card_sweep(pt, cases)
+        w = max(worst, key=worst.get) if worst else None
+        res[label] = {"cases": len(cases), "checked": len(checked),
+                      "ops": len({c.split(":")[0] for c in checked}),
+                      "worst": w, "worst_err": worst.get(w, 0.0)}
+        failed += [(f"{label}: {n}", e) for n, e in bad]
+    res["failed"] = failed
+    return res
+
+
+def seq2seq_phases(torch, flash_attn, norms, card, launches, args):
+    """Phases (am), (an), (ao), logged; (am)'s launches go into
+    ``launches``.  With ``--profile-train`` (am)'s and (an)'s training
+    steps are traced, with ``--profile`` a decode of that many steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    prev = core._state.expected_place
+    e, r = NMT, RNN_NMT
+    try:
+        pt.set_device("gpu")
+        t0 = time.perf_counter()
+        pt.seed(SEED + 65)
+        state = numpy_state(nmt_model(pt, None, 0.0), SEED + 66)
+        train = {dt: nmt_train(torch, pt, flash_attn, norms, state,
+                               dt == "bfloat16", args)
+                 for dt in ("float32", "bfloat16")}
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv", "layer_norm"):
+            launches[f"{k}_transformer_train"] = sum(
+                t["launches"][k] for t in train.values())
+        B, Ns, Nt = NMT_BATCH
+        log(f"(am) Transformer base (Vaswani et al. 2017, Table 3: "
+            f"d_model {e['d']}, {e['nh']} heads, {e['L']} + {e['L']} layers, "
+            f"F {e['F']}, post-LN, relu, dropout {NMT_DROPOUT}, no attention "
+            f"dropout; shared {e['V']}-token vocabulary, tied output), "
+            f"{B} pairs of {Ns} + {Nt} tokens, label_smooth 0.1 soft-label "
+            f"cross_entropy, Adam(0.9, 0.98, 1e-9) on NoamDecay(512, 4000) "
+            f"from its peak, on {card}:")
+        for dt, t in train.items():
+            log(f"    {dt}{' (auto_cast)' if dt == 'bfloat16' else ''}: "
+                f"step {t['step_ms']:.2f} ms ({[round(x, 2) for x in t['step_ms_each']]}), "
+                f"{t['tokens_per_s']:.0f} target tokens/s "
+                f"({2 * t['tokens_per_s']:.0f} both sides); "
+                f"max_memory_allocated {t['max_memory_allocated_gib']:.3f} "
+                f"GiB; losses {[round(x, 4) for x in t['losses']]}; lr "
+                f"{t['lr']:.3e}; launches {t['launches']} over "
+                f"{t['steps']} steps  [{card}]")
+            if "profile" in t:
+                log(f"    {dt} training step profile on {card}: "
+                    f"{json.dumps(t['profile'])}")
+        model = nmt_model(pt, state, 0.0).eval()
+        beams = [nmt_beam(torch, pt, flash_attn, norms, model, "float32",
+                          args)]
+        beams.append(nmt_beam(torch, pt, flash_attn, norms,
+                              to_bf16(pt, model), "bfloat16", args))
+        del model
+        torch.cuda.empty_cache()
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv", "layer_norm"):
+            launches[f"{k}_beam"] = sum(b["launches"][k] for b in beams)
+        n, beam, max_steps = NMT_BEAM
+        for b in beams:
+            log(f"    beam decode {b['dtype']}: {n} sentences, beam {beam}, "
+                f"max_step_num {max_steps}: {b['steps']} steps in "
+                f"{b['wall_s']:.3f} s, {b['ms_per_step']:.2f} ms a decode "
+                f"step, {b['sentences_per_s']:.2f} sentences/s; launches "
+                f"{b['launches']}; mean length {b['lengths_mean']:.2f}, "
+                f"mean best log-prob {b['best_log_prob_mean']:.4f}  "
+                f"[{card}]")
+            if "profile" in b:
+                log(f"    {b['dtype']} decode profile (the encoder and "
+                    f"{args.profile} steps, one span) on {card}: "
+                    f"{json.dumps(b['profile'])}")
+        par = nmt_parity(pt, state)
+        log(f"    card against CPU (fp32, full width, dropout 0, "
+            f"{NMT_PARITY[0]} pairs): loss rel err "
+            f"{par['loss_rel_err']:.2e} (tol {TRAIN_LOSS_RTOL:.0e}), "
+            f"gradients {par['grad_err_over_max']:.2e} of max (tol "
+            f"{TRAIN_GRAD_TOL:.0e}); beam {NMT_PARITY[1]} sentences x "
+            f"{NMT_PARITY[2]} steps: tokens equal {par['tokens_equal']}, "
+            f"parents equal {par['parents_equal']}, lengths equal "
+            f"{par['lengths_equal']}, final log-prob diff "
+            f"{par['log_prob_err']:.2e}")
+        bp = nmt_bf16_parity(pt, state)
+        log(f"    bf16 decode card against CPU (the same bf16 weights, "
+            f"{NMT_PARITY[1]} sentences x {NMT_PARITY[2]} steps, traced): "
+            f"{bp['steps_compared']} steps compared, logits "
+            f"{bp['logit_err']:.2e} of max|logit| (tol {bp['tol']:.0e}; "
+            f"wrong-scale mutant {bp['mutant_logit_err']:.2e}), log-probs "
+            f"{bp['log_prob_err']:.2e}; beams first differ at step "
+            f"{bp['diverged_at']}"
+            + (f" (CPU score margin {bp['margin_there']:.3e} against the "
+               f"rounding's reach {bp['score_bound_there']:.3e})"
+               if bp["diverged_at"] is not None else "")
+            + f"; phase {time.perf_counter() - t0:.1f} s")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        pt.set_device("gpu")
+        t0 = time.perf_counter()
+        pt.seed(SEED + 67)
+        state = numpy_state(rnn_model(pt, None, 0.0), SEED + 68)
+        an = rnn_path(torch, pt, flash_attn, norms, state, args)
+        log(f"(an) RNN seq2seq at Paddle's IWSLT'15 en-vi widths (vocab "
+            f"{r['src_V']} / {r['tgt_V']}, hidden and embedding {r['H']}, "
+            f"{r['L']}-layer LSTM encoder, dropout {r['dropout']}, LSTMCell "
+            f"decoder + Linear), batch {r['B']}, padded to {r['T']} "
+            f"(sequence_length), Adam 1e-3, clip 5.0, on {card}: step "
+            f"{an['step_ms']:.2f} ms ({an['steps_per_s']:.2f} steps/s, "
+            f"{an['ms_per_time_step']:.3f} ms a time step); losses "
+            f"{[round(x, 4) for x in an['losses']]}; max_memory_allocated "
+            f"{an['max_memory_allocated_gib']:.3f} GiB; beam {r['beam']} "
+            f"decode of the batch: {an['decode_steps']} steps, "
+            f"{an['decode_ms_per_step']:.2f} ms a step, "
+            f"{an['decode_sentences_per_s']:.1f} sentences/s  [{card}]")
+        if "profile" in an:
+            log(f"    (an) training step profile on {card}: "
+                f"{json.dumps(an['profile'])}")
+        par = rnn_parity(pt, state)
+        log(f"    card against CPU (fp32, dropout 0, {RNN_PARITY[0]} pairs):"
+            f" loss rel err {par['loss_rel_err']:.2e}, gradients "
+            f"{par['grad_err_over_max']:.2e} of max; beam "
+            f"{RNN_PARITY[1]} x {RNN_PARITY[2]} steps: tokens equal "
+            f"{par['tokens_equal']}, parents equal {par['parents_equal']}, "
+            f"lengths equal {par['lengths_equal']}; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ao = nn_sweep_phase(pt)
+        for label in ("functionals", "layers"):
+            x = ao[label]
+            log(f"(ao) nn {label}: {x['checked']} of {x['cases']} cases "
+                f"({x['ops']} ops) on the card equal the CPU's; the largest "
+                f"difference over max|ref| {x['worst_err']:.3e} "
+                f"({x['worst']}); phase {time.perf_counter() - t0:.1f} s  "
+                f"[{card}]")
+        if ao["failed"]:
+            for name, err in ao["failed"]:
+                log(f"    FAILED {name}: {err}")
+            raise SystemExit(f"(ao): {len(ao['failed'])} cases failed on "
+                             f"the card")
+    finally:
+        core._state.expected_place = prev
+
+
 # kernel -> (source, the TPU kernel it replaces, the case that stands for
 # the main path in the result line)
 REPORT = {
@@ -7426,7 +8045,7 @@ def report(torch, cases, launches, train, t_start):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "call_ms": main["call_ms"],
-            **{t: main[t] for t in ("tol", "atol", "rtol", "gate",
+            **{t: main[t] for t in ("atol", "rtol", "gate",
                                     "mutant_gate", "g_dtype",
                                     "library", "library_cublas_ms",
                                     "split_ms", "dq_rerun_max_abs_diff")
@@ -7447,7 +8066,8 @@ def report(torch, cases, launches, train, t_start):
                      "to_static", "predictor", "gradient_merge", "incubate",
                      "hapi",
                      "hapi_eval", "chunked", "chunked_quant", "spec",
-                     "spec_quant", "spec_quant_m40", "slot", "slot_quant"):
+                     "spec_quant", "spec_quant_m40", "slot", "slot_quant",
+                     "transformer_train", "beam"):
             if f"{k['name']}_{path}" in launches:
                 k[f"launches_{path}"] = launches[f"{k['name']}_{path}"]
     # row_matmul.launches counts the launches with the LayerNorm prologue

@@ -133,7 +133,8 @@ from .tensor.linalg import inv as inverse  # noqa: F401
 # the star import binds the op modules' names (math, random ...) here;
 # paddle_tpu_torch.tensor stays the package, as in the reference
 tensor = _sys.modules[__name__ + ".tensor"]
-from . import distributed, fluid, incubate, inference, onnx, utils  # noqa
+from . import (distributed, distribution, fluid, incubate,  # noqa
+               inference, onnx, utils)
 
 # dtypes as module attributes: the port's own dtype objects, so that
 # ``x.dtype == paddle_tpu_torch.float32`` holds

@@ -3,7 +3,12 @@
 
 ``flash_attention`` goes to ``ops.cuda.flash_attn.flash_attention``: the
 CUDA flash kernels for CUDA tensors, the plain ``_ref_attention`` for CPU
-tensors.  ``scaled_dot_product_attention`` is the plain :func:`_sdpa_ref`
+tensors.  Operands of different dtypes (a bf16 query against the float32
+caches ``MultiHeadAttention.gen_cache`` makes) are promoted to one dtype
+first, as jnp promotes them, so the kernels run in the promoted dtype and
+the output has it, the reference's output dtype.  The reference rounds
+the probabilities to the query's dtype before p.V; the promoted call
+keeps them in the promoted dtype.  ``scaled_dot_product_attention`` is the plain :func:`_sdpa_ref`
 (masks, dropout), as in the reference.  Layout [B, N, nh, hd].
 """
 from __future__ import annotations
@@ -54,10 +59,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                 query, key, value, _name="sdpa")
 
 
+def _promoted(q, k, v):
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    return q.to(dt), k.to(dt), v.to(dt)
+
+
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, name=None):
-    out = call(lambda q, k, v: flash_attn.flash_attention(q, k, v, causal),
-               query, key, value, _name="flash_attention")
+    out = call(lambda q, k, v: flash_attn.flash_attention(
+        *_promoted(q, k, v), causal), query, key, value,
+        _name="flash_attention")
     if return_softmax:
         return out, None
     return out

@@ -1,6 +1,8 @@
 """Normalization functionals (counterpart of
-``paddle_tpu/nn/functional/norm.py``; only ``batch_norm``, ``layer_norm``
-and ``rms_norm``).
+``paddle_tpu/nn/functional/norm.py``).  ``normalize``, ``group_norm``,
+``instance_norm`` and ``local_response_norm`` are the reference's plain
+formulas (population variance; the LRN window zero-padded size // 2
+before and (size - 1) // 2 after the channel, alpha scaling its mean).
 
 ``batch_norm`` keeps the reference's conventions: in training the batch's
 mean and biased variance normalise (``torch.native_batch_norm``, whose
@@ -79,6 +81,82 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
         return out
     args = [weight] if weight is not None else []
     return call(_rms, x, *args, _name="rms_norm")
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    def _n(a):
+        nrm = a.abs().pow(p).sum(axis, keepdim=True).pow(1.0 / p)
+        return a / torch.clamp(nrm, min=epsilon)
+    return call(_n, x, _name="normalize")
+
+
+def _moments(g, axes):
+    return g.mean(axes, keepdim=True), g.var(axes, correction=0, keepdim=True)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    def _gn(a, *wb):
+        if data_format.startswith("NC"):
+            n, c = a.shape[:2]
+            g = a.reshape(n, num_groups, c // num_groups, *a.shape[2:])
+            mean, var = _moments(g, tuple(range(2, g.dim())))
+            out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(a.shape)
+            shape = [1] * a.dim()
+            shape[1] = c
+        else:
+            n, c = a.shape[0], a.shape[-1]
+            g = a.reshape(n, *a.shape[1:-1], num_groups, c // num_groups)
+            mean, var = _moments(g, tuple(range(1, g.dim() - 2))
+                                 + (g.dim() - 1,))
+            out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(a.shape)
+            shape = [c]
+        if wb:
+            out = out * wb[0].reshape(shape)
+            if len(wb) > 1:
+                out = out + wb[1].reshape(shape)
+        return out
+    args = [a for a in (weight, bias) if a is not None]
+    return call(_gn, x, *args, _name="group_norm")
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Per-(sample, channel) statistics over the spatial axes; the
+    running statistics are not read or updated, as in the reference."""
+    channel_last = not data_format.startswith("NC")
+
+    def _in(a, *wb):
+        if channel_last:
+            axes = tuple(range(1, a.dim() - 1))
+            cshape = [1] * (a.dim() - 1) + [a.shape[-1]]
+        else:
+            axes = tuple(range(2, a.dim()))
+            cshape = [1, a.shape[1]] + [1] * (a.dim() - 2)
+        mean, var = _moments(a, axes)
+        out = (a - mean) * torch.rsqrt(var + eps)
+        if wb:
+            out = out * wb[0].reshape(cshape)
+            if len(wb) > 1:
+                out = out + wb[1].reshape(cshape)
+        return out
+    args = [a for a in (weight, bias) if a is not None]
+    return call(_in, x, *args, _name="instance_norm")
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    def _lrn(a):
+        ch = 1 if data_format.startswith("NC") else a.dim() - 1
+        pads = [0, 0] * a.dim()
+        # torch.nn.functional.pad lists pads from the last dim backwards
+        pads[2 * (a.dim() - 1 - ch)] = size // 2
+        pads[2 * (a.dim() - 1 - ch) + 1] = (size - 1) // 2
+        sq = torch.nn.functional.pad(a * a, pads)
+        s = sum(sq.narrow(ch, i, a.shape[ch]) for i in range(size)) / size
+        return a / (k + alpha * s).pow(beta)
+    return call(_lrn, x, _name="local_response_norm")
 
 
 def _bn_eval_out(a, rm, rv, wb, ch_axis, epsilon):

@@ -355,7 +355,9 @@ def test_grad_setter_and_gradient():
 
 def test_new_modules_import_neither_jax_nor_paddle_tpu():
     """``paddle_tpu_torch`` and its ``optimizer``, ``amp``, ``autograd``,
-    ``regularizer`` and ``nn`` modules (and the loss and clip modules),
+    ``regularizer``, ``distribution`` and ``nn`` modules (and the loss,
+    clip, decode, rnn, transformer, sequence, vision and norm-hook
+    modules, and ``static.nn``),
     imported in a fresh interpreter, leave ``jax`` and ``paddle_tpu`` out
     of ``sys.modules``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -370,6 +372,14 @@ def test_new_modules_import_neither_jax_nor_paddle_tpu():
         "from paddle_tpu_torch.nn import clip\n"
         "from paddle_tpu_torch.nn.functional import loss\n"
         "from paddle_tpu_torch.nn.layer import loss as loss_layers\n"
+        "from paddle_tpu_torch import distribution\n"
+        "from paddle_tpu_torch.nn import decode, utils\n"
+        "from paddle_tpu_torch.nn.utils import spectral_norm_hook, "
+        "weight_norm_hook\n"
+        "from paddle_tpu_torch.nn.functional import extension, sequence, "
+        "vision\n"
+        "from paddle_tpu_torch.nn.layer import rnn, transformer\n"
+        "from paddle_tpu_torch.static import nn as static_nn\n"
         "bad = [k for k in ('jax', 'jaxlib', 'paddle_tpu') if k in sys.modules]\n"
         "bad += [k for k in sys.modules if k.startswith(('jax.', 'paddle_tpu.'))]\n"
         "sys.exit(1 if bad else 0)\n")

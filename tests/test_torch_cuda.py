@@ -837,7 +837,13 @@ def test_slot_engine_graphs_on_card(dev):
                                    (4100, 16, 16, 16, 32, False),
                                    (65537, 16, 16, 1, 64, False),
                                    (8, 512, 512, 12, 64, False),
-                                   (64, 512, 512, 12, 64, False)])
+                                   (64, 512, 512, 12, 64, False),
+                                   (128, 32, 32, 8, 64, False),
+                                   (32, 24, 40, 8, 64, False),
+                                   (32, 40, 24, 8, 64, False),
+                                   (32, 1, 1, 8, 64, False),
+                                   (32, 1, 33, 8, 64, False),
+                                   (32, 1, 82, 8, 64, False)])
 def test_flash_kernels_match_plain(dev, dtype, shape):
     """Forward (out, lse) and split backward (dq, dk, dv) against
     ``_ref_flash_fwd`` / ``_ref_flash_bwd``, the bf16 gradients per element
@@ -849,11 +855,20 @@ def test_flash_kernels_match_plain(dev, dtype, shape):
     passes the old gridDim.y limit, B = 65,537 takes two launches of the
     (row tiles, nh, B) grid, and [8, 512, 12, 64] and [64, 512, 12, 64]
     with no mask are the ERNIE-3.0-Base encoder's attention (the second
-    at ``bench.py``'s pretraining batch)."""
+    at ``bench.py``'s pretraining batch); the last six are the
+    Transformer-base seq2seq path's: its training attention, the
+    cross-attention with Nq != Nk (separate q and k, v tensors) and a
+    decode step's Nq = 1 against 1, 33 and 82 keys."""
     B, N, Nk, nh, hd, causal = shape
     g = torch.Generator(device=dev).manual_seed(N)
-    qkv = torch.randn(B, N, 3, nh * hd, device=dev, generator=g).to(dtype)
-    q, k, v = [qkv[:, :, i].reshape(B, N, nh, hd) for i in range(3)]
+    if N == Nk:
+        qkv = torch.randn(B, N, 3, nh * hd, device=dev, generator=g).to(
+            dtype)
+        q, k, v = [qkv[:, :, i].reshape(B, N, nh, hd) for i in range(3)]
+    else:
+        q = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(B, Nk, nh, hd, device=dev, generator=g).to(
+            dtype) for _ in range(2))
     do = torch.randn(B, N, nh, hd, device=dev, generator=g).to(dtype)
     before = (flash_attn.fwd_launches, flash_attn.dq_launches,
               flash_attn.dkv_launches)
@@ -2182,13 +2197,15 @@ def _first_per_op(cases):
 
 
 def test_op_sweep_on_card(card):
-    """One case of every op, activation and loss on the card against the
-    CPU: values, dtypes and gradients at the case's tolerance, every
-    output on the card."""
+    """One case of every op, activation and loss, and every case of the
+    rest of nn (functionals and layers), on the card against the CPU:
+    values, dtypes and gradients at the case's tolerance, every output on
+    the card."""
     import paddle_tpu_torch as pt
     from tools import op_sweep as S
     cases = (_first_per_op(S.TENSOR_CASES) + _first_per_op(S.ACT_CASES)
-             + _first_per_op(S.LOSS_CASES) + S.LOSS_LAYER_CASES)
+             + _first_per_op(S.LOSS_CASES) + S.LOSS_LAYER_CASES
+             + S.NN_CASES + S.NN_LAYER_CASES)
     checked, failed, _ = S.card_sweep(pt, cases)
     assert not failed, failed
     assert len(checked) == len(cases)
@@ -2659,3 +2676,115 @@ def test_double_buffer_feeds_the_card_without_a_host_sync(on_card):
     finally:
         pt.disable_static()
     np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the sequence-to-sequence path: chip_smoke.py (am), (an) at small widths
+# --------------------------------------------------------------------------
+
+def test_flash_promotes_a_bf16_query_against_fp32_caches(dev):
+    """A bf16 query against float32 k and v (a bf16 decode step against
+    ``gen_cache``'s float32 caches): the nn functional promotes, the fp32
+    forward kernel runs once, and the float32 output equals the plain
+    version on the promoted operands."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn.functional import flash_attention
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(32, 1, 8, 64, device=dev, generator=g).bfloat16()
+    k, v = (torch.randn(32, 33, 8, 64, device=dev, generator=g)
+            for _ in range(2))
+    before = flash_attn.fwd_launches
+    out = flash_attention(pt.to_tensor(q), pt.to_tensor(k), pt.to_tensor(v))
+    assert flash_attn.fwd_launches == before + 1
+    assert out.value.dtype == torch.float32
+    ref = flash_attn._ref_flash_fwd(q.float(), k, v, False)[0]
+    torch.testing.assert_close(out.value, ref, atol=FP32_TOL, rtol=0)
+
+
+def _seq2seq_parity(run, beam):
+    """``run()`` -> (loss, model, beam outputs) on the card and on the
+    CPU (``tools/seq2seq.py``): the loss within 1e-5, every gradient
+    within 1e-4 of the largest, the beams exact."""
+    import paddle_tpu_torch as pt
+    from tools import seq2seq
+    res = seq2seq.card_against_cpu(pt, lambda place: (*run(), None))
+    err = seq2seq.loss_grad_errors(res)
+    assert err["loss_rel_err"] <= 1e-5, err
+    assert err["grad_err_over_max"] <= 1e-4, err
+    beams = seq2seq.beam_parity(res, beam)
+    assert beams["tokens_equal"] and beams["parents_equal"], beams
+
+
+def _beam(pt, cell, init, beam, steps):
+    from tools import seq2seq
+    return seq2seq.beam_decode(pt, cell, init, beam, steps)
+
+
+def test_transformer_seq2seq_step_and_beam_on_card_match_cpu(dev):
+    """(am)'s model at d_model 64, 2 + 2 layers, V 500, fp32, dropout 0:
+    one step's loss and gradients and a 10-step beam decode, card against
+    CPU; 2L flash forwards, dq and dk/dv in the card's step."""
+    import paddle_tpu_torch as pt
+    from tools import seq2seq
+    rng = np.random.default_rng(5)
+    src, tgt = rng.integers(3, 500, (4, 12)), rng.integers(3, 500, (4, 9))
+    state = {}
+
+    def run():
+        pt.seed(0)
+        model = seq2seq.nmt_transformer(pt, 500, 64, 4, 2, 128, 0.0, 64)
+        if not state:
+            state.update({k: 0.05 * rng.standard_normal(v.shape).astype(
+                np.float32) for k, v in model.state_dict().items()})
+        model.set_state_dict(state)
+        before = flash_attn.fwd_launches
+        logits = model(pt.to_tensor(src), pt.to_tensor(tgt[:, :-1]))
+        fwd.append(flash_attn.fwd_launches - before)
+        loss = seq2seq.label_smoothed_ce(pt, logits, pt.to_tensor(
+            tgt[:, 1:]), 500)
+        model.eval()
+        cell = seq2seq.TransformerCell(pt, model.transformer.decoder,
+                                       model.embed, model.project)
+        with pt.no_grad():
+            init = cell.initial(model.encode(pt.to_tensor(src[:2])))
+        return loss, model, _beam(pt, cell, init, 4, 10)
+    fwd = []
+    before = (flash_attn.dq_launches, flash_attn.dkv_launches)
+    _seq2seq_parity(run, 4)
+    # the card's step: encoder self- and cross-attention take the kernels
+    # (the decoder's self-attention is dense under its mask); the CPU
+    # launches nothing
+    assert fwd == [4, 0]
+    assert (flash_attn.dq_launches - before[0],
+            flash_attn.dkv_launches - before[1]) == (4, 4)
+
+
+def test_rnn_seq2seq_step_and_beam_on_card_match_cpu(dev):
+    """(an)'s model at hidden 64, vocabularies 300 / 200, fp32, dropout 0,
+    ragged lengths: one step's loss and gradients and a 10-step beam-5
+    decode, card against CPU."""
+    import paddle_tpu_torch as pt
+    from tools import seq2seq
+    rng = np.random.default_rng(6)
+    src = rng.integers(3, 300, (6, 14))
+    src_len = rng.integers(3, 15, 6)
+    tgt = rng.integers(3, 200, (6, 11))
+    tgt_len = rng.integers(3, 11, 6)
+    state = {}
+
+    def run():
+        model = seq2seq.rnn_seq2seq(pt, 300, 200, 64, 2, 0.0)
+        if not state:
+            state.update({k: 0.1 * rng.standard_normal(v.shape).astype(
+                np.float32) for k, v in model.state_dict().items()})
+        model.set_state_dict(state)
+        logits = model(pt.to_tensor(src), pt.to_tensor(src_len),
+                       pt.to_tensor(tgt[:, :-1]))
+        loss = seq2seq.masked_ce(pt, logits, pt.to_tensor(tgt[:, 1:]),
+                                 pt.to_tensor(tgt_len))
+        model.eval()
+        with pt.no_grad():
+            init = model.encode(pt.to_tensor(src[:2]),
+                                pt.to_tensor(src_len[:2]))
+        return loss, model, _beam(pt, seq2seq.RNNCell(model), init, 5, 10)
+    _seq2seq_parity(run, 5)

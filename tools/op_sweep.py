@@ -1200,6 +1200,306 @@ LOSS_LAYER_CASES = [
 ]
 
 # --------------------------------------------------------------------------
+# the rest of nn.functional: extension, common, norm, sequence, vision
+# --------------------------------------------------------------------------
+
+IMG = ("f", (2, 4, 5, 6))           # NCHW
+VOL = ("f", (2, 3, 4, 5, 4))        # NCDHW
+SEQX = ("f", (3, 6, 4))             # padded [B, T, H]
+SEQL = ("a", np.array([6, 2, 4], np.int32))
+IDS = ("i", (3, 6), 0, 7)
+
+
+def _nn(name, fn, specs, grad=True, tol=TOL):
+    return Case(name, lambda m, *xs: fn(m.nn.functional, *xs), list(specs),
+                grad, tol)
+
+
+def _interp_cases():
+    cases = []
+    for mode, x, size in (("nearest", IMG, [7, 4]), ("bilinear", IMG, [9, 4]),
+                          ("bicubic", IMG, [8, 3]), ("area", IMG, [3, 4]),
+                          ("linear", ("f", (2, 3, 7)), [11]),
+                          ("trilinear", VOL, [6, 3, 5])):
+        for ac in (False, True):
+            for am in (0, 1):
+                if mode == "area" and (ac or am):
+                    continue
+                cases.append(_nn(
+                    f"interpolate:{mode}_ac{int(ac)}_am{am}",
+                    lambda F, a, mode=mode, size=size, ac=ac, am=am:
+                    F.interpolate(a, size, mode=mode, align_corners=ac,
+                                  align_mode=am,
+                                  data_format="NCW" if a.ndim == 3 else
+                                  "NCDHW" if a.ndim == 5 else "NCHW"),
+                    (x,)))
+    cases += [
+        _nn("interpolate:area_uneven", lambda F, a: F.interpolate(
+            a, [2, 4], mode="area"), (IMG,)),
+        _nn("interpolate:scale_nhwc", lambda F, a: F.interpolate(
+            a, scale_factor=[1.5, 2.0], mode="bilinear",
+            data_format="NHWC"), (IMG,)),
+        _nn("interpolate:nearest_down", lambda F, a: F.interpolate(
+            a, [3, 4]), (IMG,)),
+        _nn("upsample", lambda F, a: F.upsample(a, scale_factor=2,
+                                                mode="bilinear",
+                                                align_corners=True), (IMG,)),
+    ]
+    return cases
+
+
+def _grid_cases():
+    cases = []
+    for mode in ("bilinear", "nearest"):
+        for pm in ("zeros", "border", "reflection"):
+            for ac in (True, False):
+                cases.append(_nn(
+                    f"grid_sample:{mode}_{pm}_ac{int(ac)}",
+                    lambda F, x, g, mode=mode, pm=pm, ac=ac: F.grid_sample(
+                        x, g, mode, pm, ac),
+                    (IMG, ("u", (2, 3, 7, 2), -1.3, 1.3))))
+    return cases
+
+
+def _seq(name, fn, specs, grad=True):
+    return _nn(f"sequence_{name}", fn, specs, grad)
+
+
+NN_CASES = [
+    # extension
+    _nn("sequence_mask", lambda F, n: F.sequence_mask(n, 7), (SEQL,), False),
+    _nn("sequence_mask:no_maxlen", lambda F, n: F.sequence_mask(
+        n, dtype="float32"), (SEQL,), False),
+    _nn("gather_tree", lambda F, i, p: F.gather_tree(i, p),
+        (("i", (5, 2, 3), 0, 9), ("i", (5, 2, 3), 0, 3)), False),
+    _nn("temporal_shift", lambda F, x: F.temporal_shift(x, 2, 0.25),
+        (("f", (4, 8, 3, 3)),)),
+    _nn("temporal_shift:nhwc", lambda F, x: F.temporal_shift(
+        x, 2, 0.5, "NHWC"), (("f", (4, 3, 3, 8)),)),
+    # common
+    _nn("dropout2d:eval", lambda F, x: F.dropout2d(x, 0.4, training=False),
+        (IMG,)),
+    _nn("dropout3d:eval", lambda F, x: F.dropout3d(x, 0.4, training=False),
+        (VOL,)),
+    _nn("alpha_dropout:eval", lambda F, x: F.alpha_dropout(
+        x, 0.4, training=False), (IMG,)),
+    _nn("pad:constant", lambda F, x: F.pad(x, [1, 2, 0, 3], value=0.5),
+        (IMG,)),
+    _nn("pad:full_form", lambda F, x: F.pad(x, [0, 1, 1, 0, 2, 1, 1, 2]),
+        (IMG,)),
+    _nn("pad:reflect", lambda F, x: F.pad(x, [2, 1, 3, 2], "reflect"),
+        (IMG,)),
+    _nn("pad:replicate", lambda F, x: F.pad(x, [2, 1, 3, 2], "replicate"),
+        (IMG,)),
+    _nn("pad:circular", lambda F, x: F.pad(x, [2, 1, 3, 2], "circular"),
+        (IMG,)),
+    _nn("pad:nhwc", lambda F, x: F.pad(x, [1, 2, 2, 1], "reflect",
+                                      data_format="NHWC"), (IMG,)),
+    _nn("pad:ncdhw", lambda F, x: F.pad(x, [1, 0, 2, 1, 0, 1], "replicate",
+                                       data_format="NCDHW"), (VOL,)),
+    _nn("zeropad2d", lambda F, x: F.zeropad2d(x, [1, 0, 2, 1]), (IMG,)),
+] + _interp_cases() + [
+    _nn("bilinear", lambda F, a, b, w, c: F.bilinear(a, b, w, c),
+        (("f", (4, 3)), ("f", (4, 5)), ("f", (2, 3, 5)), ("f", (2,)))),
+    _nn("bilinear:no_bias", lambda F, a, b, w: F.bilinear(a, b, w),
+        (("f", (4, 3)), ("f", (4, 5)), ("f", (2, 3, 5)))),
+    _nn("cosine_similarity", lambda F, a, b: F.cosine_similarity(a, b),
+        (("f", (4, 6)), ("f", (4, 6)))),
+    _nn("cosine_similarity:axis", lambda F, a, b: F.cosine_similarity(
+        a, b, -1, 1e-6), (("f", (3, 4, 5)), ("f", (3, 4, 5)))),
+    _nn("pairwise_distance", lambda F, a, b: F.pairwise_distance(a, b),
+        (("f", (4, 6)), ("f", (4, 6)))),
+    _nn("pairwise_distance:p1_keepdim", lambda F, a, b: F.pairwise_distance(
+        a, b, 1.0, 1e-6, True), (("f", (4, 6)), ("f", (4, 6)))),
+    _nn("pairwise_distance:p3", lambda F, a, b: F.pairwise_distance(
+        a, b, 3.0), (("f", (4, 6)), ("f", (4, 6)))),
+    _nn("one_hot", lambda F, i: F.one_hot(i, 9), (IDS,), False),
+    _nn("label_smooth", lambda F, y: F.label_smooth(y, epsilon=0.2),
+        (("dir", (5, 6)),)),
+    _nn("label_smooth:prior", lambda F, y, p: F.label_smooth(y, p, 0.3),
+        (("dir", (5, 6)), ("dir", (1, 6)))),
+    _nn("unfold", lambda F, x: F.unfold(x, [2, 3], 1, 1), (IMG,)),
+    _nn("unfold:strided", lambda F, x: F.unfold(x, 2, [2, 1], [1, 0, 0, 1],
+                                               [1, 2]), (IMG,)),
+    _nn("fold", lambda F, x: F.fold(x, [4, 5], 2, 1, 0), (("f", (2, 12, 12)),)),
+    _nn("fold:padded", lambda F, x: F.fold(x, [5, 5], [2, 2], 2, 1, 1),
+        (("f", (2, 8, 9)),)),
+    _nn("pixel_shuffle", lambda F, x: F.pixel_shuffle(x, 2),
+        (("f", (2, 8, 3, 2)),)),
+    _nn("pixel_shuffle:nhwc", lambda F, x: F.pixel_shuffle(x, 2, "NHWC"),
+        (("f", (2, 3, 2, 8)),)),
+    _nn("pixel_unshuffle", lambda F, x: F.pixel_unshuffle(x, 2),
+        (("f", (2, 2, 4, 6)),)),
+    _nn("pixel_unshuffle:nhwc", lambda F, x: F.pixel_unshuffle(
+        x, 2, "NHWC"), (("f", (2, 4, 6, 2)),)),
+    _nn("channel_shuffle", lambda F, x: F.channel_shuffle(x, 2), (IMG,)),
+    _nn("channel_shuffle:nhwc", lambda F, x: F.channel_shuffle(
+        x, 3, "NHWC"), (("f", (2, 3, 2, 6)),)),
+    # norm
+    _nn("normalize", lambda F, x: F.normalize(x), (IMG,)),
+    _nn("normalize:p1_axis", lambda F, x: F.normalize(x, 1, -1), (IMG,)),
+    _nn("group_norm", lambda F, x, w, b: F.group_norm(x, 2, 1e-5, w, b),
+        (IMG, ("f", (4,)), ("f", (4,)))),
+    _nn("group_norm:nhwc", lambda F, x, w, b: F.group_norm(
+        x, 3, 1e-5, w, b, "NHWC"), (IMG, ("f", (6,)), ("f", (6,)))),
+    _nn("group_norm:no_affine", lambda F, x: F.group_norm(x, 4), (IMG,)),
+    _nn("instance_norm", lambda F, x, w, b: F.instance_norm(
+        x, weight=w, bias=b), (IMG, ("f", (4,)), ("f", (4,)))),
+    _nn("instance_norm:nhwc", lambda F, x: F.instance_norm(
+        x, data_format="NHWC"), (IMG,)),
+    _nn("local_response_norm", lambda F, x: F.local_response_norm(x, 3),
+        (("f", (2, 7, 3, 3)),)),
+    _nn("local_response_norm:even_nhwc", lambda F, x: F.local_response_norm(
+        x, 4, 1e-3, 0.6, 2.0, "NHWC"), (("f", (2, 3, 3, 7)),)),
+    # sequence (padded + lengths)
+    _seq("pad", lambda F, x, n: F.sequence_pad(x, n, 0.5),
+         (("f", (12, 4)), SEQL)),
+    _seq("pad:maxlen", lambda F, x, n: F.sequence_pad(x, n, maxlen=8),
+         (("f", (12, 4)), SEQL)),
+    _seq("unpad", lambda F, x, n: F.sequence_unpad(x, n), (SEQX, SEQL)),
+    _seq("pool:sum", lambda F, x, n: F.sequence_pool(x, n), (SEQX, SEQL)),
+    _seq("pool:average", lambda F, x, n: F.sequence_pool(x, n, "average"),
+         (SEQX, SEQL)),
+    _seq("pool:sqrt", lambda F, x, n: F.sequence_pool(x, n, "sqrt"),
+         (SEQX, SEQL)),
+    _seq("pool:max", lambda F, x, n: F.sequence_pool(x, n, "max"),
+         (SEQX, SEQL)),
+    _seq("first_step", lambda F, x, n: F.sequence_first_step(x, n),
+         (SEQX, SEQL)),
+    _seq("last_step", lambda F, x, n: F.sequence_last_step(x, n),
+         (SEQX, SEQL)),
+    _seq("softmax", lambda F, x, n: F.sequence_softmax(x, n),
+         (("f", (3, 6)), SEQL)),
+    _seq("reverse", lambda F, x, n: F.sequence_reverse(x, n), (SEQX, SEQL)),
+    _seq("expand", lambda F, x, n: F.sequence_expand(x, n),
+         (("f", (3, 4)), SEQL)),
+    _seq("expand_as", lambda F, x, n: F.sequence_expand_as(x, n, 7),
+         (("f", (3, 4)), SEQL)),
+    _seq("concat", lambda F, a, b, n, k: F.sequence_concat([a, b], [n, k]),
+         (SEQX, ("f", (3, 3, 4)), SEQL, ("a", np.array([1, 3, 0],
+                                                       np.int32)))),
+    _seq("enumerate", lambda F, i: F.sequence_enumerate(i, 3, -1), (IDS,),
+         False),
+    _seq("erase", lambda F, i, n: F.sequence_erase(i, n, [2, 5]),
+         (IDS, SEQL), False),
+    _seq("conv", lambda F, x, n, w: F.sequence_conv(x, n, w),
+         (SEQX, SEQL, ("f", (12, 5)))),
+    _seq("conv:context", lambda F, x, n, w: F.sequence_conv(x, n, w, 2, 0),
+         (SEQX, SEQL, ("f", (8, 5)))),
+    _seq("reshape", lambda F, x, n: F.sequence_reshape(x, n, 8),
+         (SEQX, SEQL)),
+    _seq("slice", lambda F, x, n, o, k: F.sequence_slice(x, n, o, k),
+         (SEQX, SEQL, ("a", np.array([1, 0, 2], np.int32)),
+          ("a", np.array([3, 2, 2], np.int32)))),
+    _seq("scatter", lambda F, x, i, u, n: F.sequence_scatter(x, i, u, n),
+         (("f", (3, 6)), ("i", (3, 4), 0, 6), ("f", (3, 4)),
+          ("a", np.array([4, 1, 3], np.int32)))),
+    # vision
+    _nn("affine_grid", lambda F, t: F.affine_grid(t, [2, 3, 4, 5]),
+        (("f", (2, 2, 3)),)),
+    _nn("affine_grid:no_align", lambda F, t: F.affine_grid(
+        t, [2, 3, 4, 5], False), (("f", (2, 2, 3)),)),
+    _nn("affine_grid:5d", lambda F, t: F.affine_grid(t, [1, 2, 3, 4, 5]),
+        (("f", (1, 3, 4)),)),
+] + _grid_cases()
+
+# the reference's functions with no case in NN_CASES, and where each is
+# held instead
+NN_HELD_ELSEWHERE = {
+    "linear": "tests/test_torch_nn.py", "embedding": "tests/test_torch_nn.py",
+    "dropout": "tests/test_torch_nn.py (its mask's rate and device)",
+    "layer_norm": "tests/test_torch_nn.py", "rms_norm":
+    "tests/test_torch_nn.py", "batch_norm": "tests/test_torch_vision.py",
+    "diag_embed": "TENSOR_CASES (the tensor API's)",
+}
+
+
+def _layer(name, build, specs, grad=True, tol=TOL, call=None):
+    """``build(nn)`` -> a Layer whose state, if any, is drawn from the
+    case's seed and set by ``set_state_dict``; ``call(layer, *xs)``
+    (default: ``layer(*xs)``)."""
+    def fn(m, *xs):
+        layer = build(m.nn)
+        sd = layer.state_dict()
+        if sd:
+            rng = R(_seed(name) + 7)
+            layer.set_state_dict({k: rng.standard_normal(
+                tuple(v.shape)).astype(np.float32) for k, v in sd.items()})
+        layer.eval()
+        return call(layer, *xs) if call else layer(*xs)
+    return Case(name, fn, list(specs), grad, tol)
+
+
+def _pl_sum(layer, x):
+    out = x
+    for p in layer:
+        out = out * p
+    return out
+
+
+def _ld(nn):
+    return nn.LayerDict({"a": nn.Linear(4, 3), "b": nn.Identity()})
+
+
+NN_LAYER_CASES = [
+    _layer("Identity", lambda nn: nn.Identity(3, k=1), (IMG,)),
+    _layer("Flatten", lambda nn: nn.Flatten(1, 2), (IMG,)),
+    _layer("Dropout2D", lambda nn: nn.Dropout2D(0.3), (IMG,)),
+    _layer("Dropout3D", lambda nn: nn.Dropout3D(0.3), (VOL,)),
+    _layer("AlphaDropout", lambda nn: nn.AlphaDropout(0.3), (IMG,)),
+    _layer("Upsample", lambda nn: nn.Upsample([7, 9], mode="bicubic"),
+           (IMG,)),
+    _layer("UpsamplingNearest2D", lambda nn: nn.UpsamplingNearest2D(
+        scale_factor=2), (IMG,)),
+    _layer("UpsamplingBilinear2D", lambda nn: nn.UpsamplingBilinear2D(
+        [3, 8]), (IMG,)),
+    _layer("Bilinear", lambda nn: nn.Bilinear(3, 5, 2),
+           (("f", (4, 3)), ("f", (4, 5)))),
+    _layer("CosineSimilarity", lambda nn: nn.CosineSimilarity(0),
+           (("f", (4, 6)), ("f", (4, 6)))),
+    _layer("PairwiseDistance", lambda nn: nn.PairwiseDistance(1.5),
+           (("f", (4, 6)), ("f", (4, 6)))),
+    _layer("Pad1D", lambda nn: nn.Pad1D(2, "reflect"), (("f", (2, 3, 6)),)),
+    _layer("Pad2D", lambda nn: nn.Pad2D([1, 0, 2, 1], "circular"), (IMG,)),
+    _layer("Pad3D", lambda nn: nn.Pad3D(1, "replicate"), (VOL,)),
+    _layer("ZeroPad2D", lambda nn: nn.ZeroPad2D(2), (IMG,)),
+    _layer("PixelShuffle", lambda nn: nn.PixelShuffle(2),
+           (("f", (2, 8, 3, 2)),)),
+    _layer("Unfold", lambda nn: nn.Unfold([2, 2], 2), (IMG,)),
+    _layer("Fold", lambda nn: nn.Fold([4, 5], 2, 1, 0),
+           (("f", (2, 12, 12)),)),
+    _layer("ParameterList", lambda nn: nn.ParameterList(
+        [nn.Layer().create_parameter([4]) for _ in range(3)]),
+        (("f", (3, 4)),), call=_pl_sum),
+    _layer("LayerDict", _ld, (("f", (3, 4)),),
+           call=lambda d, x: d["b"](d["a"](x))),
+    _layer("GroupNorm", lambda nn: nn.GroupNorm(2, 4), (IMG,)),
+    _layer("GroupNorm:no_affine", lambda nn: nn.GroupNorm(
+        2, 4, weight_attr=False, bias_attr=False), (IMG,)),
+    _layer("InstanceNorm1D", lambda nn: nn.InstanceNorm1D(3),
+           (("f", (2, 3, 7)),)),
+    _layer("InstanceNorm2D", lambda nn: nn.InstanceNorm2D(4), (IMG,)),
+    _layer("InstanceNorm3D", lambda nn: nn.InstanceNorm3D(
+        3, weight_attr=False), (VOL,)),
+    _layer("LocalResponseNorm", lambda nn: nn.LocalResponseNorm(5),
+           (("f", (2, 7, 3, 3)),)),
+    _layer("SpectralNorm", lambda nn: nn.SpectralNorm([4, 6], 0, 3),
+           (("f", (4, 6)),)),
+    _layer("SpectralNorm:dim1", lambda nn: nn.SpectralNorm([3, 5, 2], 1),
+           (("f", (3, 5, 2)),)),
+    _layer("weight_norm", lambda nn: nn.utils.weight_norm(nn.Linear(4, 3)),
+           (("f", (5, 4)),)),
+    _layer("weight_norm:dim1", lambda nn: nn.weight_norm(nn.Linear(4, 3),
+                                                        dim=1),
+           (("f", (5, 4)),)),
+    _layer("weight_norm:none", lambda nn: nn.weight_norm(nn.Linear(4, 3),
+                                                        dim=None),
+           (("f", (5, 4)),)),
+    _layer("spectral_norm", lambda nn: nn.utils.spectral_norm(
+        nn.Linear(4, 3), n_power_iterations=2), (("f", (5, 4)),)),
+]
+
+# --------------------------------------------------------------------------
 # random ops: (name, fn(mod), dtype, (lo, hi) or None, (mean, var) or None:
 # a permutation of arange when None)
 # --------------------------------------------------------------------------
@@ -1300,6 +1600,15 @@ def _places(out):
 LEFT_OUT = {"check_shape": "validates a Python shape argument on the host; "
                            "it makes no tensor (held on the CPU by "
                            "tests/test_torch_tensor_api.py)"}
+LEFT_OUT.update({n: f"held by {w}" for n, w in NN_HELD_ELSEWHERE.items()})
+LEFT_OUT.update({
+    "dropout2d:training": "draws from torch's generators: its masks' "
+                          "structure and rate held by "
+                          "tests/test_torch_nn_extra.py",
+    "alpha_dropout:training": "as dropout2d's",
+    "remove_weight_norm": "restores a parameter; held by "
+                          "tests/test_torch_nn_extra.py",
+})
 
 
 def card_sweep(pt, cases):
