@@ -410,6 +410,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
       step 2 with step 3 launched before ``wait()`` and resumed in a fresh
       model (1e-6 of max|param|); ``incubate.fused_feedforward`` at (l)'s
       shape, one FFN launch.
+  (ap) MobileNet-SSD300 as PaddleCV's object_detection example builds it
+      (MobileNetV1 x1.0, four extra blocks, ``fluid.layers.multi_box_head``
+      over six maps, 1,917 priors, 21 classes), a static program trained
+      by RMSProp (lr 1e-3, L2 5e-5) at batch 64 on 300 x 300 images made
+      by ``transforms.Resize`` + ``Normalize``: one warm-up step and 8
+      timed, the loss finite and falling; kernel launches a step and the
+      idle share from one profiled step; ``detection_output`` at batch 64
+      (nms 0.45) timed with the NMS's share, kept boxes an image; card
+      against CPU in fp32 on 2 images: the loss within 1e-5, gradients
+      within 1e-4 of the largest, the NMS rows and kept indices equal (on
+      each device's own outputs, parted only at a CPU margin under 1e-4);
+  (aq) MobileNetV2 x1.0 fit through ``DatasetFolder`` (1,024 synthetic
+      256 x 256 ``.npy`` images) -> RandomResizedCrop(224),
+      RandomHorizontalFlip, Normalize, Transpose -> ``io.DataLoader``
+      (batch 128, 4 workers) -> ``Model.fit`` (Momentum 0.9): imgs/s, step
+      ms, the host's wait on the loader, peak memory; a batch normalised
+      per image and by one ``runtime.preprocess_images`` call (ms, equal);
+      VGG16's eval forward at [64, 3, 224, 224] in fp32 and bf16; card
+      against CPU on 2 images: both models' logits within 1e-4 of max and
+      one MobileNetV2 training step as in (ap);
+  (ar) every public function of ``vision.ops`` and ``vision.detection``
+      (but ``multi_box_head``, which (ap) drives, and the host image io)
+      on the card against the CPU at the shapes of named models (YOLOv3-608's
+      three heads, ResNet-50 res5's deformable 3 x 3, the RPN at 800 x 1088,
+      the SSD's 1,917 priors, RetinaNet's P3-P7): outputs and gradients
+      within 1e-5 of max, indices and counts equal, each one's ms.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -3341,6 +3367,10 @@ def main():
     # (am), (an), (ao): the sequence-to-sequence path (Transformer base,
     # the RNN seq2seq) and the rest of nn ---------------------------------
     seq2seq_phases(torch, flash_attn, norms, card, launches, args)
+
+    # (ap), (aq), (ar): the rest of vision/ (MobileNet-SSD300, the
+    # ImageNet input path with MobileNetV2 and VGG16, the detection family)
+    vision_family_phases(torch, card, args)
 
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
@@ -7190,6 +7220,921 @@ def seq2seq_phases(torch, flash_attn, norms, card, launches, args):
                 log(f"    FAILED {name}: {err}")
             raise SystemExit(f"(ao): {len(ao['failed'])} cases failed on "
                              f"the card")
+    finally:
+        core._state.expected_place = prev
+
+
+# (ap), (aq), (ar): the rest of vision/ -------------------------------------
+
+# (ap): PaddleCV's object_detection example (mobilenet_ssd.py, train.py):
+# MobileNet-SSD300 on Pascal VOC, 21 classes, batch 64, nothing cut; raw
+# images at VOC's typical 375 x 500, resized to 300 x 300
+SSD = dict(size=300, classes=21, batch=64, steps=8, lr=1e-3, l2=5e-5,
+           max_gt=8, raw=(375, 500), nms_threshold=0.45,
+           extras=((256, 512), (128, 256), (128, 256), (64, 128)),
+           min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+           max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+           aspect_ratios=[[2.0]] + [[2.0, 3.0]] * 5)
+SSD_PRIORS = 1917             # 19^2 x 3 + (10^2 + 5^2 + 3^2 + 2^2 + 1) x 6
+SSD_PARITY = 2                # card vs CPU: images, fp32, full width
+SSD_LOSS_TOL = 1e-5           # relative
+SSD_GRAD_TOL = 1e-4           # x the largest |gradient| on the CPU
+SSD_NEAR_TIE = 1e-4           # where the rows part: the CPU's margin
+# (aq): ImageNet-width classification through the user's input path
+IMAGENET = dict(images=1024, classes=8, raw=256, size=224, batch=128,
+                workers=4, lr=0.05, momentum=0.9, wd=4e-5, num_classes=1000)
+IMAGENET_MEAN = [123.675, 116.28, 103.53]     # pixel units, HWC
+IMAGENET_STD = [58.395, 57.12, 57.375]
+VGG_BATCH, VGG_ITERS = 64, 5  # (aq): VGG16 eval forwards a dtype
+LOGIT_TOL = 1e-4              # (aq): x max|logit| on the CPU
+# (ar): YOLOv3-608 (Redmon & Farhadi 2018): the three heads' grids,
+# strides and anchor masks, the nine COCO anchors, 80 classes
+YOLO = dict(batch=8, gt=50, classes=80, size=608, ignore=0.7,
+            anchors=[10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116,
+                     90, 156, 198, 373, 326],
+            heads=((19, 32, [6, 7, 8]), (38, 16, [3, 4, 5]),
+                   (76, 8, [0, 1, 2])))
+# (ar): Faster R-CNN's RPN at an 800 x 1088 image, stride 16, 5 sizes x 3
+# ratios, the op's defaults pre 6000 / post 1000
+RPN = dict(batch=2, image=(800, 1088), stride=16,
+           sizes=[32, 64, 128, 256, 512], ratios=[0.5, 1.0, 2.0])
+# (ar): ResNet-50 res5's 3 x 3 convolution (512 -> 512) at that image
+DEFORM = dict(batch=2, c=512, hw=(25, 34))
+# (ar): RetinaNet's P3-P7 anchors (9 a cell) at a 512 x 512 image
+RETINA_ANCHORS = [9 * (512 // s) ** 2 for s in (8, 16, 32, 64, 128)]
+FAMILY_TOL = 1e-5             # (ar): x max|ref| on the CPU
+
+
+def sync_ms(torch, fn, iters=1):
+    """Wall ms of ``fn()`` on the card, synchronised (mean of ``iters``);
+    returns (ms, the last result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters, out
+
+
+def ssd_batch(pt, n, seed):
+    """``n`` raw uint8 VOC-sized images through ``transforms.Resize`` and
+    ``Normalize`` (mean 127.5, std 127.5) to [n, 3, 300, 300] float32,
+    and 1-8 gt boxes an image (normalised xyxy, labels 1-20), padded to
+    ``max_gt`` with zero rows."""
+    from paddle_tpu_torch.vision import transforms as T
+    S = SSD
+    rng = np.random.RandomState(seed)
+    tf = T.Compose([T.Resize((S["size"], S["size"])),
+                    T.Normalize(127.5, 127.5, data_format="HWC"),
+                    T.Transpose()])
+    raw = rng.randint(0, 256, (n,) + S["raw"] + (3,)).astype(np.uint8)
+    img = np.stack([tf(a) for a in raw]).astype(np.float32)
+    box = np.zeros((n, S["max_gt"], 4), np.float32)
+    lbl = np.zeros((n, S["max_gt"]), np.int64)
+    for i in range(n):
+        k = rng.randint(1, S["max_gt"] + 1)
+        xy = rng.uniform(0.0, 0.7, (k, 2))
+        wh = rng.uniform(0.08, 0.3, (k, 2))
+        box[i, :k] = np.concatenate([xy, np.minimum(xy + wh, 1.0)], 1)
+        lbl[i, :k] = rng.randint(1, S["classes"], k)
+    return {"image": img, "gt_box": box, "gt_label": lbl}
+
+
+def ssd_program(pt, parity=False):
+    """MobileNet-SSD300 as PaddleCV builds it: the MobileNetV1 x1.0
+    backbone (its 11th and 13th blocks, 19 x 19 x 512 and 10 x 10 x 1024,
+    are the first two maps), four extra blocks (1 x 1 conv_bn, then
+    3 x 3 stride 2 conv_bn), ``fluid.layers.multi_box_head`` over the six
+    maps (1,917 priors) and ``fluid.layers.ssd_loss`` at its defaults;
+    RMSProp (lr 1e-3, L2 decay 5e-5) ``minimize``, or with ``parity``
+    ``append_backward`` instead.  The inference program (a test clone
+    taken before the loss) ends in ``fluid.layers.detection_output`` on
+    the softmaxed scores, nms_threshold 0.45.  Returns a dict."""
+    from paddle_tpu_torch import fluid, static
+    from paddle_tpu_torch.vision import models
+    L, S = fluid.layers, SSD
+    pt.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        with static.program_guard(main, startup):
+            img = static.data("image", [None, 3, S["size"], S["size"]],
+                              "float32")
+            gt_box = static.data("gt_box", [None, S["max_gt"], 4], "float32")
+            gt_label = static.data("gt_label", [None, S["max_gt"]], "int64")
+            net = models.MobileNetV1(scale=1.0, num_classes=0,
+                                     with_pool=False)
+            x = net.conv1(img)
+            maps = []
+            for i, block in enumerate(net.blocks):
+                x = block(x)
+                if i in (10, 12):
+                    maps.append(x)
+            for c1, c2 in S["extras"]:
+                x = static.nn.batch_norm(static.nn.conv2d(
+                    x, c1, 1, bias_attr=False), act="relu")
+                x = static.nn.batch_norm(static.nn.conv2d(
+                    x, c2, 3, stride=2, padding=1, bias_attr=False),
+                    act="relu")
+                maps.append(x)
+            locs, confs, box, var = L.multi_box_head(
+                inputs=maps, image=img, num_classes=S["classes"],
+                base_size=S["size"], min_sizes=S["min_sizes"],
+                max_sizes=S["max_sizes"],
+                aspect_ratios=S["aspect_ratios"], flip=True, offset=0.5)
+            scores = pt.nn.functional.softmax(confs, axis=-1)
+            infer = main.clone(for_test=True)
+        with static.program_guard(infer, static.Program()):
+            det = L.detection_output(locs, scores, box, var,
+                                     nms_threshold=S["nms_threshold"])
+        with static.program_guard(main, startup):
+            loss = L.ssd_loss(locs, confs, gt_box, gt_label, box, var)
+            if parity:
+                grads = [g for _, g in static.append_backward(loss)]
+            else:
+                grads = []
+                pt.optimizer.RMSProp(
+                    learning_rate=S["lr"],
+                    weight_decay=pt.regularizer.L2Decay(S["l2"])).minimize(
+                        loss)
+    finally:
+        pt.disable_static()
+    if tuple(box.shape) != (SSD_PRIORS, 4) or locs.shape[1] != SSD_PRIORS:
+        raise SystemExit(f"(ap): {box.shape[0]} priors, not {SSD_PRIORS}")
+    return {"main": main, "startup": startup, "infer": infer, "loss": loss,
+            "det": det, "locs": locs, "scores": scores, "box": box,
+            "var": var, "grads": grads, "maps": [list(m.shape[1:])
+                                                 for m in maps]}
+
+
+def run_static(pt, prog, feed, fetch):
+    pt.enable_static()
+    try:
+        return pt.static.Executor().run(prog, feed=feed, fetch_list=fetch)
+    finally:
+        pt.disable_static()
+
+
+def nms_rows(pt, locs, scores, box, var):
+    """``detection_output``'s arithmetic with the kept indices:
+    ``box_coder`` decode, then ``multiclass_nms`` (the defaults of
+    ``detection_output``: nms_top_k 400, keep_top_k 200, score_threshold
+    0.01, background 0) on the scores [B, C, N]."""
+    from paddle_tpu_torch.vision import detection as D
+    dec = D.box_coder(box, var, locs, code_type="decode_center_size")
+    return D.multiclass_nms(dec, pt.transpose(scores, [0, 2, 1]),
+                            score_threshold=0.01, nms_top_k=400,
+                            keep_top_k=200,
+                            nms_threshold=SSD["nms_threshold"],
+                            return_index=True)
+
+
+def nms_margin(dec, scores):
+    """The CPU's smallest margin in a detection's NMS (float64): between
+    adjacent candidate scores of a class, between a candidate's score and
+    the score threshold, and between a candidate pair's IoU and the NMS
+    threshold, over the 400 best candidates of each foreground class."""
+    best = math.inf
+    for b in range(dec.shape[0]):
+        bx = dec[b].astype(np.float64)
+        for c in range(1, scores.shape[1]):
+            s = scores[b, c].astype(np.float64)
+            idx = np.argsort(-s, kind="stable")[:400]
+            idx = idx[s[idx] > 0.01 - 1e-3]
+            if not len(idx):
+                continue
+            ss = s[idx]
+            best = min(best, float(np.abs(ss - 0.01).min()))
+            if len(idx) > 1:
+                best = min(best, float(np.abs(np.diff(ss)).min()))
+            q = bx[idx]
+            x1 = np.maximum(q[:, None, 0], q[None, :, 0])
+            y1 = np.maximum(q[:, None, 1], q[None, :, 1])
+            x2 = np.minimum(q[:, None, 2], q[None, :, 2])
+            y2 = np.minimum(q[:, None, 3], q[None, :, 3])
+            inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
+            area = (q[:, 2] - q[:, 0]) * (q[:, 3] - q[:, 1])
+            iou = inter / np.maximum(area[:, None] + area[None] - inter,
+                                     1e-10)
+            iu = np.triu_indices(len(idx), 1)
+            if len(iu[0]):
+                best = min(best, float(np.abs(iou[iu]
+                                              - SSD["nms_threshold"]).min()))
+    return best
+
+
+def ssd_path(torch, pt, args):
+    """Phase (ap): MobileNet-SSD300 static training (one warm-up step,
+    8 timed, the last fetching the loss) and inference at batch 64."""
+    S = SSD
+    pt.seed(SEED + 70)
+    t0 = time.perf_counter()
+    p = ssd_program(pt)
+    build_s = time.perf_counter() - t0
+    feed = ssd_batch(pt, S["batch"], SEED + 71)
+    dfeed = {k: pt.to_tensor(v) for k, v in feed.items()}
+    run_static(pt, p["startup"], None, [])
+    lv0, = run_static(pt, p["main"], dfeed, [p["loss"]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(S["steps"] - 1):
+        run_static(pt, p["main"], dfeed, [])
+    lv, = run_static(pt, p["main"], dfeed, [p["loss"]])
+    final = float(np.asarray(lv))
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = float(np.asarray(lv0))
+    if not (np.isfinite(first) and np.isfinite(final) and final < first):
+        raise SystemExit(f"(ap): loss {first} -> {final}: not finite and "
+                         "falling")
+    prof = profile_steps(
+        torch, lambda: run_static(pt, p["main"], dfeed, []), 1, "ssd_step",
+        os.path.join(os.path.dirname(os.path.abspath(args.train_trace)),
+                     "ssd_trace.json"))
+    # inference: warm, then timed; the NMS alone on the same decode
+    ifeed = {"image": dfeed["image"]}
+    run_static(pt, p["infer"], ifeed, [p["det"]])
+    infer_ms, (locs, scores, box, var, det) = sync_ms(
+        torch, lambda: run_static(pt, p["infer"], ifeed, [
+            p["locs"], p["scores"], p["box"], p["var"], p["det"]]), 3)
+    T = pt.to_tensor
+    nms_rows(pt, T(locs), T(scores), T(box), T(var))
+    nms_ms, _ = sync_ms(torch, lambda: nms_rows(
+        pt, T(locs), T(scores), T(box), T(var)), 3)
+    det = np.asarray(det)
+    if det.shape != (S["batch"], 200, 6) or not np.isfinite(det).all():
+        raise SystemExit(f"(ap): detections {det.shape}, finite "
+                         f"{np.isfinite(det).all()}")
+    kept = (det[..., 0] >= 0).sum(1)
+    return {"step_ms": 1e3 * dt / S["steps"],
+            "imgs_per_s": S["batch"] * S["steps"] / dt,
+            "loss_first": first, "loss_final": final, "build_s": build_s,
+            "ops": len(p["main"].ops), "params": len(p["main"].params),
+            "maps": p["maps"], "peak_gib": peak,
+            "launches_per_step": prof["kernel_launches_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "top_kernels": prof["device_ms_per_step_by_kernel"][:5],
+            "infer_ms": infer_ms, "nms_ms": nms_ms,
+            "nms_share": nms_ms / infer_ms,
+            "kept_mean": float(kept.mean()), "kept_min": int(kept.min()),
+            "kept_max": int(kept.max())}
+
+
+def to_float64(pt, tensors):
+    """Cast a model's or program's parameters and buffers to float64 in
+    place (after the build, as (ab) does)."""
+    import torch
+    for t in tensors:
+        if t.value.is_floating_point():
+            t.value = t.value.detach().to(torch.float64)
+            if isinstance(t, pt.tensor.Parameter):
+                t._mark()
+
+
+def float64_tensor(pt, a):
+    """``a`` as a float64 Tensor on the default place (``to_tensor``
+    takes float64 arrays to the default float dtype)."""
+    import torch
+    from paddle_tpu_torch.framework import core
+    return pt.Tensor(torch.from_numpy(np.asarray(a, np.float64)).to(
+        core.get_place().device))
+
+
+def step_errors(g, c):
+    """(loss relative error, the largest gradient difference over the
+    largest |gradient|) of a card run ``g`` against a CPU run ``c``, each
+    (loss, [gradients])."""
+    scale = max(float(np.abs(a).max()) for a in c[1])
+    return (abs(g[0] - c[0]) / abs(c[0]),
+            max(float(np.abs(a - b).max()) for a, b in zip(g[1], c[1]))
+            / scale)
+
+
+def ssd_parity(torch, pt):
+    """Phase (ap)'s check: the SSD program without its optimizer
+    (``append_backward``) on 2 images at full width, on the card and on
+    the CPU from the same weights: the loss within 1e-5 (relative) and
+    every parameter's gradient within 1e-4 of the largest |gradient|,
+    asserted in float64 (parameters, buffers and the image cast after the
+    build; ``ssd_loss`` keeps float64) and reported in fp32, where the
+    step is ill-conditioned (the port's own fp32 gradients are 5.4e-3 of
+    max from its float64 ones on the CPU, ``tools/vision_conditioning.py``); the NMS rows (labels, kept
+    indices) of the CPU's fp32 outputs on both devices equal, and of each
+    device's own outputs equal or parted only where the CPU's margin is
+    under 1e-4."""
+    feed = ssd_batch(pt, SSD_PARITY, SEED + 72)
+    runs, init = {}, None
+    for dev in ("gpu", "cpu"):
+        pt.set_device(dev)
+        pt.seed(SEED + 73)
+        p = ssd_program(pt, parity=True)
+        params = p["main"].all_parameters()
+        if init is None:
+            init = [np.asarray(v.numpy()).copy() for v in params]
+        else:
+            for v, a in zip(params, init):
+                v.set_value(a)
+        run_static(pt, p["startup"], None, [])
+        fetch = [p["loss"], p["locs"], p["scores"], p["box"],
+                 p["var"]] + p["grads"]
+        f32 = [np.asarray(o) for o in run_static(
+            pt, p["main"], {k: pt.to_tensor(v) for k, v in feed.items()},
+            fetch)]
+        to_float64(pt, params + list(p["main"].captured.values()))
+        f64 = run_static(pt, p["main"], dict(
+            {k: pt.to_tensor(v) for k, v in feed.items()},
+            image=float64_tensor(pt, feed["image"])),
+            [p["loss"]] + p["grads"])
+        if not np.asarray(f64[0]).dtype == np.float64:
+            raise SystemExit("(ap): the float64 step did not run in float64")
+        runs[dev] = {"f32": f32, "f64": (float(f64[0]), [
+            np.asarray(o) for o in f64[1:]])}
+    pt.set_device("gpu")
+    og, oc = runs["gpu"]["f32"], runs["cpu"]["f32"]
+    l64, g64 = step_errors(runs["gpu"]["f64"], runs["cpu"]["f64"])
+    l32, g32 = step_errors((float(og[0]), og[5:]), (float(oc[0]), oc[5:]))
+    res = {"loss_card": float(og[0]), "loss_cpu": float(oc[0]),
+           "loss_rel_err": l32, "grad_err_over_max": g32,
+           "loss_rel_err_f64": l64, "grad_err_over_max_f64": g64,
+           "grads": len(oc) - 5}
+    T = pt.to_tensor
+    rows = {}
+    for tag, src in (("cpu_inputs", oc), ("own", og)):
+        got = {}
+        for dev, o in (("gpu", src), ("cpu", oc)):
+            pt.set_device(dev)
+            r, i = nms_rows(pt, *[T(a) for a in o[1:5]])
+            got[dev] = (np.asarray(r.numpy()), np.asarray(i.numpy()))
+        pt.set_device("gpu")
+        (rg, ig), (rc, ic) = got["gpu"], got["cpu"]
+        rows[tag] = {"labels_equal": bool(np.array_equal(rg[..., 0],
+                                                         rc[..., 0])),
+                     "index_equal": bool(np.array_equal(ig, ic)),
+                     "kept": int((ic >= 0).sum()),
+                     "row_err": float(np.abs(rg - rc).max())}
+    res["nms"] = rows
+    own = rows["own"]
+    if not (own["labels_equal"] and own["index_equal"]):
+        from paddle_tpu_torch.vision import detection as D
+        pt.set_device("cpu")
+        dec = D.box_coder(T(oc[3]), T(oc[4]), T(oc[1]),
+                          code_type="decode_center_size").numpy()
+        pt.set_device("gpu")
+        own["cpu_margin"] = nms_margin(np.asarray(dec),
+                                       oc[2].transpose(0, 2, 1))
+    ok = (l64 <= SSD_LOSS_TOL and g64 <= SSD_GRAD_TOL
+          and rows["cpu_inputs"]["labels_equal"]
+          and rows["cpu_inputs"]["index_equal"]
+          and ((own["labels_equal"] and own["index_equal"])
+               or own["cpu_margin"] <= SSD_NEAR_TIE))
+    if not ok:
+        raise SystemExit(f"(ap): the SSD on the card differs from the "
+                         f"CPU's: {res}")
+    return res
+
+
+def imagenet_folder(root, n, classes, raw, seed):
+    """``n`` synthetic raw x raw x 3 uint8 ``.npy`` images in ``classes``
+    class folders under ``root``, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        d = os.path.join(root, f"class{i % classes:02d}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, f"{i:05d}.npy"),
+                rng.randint(0, 256, (raw, raw, 3)).astype(np.uint8))
+
+
+class TimedLoader:
+    """A loader that adds the host's wait for each batch to ``wait``."""
+
+    def __init__(self, loader):
+        self.loader, self.wait = loader, 0.0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.wait += time.perf_counter() - t0
+            yield b
+
+
+def imagenet_path(torch, pt, root):
+    """Phase (aq): MobileNetV2 x1.0 fit through the user's input path:
+    ``DatasetFolder`` -> RandomResizedCrop(224), RandomHorizontalFlip,
+    Normalize (ImageNet mean and std in pixel units, HWC), Transpose ->
+    ``io.DataLoader`` (batch 128, 4 workers, the native ring, 2 batches
+    ahead on the card) -> ``Model.fit`` with Momentum 0.9: two epochs of
+    8 steps, the second timed; then the batch's normalisation two ways,
+    and VGG16's eval forward in fp32 and bf16."""
+    from paddle_tpu_torch import runtime
+    from paddle_tpu_torch.vision import datasets, models
+    from paddle_tpu_torch.vision import transforms as T
+    c = IMAGENET
+    tf = T.Compose([T.RandomResizedCrop(c["size"]), T.RandomHorizontalFlip(),
+                    T.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                                data_format="HWC"), T.Transpose()])
+    ds = datasets.DatasetFolder(root, transform=tf)
+    loader = TimedLoader(pt.io.DataLoader(
+        ds, batch_size=c["batch"], shuffle=True, num_workers=c["workers"],
+        use_native_ring=True, prefetch_to_device=2))
+    pt.seed(SEED + 80)
+    net = models.MobileNetV2(num_classes=c["num_classes"])
+    model = pt.Model(net, inputs=[pt.static.InputSpec(
+        [None, 3, c["size"], c["size"]], "float32")],
+        labels=[pt.static.InputSpec([None], "int64")])
+    model.prepare(pt.optimizer.Momentum(
+        learning_rate=c["lr"], momentum=c["momentum"],
+        weight_decay=c["wd"], parameters=net.parameters()),
+        pt.nn.CrossEntropyLoss())
+    rec = {"losses": []}
+
+    class Timer(pt.callbacks.Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            if epoch == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                loader.wait = 0.0
+                rec["t0"] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            rec["losses"].append(float(np.asarray(logs["loss"]).ravel()[0]))
+
+        def on_epoch_end(self, epoch, logs=None):
+            if epoch == 1:
+                torch.cuda.synchronize()
+                rec["wall"] = time.perf_counter() - rec["t0"]
+                rec["wait"] = loader.wait
+                rec["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    model.fit(loader, epochs=2, verbose=0, callbacks=[Timer()])
+    steps = len(loader)
+    losses = rec["losses"]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"(aq): MobileNetV2's losses {losses}")
+    out = {"steps": steps, "step_ms": 1e3 * rec["wall"] / steps,
+           "imgs_per_s": c["images"] / rec["wall"],
+           "loader_wait_share": rec["wait"] / rec["wall"],
+           "peak_gib": rec["peak"], "loss_first": losses[0],
+           "loss_last": losses[-1]}
+    # one batch's normalisation: per image, and one native call
+    rng = np.random.RandomState(SEED + 81)
+    raw = [T.RandomResizedCrop(c["size"])(np.load(ds.samples[i][0]))
+           for i in rng.randint(0, len(ds), c["batch"])]
+    norm = T.Compose([T.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                                  data_format="HWC"), T.Transpose()])
+    t0 = time.perf_counter()
+    a = np.stack([norm(x) for x in raw])
+    per_image_ms = 1e3 * (time.perf_counter() - t0)
+    runtime.preprocess_images(raw, IMAGENET_MEAN, IMAGENET_STD, 1.0)
+    t0 = time.perf_counter()
+    b = runtime.preprocess_images(raw, IMAGENET_MEAN, IMAGENET_STD, 1.0)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    diff = float(np.abs(a - b).max())
+    if a.shape != b.shape or diff > 1e-5 * float(np.abs(a).max()):
+        raise SystemExit(f"(aq): preprocess_images differs from Normalize + "
+                         f"Transpose by {diff}")
+    out.update(per_image_ms=per_image_ms, native_ms=native_ms,
+               preprocess_max_diff=diff, preprocess_max=float(
+                   np.abs(a).max()))
+    del model, net
+    torch.cuda.empty_cache()
+    # VGG16 (configuration D), eval forward in fp32 and under bf16
+    pt.seed(SEED + 82)
+    vgg = models.vgg16()
+    vgg.eval()
+    x = pt.to_tensor(np.random.RandomState(SEED + 83).randn(
+        VGG_BATCH, 3, c["size"], c["size"]).astype(np.float32))
+    for dt in ("float32", "bfloat16"):
+        ctx = (pt.amp.auto_cast(dtype="bfloat16") if dt == "bfloat16"
+               else contextlib.nullcontext())
+        with pt.no_grad(), ctx:
+            vgg(x)
+            ms, y = sync_ms(torch, lambda: vgg(x), VGG_ITERS)
+        if not torch.isfinite(y.value).all():
+            raise SystemExit(f"(aq): VGG16's {dt} logits are not finite")
+        out[f"vgg16_{dt}_imgs_per_s"] = VGG_BATCH / ms * 1e3
+        out[f"vgg16_{dt}_ms"] = ms
+    return out
+
+
+def imagenet_parity(torch, pt):
+    """Phase (aq)'s check, 2 images at 224, card against CPU from the
+    same weights: MobileNetV2's and VGG16's fp32 eval logits within 1e-4
+    of max|logit|; one MobileNetV2 training step (batch statistics,
+    dropout 0): the loss within 1e-5 (relative) and every gradient within
+    1e-4 of the largest |gradient|, asserted in float64 and reported in
+    fp32 (ill-conditioned there: the port's own fp32 gradients are
+    6.5e-3 of max from its float64 ones on the CPU,
+    ``tools/vision_conditioning.py``)."""
+    from paddle_tpu_torch.vision import models
+    rng = np.random.RandomState(SEED + 84)
+    x = rng.randn(2, 3, 224, 224).astype(np.float32)
+    y = np.array([3, 917], np.int64)
+    res = {}
+    for name, make in (("mobilenet_v2", models.MobileNetV2),
+                       ("vgg16", models.vgg16)):
+        pt.set_device("gpu")
+        pt.seed(SEED + 85)
+        state = {k: np.asarray(v.numpy()).copy()
+                 for k, v in make().state_dict().items()}
+        outs = {}
+        for dev in ("gpu", "cpu"):
+            pt.set_device(dev)
+            net = make()
+            net.set_state_dict(state)
+            net.eval()
+            with pt.no_grad():
+                item = {"logits": np.asarray(net(pt.to_tensor(x)).numpy())}
+            if name == "mobilenet_v2":
+                net.train()
+                for layer in net.sublayers():
+                    if isinstance(layer, pt.nn.Dropout):
+                        layer.p = 0.0
+                for dt in ("f32", "f64"):
+                    if dt == "f64":
+                        net.set_state_dict(state)
+                        to_float64(pt, list(net.state_dict().values()))
+                    xt = (float64_tensor(pt, x) if dt == "f64"
+                          else pt.to_tensor(x))
+                    loss = pt.nn.functional.cross_entropy(
+                        net(xt), pt.to_tensor(y)).mean()
+                    loss.backward()
+                    item[dt] = (float(loss), [np.asarray(p.grad.numpy())
+                                              for p in net.parameters()])
+                    for prm in net.parameters():
+                        prm.clear_grad()
+            outs[dev] = item
+            del net
+        pt.set_device("gpu")
+        g, c_ = outs["gpu"], outs["cpu"]
+        r = {"logit_err_over_max": float(np.abs(g["logits"]
+                                                - c_["logits"]).max())
+             / float(np.abs(c_["logits"]).max())}
+        ok = r["logit_err_over_max"] <= LOGIT_TOL
+        if "f32" in c_:
+            l32, g32 = step_errors(g["f32"], c_["f32"])
+            l64, g64 = step_errors(g["f64"], c_["f64"])
+            r.update(loss_card=g["f32"][0], loss_cpu=c_["f32"][0],
+                     loss_rel_err=l32, grad_err_over_max=g32,
+                     loss_rel_err_f64=l64, grad_err_over_max_f64=g64)
+            ok = ok and l64 <= SSD_LOSS_TOL and g64 <= SSD_GRAD_TOL
+        res[name] = r
+        if not ok:
+            raise SystemExit(f"(aq): {name} on the card differs from the "
+                             f"CPU's: {r}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_cases():
+    """(ar)'s cases: (label, function name, module, numpy arrays, keyword
+    arguments, indices of the arrays to differentiate).  Shapes of named
+    models; the rest at the reference's defaults."""
+    rng = np.random.RandomState(SEED + 90)
+
+    def boxes(*shape, scale=1.0, lo=0.02, hi=0.4):
+        xy = rng.uniform(0, 0.6, shape + (2,))
+        wh = rng.uniform(lo, hi, shape + (2,))
+        return (np.concatenate([xy, xy + wh], -1) * scale).astype(np.float32)
+
+    f32 = np.float32
+    Y = YOLO
+    cases = []
+    for g, stride, mask in Y["heads"]:
+        x = (rng.randn(Y["batch"], 3 * (5 + Y["classes"]), g, g)
+             * 0.5).astype(f32)
+        size = np.full((Y["batch"], 2), Y["size"], np.int32)
+        cases.append((f"yolo_box {g}x{g}", "yolo_box", "ops", [x, size],
+                      dict(anchors=[a for m in mask for a in
+                                    Y["anchors"][2 * m:2 * m + 2]],
+                           class_num=Y["classes"], conf_thresh=0.005,
+                           downsample_ratio=stride), ()))
+        gt = np.concatenate([rng.uniform(0.05, 0.95, (Y["batch"], Y["gt"],
+                                                      2)),
+                             rng.uniform(0.01, 0.4, (Y["batch"], Y["gt"],
+                                                     2))], -1).astype(f32)
+        gt[:, 40:] = 0.0
+        lbl = rng.randint(0, Y["classes"], (Y["batch"], Y["gt"])).astype(
+            np.int32)
+        cases.append((f"yolo_loss {g}x{g}", "yolo_loss", "ops",
+                      [x, gt, lbl], dict(anchors=Y["anchors"],
+                                         anchor_mask=mask,
+                                         class_num=Y["classes"],
+                                         ignore_thresh=Y["ignore"],
+                                         downsample_ratio=stride), (0,)))
+    D = DEFORM
+    H, W = D["hw"]
+    x = rng.randn(D["batch"], D["c"], H, W).astype(f32)
+    w = (rng.randn(D["c"], D["c"], 3, 3) * 0.02).astype(f32)
+    off = (rng.randn(D["batch"], 18, H, W) * 2.0).astype(f32)
+    mask = rng.uniform(0, 1, (D["batch"], 9, H, W)).astype(f32)
+    b = rng.randn(D["c"]).astype(f32)
+    cases.append(("deform_conv2d v1 res5", "deform_conv2d", "ops",
+                  [x, off, w, b], dict(padding=1), (0, 1, 2)))
+    cases.append(("deform_conv2d v2 res5", "deform_conv2d_v2", "ops",
+                  [x, off, w, b, mask], dict(padding=1), (0, 1, 2, 4)))
+    R = RPN
+    h, w_ = (s // R["stride"] for s in R["image"])
+    A = len(R["sizes"]) * len(R["ratios"])
+    cases.append(("generate_proposals RPN", "generate_proposals", "det",
+                  [rng.uniform(0, 1, (R["batch"], A, h, w_)).astype(f32),
+                   (rng.randn(R["batch"], 4 * A, h, w_) * 0.3).astype(f32),
+                   np.array([[800, 1088, 1.0], [760, 1088, 1.25]], f32),
+                   "anchors", "variances"],
+                  dict(pre_nms_top_n=6000, post_nms_top_n=1000,
+                       nms_thresh=0.7, min_size=0.0, return_rois_num=True),
+                  ()))
+    N, C = 1917, 21
+    dec = boxes(8, N)
+    sc = rng.uniform(0, 1, (8, C, N)).astype(f32) ** 4
+    cases += [
+        ("multiclass_nms VOC", "multiclass_nms", "det", [dec, sc],
+         dict(score_threshold=0.01, nms_top_k=400, keep_top_k=200,
+              nms_threshold=0.45, return_index=True), ()),
+        ("multiclass_nms eta", "multiclass_nms", "det", [dec[:2], sc[:2]],
+         dict(score_threshold=0.05, nms_eta=0.9, nms_threshold=0.8), ()),
+        ("matrix_nms SOLOv2", "matrix_nms", "det",
+         [boxes(2, 500), rng.uniform(0, 1, (2, 81, 500)).astype(f32) ** 3],
+         dict(score_threshold=0.1, post_threshold=0.05, nms_top_k=400,
+              keep_top_k=100, use_gaussian=True), ()),
+        ("locality_aware_nms", "locality_aware_nms", "det",
+         [boxes(2, 400, scale=512.0), rng.uniform(0, 1, (2, 1, 400))
+          .astype(f32)],
+         dict(score_threshold=0.2, nms_top_k=200, keep_top_k=100), ()),
+        ("ssd_loss VOC", "ssd_loss", "det",
+         [(rng.randn(8, N, 4) * 0.3).astype(f32),
+          rng.randn(8, N, C).astype(f32), boxes(8, 8, lo=0.1, hi=0.4),
+          rng.randint(1, C, (8, 8)).astype(np.int64), boxes(N)], {},
+         (0, 1)),
+        ("prior_box SSD 19x19", "prior_box", "det",
+         [np.zeros((1, 512, 19, 19), f32), np.zeros((1, 3, 300, 300), f32)],
+         dict(min_sizes=[60.0], max_sizes=[], aspect_ratios=[2.0],
+              flip=True), ()),
+        ("density_prior_box", "density_prior_box", "det",
+         [np.zeros((1, 256, 64, 64), f32), np.zeros((1, 3, 1024, 1024),
+                                                     f32)],
+         dict(densities=[4, 2, 1], fixed_sizes=[32.0, 64.0, 128.0],
+              fixed_ratios=[1.0], flatten_to_2d=True), ()),
+        ("anchor_generator RPN", "anchor_generator", "det",
+         [np.zeros((1, 1024, 50, 68), f32)],
+         dict(anchor_sizes=RPN["sizes"], aspect_ratios=RPN["ratios"],
+              stride=[16.0, 16.0]), ()),
+        ("collect_fpn_proposals FPN", "collect_fpn_proposals", "det",
+         [[boxes(n, scale=1000.0) for n in (2000, 2000, 2000, 2000)],
+          [rng.uniform(0, 1, (n,)).astype(f32) for n in (2000,) * 4],
+          [np.int32(n) for n in (2000, 1800, 900, 300)]],
+         dict(min_level=2, max_level=5, post_nms_top_n=2000), ()),
+        ("retinanet_detection_output P3-P7", "retinanet_detection_output",
+         "det", [[(rng.randn(1, m, 4) * 0.2).astype(f32) for m in
+                  RETINA_ANCHORS],
+                 [(rng.uniform(0, 1, (1, m, 80)) ** 6).astype(f32)
+                  for m in RETINA_ANCHORS],
+                 [boxes(m, scale=512.0) for m in RETINA_ANCHORS],
+                 np.array([[512, 512, 1.0]], f32)], {}, ()),
+        ("iou_similarity", "iou_similarity", "det", [boxes(64), boxes(N)],
+         {}, ()),
+        ("box_coder encode", "box_coder", "det",
+         [boxes(N), np.tile(f32([0.1, 0.1, 0.2, 0.2]), (N, 1)),
+          boxes(32)], dict(code_type="encode_center_size"), ()),
+        ("box_coder decode", "box_coder", "det",
+         [boxes(N), np.tile(f32([0.1, 0.1, 0.2, 0.2]), (N, 1)),
+          (rng.randn(8, N, 4) * 0.5).astype(f32)],
+         dict(code_type="decode_center_size"), ()),
+        ("box_clip", "box_clip", "det",
+         [boxes(2, 1000, scale=1200.0) - 50.0,
+          np.array([[800, 1088, 1.0], [760, 1088, 1.25]], f32)], {}, ()),
+        ("polygon_box_transform", "polygon_box_transform", "det",
+         [rng.randn(2, 8, 128, 128).astype(f32)], {}, ()),
+        ("bipartite_match", "bipartite_match", "det",
+         [rng.uniform(0, 1, (20, N)).astype(f32)],
+         dict(match_type="per_prediction", dist_threshold=0.5), ()),
+        ("target_assign", "target_assign", "det",
+         [rng.randn(20, 4).astype(f32),
+          rng.randint(-1, 20, (N,)).astype(np.int32)], {}, ()),
+        ("rpn_target_assign", "rpn_target_assign", "det",
+         [None, None, boxes(20000, scale=1000.0), None,
+          boxes(2, 20, scale=1000.0, lo=0.05, hi=0.3), None,
+          np.array([[800, 1088, 1.0], [760, 1088, 1.25]], f32)], {}, ()),
+        ("retinanet_target_assign", "retinanet_target_assign", "det",
+         [None, None, boxes(20000, scale=1000.0), None,
+          boxes(2, 20, scale=1000.0, lo=0.05, hi=0.3),
+          rng.randint(1, 81, (2, 20)).astype(np.int32),
+          np.zeros((2, 20), np.int32), None], dict(num_classes=80), ()),
+        ("distribute_fpn_proposals", "distribute_fpn_proposals", "det",
+         [boxes(1000, scale=1000.0, lo=0.01, hi=0.5)],
+         dict(min_level=2, max_level=5, refer_level=4, refer_scale=224),
+         ()),
+        ("generate_proposal_labels", "generate_proposal_labels", "det",
+         [boxes(2, 1000, scale=1000.0),
+          rng.randint(1, 81, (2, 20)).astype(np.int32),
+          np.zeros((2, 20), np.int32),
+          boxes(2, 20, scale=1000.0, lo=0.05, hi=0.3),
+          np.array([[800, 1088, 1.0]] * 2, f32)],
+         dict(batch_size_per_im=512, class_nums=81), ()),
+        ("roi_perspective_transform", "roi_perspective_transform", "det",
+         [rng.randn(2, 32, 64, 64).astype(f32),
+          np.array([[4, 4, 50, 8, 52, 30, 6, 26], [10, 20, 60, 18, 58, 40,
+                                                   12, 44]] * 8, f32)],
+         dict(transformed_height=8, transformed_width=32), (0,)),
+    ]
+    return cases
+
+
+def _family_call(pt, name, module, arrays, kw, grads):
+    """One case on the default place: (outputs, gradients) as numpy."""
+    from paddle_tpu_torch.vision import detection as D, ops as O
+    R = RPN
+    if name == "generate_proposals":
+        h, w = (s // R["stride"] for s in R["image"])
+        an, var = D.anchor_generator(pt.zeros([1, 1, h, w]), R["sizes"],
+                                     R["ratios"], stride=[16.0, 16.0])
+        arrays = arrays[:3] + [an.numpy(), var.numpy()]
+    ts = [None if a is None else [pt.to_tensor(v) for v in a]
+          if isinstance(a, list) else pt.to_tensor(
+              a, stop_gradient=i not in grads) for i, a in enumerate(arrays)]
+    fn = getattr(O if module == "ops" else D, name.replace("_v2", ""))
+    if name == "deform_conv2d_v2":
+        out = fn(*ts[:4], mask=ts[4], **kw)
+    elif name == "collect_fpn_proposals":
+        out = fn(ts[0], ts[1], rois_num_per_level=ts[2], **kw)
+    else:
+        out = fn(*ts, **kw)
+    flat = list(out) if isinstance(out, (tuple, list)) else [out]
+    flat = [v for o in flat for v in (o if isinstance(o, list) else [o])
+            if v is not None]
+    gs = []
+    if grads:
+        g = np.asarray(np.random.RandomState(7).randn(*flat[0].shape),
+                       np.float32)
+        (flat[0] * pt.to_tensor(g)).sum().backward()
+        gs = [np.asarray(ts[i].grad.numpy()) for i in grads]
+    return [np.asarray(o.numpy()) for o in flat], gs
+
+
+def family_phase(torch, pt):
+    """Phase (ar): each case of :func:`family_cases` on the card and on
+    the CPU from the same inputs: floating outputs and gradients within
+    1e-5 of the CPU's max|value|, integer outputs (indices, labels,
+    counts) equal; each function's ms on the card (one call after a
+    warm one, synchronised).  Returns the table; cases that raise are
+    listed, and there must be none."""
+    res = {"cases": [], "raised": [], "failed": []}
+    for label, name, module, arrays, kw, grads in family_cases():
+        try:
+            pt.set_device("cpu")
+            want, wg = _family_call(pt, name, module, arrays, kw, grads)
+            pt.set_device("gpu")
+            _family_call(pt, name, module, arrays, kw, grads)
+            ms, (got, gg) = sync_ms(torch, lambda: _family_call(
+                pt, name, module, arrays, kw, grads))
+        except Exception as e:         # noqa: BLE001 - listed, then fatal
+            pt.set_device("gpu")
+            res["raised"].append((label, f"{type(e).__name__}: {e}"))
+            continue
+        worst = 0.0
+        exact = True
+        for a, b in zip(got + gg, want + wg):
+            if a.shape != b.shape:
+                exact = False
+                worst = math.inf
+            elif b.dtype.kind == "f":
+                worst = max(worst, float(np.abs(a - b).max()) / max(
+                    float(np.abs(b).max()), 1e-30))
+            else:
+                exact = exact and bool(np.array_equal(a, b))
+        res["cases"].append({"case": label, "ms": ms, "err_over_max": worst,
+                             "integers_equal": exact,
+                             "outputs": len(want), "grads": len(wg)})
+        if worst > FAMILY_TOL or not exact:
+            res["failed"].append(label)
+    return res
+
+
+def vision_family_phases(torch, card, args):
+    """Phases (ap), (aq), (ar), logged."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    prev = core._state.expected_place
+    S, c = SSD, IMAGENET
+    try:
+        pt.set_device("gpu")
+        t0 = time.perf_counter()
+        ap = ssd_path(torch, pt, args)
+        log(f"(ap) MobileNet-SSD300 (PaddleCV object_detection: "
+            f"MobileNetV1 x1.0, 4 extra blocks, multi_box_head over maps "
+            f"{ap['maps']}, {SSD_PRIORS} priors, {S['classes']} classes) "
+            f"static training, RMSProp {S['lr']} with L2 {S['l2']}, batch "
+            f"{S['batch']} at {S['size']}x{S['size']} (transforms.Resize + "
+            f"Normalize from {S['raw'][0]}x{S['raw'][1]}), on {card}:")
+        log(f"    step {ap['step_ms']} ms, imgs/s {ap['imgs_per_s']} "
+            f"({S['steps']} steps, the last fetched); loss "
+            f"{ap['loss_first']} -> {ap['loss_final']}; kernel launches a "
+            f"step {ap['launches_per_step']} (profiler), device busy "
+            f"{ap['device_busy_ms_per_step']} ms a step, idle share "
+            f"{ap['device_idle_share']}; max_memory_allocated "
+            f"{ap['peak_gib']} GiB; program {ap['ops']} ops, "
+            f"{ap['params']} parameters, built in {ap['build_s']:.1f} s  "
+            f"[{card}]")
+        log(f"    top kernels a step: {json.dumps(ap['top_kernels'])}  "
+            f"[{card}]")
+        log(f"    inference (detection_output, nms 0.45, top 400 / keep "
+            f"200, score 0.01) {ap['infer_ms']} ms a batch of "
+            f"{S['batch']}; the NMS alone (box decode + multiclass_nms on "
+            f"the same outputs) {ap['nms_ms']} ms, share "
+            f"{ap['nms_share']}; kept boxes an image {ap['kept_mean']} "
+            f"(min {ap['kept_min']}, max {ap['kept_max']})  [{card}]")
+        torch.cuda.empty_cache()
+        par = ssd_parity(torch, pt)
+        n = par["nms"]
+        log(f"    card against CPU, {SSD_PARITY} images at full width: "
+            f"float64 (asserted) loss relative {par['loss_rel_err_f64']:.3e}"
+            f" (tol {SSD_LOSS_TOL:.0e}), {par['grads']} gradients at worst "
+            f"{par['grad_err_over_max_f64']:.3e} of the largest (tol "
+            f"{SSD_GRAD_TOL:.0e}); fp32 (reported) loss {par['loss_card']} "
+            f"/ {par['loss_cpu']} (relative {par['loss_rel_err']:.3e}), "
+            f"gradients {par['grad_err_over_max']:.3e} of the largest; "
+            f"NMS rows on the CPU's fp32 outputs: labels "
+            f"equal {n['cpu_inputs']['labels_equal']}, kept indices equal "
+            f"{n['cpu_inputs']['index_equal']} ({n['cpu_inputs']['kept']} "
+            f"kept); on each device's own outputs: labels equal "
+            f"{n['own']['labels_equal']}, indices equal "
+            f"{n['own']['index_equal']}"
+            + (f", CPU margin {n['own']['cpu_margin']:.3e}"
+               if "cpu_margin" in n["own"] else "")
+            + f"; phase {time.perf_counter() - t0:.1f} s  [{card}]")
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        root = tempfile.mkdtemp(prefix="imagenet_")
+        try:
+            imagenet_folder(root, c["images"], c["classes"], c["raw"],
+                            SEED + 86)
+            write_s = time.perf_counter() - t0
+            aq = imagenet_path(torch, pt, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"(aq) MobileNetV2 x1.0 (Sandler et al. 2018, Table 2; "
+            f"{c['num_classes']} classes) through DatasetFolder "
+            f"({c['images']} synthetic {c['raw']}x{c['raw']}x3 uint8 .npy, "
+            f"written in {write_s:.1f} s) -> RandomResizedCrop({c['size']}) "
+            f"+ RandomHorizontalFlip + Normalize + Transpose -> "
+            f"io.DataLoader (batch {c['batch']}, {c['workers']} workers) -> "
+            f"Model.fit, Momentum {c['momentum']}, on {card}:")
+        log(f"    imgs/s {aq['imgs_per_s']}, step {aq['step_ms']} ms "
+            f"({aq['steps']} timed steps, the second epoch); the host waits "
+            f"on the loader {aq['loader_wait_share']} of the wall; "
+            f"max_memory_allocated {aq['peak_gib']} GiB; loss "
+            f"{aq['loss_first']} -> {aq['loss_last']}  [{card}]")
+        log(f"    a batch's normalisation: per-image Normalize + Transpose "
+            f"{aq['per_image_ms']} ms, one runtime.preprocess_images call "
+            f"{aq['native_ms']} ms, outputs equal within "
+            f"{aq['preprocess_max_diff']:.3e} (max |value| "
+            f"{aq['preprocess_max']:.3f}), host  [{card}]")
+        log(f"    VGG16 (configuration D) eval forward [{VGG_BATCH}, 3, "
+            f"{c['size']}, {c['size']}]: imgs/s fp32 "
+            f"{aq['vgg16_float32_imgs_per_s']}, bf16 auto_cast "
+            f"{aq['vgg16_bfloat16_imgs_per_s']}  [{card}]")
+        qp = imagenet_parity(torch, pt)
+        m = qp["mobilenet_v2"]
+        log(f"    card against CPU, 2 images at 224: fp32 logits, "
+            f"MobileNetV2 {m['logit_err_over_max']:.3e} of max, VGG16 "
+            f"{qp['vgg16']['logit_err_over_max']:.3e} (tol "
+            f"{LOGIT_TOL:.0e}); one MobileNetV2 training step in float64 "
+            f"(asserted): loss relative {m['loss_rel_err_f64']:.3e}, "
+            f"gradients {m['grad_err_over_max_f64']:.3e} of the largest; "
+            f"in fp32 (reported): loss {m['loss_card']} / {m['loss_cpu']} "
+            f"(relative {m['loss_rel_err']:.3e}), gradients "
+            f"{m['grad_err_over_max']:.3e}; phase "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ar = family_phase(torch, pt)
+        worst = max(ar["cases"], key=lambda r: r["err_over_max"])
+        log(f"(ar) vision.ops and vision.detection card against CPU: "
+            f"{len(ar['cases'])} cases checked, the largest difference "
+            f"{worst['err_over_max']:.3e} of max ({worst['case']}), "
+            f"integers equal in all but {len(ar['failed'])}; raised: "
+            f"{ar['raised'] or 'none'}; phase "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+        for r in ar["cases"]:
+            log(f"    {r['case']}: {r['ms']:.3f} ms on the card, "
+                f"{r['err_over_max']:.3e} of max, integers equal "
+                f"{r['integers_equal']} ({r['outputs']} outputs, "
+                f"{r['grads']} gradients)  [{card}]")
+        if ar["raised"] or ar["failed"]:
+            raise SystemExit(f"(ar): raised {ar['raised']}, failed "
+                             f"{ar['failed']}")
     finally:
         core._state.expected_place = prev
 

@@ -312,13 +312,14 @@ def double_buffer(reader, place=None, name=None):
 
 
 def read_file(reader):
-    """ref fluid/layers/io.py:876: a reader variable's data variables."""
-    if not isinstance(reader, PyReader):
-        raise TypeError("read_file expects a py_reader Reader variable "
-                        "(vision.ops.read_file is not ported: ROADMAP "
-                        "Queue 1 item 4, the rest of the package)")
-    slots = list(reader._slots)
-    return slots if len(slots) > 1 else slots[0]
+    """ref fluid/layers/io.py:876: a reader variable's data variables; any
+    other argument is a path, read by ``vision.ops.read_file``, as the
+    reference dispatches."""
+    if isinstance(reader, PyReader):
+        slots = list(reader._slots)
+        return slots if len(slots) > 1 else slots[0]
+    from ..vision.ops import read_file as _vision_read_file
+    return _vision_read_file(reader)
 
 
 def _install_feed_hook():

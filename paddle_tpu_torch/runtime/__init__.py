@@ -1,16 +1,19 @@
 """Native host runtime (C++): the staging memory pool and the data ring.
 
-Counterpart of ``paddle_tpu/runtime/__init__.py`` (its pool and ring;
-the image preprocess and WordPiece entry points of the same library wait
-for ``vision/`` and ``text/``).  ``csrc/ptpu_runtime.cc`` is a copy of the
-reference's source, built by ``build.py`` at first use and bound through
-ctypes.  What stays native is the host side of the input pipeline: batch
-staging slabs drawn from a size-class auto-growth pool, and a bounded
-blocking ring that overlaps worker collation and memcpy (the GIL released
-by ctypes) with device steps.
+Counterpart of ``paddle_tpu/runtime/__init__.py``: its pool, ring and
+image preprocess (the WordPiece entry point of the same library waits
+for ``text/``).  ``csrc/ptpu_runtime.cc`` is a copy of the reference's
+source, built by ``build.py`` at first use and bound through ctypes.
+What stays native is the host side of the input pipeline: batch staging
+slabs drawn from a size-class auto-growth pool, a bounded blocking ring
+that overlaps worker collation and memcpy (the GIL released by ctypes)
+with device steps, and the fused u8 NHWC -> normalised f32 NCHW batch
+preprocess (:func:`preprocess_images`).
 
 There is no fallback: without a C++ compiler, :func:`is_available` is
-False and a :class:`DataRing` or :class:`HostMemoryPool` raises.
+False and a :class:`DataRing`, a :class:`HostMemoryPool` or
+:func:`preprocess_images` raises (the reference falls back to numpy for
+the preprocess).
 """
 from __future__ import annotations
 
@@ -67,6 +70,12 @@ def _load():
         lib.ptpu_ring_size.argtypes = [ctypes.c_int64]
         lib.ptpu_ring_stats.argtypes = [ctypes.c_int64,
                                         ctypes.POINTER(ctypes.c_uint64)]
+        lib.ptpu_preprocess_u8_nhwc_to_f32_nchw.restype = ctypes.c_int
+        lib.ptpu_preprocess_u8_nhwc_to_f32_nchw.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_float), ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_int]
         _lib = lib
         return _lib
 
@@ -84,6 +93,55 @@ def is_available():
 def is_prebuilt():
     """True if the library is already built and loads; never compiles."""
     return _b.is_built() and is_available()
+
+
+def preprocess_images(images, mean, std, scale=1.0 / 255.0, n_threads=0):
+    """The fused u8 NHWC -> normalised f32 NCHW batch preprocess, in
+    native code over ``n_threads`` threads (default: the cores less one,
+    at most 8): out[i, c, y, x] = images[i, y, x, c] * (scale / std[c]) -
+    mean[c] / std[c].
+
+    images: uint8 [N, H, W, C] or a list of [H, W, C] arrays of one
+    shape; mean / std: per channel, in post-scale units (as
+    ``transforms.Normalize``).  Returns float32 [N, C, H, W].  Raises
+    ``RuntimeError`` when the library cannot be built."""
+    import os
+
+    if isinstance(images, np.ndarray):
+        assert images.ndim == 4, images.shape
+        images = [images[i] for i in range(images.shape[0])]
+    if not images:
+        raise ValueError("preprocess_images: empty batch")
+    for a in images:
+        if np.asarray(a).dtype != np.uint8:
+            raise TypeError("preprocess_images expects uint8 images, got "
+                            f"{np.asarray(a).dtype} (normalize raw pixels, "
+                            "not already-scaled floats)")
+    imgs = [np.ascontiguousarray(a, np.uint8) for a in images]
+    n = len(imgs)
+    h, w, c = imgs[0].shape
+    for a in imgs:
+        if a.shape != (h, w, c):
+            raise ValueError("preprocess_images: all images must share one "
+                             f"shape; got {a.shape} vs {(h, w, c)}")
+    mean = np.ascontiguousarray(np.asarray(mean, np.float32).reshape(c))
+    inv_std = np.ascontiguousarray(
+        1.0 / np.asarray(std, np.float32).reshape(c), np.float32)
+    lib = _load()
+    out = np.empty((n, c, h, w), np.float32)
+    srcs = (ctypes.c_void_p * n)(
+        *[a.ctypes.data_as(ctypes.c_void_p).value for a in imgs])
+    if n_threads <= 0:
+        n_threads = min(8, max(1, (os.cpu_count() or 2) - 1))
+    rc = lib.ptpu_preprocess_u8_nhwc_to_f32_nchw(
+        srcs, n, h, w, c,
+        mean.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        inv_std.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_float(scale), out.ctypes.data_as(ctypes.c_void_p),
+        n_threads)
+    if rc != 0:
+        raise RuntimeError(f"ptpu_preprocess failed rc={rc}")
+    return out
 
 
 class HostMemoryPool:

@@ -413,7 +413,9 @@ class Executor:
         else:
             with torch.no_grad():
                 env = program.replay(fresh_env())
-            fetches = [self._fetch(program, env, fid, fresh_env)
+            param_grads = self._param_grads(program, prep, fresh_env)
+            fetches = [param_grads[fid] if fid in param_grads
+                       else self._fetch(program, env, fid, fresh_env)
                        for fid in prep.fetch_ids]
         with torch.no_grad():
             for wr, vid in prep.writebacks:
@@ -444,6 +446,37 @@ class Executor:
         with torch.no_grad():
             opt._apply_gradients(list(zip(train, grads)))
         return fetches, env
+
+    @staticmethod
+    def _param_grads(program, prep, fresh_env):
+        """The fetched grad vars whose wrt is a parameter, by target: one
+        replay with those parameters as leaves and one ``autograd.grad``
+        a target (a replay each would repeat the forward per parameter);
+        {grad var id: value}."""
+        groups = collections.defaultdict(list)
+        params = set(prep.param_ids)
+        for fid in dict.fromkeys(prep.fetch_ids):
+            if fid in program.grad_map:
+                tgt_id, wrt_id, seed = program.grad_map[fid]
+                if wrt_id in params and seed is None:
+                    groups[tgt_id].append((fid, wrt_id))
+        out = {}
+        for tgt_id, pairs in groups.items():
+            env = fresh_env()
+            leaves = {}
+            for _, wrt_id in pairs:
+                if wrt_id not in leaves:
+                    leaves[wrt_id] = env[wrt_id].detach().requires_grad_(
+                        True)
+            env.update(leaves)
+            with torch.enable_grad():
+                t = program.replay(env)[tgt_id]
+                gs = torch.autograd.grad(t.sum(), list(leaves.values()),
+                                         allow_unused=True)
+            by_wrt = {w: (torch.zeros_like(v) if g is None else g.detach())
+                      for (w, v), g in zip(leaves.items(), gs)}
+            out.update((fid, by_wrt[w]) for fid, w in pairs)
+        return out
 
     @staticmethod
     def _fetch(program, env, fid, fresh_env):

@@ -2,9 +2,8 @@
 Each call makes the dygraph layer (or its parameters) and calls it, so
 its parameters join the default program while it builds.  Every builder
 is here, with the control flow, ``py_func`` and the sixteen
-``sequence_*`` ops; ``deform_conv2d`` and ``multi_box_head``, which come
-with the vision ops, raise, naming the ROADMAP item that brings them
-(:data:`NOT_PORTED`)."""
+``sequence_*`` ops, and ``deform_conv2d`` and ``multi_box_head`` (the
+vision ops' functions, as in the reference)."""
 from __future__ import annotations
 
 import numpy as np
@@ -304,20 +303,9 @@ def crf_decoding(input, transition, lengths=None, label=None, name=None):
 
 
 # builders whose op is still to port, and the ROADMAP item (Queue 1) that
-# brings it
-NOT_PORTED = {
-    "deform_conv2d": "item 4, the rest of the package (vision ops)",
-    "multi_box_head": "item 4, the rest of the package (vision detection)",
-}
+# brings it: none
+NOT_PORTED = {}
 
-
-def _not_ported(name, item):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"static.nn.{name} is not ported (ROADMAP Queue 1 {item})")
-    fn.__name__ = name
-    return fn
-
-
-for _n, _item in NOT_PORTED.items():
-    globals()[_n] = _not_ported(_n, _item)
+# shared names the reference exposes under static.nn as well
+from ..vision.ops import deform_conv2d  # noqa: E402,F401
+from ..vision.detection import multi_box_head  # noqa: E402,F401

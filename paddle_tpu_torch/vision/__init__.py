@@ -1,8 +1,18 @@
-"""paddle_tpu_torch.vision (counterpart of ``paddle_tpu/vision``):
-``models`` (LeNet, ResNet) and ``datasets`` (the synthetic MNIST).
-Transforms, ops, detection and the other models and datasets are not
-ported (ROADMAP Queue 1 item 4)."""
-from . import datasets, models
-from .datasets import MNIST, FashionMNIST
-from .models import (BasicBlock, BottleneckBlock, LeNet, ResNet, resnet18,
-                     resnet34, resnet50, resnet101, resnet152)
+"""paddle_tpu_torch.vision (counterpart of ``paddle_tpu/vision``): the
+models (LeNet, ResNet, VGG, the MobileNets), the datasets, the
+transforms (host-side numpy), ``ops`` (deformable convolution, the
+YOLOv3 ops, image io) and ``detection`` (priors, box maths, matching,
+NMS, the SSD loss and head, the two-stage family), with ``mask_labels``
+(host-side Mask R-CNN targets).  Detection keeps the reference's
+fixed-shape outputs: padded rows with label -1, counts as tensors."""
+from . import datasets, detection, models, ops, transforms
+from .datasets import MNIST, FashionMNIST, Cifar10, Cifar100, Flowers
+from .models import *  # noqa: F401,F403
+
+
+def set_image_backend(backend):
+    pass
+
+
+def get_image_backend():
+    return "numpy"

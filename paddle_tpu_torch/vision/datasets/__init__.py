@@ -1,4 +1,9 @@
-"""paddle_tpu_torch.vision.datasets: the synthetic ``MNIST`` and
-``FashionMNIST`` (a copy of ``paddle_tpu/vision/datasets/mnist.py``); the
-reference's other datasets are not ported."""
+"""paddle_tpu_torch.vision.datasets: MNIST / FashionMNIST, Cifar10 /
+Cifar100, Flowers, VOC2012 and the folder datasets (each module a copy of
+its ``paddle_tpu/vision/datasets`` counterpart, code unchanged; none
+downloads anything)."""
 from .mnist import MNIST, FashionMNIST
+from .cifar import Cifar10, Cifar100
+from .flowers import Flowers
+from .folder import DatasetFolder, ImageFolder
+from .voc2012 import VOC2012

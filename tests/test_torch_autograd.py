@@ -357,7 +357,9 @@ def test_new_modules_import_neither_jax_nor_paddle_tpu():
     """``paddle_tpu_torch`` and its ``optimizer``, ``amp``, ``autograd``,
     ``regularizer``, ``distribution`` and ``nn`` modules (and the loss,
     clip, decode, rnn, transformer, sequence, vision and norm-hook
-    modules, and ``static.nn``),
+    modules, ``static.nn``, ``fluid.layers``, ``runtime`` and ``vision``
+    with its models, transforms, datasets, ops, detection and mask
+    labels),
     imported in a fresh interpreter, leave ``jax`` and ``paddle_tpu`` out
     of ``sys.modules``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -380,6 +382,15 @@ def test_new_modules_import_neither_jax_nor_paddle_tpu():
         "vision\n"
         "from paddle_tpu_torch.nn.layer import rnn, transformer\n"
         "from paddle_tpu_torch.static import nn as static_nn\n"
+        "from paddle_tpu_torch import fluid, runtime, vision\n"
+        "from paddle_tpu_torch.vision import detection, mask_labels, ops\n"
+        "from paddle_tpu_torch.vision.models import mobilenetv1, "
+        "mobilenetv2, vgg\n"
+        "from paddle_tpu_torch.vision.transforms import functional, "
+        "transforms\n"
+        "from paddle_tpu_torch.vision.datasets import cifar, flowers, "
+        "folder, voc2012\n"
+        "from paddle_tpu_torch.fluid import layers\n"
         "bad = [k for k in ('jax', 'jaxlib', 'paddle_tpu') if k in sys.modules]\n"
         "bad += [k for k in sys.modules if k.startswith(('jax.', 'paddle_tpu.'))]\n"
         "sys.exit(1 if bad else 0)\n")

@@ -2788,3 +2788,83 @@ def test_rnn_seq2seq_step_and_beam_on_card_match_cpu(dev):
                                 pt.to_tensor(src_len[:2]))
         return loss, model, _beam(pt, seq2seq.RNNCell(model), init, 5, 10)
     _seq2seq_parity(run, 5)
+
+
+@pytest.fixture
+def card():
+    """A CUDA device; the vision ops need no kernel build."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    prev = core._state.expected_place
+    yield pt
+    core._state.expected_place = prev
+
+
+def _on(pt, place, fn, arrays, grads=()):
+    """``fn`` of Tensors made from ``arrays`` on ``place``: its outputs
+    and the listed inputs' gradients of sum(first output), as numpy."""
+    pt.set_device(place)
+    ts = [pt.to_tensor(a, stop_gradient=i not in grads)
+          for i, a in enumerate(arrays)]
+    out = fn(*ts)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    if grads:
+        outs[0].sum().backward()
+    return ([np.asarray(o.numpy()) for o in outs]
+            + [np.asarray(ts[i].grad.numpy()) for i in grads])
+
+
+def _vision_boxes(rng, *shape):
+    xy = rng.uniform(0, 0.6, shape + (2,))
+    wh = rng.uniform(0.02, 0.4, shape + (2,))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["voc", "ties", "eta"])
+def test_multiclass_nms_on_card_matches_cpu(card, case):
+    """The batched greedy NMS at (ap)'s shape (8 images, 21 classes, 1,917
+    boxes, top 400, keep 200), on tie sets (quantised scores, duplicated
+    boxes) and under the adaptive eta: rows and kept indices on the card
+    equal the CPU's, bit for bit (the same IoU arithmetic)."""
+    pt = card
+    from paddle_tpu_torch.vision import detection as D
+    rng = np.random.RandomState(30)
+    boxes = _vision_boxes(rng, 8, 1917)
+    if case == "ties":
+        boxes[:, 600:1200] = boxes[:, :600]
+        scores = rng.choice([0.02, 0.3, 0.3, 0.6], (8, 21, 1917))
+    else:
+        scores = rng.uniform(0, 1, (8, 21, 1917)) ** 4
+    kw = dict(score_threshold=0.01, nms_top_k=400, keep_top_k=200,
+              nms_threshold=0.45, return_index=True)
+    if case == "eta":
+        kw.update(nms_eta=0.9, nms_threshold=0.8)
+    fn = lambda b, s: D.multiclass_nms(b, s, **kw)     # noqa: E731
+    args = [boxes, scores.astype(np.float32)]
+    got, want = _on(pt, "gpu", fn, args), _on(pt, "cpu", fn, args)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (want[1] >= 0).sum() > 100
+
+
+def test_ssd_loss_on_card_matches_cpu(card):
+    """``ssd_loss`` at (ap)'s shape (8 images, 1,917 priors, 21 classes,
+    8 gts with padding): the loss within 1e-5 and the location and
+    confidence gradients within 1e-5 of max|ref|; the matching and the
+    hard negatives (integers) decide the same terms on both."""
+    pt = card
+    from paddle_tpu_torch.vision import detection as D
+    rng = np.random.RandomState(31)
+    gt = _vision_boxes(rng, 8, 8)
+    gt[:, 5:] = 0.0
+    args = [(rng.randn(8, 1917, 4) * 0.3).astype(np.float32),
+            rng.randn(8, 1917, 21).astype(np.float32), gt,
+            rng.randint(1, 21, (8, 8)).astype(np.int64),
+            _vision_boxes(rng, 1917)]
+    got = _on(pt, "gpu", D.ssd_loss, args, grads=(0, 1))
+    want = _on(pt, "cpu", D.ssd_loss, args, grads=(0, 1))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=FP32_TOL * np.abs(w).max())

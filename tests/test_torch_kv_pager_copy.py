@@ -10,6 +10,8 @@ import io
 import os
 import tokenize
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKIP = {tokenize.COMMENT, tokenize.NL, tokenize.ENCODING}
 
@@ -83,3 +85,28 @@ def test_port_copy_of_ps_compat_is_the_reference_code():
     imported = {s for i, (t, s) in enumerate(got[:-1])
                 if got[i - 1][1] == "import" and t == tokenize.NAME}
     assert imported <= {"annotations", "os", "sys", "numpy", "subprocess"}
+
+
+@pytest.mark.parametrize("rel,size", [
+    ("vision/mask_labels.py", 1500),
+    ("vision/transforms/functional.py", 900),
+    ("vision/transforms/transforms.py", 1200),
+    ("vision/datasets/cifar.py", 400),
+    ("vision/datasets/flowers.py", 100),
+    ("vision/datasets/folder.py", 350),
+    ("vision/datasets/voc2012.py", 100)])
+def test_port_copy_of_host_vision_module_is_the_reference_code(rel, size):
+    """The host-side numpy modules of ``vision/`` (Mask R-CNN's mask
+    targets, the transforms, the datasets) are copies of the JAX
+    package's, code unchanged, as their headers say; they import neither
+    JAX nor the JAX package (their own imports are relative)."""
+    port = os.path.join(ROOT, "paddle_tpu_torch", *rel.split("/"))
+    ref = os.path.join(ROOT, "paddle_tpu", *rel.split("/"))
+    with open(port) as f:
+        assert "code unchanged" in f.readline()
+    got, want = code_tokens(port), code_tokens(ref)
+    assert len(got) > size
+    assert got == want
+    imported = {s for i, (t, s) in enumerate(got[:-1])
+                if got[i - 1][1] in ("import", "from") and t == tokenize.NAME}
+    assert not imported & {"jax", "jaxlib", "paddle_tpu"}, imported

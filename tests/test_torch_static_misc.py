@@ -55,6 +55,25 @@ def _program(m, build, feed, seed=0):
         m.disable_static()
 
 
+def _grads_of(m, append_backward):
+    """conv2d -> batch_norm -> fc -> mean, and the fetch of its loss with
+    the gradients of every parameter (``append_backward``: one replay for
+    all of them) or, with ``gradients``, of two parameters and the
+    intermediate conv output (a cut replay).  The convolution has no bias:
+    the batch norm after it would leave that bias a gradient of exactly
+    zero, rounding noise in either package."""
+    h = m.static.nn.conv2d(m.static.data("x", [2, 3, 6, 6], "float32"), 4,
+                           3, padding=1, bias_attr=False)
+    h2 = m.static.nn.batch_norm(h, act="relu")
+    loss = m.mean(m.static.nn.fc(m.reshape(h2, [2, -1]), 3))
+    if append_backward is not None:
+        return [loss] + [g for _, g in append_backward(loss)]
+    main = m.static.default_main_program()
+    params = main.all_parameters()
+    return [loss] + list(m.static.gradients(loss, [params[0], h,
+                                                   params[-1]]))
+
+
 R = np.random.RandomState(11)
 X4 = R.standard_normal((2, 3, 6, 6)).astype(np.float32)
 X5 = R.standard_normal((1, 2, 4, 4, 4)).astype(np.float32)
@@ -90,6 +109,25 @@ BUILDERS = {
         m.static.data("x", [2, 3, 6, 6], "float32"))], {"x": X4}),
     "prelu:channel": (lambda m: [m.static.nn.prelu(
         m.static.data("x", [2, 3, 6, 6], "float32"), "channel")], {"x": X4}),
+    "deform_conv2d": (lambda m: [m.static.nn.deform_conv2d(
+        m.static.data("x", [2, 3, 6, 6], "float32"),
+        m.static.data("off", [2, 18, 6, 6], "float32"),
+        m.static.nn.create_parameter([4, 3, 3, 3], "float32"), padding=1,
+        mask=m.static.data("mask", [2, 9, 6, 6], "float32"))],
+        {"x": X4, "off": R.standard_normal((2, 18, 6, 6)).astype(
+            np.float32), "mask": R.uniform(0, 1, (2, 9, 6, 6)).astype(
+            np.float32)}),
+    "multi_box_head": (lambda m: list(m.static.nn.multi_box_head(
+        [m.static.data("f1", [1, 3, 6, 6], "float32"),
+         m.static.data("f2", [1, 3, 3, 3], "float32")],
+        m.static.data("img", [1, 3, 48, 48], "float32"), base_size=48,
+        num_classes=3, aspect_ratios=[[2.0], [2.0, 3.0]],
+        min_sizes=[8.0, 20.0], max_sizes=[[], 30.0])),
+        {"f1": X4[:1], "f2": X4[:1, :, :3, :3],
+         "img": np.zeros((1, 3, 48, 48), np.float32)}),
+    "append_backward": (lambda m: _grads_of(m, m.static.append_backward),
+                        {"x": X4}),
+    "gradients": (lambda m: _grads_of(m, None), {"x": X4}),
     "create_parameter": (lambda m: [m.matmul(
         m.static.data("x", [2, 5, 8], "float32"),
         m.static.nn.create_parameter([8, 3], "float32"))], {"x": SEQ}),
@@ -130,10 +168,17 @@ def test_static_dropout_draws_a_fresh_mask_each_replay():
 
 
 def test_not_ported_builders_raise_naming_their_item():
+    """No builder is left to port; the two that were (the vision ops')
+    now run."""
     for name, item in pt.static.nn.NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             getattr(pt.static.nn, name)()
         assert item.startswith("item ")
+    assert not pt.static.nn.NOT_PORTED
+    x = pt.to_tensor(np.ones((1, 1, 3, 3), np.float32))
+    out = pt.static.nn.deform_conv2d(
+        x, pt.zeros([1, 2, 3, 3]), pt.ones([1, 1, 1, 1]))
+    np.testing.assert_array_equal(out.numpy(), np.ones((1, 1, 3, 3)))
 
 
 # --------------------------------------------------------------------------
