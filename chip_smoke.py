@@ -436,6 +436,54 @@ Phases, each fatal on failure (non-zero exit, no result line):
       three heads, ResNet-50 res5's deformable 3 x 3, the RPN at 800 x 1088,
       the SSD's 1,917 priors, RetinaNet's P3-P7): outputs and gradients
       within 1e-5 of max, indices and counts equal, each one's ms.
+  (as) the WordPiece tokenizer on the host: a 40,000-entry vocabulary
+      (ERNIE 3.0's size: special tokens, punctuation, CJK characters,
+      whole words, ``##`` pieces) and 8,192 documents of 100-400 words
+      drawn with Zipf frequencies (mixed case, punctuation, accented and
+      CJK characters, control characters), all from a numpy seed;
+      ``text.FullTokenizer``'s native path (the default) and its Python
+      path over the whole corpus, tokens a second each, ids equal;
+  (at) a QAT fine-tune at ERNIE-3.0-Base width: (n)'s encoder (V =
+      40,000, H = 768, L = 12) with a ``Linear(768, 2)`` head on the first
+      position, ``QAT(QuantConfig()).quantize`` wrapping all 73 Linears,
+      AdamW on ``LinearWarmup`` to 5e-5 (the first steps of a 3-epoch
+      fine-tune over (as)'s corpus with a 10% warm-up) under
+      ``amp.auto_cast`` bf16 on one batch of [32, 128] rows of (as)'s ids
+      (PaddleNLP text classification's defaults; a row's label 1 where
+      its first id is a multiple of 8), one warm-up step and 10 timed
+      steps alternated with the unwrapped model's: step ms, tokens/s,
+      the ratio, the batch's loss without dropout falling, the memory
+      peak, exact
+      launches (L flash forwards, L dq, L dk/dv; no norm kernel: the
+      training route records the norms' plain versions); then
+      ``QAT.convert`` and 8 int8 eval batches (int8 x int8 -> int32
+      products) alternated with the float model's: ms a batch, exact
+      launches (2L LayerNorm, L flash, 1 RMSNorm a forward), the share of
+      predictions agreeing with the fake-quantised forward; then PTQ of a
+      fresh copy calibrated on 8 batches, ``save_quantized_model`` (a
+      ``torch.export`` artifact) and one batch through
+      ``inference.create_predictor``, its logits within 1e-5 of max of
+      the in-process int8 forward's;
+  (au) (at) in fp32 at 2 layers, [4, 128], card against CPU on the same
+      numpy weights: three QAT steps' losses within 1e-5 relative, every
+      parameter within 1e-5 of its leaf's max, the observers' scales
+      within 1e-5, the converted int8 logits within 1e-5 of max, PTQ's
+      int8 weights equal and its scales within 1e-5; fake quantisation
+      turns fp32 differences into whole steps where a quotient sits on a
+      rounding boundary, so the CPU takes the card's rounding at such
+      ties (every rounding of ``quantization``, the conversion's weights
+      too, goes through its ``_round_clip``; within 3e-3 of a step from
+      the boundary, at most 2e-5 of the values; counted), and any other
+      difference of rounding fails the phase; the largest card-CPU
+      quotient gap of each stage is printed;
+  (av) PaddleNLP's lexical-analysis BiGRU-CRF on the 2.x API
+      (``Embedding(20940, 128)``, ``nn.GRU(128, 128, num_layers=2,
+      direction="bidirect")``, ``Linear(256, 59)``,
+      ``text.ViterbiDecoder`` with BOS/EOS) at batch 300, lengths 8-64,
+      eval fp32: ms a batch, sentences a second, the Viterbi's share;
+      card against CPU on the same numpy weights: paths exact, scores
+      within 1e-5 relative, and a batch of integer emissions (ties)
+      exact.
 
 (c) also holds the flagship's two kernels against their plain versions:
 the fused FFN (against the plain version of its own function, which
@@ -496,8 +544,9 @@ Before its last line it prints one JSON object ``{"kernels": [...]}`` (the
 three flash rows with their launches on each training path, among them
 ``launches_eager_ernie``, ``launches_eager_encoder``, ``launches_hapi``,
 ``launches_hapi_eval``, (ae)'s ``launches_multilabel``, (ag)'s
-``launches_to_static`` and (aj)'s ``launches_predictor``, which the
-LayerNorm and RMSNorm rows carry too, and (al)'s
+``launches_to_static``, (aj)'s ``launches_predictor`` and (at)'s
+``launches_qat`` and ``launches_int8_eval``, which the LayerNorm and
+RMSNorm rows carry too (the int8 eval's), and (al)'s
 ``launches_gradient_merge``; the fused FFN's ``launches_incubate``;
 the serving
 rows with ``launches_chunked``,
@@ -3372,6 +3421,10 @@ def main():
     # ImageNet input path with MobileNetV2 and VGG16, the detection family)
     vision_family_phases(torch, card, args)
 
+    # (as), (at), (au), (av): the tokenizer, QAT and PTQ at ERNIE-3.0-Base
+    # width, their parity, the BiGRU-CRF tagger ---------------------------
+    text_phases(torch, flash_attn, norms, card, launches)
+
     # report --------------------------------------------------------------
     report(torch, cases, launches, train, t_start)
     return 0
@@ -3731,12 +3784,15 @@ def flagship_phases(torch, gpt, gpt_hybrid, flash_attn, fused_ffn, norms,
     return res
 
 
-def make_encoder(pt, V, H, L, nh, F, N, dropout=0.0, attn_dropout=None):
+def make_encoder(pt, V, H, L, nh, F, N, dropout=0.0, attn_dropout=None,
+                 classes=None):
     """A user's script on the port's nn API: token and learned position
     embeddings, a pre-LN ``TransformerEncoder`` (gelu, ``dropout``, 0 by
     default; every layer's attention dropout ``attn_dropout`` when given)
     with an ``RMSNorm`` final norm, and a ``Linear`` head.  Returns the
-    model in ``eval()``; its forward gives (final norm output, logits)."""
+    model in ``eval()``; its forward gives (final norm output, logits).
+    With ``classes``, the head is a ``Linear(H, classes)`` on the first
+    position and the forward gives its logits."""
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.tensor import arange
 
@@ -3757,11 +3813,13 @@ def make_encoder(pt, V, H, L, nh, F, N, dropout=0.0, attn_dropout=None):
                 # ``_clone_layer`` builds them
                 for layer in self.encoder.layers:
                     layer.self_attn.dropout = attn_dropout
-            self.head = nn.Linear(H, V)
+            self.head = nn.Linear(H, classes or V)
 
         def forward(self, ids):
             h = self.word(ids) + self.pos(arange(ids.shape[1]))
             h = self.encoder(h)
+            if classes:
+                return self.head(h[:, 0])
             return h, self.head(h)
 
     # a module-level name, so that jit.save can pickle the model ((ag))
@@ -8978,6 +9036,830 @@ def deploy_phases(torch, flash_attn, norms, fused_ffn, card, launches):
         torch.cuda.empty_cache()
 
 
+# (as), (at), (au), (av): the WordPiece tokenizer, QAT / PTQ at
+# ERNIE-3.0-Base width, their parity, the BiGRU-CRF tagger ----------------
+
+# (as): ERNIE 3.0's vocabulary size; 8,192 documents of 100-400 words
+TEXT = dict(vocab=40000, pieces=10000, cjk=2000, docs=8192, words=(100, 400))
+# (at): (n)'s encoder at ERNIE-3.0-Base width with a 2-label head;
+# PaddleNLP text classification's max_seq_length 128, batch 32, lr 5e-5
+QAT_FT = dict(V=40000, H=768, L=12, nh=12, F=3072, N=128, B=32, lr=5e-5,
+              steps=10, eval_batches=8, dropout=0.1)
+QAT_PARITY = (4, 128)         # (au): B, N at 2 layers, fp32
+QAT_PARITY_TOL = 1e-5         # (au): losses (relative), params (x leaf max),
+                              # scales, int8 logits (x max|ref|)
+# (au): a flip whose CPU quotient lies this many quantisation steps from
+# the rounding boundary or less is a tie, and at most TIE_SHARE of the
+# rounded values may be ties.  On an H100 (tools/qat_tie_margin.py) the
+# card's and the CPU's quotients part by at most 1.2e-3 of a step (the
+# trained weights), the farthest flip lies 2.1e-4 from its boundary and
+# 2.6e-6 of the values flip; planted faults read: the card rounding
+# r + 1e-3, 1.3e-3 of the values flipped; its flash forward's output
+# times 1 + 2^-20, a flip 6.2e-3 from its boundary
+TIE_MARGIN = 3e-3
+TIE_SHARE = 2e-5
+PREDICTOR_TOL = 1e-5          # (at): the artifact's logits, x max|ref|
+# (av): PaddleNLP examples/lexical_analysis BiGruCrf (20,940 words, emb
+# and hidden 128, 2 bidirectional GRU layers, 57 tags + BOS/EOS), batch
+# 300, max_seq_len 64
+TAGGER = dict(V=20940, E=128, H=128, layers=2, tags=59, B=300, lens=(8, 64),
+              batches=5)
+TAGGER_SCORE_RTOL = 1e-5      # (av): Viterbi scores, card against CPU
+
+
+def wordpiece_vocab(size, n_pieces, n_cjk, seed):
+    """A WordPiece vocabulary of ``size`` entries from a numpy seed, laid
+    out as BERT's: special tokens, ASCII punctuation, CJK characters,
+    whole words (single letters first, then by rank: the most frequent
+    first) and ``##`` continuation pieces.  Returns (entries, words,
+    pieces, cjk)."""
+    rng = np.random.default_rng(seed)
+    special = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    punct = [chr(c) for c in range(33, 127) if not chr(c).isalnum()]
+    cjk = [chr(0x4E00 + i) for i in range(n_cjk)]
+    letters = list("etaoinshrdlcumwfgypbvkjxqz")
+    accents = list("éèàüöçñ")
+    p = 1.0 / np.arange(1, 27) ** 0.7
+    p /= p.sum()
+
+    def draw(lo, hi):
+        s = "".join(rng.choice(letters, int(rng.integers(lo, hi + 1)), p=p))
+        if rng.random() < 0.03:
+            i = int(rng.integers(0, len(s) + 1))
+            s = s[:i] + accents[int(rng.integers(len(accents)))] + s[i:]
+        return s
+    singles = sorted(letters) + accents
+    words = dict.fromkeys(singles)
+    pieces = dict.fromkeys(singles)
+    n_words = size - len(special) - len(punct) - n_cjk - n_pieces
+    while len(pieces) < n_pieces:
+        pieces[draw(1, 4)] = None
+    while len(words) < n_words:
+        words[draw(2, 10)] = None
+    words, pieces = list(words), list(pieces)
+    entries = special + punct + cjk + words + ["##" + x for x in pieces]
+    assert len(entries) == len(set(entries)) == size
+    return entries, words, pieces, cjk
+
+
+def text_corpus(words, pieces, cjk, docs, lo, hi, seed):
+    """``docs`` documents of ``lo``-``hi`` words drawn from ``words`` with
+    Zipf frequencies (rank r with weight 1 / r^1.05): 10% capitalised, 1%
+    upper case, 5% a word glued to a continuation piece (greedy
+    longest-match splits it), 2% a CJK character, 0.5% an upper-case
+    accented letter (not lowered: [UNK]); 8% of words followed by ASCII
+    punctuation, 0.5% separated by a control or other whitespace
+    character, 0.2% holding a control character."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(lo, hi + 1, docs)
+    n = int(counts.sum())
+    wp = 1.0 / np.arange(1, len(words) + 1) ** 1.05
+    wp /= wp.sum()
+    w = rng.choice(len(words), n, p=wp)
+    kind = rng.random(n)
+    sep = rng.random(n)
+    extra = rng.integers(0, 1 << 30, n)
+    punct = list(",.!?;:'\"()")
+    spaces = ["\t", "\n", "\x1c", "\x1d", "\x1e", "\x1f", "\x0b", "\x0c",
+              "\r\n"]
+    out, k = [], 0
+    for c in counts:
+        parts = []
+        for i in range(k, k + int(c)):
+            t, r, e = words[w[i]], kind[i], int(extra[i])
+            if r < 0.02:
+                t = cjk[e % len(cjk)]
+            elif r < 0.07:
+                t = t + pieces[e % len(pieces)]
+            elif r < 0.17:
+                t = t.capitalize()
+            elif r < 0.18:
+                t = t.upper()
+            elif r < 0.185:
+                t = "É" + t
+            elif r < 0.187:
+                t = t + "\x01" + t
+            q = sep[i]
+            if q < 0.08:
+                t += punct[e % len(punct)]
+            parts.append(t)
+            parts.append(spaces[e % len(spaces)] if 0.08 <= q < 0.085
+                         else " ")
+        out.append("".join(parts))
+        k += int(c)
+    return out
+
+
+def tokenizer_path(torch, pt, tmp):
+    """Phase (as): the native and the Python WordPiece paths over the
+    whole corpus, timed on the host; ids equal.  Returns the measurements
+    and the native ids as one int64 stream."""
+    from paddle_tpu_torch.text import FullTokenizer
+    t = TEXT
+    t0 = time.perf_counter()
+    vocab, words, pieces, cjk = wordpiece_vocab(t["vocab"], t["pieces"],
+                                                t["cjk"], SEED + 90)
+    docs = text_corpus(words, pieces, cjk, t["docs"], *t["words"],
+                       SEED + 91)
+    path = os.path.join(tmp, "vocab.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    gen_s = time.perf_counter() - t0
+    native = FullTokenizer(path)            # the default: the native path
+    python = FullTokenizer(path, use_native=False)
+    if native._native is None or python._native is not None:
+        raise SystemExit("(as): the tokenizers took the wrong paths")
+    t0 = time.perf_counter()
+    nat = [native.encode(d) for d in docs]
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = [python.encode(d) for d in docs]
+    py_s = time.perf_counter() - t0
+    n_ids = sum(len(x) for x in nat)
+    equal = sum(a == b for a, b in zip(nat, py))
+    if equal != len(docs):
+        bad = next(i for i, (a, b) in enumerate(zip(nat, py)) if a != b)
+        raise SystemExit(f"(as): native ids differ from the Python path's "
+                         f"in {len(docs) - equal} documents, first {bad}")
+    stream = np.fromiter((i for x in nat for i in x), np.int64, n_ids)
+    unk = native.vocab["[UNK]"]
+    return {"docs": len(docs),
+            "mib": sum(len(d.encode("utf-8")) for d in docs) / 2 ** 20,
+            "ids": n_ids, "unk_share": float((stream == unk).mean()),
+            "pieces_share": float((stream >= t["vocab"] - t["pieces"]).mean()),
+            "native_s": nat_s, "python_s": py_s,
+            "native_tokens_per_s": n_ids / nat_s,
+            "python_tokens_per_s": n_ids / py_s, "speedup": py_s / nat_s,
+            "docs_equal": equal, "setup_s": gen_s}, stream
+
+
+def packed_batches(stream, B, N, n, start=0):
+    """``n`` batches of ``B`` rows of ``N`` consecutive ids from the
+    stream (no padding), from row ``start * B`` on; each row's label is 1
+    where its first id is a multiple of 8 (about one row in eight: an
+    imbalanced task, whose prior a model learns in a few steps from
+    random weights; a balanced rule gives those steps nothing to learn)."""
+    rows = stream[:len(stream) // N * N].reshape(-1, N)
+    if len(rows) < (start + n) * B:
+        raise SystemExit(f"the corpus gives {len(rows)} rows of {N}, "
+                         f"{(start + n) * B} needed")
+    out = []
+    for i in range(start, start + n):
+        ids = np.ascontiguousarray(rows[i * B:(i + 1) * B])
+        out.append((ids, (ids[:, :1] % 8 == 0).astype(np.int64)))
+    return out
+
+
+def qat_model(pt, L, weights, dropout):
+    """(n)'s encoder at ``QAT_FT``'s widths with ``L`` layers and a 2-label
+    head on the first position, ``weights`` loaded (numpy weights from
+    ``numpy_state`` when None), in ``train()``.  Returns the model and
+    its weights."""
+    e = QAT_FT
+    model = make_encoder(pt, e["V"], e["H"], L, e["nh"], e["F"], e["N"],
+                         dropout=dropout,
+                         attn_dropout=0.0 if dropout else None, classes=2)
+    if weights is None:
+        weights = numpy_state(model, SEED + 93)
+    model.set_state_dict(weights)
+    return model.train(), weights
+
+
+def qat_loop(pt, model, batch, amp, warmup, epsilon=1e-8, start_lr=0.0):
+    """AdamW (weight decay 0.01) over every parameter on ``LinearWarmup``
+    from ``start_lr`` to ``QAT_FT``'s lr over ``warmup`` steps (PaddleNLP
+    fine-tunes with a warm-up: AdamW's first, sign-like steps on random
+    weights throw the loss up); returns ``step()``:
+    ``CrossEntropyLoss()(model(ids), labels)`` under ``auto_cast`` bf16
+    when ``amp``, ``backward``, ``step``, ``clear_grad``, the scheduler's
+    step, ``float(loss)``."""
+    lr = QAT_FT["lr"]
+    sched = pt.optimizer.lr.LinearWarmup(lr, warmup, start_lr, lr)
+    opt = pt.optimizer.AdamW(learning_rate=sched, weight_decay=0.01,
+                             epsilon=epsilon, parameters=model.parameters())
+    ce = pt.nn.CrossEntropyLoss()
+    ids, y = (pt.to_tensor(a) for a in batch)
+
+    def step():
+        with pt.amp.auto_cast(enable=amp, dtype="bfloat16"):
+            loss = ce(model(ids), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return float(loss)
+    return step
+
+
+def train_loss(pt, model, batch):
+    """``model``'s loss on ``batch`` in ``eval()`` (no dropout) under
+    ``no_grad`` and bf16 ``auto_cast``, as a float; the model goes back to
+    ``train()``."""
+    ids, y = (pt.to_tensor(a) for a in batch)
+    model.eval()
+    with pt.no_grad(), pt.amp.auto_cast(dtype="bfloat16"):
+        loss = float(pt.nn.CrossEntropyLoss()(model(ids), y))
+    model.train()
+    return loss
+
+
+def wrapped_layers(model, cls):
+    return [l for l in model.sublayers() if isinstance(l, cls)]
+
+
+def alternated(torch, calls, rounds, counters):
+    """Each of ``calls`` (name -> fn) once a round, in turn, ``rounds``
+    rounds: host ms of each call (synchronised before and after), its
+    result, and its launches (every count zeroed just before the call and
+    read just after), summed by name."""
+    ms = {k: [] for k in calls}
+    outs = {k: [] for k in calls}
+    launched = {k: dict.fromkeys(counters, 0) for k in calls}
+    for _ in range(rounds):
+        for k, fn in calls.items():
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            outs[k].append(fn())
+            torch.cuda.synchronize()
+            ms[k].append(1e3 * (time.perf_counter() - t0))
+            for c, v in read_counts(counters).items():
+                launched[k][c] += v
+    return ms, outs, launched
+
+
+def logits_of(pt, model, batches):
+    """The model's eval logits for each batch under ``no_grad``, as a
+    list of device tensors."""
+    model.eval()
+    with pt.no_grad():
+        return [model(pt.to_tensor(ids)).value for ids, _ in batches]
+
+
+def qat_path(torch, pt, flash_attn, norms, stream, tmp):
+    """Phase (at): QAT fine-tune, int8 eval and PTQ served through the
+    Predictor, at ``QAT_FT``'s widths and depth."""
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.inference import Config, create_predictor
+    e = QAT_FT
+    L, B, N = e["L"], e["B"], e["N"]
+    t0 = time.perf_counter()
+    train = packed_batches(stream, B, N, 1)[0]
+    evals = packed_batches(stream, B, N, e["eval_batches"], start=1)
+    calib = packed_batches(stream, B, N, e["eval_batches"],
+                           start=1 + e["eval_batches"])
+    pt.seed(SEED + 92)
+    qat, weights = qat_model(pt, L, None, e["dropout"])
+    flt, _ = qat_model(pt, L, weights, e["dropout"])
+    keys = list(qat.state_dict())
+    quant = Q.QAT(Q.QuantConfig())
+    quant.quantize(qat)
+    n_wrapped = len(wrapped_layers(qat, Q._QATWrapper))
+    if n_wrapped != 6 * L + 1:
+        raise SystemExit(f"(at): QAT wrapped {n_wrapped} Linears, "
+                         f"want {6 * L + 1}")
+    # the first steps of a 3-epoch fine-tune over (as)'s corpus with the
+    # BERT recipe's 10% warm-up
+    warmup = max(1, round(0.1 * 3 * (len(stream) // N // B)))
+    steps = {k: qat_loop(pt, m, train, True, warmup=warmup)
+             for k, m in (("qat", qat), ("float", flt))}
+    before = {k: train_loss(pt, m, train) for k, m in (("qat", qat),
+                                                       ("float", flt))}
+    setup_s = time.perf_counter() - t0
+    counters = eager_counters(flash_attn, norms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = {k: fn() for k, fn in steps.items()}
+    warm_s = time.perf_counter() - t0
+    ms, losses, launched = alternated(torch, steps, e["steps"], counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_fused": 0,
+            "flash_attention_nokey": 0, "layer_norm": 0, "rms_norm": 0}
+    after = {k: train_loss(pt, m, train) for k, m in (("qat", qat),
+                                                      ("float", flt))}
+    for k in steps:
+        check_counts(f"(at) {k} step", launched[k], want, e["steps"])
+        ls = [first[k]] + losses[k]
+        if not all(math.isfinite(x) for x in ls + [after[k]]) \
+                or not after[k] < before[k]:
+            raise SystemExit(f"(at) {k}: the loss did not fall: "
+                             f"{before[k]} -> {after[k]}; steps {ls}")
+    res = {"wrapped": n_wrapped, "setup_s": setup_s, "warmup_s": warm_s,
+           "step_ms": float(np.mean(ms["qat"])),
+           "float_step_ms": float(np.mean(ms["float"])),
+           "step_ms_each": ms["qat"], "losses": [first["qat"]] + losses["qat"],
+           "float_losses": [first["float"]] + losses["float"],
+           "max_memory_allocated_gib": peak,
+           "launches": launched["qat"], "float_launches": launched["float"],
+           "keys_after_step": list(qat.state_dict()), "warmup": warmup,
+           "loss_before": before["qat"], "loss_after": after["qat"],
+           "float_loss_before": before["float"],
+           "float_loss_after": after["float"]}
+    res["tokens_per_s"] = B * N / (res["step_ms"] / 1e3)
+    res["ratio"] = res["step_ms"] / res["float_step_ms"]
+    res["keys_reordered"] = sum(
+        a != b for a, b in zip(keys, [k.replace("inner.", "") for k in
+                                      res.pop("keys_after_step")]))
+    # the fake-quantised eval forward, then convert and the int8 forward
+    fq = logits_of(pt, qat, evals)
+    t0 = time.perf_counter()
+    quant.convert(qat)
+    convert_s = time.perf_counter() - t0
+    n_q = len(wrapped_layers(qat, Q.QuantedLinear))
+    if n_q != 6 * L + 1:
+        raise SystemExit(f"(at): convert made {n_q} QuantedLinears")
+    qat.eval()
+    flt.eval()
+    it = {"int8": iter(evals), "float": iter(evals)}
+
+    def forward(model, k):
+        ids, _ = next(it[k])
+        with pt.no_grad():
+            return model(pt.to_tensor(ids)).value
+    ms, outs, launched = alternated(
+        torch, {"int8": lambda: forward(qat, "int8"),
+                "float": lambda: forward(flt, "float")},
+        e["eval_batches"], counters)
+    want = {"layer_norm": 2 * L, "flash_attention_fwd": L, "rms_norm": 1,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    for k in outs:
+        check_counts(f"(at) {k} eval", launched[k], want, e["eval_batches"])
+    pred = {k: torch.cat(v).argmax(-1) for k, v in outs.items()}
+    pred_fq = torch.cat(fq).argmax(-1)
+    if not all(torch.isfinite(torch.cat(v)).all() for v in outs.values()):
+        raise SystemExit("(at): non-finite eval logits")
+    res.update(convert_s=convert_s, int8_ms=float(np.mean(ms["int8"])),
+               float_eval_ms=float(np.mean(ms["float"])),
+               int8_ms_each=ms["int8"], int8_launches=launched["int8"],
+               int8_agree_fq=float((pred["int8"] == pred_fq).float().mean()),
+               int8_agree_float=float(
+                   (pred["int8"] == pred["float"]).float().mean()),
+               labels_share=float(np.mean([b[1].mean() for b in evals])))
+    res["int8_ratio"] = res["int8_ms"] / res["float_eval_ms"]
+    del qat, flt, steps
+    torch.cuda.empty_cache()
+    # PTQ of a fresh float copy, exported and served
+    t0 = time.perf_counter()
+    ptq_net, _ = qat_model(pt, L, weights, 0.0)
+    ptq = Q.PostTrainingQuantization(ptq_net, Q.QuantConfig())
+    ptq.quantize([pt.to_tensor(ids) for ids, _ in calib])
+    ptq_net.eval()
+    calib_s = time.perf_counter() - t0
+    prefix = os.path.join(tmp, "ernie_int8")
+    t0 = time.perf_counter()
+    meta = ptq.save_quantized_model(prefix, input_spec=[((B, N), "int64")])
+    export_s = time.perf_counter() - t0
+    with pt.no_grad():
+        want_logits = ptq_net(pt.to_tensor(evals[0][0])).value.cpu().numpy()
+    t0 = time.perf_counter()
+    cfg = Config(prefix)
+    cfg.enable_use_gpu()
+    pred = create_predictor(cfg)
+    h = pred.get_input_handle(pred.get_input_names()[0])
+    h.copy_from_cpu(evals[0][0])
+    pred.run()              # the batch bucket's graph is captured here
+    load_s = time.perf_counter() - t0
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    h.copy_from_cpu(evals[0][0])
+    pred.run()
+    got = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    serve_ms = 1e3 * (time.perf_counter() - t0)
+    served = read_counts(counters)
+    err = float(np.abs(got - want_logits).max()
+                / max(float(np.abs(want_logits).max()), 1e-30))
+    if got.shape != want_logits.shape or not err <= PREDICTOR_TOL:
+        raise SystemExit(f"(at): the Predictor's logits {got.shape} are "
+                         f"{err:.3e} of max from the in-process int8 "
+                         f"forward's (tol {PREDICTOR_TOL:.0e})")
+    check_counts("(at) Predictor", served,
+                 {"layer_norm": 2 * L, "flash_attention_fwd": L,
+                  "rms_norm": 1}, 1)
+    res.update(ptq_calib_s=calib_s, export_s=export_s, predictor_load_s=load_s,
+               predictor_ms=serve_ms, predictor_err=err,
+               predictor_launches=served, artifact_format=meta["format"],
+               artifact_mib=os.path.getsize(prefix + ".pt2") / 2 ** 20)
+    del ptq_net, ptq, pred
+    torch.cuda.empty_cache()
+    return res
+
+
+class RoundingTape:
+    """The rounding decisions of (au), taken on the card and given to the
+    CPU.  A fake-quantised tensor's integers jump where ``x / scale``
+    crosses a half step, so fp32 differences of 1e-7 between the card's
+    kernels and the CPU's plain versions move whole quantisation steps,
+    and every later value with them (on the CPU alone, a 1e-7 change of
+    the embeddings moves the first QAT loss by 7e-4).  In ``record`` mode
+    each rounding's quotients, integers and straight-through mask are
+    kept in call order; in ``replay`` mode the CPU takes the card's where
+    they differ from its own and its quotient lies within ``margin``
+    steps of the boundary between the two (or of the clip edge) -- a tie
+    -- and counts every other difference as a far flip.  ``gap`` holds,
+    for each ``stage``, the largest distance between the card's and the
+    CPU's quotients, in steps, and the shape of that rounding's input."""
+
+    def __init__(self, margin):
+        self.margin = margin
+        self.mode = "record"
+        self.stage = None
+        self.r, self.q, self.mask = [], [], []
+        self.i = self.ties = self.far = 0
+        self.worst = self.far_nearest = self.far_farthest = 0.0
+        self.gap = {}
+
+    def take(self, r, q, inside, qmax):
+        """The integers and mask (None where the caller wants none) to
+        use for quotient ``r``."""
+        if self.mode == "record":
+            self.r.append(r.float().cpu())
+            self.q.append(q.char().cpu())
+            self.mask.append(None if inside is None else inside.cpu())
+            return q, inside
+        rc, qc, ic = self.r[self.i], self.q[self.i].to(q.dtype), \
+            self.mask[self.i]
+        self.i += 1
+        gap = float((r.float() - rc).abs().max()) if r.numel() else 0.0
+        if gap >= self.gap.get(self.stage, (-1.0,))[0]:
+            self.gap[self.stage] = (gap, tuple(r.shape))
+        checks = [(qc != q, (r - (q + qc) / 2).abs())]
+        if inside is not None:
+            checks.append((ic != inside, (r.abs() - qmax).abs()))
+        for moved, d in checks:
+            d = d[moved]
+            near = d <= self.margin
+            if bool(near.any()):
+                self.worst = max(self.worst, float(d[near].max()))
+            if not bool(near.all()):
+                far = float(d[~near].min())
+                self.far_nearest = (far if not self.far else
+                                    min(self.far_nearest, far))
+                self.far_farthest = max(self.far_farthest,
+                                        float(d[~near].max()))
+            self.ties += int(near.sum())
+            self.far += int((~near).sum())
+        return qc, ic
+
+
+@contextlib.contextmanager
+def taped_rounding(Q, tape):
+    """``quantization``'s one rounding, ``_round_clip``, passed through
+    ``tape``: the module's fake quantisation, int8 product and weight
+    conversion run as shipped and round through it."""
+    plain = Q._round_clip
+
+    def taped(r, qmax, mask=False):
+        q, inside = plain(r, qmax, mask=True)
+        q, inside = tape.take(r, q, inside if mask else None, qmax)
+        return (q, inside) if mask else q
+    Q._round_clip = taped
+    try:
+        yield
+    finally:
+        Q._round_clip = plain
+
+
+def qat_parity(torch, pt, flash_attn, stream, margin=TIE_MARGIN,
+               share=TIE_SHARE):
+    """Phase (au)'s readings: (at) at 2 layers in fp32, [4, 128], the same
+    numpy weights on the card (kernels) and on the CPU (plain versions):
+    three QAT steps, ``QAT.convert`` and the converted int8 logits, and
+    PTQ's scales and int8 weights, the CPU taking the card's rounding at
+    ties within ``margin`` steps (:class:`RoundingTape`).  ``res["ok"]``
+    says whether every gate held; ``res["failed"]`` names those that did
+    not."""
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.framework import core
+    B, N = QAT_PARITY
+    L = 2
+    batches = packed_batches(stream, B, N, 3, start=0)
+    weights, out = None, {}
+    tape = RoundingTape(margin)
+    prev = core._state.expected_place
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            tape.mode = "record" if place == "gpu" else "replay"
+            pt.seed(SEED + 94)
+            net, weights = qat_model(pt, L, weights, 0.0)
+            quant = Q.QAT()
+            quant.quantize(net)
+            before = (flash_attn.fwd_launches, flash_attn.dq_launches,
+                      flash_attn.dkv_launches)
+            with taped_rounding(Q, tape):
+                # Adam's eps 1e-6, as (q), (s), (af): see ernie_parity
+                tape.stage = "QAT steps"
+                step = qat_loop(pt, net, batches[0], False, warmup=1,
+                                epsilon=1e-6, start_lr=QAT_FT["lr"])
+                losses = [step() for _ in range(3)]
+                launched = tuple(a - b for a, b in zip(
+                    (flash_attn.fwd_launches, flash_attn.dq_launches,
+                     flash_attn.dkv_launches), before))
+                params = {k: p.numpy() for k, p in net.state_dict().items()}
+                scales = [float(w._obs.scale) for w in
+                          wrapped_layers(net, Q._QATWrapper)]
+                tape.stage = "convert"
+                quant.convert(net)
+                tape.stage = "int8 eval"
+                logits = np.concatenate([l.cpu().numpy() for l in logits_of(
+                    pt, net, batches[1:2])])
+                tape.stage = "PTQ"
+                ptq_net, _ = qat_model(pt, L, weights, 0.0)
+                Q.PostTrainingQuantization(ptq_net).quantize(
+                    [pt.to_tensor(ids) for ids, _ in batches[1:]])
+            ptq = [(q.w_int8.cpu().numpy(), q.w_scale.cpu().numpy(),
+                    float(q.a_scale)) for q in wrapped_layers(ptq_net,
+                                                              Q.QuantedLinear)]
+            out[place] = (losses, params, scales, logits, ptq, launched)
+            del net, ptq_net, step
+    finally:
+        core._state.expected_place = prev
+    (lg, pg, sg, og, qg, launched), (lc, pc, sc, oc, qc, _) = (out["gpu"],
+                                                               out["cpu"])
+    param_rel = {k: float(np.abs(pg[k] - p).max()
+                          / max(float(np.abs(p).max()), 1e-30))
+                 for k, p in pc.items()}
+    res = {"loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(lg, lc)],
+           "param_rel_err_max": max(param_rel.values()),
+           "param_rel_err_worst": max(param_rel, key=param_rel.get),
+           "scale_rel_err_max": max(abs(a - b) / b for a, b in zip(sg, sc)),
+           "int8_logit_err": float(np.abs(og - oc).max()
+                                   / max(float(np.abs(oc).max()), 1e-30)),
+           "roundings": tape.i, "rounded": sum(q.numel() for q in tape.q),
+           "ties": tape.ties, "far_flips": tape.far,
+           "tie_worst": tape.worst, "far_nearest": tape.far_nearest,
+           "far_farthest": tape.far_farthest, "gap": tape.gap,
+           "ptq_w_int8_equal": all(np.array_equal(a[0], b[0])
+                                   for a, b in zip(qg, qc)),
+           "ptq_w_scale_err": max(float(np.abs(a[1] - b[1]).max()
+                                        / np.abs(b[1]).max())
+                                  for a, b in zip(qg, qc)),
+           "ptq_a_scale_err": max(abs(a[2] - b[2]) / b[2]
+                                  for a, b in zip(qg, qc)),
+           "flash_launches": launched,
+           "flash_launches_expected": (3 * L, 3 * L, 3 * L)}
+    gates = {
+        "losses": max(res["loss_rel_err"]) <= QAT_PARITY_TOL,
+        "params": res["param_rel_err_max"] <= QAT_PARITY_TOL,
+        "observer scales": res["scale_rel_err_max"] <= QAT_PARITY_TOL,
+        "int8 logits": res["int8_logit_err"] <= QAT_PARITY_TOL,
+        "far flips": res["far_flips"] == 0,
+        "rounding count": tape.i == len(tape.q),
+        "tie share": res["ties"] <= share * res["rounded"],
+        "PTQ int8 weights": res["ptq_w_int8_equal"],
+        "PTQ weight scales": res["ptq_w_scale_err"] <= QAT_PARITY_TOL,
+        "PTQ activation scales": res["ptq_a_scale_err"] <= QAT_PARITY_TOL,
+        "flash launches": launched == res["flash_launches_expected"]}
+    res["failed"] = [k for k, ok in gates.items() if not ok]
+    res["ok"] = not res["failed"]
+    return res
+
+
+def tagger_model(pt):
+    """PaddleNLP's lexical-analysis ``BiGruCrf`` on the 2.x API: word
+    embedding, a 2-layer bidirectional GRU over the lengths, a Linear to
+    the tags and ``text.ViterbiDecoder`` over the transitions (BOS/EOS
+    included); its forward gives (emissions, scores, paths)."""
+    t = TAGGER
+
+    class BiGruCrf(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word_embedding = pt.nn.Embedding(t["V"], t["E"])
+            self.gru = pt.nn.GRU(t["E"], t["H"], num_layers=t["layers"],
+                                 direction="bidirect")
+            self.fc = pt.nn.Linear(2 * t["H"], t["tags"])
+            self.transitions = self.create_parameter([t["tags"], t["tags"]])
+            self.viterbi_decoder = pt.text.ViterbiDecoder(
+                self.transitions, include_bos_eos_tag=True)
+
+        def forward(self, ids, lengths):
+            h, _ = self.gru(self.word_embedding(ids), sequence_length=lengths)
+            emission = self.fc(h)
+            scores, path = self.viterbi_decoder(emission, lengths)
+            return emission, scores, path
+    return BiGruCrf().eval()
+
+
+def tagger_batch(seed):
+    """[B, 64] word ids (0 past each length) and lengths drawn in 8-64."""
+    t = TAGGER
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(t["lens"][0], t["lens"][1] + 1, t["B"])
+    ids = rng.integers(1, t["V"], (t["B"], t["lens"][1]))
+    ids[np.arange(t["lens"][1])[None, :] >= lens[:, None]] = 0
+    return ids, lens
+
+
+def tagger_weights(model, seed):
+    """Every weight U(-1/sqrt(H), 1/sqrt(H)) as Paddle's GRU draws them,
+    the embedding N(0, 1) and the transitions U(-1, 1), from numpy."""
+    rng = np.random.default_rng(seed)
+    k = 1 / math.sqrt(TAGGER["H"])
+    out = {}
+    for n, p in model.state_dict().items():
+        if n.startswith("word_embedding"):
+            w = rng.standard_normal(p.shape)
+        elif n == "transitions":
+            w = rng.uniform(-1, 1, p.shape)
+        else:
+            w = rng.uniform(-k, k, p.shape)
+        out[n] = w.astype(np.float32)
+    return out
+
+
+def tagger_path(torch, pt):
+    """Phase (av): the tagger's eval batches on the card, timed, with the
+    Viterbi alone on the same emissions; then card against CPU from the
+    same weights, and a batch of integer emissions (ties)."""
+    from paddle_tpu_torch.framework import core
+    t = TAGGER
+    weights, res = None, {}
+    prev = core._state.expected_place
+    ids, lens = tagger_batch(SEED + 96)
+    got = {}
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            model = tagger_model(pt)
+            weights = weights or tagger_weights(model, SEED + 97)
+            model.set_state_dict(weights)
+            x, ln = pt.to_tensor(ids), pt.to_tensor(lens)
+            with pt.no_grad():
+                em, sc, pa = model(x, ln)
+                got[place] = (em.numpy(), sc.numpy(), pa.numpy())
+                if place != "gpu":
+                    continue
+                batch_ms, vit_ms = [], []
+                for _ in range(t["batches"]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    em, sc, pa = model(x, ln)
+                    pa.numpy()
+                    batch_ms.append(1e3 * (time.perf_counter() - t0))
+                    t0 = time.perf_counter()
+                    model.viterbi_decoder(em, ln)[1].numpy()
+                    vit_ms.append(1e3 * (time.perf_counter() - t0))
+            res.update(batch_ms=float(np.mean(batch_ms)),
+                       batch_ms_each=batch_ms,
+                       viterbi_ms=float(np.mean(vit_ms)))
+            del model
+    finally:
+        core._state.expected_place = prev
+    (eg, sg, pg), (ec, scc, pc) = got["gpu"], got["cpu"]
+    res.update(sentences_per_s=t["B"] / (res["batch_ms"] / 1e3),
+               viterbi_share=res["viterbi_ms"] / res["batch_ms"],
+               emission_err=float(np.abs(eg - ec).max() / np.abs(ec).max()),
+               score_rel_err=float(np.abs(sg - scc).max()
+                                   / np.abs(scc).max()),
+               paths_equal=bool(np.array_equal(pg, pc)),
+               path_dtype=str(pg.dtype), tokens=int(lens.sum()))
+    past = np.arange(t["lens"][1])[None, :] >= lens[:, None]
+    res["padding_zero"] = bool((pg[past] == 0).all() and (pc[past] == 0).all())
+    # integer emissions and transitions: tie sets on every step
+    rng = np.random.default_rng(SEED + 98)
+    em = rng.integers(-3, 4, eg.shape).astype(np.float32)
+    tr = rng.integers(-2, 3, (t["tags"], t["tags"])).astype(np.float32)
+    ties = {}
+    try:
+        for place in ("gpu", "cpu"):
+            pt.set_device(place)
+            s, p = pt.text.viterbi_decode(pt.to_tensor(em), pt.to_tensor(tr),
+                                          pt.to_tensor(lens), True)
+            ties[place] = (s.numpy(), p.numpy())
+    finally:
+        core._state.expected_place = prev
+    res.update(ties_paths_equal=bool(np.array_equal(ties["gpu"][1],
+                                                    ties["cpu"][1])),
+               ties_scores_equal=bool(np.array_equal(ties["gpu"][0],
+                                                     ties["cpu"][0])))
+    if not (res["paths_equal"] and res["padding_zero"]
+            and res["path_dtype"] == "int32"
+            and res["score_rel_err"] <= TAGGER_SCORE_RTOL
+            and res["ties_paths_equal"] and res["ties_scores_equal"]):
+        raise SystemExit(f"(av) the tagger on the card disagrees with the "
+                         f"CPU: {json.dumps(res)}")
+    return res
+
+
+def text_phases(torch, flash_attn, norms, card, launches):
+    """Phases (as), (at), (au), (av), logged; (at)'s launches go into
+    ``launches``."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import core
+    prev = core._state.expected_place
+    e = QAT_FT
+    try:
+        pt.set_device("gpu")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ts, stream = tokenizer_path(torch, pt, tmp)
+            log(f"(as) WordPiece over a synthetic corpus ({TEXT['vocab']} "
+                f"entries, {ts['docs']} documents, {ts['mib']:.2f} MiB, "
+                f"{ts['ids']} ids, [UNK] share {ts['unk_share']:.4f}, "
+                f"'##' share {ts['pieces_share']:.4f}) on the host of "
+                f"{card}: native {ts['native_tokens_per_s']:.0f} tokens/s "
+                f"({ts['native_s']:.3f} s), Python "
+                f"{ts['python_tokens_per_s']:.0f} tokens/s "
+                f"({ts['python_s']:.3f} s), {ts['speedup']:.1f}x; ids equal "
+                f"in {ts['docs_equal']} of {ts['docs']} documents; set-up "
+                f"{ts['setup_s']:.1f} s; phase "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            at = qat_path(torch, pt, flash_attn, norms, stream, tmp)
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            launches[f"{k}_qat"] = at["launches"][k]
+        for k in ("layer_norm", "flash_attention_fwd", "rms_norm"):
+            launches[f"{k}_int8_eval"] = at["int8_launches"][k]
+        log(f"(at) QAT fine-tune at ERNIE-3.0-Base width ((n)'s encoder, "
+            f"V={e['V']}, L={e['L']}, a Linear({e['H']}, 2) head on the "
+            f"first position; {at['wrapped']} Linears fake-quantised; "
+            f"[{e['B']}, {e['N']}] of (as)'s ids, AdamW on LinearWarmup to "
+            f"{e['lr']} over {at['warmup']} steps, dropout "
+            f"{e['dropout']}, bf16 auto_cast over fp32 params) on {card}: "
+            f"step {at['step_ms']:.2f} ms, tokens/s {at['tokens_per_s']:.0f}"
+            f", {at['ratio']:.3f}x the unwrapped model's step "
+            f"({at['float_step_ms']:.2f} ms, alternated); the batch's loss "
+            f"without dropout {at['loss_before']:.4f} -> "
+            f"{at['loss_after']:.4f} (unwrapped {at['float_loss_before']:.4f}"
+            f" -> {at['float_loss_after']:.4f}); step losses "
+            f"{[round(x, 4) for x in at['losses']]}; max_memory_allocated "
+            f"{at['max_memory_allocated_gib']:.3f} GiB (both models); "
+            f"launches over {e['steps']} steps {at['launches']}  [{card}]")
+        log(f"    step ms {[round(x, 2) for x in at['step_ms_each']]}; "
+            f"unwrapped losses {[round(x, 4) for x in at['float_losses']]}; "
+            f"state_dict keys moved by the weight swap "
+            f"{at['keys_reordered']} (the reference's order); warm-up "
+            f"{at['warmup_s']:.1f} s, set-up {at['setup_s']:.1f} s")
+        log(f"    int8 eval (QAT.convert in {at['convert_s']:.2f} s): "
+            f"{at['int8_ms']:.2f} ms a batch against the unwrapped float "
+            f"model's {at['float_eval_ms']:.2f} ({at['int8_ratio']:.3f}x, "
+            f"alternated, {e['eval_batches']} batches); launches "
+            f"{at['int8_launches']}; predictions agree with the "
+            f"fake-quantised forward's on {at['int8_agree_fq']:.4f}, with "
+            f"the float model's on {at['int8_agree_float']:.4f} (label 1 "
+            f"share {at['labels_share']:.3f})  [{card}]")
+        log(f"    PTQ: calibrated on {e['eval_batches']} batches and "
+            f"converted in {at['ptq_calib_s']:.1f} s; "
+            f"save_quantized_model ({at['artifact_format']}, "
+            f"{at['artifact_mib']:.1f} MiB) in {at['export_s']:.1f} s; "
+            f"create_predictor and the first run {at['predictor_load_s']:.1f}"
+            f" s; a served batch {at['predictor_ms']:.2f} ms, launches "
+            f"{at['predictor_launches']}; logits {at['predictor_err']:.3e} "
+            f"of max from the in-process int8 forward's (tol "
+            f"{PREDICTOR_TOL:.0e}); phase {time.perf_counter() - t0:.1f} s"
+            f"  [{card}]")
+        t0 = time.perf_counter()
+        au = qat_parity(torch, pt, flash_attn, stream)
+        if not au["ok"]:
+            raise SystemExit(f"(au) QAT / PTQ on the card disagrees with "
+                             f"the CPU ({', '.join(au['failed'])}): "
+                             f"{json.dumps(au)}")
+        gaps = ", ".join(f"{k} {g:.2e} at {list(sh)}"
+                         for k, (g, sh) in au["gap"].items())
+        log(f"(au) QAT / PTQ in fp32, card against CPU, {QAT_PARITY}, 2 "
+            f"layers: loss rel errs {[f'{x:.2e}' for x in au['loss_rel_err']]}"
+            f" (tol {QAT_PARITY_TOL:.0e}); max param err / max|param| "
+            f"{au['param_rel_err_max']:.2e} ({au['param_rel_err_worst']}); "
+            f"observer scales {au['scale_rel_err_max']:.2e}; int8 logits "
+            f"{au['int8_logit_err']:.3e} of max; the CPU took the card's "
+            f"rounding at {au['ties']} ties of {au['rounded']} values in "
+            f"{au['roundings']} roundings (the farthest "
+            f"{au['tie_worst']:.2e} steps from its boundary; margin "
+            f"{TIE_MARGIN}), far flips {au['far_flips']}; the largest "
+            f"card-CPU quotient gap, in steps, by stage ({gaps}); PTQ "
+            f"int8 weights equal {au['ptq_w_int8_equal']}, weight "
+            f"scales "
+            f"{au['ptq_w_scale_err']:.2e}, activation scales "
+            f"{au['ptq_a_scale_err']:.2e}; flash fwd / dq / dk-dv "
+            f"{au['flash_launches']}; phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        av = tagger_path(torch, pt)
+        t = TAGGER
+        log(f"(av) BiGRU-CRF tagger (Embedding({t['V']}, {t['E']}), GRU "
+            f"{t['layers']} layers bidirect {t['H']}, Linear({2 * t['H']}, "
+            f"{t['tags']}), ViterbiDecoder with BOS/EOS), batch {t['B']}, "
+            f"lengths {t['lens'][0]}-{t['lens'][1]} ({av['tokens']} tokens),"
+            f" eval fp32, on {card}: {av['batch_ms']:.2f} ms a batch, "
+            f"{av['sentences_per_s']:.0f} sentences/s, the Viterbi "
+            f"{av['viterbi_ms']:.2f} ms ({av['viterbi_share']:.3f} of the "
+            f"batch); card against CPU: paths equal {av['paths_equal']} "
+            f"({av['path_dtype']}, padding 0 {av['padding_zero']}), scores "
+            f"{av['score_rel_err']:.2e} (tol {TAGGER_SCORE_RTOL:.0e}), "
+            f"emissions {av['emission_err']:.2e} of max; integer emissions "
+            f"(ties): paths equal {av['ties_paths_equal']}, scores equal "
+            f"{av['ties_scores_equal']}; phase "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    finally:
+        core._state.expected_place = prev
+    torch.cuda.empty_cache()
+    return ts, at, au, av
+
+
 def report(torch, cases, launches, train, t_start):
     """The ``kernels`` JSON line, the nvidia-smi line and the last line."""
     kernels = []
@@ -9012,7 +9894,7 @@ def report(torch, cases, launches, train, t_start):
                      "hapi",
                      "hapi_eval", "chunked", "chunked_quant", "spec",
                      "spec_quant", "spec_quant_m40", "slot", "slot_quant",
-                     "transformer_train", "beam"):
+                     "transformer_train", "beam", "qat", "int8_eval"):
             if f"{k['name']}_{path}" in launches:
                 k[f"launches_{path}"] = launches[f"{k['name']}_{path}"]
     # row_matmul.launches counts the launches with the LayerNorm prologue

@@ -135,6 +135,13 @@ from .tensor.linalg import inv as inverse  # noqa: F401
 tensor = _sys.modules[__name__ + ".tensor"]
 from . import (distributed, distribution, fluid, incubate,  # noqa
                inference, onnx, utils)
+from . import (compat, dataset, hub, quantization, reader,  # noqa: E402
+               sysconfig, text, version)
+from .utils.lazy import flops  # noqa: E402
+
+# paddle.__version__: the API level the package implements (as the
+# reference's); ``version.tpu_native_version`` is the package's own
+__version__ = "2.0.0"
 
 # dtypes as module attributes: the port's own dtype objects, so that
 # ``x.dtype == paddle_tpu_torch.float32`` holds
@@ -160,6 +167,20 @@ def get_rng_state():
 
 def set_rng_state(state):
     _core.default_generator().set_state(state)
+
+
+def batch(reader, batch_size, drop_last=False):
+    """ref: python/paddle/batch.py -- legacy reader batching."""
+    def batched():
+        buf = []
+        for item in reader():
+            buf.append(item)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return batched
 
 
 tensor._bind_longtail()

@@ -4,7 +4,7 @@ minimal: the reader path (``core.EOFException``, ``io.PyReader``,
 ``InMemoryDataset`` and ``QueueDataset``, and the static graph's names
 the reader loop uses (``Program``, ``Executor``, ``program_guard``, the
 places).  Every other public name of the reference's facade raises,
-naming ROADMAP Queue 1 item 4 (the rest of the package)."""
+naming ROADMAP Queue 1 item 4 (the fluid facade)."""
 from ..framework.core import CPUPlace, CUDAPlace  # noqa: F401
 from ..static import ParallelExecutor  # noqa: F401
 from ..static.backward import append_backward, gradients  # noqa: F401

@@ -10,5 +10,5 @@ def not_ported(module):
                 f"module {module!r} has no attribute {name!r}")
         raise NotImplementedError(
             f"{module.replace('paddle_tpu_torch.', '')}.{name} is not "
-            "ported (ROADMAP Queue 1 item 4, the rest of the package)")
+            "ported (ROADMAP Queue 1 item 4, the fluid facade)")
     return __getattr__

@@ -1,9 +1,10 @@
 """Native host runtime (C++): the staging memory pool and the data ring.
 
-Counterpart of ``paddle_tpu/runtime/__init__.py``: its pool, ring and
-image preprocess (the WordPiece entry point of the same library waits
-for ``text/``).  ``csrc/ptpu_runtime.cc`` is a copy of the reference's
-source, built by ``build.py`` at first use and bound through ctypes.
+Counterpart of ``paddle_tpu/runtime/__init__.py``: its pool, ring,
+image preprocess and WordPiece tokenizer (``ptpu_wp_create`` /
+``ptpu_wp_encode`` / ``ptpu_wp_destroy``, which ``text.FullTokenizer``
+calls).  ``csrc/ptpu_runtime.cc`` is a copy of the reference's source,
+built by ``build.py`` at first use and bound through ctypes.
 What stays native is the host side of the input pipeline: batch staging
 slabs drawn from a size-class auto-growth pool, a bounded blocking ring
 that overlaps worker collation and memcpy (the GIL released by ctypes)
@@ -11,9 +12,10 @@ with device steps, and the fused u8 NHWC -> normalised f32 NCHW batch
 preprocess (:func:`preprocess_images`).
 
 There is no fallback: without a C++ compiler, :func:`is_available` is
-False and a :class:`DataRing`, a :class:`HostMemoryPool` or
-:func:`preprocess_images` raises (the reference falls back to numpy for
-the preprocess).
+False and a :class:`DataRing`, a :class:`HostMemoryPool`,
+:func:`preprocess_images` or a native ``text.FullTokenizer`` raises (the
+reference falls back to numpy for the preprocess and to Python for the
+tokenizer).
 """
 from __future__ import annotations
 
@@ -76,6 +78,14 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
             ctypes.POINTER(ctypes.c_float), ctypes.c_float,
             ctypes.c_void_p, ctypes.c_int]
+        lib.ptpu_wp_create.restype = ctypes.c_int64
+        lib.ptpu_wp_create.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                       ctypes.c_char_p]
+        lib.ptpu_wp_destroy.argtypes = [ctypes.c_int64]
+        lib.ptpu_wp_encode.restype = ctypes.c_int64
+        lib.ptpu_wp_encode.argtypes = [
+            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64]
         _lib = lib
         return _lib
 

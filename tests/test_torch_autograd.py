@@ -359,7 +359,9 @@ def test_new_modules_import_neither_jax_nor_paddle_tpu():
     clip, decode, rnn, transformer, sequence, vision and norm-hook
     modules, ``static.nn``, ``fluid.layers``, ``runtime`` and ``vision``
     with its models, transforms, datasets, ops, detection and mask
-    labels),
+    labels, ``text``, ``quantization``, ``dataset``, ``reader``, ``hub``,
+    ``compat``, ``sysconfig``, ``version`` and ``utils`` with its
+    modules),
     imported in a fresh interpreter, leave ``jax`` and ``paddle_tpu`` out
     of ``sys.modules``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -391,6 +393,13 @@ def test_new_modules_import_neither_jax_nor_paddle_tpu():
         "from paddle_tpu_torch.vision.datasets import cifar, flowers, "
         "folder, voc2012\n"
         "from paddle_tpu_torch.fluid import layers\n"
+        "from paddle_tpu_torch import (compat, dataset, hub, quantization, "
+        "reader, sysconfig, text, utils, version)\n"
+        "from paddle_tpu_torch.text import datasets, tokenizer, viterbi\n"
+        "from paddle_tpu_torch.dataset import cifar, imdb, mnist, "
+        "uci_housing\n"
+        "from paddle_tpu_torch.utils import (cpp_extension, install_check, "
+        "lazy, unique_name)\n"
         "bad = [k for k in ('jax', 'jaxlib', 'paddle_tpu') if k in sys.modules]\n"
         "bad += [k for k in sys.modules if k.startswith(('jax.', 'paddle_tpu.'))]\n"
         "sys.exit(1 if bad else 0)\n")

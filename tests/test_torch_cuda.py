@@ -2868,3 +2868,158 @@ def test_ssd_loss_on_card_matches_cpu(card):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0,
                                    atol=FP32_TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("M,K,N", [(32, 768, 2), (4096, 768, 2),
+                                   (19200, 256, 59), (8, 256, 59),
+                                   (40, 13, 10)])
+def test_int8_product_takes_any_k_and_n_on_card(card, M, K, N):
+    """``torch._int_mm`` on CUDA takes K and N multiples of 8 and more
+    than 16 rows; ``quantization._int8_mm`` pads all three with zeros and
+    slices the result, so a 2-label head (N = 2) and the tagger's 59-tag
+    head (N = 59) run and equal the CPU's integers exactly."""
+    from paddle_tpu_torch import quantization as Q
+    g = torch.Generator().manual_seed(M + K + N)
+    a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    got = Q._int8_mm(a.cuda(), b.cuda())
+    assert got.shape == (M, N) and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), Q._int8_mm(a, b))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_viterbi_on_card_matches_cpu(card, kind):
+    """``viterbi_decode`` at (av)'s shape (300 sentences, 64 steps, 59
+    tags, lengths 8-64, BOS/EOS): paths and lengths exact and scores
+    within 1e-5 relative; with integer emissions (ties) too."""
+    pt = card
+    rng = np.random.RandomState(40)
+    B, T, N = 300, 64, 59
+    if kind == "ties":
+        em = rng.randint(-3, 4, (B, T, N)).astype(np.float32)
+        tr = rng.randint(-2, 3, (N, N)).astype(np.float32)
+    else:
+        em = rng.randn(B, T, N).astype(np.float32)
+        tr = rng.randn(N, N).astype(np.float32)
+    lens = rng.randint(8, 65, B).astype(np.int64)
+    fn = lambda e, t, ln: pt.text.viterbi_decode(e, t, ln, True)  # noqa
+    got = _on(pt, "gpu", fn, [em, tr, lens])
+    want = _on(pt, "cpu", fn, [em, tr, lens])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+
+
+def test_qat_step_on_card_matches_cpu(card):
+    """Two QAT steps of a small MLP (the flash-free part of (at)), fp32:
+    losses within 1e-5 relative and the converted int8 outputs within
+    1e-5 of max|ref|."""
+    pt = card
+    from paddle_tpu_torch import quantization as Q
+    rng = np.random.RandomState(41)
+    x = rng.randn(32, 24).astype(np.float32)
+    y = rng.randn(32, 2).astype(np.float32)
+    res = {}
+    for place in ("gpu", "cpu"):
+        pt.set_device(place)
+        net = pt.nn.Sequential(pt.nn.Linear(24, 40), pt.nn.ReLU(),
+                               pt.nn.Linear(40, 2))
+        net.set_state_dict({k: (0.3 * np.random.RandomState(42).randn(
+            *v.shape)).astype(np.float32) for k, v in
+            net.state_dict().items()})
+        qat = Q.QAT()
+        qat.quantize(net)
+        opt = pt.optimizer.Adam(1e-2, parameters=net.parameters())
+        losses = []
+        for _ in range(2):
+            loss = ((net(pt.to_tensor(x)) - pt.to_tensor(y)) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        qat.convert(net)
+        res[place] = (losses, net(pt.to_tensor(x)).numpy())
+    np.testing.assert_allclose(res["gpu"][0], res["cpu"][0], rtol=1e-5)
+    w = res["cpu"][1]
+    np.testing.assert_allclose(res["gpu"][1], w, rtol=0,
+                               atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_scales_on_card_equal_cpu(card, dtype):
+    """The absmax scales divide by qmax correctly rounded on the card (a
+    CUDA tensor divided by a Python number is multiplied by its
+    reciprocal, one bit off): per tensor and per channel they equal the
+    CPU's bit for bit, so QAT's straight-through gate on the absmax
+    element opens on both alike."""
+    from paddle_tpu_torch import quantization as Q
+    g = torch.Generator().manual_seed(43)
+    w = torch.randn(768, 3072, generator=g).to(dtype)
+    for axis in (None, 1, 0):
+        got = Q.quant_absmax_scale(w.cuda(), axis=axis).cpu()
+        assert torch.equal(got, Q.quant_absmax_scale(w, axis=axis)), axis
+
+
+def test_quant_ops_capture_in_a_cuda_graph(card):
+    """The quantization ops neither copy from the host nor synchronise, so
+    a CUDA graph captures them (a synchronisation inside a capture
+    raises): the absmax scales, ``fake_quantize``, ``int8_matmul`` and
+    ``int8_dynamic_matmul`` replay to their eager results."""
+    pt = card
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.tensor.tensor import Tensor
+    g = torch.Generator().manual_seed(44)
+    x = torch.randn(40, 96, generator=g).cuda()
+    wq = torch.randint(-127, 128, (96, 10), generator=g,
+                       dtype=torch.int8).cuda()
+    ws = torch.rand(10, generator=g).cuda()
+
+    def ops():
+        s = Q.quant_absmax_scale(x)
+        fq = Q.fake_quantize(Tensor(x), Tensor(s)).value
+        return (s, Q.quant_absmax_scale(x, axis=1), fq,
+                Q.int8_matmul(Tensor(x), Tensor(wq), Tensor(s),
+                              Tensor(ws)).value,
+                Q.int8_dynamic_matmul(x, wq, ws))
+    want = ops()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_converted_model_runs_under_to_static(on_card):
+    """A QAT-converted encoder (its Linears as ``QuantedLinear``) captures
+    under ``jit.to_static`` with no fallback and replays the eager int8
+    forward bit for bit."""
+    pt = on_card
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.ops import dispatch
+    model = _small_encoder(pt)
+    rng = np.random.RandomState(45)
+    ids = [pt.to_tensor(rng.randint(0, 512, (2, 64)).astype(np.int32))
+           for _ in range(3)]
+    qat = Q.QAT()
+    qat.quantize(model)
+    with pt.no_grad():
+        model(ids[0])
+    qat.convert(model)
+    assert len([l for l in model.sublayers()
+                if isinstance(l, Q.QuantedLinear)]) == 2 * 6 + 1
+    sfn = pt.jit.to_static(model)
+    dispatch.reset_cache_stats()
+    sfn(ids[1])
+    h, logits = sfn(ids[2])
+    st = dispatch.cache_stats()
+    assert (st["misses"], st["hits"], st["fallbacks"]) == (1, 1, 0), st
+    with pt.no_grad():
+        eh, el = model(ids[2])
+    np.testing.assert_array_equal(logits.numpy(), el.numpy())
+    np.testing.assert_array_equal(h.numpy(), eh.numpy())

@@ -110,3 +110,35 @@ def test_port_copy_of_host_vision_module_is_the_reference_code(rel, size):
     imported = {s for i, (t, s) in enumerate(got[:-1])
                 if got[i - 1][1] in ("import", "from") and t == tokenize.NAME}
     assert not imported & {"jax", "jaxlib", "paddle_tpu"}, imported
+
+
+@pytest.mark.parametrize("rel,size", [
+    ("reader/__init__.py", 900),
+    ("hub.py", 200),
+    ("compat.py", 350),
+    ("version.py", 30),
+    ("utils/unique_name.py", 150),
+    ("utils/lazy.py", 150),
+    ("text/__init__.py", 20),
+    ("text/datasets.py", 1000),
+    ("dataset/__init__.py", 20),
+    ("dataset/mnist.py", 150),
+    ("dataset/cifar.py", 100),
+    ("dataset/uci_housing.py", 60),
+    ("dataset/imdb.py", 100)])
+def test_port_copy_of_host_module_is_the_reference_code(rel, size):
+    """The host-side modules of the package's rest (the reader decorators,
+    ``hub``, ``compat``, ``version``, ``utils.unique_name`` and
+    ``utils.lazy``, the text datasets, the ``dataset`` reader creators)
+    are copies of the JAX package's, code unchanged, as their headers
+    say; their imports are the stdlib, numpy and relative ones."""
+    port = os.path.join(ROOT, "paddle_tpu_torch", *rel.split("/"))
+    ref = os.path.join(ROOT, "paddle_tpu", *rel.split("/"))
+    with open(port) as f:
+        assert "code unchanged" in f.readline()
+    got, want = code_tokens(port), code_tokens(ref)
+    assert len(got) > size
+    assert got == want
+    imported = {s for i, (t, s) in enumerate(got[:-1])
+                if got[i - 1][1] in ("import", "from") and t == tokenize.NAME}
+    assert not imported & {"jax", "jaxlib", "paddle_tpu"}, imported
